@@ -1,0 +1,282 @@
+"""Compressed sparse formats with the paper's *weight stretching* preprocessing.
+
+Port of ``repro/core/sparse_format.py``.  Three formats:
+
+``EllConv``   -- the paper's stretched-CSR conv weights, padded per row to a
+                 rectangular (ELL) layout.  Each output channel m keeps
+                 K = max-row-nnz entries of (value, c, r, s).  Padding entries
+                 carry value 0 and index 0, so they are inert.
+``EllMatrix`` -- the same idea for 2-D weights (the ``lowered`` method's
+                 SpMM); each row keeps K column indices + values.
+``BcsrMatrix``/``BcsrConv`` -- block compressed sparse row: per block-row, a
+                 padded list of kept block-column ids plus the dense tiles.
+                 Padding tiles point at block-column 0 with all-zero data.
+
+Every array is built on the host in numpy, exactly as the JAX package builds
+it (the same nonzero order, the same padding rules), and then moved to the
+requested device once.  From the same dense weights the arrays are
+bit-identical to the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(resolve_device(device))
+
+
+def _row_positions(rows: np.ndarray, m: int) -> np.ndarray:
+    """Position of each entry within its row, for entries grouped by row
+    in ascending order (the order ``np.nonzero`` returns)."""
+    counts = np.bincount(rows, minlength=m)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    return np.arange(rows.size) - starts[rows]
+
+
+# ---------------------------------------------------------------------------
+# ELL conv format (paper's stretched CSR, rectangularised)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class EllConv:
+    """Sparse conv weights for a (M, C, R, S) filter bank.
+
+    value: (M, K) f32; cidx/ridx/sidx: (M, K) int32 input-channel, filter-row
+    and filter-column of each nonzero; offset: (M, K) int32, kept zero as in
+    the reference (the kernels stretch offsets themselves); nnz: (M,) int32
+    true row lengths; perm: optional (M,) int32 row permutation of an
+    nnz-balanced bank (row i is original channel ``perm[i]``).
+    """
+
+    value: torch.Tensor
+    cidx: torch.Tensor
+    ridx: torch.Tensor
+    sidx: torch.Tensor
+    offset: torch.Tensor
+    nnz: torch.Tensor
+    shape: Tuple[int, int, int, int]
+    perm: Optional[torch.Tensor] = None
+
+    @property
+    def k(self) -> int:
+        return int(self.value.shape[1])
+
+
+def ell_from_dense_conv(w, pad_to: int = 8, balance: bool = False,
+                        device="cuda") -> EllConv:
+    """Convert a dense (M, C, R, S) filter bank to ``EllConv``.
+
+    Each row keeps its nonzeros in (c, r, s) row-major order, K is rounded
+    up to a multiple of ``pad_to`` and clamped to ``K >= pad_to >= 1``.
+    ``balance=True`` also sorts the rows by nnz (``balance_ell_conv``).
+    """
+    w = np.asarray(w)
+    m, c, r, s = w.shape
+    if m == 0:
+        raise ValueError("ell_from_dense_conv needs at least one output channel")
+    pad_to = max(1, int(pad_to))
+    flat = w.reshape(m, c * r * s)
+    rows, cols = np.nonzero(flat)
+    nnz = np.bincount(rows, minlength=m).astype(np.int32)
+    k = max(1, int(nnz.max()))
+    k = max(pad_to, ((k + pad_to - 1) // pad_to) * pad_to)
+    pos = _row_positions(rows, m)
+    val = np.zeros((m, k), dtype=w.dtype)
+    cid = np.zeros((m, k), dtype=np.int32)
+    rid = np.zeros((m, k), dtype=np.int32)
+    sid = np.zeros((m, k), dtype=np.int32)
+    val[rows, pos] = flat[rows, cols]
+    cid[rows, pos] = cols // (r * s)
+    rid[rows, pos] = (cols // s) % r
+    sid[rows, pos] = cols % s
+    ell = EllConv(value=_to(val, device), cidx=_to(cid, device),
+                  ridx=_to(rid, device), sidx=_to(sid, device),
+                  offset=_to(np.zeros((m, k), np.int32), device),
+                  nnz=_to(nnz, device), shape=(m, c, r, s))
+    return balance_ell_conv(ell) if balance else ell
+
+
+def balance_ell_conv(ell: EllConv) -> EllConv:
+    """nnz-balanced channel packing: rows sorted by descending nnz (stable),
+    the permutation carried in ``perm``.  Per-row contents are untouched, so
+    each row sums in the same order as in the natural-order bank."""
+    order = torch.argsort(-ell.nnz, stable=True).to(torch.int32)
+    take = lambda a: a.index_select(0, order)  # noqa: E731
+    perm = take(ell.perm) if ell.perm is not None else order
+    return EllConv(value=take(ell.value), cidx=take(ell.cidx),
+                   ridx=take(ell.ridx), sidx=take(ell.sidx),
+                   offset=take(ell.offset), nnz=take(ell.nnz),
+                   shape=ell.shape, perm=perm)
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """If row i of a bank is original channel ``perm[i]``, ``out[:, inv]``
+    restores natural channel order."""
+    return torch.argsort(perm).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# ELL matrix format (2-D weights; CSR rectangularised)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class EllMatrix:
+    """Sparse (M, N) weight: per row K padded (value, column) pairs."""
+
+    value: torch.Tensor   # (M, K)
+    colidx: torch.Tensor  # (M, K) int32
+    nnz: torch.Tensor     # (M,) int32
+    shape: Tuple[int, int]
+
+    @property
+    def k(self) -> int:
+        return int(self.value.shape[1])
+
+
+def ell_from_dense(w, pad_to: int = 8, device="cuda") -> EllMatrix:
+    w = np.asarray(w)
+    if w.ndim != 2:
+        raise ValueError(f"ell_from_dense expects 2-D, got {w.shape}")
+    m, n = w.shape
+    if m == 0:
+        raise ValueError("ell_from_dense needs at least one row")
+    pad_to = max(1, int(pad_to))
+    nnz = (w != 0).sum(axis=1)
+    k = max(1, int(nnz.max()))
+    k = max(pad_to, ((k + pad_to - 1) // pad_to) * pad_to)
+    rows, cols = np.nonzero(w)
+    pos = _row_positions(rows, m)
+    val = np.zeros((m, k), dtype=w.dtype)
+    col = np.zeros((m, k), dtype=np.int32)
+    val[rows, pos] = w[rows, cols]
+    col[rows, pos] = cols
+    return EllMatrix(value=_to(val, device), colidx=_to(col, device),
+                     nnz=_to(nnz.astype(np.int32), device), shape=(m, n))
+
+
+# ---------------------------------------------------------------------------
+# BCSR (block compressed sparse row)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BcsrMatrix:
+    """Block-sparse (M, N) weight.
+
+    blocks: (gm, KB, bm, bn) padded dense tiles per block-row; blockcol:
+    (gm, KB) int32 block-column ids (0 for padding); nblocks: (gm,) int32
+    true tiles per block-row.
+    """
+
+    blocks: torch.Tensor
+    blockcol: torch.Tensor
+    nblocks: torch.Tensor
+    shape: Tuple[int, int]
+    block: Tuple[int, int]
+
+    @property
+    def kb(self) -> int:
+        return int(self.blocks.shape[1])
+
+
+def _bcsr_arrays(w: np.ndarray, block: Tuple[int, int], pad_to: int):
+    m, n = w.shape
+    bm, bn = block
+    pad_to = max(1, int(pad_to))
+    wp = np.pad(w, ((0, (-m) % bm), (0, (-n) % bn)))
+    gm, gn = wp.shape[0] // bm, wp.shape[1] // bn
+    tiles = wp.reshape(gm, bm, gn, bn).transpose(0, 2, 1, 3)  # (gm, gn, bm, bn)
+    keep = (tiles != 0).any(axis=(2, 3))
+    counts = keep.sum(axis=1)
+    kb = max(1, int(counts.max()))
+    kb = ((kb + pad_to - 1) // pad_to) * pad_to
+    rows, cols = np.nonzero(keep)
+    pos = _row_positions(rows, gm)
+    blocks = np.zeros((gm, kb, bm, bn), dtype=w.dtype)
+    bcol = np.zeros((gm, kb), dtype=np.int32)
+    blocks[rows, pos] = tiles[rows, cols]
+    bcol[rows, pos] = cols
+    return blocks, bcol, counts.astype(np.int32)
+
+
+def bcsr_from_dense(w, block: Tuple[int, int] = (128, 128), pad_to: int = 1,
+                    device="cuda") -> BcsrMatrix:
+    """Convert a dense matrix to BCSR: a tile is kept iff it holds any
+    nonzero; rows are padded to a common tile count KB (rounded up to
+    ``pad_to``, at least 1) with inert all-zero tiles at block-column 0."""
+    w = np.asarray(w)
+    blocks, bcol, nblocks = _bcsr_arrays(w, tuple(block), pad_to)
+    return BcsrMatrix(blocks=_to(blocks, device), blockcol=_to(bcol, device),
+                      nblocks=_to(nblocks, device), shape=tuple(w.shape),
+                      block=tuple(block))
+
+
+def bcsr_to_dense(b: BcsrMatrix) -> torch.Tensor:
+    m, n = b.shape
+    bm, bn = b.block
+    gm = b.blocks.shape[0]
+    gn = (n + bn - 1) // bn
+    out = torch.zeros((gm, gn, bm, bn), dtype=b.blocks.dtype,
+                      device=b.blocks.device)
+    rows = torch.arange(gm, device=b.blocks.device)[:, None].expand_as(b.blockcol)
+    out.index_put_((rows, b.blockcol.long()), b.blocks, accumulate=True)
+    return out.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)[:m, :n]
+
+
+# ---------------------------------------------------------------------------
+# BCSR conv format (blocked filter banks)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BcsrConv:
+    """Block-sparse conv weights for an (M, C, R, S) filter bank, blocked over
+    its flattened (M, C*R*S) matrix: column ``j`` of a tile at block-column
+    ``bc`` is the weight ``(c, r, s)`` with ``bc*bn + j = c*R*S + r*S + s``;
+    columns past C*R*S (right-padding) and rows past M carry zeros.
+
+    blocks: (gbm, KB, bm, bn); blockcol: (gbm, KB) int32; nblocks: (gbm,)
+    int32.
+    """
+
+    blocks: torch.Tensor
+    blockcol: torch.Tensor
+    nblocks: torch.Tensor
+    shape: Tuple[int, int, int, int]
+    block: Tuple[int, int]
+
+    @property
+    def kb(self) -> int:
+        return int(self.blocks.shape[1])
+
+    @property
+    def gbm(self) -> int:
+        return int(self.blocks.shape[0])
+
+
+def bcsr_conv_from_dense(w, block: Tuple[int, int] = (8, 128),
+                         pad_to: int = 1, device="cuda") -> BcsrConv:
+    """Convert a dense (M, C, R, S) filter bank to :class:`BcsrConv` with the
+    :func:`bcsr_from_dense` tile rules on its (M, C*R*S) matrix."""
+    w = np.asarray(w)
+    if w.ndim != 4:
+        raise ValueError(f"bcsr_conv_from_dense expects 4-D, got {w.shape}")
+    m, c, r, s = w.shape
+    flat = bcsr_from_dense(w.reshape(m, c * r * s), block, pad_to=pad_to,
+                           device=device)
+    return BcsrConv(blocks=flat.blocks, blockcol=flat.blockcol,
+                    nblocks=flat.nblocks, shape=(m, c, r, s),
+                    block=tuple(block))
+
+
+def bcsr_conv_to_dense(b: BcsrConv) -> torch.Tensor:
+    """Inverse of ``bcsr_conv_from_dense``."""
+    m, c, r, s = b.shape
+    flat = BcsrMatrix(blocks=b.blocks, blockcol=b.blockcol,
+                      nblocks=b.nblocks, shape=(m, c * r * s), block=b.block)
+    return bcsr_to_dense(flat).reshape(m, c, r, s)

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper, one package each (``csrc/*.cu`` +
+``kernel.py`` launcher + ``ref.py`` plain PyTorch version + ``ops.py``
+wrapper), built by ``_build.py``.
+
+sparse_conv -- the paper's direct sparse convolution over an ELL bank
+               (replaces the Pallas ``sparse_conv_pallas``)
+bsr_conv    -- block-sparse (BCSR) direct convolution
+               (replaces the Pallas ``bsr_conv_pallas``)
+"""

@@ -1,0 +1,119 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` under ``repro_torch/kernels`` is one shared library with a
+plain C interface, compiled for Hopper::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<name>-<digest>.so <name>.cu
+
+into ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), at first use.  The file name carries a digest of the source
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded.  ``build()`` starts one ``nvcc`` per missing library, all at once,
+and waits for them together.  ``REPRO_TORCH_BUILD_DIR`` moves the build
+directory; ``NVCC`` or ``CUDA_HOME`` name the compiler.
+
+Nothing here runs at import: the CPU tests import every module, and a
+build only happens where there is a card and a CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+KERNELS_DIR = Path(__file__).resolve().parent
+SOURCES: Dict[str, Path] = {
+    "sparse_conv": KERNELS_DIR / "sparse_conv" / "csrc" / "sparse_conv.cu",
+    "bsr_conv": KERNELS_DIR / "bsr_conv" / "csrc" / "bsr_conv.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills) of each library built by
+# this process, by kernel name.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels -> the checkout's root
+    return KERNELS_DIR.parents[2] / "build" / "kernels"
+
+
+def nvcc_path() -> str:
+    if os.environ.get("NVCC"):
+        return os.environ["NVCC"]
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME to build the "
+                       "port's CUDA kernels")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every missing library among ``names`` (default: all), one
+    ``nvcc`` each, all started together; raise with the compiler's output if
+    any fails.  Returns each library's path."""
+    names = list(SOURCES) if names is None else list(names)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = build([name])[name]
+        lib = ctypes.CDLL(str(path))
+        _LOADED[name] = lib
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error (cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")

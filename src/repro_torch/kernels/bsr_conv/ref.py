@@ -1,0 +1,83 @@
+"""Plain PyTorch version of the BCSR conv kernel.
+
+``bsr_conv_plain`` takes the kernel's operands and returns what the kernel
+returns: for every block-row and every kept tile ``kb < nblocks``, the
+(bn, E, F) im2col patch of flat columns ``blockcol*bn + jl`` (channel
+clamped to C-1 for the format's right-padding columns) is gathered from the
+padded input and contracted in f32 against the (bm, bn) tile; then bias,
+residual and ReLU.  It is vectorised over block-rows and loops only over the
+KB axis.  The contraction's summation order is the library's, not the
+kernel's, so the two agree to f32 rounding, not bit for bit.
+
+``bsr_conv_blocked_ref`` is the port of the reference's
+``bsr_conv_blocked_ref`` (``repro/kernels/bsr_conv/ref.py:54``): the same
+math from an unpadded input and a ``BcsrConv``, in natural channel order.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.direct_conv import (gather_windows, out_spatial,
+                                          pad_in, pixel_offsets,
+                                          stretched_offsets)
+from repro_torch.core.sparse_format import BcsrConv
+
+
+def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
+                   blockcol: torch.Tensor, nblocks: torch.Tensor,
+                   bias: torch.Tensor,
+                   residual: Optional[torch.Tensor] = None, *, rs: int,
+                   s: int, e: int, f: int, stride: int = 1,
+                   fuse_relu: bool = False) -> torch.Tensor:
+    """(N, C, Hp, Wp) padded input, (gbm, KB, bm, bn) tiles -> (N, gbm*bm,
+    E, F) f32 with the fused epilogue; ``bias`` is (gbm*bm,), ``residual``
+    (N, gbm*bm, E, F)."""
+    n, c, hp, wp = xpad.shape
+    gbm, _, bm, bn = blocks.shape
+    xpad = xpad.float()
+    pix = pixel_offsets(wp, e, f, stride, xpad.device)
+    jl = torch.arange(bn, device=xpad.device)
+    acc = torch.zeros((n, gbm, bm, e * f), dtype=torch.float32,
+                      device=xpad.device)
+    kb_n = int(nblocks.max()) if gbm else 0
+    for kb in range(kb_n):
+        j = blockcol[:, kb].long()[:, None] * bn + jl        # (gbm, bn)
+        cj = j // rs
+        rr = (j - cj * rs) // s
+        ss = j - cj * rs - rr * s
+        off = stretched_offsets(cj.clamp(max=c - 1), rr, ss, hp, wp)
+        patch = gather_windows(xpad, off, pix)                # (N, gbm, bn, EF)
+        live = (nblocks > kb).float().view(gbm, 1, 1)
+        tile = blocks[:, kb].float() * live                   # (gbm, bm, bn)
+        acc += torch.einsum("gmb,ngbp->ngmp", tile, patch)
+    out = acc.reshape(n, gbm * bm, e, f) + bias.float().view(1, -1, 1, 1)
+    if residual is not None:
+        out = out + residual.float()
+    if fuse_relu:
+        out = torch.relu(out)
+    return out
+
+
+def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
+                         padding: int = 0,
+                         bias: Optional[torch.Tensor] = None,
+                         fuse_relu: bool = False,
+                         residual: Optional[torch.Tensor] = None,
+                         ) -> torch.Tensor:
+    """The blocked contraction from an (N, C, H, W) input; (N, M, E, F) f32."""
+    m, _, r, s = bc.shape
+    gbm, _, bm, _ = bc.blocks.shape
+    mpad = gbm * bm
+    e, f = out_spatial(x.shape[2], x.shape[3], r, s, stride, padding)
+    b = torch.zeros((mpad,), dtype=torch.float32, device=x.device)
+    if bias is not None:
+        b[:m] = bias.float()
+    res = residual
+    if res is not None and mpad != m:
+        res = torch.nn.functional.pad(res, (0, 0, 0, 0, 0, mpad - m))
+    out = bsr_conv_plain(pad_in(x, padding), bc.blocks, bc.blockcol,
+                         bc.nblocks, b, res, rs=r * s, s=s, e=e, f=f,
+                         stride=stride, fuse_relu=fuse_relu)
+    return out[:, :m]

@@ -1,0 +1,183 @@
+"""The paper's CNN benchmark models: AlexNet, GoogLeNet (v1), ResNet-50.
+
+Port of ``repro/models/cnn.py``: the same network tables at full width, and
+``init_cnn``/``engine_for``/``cnn_forward`` over the port's engine.  Each
+convolution runs through a selectable method:
+
+  "dense"      -- the library convolution on zero-filled weights
+  "lowered"    -- im2col + ELL(CSR) SpMM
+  "csr-direct" -- Escoin direct sparse conv, a plain PyTorch loop over K
+  "pallas"     -- Escoin direct sparse conv, the CUDA ELL kernel, with the
+                  bias/ReLU/shortcut epilogue fused in-kernel (the name is
+                  the reference's, kept so methods compare across packages)
+  "bsr"        -- block-sparse (BCSR) direct conv, the CUDA BCSR kernel
+  "auto"       -- not ported yet: raises ``NotImplementedError``
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; the CPU runs each kernel method through its plain version.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.engine import CnnEngine, init_conv_params, lower
+from repro_torch.engine.spec import FC, Concat, Conv, Pool, Relu, Residual  # noqa: F401
+
+
+# --------------------------------------------------------------------------
+# network tables
+# --------------------------------------------------------------------------
+
+def alexnet() -> List[Any]:
+    # Paper Table 3: 5 CONV layers, 4 sparse (conv1 dense).  Caffe AlexNet.
+    return [
+        Conv("conv1", 96, 11, 4, 0, sparsity=0.0), Relu(), Pool("max", 3, 2),
+        Conv("conv2", 256, 5, 1, 2, sparsity=0.62), Relu(), Pool("max", 3, 2),
+        Conv("conv3", 384, 3, 1, 1, sparsity=0.65), Relu(),
+        Conv("conv4", 384, 3, 1, 1, sparsity=0.63), Relu(),
+        Conv("conv5", 256, 3, 1, 1, sparsity=0.63), Relu(), Pool("max", 3, 2),
+        FC("fc6", 4096, 0.91), Relu(), FC("fc7", 4096, 0.91),
+        Relu(), FC("fc8", 1000, 0.75),
+    ]
+
+
+def _inception(name: str, c1: int, c3r: int, c3: int, c5r: int, c5: int,
+               pp: int, sp: float) -> Concat:
+    return Concat(branches=(
+        (Conv(f"{name}/1x1", c1, 1, sparsity=sp), Relu()),
+        (Conv(f"{name}/3x3_reduce", c3r, 1, sparsity=sp), Relu(),
+         Conv(f"{name}/3x3", c3, 3, 1, 1, sparsity=sp), Relu()),
+        (Conv(f"{name}/5x5_reduce", c5r, 1, sparsity=sp), Relu(),
+         Conv(f"{name}/5x5", c5, 5, 1, 2, sparsity=sp), Relu()),
+        (Pool("max", 3, 1, 1),
+         Conv(f"{name}/pool_proj", pp, 1, sparsity=sp), Relu()),
+    ))
+
+
+def googlenet() -> List[Any]:
+    # GoogLeNet v1 (57 CONV); the paper prunes 19 of them — we mark the 3x3/5x5
+    # convs of the later inception modules sparse, reduces + early layers dense.
+    s = 0.7
+    return [
+        Conv("conv1", 64, 7, 2, 3, sparsity=0.0), Relu(), Pool("max", 3, 2, 1),
+        Conv("conv2_reduce", 64, 1, sparsity=0.0), Relu(),
+        Conv("conv2", 192, 3, 1, 1, sparsity=0.62), Relu(), Pool("max", 3, 2, 1),
+        _inception("3a", 64, 96, 128, 16, 32, 32, 0.0),
+        _inception("3b", 128, 128, 192, 32, 96, 64, s),
+        Pool("max", 3, 2, 1),
+        _inception("4a", 192, 96, 208, 16, 48, 64, s),
+        _inception("4b", 160, 112, 224, 24, 64, 64, s),
+        _inception("4c", 128, 128, 256, 24, 64, 64, s),
+        _inception("4d", 112, 144, 288, 32, 64, 64, s),
+        _inception("4e", 256, 160, 320, 32, 128, 128, s),
+        Pool("max", 3, 2, 1),
+        _inception("5a", 256, 160, 320, 32, 128, 128, s),
+        _inception("5b", 384, 192, 384, 48, 128, 128, s),
+        Pool("gap"),
+        FC("fc", 1000, 0.8),
+    ]
+
+
+def _bottleneck(name: str, mid: int, out: int, stride: int, sp: float,
+                project: bool) -> Residual:
+    body = (
+        Conv(f"{name}/1x1a", mid, 1, stride, 0, sparsity=sp), Relu(),
+        Conv(f"{name}/3x3", mid, 3, 1, 1, sparsity=sp), Relu(),
+        Conv(f"{name}/1x1b", out, 1, sparsity=sp),
+    )
+    proj = Conv(f"{name}/proj", out, 1, stride, 0, sparsity=0.0) if project else None
+    return Residual(body=body, proj=proj)
+
+
+def resnet50() -> List[Any]:
+    # 53 CONV layers; the paper's model has 16 sparse CONV layers — we prune
+    # the 3x3 convs of stages 2-4 (16 of them), matching that count.
+    layers: List[Any] = [
+        Conv("conv1", 64, 7, 2, 3, sparsity=0.0), Relu(), Pool("max", 3, 2, 1)]
+    stages = [("res2", 64, 256, 3, 0.0), ("res3", 128, 512, 4, 0.7),
+              ("res4", 256, 1024, 6, 0.7), ("res5", 512, 2048, 3, 0.7)]
+    for sname, mid, out, blocks, sp in stages:
+        for b in range(blocks):
+            stride = 2 if (b == 0 and sname != "res2") else 1
+            layers.append(_bottleneck(f"{sname}{chr(97 + b)}", mid, out, stride,
+                                      sp, project=(b == 0)))
+            layers.append(Relu())
+    layers += [Pool("gap"), FC("fc", 1000, 0.8)]
+    return layers
+
+
+NETWORKS = {"alexnet": alexnet, "googlenet": googlenet, "resnet50": resnet50}
+
+
+# --------------------------------------------------------------------------
+# engine delegation: one lowering pass feeds init, forward, and shape tables
+# --------------------------------------------------------------------------
+
+_PROGRAMS: Dict[Any, Any] = {}
+_ENGINES: Dict[Any, Tuple[CnnEngine, Tuple[Any, ...]]] = {}
+
+
+def _lowered(net: Sequence[Any], in_c: int, h: int, w: int):
+    """Lower a spec once per (net, input geometry); memoized."""
+    key = (tuple(net), in_c, h, w)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = lower(net, (in_c, h, w))
+        if len(_PROGRAMS) > 64:
+            _PROGRAMS.clear()
+        _PROGRAMS[key] = prog
+    return prog
+
+
+def _params_fingerprint(params: Dict[str, Any]) -> Tuple[Any, ...]:
+    """Identity snapshot of every parameter leaf, so that replacing an
+    entry after a forward binds a fresh engine."""
+    out = []
+    for name, entry in params.items():
+        if isinstance(entry, dict):
+            out.append((name, tuple((k, id(v)) for k, v in entry.items())))
+        else:
+            out.append((name, id(entry)))
+    return tuple(out)
+
+
+def engine_for(net: Sequence[Any], params: Dict[str, Any],
+               in_shape: Tuple[int, int, int], device="cuda") -> CnnEngine:
+    """A bound :class:`CnnEngine` for (net, params, geometry, device),
+    memoized on the lowered program and the identity of ``params`` so that
+    repeated ``cnn_forward`` calls reuse its FC weights and BCSR banks."""
+    c, h, w = (int(d) for d in in_shape)
+    program = _lowered(net, c, h, w)
+    dev = str(torch.device(device))
+    key = (id(program), id(params), dev)
+    fp = _params_fingerprint(params)
+    hit = _ENGINES.get(key)
+    if hit is not None and hit[1] == fp:
+        eng = hit[0]
+        if eng.program is program and eng.params is params:
+            return eng
+    if len(_ENGINES) > 64:
+        _ENGINES.clear()
+    eng = CnnEngine(program, params, device=device)
+    _ENGINES[key] = (eng, fp)
+    return eng
+
+
+def init_cnn(net: Sequence[Any], in_c: int, rng: np.random.Generator,
+             image: int = 224, device="cuda") -> Dict[str, Any]:
+    """Random pruned weights for every layer (magnitude pruning at each
+    layer's sparsity) plus the ELL banks, on ``device``; drawn in the
+    reference's order from the same numpy generator."""
+    return init_conv_params(_lowered(net, in_c, image, image), rng,
+                            device=device)
+
+
+def cnn_forward(net: Sequence[Any], params: Dict[str, Any], x,
+                method: str = "dense", device="cuda") -> torch.Tensor:
+    """Run the whole network on ``device``; FC layers run dense."""
+    engine = engine_for(net, params, tuple(x.shape[1:]), device=device)
+    return engine(x, method)
+

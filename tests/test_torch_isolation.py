@@ -1,0 +1,65 @@
+"""The PyTorch port stands alone: no module under ``src/repro_torch/``, and
+not ``chip_smoke.py``, imports ``jax`` or anything of the JAX package
+``repro``.  ``repro_torch`` and its submodules are the port's own.
+
+An AST scan, so imports inside functions count too.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_port_has_modules_to_scan():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/kernels/sparse_conv/kernel.py" in names
+    assert "src/repro_torch/kernels/bsr_conv/kernel.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, mod) for line, mod in _imported_modules(tree)
+           if _forbidden(mod)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("source, bad", [
+    ("import jax", True), ("import jax.numpy as jnp", True),
+    ("from jax import lax", True), ("from repro.core import x", True),
+    ("import repro.kernels", True), ("from repro import telemetry", True),
+    ("import importlib\nimportlib.import_module('jax')", True),
+    ("from repro_torch.core import x", False), ("import repro_torch", False),
+    ("import torch", False), ("from . import budget", False)])
+def test_scanner_tells_the_port_from_the_reference(source, bad):
+    found = [m for _, m in _imported_modules(ast.parse(source))
+             if _forbidden(m)]
+    assert bool(found) == bad
