@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's pruned-CNN inference path on one NVIDIA card.
+"""Drive the PyTorch port's pruned-CNN inference and Yi-9B serving paths on
+one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -10,7 +11,7 @@ Phases (any failure exits non-zero and prints no result):
 1. build   -- compile every CUDA kernel of ``src/repro_torch/kernels/*/csrc``
               into ``build/kernels/`` (one ``nvcc`` per source, all started
               together) and print the card's name and power limit.
-2. kernels -- each kernel against its plain PyTorch version at main-path
+2. kernels -- each CNN kernel against its plain PyTorch version at main-path
               shapes (ResNet-50 res3a/1x1a, res4b/3x3, res4b/1x1b with its
               residual tail, res5a/3x3; AlexNet conv2), batch 8 at 224 px:
               one JSON line per (kernel, layer) with ``max_abs_err``,
@@ -19,10 +20,10 @@ Phases (any failure exits non-zero and prints no result):
               with bias on the dense pruned weights, TF32 off; a yardstick the
               port never calls) and ``bound_ms`` (the larger of the bytes the
               conv must move over 3.35 TB/s and its f32 operations over
-              67 TFLOP/s, H100 SXM data sheet).  The bytes count the input
-              elements the conv reads, not the padded copy the wrapper
-              builds (a stride-2 1x1 conv reads a quarter of its input),
-              the weights, bias and residual once, and the output once.
+              67 TFLOP/s).  The bytes count the input elements the conv
+              reads, not the padded copy the wrapper builds (a stride-2 1x1
+              conv reads a quarter of its input), the weights, bias and
+              residual once, and the output once.
 3. path    -- ResNet-50, GoogLeNet and AlexNet at full width, random pruned
               weights from ``--seed``, through ``cnn_forward`` with
               ``pallas``, ``bsr`` and ``dense``.  For each net and kernel
@@ -35,17 +36,72 @@ Phases (any failure exits non-zero and prints no result):
               over 3 synchronised forwards) and, from one forward under
               ``torch.profiler``, the device's busy time, its idle share of
               the unprofiled forward time, and the kernels that took the
-              most device time.
-4. the ``kernels`` JSON line, then the device line last.
+              most device time.  The nets are freed afterwards.
+4. llm kernels -- on Yi-9B shapes with ``--seed`` weights block-pruned to
+              0.8 with (16, 16) tiles, bf16: ``bsr_matmul`` on wq
+              (4096 -> 4096), wk (4096 -> 512), gate (4096 -> 11008) and
+              down (11008 -> 4096) on (B, T, N) activations of 4 x 1 (a
+              decode step) and 4 x 2048 (a prefill): the kernel on the
+              (B*T, N) view ``ops.bsr_matmul`` hands it, against
+              ``bsr_matmul_plain`` within 1e-4 x max(1, max |y|), and the
+              wrapper's bf16 (B, T, M) output within one bf16 rounding of
+              the plain version's plus that limit; ``library_ms`` from
+              ``torch.matmul`` on the dense pruned weight.  Flash
+              attention, causal, B 4, H 32, KV 4, T = S = 2048, d 128, on
+              the (B, H, T, d) views of (B, T, H, d) tensors that
+              ``ops.flash_attention_bthd`` hands the kernel, against
+              ``flash_attention_plain`` on f32 copies: each element of O
+              within one bf16 rounding (2^-8 of its magnitude) plus 1e-3 of
+              O's rms, lse within 1e-4, and the same O check must reject the
+              plain version with p rounded to bf16 before p v (a fault the
+              lse check cannot see); ``library_ms`` from
+              ``F.scaled_dot_product_attention(is_causal=True,
+              enable_gqa=True)``.  ``bound_ms`` is the larger of the bytes
+              (each input once, each output once; only the kept tiles) over
+              3.35 TB/s and the operations (only the kept tiles, only the
+              causal half) over their peaks, priced at the precision the
+              plain version computes in: bf16 x bf16 products with f32 sums
+              (``bsr_matmul``, flash's q k^T) at 989 TFLOP/s on the tensor
+              cores, flash's p v, whose p is f32, at 67 TFLOP/s; the flash
+              row also carries ``bound_all_bf16_ms``, both products on the
+              tensor cores.  ``kernel_ms``, ``plain_ms`` and ``library_ms``
+              are device time per call under ``torch.profiler`` (a
+              decode-sized kernel is shorter than its launch, so CUDA events
+              around back-to-back launches time the host);
+              ``kernel_event_ms`` is the CUDA-event time beside it.
+5. consistency -- Yi-9B at full width in f32, sparsity 0.8, B 2, T 64:
+              ``forward`` under flash attention against 64 ``decode_step``s
+              through the KV cache; logits within rtol = atol = 1e-2 and
+              argmax agreement >= 0.95 (``tests/test_decode_consistency.py``).
+6. prefill -- Yi-9B in bf16, B 4, T 2048, ``make_prefill_step`` under flash
+              attention at sparsity 0.8 and 0.0: one counted forward must
+              launch ``bsr_matmul`` 336 times (7 projections x 48 layers)
+              and flash 48 times (0 and 48 dense), with finite (4, 64000)
+              logits; each line carries ``forward_ms`` (host clock over 3
+              synchronised forwards) and the profiled device breakdown.
+7. serve   -- Yi-9B in bf16 at sparsity 0.8 behind ``ServeEngine`` (4 slots,
+              max_len 128), 8 requests with 8-48 prompt tokens and budgets
+              of 16-32 new tokens from ``--seed``: every request served to
+              its budget with ids below 64000, every tick 336 ``bsr_matmul``
+              and 0 flash launches; the line carries ticks, ms per tick,
+              generated tokens per second and one profiled decode step.
+8. the ``kernels`` JSON line, then the card's name and power limit, then
+   the device line last.
+
+Every counted run sets all four launch counters to 0 just before it and
+reads them just after; launches made to compare a kernel with its plain
+version are not counted.  Peak rates are the H100 SXM data sheet's (dense,
+700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
 and add as its plain version does, in the same order, so it is held to
-1e-5; the BCSR kernel sums in another order than the plain version's library
-contraction and is held to rtol = atol = 1e-4.
+1e-5; the BCSR conv kernel sums in another order than the plain version's
+library contraction and is held to rtol = atol = 1e-4.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +112,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 without tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 EXPECTED_SPARSE = {"resnet50": 39, "googlenet": 49, "alexnet": 4}
 KERNEL_LAYERS = [("resnet50", "res3a/1x1a"), ("resnet50", "res4b/3x3"),
                  ("resnet50", "res4b/1x1b"), ("resnet50", "res5a/3x3"),
@@ -65,6 +122,27 @@ IMAGE = 224
 ELL_TOL = 1e-5
 BSR_TOL = 1e-4
 PATH_RTOL = 1e-4
+KERNEL_NAMES = ("sparse_conv", "bsr_conv", "bsr_matmul", "flash_attention")
+
+# The transformer path: Yi-9B (48 layers, d_model 4096, 32 heads over 4 kv
+# heads, head_dim 128, d_ff 11008, vocab 64000), weights block-pruned with
+# (16, 16) tiles as `sparsify_params` prunes them.
+LLM_SPARSITY = 0.8
+LLM_BLOCK = (16, 16)
+LLM_PROJECTIONS = [("wq", 4096, 4096), ("wk", 4096, 512),
+                   ("gate", 4096, 11008), ("down", 11008, 4096)]
+LLM_ACTIVATIONS = ((4, 1), (4, 2048))  # (B, T): a decode step, a prefill
+FLASH_SHAPE = (4, 32, 4, 2048, 128)   # B, H, KV, T = S, d
+BSR_MATMUL_TOL = 1e-4                 # x max(1, max |y|)
+# bf16 O, per element: one bf16 rounding (2^-8 of |O|) + FLASH_O_ATOL x rms(O)
+FLASH_O_ATOL = 1e-3
+FLASH_LSE_TOL = 1e-4
+CONSIST_SHAPE = (2, 64)               # f32 forward vs decode steps
+CONSIST_TOL = 1e-2                    # rtol = atol, tests/test_decode_consistency.py
+CONSIST_AGREE = 0.95
+PREFILL_SHAPE = (4, 2048)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 4, 128, 8
+SERVE_PROMPT, SERVE_BUDGET = (8, 48), (16, 32)
 
 
 class SmokeFailure(Exception):
@@ -92,9 +170,36 @@ def time_cuda(torch, fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def device_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds per call: the CUDA kernels of ``reps`` calls of
+    ``fn`` (after one warm-up call), summed under ``torch.profiler``.  Host
+    launch overhead is left out, which CUDA events around back-to-back
+    launches do not do when a kernel is shorter than its launch.  Where the
+    profiler records no device time, CUDA events time the calls instead
+    (said on stderr)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total > 0:
+        return total / 1e3 / reps
+    print("chip_smoke: the profiler recorded no device time; timed with "
+          "CUDA events", file=sys.stderr, flush=True)
+    return time_cuda(torch, fn, reps=reps, warmup=1)
+
+
+def bound(nbytes: float, flops_f32: float = 0.0, flops_bf16: float = 0.0):
+    """The larger of the bytes over 3.35 TB/s and the operations over their
+    peaks: f32 on the FMA units at 67 TFLOP/s, bf16 products with f32 sums
+    on the tensor cores at 989 TFLOP/s."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops_f32 / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -316,6 +421,368 @@ def path_phase(torch, mods, nets, device, batch, image, seed):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# the transformer serving path (Yi-9B)
+# ---------------------------------------------------------------------------
+
+def reset_counts(mods):
+    for name in KERNEL_NAMES:
+        mods["kernels"][name].launches = 0
+
+
+def read_counts(mods):
+    return {name: mods["kernels"][name].launches for name in KERNEL_NAMES}
+
+
+def llm_params(torch, mods, cfg, sparsity, seed, device):
+    """Yi-9B params drawn on the card from ``seed``, then, at ``sparsity``,
+    block-pruned and converted to BCSR in place, one matrix at a time."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = mods["T"].init_params(cfg, gen, device)
+    if sparsity > 0:
+        params = mods["sparsify"](params, cfg, sparsity)
+    torch.cuda.synchronize()
+    return params
+
+
+def o_excess(o, want) -> float:
+    """Largest error of ``o`` against the f32 ``want`` beyond one bf16
+    rounding of the output (2^-8 of |want|), in units of ``want``'s rms."""
+    err = (o.float() - want).abs() - 2.0 ** -8 * want.abs()
+    return float(err.max() / want.pow(2).mean().sqrt())
+
+
+def flash_pv_bf16(torch, q, k, v, sc):
+    """Causal attention as the plain version computes it, but with p rounded
+    to bf16 before p v: a fault that leaves the softmax (and lse) right,
+    which the O check must reject.  q (B, H, T, d), k/v (B, KV, S, d)."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    qf = q.reshape(b, kv, h // kv, t, d).float() * sc
+    logits = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2))
+    mask = (torch.arange(t, device=q.device)[:, None]
+            >= torch.arange(s, device=q.device)[None, :])
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    del logits
+    out = torch.matmul(p.to(torch.bfloat16).float(), v.float()[:, :, None])
+    out = out / p.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, t, d).to(q.dtype)
+
+
+def llm_kernel_phase(torch, mods, device, seed):
+    """``bsr_matmul`` on four Yi-9B projections at decode and prefill row
+    counts, and flash attention at prefill shape, each through the wrapper
+    the model calls, on the layout it hands the kernel, against its plain
+    version; returns per-kernel lists of row dicts."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    rows_out = {"bsr_matmul": [], "flash_attention": []}
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    bk, plain = mods["kernels"]["bsr_matmul"], mods["matmul_plain"]
+    for name, d_in, d_out in LLM_PROJECTIONS:
+        w = mods["dense_init"](gen, d_in, d_out, bf16, device)   # (in, out)
+        pruned = mods["block_prune"](w.float(), LLM_SPARSITY, LLM_BLOCK)
+        bc = mods["bcsr_matrix"](pruned.T, LLM_BLOCK)
+        bc = mods["dc"].replace(bc, blocks=bc.blocks.to(bf16))
+        w_lib = pruned.to(bf16)
+        del w, pruned
+        gm, kb_dim, bm, bn = bc.blocks.shape
+        kept = int(bc.nblocks.sum())
+        for b, t in LLM_ACTIVATIONS:
+            rows = b * t
+            x3 = torch.randn((b, t, d_in), generator=gen,
+                             device=device).to(bf16)
+            # the (rows, N) view ops.bsr_matmul hands the kernel (N is a
+            # multiple of bn: no padding)
+            x = x3.reshape(rows, d_in)
+            args = (x, bc.blocks, bc.blockcol, bc.nblocks)
+            got = bk(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            check(bool(torch.isfinite(got).all()), f"bsr_matmul {name}: not finite")
+            check(err <= BSR_MATMUL_TOL * scale,
+                  f"bsr_matmul {name} x {rows} rows disagrees with its plain "
+                  f"version (max_abs_err {err}, tolerance {BSR_MATMUL_TOL}*{scale})")
+            # through the wrapper the model calls: bf16 back in (B, T, M)
+            y3 = mods["bsr_matmul"](x3, bc)
+            check(tuple(y3.shape) == (b, t, d_out) and y3.dtype == bf16,
+                  f"bsr_matmul {name}: wrapper returned {tuple(y3.shape)} "
+                  f"{y3.dtype}")
+            ops_err = float(((y3.float() - want.view(b, t, d_out)).abs()
+                             - 2.0 ** -8 * want.view(b, t, d_out).abs()).max())
+            check(ops_err <= BSR_MATMUL_TOL * scale,
+                  f"bsr_matmul {name} x {rows} rows: the wrapper's bf16 output "
+                  f"is {ops_err} beyond one rounding of the plain version's "
+                  f"(tolerance {BSR_MATMUL_TOL}*{scale})")
+            reps = 50 if rows <= 64 else 10
+            event_ms = time_cuda(torch, lambda: bk(*args), reps=reps,
+                                 warmup=3)
+            ms = device_ms(torch, lambda: bk(*args), reps)
+            plain_ms = device_ms(torch, lambda: plain(*args), 1)
+            library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib),
+                                   reps)
+            moved = (rows * d_in * 2 + kept * bm * bn * 2 + kept * 4 + gm * 4
+                     + rows * gm * bm * 4)
+            b_ms, b_by = bound(moved, flops_bf16=2.0 * rows * kept * bm * bn)
+            row = {"kernel": "bsr_matmul", "proj": name, "rows": rows,
+                   "shape": {"b": b, "t": t, "in": d_in, "out": d_out,
+                             "block": [bm, bn], "kept_tiles": kept,
+                             "tiles": gm * (d_in // bn), "KB": kb_dim},
+                   "schedule": mods["bsr_schedule"](rows, bf16),
+                   "max_abs_err": err, "wrapper_excess": ops_err,
+                   "kernel_ms": ms,
+                   "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "bound_bytes": moved}
+            print(json.dumps(row), flush=True)
+            rows_out["bsr_matmul"].append(row)
+            del x3, x, got, want, y3
+        del w_lib, bc
+        torch.cuda.empty_cache()
+
+    # -- flash attention forward at prefill shape -------------------------
+    # In the model's (B, T, H, d) layout; the kernel reads the (B, H, T, d)
+    # transposed views that ops.flash_attention_bthd hands it.
+    b, h, kv, t, d = FLASH_SHAPE
+    fk, fplain = mods["kernels"]["flash_attention"], mods["flash_plain"]
+    q4 = torch.randn((b, t, h, d), generator=gen, device=device).to(bf16)
+    k4 = torch.randn((b, t, kv, d), generator=gen, device=device).to(bf16)
+    v4 = torch.randn((b, t, kv, d), generator=gen, device=device).to(bf16)
+    q, k, v = q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+    sc = d ** -0.5
+    o4 = mods["flash_bthd"](q4, k4, v4, causal=True)
+    o, lse = fk(q, k, v, sc=sc, causal=True)
+    torch.cuda.synchronize()
+    check(torch.equal(o4, o.transpose(1, 2)),
+          "flash_attention_bthd differs from the kernel on its own views")
+    # the plain version on f32 copies: O before its rounding to bf16
+    o_want, lse_want = fplain(q.float(), k.float(), v.float(), sc=sc,
+                              causal=True)
+    excess = o_excess(o4.transpose(1, 2), o_want)
+    # against the plain version's own bf16 output (its f32 O rounded)
+    err = float((o.float() - o_want.to(bf16).float()).abs().max())
+    lse_err = float((lse - lse_want).abs().max())
+    o_rms = float(o_want.pow(2).mean().sqrt())
+    control = o_excess(flash_pv_bf16(torch, q, k, v, sc), o_want)
+    check(bool(torch.isfinite(o).all()), "flash_attention: O not finite")
+    check(excess <= FLASH_O_ATOL,
+          f"flash_attention disagrees with its plain version on O: "
+          f"{excess} x rms(O) beyond one bf16 rounding (tolerance "
+          f"{FLASH_O_ATOL})")
+    check(control > FLASH_O_ATOL,
+          f"the O check does not reject p v in bf16 ({control} x rms(O), "
+          f"tolerance {FLASH_O_ATOL})")
+    check(lse_err <= FLASH_LSE_TOL,
+          f"flash_attention disagrees with its plain version on lse "
+          f"(max_abs_err {lse_err}, tolerance {FLASH_LSE_TOL})")
+    del o_want, lse_want, o4
+    torch.cuda.empty_cache()
+    event_ms = time_cuda(torch, lambda: fk(q, k, v, sc=sc, causal=True),
+                         reps=5, warmup=1)
+    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=True), 5)
+    plain_ms = device_ms(torch, lambda: fplain(q, k, v, sc=sc, causal=True), 1)
+    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 5)
+    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    moved = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + b * h * t * 4
+    # as the plain version computes: q k^T on bf16 inputs with f32 sums (the
+    # tensor cores' rate), p v with p in f32 (the f32 FMA rate)
+    b_ms, b_by = bound(moved, flops_f32=2.0 * pairs * d,
+                       flops_bf16=2.0 * pairs * d)
+    # both products on bf16 tensor cores, as SDPA computes them
+    b16_ms, b16_by = bound(moved, flops_bf16=4.0 * pairs * d)
+    row = {"kernel": "flash_attention",
+           "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
+                     "causal": True, "dtype": "bfloat16",
+                     "layout": "(B, T, H, d) views"},
+           "max_abs_err": err, "o_excess": excess,
+           "o_excess_pv_bf16": control, "o_rms": o_rms,
+           "lse_max_abs_err": lse_err,
+           "kernel_ms": ms, "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": moved, "bound_all_bf16_ms": b16_ms,
+           "bound_all_bf16_by": b16_by}
+    print(json.dumps(row), flush=True)
+    rows_out["flash_attention"].append(row)
+    del q4, k4, v4, q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def llm_consistency_phase(torch, mods, device, seed):
+    """Yi-9B at full width in f32, sparsity 0.8: the full-sequence forward
+    under flash attention against token-by-token decode steps."""
+    np, T = mods["np"], mods["T"]
+    cfg = mods["dc"].replace(mods["yi9b"], dtype="float32")
+    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 10, device)
+    b, t = CONSIST_SHAPE
+    toks = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab, (b, t))).to(device)
+    reset_counts(mods)
+    mods["flags"].set_attn_impl("flash")
+    try:
+        ref, _ = T.forward(params, toks, cfg)
+    finally:
+        mods["flags"].set_attn_impl("chunked")
+    fwd_counts = read_counts(mods)
+    cache = T.init_cache(cfg, b, t, device)
+    got = []
+    for i in range(t):
+        lg, cache = T.decode_step(params, cfg, toks[:, i:i + 1], cache, i)
+        got.append(lg)
+    got = torch.stack(got, dim=1)
+    torch.cuda.synchronize()
+    n_proj = cfg.n_layers * 7
+    check(fwd_counts["bsr_matmul"] == n_proj
+          and fwd_counts["flash_attention"] == cfg.n_layers,
+          f"consistency forward launched {fwd_counts}")
+    check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all()),
+          "consistency: non-finite logits")
+    diff = (got - ref).abs()
+    excess = float((diff - (CONSIST_TOL + CONSIST_TOL * ref.abs())).max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    row = {"phase": "consistency", "arch": cfg.name, "dtype": cfg.dtype,
+           "sparsity": LLM_SPARSITY, "batch": b, "seq": t,
+           "forward_launches": fwd_counts,
+           "max_abs_diff": float(diff.max()), "logits_absmax":
+           float(ref.abs().max()), "argmax_agreement": agree,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(row), flush=True)
+    check(excess <= 0, f"consistency: decode logits differ from the forward's "
+          f"beyond rtol = atol = {CONSIST_TOL} (max |diff| {float(diff.max())})")
+    check(agree >= CONSIST_AGREE, f"consistency: argmax agreement {agree} "
+          f"< {CONSIST_AGREE}")
+    del params, cache, ref, got, diff
+    torch.cuda.empty_cache()
+
+
+def llm_prefill_phase(torch, mods, device, seed):
+    """Yi-9B in bf16 through ``make_prefill_step`` under flash attention, at
+    sparsity 0.8 and 0.0; returns the counted launches."""
+    np, T = mods["np"], mods["T"]
+    cfg = mods["yi9b"]
+    b, t = PREFILL_SHAPE
+    toks = torch.from_numpy(np.random.default_rng(seed + 20).integers(
+        0, cfg.vocab, (b, t))).to(device)
+    batch = {"tokens": toks}
+    step = mods["make_prefill_step"](cfg)
+    counted = {name: 0 for name in KERNEL_NAMES}
+    mods["flags"].set_attn_impl("flash")
+    try:
+        for sparsity in (LLM_SPARSITY, 0.0):
+            torch.cuda.reset_peak_memory_stats()
+            params = llm_params(torch, mods, cfg, sparsity, seed + 21, device)
+            step(params, batch)                   # warm-up
+            torch.cuda.synchronize()
+            reset_counts(mods)
+            logits, _ = step(params, batch)
+            torch.cuda.synchronize()
+            counts = read_counts(mods)
+            want = {"sparse_conv": 0, "bsr_conv": 0,
+                    "bsr_matmul": cfg.n_layers * 7 if sparsity else 0,
+                    "flash_attention": cfg.n_layers}
+            check(counts == want, f"prefill at sparsity {sparsity}: launches "
+                  f"{counts}, expected {want}")
+            for name in counted:
+                counted[name] += counts[name]
+            check(tuple(logits.shape) == (b, cfg.vocab),
+                  f"prefill: logits shape {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()),
+                  f"prefill at sparsity {sparsity}: non-finite logits")
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step(params, batch)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+            row = {"phase": "prefill", "arch": cfg.name, "dtype": cfg.dtype,
+                   "sparsity": sparsity, "batch": b, "seq": t,
+                   "launches": counts, "forward_ms": fwd_ms,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+            row.update(device_breakdown(torch, lambda: step(params, batch),
+                                        fwd_ms))
+            print(json.dumps(row), flush=True)
+            del params, logits
+            torch.cuda.empty_cache()
+    finally:
+        mods["flags"].set_attn_impl("chunked")
+    return counted
+
+
+def llm_serve_phase(torch, mods, device, seed):
+    """Yi-9B in bf16 at sparsity 0.8 behind ``ServeEngine``: 4 slots,
+    max_len 128, 8 requests with prompts and budgets from ``seed``; returns
+    the counted launches."""
+    np, T = mods["np"], mods["T"]
+    cfg = mods["yi9b"]
+    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 30, device)
+    step = mods["make_serve_step"](cfg)
+    per_tick = []
+
+    def counted_step(p, tokens, cache, cur_len):
+        before = read_counts(mods)
+        out = step(p, tokens, cache, cur_len)
+        after = read_counts(mods)
+        per_tick.append({k: after[k] - before[k] for k in after})
+        return out
+
+    n_slots, max_len = SERVE_SLOTS, SERVE_MAX_LEN
+    engine = mods["ServeEngine"](counted_step, params,
+                                 T.init_cache(cfg, n_slots, max_len, device),
+                                 n_slots, max_len, device=device)
+    rng = np.random.default_rng(seed + 31)
+    reqs = [mods["Request"](i, rng.integers(0, cfg.vocab, int(rng.integers(
+                SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))).tolist(),
+                            max_new_tokens=int(rng.integers(
+                                SERVE_BUDGET[0], SERVE_BUDGET[1] + 1)))
+            for i in range(SERVE_REQUESTS)]
+    # warm-up: one decode step on a scratch cache, outside the counted run
+    step(params, torch.zeros((n_slots, 1), dtype=torch.int64, device=device),
+         T.init_cache(cfg, n_slots, 4, device), 0)
+    torch.cuda.synchronize()
+    for r in reqs:
+        engine.submit(r)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(mods)
+    check(done.drained and len(done) == len(reqs),
+          f"serve: drained {done.drained}, {len(done)} of {len(reqs)} served")
+    for r in reqs:
+        check(r.done and len(r.output) == r.max_new_tokens,
+              f"serve: request {r.rid} has {len(r.output)} of "
+              f"{r.max_new_tokens} tokens")
+        check(all(0 <= tok < cfg.vocab for tok in r.output),
+              f"serve: request {r.rid} has an id outside the vocabulary")
+    n_proj = cfg.n_layers * 7
+    check(len(per_tick) == done.ticks and all(
+        c["bsr_matmul"] == n_proj and c["flash_attention"] == 0
+        and c["sparse_conv"] == 0 and c["bsr_conv"] == 0 for c in per_tick),
+        f"serve: a tick did not launch bsr_matmul {n_proj} times and flash "
+        f"0 times ({per_tick[:3]} ...)")
+    tokens = sum(len(r.output) for r in reqs)
+    tick_ms = wall / done.ticks * 1e3
+    row = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+           "sparsity": LLM_SPARSITY, "slots": n_slots, "max_len": max_len,
+           "requests": len(reqs), "ticks": done.ticks, "launches": counts,
+           "generated_tokens": tokens, "ms_per_tick": tick_ms,
+           "tokens_per_s": tokens / wall}
+    cache = T.init_cache(cfg, n_slots, max_len, device)
+    toks = torch.zeros((n_slots, 1), dtype=torch.int64, device=device)
+    row.update(device_breakdown(torch, lambda: step(params, toks, cache, 0),
+                                tick_ms))
+    print(json.dumps(row), flush=True)
+    del params, engine, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -342,6 +809,22 @@ def main() -> int:
     from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
     from repro_torch.kernels.sparse_conv.ref import sparse_conv_plain
     from repro_torch.models import cnn
+    from repro_torch import configs
+    from repro_torch.core.pruning import block_prune
+    from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       schedule)
+    from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
+    from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.launch.serve import sparsify_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import flags
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dense_init
+    from repro_torch.serving import Request, ServeEngine
 
     device = torch.device("cuda")
     smi = subprocess.run(
@@ -365,7 +848,19 @@ def main() -> int:
                 ell_plain=sparse_conv_plain, bsr_kernel=bsr_conv_kernel,
                 bsr_plain=bsr_conv_plain,
                 bcsr_from_dense=bcsr_conv_from_dense,
-                block=DEFAULT_BSR_BLOCK)
+                block=DEFAULT_BSR_BLOCK,
+                kernels={"sparse_conv": sparse_conv_kernel,
+                         "bsr_conv": bsr_conv_kernel,
+                         "bsr_matmul": bsr_matmul_kernel,
+                         "flash_attention": flash_attention_fwd},
+                matmul_plain=bsr_matmul_plain, bsr_schedule=schedule,
+                bsr_matmul=bsr_matmul, flash_bthd=flash_attention_bthd,
+                flash_plain=flash_attention_plain, bcsr_matrix=bcsr_from_dense,
+                block_prune=block_prune, dense_init=dense_init, T=T,
+                sparsify=sparsify_params, flags=flags, dc=dataclasses,
+                make_prefill_step=make_prefill_step,
+                make_serve_step=make_serve_step, ServeEngine=ServeEngine,
+                Request=Request, yi9b=configs.get_config("yi-9b"))
     nets = {}
     for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
         net = cnn.NETWORKS[name]()
@@ -377,6 +872,15 @@ def main() -> int:
         rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
         launches = path_phase(torch, mods, nets, device, BATCH,
                               IMAGE, args.seed)
+        nets.clear()
+        torch.cuda.empty_cache()
+        rows.update(llm_kernel_phase(torch, mods, device, args.seed))
+        llm_consistency_phase(torch, mods, device, args.seed)
+        prefill = llm_prefill_phase(torch, mods, device, args.seed)
+        serve = llm_serve_phase(torch, mods, device, args.seed)
+        launches["bsr_matmul"] = prefill["bsr_matmul"] + serve["bsr_matmul"]
+        launches["flash_attention"] = (prefill["flash_attention"]
+                                       + serve["flash_attention"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -386,6 +890,21 @@ def main() -> int:
                         "src/repro/kernels/sparse_conv/kernel.py:213"),
         "bsr_conv": ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
                      "src/repro/kernels/bsr_conv/kernel.py:155"),
+        "bsr_matmul": ("src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
+                       "src/repro/kernels/bsr_matmul/kernel.py:49"),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:136"),
+    }
+    times_are = {
+        "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
+                       f" main-path layers, batch {BATCH}",
+        "bsr_conv": f"sums over the kernel phase's {len(rows['bsr_conv'])} "
+                    f"main-path layers, batch {BATCH}",
+        "bsr_matmul": "sums over wq, wk, gate and down at 4 and 8192 rows "
+                      "(Yi-9B, bf16, sparsity 0.8)",
+        "flash_attention": "one causal forward, B 4, H 32, KV 4, T 2048, "
+                           "d 128, bf16",
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -401,8 +920,7 @@ def main() -> int:
             "bound_ms": b_bytes + b_ops,
             "bound_by": "bytes" if b_bytes > b_ops else "operations",
             "library_ms": sum(r["library_ms"] for r in rs),
-            "times_are": "sums over the kernel phase's "
-                         f"{len(rs)} main-path layers, batch {BATCH}",
+            "times_are": times_are[name],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

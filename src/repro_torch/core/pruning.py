@@ -1,27 +1,46 @@
 """Magnitude weight pruning (Han et al. lineage, as used by the paper).
 
-Port of ``repro/core/pruning.py:magnitude_prune``, on the host in numpy:
-the weights are drawn on the host and pruned before any format is built.
-The threshold repeats ``jnp.quantile``'s linear interpolation in float32
-(sort, ``q * (n - 1)``, floor/ceil weights, ``lo * w_lo + hi * w_hi``), so the
-kept mask matches the reference's up to ties at the threshold.
+Port of ``repro/core/pruning.py``: ``magnitude_prune`` on the host in numpy
+(the CNN weights are drawn on the host), and ``block_prune`` on a tensor on
+any device (the transformer's weights are drawn on the card, one matrix at
+a time).  Both thresholds repeat ``jnp.quantile``'s linear interpolation in
+float32 (sort, ``q * (n - 1)``, floor/ceil weights, ``lo * w_lo + hi * w_hi``),
+so the kept mask matches the reference's up to ties at the threshold.
+``torch.quantile`` is not used: it interpolates in another order and
+refuses more than 2**24 elements.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+import torch
 
 
-def _quantile_f32(flat: np.ndarray, q: float) -> np.float32:
-    a = np.sort(flat.astype(np.float32))
-    n = np.float32(a.size)
-    pos = np.float32(q) * (n - np.float32(1))
+def _quantile_weights(n: int, q: float):
+    """Sorted positions and f32 weights of ``jnp.quantile``'s linear
+    interpolation over ``n`` values: ``(low, high, low_w, high_w)``."""
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
     low = np.floor(pos)
     high = np.ceil(pos)
     high_w = np.float32(pos - low)
     low_w = np.float32(np.float32(1) - high_w)
-    lo = a[int(min(max(low, 0), a.size - 1))]
-    hi = a[int(min(max(high, 0), a.size - 1))]
-    return np.float32(np.float32(lo * low_w) + np.float32(hi * high_w))
+    return (int(min(max(low, 0), n - 1)), int(min(max(high, 0), n - 1)),
+            low_w, high_w)
+
+
+def _quantile_f32(flat: np.ndarray, q: float) -> np.float32:
+    a = np.sort(flat.astype(np.float32))
+    low, high, low_w, high_w = _quantile_weights(a.size, q)
+    return np.float32(np.float32(a[low] * low_w) + np.float32(a[high] * high_w))
+
+
+def _quantile_f32_torch(flat: torch.Tensor, q: float) -> torch.Tensor:
+    """``_quantile_f32`` on a tensor's device: the same sort and the same f32
+    products and sum, each a separate op so nothing fuses into an FMA."""
+    a = torch.sort(flat.float()).values
+    low, high, low_w, high_w = _quantile_weights(a.numel(), q)
+    return a[low] * float(low_w) + a[high] * float(high_w)
 
 
 def magnitude_prune(w: np.ndarray, sparsity: float) -> np.ndarray:
@@ -31,3 +50,29 @@ def magnitude_prune(w: np.ndarray, sparsity: float) -> np.ndarray:
         return w
     thresh = _quantile_f32(np.abs(w).reshape(-1), sparsity)
     return np.where(np.abs(w) > thresh, w, np.zeros_like(w))
+
+
+def block_prune(w: torch.Tensor, sparsity: float,
+                block: Tuple[int, int]) -> torch.Tensor:
+    """Prune a 2-D weight at tile granularity by tile L2 norm.
+
+    The weight is padded up to a multiple of the block, each (bm, bn) tile
+    scored by the f32 L2 norm of its entries, and every tile whose score is
+    not strictly above the f32 ``sparsity`` quantile of the scores is zeroed
+    whole (multiplied by 0, as the reference does).  Runs on ``w``'s device
+    and returns a tensor of ``w``'s dtype and shape.
+    """
+    if sparsity <= 0.0:
+        return w
+    if w.ndim != 2:
+        raise ValueError(f"block_prune expects 2-D weights, got shape "
+                         f"{tuple(w.shape)}")
+    bm, bn = block
+    m, n = w.shape
+    wp = torch.nn.functional.pad(w, (0, (-n) % bn, 0, (-m) % bm))
+    gm, gn = wp.shape[0] // bm, wp.shape[1] // bn
+    tiles = wp.reshape(gm, bm, gn, bn).permute(0, 2, 1, 3)  # (gm, gn, bm, bn)
+    scores = torch.sqrt(torch.sum(torch.square(tiles.float()), dim=(2, 3)))
+    keep = scores > _quantile_f32_torch(scores.reshape(-1), sparsity)
+    tiles = tiles * keep[:, :, None, None].to(tiles.dtype)
+    return tiles.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)[:m, :n]

@@ -12,10 +12,12 @@ Port of ``repro/core/sparse_format.py``.  Three formats:
                  padded list of kept block-column ids plus the dense tiles.
                  Padding tiles point at block-column 0 with all-zero data.
 
-Every array is built on the host in numpy, exactly as the JAX package builds
-it (the same nonzero order, the same padding rules), and then moved to the
-requested device once.  From the same dense weights the arrays are
-bit-identical to the reference's.
+Every array is built exactly as the JAX package builds it (the same nonzero
+order, the same padding rules): on the host in numpy and then moved to the
+requested device once, or, for ``bcsr_from_dense`` given a tensor, on that
+tensor's device (the transformer's weights are pruned and blocked on the
+card, one matrix at a time).  From the same dense weights the arrays are
+bit-identical to the reference's, on either path.
 """
 from __future__ import annotations
 
@@ -205,16 +207,71 @@ def _bcsr_arrays(w: np.ndarray, block: Tuple[int, int], pad_to: int):
     return blocks, bcol, counts.astype(np.int32)
 
 
+def _bcsr_tensors(w: torch.Tensor, block: Tuple[int, int], pad_to: int):
+    """``_bcsr_arrays`` on ``w``'s device: the same keep rule, the same
+    row-major order of kept tiles (``nonzero`` lists them as ``np.nonzero``
+    does), the same KB rounding and inert padding."""
+    m, n = w.shape
+    bm, bn = block
+    pad_to = max(1, int(pad_to))
+    wp = torch.nn.functional.pad(w, (0, (-n) % bn, 0, (-m) % bm))
+    gm, gn = wp.shape[0] // bm, wp.shape[1] // bn
+    tiles = wp.reshape(gm, bm, gn, bn).permute(0, 2, 1, 3)  # (gm, gn, bm, bn)
+    keep = (tiles != 0).any(dim=3).any(dim=2)
+    counts = keep.sum(dim=1)
+    kb = max(1, int(counts.max()))
+    kb = ((kb + pad_to - 1) // pad_to) * pad_to
+    rows, cols = keep.nonzero(as_tuple=True)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(rows.numel(), device=w.device) - starts[rows]
+    blocks = torch.zeros((gm, kb, bm, bn), dtype=w.dtype, device=w.device)
+    bcol = torch.zeros((gm, kb), dtype=torch.int32, device=w.device)
+    blocks[rows, pos] = tiles[rows, cols]
+    bcol[rows, pos] = cols.to(torch.int32)
+    return blocks, bcol, counts.to(torch.int32)
+
+
 def bcsr_from_dense(w, block: Tuple[int, int] = (128, 128), pad_to: int = 1,
-                    device="cuda") -> BcsrMatrix:
+                    device=None) -> BcsrMatrix:
     """Convert a dense matrix to BCSR: a tile is kept iff it holds any
     nonzero; rows are padded to a common tile count KB (rounded up to
-    ``pad_to``, at least 1) with inert all-zero tiles at block-column 0."""
-    w = np.asarray(w)
-    blocks, bcol, nblocks = _bcsr_arrays(w, tuple(block), pad_to)
-    return BcsrMatrix(blocks=_to(blocks, device), blockcol=_to(bcol, device),
-                      nblocks=_to(nblocks, device), shape=tuple(w.shape),
-                      block=tuple(block))
+    ``pad_to``, at least 1) with inert all-zero tiles at block-column 0.
+
+    A numpy ``w`` is blocked on the host and moved to ``device`` (default
+    the card); a tensor is blocked on its own device, and the result moved
+    to ``device`` when one is given.
+    """
+    block = tuple(block)
+    if isinstance(w, torch.Tensor):
+        arrays = _bcsr_tensors(w, block, pad_to)
+        if device is not None:
+            dev = resolve_device(device)
+            arrays = tuple(a.to(dev) for a in arrays)
+        blocks, bcol, nblocks = arrays
+    else:
+        w = np.asarray(w)
+        dev = "cuda" if device is None else device
+        blocks, bcol, nblocks = (_to(a, dev)
+                                 for a in _bcsr_arrays(w, block, pad_to))
+    return BcsrMatrix(blocks=blocks, blockcol=bcol, nblocks=nblocks,
+                      shape=tuple(w.shape), block=block)
+
+
+def bcsr_stack_from_dense(w3d, block: Tuple[int, int] = (128, 128),
+                          device=None) -> BcsrMatrix:
+    """Convert a stacked (L, M, N) weight to a stacked BCSR (leading L on
+    every leaf), rows padded to the largest tile count over the layers, as
+    the reference stores the weights of its scanned layer stack.  Slicing
+    the leading axis of each leaf gives one layer's ``BcsrMatrix``."""
+    per_layer = [bcsr_from_dense(w, block, device=device) for w in w3d]
+    kb = max(b.kb for b in per_layer)
+    pad = lambda a, k: torch.nn.functional.pad(  # noqa: E731
+        a, (0, 0) * (a.ndim - 2) + (0, k))
+    return BcsrMatrix(
+        blocks=torch.stack([pad(b.blocks, kb - b.kb) for b in per_layer]),
+        blockcol=torch.stack([pad(b.blockcol, kb - b.kb) for b in per_layer]),
+        nblocks=torch.stack([b.nblocks for b in per_layer]),
+        shape=per_layer[0].shape, block=tuple(block))
 
 
 def bcsr_to_dense(b: BcsrMatrix) -> torch.Tensor:

@@ -6,4 +6,8 @@ sparse_conv -- the paper's direct sparse convolution over an ELL bank
                (replaces the Pallas ``sparse_conv_pallas``)
 bsr_conv    -- block-sparse (BCSR) direct convolution
                (replaces the Pallas ``bsr_conv_pallas``)
+bsr_matmul  -- block-sparse (BCSR) matmul y = x @ W.T for the transformer's
+               projections (replaces the Pallas ``bsr_matmul_pallas``)
+flash_attention -- causal / full GQA attention forward with online softmax
+               (replaces the Pallas flash-attention ``_fwd_call``)
 """

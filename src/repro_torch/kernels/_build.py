@@ -30,6 +30,9 @@ KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES: Dict[str, Path] = {
     "sparse_conv": KERNELS_DIR / "sparse_conv" / "csrc" / "sparse_conv.cu",
     "bsr_conv": KERNELS_DIR / "bsr_conv" / "csrc" / "bsr_conv.cu",
+    "bsr_matmul": KERNELS_DIR / "bsr_matmul" / "csrc" / "bsr_matmul.cu",
+    "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -111,6 +114,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+def check_operand(kernel: str, name: str, t, dtype, shape, device, *,
+                  rows_strided: bool = False) -> None:
+    """Raise unless operand ``t`` of ``kernel`` lies on ``device`` with
+    ``dtype`` and ``shape`` and is contiguous (with ``rows_strided``, only
+    its last axis need be)."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not (t.stride(-1) == 1 if rows_strided else t.is_contiguous()):
+        raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
 def check(err: int, kernel: str) -> None:

@@ -35,15 +35,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"bsr_conv: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"bsr_conv: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"bsr_conv: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"bsr_conv: {name} is not contiguous")
+    _build.check_operand("bsr_conv", name, t, dtype, shape, device)
 
 
 def _launch(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e, f,

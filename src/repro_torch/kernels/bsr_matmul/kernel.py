@@ -1,0 +1,100 @@
+"""Launcher of the CUDA BCSR matmul kernel (``csrc/bsr_matmul.cu``).
+
+Replaces ``bsr_matmul_pallas`` (``repro/kernels/bsr_matmul/kernel.py``).
+``bsr_matmul_kernel`` takes the kernel's operands; for CUDA tensors it
+launches the kernel on the current stream, for CPU tensors it runs the plain
+version (``ref.py``), and for anything else it raises.  A launch that CUDA
+refuses raises too.
+
+The source has two schedules: ``rows`` (SIMT, f32 or bf16, for few rows:
+decode) and ``mma`` (bf16 tensor cores, for many rows: prefill).
+``schedule()`` picks one from the row count and the dtype.
+
+``bsr_matmul_kernel.launches`` counts the kernel's launches in this process.
+Only the CUDA branch adds to it, once per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, budget
+from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+
+_SYMBOL = "bsr_matmul"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SCHEDULES = {"rows": 0, "mma": 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bsr_matmul")
+    fn = getattr(lib, _SYMBOL)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def schedule(rows: int, dtype: torch.dtype) -> str:
+    """``mma`` for bf16 inputs above ``budget.BSR_MATMUL_ROWS_MAX`` rows,
+    ``rows`` otherwise (f32 has no tensor-core path that keeps f32)."""
+    if dtype == torch.bfloat16 and rows > budget.BSR_MATMUL_ROWS_MAX:
+        return "mma"
+    return "rows"
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
+    _build.check_operand("bsr_matmul", name, t, dtype, shape, device)
+    if t.data_ptr() % 16:
+        raise ValueError(f"bsr_matmul: {name} is not 16-byte aligned")
+
+
+def _launch(x, blocks, blockcol, nblocks) -> torch.Tensor:
+    b, n = x.shape
+    gm, kb_dim, bm, bn = blocks.shape
+    dev = x.device
+    if x.dtype not in DTYPES:
+        raise ValueError(f"bsr_matmul: dtype {x.dtype} not one of "
+                         f"{list(DTYPES)}")
+    _check(x, "x", x.dtype, (b, n), dev)
+    _check(blocks, "blocks", x.dtype, (gm, kb_dim, bm, bn), dev)
+    _check(blockcol, "blockcol", torch.int32, (gm, kb_dim), dev)
+    _check(nblocks, "nblocks", torch.int32, (gm,), dev)
+    reason = budget.bsr_matmul_unsupported(bm, bn, n)
+    if reason is not None:
+        raise ValueError(f"bsr_matmul: {reason}")
+    if b * max(n, gm * bm) >= 2**31:
+        raise ValueError("bsr_matmul: x or y exceeds int32 row offsets")
+    out = torch.empty((b, gm * bm), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_lib(), _SYMBOL)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), blocks.data_ptr(), blockcol.data_ptr(),
+                 nblocks.data_ptr(), out.data_ptr(), b, n, gm, kb_dim, bm, bn,
+                 DTYPES[x.dtype], SCHEDULES[schedule(b, x.dtype)], stream)
+    _build.check(err, "bsr_matmul")
+    bsr_matmul_kernel.launches += 1
+    return out
+
+
+def bsr_matmul_kernel(x: torch.Tensor, blocks: torch.Tensor,
+                      blockcol: torch.Tensor, nblocks: torch.Tensor
+                      ) -> torch.Tensor:
+    """y = x @ W.T for BCSR W, f32 accumulate.
+
+    x (B, N) f32 or bf16 with N % bn == 0; blocks (gm, KB, bm, bn) of x's
+    dtype; blockcol (gm, KB) int32; nblocks (gm,) int32.  Returns
+    (B, gm*bm) f32.
+    """
+    if x.device.type == "cuda":
+        return _launch(x, blocks, blockcol, nblocks)
+    if x.device.type == "cpu":
+        return bsr_matmul_plain(x, blocks, blockcol, nblocks)
+    raise ValueError(f"bsr_matmul: no kernel for device {x.device}")
+
+
+bsr_matmul_kernel.launches = 0

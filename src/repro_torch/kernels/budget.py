@@ -1,14 +1,18 @@
-"""Hopper limits the two conv kernels check their schedules against.
+"""Hopper limits the port's kernels check their schedules against.
 
 Port of ``repro/kernels/budget.py``.  The TPU budgets (``VMEM_BUDGET`` for
 the staged blocks, ``SMEM_BUDGET`` for the scalar-prefetched indices) have
 no counterpart here: the CUDA kernels read their indices and inputs from
-device memory and stage only a slab of nonzeros (ELL) or one weight tile
-(BCSR) in shared memory.  What bounds a schedule on an H100 is a block's
-shared memory and its thread count (NVIDIA H100 data sheet and the CUDA
-programming guide, compute capability 9.0).
+device memory and stage only a slab of nonzeros (ELL conv), one weight tile
+(BCSR conv), or a query chunk and a kv chunk (flash attention) in shared
+memory; the BCSR matmul stages nothing but its 4 warps' partial sums.  What
+bounds a schedule on an H100 is a block's shared memory and its thread
+count (NVIDIA H100 data sheet and the CUDA programming guide, compute
+capability 9.0).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 # Shared memory one block may use after the opt-in
 # (cudaFuncAttributeMaxDynamicSharedMemorySize): 227 KB of the SM's 256 KB.
@@ -16,10 +20,27 @@ SMEM_MAX = 232_448
 # Without the opt-in a block gets at most 48 KB of dynamic shared memory.
 SMEM_DEFAULT = 48 * 1024
 WARP = 32
-# Both kernels are compiled with __launch_bounds__(256): one thread per output
-# pixel, at most 256 pixels a block, so that up to 16 f32 sums (the tallest
-# BCSR block) stay in registers.
+# Both conv kernels are compiled with __launch_bounds__(256): one thread per
+# output pixel, at most 256 pixels a block, so that up to 16 f32 sums (the
+# tallest BCSR block) stay in registers.
 MAX_THREADS_PER_BLOCK = 256
+
+# BCSR matmul (csrc/bsr_matmul.cu): the block height it instantiates (the
+# (16, 16) tiles ``sparsify_params`` builds), and the largest row count the
+# SIMT ``rows`` schedule takes on bf16 inputs before the tensor-core ``mma``
+# schedule does.  The crossover is not measured: the paths that exist give
+# 4 rows (decode) or thousands (prefill), far on either side of it.
+BSR_MATMUL_BM = (16,)
+BSR_MATMUL_ROWS_MAX = 32
+# rows: 4 warps x 8 rows x BM f32 partial sums, reduced across warps.
+BSR_MATMUL_ROWS_WARPS = 4
+BSR_MATMUL_ROWS_PER_BLOCK = 8
+
+# Flash attention (csrc/flash_attention.cu): 64 query rows and 32 keys a
+# step, head dimensions it instantiates.
+FLASH_BQ = 64
+FLASH_BK = 32
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def ell_smem_bytes(tm: int, ks: int) -> int:
@@ -30,9 +51,35 @@ def ell_smem_bytes(tm: int, ks: int) -> int:
 
 
 def bsr_smem_bytes(bm: int, bn: int) -> int:
-    """Shared memory of one BCSR block: the (bm, bn) f32 weight tile plus
-    the bn int32 input offsets of its decoded columns."""
+    """Shared memory of one BCSR conv block: the (bm, bn) f32 weight tile
+    plus the bn int32 input offsets of its decoded columns."""
     return bm * bn * 4 + bn * 4
+
+
+def bsr_matmul_smem_bytes(bm: int) -> int:
+    """Static shared memory of one ``rows`` block of the BCSR matmul: the
+    warps' f32 partial sums (the ``mma`` schedule uses none)."""
+    return BSR_MATMUL_ROWS_WARPS * BSR_MATMUL_ROWS_PER_BLOCK * bm * 4
+
+
+def bsr_matmul_unsupported(bm: int, bn: int, n: int) -> Optional[str]:
+    """Why the BCSR matmul cannot take a (bm, bn) block over N = ``n``
+    columns, or None."""
+    if bm not in BSR_MATMUL_BM:
+        return f"block height {bm} not one of {BSR_MATMUL_BM}"
+    if bn % 16:
+        return f"block width {bn} not a multiple of 16"
+    if n % bn:
+        return f"N = {n} not a multiple of the block width {bn}"
+    return None
+
+
+def flash_smem_bytes(d: int, bq: int = FLASH_BQ, bk: int = FLASH_BK) -> int:
+    """Dynamic shared memory of one flash-attention block: the scaled query
+    chunk and the key chunk as f32 rows padded by one word (no bank
+    conflicts on the column walk), the value chunk, and the (bq, bk + 1)
+    probabilities."""
+    return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
 
 
 def smem_fits(nbytes: int) -> bool:

@@ -35,15 +35,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"sparse_conv: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"sparse_conv: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"sparse_conv: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"sparse_conv: {name} is not contiguous")
+    _build.check_operand("sparse_conv", name, t, dtype, shape, device)
 
 
 def _launch(xpad, value, packed_idx, nnz, bias, residual, *, rs, s, e, f,

@@ -1,1 +1,2 @@
-"""Model zoo, PyTorch port: the paper's three CNNs."""
+"""Model zoo, PyTorch port: the paper's three CNNs (``cnn``) and the
+dense-attention transformers (``config``, ``layers``, ``transformer``)."""

@@ -1,0 +1,274 @@
+"""The model stack of the dense-attention transformers: embeddings -> layer
+loop -> head.
+
+Port of ``repro/models/transformer.py`` for the ``dense`` family (GQA
+attention + MLP in every layer).  The reference scans a stacked layer tree
+(``stage_plan``) so that its compiled program stays O(1) in depth; PyTorch
+runs eagerly, so the port keeps one params dict per layer under
+``params["layers"]`` and loops over them.  ``params_from_reference`` unstacks
+the reference's tree into that layout.
+
+Entry points:
+  init_params            -- parameters drawn on the card (or ``device``)
+  forward / forward_embeds / hidden_embeds -- full-sequence logits / hidden
+  init_cache / decode_step -- the KV cache and one token step with it
+  params_from_reference  -- the JAX tree (as numpy) as the port's params
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.sparse_format import BcsrMatrix
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    kind: str   # attn | ssm
+    ffn: str    # mlp | moe | none
+
+
+def layer_descs(cfg: ModelConfig) -> List[LayerDesc]:
+    kinds = cfg.layer_kinds()
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_has_moe(i):
+            ffn = "moe"
+        elif cfg.d_ff > 0:
+            ffn = "mlp"
+        else:
+            ffn = "none"
+        out.append(LayerDesc(kinds[i], ffn))
+    return out
+
+
+def stage_plan(cfg: ModelConfig) -> Tuple[List[LayerDesc], List[LayerDesc], int]:
+    """(prefix descs, period descs, n_blocks): layers = prefix + period*n.
+    The reference's layout of its params tree; the port reads it to unstack
+    the tree (``params_from_reference``)."""
+    descs = layer_descs(cfg)
+    npre = cfg.first_dense_layers
+    rest = descs[npre:]
+    if not rest:
+        return descs, [], 0
+    for p in range(1, len(rest) + 1):
+        if len(rest) % p == 0 and rest == rest[:p] * (len(rest) // p):
+            return descs[:npre], rest[:p], len(rest) // p
+    return descs[:npre], rest, 1
+
+
+def _check_supported(cfg: ModelConfig) -> List[LayerDesc]:
+    descs = layer_descs(cfg)
+    for d in descs:
+        if d.kind != "attn" or d.ffn == "moe" or cfg.use_mla:
+            raise NotImplementedError(
+                f"{cfg.name}: {d} layers (MLA, MoE, Mamba2) wait for a later "
+                f"slice of the port")
+    return descs
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, desc: LayerDesc,
+                dtype, device) -> Params:
+    p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+                 "mixer": L.init_attention(gen, cfg, dtype, device)}
+    if desc.ffn != "none":
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
+                              device)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device="cuda") -> Params:
+    """Parameters from the reference's distributions (embed: truncated
+    normal x 0.02; projections: truncated normal x d_in**-0.5; norms 1;
+    biases 0), drawn from ``gen`` on ``device`` in f32 and cast to the
+    config's dtype one matrix at a time."""
+    dev = resolve_device(device)
+    descs = _check_supported(cfg)
+    dtype = _dtype(cfg)
+    params: Params = {
+        "embed": (L.truncated_normal((cfg.vocab, cfg.d_model), gen, dev)
+                  * 0.02).to(dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype,
+                                         dev)
+    params["layers"] = [_init_layer(gen, cfg, d, dtype, dev) for d in descs]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor, cache: Optional[Params],
+               cur_len) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    mix, _ = L.attention_fwd(p["mixer"], h, positions, cfg, cache=cache,
+                             cur_len=cur_len)
+    x = x + mix
+    if "ffn" in p:
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_fwd(p["ffn"], h2, cfg.mlp_act)
+    return x
+
+
+def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
+                  positions: Optional[torch.Tensor] = None,
+                  cache: Optional[Params] = None,
+                  cur_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """embeds: (B, T, D) -> (final hidden states (B, T, D), cache).  With a
+    cache, every layer writes its K and V at ``cur_len`` in place."""
+    b, t, _ = embeds.shape
+    if positions is None:
+        if cur_len is not None:
+            positions = torch.full((b, t), int(cur_len), dtype=torch.int32,
+                                   device=embeds.device)
+        else:
+            positions = torch.arange(t, dtype=torch.int32,
+                                     device=embeds.device).expand(b, t)
+    x = embeds
+    for i, p in enumerate(params["layers"]):
+        c = cache["layers"][i] if cache is not None else None
+        x = _layer_fwd(cfg, p, x, positions, c, cur_len)
+    return x, cache
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.apply_linear(head, x)
+
+
+def forward_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
+                   positions: Optional[torch.Tensor] = None,
+                   cache: Optional[Params] = None,
+                   cur_len: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """embeds: (B, T, D) -> (logits (B, T, V), cache)."""
+    x, cache = hidden_embeds(params, embeds, cfg, positions=positions,
+                             cache=cache, cur_len=cur_len)
+    return _head(params, cfg, x), cache
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(_dtype(cfg))
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache: Optional[Params] = None,
+            cur_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """tokens: (B, T) int -> (logits (B, T, V), cache)."""
+    return forward_embeds(params, embed(params, tokens, cfg), cfg,
+                          cache=cache, cur_len=cur_len)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Params:
+    dev = resolve_device(device)
+    descs = _check_supported(cfg)
+    return {"layers": [L.init_attention_cache(cfg, batch, max_len,
+                                              _dtype(cfg), dev)
+                       for _ in descs]}
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Params, cur_len: int) -> Tuple[torch.Tensor, Params]:
+    """One decode step.  tokens: (B, 1); cur_len: the shared write position.
+    Returns the last position's logits (B, V) and the cache, updated in
+    place."""
+    logits, cache = forward(params, tokens, cfg, cache=cache, cur_len=cur_len)
+    return logits[:, -1], cache
+
+
+# ---------------------------------------------------------------------------
+# the reference's params, carried over
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (bf16 from ``ml_dtypes`` included) as a tensor.
+    ``torch.from_numpy`` refuses ml_dtypes' bfloat16, so it crosses as its
+    uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _is_bcsr(leaf) -> bool:
+    return all(hasattr(leaf, n) for n in ("blocks", "blockcol", "nblocks",
+                                          "block"))
+
+
+def _convert(tree, device, dtype, index: Optional[int] = None):
+    """The reference's subtree as the port's: arrays become tensors and
+    BCSR leaves ``BcsrMatrix``es with tiles in the model's dtype; with
+    ``index``, the stacked leading axis is sliced first."""
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, index) for k, v in tree.items()}
+    if _is_bcsr(tree):
+        pick = (lambda a: np.asarray(a)[index]) if index is not None else (
+            lambda a: np.asarray(a))
+        return BcsrMatrix(blocks=_tensor(pick(tree.blocks), device, dtype),
+                          blockcol=_tensor(pick(tree.blockcol), device,
+                                           torch.int32),
+                          nblocks=_tensor(pick(tree.nblocks), device,
+                                          torch.int32),
+                          shape=tuple(tree.shape), block=tuple(tree.block))
+    a = np.asarray(tree)
+    return _tensor(a[index] if index is not None else a, device)
+
+
+def params_from_reference(np_params: Params, cfg: ModelConfig,
+                          device="cuda") -> Params:
+    """The reference's ``init_params`` tree (leaves as numpy arrays, bf16
+    ones included; ``BcsrMatrix`` leaves from its ``sparsify_params``,
+    stacked over the scanned layers) as the port's params.
+
+    Stacked leaves are sliced per layer.  A stacked BCSR leaf keeps the
+    stack's tile count KB (rows padded to the deepest layer's); its padding
+    tiles are inert and the kernel stops at ``nblocks``.  BCSR tiles are
+    cast to the model's dtype: the reference prunes in f32 and keeps f32
+    tiles, whose values came from the model's dtype, so the cast is exact,
+    and the kernel takes tiles of its input's dtype.
+    """
+    dev = resolve_device(device)
+    descs = _check_supported(cfg)
+    dtype = _dtype(cfg)
+    prefix, period, nblocks = stage_plan(cfg)
+    layers = [_convert(p, dev, dtype) for p in np_params["prefix"]]
+    for bi in range(nblocks):
+        for j in range(len(period)):
+            layers.append(_convert(np_params["stack"][f"sub{j}"], dev, dtype,
+                                   index=bi))
+    assert len(layers) == len(descs), (len(layers), len(descs))
+    out: Params = {k: _convert(np_params[k], dev, dtype)
+                   for k in ("embed", "final_norm", "lm_head")
+                   if k in np_params}
+    out["layers"] = layers
+    return out

@@ -1,0 +1,126 @@
+"""The port's BCSR matmul against the JAX package's.
+
+The same numpy inputs go through the reference's ``bsr_matmul`` (its Pallas
+kernel in interpret mode), its ``core.sparse_linear.bcsr_matmul`` (the
+product the model's ``apply_linear`` computes) and the port's ``bsr_matmul``
+on CPU tensors (the kernel's plain version).  f32 inputs are held to
+rtol = atol = 1e-5 (the same f32 products, summed in another order); bf16
+inputs to 1e-2 (both cast the f32 sums back to bf16, which rounds at
+2**-8 relative, and one rounding may land on either side).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import pruning as ref_pruning  # noqa: E402
+from repro.core import sparse_format as ref_fmt  # noqa: E402
+from repro.core import sparse_linear as ref_linear  # noqa: E402
+from repro.kernels.bsr_matmul import ops as ref_ops  # noqa: E402
+from repro_torch.core import sparse_format as fmt  # noqa: E402
+from repro_torch.core import sparse_linear  # noqa: E402
+from repro_torch.kernels.bsr_matmul import kernel as bk  # noqa: E402
+from repro_torch.kernels.bsr_matmul import ops, ref  # noqa: E402
+from repro_torch.models.transformer import _tensor  # noqa: E402
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=1e-2, atol=1e-2)
+
+# (x shape, M, N, block, sparsity): leading batch dims, N not a multiple of
+# bn, rows not a multiple of the reference's batch tile or of either CUDA
+# schedule's row tile.
+CASES = [
+    ((8, 64), 64, 64, (16, 16), 0.5),
+    ((2, 3, 96), 80, 96, (16, 16), 0.8),
+    ((37, 72), 48, 72, (16, 16), 0.6),        # N % bn
+    ((5, 200), 64, 200, (16, 128), 0.5),      # N % bn, bn 128
+    ((2, 16, 128), 128, 128, (16, 16), 0.8),  # 32 rows, smoke prefill
+    ((4, 1, 64), 128, 64, (16, 16), 0.8),     # decode: 4 rows of one token
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _inputs(case, dtype):
+    xshape, m, n, block, sp = case
+    rng = np.random.default_rng(abs(hash(case)) % 2**31)
+    w = np.asarray(ref_pruning.block_prune(
+        jnp.asarray(rng.standard_normal((m, n)).astype(np.float32)), sp,
+        block)).astype(dtype)
+    x = np.array(jnp.asarray(rng.standard_normal(xshape), dtype=dtype))
+    return x, w
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_bsr_matmul_f32_matches_reference(case):
+    x, w = _inputs(case, jnp.float32)
+    block = case[3]
+    ref_bc = ref_fmt.bcsr_from_dense(w, block)
+    want_kernel = np.asarray(ref_ops.bsr_matmul(jnp.asarray(x), ref_bc,
+                                                interpret=True))
+    want_linear = np.asarray(ref_linear.bcsr_matmul(jnp.asarray(x), ref_bc))
+    bc = fmt.bcsr_from_dense(w, block, device="cpu")
+    got = ops.bsr_matmul(torch.from_numpy(x), bc)
+    assert got.dtype == torch.float32 and got.shape == want_kernel.shape
+    np.testing.assert_allclose(got.numpy(), want_kernel, **F32)
+    np.testing.assert_allclose(got.numpy(), want_linear, **F32)
+    np.testing.assert_allclose(
+        sparse_linear.bcsr_matmul(torch.from_numpy(x), bc).numpy(),
+        want_linear, **F32)
+    np.testing.assert_allclose(
+        sparse_linear.dense_matmul(torch.from_numpy(x),
+                                   torch.from_numpy(w)).numpy(),
+        np.asarray(ref_linear.dense_matmul(jnp.asarray(x), jnp.asarray(w))),
+        **F32)
+
+
+@pytest.mark.parametrize("case", CASES[:4], ids=str)
+def test_bsr_matmul_bf16_matches_reference(case):
+    x, w = _inputs(case, jnp.bfloat16)
+    block = case[3]
+    ref_bc = ref_fmt.bcsr_from_dense(w, block)
+    want = np.asarray(ref_ops.bsr_matmul(jnp.asarray(x), ref_bc,
+                                         interpret=True)).astype(np.float32)
+    bc = fmt.bcsr_from_dense(_tensor(w, "cpu"), block)
+    got = ops.bsr_matmul(_tensor(x, "cpu"), bc)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16)
+
+
+def test_plain_version_stops_at_nblocks():
+    """Tiles past nblocks are never read: poisoned padding changes nothing."""
+    w = np.zeros((32, 64), np.float32)
+    w[16:, :16] = 1.0
+    bc = fmt.bcsr_from_dense(w, (16, 16), pad_to=2, device="cpu")
+    blocks = bc.blocks.clone()
+    blocks[:, 1] = float("nan")               # every row keeps <= 1 tile
+    out = bk.bsr_matmul_kernel(torch.ones((4, 64)), blocks, bc.blockcol,
+                               bc.nblocks)
+    np.testing.assert_array_equal(out[:, :16].numpy(), 0.0)
+    np.testing.assert_array_equal(out[:, 16:].numpy(), 16.0)
+    np.testing.assert_allclose(
+        out.numpy(), ref.bsr_matmul_ref(torch.ones((4, 64)), bc).numpy())
+
+
+def test_schedule_and_wrapper_checks():
+    assert bk.schedule(4, torch.bfloat16) == "rows"
+    assert bk.schedule(8192, torch.bfloat16) == "mma"
+    assert bk.schedule(8192, torch.float32) == "rows"
+    bc = fmt.bcsr_from_dense(np.ones((32, 64), np.float32), (16, 16),
+                             device="cpu")
+    with pytest.raises(ValueError, match="last dim"):
+        ops.bsr_matmul(torch.ones((2, 63)), bc)
+    before = bk.bsr_matmul_kernel.launches
+    ops.bsr_matmul(torch.ones((2, 64)), bc)     # CPU: the plain version
+    assert bk.bsr_matmul_kernel.launches == before
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        bk.bsr_matmul_kernel(torch.ones((2, 64), device="meta"), bc.blocks,
+                             bc.blockcol, bc.nblocks)

@@ -10,7 +10,8 @@ from repro_torch.kernels import _build  # noqa: E402
 
 
 def test_every_kernel_source_is_in_the_package():
-    assert set(_build.SOURCES) == {"sparse_conv", "bsr_conv"}
+    assert set(_build.SOURCES) == {"sparse_conv", "bsr_conv", "bsr_matmul",
+                                   "flash_attention"}
     for src in _build.SOURCES.values():
         text = src.read_text()
         assert 'extern "C" int' in text
@@ -55,3 +56,38 @@ def test_nonzero_cuda_error_raises():
     _build.check(0, "sparse_conv")
     with pytest.raises(RuntimeError, match="bsr_conv: CUDA launch failed"):
         _build.check(9, "bsr_conv")
+
+
+def test_operand_checks_name_the_kernel_and_the_fault():
+    import torch
+
+    t = torch.zeros((2, 3))
+    cpu = torch.device("cpu")
+    _build.check_operand("k", "x", t, torch.float32, (2, 3), cpu)
+    for args, kw, msg in [
+            ((t, torch.int32, (2, 3), cpu), {}, "k: x has dtype"),
+            ((t, torch.float32, (3, 2), cpu), {}, "k: x has shape"),
+            ((t, torch.float32, (2, 3), torch.device("meta")), {}, "k: x is on"),
+            ((t.T, torch.float32, (3, 2), cpu), {}, "k: x is not contiguous"),
+            ((t.T, torch.float32, (3, 2), cpu), {"rows_strided": True},
+             "k: x is not contiguous")]:
+        with pytest.raises(ValueError, match=msg):
+            _build.check_operand("k", "x", *args, **kw)
+    # a transposed view of (B, T, H, d) has a contiguous last axis
+    _build.check_operand("k", "x", torch.zeros((2, 4, 3, 8)).transpose(1, 2),
+                         torch.float32, (2, 3, 4, 8), cpu, rows_strided=True)
+
+
+def test_new_kernels_fit_the_cards_shared_memory():
+    from repro_torch.kernels import budget
+
+    for bm in budget.BSR_MATMUL_BM:   # static __shared__: no opt-in
+        assert budget.bsr_matmul_smem_bytes(bm) <= budget.SMEM_DEFAULT
+    for d in budget.FLASH_HEAD_DIMS:  # dynamic, opted in above 48 KB
+        assert budget.smem_fits(budget.flash_smem_bytes(d))
+    assert budget.flash_smem_bytes(128) == 74_368
+    assert budget.bsr_matmul_unsupported(16, 16, 4096) is None
+    assert "block height" in budget.bsr_matmul_unsupported(64, 16, 4096)
+    assert "multiple of 16" in budget.bsr_matmul_unsupported(16, 8, 4096)
+    assert "not a multiple of the block width" in \
+        budget.bsr_matmul_unsupported(16, 16, 4100)

@@ -41,6 +41,9 @@ def test_port_has_modules_to_scan():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/kernels/sparse_conv/kernel.py" in names
     assert "src/repro_torch/kernels/bsr_conv/kernel.py" in names
+    assert "src/repro_torch/kernels/bsr_matmul/kernel.py" in names
+    assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
+    assert "src/repro_torch/serving/scheduler.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and a smoke transformer through both of its kernels against the CPU.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one.  On a machine with an H100::
@@ -11,10 +12,20 @@ multiple of the pixel tile), M not a multiple of the channel tile or block
 height, K longer than one staged slab, the fused residual tail, a balanced
 bank, and BCSR right-padding columns past C*R*S.
 
+The BCSR matmul cases cover both schedules (``rows``, ``mma``), (16, 16)
+and (16, 128) tiles and ragged row counts; the flash cases
+GQA 8:1 at d = 128 with T = 200 (not a multiple of either chunk), causal and
+full, S != T.
+
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
 does, in the same nonzero order, so it agrees to 1e-6; the BCSR kernel sums
 up to C*R*S products in another order than the library contraction of its
-plain version, so it is held to rtol = atol = 1e-4.
+plain version, so it is held to rtol = atol = 1e-4.  The BCSR matmul sums each output
+in f32 in its own order: 1e-4 of the output's largest magnitude.  Flash
+attention rescales its sums chunk by chunk where the plain version takes
+whole rows: O to 2e-5 in f32; in bf16 each element to one bf16 rounding of
+the output plus 1e-3 of the output's rms, a limit that p v in bf16 exceeds;
+lse to 1e-4.
 """
 import numpy as np
 import pytest
@@ -135,3 +146,198 @@ def test_refused_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         sparse_conv_kernel(xt, ell.value, pack_indices(ell), ell.nnz, bias,
                            rs=9, s=3, e=8, f=8, tp=2048)
+
+
+# -- BCSR matmul ---------------------------------------------------------
+# (rows, M, N, block, dtype, schedule): (16, 16) tiles as the transformer's
+# banks, (16, 128) tiles, rows not a multiple of either schedule's row tile
+# (8 for rows, 256 for mma), bf16 row counts on both sides of
+# budget.BSR_MATMUL_ROWS_MAX, which picks the schedule.
+BSR_MATMUL_CASES = [
+    (4, 256, 512, (16, 16), torch.bfloat16, "rows"),
+    (13, 96, 256, (16, 16), torch.float32, "rows"),
+    (40, 64, 256, (16, 16), torch.bfloat16, "mma"),
+    (300, 160, 384, (16, 16), torch.bfloat16, "mma"),
+    (29, 64, 512, (16, 128), torch.bfloat16, "rows"),
+    (515, 128, 1024, (16, 128), torch.bfloat16, "mma"),
+    (129, 48, 256, (16, 128), torch.float32, "rows"),
+]
+
+
+@pytest.mark.parametrize("case", BSR_MATMUL_CASES, ids=str)
+def test_bsr_matmul_kernel_matches_plain(cuda_device, case):
+    from repro_torch.core.pruning import block_prune
+    from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       schedule)
+    from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+
+    rows, m, n, block, dtype, sched = case
+    assert schedule(rows, dtype) == sched
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    w = torch.randn((m, n), generator=gen, device=cuda_device)
+    bc = bcsr_from_dense(block_prune(w, 0.8, block).to(dtype), block)
+    x = torch.randn((rows, n), generator=gen, device=cuda_device).to(dtype)
+    before = bsr_matmul_kernel.launches
+    got = bsr_matmul_kernel(x, bc.blocks, bc.blockcol, bc.nblocks)
+    torch.cuda.synchronize()
+    assert bsr_matmul_kernel.launches == before + 1
+    want = bsr_matmul_plain(x, bc.blocks, bc.blockcol, bc.nblocks)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_bsr_matmul_padding_tiles_are_not_read(cuda_device):
+    """The kernel stops at nblocks: poisoned padding tiles change nothing."""
+    from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       schedule)
+
+    w = torch.zeros((32, 64), device=cuda_device)
+    w[:16, :] = 1.0            # block-row 0 keeps 4 tiles, block-row 1 none
+    bc = bcsr_from_dense(w, (16, 16))
+    blocks = bc.blocks.clone()
+    blocks[1] = float("nan")
+    x = torch.ones((40, 64), device=cuda_device)
+    for sched, dt in (("rows", torch.float32), ("mma", torch.bfloat16)):
+        assert schedule(40, dt) == sched
+        got = bsr_matmul_kernel(x.to(dt), blocks.to(dt), bc.blockcol,
+                                bc.nblocks)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :16], torch.full((40, 16), 64.0,
+                                                   device=cuda_device))
+        assert torch.equal(got[:, 16:], torch.zeros((40, 16),
+                                                    device=cuda_device))
+
+
+# -- flash attention forward ---------------------------------------------
+# (B, H, KV, T, S, d, causal, dtype)
+FLASH_CASES = [
+    (2, 8, 1, 200, 200, 128, True, torch.bfloat16),    # GQA 8:1, ragged T
+    (2, 8, 1, 200, 200, 128, False, torch.bfloat16),
+    (1, 4, 4, 77, 77, 64, True, torch.float32),
+    (1, 4, 2, 64, 96, 16, False, torch.float32),       # S != T, full
+    (2, 32, 4, 256, 256, 128, True, torch.bfloat16),   # Yi-9B heads
+]
+# bf16 O: per element, one bf16 rounding of the output (2^-8 of |O|) plus
+# FLASH_O_ATOL of the output's rms.  p v with p rounded to bf16 (a fault
+# that leaves the softmax, and so lse, right) must exceed it.
+FLASH_O_ATOL = 1e-3
+
+
+def _o_excess(o, want):
+    """Largest error of ``o`` against the f32 ``want`` beyond one bf16
+    rounding of the output, in units of ``want``'s rms."""
+    err = (o.float() - want).abs() - 2.0 ** -8 * want.abs()
+    return float(err.max() / want.pow(2).mean().sqrt())
+
+
+def _pv_bf16(q, k, v, *, sc, causal):
+    """The plain version with p rounded to bf16 before p v: the control
+    that the O check must reject."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    qf = q.reshape(b, kv, h // kv, t, d).float() * sc
+    logits = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2))
+    if causal:
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p.to(torch.bfloat16).float(), v.float()[:, :, None])
+    out = out / p.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, t, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda_device, case):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    b, h, kv, t, s, d, causal, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(t + d)
+    q = torch.randn((b, h, t, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((b, kv, s, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, kv, s, d), generator=gen, device=cuda_device).to(dtype)
+    sc = d ** -0.5
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    # the plain version on f32 copies: O before its rounding to q's dtype
+    o_want, lse_want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                             sc=sc, causal=causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert _o_excess(o, o_want) <= FLASH_O_ATOL
+        assert _o_excess(_pv_bf16(q, k, v, sc=sc, causal=causal),
+                         o_want) > FLASH_O_ATOL
+    else:
+        assert float((o - o_want).abs().max()) <= 2e-5
+    assert float((lse - lse_want).abs().max()) <= 1e-4
+
+
+def test_flash_attention_reads_the_model_layout(cuda_device):
+    """ops.flash_attention_bthd hands the kernel transposed views of the
+    (B, T, H, d) tensors and returns O in that layout."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((2, 70, 8, 64), generator=gen, device=cuda_device)
+    k = torch.randn((2, 70, 2, 64), generator=gen, device=cuda_device)
+    v = torch.randn((2, 70, 2, 64), generator=gen, device=cuda_device)
+    got = flash_attention_bthd(q, k, v, causal=True)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=True).transpose(1, 2)
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen1.5-0.5b"])
+def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device, arch):
+    """A smoke config at sparsity 0.8 under flash attention: the forward and
+    a few decode steps on the card (both kernels) against the same params on
+    the CPU (their plain versions)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import sparsify_params
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import flags
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    params = sparsify_params(
+        T.init_params(cfg, torch.Generator().manual_seed(0), cpu), cfg, 0.8)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        if isinstance(tree, torch.Tensor):
+            return tree.to(cuda_device)
+        return dataclasses.replace(tree, blocks=to_card(tree.blocks),
+                                   blockcol=to_card(tree.blockcol),
+                                   nblocks=to_card(tree.nblocks))
+
+    on_card = to_card(params)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator()
+                         .manual_seed(1))
+    flags.set_attn_impl("flash")
+    try:
+        want, _ = T.forward(params, toks, cfg)
+        got, _ = T.forward(on_card, toks.to(cuda_device), cfg)
+    finally:
+        flags.set_attn_impl("chunked")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    step = make_serve_step(cfg)
+    c_cpu = T.init_cache(cfg, 2, 8, cpu)
+    c_gpu = T.init_cache(cfg, 2, 8, cuda_device)
+    for i in range(8):
+        n_cpu, c_cpu = step(params, toks[:, i:i + 1], c_cpu, i)
+        n_gpu, c_gpu = step(on_card, toks[:, i:i + 1].to(cuda_device), c_gpu, i)
+        assert torch.equal(n_gpu.cpu(), n_cpu)
