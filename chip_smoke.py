@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's pruned-CNN inference and Yi-9B serving paths on
-one NVIDIA card.
+"""Drive the PyTorch port's pruned-CNN inference, Yi-9B serving and Yi-9B
+training paths on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -85,10 +85,44 @@ Phases (any failure exits non-zero and prints no result):
               its budget with ids below 64000, every tick 336 ``bsr_matmul``
               and 0 flash launches; the line carries ticks, ms per tick,
               generated tokens per second and one profiled decode step.
-8. the ``kernels`` JSON line, then the card's name and power limit, then
+8. llm bwd kernels -- both flash backward kernels at Yi-9B's ``train_4k``
+              shape (B 1, H 32, KV 4, T = S = 4096, d 128, causal, bf16) on
+              the (B, H, T, d) views of (B, T, H, d) tensors that the
+              autograd Function hands them, with O and lse from the forward
+              kernel, against ``flash_attention_bwd_plain`` on f32 copies:
+              each element of dQ, dK and dV within one bf16 rounding (2^-8
+              of its magnitude) plus 1e-3 of the gradient's rms, and the same
+              check must reject the control, the plain backward with p
+              rounded to bf16 wherever it is used (dS and dV).
+              ``library_ms`` is the backward of
+              ``F.scaled_dot_product_attention(is_causal=True,
+              enable_gqa=True)`` on the same operands (dQ, dK and dV in one
+              call, given on both rows, as is the plain backward's time).
+              ``bound_ms`` prices q k^T and dO v^T (bf16 x bf16) at
+              989 TFLOP/s and the products of the f32 p and ds (dQ: ds k;
+              dK/dV: p^T dO and ds^T q) at 67 TFLOP/s, over the causal half.
+9. train consistency -- Yi-9B at full width in f32, 2 layers, B 1 x T 2048:
+              the gradient of every parameter through ``flash`` against
+              through ``chunked``, each within 1e-4 of that parameter's
+              largest chunked gradient, and the losses within 1e-5; then one
+              counted ``make_train_step`` step under flash must launch the
+              forward, dQ and dK/dV kernels once per layer each.
+10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
+              bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
+              T 4096) from ``SyntheticLMDataset``, repeated, under flash
+              attention: ``make_train_step`` under ``StepRunner`` for 1
+              warm-up and 5 timed steps, each counted (12 flash forwards,
+              12 dQ, 12 dK/dV, no ``bsr_matmul``), with a finite loss that
+              falls on the repeated batch; the runner saves a checkpoint
+              after the last step (into ``build/``, removed afterwards), and
+              it must restore bit for bit.  The line carries ms per step,
+              tokens per second, peak memory, one profiled step's device
+              busy time, idle share and top kernels, and the share of the
+              busy time the three flash kernels take.
+11. the ``kernels`` JSON line, then the card's name and power limit, then
    the device line last.
 
-Every counted run sets all four launch counters to 0 just before it and
+Every counted run sets all six launch counters to 0 just before it and
 reads them just after; launches made to compare a kernel with its plain
 version are not counted.  Peak rates are the H100 SXM data sheet's (dense,
 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
@@ -103,6 +137,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -122,7 +157,10 @@ IMAGE = 224
 ELL_TOL = 1e-5
 BSR_TOL = 1e-4
 PATH_RTOL = 1e-4
-KERNEL_NAMES = ("sparse_conv", "bsr_conv", "bsr_matmul", "flash_attention")
+KERNEL_NAMES = ("sparse_conv", "bsr_conv", "bsr_matmul", "flash_attention",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 # The transformer path: Yi-9B (48 layers, d_model 4096, 32 heads over 4 kv
 # heads, head_dim 128, d_ff 11008, vocab 64000), weights block-pruned with
@@ -143,6 +181,15 @@ CONSIST_AGREE = 0.95
 PREFILL_SHAPE = (4, 2048)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 4, 128, 8
 SERVE_PROMPT, SERVE_BUDGET = (8, 48), (16, 32)
+# The training path: Yi-9B's train_4k shape (src/repro/models/config.py:149).
+BWD_SHAPE = (1, 32, 4, 4096, 128)     # B, H, KV, T = S, d
+# bf16 dQ, dK, dV, per element: one bf16 rounding + FLASH_BWD_ATOL x rms
+FLASH_BWD_ATOL = 1e-3
+TRAIN_CONSIST_LAYERS, TRAIN_CONSIST_SHAPE = 2, (1, 2048)
+TRAIN_GRAD_TOL = 1e-4                 # x the leaf's largest chunked gradient
+TRAIN_LOSS_TOL = 1e-5                 # x |loss|
+TRAIN_LAYERS, TRAIN_SHAPE = 12, (1, 4096)
+TRAIN_WARMUP, TRAIN_TIMED = 1, 5
 
 
 class SmokeFailure(Exception):
@@ -170,12 +217,13 @@ def time_cuda(torch, fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int, launches_per_call: int = 0) -> float:
     """Device milliseconds per call: the CUDA kernels of ``reps`` calls of
     ``fn`` (after one warm-up call), summed under ``torch.profiler``.  Host
     launch overhead is left out, which CUDA events around back-to-back
     launches do not do when a kernel is shorter than its launch.  Where the
-    profiler records no device time, CUDA events time the calls instead
+    profiler records no device time, or (given ``launches_per_call``) fewer
+    kernels than the calls launched, CUDA events time the calls instead
     (said on stderr)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -185,12 +233,15 @@ def device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total > 0:
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    recorded = sum(e.count for e in kernels)
+    if total > 0 and recorded >= reps * launches_per_call:
         return total / 1e3 / reps
-    print("chip_smoke: the profiler recorded no device time; timed with "
-          "CUDA events", file=sys.stderr, flush=True)
+    print(f"chip_smoke: the profiler recorded {recorded} kernels and "
+          f"{total / 1e3} ms of device time for {reps} calls; timed with "
+          f"CUDA events", file=sys.stderr, flush=True)
     return time_cuda(torch, fn, reps=reps, warmup=1)
 
 
@@ -222,12 +273,15 @@ def conv_bytes(op, w, batch: int) -> int:
                 + (out if op.res is not None else 0) + out)
 
 
-def device_breakdown(torch, fn, forward_ms: float, top: int = 6) -> dict:
+def device_breakdown(torch, fn, forward_ms: float, top: int = 6,
+                     group=()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device time summed over
     the CUDA kernels it ran (one stream, so the sum is the busy time), the
     idle share of an unprofiled forward of ``forward_ms`` (the profiler's own
     host overhead would inflate a profiled wall time), and the kernels that
-    took the most device time."""
+    took the most device time; with ``group``, also the device time of the
+    kernels whose names hold one of its strings, and its share of the busy
+    time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -238,10 +292,16 @@ def device_breakdown(torch, fn, forward_ms: float, top: int = 6) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    return {"device_busy_ms": busy_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / forward_ms),
-            "kernel_launches": sum(k[2] for k in kernels),
-            "top_kernels": [[name[:60], ms, n] for name, ms, n in kernels[:top]]}
+    out = {"device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / forward_ms),
+           "kernel_launches": sum(k[2] for k in kernels),
+           "top_kernels": [[name[:60], ms, n] for name, ms, n in kernels[:top]]}
+    if group:
+        group_ms = sum(ms for name, ms, _ in kernels
+                       if any(g in name for g in group))
+        out.update(group_ms=group_ms,
+                   group_share=group_ms / busy_ms if busy_ms else 0.0)
+    return out
 
 
 def kernel_phase(torch, mods, nets, device, batch, seed):
@@ -521,7 +581,7 @@ def llm_kernel_phase(torch, mods, device, seed):
             reps = 50 if rows <= 64 else 10
             event_ms = time_cuda(torch, lambda: bk(*args), reps=reps,
                                  warmup=3)
-            ms = device_ms(torch, lambda: bk(*args), reps)
+            ms = device_ms(torch, lambda: bk(*args), reps, 1)
             plain_ms = device_ms(torch, lambda: plain(*args), 1)
             library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib),
                                    reps)
@@ -583,7 +643,7 @@ def llm_kernel_phase(torch, mods, device, seed):
     torch.cuda.empty_cache()
     event_ms = time_cuda(torch, lambda: fk(q, k, v, sc=sc, causal=True),
                          reps=5, warmup=1)
-    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=True), 5)
+    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=True), 5, 1)
     plain_ms = device_ms(torch, lambda: fplain(q, k, v, sc=sc, causal=True), 1)
     library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 5)
@@ -684,7 +744,9 @@ def llm_prefill_phase(torch, mods, device, seed):
             counts = read_counts(mods)
             want = {"sparse_conv": 0, "bsr_conv": 0,
                     "bsr_matmul": cfg.n_layers * 7 if sparsity else 0,
-                    "flash_attention": cfg.n_layers}
+                    "flash_attention": cfg.n_layers,
+                    "flash_attention_bwd_dq": 0,
+                    "flash_attention_bwd_dkv": 0}
             check(counts == want, f"prefill at sparsity {sparsity}: launches "
                   f"{counts}, expected {want}")
             for name in counted:
@@ -762,8 +824,9 @@ def llm_serve_phase(torch, mods, device, seed):
               f"serve: request {r.rid} has an id outside the vocabulary")
     n_proj = cfg.n_layers * 7
     check(len(per_tick) == done.ticks and all(
-        c["bsr_matmul"] == n_proj and c["flash_attention"] == 0
-        and c["sparse_conv"] == 0 and c["bsr_conv"] == 0 for c in per_tick),
+        c["bsr_matmul"] == n_proj and all(
+            c[k] == 0 for k in KERNEL_NAMES if k != "bsr_matmul")
+        for c in per_tick),
         f"serve: a tick did not launch bsr_matmul {n_proj} times and flash "
         f"0 times ({per_tick[:3]} ...)")
     tokens = sum(len(r.output) for r in reqs)
@@ -781,6 +844,371 @@ def llm_serve_phase(torch, mods, device, seed):
     del params, engine, cache
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the transformer training path (Yi-9B)
+# ---------------------------------------------------------------------------
+
+def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc):
+    """The causal plain backward with p rounded to bf16 wherever it is used
+    (dS and dV): a fault of the precision the backward keeps p in, which
+    the gradient check must reject.  Returns f32 (dQ, dK, dV)."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.reshape(b, kv, g, t, d).float()
+    dof = do.reshape(b, kv, g, t, d).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    logits = torch.matmul(qf * sc, kf.transpose(-1, -2))
+    mask = (torch.arange(t, device=q.device)[:, None]
+            >= torch.arange(s, device=q.device)[None, :])
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.exp(logits - lse.reshape(b, kv, g, t, 1))
+    del logits
+    p = p.to(torch.bfloat16).float()
+    delta = (dof * o.reshape(b, kv, g, t, d).float()).sum(dim=-1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * sc
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(dim=2) * sc
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2)
+    return dq.reshape(b, h, t, d), dk, dv
+
+
+def llm_bwd_kernel_phase(torch, mods, device, seed):
+    """Both flash backward kernels at Yi-9B's train_4k shape: dQ, dK and dV
+    through ``flash_attention_bthd`` and autograd on the model's (B, T, H, d)
+    bf16 tensors, which is the code the training path runs (the Function's
+    backward, its dO handling and delta), against the plain backward on the
+    strided views the Function hands the kernels; then each kernel timed
+    alone.  Returns per-kernel lists of row dicts."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    b, h, kv, t, d = BWD_SHAPE
+    sc = d ** -0.5
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    fwd = mods["kernels"]["flash_attention"]
+    dq_k = mods["kernels"]["flash_attention_bwd_dq"]
+    dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
+    plain = mods["flash_bwd_plain"]
+
+    def rand(heads):
+        return torch.randn((b, t, heads, d), generator=gen,
+                           device=device).to(bf16)
+
+    leaves = [rand(h).requires_grad_(), rand(kv).requires_grad_(),
+              rand(kv).requires_grad_()]
+    do_bthd = rand(h)
+    out = mods["flash_bthd"](*leaves, causal=True)
+    check(out.grad_fn is not None, "flash backward: flash_attention_bthd's "
+          "output has no grad_fn")
+    launched = (dq_k.launches, dkv_k.launches)
+    out.backward(do_bthd)
+    torch.cuda.synchronize()
+    check((dq_k.launches, dkv_k.launches) == (launched[0] + 1,
+                                              launched[1] + 1),
+          "flash backward: autograd did not launch each kernel once")
+    dq, dk, dv = (x.grad.transpose(1, 2) for x in leaves)
+    # the operands and residuals as the Function hands them to the kernels
+    q, k, v, do = (x.detach().transpose(1, 2)
+                   for x in (*leaves, do_bthd))
+    o, lse = fwd(q, k, v, sc=sc, causal=True)
+    check(torch.equal(o, out.detach().transpose(1, 2)),
+          "flash backward: the forward is not deterministic")
+    del leaves, out, do_bthd
+    # the plain version on f32 copies: gradients before their bf16 rounding
+    want = plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                 sc=sc, causal=True)
+    got = (dq, dk, dv)
+    stats = {}
+    for name, gk, w in zip(("dq", "dk", "dv"), got, want):
+        check(gk.dtype == bf16, f"flash backward: {name} is {gk.dtype}")
+        check(bool(torch.isfinite(gk).all()), f"flash backward: {name} not "
+              f"finite")
+        stats[name] = {"excess": o_excess(gk, w),
+                       "max_abs_err": float((gk.float() - w.to(bf16).float())
+                                            .abs().max()),
+                       "rms": float(w.pow(2).mean().sqrt())}
+    del want
+    torch.cuda.empty_cache()
+    control = flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc)
+    want = plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                 sc=sc, causal=True)
+    for name, c, w in zip(("dq", "dk", "dv"), control, want):
+        stats[name]["control_excess"] = o_excess(c, w)
+    del control, want
+    torch.cuda.empty_cache()
+    for name, st in stats.items():
+        check(st["excess"] <= FLASH_BWD_ATOL,
+              f"flash backward disagrees with its plain version on {name}: "
+              f"{st['excess']} x rms beyond one bf16 rounding (tolerance "
+              f"{FLASH_BWD_ATOL})")
+        check(st["control_excess"] > FLASH_BWD_ATOL,
+              f"the {name} check does not reject p in bf16 "
+              f"({st['control_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
+
+    delta = mods["bwd_delta"](o, do)
+
+    def run_dq():
+        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+
+    def run_dkv():
+        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+
+    times = {}
+    for name, fn in (("flash_attention_bwd_dq", run_dq),
+                     ("flash_attention_bwd_dkv", run_dkv)):
+        times[name] = (device_ms(torch, fn, 5, 1),
+                       time_cuda(torch, fn, reps=5, warmup=1))
+    plain_ms = device_ms(torch, lambda: plain(q, k, v, o, lse, do, sc=sc,
+                                              causal=True), 1)
+    torch.cuda.empty_cache()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    library_ms = device_ms(torch, library, 5)
+    library_event_ms = time_cuda(torch, library, reps=5, warmup=1)
+    del out, leaves
+    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    flops = 2.0 * pairs * d                   # one product over them
+    qkv_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2
+    stat_bytes = 2 * b * h * t * 4            # lse, delta
+    rows = {}
+    for name, shape_out, f32_products, outs in (
+            ("flash_attention_bwd_dq", "dq", 1, q.numel()),
+            ("flash_attention_bwd_dkv", "dk, dv", 2, k.numel() + v.numel())):
+        ms, event_ms = times[name]
+        moved = qkv_bytes + stat_bytes + outs * 2
+        b_ms, b_by = bound(moved, flops_f32=f32_products * flops,
+                           flops_bf16=2 * flops)
+        b16_ms, b16_by = bound(moved, flops_bf16=(2 + f32_products) * flops)
+        errs = [stats[n.strip()] for n in shape_out.split(",")]
+        row = {"kernel": name,
+               "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
+                         "causal": True, "dtype": "bfloat16",
+                         "layout": "(B, T, H, d) views"},
+               "gradients": {n.strip(): stats[n.strip()]
+                             for n in shape_out.split(",")},
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "kernel_ms": ms, "kernel_event_ms": event_ms,
+               "plain_ms": plain_ms, "plain_is": "the whole plain backward",
+               "library_ms": library_ms, "library_event_ms": library_event_ms,
+               "library_is": "the whole SDPA backward (dQ, dK, dV)",
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+               "bound_all_bf16_ms": b16_ms, "bound_all_bf16_by": b16_by,
+               "tflops": (2 + f32_products) * flops / ms / 1e9}
+        print(json.dumps(row), flush=True)
+        rows[name] = [row]
+    del q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_consistency_phase(torch, mods, device, seed):
+    """Yi-9B at full width in f32, 2 layers: every parameter's gradient
+    through flash against through chunked, then one counted train step;
+    returns its launches."""
+    T, flags = mods["T"], mods["flags"]
+    cfg = mods["dc"].replace(mods["yi9b"], dtype="float32",
+                             n_layers=TRAIN_CONSIST_LAYERS)
+    b, t = TRAIN_CONSIST_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed + 40)
+    params = T.init_params(cfg, gen, device)
+    batch = mods["SyntheticLMDataset"](mods["DataConfig"](
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 41)
+    ).batch_for(0)
+    on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    paths = [p for p, _ in mods["tree_paths"](params)]
+    grads, losses = {}, {}
+    for impl in ("chunked", "flash"):
+        flags.set_attn_impl(impl)
+        try:
+            loss, grads[impl] = mods["loss_and_grads"](cfg, params, on_card)
+        finally:
+            flags.set_attn_impl("chunked")
+        losses[impl] = float(loss)
+    worst, worst_path = 0.0, None
+    for path, gf, gc in zip(paths, grads["flash"], grads["chunked"]):
+        check(bool(torch.isfinite(gf).all()),
+              f"train consistency: no finite flash gradient for {path}")
+        scale = float(gc.abs().max())
+        ratio = float((gf - gc).abs().max()) / (TRAIN_GRAD_TOL * scale)
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    loss_err = abs(losses["flash"] - losses["chunked"])
+    del grads
+    torch.cuda.empty_cache()
+    # one counted step of the train step under flash
+    opt_cfg = mods["AdamWConfig"]()
+    state = {"params": params, "opt": mods["adamw_init"](params, opt_cfg)}
+    step = mods["make_train_step"](cfg, opt_cfg, total_steps=10)
+    flags.set_attn_impl("flash")
+    try:
+        reset_counts(mods)
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = read_counts(mods)
+    finally:
+        flags.set_attn_impl("chunked")
+    row = {"phase": "train consistency", "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "batch": b, "seq": t,
+           "reduced": {"n_layers": f"{mods['yi9b'].n_layers} -> "
+                                   f"{cfg.n_layers}"},
+           "loss_flash": losses["flash"], "loss_chunked": losses["chunked"],
+           "grad_leaves": len(paths),
+           "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_path,
+           "grad_tol": f"{TRAIN_GRAD_TOL} x max |chunked grad| per leaf",
+           "step_launches": counts, "step_loss": float(metrics["loss"]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(row), flush=True)
+    check(worst <= 1.0, f"train consistency: the flash gradient of "
+          f"{worst_path} differs from the chunked one by {worst} x the "
+          f"tolerance ({TRAIN_GRAD_TOL} x its largest magnitude)")
+    check(loss_err <= TRAIN_LOSS_TOL * abs(losses["chunked"]),
+          f"train consistency: losses {losses}")
+    n = cfg.n_layers
+    want = {name: (n if name in FLASH_KERNELS else 0)
+            for name in KERNEL_NAMES}
+    check(counts == want, f"train consistency: a step launched {counts}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(metrics["loss"])), "train consistency: loss "
+          "not finite")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+class RepeatLoader:
+    """A loader that yields one batch again and again."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.batch
+
+    def close(self):
+        pass
+
+
+def train_phase(torch, mods, device, seed):
+    """Yi-9B at full width, 12 layers, bf16, through make_train_step under
+    StepRunner, with a checkpoint saved and restored; returns the counted
+    launches."""
+    import shutil
+    T, flags = mods["T"], mods["flags"]
+    full = mods["yi9b"]
+    cfg = mods["dc"].replace(full, n_layers=TRAIN_LAYERS)
+    b, t = TRAIN_SHAPE
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    opt_cfg = mods["AdamWConfig"]()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2**30
+    # the state lives in the holder until the runner takes it, so that no
+    # name here keeps the first step's state alive beside the later ones
+    holder = {"state": mods["init_state"](cfg, opt_cfg, torch.Generator(
+        device=device).manual_seed(seed + 50), device)}
+    n_params = sum(x.numel() for x in mods["tree_flatten"](
+        holder["state"]["params"])[0])
+    state_gb = torch.cuda.memory_allocated() / 2**30 - base_gb
+    batch = mods["SyntheticLMDataset"](mods["DataConfig"](
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 51)
+    ).batch_for(0)
+    step_fn = mods["make_train_step"](cfg, opt_cfg, total_steps=n_steps)
+    per_step = []
+
+    def counted_step(st, bt):
+        reset_counts(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step_fn(st, bt)
+        torch.cuda.synchronize()
+        per_step.append((read_counts(mods), time.perf_counter() - t0))
+        return st, m
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = mods["CheckpointManager"](ckpt_dir, keep=1)
+    runner = mods["StepRunner"](counted_step, mgr,
+                                lambda s: RepeatLoader(batch),
+                                ckpt_every=n_steps)
+    losses = []
+
+    def on_metrics(step, m):
+        if "straggler_flag" not in m:
+            losses.append(m["loss"])
+
+    flags.set_attn_impl("flash")
+    try:
+        t0 = time.perf_counter()
+        state, end = runner.run(holder.pop("state"), 0, n_steps,
+                                on_metrics=on_metrics)
+        run_s = time.perf_counter() - t0
+        check(end == n_steps and len(per_step) == n_steps,
+              f"train: ran to step {end}, {len(per_step)} steps")
+        n = cfg.n_layers
+        want = {name: (n if name in FLASH_KERNELS else 0)
+                for name in KERNEL_NAMES}
+        for i, (counts, _) in enumerate(per_step):
+            check(counts == want, f"train: step {i} launched {counts}, "
+                  f"expected {want}")
+        check(all(math.isfinite(x) for x in losses) and len(losses) == n_steps,
+              f"train: losses {losses}")
+        check(losses[-1] < losses[0], f"train: the loss on the repeated "
+              f"batch did not fall ({losses})")
+        step_ms = sum(dt for _, dt in per_step[TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        # the runner saved step n_steps: it must restore bit for bit
+        t0 = time.perf_counter()
+        restored, ck_step = mgr.restore_latest(state, device="cpu")
+        restore_s = time.perf_counter() - t0
+        check(ck_step == n_steps, f"train: latest checkpoint {ck_step}")
+        live = dict(mods["tree_paths"](state))
+        for path, leaf in mods["tree_paths"](restored):
+            check(leaf.dtype == live[path].dtype
+                  and torch.equal(leaf, live[path].cpu()),
+                  f"train: checkpoint leaf {path} differs after restore")
+        del restored, live
+        holder["state"] = state
+        del state
+
+        def one_step():
+            holder["state"], _ = step_fn(holder["state"], batch)
+
+        breakdown = device_breakdown(torch, one_step, step_ms, top=8,
+                                     group=("flash_fwd_kernel",
+                                            "flash_bwd_dq_kernel",
+                                            "flash_bwd_dkv_kernel"))
+        state = holder.pop("state")
+    finally:
+        flags.set_attn_impl("chunked")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    row = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "params": n_params,
+           "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"},
+           "batch": b, "seq": t, "optimizer": "AdamW, f32 state",
+           "steps": n_steps, "timed_steps": TRAIN_TIMED,
+           "losses": losses, "ms_per_step": step_ms,
+           "step_ms_each": [dt * 1e3 for _, dt in per_step],
+           "tokens_per_s": b * t / (step_ms / 1e3),
+           "peak_gb": peak_gb, "state_gb": state_gb,
+           "launches_per_step": per_step[-1][0],
+           "runner_s": run_s, "restore_s": restore_s}
+    row.update(breakdown)
+    row["attention_ms"] = row.pop("group_ms")
+    row["attention_share"] = row.pop("group_share")
+    print(json.dumps(row), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    total = {name: sum(c[name] for c, _ in per_step) for name in KERNEL_NAMES}
+    return total
 
 
 def main() -> int:
@@ -816,11 +1244,21 @@ def main() -> int:
                                                        schedule)
     from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
     from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels.flash_attention.kernel import (
+        bwd_delta, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
     from repro_torch.launch.serve import sparsify_params
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import (init_state, loss_and_grads,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import StepRunner
+    from repro_torch.tree import tree_flatten, tree_paths
     from repro_torch.models import flags
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import dense_init
@@ -852,7 +1290,9 @@ def main() -> int:
                 kernels={"sparse_conv": sparse_conv_kernel,
                          "bsr_conv": bsr_conv_kernel,
                          "bsr_matmul": bsr_matmul_kernel,
-                         "flash_attention": flash_attention_fwd},
+                         "flash_attention": flash_attention_fwd,
+                         "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                         "flash_attention_bwd_dkv": flash_attention_bwd_dkv},
                 matmul_plain=bsr_matmul_plain, bsr_schedule=schedule,
                 bsr_matmul=bsr_matmul, flash_bthd=flash_attention_bthd,
                 flash_plain=flash_attention_plain, bcsr_matrix=bcsr_from_dense,
@@ -860,7 +1300,15 @@ def main() -> int:
                 sparsify=sparsify_params, flags=flags, dc=dataclasses,
                 make_prefill_step=make_prefill_step,
                 make_serve_step=make_serve_step, ServeEngine=ServeEngine,
-                Request=Request, yi9b=configs.get_config("yi-9b"))
+                Request=Request, yi9b=configs.get_config("yi-9b"),
+                flash_bwd_plain=flash_attention_bwd_plain,
+                bwd_delta=bwd_delta,
+                CheckpointManager=CheckpointManager, DataConfig=DataConfig,
+                SyntheticLMDataset=SyntheticLMDataset, init_state=init_state,
+                make_train_step=make_train_step, AdamWConfig=AdamWConfig,
+                adamw_init=adamw_init, StepRunner=StepRunner,
+                loss_and_grads=loss_and_grads, tree_flatten=tree_flatten,
+                tree_paths=tree_paths)
     nets = {}
     for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
         net = cnn.NETWORKS[name]()
@@ -878,9 +1326,12 @@ def main() -> int:
         llm_consistency_phase(torch, mods, device, args.seed)
         prefill = llm_prefill_phase(torch, mods, device, args.seed)
         serve = llm_serve_phase(torch, mods, device, args.seed)
-        launches["bsr_matmul"] = prefill["bsr_matmul"] + serve["bsr_matmul"]
-        launches["flash_attention"] = (prefill["flash_attention"]
-                                       + serve["flash_attention"])
+        rows.update(llm_bwd_kernel_phase(torch, mods, device, args.seed))
+        consist = train_consistency_phase(torch, mods, device, args.seed)
+        train = train_phase(torch, mods, device, args.seed)
+        for name in KERNEL_NAMES[2:]:
+            launches[name] = sum(run[name] for run in (prefill, serve,
+                                                       consist, train))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -895,6 +1346,12 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:136"),
+        "flash_attention_bwd_dq": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:170"),
+        "flash_attention_bwd_dkv": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:187"),
     }
     times_are = {
         "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
@@ -905,6 +1362,12 @@ def main() -> int:
                       "(Yi-9B, bf16, sparsity 0.8)",
         "flash_attention": "one causal forward, B 4, H 32, KV 4, T 2048, "
                            "d 128, bf16",
+        "flash_attention_bwd_dq": "one causal dQ, B 1, H 32, KV 4, T 4096, "
+                                  "d 128, bf16; plain and library: the whole "
+                                  "backward",
+        "flash_attention_bwd_dkv": "one causal dK/dV, B 1, H 32, KV 4, "
+                                   "T 4096, d 128, bf16; plain and library: "
+                                   "the whole backward",
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -5,7 +5,8 @@ the staged blocks, ``SMEM_BUDGET`` for the scalar-prefetched indices) have
 no counterpart here: the CUDA kernels read their indices and inputs from
 device memory and stage only a slab of nonzeros (ELL conv), one weight tile
 (BCSR conv), or a query chunk and a kv chunk (flash attention) in shared
-memory; the BCSR matmul stages nothing but its 4 warps' partial sums.  What
+memory (the flash backward kernels a query chunk with its dO rows and a kv
+chunk); the BCSR matmul stages nothing but its 4 warps' partial sums.  What
 bounds a schedule on an H100 is a block's shared memory and its thread
 count (NVIDIA H100 data sheet and the CUDA programming guide, compute
 capability 9.0).
@@ -80,6 +81,21 @@ def flash_smem_bytes(d: int, bq: int = FLASH_BQ, bk: int = FLASH_BK) -> int:
     conflicts on the column walk), the value chunk, and the (bq, bk + 1)
     probabilities."""
     return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
+
+
+def flash_bwd_dq_smem_bytes(d: int, bq: int = FLASH_BQ,
+                            bk: int = FLASH_BK) -> int:
+    """Dynamic shared memory of one dQ block: the scaled query rows and their
+    dO rows, the key and value chunks, all f32 rows padded by one word, the
+    (bq, bk + 1) dS tile, and the rows' lse and delta."""
+    return 4 * (2 * bq * (d + 1) + 2 * bk * (d + 1) + bq * (bk + 1) + 2 * bq)
+
+
+def flash_bwd_dkv_smem_bytes(d: int, bq: int = FLASH_BQ,
+                             bk: int = FLASH_BK) -> int:
+    """Dynamic shared memory of one dK/dV block: the dQ block's, plus the
+    (bq, bk + 1) probability tile beside dS."""
+    return flash_bwd_dq_smem_bytes(d, bq, bk) + 4 * bq * (bk + 1)
 
 
 def smem_fits(nbytes: int) -> bool:

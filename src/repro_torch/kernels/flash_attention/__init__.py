@@ -1,1 +1,2 @@
-"""Flash-attention forward: CUDA kernel, launcher, plain version, wrapper."""
+"""Flash attention, forward and backward: CUDA kernels, launchers, plain
+versions, and the autograd wrapper."""

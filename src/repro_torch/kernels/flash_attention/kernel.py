@@ -1,17 +1,23 @@
-"""Launcher of the CUDA flash-attention forward kernel
-(``csrc/flash_attention.cu``).
+"""Launchers of the CUDA flash-attention kernels
+(``csrc/flash_attention.cu``): the forward and the two backward kernels.
 
-Replaces ``_fwd_call`` (``repro/kernels/flash_attention/kernel.py``), the
-forward of the reference's flash attention; its two backward kernels wait
-for the training slice.  ``flash_attention_fwd`` takes q (B, H, T, d) and
-k, v (B, KV, S, d), each with a contiguous last axis and any other strides
-(so the model's (B, T, H, d) tensors go in as transposed views, without a
-copy); for CUDA tensors it launches the kernel on the current stream, for
-CPU tensors it runs the plain version (``ref.py``), and for anything else
-it raises.  A launch that CUDA refuses raises too.
+Replace ``_fwd_call`` and the two ``pallas_call``s of ``_bwd_call``
+(``repro/kernels/flash_attention/kernel.py``).  Every operand shaped like
+q (B, H, T, d) or k, v (B, KV, S, d) needs a contiguous last axis and takes
+any other strides, so the model's (B, T, H, d) tensors go in as transposed
+views, without a copy.
 
-``flash_attention_fwd.launches`` counts the kernel's launches in this
-process.  Only the CUDA branch adds to it, once per launch.
+``flash_attention_fwd`` and ``flash_attention_bwd`` launch their kernels on
+the current stream for CUDA tensors, run the plain versions (``ref.py``)
+for CPU tensors, and raise for anything else.  ``flash_attention_bwd``
+computes ``delta = rowsum(dO * O)`` with torch ops (``bwd_delta``), as the
+reference does with ``jnp`` outside its ``pallas_call``s, then launches
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
+tensors only.  A launch that CUDA refuses raises.
+
+``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
+``flash_attention_bwd_dkv.launches`` count each kernel's launches in this
+process.  Only a launch adds to its count, once.
 """
 from __future__ import annotations
 
@@ -21,22 +27,41 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build, budget
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain, flash_attention_plain)
 
-_SYMBOL = "flash_attention_fwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# C entry point -> (pointer operands, strided operands)
+_SYMBOLS = {"flash_attention_fwd": (5, 4), "flash_attention_bwd_dq": (7, 5),
+            "flash_attention_bwd_dkv": (8, 6)}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = getattr(lib, _SYMBOL)
+def _fn(symbol: str):
+    fn = getattr(_build.load("flash_attention"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
+        pointers, strided = _SYMBOLS[symbol]
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * (3 * strided)
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _call(symbol: str, pointers, sizes, strided, sc, causal, dtype) -> None:
+    """Launch ``symbol`` on the current stream of the operands' card and
+    raise if CUDA refused the launch."""
+    dev = strided[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: the kernels take CUDA tensors, "
+                         f"not {dev}")
+    fn = _fn(symbol)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in pointers), *sizes,
+                 *(st for t in strided for st in t.stride()[:3]),
+                 float(sc), int(causal), DTYPES[dtype], stream)
+    _build.check(err, "flash_attention")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -44,7 +69,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          rows_strided=True)
 
 
-def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
+    """Check q, k, v and the q-shaped ``rows`` operands; returns
+    (B, H, KV, T, S, d)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     dev = q.device
@@ -54,28 +81,35 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(q, "q", q.dtype, (b, h, t, d), dev)
     _check(k, "k", q.dtype, (b, kv, s, d), dev)
     _check(v, "v", q.dtype, (b, kv, s, d), dev)
+    for name, x in rows:
+        _check(x, name, q.dtype, (b, h, t, d), dev)
     if d not in budget.FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not one of "
                          f"{budget.FLASH_HEAD_DIMS}")
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} heads over {kv} kv heads")
-    if not budget.smem_fits(budget.flash_smem_bytes(d)):
+    if not budget.smem_fits(smem_bytes):
         raise ValueError("flash_attention: chunks bust shared memory")
+    return b, h, kv, t, s, d
+
+
+def _check_stats(lse, delta, shape, dev) -> None:
+    for name, x in (("lse", lse), ("delta", delta)):
+        _build.check_operand("flash_attention", name, x, torch.float32,
+                             shape, dev)
+
+
+def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, h, kv, t, s, d = _check_qkv(q, k, v,
+                                   budget.flash_smem_bytes(q.shape[-1]))
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
     # when q is a transposed view of the model's tensor.
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    fn = getattr(_lib(), _SYMBOL)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, h, kv, t, s, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], float(sc), int(causal), DTYPES[q.dtype],
-                 stream)
-    _build.check(err, "flash_attention")
+    _call("flash_attention_fwd", (q, k, v, out, lse), (b, h, kv, t, s, d),
+          (q, k, v, out), sc, causal, q.dtype)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -93,3 +127,71 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor,
+                           delta: torch.Tensor, *, sc: float, causal: bool
+                           ) -> torch.Tensor:
+    """The dQ kernel: q, dO (B, H, T, d), k/v (B, KV, S, d), lse and delta
+    (B, H, T) f32, all on one card -> dQ (B, H, T, d) in q's dtype and
+    memory layout."""
+    b, h, kv, t, s, d = _check_qkv(q, k, v, budget.flash_bwd_dq_smem_bytes(
+        q.shape[-1]), ("do", do))
+    _check_stats(lse, delta, (b, h, t), q.device)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _call("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq),
+          (b, h, kv, t, s, d), (q, k, v, do, dq), sc, causal, q.dtype)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            sc: float, causal: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel: the dQ kernel's operands -> dK, dV (B, KV, S, d)
+    in the dtypes and memory layouts of k and v, each summed over the
+    G query heads of its kv head."""
+    b, h, kv, t, s, d = _check_qkv(q, k, v, budget.flash_bwd_dkv_smem_bytes(
+        q.shape[-1]), ("do", do))
+    _check_stats(lse, delta, (b, h, t), q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    _call("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+          (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal, q.dtype)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in f32: (B, H, T, d) -> (B, H, T)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, sc: float, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward from the forward's residuals: q, O, dO
+    (B, H, T, d), k/v (B, KV, S, d), lse (B, H, T) f32 -> dQ, dK, dV in
+    the dtypes of q, k and v."""
+    if q.device.type == "cuda":
+        delta = bwd_delta(o, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc,
+                                    causal=causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
+                                         causal=causal)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, sc=sc,
+                                         causal=causal)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -12,6 +12,7 @@ Entry points:
   init_params            -- parameters drawn on the card (or ``device``)
   forward / forward_embeds / hidden_embeds -- full-sequence logits / hidden
   init_cache / decode_step -- the KV cache and one token step with it
+  loss_fn                -- next-token cross-entropy, the training objective
   params_from_reference  -- the JAX tree (as numpy) as the port's params
 """
 from __future__ import annotations
@@ -200,6 +201,32 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     place."""
     logits, cache = forward(params, tokens, cfg, cache=cache, cur_len=cur_len)
     return logits[:, -1], cache
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(params: Params, tokens: Optional[torch.Tensor],
+            labels: torch.Tensor, cfg: ModelConfig, *,
+            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross-entropy on f32 logits; tokens (B, T) or embeds
+    (B, T, D), labels (B, T) -> the mean over every position."""
+    if embeds is None:
+        if cfg.mtp_depth:
+            raise NotImplementedError(
+                f"{cfg.name}: the MTP head of the loss waits for a later "
+                f"slice of the port")
+        embeds = embed(params, tokens, cfg)
+    h, _ = hidden_embeds(params, embeds, cfg)
+    return _xent(_head(params, cfg, h), labels)
 
 
 # ---------------------------------------------------------------------------

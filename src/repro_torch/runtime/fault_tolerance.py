@@ -1,14 +1,30 @@
-"""Soft-failure detection for the serving loop.
+"""Fault-tolerance runtime: checkpoint/restart, failure retry, stragglers.
 
-Port of ``StragglerMonitor`` from ``repro/runtime/fault_tolerance.py``: a
-per-step wall-time EWMA with k-sigma straggler flagging, which the serving
-scheduler feeds with its tick times.  The restart loop, the failure
-classifier and the backoff policy come with the slices that use them.
+Port of ``repro/runtime/fault_tolerance.py``, framework-level Python around
+the step:
+
+  StragglerMonitor -- per-step wall-time EWMA with k-sigma straggler
+      flagging; the serving scheduler feeds it its tick times, the training
+      loop its step times.
+  FailureDetector  -- classifies a step's exception as retryable (transient
+      collective / network markers) or fatal; counts strikes.
+  StepRunner       -- the restart loop: run a step, on a retryable failure
+      restore the latest committed checkpoint and continue; on repeated
+      failure escalate to the caller.
+
+``Backoff``, the reference's retry delay, waits for the slice that ports
+its only user, ``repro/serving/robust.py``.
 """
 from __future__ import annotations
 
 import collections
-from typing import Optional
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+RETRYABLE_MARKERS = (
+    "DEADLINE_EXCEEDED", "UNAVAILABLE", "ABORTED", "collective",
+    "socket closed", "connection reset", "heartbeat",
+)
 
 
 class StragglerMonitor:
@@ -40,3 +56,85 @@ class StragglerMonitor:
         self.mean += self.alpha * d
         self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
         return is_straggler
+
+
+class FailureDetector:
+    def __init__(self, max_strikes: int = 3):
+        self.max_strikes = max_strikes
+        self.strikes = 0
+
+    def classify(self, exc: BaseException) -> str:
+        msg = str(exc)
+        if any(m.lower() in msg.lower() for m in RETRYABLE_MARKERS):
+            return "retryable"
+        return "fatal"
+
+    def record(self, exc: BaseException) -> str:
+        kind = self.classify(exc)
+        if kind == "retryable":
+            self.strikes += 1
+            if self.strikes >= self.max_strikes:
+                return "escalate"
+        return kind
+
+    def reset(self) -> None:
+        self.strikes = 0
+
+
+class StepRunner:
+    """Checkpoint/restart training loop wrapper.
+
+    run() executes steps, saving every ``ckpt_every``; a retryable failure
+    restores the latest committed checkpoint and resumes; repeated failures
+    escalate.
+    """
+
+    def __init__(self, step_fn: Callable[[Any, Any], Tuple[Any, Dict]],
+                 ckpt_manager, loader_factory: Callable[[int], Any], *,
+                 ckpt_every: int = 100,
+                 monitor: Optional[StragglerMonitor] = None,
+                 detector: Optional[FailureDetector] = None):
+        self.step_fn = step_fn
+        self.ckpt = ckpt_manager
+        self.loader_factory = loader_factory
+        self.ckpt_every = ckpt_every
+        self.monitor = monitor or StragglerMonitor()
+        self.detector = detector or FailureDetector()
+
+    def run(self, state: Any, start_step: int, num_steps: int,
+            *, on_metrics: Optional[Callable[[int, Dict], None]] = None):
+        step = start_step
+        loader = self.loader_factory(step)
+        while step < start_step + num_steps:
+            batch = next(loader)
+            t0 = time.time()
+            try:
+                state, metrics = self.step_fn(state, batch)
+                # float() waits for the card, so failures surface inside the
+                # try and timings are real
+                metrics = {k: float(v) for k, v in metrics.items()}
+            except Exception as exc:  # noqa: BLE001 - classified below
+                verdict = self.detector.record(exc)
+                if verdict in ("fatal", "escalate"):
+                    self.ckpt.wait()
+                    raise
+                restored, ck_step = self.ckpt.restore_latest(state)
+                if restored is None:
+                    raise
+                state = restored
+                step = ck_step
+                loader.close()
+                loader = self.loader_factory(step)
+                continue
+            self.detector.reset()
+            dt = time.time() - t0
+            if self.monitor.observe(dt) and on_metrics:
+                on_metrics(step, {"straggler_flag": dt, **metrics})
+            step += 1
+            if step % self.ckpt_every == 0:
+                self.ckpt.save_async(state, step)
+            if on_metrics:
+                on_metrics(step, metrics)
+        loader.close()
+        self.ckpt.wait()
+        return state, step

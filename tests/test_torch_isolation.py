@@ -44,6 +44,10 @@ def test_port_has_modules_to_scan():
     assert "src/repro_torch/kernels/bsr_matmul/kernel.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert "src/repro_torch/serving/scheduler.py" in names
+    for module in ("optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
+                   "checkpoint/store.py", "runtime/fault_tolerance.py",
+                   "launch/train.py", "launch/steps.py", "tree.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

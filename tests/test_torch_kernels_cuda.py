@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and a smoke transformer through both of its kernels against the CPU.
+and a smoke transformer through its kernels against the CPU (a forward with
+decode steps, and a training step through the flash backward kernels).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one.  On a machine with an H100::
@@ -25,7 +26,10 @@ in f32 in its own order: 1e-4 of the output's largest magnitude.  Flash
 attention rescales its sums chunk by chunk where the plain version takes
 whole rows: O to 2e-5 in f32; in bf16 each element to one bf16 rounding of
 the output plus 1e-3 of the output's rms, a limit that p v in bf16 exceeds;
-lse to 1e-4.
+lse to 1e-4.  The flash backward kernels sum in f32 in another order than
+their plain version: in f32 each of dQ, dK and dV within 1e-4 of its rms;
+in bf16 each element within one bf16 rounding plus 1e-3 of the rms, a
+limit that the plain version with p rounded to bf16 exceeds.
 """
 import numpy as np
 import pytest
@@ -341,3 +345,166 @@ def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device, arch):
         n_cpu, c_cpu = step(params, toks[:, i:i + 1], c_cpu, i)
         n_gpu, c_gpu = step(on_card, toks[:, i:i + 1].to(cuda_device), c_gpu, i)
         assert torch.equal(n_gpu.cpu(), n_cpu)
+
+
+# -- flash attention backward --------------------------------------------
+# (B, H, KV, T, S, d, causal, dtype)
+FLASH_BWD_CASES = [
+    (1, 4, 4, 128, 128, 64, True, torch.float32),      # MHA
+    (2, 8, 2, 200, 200, 128, True, torch.bfloat16),    # GQA 4:1, ragged T
+    (1, 8, 1, 77, 77, 128, True, torch.float32),       # MQA, ragged
+    (1, 4, 2, 64, 96, 16, False, torch.float32),       # bidirectional, S != T
+    (2, 4, 1, 150, 150, 32, False, torch.bfloat16),    # bidirectional, ragged
+    (1, 32, 4, 256, 256, 128, True, torch.bfloat16),   # Yi-9B heads
+]
+# f32: max |error| / rms; bf16: beyond one bf16 rounding, over the rms
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+def _grad_excess(got, want, dtype):
+    rounding = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want).abs() - rounding * want.abs()
+    return float(err.max() / want.pow(2).mean().sqrt())
+
+
+def _bwd_p_bf16(q, k, v, o, lse, do, *, sc, causal):
+    """The plain backward with p rounded to bf16 wherever it is used (dS
+    and dV): the control that the gradient check must reject."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.reshape(b, kv, g, t, d).float()
+    dof = do.reshape(b, kv, g, t, d).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    logits = torch.matmul(qf * sc, kf.transpose(-1, -2))
+    if causal:
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.exp(logits - lse.reshape(b, kv, g, t, 1))
+    p = p.to(torch.bfloat16).float()
+    delta = (dof * o.reshape(b, kv, g, t, d).float()).sum(dim=-1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * sc
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(dim=2) * sc
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2)
+    return dq.reshape(b, h, t, d), dk, dv
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
+    """Both backward kernels on the (B, H, T, d) views of (B, T, H, d)
+    tensors, as the autograd Function hands them over, against
+    ``flash_attention_bwd_plain`` on f32 copies."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain)
+
+    b, h, kv, t, s, d, causal, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(t + d + h)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda_device).to(dtype).transpose(1, 2)
+
+    q, k, v, do = rand(b, t, h, d), rand(b, s, kv, d), rand(b, s, kv, d), \
+        rand(b, t, h, d)
+    sc = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=causal)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert dq.stride() == q.stride() and dk.stride() == k.stride()
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dtype, dtype, dtype)
+    f32 = [x.float() for x in (q, k, v, o)]
+    want = flash_attention_bwd_plain(*f32, lse, do.float(), sc=sc,
+                                     causal=causal)
+    tol = FLASH_BWD_TOL[dtype]
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert bool(torch.isfinite(got).all()), name
+        assert _grad_excess(got, w, dtype) <= tol, (name, _grad_excess(
+            got, w, dtype))
+    if dtype == torch.bfloat16:
+        control = _bwd_p_bf16(q, k, v, o, lse, do, sc=sc, causal=causal)
+        for name, c, w in zip(("dq", "dk", "dv"), control, want):
+            assert _grad_excess(c, w, dtype) > tol, name
+
+
+def test_flash_attention_is_differentiable_on_the_card(cuda_device):
+    """flash_attention_bthd goes through the autograd Function: q, k and v
+    get gradients on the card, from the backward kernels, that match the
+    plain backward's on the CPU."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+
+    gen = torch.Generator().manual_seed(4)
+    leaves = [torch.randn(shape, generator=gen) for shape in
+              ((2, 70, 8, 64), (2, 70, 2, 64), (2, 70, 2, 64))]
+    w = torch.randn((2, 70, 8, 64), generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v = [x.detach().to(dev).requires_grad_() for x in leaves]
+        out = flash_attention_bthd(q, k, v, causal=True)
+        node = out.grad_fn.next_functions[0][0]
+        assert type(node).__name__ == "FlashAttentionBackward"
+        before = (flash_attention_bwd_dq.launches,
+                  flash_attention_bwd_dkv.launches)
+        (out * w.to(dev)).sum().backward()
+        after = (flash_attention_bwd_dq.launches,
+                 flash_attention_bwd_dkv.launches)
+        assert k.grad is not None
+        assert after == (before if dev == "cpu" else
+                         (before[0] + 1, before[1] + 1))
+        grads[str(dev)] = [x.grad.cpu() for x in (q, k, v)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One ``make_train_step`` step of the f32 yi-9b smoke config under
+    flash attention: on the card (forward and both backward kernels in every
+    layer) and on the CPU (their plain versions), from the same state."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import flags
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(configs.get_config("yi-9b", smoke=True),
+                              dtype="float32")
+    opt_cfg = AdamWConfig()
+    cpu = init_state(cfg, opt_cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda x: x.to(cuda_device), cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 97),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, opt_cfg, total_steps=10)
+    flags.set_attn_impl("flash")
+    try:
+        want, m_cpu = step(cpu, batch)
+        counts = [k.launches for k in (flash_attention_fwd,
+                                       flash_attention_bwd_dq,
+                                       flash_attention_bwd_dkv)]
+        got, m_card = step(card, batch)
+        torch.cuda.synchronize()
+    finally:
+        flags.set_attn_impl("chunked")
+    assert [k.launches - c for k, c in zip(
+        (flash_attention_fwd, flash_attention_bwd_dq,
+         flash_attention_bwd_dkv), counts)] == [cfg.n_layers] * 3
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_card[key].cpu(), m_cpu[key],
+                                   rtol=1e-4, atol=1e-4)
+    tree_map(lambda a, b_: torch.testing.assert_close(
+        a.cpu(), b_, rtol=1e-4, atol=1e-4), got["params"], want["params"])
