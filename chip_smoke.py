@@ -47,24 +47,31 @@ Phases (any failure exits non-zero and prints no result):
               wrapper's bf16 (B, T, M) output within one bf16 rounding of
               the plain version's plus that limit; ``library_ms`` from
               ``torch.matmul`` on the dense pruned weight.  Flash
-              attention, causal, B 4, H 32, KV 4, T = S = 2048, d 128, on
+              attention (the tensor-core forward, ``flash_attention_tc``),
+              causal, B 4, H 32, KV 4, T = S = 2048, d 128, bf16, on
               the (B, H, T, d) views of (B, T, H, d) tensors that
               ``ops.flash_attention_bthd`` hands the kernel, against
               ``flash_attention_plain`` on f32 copies: each element of O
               within one bf16 rounding (2^-8 of its magnitude) plus 1e-3 of
-              O's rms, lse within 1e-4, and the same O check must reject the
-              plain version with p rounded to bf16 before p v (a fault the
-              lse check cannot see); ``library_ms`` from
+              O's rms, lse within 1e-4, and the same O check must reject two
+              controls (faults the lse check cannot see): the plain version
+              with p rounded to bf16 before p v, and the split's plain
+              mirror (``flash_attention_split_plain``) with p's hi half
+              alone; the mirror with both halves is reported beside them.
+              ``library_ms`` from
               ``F.scaled_dot_product_attention(is_causal=True,
               enable_gqa=True)``.  ``bound_ms`` is the larger of the bytes
               (each input once, each output once; only the kept tiles) over
               3.35 TB/s and the operations (only the kept tiles, only the
-              causal half) over their peaks, priced at the precision the
-              plain version computes in: bf16 x bf16 products with f32 sums
-              (``bsr_matmul``, flash's q k^T) at 989 TFLOP/s on the tensor
-              cores, flash's p v, whose p is f32, at 67 TFLOP/s; the flash
-              row also carries ``bound_all_bf16_ms``, both products on the
-              tensor cores.  ``kernel_ms``, ``plain_ms`` and ``library_ms``
+              causal half) over their peaks: bf16 x bf16 products with f32
+              sums (``bsr_matmul``, flash's q k^T) at 989 TFLOP/s on the
+              tensor cores, and flash's p v, whose p is f32, as the design
+              that keeps its precision computes it, two bf16 products (of
+              p's hi and lo halves) at 989 TFLOP/s; the flash row also
+              carries ``bound_all_bf16_ms`` (p v as one bf16 product, as
+              SDPA computes it) and ``bound_fma_ms`` (p v in f32 on the FMA
+              units at 67 TFLOP/s, the bound of the FMA kernel).
+              ``kernel_ms``, ``plain_ms`` and ``library_ms``
               are device time per call under ``torch.profiler`` (a
               decode-sized kernel is shorter than its launch, so CUDA events
               around back-to-back launches time the host);
@@ -76,7 +83,8 @@ Phases (any failure exits non-zero and prints no result):
 6. prefill -- Yi-9B in bf16, B 4, T 2048, ``make_prefill_step`` under flash
               attention at sparsity 0.8 and 0.0: one counted forward must
               launch ``bsr_matmul`` 336 times (7 projections x 48 layers)
-              and flash 48 times (0 and 48 dense), with finite (4, 64000)
+              and the tensor-core flash forward 48 times (0 and 48 dense),
+              with finite (4, 64000)
               logits; each line carries ``forward_ms`` (host clock over 3
               synchronised forwards) and the profiled device breakdown.
 7. serve   -- Yi-9B in bf16 at sparsity 0.8 behind ``ServeEngine`` (4 slots,
@@ -93,38 +101,55 @@ Phases (any failure exits non-zero and prints no result):
               each element of dQ, dK and dV within one bf16 rounding (2^-8
               of its magnitude) plus 1e-3 of the gradient's rms, and the same
               check must reject the control, the plain backward with p
-              rounded to bf16 wherever it is used (dS and dV).
+              rounded to bf16 wherever it is used (dS and dV), and dK and
+              dV must reject the split's mirror with hi halves alone.
+              bf16 dK/dV runs the tensor-core kernel and its group sum
+              (``flash_attention_bwd_dkv_tc``); two launches on the same
+              operands must agree bit for bit.
               ``library_ms`` is the backward of
               ``F.scaled_dot_product_attention(is_causal=True,
               enable_gqa=True)`` on the same operands (dQ, dK and dV in one
               call, given on both rows, as is the plain backward's time).
-              ``bound_ms`` prices q k^T and dO v^T (bf16 x bf16) at
-              989 TFLOP/s and the products of the f32 p and ds (dQ: ds k;
-              dK/dV: p^T dO and ds^T q) at 67 TFLOP/s, over the causal half.
+              ``bound_ms`` prices, over the causal half, q k^T and dO v^T
+              (bf16 x bf16) as one bf16 product each and each product of
+              the f32 p or ds (dQ: ds k; dK/dV: p^T dO and ds^T q) as two,
+              all at 989 TFLOP/s; ``bound_all_bf16_ms`` one each;
+              ``bound_fma_ms`` the f32-operand products at 67 TFLOP/s.
+8b. flash f32 -- the FMA forward and dK/dV kernels, which f32 operands
+              launch, at the train consistency shape (B 1, H 32, KV 4,
+              T = S = 2048, d 128, causal, f32) against their plain
+              versions: O, dK and dV within 1e-4 of their largest
+              magnitude (the train consistency phase's measure), lse within
+              1e-4; ``library_ms`` from SDPA in f32, ``bound_ms`` every
+              product on the f32 FMA units.
 9. train consistency -- Yi-9B at full width in f32, 2 layers, B 1 x T 2048:
               the gradient of every parameter through ``flash`` against
               through ``chunked``, each within 1e-4 of that parameter's
               largest chunked gradient, and the losses within 1e-5; then one
               counted ``make_train_step`` step under flash must launch the
-              forward, dQ and dK/dV kernels once per layer each.
+              FMA forward, dQ and FMA dK/dV kernels once per layer each.
 10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
               bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
               T 4096) from ``SyntheticLMDataset``, repeated, under flash
               attention: ``make_train_step`` under ``StepRunner`` for 1
-              warm-up and 5 timed steps, each counted (12 flash forwards,
-              12 dQ, 12 dK/dV, no ``bsr_matmul``), with a finite loss that
-              falls on the repeated batch; the runner saves a checkpoint
-              after the last step (into ``build/``, removed afterwards), and
-              it must restore bit for bit.  The line carries ms per step,
-              tokens per second, peak memory, one profiled step's device
-              busy time, idle share and top kernels, and the share of the
-              busy time the three flash kernels take.
+              warm-up and 5 timed steps, each counted (12 tensor-core
+              forwards, 12 dQ, 12 tensor-core dK/dV and their group sums,
+              no FMA forward or dK/dV, no ``bsr_matmul``), with a finite
+              loss that falls on the repeated batch; the runner saves a
+              checkpoint after the last step (into ``build/``, removed
+              afterwards), and it must restore bit for bit.  The line
+              carries ms per step, tokens per second, peak memory, one
+              profiled step's device busy time, idle share and top kernels,
+              and the share of the busy time the four flash kernels take.
 11. the ``kernels`` JSON line, then the card's name and power limit, then
    the device line last.
 
-Every counted run sets all six launch counters to 0 just before it and
-reads them just after; launches made to compare a kernel with its plain
-version are not counted.  Peak rates are the H100 SXM data sheet's (dense,
+Every counted run sets all nine launch counters (``COUNTERS``) to 0 just
+before it and reads them just after; launches made to compare a kernel with
+its plain version are not counted, and every kernel must have launched in
+some counted run.  The prefill phase's forwards must all go through the
+tensor-core forward (bf16), the consistency phases' through the FMA kernels
+(f32).  Peak rates are the H100 SXM data sheet's (dense,
 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
@@ -157,10 +182,29 @@ IMAGE = 224
 ELL_TOL = 1e-5
 BSR_TOL = 1e-4
 PATH_RTOL = 1e-4
-KERNEL_NAMES = ("sparse_conv", "bsr_conv", "bsr_matmul", "flash_attention",
-                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv")
+# Each kernel's launch counter: (its wrapper in mods["kernels"], the
+# attribute); a launch of the kernel adds one to it and nothing else does.
+# The flash forward and dK/dV have an FMA kernel (f32 operands) and a
+# tensor-core kernel (bf16); dK/dV's tensor-core kernel is followed by its
+# group sum.
+COUNTERS = {
+    "sparse_conv": ("sparse_conv", "launches"),
+    "bsr_conv": ("bsr_conv", "launches"),
+    "bsr_matmul": ("bsr_matmul", "launches"),
+    "flash_attention": ("flash_attention", "launches"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd_dq", "launches"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv", "launches"),
+    "flash_attention_tc": ("flash_attention", "tc_launches"),
+    "flash_attention_bwd_dkv_tc": ("flash_attention_bwd_dkv", "tc_launches"),
+    "flash_attention_dkv_reduce": ("flash_attention_bwd_dkv",
+                                   "reduce_launches"),
+}
+KERNEL_NAMES = tuple(COUNTERS)
+# the kernels one layer's attention launches in a train step, by dtype
+FLASH_F32 = ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+FLASH_BF16 = ("flash_attention_tc", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv_tc", "flash_attention_dkv_reduce")
 
 # The transformer path: Yi-9B (48 layers, d_model 4096, 32 heads over 4 kv
 # heads, head_dim 128, d_ff 11008, vocab 64000), weights block-pruned with
@@ -175,6 +219,11 @@ BSR_MATMUL_TOL = 1e-4                 # x max(1, max |y|)
 # bf16 O, per element: one bf16 rounding (2^-8 of |O|) + FLASH_O_ATOL x rms(O)
 FLASH_O_ATOL = 1e-3
 FLASH_LSE_TOL = 1e-4
+# f32 O, dK and dV of the FMA kernels: max |error| within FLASH_F32_TOL x
+# max |plain|, the train consistency phase's measure for f32 gradients at
+# the same shape (f32 sums of up to G x T = 16,384 terms in another order
+# than the plain version's)
+FLASH_F32_TOL = 1e-4
 CONSIST_SHAPE = (2, 64)               # f32 forward vs decode steps
 CONSIST_TOL = 1e-2                    # rtol = atol, tests/test_decode_consistency.py
 CONSIST_AGREE = 0.95
@@ -487,12 +536,13 @@ def path_phase(torch, mods, nets, device, batch, image, seed):
 # ---------------------------------------------------------------------------
 
 def reset_counts(mods):
-    for name in KERNEL_NAMES:
-        mods["kernels"][name].launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(mods["kernels"][fn], attr, 0)
 
 
 def read_counts(mods):
-    return {name: mods["kernels"][name].launches for name in KERNEL_NAMES}
+    return {name: getattr(mods["kernels"][fn], attr)
+            for name, (fn, attr) in COUNTERS.items()}
 
 
 def llm_params(torch, mods, cfg, sparsity, seed, device):
@@ -538,7 +588,7 @@ def llm_kernel_phase(torch, mods, device, seed):
     version; returns per-kernel lists of row dicts."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
-    rows_out = {"bsr_matmul": [], "flash_attention": []}
+    rows_out = {"bsr_matmul": [], "flash_attention_tc": []}
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     bk, plain = mods["kernels"]["bsr_matmul"], mods["matmul_plain"]
     for name, d_in, d_out in LLM_PROJECTIONS:
@@ -604,19 +654,24 @@ def llm_kernel_phase(torch, mods, device, seed):
         del w_lib, bc
         torch.cuda.empty_cache()
 
-    # -- flash attention forward at prefill shape -------------------------
+    # -- flash attention forward at prefill shape (tensor cores, bf16) ----
     # In the model's (B, T, H, d) layout; the kernel reads the (B, H, T, d)
     # transposed views that ops.flash_attention_bthd hands it.
     b, h, kv, t, d = FLASH_SHAPE
     fk, fplain = mods["kernels"]["flash_attention"], mods["flash_plain"]
+    split_plain = mods["flash_split_plain"]
     q4 = torch.randn((b, t, h, d), generator=gen, device=device).to(bf16)
     k4 = torch.randn((b, t, kv, d), generator=gen, device=device).to(bf16)
     v4 = torch.randn((b, t, kv, d), generator=gen, device=device).to(bf16)
     q, k, v = q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
     sc = d ** -0.5
     o4 = mods["flash_bthd"](q4, k4, v4, causal=True)
+    launched = fk.tc_launches
     o, lse = fk(q, k, v, sc=sc, causal=True)
     torch.cuda.synchronize()
+    check(fk.tc_launches == launched + 1,
+          "flash_attention: bf16 operands did not launch the tensor-core "
+          "kernel")
     check(torch.equal(o4, o.transpose(1, 2)),
           "flash_attention_bthd differs from the kernel on its own views")
     # the plain version on f32 copies: O before its rounding to bf16
@@ -628,6 +683,12 @@ def llm_kernel_phase(torch, mods, device, seed):
     lse_err = float((lse - lse_want).abs().max())
     o_rms = float(o_want.pow(2).mean().sqrt())
     control = o_excess(flash_pv_bf16(torch, q, k, v, sc), o_want)
+    # the split's design on whole rows (ref.flash_attention_split_plain):
+    # hi + lo, and hi alone, which the check must reject too
+    mirror = o_excess(split_plain(q, k, v, sc=sc, causal=True)[0].to(bf16),
+                      o_want)
+    hi_only = o_excess(split_plain(q, k, v, sc=sc, causal=True,
+                                   lo=False)[0].to(bf16), o_want)
     check(bool(torch.isfinite(o).all()), "flash_attention: O not finite")
     check(excess <= FLASH_O_ATOL,
           f"flash_attention disagrees with its plain version on O: "
@@ -636,6 +697,9 @@ def llm_kernel_phase(torch, mods, device, seed):
     check(control > FLASH_O_ATOL,
           f"the O check does not reject p v in bf16 ({control} x rms(O), "
           f"tolerance {FLASH_O_ATOL})")
+    check(hi_only > FLASH_O_ATOL,
+          f"the O check does not reject the split's hi half alone "
+          f"({hi_only} x rms(O), tolerance {FLASH_O_ATOL})")
     check(lse_err <= FLASH_LSE_TOL,
           f"flash_attention disagrees with its plain version on lse "
           f"(max_abs_err {lse_err}, tolerance {FLASH_LSE_TOL})")
@@ -648,26 +712,30 @@ def llm_kernel_phase(torch, mods, device, seed):
     library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 5)
     pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    product = 2.0 * pairs * d                 # one product over them
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + b * h * t * 4
-    # as the plain version computes: q k^T on bf16 inputs with f32 sums (the
-    # tensor cores' rate), p v with p in f32 (the f32 FMA rate)
-    b_ms, b_by = bound(moved, flops_f32=2.0 * pairs * d,
-                       flops_bf16=2.0 * pairs * d)
-    # both products on bf16 tensor cores, as SDPA computes them
-    b16_ms, b16_by = bound(moved, flops_bf16=4.0 * pairs * d)
-    row = {"kernel": "flash_attention",
+    # the precision-keeping design on the tensor cores: q k^T one bf16
+    # product, p v (p in f32) two, of p's bf16 halves
+    b_ms, b_by = bound(moved, flops_bf16=3 * product)
+    # both products in bf16, as SDPA computes them
+    b16_ms, b16_by = bound(moved, flops_bf16=2 * product)
+    # p v priced on the f32 FMA units (the bound before the split)
+    fma_ms, _ = bound(moved, flops_f32=product, flops_bf16=product)
+    row = {"kernel": "flash_attention_tc",
            "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
                      "causal": True, "dtype": "bfloat16",
                      "layout": "(B, T, H, d) views"},
            "max_abs_err": err, "o_excess": excess,
-           "o_excess_pv_bf16": control, "o_rms": o_rms,
+           "o_excess_pv_bf16": control, "o_excess_split_plain": mirror,
+           "o_excess_hi_only": hi_only, "o_rms": o_rms,
            "lse_max_abs_err": lse_err,
            "kernel_ms": ms, "kernel_event_ms": event_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
            "bound_bytes": moved, "bound_all_bf16_ms": b16_ms,
-           "bound_all_bf16_by": b16_by}
+           "bound_all_bf16_by": b16_by, "bound_fma_ms": fma_ms,
+           "tflops": 2 * product / ms / 1e9}
     print(json.dumps(row), flush=True)
-    rows_out["flash_attention"].append(row)
+    rows_out["flash_attention_tc"].append(row)
     del q4, k4, v4, q, k, v, o, lse
     torch.cuda.empty_cache()
     return rows_out
@@ -698,7 +766,8 @@ def llm_consistency_phase(torch, mods, device, seed):
     torch.cuda.synchronize()
     n_proj = cfg.n_layers * 7
     check(fwd_counts["bsr_matmul"] == n_proj
-          and fwd_counts["flash_attention"] == cfg.n_layers,
+          and fwd_counts["flash_attention"] == cfg.n_layers
+          and fwd_counts["flash_attention_tc"] == 0,
           f"consistency forward launched {fwd_counts}")
     check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all()),
           "consistency: non-finite logits")
@@ -718,6 +787,7 @@ def llm_consistency_phase(torch, mods, device, seed):
           f"< {CONSIST_AGREE}")
     del params, cache, ref, got, diff
     torch.cuda.empty_cache()
+    return fwd_counts
 
 
 def llm_prefill_phase(torch, mods, device, seed):
@@ -742,11 +812,10 @@ def llm_prefill_phase(torch, mods, device, seed):
             logits, _ = step(params, batch)
             torch.cuda.synchronize()
             counts = read_counts(mods)
-            want = {"sparse_conv": 0, "bsr_conv": 0,
-                    "bsr_matmul": cfg.n_layers * 7 if sparsity else 0,
-                    "flash_attention": cfg.n_layers,
-                    "flash_attention_bwd_dq": 0,
-                    "flash_attention_bwd_dkv": 0}
+            # every bf16 forward through the tensor-core kernel
+            want = {name: 0 for name in KERNEL_NAMES}
+            want.update(bsr_matmul=cfg.n_layers * 7 if sparsity else 0,
+                        flash_attention_tc=cfg.n_layers)
             check(counts == want, f"prefill at sparsity {sparsity}: launches "
                   f"{counts}, expected {want}")
             for name in counted:
@@ -902,12 +971,13 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     out = mods["flash_bthd"](*leaves, causal=True)
     check(out.grad_fn is not None, "flash backward: flash_attention_bthd's "
           "output has no grad_fn")
-    launched = (dq_k.launches, dkv_k.launches)
+    launched = (dq_k.launches, dkv_k.tc_launches, dkv_k.reduce_launches)
     out.backward(do_bthd)
     torch.cuda.synchronize()
-    check((dq_k.launches, dkv_k.launches) == (launched[0] + 1,
-                                              launched[1] + 1),
-          "flash backward: autograd did not launch each kernel once")
+    check((dq_k.launches, dkv_k.tc_launches, dkv_k.reduce_launches)
+          == tuple(n + 1 for n in launched),
+          "flash backward: autograd did not launch dQ, the tensor-core dK/dV "
+          "and its group sum once each")
     dq, dk, dv = (x.grad.transpose(1, 2) for x in leaves)
     # the operands and residuals as the Function hands them to the kernels
     q, k, v, do = (x.detach().transpose(1, 2)
@@ -936,7 +1006,18 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
                  sc=sc, causal=True)
     for name, c, w in zip(("dq", "dk", "dv"), control, want):
         stats[name]["control_excess"] = o_excess(c, w)
-    del control, want
+    del control
+    torch.cuda.empty_cache()
+    # the split's design on whole rows (ref.flash_attention_bwd_split_plain),
+    # and its hi half alone, which the dK and dV checks must reject too
+    split_plain = mods["flash_bwd_split_plain"]
+    for lo, key in ((True, "split_plain_excess"), (False, "hi_only_excess")):
+        mirror = split_plain(q, k, v, o, lse, do, sc=sc, causal=True, lo=lo)
+        for name, m, w in zip(("dq", "dk", "dv"), mirror, want):
+            stats[name][key] = o_excess(m.to(bf16), w)
+        del mirror
+        torch.cuda.empty_cache()
+    del want
     torch.cuda.empty_cache()
     for name, st in stats.items():
         check(st["excess"] <= FLASH_BWD_ATOL,
@@ -946,8 +1027,20 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
         check(st["control_excess"] > FLASH_BWD_ATOL,
               f"the {name} check does not reject p in bf16 "
               f"({st['control_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
+        check(name == "dq" or st["hi_only_excess"] > FLASH_BWD_ATOL,
+              f"the {name} check does not reject the split's hi half alone "
+              f"({st['hi_only_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
 
     delta = mods["bwd_delta"](o, do)
+    # no atomics: the group sums run in one order, so two launches agree bit
+    # for bit
+    first, second = (dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    check(identical, "flash backward: two dK/dV launches on the same "
+          "operands differ")
+    del first, second
 
     def run_dq():
         return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
@@ -956,9 +1049,9 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
         return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
 
     times = {}
-    for name, fn in (("flash_attention_bwd_dq", run_dq),
-                     ("flash_attention_bwd_dkv", run_dkv)):
-        times[name] = (device_ms(torch, fn, 5, 1),
+    for name, fn, n_kernels in (("flash_attention_bwd_dq", run_dq, 1),
+                                ("flash_attention_bwd_dkv_tc", run_dkv, 2)):
+        times[name] = (device_ms(torch, fn, 5, n_kernels),
                        time_cuda(torch, fn, reps=5, warmup=1))
     plain_ms = device_ms(torch, lambda: plain(q, k, v, o, lse, do, sc=sc,
                                               causal=True), 1)
@@ -980,12 +1073,18 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     rows = {}
     for name, shape_out, f32_products, outs in (
             ("flash_attention_bwd_dq", "dq", 1, q.numel()),
-            ("flash_attention_bwd_dkv", "dk, dv", 2, k.numel() + v.numel())):
+            ("flash_attention_bwd_dkv_tc", "dk, dv", 2,
+             k.numel() + v.numel())):
         ms, event_ms = times[name]
         moved = qkv_bytes + stat_bytes + outs * 2
-        b_ms, b_by = bound(moved, flops_f32=f32_products * flops,
-                           flops_bf16=2 * flops)
+        # the precision-keeping design on the tensor cores: q k^T and
+        # dO v^T one bf16 product each, a product with an f32 operand (ds k;
+        # p^T dO, ds^T q) two, of its bf16 halves
+        b_ms, b_by = bound(moved, flops_bf16=(2 + 2 * f32_products) * flops)
         b16_ms, b16_by = bound(moved, flops_bf16=(2 + f32_products) * flops)
+        # the f32-operand products on the FMA units (the bound before)
+        fma_ms, _ = bound(moved, flops_f32=f32_products * flops,
+                          flops_bf16=2 * flops)
         errs = [stats[n.strip()] for n in shape_out.split(",")]
         row = {"kernel": name,
                "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
@@ -1000,10 +1099,113 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
                "library_is": "the whole SDPA backward (dQ, dK, dV)",
                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
                "bound_all_bf16_ms": b16_ms, "bound_all_bf16_by": b16_by,
+               "bound_fma_ms": fma_ms,
                "tflops": (2 + f32_products) * flops / ms / 1e9}
+        if name == "flash_attention_bwd_dkv_tc":
+            row["bit_identical_across_launches"] = identical
         print(json.dumps(row), flush=True)
         rows[name] = [row]
     del q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_f32_kernel_phase(torch, mods, device, seed):
+    """The FMA forward and dK/dV kernels, which f32 operands launch (the
+    consistency and train consistency phases), at the train consistency
+    shape (B 1, H 32, KV 4, T = S = 2048, d 128, causal, f32) on the
+    (B, H, T, d) views of (B, T, H, d) tensors, against their plain
+    versions: O, dK and dV within FLASH_F32_TOL of their largest magnitude
+    (the rms beside it), lse within FLASH_LSE_TOL.  Returns per-kernel
+    lists of row dicts."""
+    F = torch.nn.functional
+    b, h, kv, _, d = BWD_SHAPE
+    t = TRAIN_CONSIST_SHAPE[1]
+    sc = d ** -0.5
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    fwd = mods["kernels"]["flash_attention"]
+    dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
+    q, k, v, do = (torch.randn((b, t, heads, d), generator=gen,
+                               device=device).transpose(1, 2)
+                   for heads in (h, kv, kv, h))
+    launched = (fwd.launches, fwd.tc_launches, dkv_k.launches,
+                dkv_k.tc_launches)
+    o, lse = fwd(q, k, v, sc=sc, causal=True)
+    delta = mods["bwd_delta"](o, do)
+    dk, dv = dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+    torch.cuda.synchronize()
+    check((fwd.launches, fwd.tc_launches, dkv_k.launches, dkv_k.tc_launches)
+          == (launched[0] + 1, launched[1], launched[2] + 1, launched[3]),
+          "flash f32: f32 operands did not launch the FMA kernels")
+    o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=True)
+    _, dk_want, dv_want = mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
+                                                  causal=True)
+    errs = {}
+    for name, got, want in (("o", o, o_want), ("dk", dk, dk_want),
+                            ("dv", dv, dv_want)):
+        check(bool(torch.isfinite(got).all()), f"flash f32: {name} not finite")
+        err = float((got - want).abs().max())
+        errs[name] = (err, err / float(want.abs().max()),
+                      err / float(want.pow(2).mean().sqrt()))
+        check(errs[name][1] <= FLASH_F32_TOL,
+              f"flash f32: {name} disagrees with its plain version "
+              f"({errs[name][1]} x max |plain|, tolerance {FLASH_F32_TOL})")
+    lse_err = float((lse - lse_want).abs().max())
+    check(lse_err <= FLASH_LSE_TOL, f"flash f32: lse disagrees with its "
+          f"plain version (max_abs_err {lse_err})")
+    del o_want, lse_want, dk_want, dv_want
+    torch.cuda.empty_cache()
+
+    def run_fwd():
+        return fwd(q, k, v, sc=sc, causal=True)
+
+    def run_dkv():
+        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+
+    def library_bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    pairs = b * h * t * (t + 1) // 2
+    product = 2.0 * pairs * d
+    qkv_bytes = (q.numel() + 2 * k.numel()) * 4
+    rows = {}
+    for name, fn, plain, library, moved, products, max_err in (
+            ("flash_attention", run_fwd,
+             lambda: mods["flash_plain"](q, k, v, sc=sc, causal=True),
+             lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True),
+             qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, errs["o"][0]),
+            ("flash_attention_bwd_dkv", run_dkv,
+             lambda: mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
+                                             causal=True),
+             library_bwd, qkv_bytes + q.numel() * 4 + 2 * b * h * t * 4
+             + 2 * k.numel() * 4, 4, max(errs["dk"][0], errs["dv"][0]))):
+        ms = device_ms(torch, fn, 5, 1)
+        # every product in f32 on the FMA units, as the kernel computes
+        b_ms, b_by = bound(moved, flops_f32=products * product)
+        row = {"kernel": name,
+               "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
+                         "causal": True, "dtype": "float32",
+                         "layout": "(B, T, H, d) views"},
+               "max_abs_err": max_err,
+               "err_over_max": {n: e[1] for n, e in errs.items()},
+               "err_over_rms": {n: e[2] for n, e in errs.items()},
+               "lse_max_abs_err": lse_err,
+               "kernel_ms": ms,
+               "kernel_event_ms": time_cuda(torch, fn, reps=5, warmup=1),
+               "plain_ms": device_ms(torch, plain, 1),
+               "library_ms": device_ms(torch, library, 5),
+               "library_is": ("SDPA forward, f32" if products == 2 else
+                              "the whole SDPA backward (dQ, dK, dV), f32"),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+               "tflops": products * product / ms / 1e9}
+        print(json.dumps(row), flush=True)
+        rows[name] = [row]
+    del q, k, v, do, o, lse, delta, dk, dv, out, leaves
     torch.cuda.empty_cache()
     return rows
 
@@ -1071,8 +1273,7 @@ def train_consistency_phase(torch, mods, device, seed):
     check(loss_err <= TRAIN_LOSS_TOL * abs(losses["chunked"]),
           f"train consistency: losses {losses}")
     n = cfg.n_layers
-    want = {name: (n if name in FLASH_KERNELS else 0)
-            for name in KERNEL_NAMES}
+    want = {name: (n if name in FLASH_F32 else 0) for name in KERNEL_NAMES}
     check(counts == want, f"train consistency: a step launched {counts}, "
           f"expected {want}")
     check(bool(torch.isfinite(metrics["loss"])), "train consistency: loss "
@@ -1154,7 +1355,8 @@ def train_phase(torch, mods, device, seed):
         check(end == n_steps and len(per_step) == n_steps,
               f"train: ran to step {end}, {len(per_step)} steps")
         n = cfg.n_layers
-        want = {name: (n if name in FLASH_KERNELS else 0)
+        # every bf16 forward and dK/dV through the tensor-core kernels
+        want = {name: (n if name in FLASH_BF16 else 0)
                 for name in KERNEL_NAMES}
         for i, (counts, _) in enumerate(per_step):
             check(counts == want, f"train: step {i} launched {counts}, "
@@ -1183,9 +1385,10 @@ def train_phase(torch, mods, device, seed):
             holder["state"], _ = step_fn(holder["state"], batch)
 
         breakdown = device_breakdown(torch, one_step, step_ms, top=8,
-                                     group=("flash_fwd_kernel",
+                                     group=("flash_fwd_tc_kernel",
                                             "flash_bwd_dq_kernel",
-                                            "flash_bwd_dkv_kernel"))
+                                            "flash_bwd_dkv_tc_kernel",
+                                            "flash_dkv_reduce_kernel"))
         state = holder.pop("state")
     finally:
         flags.set_attn_impl("chunked")
@@ -1211,18 +1414,83 @@ def train_phase(torch, mods, device, seed):
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and inputs")
-    args = ap.parse_args()
+def kernel_entries(rows, launches):
+    """The ``kernels`` JSON line's entries: each kernel's source, the TPU
+    kernel it replaces, its counted launches, and its rows' error, times
+    and bound."""
+    meta = {
+        "sparse_conv": ("src/repro_torch/kernels/sparse_conv/csrc/sparse_conv.cu",
+                        "src/repro/kernels/sparse_conv/kernel.py:213"),
+        "bsr_conv": ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
+                     "src/repro/kernels/bsr_conv/kernel.py:155"),
+        "bsr_matmul": ("src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
+                       "src/repro/kernels/bsr_matmul/kernel.py:49"),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:136"),
+        "flash_attention_bwd_dq": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:170"),
+        "flash_attention_bwd_dkv": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:187"),
+        "flash_attention_tc": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:136"),
+        "flash_attention_bwd_dkv_tc": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:187"),
+    }
+    times_are = {
+        "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
+                       f" main-path layers, batch {BATCH}",
+        "bsr_conv": f"sums over the kernel phase's {len(rows['bsr_conv'])} "
+                    f"main-path layers, batch {BATCH}",
+        "bsr_matmul": "sums over wq, wk, gate and down at 4 and 8192 rows "
+                      "(Yi-9B, bf16, sparsity 0.8)",
+        "flash_attention": "the FMA kernel (flash_fwd_kernel, f32 "
+                           "operands): one causal forward, B 1, H 32, KV 4, "
+                           "T 2048, d 128, f32",
+        "flash_attention_bwd_dq": "one causal dQ, B 1, H 32, KV 4, T 4096, "
+                                  "d 128, bf16; plain and library: the whole "
+                                  "backward",
+        "flash_attention_bwd_dkv": "the FMA kernel (flash_bwd_dkv_kernel, f32 "
+                                   "operands): one causal dK/dV, B 1, H 32, "
+                                   "KV 4, T 2048, d 128, f32; plain and "
+                                   "library: the whole backward, f32",
+        "flash_attention_tc": "the tensor-core kernel (flash_fwd_tc_kernel, "
+                              "bf16 operands): one causal forward, B 4, H 32, "
+                              "KV 4, T 2048, d 128, bf16",
+        "flash_attention_bwd_dkv_tc": "the tensor-core kernel "
+                                      "(flash_bwd_dkv_tc_kernel) and its "
+                                      "group sum (flash_dkv_reduce_kernel), "
+                                      "bf16 operands: one causal dK/dV, B 1, "
+                                      "H 32, KV 4, T 4096, d 128; plain and "
+                                      "library: the whole backward",
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        rs = rows[name]
+        b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
+        b_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            **({"reduce_launches": launches["flash_attention_dkv_reduce"]}
+               if name == "flash_attention_bwd_dkv_tc" else {}),
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["kernel_ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": b_bytes + b_ops,
+            "bound_by": "bytes" if b_bytes > b_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in rs),
+            "times_are": times_are[name],
+        })
+    return kernels
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs a card",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+
+def load_modules() -> dict:
+    """The port's modules the phases use (``src/`` on the path)."""
     import numpy as np
 
     from repro_torch.core.direct_conv import pad_in
@@ -1251,7 +1519,8 @@ def main() -> int:
         flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_plain, flash_attention_plain)
+        flash_attention_bwd_plain, flash_attention_bwd_split_plain,
+        flash_attention_plain, flash_attention_split_plain)
     from repro_torch.launch.serve import sparsify_params
     from repro_torch.launch.steps import (init_state, loss_and_grads,
                                           make_prefill_step, make_serve_step,
@@ -1263,23 +1532,6 @@ def main() -> int:
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import dense_init
     from repro_torch.serving import Request, ServeEngine
-
-    device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-
-    t0 = time.perf_counter()
-    paths = _build.build()
-    build_s = time.perf_counter() - t0
-    print(json.dumps({"phase": "build", "seconds": build_s,
-                      "libraries": {k: os.path.relpath(str(v), ROOT)
-                                    for k, v in paths.items()}}), flush=True)
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", flush=True)
 
     mods = dict(np=np, cnn=cnn, pad_in=pad_in, ops_ell=ops_ell,
                 ops_bsr=ops_bsr, ell_kernel=sparse_conv_kernel,
@@ -1302,6 +1554,8 @@ def main() -> int:
                 make_serve_step=make_serve_step, ServeEngine=ServeEngine,
                 Request=Request, yi9b=configs.get_config("yi-9b"),
                 flash_bwd_plain=flash_attention_bwd_plain,
+                flash_split_plain=flash_attention_split_plain,
+                flash_bwd_split_plain=flash_attention_bwd_split_plain,
                 bwd_delta=bwd_delta,
                 CheckpointManager=CheckpointManager, DataConfig=DataConfig,
                 SyntheticLMDataset=SyntheticLMDataset, init_state=init_state,
@@ -1309,6 +1563,46 @@ def main() -> int:
                 adamw_init=adamw_init, StepRunner=StepRunner,
                 loss_and_grads=loss_and_grads, tree_flatten=tree_flatten,
                 tree_paths=tree_paths)
+    return mods
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and inputs")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.engine.lower import lower
+    from repro_torch.kernels import _build
+
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    build_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "build", "seconds": build_s,
+                      "libraries": {k: os.path.relpath(str(v), ROOT)
+                                    for k, v in paths.items()}}), flush=True)
+    for name, log in _build.BUILD_LOGS.items():
+        entry = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {name} {entry}] {line.strip()}", flush=True)
+
+    mods = load_modules()
+    np, cnn = mods["np"], mods["cnn"]
     nets = {}
     for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
         net = cnn.NETWORKS[name]()
@@ -1323,68 +1617,24 @@ def main() -> int:
         nets.clear()
         torch.cuda.empty_cache()
         rows.update(llm_kernel_phase(torch, mods, device, args.seed))
-        llm_consistency_phase(torch, mods, device, args.seed)
+        decode_consist = llm_consistency_phase(torch, mods, device, args.seed)
         prefill = llm_prefill_phase(torch, mods, device, args.seed)
         serve = llm_serve_phase(torch, mods, device, args.seed)
         rows.update(llm_bwd_kernel_phase(torch, mods, device, args.seed))
+        rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
         consist = train_consistency_phase(torch, mods, device, args.seed)
         train = train_phase(torch, mods, device, args.seed)
         for name in KERNEL_NAMES[2:]:
-            launches[name] = sum(run[name] for run in (prefill, serve,
-                                                       consist, train))
+            launches[name] = sum(run[name] for run in (
+                decode_consist, prefill, serve, consist, train))
+        never = [name for name in KERNEL_NAMES if not launches[name]]
+        check(not never, f"kernels of the path never launched in its counted "
+              f"runs: {never}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    meta = {
-        "sparse_conv": ("src/repro_torch/kernels/sparse_conv/csrc/sparse_conv.cu",
-                        "src/repro/kernels/sparse_conv/kernel.py:213"),
-        "bsr_conv": ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
-                     "src/repro/kernels/bsr_conv/kernel.py:155"),
-        "bsr_matmul": ("src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
-                       "src/repro/kernels/bsr_matmul/kernel.py:49"),
-        "flash_attention": (
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:136"),
-        "flash_attention_bwd_dq": (
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:170"),
-        "flash_attention_bwd_dkv": (
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:187"),
-    }
-    times_are = {
-        "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
-                       f" main-path layers, batch {BATCH}",
-        "bsr_conv": f"sums over the kernel phase's {len(rows['bsr_conv'])} "
-                    f"main-path layers, batch {BATCH}",
-        "bsr_matmul": "sums over wq, wk, gate and down at 4 and 8192 rows "
-                      "(Yi-9B, bf16, sparsity 0.8)",
-        "flash_attention": "one causal forward, B 4, H 32, KV 4, T 2048, "
-                           "d 128, bf16",
-        "flash_attention_bwd_dq": "one causal dQ, B 1, H 32, KV 4, T 4096, "
-                                  "d 128, bf16; plain and library: the whole "
-                                  "backward",
-        "flash_attention_bwd_dkv": "one causal dK/dV, B 1, H 32, KV 4, "
-                                   "T 4096, d 128, bf16; plain and library: "
-                                   "the whole backward",
-    }
-    kernels = []
-    for name, (source, replaces) in meta.items():
-        rs = rows[name]
-        b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
-        b_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["kernel_ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": b_bytes + b_ops,
-            "bound_by": "bytes" if b_bytes > b_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in rs),
-            "times_are": times_are[name],
-        })
+    kernels = kernel_entries(rows, launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,18 @@ BSR_MATMUL_ROWS_PER_BLOCK = 8
 FLASH_BQ = 64
 FLASH_BK = 32
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# Its tensor-core kernels (bf16): 64-row tiles (wgmma's M) and 64-key
+# chunks; a warpgroup of 128 threads a 64-row tile.  The forward runs
+# FLASH_TC_FWD_WARPGROUPS of them a block over one ring of key and value
+# stages; dK/dV a ring of query, dO, lse and delta stages, and its two
+# warpgroups pass p through shared memory, one f32 slot a thread for each
+# of its 32 accumulator elements.
+FLASH_TC_BQ = 64
+FLASH_TC_BK = 64
+FLASH_TC_WARPGROUP = 128
+FLASH_TC_FWD_WARPGROUPS = 2
+FLASH_TC_FWD_STAGES = 2
+FLASH_TC_DKV_STAGES = 2
 
 
 def ell_smem_bytes(tm: int, ks: int) -> int:
@@ -96,6 +108,23 @@ def flash_bwd_dkv_smem_bytes(d: int, bq: int = FLASH_BQ,
     """Dynamic shared memory of one dK/dV block: the dQ block's, plus the
     (bq, bk + 1) probability tile beside dS."""
     return flash_bwd_dq_smem_bytes(d, bq, bk) + 4 * bq * (bk + 1)
+
+
+def flash_tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core forward block: a bf16 query
+    tile for each warpgroup and the stages of key and value tiles, each
+    ``FLASH_TC_BQ`` x d."""
+    tiles = FLASH_TC_FWD_WARPGROUPS + 2 * FLASH_TC_FWD_STAGES
+    return 2 * FLASH_TC_BQ * d * tiles
+
+
+def flash_bwd_dkv_tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core dK/dV block: its bf16 key
+    and value tiles, the stages of query and dO tiles and of their lse and
+    delta rows (f32), and the f32 p passed between its two warpgroups."""
+    return (2 * FLASH_TC_BQ * d * (2 + 2 * FLASH_TC_DKV_STAGES)
+            + 4 * (2 * FLASH_TC_DKV_STAGES * FLASH_TC_BQ
+                   + 32 * FLASH_TC_WARPGROUP))
 
 
 def smem_fits(nbytes: int) -> bool:

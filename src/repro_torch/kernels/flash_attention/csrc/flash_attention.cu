@@ -1,7 +1,10 @@
 // Flash attention for Hopper (sm_90a): the forward (causal or full, GQA)
-// with online softmax, and the two backward kernels, dQ and dK/dV.
+// with online softmax, and the two backward kernels, dQ and dK/dV, as FMA
+// kernels (f32 operands; dQ bf16 too), and the forward and dK/dV again as
+// tensor-core kernels for bf16 operands (below).  The launcher picks by
+// dtype.
 //
-// Forward.  Replaces the TPU kernel _fwd_call / _fwd_kernel in
+// Forward (FMA).  Replaces the TPU kernel _fwd_call / _fwd_kernel in
 // src/repro/kernels/flash_attention/kernel.py.  For q (B, H, T, D) and k, v
 // (B, KV, S, D), query head h reads kv head h / (H / KV) (K and V are never
 // expanded).  In f32, as the reference:
@@ -22,7 +25,7 @@
 // are bounds-tested (keys past S get -inf, so they weigh 0 whatever the
 // row holds), so T and S need not be multiples of the chunks.
 //
-// Backward.  Replaces _bwd_call's two pallas_calls: _dq_kernel and
+// Backward (FMA).  Replaces _bwd_call's two pallas_calls: _dq_kernel and
 // _dkv_kernel.  The recompute formulation, in f32, with lse from the
 // forward and delta = rowsum(dO * O) computed by the caller:
 //
@@ -43,14 +46,9 @@
 // ds^T q to its 2 keys x D/16 columns.  The group's sums stay in the block:
 // no atomics, the same order on every run, as the reference's head_body.
 //
-// Bound on an H100 SXM: at prefill (B 4, H 32, T = S = 2048, D 128, causal)
-// the work is ~2*B*H*T*S/2*D operations for q k^T and as many for p v,
-// against a few hundred MB of q, k, v and O: operations bound it.  The
-// backward does three such products for dQ and four for dK/dV against the
-// same few hundred MB: operations again.  This first design runs every
-// product on the FMA units in f32 (67 TFLOP/s), reading each operand from
-// shared memory; tensor cores (mma / wgmma on bf16 operands) are later
-// work.
+// These FMA kernels run every product on the f32 FMA units (67 TFLOP/s on
+// an H100 SXM), reading each operand from shared memory.  They take f32
+// operands (the f32 consistency paths) and, for dQ, bf16 too.
 //
 // Dynamic shared memory, rows padded by one word (no bank conflicts on the
 // column walk): forward (64 + 32) x (D + 1) f32 for q and k, 32 x D for v
@@ -59,12 +57,81 @@
 // 106 KB; dK/dV the same plus 64 x 33 for p: 114 KB.  Each launch opts in
 // above 48 KB with cudaFuncSetAttribute.
 //
+// Tensor-core kernels (bf16 operands; flash_fwd_tc_kernel replaces
+// _fwd_call / _fwd_kernel, flash_bwd_dkv_tc_kernel with
+// flash_dkv_reduce_kernel replaces _bwd_call's _dkv_kernel).  Every product
+// runs as sm_90a wgmma (m64nNk16, bf16 x bf16, f32 sums) and keeps the f32
+// reference's precision:
+// * q k^T and dO v^T have bf16 operands: their products are exact in f32.
+//   The sum is scaled by sc afterwards, in f32.
+// * A product with an f32 operand x (p v; p^T dO and ds^T q) takes x as two
+//   bf16 halves, hi = bf16(x) and lo = bf16(x - hi), and runs two wgmmas
+//   into one f32 accumulator: hi + lo keeps ~16 bits of x where bf16 keeps
+//   8.  With hi alone (p rounded to bf16, as SDPA does) O and dK/dV err by
+//   about 1e-2 of their rms beyond one bf16 rounding of the output, and the
+//   checks reject that at 1e-3; with both halves the error is ~1e-5 (on an
+//   H100 SXM at the shapes below: O 1.7e-5, dK 2.7e-5, dV 6.8e-5;
+//   chip_smoke.py).
+// Tiles live in shared memory as 8 x 8 core matrices without a swizzle,
+// which wgmma reads both K-major (q, K, V, dO as the A or B of q k^T,
+// K q^T, V dO^T) and MN-major (V, dO, q as the B of p v, p^T dO, ds^T q);
+// cp.async copies 16-byte chunks into them, a ring of stages ahead of the
+// wgmmas (FWD_STAGES, DKV_STAGES).  The accumulator of a 64 x 64 score
+// tile is, register for register, the A fragment of the next product, so
+// p and ds never leave registers on their way into it.  Softmax runs in
+// base 2 (exp2f of s sc log2(e)), one FMA and one exp2 a score.
+//
+// Forward: one block per (b, h, 128 query rows), longest causal rows
+// first, two warpgroups of 64 rows each sharing the block's K and V
+// chunks (half the K/V traffic of a warpgroup a block); per 64-key chunk,
+// up to each warpgroup's diagonal: s = q K^T (D / 16 wgmmas), the causal
+// and ragged masks (on the chunks that need them), the online softmax in
+// registers (row max and sum over the 4 lanes that share a row), then
+// O += p_hi V + p_lo V (8 wgmmas), V MN-major.  Shared memory: two q tiles
+// and two stages of K and V, 96 KB at D = 128 (one block, 8 warps, a SM).
+//
+// dK/dV: one block per (b, query head, 64 keys), two warpgroups, so 2,048
+// blocks at B 1, H 32, S 4096 where a block per kv head would give 256 of
+// very uneven work.  Per 64-row q chunk from the diagonal on, warpgroup 0
+// computes s^T = K q^T and p^T = exp(s^T sc - lse), hands p^T to
+// warpgroup 1 through shared memory behind a named barrier, and adds
+// p^T dO (split) to dV; warpgroup 1 computes dp^T = V dO^T, ds^T =
+// p^T (dp^T - delta), and adds ds^T q (split) to dK.  Each writes its f32
+// sums for the query head ((B, H, S, D) scratch); the reduce kernel sums
+// the G heads of each kv head in order g = 0 .. G - 1, scales dK by sc and
+// casts into k's and v's layouts.  No atomics: the same bits on every run.
+// Shared memory: K, V, two stages of q and dO, their lse and delta, and
+// the p^T slots, 113 KB at D = 128 (one block, 8 warps, a SM).
+//
+// What limits them (H100 SXM, train_4k shape, flash_attention/ablate.py,
+// which cuts parts out): no single unit.  With every wgmma removed the
+// forward still takes 0.65-0.68 of its 0.82-0.85 ms and dK/dV 1.16-1.19 of
+// 2.21-2.28 ms; without the copies 0.57-0.59 and 1.56-1.59; a third ring
+// stage gains nothing.  Each warpgroup runs copy, wgmma, softmax (or dS)
+// and wgmma as one dependent chain with 8 warps a SM to hide it.  Warp
+// specialisation (a producer warp, TMA) and two warpgroups that alternate
+// softmax and wgmma are the next step.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), over the
+// causal half, for the precision-keeping design (one wgmma-rate product
+// for q k^T and dO v^T, two for each f32-operand product): the forward at
+// prefill (B 4, H 32, KV 4, T = S = 2048, D 128) 3 x 68.7 GFLOP, 0.209 ms;
+// dK/dV at train_4k (B 1, H 32, KV 4, T = S = 4096) 6 x 68.7 GFLOP,
+// 0.417 ms; dQ 4 products, 0.278 ms.  The bytes (q, k, v, dO once, the
+// outputs once; about 100 MB) take ~0.03 ms: operations bound all three.
+//
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // strides (in elements, for the b, h and t axes; the d axis is contiguous)
 // are long long, sc is float; dtype 0 = f32, 1 = bf16 (every q-, k-, v-
 // and dO-shaped operand has it; lse and delta are f32, contiguous
-// (B, H, T)).  Each returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a head dimension no instantiation takes.
+// (B, H, T)).  flash_attention_fwd and flash_attention_bwd_dkv take f32
+// only, flash_attention_bwd_dq both.  flash_attention_fwd_tc takes
+// flash_attention_fwd's arguments, flash_attention_bwd_dkv_tc
+// flash_attention_bwd_dkv's plus the two f32 (B, H, S, D) scratch buffers;
+// both take bf16 only (dtype 1), with 16-byte aligned addresses and
+// strides.  Each returns cudaGetLastError()
+// after its launches, or cudaErrorInvalidValue for a head dimension no
+// instantiation takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -570,30 +637,722 @@ int launch_dkv(const BwdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = dQ, 1 = dK/dV.
-template <typename T>
-int dispatch_bwd(const BwdArgs& a, int D, int which) {
-  switch (D) {
-    case 16:
-      return which ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
-    case 32:
-      return which ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64:
-      return which ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128:
-      return which ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// which: 0 = dQ (f32 or bf16), 1 = dK/dV (f32; bf16 dK/dV is the
+// tensor-core kernel's).
+template <int D>
+int launch_bwd(const BwdArgs& a, int dtype, int which) {
+  if (which) return dtype == 0 ? launch_dkv<float, D>(a)
+                               : static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0 ? launch_dq<float, D>(a) : launch_dq<__nv_bfloat16, D>(a);
 }
 
 int run_bwd(const BwdArgs& a, int D, int dtype, int which) {
   if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.Tq <= 0 ||
-      a.S <= 0)
+      a.S <= 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return dispatch_bwd<float>(a, D, which);
-  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, D, which);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return launch_bwd<16>(a, dtype, which);
+    case 32: return launch_bwd<32>(a, dtype, which);
+    case 64: return launch_bwd<64>(a, dtype, which);
+    case 128: return launch_bwd<128>(a, dtype, which);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernels (bf16 operands, sm_90a wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 64;   // query rows of a warpgroup tile (wgmma's M)
+constexpr int TC_BK = 64;   // keys a chunk (wgmma's N for q k^T)
+constexpr int WG = 128;     // threads of a warpgroup
+// The forward's warpgroups a block (each 64 query rows, sharing the block's
+// K and V chunks) and its ring of K and V stages; dK/dV's ring of q, dO,
+// lse and delta stages.  Each ring's copies run (stages - 1) chunks ahead.
+constexpr int FWD_WGS = 2;
+constexpr int FWD_STAGES = 2;
+constexpr int DKV_STAGES = 2;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 64-row bf16 tile [64][D] lives in shared memory as 8 x 8 core matrices
+// (8 rows of 16 bytes, 128 contiguous bytes each): element (r, c) at byte
+// (c / 8) * 1024 + r * 16 + (c % 8) * 2.  wgmma reads it without a swizzle
+// either way round:
+// * K-major (rows are M or N, the sum runs over c): core matrices step
+//   1024 bytes along c (the leading byte offset) and 128 bytes along r (the
+//   stride byte offset); the k-th 16-column slice starts 2048 k bytes in.
+// * MN-major (the sum runs over r, N is c): 128 bytes along r (leading),
+//   1024 bytes along c (stride); the k-th 16-row slice starts 256 k bytes
+//   in.
+constexpr uint32_t TILE_COL8 = TC_BQ * 16;   // bytes between 8-column blocks
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  // start address, leading and stride byte offsets in 16-byte units;
+  // base offset 0 and layout type 0 (no swizzle) in bits 49-51 and 62-63
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int k) {
+  return smem_desc(tile + k * 2 * TILE_COL8, TILE_COL8, 128);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int k) {
+  return smem_desc(tile + k * 256, 128, TILE_COL8);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async
+// proxy: each thread fences its landed copies before the block barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator across a
+// wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Rows [r0, r0 + 64) of a (rows, D) bf16 slab with row stride st into a
+// core-matrix tile, zero past ``rows``; every thread of ``nthreads`` copies
+// 16-byte chunks, eight neighbouring rows of one chunk column a warp
+// quarter, so the stores fill whole 128-byte core matrices.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
+                                          long long st, int r0, int rows,
+                                          int tid, int nthreads) {
+  constexpr int CH = D / 8;
+  for (int i = tid; i < TC_BQ * CH; i += nthreads) {
+    const int r = (i % 8) + 8 * (i / (8 * CH));
+    const int c8 = (i / 8) % CH;
+    const int t = r0 + r;
+    const bool in = t < rows;
+    cp_async16(tile + c8 * TILE_COL8 + r * 16,
+               in ? static_cast<const void*>(src + t * st + c8 * 8) : src,
+               in ? 16 : 0);
+  }
+}
+
+// D (64 x 64, f32) += A (64 x 16) B (16 x 64), A and B K-major in shared
+// memory; scale_d = 0 ignores D's old value.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 16),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 32),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 64),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 128),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Splits a 64 x 64 f32 accumulator (p or ds) into the A fragments of
+// hi = bf16(x) and lo = bf16(x - hi), four 16-column slices of four
+// registers each: slice k is the accumulator's 8-column blocks 2k and
+// 2k + 1, which is wgmma's A layout for rows warp*16 + (lane/4) (+8).
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[16],
+                                            uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // r: 0 = (row, block 2k), 1 = (row + 8, 2k), 2 = (row, 2k + 1),
+      //    3 = (row + 8, 2k + 1)
+      const int idx = (2 * k + (r >> 1)) * 4 + (r & 1) * 2;
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x[idx], x[idx + 1]);
+      const float2 hf = __bfloat1622float2(h2);
+      hi[k * 4 + r] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[k * 4 + r] = pack_bf16(x[idx] - hf.x, x[idx + 1] - hf.y);
+    }
+}
+
+// O (64 x D) += (hi + lo) V over one 64-key chunk: eight wgmmas, two per
+// 16-key slice, both into the one f32 accumulator.
+template <int N>
+__device__ __forceinline__ void split_product(float (&acc)[N / 2],
+                                              const uint32_t (&hi)[16],
+                                              const uint32_t (&lo)[16],
+                                              uint32_t btile) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_rs(acc, hi[4 * k], hi[4 * k + 1], hi[4 * k + 2], hi[4 * k + 3],
+             desc_mnmajor(btile, k));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_rs(acc, lo[4 * k], lo[4 * k + 1], lo[4 * k + 2], lo[4 * k + 3],
+             desc_mnmajor(btile, k));
+}
+
+// S (64 x 64) = A B^T over D columns: A and B are 64-row core-matrix tiles.
+template <int D>
+__device__ __forceinline__ void scores_tc(float (&s)[32], uint32_t atile,
+                                          uint32_t btile) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    wgmma_ss_n64(s, desc_kmajor(atile, k), desc_kmajor(btile, k), k > 0);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// One chunk of the online softmax on a 64 x 64 score accumulator (rows
+// warp*16 + gid (+8), keys n8*8 + tig*2 (+1)), in base 2: scale by
+// scl = sc log2(e), mask, update the running max m (of s scl), turn s into
+// p = 2^(s scl - m) = exp(s sc - m ln 2) in place, and return the rescale
+// alpha and the row sums of p (summed over the quad that shares a row).
+// ``masked``: the chunk holds keys past S or past the diagonal.
+__device__ __forceinline__ void softmax_chunk(float (&s)[32], float (&m)[2],
+                                              float (&alpha)[2],
+                                              float (&sum)[2], int qrow,
+                                              int kv0, int tig, int S,
+                                              int causal, bool masked,
+                                              float scl) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qrow + 8 * i;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = n8 * 4 + i * 2 + e;
+        float x = s[idx] * scl;
+        if (masked) {
+          const int kpos = kv0 + n8 * 8 + tig * 2 + e;
+          if (kpos >= S)
+            x = -INFINITY;
+          else if (causal && qpos < kpos)
+            x = NEG_INF;
+        }
+        s[idx] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    alpha[i] = exp2f(m[i] - m_new);
+    float t = 0.f;
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = n8 * 4 + i * 2 + e;
+        s[idx] = exp2f(s[idx] - m_new);
+        t += s[idx];
+      }
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    sum[i] = t;
+    m[i] = m_new;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_WGS * WG, 1) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int H, int KV, int Tq, int S, Strides qs, Strides ks, Strides vs,
+    Strides os, float sc, int causal) {
+  constexpr int TILE = TC_BQ * D;   // bf16 elements of a tile
+  constexpr uint32_t TB = TILE * 2;  // bytes of a tile
+  constexpr int NT = FWD_WGS * WG;  // threads of the block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [FWD_WGS][TILE]
+  bf16* Ks = Qs + FWD_WGS * TILE;                // [FWD_STAGES][TILE]
+  bf16* Vs = Ks + FWD_STAGES * TILE;             // [FWD_STAGES][TILE]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // the longest causal rows first
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * TC_BQ * FWD_WGS;  // the block's first row
+  const int q0 = qb0 + wg * TC_BQ;       // this warpgroup's first row
+  const int qrow = q0 + warp * 16 + gid;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const uint32_t qtile = smem_u32(Qs);
+  const uint32_t ktile = smem_u32(Ks);
+  const uint32_t vtile = smem_u32(Vs);
+  const int kv_end = causal ? min(S, qb0 + FWD_WGS * TC_BQ) : S;
+  const int nkv = (kv_end + TC_BK - 1) / TC_BK;
+  // this warpgroup's chunks: those holding a key at or before its last row
+  const int mine = causal ? min(nkv, q0 / TC_BK + 1) : nkv;
+  auto load_chunk = [&](int c) {
+    if (c < nkv) {
+      const int st = c % FWD_STAGES;
+      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, tid, NT);
+      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, tid, NT);
+    }
+    cp_commit();  // a group per chunk, empty past the last
+  };
+
+#pragma unroll
+  for (int w = 0; w < FWD_WGS; ++w)
+    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+#pragma unroll
+  for (int c = 0; c < FWD_STAGES - 1; ++c) load_chunk(c);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2], sum[2];
+
+  for (int j = 0; j < nkv; ++j) {
+    // chunk j landed, and every warp is past chunk j - 1, whose stage the
+    // copies of chunk j + FWD_STAGES - 1 refill
+    cp_wait<FWD_STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();
+    load_chunk(j + FWD_STAGES - 1);
+    if (j >= mine) continue;  // past this warpgroup's diagonal
+
+    const uint32_t st = (j % FWD_STAGES) * TB;
+    const int kv0 = j * TC_BK;
+    float s[32] = {};
+    wg_fence();
+    scores_tc<D>(s, qtile + wg * TB, ktile + st);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    softmax_chunk(s, m, alpha, sum, qrow, kv0, tig, S, causal,
+                  kv0 + TC_BK > S || (causal && kv0 + TC_BK - 1 > q0),
+                  sc * LOG2E);
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[n8 * 4 + r] *= alpha[r >> 1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+
+    uint32_t hi[16], lo[16];
+    split_frags(s, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<D>(acc, hi, lo, vtile + st);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + b * os.b + h * os.h + tq * os.t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int c = n8 * 8 + tig * 2;
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+          acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+    }
+    if (tig == 0)  // m is in base 2
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
+  }
+}
+
+// dK/dV on the tensor cores: one block per (b, query head, 64 keys), two
+// warpgroups.  Both recompute their 64 keys x 64 queries tile per q chunk
+// transposed (keys are the rows, so the accumulators are already the A
+// fragments of p^T and ds^T):
+//   warpgroup 0: s^T = K q^T, p^T = exp(s^T sc - lse), dV += p^T dO
+//   warpgroup 1: dp^T = V dO^T, ds^T = p^T (dp^T - delta), dK += ds^T q
+// p^T passes from 0 to 1 through shared memory (f32, one slot a thread:
+// thread i of each warpgroup holds the same elements) behind a named
+// barrier.  Each writes its f32 sums for this query head; the reduce kernel
+// sums the group's heads in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_part, float* __restrict__ dv_part, int H, int KV,
+    int Tq, int S, Strides qs, Strides ks, Strides vs, Strides dos,
+    float sc, int causal) {
+  constexpr int TILE = TC_BQ * D;
+  constexpr uint32_t TB = TILE * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;                   // [DKV_STAGES][TILE]
+  bf16* dOs = Qs + DKV_STAGES * TILE;     // [DKV_STAGES][TILE]
+  float* Ls = reinterpret_cast<float*>(dOs + DKV_STAGES * TILE);
+  float* Dl = Ls + DKV_STAGES * TC_BQ;    // lse, delta: [DKV_STAGES][64]
+  float* Pex = Dl + DKV_STAGES * TC_BQ;   // [32][WG]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * TC_BK;  // blockIdx.y = 0 (most q chunks) first
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const uint32_t ktile = smem_u32(Ks), vtile = smem_u32(Vs);
+  const uint32_t qtile = smem_u32(Qs), dotile = smem_u32(dOs);
+
+  const int nq = (Tq + TC_BQ - 1) / TC_BQ;
+  const int lo_q = causal ? k0 / TC_BQ : 0;  // the first q chunk that sees k0
+
+  // a group per q chunk (empty past the last); chunk qc in stage
+  // (qc - lo_q) % DKV_STAGES
+  auto stage = [&](int qc) {
+    if (qc >= nq) {
+      cp_commit();
+      return;
+    }
+    const int sidx = (qc - lo_q) % DKV_STAGES;
+    const int q0 = qc * TC_BQ;
+    load_tile<D>(qtile + sidx * TB, qb, qs.t, q0, Tq, tid, 2 * WG);
+    load_tile<D>(dotile + sidx * TB, dob, dos.t, q0, Tq, tid, 2 * WG);
+    if (tid < 2 * TC_BQ) {  // the rows' lse and delta, zero past T
+      const int r = tid % TC_BQ;
+      const int tq = q0 + r;
+      const float* src = (tid < TC_BQ ? lse : delta) + row0;
+      cp_async4(smem_u32((tid < TC_BQ ? Ls : Dl) + sidx * TC_BQ + r),
+                tq < Tq ? src + tq : src, tq < Tq ? 4 : 0);
+    }
+    cp_commit();
+  };
+
+  load_tile<D>(ktile, k + b * ks.b + kvh * ks.h, ks.t, k0, S, tid, 2 * WG);
+  load_tile<D>(vtile, v + b * vs.b + kvh * vs.h, vs.t, k0, S, tid, 2 * WG);
+  // K and V go with the first q chunk's group
+#pragma unroll
+  for (int c = 0; c < DKV_STAGES - 1; ++c) stage(lo_q + c);
+
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int qc = lo_q; qc < nq; ++qc) {
+    // chunk qc landed, and every thread is past chunk qc - 1, whose stage
+    // (and Pex) the next copies refill
+    cp_wait<DKV_STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();
+    stage(qc + DKV_STAGES - 1);
+    const int sidx = (qc - lo_q) % DKV_STAGES;
+
+    const int q0 = qc * TC_BQ;
+    const float scl = sc * LOG2E;
+    const float* Lst = Ls + sidx * TC_BQ;
+    const float* Dst = Dl + sidx * TC_BQ;
+    float x[32] = {};
+    wg_fence();
+    if (wg == 0)
+      scores_tc<D>(x, ktile, qtile + sidx * TB);
+    else
+      scores_tc<D>(x, vtile, dotile + sidx * TB);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(x);
+
+    // the tile holds keys past S, rows past T, or the causal diagonal
+    const bool masked =
+        k0 + TC_BK > S || q0 + TC_BQ > Tq || (causal && q0 < k0 + TC_BK - 1);
+    if (wg == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int kpos = k0 + warp * 16 + gid + 8 * (r >> 1);
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          const int qpos = q0 + c;
+          const bool in = !masked || (kpos < S && qpos < Tq &&
+                                      !(causal && qpos < kpos));
+          // exp(s sc - lse) in base 2
+          const float p =
+              in ? exp2f(fmaf(x[idx], scl, -Lst[c] * LOG2E)) : 0.f;
+          x[idx] = p;
+          Pex[idx * WG + t] = p;
+        }
+      asm volatile("bar.arrive 1, %0;\n" ::"n"(2 * WG) : "memory");
+    } else {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * WG) : "memory");
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          x[idx] = Pex[idx * WG + t] * (x[idx] - Dst[c]);
+        }
+    }
+
+    uint32_t hi[16], lo[16];
+    split_frags(x, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<D>(acc, hi, lo, (wg == 0 ? dotile : qtile) + sidx * TB);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();  // a block with no q chunk leaves no copy in flight
+
+  float* part = wg == 0 ? dv_part : dk_part;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = k0 + warp * 16 + gid + 8 * i;
+    if (s >= S) continue;
+    float* row = part + ((static_cast<int64_t>(b) * H + h) * S + s) * D;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<float2*>(row + n8 * 8 + tig * 2) =
+          make_float2(acc[n8 * 4 + i * 2], acc[n8 * 4 + i * 2 + 1]);
+  }
+}
+
+// dK = sc * sum_g dk_part[h = kvh * G + g], dV = sum_g dv_part[...], g in
+// order 0 .. G - 1 (the same order on every run), cast to bf16 into k's and
+// v's layouts; blockIdx.y = 0 for dK, 1 for dV; a thread owns 4 columns.
+template <int D>
+__global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
+    const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV, int S,
+    Strides dks, Strides dvs, float sc, long long n4) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n4) return;
+  const int c = static_cast<int>(idx % (D / 4)) * 4;
+  const long long row = idx / (D / 4);
+  const int s = static_cast<int>(row % S);
+  const long long bk = row / S;
+  const int kvh = static_cast<int>(bk % KV);
+  const int b = static_cast<int>(bk / KV);
+  const int G = H / KV;
+  const bool is_v = blockIdx.y == 1;
+  const float* part = is_v ? dv_part : dk_part;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const float4 x = *reinterpret_cast<const float4*>(
+        part + ((static_cast<int64_t>(b) * H + h) * S + s) * D + c);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
+  }
+  const float f = is_v ? 1.f : sc;
+  const Strides& st = is_v ? dvs : dks;
+  bf16* dst = (is_v ? dv : dk) + b * st.b + kvh * st.h + s * st.t + c;
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] =
+      __floats2bfloat162_rn(sum.x * f, sum.y * f);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] =
+      __floats2bfloat162_rn(sum.z * f, sum.w * f);
+}
+
+constexpr size_t fwd_tc_smem_bytes(int d) {
+  return 2 * static_cast<size_t>(TC_BQ) * d * (FWD_WGS + 2 * FWD_STAGES);
+}
+
+constexpr size_t dkv_tc_smem_bytes(int d) {
+  return 2 * static_cast<size_t>(TC_BQ) * d * (2 + 2 * DKV_STAGES) +
+         sizeof(float) *
+             (2 * DKV_STAGES * static_cast<size_t>(TC_BQ) + 32 * WG);
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int H, int KV, int Tq, int S, Strides qs,
+                  Strides ks, Strides vs, Strides os, float sc, int causal,
+                  cudaStream_t st) {
+  const size_t smem = fwd_tc_smem_bytes(D);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_fwd_tc_kernel<D>), smem);
+  if (err) return err;
+  const dim3 grid(B * H, (Tq + FWD_WGS * TC_BQ - 1) / (FWD_WGS * TC_BQ));
+  flash_fwd_tc_kernel<D><<<grid, FWD_WGS * WG, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Tq, S,
+      qs, ks, vs, os, sc, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tc(const BwdArgs& a, float* dk_part, float* dv_part) {
+  const size_t smem = dkv_tc_smem_bytes(D);
+  int err = opt_in(reinterpret_cast<const void*>(flash_bwd_dkv_tc_kernel<D>),
+                   smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.S + TC_BK - 1) / TC_BK);
+  flash_bwd_dkv_tc_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, dk_part, dv_part, a.H, a.KV, a.Tq, a.S, a.qs, a.ks, a.vs,
+      a.dos, a.sc, a.causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (D / 4);
+  const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+  flash_dkv_reduce_kernel<D><<<rgrid, 256, 0, a.st>>>(
+      dk_part, dv_part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.H, a.KV, a.S, a.dks, a.dvs, a.sc, n4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -614,10 +1373,7 @@ extern "C" int flash_attention_fwd(
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, l, B, H, KV, Tq, S, D, qs, ks, vs, os,
                            sc, causal, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, H, KV, Tq, S, D, qs, ks,
-                                   vs, os, sc, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaErrorInvalidValue);  // bf16: the *_tc entry
 }
 
 extern "C" int flash_attention_bwd_dq(
@@ -663,4 +1419,71 @@ extern "C" int flash_attention_bwd_dkv(
   a.sc = sc; a.causal = causal;
   a.st = static_cast<cudaStream_t>(stream);
   return run_bwd(a, D, dtype, 1);
+}
+
+extern "C" int flash_attention_fwd_tc(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int KV, int Tq, int S, int D, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st, long long o_sb,
+    long long o_sh, long long o_st, float sc, int causal, int dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
+      vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_fwd_tc<16>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
+                               sc, causal, st);
+    case 32:
+      return launch_fwd_tc<32>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
+                               sc, causal, st);
+    case 64:
+      return launch_fwd_tc<64>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
+                               sc, causal, st);
+    case 128:
+      return launch_fwd_tc<128>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                os, sc, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_attention_bwd_dkv_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* dk_part,
+    void* dv_part, int B, int H, int KV, int Tq, int S, int D,
+    long long q_sb, long long q_sh, long long q_st, long long k_sb,
+    long long k_sh, long long k_st, long long v_sb, long long v_sh,
+    long long v_st, long long do_sb, long long do_sh, long long do_st,
+    long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
+    long long dv_sh, long long dv_st, float sc, int causal, int dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = dk; a.dv = dv;
+  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
+  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
+  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
+  a.dks = {dk_sb, dk_sh, dk_st}; a.dvs = {dv_sb, dv_sh, dv_st};
+  a.sc = sc; a.causal = causal;
+  a.st = static_cast<cudaStream_t>(stream);
+  float* kp = static_cast<float*>(dk_part);
+  float* vp = static_cast<float*>(dv_part);
+  switch (D) {
+    case 16: return launch_dkv_tc<16>(a, kp, vp);
+    case 32: return launch_dkv_tc<32>(a, kp, vp);
+    case 64: return launch_dkv_tc<64>(a, kp, vp);
+    case 128: return launch_dkv_tc<128>(a, kp, vp);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

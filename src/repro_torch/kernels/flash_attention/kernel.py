@@ -15,9 +15,20 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
-``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
-``flash_attention_bwd_dkv.launches`` count each kernel's launches in this
-process.  Only a launch adds to its count, once.
+The forward and dK/dV pick their kernel by dtype, and only by dtype: bf16
+operands go to the tensor-core kernels (``flash_fwd_tc_kernel``;
+``flash_bwd_dkv_tc_kernel``, which writes f32 sums per query head into two
+scratch buffers, then ``flash_dkv_reduce_kernel``, which sums each kv
+head's group in a fixed order), f32 operands to the FMA kernels.  dQ has
+one kernel for both.  The tensor-core kernels load 16-byte chunks, so a
+bf16 operand whose address or (b, h, t) strides are not 16-byte multiples
+is copied to a contiguous tensor first.
+
+Counts of launches in this process, one a launch of its kernel:
+``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
+(tensor-core forward); ``flash_attention_bwd_dq.launches``;
+``flash_attention_bwd_dkv.launches`` (FMA dK/dV), ``.tc_launches``
+(tensor-core dK/dV) and ``.reduce_launches`` (its group sum).
 """
 from __future__ import annotations
 
@@ -33,7 +44,9 @@ from repro_torch.kernels.flash_attention.ref import (
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry point -> (pointer operands, strided operands)
 _SYMBOLS = {"flash_attention_fwd": (5, 4), "flash_attention_bwd_dq": (7, 5),
-            "flash_attention_bwd_dkv": (8, 6)}
+            "flash_attention_bwd_dkv": (8, 6),
+            "flash_attention_fwd_tc": (5, 4),
+            "flash_attention_bwd_dkv_tc": (10, 6)}
 
 
 def _fn(symbol: str):
@@ -93,6 +106,17 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
     return b, h, kv, t, s, d
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its address and (b, h, t) strides are 16-byte
+    multiples, as the tensor-core kernels' 16-byte copies need, else a
+    contiguous copy."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % step == 0
+                                      for st in t.stride()[:3]):
+        return t
+    return t.contiguous()
+
+
 def _check_stats(lse, delta, shape, dev) -> None:
     for name, x in (("lse", lse), ("delta", delta)):
         _build.check_operand("flash_attention", name, x, torch.float32,
@@ -100,17 +124,26 @@ def _check_stats(lse, delta, shape, dev) -> None:
 
 
 def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, h, kv, t, s, d = _check_qkv(q, k, v,
-                                   budget.flash_smem_bytes(q.shape[-1]))
+    tc = q.dtype == torch.bfloat16
+    d = q.shape[-1]
+    b, h, kv, t, s, d = _check_qkv(
+        q, k, v, budget.flash_tc_smem_bytes(d) if tc
+        else budget.flash_smem_bytes(d))
+    if tc:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
     # when q is a transposed view of the model's tensor.
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _call("flash_attention_fwd", (q, k, v, out, lse), (b, h, kv, t, s, d),
-          (q, k, v, out), sc, causal, q.dtype)
-    flash_attention_fwd.launches += 1
+    _call("flash_attention_fwd_tc" if tc else "flash_attention_fwd",
+          (q, k, v, out, lse), (b, h, kv, t, s, d), (q, k, v, out), sc,
+          causal, q.dtype)
+    if tc:
+        flash_attention_fwd.tc_launches += 1
+    else:
+        flash_attention_fwd.launches += 1
     return out, lse
 
 
@@ -127,6 +160,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,16 +189,34 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: the dQ kernel's operands -> dK, dV (B, KV, S, d)
     in the dtypes and memory layouts of k and v, each summed over the
-    G query heads of its kv head."""
-    b, h, kv, t, s, d = _check_qkv(q, k, v, budget.flash_bwd_dkv_smem_bytes(
-        q.shape[-1]), ("do", do))
+    G query heads of its kv head.  bf16 operands run the tensor-core kernel
+    and its group sum (two launches), f32 operands the FMA kernel."""
+    tc = q.dtype == torch.bfloat16
+    d = q.shape[-1]
+    b, h, kv, t, s, d = _check_qkv(
+        q, k, v, budget.flash_bwd_dkv_tc_smem_bytes(d) if tc
+        else budget.flash_bwd_dkv_smem_bytes(d), ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
+    if tc:
+        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _call("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+    if not tc:
+        _call("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+              (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal,
+              q.dtype)
+        flash_attention_bwd_dkv.launches += 1
+        return dk, dv
+    # f32 sums per query head, (B, H, S, d) each, summed by the reduce
+    # kernel into dK and dV
+    dk_part = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    _call("flash_attention_bwd_dkv_tc",
+          (q, k, v, do, lse, delta, dk, dv, dk_part, dv_part),
           (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal, q.dtype)
-    flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.tc_launches += 1
+    flash_attention_bwd_dkv.reduce_launches += 1
     return dk, dv
 
 
@@ -195,3 +247,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
+flash_attention_bwd_dkv.reduce_launches = 0

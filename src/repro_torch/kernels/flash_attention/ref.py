@@ -15,6 +15,16 @@ lse)`` under the same mask, ``delta = rowsum(dO * O)``, ``dS = P * (dP -
 delta)`` with ``dP = dO v^T``, ``dQ = dS k * sc``, ``dK = dS^T q * sc`` and
 ``dV = P^T dO``, dK and dV summed over the G query heads of each kv head.
 
+``flash_attention_split_plain`` and ``flash_attention_bwd_split_plain``
+mirror the arithmetic of the tensor-core kernels on whole rows: q k^T (and
+dO v^T) from bf16 operands with f32 sums, which is exact products, then
+``sc``; every product with an f32 operand (p v, p^T dO, dS^T q) as two bf16
+products, of ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, summed in f32.
+dQ keeps f32 dS, as its FMA kernel does.  With ``lo=False`` the products
+take ``hi`` alone: p and dS rounded to bf16 once, the control that the
+precision checks must reject.  They are used by the tests and
+``chip_smoke.py``, never on the main path.
+
 ``attention_ref`` is the port of the reference's oracle
 (``repro/kernels/flash_attention/ref.py``): naive softmax attention.
 """
@@ -79,6 +89,78 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2)
     return (dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo) as f32 values: hi = bf16(x), lo = bf16(x - hi),
+    so hi + lo keeps about 16 bits of x's mantissa."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_matmul(x: torch.Tensor, y: torch.Tensor, lo: bool) -> torch.Tensor:
+    """x @ y as the tensor-core kernels take it: x split in two bf16
+    halves, both products summed in f32 (``lo=False``: the hi half
+    alone)."""
+    hi_x, lo_x = split_bf16(x)
+    out = torch.matmul(hi_x, y)
+    return out + torch.matmul(lo_x, y) if lo else out
+
+
+def _causal_logits(qf, kf, sc, causal):
+    """(q k^T) sc on (B, KV, G, T, d) / (B, KV, 1, S, d) f32, masked."""
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * sc
+    if causal:
+        t, s = qf.shape[-2], kf.shape[-2]
+        mask = (torch.arange(t, device=qf.device)[:, None]
+                >= torch.arange(s, device=qf.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    return logits
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, sc: float, causal: bool,
+                                lo: bool = True
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core forward's arithmetic on whole rows: q (B, H, T, d),
+    k/v (B, KV, S, d) -> f32 O (B, H, T, d) and lse (B, H, T)."""
+    b, h, t, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    logits = _causal_logits(q.reshape(b, kv, g, t, d).float(),
+                            k.float()[:, :, None], sc, causal)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    del logits
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = _split_matmul(p, v.float()[:, :, None], lo) / l[..., None]
+    return out.reshape(b, h, t, d), (m + torch.log(l)).reshape(b, h, t)
+
+
+def flash_attention_bwd_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, o: torch.Tensor,
+                                    lse: torch.Tensor, do: torch.Tensor, *,
+                                    sc: float, causal: bool, lo: bool = True
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """The backward kernels' arithmetic on whole rows (dK/dV the
+    tensor-core kernel's, dQ the FMA kernel's): the operands of
+    ``flash_attention_bwd_plain`` -> f32 dQ (B, H, T, d), dK, dV
+    (B, KV, S, d)."""
+    b, h, t, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    qf = q.reshape(b, kv, g, t, d).float()
+    dof = do.reshape(b, kv, g, t, d).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    p = torch.exp(_causal_logits(qf, kf, sc, causal)
+                  - lse.reshape(b, kv, g, t, 1))
+    delta = (dof * o.reshape(b, kv, g, t, d).float()).sum(dim=-1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * sc
+    dk = _split_matmul(ds.transpose(-1, -2), qf, lo).sum(dim=2) * sc
+    dv = _split_matmul(p.transpose(-1, -2), dof, lo).sum(dim=2)
+    return dq.reshape(b, h, t, d), dk, dv
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,7 +16,9 @@ bank, and BCSR right-padding columns past C*R*S.
 The BCSR matmul cases cover both schedules (``rows``, ``mma``), (16, 16)
 and (16, 128) tiles and ragged row counts; the flash cases
 GQA 8:1 at d = 128 with T = 200 (not a multiple of either chunk), causal and
-full, S != T.
+full, S != T, MHA, and bf16 (the tensor-core forward and dK/dV) at every
+head dimension of ``budget.FLASH_HEAD_DIMS``.  The counters show which
+kernel ran: bf16 operands the tensor-core ones, f32 the FMA ones.
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
 does, in the same nonzero order, so it agrees to 1e-6; the BCSR kernel sums
@@ -29,7 +31,9 @@ the output plus 1e-3 of the output's rms, a limit that p v in bf16 exceeds;
 lse to 1e-4.  The flash backward kernels sum in f32 in another order than
 their plain version: in f32 each of dQ, dK and dV within 1e-4 of its rms;
 in bf16 each element within one bf16 rounding plus 1e-3 of the rms, a
-limit that the plain version with p rounded to bf16 exceeds.
+limit that the plain version with p rounded to bf16 exceeds.  dK and dV
+of the tensor-core kernel sum each kv head's group in a fixed order: two
+launches on the same operands agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -222,6 +226,9 @@ FLASH_CASES = [
     (1, 4, 4, 77, 77, 64, True, torch.float32),
     (1, 4, 2, 64, 96, 16, False, torch.float32),       # S != T, full
     (2, 32, 4, 256, 256, 128, True, torch.bfloat16),   # Yi-9B heads
+    (1, 4, 4, 77, 77, 64, True, torch.bfloat16),       # MHA, ragged
+    (1, 4, 2, 64, 96, 16, False, torch.bfloat16),      # S != T, full
+    (2, 4, 1, 150, 130, 32, True, torch.bfloat16),     # S < T, ragged
 ]
 # bf16 O: per element, one bf16 rounding of the output (2^-8 of |O|) plus
 # FLASH_O_ATOL of the output's rms.  p v with p rounded to bf16 (a fault
@@ -264,10 +271,12 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case):
     k = torch.randn((b, kv, s, d), generator=gen, device=cuda_device).to(dtype)
     v = torch.randn((b, kv, s, d), generator=gen, device=cuda_device).to(dtype)
     sc = d ** -0.5
-    before = flash_attention_fwd.launches
+    tc = dtype == torch.bfloat16
+    before = (flash_attention_fwd.launches, flash_attention_fwd.tc_launches)
     o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
+    assert (flash_attention_fwd.launches, flash_attention_fwd.tc_launches) \
+        == (before[0] + (not tc), before[1] + tc)
     # the plain version on f32 copies: O before its rounding to q's dtype
     o_want, lse_want = flash_attention_plain(q.float(), k.float(), v.float(),
                                              sc=sc, causal=causal)
@@ -356,6 +365,10 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 64, 96, 16, False, torch.float32),       # bidirectional, S != T
     (2, 4, 1, 150, 150, 32, False, torch.bfloat16),    # bidirectional, ragged
     (1, 32, 4, 256, 256, 128, True, torch.bfloat16),   # Yi-9B heads
+    (1, 4, 4, 128, 128, 64, True, torch.bfloat16),     # MHA
+    (1, 8, 1, 77, 77, 128, True, torch.bfloat16),      # GQA 8:1, ragged
+    (1, 4, 2, 64, 96, 16, False, torch.bfloat16),      # bidirectional, S != T
+    (1, 4, 2, 96, 64, 64, True, torch.bfloat16),       # S < T
 ]
 # f32: max |error| / rms; bf16: beyond one bf16 rounding, over the rms
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -413,13 +426,21 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
     sc = d ** -0.5
     o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=causal)
     delta = (do.float() * o.float()).sum(dim=-1)
-    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    tc = dtype == torch.bfloat16
+
+    def counts():
+        return (flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dkv.tc_launches,
+                flash_attention_bwd_dkv.reduce_launches)
+
+    before = counts()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc, causal=causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
                                      causal=causal)
     torch.cuda.synchronize()
-    assert (flash_attention_bwd_dq.launches,
-            flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert counts() == (before[0] + 1, before[1] + (not tc), before[2] + tc,
+                        before[3] + tc)
     assert dq.stride() == q.stride() and dk.stride() == k.stride()
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype, dtype, dtype)
     f32 = [x.float() for x in (q, k, v, o)]
@@ -434,6 +455,59 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
         control = _bwd_p_bf16(q, k, v, o, lse, do, sc=sc, causal=causal)
         for name, c, w in zip(("dq", "dk", "dv"), control, want):
             assert _grad_excess(c, w, dtype) > tol, name
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
+    """The tensor-core dK/dV sums each kv head's G query heads in a fixed
+    order, with no atomics: two launches on the same operands agree bit for
+    bit (GQA 8:1, causal, ragged)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        bwd_delta, flash_attention_bwd_dkv, flash_attention_fwd)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = rand(2, 333, 16, d), rand(2, 333, 2, d), \
+        rand(2, 333, 2, d), rand(2, 333, 16, d)
+    sc = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=True)
+    delta = bwd_delta(o, do)
+    first = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
+                                    causal=True)
+    second = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
+                                     causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
+    """f32 operands launch the FMA forward and dK/dV kernels, bf16 operands
+    the tensor-core ones (and dK/dV's group sum); dQ has one kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+
+    counters = ((fk.flash_attention_fwd, "launches"),
+                (fk.flash_attention_fwd, "tc_launches"),
+                (fk.flash_attention_bwd_dq, "launches"),
+                (fk.flash_attention_bwd_dkv, "launches"),
+                (fk.flash_attention_bwd_dkv, "tc_launches"),
+                (fk.flash_attention_bwd_dkv, "reduce_launches"))
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    leaves = [torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+              .requires_grad_() for shape in
+              ((1, 96, 8, 64), (1, 96, 2, 64), (1, 96, 2, 64))]
+    before = [getattr(fn, attr) for fn, attr in counters]
+    flash_attention_bthd(*leaves, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    ran = [getattr(fn, attr) - b_ for (fn, attr), b_ in zip(counters,
+                                                             before)]
+    tc = dtype == torch.bfloat16
+    assert ran == [int(not tc), int(tc), 1, int(not tc), int(tc), int(tc)]
 
 
 def test_flash_attention_is_differentiable_on_the_card(cuda_device):
