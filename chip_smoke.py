@@ -43,10 +43,14 @@ Phases (any failure exits non-zero and prints no result):
               down (11008 -> 4096) on (B, T, N) activations of 4 x 1 (a
               decode step) and 4 x 2048 (a prefill): the kernel on the
               (B*T, N) view ``ops.bsr_matmul`` hands it, against
-              ``bsr_matmul_plain`` within 1e-4 x max(1, max |y|), and the
-              wrapper's bf16 (B, T, M) output within one bf16 rounding of
-              the plain version's plus that limit; ``library_ms`` from
-              ``torch.matmul`` on the dense pruned weight.  Flash
+              ``bsr_matmul_plain`` within 1e-4 x max(1, max |y|), its bf16
+              output (as the model asks for it) the f32 output rounded
+              once, bit for bit, and the wrapper's bf16 (B, T, M) output
+              within one bf16 rounding of the plain version's plus that
+              limit; 4 rows run the ``rows`` schedule, 8192 the ``wgmma``
+              one; times are of the bf16-output call the model makes;
+              ``library_ms`` from ``torch.matmul`` on the dense pruned
+              weight.  Flash
               attention (the tensor-core forward, ``flash_attention_tc``),
               causal, B 4, H 32, KV 4, T = S = 2048, d 128, bf16, on
               the (B, H, T, d) views of (B, T, H, d) tensors that
@@ -82,8 +86,9 @@ Phases (any failure exits non-zero and prints no result):
               argmax agreement >= 0.95 (``tests/test_decode_consistency.py``).
 6. prefill -- Yi-9B in bf16, B 4, T 2048, ``make_prefill_step`` under flash
               attention at sparsity 0.8 and 0.0: one counted forward must
-              launch ``bsr_matmul`` 336 times (7 projections x 48 layers)
-              and the tensor-core flash forward 48 times (0 and 48 dense),
+              launch ``bsr_matmul`` 336 times (7 projections x 48 layers),
+              all through its ``wgmma`` schedule, and the tensor-core flash
+              forward 48 times (0 and 48 dense),
               with finite (4, 64000)
               logits; each line carries ``forward_ms`` (host clock over 3
               synchronised forwards) and the profiled device breakdown.
@@ -91,7 +96,8 @@ Phases (any failure exits non-zero and prints no result):
               max_len 128), 8 requests with 8-48 prompt tokens and budgets
               of 16-32 new tokens from ``--seed``: every request served to
               its budget with ids below 64000, every tick 336 ``bsr_matmul``
-              and 0 flash launches; the line carries ticks, ms per tick,
+              (all through ``rows``, 0 through ``wgmma``) and 0 flash
+              launches; the line carries ticks, ms per tick,
               generated tokens per second and one profiled decode step.
 8. llm bwd kernels -- both flash backward kernels at Yi-9B's ``train_4k``
               shape (B 1, H 32, KV 4, T = S = 4096, d 128, causal, bf16) on
@@ -100,12 +106,13 @@ Phases (any failure exits non-zero and prints no result):
               kernel, against ``flash_attention_bwd_plain`` on f32 copies:
               each element of dQ, dK and dV within one bf16 rounding (2^-8
               of its magnitude) plus 1e-3 of the gradient's rms, and the same
-              check must reject the control, the plain backward with p
-              rounded to bf16 wherever it is used (dS and dV), and dK and
-              dV must reject the split's mirror with hi halves alone.
-              bf16 dK/dV runs the tensor-core kernel and its group sum
-              (``flash_attention_bwd_dkv_tc``); two launches on the same
-              operands must agree bit for bit.
+              check must reject two controls: the plain backward with p
+              rounded to bf16 wherever it is used (dS and dV), and the
+              split's mirror with hi halves alone (dS in bf16 for dQ).
+              bf16 runs the tensor-core dQ (``flash_attention_bwd_dq_tc``)
+              and dK/dV with its group sum (``flash_attention_bwd_dkv_tc``)
+              and no FMA kernel; two launches of each on the same operands
+              must agree bit for bit.
               ``library_ms`` is the backward of
               ``F.scaled_dot_product_attention(is_causal=True,
               enable_gqa=True)`` on the same operands (dQ, dK and dV in one
@@ -115,10 +122,10 @@ Phases (any failure exits non-zero and prints no result):
               the f32 p or ds (dQ: ds k; dK/dV: p^T dO and ds^T q) as two,
               all at 989 TFLOP/s; ``bound_all_bf16_ms`` one each;
               ``bound_fma_ms`` the f32-operand products at 67 TFLOP/s.
-8b. flash f32 -- the FMA forward and dK/dV kernels, which f32 operands
-              launch, at the train consistency shape (B 1, H 32, KV 4,
-              T = S = 2048, d 128, causal, f32) against their plain
-              versions: O, dK and dV within 1e-4 of their largest
+8b. flash f32 -- the FMA forward, dQ and dK/dV kernels, which f32
+              operands launch, at the train consistency shape (B 1, H 32,
+              KV 4, T = S = 2048, d 128, causal, f32) against their plain
+              versions: O, dQ, dK and dV within 1e-4 of their largest
               magnitude (the train consistency phase's measure), lse within
               1e-4; ``library_ms`` from SDPA in f32, ``bound_ms`` every
               product on the f32 FMA units.
@@ -127,15 +134,15 @@ Phases (any failure exits non-zero and prints no result):
               through ``chunked``, each within 1e-4 of that parameter's
               largest chunked gradient, and the losses within 1e-5; then one
               counted ``make_train_step`` step under flash must launch the
-              FMA forward, dQ and FMA dK/dV kernels once per layer each.
+              FMA forward, dQ and dK/dV kernels once per layer each.
 10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
               bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
               T 4096) from ``SyntheticLMDataset``, repeated, under flash
               attention: ``make_train_step`` under ``StepRunner`` for 1
               warm-up and 5 timed steps, each counted (12 tensor-core
-              forwards, 12 dQ, 12 tensor-core dK/dV and their group sums,
-              no FMA forward or dK/dV, no ``bsr_matmul``), with a finite
-              loss that falls on the repeated batch; the runner saves a
+              forwards, 12 tensor-core dQ, 12 tensor-core dK/dV and their
+              group sums, no FMA flash kernel, no ``bsr_matmul``), with a
+              finite loss that falls on the repeated batch; the runner saves a
               checkpoint after the last step (into ``build/``, removed
               afterwards), and it must restore bit for bit.  The line
               carries ms per step, tokens per second, peak memory, one
@@ -144,12 +151,13 @@ Phases (any failure exits non-zero and prints no result):
 11. the ``kernels`` JSON line, then the card's name and power limit, then
    the device line last.
 
-Every counted run sets all nine launch counters (``COUNTERS``) to 0 just
+Every counted run sets all eleven launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
-tensor-core forward (bf16), the consistency phases' through the FMA kernels
-(f32).  Peak rates are the H100 SXM data sheet's (dense,
+tensor-core forward and the ``wgmma`` BCSR matmul (bf16), the train step's
+through the tensor-core flash kernels, the consistency phases' through
+the FMA kernels (f32).  Peak rates are the H100 SXM data sheet's (dense,
 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
@@ -191,10 +199,12 @@ COUNTERS = {
     "sparse_conv": ("sparse_conv", "launches"),
     "bsr_conv": ("bsr_conv", "launches"),
     "bsr_matmul": ("bsr_matmul", "launches"),
+    "bsr_matmul_wgmma": ("bsr_matmul", "wgmma_launches"),
     "flash_attention": ("flash_attention", "launches"),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq", "launches"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv", "launches"),
     "flash_attention_tc": ("flash_attention", "tc_launches"),
+    "flash_attention_bwd_dq_tc": ("flash_attention_bwd_dq", "tc_launches"),
     "flash_attention_bwd_dkv_tc": ("flash_attention_bwd_dkv", "tc_launches"),
     "flash_attention_dkv_reduce": ("flash_attention_bwd_dkv",
                                    "reduce_launches"),
@@ -203,7 +213,7 @@ KERNEL_NAMES = tuple(COUNTERS)
 # the kernels one layer's attention launches in a train step, by dtype
 FLASH_F32 = ("flash_attention", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
-FLASH_BF16 = ("flash_attention_tc", "flash_attention_bwd_dq",
+FLASH_BF16 = ("flash_attention_tc", "flash_attention_bwd_dq_tc",
               "flash_attention_bwd_dkv_tc", "flash_attention_dkv_reduce")
 
 # The transformer path: Yi-9B (48 layers, d_model 4096, 32 heads over 4 kv
@@ -266,14 +276,14 @@ def time_cuda(torch, fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, launches_per_call: int = 0) -> float:
+def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
     """Device milliseconds per call: the CUDA kernels of ``reps`` calls of
     ``fn`` (after one warm-up call), summed under ``torch.profiler``.  Host
     launch overhead is left out, which CUDA events around back-to-back
     launches do not do when a kernel is shorter than its launch.  Where the
-    profiler records no device time, or (given ``launches_per_call``) fewer
-    kernels than the calls launched, CUDA events time the calls instead
-    (said on stderr)."""
+    profiler records no device time, or fewer kernels than the calls
+    launched (at least ``launches_per_call`` each), CUDA events time the
+    calls instead (said on stderr)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -470,7 +480,6 @@ def path_phase(torch, mods, nets, device, batch, image, seed):
     kernel over the counted forwards."""
     np = mods["np"]
     cnn = mods["cnn"]
-    ell_k, bsr_k = mods["ell_kernel"], mods["bsr_kernel"]
     launches = {"sparse_conv": 0, "bsr_conv": 0}
     rng = np.random.default_rng(seed + 2)
     for net_name in ("resnet50", "googlenet", "alexnet"):
@@ -488,15 +497,13 @@ def path_phase(torch, mods, nets, device, batch, image, seed):
             # once per layer on first use, stay out of the counted forward
             cnn.cnn_forward(net, params, x, method)
             torch.cuda.synchronize()
-            ell_k.launches = 0
-            bsr_k.launches = 0
+            reset_counts(mods)
             y = cnn.cnn_forward(net, params, x, method)
             torch.cuda.synchronize()
-            counts = {"sparse_conv": ell_k.launches,
-                      "bsr_conv": bsr_k.launches}
-            want = {"dense": {"sparse_conv": 0, "bsr_conv": 0},
-                    "pallas": {"sparse_conv": len(sparse), "bsr_conv": 0},
-                    "bsr": {"sparse_conv": 0, "bsr_conv": len(sparse)}}[method]
+            counts = read_counts(mods)
+            want = {name: 0 for name in KERNEL_NAMES}
+            want.update({"pallas": {"sparse_conv": len(sparse)},
+                         "bsr": {"bsr_conv": len(sparse)}}.get(method, {}))
             check(counts == want, f"{net_name}/{method}: kernel launches "
                   f"{counts}, expected {want}")
             for name in launches:
@@ -617,6 +624,10 @@ def llm_kernel_phase(torch, mods, device, seed):
             check(err <= BSR_MATMUL_TOL * scale,
                   f"bsr_matmul {name} x {rows} rows disagrees with its plain "
                   f"version (max_abs_err {err}, tolerance {BSR_MATMUL_TOL}*{scale})")
+            # bf16 from the epilogue: the same f32 sums rounded once
+            check(torch.equal(bk(*args, out_dtype=bf16), got.to(bf16)),
+                  f"bsr_matmul {name} x {rows} rows: the bf16 output is not "
+                  f"the f32 output rounded once")
             # through the wrapper the model calls: bf16 back in (B, T, M)
             y3 = mods["bsr_matmul"](x3, bc)
             check(tuple(y3.shape) == (b, t, d_out) and y3.dtype == bf16,
@@ -629,14 +640,15 @@ def llm_kernel_phase(torch, mods, device, seed):
                   f"is {ops_err} beyond one rounding of the plain version's "
                   f"(tolerance {BSR_MATMUL_TOL}*{scale})")
             reps = 50 if rows <= 64 else 10
-            event_ms = time_cuda(torch, lambda: bk(*args), reps=reps,
-                                 warmup=3)
-            ms = device_ms(torch, lambda: bk(*args), reps, 1)
+            # as the model calls it: x's dtype out
+            event_ms = time_cuda(torch, lambda: bk(*args, out_dtype=bf16),
+                                 reps=reps, warmup=3)
+            ms = device_ms(torch, lambda: bk(*args, out_dtype=bf16), reps, 1)
             plain_ms = device_ms(torch, lambda: plain(*args), 1)
             library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib),
                                    reps)
             moved = (rows * d_in * 2 + kept * bm * bn * 2 + kept * 4 + gm * 4
-                     + rows * gm * bm * 4)
+                     + rows * gm * bm * 2)
             b_ms, b_by = bound(moved, flops_bf16=2.0 * rows * kept * bm * bn)
             row = {"kernel": "bsr_matmul", "proj": name, "rows": rows,
                    "shape": {"b": b, "t": t, "in": d_in, "out": d_out,
@@ -765,10 +777,10 @@ def llm_consistency_phase(torch, mods, device, seed):
     got = torch.stack(got, dim=1)
     torch.cuda.synchronize()
     n_proj = cfg.n_layers * 7
-    check(fwd_counts["bsr_matmul"] == n_proj
-          and fwd_counts["flash_attention"] == cfg.n_layers
-          and fwd_counts["flash_attention_tc"] == 0,
-          f"consistency forward launched {fwd_counts}")
+    want = {name: 0 for name in KERNEL_NAMES}
+    want.update(bsr_matmul=n_proj, flash_attention=cfg.n_layers)
+    check(fwd_counts == want, f"consistency forward launched {fwd_counts}, "
+          f"expected {want}")
     check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all()),
           "consistency: non-finite logits")
     diff = (got - ref).abs()
@@ -815,6 +827,7 @@ def llm_prefill_phase(torch, mods, device, seed):
             # every bf16 forward through the tensor-core kernel
             want = {name: 0 for name in KERNEL_NAMES}
             want.update(bsr_matmul=cfg.n_layers * 7 if sparsity else 0,
+                        bsr_matmul_wgmma=cfg.n_layers * 7 if sparsity else 0,
                         flash_attention_tc=cfg.n_layers)
             check(counts == want, f"prefill at sparsity {sparsity}: launches "
                   f"{counts}, expected {want}")
@@ -971,13 +984,18 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     out = mods["flash_bthd"](*leaves, causal=True)
     check(out.grad_fn is not None, "flash backward: flash_attention_bthd's "
           "output has no grad_fn")
-    launched = (dq_k.launches, dkv_k.tc_launches, dkv_k.reduce_launches)
+    def bwd_counts():
+        return (dq_k.launches, dq_k.tc_launches, dkv_k.launches,
+                dkv_k.tc_launches, dkv_k.reduce_launches)
+
+    launched = bwd_counts()
     out.backward(do_bthd)
     torch.cuda.synchronize()
-    check((dq_k.launches, dkv_k.tc_launches, dkv_k.reduce_launches)
-          == tuple(n + 1 for n in launched),
-          "flash backward: autograd did not launch dQ, the tensor-core dK/dV "
-          "and its group sum once each")
+    check(bwd_counts() == (launched[0], launched[1] + 1, launched[2],
+                           launched[3] + 1, launched[4] + 1),
+          "flash backward: autograd did not launch the tensor-core dQ, the "
+          "tensor-core dK/dV and its group sum once each, and no FMA "
+          "kernel")
     dq, dk, dv = (x.grad.transpose(1, 2) for x in leaves)
     # the operands and residuals as the Function hands them to the kernels
     q, k, v, do = (x.detach().transpose(1, 2)
@@ -1009,7 +1027,8 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     del control
     torch.cuda.empty_cache()
     # the split's design on whole rows (ref.flash_attention_bwd_split_plain),
-    # and its hi half alone, which the dK and dV checks must reject too
+    # and its hi half alone (dS and p in bf16 where they are products'
+    # operands), which every check must reject too
     split_plain = mods["flash_bwd_split_plain"]
     for lo, key in ((True, "split_plain_excess"), (False, "hi_only_excess")):
         mirror = split_plain(q, k, v, o, lse, do, sc=sc, causal=True, lo=lo)
@@ -1027,20 +1046,25 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
         check(st["control_excess"] > FLASH_BWD_ATOL,
               f"the {name} check does not reject p in bf16 "
               f"({st['control_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
-        check(name == "dq" or st["hi_only_excess"] > FLASH_BWD_ATOL,
+        check(st["hi_only_excess"] > FLASH_BWD_ATOL,
               f"the {name} check does not reject the split's hi half alone "
               f"({st['hi_only_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
 
     delta = mods["bwd_delta"](o, do)
-    # no atomics: the group sums run in one order, so two launches agree bit
-    # for bit
-    first, second = (dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
-                     for _ in range(2))
-    torch.cuda.synchronize()
-    identical = all(torch.equal(a, b_) for a, b_ in zip(first, second))
-    check(identical, "flash backward: two dK/dV launches on the same "
-          "operands differ")
-    del first, second
+    # no atomics: dQ is written by one thread an element, the group sums
+    # run in one order, so two launches agree bit for bit
+    identical = {}
+    for name, fn in (("flash_attention_bwd_dq_tc", dq_k),
+                     ("flash_attention_bwd_dkv_tc", dkv_k)):
+        first, second = (fn(q, k, v, do, lse, delta, sc=sc, causal=True)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        identical[name] = (torch.equal(first, second) if name.endswith("dq_tc")
+                           else all(torch.equal(a, b_)
+                                    for a, b_ in zip(first, second)))
+        check(identical[name], f"flash backward: two {name} launches on the "
+              f"same operands differ")
+        del first, second
 
     def run_dq():
         return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
@@ -1049,7 +1073,7 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
         return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
 
     times = {}
-    for name, fn, n_kernels in (("flash_attention_bwd_dq", run_dq, 1),
+    for name, fn, n_kernels in (("flash_attention_bwd_dq_tc", run_dq, 1),
                                 ("flash_attention_bwd_dkv_tc", run_dkv, 2)):
         times[name] = (device_ms(torch, fn, 5, n_kernels),
                        time_cuda(torch, fn, reps=5, warmup=1))
@@ -1072,7 +1096,7 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     stat_bytes = 2 * b * h * t * 4            # lse, delta
     rows = {}
     for name, shape_out, f32_products, outs in (
-            ("flash_attention_bwd_dq", "dq", 1, q.numel()),
+            ("flash_attention_bwd_dq_tc", "dq", 1, q.numel()),
             ("flash_attention_bwd_dkv_tc", "dk, dv", 2,
              k.numel() + v.numel())):
         ms, event_ms = times[name]
@@ -1101,8 +1125,7 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
                "bound_all_bf16_ms": b16_ms, "bound_all_bf16_by": b16_by,
                "bound_fma_ms": fma_ms,
                "tflops": (2 + f32_products) * flops / ms / 1e9}
-        if name == "flash_attention_bwd_dkv_tc":
-            row["bit_identical_across_launches"] = identical
+        row["bit_identical_across_launches"] = identical[name]
         print(json.dumps(row), flush=True)
         rows[name] = [row]
     del q, k, v, do, o, lse, delta, dq, dk, dv
@@ -1111,38 +1134,44 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
 
 
 def flash_f32_kernel_phase(torch, mods, device, seed):
-    """The FMA forward and dK/dV kernels, which f32 operands launch (the
+    """The FMA forward, dQ and dK/dV kernels, which f32 operands launch (the
     consistency and train consistency phases), at the train consistency
     shape (B 1, H 32, KV 4, T = S = 2048, d 128, causal, f32) on the
     (B, H, T, d) views of (B, T, H, d) tensors, against their plain
-    versions: O, dK and dV within FLASH_F32_TOL of their largest magnitude
-    (the rms beside it), lse within FLASH_LSE_TOL.  Returns per-kernel
-    lists of row dicts."""
+    versions: O, dQ, dK and dV within FLASH_F32_TOL of their largest
+    magnitude (the rms beside it), lse within FLASH_LSE_TOL.  Returns
+    per-kernel lists of row dicts."""
     F = torch.nn.functional
     b, h, kv, _, d = BWD_SHAPE
     t = TRAIN_CONSIST_SHAPE[1]
     sc = d ** -0.5
     gen = torch.Generator(device=device).manual_seed(seed + 6)
     fwd = mods["kernels"]["flash_attention"]
+    dq_k = mods["kernels"]["flash_attention_bwd_dq"]
     dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
     q, k, v, do = (torch.randn((b, t, heads, d), generator=gen,
                                device=device).transpose(1, 2)
                    for heads in (h, kv, kv, h))
-    launched = (fwd.launches, fwd.tc_launches, dkv_k.launches,
-                dkv_k.tc_launches)
+
+    def counts():
+        return (fwd.launches, fwd.tc_launches, dq_k.launches,
+                dq_k.tc_launches, dkv_k.launches, dkv_k.tc_launches)
+
+    launched = counts()
     o, lse = fwd(q, k, v, sc=sc, causal=True)
     delta = mods["bwd_delta"](o, do)
+    dq = dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
     dk, dv = dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
     torch.cuda.synchronize()
-    check((fwd.launches, fwd.tc_launches, dkv_k.launches, dkv_k.tc_launches)
-          == (launched[0] + 1, launched[1], launched[2] + 1, launched[3]),
+    check(counts() == (launched[0] + 1, launched[1], launched[2] + 1,
+                       launched[3], launched[4] + 1, launched[5]),
           "flash f32: f32 operands did not launch the FMA kernels")
     o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=True)
-    _, dk_want, dv_want = mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
-                                                  causal=True)
+    dq_want, dk_want, dv_want = mods["flash_bwd_plain"](
+        q, k, v, o, lse, do, sc=sc, causal=True)
     errs = {}
-    for name, got, want in (("o", o, o_want), ("dk", dk, dk_want),
-                            ("dv", dv, dv_want)):
+    for name, got, want in (("o", o, o_want), ("dq", dq, dq_want),
+                            ("dk", dk, dk_want), ("dv", dv, dv_want)):
         check(bool(torch.isfinite(got).all()), f"flash f32: {name} not finite")
         err = float((got - want).abs().max())
         errs[name] = (err, err / float(want.abs().max()),
@@ -1153,11 +1182,14 @@ def flash_f32_kernel_phase(torch, mods, device, seed):
     lse_err = float((lse - lse_want).abs().max())
     check(lse_err <= FLASH_LSE_TOL, f"flash f32: lse disagrees with its "
           f"plain version (max_abs_err {lse_err})")
-    del o_want, lse_want, dk_want, dv_want
+    del o_want, lse_want, dq_want, dk_want, dv_want
     torch.cuda.empty_cache()
 
     def run_fwd():
         return fwd(q, k, v, sc=sc, causal=True)
+
+    def run_dq():
+        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
 
     def run_dkv():
         return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
@@ -1179,6 +1211,11 @@ def flash_f32_kernel_phase(torch, mods, device, seed):
              lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, enable_gqa=True),
              qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, errs["o"][0]),
+            ("flash_attention_bwd_dq", run_dq,
+             lambda: mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
+                                             causal=True),
+             library_bwd, qkv_bytes + q.numel() * 4 + 2 * b * h * t * 4
+             + q.numel() * 4, 3, errs["dq"][0]),
             ("flash_attention_bwd_dkv", run_dkv,
              lambda: mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
                                              causal=True),
@@ -1205,7 +1242,7 @@ def flash_f32_kernel_phase(torch, mods, device, seed):
                "tflops": products * product / ms / 1e9}
         print(json.dumps(row), flush=True)
         rows[name] = [row]
-    del q, k, v, do, o, lse, delta, dk, dv, out, leaves
+    del q, k, v, do, o, lse, delta, dq, dk, dv, out, leaves
     torch.cuda.empty_cache()
     return rows
 
@@ -1386,7 +1423,7 @@ def train_phase(torch, mods, device, seed):
 
         breakdown = device_breakdown(torch, one_step, step_ms, top=8,
                                      group=("flash_fwd_tc_kernel",
-                                            "flash_bwd_dq_kernel",
+                                            "flash_bwd_dq_tc_kernel",
                                             "flash_bwd_dkv_tc_kernel",
                                             "flash_dkv_reduce_kernel"))
         state = holder.pop("state")
@@ -1437,6 +1474,9 @@ def kernel_entries(rows, launches):
         "flash_attention_tc": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:136"),
+        "flash_attention_bwd_dq_tc": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:170"),
         "flash_attention_bwd_dkv_tc": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:187"),
@@ -1446,14 +1486,22 @@ def kernel_entries(rows, launches):
                        f" main-path layers, batch {BATCH}",
         "bsr_conv": f"sums over the kernel phase's {len(rows['bsr_conv'])} "
                     f"main-path layers, batch {BATCH}",
-        "bsr_matmul": "sums over wq, wk, gate and down at 4 and 8192 rows "
-                      "(Yi-9B, bf16, sparsity 0.8)",
+        "bsr_matmul": "sums over wq, wk, gate and down at 4 rows (the rows "
+                      "schedule) and 8192 rows (the wgmma schedule), Yi-9B, "
+                      "bf16 in and out, sparsity 0.8; rows_* and wgmma_* "
+                      "keys: each schedule's sums",
         "flash_attention": "the FMA kernel (flash_fwd_kernel, f32 "
                            "operands): one causal forward, B 1, H 32, KV 4, "
                            "T 2048, d 128, f32",
-        "flash_attention_bwd_dq": "one causal dQ, B 1, H 32, KV 4, T 4096, "
-                                  "d 128, bf16; plain and library: the whole "
-                                  "backward",
+        "flash_attention_bwd_dq": "the FMA kernel (flash_bwd_dq_kernel, f32 "
+                                  "operands): one causal dQ, B 1, H 32, KV 4, "
+                                  "T 2048, d 128, f32; plain and library: the "
+                                  "whole backward, f32",
+        "flash_attention_bwd_dq_tc": "the tensor-core kernel "
+                                     "(flash_bwd_dq_tc_kernel, bf16 "
+                                     "operands): one causal dQ, B 1, H 32, "
+                                     "KV 4, T 4096, d 128; plain and "
+                                     "library: the whole backward",
         "flash_attention_bwd_dkv": "the FMA kernel (flash_bwd_dkv_kernel, f32 "
                                    "operands): one causal dK/dV, B 1, H 32, "
                                    "KV 4, T 2048, d 128, f32; plain and "
@@ -1468,24 +1516,31 @@ def kernel_entries(rows, launches):
                                       "H 32, KV 4, T 4096, d 128; plain and "
                                       "library: the whole backward",
     }
-    kernels = []
-    for name, (source, replaces) in meta.items():
-        rs = rows[name]
+    def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
         b_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            **({"reduce_launches": launches["flash_attention_dkv_reduce"]}
-               if name == "flash_attention_bwd_dkv_tc" else {}),
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["kernel_ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": b_bytes + b_ops,
-            "bound_by": "bytes" if b_bytes > b_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in rs),
-            "times_are": times_are[name],
-        })
+        return {"max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": sum(r["kernel_ms"] for r in rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": b_bytes + b_ops,
+                "bound_by": "bytes" if b_bytes > b_ops else "operations",
+                "library_ms": sum(r["library_ms"] for r in rs)}
+
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 **sums(rows[name]), "times_are": times_are[name]}
+        if name == "flash_attention_bwd_dkv_tc":
+            entry["reduce_launches"] = launches["flash_attention_dkv_reduce"]
+        if name == "bsr_matmul":
+            entry["wgmma_launches"] = launches["bsr_matmul_wgmma"]
+            entry["rows_launches"] = (launches["bsr_matmul"]
+                                      - launches["bsr_matmul_wgmma"])
+            for sched in ("rows", "wgmma"):
+                part = sums([r for r in rows[name] if r["schedule"] == sched])
+                entry.update({f"{sched}_{k}": v for k, v in part.items()})
+        kernels.append(entry)
     return kernels
 
 

@@ -1,9 +1,11 @@
 """Public wrapper around the BCSR matmul kernel.
 
 Port of ``repro/kernels/bsr_matmul/ops.py``: flattens the leading dims of
-``x``, pads N up to a multiple of bn, runs the kernel and slices and casts
-back to ``x``'s dtype.  The reference also pads the rows to its batch tile;
-the CUDA kernel tests its row bounds instead, so rows are never padded.
+``x``, pads N up to a multiple of bn, runs the kernel, which writes y in
+``x``'s dtype (its f32 sums rounded once, as the reference's cast of its
+f32 result), and slices.  The reference also pads the rows to its batch
+tile; the CUDA kernel tests its row bounds instead, so rows are never
+padded.
 """
 from __future__ import annotations
 
@@ -29,5 +31,6 @@ def bsr_matmul(x: torch.Tensor, w: BcsrMatrix) -> torch.Tensor:
     xb = xb.contiguous()
     if xb.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
         xb = xb.clone()
-    out = bsr_matmul_kernel(xb, w.blocks, w.blockcol, w.nblocks)
-    return out[:, :m].reshape(lead + (m,)).to(x.dtype)
+    out = bsr_matmul_kernel(xb, w.blocks, w.blockcol, w.nblocks,
+                            out_dtype=x.dtype)
+    return out[:, :m].reshape(lead + (m,))

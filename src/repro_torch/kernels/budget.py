@@ -6,7 +6,9 @@ no counterpart here: the CUDA kernels read their indices and inputs from
 device memory and stage only a slab of nonzeros (ELL conv), one weight tile
 (BCSR conv), or a query chunk and a kv chunk (flash attention) in shared
 memory (the flash backward kernels a query chunk with its dO rows and a kv
-chunk); the BCSR matmul stages nothing but its 4 warps' partial sums.  What
+chunk); the BCSR matmul's ``rows`` schedule stages nothing but its 4 warps'
+partial sums, its ``wgmma`` schedule a ring of x chunks and the kept tiles
+that fall in them.  What
 bounds a schedule on an H100 is a block's shared memory and its thread
 count (NVIDIA H100 data sheet and the CUDA programming guide, compute
 capability 9.0).
@@ -28,14 +30,23 @@ MAX_THREADS_PER_BLOCK = 256
 
 # BCSR matmul (csrc/bsr_matmul.cu): the block height it instantiates (the
 # (16, 16) tiles ``sparsify_params`` builds), and the largest row count the
-# SIMT ``rows`` schedule takes on bf16 inputs before the tensor-core ``mma``
-# schedule does.  The crossover is not measured: the paths that exist give
-# 4 rows (decode) or thousands (prefill), far on either side of it.
+# SIMT ``rows`` schedule takes on bf16 inputs before the tensor-core
+# ``wgmma`` schedule does.  The crossover is not measured: the paths that
+# exist give 4 rows (decode) or thousands (prefill), far on either side of
+# it.
 BSR_MATMUL_BM = (16,)
 BSR_MATMUL_ROWS_MAX = 32
 # rows: 4 warps x 8 rows x BM f32 partial sums, reduced across warps.
 BSR_MATMUL_ROWS_WARPS = 4
 BSR_MATMUL_ROWS_PER_BLOCK = 8
+# wgmma: a block of two warpgroups owns 128 rows of x and a group of 16
+# block-rows, and walks x in chunks of 128 columns: a ring of 3 x stages
+# and one of 2 stages of the group's tiles.
+BSR_MATMUL_WGMMA_ROWS = 128
+BSR_MATMUL_WGMMA_GROUP = 16
+BSR_MATMUL_WGMMA_CHUNK = 128
+BSR_MATMUL_WGMMA_X_STAGES = 3
+BSR_MATMUL_WGMMA_TILE_STAGES = 2
 
 # Flash attention (csrc/flash_attention.cu): 64 query rows and 32 keys a
 # step, head dimensions it instantiates.
@@ -54,6 +65,10 @@ FLASH_TC_WARPGROUP = 128
 FLASH_TC_FWD_WARPGROUPS = 2
 FLASH_TC_FWD_STAGES = 2
 FLASH_TC_DKV_STAGES = 2
+# dQ: the forward's block (two warpgroups over one ring of key and value
+# stages), with a dO tile beside each q tile.
+FLASH_TC_DQ_WARPGROUPS = 2
+FLASH_TC_DQ_STAGES = 2
 
 
 def ell_smem_bytes(tm: int, ks: int) -> int:
@@ -71,19 +86,37 @@ def bsr_smem_bytes(bm: int, bn: int) -> int:
 
 def bsr_matmul_smem_bytes(bm: int) -> int:
     """Static shared memory of one ``rows`` block of the BCSR matmul: the
-    warps' f32 partial sums (the ``mma`` schedule uses none)."""
+    warps' f32 partial sums."""
     return BSR_MATMUL_ROWS_WARPS * BSR_MATMUL_ROWS_PER_BLOCK * bm * 4
 
 
-def bsr_matmul_unsupported(bm: int, bn: int, n: int) -> Optional[str]:
-    """Why the BCSR matmul cannot take a (bm, bn) block over N = ``n``
-    columns, or None."""
+def bsr_matmul_wgmma_smem_bytes() -> int:
+    """Dynamic shared memory of one ``wgmma`` block: each x stage the bf16
+    x chunk of its rows; each tile stage a (16, 16) bf16 slot for every
+    16-column block of the chunk and block-row of the group (a kept tile
+    fills ``bn / 16`` of them) and a 32-bit mask of filled slots a
+    block-row."""
+    x_chunk = BSR_MATMUL_WGMMA_ROWS * BSR_MATMUL_WGMMA_CHUNK * 2
+    slots = (BSR_MATMUL_WGMMA_GROUP * (BSR_MATMUL_WGMMA_CHUNK // 16)
+             * 16 * 16 * 2)
+    return (BSR_MATMUL_WGMMA_X_STAGES * x_chunk
+            + BSR_MATMUL_WGMMA_TILE_STAGES
+            * (slots + 4 * BSR_MATMUL_WGMMA_GROUP))
+
+
+def bsr_matmul_unsupported(bm: int, bn: int, n: int,
+                           schedule: str = "rows") -> Optional[str]:
+    """Why the BCSR matmul's ``schedule`` cannot take a (bm, bn) block over
+    N = ``n`` columns, or None."""
     if bm not in BSR_MATMUL_BM:
         return f"block height {bm} not one of {BSR_MATMUL_BM}"
     if bn % 16:
         return f"block width {bn} not a multiple of 16"
     if n % bn:
         return f"N = {n} not a multiple of the block width {bn}"
+    if schedule == "wgmma" and BSR_MATMUL_WGMMA_CHUNK % bn:
+        return (f"block width {bn} does not divide the wgmma schedule's "
+                f"chunk of {BSR_MATMUL_WGMMA_CHUNK} columns")
     return None
 
 
@@ -115,6 +148,14 @@ def flash_tc_smem_bytes(d: int) -> int:
     tile for each warpgroup and the stages of key and value tiles, each
     ``FLASH_TC_BQ`` x d."""
     tiles = FLASH_TC_FWD_WARPGROUPS + 2 * FLASH_TC_FWD_STAGES
+    return 2 * FLASH_TC_BQ * d * tiles
+
+
+def flash_bwd_dq_tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core dQ block: a bf16 query tile
+    and a dO tile for each warpgroup and the stages of key and value tiles,
+    each ``FLASH_TC_BQ`` x d."""
+    tiles = 2 * FLASH_TC_DQ_WARPGROUPS + 2 * FLASH_TC_DQ_STAGES
     return 2 * FLASH_TC_BQ * d * tiles
 
 

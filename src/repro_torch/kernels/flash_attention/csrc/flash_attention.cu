@@ -1,8 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward (causal or full, GQA)
 // with online softmax, and the two backward kernels, dQ and dK/dV, as FMA
-// kernels (f32 operands; dQ bf16 too), and the forward and dK/dV again as
-// tensor-core kernels for bf16 operands (below).  The launcher picks by
-// dtype.
+// kernels for f32 operands, and all three again as tensor-core kernels for
+// bf16 operands (below).  The launcher picks by dtype.
 //
 // Forward (FMA).  Replaces the TPU kernel _fwd_call / _fwd_kernel in
 // src/repro/kernels/flash_attention/kernel.py.  For q (B, H, T, D) and k, v
@@ -48,7 +47,7 @@
 //
 // These FMA kernels run every product on the f32 FMA units (67 TFLOP/s on
 // an H100 SXM), reading each operand from shared memory.  They take f32
-// operands (the f32 consistency paths) and, for dQ, bf16 too.
+// operands only (the f32 consistency paths), and keep f32 accuracy.
 //
 // Dynamic shared memory, rows padded by one word (no bank conflicts on the
 // column walk): forward (64 + 32) x (D + 1) f32 for q and k, 32 x D for v
@@ -58,25 +57,28 @@
 // above 48 KB with cudaFuncSetAttribute.
 //
 // Tensor-core kernels (bf16 operands; flash_fwd_tc_kernel replaces
-// _fwd_call / _fwd_kernel, flash_bwd_dkv_tc_kernel with
-// flash_dkv_reduce_kernel replaces _bwd_call's _dkv_kernel).  Every product
-// runs as sm_90a wgmma (m64nNk16, bf16 x bf16, f32 sums) and keeps the f32
-// reference's precision:
+// _fwd_call / _fwd_kernel, flash_bwd_dq_tc_kernel _bwd_call's _dq_kernel,
+// flash_bwd_dkv_tc_kernel with flash_dkv_reduce_kernel _bwd_call's
+// _dkv_kernel).  Every product runs as sm_90a wgmma (m64nNk16, bf16 x bf16,
+// f32 sums) and keeps the f32 reference's precision:
 // * q k^T and dO v^T have bf16 operands: their products are exact in f32.
 //   The sum is scaled by sc afterwards, in f32.
-// * A product with an f32 operand x (p v; p^T dO and ds^T q) takes x as two
+// * A product with an f32 operand x (p v; ds k; p^T dO and ds^T q) takes x
+//   as two
 //   bf16 halves, hi = bf16(x) and lo = bf16(x - hi), and runs two wgmmas
 //   into one f32 accumulator: hi + lo keeps ~16 bits of x where bf16 keeps
-//   8.  With hi alone (p rounded to bf16, as SDPA does) O and dK/dV err by
-//   about 1e-2 of their rms beyond one bf16 rounding of the output, and the
-//   checks reject that at 1e-3; with both halves the error is ~1e-5 (on an
-//   H100 SXM at the shapes below: O 1.7e-5, dK 2.7e-5, dV 6.8e-5;
-//   chip_smoke.py).
+//   8.  With hi alone (p rounded to bf16, as SDPA does) O, dQ and dK/dV err
+//   by about 1e-2 of their rms beyond one bf16 rounding of the output, and
+//   the checks reject that at 1e-3; with both halves the error is ~1e-5 (on
+//   an H100 SXM at the shapes below: O 3.0e-5, dQ 4.6e-5, dK 6.5e-5, dV
+//   6.9e-5; chip_smoke.py).
 // Tiles live in shared memory as 8 x 8 core matrices without a swizzle,
 // which wgmma reads both K-major (q, K, V, dO as the A or B of q k^T,
-// K q^T, V dO^T) and MN-major (V, dO, q as the B of p v, p^T dO, ds^T q);
+// K q^T, V dO^T) and MN-major (V, K, dO, q as the B of p v, ds k, p^T dO,
+// ds^T q);
 // cp.async copies 16-byte chunks into them, a ring of stages ahead of the
-// wgmmas (FWD_STAGES, DKV_STAGES).  The accumulator of a 64 x 64 score
+// wgmmas (FWD_STAGES, DQ_STAGES, DKV_STAGES).  The accumulator of a 64 x 64
+// score
 // tile is, register for register, the A fragment of the next product, so
 // p and ds never leave registers on their way into it.  Softmax runs in
 // base 2 (exp2f of s sc log2(e)), one FMA and one exp2 a score.
@@ -89,6 +91,14 @@
 // registers (row max and sum over the 4 lanes that share a row), then
 // O += p_hi V + p_lo V (8 wgmmas), V MN-major.  Shared memory: two q tiles
 // and two stages of K and V, 96 KB at D = 128 (one block, 8 warps, a SM).
+//
+// dQ: the forward's block (b, h, 128 query rows, longest first, two
+// warpgroups sharing a ring of K and V chunks); per 64-key chunk, s = q K^T
+// and dp = dO V^T (2 D / 16 wgmmas), p and ds in registers, then
+// dQ += ds_hi K + ds_lo K (8 wgmmas, K MN-major).  Shared memory: two q and
+// two dO tiles, two stages of K and V, 128 KB at D = 128.  It replaces the
+// FMA kernel for bf16, which ran every product in f32 FMAs (10.6 ms at
+// train_4k on an H100 SXM, chip_smoke.py).
 //
 // dK/dV: one block per (b, query head, 64 keys), two warpgroups, so 2,048
 // blocks at B 1, H 32, S 4096 where a block per kv head would give 256 of
@@ -119,17 +129,19 @@
 // dK/dV at train_4k (B 1, H 32, KV 4, T = S = 4096) 6 x 68.7 GFLOP,
 // 0.417 ms; dQ 4 products, 0.278 ms.  The bytes (q, k, v, dO once, the
 // outputs once; about 100 MB) take ~0.03 ms: operations bound all three.
+// dQ runs the forward's chain (copy, wgmma, elementwise, wgmma) without
+// the online softmax's rescaling, so it is held by the same serialisation.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // strides (in elements, for the b, h and t axes; the d axis is contiguous)
 // are long long, sc is float; dtype 0 = f32, 1 = bf16 (every q-, k-, v-
 // and dO-shaped operand has it; lse and delta are f32, contiguous
-// (B, H, T)).  flash_attention_fwd and flash_attention_bwd_dkv take f32
-// only, flash_attention_bwd_dq both.  flash_attention_fwd_tc takes
-// flash_attention_fwd's arguments, flash_attention_bwd_dkv_tc
-// flash_attention_bwd_dkv's plus the two f32 (B, H, S, D) scratch buffers;
-// both take bf16 only (dtype 1), with 16-byte aligned addresses and
-// strides.  Each returns cudaGetLastError()
+// (B, H, T)).  flash_attention_fwd, flash_attention_bwd_dq and
+// flash_attention_bwd_dkv take f32 only.  flash_attention_fwd_tc and
+// flash_attention_bwd_dq_tc take the arguments of their FMA entries,
+// flash_attention_bwd_dkv_tc flash_attention_bwd_dkv's plus the two f32
+// (B, H, S, D) scratch buffers; the three take bf16 only (dtype 1), with
+// 16-byte aligned addresses and strides.  Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for a head dimension no
 // instantiation takes.
 
@@ -145,18 +157,13 @@ constexpr int BK = 32;   // keys per kv chunk
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
+// The FMA kernels are instantiated for f32 only (bf16 runs the tensor-core
+// kernels); these keep their element type a template parameter.
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype(bf16)
-}
 
 struct Strides {
   long long b, h, t;
@@ -637,13 +644,11 @@ int launch_dkv(const BwdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = dQ (f32 or bf16), 1 = dK/dV (f32; bf16 dK/dV is the
-// tensor-core kernel's).
+// which: 0 = dQ, 1 = dK/dV; f32 only (bf16 is the tensor-core kernels').
 template <int D>
 int launch_bwd(const BwdArgs& a, int dtype, int which) {
-  if (which) return dtype == 0 ? launch_dkv<float, D>(a)
-                               : static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 0 ? launch_dq<float, D>(a) : launch_dq<__nv_bfloat16, D>(a);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return which ? launch_dkv<float, D>(a) : launch_dq<float, D>(a);
 }
 
 int run_bwd(const BwdArgs& a, int D, int dtype, int which) {
@@ -672,6 +677,9 @@ constexpr int WG = 128;     // threads of a warpgroup
 constexpr int FWD_WGS = 2;
 constexpr int FWD_STAGES = 2;
 constexpr int DKV_STAGES = 2;
+// dQ's warpgroups a block and its ring of K and V stages, as the forward's.
+constexpr int DQ_WGS = 2;
+constexpr int DQ_STAGES = 2;
 
 using bf16 = __nv_bfloat16;
 
@@ -1306,8 +1314,156 @@ __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
       __floats2bfloat162_rn(sum.z * f, sum.w * f);
 }
 
+// dQ on the tensor cores: one block per (b, query head, 128 query rows),
+// longest causal rows first, two warpgroups of 64 rows each sharing a ring
+// of K and V chunks, as the forward.  Per 64-key chunk up to each
+// warpgroup's diagonal:
+//   s = q K^T, dp = dO V^T                        (2 D / 16 wgmmas)
+//   p = exp(s sc - lse) in base 2, ds = p (dp - delta)   (registers)
+//   dQ += ds_hi K + ds_lo K                       (8 wgmmas, K MN-major)
+// The score accumulators are the A fragments of ds; q, dO, and the rows'
+// lse and delta (registers) are loaded once.  dQ is scaled by sc and cast
+// to bf16 at the end.  Each output element is written by one thread: no
+// atomics, the same bits on every run.
+template <int D>
+__global__ void __launch_bounds__(DQ_WGS * WG, 1) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int KV, int Tq, int S, Strides qs,
+    Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
+  constexpr int TILE = TC_BQ * D;
+  constexpr uint32_t TB = TILE * 2;
+  constexpr int NT = DQ_WGS * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [DQ_WGS][TILE]
+  bf16* dOs = Qs + DQ_WGS * TILE;                // [DQ_WGS][TILE]
+  bf16* Ks = dOs + DQ_WGS * TILE;                // [DQ_STAGES][TILE]
+  bf16* Vs = Ks + DQ_STAGES * TILE;              // [DQ_STAGES][TILE]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // the longest causal rows first
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * TC_BQ * DQ_WGS;  // the block's first row
+  const int q0 = qb0 + wg * TC_BQ;      // this warpgroup's first row
+  const int qrow = q0 + warp * 16 + gid;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const uint32_t qtile = smem_u32(Qs), dotile = smem_u32(dOs);
+  const uint32_t ktile = smem_u32(Ks), vtile = smem_u32(Vs);
+  const int kv_end = causal ? min(S, qb0 + DQ_WGS * TC_BQ) : S;
+  const int nkv = (kv_end + TC_BK - 1) / TC_BK;
+  // this warpgroup's chunks: those holding a key at or before its last row
+  const int mine = causal ? min(nkv, q0 / TC_BK + 1) : nkv;
+  auto load_chunk = [&](int c) {
+    if (c < nkv) {
+      const int st = c % DQ_STAGES;
+      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, tid, NT);
+      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, tid, NT);
+    }
+    cp_commit();  // a group per chunk, empty past the last
+  };
+
+#pragma unroll
+  for (int w = 0; w < DQ_WGS; ++w) {
+    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_tile<D>(dotile + w * TB, dob, dos.t, qb0 + w * TC_BQ, Tq, tid, NT);
+  }
+#pragma unroll
+  for (int c = 0; c < DQ_STAGES - 1; ++c) load_chunk(c);
+
+  // the rows' lse (in base 2) and delta; rows past T weigh 0 (q and dO
+  // are zero there, so ds = 1 * (0 - 0))
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    lse2[i] = tq < Tq ? lse[row0 + tq] * LOG2E : 0.f;
+    dl[i] = tq < Tq ? delta[row0 + tq] : 0.f;
+  }
+  const float scl = sc * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nkv; ++j) {
+    // chunk j landed, and every warp is past chunk j - 1, whose stage the
+    // copies of chunk j + DQ_STAGES - 1 refill
+    cp_wait<DQ_STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();
+    load_chunk(j + DQ_STAGES - 1);
+    if (j >= mine) continue;  // past this warpgroup's diagonal
+
+    const uint32_t st = (j % DQ_STAGES) * TB;
+    const int kv0 = j * TC_BK;
+    float s[32] = {}, dp[32] = {};
+    wg_fence();
+    scores_tc<D>(s, qtile + wg * TB, ktile + st);
+    scores_tc<D>(dp, dotile + wg * TB, vtile + st);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // the chunk holds keys past S or the causal diagonal
+    const bool masked = kv0 + TC_BK > S || (causal && kv0 + TC_BK - 1 > q0);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = n8 * 4 + r;
+        const int i = r >> 1;
+        const int kpos = kv0 + n8 * 8 + tig * 2 + (r & 1);
+        const bool in =
+            !masked || (kpos < S && !(causal && qrow + 8 * i < kpos));
+        const float p = in ? exp2f(fmaf(s[idx], scl, -lse2[i])) : 0.f;
+        s[idx] = p * (dp[idx] - dl[i]);
+      }
+
+    uint32_t hi[16], lo[16];
+    split_frags(s, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<D>(acc, hi, lo, ktile + st);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    bf16* row = dq + b * dqs.b + h * dqs.h + tq * dqs.t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<__nv_bfloat162*>(row + n8 * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[n8 * 4 + i * 2] * sc,
+                                acc[n8 * 4 + i * 2 + 1] * sc);
+  }
+}
+
 constexpr size_t fwd_tc_smem_bytes(int d) {
   return 2 * static_cast<size_t>(TC_BQ) * d * (FWD_WGS + 2 * FWD_STAGES);
+}
+
+constexpr size_t dq_tc_smem_bytes(int d) {
+  return 2 * static_cast<size_t>(TC_BQ) * d * (2 * DQ_WGS + 2 * DQ_STAGES);
 }
 
 constexpr size_t dkv_tc_smem_bytes(int d) {
@@ -1330,6 +1486,21 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Tq, S,
       qs, ks, vs, os, sc, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const BwdArgs& a) {
+  const size_t smem = dq_tc_smem_bytes(D);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_bwd_dq_tc_kernel<D>), smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + DQ_WGS * TC_BQ - 1) / (DQ_WGS * TC_BQ));
+  flash_bwd_dq_tc_kernel<D><<<grid, DQ_WGS * WG, smem, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dq), a.H, a.KV, a.Tq, a.S, a.qs, a.ks,
+      a.vs, a.dos, a.dqs, a.sc, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1396,6 +1567,37 @@ extern "C" int flash_attention_bwd_dq(
   a.sc = sc; a.causal = causal;
   a.st = static_cast<cudaStream_t>(stream);
   return run_bwd(a, D, dtype, 0);
+}
+
+extern "C" int flash_attention_bwd_dq_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int KV,
+    int Tq, int S, int D, long long q_sb, long long q_sh, long long q_st,
+    long long k_sb, long long k_sh, long long k_st, long long v_sb,
+    long long v_sh, long long v_st, long long do_sb, long long do_sh,
+    long long do_st, long long dq_sb, long long dq_sh, long long dq_st,
+    float sc, int causal, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = dq;
+  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
+  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
+  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
+  a.dqs = {dq_sb, dq_sh, dq_st};
+  a.sc = sc; a.causal = causal;
+  a.st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_dq_tc<16>(a);
+    case 32: return launch_dq_tc<32>(a);
+    case 64: return launch_dq_tc<64>(a);
+    case 128: return launch_dq_tc<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bwd_dkv(

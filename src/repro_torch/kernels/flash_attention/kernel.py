@@ -15,20 +15,23 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
-The forward and dK/dV pick their kernel by dtype, and only by dtype: bf16
-operands go to the tensor-core kernels (``flash_fwd_tc_kernel``;
-``flash_bwd_dkv_tc_kernel``, which writes f32 sums per query head into two
-scratch buffers, then ``flash_dkv_reduce_kernel``, which sums each kv
-head's group in a fixed order), f32 operands to the FMA kernels.  dQ has
-one kernel for both.  The tensor-core kernels load 16-byte chunks, so a
-bf16 operand whose address or (b, h, t) strides are not 16-byte multiples
-is copied to a contiguous tensor first.
+All three pick their kernel by dtype, and only by dtype: bf16 operands go
+to the tensor-core kernels (``flash_fwd_tc_kernel``;
+``flash_bwd_dq_tc_kernel``; ``flash_bwd_dkv_tc_kernel``, which writes f32
+sums per query head into two scratch buffers, then
+``flash_dkv_reduce_kernel``, which sums each kv head's group in a fixed
+order), f32 operands to the FMA kernels (``flash_fwd_kernel``,
+``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``), which keep f32
+accuracy.  The tensor-core kernels load 16-byte chunks, so a bf16 operand
+whose address or (b, h, t) strides are not 16-byte multiples is copied to
+a contiguous tensor first.
 
 Counts of launches in this process, one a launch of its kernel:
 ``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
-(tensor-core forward); ``flash_attention_bwd_dq.launches``;
-``flash_attention_bwd_dkv.launches`` (FMA dK/dV), ``.tc_launches``
-(tensor-core dK/dV) and ``.reduce_launches`` (its group sum).
+(tensor-core forward); ``flash_attention_bwd_dq.launches`` (FMA dQ),
+``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
+(FMA dK/dV), ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches``
+(its group sum).
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SYMBOLS = {"flash_attention_fwd": (5, 4), "flash_attention_bwd_dq": (7, 5),
             "flash_attention_bwd_dkv": (8, 6),
             "flash_attention_fwd_tc": (5, 4),
+            "flash_attention_bwd_dq_tc": (7, 5),
             "flash_attention_bwd_dkv_tc": (10, 6)}
 
 
@@ -169,16 +173,26 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ) -> torch.Tensor:
     """The dQ kernel: q, dO (B, H, T, d), k/v (B, KV, S, d), lse and delta
     (B, H, T) f32, all on one card -> dQ (B, H, T, d) in q's dtype and
-    memory layout."""
-    b, h, kv, t, s, d = _check_qkv(q, k, v, budget.flash_bwd_dq_smem_bytes(
-        q.shape[-1]), ("do", do))
+    memory layout.  bf16 operands run the tensor-core kernel, f32 operands
+    the FMA kernel."""
+    tc = q.dtype == torch.bfloat16
+    d = q.shape[-1]
+    b, h, kv, t, s, d = _check_qkv(
+        q, k, v, budget.flash_bwd_dq_tc_smem_bytes(d) if tc
+        else budget.flash_bwd_dq_smem_bytes(d), ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
+    if tc:
+        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    _call("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq),
-          (b, h, kv, t, s, d), (q, k, v, do, dq), sc, causal, q.dtype)
-    flash_attention_bwd_dq.launches += 1
+    _call("flash_attention_bwd_dq_tc" if tc else "flash_attention_bwd_dq",
+          (q, k, v, do, lse, delta, dq), (b, h, kv, t, s, d),
+          (q, k, v, do, dq), sc, causal, q.dtype)
+    if tc:
+        flash_attention_bwd_dq.tc_launches += 1
+    else:
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
@@ -246,6 +260,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 flash_attention_bwd_dkv.reduce_launches = 0

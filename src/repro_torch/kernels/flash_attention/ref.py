@@ -18,9 +18,9 @@ delta)`` with ``dP = dO v^T``, ``dQ = dS k * sc``, ``dK = dS^T q * sc`` and
 ``flash_attention_split_plain`` and ``flash_attention_bwd_split_plain``
 mirror the arithmetic of the tensor-core kernels on whole rows: q k^T (and
 dO v^T) from bf16 operands with f32 sums, which is exact products, then
-``sc``; every product with an f32 operand (p v, p^T dO, dS^T q) as two bf16
-products, of ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, summed in f32.
-dQ keeps f32 dS, as its FMA kernel does.  With ``lo=False`` the products
+``sc``; every product with an f32 operand (p v, dS k, p^T dO, dS^T q) as
+two bf16 products, of ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, summed in
+f32.  With ``lo=False`` the products
 take ``hi`` alone: p and dS rounded to bf16 once, the control that the
 precision checks must reject.  They are used by the tests and
 ``chip_smoke.py``, never on the main path.
@@ -143,10 +143,9 @@ def flash_attention_bwd_split_plain(q: torch.Tensor, k: torch.Tensor,
                                     sc: float, causal: bool, lo: bool = True
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
-    """The backward kernels' arithmetic on whole rows (dK/dV the
-    tensor-core kernel's, dQ the FMA kernel's): the operands of
-    ``flash_attention_bwd_plain`` -> f32 dQ (B, H, T, d), dK, dV
-    (B, KV, S, d)."""
+    """The tensor-core backward kernels' arithmetic on whole rows: the
+    operands of ``flash_attention_bwd_plain`` -> f32 dQ (B, H, T, d), dK,
+    dV (B, KV, S, d)."""
     b, h, t, d = q.shape
     kv = k.shape[1]
     g = h // kv
@@ -157,7 +156,7 @@ def flash_attention_bwd_split_plain(q: torch.Tensor, k: torch.Tensor,
                   - lse.reshape(b, kv, g, t, 1))
     delta = (dof * o.reshape(b, kv, g, t, d).float()).sum(dim=-1)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
-    dq = torch.matmul(ds, kf) * sc
+    dq = _split_matmul(ds, kf, lo) * sc
     dk = _split_matmul(ds.transpose(-1, -2), qf, lo).sum(dim=2) * sc
     dv = _split_matmul(p.transpose(-1, -2), dof, lo).sum(dim=2)
     return dq.reshape(b, h, t, d), dk, dv

@@ -19,6 +19,7 @@ from repro.core import pruning as ref_pruning  # noqa: E402
 from repro.core import sparse_format as ref_fmt  # noqa: E402
 from repro.core import sparse_linear as ref_linear  # noqa: E402
 from repro.kernels.bsr_matmul import ops as ref_ops  # noqa: E402
+from repro.kernels.bsr_matmul.kernel import bsr_matmul_pallas  # noqa: E402
 from repro_torch.core import sparse_format as fmt  # noqa: E402
 from repro_torch.core import sparse_linear  # noqa: E402
 from repro_torch.kernels.bsr_matmul import kernel as bk  # noqa: E402
@@ -112,7 +113,7 @@ def test_plain_version_stops_at_nblocks():
 
 def test_schedule_and_wrapper_checks():
     assert bk.schedule(4, torch.bfloat16) == "rows"
-    assert bk.schedule(8192, torch.bfloat16) == "mma"
+    assert bk.schedule(8192, torch.bfloat16) == "wgmma"
     assert bk.schedule(8192, torch.float32) == "rows"
     bc = fmt.bcsr_from_dense(np.ones((32, 64), np.float32), (16, 16),
                              device="cpu")
@@ -124,3 +125,91 @@ def test_schedule_and_wrapper_checks():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bk.bsr_matmul_kernel(torch.ones((2, 64), device="meta"), bc.blocks,
                              bc.blockcol, bc.nblocks)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_bf16_output_is_the_f32_sums_rounded_once(case):
+    """``out_dtype=bfloat16`` rounds the f32 sums once: the f32 output cast
+    to bf16, bit for bit; ``ops.bsr_matmul`` asks for x's dtype."""
+    x, w = _inputs(case, jnp.bfloat16)
+    m, n, block = case[1], case[2], case[3]
+    bc = fmt.bcsr_from_dense(_tensor(w, "cpu"), block)
+    xt = _tensor(x, "cpu")
+    xb = torch.nn.functional.pad(xt.reshape(-1, n), (0, (-n) % block[1]))
+    args = (xb, bc.blocks, bc.blockcol, bc.nblocks)
+    f32 = bk.bsr_matmul_kernel(*args)
+    b16 = bk.bsr_matmul_kernel(*args, out_dtype=torch.bfloat16)
+    assert f32.dtype == torch.float32 and b16.dtype == torch.bfloat16
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    got = ops.bsr_matmul(xt, bc)
+    assert torch.equal(got, b16[:, :m].reshape(got.shape))
+
+
+# (rows, M, N, block, sparsity, pad_to): rows not a multiple of 64, more
+# block-rows than one group of 16, N over several 128-column chunks (the
+# last ragged), tiles of 16 to 128 columns; every case has ragged nblocks,
+# one block-row with no tile, and NaN in its padding tiles.
+WALK_CASES = [
+    (37, 320, 384, (16, 16), 0.8, 4),
+    (100, 256, 512, (16, 16), 0.5, 1),
+    (65, 96, 640, (16, 128), 0.6, 2),
+    (130, 64, 192, (16, 32), 0.7, 3),
+]
+
+
+def _walk_inputs(case):
+    rows, m, n, block, sp, pad_to = case
+    rng = np.random.default_rng(abs(hash(case)) % 2**31)
+    w = np.array(ref_pruning.block_prune(
+        jnp.asarray(rng.standard_normal((m, n)).astype(np.float32)), sp,
+        block))
+    w[block[0]:2 * block[0]] = 0.0              # block-row 1 keeps no tile
+    bc = fmt.bcsr_from_dense(w, block, pad_to=pad_to, device="cpu")
+    blocks = bc.blocks.clone()
+    kb = torch.arange(bc.kb)[None, :]
+    blocks[kb >= bc.nblocks[:, None].long()] = float("nan")
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    return x, w, bc, blocks
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_wgmma_walk_matches_reference_kernel(case):
+    """The ``wgmma`` schedule's traversal (groups of 16 block-rows walking
+    x in 128-column chunks, one pointer a block-row, stopping at nblocks)
+    against the JAX package's Pallas kernel in interpret mode and the
+    plain version, within f32 rounding of sums in another order: 1e-5 of
+    the output's largest magnitude (the card's check is 1e-4)."""
+    x, w, bc, blocks = _walk_inputs(case)
+    counts = bc.nblocks.numpy()
+    assert counts[1] == 0 and len(set(counts.tolist())) > 1
+    assert bool(torch.isnan(blocks).any())
+    tb = 64
+    xp = np.pad(x, ((0, (-len(x)) % tb), (0, 0)))
+    want = np.asarray(bsr_matmul_pallas(
+        jnp.asarray(xp), jnp.asarray(blocks.numpy()),
+        jnp.asarray(bc.blockcol.numpy()), jnp.asarray(counts), tb=tb,
+        interpret=True))[:len(x)]
+    got = ref.bsr_matmul_walk_plain(torch.from_numpy(x), blocks,
+                                    bc.blockcol, bc.nblocks)
+    assert bool(torch.isfinite(got).all())
+    limit = 1e-5 * max(1.0, float(np.abs(want).max()))
+    plain = ref.bsr_matmul_plain(torch.from_numpy(x), blocks, bc.blockcol,
+                                 bc.nblocks).numpy()
+    for other in (want, plain, x @ w.T):
+        assert float(np.abs(got.numpy() - other).max()) <= limit
+
+
+def test_wgmma_walk_needs_ascending_block_columns():
+    """The walk (and the kernel's one pointer a block-row) takes a row's
+    tiles in block-column order: a row listed out of order is refused."""
+    w = np.zeros((16, 64), np.float32)
+    w[:, :16] = 1.0
+    w[:, 48:] = 2.0
+    bc = fmt.bcsr_from_dense(w, (16, 16), device="cpu")
+    x = torch.ones((3, 64))
+    np.testing.assert_array_equal(
+        ref.bsr_matmul_walk_plain(x, bc.blocks, bc.blockcol, bc.nblocks,
+                                  chunk=32).numpy(), 48.0)
+    with pytest.raises(ValueError, match="not ascending"):
+        ref.bsr_matmul_walk_plain(x, bc.blocks.flip(1), bc.blockcol.flip(1),
+                                  bc.nblocks, chunk=32)

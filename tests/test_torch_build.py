@@ -91,3 +91,15 @@ def test_new_kernels_fit_the_cards_shared_memory():
     assert "multiple of 16" in budget.bsr_matmul_unsupported(16, 8, 4096)
     assert "not a multiple of the block width" in \
         budget.bsr_matmul_unsupported(16, 16, 4100)
+    # the tensor-core schedules: dQ at every head dim, the BCSR matmul's
+    # wgmma ring, and the block widths its 128-column chunks take
+    for d in budget.FLASH_HEAD_DIMS:
+        assert budget.smem_fits(budget.flash_bwd_dq_tc_smem_bytes(d))
+    assert budget.flash_bwd_dq_tc_smem_bytes(128) == 131_072
+    assert budget.bsr_matmul_wgmma_smem_bytes() == 229_504
+    assert budget.smem_fits(budget.bsr_matmul_wgmma_smem_bytes())
+    for bn in (16, 32, 64, 128):
+        assert budget.bsr_matmul_unsupported(16, bn, 4096, "wgmma") is None
+    assert budget.bsr_matmul_unsupported(16, 256, 4096) is None
+    assert "does not divide" in budget.bsr_matmul_unsupported(
+        16, 256, 4096, "wgmma")

@@ -1,9 +1,9 @@
 """The numerical design of the tensor-core flash kernels, on the CPU.
 
-The bf16 forward and dK/dV kernels run every product on the tensor cores:
-q k^T and dO v^T from their bf16 operands (exact products, f32 sums), and
-each product with an f32 operand (p v, p^T dO, dS^T q) as two bf16
-products, of hi = bf16(x) and lo = bf16(x - hi), summed in f32.  The
+The bf16 forward, dQ and dK/dV kernels run every product on the tensor
+cores: q k^T and dO v^T from their bf16 operands (exact products, f32
+sums), and each product with an f32 operand (p v, dS k, p^T dO, dS^T q) as
+two bf16 products, of hi = bf16(x) and lo = bf16(x - hi), summed in f32.  The
 port's plain mirror of that arithmetic (``flash_attention_split_plain``,
 ``flash_attention_bwd_split_plain``) goes against the JAX package's kernel
 (``flash_attention`` in interpret mode, f32 throughout, and ``jax.grad``
@@ -103,8 +103,7 @@ def test_split_backward_matches_reference_kernel(case):
         assert _excess(g, w) <= LIMIT, name
     control = flash_attention_bwd_split_plain(q, k, v, o, lse, do, sc=sc,
                                               causal=causal, lo=False)
-    # dQ keeps f32 dS (its FMA kernel): only dK and dV take the split
-    for name, c, w in zip(("dk", "dv"), control[1:], want[1:]):
+    for name, c, w in zip(("dq", "dk", "dv"), control, want):
         assert _excess(c, w) > LIMIT, name
 
 

@@ -13,11 +13,12 @@ multiple of the pixel tile), M not a multiple of the channel tile or block
 height, K longer than one staged slab, the fused residual tail, a balanced
 bank, and BCSR right-padding columns past C*R*S.
 
-The BCSR matmul cases cover both schedules (``rows``, ``mma``), (16, 16)
-and (16, 128) tiles and ragged row counts; the flash cases
-GQA 8:1 at d = 128 with T = 200 (not a multiple of either chunk), causal and
-full, S != T, MHA, and bf16 (the tensor-core forward and dK/dV) at every
-head dimension of ``budget.FLASH_HEAD_DIMS``.  The counters show which
+The BCSR matmul cases cover both schedules (``rows``, ``wgmma``), (16, 16)
+and (16, 128) tiles, ragged row counts and the prefill's 8192 rows, in f32
+and bf16 output; the flash cases GQA 8:1 at d = 128 with T = 200 (not a
+multiple of either chunk), causal and full, S != T, MHA, and bf16 (the
+tensor-core forward, dQ and dK/dV) at every head dimension of
+``budget.FLASH_HEAD_DIMS``, causal and full.  The counters show which
 kernel ran: bf16 operands the tensor-core ones, f32 the FMA ones.
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
@@ -32,8 +33,10 @@ lse to 1e-4.  The flash backward kernels sum in f32 in another order than
 their plain version: in f32 each of dQ, dK and dV within 1e-4 of its rms;
 in bf16 each element within one bf16 rounding plus 1e-3 of the rms, a
 limit that the plain version with p rounded to bf16 exceeds.  dK and dV
-of the tensor-core kernel sum each kv head's group in a fixed order: two
-launches on the same operands agree bit for bit.
+of the tensor-core kernel sum each kv head's group in a fixed order, the
+tensor-core dQ and the ``wgmma`` BCSR matmul write each output from one
+thread: two launches on the same operands agree bit for bit.  The BCSR
+matmul's bf16 output is its f32 output rounded once, bit for bit.
 """
 import numpy as np
 import pytest
@@ -159,16 +162,21 @@ def test_refused_launch_raises(cuda_device):
 # -- BCSR matmul ---------------------------------------------------------
 # (rows, M, N, block, dtype, schedule): (16, 16) tiles as the transformer's
 # banks, (16, 128) tiles, rows not a multiple of either schedule's row tile
-# (8 for rows, 256 for mma), bf16 row counts on both sides of
-# budget.BSR_MATMUL_ROWS_MAX, which picks the schedule.
+# (8 for rows, 128 for wgmma), bf16 row counts on both sides of
+# budget.BSR_MATMUL_ROWS_MAX, which picks the schedule, more block-rows
+# than one wgmma group (16) and N over several of its 128-column chunks,
+# the last ragged; 8192 rows at Yi-9B's wq shape.
 BSR_MATMUL_CASES = [
     (4, 256, 512, (16, 16), torch.bfloat16, "rows"),
     (13, 96, 256, (16, 16), torch.float32, "rows"),
-    (40, 64, 256, (16, 16), torch.bfloat16, "mma"),
-    (300, 160, 384, (16, 16), torch.bfloat16, "mma"),
+    (40, 64, 256, (16, 16), torch.bfloat16, "wgmma"),
+    (300, 160, 384, (16, 16), torch.bfloat16, "wgmma"),
     (29, 64, 512, (16, 128), torch.bfloat16, "rows"),
-    (515, 128, 1024, (16, 128), torch.bfloat16, "mma"),
+    (515, 128, 1024, (16, 128), torch.bfloat16, "wgmma"),
     (129, 48, 256, (16, 128), torch.float32, "rows"),
+    (33, 400, 592, (16, 16), torch.bfloat16, "wgmma"),
+    (100, 272, 448, (16, 32), torch.bfloat16, "wgmma"),
+    (8192, 4096, 4096, (16, 16), torch.bfloat16, "wgmma"),
 ]
 
 
@@ -186,13 +194,19 @@ def test_bsr_matmul_kernel_matches_plain(cuda_device, case):
     w = torch.randn((m, n), generator=gen, device=cuda_device)
     bc = bcsr_from_dense(block_prune(w, 0.8, block).to(dtype), block)
     x = torch.randn((rows, n), generator=gen, device=cuda_device).to(dtype)
-    before = bsr_matmul_kernel.launches
-    got = bsr_matmul_kernel(x, bc.blocks, bc.blockcol, bc.nblocks)
+    args = (x, bc.blocks, bc.blockcol, bc.nblocks)
+    before = (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches)
+    got = bsr_matmul_kernel(*args)
     torch.cuda.synchronize()
-    assert bsr_matmul_kernel.launches == before + 1
-    want = bsr_matmul_plain(x, bc.blocks, bc.blockcol, bc.nblocks)
+    assert (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches) \
+        == (before[0] + 1, before[1] + (sched == "wgmma"))
+    want = bsr_matmul_plain(*args)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-4 * scale
+    # one rounding of the same f32 sums, and the same bits on every launch
+    assert torch.equal(bsr_matmul_kernel(*args, out_dtype=torch.bfloat16),
+                       got.to(torch.bfloat16))
+    assert torch.equal(bsr_matmul_kernel(*args), got)
 
 
 def test_bsr_matmul_padding_tiles_are_not_read(cuda_device):
@@ -207,7 +221,7 @@ def test_bsr_matmul_padding_tiles_are_not_read(cuda_device):
     blocks = bc.blocks.clone()
     blocks[1] = float("nan")
     x = torch.ones((40, 64), device=cuda_device)
-    for sched, dt in (("rows", torch.float32), ("mma", torch.bfloat16)):
+    for sched, dt in (("rows", torch.float32), ("wgmma", torch.bfloat16)):
         assert schedule(40, dt) == sched
         got = bsr_matmul_kernel(x.to(dt), blocks.to(dt), bc.blockcol,
                                 bc.nblocks)
@@ -369,6 +383,10 @@ FLASH_BWD_CASES = [
     (1, 8, 1, 77, 77, 128, True, torch.bfloat16),      # GQA 8:1, ragged
     (1, 4, 2, 64, 96, 16, False, torch.bfloat16),      # bidirectional, S != T
     (1, 4, 2, 96, 64, 64, True, torch.bfloat16),       # S < T
+    (1, 4, 2, 100, 100, 16, True, torch.bfloat16),     # d 16 causal, ragged
+    (1, 8, 2, 70, 70, 32, True, torch.bfloat16),       # d 32 causal, ragged
+    (1, 4, 1, 90, 90, 64, False, torch.bfloat16),      # d 64 full, ragged
+    (1, 4, 4, 130, 130, 128, False, torch.bfloat16),   # d 128 full, ragged
 ]
 # f32: max |error| / rms; bf16: beyond one bf16 rounding, over the rms
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -430,6 +448,7 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
 
     def counts():
         return (flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dq.tc_launches,
                 flash_attention_bwd_dkv.launches,
                 flash_attention_bwd_dkv.tc_launches,
                 flash_attention_bwd_dkv.reduce_launches)
@@ -439,8 +458,8 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
                                      causal=causal)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1] + (not tc), before[2] + tc,
-                        before[3] + tc)
+    assert counts() == (before[0] + (not tc), before[1] + tc,
+                        before[2] + (not tc), before[3] + tc, before[4] + tc)
     assert dq.stride() == q.stride() and dk.stride() == k.stride()
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype, dtype, dtype)
     f32 = [x.float() for x in (q, k, v, o)]
@@ -484,16 +503,44 @@ def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_dq_is_bit_identical_across_launches(cuda_device, d):
+    """The tensor-core dQ writes each element from one thread, with no
+    atomics: two launches on the same operands agree bit for bit (GQA
+    8:1, causal, ragged)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        bwd_delta, flash_attention_bwd_dq, flash_attention_fwd)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = rand(2, 333, 16, d), rand(2, 333, 2, d), \
+        rand(2, 333, 2, d), rand(2, 333, 16, d)
+    sc = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=True)
+    delta = bwd_delta(o, do)
+    before = flash_attention_bwd_dq.tc_launches
+    first, second = (flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc,
+                                            causal=True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.tc_launches == before + 2
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
-    """f32 operands launch the FMA forward and dK/dV kernels, bf16 operands
-    the tensor-core ones (and dK/dV's group sum); dQ has one kernel."""
+    """f32 operands launch the FMA forward, dQ and dK/dV kernels, bf16
+    operands the tensor-core ones (and dK/dV's group sum)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
 
     counters = ((fk.flash_attention_fwd, "launches"),
                 (fk.flash_attention_fwd, "tc_launches"),
                 (fk.flash_attention_bwd_dq, "launches"),
+                (fk.flash_attention_bwd_dq, "tc_launches"),
                 (fk.flash_attention_bwd_dkv, "launches"),
                 (fk.flash_attention_bwd_dkv, "tc_launches"),
                 (fk.flash_attention_bwd_dkv, "reduce_launches"))
@@ -507,7 +554,8 @@ def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
     ran = [getattr(fn, attr) - b_ for (fn, attr), b_ in zip(counters,
                                                              before)]
     tc = dtype == torch.bfloat16
-    assert ran == [int(not tc), int(tc), 1, int(not tc), int(tc), int(tc)]
+    assert ran == [int(not tc), int(tc), int(not tc), int(tc), int(not tc),
+                   int(tc), int(tc)]
 
 
 def test_flash_attention_is_differentiable_on_the_card(cuda_device):
