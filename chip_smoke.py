@@ -16,14 +16,27 @@ Phases (any failure exits non-zero and prints no result):
               residual tail, res5a/3x3; AlexNet conv2), batch 8 at 224 px:
               one JSON line per (kernel, layer) with ``max_abs_err``,
               ``kernel_ms`` (CUDA events over back-to-back launches, after a
-              warm-up, L2 warm), ``plain_ms``, ``library_ms`` (``F.conv2d``
-              with bias on the dense pruned weights, TF32 off; a yardstick the
-              port never calls) and ``bound_ms`` (the larger of the bytes the
+              warm-up, L2 warm; ``kernel_device_ms`` the profiler's device
+              time, which leaves out the wrapper's host time that a short
+              kernel's events measure), ``plain_ms``, ``library_ms``
+              (``F.conv2d`` with bias on the dense pruned weights, TF32 off;
+              a yardstick the port never calls; ``library_device_ms`` its
+              device time) and ``bound_ms`` (the larger of the bytes the
               conv must move over 3.35 TB/s and its f32 operations over
               67 TFLOP/s).  The bytes count the input elements the conv
               reads, not the padded copy the wrapper builds (a stride-2 1x1
               conv reads a quarter of its input), the weights, bias and
-              residual once, and the output once.
+              residual once, and the output once.  The ELL kernel must equal
+              its plain version bit for bit in its pipelined and its
+              blocking schedule (``resolve_schedule`` with ``pipeline``
+              None and False; the line carries the schedule and both
+              times; a 1x1 layer stages nothing and has one schedule).  The BCSR kernel, on the tensor cores with its f32
+              operands split into TF32 halves, must lie within
+              1e-4 x (1 + max |y|) of its plain version, and the same
+              check must reject ``bsr_conv_split_plain(lo=False)``, one
+              product on operands rounded once to TF32; the split's plain
+              mirror is reported beside it, and ``bound_tc_ms`` prices the
+              three TF32 products of the split at 495 TFLOP/s.
 3. path    -- ResNet-50, GoogLeNet and AlexNet at full width, random pruned
               weights from ``--seed``, through ``cnn_forward`` with
               ``pallas``, ``bsr`` and ``dense``.  For each net and kernel
@@ -161,9 +174,10 @@ the FMA kernels (f32).  Peak rates are the H100 SXM data sheet's (dense,
 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
-and add as its plain version does, in the same order, so it is held to
-1e-5; the BCSR conv kernel sums in another order than the plain version's
-library contraction and is held to rtol = atol = 1e-4.
+and add as its plain version does, in the same order, so it is held to bit
+identity; the BCSR conv kernel splits its operands into TF32 halves (about
+21 bits each) and sums in another order than the plain version's library
+contraction, and is held to 1e-4 x (1 + max |y|).
 """
 from __future__ import annotations
 
@@ -181,14 +195,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 without tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12   # H100 SXM, TF32 tensor cores, dense
 EXPECTED_SPARSE = {"resnet50": 39, "googlenet": 49, "alexnet": 4}
 KERNEL_LAYERS = [("resnet50", "res3a/1x1a"), ("resnet50", "res4b/3x3"),
                  ("resnet50", "res4b/1x1b"), ("resnet50", "res5a/3x3"),
                  ("alexnet", "conv2")]
 BATCH = 8
 IMAGE = 224
-ELL_TOL = 1e-5
-BSR_TOL = 1e-4
+BSR_TOL = 1e-4                        # x (1 + max |y|)
 PATH_RTOL = 1e-4
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute); a launch of the kernel adds one to it and nothing else does.
@@ -304,12 +318,14 @@ def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
     return time_cuda(torch, fn, reps=reps, warmup=1)
 
 
-def bound(nbytes: float, flops_f32: float = 0.0, flops_bf16: float = 0.0):
+def bound(nbytes: float, flops_f32: float = 0.0, flops_bf16: float = 0.0,
+          flops_tf32: float = 0.0):
     """The larger of the bytes over 3.35 TB/s and the operations over their
     peaks: f32 on the FMA units at 67 TFLOP/s, bf16 products with f32 sums
-    on the tensor cores at 989 TFLOP/s."""
+    on the tensor cores at 989 TFLOP/s, TF32 ones at 495 TFLOP/s."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (flops_f32 / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS) * 1e3
+    t_ops = (flops_f32 / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+             + flops_tf32 / PEAK_TF32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -390,27 +406,39 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
             return F.conv2d(x, w, bias, stride=op.stride, padding=op.pad)
 
         library_ms = time_cuda(torch, library, reps=20, warmup=3)
+        library_device_ms = device_ms(torch, library, reps=10)
 
         # -- ELL direct sparse conv --------------------------------------
         ell = entry["ell"]
-        sched, reason = ops_ell.resolve_schedule(op.m, ell.k, op.e, op.f)
-        check(sched is not None, f"{layer}: no ELL schedule ({reason})")
-        tm, tp, ks = sched
         packed = ops_ell.pack_indices(ell)
         args = (xpad, ell.value, packed, ell.nnz, bias, res)
         kw = dict(rs=op.k * op.k, s=op.k, e=op.e, f=op.f, stride=op.stride,
                   fuse_relu=op.fuse_relu)
-        got = mods["ell_kernel"](*args, tm=tm, tp=tp, ks=ks, **kw)
-        torch.cuda.synchronize()
+        geo = dict(n=batch, c=op.c, r=op.k, s=op.k, stride=op.stride,
+                   hp=xpad.shape[2], wp=xpad.shape[3])
+        sched, reason = ops_ell.resolve_schedule(op.m, ell.k, op.e, op.f,
+                                                 **geo)
+        check(sched is not None, f"{layer}: no ELL schedule ({reason})")
+        blocking, _ = ops_ell.resolve_schedule(op.m, ell.k, op.e, op.f,
+                                               pipeline=False, **geo)
         want = mods["ell_plain"](*args, **kw)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        check(bool(torch.isfinite(got).all()), f"{layer}: ELL kernel not finite")
-        check(err <= ELL_TOL * (1 + scale),
-              f"{layer}: ELL kernel disagrees with its plain version "
-              f"(max_abs_err {err}, tolerance {ELL_TOL}*(1+{scale}))")
+        got = {}
+        for sc in (sched, blocking):
+            got[sc.pipeline] = mods["ell_kernel"](*args, schedule=sc, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[sc.pipeline], want),
+                  f"{layer}: ELL kernel ({'pipelined' if sc.pipeline else 'blocking'}) "
+                  f"not bit-identical to its plain version (max_abs_err "
+                  f"{float((got[sc.pipeline] - want).abs().max())})")
+        check(torch.equal(got[True], got[False]) if sched.pipeline else True,
+              f"{layer}: pipelined and blocking ELL kernels differ")
+        err = float((got[sched.pipeline] - want).abs().max())
         ms = time_cuda(torch, lambda: mods["ell_kernel"](
-            *args, tm=tm, tp=tp, ks=ks, **kw), reps=20, warmup=3)
+            *args, schedule=sched, **kw), reps=20, warmup=3)
+        dev_ms = device_ms(torch, lambda: mods["ell_kernel"](
+            *args, schedule=sched, **kw), reps=10)
+        blocking_ms = time_cuda(torch, lambda: mods["ell_kernel"](
+            *args, schedule=blocking, **kw), reps=20, warmup=3)
         plain_ms = time_cuda(torch, lambda: mods["ell_plain"](*args, **kw),
                              reps=2, warmup=1)
         nnz_total = int(ell.nnz.sum())
@@ -422,21 +450,24 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
                          "k": op.k, "stride": op.stride, "pad": op.pad,
                          "nnz": nnz_total, "K": ell.k, "residual":
                          res is not None},
-               "schedule": {"tm": tm, "tp": tp, "ks": ks},
-               "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_bytes": moved}
+               "schedule": dataclasses.asdict(sched),
+               "bit_identical": True, "max_abs_err": err, "kernel_ms": ms,
+               "blocking_ms": blocking_ms, "kernel_device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": library_device_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_bytes": moved}
         print(json.dumps(row), flush=True)
         rows["sparse_conv"].append(row)
 
         # -- BCSR block-sparse conv --------------------------------------
         bc = mods["bcsr_from_dense"](w.cpu().numpy(), block=mods["block"],
                                      device=device)
+        halves = mods["split_weights"](bc.blocks)
         gbm, kb_dim, bm, bn = bc.blocks.shape
-        sched, reason = ops_bsr.resolve_bsr_schedule(bm, bn, op.e, op.f)
-        check(sched is not None, f"{layer}: no BCSR schedule ({reason})")
-        (tp,) = sched
         mpad = gbm * bm
+        tile, reason = ops_bsr.resolve_bsr_schedule(
+            bm, bn, op.e, op.f, n=batch, m=mpad, crs=op.c * op.k * op.k)
+        check(tile is not None, f"{layer}: no BCSR schedule ({reason})")
         bpad = torch.zeros(mpad, device=device)
         bpad[:op.m] = bias
         rpad = None
@@ -444,31 +475,48 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
             rpad = torch.zeros((batch, mpad, op.e, op.f), device=device)
             rpad[:, :op.m] = res
         bargs = (xpad, bc.blocks, bc.blockcol, bc.nblocks, bpad, rpad)
-        got = mods["bsr_kernel"](*bargs, tp=tp, **kw)
+        bkw = dict(kw, n_tile=tile[0], wgs=tile[1], halves=halves)
+        got = mods["bsr_kernel"](*bargs, **bkw)
         torch.cuda.synchronize()
         want = mods["bsr_plain"](*bargs, **kw)
+        limit = BSR_TOL * (1 + float(want.abs().max()))
         err = float((got - want).abs().max())
-        scale = float(want.abs().max())
+        split_err = float((mods["bsr_split_plain"](*bargs, **kw)
+                           - want).abs().max())
+        control_err = float((mods["bsr_split_plain"](*bargs, lo=False, **kw)
+                             - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{layer}: BCSR kernel not finite")
-        check(err <= BSR_TOL * (1 + scale),
+        check(err <= limit,
               f"{layer}: BCSR kernel disagrees with its plain version "
-              f"(max_abs_err {err}, tolerance {BSR_TOL}*(1+{scale}))")
-        ms = time_cuda(torch, lambda: mods["bsr_kernel"](*bargs, tp=tp, **kw),
+              f"(max_abs_err {err}, tolerance {limit})")
+        check(control_err > limit,
+              f"{layer}: the BCSR check does not reject one product on "
+              f"operands rounded once ({control_err} <= {limit})")
+        ms = time_cuda(torch, lambda: mods["bsr_kernel"](*bargs, **bkw),
                        reps=20, warmup=3)
+        dev_ms = device_ms(torch, lambda: mods["bsr_kernel"](*bargs, **bkw),
+                           reps=10)
         plain_ms = time_cuda(torch, lambda: mods["bsr_plain"](*bargs, **kw),
                              reps=2, warmup=1)
         kept = int(bc.nblocks.sum())
         moved = act_bytes + kept * bm * bn * 4 + kept * 4 + gbm * 4
-        b_ms, b_by = bound(moved, 2.0 * kept * bm * bn * batch * op.e * op.f)
+        flops = 2.0 * kept * bm * bn * batch * op.e * op.f
+        b_ms, b_by = bound(moved, flops)
+        tc_ms, tc_by = bound(moved, flops_tf32=3 * flops)
         row = {"kernel": "bsr_conv", "net": net_name, "layer": layer,
                "shape": {"n": batch, "c": op.c, "h": op.h, "m": op.m,
                          "k": op.k, "stride": op.stride, "pad": op.pad,
                          "block": [bm, bn], "kept_tiles": kept,
                          "tiles": gbm * (-(-op.c * op.k * op.k // bn)),
                          "residual": res is not None},
-               "schedule": {"tp": tp},
-               "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "schedule": {"n_tile": tile[0], "warpgroups": tile[1],
+                            "pixels": 64 * tile[1]},
+               "max_abs_err": err, "tolerance": limit,
+               "split_plain_err": split_err, "control_err": control_err,
+               "kernel_ms": ms, "kernel_device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": library_device_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
                "bound_bytes": moved}
         print(json.dumps(row), flush=True)
         rows["bsr_conv"].append(row)
@@ -1483,9 +1531,16 @@ def kernel_entries(rows, launches):
     }
     times_are = {
         "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
-                       f" main-path layers, batch {BATCH}",
+                       f" main-path layers, batch {BATCH}; ms the pipelined "
+                       f"schedule, blocking_ms the blocking one (CUDA events), "
+                       f"kernel_device_ms and library_device_ms profiler "
+                       f"device time",
         "bsr_conv": f"sums over the kernel phase's {len(rows['bsr_conv'])} "
-                    f"main-path layers, batch {BATCH}",
+                    f"main-path layers, batch {BATCH}; bound_ms prices the "
+                    f"products on the f32 FMA units, bound_tc_ms as the "
+                    f"three TF32 products of the split on the tensor cores; "
+                    f"kernel_device_ms and library_device_ms profiler "
+                    f"device time",
         "bsr_matmul": "sums over wq, wk, gate and down at 4 rows (the rows "
                       "schedule) and 8192 rows (the wgmma schedule), Yi-9B, "
                       "bf16 in and out, sparsity 0.8; rows_* and wgmma_* "
@@ -1531,6 +1586,13 @@ def kernel_entries(rows, launches):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  **sums(rows[name]), "times_are": times_are[name]}
+        if name in ("sparse_conv", "bsr_conv"):
+            for key in ("kernel_device_ms", "library_device_ms"):
+                entry[key] = sum(r[key] for r in rows[name])
+        if name == "sparse_conv":
+            entry["blocking_ms"] = sum(r["blocking_ms"] for r in rows[name])
+        if name == "bsr_conv":
+            entry["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows[name])
         if name == "flash_attention_bwd_dkv_tc":
             entry["reduce_launches"] = launches["flash_attention_dkv_reduce"]
         if name == "bsr_matmul":
@@ -1554,8 +1616,10 @@ def load_modules() -> dict:
     from repro_torch.engine.lower import lower
     from repro_torch.kernels import _build
     from repro_torch.kernels.bsr_conv import ops as ops_bsr
-    from repro_torch.kernels.bsr_conv.kernel import bsr_conv_kernel
-    from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain
+    from repro_torch.kernels.bsr_conv.kernel import (bsr_conv_kernel,
+                                                     split_weights)
+    from repro_torch.kernels.bsr_conv.ref import (bsr_conv_plain,
+                                                  bsr_conv_split_plain)
     from repro_torch.kernels.sparse_conv import ops as ops_ell
     from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
     from repro_torch.kernels.sparse_conv.ref import sparse_conv_plain
@@ -1591,7 +1655,8 @@ def load_modules() -> dict:
     mods = dict(np=np, cnn=cnn, pad_in=pad_in, ops_ell=ops_ell,
                 ops_bsr=ops_bsr, ell_kernel=sparse_conv_kernel,
                 ell_plain=sparse_conv_plain, bsr_kernel=bsr_conv_kernel,
-                bsr_plain=bsr_conv_plain,
+                bsr_plain=bsr_conv_plain, bsr_split_plain=bsr_conv_split_plain,
+                split_weights=split_weights,
                 bcsr_from_dense=bcsr_conv_from_dense,
                 block=DEFAULT_BSR_BLOCK,
                 kernels={"sparse_conv": sparse_conv_kernel,

@@ -274,6 +274,41 @@ def bcsr_stack_from_dense(w3d, block: Tuple[int, int] = (128, 128),
         shape=per_layer[0].shape, block=tuple(block))
 
 
+def block_column_fault(blockcol: torch.Tensor, nblocks: torch.Tensor,
+                       ncols: int, *, ascending: bool = True
+                       ) -> Optional[str]:
+    """Why a BCSR bank's kept tiles cannot be walked, or None.
+
+    Every block-row's ``nblocks[i]`` leading block columns must lie in
+    ``[0, ncols)`` and be distinct; with ``ascending`` also strictly
+    ascending (what ``bcsr_from_dense`` builds).  Runs on the tensors'
+    device and reads one flag back.
+    """
+    gm, kb = blockcol.shape
+    nb = nblocks.long()
+    if gm == 0:
+        return None
+    if bool(((nb < 0) | (nb > kb)).any()):
+        return f"nblocks outside [0, {kb}]"
+    live = torch.arange(kb, device=blockcol.device)[None, :] < nb[:, None]
+    cols = blockcol.long()
+    if bool((live & ((cols < 0) | (cols >= ncols))).any()):
+        return f"a kept tile's block column lies outside [0, {ncols})"
+    if ascending:
+        step = cols[:, 1:] - cols[:, :-1]
+        pair = live[:, 1:]
+        if bool((pair & (step == 0)).any()):
+            return "two tiles of one block-row share a block column"
+        if bool((pair & (step < 0)).any()):
+            return "block columns not strictly ascending within a block-row"
+        return None
+    ordered = torch.where(live, cols, cols.new_full((), -1)).sort(dim=1).values
+    pair = ordered[:, 1:] >= 0
+    if bool((pair & (ordered[:, 1:] == ordered[:, :-1])).any()):
+        return "two tiles of one block-row share a block column"
+    return None
+
+
 def bcsr_to_dense(b: BcsrMatrix) -> torch.Tensor:
     m, n = b.shape
     bm, bn = b.block

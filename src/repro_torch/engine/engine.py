@@ -30,6 +30,7 @@ from repro_torch.core.sparse_format import (bcsr_conv_from_dense,
                                             ell_from_dense_conv)
 from repro_torch.engine.program import (ConcatOp, ConvOp, FCOp, PoolOp,
                                         Program, ReluOp, ResidualAddOp)
+from repro_torch.kernels.bsr_conv.kernel import split_weights
 from repro_torch.kernels.bsr_conv.ops import bsr_conv
 from repro_torch.kernels.sparse_conv.ops import (apply_epilogue, pack_indices,
                                                  sparse_conv)
@@ -116,7 +117,7 @@ class CnnEngine:
     ``engine(x, method)`` runs the bound program on ``x`` (moved to the
     engine's device as f32).  ``method="bsr"`` blocks each pruned layer's
     dense weights into a ``DEFAULT_BSR_BLOCK`` bank on first use and caches
-    it on the engine; ``method="pallas"`` likewise packs each ELL bank's
+    it on the engine with its tiles split into the kernel's bf16 halves; ``method="pallas"`` likewise packs each ELL bank's
     indices once.
     """
 
@@ -127,6 +128,7 @@ class CnnEngine:
         self.device = resolve_device(device)
         self.fc_weights = self._bind_fc(program, params, self.device)
         self._bcc_cache: Dict[Any, Any] = {}
+        self._halves_cache: Dict[str, Any] = {}
         self._packed_cache: Dict[str, torch.Tensor] = {}
 
     # -- bind -------------------------------------------------------------
@@ -164,6 +166,15 @@ class CnnEngine:
             self._bcc_cache[op.name] = bcc
         return bcc
 
+    def _halves_for(self, op: ConvOp, bcc) -> Any:
+        """The bank's tiles split into the BCSR kernel's bf16 halves, split
+        on first use and cached, so a forward launches no splitting ops."""
+        halves = self._halves_cache.get(op.name)
+        if halves is None:
+            halves = split_weights(bcc.blocks)
+            self._halves_cache[op.name] = halves
+        return halves
+
     # -- execute ----------------------------------------------------------
 
     def _conv(self, op: ConvOp, x: torch.Tensor,
@@ -185,9 +196,10 @@ class CnnEngine:
                                layer=op.name,
                                packed_idx=self._packed_for(op, entry))
         elif method == "bsr":
-            return bsr_conv(x, self._bcsr_for(op, entry), stride=op.stride,
-                            padding=op.pad, bias=b, fuse_relu=op.fuse_relu,
-                            residual=res, layer=op.name)
+            bcc = self._bcsr_for(op, entry)
+            return bsr_conv(x, bcc, stride=op.stride, padding=op.pad, bias=b,
+                            fuse_relu=op.fuse_relu, residual=res,
+                            layer=op.name, halves=self._halves_for(op, bcc))
         else:
             raise ValueError(method)
         # Unfused epilogue: the reference's op sequence.

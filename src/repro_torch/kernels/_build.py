@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -130,6 +131,36 @@ def check_operand(kernel: str, name: str, t, dtype, shape, device, *,
                          f"expected {tuple(shape)}")
     if not (t.stride(-1) == 1 if rows_strided else t.is_contiguous()):
         raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+_CACHED: Dict[tuple, tuple] = {}
+
+
+def cached(kind: str, tensors, key, make):
+    """``make()``'s result for ``tensors`` and ``key``, made the first time
+    they are seen together and again only after one of the tensors has been
+    written in place (its ``_version`` moved).  What a launcher derives
+    from a weight (a check that reads it back to the host, a stretched
+    copy) then costs once per weight, not once per launch.  Entries go with
+    the first tensor."""
+    ident = (kind,) + tuple(id(t) for t in tensors) + tuple(key)
+    state = tuple(t._version for t in tensors)
+    entry = _CACHED.get(ident)
+    if (entry is not None and entry[1] == state
+            and all(r() is t for r, t in zip(entry[0], tensors))):
+        return entry[2]
+    value = make()
+    if entry is None:
+        weakref.finalize(tensors[0], _CACHED.pop, ident, None)
+    _CACHED[ident] = (tuple(weakref.ref(t) for t in tensors), state, value)
+    return value
+
+
+def check_once(kind: str, tensors, check) -> None:
+    """Run ``check()`` (which raises on a fault) once per ``tensors``, as
+    ``cached`` makes its values: one read-back per weight, none per
+    launch."""
+    cached(kind, tensors, (), check)
 
 
 def check(err: int, kernel: str) -> None:

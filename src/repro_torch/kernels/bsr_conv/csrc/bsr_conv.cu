@@ -1,5 +1,5 @@
-// Block-sparse (BCSR) direct convolution with a fused epilogue, for Hopper
-// (sm_90a).
+// Block-sparse (BCSR) direct convolution with a fused epilogue, on Hopper's
+// tensor cores (sm_90a).
 //
 // Replaces the TPU kernel bsr_conv_pallas / _kernel in
 // src/repro/kernels/bsr_conv/kernel.py.  The filter bank is blocked over its
@@ -12,145 +12,490 @@
 //
 // Columns past C*R*S (the format's right-padding) have zero weights; their
 // channel is clamped to C-1 as in the reference, so the read stays in bounds.
-// Rows past M (channel padding to gbm*BM) are zero too; the caller slices
+// Rows past M (channel padding to GBM*BM) are zero too; the caller slices
 // them off.
 //
-// Mapping:
-//   * One block per (image n, block-row i, TP output pixels), one thread per
-//     pixel, flat over (e, f) so a warp's input reads coalesce.
-//   * For each kept tile the block loads the (BM, BN) weight tile into shared
-//     memory and decodes the tile's BN columns once into input offsets
-//     (c*Hp + r)*Wp + s.  Each thread then gathers its pixel's column of the
-//     (BN, TP) im2col patch straight from xpad by those offsets, one value at
-//     a time, and multiplies it into its BM sums (weights read from shared
-//     memory as broadcasts).  No patch is materialised in device memory.
-//   * The sums stay in registers; bias, residual and ReLU are applied and
-//     the output is written once.
+// The product, written transposed: out^T[pixels, channels] = patch^T W^T,
+// with the pixels (n, e, f) flattened, so that wgmma's M dimension is 64
+// pixels and small late layers (7 x 7 an image) still fill a tile.
 //
-// Bound on an H100 SXM: the work is 2*kept_tiles*BM*BN*N*E*F f32 operations
-// over xpad + tiles + out bytes; at the main path's shapes the operations
-// bound (67 TFLOP/s without tensor cores) is the larger.  Each gathered input
-// value now feeds BM multiply-adds, so the kernel issues one load per BM
-// FMAs instead of one per FMA as the ELL kernel does; it runs on the FMA
-// units, not the tensor cores.  Tensor cores (wgmma on staged patch tiles)
-// are later work.
+//   * A block owns WGS x 64 pixels (a warpgroup each) and a group of NB
+//     block-rows, N = NB*BM output channels (32 or 64: two stages of a
+//     128-deep column of both TF32 halves of 64 channels fill 128 KB).  A
+//     (BM, BN) tile alone would be an m64n8 product, too narrow to keep the
+//     tensor cores busy; the reuse left is the im2col patch across
+//     block-rows, so every patch element a block gathers feeds N channels.
+//   * The block walks the block columns its group keeps (any row keeping a
+//     tile there), one BN-deep column at a time.  For each it stages the
+//     group's tiles at that column into one K-major B operand (N x BN,
+//     zero for a row that keeps nothing there) with cp.async, a warp a
+//     tile, BSTAGES stages, the next columns' copies under this column's
+//     products.  A table built at the start, (row g, column j) -> kb, finds
+//     the tiles, so any order of a row's tiles works; a repeated column is
+//     refused by the launcher.
+//   * The patch is never stored: each thread gathers its A fragments (two
+//     pixels x two columns of each 8-deep step) straight from xpad through
+//     L1/L2 into registers, a whole block column ahead of their use, by the
+//     column offsets (c*Hp + r)*Wp + s the block decodes once per column
+//     into shared memory, two columns ahead.
+//   * f32 accuracy on the tensor cores: TF32 is off as a library setting,
+//     so f32 operands are split.  The split is TF32 big + small halves of
+//     both operands: x_hi = tf32(x), x_lo = tf32(x - x_hi) (cvt.rna, to
+//     nearest, ties away), likewise w (split once per bank by the wrapper),
+//     and three products x_hi w_hi + x_hi w_lo + x_lo w_hi, each wgmma
+//     m64nNk8 .tf32 with f32 sums (a product of two TF32 values is exact in
+//     f32; the dropped x_lo w_lo is below 2^-22 of the product).  It keeps
+//     about 21 bits of each operand, at 495 TFLOP/s: a bf16 hi + lo split
+//     (989 TFLOP/s) keeps about 16 and fails the card tests' elementwise
+//     1e-4 on sums of a few hundred products; one product on operands
+//     rounded once to TF32 keeps 11 and fails every check
+//     (ref.bsr_conv_split_plain mirrors both).
+//   * The tensor cores add into their f32 accumulator with truncation, so
+//     that error grows with the wgmmas a sum takes: each group of 4 steps
+//     sums into a fresh partial, added into the f32 sums with rounded adds
+//     (the card measured 8e-3 at res5a/3x3 without it, 2e-4 with it).
+//   * The epilogue (bias, residual, ReLU) is applied to the sums and
+//     written straight to (N, M, E, F): a fragment's stores cover eight
+//     neighbouring pixels of four channels, whole 32-byte sectors.
+//
+// Bound on an H100 SXM: the work is 2*kept_tiles*BM*BN*N*E*F operations;
+// as three TF32 products on the tensor cores (495 TFLOP/s) the bytes of
+// xpad + tiles + out bound the smaller layers and the operations the
+// larger; on the f32 FMA units (67 TFLOP/s) the operations bound.  What
+// holds the kernel is the traffic around the products, the tiles' copies
+// first: every block copies its group's tiles, both halves, for every
+// block column, 64 KB a column at N = 64 (bsr_conv/ablate.py, PERF.md).
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
-// residual may be null; returns cudaGetLastError() after the launch.
+// residual may be null; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape no instantiation takes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int BM>
-__global__ void __launch_bounds__(256) bsr_conv_kernel(
-    const float* __restrict__ xpad, const float* __restrict__ blocks,
-    const int* __restrict__ blockcol, const int* __restrict__ nblocks,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int C, int Hp, int Wp, int KB, int BN, int RS,
-    int S, int E, int F, int stride, int relu) {
-  extern __shared__ int4 smem_raw[];
-  float* s_w = reinterpret_cast<float*>(smem_raw);  // [BM][BN]
-  int* s_off = reinterpret_cast<int*>(s_w + BM * BN);  // [BN]
+constexpr int WG = 128;  // threads of a warpgroup
+constexpr int BN = 128;  // block width: the (BM, 128) tiles of the format
+constexpr int BSTAGES = 2;  // stages of the B operand (the group's tiles)
 
-  const int n = blockIdx.z;
-  const int i = blockIdx.y;
-  const int Mp = gridDim.y * BM;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A shared-memory matrix descriptor without a swizzle: start address,
+// leading and stride byte offsets in 16-byte units.  K-major: the leading
+// offset steps between the 8 x 8 core matrices along K, the stride offset
+// between those along N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async
+// proxy: each thread fences its landed copies before the block barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 32, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (32 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (64 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// f32 -> TF32, rounded to nearest, ties away from zero (the low 13 bits
+// of the result are 0).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t t;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(t) : "f"(x));
+  return t;
+}
+
+// x -> (hi, lo) TF32 halves: hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// Shared memory, in order: BSTAGES stages of the B operand, each the hi then the
+// lo (N x BN) TF32 tile, element (n, k) at (k / 4) * N * 16 + n * 16 +
+// (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major); 3 slots of BN
+// int32 column offsets; the (NB x KBC) int32 table of kept tiles; the KBC
+// live columns.
+template <int BM, int N, int WGS>
+__global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
+    const float* __restrict__ xpad, const float* __restrict__ whi,
+    const float* __restrict__ wlo, const int* __restrict__ blockcol,
+    const int* __restrict__ nblocks, const float* __restrict__ bias,
+    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
+    int C, int Hp, int Wp, int GBM, int KB, int RS, int S, int E, int F,
+    int stride, int relu) {
+  constexpr int NB = N / BM;      // block-rows of the group
+  constexpr int NTH = WGS * WG;
+  constexpr int NWARPS = NTH / 32;
+  constexpr int ACC = N / 2;      // f32 accumulator registers a thread
+  constexpr int KS = BN / 8;      // 8-deep steps a block column
+  constexpr int GS = 4;           // steps a partial sums before it is added
+  static_assert(KS % (2 * GS) == 0, "a column holds whole pairs of groups");
+  constexpr int TILE = N * BN * 4;            // bytes of one TF32 operand
+  // a warp copies one (BM, BN) tile half at a time: BM rows x BN/4 pieces
+  // of 16 bytes, PPL a lane
+  constexpr int PPL = BM * (BN / 4) / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int KBC = (C * RS + BN - 1) / BN;     // block columns of the bank
+  const uint32_t bbase = smem_u32(smem);
+  int* coloff = reinterpret_cast<int*>(smem + BSTAGES * 2 * TILE);  // [3][BN]
+  int* table = coloff + 3 * BN;                                // [NB][KBC]
+  int* live = table + NB * KBC;                                // [KBC]
+  __shared__ int nlive;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int gwarp = tid / 32;
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int i0 = blockIdx.y * NB;
   const int EF = E * F;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < EF;
-  const int e = live ? p / F : 0;
-  const int f = live ? p - e * F : 0;
-  const float* xin = xpad + static_cast<int64_t>(n) * C * Hp * Wp +
-                     static_cast<int64_t>(e) * stride * Wp +
-                     static_cast<int64_t>(f) * stride;
+  const int P = NIMG * EF;
+  const int Mp = GBM * BM;
+  const int64_t img = static_cast<int64_t>(C) * Hp * Wp;
 
-  float acc[BM];
-#pragma unroll
-  for (int ml = 0; ml < BM; ++ml) acc[ml] = 0.f;
-
-  const int nb = nblocks[i];
-  for (int kb = 0; kb < nb; ++kb) {
-    __syncthreads();  // the previous tile has been consumed
-    const float* tile = blocks + (static_cast<int64_t>(i) * KB + kb) * BM * BN;
-    for (int t = threadIdx.x; t < BM * BN; t += blockDim.x) s_w[t] = tile[t];
-    const int j0 = blockcol[static_cast<int64_t>(i) * KB + kb] * BN;
-    for (int jl = threadIdx.x; jl < BN; jl += blockDim.x) {
-      const int j = j0 + jl;
-      const int cj = j / RS;
-      const int rem = j - cj * RS;
-      const int r = rem / S;
-      const int s = rem - r * S;
-      s_off[jl] = (min(cj, C - 1) * Hp + r) * Wp + s;
-    }
-    __syncthreads();
-    if (live) {
-      for (int jl = 0; jl < BN; ++jl) {
-        const float xv = __ldg(xin + s_off[jl]);
-#pragma unroll
-        for (int ml = 0; ml < BM; ++ml) {
-          acc[ml] = fmaf(s_w[ml * BN + jl], xv, acc[ml]);
-        }
-      }
+  // -- the group's kept tiles, by (row, block column) --------------------
+  for (int t = tid; t < NB * KBC; t += NTH) table[t] = -1;
+  __syncthreads();
+  for (int t = tid; t < NB * KB; t += NTH) {
+    const int g = t / KB;
+    const int kb = t - g * KB;
+    const int i = i0 + g;
+    if (i < GBM && kb < nblocks[i]) {
+      const int j = blockcol[static_cast<int64_t>(i) * KB + kb];
+      table[g * KBC + j] = kb;
     }
   }
+  __syncthreads();
+  // the columns any row of the group keeps, in ascending order
+  if (tid < 32) {
+    int count = 0;
+    for (int base = 0; base < KBC; base += 32) {
+      const int j = base + lane;
+      bool any = false;
+      if (j < KBC)
+        for (int g = 0; g < NB; ++g) any |= table[g * KBC + j] >= 0;
+      const unsigned m = __ballot_sync(0xffffffffu, any);
+      if (any) live[count + __popc(m & ((1u << lane) - 1))] = j;
+      count += __popc(m);
+    }
+    if (lane == 0) nlive = count;
+  }
 
-  if (!live) return;
+  // column offsets (c*Hp + r)*Wp + s of live column t into slot t % 3
+  auto decode = [&](int t, int nl) {
+    if (t >= nl) return;
+    const int j0 = live[t] * BN;
+    int* dst = coloff + (t % 3) * BN;
+    for (int k = tid; k < BN; k += NTH) {
+      const int j = j0 + k;
+      const int c = j / RS;
+      const int rem = j - c * RS;
+      const int r = rem / S;
+      dst[k] = (min(c, C - 1) * Hp + r) * Wp + (rem - r * S);
+    }
+  };
+  // A lane's pieces of a tile half: piece q = lane + 32 u is row
+  // 8 (q / 8 % (BM / 8)) + q % 8 and 16-byte column q / BM, so that eight
+  // lanes fill one 128-byte core matrix; its offsets in the tile (global,
+  // floats) and in the operand (shared, bytes) are the same for every tile.
+  int src_off[PPL], dst_off[PPL];
 #pragma unroll
-  for (int ml = 0; ml < BM; ++ml) {
-    const int m = i * BM + ml;
-    const int64_t o = (static_cast<int64_t>(n) * Mp + m) * EF + p;
-    float v = acc[ml] + bias[m];
-    if (residual != nullptr) v += residual[o];
-    if (relu) v = fmaxf(v, 0.f);
-    out[o] = v;
+  for (int u = 0; u < PPL; ++u) {
+    const int q = lane + 32 * u;
+    const int m = 8 * (q / 8 % (BM / 8)) + q % 8;
+    const int k4 = q / BM;
+    src_off[u] = m * BN + 4 * k4;
+    dst_off[u] = k4 * (N * 16) + m * 16;
+  }
+  // the group's tiles at live column t into B stage t % 2, zero where a
+  // row keeps none: a warp a (row, half) at a time.  One cp.async group.
+  auto stage = [&](int t, int nl) {
+    if (t < nl) {
+      const int j = live[t];
+      const uint32_t sb = bbase + (t % BSTAGES) * 2 * TILE;
+      for (int job = gwarp; job < 2 * NB; job += NWARPS) {
+        const int g = job % NB;
+        const int half = job / NB;
+        const int kb = table[g * KBC + j];
+        const float* tile =
+            (half ? wlo : whi) +
+            (kb >= 0 ? (static_cast<int64_t>(i0 + g) * KB + kb) * BM * BN : 0);
+        const uint32_t dst = sb + half * TILE + g * BM * 16;
+#pragma unroll
+        for (int u = 0; u < PPL; ++u)
+          cp_async16(dst + dst_off[u], tile + src_off[u], kb >= 0 ? 16 : 0);
+      }
+    }
+    cp_commit();
+  };
+
+  __syncthreads();
+  const int nl = nlive;
+  decode(0, nl);
+  decode(1, nl);
+#pragma unroll
+  for (int t = 0; t < BSTAGES - 1; ++t) stage(t, nl);
+  __syncthreads();  // slots 0 and 1 of the column offsets
+
+  // this thread's two pixels (rows warp*16 + gid, + 8 of its warpgroup's
+  // 64): their windows' origins in xpad, pixel 0's past the end
+  const int p0 = blockIdx.x * (WGS * 64) + wg * 64 + warp * 16 + gid;
+  int64_t pbase[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + 8 * h < P ? p0 + 8 * h : 0;
+    const int n = p / EF;
+    const int ef = p - n * EF;
+    const int e = ef / F;
+    pbase[h] = n * img + static_cast<int64_t>(e) * stride * Wp +
+               (ef - e * F) * stride;
+  }
+
+  // The tensor cores add each product into their f32 accumulator with
+  // truncation, so an error grows with the number of wgmmas a sum takes
+  // and with its size.  Each group of GS steps therefore sums into a fresh
+  // partial (two, alternating), which is then added into acc with f32
+  // adds rounded to nearest, once the next group's first step has waited
+  // for it (the column's last group at the column's end).
+  float acc[ACC], part[2][ACC];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = part[0][e] = part[1][e] = 0.f;
+
+  // The A values of a whole column are gathered a column ahead: step ks
+  // of column c + 1 is loaded into xv[ks] as soon as step ks of column c
+  // has been split, so each load has a column's products to land.
+  // xv[ks]: (row gid, col tig), (gid + 8, tig), (gid, tig + 4),
+  // (gid + 8, tig + 4) of the step's 16 x 8, the TF32 A fragment's order.
+  float xv[KS][4];
+  auto gather = [&](int col, int ks) {
+    if (col >= nl) return;
+    const int* co = coloff + (col % 3) * BN + ks * 8 + tig;
+    const int c0 = co[0], c4 = co[4];
+    xv[ks][0] = __ldg(xpad + pbase[0] + c0);
+    xv[ks][1] = __ldg(xpad + pbase[1] + c0);
+    xv[ks][2] = __ldg(xpad + pbase[0] + c4);
+    xv[ks][3] = __ldg(xpad + pbase[1] + c4);
+  };
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) gather(0, ks);
+
+  uint32_t ahi[2][4], alo[2][4];
+  for (int col = 0; col < nl; ++col) {
+    // every product of the last column is done (below), its stage is
+    // free; this column's tiles have landed
+    cp_wait<BSTAGES - 2>();
+    fence_async_smem();
+    __syncthreads();
+    stage(col + BSTAGES - 1, nl);
+    decode(col + 2, nl);
+    const uint32_t sb0 = bbase + (col % BSTAGES) * 2 * TILE;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // split into the A fragments, gather the next column's step, issue
+      // the three products
+      uint32_t (&hi)[4] = ahi[ks % 2];
+      uint32_t (&lo)[4] = alo[ks % 2];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) split_tf32(xv[ks][v], hi[v], lo[v]);
+      gather(col + 1, ks);
+      const uint32_t sb = sb0 + ks * 2 * (N * 16);
+      const uint64_t dhi = smem_desc(sb, N * 16, 128);
+      const uint64_t dlo = smem_desc(sb + TILE, N * 16, 128);
+      float (&d)[ACC] = part[(ks / GS) % 2];
+      wg_fence();
+      wgmma_tf32(d, hi, dhi, ks % GS != 0);
+      wgmma_tf32(d, hi, dlo, 1);
+      wgmma_tf32(d, lo, dhi, 1);
+      wg_commit();
+      wg_wait<1>();  // the step before has read its fragments
+      if (ks % GS == 0 && ks > 0) {
+        // the group before is done: add its partial
+        float (&q)[ACC] = part[(ks / GS + 1) % 2];
+        fence_regs(q);
+#pragma unroll
+        for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
+      }
+    }
+    // the column's last group: wait for it and add it here, so that no
+    // partial is carried from one column to the next (a copy of an
+    // accumulator a wgmma is still writing would read it too soon)
+    wg_wait<0>();
+    float (&q)[ACC] = part[(KS / GS - 1) % 2];
+    fence_regs(q);
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
+  }
+  cp_wait_all();
+
+  // accumulator element e: pixel row warp*16 + gid + 8 (e / 2 % 2),
+  // channel 8 (e / 4) + 2 tig + e % 2 of the group
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + 8 * h;
+    if (p >= P) continue;
+    const int n = p / EF;
+    const int ef = p - n * EF;
+#pragma unroll
+    for (int n8 = 0; n8 < N / 8; ++n8)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int m = i0 * BM + n8 * 8 + tig * 2 + b;
+        if (m >= Mp) continue;
+        const int64_t o = (static_cast<int64_t>(n) * Mp + m) * EF + ef;
+        float v = acc[n8 * 4 + h * 2 + b] + bias[m];
+        if (residual != nullptr) v += residual[o];
+        if (relu) v = fmaxf(v, 0.f);
+        out[o] = v;
+      }
   }
 }
 
-template <int BM>
-int launch(const float* xpad, const float* blocks, const int* blockcol,
-           const int* nblocks, const float* bias, const float* residual,
-           float* out, int N, int C, int Hp, int Wp, int GBM, int KB, int BN,
-           int RS, int S, int E, int F, int stride, int tp, int relu,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(BM) * BN * 4 + BN * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bsr_conv_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((E * F + tp - 1) / tp, GBM, N);
-  bsr_conv_kernel<BM><<<grid, tp, smem, stream>>>(
-      xpad, blocks, blockcol, nblocks, bias, residual, out, C, Hp, Wp, KB, BN,
-      RS, S, E, F, stride, relu);
+template <int BM, int N, int WGS>
+int launch(const float* x, const float* whi, const float* wlo, const int* bc,
+           const int* nb, const float* b, const float* res, float* o,
+           int NIMG, int C, int Hp, int Wp, int GBM, int KB, int RS,
+           int S, int E, int F, int stride, int relu, cudaStream_t st) {
+  const int KBC = (C * RS + BN - 1) / BN;
+  const size_t smem = static_cast<size_t>(BSTAGES) * 2 * N * BN * 4 +
+                      4 * (3 * BN + (N / BM + 1) * KBC);
+  const cudaError_t err = cudaFuncSetAttribute(
+      bsr_conv_tc_kernel<BM, N, WGS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = NIMG * E * F;
+  const dim3 grid((P + WGS * 64 - 1) / (WGS * 64),
+                  (GBM + N / BM - 1) / (N / BM));
+  bsr_conv_tc_kernel<BM, N, WGS><<<grid, WGS * WG, smem, st>>>(
+      x, whi, wlo, bc, nb, b, res, o, NIMG, C, Hp, Wp, GBM, KB, RS, S, E,
+      F, stride, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int pick(int n_tile, int wgs, const float* x, const float* whi,
+         const float* wlo, const int* bc, const int* nb, const float* b,
+         const float* res, float* o, int NIMG, int C, int Hp, int Wp, int GBM,
+         int KB, int RS, int S, int E, int F, int stride, int relu,
+         cudaStream_t st) {
+#define BSR_CONV_LAUNCH(N, W)                                                \
+  if (n_tile == N && wgs == W)                                               \
+    return launch<BM, N, W>(x, whi, wlo, bc, nb, b, res, o, NIMG, C, Hp, Wp, \
+                            GBM, KB, RS, S, E, F, stride, relu, st);
+  BSR_CONV_LAUNCH(32, 1)
+  BSR_CONV_LAUNCH(32, 2)
+  BSR_CONV_LAUNCH(64, 1)
+  BSR_CONV_LAUNCH(64, 2)
+#undef BSR_CONV_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int bsr_conv_f32(const void* xpad, const void* blocks,
-                            const void* blockcol, const void* nblocks,
-                            const void* bias, const void* residual, void* out,
-                            int N, int C, int Hp, int Wp, int GBM, int KB,
-                            int BM, int BN, int RS, int S, int E, int F,
-                            int stride, int tp, int relu, void* stream) {
+extern "C" int bsr_conv_tc(const void* xpad, const void* whi, const void* wlo,
+                           const void* blockcol, const void* nblocks,
+                           const void* bias, const void* residual, void* out,
+                           int NIMG, int C, int Hp, int Wp, int GBM, int KB,
+                           int BM, int bn, int RS, int S, int E, int F,
+                           int stride, int n_tile, int wgs, int relu,
+                           void* stream) {
   const float* x = static_cast<const float*>(xpad);
-  const float* w = static_cast<const float*>(blocks);
+  const float* hi = static_cast<const float*>(whi);
+  const float* lo = static_cast<const float*>(wlo);
   const int* bc = static_cast<const int*>(blockcol);
   const int* nb = static_cast<const int*>(nblocks);
   const float* b = static_cast<const float*>(bias);
   const float* res = static_cast<const float*>(residual);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn != BN || NIMG <= 0 || GBM <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (BM) {
     case 8:
-      return launch<8>(x, w, bc, nb, b, res, o, N, C, Hp, Wp, GBM, KB, BN, RS,
-                       S, E, F, stride, tp, relu, st);
+      return pick<8>(n_tile, wgs, x, hi, lo, bc, nb, b, res, o, NIMG, C, Hp,
+                     Wp, GBM, KB, RS, S, E, F, stride, relu, st);
     case 16:
-      return launch<16>(x, w, bc, nb, b, res, o, N, C, Hp, Wp, GBM, KB, BN,
-                        RS, S, E, F, stride, tp, relu, st);
+      return pick<16>(n_tile, wgs, x, hi, lo, bc, nb, b, res, o, NIMG, C, Hp,
+                      Wp, GBM, KB, RS, S, E, F, stride, relu, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,7 +4,8 @@ Replaces ``bsr_conv_pallas`` (``repro/kernels/bsr_conv/kernel.py``).
 ``bsr_conv_kernel`` takes the kernel's operands; for CUDA tensors it
 launches the kernel on the current stream, for CPU tensors it runs the plain
 version (``ref.py``), and for anything else it raises.  A launch that CUDA
-refuses raises too.
+refuses raises too.  The kernel runs on the tensor cores with the f32
+operands split into TF32 halves (``split_weights``; the source says why).
 
 ``bsr_conv_kernel.launches`` counts the kernel's launches in this process.
 Only the CUDA branch adds to it, once per launch.
@@ -16,30 +17,50 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain
+from repro_torch.core.sparse_format import block_column_fault
+from repro_torch.kernels import _build, budget
+from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain, split_tf32
 
-_SYMBOL = "bsr_conv_f32"
-# Block heights the source instantiates (its template switch).
+_SYMBOL = "bsr_conv_tc"
+# Block heights and the width the source instantiates (its tiles, N output
+# channels by 64 pixels a warpgroup, are budget.BSR_CONV_TILES).
 BM_CHOICES = (8, 16)
+BN = 128
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_conv")
     fn = getattr(lib, _SYMBOL)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def split_weights(blocks: torch.Tensor):
+    """The tiles as two TF32 halves kept as f32, hi = tf32(w) and
+    lo = tf32(w - hi), the kernel's B operands.  A caller that launches one
+    bank many times splits it once (``CnnEngine`` caches the halves beside
+    the bank)."""
+    return split_tf32(blocks.float())
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     _build.check_operand("bsr_conv", name, t, dtype, shape, device)
 
 
-def _launch(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e, f,
-            stride, fuse_relu, tp) -> torch.Tensor:
+def _walkable(blockcol, nblocks, ncols):
+    """The kernel finds a group's tiles by (row, block column): a repeated
+    column would keep one tile of the two, a column out of range would write
+    past its table.  Any order within a row is fine."""
+    fault = block_column_fault(blockcol, nblocks, ncols, ascending=False)
+    if fault is not None:
+        raise ValueError(f"bsr_conv: {fault}")
+
+
+def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, *, rs,
+            s, e, f, stride, fuse_relu, n_tile, wgs) -> torch.Tensor:
     n, c, hp, wp = xpad.shape
     gbm, kb_dim, bm, bn = blocks.shape
     mpad = gbm * bm
@@ -51,23 +72,33 @@ def _launch(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e, f,
     _check(bias, "bias", torch.float32, (mpad,), dev)
     if residual is not None:
         _check(residual, "residual", torch.float32, (n, mpad, e, f), dev)
-    if bm not in BM_CHOICES:
-        raise ValueError(f"bsr_conv: block height {bm} not one of {BM_CHOICES}")
-    if c * hp * wp >= 2**31:
-        raise ValueError("bsr_conv: one image exceeds int32 offsets")
+    if bm not in BM_CHOICES or bn != BN:
+        raise ValueError(f"bsr_conv: block ({bm}, {bn}) not one the kernel "
+                         f"takes (height {BM_CHOICES}, width {BN})")
+    if (n_tile, wgs) not in budget.BSR_CONV_TILES:
+        raise ValueError(f"bsr_conv: tile ({n_tile}, {wgs}) not one of "
+                         f"{budget.BSR_CONV_TILES}")
+    if xpad.numel() >= 2**31 or n * mpad * e * f >= 2**31:
+        raise ValueError("bsr_conv: the input or output exceeds int32 offsets")
     if (e - 1) * stride + rs // s > hp or (f - 1) * stride + s > wp:
         raise ValueError("bsr_conv: output extent reads past the padded input")
+    ncols = -(-c * rs // bn)
+    _build.check_once("bsr_conv", (blockcol, nblocks),
+                      lambda: _walkable(blockcol, nblocks, ncols))
+    whi, wlo = split_weights(blocks) if halves is None else halves
+    for name, t in (("w_hi", whi), ("w_lo", wlo)):
+        _check(t, name, torch.float32, (gbm, kb_dim, bm, bn), dev)
     out = torch.empty((n, mpad, e, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = getattr(_lib(), _SYMBOL)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xpad.data_ptr(), blocks.data_ptr(), blockcol.data_ptr(),
-                 nblocks.data_ptr(), bias.data_ptr(),
+        err = fn(xpad.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+                 blockcol.data_ptr(), nblocks.data_ptr(), bias.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  out.data_ptr(), n, c, hp, wp, gbm, kb_dim, bm, bn, rs, s, e,
-                 f, stride, tp, int(fuse_relu), stream)
+                 f, stride, n_tile, wgs, int(fuse_relu), stream)
     _build.check(err, "bsr_conv")
     bsr_conv_kernel.launches += 1
     return out
@@ -78,18 +109,22 @@ def bsr_conv_kernel(xpad: torch.Tensor, blocks: torch.Tensor,
                     bias: torch.Tensor,
                     residual: Optional[torch.Tensor] = None, *, rs: int,
                     s: int, e: int, f: int, stride: int = 1,
-                    fuse_relu: bool = False, tp: int = 256) -> torch.Tensor:
+                    fuse_relu: bool = False, n_tile: int = 64, wgs: int = 1,
+                    halves=None) -> torch.Tensor:
     """The BCSR conv with its fused epilogue.
 
     xpad (N, C, Hp, Wp) f32; blocks (gbm, KB, bm, bn) f32; blockcol (gbm, KB)
-    int32; nblocks (gbm,) int32; bias (gbm*bm,) f32; residual optional
-    (N, gbm*bm, E, F) f32.  ``tp`` output pixels (threads) per block.
-    Returns (N, gbm*bm, E, F) f32; the caller slices off channel padding.
+    int32, distinct within a row up to its nblocks (checked once per bank);
+    nblocks (gbm,) int32; bias (gbm*bm,) f32; residual optional
+    (N, gbm*bm, E, F) f32.  ``n_tile`` output channels by ``wgs`` x 64
+    pixels make one block's tile (``ops.resolve_bsr_schedule``); ``halves``
+    is ``split_weights(blocks)`` where the caller keeps it.  Returns
+    (N, gbm*bm, E, F) f32; the caller slices off channel padding.
     """
     kw = dict(rs=rs, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu)
     if xpad.device.type == "cuda":
         return _launch(xpad, blocks, blockcol, nblocks, bias, residual,
-                       tp=tp, **kw)
+                       halves, n_tile=n_tile, wgs=wgs, **kw)
     if xpad.device.type == "cpu":
         return bsr_conv_plain(xpad, blocks, blockcol, nblocks, bias, residual,
                               **kw)

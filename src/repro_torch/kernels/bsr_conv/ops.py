@@ -3,8 +3,10 @@
 Port of ``repro/kernels/bsr_conv/ops.py``.  Handles pad_in, the card's
 schedule (``resolve_bsr_schedule``) and channel padding: the format blocks M
 up to gbm*bm, so bias and residual are padded in and the output is sliced
-back to M.  There is no fallback: a bank whose block the kernel does not
-take, or whose block would not fit shared memory, raises.
+back to M.  The kernel takes the tiles split into TF32 halves
+(``kernel.split_weights``), which a caller keeping the bank passes in.
+There is no fallback: a bank whose block the kernel does not take, or
+whose stages would not fit shared memory, raises.
 """
 from __future__ import annotations
 
@@ -16,36 +18,58 @@ import torch.nn.functional as F
 from repro_torch.core.direct_conv import out_spatial, pad_in
 from repro_torch.core.sparse_format import BcsrConv
 from repro_torch.kernels import budget
-from repro_torch.kernels.bsr_conv.kernel import BM_CHOICES, bsr_conv_kernel
-from repro_torch.kernels.sparse_conv.ops import default_tp
+from repro_torch.kernels.bsr_conv.kernel import BM_CHOICES, BN, bsr_conv_kernel
 
 
-def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *,
-                         tp: Optional[int] = None,
-                         ) -> Tuple[Optional[Tuple[int]], Optional[str]]:
+def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
+                         m: Optional[int] = None, crs: Optional[int] = None,
+                         n_tile: Optional[int] = None,
+                         wgs: Optional[int] = None,
+                         ) -> Tuple[Optional[Tuple[int, int]], Optional[str]]:
     """The block schedule ``bsr_conv`` launches, as a pure function:
-    ``((tp,), None)``, or ``(None, reason)`` when the block height is not
-    one the kernel instantiates, ``tp`` is not a whole number of warps
-    within the launch bound, or the weight tile busts shared memory."""
+    ``((n_tile, wgs), None)``, a tile of ``n_tile`` output channels by
+    ``wgs`` x 64 pixels, or ``(None, reason)`` when the block is not one the
+    kernel takes or its stages bust shared memory.
+
+    The geometry: ``n`` images, ``m`` output channels (default one group),
+    ``crs`` = C*R*S flattened columns (default one block column).  Without
+    pins, the tile is the first of ``budget.BSR_CONV_TILES`` whose blocks
+    number ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be
+    one the source instantiates.
+    """
     if bm not in BM_CHOICES:
         return None, "unsupported_block"
-    tp = default_tp(e, f) if tp is None else tp
-    if not budget.threads_fit(tp):
-        return None, "unsupported_tp"
-    if not budget.smem_fits(budget.bsr_smem_bytes(bm, bn)):
+    tiles = [(t, w) for t, w in budget.BSR_CONV_TILES
+             if (n_tile is None or t == n_tile) and (wgs is None or w == wgs)]
+    if not tiles:
+        return None, "unsupported_tile"
+    kbc = -(-(bn if crs is None else crs) // bn)
+    m = tiles[0][0] if m is None else m
+    pick = tiles[-1]
+    for t, w in tiles:
+        blocks = -(-n * e * f // (64 * w)) * -(-m // t)
+        if blocks >= budget.BSR_CONV_MIN_BLOCKS:
+            pick = (t, w)
+            break
+    if not budget.smem_fits(budget.bsr_conv_smem_bytes(bm, bn, pick[0], kbc)):
         return None, "smem_infeasible"
-    return (tp,), None
+    if bn != BN:
+        return None, "unsupported_block"
+    return pick, None
 
 
 def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
-             padding: int = 0, tp: Optional[int] = None,
+             padding: int = 0, n_tile: Optional[int] = None,
+             wgs: Optional[int] = None,
              bias: Optional[torch.Tensor] = None, fuse_relu: bool = False,
              residual: Optional[torch.Tensor] = None,
-             layer: Optional[str] = None) -> torch.Tensor:
+             layer: Optional[str] = None, halves=None) -> torch.Tensor:
     """Block-sparse convolution + fused epilogue through the BCSR kernel.
 
     (N, C, H, W) f32 input, BCSR bank for (M, C, R, S) weights ->
-    (N, M, E, F) f32.  ``layer`` names the conv in errors.
+    (N, M, E, F) f32.  ``layer`` names the conv in errors; ``halves`` is
+    ``kernel.split_weights(bc.blocks)`` for a caller that splits the bank
+    once (split here when not given).
     """
     m, c, r, s = bc.shape
     gbm, _, bm, bn = bc.blocks.shape
@@ -53,21 +77,27 @@ def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
     if cx != c:
         raise ValueError(f"input has C={cx} but filters expect C={c}")
     e, f = out_spatial(h, w, r, s, stride, padding)
-    sched, reason = resolve_bsr_schedule(bm, bn, e, f, tp=tp)
+    sched, reason = resolve_bsr_schedule(bm, bn, e, f, n=n, m=gbm * bm,
+                                         crs=c * r * s, n_tile=n_tile,
+                                         wgs=wgs)
     if sched is None:
         raise ValueError(
             f"bsr_conv{'' if layer is None else ' ' + layer}: no kernel "
-            f"schedule ({reason}) for block=({bm}, {bn}) e={e} f={f} tp={tp}")
-    (tp,) = sched
+            f"schedule ({reason}) for block=({bm}, {bn}) e={e} f={f}")
+    n_tile, wgs = sched
     mpad = gbm * bm
-    b = torch.zeros((mpad,), dtype=torch.float32, device=x.device)
-    if bias is not None:
-        b[:m] = bias.float()
+    if bias is not None and mpad == m:
+        b = bias.float().contiguous()
+    else:
+        b = torch.zeros((mpad,), dtype=torch.float32, device=x.device)
+        if bias is not None:
+            b[:m] = bias.float()
     res = residual
     if res is not None and mpad != m:
         res = F.pad(res, (0, 0, 0, 0, 0, mpad - m))
     out = bsr_conv_kernel(
         pad_in(x, padding), bc.blocks, bc.blockcol, bc.nblocks, b,
         None if res is None else res.contiguous(), rs=r * s, s=s, e=e, f=f,
-        stride=stride, fuse_relu=fuse_relu, tp=tp)
+        stride=stride, fuse_relu=fuse_relu, n_tile=n_tile, wgs=wgs,
+        halves=halves)
     return out if mpad == m else out[:, :m]

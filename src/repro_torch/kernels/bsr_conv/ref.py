@@ -9,6 +9,10 @@ residual and ReLU.  It is vectorised over block-rows and loops only over the
 KB axis.  The contraction's summation order is the library's, not the
 kernel's, so the two agree to f32 rounding, not bit for bit.
 
+``bsr_conv_split_plain`` mirrors the kernel's split arithmetic (TF32 hi and
+lo halves of both operands, three products); with ``lo=False`` it is the
+one-product control the precision checks must reject.
+
 ``bsr_conv_blocked_ref`` is the port of the reference's
 ``bsr_conv_blocked_ref`` (``repro/kernels/bsr_conv/ref.py:54``): the same
 math from an unpadded input and a ``BcsrConv``, in natural channel order.
@@ -25,15 +29,10 @@ from repro_torch.core.direct_conv import (gather_windows, out_spatial,
 from repro_torch.core.sparse_format import BcsrConv
 
 
-def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
-                   blockcol: torch.Tensor, nblocks: torch.Tensor,
-                   bias: torch.Tensor,
-                   residual: Optional[torch.Tensor] = None, *, rs: int,
-                   s: int, e: int, f: int, stride: int = 1,
-                   fuse_relu: bool = False) -> torch.Tensor:
-    """(N, C, Hp, Wp) padded input, (gbm, KB, bm, bn) tiles -> (N, gbm*bm,
-    E, F) f32 with the fused epilogue; ``bias`` is (gbm*bm,), ``residual``
-    (N, gbm*bm, E, F)."""
+def _blocked(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e,
+             f, stride, fuse_relu, contract) -> torch.Tensor:
+    """For every kept tile, the (bn, E*F) im2col patch of its columns and
+    ``contract(tile, patch)``, summed tile by tile, then the epilogue."""
     n, c, hp, wp = xpad.shape
     gbm, _, bm, bn = blocks.shape
     xpad = xpad.float()
@@ -49,15 +48,72 @@ def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
         ss = j - cj * rs - rr * s
         off = stretched_offsets(cj.clamp(max=c - 1), rr, ss, hp, wp)
         patch = gather_windows(xpad, off, pix)                # (N, gbm, bn, EF)
-        live = (nblocks > kb).float().view(gbm, 1, 1)
-        tile = blocks[:, kb].float() * live                   # (gbm, bm, bn)
-        acc += torch.einsum("gmb,ngbp->ngmp", tile, patch)
+        live = (nblocks > kb).view(gbm, 1, 1)
+        tile = torch.where(live, blocks[:, kb].float(), 0.0)  # (gbm, bm, bn)
+        acc += contract(tile, patch)
     out = acc.reshape(n, gbm * bm, e, f) + bias.float().view(1, -1, 1, 1)
     if residual is not None:
         out = out + residual.float()
     if fuse_relu:
         out = torch.relu(out)
     return out
+
+
+def _product(tile: torch.Tensor, patch: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("gmb,ngbp->ngmp", tile, patch)
+
+
+def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
+                   blockcol: torch.Tensor, nblocks: torch.Tensor,
+                   bias: torch.Tensor,
+                   residual: Optional[torch.Tensor] = None, *, rs: int,
+                   s: int, e: int, f: int, stride: int = 1,
+                   fuse_relu: bool = False) -> torch.Tensor:
+    """(N, C, Hp, Wp) padded input, (gbm, KB, bm, bn) tiles -> (N, gbm*bm,
+    E, F) f32 with the fused epilogue; ``bias`` is (gbm*bm,), ``residual``
+    (N, gbm*bm, E, F)."""
+    return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
+                    s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
+                    contract=_product)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits, ties away from zero,
+    as the kernel's cvt.rna.tf32.f32), kept as f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """f32 ``x`` -> (hi, lo) as f32 values: hi = tf32(x), lo = tf32(x - hi),
+    so hi + lo keeps about 21 bits of x's mantissa."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def bsr_conv_split_plain(xpad: torch.Tensor, blocks: torch.Tensor,
+                         blockcol: torch.Tensor, nblocks: torch.Tensor,
+                         bias: torch.Tensor,
+                         residual: Optional[torch.Tensor] = None, *,
+                         rs: int, s: int, e: int, f: int, stride: int = 1,
+                         fuse_relu: bool = False,
+                         lo: bool = True) -> torch.Tensor:
+    """The CUDA kernel's arithmetic on the CPU: each tile and patch split
+    into TF32 halves, and three products x_hi w_hi + x_hi w_lo + x_lo w_hi
+    (each exact in f32: a product of two TF32 values fits its mantissa),
+    summed in f32.  ``lo=False`` is the control a check must reject: one
+    product of the operands rounded once to TF32."""
+    def contract(tile, patch):
+        w_hi, w_lo = split_tf32(tile)
+        x_hi, x_lo = split_tf32(patch)
+        out = _product(w_hi, x_hi)
+        if lo:
+            out = out + _product(w_lo, x_hi) + _product(w_hi, x_lo)
+        return out
+
+    return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
+                    s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
+                    contract=contract)
 
 
 def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,

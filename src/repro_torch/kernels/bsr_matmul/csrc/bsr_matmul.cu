@@ -42,10 +42,13 @@
 //     (XSTAGES = 3 stages, two chunks ahead of the wgmmas), and every kept
 //     tile of the group whose block column falls in the chunk (TSTAGES = 2
 //     stages of a slot per block-row and 16-column block, one chunk
-//     ahead).  blockcol ascends within a row up to nblocks[i]
+//     ahead).  blockcol ascends strictly within a row up to nblocks[i]
 //     (bcsr_from_dense keeps the kept tiles in row-major order), so one
 //     pointer a block-row walks its tiles in step with the chunks, and
-//     padding tiles are never reached.  Each kept (16, 16) sub-tile is two
+//     padding tiles are never reached.  A bank out of order would lose
+//     tiles silently (the walk stops short), a repeated column would
+//     overwrite its twin's slot: the launcher (kernel.py) refuses both,
+//     checked once per bank.  Each kept (16, 16) sub-tile is two
 //     wgmma m64n16k16, one per 64-row half (x and the tile K-major in shared
 //     memory, in 8 x 8 core matrices without a swizzle; the x sub-tile of
 //     16-column block jj sits 2048 jj bytes into the chunk) into its

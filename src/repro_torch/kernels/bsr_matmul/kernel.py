@@ -12,6 +12,11 @@ x staged once per group of 16 block-rows).  ``schedule()`` picks one from
 the row count and the dtype.  The kernel writes y in ``out_dtype`` (f32 or
 bf16) from its f32 sums, one rounding.
 
+The ``wgmma`` schedule needs each block-row's kept block columns strictly
+ascending (what ``bcsr_from_dense`` builds); its launcher checks that on
+the card once per bank (``_build.check_once``: one read-back per weight,
+none per call) and raises otherwise.
+
 ``bsr_matmul_kernel.launches`` counts the kernel's launches in this process
 (both schedules), ``bsr_matmul_kernel.wgmma_launches`` those of the
 ``wgmma`` schedule.  Only the CUDA branch adds to them, once per launch.
@@ -22,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.sparse_format import block_column_fault
 from repro_torch.kernels import _build, budget
 from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
 
@@ -54,6 +60,17 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
         raise ValueError(f"bsr_matmul: {name} is not 16-byte aligned")
 
 
+def _walkable(blockcol, nblocks, ncols):
+    """The ``wgmma`` schedule walks each block-row's tiles with one pointer
+    in step with x's column chunks: a tile out of order would be skipped and
+    a repeated column would land in the slot of its twin, both without an
+    error.  So it refuses such a bank (``rows`` sums any order)."""
+    fault = block_column_fault(blockcol, nblocks, ncols, ascending=True)
+    if fault is not None:
+        raise ValueError(f"bsr_matmul: the wgmma schedule cannot walk this "
+                         f"bank: {fault}")
+
+
 def _launch(x, blocks, blockcol, nblocks, out_dtype) -> torch.Tensor:
     b, n = x.shape
     gm, kb_dim, bm, bn = blocks.shape
@@ -72,6 +89,9 @@ def _launch(x, blocks, blockcol, nblocks, out_dtype) -> torch.Tensor:
         raise ValueError(f"bsr_matmul: {reason}")
     if b * max(n, gm * bm) >= 2**31:
         raise ValueError("bsr_matmul: x or y exceeds int32 row offsets")
+    if sched == "wgmma":
+        _build.check_once("bsr_matmul_wgmma", (blockcol, nblocks),
+                          lambda: _walkable(blockcol, nblocks, n // bn))
     out = torch.empty((b, gm * bm), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -95,8 +115,9 @@ def bsr_matmul_kernel(x: torch.Tensor, blocks: torch.Tensor,
     """y = x @ W.T for BCSR W, f32 accumulate.
 
     x (B, N) f32 or bf16 with N % bn == 0; blocks (gm, KB, bm, bn) of x's
-    dtype; blockcol (gm, KB) int32, ascending within a row up to its
-    nblocks; nblocks (gm,) int32.  Returns (B, gm*bm) in ``out_dtype``
+    dtype; blockcol (gm, KB) int32, strictly ascending within a row up to
+    its nblocks for the ``wgmma`` schedule (checked once per bank);
+    nblocks (gm,) int32.  Returns (B, gm*bm) in ``out_dtype``
     (f32 or bf16): the f32 sums rounded once.
     """
     if x.device.type == "cuda":

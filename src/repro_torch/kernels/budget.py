@@ -3,18 +3,20 @@
 Port of ``repro/kernels/budget.py``.  The TPU budgets (``VMEM_BUDGET`` for
 the staged blocks, ``SMEM_BUDGET`` for the scalar-prefetched indices) have
 no counterpart here: the CUDA kernels read their indices and inputs from
-device memory and stage only a slab of nonzeros (ELL conv), one weight tile
-(BCSR conv), or a query chunk and a kv chunk (flash attention) in shared
-memory (the flash backward kernels a query chunk with its dO rows and a kv
-chunk); the BCSR matmul's ``rows`` schedule stages nothing but its 4 warps'
-partial sums, its ``wgmma`` schedule a ring of x chunks and the kept tiles
-that fall in them.  What
-bounds a schedule on an H100 is a block's shared memory and its thread
-count (NVIDIA H100 data sheet and the CUDA programming guide, compute
+device memory and stage a chunk at a time in shared memory: the ELL conv an
+input slab of a channel chunk and each row's window of nonzeros, the BCSR
+conv the group's tiles at one block column (both halves of their split),
+flash attention a query chunk and a kv chunk (the backward kernels a query
+chunk with its dO rows and a kv chunk); the BCSR matmul's ``rows`` schedule
+stages nothing but its 4 warps' partial sums, its ``wgmma`` schedule a ring
+of x chunks and the kept tiles that fall in them.  What bounds a schedule
+on an H100 is a block's shared memory, and how many blocks fill the card's
+132 SMs (NVIDIA H100 data sheet and the CUDA programming guide, compute
 capability 9.0).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 # Shared memory one block may use after the opt-in
@@ -23,10 +25,39 @@ SMEM_MAX = 232_448
 # Without the opt-in a block gets at most 48 KB of dynamic shared memory.
 SMEM_DEFAULT = 48 * 1024
 WARP = 32
-# Both conv kernels are compiled with __launch_bounds__(256): one thread per
-# output pixel, at most 256 pixels a block, so that up to 16 f32 sums (the
-# tallest BCSR block) stay in registers.
-MAX_THREADS_PER_BLOCK = 256
+# Streaming multiprocessors of an H100 SXM: the conv schedules pick tiles
+# small enough to give each at least one block.
+SMS = 132
+
+# ELL conv (csrc/sparse_conv.cu): 256 threads a block, TM output channels
+# (TM/8 a warp) by 32*PX pixels (PX a lane); the (TM, PX) pairs the source
+# instantiates, widest pixel tiles first.  The slab stages of a block (one
+# when blocking, two when pipelined: the input slab of a channel chunk
+# each) take about ELL_SLAB_BYTES together, so that four blocks share an
+# SM either way: the ELL ablation found the blocks an SM worth more than a
+# deeper copy (PERF.md, Findings).
+ELL_TILES = ((32, 4), (16, 4), (8, 8), (8, 4), (32, 2), (16, 2), (8, 2),
+             (32, 1), (16, 1), (8, 1))
+ELL_SLAB_BYTES = 48 * 1024
+# The schedule takes the first of ELL_TILES whose blocks number at least
+# this (about 1.5 an SM); the order and the count are the ELL ablation's
+# (PERF.md, Findings: the fastest tile at each of the five main-path
+# layers).
+ELL_MIN_BLOCKS = 3 * SMS // 2
+# The unstaged 1x1 kernel's order: its rows share their inputs through L1,
+# where narrow channel tiles did best (ResNet-50's res4b/1x1b: (8, 4) 0.057
+# ms against (32, 4) 0.072 on an H100 SXM).
+ELL_1X1_TILES = ((8, 4), (8, 8), (16, 4), (8, 2), (16, 2), (32, 4), (32, 2),
+                 (8, 1), (16, 1), (32, 1))
+# BCSR conv (csrc/bsr_conv.cu): a warpgroup of 128 threads a 64-pixel tile,
+# 1 or 2 a block, over N output channels (a group of N/bm block-rows); the
+# (N, warpgroups) pairs it instantiates.  The TF32 operands
+# of N = 64 fill 128 KB of shared memory; N = 128 would not fit.
+BSR_CONV_TILES = ((64, 2), (32, 2), (64, 1), (32, 1))
+# ... the first of them whose blocks number at least this (half the SMs:
+# a block of two warpgroups holds an SM's tensor cores busier than two
+# blocks of one); again the ablation's order (PERF.md, Findings).
+BSR_CONV_MIN_BLOCKS = SMS // 2
 
 # BCSR matmul (csrc/bsr_matmul.cu): the block height it instantiates (the
 # (16, 16) tiles ``sparsify_params`` builds), and the largest row count the
@@ -71,17 +102,48 @@ FLASH_TC_DQ_WARPGROUPS = 2
 FLASH_TC_DQ_STAGES = 2
 
 
-def ell_smem_bytes(tm: int, ks: int) -> int:
-    """Shared memory of one ELL block: a slab of ``ks`` nonzeros for each of
-    its ``tm`` rows, one int32 stretched offset and one f32 value each, plus
-    the rows' int32 nnz."""
-    return tm * ks * 8 + tm * 4
+@functools.lru_cache(maxsize=1024)
+def ell_slab_rows(n: int, e: int, f: int, hs: int, st: int, rt: int,
+                  tp: int) -> int:
+    """Padded input rows the ELL conv's largest pixel tile reads: a tile is
+    ``tp`` consecutive pixels of the flat (n, e, f) order (``f`` the
+    kernel's pixels a row: the slab's width at stride 1), and reads the
+    rows of its first window through its last, across images (``hs`` rows
+    an image in the slab's coordinates, ``st`` rows an output row, ``rt``
+    filter rows)."""
+    ef = e * f
+    total = n * ef
+    best = 0
+    for q0 in range(0, total, tp):
+        q1 = min(q0 + tp, total) - 1
+        ga = (q0 // ef) * hs + (q0 % ef) // f * st
+        gb = (q1 // ef) * hs + (q1 % ef) // f * st + rt - 1
+        best = max(best, gb - ga + 1)
+    return best
 
 
-def bsr_smem_bytes(bm: int, bn: int) -> int:
-    """Shared memory of one BCSR conv block: the (bm, bn) f32 weight tile
-    plus the bn int32 input offsets of its decoded columns."""
-    return bm * bn * 4 + bn * 4
+def ell_stage_bytes(cc: int, rows: int, ws: int, s: int) -> int:
+    """One stage of the ELL conv: the f32 input slab of ``cc`` channels x
+    ``rows`` x ``ws`` and ``s`` words of slack (a dropped pixel's reads),
+    padded to 16 bytes."""
+    return -(-(cc * rows * ws + s) // 4) * 16
+
+
+def ell_smem_bytes(tm: int, cc: int, c: int, rows: int, ws: int, s: int,
+                   pipeline: bool) -> int:
+    """Dynamic shared memory of one ELL block: two slab stages when
+    pipelined, one when blocking, the int32 source offset of each slab row,
+    and the ``tm`` rows' run bounds for each of the C/``cc`` chunks."""
+    return ((2 if pipeline else 1) * ell_stage_bytes(cc, rows, ws, s)
+            + cc * rows * 4 + tm * (-(-c // cc) + 1) * 4)
+
+
+def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int) -> int:
+    """Dynamic shared memory of one BCSR conv block: two stages of the TF32
+    hi and lo B operands (``n_tile`` x ``bn``), three slots of ``bn`` int32
+    column offsets, the (n_tile/bm x ``kbc``) table of kept tiles and the
+    ``kbc`` live block columns."""
+    return 2 * 2 * n_tile * bn * 4 + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 
 def bsr_matmul_smem_bytes(bm: int) -> int:
@@ -170,7 +232,3 @@ def flash_bwd_dkv_tc_smem_bytes(d: int) -> int:
 
 def smem_fits(nbytes: int) -> bool:
     return nbytes <= SMEM_MAX
-
-
-def threads_fit(threads: int) -> bool:
-    return 0 < threads <= MAX_THREADS_PER_BLOCK and threads % WARP == 0

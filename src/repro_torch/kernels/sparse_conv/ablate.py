@@ -1,0 +1,143 @@
+"""Where the ELL conv kernel spends its time, on the card.
+
+Builds variants of ``csrc/sparse_conv.cu`` with one part cut out and times
+them against the kernel as built at the five main-path layers
+(``kernels/conv_ablate.py`` says how)::
+
+    PYTHONPATH=src python -m repro_torch.kernels.sparse_conv.ablate \\
+        [--layers res4b/3x3 conv2] [--reps 10] [--variants no_sums] \\
+        [--tiles] [--slab-kb 48 96]
+
+Variants (the default schedule of each layer):
+
+* ``no_slab``: the input slab not copied;
+* ``no_sums``: no nonzero walked (copies and epilogue run);
+* ``no_pairs``: the runs walked and summed, but no pair loaded (every
+  entry a constant);
+* ``no_inputs``: the nonzeros walked and multiplied into the sums, but no
+  input read from the slab (a constant instead);
+* ``no_epilogue``: the sums stored without bias, residual and ReLU;
+* ``two_blocks``: a launch bound of two blocks an SM, so ptxas may take
+  up to 128 registers a thread (as built, the widest tiles spill a few
+  bytes at 64).
+
+``--tiles`` times, with the kernel as built, every (tm, tp) tile the source
+instantiates, pipelined and blocking, at each ``--slab-kb`` size of a
+block's slab stages, and checks each bit for bit against the plain
+version.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.kernels import _build, budget, conv_ablate
+from repro_torch.kernels.sparse_conv import ops
+from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
+from repro_torch.kernels.sparse_conv.ref import sparse_conv_plain
+
+KERNEL = "sparse_conv"
+
+
+def variants(src: str) -> dict:
+    """Variant name -> source text."""
+    cut = conv_ablate.cut
+    return {
+        "no_slab": cut(src, "        cp_async4(sb + 4 * t, src >= 0",
+                       "        if (0) cp_async4(sb + 4 * t, src >= 0"),
+        "no_sums": cut(src, "      int i = bounds[ml * (nchunks + 1) + k];",
+                       "      int i = end;"),
+        "no_pairs": cut(
+            src, "      int2 win = first[rr];",
+            "      int2 win = make_int2(4 * lane, 0);").replace(
+                "        const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)\n"
+                "                                             : make_int2(0, 0);",
+                "        const int2 nxt = win;"),
+        "no_inputs": cut(
+            src, "__fmul_rn(v, *reinterpret_cast<const float*>(xs + pix[j]))",
+            "__fmul_rn(v, 1.5f)"),
+        "two_blocks": cut(src, "__global__ void __launch_bounds__(NTH) sparse_conv_kernel(",
+                          "__global__ void __launch_bounds__(NTH, 2) sparse_conv_kernel("),
+        "no_epilogue": cut(
+            src, "      float v = __fadd_rn(acc[rr][j], bias[m]);\n"
+                 "      if (residual != nullptr) v = __fadd_rn(v, residual[o]);\n"
+                 "      if (relu) v = fmaxf(v, 0.f);",
+            "      float v = acc[rr][j];"),
+    }
+
+
+def layer_call(layer: conv_ablate.Layer, seed: int, device, **pins):
+    """(kernel call, plain result, schedule) of one layer."""
+    from repro_torch.core.direct_conv import pad_in
+    from repro_torch.core.sparse_format import ell_from_dense_conv
+
+    o = conv_ablate.operands(layer, seed, device)
+    ell = ell_from_dense_conv(o["w"], device=device)
+    hp = layer.h + 2 * layer.pad
+    sched, reason = ops.resolve_schedule(
+        layer.m, ell.k, layer.e, layer.e, n=conv_ablate.BATCH, c=layer.c,
+        r=layer.r, s=layer.r, stride=layer.stride, hp=hp, wp=hp, **pins)
+    if sched is None:
+        return None, None, reason
+    args = (pad_in(o["x"], layer.pad), ell.value, ops.pack_indices(ell),
+            ell.nnz, o["bias"], o["res"])
+    kw = dict(rs=layer.r ** 2, s=layer.r, e=layer.e, f=layer.e,
+              stride=layer.stride, fuse_relu=True)
+    return ((lambda: sparse_conv_kernel(*args, schedule=sched, **kw)),
+            sparse_conv_plain(*args, **kw), sched)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    names = [layer.name for layer in conv_ablate.LAYERS]
+    ap.add_argument("--layers", nargs="+", choices=names, default=names)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="variant names (default: all)")
+    ap.add_argument("--tiles", action="store_true",
+                    help="also time every tile the source instantiates")
+    ap.add_argument("--slab-kb", type=int, nargs="+",
+                    default=[budget.ELL_SLAB_BYTES // 1024])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate: needs a CUDA card")
+    dev = torch.device("cuda")
+    chosen = variants(_build.SOURCES[KERNEL].read_text())
+    if args.variants is not None:
+        chosen = {k: chosen[k] for k in args.variants}
+    libs = {"as_built": _build.load(KERNEL)}
+    libs.update(conv_ablate.build(KERNEL, chosen))
+    layers = [lay for lay in conv_ablate.LAYERS if lay.name in args.layers]
+    calls, want = {}, {}
+    for i, layer in enumerate(layers):
+        calls[layer.name], want[layer.name], _ = layer_call(
+            layer, args.seed + i, dev)
+    conv_ablate.in_turns(KERNEL, libs, calls, want, args.reps)
+    if args.tiles:
+        default_slab = budget.ELL_SLAB_BYTES
+        for kb in args.slab_kb:
+            budget.ELL_SLAB_BYTES = kb * 1024
+            for i, layer in enumerate(layers):
+                for tm, px in budget.ELL_TILES:
+                    for pipe in (True, False):
+                        fn, plain, sched = layer_call(
+                            layer, args.seed + i, dev, tm=tm, tp=32 * px,
+                            pipeline=pipe)
+                        tile = [tm, 32 * px, pipe, kb]
+                        if fn is None:
+                            conv_ablate.tile_line(KERNEL, tile, layer.name,
+                                                  reason=sched)
+                            continue
+                        conv_ablate.tile_line(
+                            KERNEL, tile + [sched.cc, sched.rows],
+                            layer.name, ms=conv_ablate.event_ms(fn, args.reps),
+                            max_abs_err=float((fn() - plain).abs().max()))
+        budget.ELL_SLAB_BYTES = default_slab
+    print(conv_ablate.card())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,175 +7,434 @@
 //   out[n,m,e,f] = relu?( sum_{k < nnz[m]} value[m,k] * xpad[n, c, e*st + r, f*st + s]
 //                         + bias[m] + residual?[n,m,e,f] )
 //
-// with (c, r, s) decoded from packed[m,k] = c*RS + r*S + s.
+// with (c, r, s) the k-th nonzero of row m, in the bank's (c, r, s) order.
 //
-// Mapping: the paper's own GPU mapping (Section 3.2).
-//   * One block per (image n, TM output channels, TP output pixels).
-//   * The block stages its rows' nonzeros in shared memory ("CSR in shared
-//     memory"), slab by slab of KS entries, so any K fits (K reaches 1504 on
-//     ResNet-50 res5 3x3).  While staging it decodes each packed index into the
-//     stretched offset (c*Hp + r)*Wp + s of the padded image: the paper's weight
-//     stretching, done once per nonzero per block instead of per thread.
-//   * One thread per output pixel, flat over (e, f): neighbouring threads take
-//     neighbouring f, so the input reads of a warp coalesce (the paper's warp
-//     over w).
-//   * Each row's loop stops at nnz[m]; padding entries are never read.
-//   * The sums stay in registers; bias, residual and ReLU are applied to them
-//     and the output is written once.
+// Mapping (the paper's GPU mapping, Section 3.2, with the input staged):
+//   * A block owns TM output channels and a tile of P = 32*PX output pixels,
+//     flat over (n, e, f), so a tile may span images (ResNet-50's res5 has 49
+//     pixels an image).  At stride 1, f runs over the padded row's Ws
+//     columns, the last Ws - F computed and dropped, so that neighbouring
+//     lanes read neighbouring slab words (no bank conflicts where a warp's
+//     pixels cross a row).  Its 8 warps take TM/8 rows each; lane l of a warp
+//     keeps pixels l, l + 32, ... of the tile, PX of them, in registers, with
+//     one f32 sum for each of its rows: a strip of PX pixels x TM/8 rows.
+//   * The block walks the input channels in chunks of CC.  For each chunk it
+//     stages in shared memory, with cp.async, the input slab its pixels read:
+//     the CC channels' padded rows from the tile's first window to its last
+//     (whole padded rows, across images where the tile spans them), each
+//     channel ROWS rows apart.  A strided 1x1 conv stages only the pixels it
+//     reads (every stride-th row and column), and runs at stride 1 on them.
+//   * The nonzeros come stretched (the paper's weight stretching, done once
+//     per bank and schedule by the launcher, kernel.py): each is an
+//     (offset, value) pair whose offset is the byte offset of its window's
+//     origin in any tile's slab, (c % CC)*ROWS*Ws + r*Ws + s, and each row's
+//     entries of chunk k are the contiguous run rowptr[m][k] ..
+//     rowptr[m][k + 1] (ELL rows keep their nonzeros in (c, r, s) order).
+//     A warp walks its row's run with one pointer; padding entries are never
+//     read.  The pairs come from L2 32 at a time, one coalesced load a
+//     window into the lanes' registers (the next window's load under this
+//     one's sums, a row's first window of a chunk under the chunk before),
+//     and each pair is broadcast to the warp by a shuffle.
+//   * The sums: each pair feeds the lane's PX pixels, whose inputs come from
+//     the slab in shared memory at the pair's offset + the pixel's base.
+//   * pipeline = 1 double-buffers the slab: chunk k + 1 is copied while
+//     chunk k is summed (the reference's pipeline=True halo schedule).
+//     pipeline = 0 is the blocking schedule: copy, wait, sum.  Both give the
+//     same bits.
+//   * bias, residual and ReLU are applied to the sums, and the output is
+//     written once (neighbouring lanes, neighbouring pixels).
+//   * A 1x1 conv has no halo, so a slab would serve only the block's rows:
+//     its kernel (sparse_conv_1x1_kernel) stages nothing and reads each
+//     input straight from L1, the whole row one run.
 //
-// Bound on an H100 SXM: the work is 2*nnz*N*E*F f32 operations over
-// xpad + values + indices + out bytes; at the main path's shapes the
-// operations bound (67 TFLOP/s without tensor cores) is the larger.  This
-// kernel does not reach it: every multiply-add needs its own 4-byte load of
-// the input (from L1/L2), so it is bound by load issue.  The design keeps
-// those loads coalesced and cached and takes the index decode out of the
-// inner loop; register tiling over pixels and reuse of a staged input slab
-// are later work.
-//
-// The multiply and the add are rounded separately (__fmul_rn, __fadd_rn), in
-// nonzero order, so each sum is formed exactly as the plain PyTorch version
-// (ref.py) forms it.  That costs two FP instructions per nonzero where one
-// fmaf would do, so the kernel could reach at most half the FMA peak its
-// bound assumes; it sits far further than 2x above that bound, held back by
-// the loads (PERF.md, Open questions).
+// Each sum is formed nonzero by nonzero in bank order, the multiply and the
+// add rounded separately (__fmul_rn, __fadd_rn), exactly as the plain
+// PyTorch version (ref.py) forms it: the kernel is bit-identical to it, in
+// either schedule and for an nnz-balanced bank.  That costs two FP
+// instructions a nonzero and pixel where one fmaf would do, which caps the
+// kernel at half of its FMA-priced bound (67 TFLOP/s on an H100 SXM, the
+// bound chip_smoke.py reports); fmaf would break the bit identity.  A
+// second cap: every multiply-add reads one 4-byte input from shared memory
+// (32 a clock an SM), a quarter of the FMA rate; the unstructured sparsity
+// leaves no operand to reuse from registers.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
-// residual may be null; returns cudaGetLastError() after the launch.
+// residual may be null; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a tile no instantiation takes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int TM>
-__global__ void __launch_bounds__(256) sparse_conv_kernel(
-    const float* __restrict__ xpad, const float* __restrict__ value,
-    const int* __restrict__ packed, const int* __restrict__ nnz,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int C, int Hp, int Wp, int M, int K, int RS,
-    int S, int E, int F, int stride, int ks, int relu) {
-  extern __shared__ int4 smem_raw[];
-  int* s_off = reinterpret_cast<int*>(smem_raw);  // [TM][ks]
-  float* s_val = reinterpret_cast<float*>(s_off + TM * ks);  // [TM][ks]
-  int* s_nnz = reinterpret_cast<int*>(s_val + TM * ks);  // [TM]
+constexpr int NTH = 256;          // threads of a block
+constexpr int NWARPS = NTH / 32;
 
-  const int n = blockIdx.z;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory: STAGES slabs of CC x ROWS x Ws f32, then the (CC x ROWS)
+// xpad offsets of the slab's rows (-1 past the tile's), then the block's
+// rows' run bounds, TM x (nchunks + 1).
+template <int TM, int PX, bool PIPE>
+__global__ void __launch_bounds__(NTH) sparse_conv_kernel(
+    const float* __restrict__ xpad, const int2* __restrict__ pairs,
+    const int* __restrict__ rowptr, const float* __restrict__ bias,
+    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
+    int C, int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
+    int stride, int CC, int ROWS, int relu) {
+  constexpr int RPW = TM / NWARPS;  // rows a warp sums
+  constexpr int P = 32 * PX;        // pixels a block
+  constexpr int STAGES = PIPE ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  // a strided 1x1 conv reads every stride-th row and column: stage those
+  // (step) and run stride 1 on them
+  const bool sub = RS == 1 && stride > 1;
+  const int step = sub ? stride : 1;
+  const int st = sub ? 1 : stride;
+  const int Hs = sub ? E : Hp;
+  const int Ws = sub ? F : Wp;
+  const int RT = RS / S;            // filter rows
+  // At stride 1 the pixels run over whole slab rows (Wq = Ws columns, the
+  // last Ws - F of a row computed and dropped), so that the 32 lanes of a
+  // warp read 32 neighbouring words of the slab: no bank conflicts.
+  const int Wq = st == 1 ? Ws : F;
+  const int EQ = E * Wq;
+  const int NEQ = NIMG * EQ;
+  const int nchunks = (C + CC - 1) / CC;
+  // (the slack of S words keeps a dropped pixel's reads inside the slab)
+  const int slab_floats = (CC * ROWS * Ws + S + 3) & ~3;
+  int* tab = reinterpret_cast<int*>(smem + STAGES * slab_floats * 4);
+  int* bounds = tab + CC * ROWS;    // [TM][nchunks + 1]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int m0 = blockIdx.y * TM;
-  const int EF = E * F;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < EF;
-  const int e = live ? p / F : 0;
-  const int f = live ? p - e * F : 0;
-  const float* xin = xpad + static_cast<int64_t>(n) * C * Hp * Wp +
-                     static_cast<int64_t>(e) * stride * Wp +
-                     static_cast<int64_t>(f) * stride;
+  const int q0 = blockIdx.x * P;
+  const int q1 = min(q0 + P, NEQ) - 1;
+  // the padded rows the tile reads, global over images: g = n*Hs + h
+  const int na = q0 / EQ, ea = (q0 - na * EQ) / Wq;
+  const int nb = q1 / EQ, eb = (q1 - nb * EQ) / Wq;
+  const int ga = na * Hs + ea * st;
+  const int RB = nb * Hs + eb * st + RT - 1 - ga + 1;  // <= ROWS
+  const int HW = Hp * Wp;
 
-  for (int t = threadIdx.x; t < TM; t += blockDim.x) {
-    const int m = m0 + t;
-    s_nnz[t] = m < M ? nnz[m] : 0;
+  // slab row (cl, r) -> xpad offset of (n, cl, h) for g = ga + r, or -1
+  for (int t = tid; t < CC * ROWS; t += NTH) {
+    const int cl = t / ROWS;
+    const int r = t - cl * ROWS;
+    const int g = ga + r;
+    const int n = g / Hs;
+    tab[t] = r < RB ? (n * C + cl) * HW + (g - n * Hs) * step * Wp : -1;
+  }
+  for (int t = tid; t < TM * (nchunks + 1); t += NTH) {
+    const int ml = t / (nchunks + 1);
+    bounds[t] = m0 + ml < M
+                    ? rowptr[static_cast<int64_t>(m0) * (nchunks + 1) + t]
+                    : 0;
+  }
+
+  // this lane's pixels: their windows' origins in the slab, in bytes
+  int pix[PX];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    const int q = q0 + j * 32 + lane;
+    int base = 0;
+    if (q <= q1) {
+      const int n = q / EQ;
+      const int eq = q - n * EQ;
+      const int e = eq / Wq;
+      base = (n * Hs + e * st - ga) * Ws + (eq - e * Wq) * st;
+    }
+    pix[j] = 4 * base;
   }
   __syncthreads();
-  int kmax = 0;
-#pragma unroll
-  for (int ml = 0; ml < TM; ++ml) kmax = max(kmax, s_nnz[ml]);
 
-  float acc[TM];
-#pragma unroll
-  for (int ml = 0; ml < TM; ++ml) acc[ml] = 0.f;
+  // slab increments a thread takes between its elements
+  const int drow = NTH / Ws, dcol = NTH - drow * Ws;
 
-  for (int k0 = 0; k0 < kmax; k0 += ks) {
-    const int kn = min(ks, kmax - k0);
-    __syncthreads();  // the previous slab has been consumed
-    for (int t = threadIdx.x; t < TM * kn; t += blockDim.x) {
-      const int ml = t / kn;
-      const int kk = t - ml * kn;
-      const int m = m0 + ml;
-      int off = 0;
-      float v = 0.f;
-      if (m < M && k0 + kk < s_nnz[ml]) {
-        const int64_t g = static_cast<int64_t>(m) * K + k0 + kk;
-        const int pk = packed[g];
-        const int c = pk / RS;
-        const int rem = pk - c * RS;
-        const int r = rem / S;
-        const int s = rem - r * S;
-        off = (c * Hp + r) * Wp + s;
-        v = value[g];
-      }
-      s_off[ml * ks + kk] = off;
-      s_val[ml * ks + kk] = v;
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int ml = 0; ml < TM; ++ml) {
-        const int kend = min(kn, s_nnz[ml] - k0);
-        const int* so = s_off + ml * ks;
-        const float* sv = s_val + ml * ks;
-        float a = acc[ml];
-        for (int kk = 0; kk < kend; ++kk) {
-          a = __fadd_rn(a, __fmul_rn(sv[kk], __ldg(xin + so[kk])));
+  // chunk k's slab into stage k % STAGES, zero past C and past the tile's
+  // rows.  One cp.async group.
+  auto stage = [&](int k) {
+    if (k < nchunks) {
+      const uint32_t sb = smem_u32(smem + (PIPE ? k % 2 : 0) * slab_floats * 4);
+      const int c0 = k * CC;
+      const int live_rows = min(CC, C - c0) * ROWS;
+      const float* xc = xpad + static_cast<int64_t>(c0) * HW;
+      int row = tid / Ws, col = tid - (tid / Ws) * Ws;
+      for (int t = tid; t < CC * ROWS * Ws; t += NTH) {
+        const int src = row < live_rows ? tab[row] : -1;
+        cp_async4(sb + 4 * t, src >= 0 ? xc + src + col * step : xpad,
+                  src >= 0 ? 4 : 0);
+        col += dcol;
+        row += drow;
+        if (col >= Ws) {
+          col -= Ws;
+          ++row;
         }
-        acc[ml] = a;
       }
     }
+    cp_commit();
+  };
+
+  float acc[RPW][PX];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll
+    for (int j = 0; j < PX; ++j) acc[rr][j] = 0.f;
+
+  // the first window of each of the warp's rows for chunk k, loaded a
+  // chunk ahead
+  int2 first[RPW];
+  auto load_first = [&](int k) {
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int ml = warp * RPW + rr;
+      const int beg = k < nchunks ? bounds[ml * (nchunks + 1) + k] : 0;
+      const int fin = k < nchunks ? bounds[ml * (nchunks + 1) + k + 1] : 0;
+      first[rr] = beg + lane < fin
+                      ? __ldg(pairs + static_cast<int64_t>(m0 + ml) * K + beg +
+                              lane)
+                      : make_int2(0, 0);
+    }
+  };
+  load_first(0);
+
+  if (PIPE) stage(0);
+  for (int k = 0; k < nchunks; ++k) {
+    if (!PIPE) stage(k);
+    cp_wait_all();
+    __syncthreads();  // chunk k landed; in the pipeline, chunk k - 1 summed
+    if (PIPE) stage(k + 1);
+    const unsigned char* slab = smem + (PIPE ? k % 2 : 0) * slab_floats * 4;
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int ml = warp * RPW + rr;
+      const int2* pr = pairs + static_cast<int64_t>(m0 + ml) * K;
+      const int end = bounds[ml * (nchunks + 1) + k + 1];
+      // the run in windows of 32 pairs, lane l holding pair i + l (one
+      // coalesced load a window, the next one loaded under this one's
+      // sums); each pair is broadcast to the warp by a shuffle
+      int i = bounds[ml * (nchunks + 1) + k];
+      int2 win = first[rr];
+      while (i < end) {
+        const int cnt = min(32, end - i);
+        const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
+                                             : make_int2(0, 0);
+#pragma unroll 4
+        for (int t = 0; t < cnt; ++t) {
+          const int off = __shfl_sync(0xffffffffu, win.x, t);
+          const float v = __int_as_float(__shfl_sync(0xffffffffu, win.y, t));
+          const unsigned char* xs = slab + off;
+#pragma unroll
+          for (int j = 0; j < PX; ++j)
+            acc[rr][j] = __fadd_rn(
+                acc[rr][j],
+                __fmul_rn(v, *reinterpret_cast<const float*>(xs + pix[j])));
+        }
+        win = nxt;
+        i += 32;
+      }
+    }
+    load_first(k + 1);
+    if (!PIPE) __syncthreads();  // chunk k summed before k + 1 is copied
   }
 
-  if (!live) return;
 #pragma unroll
-  for (int ml = 0; ml < TM; ++ml) {
-    const int m = m0 + ml;
-    if (m >= M) break;
-    const int64_t o = (static_cast<int64_t>(n) * M + m) * EF + p;
-    float v = __fadd_rn(acc[ml], bias[m]);
-    if (residual != nullptr) v = __fadd_rn(v, residual[o]);
-    if (relu) v = fmaxf(v, 0.f);
-    out[o] = v;
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int m = m0 + warp * RPW + rr;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int q = q0 + j * 32 + lane;
+      const int n = q / EQ;
+      const int e = (q - n * EQ) / Wq;
+      const int f = q - n * EQ - e * Wq;
+      if (q > q1 || f >= F) continue;
+      const int64_t o =
+          (static_cast<int64_t>(n) * M + m) * (E * F) + e * F + f;
+      float v = __fadd_rn(acc[rr][j], bias[m]);
+      if (residual != nullptr) v = __fadd_rn(v, residual[o]);
+      if (relu) v = fmaxf(v, 0.f);
+      out[o] = v;
+    }
   }
 }
 
-template <int TM>
-int launch(const float* xpad, const float* value, const int* packed,
-           const int* nnz, const float* bias, const float* residual,
-           float* out, int N, int C, int Hp, int Wp, int M, int K, int RS,
-           int S, int E, int F, int stride, int tp, int ks, int relu,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(TM) * ks * 8 + TM * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sparse_conv_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// A 1x1 conv has no halo: a staged slab would serve only the block's own
+// rows, so nothing is staged.  Each pair's input is read straight from
+// xpad through L1 (the block's rows read the same pixels' channels), the
+// pairs walked in windows as above, the whole row one run (rowptr (M, 2),
+// offsets c*Hp*Wp), and the sums formed in the same order.
+template <int TM, int PX>
+__global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
+    const float* __restrict__ xpad, const int2* __restrict__ pairs,
+    const int* __restrict__ rowptr, const float* __restrict__ bias,
+    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
+    int C, int Hp, int Wp, int M, int K, int E, int F, int stride,
+    int relu) {
+  constexpr int RPW = TM / NWARPS;
+  constexpr int P = 32 * PX;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * TM;
+  const int q0 = blockIdx.x * P;
+  const int EF = E * F;
+  const int q1 = min(q0 + P, NIMG * EF) - 1;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(xpad);
+
+  // this lane's pixels: their inputs' byte offsets in xpad at channel 0
+  int pix[PX];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    const int q = min(q0 + j * 32 + lane, q1);
+    const int n = q / EF;
+    const int e = (q - n * EF) / F;
+    pix[j] = 4 * ((n * C * Hp + e * stride) * Wp + (q - n * EF - e * F) * stride);
   }
-  const dim3 grid((E * F + tp - 1) / tp, (M + TM - 1) / TM, N);
-  sparse_conv_kernel<TM><<<grid, tp, smem, stream>>>(
-      xpad, value, packed, nnz, bias, residual, out, C, Hp, Wp, M, K, RS, S,
-      E, F, stride, ks, relu);
+
+  float acc[RPW][PX];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+#pragma unroll
+    for (int j = 0; j < PX; ++j) acc[rr][j] = 0.f;
+    const int m = m0 + warp * RPW + rr;
+    if (m >= M) continue;
+    const int2* pr = pairs + static_cast<int64_t>(m) * K;
+    const int end = rowptr[2 * m + 1];
+    int i = rowptr[2 * m];
+    int2 win = i + lane < end ? __ldg(pr + i + lane) : make_int2(0, 0);
+    while (i < end) {
+      const int cnt = min(32, end - i);
+      const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
+                                           : make_int2(0, 0);
+#pragma unroll 4
+      for (int t = 0; t < cnt; ++t) {
+        const int off = __shfl_sync(0xffffffffu, win.x, t);
+        const float v = __int_as_float(__shfl_sync(0xffffffffu, win.y, t));
+        const unsigned char* xs = xb + off;
+#pragma unroll
+        for (int j = 0; j < PX; ++j)
+          acc[rr][j] = __fadd_rn(
+              acc[rr][j],
+              __fmul_rn(v, __ldg(reinterpret_cast<const float*>(xs + pix[j]))));
+      }
+      win = nxt;
+      i += 32;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int m = m0 + warp * RPW + rr;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int q = q0 + j * 32 + lane;
+      if (q > q1) continue;
+      const int n = q / EF;
+      const int64_t o = (static_cast<int64_t>(n) * M + m) * EF + (q - n * EF);
+      float v = __fadd_rn(acc[rr][j], bias[m]);
+      if (residual != nullptr) v = __fadd_rn(v, residual[o]);
+      if (relu) v = fmaxf(v, 0.f);
+      out[o] = v;
+    }
+  }
+}
+
+template <int TM, int PX>
+int launch_1x1(const float* xpad, const int2* pairs, const int* rowptr,
+               const float* bias, const float* residual, float* out, int N,
+               int C, int Hp, int Wp, int M, int K, int E, int F, int stride,
+               int relu, cudaStream_t stream) {
+  const dim3 grid((N * E * F + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
+  sparse_conv_1x1_kernel<TM, PX><<<grid, NTH, 0, stream>>>(
+      xpad, pairs, rowptr, bias, residual, out, N, C, Hp, Wp, M, K, E, F,
+      stride, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TM, int PX, bool PIPE>
+int launch(const float* xpad, const int2* pairs, const int* rowptr,
+           const float* bias, const float* residual, float* out, int N, int C,
+           int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
+           int stride, int cc, int rows, int relu, cudaStream_t stream) {
+  const bool sub = RS == 1 && stride > 1;
+  const int Ws = sub ? F : Wp;
+  const size_t slab_floats =
+      (static_cast<size_t>(cc) * rows * Ws + S + 3) & ~3;
+  const size_t nchunks = (C + cc - 1) / cc;
+  const size_t smem = (PIPE ? 2 : 1) * slab_floats * 4 +
+                      static_cast<size_t>(cc) * rows * 4 +
+                      static_cast<size_t>(TM) * (nchunks + 1) * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_conv_kernel<TM, PX, PIPE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int Wq = (sub || stride == 1) ? Ws : F;  // the kernel's pixel rows
+  const dim3 grid((N * E * Wq + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
+  sparse_conv_kernel<TM, PX, PIPE><<<grid, NTH, smem, stream>>>(
+      xpad, pairs, rowptr, bias, residual, out, N, C, Hp, Wp, M, K, RS, S, E,
+      F, stride, cc, rows, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int sparse_conv_f32(const void* xpad, const void* value,
-                               const void* packed, const void* nnz,
-                               const void* bias, const void* residual,
-                               void* out, int N, int C, int Hp, int Wp, int M,
-                               int K, int RS, int S, int E, int F, int stride,
-                               int tm, int tp, int ks, int relu,
+// pairs: (M, K) of (slab byte offset, value bits); rowptr: (M, nchunks + 1)
+// run bounds (ref.py: stretch_bank).  A 1x1 conv (RS = 1) runs the
+// unstaged kernel: its pairs' offsets are c*Hp*Wp bytes, one run a row.
+extern "C" int sparse_conv_f32(const void* xpad, const void* pairs,
+                               const void* rowptr, const void* bias,
+                               const void* residual, void* out, int N, int C,
+                               int Hp, int Wp, int M, int K, int RS, int S,
+                               int E, int F, int stride, int tm, int px,
+                               int cc, int rows, int pipeline, int relu,
                                void* stream) {
   const float* x = static_cast<const float*>(xpad);
-  const float* v = static_cast<const float*>(value);
-  const int* pk = static_cast<const int*>(packed);
-  const int* nz = static_cast<const int*>(nnz);
+  const int2* pr = static_cast<const int2*>(pairs);
+  const int* rp = static_cast<const int*>(rowptr);
   const float* b = static_cast<const float*>(bias);
   const float* res = static_cast<const float*>(residual);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tm) {
-    case 8:
-      return launch<8>(x, v, pk, nz, b, res, o, N, C, Hp, Wp, M, K, RS, S, E,
-                       F, stride, tp, ks, relu, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (cc <= 0 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+#define SPARSE_CONV_LAUNCH(TM, PX)                                           \
+  if (tm == TM && px == PX && RS == 1)                                       \
+    return launch_1x1<TM, PX>(x, pr, rp, b, res, o, N, C, Hp, Wp, M, K, E,   \
+                              F, stride, relu, st);                          \
+  if (tm == TM && px == PX)                                                  \
+    return pipeline ? launch<TM, PX, true>(x, pr, rp, b, res, o, N, C, Hp,   \
+                                           Wp, M, K, RS, S, E, F, stride,    \
+                                           cc, rows, relu, st)               \
+                    : launch<TM, PX, false>(x, pr, rp, b, res, o, N, C, Hp,  \
+                                            Wp, M, K, RS, S, E, F, stride,   \
+                                            cc, rows, relu, st);
+  SPARSE_CONV_LAUNCH(8, 1)
+  SPARSE_CONV_LAUNCH(8, 2)
+  SPARSE_CONV_LAUNCH(8, 4)
+  SPARSE_CONV_LAUNCH(8, 8)
+  SPARSE_CONV_LAUNCH(16, 1)
+  SPARSE_CONV_LAUNCH(16, 2)
+  SPARSE_CONV_LAUNCH(16, 4)
+  SPARSE_CONV_LAUNCH(32, 1)
+  SPARSE_CONV_LAUNCH(32, 2)
+  SPARSE_CONV_LAUNCH(32, 4)
+#undef SPARSE_CONV_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,12 +9,13 @@ order on the way in and the output inverse-permuted on the way out.
 There is no fallback.  The reference falls back to its pure-JAX direct path
 when the packed indices bust the TPU's 2 MiB SMEM (``smem_infeasible``, e.g.
 ResNet-50 res5 3x3 at 224 px) or no VMEM tiling fits; the CUDA kernel reads
-its indices from device memory and stages them a slab at a time, so every
-sparse layer of the three nets has a schedule, and a layer without one
-raises.
+its indices from device memory and stages a channel chunk at a time, so
+every sparse layer of the three nets has a schedule, and a layer without
+one raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -22,15 +23,84 @@ import torch
 from repro_torch.core.direct_conv import out_spatial, pad_in
 from repro_torch.core.sparse_format import EllConv, inverse_permutation
 from repro_torch.kernels import budget
-from repro_torch.kernels.sparse_conv.kernel import (TM_CHOICES,
-                                                    sparse_conv_kernel)
+from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
+from repro_torch.kernels.sparse_conv.ref import pixel_row, slab_geometry
 
-DEFAULT_TM = 8
-# Output pixels per block (one thread each) and staged nonzeros per row.
-MAX_TP = budget.MAX_THREADS_PER_BLOCK
-MAX_KS = 256
 
-Schedule = Tuple[int, int, int]   # (tm, tp, ks)
+@dataclasses.dataclass(frozen=True)
+class EllSchedule:
+    """One launch of the ELL kernel: ``tm`` output channels by ``tp`` output
+    pixels a block, input channels in chunks of ``cc``, the input slab
+    ``rows`` padded rows high (a 1x1 conv: the padded image's rows), and
+    the ``pipeline``d (double-buffered) or blocking copy schedule."""
+
+    tm: int
+    tp: int
+    cc: int
+    rows: int
+    pipeline: bool
+
+
+def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
+                     c: Optional[int] = None, r: int = 1, s: int = 1,
+                     stride: int = 1, hp: Optional[int] = None,
+                     wp: Optional[int] = None, tm: Optional[int] = None,
+                     tp: Optional[int] = None,
+                     pipeline: Optional[bool] = None,
+                     ) -> Tuple[Optional[EllSchedule], Optional[str]]:
+    """The block schedule ``sparse_conv`` launches, as a pure function.
+
+    The geometry: ``n`` images, ``c`` input channels (default ``k``), an
+    ``r`` x ``s`` filter at ``stride`` on the padded ``hp`` x ``wp`` input
+    (default the output's extent of a stride-1 window).  Returns
+    ``(EllSchedule, None)``, or ``(None, reason)`` when a pinned ``tm`` or
+    ``tp`` is one the kernel does not take or the block's shared memory
+    would not fit.  Without pins, the tile is the first of
+    ``budget.ELL_TILES`` (``ELL_1X1_TILES`` for a 1x1 conv) that still
+    gives the card ``budget.ELL_MIN_BLOCKS`` blocks; the chunk of channels
+    fills about ``budget.ELL_SLAB_BYTES`` with the schedule's stages.
+    ``pipeline=None`` takes the pipelined schedule where its two stages
+    fit, ``False`` the blocking one; ``True`` that does not fit falls back
+    to blocking, as the reference's does.  A 1x1 conv stages nothing (its
+    kernel reads the input straight from L1): one chunk of all ``c``
+    channels, ``rows`` the padded image's, never pipelined.
+    """
+    direct = r == s == 1
+    order = budget.ELL_1X1_TILES if direct else budget.ELL_TILES
+    tiles = [(t, p) for t, p in order
+             if (tm is None or t == tm)
+             and (tp is None or budget.WARP * p == tp)]
+    if tm is not None and not any(t == tm for t, _ in budget.ELL_TILES):
+        return None, "unsupported_tm"
+    if not tiles:
+        return None, "unsupported_tp"
+    c = k if c is None else c
+    hp = (e - 1) * stride + r if hp is None else hp
+    wp = (f - 1) * stride + s if wp is None else wp
+    hs, ws, st = slab_geometry(hp, wp, r, s, e, f, stride)
+    wq = f if direct else pixel_row(ws, f, st)
+    tm, px = tiles[-1]
+    for t, p in tiles:
+        if (-(-n * e * wq // (budget.WARP * p)) * -(-m // t)
+                >= budget.ELL_MIN_BLOCKS):
+            tm, px = t, p
+            break
+    tp = budget.WARP * px
+    if direct:
+        # a 1x1 conv stages nothing (no halo to share), so nothing is
+        # pipelined: one run a row over all c channels of hp-row images
+        return EllSchedule(tm, tp, c, hp, False), None
+    rows = budget.ell_slab_rows(n, e, wq, hs, st, r, tp)
+    pipe = pipeline is None or pipeline
+    per_channel = budget.ell_stage_bytes(1, rows, ws, 0) + rows * 4
+    cc = max(1, min(c, budget.ELL_SLAB_BYTES // ((2 if pipe else 1)
+                                                * per_channel)))
+    fits = lambda p: budget.smem_fits(  # noqa: E731
+        budget.ell_smem_bytes(tm, cc, c, rows, ws, s, p))
+    if not fits(False):
+        return None, "smem_infeasible"
+    pipe = pipe and fits(True)
+    return EllSchedule(tm, tp, cc, rows, pipe), None
 
 
 def pack_indices(ell: EllConv) -> torch.Tensor:
@@ -55,39 +125,12 @@ def apply_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
     return y.to(dtype)
 
 
-def default_tp(e: int, f: int) -> int:
-    """One thread per output pixel, up to ``MAX_TP`` a block, in whole warps."""
-    return min(MAX_TP, -(-(e * f) // budget.WARP) * budget.WARP)
-
-
-def resolve_schedule(m: int, k: int, e: int, f: int, *,
-                     tm: Optional[int] = None, tp: Optional[int] = None,
-                     ) -> Tuple[Optional[Schedule], Optional[str]]:
-    """The block schedule ``sparse_conv`` launches, as a pure function.
-
-    Returns ``((tm, tp, ks), None)``, or ``(None, reason)`` when a pinned
-    ``tm``/``tp`` is one the kernel does not take or the block's shared
-    memory would not fit.  With the defaults every geometry has a schedule:
-    the staged slab ``ks`` is capped, so K does not enter the shared-memory
-    bound.
-    """
-    tm = DEFAULT_TM if tm is None else tm
-    if tm not in TM_CHOICES:
-        return None, "unsupported_tm"
-    tp = default_tp(e, f) if tp is None else tp
-    if not budget.threads_fit(tp):
-        return None, "unsupported_tp"
-    ks = min(k, MAX_KS)
-    if not budget.smem_fits(budget.ell_smem_bytes(tm, ks)):
-        return None, "smem_infeasible"
-    return (tm, tp, ks), None
-
-
 def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
                 padding: int = 0, tm: Optional[int] = None,
                 tp: Optional[int] = None,
                 bias: Optional[torch.Tensor] = None, fuse_relu: bool = False,
                 residual: Optional[torch.Tensor] = None,
+                pipeline: Optional[bool] = None,
                 layer: Optional[str] = None,
                 packed_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Direct sparse convolution + fused epilogue through the ELL kernel.
@@ -95,22 +138,28 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
     (N, C, H, W) f32 input, ELL bank for (M, C, R, S) weights ->
     (N, M, E, F) f32.  ``bias`` (per channel), ``fuse_relu`` and
     ``residual`` (shaped like the output) run in-kernel on the f32 sums.
-    ``layer`` names the conv in errors.  ``packed_idx`` is the bank's
-    ``pack_indices``, for a caller that packs once per bank; it is packed
-    here when not given.
+    ``pipeline`` picks the copy schedule as in the reference: ``True``
+    double-buffers the staged input (the copy of the next channel chunk
+    under the sums of this one), ``False`` blocks, ``None`` pipelines where
+    the second stage fits (``resolve_schedule`` reports which it took); the
+    two give the same bits.  ``layer`` names the conv in errors.
+    ``packed_idx`` is the bank's ``pack_indices``, for a caller that packs
+    once per bank; it is packed here when not given.
     """
     m, c, r, s = ell.shape
     n, cx, h, w = x.shape
     if cx != c:
         raise ValueError(f"input has C={cx} but filters expect C={c}")
     e, f = out_spatial(h, w, r, s, stride, padding)
-    sched, reason = resolve_schedule(m, ell.k, e, f, tm=tm, tp=tp)
+    sched, reason = resolve_schedule(
+        m, ell.k, e, f, n=n, c=c, r=r, s=s, stride=stride,
+        hp=h + 2 * padding, wp=w + 2 * padding, tm=tm, tp=tp,
+        pipeline=pipeline)
     if sched is None:
         raise ValueError(
             f"sparse_conv{'' if layer is None else ' ' + layer}: no kernel "
             f"schedule ({reason}) for m={m} k={ell.k} e={e} f={f} tm={tm} "
             f"tp={tp}")
-    tm, tp, ks = sched
     b = (torch.zeros((m,), dtype=torch.float32, device=x.device)
          if bias is None else bias.float())
     res = residual
@@ -125,7 +174,7 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
         pad_in(x, padding), ell.value, packed_idx, ell.nnz,
         b.contiguous(), None if res is None else res.contiguous(),
         rs=r * s, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
-        tm=tm, tp=tp, ks=ks)
+        schedule=sched)
     if ell.perm is not None:
         out = out.index_select(1, inverse_permutation(ell.perm).long())
     return out

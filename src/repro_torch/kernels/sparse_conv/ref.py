@@ -9,10 +9,17 @@ loops only over the K axis, up to the longest row; a row's entries past its
 
 The CPU tests run the port through it, and ``chip_smoke.py`` holds the CUDA
 kernel against it on the card.
+
+``stretch_bank`` stretches a bank for the CUDA kernel (slab offsets and the
+runs of each channel chunk; its launcher calls it once per bank and
+schedule).  ``sparse_conv_walk_plain`` mirrors the kernel's traversal
+(pixel tiles, staged input slabs, channel chunks, one pointer a row), for
+the tests, never on the main path: it forms every sum in the same order,
+so it equals ``sparse_conv_plain`` bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,3 +56,158 @@ def sparse_conv_plain(xpad: torch.Tensor, value: torch.Tensor,
     if fuse_relu:
         acc = torch.relu(acc)
     return acc
+
+
+def slab_geometry(hp: int, wp: int, r: int, s: int, e: int, f: int,
+                  stride: int) -> Tuple[int, int, int]:
+    """(hs, ws, st): an image's rows and columns in the slab's coordinates
+    and the stride there.  A strided 1x1 conv stages only the pixels it
+    reads, as a stride-1 conv on an (e, f) image; any other conv stages
+    whole padded rows."""
+    if r == s == 1 and stride > 1:
+        return e, f, 1
+    return hp, wp, stride
+
+
+def pixel_row(ws: int, f: int, st: int) -> int:
+    """The kernel's pixels an output row: at stride 1 the slab's whole width
+    ``ws`` (the last ``ws - f`` computed and dropped, so that a warp's lanes
+    read neighbouring slab words), else ``f``."""
+    return ws if st == 1 else f
+
+
+def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
+                 nnz: torch.Tensor, *, rs: int, s: int, ws: int, rows: int,
+                 cc: int, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's weight stretching for the CUDA kernel's slabs, on the
+    bank's device: ``pairs`` (M, K, 2) int32, each nonzero's byte offset in
+    a slab of ``cc`` channels x ``rows`` x ``ws`` f32, (c % cc)*rows*ws +
+    r*ws + s, beside its f32 value's bits; and ``rowptr`` (M, C/cc + 1)
+    int32, row m's entries of channel chunk k being rowptr[m, k] ..
+    rowptr[m, k + 1].  Raises unless every row's packed indices ascend up
+    to its nnz (the (c, r, s) order ``ell_from_dense_conv`` builds), which
+    the chunk runs rely on."""
+    m, k = packed_idx.shape
+    nchunks = -(-c // cc)
+    packed = packed_idx.long()
+    live = torch.arange(k, device=packed.device)[None, :] < nnz.long()[:, None]
+    if bool((live[:, 1:] & (packed[:, 1:] <= packed[:, :-1])).any()):
+        raise ValueError("sparse_conv: a row's nonzeros are not in ascending "
+                         "(c, r, s) order")
+    cidx = packed // rs
+    r = (packed - cidx * rs) // s
+    off = 4 * ((cidx % cc) * rows * ws + r * ws + (packed - cidx * rs - r * s))
+    pairs = torch.stack([off.to(torch.int32),
+                         value.float().contiguous().view(torch.int32)], -1)
+    chunk = torch.where(live, cidx // cc, torch.full_like(cidx, nchunks))
+    counts = torch.zeros((m, nchunks + 1), dtype=torch.long,
+                         device=packed.device)
+    counts.scatter_add_(1, chunk, torch.ones_like(chunk))
+    rowptr = torch.zeros((m, nchunks + 1), dtype=torch.long,
+                         device=packed.device)
+    rowptr[:, 1:] = torch.cumsum(counts[:, :nchunks], dim=1)
+    return pairs.contiguous(), rowptr.to(torch.int32)
+
+
+def _epilogue(acc, bias, residual, fuse_relu):
+    out = acc.permute(1, 0, 2, 3)
+    out = out + bias.float().view(1, -1, 1, 1)
+    if residual is not None:
+        out = out + residual.float()
+    if fuse_relu:
+        out = torch.relu(out)
+    return out.contiguous()
+
+
+def _walk_direct(xpad, value, packed_idx, nnz, bias, residual, *, e, f,
+                 stride, fuse_relu, schedule):
+    """The 1x1 kernel's walk: pixel tiles of ``schedule.tp``, each row's
+    whole run at offsets c*Hp*Wp from each pixel's input in xpad."""
+    n, c, hp, wp = xpad.shape
+    m = value.shape[0]
+    pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=1, s=1, ws=wp,
+                                 rows=hp, cc=c, c=c)
+    off = pairs[..., 0].long() // 4
+    val = pairs[..., 1].contiguous().view(torch.float32)
+    flat = xpad.float().reshape(-1)
+    ef = e * f
+    q = torch.arange(n * ef)
+    pn, pe, pf = q // ef, (q % ef) // f, q % f
+    base = (pn * c * hp + pe * stride) * wp + pf * stride
+    acc = torch.zeros((m, n * ef), dtype=torch.float32)
+    start, end = rowptr[:, 0].long(), rowptr[:, 1].long()
+    for q0 in range(0, n * ef, schedule.tp):
+        tile = base[q0:q0 + schedule.tp]
+        for i in range(int((end - start).max()) if m else 0):
+            live = (start + i < end).nonzero().flatten()
+            kk = start[live] + i
+            x = flat[off[live, kk][:, None] + tile[None, :]]
+            acc[live, q0:q0 + schedule.tp] += val[live, kk][:, None] * x
+    return _epilogue(acc.view(m, n, e, f), bias, residual, fuse_relu)
+
+
+def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
+                           packed_idx: torch.Tensor, nnz: torch.Tensor,
+                           bias: torch.Tensor,
+                           residual: Optional[torch.Tensor] = None, *,
+                           rs: int, s: int, e: int, f: int, stride: int = 1,
+                           fuse_relu: bool = False,
+                           schedule) -> torch.Tensor:
+    """The CUDA kernel's walk on its operands, for the tests: the bank
+    stretched as the launcher stretches it (``stretch_bank``); for each
+    tile of ``schedule.tp`` output pixels (flat over (n, e, f)), the input
+    slab its windows read (whole padded rows, across images, each channel
+    ``schedule.rows`` rows apart; the sampled pixels of a strided 1x1
+    conv), channel chunk by channel chunk of ``schedule.cc``; each row's
+    run of the chunk added nonzero by nonzero at its stretched offset.  A
+    1x1 conv walks as its unstaged kernel does, straight from xpad.
+    Raises if a tile's slab is taller than ``schedule.rows``.  Same
+    operands and, bit for bit, the same result as ``sparse_conv_plain``."""
+    n, c, hp, wp = xpad.shape
+    m = value.shape[0]
+    xpad = xpad.float()
+    cc, tp, rows = schedule.cc, schedule.tp, schedule.rows
+    hs, ws, st = slab_geometry(hp, wp, rs // s, s, e, f, stride)
+    sub = rs == 1 and stride > 1   # a strided 1x1 conv: the sampled pixels
+    src = xpad[:, :, ::stride, ::stride][:, :, :e, :f] if sub else xpad
+    pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=rs, s=s, ws=ws,
+                                 rows=rows, cc=cc, c=c)
+    off = pairs[..., 0].long() // 4
+    val = pairs[..., 1].contiguous().view(torch.float32)
+    rowptr = rowptr.long()
+    rt = rs // s
+    if rs == 1:   # a 1x1 conv reads xpad directly, one run a row
+        return _walk_direct(xpad, value, packed_idx, nnz, bias, residual,
+                            e=e, f=f, stride=stride, fuse_relu=fuse_relu,
+                            schedule=schedule)
+    wq = pixel_row(ws, f, st)
+    eq = e * wq
+    q_all = torch.arange(n * eq)
+    acc = torch.zeros((m, n * eq), dtype=torch.float32)
+    for q0 in range(0, n * eq, tp):
+        q = q_all[q0:q0 + tp]
+        q1 = int(q[-1])
+        ga = (q0 // eq) * hs + (q0 % eq) // wq * st
+        rb = (q1 // eq) * hs + (q1 % eq) // wq * st + rt - 1 - ga + 1
+        if rb > rows:
+            raise ValueError(f"tile at pixel {q0} reads {rb} slab rows, "
+                             f"more than the schedule's {rows}")
+        g = torch.arange(ga, ga + rb)
+        # (C, rows, ws): the padded rows ga .. of every channel, zero below,
+        # and the kernel's slack past the last
+        slab = torch.zeros((c, rows, ws))
+        slab[:, :rb] = src[g // hs, :, g % hs, :].permute(1, 0, 2)
+        pn, pq = q // eq, q % eq
+        pix = (pn * hs + pq // wq * st - ga) * ws + (pq % wq) * st
+        for k0 in range(0, rowptr.shape[1] - 1):
+            flat = torch.cat([slab[k0 * cc:(k0 + 1) * cc].reshape(-1),
+                              torch.zeros(s)])
+            start, end = rowptr[:, k0], rowptr[:, k0 + 1]
+            for i in range(int((end - start).max()) if m else 0):
+                live = (start + i < end).nonzero().flatten()
+                kk = start[live] + i
+                x = flat[off[live, kk][:, None] + pix[None, :]]
+                acc[live, q0:q0 + tp] += val[live, kk][:, None] * x
+    # drop the pixels past each row's f
+    return _epilogue(acc.view(m, n, e, wq)[..., :f], bias, residual,
+                     fuse_relu)

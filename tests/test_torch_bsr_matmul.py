@@ -213,3 +213,53 @@ def test_wgmma_walk_needs_ascending_block_columns():
     with pytest.raises(ValueError, match="not ascending"):
         ref.bsr_matmul_walk_plain(x, bc.blocks.flip(1), bc.blockcol.flip(1),
                                   bc.nblocks, chunk=32)
+
+
+def _two_tile_bank(cols):
+    """One block-row of two (16, 16) tiles at ``cols``, N = 256."""
+    rng = np.random.default_rng(0)
+    blocks = torch.from_numpy(
+        rng.standard_normal((1, 2, 16, 16)).astype(np.float32))
+    return blocks, torch.tensor([cols], dtype=torch.int32), \
+        torch.tensor([2], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("cols, fault", [
+    ((9, 0), "not strictly ascending"),
+    ((3, 3), "share a block column"),
+    ((0, 16), "outside"),
+])
+def test_wgmma_launcher_refuses_a_bank_it_cannot_walk(cols, fault):
+    """The bank of block columns [9, 0] that the walk would cut short, a
+    repeated column that would overwrite its twin's slot, and a column past
+    N: the launcher's host check refuses each; the plain version (and the
+    ``rows`` schedule) sums them in any order."""
+    from repro_torch.kernels.bsr_matmul.kernel import _walkable
+
+    blocks, bcol, nb = _two_tile_bank(cols)
+    with pytest.raises(ValueError, match=fault):
+        _walkable(bcol, nb, 16)
+    if fault != "outside":
+        x = torch.from_numpy(
+            np.random.default_rng(1).standard_normal((64, 256))
+            .astype(np.float32))
+        want = sum(x[:, c * 16:(c + 1) * 16] @ blocks[0, t].T
+                   for t, c in enumerate(cols))
+        got = ref.bsr_matmul_plain(x, blocks, bcol, nb)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_walk_check_runs_once_per_bank():
+    """The check reads the bank back once; later launches on the same
+    tensors skip it, and an in-place write to the bank checks it again."""
+    from repro_torch.kernels import _build
+
+    _, bcol, nb = _two_tile_bank((0, 9))
+    calls = []
+    for _ in range(3):
+        _build.check_once("test_walk", (bcol, nb), lambda: calls.append(1))
+    assert len(calls) == 1
+    bcol[0, 1] = 5
+    _build.check_once("test_walk", (bcol, nb), lambda: calls.append(1))
+    assert len(calls) == 2
+    assert fmt.block_column_fault(bcol, nb, 16) is None

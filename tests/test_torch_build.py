@@ -103,3 +103,27 @@ def test_new_kernels_fit_the_cards_shared_memory():
     assert budget.bsr_matmul_unsupported(16, 256, 4096) is None
     assert "does not divide" in budget.bsr_matmul_unsupported(
         16, 256, 4096, "wgmma")
+
+
+def test_conv_kernels_fit_the_cards_shared_memory():
+    """The two conv kernels' schedules at the main path's largest layers
+    fit a block's shared memory: the ELL slab stages (res5a/3x3, K 1504,
+    and AlexNet conv2, 5x5), and the BCSR kernel's two stages of TF32
+    halves at its widest tile, N = 64 (two stages at N = 128 would not)."""
+    from repro_torch.kernels import budget
+    from repro_torch.kernels.sparse_conv import ops as ell_ops
+
+    for m, k, e, c, r, hp in ((512, 1504, 7, 512, 3, 9),
+                              (256, 976, 26, 96, 5, 30)):
+        for pipe in (True, False):
+            sched, reason = ell_ops.resolve_schedule(
+                m, k, e, e, n=8, c=c, r=r, s=r, hp=hp, wp=hp, pipeline=pipe)
+            assert reason is None and sched.pipeline == pipe
+            assert budget.smem_fits(budget.ell_smem_bytes(
+                sched.tm, sched.cc, c, sched.rows, hp, r, pipe))
+    kbc = -(-512 * 9 // 128)
+    assert budget.bsr_conv_smem_bytes(8, 128, 64, kbc) == 131_072 + 4 * (
+        3 * 128 + 9 * kbc)
+    assert budget.smem_fits(budget.bsr_conv_smem_bytes(8, 128, 64, kbc))
+    assert not budget.smem_fits(budget.bsr_conv_smem_bytes(8, 128, 128, kbc))
+    assert max(t for t, _ in budget.BSR_CONV_TILES) == 64

@@ -9,9 +9,11 @@ skips without one.  On a machine with an H100::
 
 The geometries cover what the main path gives the kernels and where they are
 likeliest to go wrong: stride-2 1x1 layers, ragged spatial tiles (E*F not a
-multiple of the pixel tile), M not a multiple of the channel tile or block
-height, K longer than one staged slab, the fused residual tail, a balanced
-bank, and BCSR right-padding columns past C*R*S.
+multiple of the pixel tile), pixel tiles spanning images (7 x 7 outputs),
+M not a multiple of the channel tile or block height, K over several
+channel chunks, the fused residual tail, a balanced bank, every tile the
+conv sources instantiate, and BCSR right-padding columns past C*R*S.  The
+BCSR matmul's ``wgmma`` schedule must refuse a bank it cannot walk.
 
 The BCSR matmul cases cover both schedules (``rows``, ``wgmma``), (16, 16)
 and (16, 128) tiles, ragged row counts and the prefill's 8192 rows, in f32
@@ -22,9 +24,12 @@ tensor-core forward, dQ and dK/dV) at every head dimension of
 kernel ran: bf16 operands the tensor-core ones, f32 the FMA ones.
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
-does, in the same nonzero order, so it agrees to 1e-6; the BCSR kernel sums
-up to C*R*S products in another order than the library contraction of its
-plain version, so it is held to rtol = atol = 1e-4.  The BCSR matmul sums each output
+does, in the same nonzero order, so it agrees bit for bit, pipelined or
+blocking; the BCSR kernel splits its f32 operands into TF32 halves (about
+21 bits) and sums up to C*R*S products in another order than the library
+contraction of its plain version, so it is held to rtol = atol = 1e-4,
+and, as chip_smoke.py holds it, to 1e-4 x (1 + max |y|), which one
+product on operands rounded once to TF32 exceeds.  The BCSR matmul sums each output
 in f32 in its own order: 1e-4 of the output's largest magnitude.  Flash
 attention rescales its sums chunk by chunk where the plain version takes
 whole rows: O to 2e-5 in f32; in bf16 each element to one bf16 rounding of
@@ -38,6 +43,8 @@ tensor-core dQ and the ``wgmma`` BCSR matmul write each output from one
 thread: two launches on the same operands agree bit for bit.  The BCSR
 matmul's bf16 output is its f32 output rounded once, bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -47,6 +54,7 @@ from repro_torch.core.direct_conv import out_spatial, pad_in  # noqa: E402
 from repro_torch.core.pruning import magnitude_prune  # noqa: E402
 from repro_torch.core.sparse_format import (bcsr_conv_from_dense,  # noqa: E402
                                             ell_from_dense_conv)
+from repro_torch.kernels import budget  # noqa: E402
 from repro_torch.kernels.bsr_conv.kernel import bsr_conv_kernel  # noqa: E402
 from repro_torch.kernels.bsr_conv.ops import bsr_conv  # noqa: E402
 from repro_torch.kernels.bsr_conv.ref import bsr_conv_blocked_ref  # noqa: E402
@@ -76,14 +84,27 @@ def _case(seed, n, c, h, m, r, sp):
 ELL_CASES = [
     (2, 16, 12, 24, 3, 1, 1, 0.7, False, True),
     (2, 32, 15, 20, 1, 2, 0, 0.7, True, True),      # stride-2 1x1, M % tm
-    (1, 64, 9, 16, 3, 1, 1, 0.3, True, False),      # K > one slab of 256
+    (1, 64, 9, 16, 3, 1, 1, 0.3, True, False),      # K over several chunks
     (3, 8, 23, 12, 5, 1, 2, 0.6, False, True),      # 5x5 pad 2, ragged E*F
     (2, 12, 19, 8, 3, 2, 0, 0.5, True, True),       # stride 2 ragged
+    (8, 64, 7, 48, 3, 1, 1, 0.7, True, True),       # 49 pixels an image
 ]
+
+
+def _ell_schedules(m, ell, n, c, h, r, stride, pad, e, f):
+    """The pipelined and the blocking schedule ``ops.sparse_conv`` takes."""
+    geo = dict(n=n, c=c, r=r, s=r, stride=stride, hp=h + 2 * pad,
+               wp=h + 2 * pad)
+    piped, reason = resolve_schedule(m, ell.k, e, f, **geo)
+    assert reason is None
+    blocking, _ = resolve_schedule(m, ell.k, e, f, pipeline=False, **geo)
+    return piped, blocking
 
 
 @pytest.mark.parametrize("case", ELL_CASES)
 def test_sparse_conv_kernel_matches_plain(cuda_device, case):
+    """Bit for bit: pipelined, blocking, every tile the source instantiates,
+    and two launches of one schedule."""
     n, c, h, m, r, stride, pad, sp, with_res, relu = case
     x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, sp)
     ell = ell_from_dense_conv(w, device=cuda_device)
@@ -92,17 +113,29 @@ def test_sparse_conv_kernel_matches_plain(cuda_device, case):
     bias = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda_device)
     res = (torch.from_numpy(rng.standard_normal((n, m, e, f)).astype(np.float32))
            .to(cuda_device) if with_res else None)
-    sched, reason = resolve_schedule(m, ell.k, e, f)
-    assert reason is None
-    tm, tp, ks = sched
+    piped, blocking = _ell_schedules(m, ell, n, c, h, r, stride, pad, e, f)
+    # a 1x1 conv stages nothing, so it has no pipelined schedule
+    assert piped.pipeline == (r > 1) and not blocking.pipeline
     args = (pad_in(xt, pad), ell.value, pack_indices(ell), ell.nnz, bias, res)
     kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu)
+    want = sparse_conv_plain(*args, **kw)
     before = sparse_conv_kernel.launches
-    got = sparse_conv_kernel(*args, tm=tm, tp=tp, ks=ks, **kw)
+    got = sparse_conv_kernel(*args, schedule=piped, **kw)
     torch.cuda.synchronize()
     assert sparse_conv_kernel.launches == before + 1
-    want = sparse_conv_plain(*args, **kw)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(sparse_conv_kernel(*args, schedule=piped, **kw),
+                               got, rtol=0, atol=0)
+    torch.testing.assert_close(
+        sparse_conv_kernel(*args, schedule=blocking, **kw), got, rtol=0,
+        atol=0)
+    for tm, px in budget.ELL_TILES:
+        sched, _ = resolve_schedule(m, ell.k, e, f, n=n, c=c, r=r, s=r,
+                                    stride=stride, hp=h + 2 * pad,
+                                    wp=h + 2 * pad, tm=tm, tp=32 * px)
+        torch.testing.assert_close(
+            sparse_conv_kernel(*args, schedule=sched, **kw), want, rtol=0,
+            atol=0)
 
 
 def test_sparse_conv_balanced_bank_on_card(cuda_device):
@@ -116,6 +149,8 @@ def test_sparse_conv_balanced_bank_on_card(cuda_device):
     kw = dict(padding=1, bias=bias, fuse_relu=True, residual=res)
     torch.testing.assert_close(sparse_conv(xt, bal, **kw),
                                sparse_conv(xt, nat, **kw), rtol=0, atol=0)
+    torch.testing.assert_close(sparse_conv(xt, bal, pipeline=False, **kw),
+                               sparse_conv(xt, nat, **kw), rtol=0, atol=0)
 
 
 # (N, C, H, M, R, stride, pad, block, residual, relu)
@@ -124,6 +159,7 @@ BSR_CASES = [
     (2, 64, 14, 32, 1, 2, 0, (16, 128), False, True),  # stride-2 1x1
     (1, 24, 17, 64, 5, 1, 2, (8, 128), True, False),   # ragged E*F
     (2, 40, 9, 60, 3, 1, 1, (16, 128), False, True),   # M % bm
+    (8, 64, 7, 72, 3, 1, 1, (8, 128), True, True),     # 49 pixels an image
 ]
 
 
@@ -145,6 +181,31 @@ def test_bsr_conv_kernel_matches_plain(cuda_device, case):
     assert bsr_conv_kernel.launches == before + 1
     want = bsr_conv_blocked_ref(xt, bc, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for n_tile, wgs in budget.BSR_CONV_TILES:
+        torch.testing.assert_close(bsr_conv(xt, bc, n_tile=n_tile, wgs=wgs,
+                                            **kw), want, rtol=1e-4, atol=1e-4)
+
+
+def test_bsr_conv_check_rejects_one_product(cuda_device):
+    """The kernel within 1e-4 x (1 + max |y|) of its plain version, as
+    chip_smoke.py holds it, and one product on operands rounded once to
+    TF32 (the split's control) outside it."""
+    from repro_torch.kernels.bsr_conv.ref import (bsr_conv_plain,
+                                                  bsr_conv_split_plain)
+
+    x, w, rng = _case(11, 8, 64, 7, 72, 3, 0.7)
+    bc = bcsr_conv_from_dense(w, block=(8, 128), device=cuda_device)
+    xpad = pad_in(torch.from_numpy(x).to(cuda_device), 1)
+    bias = torch.zeros(72, device=cuda_device)
+    args = (xpad, bc.blocks, bc.blockcol, bc.nblocks, bias)
+    kw = dict(rs=9, s=3, e=7, f=7)
+    want = bsr_conv_plain(*args, **kw)
+    limit = 1e-4 * (1 + float(want.abs().max()))
+    got = bsr_conv_kernel(*args, **kw)
+    assert float((got - want).abs().max()) <= limit
+    assert float((bsr_conv_split_plain(*args, **kw) - want).abs().max()) <= limit
+    assert float((bsr_conv_split_plain(*args, lo=False, **kw)
+                  - want).abs().max()) > limit
 
 
 def test_refused_launch_raises(cuda_device):
@@ -152,11 +213,38 @@ def test_refused_launch_raises(cuda_device):
     ell = ell_from_dense_conv(w, device=cuda_device)
     xt = pad_in(torch.from_numpy(x).to(cuda_device), 1)
     bias = torch.zeros(8, device=cuda_device)
-    # 2048 threads exceed what a block may have: CUDA refuses the launch,
-    # and the wrapper raises instead of returning an unwritten output.
+    sched, _ = resolve_schedule(8, ell.k, 8, 8, c=4, r=3, s=3, hp=10, wp=10)
+    # a chunk of 4096 channels asks for more shared memory than a block may
+    # have: CUDA refuses the launch, and the wrapper raises instead of
+    # returning an unwritten output.
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         sparse_conv_kernel(xt, ell.value, pack_indices(ell), ell.nnz, bias,
-                           rs=9, s=3, e=8, f=8, tp=2048)
+                           rs=9, s=3, e=8, f=8,
+                           schedule=dataclasses.replace(sched, cc=4096))
+
+
+@pytest.mark.parametrize("cols, fault", [((9, 0), "not strictly ascending"),
+                                         ((3, 3), "share a block column")])
+def test_bsr_matmul_refuses_a_bank_it_cannot_walk(cuda_device, cols, fault):
+    """The wgmma schedule's walk would skip the tile listed after a higher
+    column, or overwrite a repeated one: 64 bf16 rows of such a bank raise,
+    checked once per bank, and the rows schedule sums it."""
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       schedule)
+    from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    blocks = torch.randn((1, 2, 16, 16), generator=gen, device=cuda_device)
+    bcol = torch.tensor([cols], dtype=torch.int32, device=cuda_device)
+    nb = torch.tensor([2], dtype=torch.int32, device=cuda_device)
+    x = torch.randn((64, 256), generator=gen, device=cuda_device)
+    assert schedule(64, torch.bfloat16) == "wgmma"
+    with pytest.raises(ValueError, match=fault):
+        bsr_matmul_kernel(x.to(torch.bfloat16), blocks.to(torch.bfloat16),
+                          bcol, nb)
+    got = bsr_matmul_kernel(x[:4], blocks, bcol, nb)        # rows
+    want = bsr_matmul_plain(x[:4], blocks, bcol, nb)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 # -- BCSR matmul ---------------------------------------------------------

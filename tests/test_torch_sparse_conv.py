@@ -141,14 +141,16 @@ def test_pack_indices_and_epilogue_match_reference():
 
 def test_resolve_schedule_covers_k_past_the_tpu_smem_budget():
     """res5 3x3 of ResNet-50 at 224 px (M=512, K=1504) falls back on the TPU
-    (``smem_infeasible``); the card stages K in slabs and runs it."""
+    (``smem_infeasible``); the card stages its channels in chunks and runs
+    it, pipelined, within the block's shared memory."""
     ref_sched, reason = ref_ops.resolve_schedule(512, 512, 7, 7, 1504, 3, 3, 1)
     assert ref_sched is None and reason == "smem_infeasible"
-    sched, reason = ops.resolve_schedule(512, 1504, 7, 7)
-    assert reason is None
-    tm, tp, ks = sched
-    assert (tm, tp, ks) == (8, 64, 256)
-    assert budget.ell_smem_bytes(tm, ks) <= budget.SMEM_DEFAULT
+    sched, reason = ops.resolve_schedule(512, 1504, 7, 7, n=8, c=512, r=3,
+                                         s=3, hp=9, wp=9)
+    assert reason is None and sched.pipeline
+    assert sched.cc < 512   # K spans chunks
+    assert budget.smem_fits(budget.ell_smem_bytes(
+        sched.tm, sched.cc, 512, sched.rows, 9, 3, True))
 
 
 @pytest.mark.parametrize("pinned, reason", [
