@@ -53,17 +53,24 @@ Phases (any failure exits non-zero and prints no result):
 4. llm kernels -- on Yi-9B shapes with ``--seed`` weights block-pruned to
               0.8 with (16, 16) tiles, bf16: ``bsr_matmul`` on wq
               (4096 -> 4096), wk (4096 -> 512), gate (4096 -> 11008) and
-              down (11008 -> 4096) on (B, T, N) activations of 4 x 1 (a
-              decode step) and 4 x 2048 (a prefill): the kernel on the
-              (B*T, N) view ``ops.bsr_matmul`` hands it, against
-              ``bsr_matmul_plain`` within 1e-4 x max(1, max |y|), its bf16
-              output (as the model asks for it) the f32 output rounded
-              once, bit for bit, and the wrapper's bf16 (B, T, M) output
-              within one bf16 rounding of the plain version's plus that
-              limit; 4 rows run the ``rows`` schedule, 8192 the ``wgmma``
-              one; times are of the bf16-output call the model makes;
-              ``library_ms`` from ``torch.matmul`` on the dense pruned
-              weight.  Flash
+              down (11008 -> 4096) on (B, T, N) activations of 4 x 1 (the
+              serve phase's decode step), 16 x 1 and 32 x 1 (larger decode
+              batches, below the schedules' crossover) and 4 x 2048 (a
+              prefill): the kernel on the (B*T, N) view ``ops.bsr_matmul``
+              hands it, against ``bsr_matmul_plain`` within 1e-4 x max(1,
+              max |y|), its bf16 output (as the model asks for it) the f32
+              output rounded once, bit for bit, and the wrapper's bf16
+              (B, T, M) output within one bf16 rounding of the plain
+              version's plus that limit; decode rows must run the ``rows``
+              schedule, 8192 the ``wgmma`` one; times are of the
+              bf16-output call the model makes; ``library_ms`` from
+              ``torch.matmul`` on the dense pruned weight.  The ``rows``
+              rows also carry ``kernel_cold_ms`` and ``library_cold_ms``:
+              the profiler's device time of the call alone with the L2
+              flushed before each call (a 128 MB buffer written, another
+              read; their kernels not counted; the kernel and the library
+              call in one profiler session), as a decode step finds the
+              weights.  Flash
               attention (the tensor-core forward, ``flash_attention_tc``),
               causal, B 4, H 32, KV 4, T = S = 2048, d 128, bf16, on
               the (B, H, T, d) views of (B, T, H, d) tensors that
@@ -111,7 +118,10 @@ Phases (any failure exits non-zero and prints no result):
               its budget with ids below 64000, every tick 336 ``bsr_matmul``
               (all through ``rows``, 0 through ``wgmma``) and 0 flash
               launches; the line carries ticks, ms per tick,
-              generated tokens per second and one profiled decode step.
+              generated tokens per second and one profiled decode step,
+              with ``bsr_matmul_rows_ms``, the device time of its
+              ``bsr_matmul_rows`` kernels, and their share of the busy
+              time.
 8. llm bwd kernels -- both flash backward kernels at Yi-9B's ``train_4k``
               shape (B 1, H 32, KV 4, T = S = 4096, d 128, causal, bf16) on
               the (B, H, T, d) views of (B, T, H, d) tensors that the
@@ -237,7 +247,14 @@ LLM_SPARSITY = 0.8
 LLM_BLOCK = (16, 16)
 LLM_PROJECTIONS = [("wq", 4096, 4096), ("wk", 4096, 512),
                    ("gate", 4096, 11008), ("down", 11008, 4096)]
-LLM_ACTIVATIONS = ((4, 1), (4, 2048))  # (B, T): a decode step, a prefill
+# (B, T): decode steps of 4 (the serve phase's slots), 16 and 32 rows (up
+# to the rows schedule's crossover), a prefill
+LLM_ACTIVATIONS = ((4, 1), (16, 1), (32, 1), (4, 2048))
+# bytes written (then as many read) between the calls of a cold timing:
+# over twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 * 2**20
+# profiles taken of a timing before falling back to CUDA events
+PROFILE_TRIES = 3
 FLASH_SHAPE = (4, 32, 4, 2048, 128)   # B, H, KV, T = S, d
 BSR_MATMUL_TOL = 1e-4                 # x max(1, max |y|)
 # bf16 O, per element: one bf16 rounding (2^-8 of |O|) + FLASH_O_ATOL x rms(O)
@@ -296,8 +313,50 @@ def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
     launch overhead is left out, which CUDA events around back-to-back
     launches do not do when a kernel is shorter than its launch.  Where the
     profiler records no device time, or fewer kernels than the calls
-    launched (at least ``launches_per_call`` each), CUDA events time the
-    calls instead (said on stderr)."""
+    launched (at least ``launches_per_call`` each), in PROFILE_TRIES tries,
+    CUDA events time the calls instead (said on stderr)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):  # the profiler drops kernels at times
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
+        recorded = sum(e.count for e in kernels)
+        if total > 0 and recorded >= reps * launches_per_call:
+            return total / 1e3 / reps
+    print(f"chip_smoke: the profiler recorded {recorded} kernels and "
+          f"{total / 1e3} ms of device time for {reps} calls; timed with "
+          f"CUDA events", file=sys.stderr, flush=True)
+    return time_cuda(torch, fn, reps=reps, warmup=1)
+
+
+class L2Flush:
+    """Evicts the L2 between the calls of a cold timing: writes one
+    L2_FLUSH_BYTES buffer, then reads another, so that no dirty line of
+    the flush is written back during the timed call.  ``names`` are the
+    flush's own kernels, which ``cold_device_ms`` leaves out."""
+
+
+    def __init__(self, torch, device):
+        n = L2_FLUSH_BYTES // 4
+        self.w = torch.empty(n, device=device)
+        self.r = torch.ones(n, device=device)
+        self.names = set(_kernel_times(torch, self, 1))
+
+    def __call__(self):
+        self.w.fill_(1.0)
+        self.r.sum()
+
+
+def _kernel_times(torch, fn, reps: int) -> dict:
+    """Kernel name -> (device ms, count) summed over ``reps`` calls of
+    ``fn`` under ``torch.profiler``, after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -306,16 +365,45 @@ def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels)
-    recorded = sum(e.count for e in kernels)
-    if total > 0 and recorded >= reps * launches_per_call:
-        return total / 1e3 / reps
-    print(f"chip_smoke: the profiler recorded {recorded} kernels and "
-          f"{total / 1e3} ms of device time for {reps} calls; timed with "
-          f"CUDA events", file=sys.stderr, flush=True)
-    return time_cuda(torch, fn, reps=reps, warmup=1)
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def cold_device_ms(torch, fns, reps: int, flush: L2Flush, first: str):
+    """Device ms per call of each of ``fns`` with the L2 flushed before
+    each call, all in one profiler session (flush, fns[0], flush, fns[1],
+    ...): the first's kernels are those whose names hold ``first``, the
+    second's the others that are not the flush's.  Where the profiler
+    recorded fewer kernels than calls in PROFILE_TRIES tries, CUDA events
+    recorded just before and after each call instead (said on stderr): the
+    stream reaches them only once the flush before them has ended, so the
+    host's launch time falls outside them."""
+    def calls():
+        for fn in fns:
+            flush()
+            fn()
+    for _ in range(PROFILE_TRIES):
+        times = _kernel_times(torch, calls, reps)
+        parts = [[v for name, v in times.items() if first in name],
+                 [v for name, v in times.items()
+                  if first not in name and name not in flush.names]]
+        if all(sum(n for _, n in part) >= reps for part in parts):
+            return [sum(ms for ms, _ in part) / reps for part in parts]
+    print(f"chip_smoke: the profiler recorded too few kernels for {reps} "
+          f"cold calls; timed with CUDA events", file=sys.stderr, flush=True)
+    out = []
+    for fn in fns:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for start, end in pairs:
+            flush()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        out.append(sum(s.elapsed_time(e) for s, e in pairs) / reps)
+    return out
 
 
 def bound(nbytes: float, flops_f32: float = 0.0, flops_bf16: float = 0.0,
@@ -646,6 +734,7 @@ def llm_kernel_phase(torch, mods, device, seed):
     rows_out = {"bsr_matmul": [], "flash_attention_tc": []}
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     bk, plain = mods["kernels"]["bsr_matmul"], mods["matmul_plain"]
+    flush = L2Flush(torch, device)
     for name, d_in, d_out in LLM_PROJECTIONS:
         w = mods["dense_init"](gen, d_in, d_out, bf16, device)   # (in, out)
         pruned = mods["block_prune"](w.float(), LLM_SPARSITY, LLM_BLOCK)
@@ -687,6 +776,10 @@ def llm_kernel_phase(torch, mods, device, seed):
                   f"bsr_matmul {name} x {rows} rows: the wrapper's bf16 output "
                   f"is {ops_err} beyond one rounding of the plain version's "
                   f"(tolerance {BSR_MATMUL_TOL}*{scale})")
+            sched = mods["bsr_schedule"](rows, bf16)
+            check(sched == ("rows" if t == 1 else "wgmma"),
+                  f"bsr_matmul {name} x {rows} rows runs the {sched} "
+                  f"schedule")
             reps = 50 if rows <= 64 else 10
             # as the model calls it: x's dtype out
             event_ms = time_cuda(torch, lambda: bk(*args, out_dtype=bf16),
@@ -695,6 +788,13 @@ def llm_kernel_phase(torch, mods, device, seed):
             plain_ms = device_ms(torch, lambda: plain(*args), 1)
             library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib),
                                    reps)
+            cold = {}
+            if sched == "rows":   # the weights from device memory
+                pair = cold_device_ms(
+                    torch, (lambda: bk(*args, out_dtype=bf16),
+                            lambda: torch.matmul(x, w_lib)), 20, flush,
+                    "bsr_matmul_rows")
+                cold = {"kernel_cold_ms": pair[0], "library_cold_ms": pair[1]}
             moved = (rows * d_in * 2 + kept * bm * bn * 2 + kept * 4 + gm * 4
                      + rows * gm * bm * 2)
             b_ms, b_by = bound(moved, flops_bf16=2.0 * rows * kept * bm * bn)
@@ -702,17 +802,18 @@ def llm_kernel_phase(torch, mods, device, seed):
                    "shape": {"b": b, "t": t, "in": d_in, "out": d_out,
                              "block": [bm, bn], "kept_tiles": kept,
                              "tiles": gm * (d_in // bn), "KB": kb_dim},
-                   "schedule": mods["bsr_schedule"](rows, bf16),
+                   "schedule": sched,
                    "max_abs_err": err, "wrapper_excess": ops_err,
                    "kernel_ms": ms,
                    "kernel_event_ms": event_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": b_ms,
+                   "library_ms": library_ms, **cold, "bound_ms": b_ms,
                    "bound_by": b_by, "bound_bytes": moved}
             print(json.dumps(row), flush=True)
             rows_out["bsr_matmul"].append(row)
             del x3, x, got, want, y3
         del w_lib, bc
         torch.cuda.empty_cache()
+    del flush
 
     # -- flash attention forward at prefill shape (tensor cores, bf16) ----
     # In the model's (B, T, H, d) layout; the kernel reads the (B, H, T, d)
@@ -968,8 +1069,10 @@ def llm_serve_phase(torch, mods, device, seed):
            "tokens_per_s": tokens / wall}
     cache = T.init_cache(cfg, n_slots, max_len, device)
     toks = torch.zeros((n_slots, 1), dtype=torch.int64, device=device)
-    row.update(device_breakdown(torch, lambda: step(params, toks, cache, 0),
-                                tick_ms))
+    prof = device_breakdown(torch, lambda: step(params, toks, cache, 0),
+                            tick_ms, group=("bsr_matmul_rows",))
+    row.update(bsr_matmul_rows_ms=prof.pop("group_ms"),
+               bsr_matmul_rows_share=prof.pop("group_share"), **prof)
     print(json.dumps(row), flush=True)
     del params, engine, cache
     torch.cuda.empty_cache()
@@ -1544,7 +1647,10 @@ def kernel_entries(rows, launches):
         "bsr_matmul": "sums over wq, wk, gate and down at 4 rows (the rows "
                       "schedule) and 8192 rows (the wgmma schedule), Yi-9B, "
                       "bf16 in and out, sparsity 0.8; rows_* and wgmma_* "
-                      "keys: each schedule's sums",
+                      "keys: each schedule's sums; rows_cold_ms and "
+                      "rows_library_cold_ms the 4 rows' with the L2 "
+                      "flushed between calls; decode_rows: the rows "
+                      "schedule's sums at each decode row count",
         "flash_attention": "the FMA kernel (flash_fwd_kernel, f32 "
                            "operands): one causal forward, B 1, H 32, KV 4, "
                            "T 2048, d 128, f32",
@@ -1583,9 +1689,14 @@ def kernel_entries(rows, launches):
 
     kernels = []
     for name, (source, replaces) in meta.items():
+        # bsr_matmul: the serve phase's decode rows and the prefill's, as
+        # the times_are says
+        main = [r for r in rows[name]
+                if name != "bsr_matmul" or r["schedule"] == "wgmma"
+                or r["rows"] == SERVE_SLOTS]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
-                 **sums(rows[name]), "times_are": times_are[name]}
+                 **sums(main), "times_are": times_are[name]}
         if name in ("sparse_conv", "bsr_conv"):
             for key in ("kernel_device_ms", "library_device_ms"):
                 entry[key] = sum(r[key] for r in rows[name])
@@ -1600,8 +1711,20 @@ def kernel_entries(rows, launches):
             entry["rows_launches"] = (launches["bsr_matmul"]
                                       - launches["bsr_matmul_wgmma"])
             for sched in ("rows", "wgmma"):
-                part = sums([r for r in rows[name] if r["schedule"] == sched])
+                part = sums([r for r in main if r["schedule"] == sched])
                 entry.update({f"{sched}_{k}": v for k, v in part.items()})
+            decode = {}
+            for r in rows[name]:
+                if r["schedule"] == "rows":
+                    decode.setdefault(r["rows"], []).append(r)
+            entry["decode_rows"] = {
+                str(n): {**sums(rs), **{
+                    key: sum(r[key] for r in rs)
+                    for key in ("kernel_cold_ms", "library_cold_ms")}}
+                for n, rs in decode.items()}
+            serve = entry["decode_rows"][str(SERVE_SLOTS)]
+            entry["rows_cold_ms"] = serve["kernel_cold_ms"]
+            entry["rows_library_cold_ms"] = serve["library_cold_ms"]
         kernels.append(entry)
     return kernels
 

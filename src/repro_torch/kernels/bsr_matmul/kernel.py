@@ -6,11 +6,19 @@ launches the kernel on the current stream, for CPU tensors it runs the plain
 version (``ref.py``), and for anything else it raises.  A launch that CUDA
 refuses raises too.
 
-The source has two schedules: ``rows`` (SIMT, f32 or bf16, for few rows:
-decode) and ``wgmma`` (bf16 on the tensor cores, for many rows: prefill;
-x staged once per group of 16 block-rows).  ``schedule()`` picks one from
-the row count and the dtype.  The kernel writes y in ``out_dtype`` (f32 or
-bf16) from its f32 sums, one rounding.
+The source has two schedules: ``rows`` (f32 or bf16, for few rows: decode;
+a weight-streaming kernel) and ``wgmma`` (bf16 on the tensor cores, for
+many rows: prefill; x staged once per group of 16 block-rows).
+``schedule()`` picks one from the row count and the dtype.  The kernel
+writes y in ``out_dtype`` (f32 or bf16) from its f32 sums, one rounding.
+
+The ``rows`` schedule runs from a work list (``ref.rows_units``: each
+block-row's run of kept tiles cut into ``budget.bsr_matmul_rows_cluster``
+units of about equal size, the units of a block-row one thread-block
+cluster where there are several; ``ref.rows_cols``: each unit's block
+columns), built once per bank (``_build.cached``: one read-back of the
+bank's indices per weight, none per call).  A cluster adds its units'
+sums on chip: no workspace, no atomics, one launch.
 
 The ``wgmma`` schedule needs each block-row's kept block columns strictly
 ascending (what ``bcsr_from_dense`` builds); its launcher checks that on
@@ -24,24 +32,30 @@ none per call) and raises otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.sparse_format import block_column_fault
 from repro_torch.kernels import _build, budget
-from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+from repro_torch.kernels.bsr_matmul.ref import (bsr_matmul_plain, rows_cols,
+                                                rows_units)
 
 _SYMBOL = "bsr_matmul"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SCHEDULES = {"rows": 0, "wgmma": 1}
 
 
+# the C entry point's parameters: x, blocks, blockcol, nblocks, y, units,
+# cols; 15 sizes and codes; the stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_matmul")
     fn = getattr(lib, _SYMBOL)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -54,10 +68,58 @@ def schedule(rows: int, dtype: torch.dtype) -> str:
     return "rows"
 
 
+@functools.lru_cache(maxsize=1024)
+def _shape_fault(dtype, out_dtype, b, n, gm, bm, bn, sched):
+    """Why the kernel cannot take a launch of this shape, or None: the
+    checks that depend on the shape alone, made once a shape (a decode
+    step launches the same few shapes hundreds of times)."""
+    for what, dt in (("dtype", dtype), ("out_dtype", out_dtype)):
+        if dt not in DTYPES:
+            return f"{what} {dt} not one of {list(DTYPES)}"
+    reason = budget.bsr_matmul_unsupported(bm, bn, n, sched)
+    if reason is not None:
+        return reason
+    if b * max(n, gm * bm) >= 2**31:
+        return "x or y exceeds int32 row offsets"
+    return None
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     _build.check_operand("bsr_matmul", name, t, dtype, shape, device)
     if t.data_ptr() % 16:
         raise ValueError(f"bsr_matmul: {name} is not 16-byte aligned")
+
+
+def _rows_entry(blockcol: torch.Tensor, nblocks: torch.Tensor, bm: int,
+                bn: int, itemsize: int):
+    """(units, cols, cluster, launch) for a bank, made once per bank, tile
+    geometry and sizing (one read-back of the bank's indices); launch
+    holds the C entry point's rows arguments that depend on the bank
+    alone: the work list's pointers, its units, the stage's tiles, the
+    cluster and the units' most tiles."""
+    def make():
+        counts = nblocks.tolist()
+        cluster = budget.bsr_matmul_rows_cluster(len(counts), sum(counts),
+                                                 bm, bn, itemsize)
+        units = rows_units(counts, cluster).to(nblocks.device)
+        cols = rows_cols(units, blockcol).to(nblocks.device)
+        launch = (units.data_ptr(), cols.data_ptr(), units.shape[0],
+                  budget.bsr_matmul_rows_stage_tiles(bm, bn, itemsize),
+                  cluster, cols.shape[1])
+        return units, cols, cluster, launch
+    sizing = (budget.BSR_MATMUL_ROWS_UNITS_PER_SM,
+              budget.BSR_MATMUL_ROWS_CLUSTER_MAX,
+              budget.BSR_MATMUL_ROWS_UNIT_MIN_BYTES)
+    return _build.cached("bsr_matmul_rows", (blockcol, nblocks),
+                         (bm, bn, itemsize) + sizing, make)
+
+
+def rows_work(blockcol: torch.Tensor, nblocks: torch.Tensor, bm: int,
+              bn: int, itemsize: int):
+    """The ``rows`` schedule's work list for a bank: (units, cols, cluster)
+    on the bank's device, ``ref.rows_units`` and ``ref.rows_cols`` with
+    ``budget.bsr_matmul_rows_cluster``."""
+    return _rows_entry(blockcol, nblocks, bm, bn, itemsize)[:3]
 
 
 def _walkable(blockcol, nblocks, ncols):
@@ -71,35 +133,40 @@ def _walkable(blockcol, nblocks, ncols):
                          f"bank: {fault}")
 
 
-def _launch(x, blocks, blockcol, nblocks, out_dtype) -> torch.Tensor:
+def _launch(x, blocks, blockcol, nblocks, out_dtype,
+            sched=None) -> torch.Tensor:
+    """Launch the kernel; ``sched`` forces a schedule (the ablation's
+    crossover sweep), else ``schedule()`` picks it."""
     b, n = x.shape
     gm, kb_dim, bm, bn = blocks.shape
     dev = x.device
-    for what, dt in (("dtype", x.dtype), ("out_dtype", out_dtype)):
-        if dt not in DTYPES:
-            raise ValueError(f"bsr_matmul: {what} {dt} not one of "
-                             f"{list(DTYPES)}")
+    sched = schedule(b, x.dtype) if sched is None else sched
+    fault = _shape_fault(x.dtype, out_dtype, b, n, gm, bm, bn, sched)
+    if fault is not None:
+        raise ValueError(f"bsr_matmul: {fault}")
     _check(x, "x", x.dtype, (b, n), dev)
     _check(blocks, "blocks", x.dtype, (gm, kb_dim, bm, bn), dev)
     _check(blockcol, "blockcol", torch.int32, (gm, kb_dim), dev)
     _check(nblocks, "nblocks", torch.int32, (gm,), dev)
-    sched = schedule(b, x.dtype)
-    reason = budget.bsr_matmul_unsupported(bm, bn, n, sched)
-    if reason is not None:
-        raise ValueError(f"bsr_matmul: {reason}")
-    if b * max(n, gm * bm) >= 2**31:
-        raise ValueError("bsr_matmul: x or y exceeds int32 row offsets")
-    if sched == "wgmma":
-        _build.check_once("bsr_matmul_wgmma", (blockcol, nblocks),
-                          lambda: _walkable(blockcol, nblocks, n // bn))
     out = torch.empty((b, gm * bm), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
     fn = getattr(_lib(), _SYMBOL)
+    if sched == "wgmma":
+        _build.check_once("bsr_matmul_wgmma", (blockcol, nblocks),
+                          lambda: _walkable(blockcol, nblocks, n // bn))
+        work, rows_pass = (None, None, 0, 0, 0, 0), 0
+    else:
+        size = x.element_size()
+        work = _rows_entry(blockcol, nblocks, bm, bn, size)[3]
+        rows_pass = budget.bsr_matmul_rows_pass(b, size)
+    units, cols, nunits, stage_tiles, cluster, maxt = work
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), blocks.data_ptr(), blockcol.data_ptr(),
-                 nblocks.data_ptr(), out.data_ptr(), b, n, gm, kb_dim, bm, bn,
+                 nblocks.data_ptr(), out.data_ptr(), units, cols, b, n, gm,
+                 kb_dim, bm, bn, nunits, stage_tiles, cluster, maxt,
+                 budget.BSR_MATMUL_ROWS_BLOCKS_PER_SM, rows_pass,
                  DTYPES[x.dtype], DTYPES[out_dtype], SCHEDULES[sched], stream)
     _build.check(err, "bsr_matmul")
     bsr_matmul_kernel.launches += 1
@@ -115,10 +182,12 @@ def bsr_matmul_kernel(x: torch.Tensor, blocks: torch.Tensor,
     """y = x @ W.T for BCSR W, f32 accumulate.
 
     x (B, N) f32 or bf16 with N % bn == 0; blocks (gm, KB, bm, bn) of x's
-    dtype; blockcol (gm, KB) int32, strictly ascending within a row up to
-    its nblocks for the ``wgmma`` schedule (checked once per bank);
-    nblocks (gm,) int32.  Returns (B, gm*bm) in ``out_dtype``
-    (f32 or bf16): the f32 sums rounded once.
+    dtype; blockcol (gm, KB) int32, in any order for the ``rows``
+    schedule, strictly ascending within a row up to its nblocks for the
+    ``wgmma`` schedule (checked once per bank); nblocks (gm,) int32.
+    Tiles past a row's nblocks are never read.  Returns (B, gm*bm) in
+    ``out_dtype`` (f32 or bf16): the f32 sums rounded once, the same bits
+    on every launch.
     """
     if x.device.type == "cuda":
         return _launch(x, blocks, blockcol, nblocks, out_dtype)

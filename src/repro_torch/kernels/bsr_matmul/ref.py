@@ -8,6 +8,13 @@ axis (vectorised over block-rows), so it holds one gathered (B, gm, bn)
 slab at a time.  Inside a tile the library's summation order is not the
 kernel's, so the two agree to f32 rounding, not bit for bit.
 
+``rows_units`` builds the ``rows`` schedule's work list from a bank's
+tile counts, and ``bsr_matmul_rows_plain`` mirrors that schedule's
+partition and order of sums on it: each block-row's run of kept tiles cut
+into units (a cluster of blocks), each unit's (16, 16) pieces dealt to its
+warps in turn, the warps' sums added in warp order, and a block-row's
+unit sums added in unit order.
+
 ``bsr_matmul_walk_plain`` mirrors the ``wgmma`` schedule's traversal:
 groups of block-rows, each walking the columns of x in chunks with one
 pointer a block-row, taking the run of its tiles whose block columns fall
@@ -41,6 +48,77 @@ def bsr_matmul_plain(x: torch.Tensor, blocks: torch.Tensor,
         xg = xt[:, blockcol[:, kb].long()]                   # (B, gm, bn)
         acc += torch.einsum("bgn,gmn->bgm", xg, tile)
     return acc.reshape(b, gm * bm)
+
+
+# the fields of a ``rows`` unit: its block-row, its run of tiles
+# [kb0, kb1), and its rank among the block-row's units
+UNIT_FIELDS = ("row", "kb0", "kb1", "rank")
+
+
+def rows_units(counts, cluster: int) -> torch.Tensor:
+    """The ``rows`` schedule's work list for a bank whose block-rows keep
+    ``counts`` tiles (a list or an int tensor): each block-row's run of
+    tiles [0, count) cut into ``cluster`` consecutive units whose sizes
+    differ by at most one (some empty where a block-row keeps fewer
+    tiles; a block-row of no tile writes zeros), in block-row order.
+    Returns (len(counts) * cluster, 4) int32 on the CPU, columns
+    ``UNIT_FIELDS``."""
+    if cluster < 1:
+        raise ValueError(f"cluster {cluster} < 1")
+    counts = counts.tolist() if isinstance(counts, torch.Tensor) else counts
+    units = [(i, j * nb // cluster, (j + 1) * nb // cluster, j)
+             for i, nb in enumerate(counts) for j in range(cluster)]
+    return torch.tensor(units, dtype=torch.int32).reshape(-1, 4)
+
+
+def rows_cols(units: torch.Tensor, blockcol: torch.Tensor) -> torch.Tensor:
+    """The block columns of each unit's tiles, the ``rows`` schedule's
+    second part of its work list: (units, maxt) int32 on the CPU, row u
+    holding ``blockcol[row, kb0:kb1]`` of unit u then zeros, maxt the most
+    tiles a unit holds (at least 1).  The kernel reads them at a fixed
+    stride, without first reading the unit's descriptor."""
+    spans = units.tolist()
+    maxt = max([kb1 - kb0 for _, kb0, kb1, _ in spans] + [1])
+    bc = blockcol.cpu()
+    cols = torch.zeros((len(spans), maxt), dtype=torch.int32)
+    for u, (row, kb0, kb1, _) in enumerate(spans):
+        cols[u, :kb1 - kb0] = bc[row, kb0:kb1]
+    return cols
+
+
+def bsr_matmul_rows_plain(x: torch.Tensor, blocks: torch.Tensor,
+                          blockcol: torch.Tensor, nblocks: torch.Tensor,
+                          units: torch.Tensor, *,
+                          warps: int = 4) -> torch.Tensor:
+    """The ``rows`` schedule's sums on the kernel's operands and its work
+    list ``units`` (``rows_units``): unit u sums the (bm, 16) pieces of its
+    tiles, piece p (tile p // (bn / 16), columns 16 (p % (bn / 16)) on)
+    going to warp p % ``warps``, each warp in piece order; the unit's sum
+    is warp 0's + warp 1's + ...; a block-row is its units' sums in unit
+    order.  -> (B, gm*bm) f32."""
+    b, _ = x.shape
+    gm, _, bm, bn = blocks.shape
+    ks = bn // 16
+    xf = x.float()
+    out = torch.zeros((b, gm, bm), dtype=torch.float32, device=x.device)
+    rows = {}
+    for row, kb0, kb1, _ in units.tolist():
+        unit = torch.zeros((b, bm), dtype=torch.float32, device=x.device)
+        warp = [torch.zeros_like(unit) for _ in range(warps)]
+        for p in range((kb1 - kb0) * ks):
+            kb, k = kb0 + p // ks, 16 * (p % ks)
+            c = int(blockcol[row, kb]) * bn + k
+            warp[p % warps] += (xf[:, c:c + 16]
+                                @ blocks[row, kb, :, k:k + 16].float().T)
+        for w in warp:
+            unit += w
+        rows.setdefault(row, []).append(unit)
+    for row, sums in rows.items():
+        total = sums[0]
+        for s in sums[1:]:
+            total = total + s
+        out[:, row] = total
+    return out.reshape(b, gm * bm)
 
 
 def bsr_matmul_walk_plain(x: torch.Tensor, blocks: torch.Tensor,

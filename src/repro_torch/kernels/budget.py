@@ -8,8 +8,8 @@ input slab of a channel chunk and each row's window of nonzeros, the BCSR
 conv the group's tiles at one block column (both halves of their split),
 flash attention a query chunk and a kv chunk (the backward kernels a query
 chunk with its dO rows and a kv chunk); the BCSR matmul's ``rows`` schedule
-stages nothing but its 4 warps' partial sums, its ``wgmma`` schedule a ring
-of x chunks and the kept tiles that fall in them.  What bounds a schedule
+a ring of its unit's kept tiles, its ``wgmma`` schedule a ring of x chunks
+and the kept tiles that fall in them.  What bounds a schedule
 on an H100 is a block's shared memory, and how many blocks fill the card's
 132 SMs (NVIDIA H100 data sheet and the CUDA programming guide, compute
 capability 9.0).
@@ -61,15 +61,44 @@ BSR_CONV_MIN_BLOCKS = SMS // 2
 
 # BCSR matmul (csrc/bsr_matmul.cu): the block height it instantiates (the
 # (16, 16) tiles ``sparsify_params`` builds), and the largest row count the
-# SIMT ``rows`` schedule takes on bf16 inputs before the tensor-core
-# ``wgmma`` schedule does.  The crossover is not measured: the paths that
-# exist give 4 rows (decode) or thousands (prefill), far on either side of
-# it.
+# ``rows`` schedule takes on bf16 inputs before the tensor-core ``wgmma``
+# schedule does (f32 inputs always take ``rows``).  Measured on an H100
+# (``ablate.py --crossover``, PERF.md): over Yi-9B's wq, wk, gate and down
+# at 0.8, ``rows`` takes less device time in sum at every row count from 8
+# to 2048 (wgmma's blocks of 128 rows leave most of the card idle below
+# a few thousand rows), ``wgmma`` at the prefill's 8192.
 BSR_MATMUL_BM = (16,)
-BSR_MATMUL_ROWS_MAX = 32
-# rows: 4 warps x 8 rows x BM f32 partial sums, reduced across warps.
+BSR_MATMUL_ROWS_MAX = 2048
+# rows: a weight-streaming schedule.  Each block-row's run of kept tiles
+# (contiguous in the bank) is cut into CLUSTER units of about equal size,
+# the units of a block-row one thread-block cluster where CLUSTER > 1, so
+# that a bank of few block-rows still fills the card.  A block's producer
+# warp stages x's rows (where they take at most X_MAX bytes, bf16 passes
+# of 8 rows) and streams its units through a ring of STAGES shared-memory
+# stages of about STAGE_BYTES (1-D bulk copies on an mbarrier each) while
+# WARPS consumer warps multiply; the cluster's first block adds its units'
+# sums through distributed shared memory.
 BSR_MATMUL_ROWS_WARPS = 4
-BSR_MATMUL_ROWS_PER_BLOCK = 8
+BSR_MATMUL_ROWS_STAGES = 4
+BSR_MATMUL_ROWS_STAGE_BYTES = 4096
+BSR_MATMUL_ROWS_X_MAX = 96 * 1024
+# The cluster size: about UNITS_PER_SM units a streaming multiprocessor
+# over the bank, at most CLUSTER_MAX (the portable cluster size), and
+# units of at least UNIT_MIN_BYTES on average (a unit is one round trip to
+# device memory at least).  One unit an SM splits only banks of fewer
+# block-rows than SMs (wk, wv: 32): the ablation's clusters cost more than
+# they gain on the others (PERF.md).
+BSR_MATMUL_ROWS_UNITS_PER_SM = 1
+BSR_MATMUL_ROWS_CLUSTER_MAX = 8
+BSR_MATMUL_ROWS_UNIT_MIN_BYTES = 2048
+# Without a cluster a block takes an equal share of the units, at most
+# BLOCKS_PER_SM blocks an SM (0: as many as fit).
+BSR_MATMUL_ROWS_BLOCKS_PER_SM = 4
+# Rows of x one block sums (a pass; more rows take more passes, each a
+# row of blocks): bf16 inputs in groups of 8 (the n of an m16n8k16 mma),
+# f32 inputs one f32 sum a row and lane.
+BSR_MATMUL_ROWS_PASS_BF16 = (8, 16, 32, 64)
+BSR_MATMUL_ROWS_PASS_F32 = (8, 32)
 # wgmma: a block of two warpgroups owns 128 rows of x and a group of 16
 # block-rows, and walks x in chunks of 128 columns: a ring of 3 x stages
 # and one of 2 stages of the group's tiles.
@@ -146,10 +175,55 @@ def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int) -> int:
     return 2 * 2 * n_tile * bn * 4 + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 
-def bsr_matmul_smem_bytes(bm: int) -> int:
-    """Static shared memory of one ``rows`` block of the BCSR matmul: the
-    warps' f32 partial sums."""
-    return BSR_MATMUL_ROWS_WARPS * BSR_MATMUL_ROWS_PER_BLOCK * bm * 4
+def bsr_matmul_rows_stage_tiles(bm: int, bn: int, itemsize: int) -> int:
+    """Kept tiles one stage of the ``rows`` ring holds: STAGE_BYTES of
+    them, at least one, and enough that the stage's (bm, 16) pieces deal
+    evenly to the consumer warps (piece p of a unit is then warp p's mod
+    WARPS, whatever its stage)."""
+    tiles = max(1, BSR_MATMUL_ROWS_STAGE_BYTES // (bm * bn * itemsize))
+    while tiles * (bn // 16) % BSR_MATMUL_ROWS_WARPS:
+        tiles += 1
+    return tiles
+
+
+def bsr_matmul_rows_pass(rows: int, itemsize: int) -> int:
+    """Rows of x one ``rows`` block sums: the smallest pass the source
+    instantiates that holds ``rows``, else the largest."""
+    passes = BSR_MATMUL_ROWS_PASS_BF16 if itemsize == 2 \
+        else BSR_MATMUL_ROWS_PASS_F32
+    return next((p for p in passes if p >= rows), passes[-1])
+
+
+def bsr_matmul_smem_bytes(bm: int = 16, bn: int = 16, itemsize: int = 2,
+                          rows: int = 4, n: int = 4096,
+                          cluster: int = 1) -> int:
+    """Dynamic shared memory of one ``rows`` block of the BCSR matmul
+    (``rows_smem_bytes`` in the source): 128 bytes of mbarriers; x's rows of
+    the pass where staged (bf16, passes of 8 rows, at most X_MAX bytes);
+    the ring of tile stages; the warps' f32 sums of a pass; with a
+    cluster, a slot of a pass's sums for each of its blocks."""
+    r = bsr_matmul_rows_pass(rows, itemsize)
+    x = -(-min(r, rows) * n * itemsize // 128) * 128
+    staged = itemsize == 2 and r == 8 and x <= BSR_MATMUL_ROWS_X_MAX
+    ring = (BSR_MATMUL_ROWS_STAGES
+            * bsr_matmul_rows_stage_tiles(bm, bn, itemsize) * bm * bn
+            * itemsize)
+    sums = r * bm * 4
+    return (128 + (x if staged else 0) + ring
+            + BSR_MATMUL_ROWS_WARPS * sums + (cluster * sums if cluster > 1
+                                              else 0))
+
+
+def bsr_matmul_rows_cluster(gm: int, total: int, bm: int, bn: int,
+                            itemsize: int) -> int:
+    """Units a block-row (the cluster size) for a bank of ``gm`` block-rows
+    keeping ``total`` tiles: UNITS_PER_SM x SMS units over the bank, at
+    most CLUSTER_MAX, and at least UNIT_MIN_BYTES of tiles a unit on
+    average."""
+    want = -(-BSR_MATMUL_ROWS_UNITS_PER_SM * SMS // max(gm, 1))
+    fill = total * bm * bn * itemsize // max(
+        gm * BSR_MATMUL_ROWS_UNIT_MIN_BYTES, 1)
+    return max(1, min(BSR_MATMUL_ROWS_CLUSTER_MAX, want, fill))
 
 
 def bsr_matmul_wgmma_smem_bytes() -> int:
@@ -179,6 +253,11 @@ def bsr_matmul_unsupported(bm: int, bn: int, n: int,
     if schedule == "wgmma" and BSR_MATMUL_WGMMA_CHUNK % bn:
         return (f"block width {bn} does not divide the wgmma schedule's "
                 f"chunk of {BSR_MATMUL_WGMMA_CHUNK} columns")
+    if schedule == "rows" and not smem_fits(bsr_matmul_smem_bytes(
+            bm, bn, 4, BSR_MATMUL_ROWS_PASS_F32[-1], 0,
+            BSR_MATMUL_ROWS_CLUSTER_MAX)):
+        return (f"block width {bn}: a stage of the rows schedule's ring "
+                f"does not fit a block's shared memory")
     return None
 
 

@@ -115,6 +115,11 @@ def test_schedule_and_wrapper_checks():
     assert bk.schedule(4, torch.bfloat16) == "rows"
     assert bk.schedule(8192, torch.bfloat16) == "wgmma"
     assert bk.schedule(8192, torch.float32) == "rows"
+    # the measured crossover: rows up to budget.BSR_MATMUL_ROWS_MAX
+    from repro_torch.kernels import budget
+    top = budget.BSR_MATMUL_ROWS_MAX
+    assert bk.schedule(top, torch.bfloat16) == "rows"
+    assert bk.schedule(top + 1, torch.bfloat16) == "wgmma"
     bc = fmt.bcsr_from_dense(np.ones((32, 64), np.float32), (16, 16),
                              device="cpu")
     with pytest.raises(ValueError, match="last dim"):
@@ -263,3 +268,148 @@ def test_walk_check_runs_once_per_bank():
     _build.check_once("test_walk", (bcol, nb), lambda: calls.append(1))
     assert len(calls) == 2
     assert fmt.block_column_fault(bcol, nb, 16) is None
+
+
+# -- the rows schedule's work list and its plain mirror ------------------
+# (tile counts a block-row, KB, units a block-row): empty block-rows, ragged
+# counts, fewer tiles than units, one block-row holding every tile, and
+# wk's 32 block-rows.
+UNIT_CASES = [
+    ([0, 3, 0, 7, 1, 0], 8, 2),
+    ([5, 17, 2, 9, 13, 1, 4], 17, 4),
+    ([0, 0, 64, 0], 64, 8),
+    ([51, 48, 55, 50] * 8, 64, 8),     # GM 32, as wk (4096 -> 512)
+    ([138, 140, 0, 135], 688, 1),
+]
+
+
+@pytest.mark.parametrize("counts, kb, cluster", UNIT_CASES, ids=str)
+def test_rows_work_list_covers_every_kept_tile_once(counts, kb, cluster):
+    """Each kept tile (kb < nblocks[i]) lies in exactly one unit, no unit
+    reaches a padding tile, every block-row has ``cluster`` consecutive
+    units in rank order (a cluster of blocks; an empty block-row's all
+    empty: it writes zeros), a block-row's units differ in size by at
+    most one tile, and each unit's block columns stand at a fixed
+    stride."""
+    units = ref.rows_units(torch.tensor(counts, dtype=torch.int32),
+                           cluster).tolist()
+    assert len(units) == len(counts) * cluster
+    seen = {}
+    for u, (row, kb0, kb1, rank) in enumerate(units):
+        assert (row, rank) == divmod(u, cluster)
+        assert 0 <= kb0 <= kb1 <= counts[row] <= kb
+        for t in range(kb0, kb1):
+            assert (row, t) not in seen
+            seen[(row, t)] = u
+    assert set(seen) == {(i, t) for i, n in enumerate(counts)
+                         for t in range(n)}
+    # each unit's block columns at a fixed stride, zeros past its tiles
+    blockcol = torch.arange(len(counts) * kb, dtype=torch.int32).reshape(
+        len(counts), kb)
+    cols = ref.rows_cols(torch.tensor(units, dtype=torch.int32), blockcol)
+    assert cols.shape == (len(units), max(
+        [kb1 - kb0 for _, kb0, kb1, _ in units] + [1]))
+    for u, (row, kb0, kb1, _) in enumerate(units):
+        assert cols[u, :kb1 - kb0].tolist() == list(range(
+            row * kb + kb0, row * kb + kb1))
+        assert not cols[u, kb1 - kb0:].any()
+    for i, n in enumerate(counts):
+        mine = units[i * cluster:(i + 1) * cluster]
+        sizes = [kb1 - kb0 for _, kb0, kb1, _ in mine]
+        assert sum(sizes) == n and max(sizes) - min(sizes) <= 1
+        assert [kb0 for _, kb0, _, _ in mine] == sorted(
+            kb0 for _, kb0, _, _ in mine)
+
+
+def test_rows_cluster_fills_the_card():
+    """Yi-9B's banks at sparsity 0.8 in bf16: wk's 32 block-rows split over
+    clusters of 5 (160 blocks, every SM), wq's, gate's and down's 256 or
+    more block-rows not at all; f32 banks the same; a bank too small for
+    units of 2 KB takes fewer."""
+    from repro_torch.kernels import budget
+
+    for gm, total, want in ((32, 1638, 5), (256, 13107, 1), (688, 35225, 1),
+                            (256, 35225, 1)):
+        for size in (2, 4):
+            assert budget.bsr_matmul_rows_cluster(gm, total, 16, 16,
+                                                  size) == want
+    assert budget.bsr_matmul_rows_cluster(32, 64, 16, 16, 2) == 1
+    assert budget.bsr_matmul_rows_cluster(4, 0, 16, 16, 2) == 1
+    for bn, size in ((16, 2), (16, 4), (48, 2), (128, 2), (128, 4)):
+        tiles = budget.bsr_matmul_rows_stage_tiles(16, bn, size)
+        assert tiles * (bn // 16) % budget.BSR_MATMUL_ROWS_WARPS == 0
+    assert budget.bsr_matmul_rows_pass(4, 2) == 8
+    assert budget.bsr_matmul_rows_pass(129, 4) == 32
+    assert budget.bsr_matmul_rows_pass(48, 2) == 64
+
+
+def _rows_bank(gm, n, block, seed, pad_to=1):
+    """A pruned bank over ``gm`` block-rows with ragged counts, block-row 1
+    empty and the last holding every tile, NaN in its padding tiles."""
+    bm, bn = block
+    rng = np.random.default_rng(seed)
+    w = np.array(ref_pruning.block_prune(jnp.asarray(
+        rng.standard_normal((gm * bm, n)).astype(np.float32)), 0.8, block))
+    w[bm:2 * bm] = 0.0
+    w[-bm:] = rng.standard_normal((bm, n)).astype(np.float32)
+    bc = fmt.bcsr_from_dense(w, block, pad_to=pad_to, device="cpu")
+    blocks = bc.blocks.clone()
+    kb = torch.arange(bc.kb)[None, :]
+    blocks[kb >= bc.nblocks[:, None].long()] = float("nan")
+    return w, bc, blocks
+
+
+# (rows, M, N, block, units a block-row)
+ROWS_MIRROR_CASES = [
+    (4, 512, 256, (16, 16), 8),        # GM 32, as wk
+    (1, 96, 640, (16, 16), 3),
+    (8, 64, 512, (16, 128), 2),
+    (37, 160, 384, (16, 32), 5),
+]
+
+
+@pytest.mark.parametrize("case", ROWS_MIRROR_CASES, ids=str)
+def test_rows_mirror_matches_plain(case):
+    """The rows schedule's partition and order of sums (a block-row's
+    units, pieces dealt to 4 warps, warps then units added in order)
+    against the plain version
+    and the dense product, in f32: within 1e-5 x max(1, max |y|), sums in
+    another order.  Padding tiles hold NaN and are never read."""
+    rows, m, n, block, cluster = case
+    w, bc, blocks = _rows_bank(m // block[0], n, block, rows, pad_to=4)
+    units = ref.rows_units(bc.nblocks, cluster)
+    x = np.random.default_rng(rows + 1).standard_normal(
+        (rows, n)).astype(np.float32)
+    got = ref.bsr_matmul_rows_plain(torch.from_numpy(x), blocks,
+                                    bc.blockcol, bc.nblocks, units)
+    want = ref.bsr_matmul_plain(torch.from_numpy(x), blocks, bc.blockcol,
+                                bc.nblocks)
+    limit = 1e-5 * max(1.0, float(want.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= limit
+    assert float(np.abs(got.numpy() - x @ w.T).max()) <= limit
+    np.testing.assert_array_equal(got[:, block[0]:2 * block[0]].numpy(), 0.0)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+def test_rows_mirror_matches_reference_kernel(rows):
+    """At decode row counts, the rows schedule's mirror on Yi-9B-like
+    (16, 16) tiles (GM 32, ragged, an empty block-row, one block-row with
+    every tile, NaN padding) against the JAX package's Pallas kernel in
+    interpret mode (x padded to its batch tile, as its ops pad it): within
+    1e-5 x max(1, max |y|) in f32 (the same products, summed in another
+    order)."""
+    w, bc, blocks = _rows_bank(32, 256, (16, 16), 100 + rows, pad_to=2)
+    units = ref.rows_units(bc.nblocks, 8)
+    x = np.random.default_rng(rows).standard_normal(
+        (rows, 256)).astype(np.float32)
+    tb = 8
+    xp = np.pad(x, ((0, (-rows) % tb), (0, 0)))
+    want = np.asarray(bsr_matmul_pallas(
+        jnp.asarray(xp), jnp.asarray(blocks.numpy()),
+        jnp.asarray(bc.blockcol.numpy()), jnp.asarray(bc.nblocks.numpy()),
+        tb=tb, interpret=True))[:rows]
+    got = ref.bsr_matmul_rows_plain(torch.from_numpy(x), blocks,
+                                    bc.blockcol, bc.nblocks, units)
+    limit = 1e-5 * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got.numpy() - want).max()) <= limit

@@ -81,8 +81,13 @@ def test_operand_checks_name_the_kernel_and_the_fault():
 def test_new_kernels_fit_the_cards_shared_memory():
     from repro_torch.kernels import budget
 
-    for bm in budget.BSR_MATMUL_BM:   # static __shared__: no opt-in
-        assert budget.bsr_matmul_smem_bytes(bm) <= budget.SMEM_DEFAULT
+    # the rows schedule at decode: x staged (32 KB at N 4096, 88 KB at
+    # 11008), opted in above 48 KB; wk's cluster of 8 slots
+    for bm in budget.BSR_MATMUL_BM:
+        for n, cluster in ((4096, 8), (11008, 1)):
+            assert budget.smem_fits(budget.bsr_matmul_smem_bytes(
+                bm, 16, 2, 4, n, cluster))
+    assert budget.bsr_matmul_smem_bytes(16, 16, 2, 4, 4096) == 51_328
     for d in budget.FLASH_HEAD_DIMS:  # dynamic, opted in above 48 KB
         assert budget.smem_fits(budget.flash_smem_bytes(d))
     assert budget.flash_smem_bytes(128) == 74_368
@@ -127,3 +132,20 @@ def test_conv_kernels_fit_the_cards_shared_memory():
     assert budget.smem_fits(budget.bsr_conv_smem_bytes(8, 128, 64, kbc))
     assert not budget.smem_fits(budget.bsr_conv_smem_bytes(8, 128, 128, kbc))
     assert max(t for t, _ in budget.BSR_CONV_TILES) == 64
+
+
+def test_bsr_matmul_argtypes_match_the_c_entry_point():
+    """The launcher's ctypes argument list has one entry a parameter of
+    ``extern "C" int bsr_matmul(...)``, pointers where the source takes
+    ``void*`` and ints where it takes ``int``: a mismatch would pass
+    pointers cut to 32 bits, or raise only on the card."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels.bsr_matmul.kernel import ARGTYPES
+
+    text = _build.SOURCES["bsr_matmul"].read_text()
+    params = re.search(r'extern "C" int bsr_matmul\(([^)]*)\)', text).group(1)
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+             for p in params.split(",")]
+    assert ARGTYPES == kinds

@@ -17,7 +17,9 @@ BCSR matmul's ``wgmma`` schedule must refuse a bank it cannot walk.
 
 The BCSR matmul cases cover both schedules (``rows``, ``wgmma``), (16, 16)
 and (16, 128) tiles, ragged row counts and the prefill's 8192 rows, in f32
-and bf16 output; the flash cases GQA 8:1 at d = 128 with T = 200 (not a
+and bf16 output; the ``rows`` cases also every decode row count it serves
+on a bank with an empty block-row, a block-row split over many units, 32
+block-rows, columns out of order or repeated, and NaN padding; the flash cases GQA 8:1 at d = 128 with T = 200 (not a
 multiple of either chunk), causal and full, S != T, MHA, and bf16 (the
 tensor-core forward, dQ and dK/dV) at every head dimension of
 ``budget.FLASH_HEAD_DIMS``, causal and full.  The counters show which
@@ -40,7 +42,8 @@ in bf16 each element within one bf16 rounding plus 1e-3 of the rms, a
 limit that the plain version with p rounded to bf16 exceeds.  dK and dV
 of the tensor-core kernel sum each kv head's group in a fixed order, the
 tensor-core dQ and the ``wgmma`` BCSR matmul write each output from one
-thread: two launches on the same operands agree bit for bit.  The BCSR
+thread, and the ``rows`` BCSR matmul adds a split block-row's partial sums
+in a fixed order: two launches on the same operands agree bit for bit.  The BCSR
 matmul's bf16 output is its f32 output rounded once, bit for bit.
 """
 import dataclasses
@@ -227,8 +230,8 @@ def test_refused_launch_raises(cuda_device):
                                          ((3, 3), "share a block column")])
 def test_bsr_matmul_refuses_a_bank_it_cannot_walk(cuda_device, cols, fault):
     """The wgmma schedule's walk would skip the tile listed after a higher
-    column, or overwrite a repeated one: 64 bf16 rows of such a bank raise,
-    checked once per bank, and the rows schedule sums it."""
+    column, or overwrite a repeated one: 2112 bf16 rows (wgmma) of such a
+    bank raise, checked once per bank, and the rows schedule sums it."""
     from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
                                                        schedule)
     from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
@@ -237,8 +240,8 @@ def test_bsr_matmul_refuses_a_bank_it_cannot_walk(cuda_device, cols, fault):
     blocks = torch.randn((1, 2, 16, 16), generator=gen, device=cuda_device)
     bcol = torch.tensor([cols], dtype=torch.int32, device=cuda_device)
     nb = torch.tensor([2], dtype=torch.int32, device=cuda_device)
-    x = torch.randn((64, 256), generator=gen, device=cuda_device)
-    assert schedule(64, torch.bfloat16) == "wgmma"
+    x = torch.randn((2112, 256), generator=gen, device=cuda_device)
+    assert schedule(2112, torch.bfloat16) == "wgmma"
     with pytest.raises(ValueError, match=fault):
         bsr_matmul_kernel(x.to(torch.bfloat16), blocks.to(torch.bfloat16),
                           bcol, nb)
@@ -251,19 +254,20 @@ def test_bsr_matmul_refuses_a_bank_it_cannot_walk(cuda_device, cols, fault):
 # (rows, M, N, block, dtype, schedule): (16, 16) tiles as the transformer's
 # banks, (16, 128) tiles, rows not a multiple of either schedule's row tile
 # (8 for rows, 128 for wgmma), bf16 row counts on both sides of
-# budget.BSR_MATMUL_ROWS_MAX, which picks the schedule, more block-rows
-# than one wgmma group (16) and N over several of its 128-column chunks,
-# the last ragged; 8192 rows at Yi-9B's wq shape.
+# budget.BSR_MATMUL_ROWS_MAX = 2048, which picks the schedule (the wgmma
+# cases 2048 rows above it, with the same ragged tail of 128), more
+# block-rows than one wgmma group (16) and N over several of its
+# 128-column chunks, the last ragged; 8192 rows at Yi-9B's wq shape.
 BSR_MATMUL_CASES = [
     (4, 256, 512, (16, 16), torch.bfloat16, "rows"),
     (13, 96, 256, (16, 16), torch.float32, "rows"),
-    (40, 64, 256, (16, 16), torch.bfloat16, "wgmma"),
-    (300, 160, 384, (16, 16), torch.bfloat16, "wgmma"),
+    (2088, 64, 256, (16, 16), torch.bfloat16, "wgmma"),
+    (2348, 160, 384, (16, 16), torch.bfloat16, "wgmma"),
     (29, 64, 512, (16, 128), torch.bfloat16, "rows"),
-    (515, 128, 1024, (16, 128), torch.bfloat16, "wgmma"),
+    (2563, 128, 1024, (16, 128), torch.bfloat16, "wgmma"),
     (129, 48, 256, (16, 128), torch.float32, "rows"),
-    (33, 400, 592, (16, 16), torch.bfloat16, "wgmma"),
-    (100, 272, 448, (16, 32), torch.bfloat16, "wgmma"),
+    (2081, 400, 592, (16, 16), torch.bfloat16, "wgmma"),
+    (2148, 272, 448, (16, 32), torch.bfloat16, "wgmma"),
     (8192, 4096, 4096, (16, 16), torch.bfloat16, "wgmma"),
 ]
 
@@ -308,16 +312,88 @@ def test_bsr_matmul_padding_tiles_are_not_read(cuda_device):
     bc = bcsr_from_dense(w, (16, 16))
     blocks = bc.blocks.clone()
     blocks[1] = float("nan")
-    x = torch.ones((40, 64), device=cuda_device)
+    x = torch.ones((2088, 64), device=cuda_device)
     for sched, dt in (("rows", torch.float32), ("wgmma", torch.bfloat16)):
-        assert schedule(40, dt) == sched
+        assert schedule(2088, dt) == sched
         got = bsr_matmul_kernel(x.to(dt), blocks.to(dt), bc.blockcol,
                                 bc.nblocks)
         torch.cuda.synchronize()
-        assert torch.equal(got[:, :16], torch.full((40, 16), 64.0,
+        assert torch.equal(got[:, :16], torch.full((2088, 16), 64.0,
                                                    device=cuda_device))
-        assert torch.equal(got[:, 16:], torch.zeros((40, 16),
+        assert torch.equal(got[:, 16:], torch.zeros((2088, 16),
                                                     device=cuda_device))
+
+
+# -- BCSR matmul, the rows schedule --------------------------------------
+# (rows, dtype): bf16 at the decode row counts the schedule serves, f32 at
+# the f32 decode step's 2 rows, the consistency forward's 128 and a ragged
+# 129 (several passes of rows over the same units).
+ROWS_CASES = [(1, torch.bfloat16), (2, torch.bfloat16), (4, torch.bfloat16),
+              (16, torch.bfloat16), (32, torch.bfloat16), (2, torch.float32),
+              (128, torch.float32), (129, torch.float32)]
+
+
+def _rows_bank(device, dtype, seed):
+    """GM 32 block-rows (wk's count) over N 1024: block-row 0 keeps no tile,
+    block-row 1 every one of its 64, the rest about a fifth (ragged);
+    block-rows 2-5 list their tiles in reverse column order, block-row 6
+    names its first column twice; padding tiles hold NaN."""
+    from repro_torch.core.pruning import block_prune
+    from repro_torch.core.sparse_format import bcsr_from_dense
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = block_prune(torch.randn((512, 1024), generator=gen, device=device),
+                    0.8, (16, 16))
+    w[:16] = 0.0
+    w[16:32] = torch.randn((16, 1024), generator=gen, device=device)
+    bc = bcsr_from_dense(w.to(dtype), (16, 16))
+    blocks, bcol = bc.blocks.clone(), bc.blockcol.clone()
+    nb = bc.nblocks.tolist()
+    for i in range(2, 6):
+        blocks[i, :nb[i]] = blocks[i, :nb[i]].flip(0)
+        bcol[i, :nb[i]] = bcol[i, :nb[i]].flip(0)
+    bcol[6, 1] = bcol[6, 0]
+    kb = torch.arange(bc.kb, device=device)[None, :]
+    blocks[kb >= bc.nblocks[:, None]] = float("nan")
+    return blocks, bcol, bc.nblocks
+
+
+@pytest.mark.parametrize("case", ROWS_CASES, ids=str)
+def test_bsr_matmul_rows_schedule_matches_plain(cuda_device, case):
+    """The weight-streaming rows schedule on a bank with an empty block-row,
+    a block-row of 64 tiles, GM 32 (each block-row a cluster of units),
+    columns out of order and repeated, and NaN padding: within 1e-4 x max(1, max |y|) of the plain
+    version and of its own mirror, the empty block-row exactly 0, two
+    launches bit for bit, and the bf16 output the f32 one rounded once."""
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       rows_work, schedule)
+    from repro_torch.kernels.bsr_matmul.ref import (bsr_matmul_plain,
+                                                    bsr_matmul_rows_plain)
+
+    rows, dtype = case
+    assert schedule(rows, dtype) == "rows"
+    blocks, bcol, nb = _rows_bank(cuda_device, dtype, rows)
+    x = torch.randn((rows, 1024), generator=torch.Generator(
+        device=cuda_device).manual_seed(rows + 1),
+        device=cuda_device).to(dtype)
+    args = (x, blocks, bcol, nb)
+    before = (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches)
+    got = bsr_matmul_kernel(*args)
+    torch.cuda.synchronize()
+    assert (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches) \
+        == (before[0] + 1, before[1])
+    units, cols, cluster = rows_work(bcol, nb, 16, 16, x.element_size())
+    assert cluster > 1                  # each block-row over a cluster
+    want = bsr_matmul_plain(*args)
+    scale = max(1.0, float(want.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    mirror = bsr_matmul_rows_plain(*args, units)
+    assert float((got - mirror).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
+    assert torch.equal(bsr_matmul_kernel(*args), got)
+    assert torch.equal(bsr_matmul_kernel(*args, out_dtype=torch.bfloat16),
+                       got.to(torch.bfloat16))
 
 
 # -- flash attention forward ---------------------------------------------
