@@ -36,7 +36,17 @@ Phases (any failure exits non-zero and prints no result):
               check must reject ``bsr_conv_split_plain(lo=False)``, one
               product on operands rounded once to TF32; the split's plain
               mirror is reported beside it, and ``bound_tc_ms`` prices the
-              three TF32 products of the split at 495 TFLOP/s.
+              three TF32 products of the split at 495 TFLOP/s.  Beside
+              each layer's f32 rows, the variants: the ELL kernel on int8
+              and e4m3 banks (``quantize_values``), bit for bit the f32
+              kernel on ``dequantize(bank)`` and the plain version, both
+              schedules; the BCSR kernel on int8 and e4m3 (8, 128) banks
+              and at (32, 128) and (64, 128) blocks (f32), each within
+              1e-4 x (1 + max |y|) of its plain version.  Their bounds
+              count the narrow value streams and scale rows (the same
+              operations; ``bound_tc_ms`` two TF32 products for a quantised
+              bank), ``library_ms`` ``F.conv2d`` on the dequantised
+              weights, ``f32_ms`` the f32 row's time.
 3. path    -- ResNet-50, GoogLeNet and AlexNet at full width, random pruned
               weights from ``--seed``, through ``cnn_forward`` with
               ``pallas``, ``bsr`` and ``dense``.  For each net and kernel
@@ -49,7 +59,28 @@ Phases (any failure exits non-zero and prints no result):
               over 3 synchronised forwards) and, from one forward under
               ``torch.profiler``, the device's busy time, its idle share of
               the unprofiled forward time, and the kernels that took the
-              most device time.  The nets are freed afterwards.
+              most device time.
+3b. auto   -- ``method="auto"`` on the same three nets (224 px, batch 8):
+              the engine's own roofline plan (priced from the bound
+              weights), a ``quantize=True`` roofline plan run after
+              ``apply_plan_to_params``, and a plan pinning the ELL kernel
+              on int8 and e4m3 banks by turns; ResNet-50 block-pruned in
+              (64, 128) tiles (``block_prune_conv``) under its roofline
+              plans and a plan pinning (32, 128) and (64, 128) blocks, f32
+              and quantised, by turns, beside its ``dense``, ``pallas`` and
+              ``bsr`` forwards; AlexNet tuned in wall mode on the card
+              (every candidate timed with CUDA events), saved under
+              ``build/plans/``, reloaded with every layer a cache hit, and
+              run.  Every forward is counted and must launch exactly what
+              its plan asks (variants included), its ``ExecutionReport``
+              must show 0 fallbacks, f32 plans must lie within 1e-4 x
+              max(1, max |dense|) of ``dense`` and quantised ones within a
+              relative Frobenius norm of 0.05.  Each line carries the
+              layers per method, block and value dtype, the forward time,
+              the profiled busy time, idle share and launches; the wall
+              line the seconds the tuning took, the candidates measured
+              and the layers where its winner differs from the roofline's.
+              The nets are freed afterwards.
 4. llm kernels -- on Yi-9B shapes with ``--seed`` weights block-pruned to
               0.8 with (16, 16) tiles, bf16: ``bsr_matmul`` on wq
               (4096 -> 4096), wk (4096 -> 512), gate (4096 -> 11008) and
@@ -174,7 +205,7 @@ Phases (any failure exits non-zero and prints no result):
 11. the ``kernels`` JSON line, then the card's name and power limit, then
    the device line last.
 
-Every counted run sets all eleven launch counters (``COUNTERS``) to 0 just
+Every counted run sets all seventeen launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
@@ -222,6 +253,15 @@ PATH_RTOL = 1e-4
 COUNTERS = {
     "sparse_conv": ("sparse_conv", "launches"),
     "bsr_conv": ("bsr_conv", "launches"),
+    # the conv kernels' variants: the ELL kernel on int8 and e4m3 banks, the
+    # BCSR kernel on int8 and e4m3 banks and at block heights 32 and 64
+    # (each also counted in its kernel's total)
+    "sparse_conv_int8": ("sparse_conv", "int8_launches"),
+    "sparse_conv_e4m3": ("sparse_conv", "e4m3_launches"),
+    "bsr_conv_int8": ("bsr_conv", "int8_launches"),
+    "bsr_conv_e4m3": ("bsr_conv", "e4m3_launches"),
+    "bsr_conv_bm32": ("bsr_conv", "bm32_launches"),
+    "bsr_conv_bm64": ("bsr_conv", "bm64_launches"),
     "bsr_matmul": ("bsr_matmul", "launches"),
     "bsr_matmul_wgmma": ("bsr_matmul", "wgmma_launches"),
     "flash_attention": ("flash_attention", "launches"),
@@ -234,6 +274,25 @@ COUNTERS = {
                                    "reduce_launches"),
 }
 KERNEL_NAMES = tuple(COUNTERS)
+# the CNN path's counters (the conv kernels and their variants); the others
+# are the transformer path's
+CNN_NAMES = tuple(n for n in KERNEL_NAMES if n.startswith(("sparse_conv",
+                                                           "bsr_conv")))
+LLM_NAMES = tuple(n for n in KERNEL_NAMES if n not in CNN_NAMES)
+# the variants the kernel phase times beside each conv kernel's f32 row:
+# (name, value dtype, BCSR block)
+ELL_VARIANTS = (("sparse_conv_int8", "int8"),
+                ("sparse_conv_e4m3", "float8_e4m3fn"))
+BSR_VARIANTS = (("bsr_conv_int8", "int8", (8, 128)),
+                ("bsr_conv_e4m3", "float8_e4m3fn", (8, 128)),
+                ("bsr_conv_bm32", None, (32, 128)),
+                ("bsr_conv_bm64", None, (64, 128)))
+# the auto phase: quantised plans against dense by the reference's
+# quantisation bound (relative Frobenius norm)
+QUANT_REL_TOL = 0.05
+# block-pruned ResNet-50: tiles of the tallest block, so that every block
+# height of the ladder keeps the same fraction
+BLOCK_PRUNE = (64, 128)
 # the kernels one layer's attention launches in a train step, by dtype
 FLASH_F32 = ("flash_attention", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
@@ -473,7 +532,7 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
     F = torch.nn.functional
     np = mods["np"]
     ops_ell, ops_bsr = mods["ops_ell"], mods["ops_bsr"]
-    rows = {"sparse_conv": [], "bsr_conv": []}
+    rows = {name: [] for name in CNN_NAMES}
     rng = np.random.default_rng(seed + 1)
     for net_name, layer in KERNEL_LAYERS:
         program, params = nets[net_name]
@@ -546,6 +605,57 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
                "bound_by": b_by, "bound_bytes": moved}
         print(json.dumps(row), flush=True)
         rows["sparse_conv"].append(row)
+        f32_row = row
+
+        # -- the ELL kernel on quantised banks: bit for bit the f32 kernel
+        # on the dequantised bank (and the plain version), both schedules
+        for name, vdt in ELL_VARIANTS:
+            q = mods["quantize"](ell, vdt)
+            d = mods["dequantize"](q)
+            qargs = (xpad, q.value, packed, q.nnz, bias, res)
+            dargs = (xpad, d.value, packed, d.nnz, bias, res)
+            want = mods["ell_plain"](*qargs, scale=q.scale, **kw)
+            for sc in (sched, blocking):
+                gq = mods["ell_kernel"](*qargs, schedule=sc, scale=q.scale,
+                                        **kw)
+                gd = mods["ell_kernel"](*dargs, schedule=sc, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(gq, gd) and torch.equal(gq, want),
+                      f"{layer}: ELL kernel on the {vdt} bank "
+                      f"({'pipelined' if sc.pipeline else 'blocking'}) not "
+                      f"bit-identical to the f32 kernel on the dequantised "
+                      f"bank (max_abs_err {float((gq - gd).abs().max())}) "
+                      f"or its plain version")
+            run = lambda sc=sched: mods["ell_kernel"](  # noqa: E731
+                *qargs, schedule=sc, scale=q.scale, **kw)
+            ms = time_cuda(torch, run, reps=20, warmup=3)
+            dev_ms = device_ms(torch, run, reps=10)
+            blocking_ms = time_cuda(torch, lambda: run(blocking), reps=20,
+                                    warmup=3)
+            plain_ms = time_cuda(torch, lambda: mods["ell_plain"](
+                *qargs, scale=q.scale, **kw), reps=2, warmup=1)
+            # the dequantised weights, dense, for the library yardstick
+            wq = torch.zeros((op.m, op.c * op.k * op.k), device=device)
+            wq.scatter_add_(1, packed.long(), d.value)
+            wq = wq.view(op.m, op.c, op.k, op.k)
+            lib = lambda: F.conv2d(x, wq, bias, stride=op.stride,  # noqa: E731
+                                   padding=op.pad)
+            lib_ms = time_cuda(torch, lib, reps=20, warmup=3)
+            # one 32-bit word a nonzero and the scale row, where the f32
+            # bank streams 8 bytes a nonzero; the same operations
+            moved = act_bytes + nnz_total * 4 + ell.nnz.numel() * 4 + op.m * 4
+            b_ms, b_by = bound(moved, 2.0 * nnz_total * batch * op.e * op.f)
+            vrow = {"kernel": name, "net": net_name, "layer": layer,
+                    "value_dtype": vdt,
+                    "schedule": dataclasses.asdict(sched),
+                    "bit_identical": True, "max_abs_err": 0.0,
+                    "kernel_ms": ms, "blocking_ms": blocking_ms,
+                    "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "bound_bytes": moved,
+                    "f32_ms": f32_row["kernel_ms"]}
+            print(json.dumps(vrow), flush=True)
+            rows[name].append(vrow)
 
         # -- BCSR block-sparse conv --------------------------------------
         bc = mods["bcsr_from_dense"](w.cpu().numpy(), block=mods["block"],
@@ -608,6 +718,70 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
                "bound_bytes": moved}
         print(json.dumps(row), flush=True)
         rows["bsr_conv"].append(row)
+        f32_row = row
+
+        # -- the BCSR kernel on quantised banks and at taller blocks ------
+        for name, vdt, block in BSR_VARIANTS:
+            bc = mods["bcsr_from_dense"](w.cpu().numpy(), block=block,
+                                         device=device)
+            if vdt is not None:
+                bc = mods["quantize"](bc, vdt)
+            halves = None if vdt else mods["split_weights"](bc.blocks)
+            gbm, kb_dim, bm, bn = bc.blocks.shape
+            mpad = gbm * bm
+            tile, reason = ops_bsr.resolve_bsr_schedule(
+                bm, bn, op.e, op.f, n=batch, m=mpad,
+                crs=op.c * op.k * op.k, value_dtype=bc.value_dtype)
+            check(tile is not None,
+                  f"{layer}: no BCSR schedule for {name} ({reason})")
+            bpad = torch.zeros(mpad, device=device)
+            bpad[:op.m] = bias
+            rpad = None
+            if res is not None:
+                rpad = torch.zeros((batch, mpad, op.e, op.f), device=device)
+                rpad[:, :op.m] = res
+            bargs = (xpad, bc.blocks, bc.blockcol, bc.nblocks, bpad, rpad)
+            vkw = dict(kw, scale=bc.scale)
+            bkw = dict(vkw, n_tile=tile[0], wgs=tile[1], halves=halves)
+            got = mods["bsr_kernel"](*bargs, **bkw)
+            torch.cuda.synchronize()
+            want = mods["bsr_plain"](*bargs, **vkw)
+            limit = BSR_TOL * (1 + float(want.abs().max()))
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"{layer}: {name} not finite")
+            check(err <= limit, f"{layer}: {name} disagrees with its plain "
+                  f"version (max_abs_err {err}, tolerance {limit})")
+            ms = time_cuda(torch, lambda: mods["bsr_kernel"](*bargs, **bkw),
+                           reps=20, warmup=3)
+            dev_ms = device_ms(torch, lambda: mods["bsr_kernel"](
+                *bargs, **bkw), reps=10)
+            plain_ms = time_cuda(torch, lambda: mods["bsr_plain"](
+                *bargs, **vkw), reps=2, warmup=1)
+            wq = mods["bcsr_to_dense"](bc)
+            lib = lambda: F.conv2d(x, wq, bias, stride=op.stride,  # noqa: E731
+                                   padding=op.pad)
+            lib_ms = time_cuda(torch, lib, reps=20, warmup=3)
+            kept = int(bc.nblocks.sum())
+            width = 1 if vdt else 4
+            moved = (act_bytes + kept * bm * bn * width + kept * 4 + gbm * 4
+                     + (mpad * 4 if vdt else 0))
+            flops = 2.0 * kept * bm * bn * batch * op.e * op.f
+            b_ms, b_by = bound(moved, flops)
+            # a quantised tile is exact in TF32: two products, not three
+            tc_ms, tc_by = bound(moved, flops_tf32=(2 if vdt else 3) * flops)
+            vrow = {"kernel": name, "net": net_name, "layer": layer,
+                    "value_dtype": vdt or "float32", "block": [bm, bn],
+                    "kept_tiles": kept,
+                    "schedule": {"n_tile": tile[0], "warpgroups": tile[1]},
+                    "max_abs_err": err, "tolerance": limit,
+                    "kernel_ms": ms, "kernel_device_ms": dev_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": tc_ms,
+                    "bound_tc_by": tc_by, "bound_bytes": moved,
+                    "f32_ms": f32_row["kernel_ms"]}
+            print(json.dumps(vrow), flush=True)
+            rows[name].append(vrow)
     return rows
 
 
@@ -672,6 +846,248 @@ def path_phase(torch, mods, nets, device, batch, image, seed):
             print(json.dumps(row), flush=True)
     return launches
 
+
+
+def _copy_params(params):
+    """A params dict whose layer entries are copies (the tensors shared), so
+    that ``apply_plan_to_params`` adds its banks to the copy only."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in params.items()}
+
+
+def _plan_counts(plan, program):
+    """The launches a forward under ``plan`` must make, by counter."""
+    want = {name: 0 for name in KERNEL_NAMES}
+    for op in program.conv_ops:
+        pe = plan[op.name]
+        if op.sparsity <= 0 or pe.method not in ("pallas", "bsr"):
+            continue
+        kernel = "sparse_conv" if pe.method == "pallas" else "bsr_conv"
+        want[kernel] += 1
+        if pe.value_dtype != "float32":
+            want[kernel + ("_int8" if pe.value_dtype == "int8"
+                           else "_e4m3")] += 1
+        if pe.method == "bsr" and pe.block_m in (32, 64):
+            want[f"bsr_conv_bm{pe.block_m}"] += 1
+    return want
+
+
+def _layers(plan):
+    out = {}
+    for pe in plan.values():
+        key = pe.method + ("" if pe.method != "bsr" else
+                           f"/{pe.block_m}") + f"/{pe.value_dtype}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def auto_phase(torch, mods, nets, device, batch, image, seed):
+    """``method="auto"`` at full width: each net under the engine's own
+    roofline plan, a ``quantize=True`` roofline plan, and a plan pinning
+    the ELL kernel on int8 and e4m3 banks; block-pruned ResNet-50 under
+    its roofline plans and a plan pinning the tall BCSR blocks; AlexNet
+    tuned in wall mode on the card, saved under ``build/``, reloaded and
+    run.  Returns the CNN counters' launches over the counted forwards."""
+    np, cnn = mods["np"], mods["cnn"]
+    tun = mods["tuning"]
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in CNN_NAMES}
+    rng = np.random.default_rng(seed + 4)
+
+    def fwd_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def run(label, net_name, eng, x, plan, dense, quantised):
+        """Warm-up (plan, banks), one counted forward, checks, the row."""
+        eng(x, "auto")
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        y = eng(x, "auto")
+        torch.cuda.synchronize()
+        counts = read_counts(mods)
+        plan = plan if plan is not None else eng._auto_plans[batch]
+        want = _plan_counts(plan, eng.program)
+        check(counts == want, f"{net_name}/{label}: launches {counts}, "
+              f"expected {want}")
+        for name in CNN_NAMES:
+            launches[name] += counts[name]
+        report = eng.execution_report(x, "auto")
+        check(report.fallback_count == 0, f"{net_name}/{label}: "
+              f"{report.fallback_count} fallbacks\n{report.format()}")
+        check(tuple(y.shape) == (batch, 1000) and bool(
+            torch.isfinite(y).all()), f"{net_name}/{label}: bad output")
+        ms = fwd_ms(lambda: eng(x, "auto"))
+        row = {"phase": "auto", "net": net_name, "plan": label,
+               "batch": batch, "image": image, "layers": _layers(plan),
+               "launches": {k: v for k, v in counts.items() if v},
+               "forward_ms": ms,
+               "report": {"fallback_count": report.fallback_count,
+                          "methods_executed": report.methods_executed,
+                          "roofline_est_ms": report.est_s * 1e3}}
+        row.update(device_breakdown(torch, lambda: eng(x, "auto"), ms))
+        scale = float(dense.abs().max())
+        err = float((y - dense).abs().max())
+        rel = float(torch.linalg.norm(y - dense) / torch.linalg.norm(dense))
+        row.update(max_abs_err_vs_dense=err, dense_absmax=scale,
+                   rel_norm_vs_dense=rel)
+        if quantised:
+            check(rel < QUANT_REL_TOL, f"{net_name}/{label}: relative norm "
+                  f"{rel} against dense, limit {QUANT_REL_TOL}")
+        else:
+            check(err <= PATH_RTOL * max(1.0, scale),
+                  f"{net_name}/{label}: disagrees with dense (max_abs_err "
+                  f"{err}, tolerance {PATH_RTOL}*max(1, {scale}))")
+        print(json.dumps(row), flush=True)
+        return row
+
+    def method_ms(net, params, x):
+        out = {}
+        for method in ("dense", "pallas", "bsr"):
+            out[method] = fwd_ms(lambda: cnn.cnn_forward(net, params, x,
+                                                         method))
+        return out
+
+    def pinned(program, plan, make):
+        """``plan`` with its i-th sparse layer's entry ``make(i)``."""
+        out = dict(plan)
+        sparse = [op for op in program.conv_ops if op.sparsity > 0]
+        for i, op in enumerate(sparse):
+            out[op.name] = make(i)
+        return out
+
+    roofline = {}
+    for net_name in ("resnet50", "googlenet", "alexnet"):
+        program, params = nets[net_name]
+        net = cnn.NETWORKS[net_name]()
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, 3, image, image)).astype(np.float32)).to(device)
+        dense = cnn.cnn_forward(net, params, x, "dense")
+        # the engine's own roofline plan, priced from the bound weights
+        eng = cnn.engine_for(net, params, tuple(x.shape[1:]))
+        run("roofline", net_name, eng, x, None, dense, False)
+        roofline[net_name] = eng._auto_plans[batch]
+        # quantize=True: narrow value streams where the roofline likes them
+        qplan = tun.plan_program(program, batch=batch, params=params,
+                                 quantize=True, device=device)
+        qparams = tun.apply_plan_to_params(_copy_params(params), qplan)
+        run("roofline-quantised", net_name,
+            mods["CnnEngine"](program, qparams, qplan, device=device), x,
+            qplan, dense, True)
+        # the ELL kernel on its quantised banks: int8 and e4m3 by turns
+        eplan = pinned(program, qplan, lambda i: mods["PlanEntry"](
+            method="pallas", fuse=True, pipeline=True, source="pinned",
+            value_dtype=("int8", "float8_e4m3fn")[i % 2]))
+        eparams = tun.apply_plan_to_params(_copy_params(params), eplan)
+        run("ell-int8-e4m3-pinned", net_name,
+            mods["CnnEngine"](program, eparams, eplan, device=device), x,
+            eplan, dense, True)
+        del qparams, eparams
+        torch.cuda.empty_cache()
+
+    # block-pruned ResNet-50: every sparse layer pruned in (64, 128) tiles
+    # at its sparsity, so that the BCSR banks keep that fraction of tiles
+    program, params = nets["resnet50"]
+    net = cnn.NETWORKS["resnet50"]()
+    wrng = np.random.default_rng(seed + 5)
+    np_params = {"_fc_rng": params["_fc_rng"]}
+    for op in program.conv_ops:
+        w = (wrng.standard_normal((op.m, op.c, op.k, op.k)).astype(np.float32)
+             * (2.0 / (op.c * op.k * op.k)) ** 0.5)
+        if op.sparsity > 0:
+            w = mods["block_prune_conv"](w, op.sparsity, BLOCK_PRUNE)
+        np_params[op.name] = {"w": w, "b": np.zeros(op.m, np.float32)}
+    bparams = mods["params_from_reference"](np_params, device=device)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, image, image)).astype(np.float32)).to(device)
+    dense = cnn.cnn_forward(net, bparams, x, "dense")
+    eng = cnn.engine_for(net, bparams, tuple(x.shape[1:]))
+    row = run("roofline", "resnet50-block-pruned", eng, x, None, dense,
+              False)
+    bplan = eng._auto_plans[batch]
+    qplan = tun.plan_program(program, batch=batch, params=bparams,
+                             quantize=True, device=device)
+    qparams = tun.apply_plan_to_params(_copy_params(bparams), qplan)
+    run("roofline-quantised", "resnet50-block-pruned",
+        mods["CnnEngine"](program, qparams, qplan, device=device), x, qplan,
+        dense, True)
+    # the tall blocks on the path: bm 32 and 64, f32 and quantised, by turns
+    cycle = ((32, "float32"), (64, "float32"), (32, "float8_e4m3fn"),
+             (64, "int8"))
+    tplan = pinned(program, bplan, lambda i: mods["PlanEntry"](
+        method="bsr", block_m=cycle[i % 4][0], block_n=128, fuse=True,
+        value_dtype=cycle[i % 4][1], source="pinned"))
+    tparams = tun.apply_plan_to_params(_copy_params(bparams), tplan)
+    trow = run("bsr-tall-pinned", "resnet50-block-pruned",
+               mods["CnnEngine"](program, tparams, tplan, device=device), x,
+               tplan, dense, True)
+    ms = method_ms(net, bparams, x)
+    print(json.dumps({"phase": "auto", "net": "resnet50-block-pruned",
+                      "plan": "methods", "forward_ms": ms,
+                      "auto_roofline_ms": row["forward_ms"],
+                      "auto_tall_pinned_ms": trow["forward_ms"]}),
+          flush=True)
+    del bparams, qparams, tparams, eng
+    torch.cuda.empty_cache()
+
+    # AlexNet in wall mode on the card: every candidate measured, the plan
+    # saved under build/, reloaded with every layer a cache hit, then run
+    program, params = nets["alexnet"]
+    net = cnn.NETWORKS["alexnet"]()
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, image, image)).astype(np.float32)).to(device)
+    dense = cnn.cnn_forward(net, params, x, "dense")
+    path = os.path.join(ROOT, "build", "plans", "alexnet_wall.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    wplan = tun.plan_program(program, batch=batch, mode="wall",
+                             cache=mods["PlanCache"](path), params=params,
+                             device=device, warmup=1, iters=3)
+    tune_s = time.perf_counter() - t0
+    keys, measured = set(), 0
+    for op in program.conv_ops:
+        g = tun.geometry_of_op(op, batch=batch)
+        key = tun.layer_key(g, "cuda")
+        if op.sparsity > 0 and key not in keys:
+            keys.add(key)
+            measured += sum(tun.measurable(c, "cuda")
+                            for c in tun.enumerate_candidates(g))
+    with mods["telemetry"].enabled():
+        mods["telemetry"].reset()
+        reload = tun.plan_program(program, batch=batch, mode="wall",
+                                  cache=mods["PlanCache"](path),
+                                  params=params, device=device)
+        hits = mods["telemetry"].snapshot().get(
+            "tuning.plan.cache_hit", {}).get("value", 0)
+        mods["telemetry"].reset()
+    check(reload == wplan and hits == len(program.conv_ops) and all(
+        pe.provenance == "cache_hit" for pe in reload.values()),
+        f"alexnet: the wall plan did not round-trip through {path} "
+        f"({hits} cache hits of {len(program.conv_ops)})")
+    eng = cnn.engine_for(net, params, tuple(x.shape[1:]), reload)
+    wrow = run("wall", "alexnet", eng, x, reload, dense, False)
+    ms = method_ms(net, params, x)
+    differ = {}
+    for name, pe in wplan.items():
+        rf = roofline["alexnet"][name]
+        pick = lambda e: (e.method, e.block_m, e.tm, e.value_dtype,  # noqa
+                          e.fuse, e.pipeline, e.permute)
+        if pick(pe) != pick(rf):
+            differ[name] = {"wall": pe.to_dict(), "roofline": rf.to_dict()}
+    print(json.dumps({"phase": "auto", "net": "alexnet", "plan": "wall-tune",
+                      "tune_s": tune_s, "candidates_measured": measured,
+                      "layers_tuned": len(keys), "plan_cache": os.path.relpath(
+                          path, ROOT),
+                      "forward_ms": ms, "auto_wall_ms": wrow["forward_ms"],
+                      "differ_from_roofline": differ,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1611,6 +2027,12 @@ def kernel_entries(rows, launches):
                         "src/repro/kernels/sparse_conv/kernel.py:213"),
         "bsr_conv": ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
                      "src/repro/kernels/bsr_conv/kernel.py:155"),
+        **{name: ("src/repro_torch/kernels/sparse_conv/csrc/sparse_conv.cu",
+                  "src/repro/kernels/sparse_conv/kernel.py:213")
+           for name, _ in ELL_VARIANTS},
+        **{name: ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
+                  "src/repro/kernels/bsr_conv/kernel.py:155")
+           for name, _, _ in BSR_VARIANTS},
         "bsr_matmul": ("src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
                        "src/repro/kernels/bsr_matmul/kernel.py:49"),
         "flash_attention": (
@@ -1644,6 +2066,21 @@ def kernel_entries(rows, launches):
                     f"three TF32 products of the split on the tensor cores; "
                     f"kernel_device_ms and library_device_ms profiler "
                     f"device time",
+        **{name: f"the ELL kernel on {vdt} banks (one 32-bit word a "
+                 f"nonzero, the scale row): sums over the kernel phase's "
+                 f"{len(rows[name])} layers, batch {BATCH}, pipelined "
+                 f"(blocking_ms the blocking schedule), bit for bit the f32 "
+                 f"kernel on the dequantised bank; f32_ms the f32 bank's "
+                 f"kernel_ms; library_ms F.conv2d on the dequantised "
+                 f"weights; launches from the auto phase's counted forwards"
+           for name, vdt in ELL_VARIANTS},
+        **{name: f"the BCSR kernel, {'(8, 128) blocks of ' + vdt + ' tiles' if vdt else f'{block} blocks of f32 tiles'}: "
+                 f"sums over the kernel phase's {len(rows[name])} layers, "
+                 f"batch {BATCH}; bound_tc_ms prices "
+                 f"{'two' if vdt else 'three'} TF32 products; f32_ms the "
+                 f"(8, 128) f32 bank's kernel_ms; library_ms F.conv2d on the "
+                 f"(dequantised) weights; launches from the auto phase"
+           for name, vdt, block in BSR_VARIANTS},
         "bsr_matmul": "sums over wq, wk, gate and down at 4 rows (the rows "
                       "schedule) and 8192 rows (the wgmma schedule), Yi-9B, "
                       "bf16 in and out, sparsity 0.8; rows_* and wgmma_* "
@@ -1700,6 +2137,13 @@ def kernel_entries(rows, launches):
         if name in ("sparse_conv", "bsr_conv"):
             for key in ("kernel_device_ms", "library_device_ms"):
                 entry[key] = sum(r[key] for r in rows[name])
+        if name in CNN_NAMES and name not in ("sparse_conv", "bsr_conv"):
+            for key in ("kernel_device_ms", "f32_ms"):
+                entry[key] = sum(r[key] for r in rows[name])
+        if name in dict(ELL_VARIANTS):
+            entry["blocking_ms"] = sum(r["blocking_ms"] for r in rows[name])
+        if name.startswith("bsr_conv_"):
+            entry["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows[name])
         if name == "sparse_conv":
             entry["blocking_ms"] = sum(r["blocking_ms"] for r in rows[name])
         if name == "bsr_conv":
@@ -1733,8 +2177,14 @@ def load_modules() -> dict:
     """The port's modules the phases use (``src/`` on the path)."""
     import numpy as np
 
+    from repro_torch import telemetry, tuning
     from repro_torch.core.direct_conv import pad_in
-    from repro_torch.core.sparse_format import bcsr_conv_from_dense
+    from repro_torch.core.pruning import block_prune_conv
+    from repro_torch.core.sparse_format import (bcsr_conv_from_dense,
+                                                bcsr_conv_to_dense,
+                                                dequantize, quantize_values)
+    from repro_torch.engine import CnnEngine, params_from_reference
+    from repro_torch.tuning import PlanCache, PlanEntry
     from repro_torch.engine.engine import DEFAULT_BSR_BLOCK
     from repro_torch.engine.lower import lower
     from repro_torch.kernels import _build
@@ -1776,6 +2226,12 @@ def load_modules() -> dict:
     from repro_torch.serving import Request, ServeEngine
 
     mods = dict(np=np, cnn=cnn, pad_in=pad_in, ops_ell=ops_ell,
+                quantize=quantize_values, dequantize=dequantize,
+                bcsr_to_dense=bcsr_conv_to_dense, tuning=tuning,
+                telemetry=telemetry, CnnEngine=CnnEngine,
+                PlanEntry=PlanEntry, PlanCache=PlanCache,
+                block_prune_conv=block_prune_conv,
+                params_from_reference=params_from_reference,
                 ops_bsr=ops_bsr, ell_kernel=sparse_conv_kernel,
                 ell_plain=sparse_conv_plain, bsr_kernel=bsr_conv_kernel,
                 bsr_plain=bsr_conv_plain, bsr_split_plain=bsr_conv_split_plain,
@@ -1857,6 +2313,9 @@ def main() -> int:
         rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
         launches = path_phase(torch, mods, nets, device, BATCH,
                               IMAGE, args.seed)
+        auto = auto_phase(torch, mods, nets, device, BATCH, IMAGE, args.seed)
+        for name in CNN_NAMES:
+            launches[name] = launches.get(name, 0) + auto[name]
         nets.clear()
         torch.cuda.empty_cache()
         rows.update(llm_kernel_phase(torch, mods, device, args.seed))
@@ -1867,7 +2326,7 @@ def main() -> int:
         rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
         consist = train_consistency_phase(torch, mods, device, args.seed)
         train = train_phase(torch, mods, device, args.seed)
-        for name in KERNEL_NAMES[2:]:
+        for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
                 decode_consist, prefill, serve, consist, train))
         never = [name for name in KERNEL_NAMES if not launches[name]]

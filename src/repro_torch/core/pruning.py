@@ -1,9 +1,10 @@
 """Magnitude weight pruning (Han et al. lineage, as used by the paper).
 
 Port of ``repro/core/pruning.py``: ``magnitude_prune`` on the host in numpy
-(the CNN weights are drawn on the host), and ``block_prune`` on a tensor on
-any device (the transformer's weights are drawn on the card, one matrix at
-a time).  Both thresholds repeat ``jnp.quantile``'s linear interpolation in
+(the CNN weights are drawn on the host), and ``block_prune`` and
+``block_prune_conv`` on a tensor on any device (the transformer's weights
+are drawn on the card, one matrix at a time; a numpy filter bank is pruned
+on the host and returned as numpy).  Both thresholds repeat ``jnp.quantile``'s linear interpolation in
 float32 (sort, ``q * (n - 1)``, floor/ceil weights, ``lo * w_lo + hi * w_hi``),
 so the kept mask matches the reference's up to ties at the threshold.
 ``torch.quantile`` is not used: it interpolates in another order and
@@ -15,6 +16,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.types import SparsityConfig
 
 
 def _quantile_weights(n: int, q: float):
@@ -76,3 +79,37 @@ def block_prune(w: torch.Tensor, sparsity: float,
     keep = scores > _quantile_f32_torch(scores.reshape(-1), sparsity)
     tiles = tiles * keep[:, :, None, None].to(tiles.dtype)
     return tiles.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)[:m, :n]
+
+
+def block_prune_conv(w, sparsity: float, block: Tuple[int, int]):
+    """Prune an (M, C, R, S) filter bank at tile granularity.
+
+    The bank is scored over its flattened (M, C*R*S) weight matrix, the
+    layout :class:`~repro_torch.core.sparse_format.BcsrConv` blocks, so every
+    surviving tile is one dense (bm, bn) tile of the BCSR conv kernel.  Same
+    tile L2-norm rule as :func:`block_prune`.  A numpy bank comes back as
+    numpy, a tensor as a tensor on its device.
+    """
+    if sparsity <= 0.0:
+        return w
+    if w.ndim != 4:
+        raise ValueError(f"block_prune_conv expects 4-D filter banks, got "
+                         f"shape {tuple(w.shape)}")
+    if isinstance(w, np.ndarray):
+        return block_prune_conv(torch.from_numpy(w), sparsity,
+                                block).numpy()
+    m = w.shape[0]
+    return block_prune(w.reshape(m, -1), sparsity, block).reshape(w.shape)
+
+
+def prune(w, cfg: SparsityConfig):
+    """Prune ``w`` according to ``cfg`` (dispatching on method/structure):
+    ``bcsr-mxu`` prunes tiles (2-D weights and 4-D filter banks), any other
+    method magnitude-prunes (a numpy array)."""
+    if not cfg.enabled or cfg.sparsity <= 0.0:
+        return w
+    if cfg.method == "bcsr-mxu" and w.ndim == 2:
+        return block_prune(w, cfg.sparsity, cfg.block)
+    if cfg.method == "bcsr-mxu" and w.ndim == 4:
+        return block_prune_conv(w, cfg.sparsity, cfg.block)
+    return magnitude_prune(w, cfg.sparsity)

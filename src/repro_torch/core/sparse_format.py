@@ -12,6 +12,11 @@ Port of ``repro/core/sparse_format.py``.  Three formats:
                  padded list of kept block-column ids plus the dense tiles.
                  Padding tiles point at block-column 0 with all-zero data.
 
+The conv formats (``EllConv``/``BcsrConv``) also carry *quantised value
+streams* (:func:`quantize_values` / :func:`dequantize`): the nonzero values
+stored int8 or fp8 (``float8_e4m3fn``) with one f32 symmetric scale per
+output channel, the reference's construction bit for bit.
+
 Every array is built exactly as the JAX package builds it (the same nonzero
 order, the same padding rules): on the host in numpy and then moved to the
 requested device once, or, for ``bcsr_from_dense`` given a tensor, on that
@@ -28,6 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The reference's name of a dtype: ``torch.float32`` -> "float32"."""
+    return str(dtype).replace("torch.", "")
 
 
 def _to(a: np.ndarray, device) -> torch.Tensor:
@@ -54,7 +64,10 @@ class EllConv:
     and filter-column of each nonzero; offset: (M, K) int32, kept zero as in
     the reference (the kernels stretch offsets themselves); nnz: (M,) int32
     true row lengths; perm: optional (M,) int32 row permutation of an
-    nnz-balanced bank (row i is original channel ``perm[i]``).
+    nnz-balanced bank (row i is original channel ``perm[i]``); scale:
+    optional (M,) f32 per-output-channel scales of a quantised bank
+    (``quantize_values``), whose ``value`` is then int8 or float8_e4m3fn,
+    the semantic weight ``value.float() * scale[m]``.
     """
 
     value: torch.Tensor
@@ -65,10 +78,17 @@ class EllConv:
     nnz: torch.Tensor
     shape: Tuple[int, int, int, int]
     perm: Optional[torch.Tensor] = None
+    scale: Optional[torch.Tensor] = None
 
     @property
     def k(self) -> int:
         return int(self.value.shape[1])
+
+    @property
+    def value_dtype(self) -> str:
+        """Storage dtype name of the values ("float32", "int8",
+        "float8_e4m3fn")."""
+        return dtype_name(self.value.dtype)
 
 
 def ell_from_dense_conv(w, pad_to: int = 8, balance: bool = False,
@@ -107,15 +127,17 @@ def ell_from_dense_conv(w, pad_to: int = 8, balance: bool = False,
 
 def balance_ell_conv(ell: EllConv) -> EllConv:
     """nnz-balanced channel packing: rows sorted by descending nnz (stable),
-    the permutation carried in ``perm``.  Per-row contents are untouched, so
-    each row sums in the same order as in the natural-order bank."""
+    the permutation carried in ``perm``; a quantised bank's scales follow
+    their rows.  Per-row contents are untouched, so each row sums in the
+    same order as in the natural-order bank."""
     order = torch.argsort(-ell.nnz, stable=True).to(torch.int32)
     take = lambda a: a.index_select(0, order)  # noqa: E731
     perm = take(ell.perm) if ell.perm is not None else order
     return EllConv(value=take(ell.value), cidx=take(ell.cidx),
                    ridx=take(ell.ridx), sidx=take(ell.sidx),
                    offset=take(ell.offset), nnz=take(ell.nnz),
-                   shape=ell.shape, perm=perm)
+                   shape=ell.shape, perm=perm,
+                   scale=None if ell.scale is None else take(ell.scale))
 
 
 def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
@@ -333,7 +355,10 @@ class BcsrConv:
     columns past C*R*S (right-padding) and rows past M carry zeros.
 
     blocks: (gbm, KB, bm, bn); blockcol: (gbm, KB) int32; nblocks: (gbm,)
-    int32.
+    int32; scale: optional (gbm, bm) f32 per-output-channel scales of a
+    quantised bank (``quantize_values``; tile row ``i`` of block-row ``g``
+    is channel ``g*bm + i``, channel padding carries scale 1), whose tiles
+    are then int8 or float8_e4m3fn.
     """
 
     blocks: torch.Tensor
@@ -341,6 +366,7 @@ class BcsrConv:
     nblocks: torch.Tensor
     shape: Tuple[int, int, int, int]
     block: Tuple[int, int]
+    scale: Optional[torch.Tensor] = None
 
     @property
     def kb(self) -> int:
@@ -349,6 +375,11 @@ class BcsrConv:
     @property
     def gbm(self) -> int:
         return int(self.blocks.shape[0])
+
+    @property
+    def value_dtype(self) -> str:
+        """Storage dtype name of the tiles."""
+        return dtype_name(self.blocks.dtype)
 
 
 def bcsr_conv_from_dense(w, block: Tuple[int, int] = (8, 128),
@@ -367,8 +398,92 @@ def bcsr_conv_from_dense(w, block: Tuple[int, int] = (8, 128),
 
 
 def bcsr_conv_to_dense(b: BcsrConv) -> torch.Tensor:
-    """Inverse of ``bcsr_conv_from_dense``."""
+    """Inverse of ``bcsr_conv_from_dense``; a quantised bank gives its
+    dequantised f32 weights."""
+    b = dequantize(b)
     m, c, r, s = b.shape
     flat = BcsrMatrix(blocks=b.blocks, blockcol=b.blockcol,
                       nblocks=b.nblocks, shape=(m, c * r * s), block=b.block)
     return bcsr_to_dense(flat).reshape(m, c, r, s)
+
+
+# ---------------------------------------------------------------------------
+# Quantised value streams (int8 / fp8 banks with per-channel f32 scales)
+# ---------------------------------------------------------------------------
+
+# Largest magnitude each narrow storage dtype carries: int8 the symmetric
+# [-127, 127], fp8 e4m3fn its largest finite value, 448.
+QUANT_DTYPES = {"int8": 127.0, "float8_e4m3fn": 448.0}
+_STORAGE = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def _quant_scales(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Per-channel symmetric scale mapping |w| <= absmax onto [-qmax, qmax];
+    an all-zero channel gets scale 1 (it quantises to exact zeros)."""
+    absmax = absmax.float()
+    return torch.where(absmax > 0, absmax / qmax,
+                       torch.ones((), dtype=torch.float32,
+                                  device=absmax.device))
+
+
+def _quantize_array(w: torch.Tensor, scale: torch.Tensor,
+                    value_dtype: str) -> torch.Tensor:
+    """``w`` divided by its (broadcast) scale, rounded into storage: int8 to
+    nearest, ties to even (``jnp.rint``), clipped to [-127, 127]; fp8 by the
+    dtype cast (to nearest even)."""
+    q = w.float() / scale
+    if value_dtype == "int8":
+        return torch.clamp(torch.round(q), -127, 127).to(torch.int8)
+    return q.to(_STORAGE[value_dtype])
+
+
+def quantize_values(fmt, value_dtype: str = "int8"):
+    """Quantise a conv bank's values to ``int8`` or ``float8_e4m3fn``.
+
+    Per-output-channel symmetric quantisation, as the reference builds it:
+    channel m's scale is ``absmax_m / 127`` (int8) or ``absmax_m / 448``
+    (fp8), the values are stored narrow and the f32 scales ride in
+    ``.scale``; the semantic weight is ``value * scale``.  Padding entries
+    are zero and stay zero.  A bank already quantised raises.  Runs on the
+    bank's device.
+    """
+    if value_dtype not in QUANT_DTYPES:
+        raise ValueError(
+            f"unsupported quantised value dtype {value_dtype!r}; "
+            f"expected one of {sorted(QUANT_DTYPES)}")
+    qmax = QUANT_DTYPES[value_dtype]
+    if isinstance(fmt, EllConv):
+        if fmt.scale is not None:
+            raise ValueError("bank is already quantised")
+        scale = _quant_scales(fmt.value.abs().amax(dim=1), qmax)
+        value = _quantize_array(fmt.value, scale[:, None], value_dtype)
+        return dataclasses.replace(fmt, value=value, scale=scale)
+    if isinstance(fmt, BcsrConv):
+        if fmt.scale is not None:
+            raise ValueError("bank is already quantised")
+        # (gbm, KB, bm, bn) -> per-(block-row, local-row) channel absmax
+        scale = _quant_scales(fmt.blocks.abs().amax(dim=(1, 3)), qmax)
+        blocks = _quantize_array(fmt.blocks, scale[:, None, :, None],
+                                 value_dtype)
+        return dataclasses.replace(fmt, blocks=blocks, scale=scale)
+    raise TypeError(f"quantize_values expects EllConv or BcsrConv, "
+                    f"got {type(fmt).__name__}")
+
+
+def dequantize(fmt):
+    """The f32 bank of a quantised one (``value.float() * scale``, one f32
+    multiply, as the kernels dequantise in registers: the ELL kernel on a
+    quantised bank is bit for bit the f32 kernel on this bank).  A bank
+    that is not quantised passes through."""
+    if isinstance(fmt, EllConv):
+        if fmt.scale is None:
+            return fmt
+        value = fmt.value.float() * fmt.scale[:, None]
+        return dataclasses.replace(fmt, value=value, scale=None)
+    if isinstance(fmt, BcsrConv):
+        if fmt.scale is None:
+            return fmt
+        blocks = fmt.blocks.float() * fmt.scale[:, None, :, None]
+        return dataclasses.replace(fmt, blocks=blocks, scale=None)
+    raise TypeError(f"dequantize expects EllConv or BcsrConv, "
+                    f"got {type(fmt).__name__}")

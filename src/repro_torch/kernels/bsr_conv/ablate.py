@@ -41,7 +41,7 @@ def variants(src: str) -> dict:
     """Variant name -> source text."""
     cut = conv_ablate.cut
     products = ("      wgmma_tf32(d, hi, dhi, ks % GS != 0);\n"
-                "      wgmma_tf32(d, hi, dlo, 1);\n"
+                "      if (!QUANT) wgmma_tf32(d, hi, dlo, 1);\n"
                 "      wgmma_tf32(d, lo, dhi, 1);\n")
     return {
         "no_wgmma": cut(src, products, ""),
@@ -55,10 +55,9 @@ def variants(src: str) -> dict:
         "partials_of_8": cut(src, "constexpr int GS = 4;",
                              "constexpr int GS = 8;"),
         "no_epilogue": cut(
-            src, "        float v = acc[n8 * 4 + h * 2 + b] + bias[m];\n"
+            src, "        v = v + bias[m];\n"
                  "        if (residual != nullptr) v += residual[o];\n"
-                 "        if (relu) v = fmaxf(v, 0.f);",
-            "        float v = acc[n8 * 4 + h * 2 + b];"),
+                 "        if (relu) v = fmaxf(v, 0.f);", ""),
     }
 
 

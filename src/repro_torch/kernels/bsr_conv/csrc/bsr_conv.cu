@@ -21,16 +21,17 @@
 //
 //   * A block owns WGS x 64 pixels (a warpgroup each) and a group of NB
 //     block-rows, N = NB*BM output channels (32 or 64: two stages of a
-//     128-deep column of both TF32 halves of 64 channels fill 128 KB).  A
+//     128-deep column of both TF32 halves of 64 channels fill 128 KB); BM
+//     is 8, 16, 32 or 64 (NB >= 1, so BM = 64 only at N = 64).  A
 //     (BM, BN) tile alone would be an m64n8 product, too narrow to keep the
 //     tensor cores busy; the reuse left is the im2col patch across
 //     block-rows, so every patch element a block gathers feeds N channels.
 //   * The block walks the block columns its group keeps (any row keeping a
 //     tile there), one BN-deep column at a time.  For each it stages the
 //     group's tiles at that column into one K-major B operand (N x BN,
-//     zero for a row that keeps nothing there) with cp.async, a warp a
-//     tile, BSTAGES stages, the next columns' copies under this column's
-//     products.  A table built at the start, (row g, column j) -> kb, finds
+//     zero for a row that keeps nothing there) with cp.async, a warp 8
+//     rows of a tile at a time, BSTAGES stages, the next columns' copies
+//     under this column's products.  A table built at the start, (row g, column j) -> kb, finds
 //     the tiles, so any order of a row's tiles works; a repeated column is
 //     refused by the launcher.
 //   * The patch is never stored: each thread gathers its A fragments (two
@@ -50,6 +51,15 @@
 //     1e-4 on sums of a few hundred products; one product on operands
 //     rounded once to TF32 keeps 11 and fails every check
 //     (ref.bsr_conv_split_plain mirrors both).
+//   * A quantised bank (int8 or e4m3 tiles, an f32 scale a channel: the
+//     reference's scale operand) stages its tiles' bytes, a quarter of the
+//     f32 tiles', with the same cp.async ring; at each column the block
+//     converts the stage's bytes into the TF32 B operand (both types are
+//     exact in TF32), one pass over the stage, and takes two products,
+//     x_hi w + x_lo w (w has no lo half).  The scale multiplies each
+//     channel's f32 sum in the epilogue, once, before the bias: the
+//     reference scales each tile's contribution, the same function up to
+//     f32 rounding (ref.py's plain version does what the kernel does).
 //   * The tensor cores add into their f32 accumulator with truncation, so
 //     that error grows with the wgmmas a sum takes: each group of 4 steps
 //     sums into a fresh partial, added into the f32 sums with rounded adds
@@ -67,7 +77,9 @@
 // block column, 64 KB a column at N = 64 (bsr_conv/ablate.py, PERF.md).
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
-// residual may be null; returns cudaGetLastError() after the launch, or
+// residual may be null; qtype 0 takes the f32 tiles' TF32 halves (whi,
+// wlo), 1 (int8) or 2 (e4m3) the tiles' bytes in whi and the (GBM*BM) f32
+// scales (wlo null); returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape no instantiation takes.
 
 #include <cuda_runtime.h>
@@ -188,19 +200,38 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// Shared memory, in order: BSTAGES stages of the B operand, each the hi then the
-// lo (N x BN) TF32 tile, element (n, k) at (k / 4) * N * 16 + n * 16 +
-// (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major); 3 slots of BN
-// int32 column offsets; the (NB x KBC) int32 table of kept tiles; the KBC
-// live columns.
-template <int BM, int N, int WGS>
+// e4m3 (fn) byte -> f32, exactly: sign, 4 exponent bits (bias 7), 3
+// mantissa bits; exponent 0 is subnormal (mantissa x 2^-9).
+__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
+  const uint32_t e = (b >> 3) & 0xFu;
+  const uint32_t m = b & 7u;
+  const float mag = e ? __uint_as_float(((e + 120u) << 23) | (m << 20))
+                      : static_cast<float>(m) * 0.001953125f;
+  return (b & 0x80u) ? -mag : mag;
+}
+
+// byte j (0..3) of a word, as a quantised value of type qtype
+__device__ __forceinline__ float narrow(uint32_t w, int j, int qtype) {
+  const uint32_t b = (w >> (8 * j)) & 0xFFu;
+  return qtype == 1 ? static_cast<float>(static_cast<int8_t>(b))
+                    : e4m3_to_f32(b);
+}
+
+// Shared memory, in order: BSTAGES stages of the B operand, each the hi
+// (N x BN) TF32 tile, element (n, k) at (k / 4) * N * 16 + n * 16 +
+// (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major), then the lo one
+// (f32 tiles) or the tiles' bytes (quantised: 16-byte piece (n, k / 16) at
+// ((k / 16) * N + n) * 16); 3 slots of BN int32 column offsets; the
+// (NB x KBC) int32 table of kept tiles; the KBC live columns.
+template <int BM, int N, int WGS, bool QUANT>
 __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     const float* __restrict__ xpad, const float* __restrict__ whi,
-    const float* __restrict__ wlo, const int* __restrict__ blockcol,
-    const int* __restrict__ nblocks, const float* __restrict__ bias,
-    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
-    int C, int Hp, int Wp, int GBM, int KB, int RS, int S, int E, int F,
-    int stride, int relu) {
+    const float* __restrict__ wlo, const float* __restrict__ scale,
+    const int* __restrict__ blockcol, const int* __restrict__ nblocks,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int GBM,
+    int KB, int RS, int S, int E, int F, int stride, int relu, int qtype) {
+  static_assert(N % BM == 0, "a group holds whole block-rows");
   constexpr int NB = N / BM;      // block-rows of the group
   constexpr int NTH = WGS * WG;
   constexpr int NWARPS = NTH / 32;
@@ -209,13 +240,15 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   constexpr int GS = 4;           // steps a partial sums before it is added
   static_assert(KS % (2 * GS) == 0, "a column holds whole pairs of groups");
   constexpr int TILE = N * BN * 4;            // bytes of one TF32 operand
-  // a warp copies one (BM, BN) tile half at a time: BM rows x BN/4 pieces
-  // of 16 bytes, PPL a lane
-  constexpr int PPL = BM * (BN / 4) / 32;
+  // a stage: the TF32 operand, then the lo half or the tiles' bytes
+  constexpr int STAGE = TILE + (QUANT ? N * BN : TILE);
+  // a warp copies 8 rows of a tile (half) at a time: 8 rows x BN/4 pieces
+  // of 16 bytes (f32), 8 rows x BN/16 (bytes), PPL a lane
+  constexpr int PPL = QUANT ? 8 * (BN / 16) / 32 : 8 * (BN / 4) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int KBC = (C * RS + BN - 1) / BN;     // block columns of the bank
   const uint32_t bbase = smem_u32(smem);
-  int* coloff = reinterpret_cast<int*>(smem + BSTAGES * 2 * TILE);  // [3][BN]
+  int* coloff = reinterpret_cast<int*>(smem + BSTAGES * STAGE);  // [3][BN]
   int* table = coloff + 3 * BN;                                // [NB][KBC]
   int* live = table + NB * KBC;                                // [KBC]
   __shared__ int nlive;
@@ -274,39 +307,65 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
       dst[k] = (min(c, C - 1) * Hp + r) * Wp + (rem - r * S);
     }
   };
-  // A lane's pieces of a tile half: piece q = lane + 32 u is row
-  // 8 (q / 8 % (BM / 8)) + q % 8 and 16-byte column q / BM, so that eight
-  // lanes fill one 128-byte core matrix; its offsets in the tile (global,
-  // floats) and in the operand (shared, bytes) are the same for every tile.
+  // A lane's pieces of 8 rows: piece q = lane + 32 u is row q % 8 and
+  // 16-byte column q / 8, so that eight lanes fill one 128-byte core
+  // matrix (f32), or eight rows' pieces lie side by side (bytes); its
+  // offsets in the rows (global, bytes) and in the stage (shared, bytes)
+  // are the same for every 8 rows.
   int src_off[PPL], dst_off[PPL];
 #pragma unroll
   for (int u = 0; u < PPL; ++u) {
     const int q = lane + 32 * u;
-    const int m = 8 * (q / 8 % (BM / 8)) + q % 8;
-    const int k4 = q / BM;
-    src_off[u] = m * BN + 4 * k4;
-    dst_off[u] = k4 * (N * 16) + m * 16;
+    const int m = q % 8;
+    const int k16 = q / 8;
+    src_off[u] = m * BN * (QUANT ? 1 : 4) + 16 * k16;
+    dst_off[u] = QUANT ? (k16 * N + m) * 16 : k16 * (N * 16) + m * 16;
   }
   // the group's tiles at live column t into B stage t % 2, zero where a
-  // row keeps none: a warp a (row, half) at a time.  One cp.async group.
+  // row keeps none: a warp 8 rows of a (row, half) at a time (f32), or of
+  // a row's bytes (quantised).  One cp.async group.
   auto stage = [&](int t, int nl) {
     if (t < nl) {
       const int j = live[t];
-      const uint32_t sb = bbase + (t % BSTAGES) * 2 * TILE;
-      for (int job = gwarp; job < 2 * NB; job += NWARPS) {
-        const int g = job % NB;
-        const int half = job / NB;
+      const uint32_t sb = bbase + (t % BSTAGES) * STAGE;
+      constexpr int R8 = N / 8;   // 8-row pieces of the group
+      for (int job = gwarp; job < (QUANT ? 1 : 2) * R8; job += NWARPS) {
+        const int r8 = job % R8;
+        const int half = job / R8;
+        const int g = r8 / (BM / 8);
         const int kb = table[g * KBC + j];
-        const float* tile =
-            (half ? wlo : whi) +
-            (kb >= 0 ? (static_cast<int64_t>(i0 + g) * KB + kb) * BM * BN : 0);
-        const uint32_t dst = sb + half * TILE + g * BM * 16;
+        const int64_t row0 =
+            kb >= 0 ? ((static_cast<int64_t>(i0 + g) * KB + kb) * BM +
+                       (r8 % (BM / 8)) * 8) * BN
+                    : 0;
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(half ? wlo : whi) +
+            row0 * (QUANT ? 1 : 4);
+        const uint32_t dst =
+            sb + (QUANT || half ? TILE : 0) + r8 * 8 * 16;
 #pragma unroll
         for (int u = 0; u < PPL; ++u)
-          cp_async16(dst + dst_off[u], tile + src_off[u], kb >= 0 ? 16 : 0);
+          cp_async16(dst + dst_off[u], src + src_off[u], kb >= 0 ? 16 : 0);
       }
     }
     cp_commit();
+  };
+  // a quantised stage's bytes into its TF32 operand: 16 values a thread at
+  // a time, piece (n, k16) -> four 16-byte slots (k / 4, n)
+  auto convert = [&](int t) {
+    unsigned char* st = smem + (t % BSTAGES) * STAGE;
+    for (int p = tid; p < N * (BN / 16); p += NTH) {
+      const int n = p % N;
+      const int k16 = p / N;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          st + TILE + (k16 * N + n) * 16);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(st + (4 * k16 + i) * (N * 16) + n * 16) =
+            make_float4(narrow(w[i], 0, qtype), narrow(w[i], 1, qtype),
+                        narrow(w[i], 2, qtype), narrow(w[i], 3, qtype));
+    }
   };
 
   __syncthreads();
@@ -368,7 +427,13 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     __syncthreads();
     stage(col + BSTAGES - 1, nl);
     decode(col + 2, nl);
-    const uint32_t sb0 = bbase + (col % BSTAGES) * 2 * TILE;
+    if (QUANT) {
+      // the operand, written through the generic proxy, fenced for wgmma
+      convert(col);
+      fence_async_smem();
+      __syncthreads();
+    }
+    const uint32_t sb0 = bbase + (col % BSTAGES) * STAGE;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       // split into the A fragments, gather the next column's step, issue
@@ -384,7 +449,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
       float (&d)[ACC] = part[(ks / GS) % 2];
       wg_fence();
       wgmma_tf32(d, hi, dhi, ks % GS != 0);
-      wgmma_tf32(d, hi, dlo, 1);
+      if (!QUANT) wgmma_tf32(d, hi, dlo, 1);
       wgmma_tf32(d, lo, dhi, 1);
       wg_commit();
       wg_wait<1>();  // the step before has read its fragments
@@ -422,7 +487,9 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
         const int m = i0 * BM + n8 * 8 + tig * 2 + b;
         if (m >= Mp) continue;
         const int64_t o = (static_cast<int64_t>(n) * Mp + m) * EF + ef;
-        float v = acc[n8 * 4 + h * 2 + b] + bias[m];
+        float v = acc[n8 * 4 + h * 2 + b];
+        if (QUANT) v = __fmul_rn(v, scale[m]);
+        v = v + bias[m];
         if (residual != nullptr) v += residual[o];
         if (relu) v = fmaxf(v, 0.f);
         out[o] = v;
@@ -430,37 +497,47 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   }
 }
 
-template <int BM, int N, int WGS>
-int launch(const float* x, const float* whi, const float* wlo, const int* bc,
-           const int* nb, const float* b, const float* res, float* o,
-           int NIMG, int C, int Hp, int Wp, int GBM, int KB, int RS,
-           int S, int E, int F, int stride, int relu, cudaStream_t st) {
+template <int BM, int N, int WGS, bool QUANT>
+int launch(const float* x, const float* whi, const float* wlo,
+           const float* sc, const int* bc, const int* nb, const float* b,
+           const float* res, float* o, int NIMG, int C, int Hp, int Wp,
+           int GBM, int KB, int RS, int S, int E, int F, int stride, int relu,
+           int qtype, cudaStream_t st) {
   const int KBC = (C * RS + BN - 1) / BN;
-  const size_t smem = static_cast<size_t>(BSTAGES) * 2 * N * BN * 4 +
-                      4 * (3 * BN + (N / BM + 1) * KBC);
+  const size_t smem =
+      static_cast<size_t>(BSTAGES) * N * BN * (4 + (QUANT ? 1 : 4)) +
+      4 * (3 * BN + (N / BM + 1) * KBC);
   const cudaError_t err = cudaFuncSetAttribute(
-      bsr_conv_tc_kernel<BM, N, WGS>,
+      bsr_conv_tc_kernel<BM, N, WGS, QUANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = NIMG * E * F;
   const dim3 grid((P + WGS * 64 - 1) / (WGS * 64),
                   (GBM + N / BM - 1) / (N / BM));
-  bsr_conv_tc_kernel<BM, N, WGS><<<grid, WGS * WG, smem, st>>>(
-      x, whi, wlo, bc, nb, b, res, o, NIMG, C, Hp, Wp, GBM, KB, RS, S, E,
-      F, stride, relu);
+  bsr_conv_tc_kernel<BM, N, WGS, QUANT><<<grid, WGS * WG, smem, st>>>(
+      x, whi, wlo, sc, bc, nb, b, res, o, NIMG, C, Hp, Wp, GBM, KB, RS, S,
+      E, F, stride, relu, qtype);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM>
-int pick(int n_tile, int wgs, const float* x, const float* whi,
-         const float* wlo, const int* bc, const int* nb, const float* b,
-         const float* res, float* o, int NIMG, int C, int Hp, int Wp, int GBM,
-         int KB, int RS, int S, int E, int F, int stride, int relu,
-         cudaStream_t st) {
+int pick(int n_tile, int wgs, int qtype, const float* x, const float* whi,
+         const float* wlo, const float* sc, const int* bc, const int* nb,
+         const float* b, const float* res, float* o, int NIMG, int C, int Hp,
+         int Wp, int GBM, int KB, int RS, int S, int E, int F, int stride,
+         int relu, cudaStream_t st) {
 #define BSR_CONV_LAUNCH(N, W)                                                \
-  if (n_tile == N && wgs == W)                                               \
-    return launch<BM, N, W>(x, whi, wlo, bc, nb, b, res, o, NIMG, C, Hp, Wp, \
-                            GBM, KB, RS, S, E, F, stride, relu, st);
+  if constexpr (N % BM == 0) {                                               \
+    if (n_tile == N && wgs == W)                                             \
+      return qtype ? launch<BM, N, W, true>(x, whi, wlo, sc, bc, nb, b, res, \
+                                            o, NIMG, C, Hp, Wp, GBM, KB, RS, \
+                                            S, E, F, stride, relu, qtype,    \
+                                            st)                              \
+                   : launch<BM, N, W, false>(x, whi, wlo, sc, bc, nb, b,     \
+                                             res, o, NIMG, C, Hp, Wp, GBM,   \
+                                             KB, RS, S, E, F, stride, relu,  \
+                                             qtype, st);                     \
+  }
   BSR_CONV_LAUNCH(32, 1)
   BSR_CONV_LAUNCH(32, 2)
   BSR_CONV_LAUNCH(64, 1)
@@ -472,31 +549,38 @@ int pick(int n_tile, int wgs, const float* x, const float* whi,
 }  // namespace
 
 extern "C" int bsr_conv_tc(const void* xpad, const void* whi, const void* wlo,
-                           const void* blockcol, const void* nblocks,
-                           const void* bias, const void* residual, void* out,
-                           int NIMG, int C, int Hp, int Wp, int GBM, int KB,
-                           int BM, int bn, int RS, int S, int E, int F,
-                           int stride, int n_tile, int wgs, int relu,
+                           const void* scale, const void* blockcol,
+                           const void* nblocks, const void* bias,
+                           const void* residual, void* out, int NIMG, int C,
+                           int Hp, int Wp, int GBM, int KB, int BM, int bn,
+                           int RS, int S, int E, int F, int stride,
+                           int n_tile, int wgs, int relu, int qtype,
                            void* stream) {
   const float* x = static_cast<const float*>(xpad);
   const float* hi = static_cast<const float*>(whi);
   const float* lo = static_cast<const float*>(wlo);
+  const float* sc = static_cast<const float*>(scale);
   const int* bc = static_cast<const int*>(blockcol);
   const int* nb = static_cast<const int*>(nblocks);
   const float* b = static_cast<const float*>(bias);
   const float* res = static_cast<const float*>(residual);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn != BN || NIMG <= 0 || GBM <= 0)
+  if (bn != BN || NIMG <= 0 || GBM <= 0 || qtype < 0 || qtype > 2 ||
+      (qtype ? sc == nullptr : lo == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+#define BSR_CONV_PICK(BM_)                                                   \
+  case BM_:                                                                  \
+    return pick<BM_>(n_tile, wgs, qtype, x, hi, lo, sc, bc, nb, b, res, o,   \
+                     NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F, stride, relu,    \
+                     st);
   switch (BM) {
-    case 8:
-      return pick<8>(n_tile, wgs, x, hi, lo, bc, nb, b, res, o, NIMG, C, Hp,
-                     Wp, GBM, KB, RS, S, E, F, stride, relu, st);
-    case 16:
-      return pick<16>(n_tile, wgs, x, hi, lo, bc, nb, b, res, o, NIMG, C, Hp,
-                      Wp, GBM, KB, RS, S, E, F, stride, relu, st);
+    BSR_CONV_PICK(8)
+    BSR_CONV_PICK(16)
+    BSR_CONV_PICK(32)
+    BSR_CONV_PICK(64)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef BSR_CONV_PICK
 }

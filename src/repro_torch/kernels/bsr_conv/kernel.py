@@ -5,10 +5,14 @@ Replaces ``bsr_conv_pallas`` (``repro/kernels/bsr_conv/kernel.py``).
 launches the kernel on the current stream, for CPU tensors it runs the plain
 version (``ref.py``), and for anything else it raises.  A launch that CUDA
 refuses raises too.  The kernel runs on the tensor cores with the f32
-operands split into TF32 halves (``split_weights``; the source says why).
+operands split into TF32 halves (``split_weights``; the source says why);
+a quantised bank's int8 or e4m3 tiles go to it as they are, with their
+scales.
 
-``bsr_conv_kernel.launches`` counts the kernel's launches in this process.
-Only the CUDA branch adds to it, once per launch.
+``bsr_conv_kernel.launches`` counts the kernel's launches in this process;
+``.int8_launches``, ``.e4m3_launches``, ``.bm32_launches`` and
+``.bm64_launches`` those on a quantised bank or at a tall block.  Only the
+CUDA branch adds to them, once per launch.
 """
 from __future__ import annotations
 
@@ -22,18 +26,22 @@ from repro_torch.kernels import _build, budget
 from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain, split_tf32
 
 _SYMBOL = "bsr_conv_tc"
+# the C entry point's parameters: 9 pointers, 17 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 # Block heights and the width the source instantiates (its tiles, N output
-# channels by 64 pixels a warpgroup, are budget.BSR_CONV_TILES).
-BM_CHOICES = (8, 16)
+# channels by 64 pixels a warpgroup, are budget.BSR_CONV_TILES; a tile
+# holds whole block-rows, N % bm == 0).
+BM_CHOICES = (8, 16, 32, 64)
 BN = 128
+# tile storage dtype -> the kernel's qtype
+QTYPES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_conv")
     fn = getattr(lib, _SYMBOL)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [
-            ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -42,7 +50,7 @@ def split_weights(blocks: torch.Tensor):
     """The tiles as two TF32 halves kept as f32, hi = tf32(w) and
     lo = tf32(w - hi), the kernel's B operands.  A caller that launches one
     bank many times splits it once (``CnnEngine`` caches the halves beside
-    the bank)."""
+    the bank).  A quantised bank is not split: the kernel takes its bytes."""
     return split_tf32(blocks.float())
 
 
@@ -59,14 +67,23 @@ def _walkable(blockcol, nblocks, ncols):
         raise ValueError(f"bsr_conv: {fault}")
 
 
-def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, *, rs,
-            s, e, f, stride, fuse_relu, n_tile, wgs) -> torch.Tensor:
+def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, scale,
+            *, rs, s, e, f, stride, fuse_relu, n_tile, wgs) -> torch.Tensor:
     n, c, hp, wp = xpad.shape
     gbm, kb_dim, bm, bn = blocks.shape
     mpad = gbm * bm
     dev = xpad.device
     _check(xpad, "xpad", torch.float32, (n, c, hp, wp), dev)
-    _check(blocks, "blocks", torch.float32, (gbm, kb_dim, bm, bn), dev)
+    if blocks.dtype not in QTYPES:
+        raise ValueError(f"bsr_conv: blocks have dtype {blocks.dtype}, "
+                         f"expected one of {sorted(map(str, QTYPES))}")
+    qtype = QTYPES[blocks.dtype]
+    _check(blocks, "blocks", blocks.dtype, (gbm, kb_dim, bm, bn), dev)
+    if (scale is None) != (qtype == 0):
+        raise ValueError("bsr_conv: int8 or e4m3 tiles need their scales, "
+                         "f32 tiles have none")
+    if scale is not None:
+        _check(scale, "scale", torch.float32, (gbm, bm), dev)
     _check(blockcol, "blockcol", torch.int32, (gbm, kb_dim), dev)
     _check(nblocks, "nblocks", torch.int32, (gbm,), dev)
     _check(bias, "bias", torch.float32, (mpad,), dev)
@@ -75,9 +92,10 @@ def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, *, rs,
     if bm not in BM_CHOICES or bn != BN:
         raise ValueError(f"bsr_conv: block ({bm}, {bn}) not one the kernel "
                          f"takes (height {BM_CHOICES}, width {BN})")
-    if (n_tile, wgs) not in budget.BSR_CONV_TILES:
+    if (n_tile, wgs) not in budget.BSR_CONV_TILES or n_tile % bm:
         raise ValueError(f"bsr_conv: tile ({n_tile}, {wgs}) not one of "
-                         f"{budget.BSR_CONV_TILES}")
+                         f"{budget.BSR_CONV_TILES} holding whole block-rows "
+                         f"of {bm}")
     if xpad.numel() >= 2**31 or n * mpad * e * f >= 2**31:
         raise ValueError("bsr_conv: the input or output exceeds int32 offsets")
     if (e - 1) * stride + rs // s > hp or (f - 1) * stride + s > wp:
@@ -85,22 +103,35 @@ def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, *, rs,
     ncols = -(-c * rs // bn)
     _build.check_once("bsr_conv", (blockcol, nblocks),
                       lambda: _walkable(blockcol, nblocks, ncols))
-    whi, wlo = split_weights(blocks) if halves is None else halves
-    for name, t in (("w_hi", whi), ("w_lo", wlo)):
-        _check(t, name, torch.float32, (gbm, kb_dim, bm, bn), dev)
+    if qtype:
+        whi, wlo = blocks, None
+    else:
+        whi, wlo = split_weights(blocks) if halves is None else halves
+        for name, t in (("w_hi", whi), ("w_lo", wlo)):
+            _check(t, name, torch.float32, (gbm, kb_dim, bm, bn), dev)
     out = torch.empty((n, mpad, e, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = getattr(_lib(), _SYMBOL)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xpad.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+        err = fn(xpad.data_ptr(), whi.data_ptr(),
+                 None if wlo is None else wlo.data_ptr(),
+                 None if scale is None else scale.data_ptr(),
                  blockcol.data_ptr(), nblocks.data_ptr(), bias.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  out.data_ptr(), n, c, hp, wp, gbm, kb_dim, bm, bn, rs, s, e,
-                 f, stride, n_tile, wgs, int(fuse_relu), stream)
+                 f, stride, n_tile, wgs, int(fuse_relu), qtype, stream)
     _build.check(err, "bsr_conv")
     bsr_conv_kernel.launches += 1
+    if qtype == 1:
+        bsr_conv_kernel.int8_launches += 1
+    elif qtype == 2:
+        bsr_conv_kernel.e4m3_launches += 1
+    if bm == 32:
+        bsr_conv_kernel.bm32_launches += 1
+    elif bm == 64:
+        bsr_conv_kernel.bm64_launches += 1
     return out
 
 
@@ -110,10 +141,12 @@ def bsr_conv_kernel(xpad: torch.Tensor, blocks: torch.Tensor,
                     residual: Optional[torch.Tensor] = None, *, rs: int,
                     s: int, e: int, f: int, stride: int = 1,
                     fuse_relu: bool = False, n_tile: int = 64, wgs: int = 1,
-                    halves=None) -> torch.Tensor:
+                    halves=None,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The BCSR conv with its fused epilogue.
 
-    xpad (N, C, Hp, Wp) f32; blocks (gbm, KB, bm, bn) f32; blockcol (gbm, KB)
+    xpad (N, C, Hp, Wp) f32; blocks (gbm, KB, bm, bn) f32, or int8 or
+    float8_e4m3fn with ``scale`` (gbm, bm) f32 (a quantised bank); blockcol (gbm, KB)
     int32, distinct within a row up to its nblocks (checked once per bank);
     nblocks (gbm,) int32; bias (gbm*bm,) f32; residual optional
     (N, gbm*bm, E, F) f32.  ``n_tile`` output channels by ``wgs`` x 64
@@ -124,11 +157,17 @@ def bsr_conv_kernel(xpad: torch.Tensor, blocks: torch.Tensor,
     kw = dict(rs=rs, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu)
     if xpad.device.type == "cuda":
         return _launch(xpad, blocks, blockcol, nblocks, bias, residual,
-                       halves, n_tile=n_tile, wgs=wgs, **kw)
+                       halves, scale, n_tile=n_tile, wgs=wgs, **kw)
     if xpad.device.type == "cpu":
         return bsr_conv_plain(xpad, blocks, blockcol, nblocks, bias, residual,
-                              **kw)
+                              scale=scale, **kw)
     raise ValueError(f"bsr_conv: no kernel for device {xpad.device}")
 
 
 bsr_conv_kernel.launches = 0
+# of those, the launches on an int8 and on an e4m3 bank, and at block
+# heights 32 and 64
+bsr_conv_kernel.int8_launches = 0
+bsr_conv_kernel.e4m3_launches = 0
+bsr_conv_kernel.bm32_launches = 0
+bsr_conv_kernel.bm64_launches = 0

@@ -10,7 +10,7 @@ whose stages would not fit shared memory, raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,11 +20,16 @@ from repro_torch.core.sparse_format import BcsrConv
 from repro_torch.kernels import budget
 from repro_torch.kernels.bsr_conv.kernel import BM_CHOICES, BN, bsr_conv_kernel
 
+# The (bm, bn) block shapes the autotuner enumerates, the reference's
+# ladder: bn the kernel's 128, bm 8 to 64.
+BLOCK_CANDIDATES = ((8, 128), (16, 128), (32, 128), (64, 128))
+
 
 def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
                          m: Optional[int] = None, crs: Optional[int] = None,
                          n_tile: Optional[int] = None,
                          wgs: Optional[int] = None,
+                         value_dtype: str = "float32",
                          ) -> Tuple[Optional[Tuple[int, int]], Optional[str]]:
     """The block schedule ``bsr_conv`` launches, as a pure function:
     ``((n_tile, wgs), None)``, a tile of ``n_tile`` output channels by
@@ -32,15 +37,18 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
     kernel takes or its stages bust shared memory.
 
     The geometry: ``n`` images, ``m`` output channels (default one group),
-    ``crs`` = C*R*S flattened columns (default one block column).  Without
-    pins, the tile is the first of ``budget.BSR_CONV_TILES`` whose blocks
-    number ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be
-    one the source instantiates.
+    ``crs`` = C*R*S flattened columns (default one block column);
+    ``value_dtype`` the tiles' storage (a quantised bank stages a byte a
+    weight).  Without pins, the tile is the first of
+    ``budget.BSR_CONV_TILES`` holding whole block-rows whose blocks number
+    ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be one the
+    source instantiates.
     """
     if bm not in BM_CHOICES:
         return None, "unsupported_block"
     tiles = [(t, w) for t, w in budget.BSR_CONV_TILES
-             if (n_tile is None or t == n_tile) and (wgs is None or w == wgs)]
+             if t % bm == 0
+             and (n_tile is None or t == n_tile) and (wgs is None or w == wgs)]
     if not tiles:
         return None, "unsupported_tile"
     kbc = -(-(bn if crs is None else crs) // bn)
@@ -51,11 +59,29 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
         if blocks >= budget.BSR_CONV_MIN_BLOCKS:
             pick = (t, w)
             break
-    if not budget.smem_fits(budget.bsr_conv_smem_bytes(bm, bn, pick[0], kbc)):
+    if not budget.smem_fits(budget.bsr_conv_smem_bytes(
+            bm, bn, pick[0], kbc, budget.value_itemsize(value_dtype))):
         return None, "smem_infeasible"
     if bn != BN:
         return None, "unsupported_block"
     return pick, None
+
+
+def bsr_tile_candidates(bm: int, bn: int, e: int, f: int, *, n: int = 1,
+                        m: Optional[int] = None, crs: Optional[int] = None,
+                        value_dtype: str = "float32",
+                        ) -> List[Tuple[int, int]]:
+    """Every ``(n_tile, wgs)`` tile ``resolve_bsr_schedule`` accepts for a
+    (bm, bn) block at this geometry, in ``budget.BSR_CONV_TILES``' order:
+    the autotuner's feasibility probe for a block shape."""
+    out = []
+    for t, w in budget.BSR_CONV_TILES:
+        sched, _ = resolve_bsr_schedule(bm, bn, e, f, n=n, m=m, crs=crs,
+                                        n_tile=t, wgs=w,
+                                        value_dtype=value_dtype)
+        if sched is not None:
+            out.append(sched)
+    return out
 
 
 def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
@@ -66,8 +92,8 @@ def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
              layer: Optional[str] = None, halves=None) -> torch.Tensor:
     """Block-sparse convolution + fused epilogue through the BCSR kernel.
 
-    (N, C, H, W) f32 input, BCSR bank for (M, C, R, S) weights ->
-    (N, M, E, F) f32.  ``layer`` names the conv in errors; ``halves`` is
+    (N, C, H, W) f32 input, BCSR bank for (M, C, R, S) weights (f32, or a
+    quantised int8 or e4m3 bank with its scales) -> (N, M, E, F) f32.  ``layer`` names the conv in errors; ``halves`` is
     ``kernel.split_weights(bc.blocks)`` for a caller that splits the bank
     once (split here when not given).
     """
@@ -79,7 +105,7 @@ def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
     e, f = out_spatial(h, w, r, s, stride, padding)
     sched, reason = resolve_bsr_schedule(bm, bn, e, f, n=n, m=gbm * bm,
                                          crs=c * r * s, n_tile=n_tile,
-                                         wgs=wgs)
+                                         wgs=wgs, value_dtype=bc.value_dtype)
     if sched is None:
         raise ValueError(
             f"bsr_conv{'' if layer is None else ' ' + layer}: no kernel "
@@ -99,5 +125,5 @@ def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
         pad_in(x, padding), bc.blocks, bc.blockcol, bc.nblocks, b,
         None if res is None else res.contiguous(), rs=r * s, s=s, e=e, f=f,
         stride=stride, fuse_relu=fuse_relu, n_tile=n_tile, wgs=wgs,
-        halves=halves)
+        halves=halves, scale=bc.scale)
     return out if mpad == m else out[:, :m]

@@ -1,6 +1,7 @@
 """Plain PyTorch version of the BCSR conv kernel.
 
-``bsr_conv_plain`` takes the kernel's operands and returns what the kernel
+``bsr_conv_plain`` takes the kernel's operands (a quantised bank's int8 or
+e4m3 tiles with their (gbm, bm) scales too) and returns what the kernel
 returns: for every block-row and every kept tile ``kb < nblocks``, the
 (bn, E, F) im2col patch of flat columns ``blockcol*bn + jl`` (channel
 clamped to C-1 for the format's right-padding columns) is gathered from the
@@ -30,9 +31,11 @@ from repro_torch.core.sparse_format import BcsrConv
 
 
 def _blocked(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e,
-             f, stride, fuse_relu, contract) -> torch.Tensor:
+             f, stride, fuse_relu, contract, scale=None) -> torch.Tensor:
     """For every kept tile, the (bn, E*F) im2col patch of its columns and
-    ``contract(tile, patch)``, summed tile by tile, then the epilogue."""
+    ``contract(tile, patch)``, summed tile by tile; a quantised bank's sums
+    times their channel's scale (once, as the kernel's epilogue does);
+    then the epilogue."""
     n, c, hp, wp = xpad.shape
     gbm, _, bm, bn = blocks.shape
     xpad = xpad.float()
@@ -51,6 +54,8 @@ def _blocked(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e,
         live = (nblocks > kb).view(gbm, 1, 1)
         tile = torch.where(live, blocks[:, kb].float(), 0.0)  # (gbm, bm, bn)
         acc += contract(tile, patch)
+    if scale is not None:
+        acc = acc * scale.float().view(1, gbm, bm, 1)
     out = acc.reshape(n, gbm * bm, e, f) + bias.float().view(1, -1, 1, 1)
     if residual is not None:
         out = out + residual.float()
@@ -68,13 +73,15 @@ def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
                    bias: torch.Tensor,
                    residual: Optional[torch.Tensor] = None, *, rs: int,
                    s: int, e: int, f: int, stride: int = 1,
-                   fuse_relu: bool = False) -> torch.Tensor:
+                   fuse_relu: bool = False,
+                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, C, Hp, Wp) padded input, (gbm, KB, bm, bn) tiles -> (N, gbm*bm,
     E, F) f32 with the fused epilogue; ``bias`` is (gbm*bm,), ``residual``
-    (N, gbm*bm, E, F)."""
+    (N, gbm*bm, E, F); ``scale`` (gbm, bm) f32 goes with int8 or e4m3
+    tiles (a quantised bank)."""
     return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
                     s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
-                    contract=_product)
+                    contract=_product, scale=scale)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -96,13 +103,16 @@ def bsr_conv_split_plain(xpad: torch.Tensor, blocks: torch.Tensor,
                          bias: torch.Tensor,
                          residual: Optional[torch.Tensor] = None, *,
                          rs: int, s: int, e: int, f: int, stride: int = 1,
-                         fuse_relu: bool = False,
-                         lo: bool = True) -> torch.Tensor:
+                         fuse_relu: bool = False, lo: bool = True,
+                         scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """The CUDA kernel's arithmetic on the CPU: each tile and patch split
     into TF32 halves, and three products x_hi w_hi + x_hi w_lo + x_lo w_hi
     (each exact in f32: a product of two TF32 values fits its mantissa),
-    summed in f32.  ``lo=False`` is the control a check must reject: one
-    product of the operands rounded once to TF32."""
+    summed in f32.  A quantised bank's tiles are exact in TF32 (w_lo is 0,
+    the kernel's two products), and its sums are scaled as in
+    ``bsr_conv_plain``.  ``lo=False`` is the control a check must reject:
+    one product of the operands rounded once to TF32."""
     def contract(tile, patch):
         w_hi, w_lo = split_tf32(tile)
         x_hi, x_lo = split_tf32(patch)
@@ -113,7 +123,7 @@ def bsr_conv_split_plain(xpad: torch.Tensor, blocks: torch.Tensor,
 
     return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
                     s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
-                    contract=contract)
+                    contract=contract, scale=scale)
 
 
 def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
@@ -135,5 +145,5 @@ def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
         res = torch.nn.functional.pad(res, (0, 0, 0, 0, 0, mpad - m))
     out = bsr_conv_plain(pad_in(x, padding), bc.blocks, bc.blockcol,
                          bc.nblocks, b, res, rs=r * s, s=s, e=e, f=f,
-                         stride=stride, fuse_relu=fuse_relu)
+                         stride=stride, fuse_relu=fuse_relu, scale=bc.scale)
     return out[:, :m]

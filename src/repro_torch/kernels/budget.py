@@ -50,9 +50,10 @@ ELL_MIN_BLOCKS = 3 * SMS // 2
 ELL_1X1_TILES = ((8, 4), (8, 8), (16, 4), (8, 2), (16, 2), (32, 4), (32, 2),
                  (8, 1), (16, 1), (32, 1))
 # BCSR conv (csrc/bsr_conv.cu): a warpgroup of 128 threads a 64-pixel tile,
-# 1 or 2 a block, over N output channels (a group of N/bm block-rows); the
-# (N, warpgroups) pairs it instantiates.  The TF32 operands
-# of N = 64 fill 128 KB of shared memory; N = 128 would not fit.
+# 1 or 2 a block, over N output channels (a group of N/bm block-rows, so
+# bm <= N: a (64, 128) block runs only at N = 64); the (N, warpgroups)
+# pairs it instantiates.  The TF32 operands of N = 64 fill 128 KB of
+# shared memory; N = 128 would not fit.
 BSR_CONV_TILES = ((64, 2), (32, 2), (64, 1), (32, 1))
 # ... the first of them whose blocks number at least this (half the SMs:
 # a block of two warpgroups holds an SM's tensor cores busier than two
@@ -131,6 +132,28 @@ FLASH_TC_DQ_WARPGROUPS = 2
 FLASH_TC_DQ_STAGES = 2
 
 
+# Storage width (bytes) of each sparse-value dtype, the reference's table.
+# A quantised bank (int8 / fp8) stores one byte a nonzero plus a
+# per-output-channel f32 scale row.
+VALUE_ITEMSIZES = {
+    "float32": 4,
+    "bfloat16": 2,
+    "float16": 2,
+    "int8": 1,
+    "float8_e4m3fn": 1,
+}
+
+
+def value_itemsize(dtype: str) -> int:
+    """Bytes a stored sparse value of ``dtype`` (a dtype name) takes."""
+    try:
+        return VALUE_ITEMSIZES[dtype]
+    except KeyError:
+        raise ValueError(
+            f"unknown sparse value dtype {dtype!r}; expected one of "
+            f"{sorted(VALUE_ITEMSIZES)}") from None
+
+
 @functools.lru_cache(maxsize=1024)
 def ell_slab_rows(n: int, e: int, f: int, hs: int, st: int, rt: int,
                   tp: int) -> int:
@@ -167,12 +190,16 @@ def ell_smem_bytes(tm: int, cc: int, c: int, rows: int, ws: int, s: int,
             + cc * rows * 4 + tm * (-(-c // cc) + 1) * 4)
 
 
-def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int) -> int:
-    """Dynamic shared memory of one BCSR conv block: two stages of the TF32
-    hi and lo B operands (``n_tile`` x ``bn``), three slots of ``bn`` int32
+def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int,
+                        value_itemsize: int = 4) -> int:
+    """Dynamic shared memory of one BCSR conv block: two stages, each of the
+    TF32 B operand (``n_tile`` x ``bn``) and either its lo half (f32 tiles)
+    or the tiles' narrow bytes (``value_itemsize`` 1: a quantised bank,
+    converted on chip into the operand); three slots of ``bn`` int32
     column offsets, the (n_tile/bm x ``kbc``) table of kept tiles and the
     ``kbc`` live block columns."""
-    return 2 * 2 * n_tile * bn * 4 + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
+    stage = n_tile * bn * (4 + value_itemsize)
+    return 2 * stage + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 
 def bsr_matmul_rows_stage_tiles(bm: int, bn: int, itemsize: int) -> int:

@@ -48,12 +48,12 @@ def variants(src: str) -> dict:
                        "        if (0) cp_async4(sb + 4 * t, src >= 0"),
         "no_sums": cut(src, "      int i = bounds[ml * (nchunks + 1) + k];",
                        "      int i = end;"),
-        "no_pairs": cut(
-            src, "      int2 win = first[rr];",
-            "      int2 win = make_int2(4 * lane, 0);").replace(
-                "        const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)\n"
-                "                                             : make_int2(0, 0);",
-                "        const int2 nxt = win;"),
+        "no_pairs": cut(cut(
+            src, "      EntryT win = first[rr];",
+            "      EntryT win = zero_entry(EntryT());"),
+            "        const EntryT nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)\n"
+            "                                               : zero_entry(EntryT());",
+            "        const EntryT nxt = win;"),
         "no_inputs": cut(
             src, "__fmul_rn(v, *reinterpret_cast<const float*>(xs + pix[j]))",
             "__fmul_rn(v, 1.5f)"),

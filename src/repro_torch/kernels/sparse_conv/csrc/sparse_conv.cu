@@ -47,6 +47,17 @@
 //     its kernel (sparse_conv_1x1_kernel) stages nothing and reads each
 //     input straight from L1, the whole row one run.
 //
+//   * A quantised bank (int8 or e4m3 values and an f32 scale a row, the
+//     reference's scale operand) streams its narrow values: each nonzero is
+//     one 32-bit word, its slab offset in words above its value's byte
+//     ((off / 4) << 8 | byte, offsets below 2^23 words, checked by the
+//     launcher), half the pairs' bytes.  Each lane decodes its entry of a
+//     window once, before the window's shuffles (int8 exactly, e4m3
+//     exactly by its bit fields), multiplied by its row's scale, rounded
+//     once (__fmul_rn), before the sums below: the
+//     kernel on a quantised bank is bit for bit the f32 kernel on
+//     dequantize(bank), whose values are that same product.
+//
 // Each sum is formed nonzero by nonzero in bank order, the multiply and the
 // add rounded separately (__fmul_rn, __fadd_rn), exactly as the plain
 // PyTorch version (ref.py) forms it: the kernel is bit-identical to it, in
@@ -59,8 +70,9 @@
 // leaves no operand to reuse from registers.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
-// residual may be null; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tile no instantiation takes.
+// residual may be null, scale null for an f32 bank; qtype 0 (f32 pairs),
+// 1 (int8 words) or 2 (e4m3 words); returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a tile no instantiation takes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,16 +98,59 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// One stretched nonzero: an f32 bank's (offset bytes, value bits) pair, or
+// a quantised bank's word (offset words << 8 | value byte).
+template <bool QUANT>
+struct Entry {
+  using T = int2;
+};
+template <>
+struct Entry<true> {
+  using T = uint32_t;
+};
+
+__device__ __forceinline__ int2 zero_entry(int2) { return make_int2(0, 0); }
+__device__ __forceinline__ uint32_t zero_entry(uint32_t) { return 0u; }
+
+// e4m3 (fn) byte -> f32, exactly: sign, 4 exponent bits (bias 7), 3
+// mantissa bits; exponent 0 is subnormal (mantissa x 2^-9).
+__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
+  const uint32_t e = (b >> 3) & 0xFu;
+  const uint32_t m = b & 7u;
+  const float mag = e ? __uint_as_float(((e + 120u) << 23) | (m << 20))
+                      : static_cast<float>(m) * 0.001953125f;
+  return (b & 0x80u) ? -mag : mag;
+}
+
+// (byte offset, value) of an entry; a quantised value is multiplied by its
+// row's scale, rounded once.
+__device__ __forceinline__ void decode(int2 e, float, int, int& off,
+                                       float& v) {
+  off = e.x;
+  v = __int_as_float(e.y);
+}
+__device__ __forceinline__ void decode(uint32_t e, float scale, int qtype,
+                                       int& off, float& v) {
+  off = static_cast<int>((e >> 8) << 2);
+  const uint32_t b = e & 0xFFu;
+  const float q = qtype == 1 ? static_cast<float>(static_cast<int8_t>(b))
+                             : e4m3_to_f32(b);
+  v = __fmul_rn(q, scale);
+}
+
 // Shared memory: STAGES slabs of CC x ROWS x Ws f32, then the (CC x ROWS)
 // xpad offsets of the slab's rows (-1 past the tile's), then the block's
 // rows' run bounds, TM x (nchunks + 1).
-template <int TM, int PX, bool PIPE>
+template <int TM, int PX, bool PIPE, bool QUANT>
 __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
-    const float* __restrict__ xpad, const int2* __restrict__ pairs,
-    const int* __restrict__ rowptr, const float* __restrict__ bias,
-    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
-    int C, int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
-    int stride, int CC, int ROWS, int relu) {
+    const float* __restrict__ xpad,
+    const typename Entry<QUANT>::T* __restrict__ pairs,
+    const int* __restrict__ rowptr, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
+    int RS, int S, int E, int F, int stride, int CC, int ROWS, int relu,
+    int qtype) {
+  using EntryT = typename Entry<QUANT>::T;
   constexpr int RPW = TM / NWARPS;  // rows a warp sums
   constexpr int P = 32 * PX;        // pixels a block
   constexpr int STAGES = PIPE ? 2 : 1;
@@ -198,9 +253,17 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
 #pragma unroll
     for (int j = 0; j < PX; ++j) acc[rr][j] = 0.f;
 
+  // each of the warp's rows' scale (a quantised bank)
+  float rscale[RPW];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int m = m0 + warp * RPW + rr;
+    rscale[rr] = QUANT && m < M ? scale[m] : 1.f;
+  }
+
   // the first window of each of the warp's rows for chunk k, loaded a
   // chunk ahead
-  int2 first[RPW];
+  EntryT first[RPW];
   auto load_first = [&](int k) {
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
@@ -210,7 +273,7 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
       first[rr] = beg + lane < fin
                       ? __ldg(pairs + static_cast<int64_t>(m0 + ml) * K + beg +
                               lane)
-                      : make_int2(0, 0);
+                      : zero_entry(EntryT());
     }
   };
   load_first(0);
@@ -225,21 +288,25 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int ml = warp * RPW + rr;
-      const int2* pr = pairs + static_cast<int64_t>(m0 + ml) * K;
+      const EntryT* pr = pairs + static_cast<int64_t>(m0 + ml) * K;
       const int end = bounds[ml * (nchunks + 1) + k + 1];
       // the run in windows of 32 pairs, lane l holding pair i + l (one
       // coalesced load a window, the next one loaded under this one's
       // sums); each pair is broadcast to the warp by a shuffle
       int i = bounds[ml * (nchunks + 1) + k];
-      int2 win = first[rr];
+      EntryT win = first[rr];
       while (i < end) {
         const int cnt = min(32, end - i);
-        const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
-                                             : make_int2(0, 0);
+        const EntryT nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
+                                               : zero_entry(EntryT());
+        // each lane decodes its own entry of the window, once
+        int woff;
+        float wv;
+        decode(win, rscale[rr], qtype, woff, wv);
 #pragma unroll 4
         for (int t = 0; t < cnt; ++t) {
-          const int off = __shfl_sync(0xffffffffu, win.x, t);
-          const float v = __int_as_float(__shfl_sync(0xffffffffu, win.y, t));
+          const int off = __shfl_sync(0xffffffffu, woff, t);
+          const float v = __shfl_sync(0xffffffffu, wv, t);
           const unsigned char* xs = slab + off;
 #pragma unroll
           for (int j = 0; j < PX; ++j)
@@ -281,13 +348,15 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
 // xpad through L1 (the block's rows read the same pixels' channels), the
 // pairs walked in windows as above, the whole row one run (rowptr (M, 2),
 // offsets c*Hp*Wp), and the sums formed in the same order.
-template <int TM, int PX>
+template <int TM, int PX, bool QUANT>
 __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
-    const float* __restrict__ xpad, const int2* __restrict__ pairs,
-    const int* __restrict__ rowptr, const float* __restrict__ bias,
-    const float* __restrict__ residual, float* __restrict__ out, int NIMG,
-    int C, int Hp, int Wp, int M, int K, int E, int F, int stride,
-    int relu) {
+    const float* __restrict__ xpad,
+    const typename Entry<QUANT>::T* __restrict__ pairs,
+    const int* __restrict__ rowptr, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
+    int E, int F, int stride, int relu, int qtype) {
+  using EntryT = typename Entry<QUANT>::T;
   constexpr int RPW = TM / NWARPS;
   constexpr int P = 32 * PX;
   const int warp = threadIdx.x / 32;
@@ -315,18 +384,22 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
     for (int j = 0; j < PX; ++j) acc[rr][j] = 0.f;
     const int m = m0 + warp * RPW + rr;
     if (m >= M) continue;
-    const int2* pr = pairs + static_cast<int64_t>(m) * K;
+    const EntryT* pr = pairs + static_cast<int64_t>(m) * K;
+    const float sc = QUANT ? scale[m] : 1.f;
     const int end = rowptr[2 * m + 1];
     int i = rowptr[2 * m];
-    int2 win = i + lane < end ? __ldg(pr + i + lane) : make_int2(0, 0);
+    EntryT win = i + lane < end ? __ldg(pr + i + lane) : zero_entry(EntryT());
     while (i < end) {
       const int cnt = min(32, end - i);
-      const int2 nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
-                                           : make_int2(0, 0);
+      const EntryT nxt = i + 32 + lane < end ? __ldg(pr + i + 32 + lane)
+                                             : zero_entry(EntryT());
+      int woff;
+      float wv;
+      decode(win, sc, qtype, woff, wv);
 #pragma unroll 4
       for (int t = 0; t < cnt; ++t) {
-        const int off = __shfl_sync(0xffffffffu, win.x, t);
-        const float v = __int_as_float(__shfl_sync(0xffffffffu, win.y, t));
+        const int off = __shfl_sync(0xffffffffu, woff, t);
+        const float v = __shfl_sync(0xffffffffu, wv, t);
         const unsigned char* xs = xb + off;
 #pragma unroll
         for (int j = 0; j < PX; ++j)
@@ -357,23 +430,25 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
   }
 }
 
-template <int TM, int PX>
-int launch_1x1(const float* xpad, const int2* pairs, const int* rowptr,
-               const float* bias, const float* residual, float* out, int N,
-               int C, int Hp, int Wp, int M, int K, int E, int F, int stride,
-               int relu, cudaStream_t stream) {
+template <int TM, int PX, bool QUANT>
+int launch_1x1(const float* xpad, const void* pairs, const int* rowptr,
+               const float* scale, const float* bias, const float* residual,
+               float* out, int N, int C, int Hp, int Wp, int M, int K, int E,
+               int F, int stride, int relu, int qtype, cudaStream_t stream) {
   const dim3 grid((N * E * F + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
-  sparse_conv_1x1_kernel<TM, PX><<<grid, NTH, 0, stream>>>(
-      xpad, pairs, rowptr, bias, residual, out, N, C, Hp, Wp, M, K, E, F,
-      stride, relu);
+  sparse_conv_1x1_kernel<TM, PX, QUANT><<<grid, NTH, 0, stream>>>(
+      xpad, static_cast<const typename Entry<QUANT>::T*>(pairs), rowptr,
+      scale, bias, residual, out, N, C, Hp, Wp, M, K, E, F, stride, relu,
+      qtype);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TM, int PX, bool PIPE>
-int launch(const float* xpad, const int2* pairs, const int* rowptr,
-           const float* bias, const float* residual, float* out, int N, int C,
-           int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
-           int stride, int cc, int rows, int relu, cudaStream_t stream) {
+template <int TM, int PX, bool PIPE, bool QUANT>
+int launch(const float* xpad, const void* pairs, const int* rowptr,
+           const float* scale, const float* bias, const float* residual,
+           float* out, int N, int C, int Hp, int Wp, int M, int K, int RS,
+           int S, int E, int F, int stride, int cc, int rows, int relu,
+           int qtype, cudaStream_t stream) {
   const bool sub = RS == 1 && stride > 1;
   const int Ws = sub ? F : Wp;
   const size_t slab_floats =
@@ -383,48 +458,71 @@ int launch(const float* xpad, const int2* pairs, const int* rowptr,
                       static_cast<size_t>(cc) * rows * 4 +
                       static_cast<size_t>(TM) * (nchunks + 1) * 4;
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_kernel<TM, PX, PIPE>,
+      sparse_conv_kernel<TM, PX, PIPE, QUANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int Wq = (sub || stride == 1) ? Ws : F;  // the kernel's pixel rows
   const dim3 grid((N * E * Wq + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
-  sparse_conv_kernel<TM, PX, PIPE><<<grid, NTH, smem, stream>>>(
-      xpad, pairs, rowptr, bias, residual, out, N, C, Hp, Wp, M, K, RS, S, E,
-      F, stride, cc, rows, relu);
+  sparse_conv_kernel<TM, PX, PIPE, QUANT><<<grid, NTH, smem, stream>>>(
+      xpad, static_cast<const typename Entry<QUANT>::T*>(pairs), rowptr,
+      scale, bias, residual, out, N, C, Hp, Wp, M, K, RS, S, E, F, stride,
+      cc, rows, relu, qtype);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int TM, int PX, bool QUANT>
+int dispatch(const float* x, const void* pr, const int* rp, const float* sc,
+             const float* b, const float* res, float* o, int N, int C,
+             int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
+             int stride, int cc, int rows, int pipeline, int relu, int qtype,
+             cudaStream_t st) {
+  if (RS == 1)
+    return launch_1x1<TM, PX, QUANT>(x, pr, rp, sc, b, res, o, N, C, Hp, Wp,
+                                     M, K, E, F, stride, relu, qtype, st);
+  return pipeline
+             ? launch<TM, PX, true, QUANT>(x, pr, rp, sc, b, res, o, N, C,
+                                           Hp, Wp, M, K, RS, S, E, F, stride,
+                                           cc, rows, relu, qtype, st)
+             : launch<TM, PX, false, QUANT>(x, pr, rp, sc, b, res, o, N, C,
+                                            Hp, Wp, M, K, RS, S, E, F,
+                                            stride, cc, rows, relu, qtype,
+                                            st);
 }
 
 }  // namespace
 
-// pairs: (M, K) of (slab byte offset, value bits); rowptr: (M, nchunks + 1)
-// run bounds (ref.py: stretch_bank).  A 1x1 conv (RS = 1) runs the
-// unstaged kernel: its pairs' offsets are c*Hp*Wp bytes, one run a row.
-extern "C" int sparse_conv_f32(const void* xpad, const void* pairs,
-                               const void* rowptr, const void* bias,
-                               const void* residual, void* out, int N, int C,
-                               int Hp, int Wp, int M, int K, int RS, int S,
-                               int E, int F, int stride, int tm, int px,
-                               int cc, int rows, int pipeline, int relu,
-                               void* stream) {
+// pairs: (M, K) of (slab byte offset, value bits) for an f32 bank (qtype
+// 0), or of words (slab word offset << 8 | value byte) for a quantised one
+// (qtype 1: int8, 2: e4m3), with scale its (M,) f32 scales; rowptr:
+// (M, nchunks + 1) run bounds (ref.py: stretch_bank).  A 1x1 conv (RS = 1)
+// runs the unstaged kernel: its offsets are of c*Hp*Wp, one run a row.
+extern "C" int sparse_conv_ell(const void* xpad, const void* pairs,
+                               const void* rowptr, const void* scale,
+                               const void* bias, const void* residual,
+                               void* out, int N, int C, int Hp, int Wp, int M,
+                               int K, int RS, int S, int E, int F, int stride,
+                               int tm, int px, int cc, int rows, int pipeline,
+                               int relu, int qtype, void* stream) {
   const float* x = static_cast<const float*>(xpad);
-  const int2* pr = static_cast<const int2*>(pairs);
   const int* rp = static_cast<const int*>(rowptr);
+  const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   const float* res = static_cast<const float*>(residual);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cc <= 0 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (cc <= 0 || rows <= 0 || qtype < 0 || qtype > 2 ||
+      (qtype != 0 && sc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define SPARSE_CONV_LAUNCH(TM, PX)                                           \
-  if (tm == TM && px == PX && RS == 1)                                       \
-    return launch_1x1<TM, PX>(x, pr, rp, b, res, o, N, C, Hp, Wp, M, K, E,   \
-                              F, stride, relu, st);                          \
   if (tm == TM && px == PX)                                                  \
-    return pipeline ? launch<TM, PX, true>(x, pr, rp, b, res, o, N, C, Hp,   \
-                                           Wp, M, K, RS, S, E, F, stride,    \
-                                           cc, rows, relu, st)               \
-                    : launch<TM, PX, false>(x, pr, rp, b, res, o, N, C, Hp,  \
-                                            Wp, M, K, RS, S, E, F, stride,   \
-                                            cc, rows, relu, st);
+    return qtype ? dispatch<TM, PX, true>(x, pairs, rp, sc, b, res, o, N, C, \
+                                          Hp, Wp, M, K, RS, S, E, F, stride, \
+                                          cc, rows, pipeline, relu, qtype,   \
+                                          st)                                \
+                 : dispatch<TM, PX, false>(x, pairs, rp, sc, b, res, o, N,   \
+                                           C, Hp, Wp, M, K, RS, S, E, F,     \
+                                           stride, cc, rows, pipeline, relu, \
+                                           qtype, st);
   SPARSE_CONV_LAUNCH(8, 1)
   SPARSE_CONV_LAUNCH(8, 2)
   SPARSE_CONV_LAUNCH(8, 4)

@@ -5,12 +5,15 @@ Replaces ``sparse_conv_pallas`` (``repro/kernels/sparse_conv/kernel.py``).
 launches the kernel on the current stream, for CPU tensors it runs the plain
 version (``ref.py``), and for anything else it raises.  There is no other
 way out: a launch that CUDA refuses raises too.  The kernel takes the bank
-stretched for its slabs (``ref.stretch_bank``); the launcher stretches each
-bank once per schedule and keeps the result (``_build.cached``), so a
-forward launches no stretching ops after its first.
+stretched for its slabs (``ref.stretch_bank``: (offset, value) pairs of an
+f32 bank, or one word a nonzero of a quantised int8 or e4m3 bank, with its
+scale row); the launcher stretches each bank once per schedule and keeps
+the result (``_build.cached``), so a forward launches no stretching ops
+after its first.
 
 ``sparse_conv_kernel.launches`` counts the kernel's launches in this
-process.  Only the CUDA branch adds to it, once per launch.
+process, ``.int8_launches`` and ``.e4m3_launches`` those on a quantised
+bank.  Only the CUDA branch adds to them, once per launch.
 """
 from __future__ import annotations
 
@@ -24,15 +27,18 @@ from repro_torch.kernels.sparse_conv.ref import (slab_geometry,
                                                  sparse_conv_plain,
                                                  stretch_bank)
 
-_SYMBOL = "sparse_conv_f32"
+_SYMBOL = "sparse_conv_ell"
+# the C entry point's parameters: 7 pointers, 18 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+# value storage dtype -> the kernel's qtype
+QTYPES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sparse_conv")
     fn = getattr(lib, _SYMBOL)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [
-            ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -41,13 +47,22 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     _build.check_operand("sparse_conv", name, t, dtype, shape, device)
 
 
-def _launch(xpad, value, packed_idx, nnz, bias, residual, *, rs, s, e, f,
-            stride, fuse_relu, schedule) -> torch.Tensor:
+def _launch(xpad, value, packed_idx, nnz, bias, residual, scale, *, rs, s,
+            e, f, stride, fuse_relu, schedule) -> torch.Tensor:
     n, c, hp, wp = xpad.shape
     m, k = value.shape
     dev = xpad.device
     _check(xpad, "xpad", torch.float32, (n, c, hp, wp), dev)
-    _check(value, "value", torch.float32, (m, k), dev)
+    if value.dtype not in QTYPES:
+        raise ValueError(f"sparse_conv: value has dtype {value.dtype}, "
+                         f"expected one of {sorted(map(str, QTYPES))}")
+    qtype = QTYPES[value.dtype]
+    _check(value, "value", value.dtype, (m, k), dev)
+    if (scale is None) != (qtype == 0):
+        raise ValueError("sparse_conv: an int8 or e4m3 bank needs its scale "
+                         "row, an f32 bank has none")
+    if scale is not None:
+        _check(scale, "scale", torch.float32, (m,), dev)
     _check(packed_idx, "packed_idx", torch.int32, (m, k), dev)
     _check(nnz, "nnz", torch.int32, (m,), dev)
     _check(bias, "bias", torch.float32, (m,), dev)
@@ -79,13 +94,18 @@ def _launch(xpad, value, packed_idx, nnz, bias, residual, *, rs, s, e, f,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xpad.data_ptr(), pairs.data_ptr(), rowptr.data_ptr(),
+                 None if scale is None else scale.data_ptr(),
                  bias.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  out.data_ptr(), n, c, hp, wp, m, k, rs, s, e, f, stride,
                  sc.tm, sc.tp // 32, sc.cc, sc.rows, int(sc.pipeline),
-                 int(fuse_relu), stream)
+                 int(fuse_relu), qtype, stream)
     _build.check(err, "sparse_conv")
     sparse_conv_kernel.launches += 1
+    if qtype == 1:
+        sparse_conv_kernel.int8_launches += 1
+    elif qtype == 2:
+        sparse_conv_kernel.e4m3_launches += 1
     return out
 
 
@@ -94,10 +114,12 @@ def sparse_conv_kernel(xpad: torch.Tensor, value: torch.Tensor,
                        bias: torch.Tensor,
                        residual: Optional[torch.Tensor] = None, *, rs: int,
                        s: int, e: int, f: int, stride: int = 1,
-                       fuse_relu: bool = False, schedule=None) -> torch.Tensor:
+                       fuse_relu: bool = False, schedule=None,
+                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ELL direct sparse conv with its fused epilogue.
 
-    xpad (N, C, Hp, Wp) f32 padded input; value (M, K) f32; packed_idx
+    xpad (N, C, Hp, Wp) f32 padded input; value (M, K) f32, or int8 or
+    float8_e4m3fn with ``scale`` (M,) f32 (a quantised bank); packed_idx
     (M, K) int32 ``c*RS + r*S + s``, in (c, r, s) order within a row up to
     its nnz (what ``ell_from_dense_conv`` builds); nnz (M,) int32; bias
     (M,) f32; residual optional (N, M, E, F) f32.  ``schedule`` is the
@@ -106,12 +128,15 @@ def sparse_conv_kernel(xpad: torch.Tensor, value: torch.Tensor,
     """
     kw = dict(rs=rs, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu)
     if xpad.device.type == "cuda":
-        return _launch(xpad, value, packed_idx, nnz, bias, residual,
+        return _launch(xpad, value, packed_idx, nnz, bias, residual, scale,
                        schedule=schedule, **kw)
     if xpad.device.type == "cpu":
         return sparse_conv_plain(xpad, value, packed_idx, nnz, bias, residual,
-                                 **kw)
+                                 scale=scale, **kw)
     raise ValueError(f"sparse_conv: no kernel for device {xpad.device}")
 
 
 sparse_conv_kernel.launches = 0
+# of those, the launches on an int8 and on an e4m3 bank
+sparse_conv_kernel.int8_launches = 0
+sparse_conv_kernel.e4m3_launches = 0

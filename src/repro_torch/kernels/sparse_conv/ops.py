@@ -1,8 +1,9 @@
 """Public wrapper around the ELL direct sparse conv kernel.
 
 Port of ``repro/kernels/sparse_conv/ops.py``.  Handles pad_in, index
-packing, the card's schedule (``resolve_schedule``), the fused epilogue
-operands, and nnz-balanced banks: an ``EllConv`` carrying a row permutation
+packing, the card's schedule (``resolve_schedule``, and ``tile_candidates``
+for the autotuner), the fused epilogue operands, quantised banks (their
+scale row goes to the kernel), and nnz-balanced banks: an ``EllConv`` carrying a row permutation
 runs the kernel in bank row order, with bias and residual gathered into that
 order on the way in and the output inverse-permuted on the way out.
 
@@ -16,7 +17,7 @@ one raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -103,6 +104,26 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
     return EllSchedule(tm, tp, cc, rows, pipe), None
 
 
+def tile_candidates(m: int, k: int, e: int, f: int, *, n: int = 1,
+                    c: Optional[int] = None, r: int = 1, s: int = 1,
+                    stride: int = 1, hp: Optional[int] = None,
+                    wp: Optional[int] = None,
+                    pipeline: Optional[bool] = None,
+                    ) -> List[Tuple[int, int]]:
+    """Every ``(tm, tp)`` tile ``resolve_schedule`` accepts at this
+    geometry, in the schedule's order of preference (``budget.ELL_TILES``,
+    ``ELL_1X1_TILES`` for a 1x1 conv): the autotuner's candidate space."""
+    order = budget.ELL_1X1_TILES if r == s == 1 else budget.ELL_TILES
+    out = []
+    for tm, px in order:
+        sched, _ = resolve_schedule(m, k, e, f, n=n, c=c, r=r, s=s,
+                                    stride=stride, hp=hp, wp=wp, tm=tm,
+                                    tp=budget.WARP * px, pipeline=pipeline)
+        if sched is not None:
+            out.append((sched.tm, sched.tp))
+    return out
+
+
 def pack_indices(ell: EllConv) -> torch.Tensor:
     """Pack (c, r, s) into one int32 per nonzero: c*(R*S) + r*S + s."""
     _, _, r, s = ell.shape
@@ -135,8 +156,8 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
                 packed_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Direct sparse convolution + fused epilogue through the ELL kernel.
 
-    (N, C, H, W) f32 input, ELL bank for (M, C, R, S) weights ->
-    (N, M, E, F) f32.  ``bias`` (per channel), ``fuse_relu`` and
+    (N, C, H, W) f32 input, ELL bank for (M, C, R, S) weights (f32, or a
+    quantised int8 or e4m3 bank with its scales) -> (N, M, E, F) f32.  ``bias`` (per channel), ``fuse_relu`` and
     ``residual`` (shaped like the output) run in-kernel on the f32 sums.
     ``pipeline`` picks the copy schedule as in the reference: ``True``
     double-buffers the staged input (the copy of the next channel chunk
@@ -174,7 +195,7 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
         pad_in(x, padding), ell.value, packed_idx, ell.nnz,
         b.contiguous(), None if res is None else res.contiguous(),
         rs=r * s, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
-        schedule=sched)
+        schedule=sched, scale=ell.scale)
     if ell.perm is not None:
         out = out.index_select(1, inverse_permutation(ell.perm).long())
     return out

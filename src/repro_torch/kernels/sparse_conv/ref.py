@@ -27,16 +27,30 @@ from repro_torch.core.direct_conv import (gather_windows, pixel_offsets,
                                           stretched_offsets)
 
 
+def dequantized(value: torch.Tensor,
+                scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 values the kernel multiplies: a quantised bank's int8 or
+    e4m3 values times their row's scale, one f32 multiply each (what
+    ``core.sparse_format.dequantize`` computes); an f32 bank's as they
+    are."""
+    if scale is None:
+        return value.float()
+    return value.float() * scale.float()[:, None]
+
+
 def sparse_conv_plain(xpad: torch.Tensor, value: torch.Tensor,
                       packed_idx: torch.Tensor, nnz: torch.Tensor,
                       bias: torch.Tensor,
                       residual: Optional[torch.Tensor] = None, *, rs: int,
                       s: int, e: int, f: int, stride: int = 1,
-                      fuse_relu: bool = False) -> torch.Tensor:
+                      fuse_relu: bool = False,
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, C, Hp, Wp) padded input, (M, K) values and packed indices ->
-    (N, M, E, F) f32 with the fused epilogue."""
+    (N, M, E, F) f32 with the fused epilogue.  ``scale`` (M,) f32 goes with
+    a quantised bank's int8 or e4m3 values."""
     n, _, hp, wp = xpad.shape
     m = value.shape[0]
+    value = dequantized(value, scale)
     xpad = xpad.float()
     packed = packed_idx.long()
     cidx = packed // rs
@@ -44,7 +58,6 @@ def sparse_conv_plain(xpad: torch.Tensor, value: torch.Tensor,
     sidx = packed - cidx * rs - ridx * s
     off = stretched_offsets(cidx, ridx, sidx, hp, wp)
     pix = pixel_offsets(wp, e, f, stride, xpad.device)
-    value = value.float()
     acc = torch.zeros((n, m, e * f), dtype=torch.float32, device=xpad.device)
     kmax = int(nnz.max()) if m else 0
     for k in range(kmax):
@@ -76,17 +89,24 @@ def pixel_row(ws: int, f: int, st: int) -> int:
     return ws if st == 1 else f
 
 
+# a quantised bank's word: the slab offset in words above the value byte
+WORD_OFFSET_LIMIT = 1 << 23
+
+
 def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
                  nnz: torch.Tensor, *, rs: int, s: int, ws: int, rows: int,
                  cc: int, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paper's weight stretching for the CUDA kernel's slabs, on the
     bank's device: ``pairs`` (M, K, 2) int32, each nonzero's byte offset in
-    a slab of ``cc`` channels x ``rows`` x ``ws`` f32, (c % cc)*rows*ws +
-    r*ws + s, beside its f32 value's bits; and ``rowptr`` (M, C/cc + 1)
+    a slab of ``cc`` channels x ``rows`` x ``ws`` f32, 4*((c % cc)*rows*ws
+    + r*ws + s), beside its f32 value's bits; and ``rowptr`` (M, C/cc + 1)
     int32, row m's entries of channel chunk k being rowptr[m, k] ..
-    rowptr[m, k + 1].  Raises unless every row's packed indices ascend up
-    to its nnz (the (c, r, s) order ``ell_from_dense_conv`` builds), which
-    the chunk runs rely on."""
+    rowptr[m, k + 1].  A quantised bank (int8 or float8_e4m3fn ``value``)
+    gets (M, K) int32 words instead, (offset / 4) << 8 | the value's byte:
+    its narrow values stream at 4 bytes a nonzero, not 8.  Raises unless
+    every row's packed indices ascend up to its nnz (the (c, r, s) order
+    ``ell_from_dense_conv`` builds), which the chunk runs rely on, and, for
+    words, unless every offset is below ``WORD_OFFSET_LIMIT`` words."""
     m, k = packed_idx.shape
     nchunks = -(-c // cc)
     packed = packed_idx.long()
@@ -96,9 +116,16 @@ def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
                          "(c, r, s) order")
     cidx = packed // rs
     r = (packed - cidx * rs) // s
-    off = 4 * ((cidx % cc) * rows * ws + r * ws + (packed - cidx * rs - r * s))
-    pairs = torch.stack([off.to(torch.int32),
-                         value.float().contiguous().view(torch.int32)], -1)
+    words = (cidx % cc) * rows * ws + r * ws + (packed - cidx * rs - r * s)
+    if value.dtype == torch.float32:
+        pairs = torch.stack([(4 * words).to(torch.int32),
+                             value.contiguous().view(torch.int32)], -1)
+    else:
+        if bool((live & (words >= WORD_OFFSET_LIMIT)).any()):
+            raise ValueError("sparse_conv: a quantised bank's slab offsets "
+                             f"reach {WORD_OFFSET_LIMIT} words")
+        byte = value.contiguous().view(torch.uint8).long()
+        pairs = ((torch.where(live, words, 0) << 8) | byte).to(torch.int32)
     chunk = torch.where(live, cidx // cc, torch.full_like(cidx, nchunks))
     counts = torch.zeros((m, nchunks + 1), dtype=torch.long,
                          device=packed.device)
@@ -107,6 +134,32 @@ def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
                          device=packed.device)
     rowptr[:, 1:] = torch.cumsum(counts[:, :nchunks], dim=1)
     return pairs.contiguous(), rowptr.to(torch.int32)
+
+
+def e4m3_to_f32(byte: torch.Tensor) -> torch.Tensor:
+    """e4m3 (fn) bytes -> f32 by their bit fields, as the kernel decodes
+    them: exponent 0 subnormal (mantissa x 2^-9), else (1 + m/8) x
+    2^(e - 7)."""
+    b = byte.long()
+    e, m = (b >> 3) & 0xF, b & 7
+    normal = ((e + 120) << 23 | (m << 20)).to(torch.int32).view(torch.float32)
+    mag = torch.where(e > 0, normal, m.float() * 2.0 ** -9)
+    return torch.where((b & 0x80) > 0, -mag, mag)
+
+
+def unstretch(pairs: torch.Tensor, value_dtype: torch.dtype,
+              scale: Optional[torch.Tensor]):
+    """(word offsets, f32 values) of a stretched bank, decoded as the kernel
+    decodes them: an f32 bank's pairs, or a quantised bank's words (the
+    byte an int8 or an e4m3 value, times its row's scale, rounded once)."""
+    if value_dtype == torch.float32:
+        return (pairs[..., 0].long() // 4,
+                pairs[..., 1].contiguous().view(torch.float32))
+    w = pairs.long() & 0xFFFFFFFF
+    byte = (w & 0xFF).to(torch.uint8)
+    q = (byte.view(torch.int8).float() if value_dtype == torch.int8
+         else e4m3_to_f32(byte))
+    return w >> 8, q * scale.float()[:, None]
 
 
 def _epilogue(acc, bias, residual, fuse_relu):
@@ -120,15 +173,14 @@ def _epilogue(acc, bias, residual, fuse_relu):
 
 
 def _walk_direct(xpad, value, packed_idx, nnz, bias, residual, *, e, f,
-                 stride, fuse_relu, schedule):
+                 stride, fuse_relu, schedule, scale):
     """The 1x1 kernel's walk: pixel tiles of ``schedule.tp``, each row's
     whole run at offsets c*Hp*Wp from each pixel's input in xpad."""
     n, c, hp, wp = xpad.shape
     m = value.shape[0]
     pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=1, s=1, ws=wp,
                                  rows=hp, cc=c, c=c)
-    off = pairs[..., 0].long() // 4
-    val = pairs[..., 1].contiguous().view(torch.float32)
+    off, val = unstretch(pairs, value.dtype, scale)
     flat = xpad.float().reshape(-1)
     ef = e * f
     q = torch.arange(n * ef)
@@ -151,8 +203,9 @@ def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
                            bias: torch.Tensor,
                            residual: Optional[torch.Tensor] = None, *,
                            rs: int, s: int, e: int, f: int, stride: int = 1,
-                           fuse_relu: bool = False,
-                           schedule) -> torch.Tensor:
+                           fuse_relu: bool = False, schedule,
+                           scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The CUDA kernel's walk on its operands, for the tests: the bank
     stretched as the launcher stretches it (``stretch_bank``); for each
     tile of ``schedule.tp`` output pixels (flat over (n, e, f)), the input
@@ -162,7 +215,8 @@ def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
     run of the chunk added nonzero by nonzero at its stretched offset.  A
     1x1 conv walks as its unstaged kernel does, straight from xpad.
     Raises if a tile's slab is taller than ``schedule.rows``.  Same
-    operands and, bit for bit, the same result as ``sparse_conv_plain``."""
+    operands and, bit for bit, the same result as ``sparse_conv_plain``; a
+    quantised bank (with ``scale``) walks the words the kernel decodes."""
     n, c, hp, wp = xpad.shape
     m = value.shape[0]
     xpad = xpad.float()
@@ -172,14 +226,13 @@ def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
     src = xpad[:, :, ::stride, ::stride][:, :, :e, :f] if sub else xpad
     pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=rs, s=s, ws=ws,
                                  rows=rows, cc=cc, c=c)
-    off = pairs[..., 0].long() // 4
-    val = pairs[..., 1].contiguous().view(torch.float32)
+    off, val = unstretch(pairs, value.dtype, scale)
     rowptr = rowptr.long()
     rt = rs // s
     if rs == 1:   # a 1x1 conv reads xpad directly, one run a row
         return _walk_direct(xpad, value, packed_idx, nnz, bias, residual,
                             e=e, f=f, stride=stride, fuse_relu=fuse_relu,
-                            schedule=schedule)
+                            schedule=schedule, scale=scale)
     wq = pixel_row(ws, f, st)
     eq = e * wq
     q_all = torch.arange(n * eq)

@@ -7,26 +7,42 @@ BCSR path, whose products run the ``bsr_matmul`` CUDA kernel on the card::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \\
       --batch 4 --prompt-len 32 --gen 16 --sparsity 0.8
 
+With --autotune, the kernel-customization autotuner (repro_torch.tuning)
+plans a CNN instead: per-layer method, tiles and value storage, persisted to
+a JSON plan cache (default under the checkout's git-ignored ``build/``),
+checked by a reload round trip and an auto-vs-dense check on a reduced
+layer slice; --trace writes the run's Chrome trace::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --autotune \
+      --cnn alexnet [--tune-mode roofline|wall] [--plan-cache PATH] \
+      [--trace out.json] [--device cpu]
+
 It runs on the card; ``--device cpu`` runs the plain PyTorch versions on
-the CPU (a smoke config is the size for that).  ``--autotune`` and
-``--cnn-serve`` come with the slices that port the autotuner and the CNN
-serving tier.
+the CPU (a smoke config is the size for that; with --autotune, ``--smoke``
+tunes at a reduced image size).  ``--cnn-serve`` comes with the slice that
+ports the CNN serving tier.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch import configs as cfgs
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
 from repro_torch.core.pruning import block_prune
 from repro_torch.core.sparse_format import BcsrMatrix, bcsr_from_dense
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import transformer as T
 
 SKIP = frozenset({"embed", "lm_head", "router", "conv_w"})
+# the checkout's git-ignored build directory
+DEFAULT_PLAN_CACHE = str(Path(__file__).resolve().parents[3] / "build"
+                         / "plans" / "autotune_cache.json")
 
 
 def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
@@ -68,10 +84,93 @@ def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
     return visit(params)
 
 
+def autotune_main(args) -> None:
+    """CNN autotune flow: lower -> plan -> persist -> reload round trip ->
+    auto-vs-dense check on a reduced slice, on ``args.device``."""
+    from repro_torch.engine import CnnEngine, lower
+    from repro_torch.models import cnn
+    from repro_torch.tuning import (PlanCache, apply_plan_to_params,
+                                    format_plan, plan_program)
+
+    dev = resolve_device(args.device)
+    name = args.cnn
+    net = cnn.NETWORKS[name]()
+    image = ({"alexnet": 99, "googlenet": 96, "resnet50": 96}[name]
+             if args.smoke else 224)
+    mode = args.tune_mode
+    params = None
+    rng = np.random.default_rng(args.seed)
+    if mode == "wall":
+        params = cnn.init_cnn(net, 3, rng, image, device=dev)
+
+    program = lower(net, (3, image, image))
+    cache = PlanCache(args.plan_cache)
+    t0 = time.perf_counter()
+    plan = plan_program(program, batch=1, mode=mode, cache=cache,
+                        params=params, device=dev)
+    fused = sum(pe.method in ("pallas", "bsr") and pe.fuse
+                for pe in plan.values())
+    print(f"tuned {name} @ {image}px on {dev} "
+          f"({mode}, {time.perf_counter() - t0:.2f}s): {program.summary()}; "
+          f"{len(plan)} conv layers ({fused} fused-epilogue kernels), "
+          f"{len(cache)} cache entries -> {args.plan_cache}")
+    print(format_plan(plan))
+
+    # a fresh cache loaded from disk reproduces the plan, every layer a hit
+    replan = plan_program(program, batch=1, mode=mode,
+                          cache=PlanCache(args.plan_cache), params=params,
+                          device=dev)
+    if replan != plan:
+        raise SystemExit("plan cache reload did not reproduce the plan")
+    print(f"plan cache round-trip ok ({args.plan_cache})")
+
+    # auto vs dense on a reduced-channel slice: the first dense-kept conv
+    # and the first two sparse ones, at 12 px
+    convs = [l for l, _ in program.conv_table]
+    picked = ([next(l for l in convs if l.sparsity == 0)]
+              + [l for l in convs if l.sparsity > 0][:2])
+    slice_net = []
+    for l in picked:
+        slice_net.append(dataclasses.replace(
+            l, out_c=max(8, min(32, l.out_c // 8)), stride=1))
+        slice_net.append(cnn.Relu())
+    slice_prog = lower(slice_net, (3, 12, 12))
+    sparams = cnn.init_cnn(slice_net, 3, rng, 12, device=dev)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 12, 12)).astype(
+        np.float32)).to(dev)
+    # a fresh in-memory cache: the slice's geometries stay out of the file
+    splan = plan_program(slice_prog, batch=1, mode="roofline",
+                         cache=PlanCache(), device=dev)
+    apply_plan_to_params(sparams, splan)
+    engine = CnnEngine(slice_prog, sparams, splan, device=dev)
+    y_auto = engine(x, "auto")
+    report = engine.last_report if telemetry.is_enabled() else None
+    y_dense = engine(x, "dense")
+    torch.testing.assert_close(y_auto, y_dense, rtol=1e-4, atol=1e-4)
+    methods = sorted({pe.method for pe in splan.values()})
+    print(f"auto-vs-dense slice check ok (slice methods: "
+          f"{', '.join(methods)})")
+    if report is not None:
+        print(report.format())
+        if report.fallback_count:
+            raise SystemExit(
+                f"traced forward took {report.fallback_count} fallback(s): "
+                f"{[o.fallback_reason for o in report.fallback_ops]}")
+        engine.forward_timed(x, "auto")
+
+
+def export_trace(path: str) -> None:
+    """Validate and write the tracer's Chrome-trace JSON, with a metrics
+    summary: what ``--trace out.json`` produces."""
+    tracer = telemetry.get_tracer()
+    tracer.export(path)
+    print(f"exported {len(tracer)} trace events -> {path} "
+          f"({len(telemetry.snapshot())} metrics recorded)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True,
-                    help=f"one of {cfgs.list_archs()}")
+    ap.add_argument("--arch", help=f"one of {cfgs.list_archs()}")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -80,7 +179,27 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the kernel-customization autotuner (CNN path)")
+    ap.add_argument("--cnn", default="alexnet",
+                    choices=("alexnet", "googlenet", "resnet50"))
+    ap.add_argument("--plan-cache", default=DEFAULT_PLAN_CACHE)
+    ap.add_argument("--tune-mode", default="roofline",
+                    choices=("roofline", "wall"))
+    ap.add_argument("--trace", metavar="OUT_JSON",
+                    help="enable telemetry and export a Chrome-trace JSON "
+                         "(chrome://tracing / Perfetto) on exit")
     args = ap.parse_args(argv)
+
+    if args.trace:
+        telemetry.enable()
+    if args.autotune:
+        autotune_main(args)
+        if args.trace:
+            export_trace(args.trace)
+        return
+    if not args.arch:
+        ap.error("--arch is required unless --autotune is given")
 
     dev = resolve_device(args.device)
     cfg = cfgs.get_config(args.arch, smoke=args.smoke)
@@ -120,6 +239,8 @@ def main(argv=None) -> None:
           f"{t_prefill:.2f}s, decode {t_decode:.2f}s "
           f"({t_decode / max(g - 1, 1) * 1e3:.1f} ms/tok)")
     print("sample:", gen_ids[0, :12].tolist())
+    if args.trace:
+        export_trace(args.trace)
 
 
 if __name__ == "__main__":

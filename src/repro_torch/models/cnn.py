@@ -18,7 +18,7 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,23 +145,28 @@ def _params_fingerprint(params: Dict[str, Any]) -> Tuple[Any, ...]:
 
 
 def engine_for(net: Sequence[Any], params: Dict[str, Any],
-               in_shape: Tuple[int, int, int], device="cuda") -> CnnEngine:
-    """A bound :class:`CnnEngine` for (net, params, geometry, device),
-    memoized on the lowered program and the identity of ``params`` so that
-    repeated ``cnn_forward`` calls reuse its FC weights and BCSR banks."""
+               in_shape: Tuple[int, int, int],
+               plan: Optional[Dict[str, Any]] = None,
+               device="cuda") -> CnnEngine:
+    """A bound :class:`CnnEngine` for (net, params, geometry, plan, device),
+    memoized on the lowered program and the identity of ``params`` and
+    ``plan`` (and a fingerprint of the parameter leaves, so an update binds
+    a fresh engine), so that repeated ``cnn_forward`` calls reuse its FC
+    weights, banks and auto plans."""
     c, h, w = (int(d) for d in in_shape)
     program = _lowered(net, c, h, w)
     dev = str(torch.device(device))
-    key = (id(program), id(params), dev)
+    key = (id(program), id(params), id(plan), dev)
     fp = _params_fingerprint(params)
     hit = _ENGINES.get(key)
     if hit is not None and hit[1] == fp:
         eng = hit[0]
-        if eng.program is program and eng.params is params:
+        if (eng.program is program and eng.params is params
+                and eng.plan is plan):
             return eng
     if len(_ENGINES) > 64:
         _ENGINES.clear()
-    eng = CnnEngine(program, params, device=device)
+    eng = CnnEngine(program, params, plan, device=device)
     _ENGINES[key] = (eng, fp)
     return eng
 
@@ -176,8 +181,21 @@ def init_cnn(net: Sequence[Any], in_c: int, rng: np.random.Generator,
 
 
 def cnn_forward(net: Sequence[Any], params: Dict[str, Any], x,
-                method: str = "dense", device="cuda") -> torch.Tensor:
-    """Run the whole network on ``device``; FC layers run dense."""
-    engine = engine_for(net, params, tuple(x.shape[1:]), device=device)
+                method: str = "dense",
+                plan: Optional[Dict[str, Any]] = None,
+                device="cuda") -> torch.Tensor:
+    """Run the whole network on ``device``; FC layers run dense.
+
+    ``method="auto"`` runs each conv as its plan entry says
+    (``repro_torch.tuning``); with no plan, a roofline plan is computed
+    from the input geometry and the bound weights."""
+    engine = engine_for(net, params, tuple(x.shape[1:]), plan,
+                        device=device)
     return engine(x, method)
 
+
+
+def conv_layer_shapes(net: Sequence[Any], in_c: int, image: int,
+                      ) -> List[Tuple[Any, Tuple[int, int, int]]]:
+    """Static (layer, (C, H, W)) input-shape table (the reference's)."""
+    return list(_lowered(net, in_c, image, image).conv_table)

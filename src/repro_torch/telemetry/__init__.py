@@ -1,24 +1,44 @@
-"""Execution telemetry: the metrics registry the serving scheduler records
-into.
+"""Execution telemetry: metrics, traces, fallback reporting, reports.
 
-Port of the part of ``repro/telemetry`` the scheduler calls (``metrics``,
-copied, and the on/off switch).  Off by default; every instrumentation site
-guards on :func:`is_enabled`, a single module-level flag read, so the
-disabled path records nothing.  Traces, fallback reports and execution
-reports come with the slices that use them.
+Port of ``repro/telemetry``, stdlib-only at module level like it, so every
+layer of the port can import it without cycles:
+
+  metrics   -- process-global registry (counters, gauges, p50/p95/p99
+               histograms), ``snapshot()`` exports one JSON-able dict
+  trace     -- span/event tracer exporting Chrome-trace-format JSON
+               (chrome://tracing, Perfetto) + ``validate_chrome_trace``
+  fallback  -- machine-readable fallback reason codes, one-time
+               ``SparseFallbackWarning`` (always on), gated counters
+  report    -- per-forward ``ExecutionReport``/``OpReport`` built by
+               ``CnnEngine`` at dispatch time
+
+Off by default; every instrumentation site guards on :func:`is_enabled`, a
+single module-level flag read, so the disabled path records nothing.  The
+one always-on signal is the one-time fallback warning.
 """
 from __future__ import annotations
 
 import contextlib
 
 from repro_torch.telemetry import metrics
+from repro_torch.telemetry.fallback import (REASONS, SparseFallbackWarning,
+                                            record_fallback, reset_warnings)
 from repro_torch.telemetry.metrics import (REGISTRY, counter, gauge,
                                            histogram, snapshot)
+from repro_torch.telemetry.report import ExecutionReport, OpReport
+from repro_torch.telemetry.trace import (TID_ROOFLINE, TID_WALL, Tracer,
+                                         validate_chrome_trace)
 
-__all__ = ["REGISTRY", "counter", "enable", "enabled", "gauge", "histogram",
-           "is_enabled", "reset", "snapshot"]
+__all__ = [
+    "REASONS", "REGISTRY", "SparseFallbackWarning", "TID_ROOFLINE",
+    "TID_WALL", "Tracer", "ExecutionReport", "OpReport", "counter",
+    "disable", "enable", "enabled", "gauge", "get_tracer", "histogram",
+    "is_enabled", "record_fallback", "reset", "reset_warnings", "snapshot",
+    "validate_chrome_trace",
+]
 
 _ENABLED = False
+_TRACER = Tracer()
 
 
 def is_enabled() -> bool:
@@ -29,6 +49,11 @@ def is_enabled() -> bool:
 def enable() -> None:
     global _ENABLED
     _ENABLED = True
+
+
+def disable() -> None:
+    global _ENABLED
+    _ENABLED = False
 
 
 @contextlib.contextmanager
@@ -43,6 +68,13 @@ def enabled():
         _ENABLED = prev
 
 
+def get_tracer() -> Tracer:
+    """The process-global tracer (``--trace`` exports it)."""
+    return _TRACER
+
+
 def reset() -> None:
-    """Clear the metrics (tests)."""
+    """Clear metrics, trace events, and fallback-warning dedup (tests)."""
     metrics.reset()
+    _TRACER.clear()
+    reset_warnings()

@@ -149,3 +149,23 @@ def test_bsr_matmul_argtypes_match_the_c_entry_point():
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
              for p in params.split(",")]
     assert ARGTYPES == kinds
+
+
+@pytest.mark.parametrize("kernel, module, symbol", [
+    ("sparse_conv", "repro_torch.kernels.sparse_conv.kernel",
+     "sparse_conv_ell"),
+    ("bsr_conv", "repro_torch.kernels.bsr_conv.kernel", "bsr_conv_tc")])
+def test_conv_argtypes_match_the_c_entry_points(kernel, module, symbol):
+    """As for bsr_matmul: the conv launchers' ctypes argument lists (the
+    scale operand and the value type among them) match their sources'
+    ``extern "C"`` parameters one for one."""
+    import ctypes
+    import importlib
+    import re
+
+    text = _build.SOURCES[kernel].read_text()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+             for p in params.split(",")]
+    mod = importlib.import_module(module)
+    assert mod._SYMBOL == symbol and mod.ARGTYPES == kinds

@@ -136,8 +136,14 @@ def test_bottleneck_net_matches_reference_kernels(method):
 
 
 def test_auto_and_unknown_methods_raise():
+    """``auto`` runs (``test_torch_engine_auto.py`` holds it to the
+    reference's); it raises where its plan pins a tile the card's kernel
+    does not take, naming the layer, and an unknown method raises."""
+    from repro_torch.tuning import PlanEntry
     _, params, x, _ = reference_run()
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        cnn.cnn_forward(cnn.alexnet(), params, x, "auto", device="cpu")
+    plan = {"conv2": PlanEntry(method="pallas", tm=4, pad_to=8)}
+    with pytest.raises(ValueError, match="conv2.*unsupported_tm"):
+        cnn.cnn_forward(cnn.alexnet(), params, x, "auto", plan=plan,
+                        device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         cnn.cnn_forward(cnn.alexnet(), params, x, "nope", device="cpu")

@@ -113,9 +113,11 @@ def test_engine_packs_ell_indices_once():
         np.float32)
     y = eng(x, "pallas")
     sparse = [op.name for op in eng.program.conv_ops if op.sparsity > 0]
-    assert sorted(eng._packed_cache) == sorted(sparse)
-    packed = dict(eng._packed_cache)
+    # keyed on (layer, balanced, value dtype), each beside its bank
+    assert sorted(eng._packed_cache) == [(n, False, "float32")
+                                         for n in sorted(sparse)]
+    packed = {k[0]: v[1] for k, v in eng._packed_cache.items()}
     for name in sparse:
         assert torch.equal(packed[name], pack_indices(params[name]["ell"]))
     torch.testing.assert_close(eng(x, "pallas"), y, rtol=0, atol=0)
-    assert all(eng._packed_cache[n] is packed[n] for n in sparse)
+    assert all(v[1] is packed[k[0]] for k, v in eng._packed_cache.items())

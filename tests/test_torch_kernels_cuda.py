@@ -794,3 +794,171 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
                                    rtol=1e-4, atol=1e-4)
     tree_map(lambda a, b_: torch.testing.assert_close(
         a.cpu(), b_, rtol=1e-4, atol=1e-4), got["params"], want["params"])
+
+
+# -- quantised banks, tall BCSR blocks, and method="auto" on the card -------
+
+QUANT = ("int8", "float8_e4m3fn")
+
+
+@pytest.mark.parametrize("value_dtype", QUANT)
+@pytest.mark.parametrize("case", ELL_CASES)
+def test_quantised_ell_kernel_is_the_f32_kernel_on_the_dequantised_bank(
+        cuda_device, case, value_dtype):
+    """Bit for bit, pipelined and blocking, natural and balanced: each
+    value times its row's scale is rounded once, as ``dequantize``
+    rounds it."""
+    from repro_torch.core.sparse_format import dequantize, quantize_values
+
+    n, c, h, m, r, stride, pad, sp, with_res, relu = case
+    x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, sp)
+    e, f = out_spatial(h, h, r, r, stride, pad)
+    xt = torch.from_numpy(x).to(cuda_device)
+    bias = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        cuda_device)
+    res = (torch.from_numpy(rng.standard_normal((n, m, e, f)).astype(
+        np.float32)).to(cuda_device) if with_res else None)
+    kw = dict(stride=stride, padding=pad, bias=bias, fuse_relu=relu,
+              residual=res)
+    for balance in (False, True):
+        q = quantize_values(ell_from_dense_conv(w, balance=balance,
+                                                device=cuda_device),
+                            value_dtype)
+        d = dequantize(q)
+        for pipeline in (None, False):
+            before = sparse_conv_kernel.launches
+            got = sparse_conv(xt, q, pipeline=pipeline, **kw)
+            torch.cuda.synchronize()
+            assert sparse_conv_kernel.launches == before + 1
+            torch.testing.assert_close(
+                got, sparse_conv(xt, d, pipeline=pipeline, **kw), rtol=0,
+                atol=0)
+            sched, _ = _ell_schedules(m, q, n, c, h, r, stride, pad, e, f)
+            xpad = pad_in(xt, pad)
+            b, rr = bias, res
+            if q.perm is not None:
+                perm = q.perm.long()
+                b = b.index_select(0, perm)
+                rr = None if rr is None else rr.index_select(1, perm)
+            plain = sparse_conv_plain(
+                xpad, q.value, pack_indices(q), q.nnz, b, rr, rs=r * r,
+                s=r, e=e, f=f, stride=stride, fuse_relu=relu, scale=q.scale)
+            kern = sparse_conv_kernel(
+                xpad, q.value, pack_indices(q), q.nnz, b, rr, rs=r * r,
+                s=r, e=e, f=f, stride=stride, fuse_relu=relu,
+                schedule=sched, scale=q.scale)
+            torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+
+
+TALL_CASES = [
+    (2, 16, 12, 70, 3, 1, 1, (32, 128), True, True),   # M % 32, CRS % bn
+    (2, 64, 14, 64, 1, 2, 0, (64, 128), False, True),  # stride-2 1x1
+    (8, 64, 7, 72, 3, 1, 1, (64, 128), True, True),    # 49 pixels an image
+    (1, 24, 17, 40, 5, 1, 2, (32, 128), True, False),  # ragged E*F
+]
+
+
+@pytest.mark.parametrize("value_dtype", (None,) + QUANT)
+@pytest.mark.parametrize("case", TALL_CASES + BSR_CASES[:2])
+def test_quantised_and_tall_bsr_kernel_matches_plain(cuda_device, case,
+                                                     value_dtype):
+    """Within 1e-4 x (1 + max |y|) of the plain version (which scales the
+    sums as the kernel does), at every tile that holds whole block-rows."""
+    from repro_torch.core.sparse_format import quantize_values
+    from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain
+
+    n, c, h, m, r, stride, pad, block, with_res, relu = case
+    x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, 0.6)
+    bc = bcsr_conv_from_dense(w, block=block, device=cuda_device)
+    if value_dtype is not None:
+        bc = quantize_values(bc, value_dtype)
+    e, f = out_spatial(h, h, r, r, stride, pad)
+    mpad = bc.gbm * block[0]
+    xpad = pad_in(torch.from_numpy(x).to(cuda_device), pad)
+    bias = torch.zeros(mpad, device=cuda_device)
+    bias[:m] = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        cuda_device)
+    res = (torch.from_numpy(rng.standard_normal((n, mpad, e, f)).astype(
+        np.float32)).to(cuda_device) if with_res else None)
+    args = (xpad, bc.blocks, bc.blockcol, bc.nblocks, bias, res)
+    kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu,
+              scale=bc.scale)
+    want = bsr_conv_plain(*args, **kw)
+    limit = 1e-4 * (1 + float(want.abs().max()))
+    tiles = [(t, g) for t, g in budget.BSR_CONV_TILES if t % block[0] == 0]
+    assert tiles
+    for n_tile, wgs in tiles:
+        before = bsr_conv_kernel.launches
+        got = bsr_conv_kernel(*args, n_tile=n_tile, wgs=wgs, **kw)
+        torch.cuda.synchronize()
+        assert bsr_conv_kernel.launches == before + 1
+        assert float((got - want).abs().max()) <= limit, (n_tile, wgs)
+    if block[0] == 64:
+        with pytest.raises(ValueError, match="whole block-rows"):
+            bsr_conv_kernel(*args, n_tile=32, wgs=1, **kw)
+
+
+def _alexnet_slice(device):
+    import dataclasses as dc
+
+    from repro_torch.engine import lower, spec
+    from repro_torch.models import cnn
+
+    convs = [l for l, _ in cnn.conv_layer_shapes(cnn.alexnet(), 3, 224)]
+    picked = ([next(l for l in convs if l.sparsity == 0)]
+              + [l for l in convs if l.sparsity > 0][:2])
+    net = []
+    for l in picked:
+        net += [dc.replace(l, out_c=max(8, min(64, l.out_c // 4)), stride=1),
+                spec.Relu()]
+    params = cnn.init_cnn(net, 3, np.random.default_rng(0), 32, device=device)
+    return net, lower(net, (3, 32, 32)), params
+
+
+def test_auto_runs_a_wall_plan_on_the_card(cuda_device, tmp_path):
+    """An AlexNet slice tuned in wall mode on the card (every method
+    measured, the kernels included), the plan saved and reloaded with every
+    layer a cache hit, then ``auto`` from it against ``dense``."""
+    from repro_torch import telemetry
+    from repro_torch.engine import CnnEngine
+    from repro_torch.tuning import PlanCache, plan_program
+
+    net, program, params = _alexnet_slice(cuda_device)
+    path = str(tmp_path / "wall.json")
+    plan = plan_program(program, batch=4, mode="wall",
+                        cache=PlanCache(path), params=params,
+                        device=cuda_device, iters=3)
+    assert all(pe.source == "measured" for n, pe in plan.items()
+               if params[n].get("ell") is not None)
+    back = PlanCache(path)
+    replan = plan_program(program, batch=4, mode="wall", cache=back,
+                          params=params, device=cuda_device)
+    assert replan == plan
+    assert all(pe.provenance in ("cache_hit", "default")
+               for pe in replan.values())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 3, 32, 32)).astype(np.float32)).to(cuda_device)
+    eng = CnnEngine(program, params, replan, device=cuda_device)
+    with telemetry.enabled():
+        y = eng(x, "auto")
+    assert eng.last_report.fallback_count == 0
+    want = eng(x, "dense")
+    torch.cuda.synchronize()
+    assert float((y - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+
+
+def test_a_plan_pinning_a_tile_the_card_lacks_raises(cuda_device):
+    from repro_torch.engine import CnnEngine
+    from repro_torch.tuning import PlanEntry
+
+    net, program, params = _alexnet_slice(cuda_device)
+    layer = next(n for n, e in params.items()
+                 if isinstance(e, dict) and "ell" in e)
+    x = torch.zeros((1, 3, 32, 32), device=cuda_device)
+    for entry, reason in ((PlanEntry(method="pallas", tm=4), "unsupported_tm"),
+                          (PlanEntry(method="bsr", block_m=128,
+                                     block_n=128), "unsupported_block")):
+        eng = CnnEngine(program, params, {layer: entry}, device=cuda_device)
+        with pytest.raises(ValueError, match=f"{layer}.*{reason}"):
+            eng(x, "auto")
