@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's pruned-CNN inference, Yi-9B serving and Yi-9B
-training paths on one NVIDIA card.
+"""Drive the PyTorch port's pruned-CNN inference and serving, Yi-9B serving
+and Yi-9B training paths on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -80,6 +80,48 @@ Phases (any failure exits non-zero and prints no result):
               the profiled busy time, idle share and launches; the wall
               line the seconds the tuning took, the candidates measured
               and the layers where its winner differs from the roofline's.
+3c. preflight -- the static verifier (``repro_torch.analysis``) on the
+              card's terms: the auto phase's roofline plans, saved as plan
+              caches under ``build/plans/``, and the AlexNet wall plan
+              audited by ``run_check`` at batch 8 and backend ``cuda`` (the
+              CUDA lints over the four ``.cu`` sources included) and bound
+              through ``preflight`` as ``CnnEngine(strict=True)`` runs it:
+              0 errors.  Then the agreement sweep on ResNet-50: every
+              candidate of the tuning space (f32, int8 and e4m3) and three
+              pinned bad entries (tm = m - 1, tm = 63, a (48, 128) block) on
+              each sparse conv, preflight's verdict against whether the
+              engine's ``execution_report`` refuses the entry or falls back:
+              0 disagreements.  The bad entries must raise from real
+              forwards, and a plan of statically clean entries (each sparse
+              conv takes one of its clean f32 kernel entries, in turn),
+              bound with ``strict=True``, runs counted, launching what it
+              asks, within 1e-4 x max(1, max |dense|) of ``dense``.  The
+              line carries the entries checked, the errors by rule and the
+              seconds.
+3d. cnn-serve -- ``RobustCnnServer`` on ``WallClock`` at full width, f32
+              activations, seeded images: ResNet-50 and GoogLeNet in
+              buckets (3, 224, 224) and (3, 160, 160) of 8, AlexNet (whose
+              fc6 fixes its input) in (3, 224, 224); requests of 224, 200
+              and 160 px (AlexNet 224), deadlines uniform in 0.05-0.5 s.
+              The capacity is 8 images over the tuned rung's measured tick
+              (a forward and the copy to the host); a steady run sends 512
+              requests at 0.8 of it, an overload run the same at 2x, which
+              must shed ``queue_full`` and step down for ``overload``; on
+              ResNet-50 also the steady run with every sparse conv pinned
+              to the ELL kernel (which the roofline picks for no layer),
+              and a chaos run at the overload rate with the reference
+              CLI's rates (step faults 0.35, plan corruption 0.5, stragglers
+              0.1, seed 0), its 224 bucket pinned to the ELL kernel (which
+              the corruption drops, ``sched.unsupported_tm``) and its 160
+              bucket to the BCSR kernel (whose ladder must step down), then
+              replayed twice on ``VirtualClock`` with equal ``SloReport``s.
+              Every run is counted and must lose and duplicate nothing,
+              launch what its rungs' plans ask for the ticks each ran, and
+              hold each completed image within 1e-4 x max(1, max |dense|) of
+              a ``dense`` forward of its own padded image (a relative norm
+              of 0.05 on the int8 rung).  Each line carries images/s, p50
+              and p99 latency, ticks, rung ticks, rejections by reason, and
+              one tuned tick's device busy time, idle share and launches.
               The nets are freed afterwards.
 4. llm kernels -- on Yi-9B shapes with ``--seed`` weights block-pruned to
               0.8 with (16, 16) tiles, bf16: ``bsr_matmul`` on wq
@@ -293,6 +335,24 @@ QUANT_REL_TOL = 0.05
 # block-pruned ResNet-50: tiles of the tallest block, so that every block
 # height of the ladder keeps the same fraction
 BLOCK_PRUNE = (64, 128)
+# the cnn-serve phase: buckets of CNN_SERVE_BATCH images a tick, (c, s, s)
+# for each bucket size s (AlexNet's fc6 fixes its input at 224),
+# CNN_SERVE_REQUESTS requests of the CNN_SERVE_SHAPES sizes padded up into
+# the smallest bucket that holds them, deadlines uniform in
+# CNN_SERVE_DEADLINE_S seconds, arrivals at CNN_SERVE_STEADY and
+# CNN_SERVE_OVERLOAD times the tuned rung's measured capacity, and the
+# reference CLI's chaos rates
+CNN_SERVE_BATCH = 8
+CNN_SERVE_BUCKETS = {"resnet50": (224, 160), "googlenet": (224, 160),
+                     "alexnet": (224,)}
+CNN_SERVE_SHAPES = {"resnet50": (224, 200, 160),
+                    "googlenet": (224, 200, 160), "alexnet": (224,)}
+CNN_SERVE_REQUESTS = 512
+CNN_SERVE_DEADLINE_S = (0.05, 0.5)
+CNN_SERVE_STEADY = 0.8
+CNN_SERVE_OVERLOAD = 2.0
+CNN_SERVE_CHAOS = dict(seed=0, step_fault_rate=0.35,
+                       plan_corruption_rate=0.5, straggler_rate=0.1)
 # the kernels one layer's attention launches in a train step, by dtype
 FLASH_F32 = ("flash_attention", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
@@ -887,7 +947,8 @@ def auto_phase(torch, mods, nets, device, batch, image, seed):
     the ELL kernel on int8 and e4m3 banks; block-pruned ResNet-50 under
     its roofline plans and a plan pinning the tall BCSR blocks; AlexNet
     tuned in wall mode on the card, saved under ``build/``, reloaded and
-    run.  Returns the CNN counters' launches over the counted forwards."""
+    run.  Returns the CNN counters' launches over the counted forwards and
+    each net's roofline plan."""
     np, cnn = mods["np"], mods["cnn"]
     tun = mods["tuning"]
     t_phase = time.perf_counter()
@@ -1087,6 +1148,435 @@ def auto_phase(torch, mods, nets, device, batch, image, seed):
                       "forward_ms": ms, "auto_wall_ms": wrow["forward_ms"],
                       "differ_from_roofline": differ,
                       "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return launches, roofline
+
+
+# ---------------------------------------------------------------------------
+# the pre-flight verifier and the CNN serving tier
+# ---------------------------------------------------------------------------
+
+def _counted_forward(torch, mods, fn):
+    """One counted run: the launch counters set to 0 just before ``fn``,
+    read just after."""
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(mods)
+
+
+def _close_to_dense(y, dense, quantised):
+    """(ok, max_abs_err, relative norm) of one output against ``dense``:
+    within 1e-4 x max(1, max |dense|), or a relative norm of 0.05 for a
+    quantised plan."""
+    err = float(abs(y - dense).max())
+    rel = float(((y - dense) ** 2).sum() ** 0.5 / ((dense ** 2).sum() ** 0.5))
+    if quantised:
+        return rel < QUANT_REL_TOL, err, rel
+    return err <= PATH_RTOL * max(1.0, float(abs(dense).max())), err, rel
+
+
+def preflight_phase(torch, mods, nets, device, batch, roofline, seed):
+    """The static verifier on the card's terms: ``run_check`` over the auto
+    phase's roofline plans (saved as plan caches) and the AlexNet wall plan
+    at backend ``cuda``, the bound plans through ``preflight`` as a strict
+    bind runs it, the CUDA lints; then the agreement sweep on ResNet-50
+    (every candidate of the tuning space and the pinned bad entries on each
+    sparse conv: preflight against the engine's ``execution_report``), the
+    bad entries raised from real forwards, and one clean plan from the
+    sweep run (counted) against ``dense``.  Returns the counted launches."""
+    np, cnn, tun = mods["np"], mods["cnn"], mods["tuning"]
+    an = mods["analysis"]
+    PlanEntry = mods["PlanEntry"]
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in CNN_NAMES}
+    errors, entries = {}, 0
+    paths = []
+    for net_name, plan in roofline.items():
+        program, params = nets[net_name]
+        path = os.path.join(ROOT, "build", "plans",
+                            f"{net_name}_roofline.json")
+        if os.path.exists(path):
+            os.remove(path)
+        saved = tun.plan_program(program, batch=batch, params=params,
+                                 device=device,
+                                 cache=mods["PlanCache"](path))
+        check(saved == plan, f"{net_name}: the roofline plan saved to {path} "
+              f"differs from the auto phase's")
+        paths.append(path)
+        # the bound plan, as CnnEngine(strict=True) verifies it
+        for d in an["preflight"](program, plan, params, batch=batch,
+                                 backend="cuda"):
+            if d.severity == "error":
+                errors[d.rule] = errors.get(d.rule, 0) + 1
+        entries += sum(pe.method in ("pallas", "bsr") for pe in plan.values())
+    wall = os.path.join(ROOT, "build", "plans", "alexnet_wall.json")
+    paths.append(wall)
+    program, params = nets["alexnet"]
+    wplan = tun.plan_program(program, batch=batch, mode="wall", params=params,
+                             device=device, cache=mods["PlanCache"](wall))
+    for d in an["preflight"](program, wplan, params, batch=batch,
+                             backend="cuda"):
+        if d.severity == "error":
+            errors[d.rule] = errors.get(d.rule, 0) + 1
+    report = an["run_check"](nets=list(roofline), plan_caches=paths,
+                             batch=batch, backend="cuda")
+    for d in report.errors:
+        errors[d.rule] = errors.get(d.rule, 0) + 1
+    for p in paths:
+        with open(p) as fh:
+            entries += len(json.load(fh)["entries"])
+    lint_paths = an["kernel_paths"]()
+    lint_kernels = sum(len(an["kernels_of"](p)) for p in lint_paths)
+    check(not errors, f"preflight: errors on the card's plans or sources: "
+          f"{errors}\n{report.format_human()}")
+    check(not report.warnings, f"preflight: warnings "
+          f"{[d.format() for d in report.warnings]}")
+
+    # the agreement sweep: every candidate and the pinned bad entries on
+    # each sparse conv of ResNet-50, at 224 px and batch 8
+    program, params = nets["resnet50"]
+    eng = mods["CnnEngine"](program, params, device=device)
+    shape = (batch, 3, IMAGE, IMAGE)
+    sweep = {"entries": 0, "flagged": 0, "refused": 0, "fallbacks": 0,
+             "disagreements": []}
+    clean = {}
+    sparse = [op for op in program.conv_ops if op.sparsity > 0]
+    for op in sparse:
+        g = tun.geometry_of_op(op, batch=batch)
+        cands = [PlanEntry(**c.to_dict()) for c in tun.enumerate_candidates(
+            g, value_dtypes=tun.allowed_value_dtypes("cuda"))]
+        bad = [PlanEntry(method="pallas", tm=op.m - 1),
+               PlanEntry(method="pallas", tm=63, pipeline=True),
+               PlanEntry(method="bsr", block_m=48, block_n=128)]
+        for entry in cands + bad:
+            flagged = any(d.severity == "error" for d in an["preflight"](
+                program, {op.name: entry}, params, batch=batch,
+                backend="cuda"))
+            try:
+                rep = eng.execution_report(shape, "auto",
+                                           plan_override={op.name: entry})
+                accepted = rep.fallback_count == 0
+                sweep["fallbacks"] += rep.fallback_count
+            except mods["NoKernelSchedule"]:
+                accepted = False
+                sweep["refused"] += 1
+            sweep["entries"] += 1
+            sweep["flagged"] += flagged
+            if flagged == accepted or (entry in bad and accepted):
+                sweep["disagreements"].append([op.name, entry.to_dict()])
+            if accepted and entry.method in ("pallas", "bsr") and (
+                    entry.value_dtype == "float32"):
+                clean.setdefault(op.name, []).append(entry)
+    check(not sweep["disagreements"], f"preflight sweep: preflight and the "
+          f"engine disagree on {sweep['disagreements'][:5]}")
+
+    # the pinned bad entries raise from a real forward on the card
+    x = torch.from_numpy(np.random.default_rng(seed + 7).standard_normal(
+        shape).astype(np.float32)).to(device)
+    raised = 0
+    for op in sparse[:2]:
+        for entry in (PlanEntry(method="pallas", tm=op.m - 1),
+                      PlanEntry(method="pallas", tm=63),
+                      PlanEntry(method="bsr", block_m=48, block_n=128)):
+            try:
+                mods["CnnEngine"](program, params, {op.name: entry},
+                                  device=device)(x, "auto")
+                torch.cuda.synchronize()
+            except ValueError:
+                raised += 1
+            else:
+                check(False, f"preflight: {op.name} {entry} ran on the card")
+    # ... and one plan of statically clean entries launches, counted: each
+    # sparse conv takes a clean f32 kernel entry of the sweep, in turn
+    plan = {op.name: PlanEntry(method="dense") for op in program.conv_ops}
+    for i, op in enumerate(sparse):
+        plan[op.name] = clean[op.name][(7 * i) % len(clean[op.name])]
+    strict = mods["CnnEngine"](program, params, plan, strict=True,
+                               device=device)
+    dense = strict(x, "dense")
+    strict(x, "auto")
+    y, counts = _counted_forward(torch, mods, lambda: strict(x, "auto"))
+    want = _plan_counts(plan, program)
+    check(counts == want, f"preflight: the clean plan launched {counts}, "
+          f"expected {want}")
+    for name in CNN_NAMES:
+        launches[name] += counts[name]
+    ok, err, rel = _close_to_dense(y, dense, False)
+    check(ok, f"preflight: the clean plan disagrees with dense "
+          f"(max_abs_err {err})")
+    print(json.dumps({
+        "phase": "preflight", "nets": list(roofline), "batch": batch,
+        "plan_files": [os.path.relpath(p, ROOT) for p in paths],
+        "entries_checked": entries, "errors_by_rule": errors,
+        "warnings": len(report.warnings), "infos": len(
+            report.by_severity("info")),
+        "lint_files": len(lint_paths), "lint_kernels": lint_kernels,
+        "sweep": {k: (len(v) if isinstance(v, list) else v)
+                  for k, v in sweep.items()},
+        "sweep_layers": len(sparse), "bad_entries_raised": raised,
+        "clean_plan": {"layers": _layers(plan),
+                       "launches": {k: v for k, v in counts.items() if v},
+                       "max_abs_err_vs_dense": err},
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return launches
+
+
+def _tally(items):
+    out = {}
+    for x in items:
+        out[x] = out.get(x, 0) + 1
+    return out
+
+
+class _CountedEngine:
+    """A bucket's engine that counts its forwards by ladder rung."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = {}
+
+    def __call__(self, x, method="dense", **kw):
+        rung = kw.get("rung")
+        self.calls[rung] = self.calls.get(rung, 0) + 1
+        return self.engine(x, method, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def cnn_serve_phase(torch, mods, nets, device, seed):
+    """``RobustCnnServer`` on the card at full width: each net on
+    ``WallClock`` with seeded images, a steady run (512 requests at 80 % of
+    the capacity first measured for the tuned rung) and an overload run
+    (the same requests at 2x that), and on ResNet-50 a chaos run (the
+    reference CLI's rates, seed 0) replayed twice on ``VirtualClock``.
+    Each run is counted; returns the launches."""
+    np, cnn = mods["np"], mods["cnn"]
+    tun, srv = mods["tuning"], mods["serving"]
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in CNN_NAMES}
+
+    def build(net_name, clock, plan, chaos=None):
+        program, params = nets[net_name]
+        server = srv.RobustCnnServer(
+            cnn.NETWORKS[net_name](), params,
+            [srv.BucketSpec(3, s, s, batch=CNN_SERVE_BATCH)
+             for s in CNN_SERVE_BUCKETS[net_name]],
+            plan=plan, clock=clock, chaos=chaos, device=device)
+        for b in server._buckets:
+            check(all(r.report.fallback_count == 0 for r in b.rungs),
+                  f"{net_name}: a served rung falls back")
+            x = torch.zeros((CNN_SERVE_BATCH,) + b.spec.shape, device=device)
+            for r in b.rungs:   # banks, halves, cuDNN's choice: not counted
+                b.engine(x, "auto", plan_override=r.plan, rung=r.name)
+            b.engine = _CountedEngine(b.engine)
+        torch.cuda.synchronize()
+        return server
+
+    def images(trace):
+        return {a.rid: np.random.default_rng(seed * 100003 + a.rid)
+                .standard_normal(a.shape).astype(np.float32) for a in trace}
+
+    def serve(label, net_name, server, trace, imgs, check_results=True):
+        """One counted run of ``trace``; checks and the row."""
+        make = lambda a: srv.InferenceRequest(  # noqa: E731
+            rid=a.rid, x=imgs[a.rid], deadline_s=a.deadline_s)
+        t0 = time.perf_counter()
+        rep, counts = _counted_forward(
+            torch, mods, lambda: server.run_trace(trace, request_factory=make))
+        wall_s = time.perf_counter() - t0
+        check(rep.lost == 0 and rep.duplicated == 0,
+              f"{net_name}/{label}: lost {rep.lost}, duplicated "
+              f"{rep.duplicated}\n{rep.format()}")
+        want = {name: 0 for name in KERNEL_NAMES}
+        rung_ticks = {}
+        for b in server._buckets:
+            by_name = {r.name: r for r in b.rungs}
+            for rung, n in b.engine.calls.items():
+                rung_ticks[f"{b.spec.key}/{rung}"] = n
+                for k, v in _plan_counts(by_name[rung].plan,
+                                         b.program).items():
+                    want[k] += n * v
+        check(counts == want, f"{net_name}/{label}: launches {counts}, "
+              f"expected {want} from the rungs' plans")
+        for name in CNN_NAMES:
+            launches[name] += counts[name]
+        worst = {"f32": 0.0, "quantised_rel": 0.0}
+        if check_results:
+            for b in server._buckets:
+                done = [r for r in server.requests
+                        if r.status == "done" and r.bucket == b.spec.key]
+                for i in range(0, len(done), CNN_SERVE_BATCH):
+                    part = done[i:i + CNN_SERVE_BATCH]
+                    x = np.zeros((len(part),) + b.spec.shape, np.float32)
+                    for j, r in enumerate(part):
+                        c, h, w = r.x.shape
+                        x[j, :c, :h, :w] = r.x
+                    dense = b.engine.engine(x, "dense").cpu().numpy()
+                    for j, r in enumerate(part):
+                        quant = r.rung == "quantised"
+                        ok, err, rel = _close_to_dense(r.result, dense[j],
+                                                       quant)
+                        check(ok, f"{net_name}/{label}: request {r.rid} at "
+                              f"{r.rung} disagrees with dense (max_abs_err "
+                              f"{err}, relative norm {rel})")
+                        if quant:
+                            worst["quantised_rel"] = max(
+                                worst["quantised_rel"], rel)
+                        else:
+                            worst["f32"] = max(worst["f32"], err)
+        row = {"phase": "cnn-serve", "net": net_name, "run": label,
+               "requests": rep.submitted, "completed": rep.completed,
+               "images_per_s": rep.completed / wall_s, "wall_s": wall_s,
+               "p50_ms": rep.p50_latency_s * 1e3,
+               "p99_ms": rep.p99_latency_s * 1e3,
+               "max_ms": rep.max_latency_s * 1e3, "ticks": rep.ticks,
+               "rung_ticks": rung_ticks, "rejected": rep.rejected,
+               "retries": rep.retries, "deadline_misses": rep.deadline_misses,
+               "straggler_ticks": rep.straggler_ticks,
+               "degradations": [f"{e.bucket}: {e.from_rung}->{e.to_rung} "
+                                f"({e.reason})" for e in rep.degradations],
+               "dropped_rungs": [
+                   {"bucket": d["bucket"], "rung": d["rung"],
+                    "preflight_errors": _tally(d["preflight_errors"]),
+                    "fallback_reasons": _tally(d["fallback_reasons"])}
+                   for d in rep.dropped_rungs],
+               "launches": {k: v for k, v in counts.items() if v},
+               "max_abs_err_vs_dense": worst["f32"],
+               "quantised_rel_norm_vs_dense": worst["quantised_rel"]}
+        return rep, row
+
+    for net_name in ("resnet50", "googlenet", "alexnet"):
+        program, params = nets[net_name]
+        plans = {}
+
+        def roofline(prog, batch, params=params, plans=plans):
+            key = (prog.in_shape, batch)
+            if key not in plans:
+                plans[key] = tun.plan_program(prog, batch=batch,
+                                              params=params, device=device)
+            return plans[key]
+
+        shapes = [(3, s, s) for s in CNN_SERVE_SHAPES[net_name]]
+        server = build(net_name, srv.WallClock(), roofline)
+        top = server._buckets[0]
+        check(top.rungs[0].name == "tuned", f"{net_name}: the top bucket's "
+              f"ladder {[r.name for r in top.rungs]} has no tuned rung")
+        tuned = top.rungs[0]
+        xb = torch.from_numpy(np.random.default_rng(seed + 8).standard_normal(
+            (CNN_SERVE_BATCH,) + top.spec.shape).astype(np.float32)).to(device)
+        tick = lambda: top.engine.engine(  # noqa: E731
+            xb, "auto", plan_override=tuned.plan, rung="tuned").cpu()
+        tick()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tick()
+        tick_s = (time.perf_counter() - t0) / 5
+        capacity = CNN_SERVE_BATCH / tick_s
+        one_tick = device_breakdown(torch, tick, tick_s * 1e3)
+        for label, load in (("steady", CNN_SERVE_STEADY), ("overload",
+                                                       CNN_SERVE_OVERLOAD)):
+            trace = srv.arrival_trace(
+                CNN_SERVE_REQUESTS, shapes, seed=seed + 9,
+                mean_gap_s=1.0 / (load * capacity),
+                deadline_s=CNN_SERVE_DEADLINE_S)
+            if label == "overload":
+                server = build(net_name, srv.WallClock(), roofline)
+            rep, row = serve(label, net_name, server, trace, images(trace))
+            if label == "overload":
+                check(rep.rejected.get("queue_full", 0) > 0 and any(
+                    e.reason == "overload" for e in rep.degradations),
+                    f"{net_name}/overload: no queue_full and overload "
+                    f"step-down\n{rep.format()}")
+            row.update(capacity_images_per_s=capacity, load=load,
+                       tuned_tick_ms=tick_s * 1e3,
+                       ladders={b.spec.key: [r.name for r in b.rungs]
+                                for b in server._buckets},
+                       one_tick=one_tick)
+            print(json.dumps(row), flush=True)
+        del server, top
+        torch.cuda.empty_cache()
+        if net_name != "resnet50":
+            continue
+
+        def ell_plan(prog, batch):
+            return {op.name: (mods["PlanEntry"](
+                method="pallas", fuse=True, pipeline=True, source="pinned")
+                if op.sparsity > 0 else mods["PlanEntry"](method="dense"))
+                for op in prog.conv_ops}
+
+        # the steady traffic through the ELL kernel: the roofline picks it
+        # for no layer, so a plan pins it (tuned: f32 banks, quantised:
+        # int8)
+        trace = srv.arrival_trace(
+            CNN_SERVE_REQUESTS, shapes, seed=seed + 9,
+            mean_gap_s=1.0 / (CNN_SERVE_STEADY * capacity),
+            deadline_s=CNN_SERVE_DEADLINE_S)
+        server = build(net_name, srv.WallClock(), ell_plan)
+        rep, row = serve("steady-ell", net_name, server, trace,
+                         images(trace))
+        check(any(k.endswith("/tuned") for k in row["rung_ticks"]),
+              f"{net_name}/steady-ell: the ELL rung served nothing")
+        row.update(load=CNN_SERVE_STEADY, ladders={
+            b.spec.key: [r.name for r in b.rungs] for b in server._buckets})
+        print(json.dumps(row), flush=True)
+        del server
+
+        # chaos, at the overload run's rate: the top bucket pins every
+        # sparse conv to the ELL kernel, which the injector corrupts (tm =
+        # m - 1) at half its entries, so that bucket keeps its dense rung
+        # alone; the other pins the BCSR kernel, which the injector leaves
+        # alone (as the reference's does), so its ladder keeps the rungs
+        # that faults and overload step down through
+        top_shape = (3,) + (CNN_SERVE_BUCKETS[net_name][0],) * 2
+
+        def chaos_plan(prog, batch):
+            if prog.in_shape == top_shape:
+                return ell_plan(prog, batch)
+            return {op.name: (mods["PlanEntry"](
+                method="bsr", block_m=8, block_n=128, fuse=True,
+                source="pinned")
+                if op.sparsity > 0 else mods["PlanEntry"](method="dense"))
+                for op in prog.conv_ops}
+
+        def chaos():
+            return srv.ChaosInjector(srv.ChaosConfig(**CNN_SERVE_CHAOS))
+
+        trace = srv.arrival_trace(
+            CNN_SERVE_REQUESTS, shapes, seed=seed + 10,
+            mean_gap_s=1.0 / (CNN_SERVE_OVERLOAD * capacity),
+            deadline_s=CNN_SERVE_DEADLINE_S)
+        imgs = images(trace)
+        inj = chaos()
+        server = build(net_name, srv.WallClock(), chaos_plan, inj)
+        rep, row = serve("chaos", net_name, server, trace, imgs)
+        dropped = {r for d in rep.dropped_rungs
+                   for r in d["preflight_errors"]}
+        check("sched.unsupported_tm" in dropped and any(
+            e.reason in ("escalate", "overload") for e in rep.degradations),
+            f"{net_name}/chaos: no rung dropped for sched.unsupported_tm or "
+            f"no step-down\n{rep.format()}")
+        row.update(chaos=inj.summary(), ladders={
+            b.spec.key: [r.name for r in b.rungs] for b in server._buckets})
+        del server
+        replays = []
+        for _ in range(2):
+            server = build(net_name, srv.VirtualClock(), chaos_plan, chaos())
+            replay, _ = serve("chaos-virtual", net_name, server, trace, imgs,
+                              check_results=False)
+            replays.append(replay.to_dict())
+            del server
+        check(replays[0] == replays[1], f"{net_name}/chaos: two replays on "
+              f"VirtualClock differ")
+        row.update(virtual_replays_equal=True, virtual_replay={
+            k: replays[0][k] for k in ("completed", "rejected", "retries",
+                                       "ticks", "rungs_executed",
+                                       "p50_latency_s", "p99_latency_s")})
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "cnn-serve", "seconds":
+                      time.perf_counter() - t_phase}), flush=True)
     return launches
 
 
@@ -2177,7 +2667,11 @@ def load_modules() -> dict:
     """The port's modules the phases use (``src/`` on the path)."""
     import numpy as np
 
-    from repro_torch import telemetry, tuning
+    from repro_torch import serving, telemetry, tuning
+    from repro_torch.analysis import cuda_lints
+    from repro_torch.analysis.checker import (default_kernel_paths,
+                                              preflight, run_check)
+    from repro_torch.engine import NoKernelSchedule
     from repro_torch.core.direct_conv import pad_in
     from repro_torch.core.pruning import block_prune_conv
     from repro_torch.core.sparse_format import (bcsr_conv_from_dense,
@@ -2228,7 +2722,11 @@ def load_modules() -> dict:
     mods = dict(np=np, cnn=cnn, pad_in=pad_in, ops_ell=ops_ell,
                 quantize=quantize_values, dequantize=dequantize,
                 bcsr_to_dense=bcsr_conv_to_dense, tuning=tuning,
-                telemetry=telemetry, CnnEngine=CnnEngine,
+                telemetry=telemetry, CnnEngine=CnnEngine, serving=serving,
+                NoKernelSchedule=NoKernelSchedule,
+                analysis=dict(preflight=preflight, run_check=run_check,
+                              kernel_paths=default_kernel_paths,
+                              kernels_of=cuda_lints.kernels_of),
                 PlanEntry=PlanEntry, PlanCache=PlanCache,
                 block_prune_conv=block_prune_conv,
                 params_from_reference=params_from_reference,
@@ -2313,9 +2811,14 @@ def main() -> int:
         rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
         launches = path_phase(torch, mods, nets, device, BATCH,
                               IMAGE, args.seed)
-        auto = auto_phase(torch, mods, nets, device, BATCH, IMAGE, args.seed)
+        auto, roofline = auto_phase(torch, mods, nets, device, BATCH, IMAGE,
+                                    args.seed)
+        pre = preflight_phase(torch, mods, nets, device, BATCH, roofline,
+                              args.seed)
+        serve_cnn = cnn_serve_phase(torch, mods, nets, device, args.seed)
         for name in CNN_NAMES:
-            launches[name] = launches.get(name, 0) + auto[name]
+            launches[name] = (launches.get(name, 0) + auto[name] + pre[name]
+                              + serve_cnn[name])
         nets.clear()
         torch.cuda.empty_cache()
         rows.update(llm_kernel_phase(torch, mods, device, args.seed))

@@ -5,7 +5,8 @@
   lower    -- the single spec walker
   engine   -- CnnEngine, bind-time parameter init, params_from_reference
 """
-from repro_torch.engine.engine import (CnnEngine, METHODS, init_conv_params,
+from repro_torch.engine.engine import (METHODS, CnnEngine, NoKernelSchedule,
+                                       init_conv_params,
                                        params_from_reference)
 from repro_torch.engine.lower import lower
 from repro_torch.engine.program import (ConcatOp, ConvOp, FCOp, PoolOp,
@@ -14,6 +15,7 @@ from repro_torch.engine.spec import FC, Concat, Conv, Pool, Relu, Residual
 
 __all__ = [
     "CnnEngine", "Concat", "ConcatOp", "Conv", "ConvOp", "FC", "FCOp",
-    "METHODS", "Pool", "PoolOp", "Program", "Relu", "ReluOp", "Residual",
-    "ResidualAddOp", "init_conv_params", "lower", "params_from_reference",
+    "METHODS", "NoKernelSchedule", "Pool", "PoolOp", "Program", "Relu",
+    "ReluOp", "Residual", "ResidualAddOp", "init_conv_params", "lower",
+    "params_from_reference",
 ]

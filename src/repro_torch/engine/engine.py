@@ -60,9 +60,17 @@ METHODS = ("dense", "lowered", "csr-direct", "pallas", "bsr", "auto")
 # pinning one); the autotuner picks per layer from the block ladder.
 DEFAULT_BSR_BLOCK = (8, 128)
 
-STRICT_NOT_PORTED = (
-    "strict=True runs the pre-flight static verifier, which the PyTorch "
-    "port has not reached yet (ROADMAP.md, Queue 1 item 5)")
+
+class NoKernelSchedule(ValueError):
+    """A plan pins an ELL or BCSR entry the card's kernel has no schedule
+    for: where the reference would fall back, the port refuses.
+    ``refused`` lists ``(layer, reason)`` for every such conv op of the
+    forward, ``reason`` the schedule probe's code (``unsupported_tm``,
+    ``unsupported_block``, ``smem_infeasible``, ...)."""
+
+    def __init__(self, message: str, refused):
+        super().__init__(message)
+        self.refused = list(refused)
 
 
 @dataclasses.dataclass
@@ -168,17 +176,31 @@ class CnnEngine:
     carry, the ELL banks' packed indices and the BCSR tiles' split halves
     (keyed on the layer, the bank's block or balance and its value dtype),
     so a forward launches none of that work after its first.
+
+    ``strict=True`` runs the pre-flight static verifier at bind time
+    (``repro_torch.analysis``), against this engine's device type: the
+    lowered program is checked structurally and every plan-pinned ELL or
+    BCSR entry is verified to have a kernel schedule on the card (else
+    its forward would raise) and not to fall back; any error raises
+    :class:`repro_torch.analysis.PreflightError` here instead.
     """
 
     def __init__(self, program: Program, params: Dict[str, Any],
                  plan: Optional[Dict[str, Any]] = None, *,
                  strict: bool = False, device="cuda"):
-        if strict:
-            raise NotImplementedError(STRICT_NOT_PORTED)
         self.program = program
         self.params = params
         self.plan = plan
         self.device = resolve_device(device)
+        if strict:
+            from repro_torch.analysis import PreflightError  # cycle
+            from repro_torch.analysis.checker import preflight
+            from repro_torch.tuning.planner import backend_of
+            errors = [d for d in preflight(program, plan, params,
+                                           backend=backend_of(self.device))
+                      if d.severity == "error"]
+            if errors:
+                raise PreflightError(errors)
         self.fc_weights = self._bind_fc(program, params, self.device)
         self._auto_plans: Dict[int, Dict[str, Any]] = {}
         self._bcc_cache: Dict[Any, Any] = {}
@@ -478,10 +500,18 @@ class CnnEngine:
         report = ExecutionReport(
             method=method, batch=batch, in_shape=tuple(shape), dtype=dtype,
             jit_cache_hit=hit, plan_bound=self.plan is not None, rung=rung)
+        refused = []
         for op in self.program.conv_ops:
-            report.ops.append(self._op_report(op, method, plan,
-                                              fuse_override, batch=batch,
-                                              dtype=dtype))
+            try:
+                report.ops.append(self._op_report(
+                    op, method, plan, fuse_override, batch=batch,
+                    dtype=dtype))
+            except NoKernelSchedule as exc:
+                refused.append((str(exc), exc.refused))
+        if refused:
+            # every refused op, under the first one's message
+            raise NoKernelSchedule(refused[0][0],
+                                   [r for _, rs in refused for r in rs])
         return report
 
     def _op_report(self, op: ConvOp, method: str, plan,
@@ -509,9 +539,9 @@ class CnnEngine:
                 stride=op.stride, hp=op.h + 2 * op.pad,
                 wp=op.w + 2 * op.pad, tm=d.tm, pipeline=d.pipeline)
             if sched is None:
-                raise ValueError(
+                raise NoKernelSchedule(
                     f"layer {op.name}: the plan's ELL schedule (tm={d.tm}) "
-                    f"has no kernel on this card ({why})")
+                    f"has no kernel on this card ({why})", [(op.name, why)])
             tiling = dataclasses.asdict(sched)
         elif executed == "bsr":
             bcc = self._bcsr_for(op, entry, d.block)
@@ -520,9 +550,9 @@ class CnnEngine:
                 bm, bn, op.e, op.f, n=batch, m=gbm * bm,
                 crs=op.c * op.k * op.k, value_dtype=d.value_dtype)
             if sched is None:
-                raise ValueError(
+                raise NoKernelSchedule(
                     f"layer {op.name}: the plan's BCSR block ({bm}, {bn}) "
-                    f"has no kernel on this card ({why})")
+                    f"has no kernel on this card ({why})", [(op.name, why)])
             tiling = {"n_tile": sched[0], "wgs": sched[1], "block_m": bm,
                       "block_n": bn}
         vdtype = d.value_dtype if executed in ("pallas", "bsr") else "float32"
@@ -547,7 +577,9 @@ class CnnEngine:
                          plan_override: Optional[Dict[str, Any]] = None,
                          rung: Optional[str] = None) -> ExecutionReport:
         """The ExecutionReport a forward with these arguments would produce,
-        built without running anything: ``x`` is the input or its shape."""
+        built without running anything: ``x`` is the input or its shape.
+        Raises :class:`NoKernelSchedule` where the forward would raise (a
+        plan entry the card's kernels cannot run), naming every such op."""
         shape = tuple(x.shape) if hasattr(x, "shape") else tuple(x)
         plan = self._resolve(shape, method, plan_override)
         hit = (method, shape, fuse, id(plan)) in self._seen

@@ -17,10 +17,19 @@ layer slice; --trace writes the run's Chrome trace::
       --cnn alexnet [--tune-mode roofline|wall] [--plan-cache PATH] \
       [--trace out.json] [--device cpu]
 
+With --cnn-serve, the fault-tolerant bucketed CNN serving tier
+(``repro_torch.serving.robust``) serves a seeded arrival trace over a
+reduced slice of the net (12 px, two buckets) on a virtual clock; --chaos
+injects seeded faults (step faults, plan corruption, stragglers), and the
+run must still lose no request and leave degradation evidence::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --cnn-serve \
+      --cnn resnet50 [--chaos] [--chaos-seed 0] [--requests 40] \
+      [--device cpu]
+
 It runs on the card; ``--device cpu`` runs the plain PyTorch versions on
 the CPU (a smoke config is the size for that; with --autotune, ``--smoke``
-tunes at a reduced image size).  ``--cnn-serve`` comes with the slice that
-ports the CNN serving tier.
+tunes at a reduced image size).
 """
 from __future__ import annotations
 
@@ -159,6 +168,53 @@ def autotune_main(args) -> None:
         engine.forward_timed(x, "auto")
 
 
+def cnn_serve_main(args) -> None:
+    """Robust CNN serving flow: shape-bucketed admission and degradation
+    ladder over a reduced network slice, driven by a seeded arrival trace
+    on a virtual clock (deterministic).  ``--chaos`` turns on seeded fault
+    injection: the run must still terminate every request (zero lost) and
+    leave degradation evidence (a ladder step-down or a dropped rung)."""
+    from repro_torch.engine import init_conv_params, lower
+    from repro_torch.serving import (BucketSpec, ChaosConfig, ChaosInjector,
+                                     RobustCnnServer, VirtualClock,
+                                     arrival_trace, slice_net)
+
+    dev = resolve_device(args.device)
+    name = args.cnn
+    net = slice_net(name)
+    rng = np.random.default_rng(args.seed)
+    params = init_conv_params(lower(net, (3, 12, 12)), rng, device=dev)
+    chaos = None
+    if args.chaos:
+        chaos = ChaosInjector(ChaosConfig(
+            seed=args.chaos_seed, step_fault_rate=0.35,
+            plan_corruption_rate=0.5, straggler_rate=0.1))
+    server = RobustCnnServer(
+        net, params,
+        [BucketSpec(3, 12, 12, batch=2), BucketSpec(3, 16, 16, batch=2)],
+        clock=VirtualClock(), queue_depth=16, max_attempts=6,
+        cooldown_ticks=4, chaos=chaos, device=dev)
+    trace = arrival_trace(
+        args.requests, [(3, 12, 12), (3, 10, 10), (3, 16, 16)],
+        seed=args.seed, mean_gap_s=0.0005, deadline_s=(1.0, 2.0))
+    ladder = {b.spec.key: [r.name for r in b.rungs] for b in server._buckets}
+    print(f"serving {name} slice on {dev}: {args.requests} requests over "
+          f"{len(ladder)} buckets; ladders {ladder}"
+          + (f"; chaos seed {args.chaos_seed}" if chaos else ""))
+    rep = server.run_trace(trace)
+    print(rep.format())
+    rep.verify()  # zero lost, zero duplicated, or raise
+    if chaos is not None:
+        print("chaos:", chaos.summary())
+        if not (rep.degradations or rep.dropped_rungs):
+            raise SystemExit(
+                "chaos run left no degradation evidence (no ladder "
+                "step-down, no dropped rung): injection did not exercise "
+                "the ladder")
+    print(f"slo ok: {rep.completed}/{rep.submitted} served, "
+          f"{rep.rejected_total} shed with reasons, 0 lost")
+
+
 def export_trace(path: str) -> None:
     """Validate and write the tracer's Chrome-trace JSON, with a metrics
     summary: what ``--trace out.json`` produces."""
@@ -189,17 +245,32 @@ def main(argv=None) -> None:
     ap.add_argument("--trace", metavar="OUT_JSON",
                     help="enable telemetry and export a Chrome-trace JSON "
                          "(chrome://tracing / Perfetto) on exit")
+    ap.add_argument("--cnn-serve", action="store_true",
+                    help="run the fault-tolerant bucketed CNN serving loop "
+                         "(repro_torch.serving.robust) on a reduced slice")
+    ap.add_argument("--chaos", action="store_true",
+                    help="with --cnn-serve: seeded fault injection (step "
+                         "faults, plan corruption, stragglers)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=40,
+                    help="with --cnn-serve: arrival-trace length")
     args = ap.parse_args(argv)
 
     if args.trace:
         telemetry.enable()
+    if args.cnn_serve:
+        cnn_serve_main(args)
+        if args.trace:
+            export_trace(args.trace)
+        return
     if args.autotune:
         autotune_main(args)
         if args.trace:
             export_trace(args.trace)
         return
     if not args.arch:
-        ap.error("--arch is required unless --autotune is given")
+        ap.error("--arch is required unless --autotune or --cnn-serve is "
+                 "given")
 
     dev = resolve_device(args.device)
     cfg = cfgs.get_config(args.arch, smoke=args.smoke)

@@ -11,9 +11,28 @@ the step:
   StepRunner       -- the restart loop: run a step, on a retryable failure
       restore the latest committed checkpoint and continue; on repeated
       failure escalate to the caller.
+  Backoff          -- deterministic capped-exponential retry delay (no
+      jitter: the serving chaos harness asserts exact schedules).
 
-``Backoff``, the reference's retry delay, waits for the slice that ports
-its only user, ``repro/serving/robust.py``.
+``FailureDetector`` and ``StragglerMonitor`` are shared with the CNN
+serving tier (``repro_torch.serving.robust``), which re-enqueues a
+retryable serve-step failure under ``Backoff`` and rejects a fatal one.
+
+CUDA errors, classified by the same markers:
+
+  * a sticky error (``CUDA error: an illegal memory access was
+    encountered``, ``unspecified launch failure``) poisons the context, so
+    it is fatal: no marker matches;
+  * ``torch.cuda.OutOfMemoryError`` is fatal, as the reference's
+    ``RESOURCE_EXHAUSTED`` is;
+  * a collective (NCCL) timeout is retryable: its message says
+    "collective";
+  * ``cudaErrorDevicesUnavailable`` ("all CUDA-capable devices are busy or
+    unavailable") matches ``UNAVAILABLE`` (case-insensitively) and is
+    therefore retryable: a card held by another process may come free.
+
+CUDA errors are asynchronous and surface at the first synchronisation, so a
+step that wants its faults classified synchronises inside its ``try``.
 """
 from __future__ import annotations
 
@@ -56,6 +75,27 @@ class StragglerMonitor:
         self.mean += self.alpha * d
         self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
         return is_straggler
+
+
+class Backoff:
+    """Capped exponential retry delay: ``base * mult**attempt``, <= ``cap``.
+
+    Jitter-free: retry schedules must replay under the seeded fault
+    injection harness (``repro_torch.serving.chaos``).
+    """
+
+    def __init__(self, base_s: float = 0.05, mult: float = 2.0,
+                 cap_s: float = 2.0):
+        if base_s <= 0 or mult < 1.0:
+            raise ValueError(f"bad backoff policy base={base_s} mult={mult}")
+        self.base_s = base_s
+        self.mult = mult
+        self.cap_s = cap_s
+
+    def delay_s(self, attempt: int) -> float:
+        """Delay before retry number ``attempt`` (0-based: the first retry
+        waits ``base_s``)."""
+        return min(self.cap_s, self.base_s * self.mult ** max(attempt, 0))
 
 
 class FailureDetector:

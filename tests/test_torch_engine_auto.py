@@ -256,12 +256,6 @@ def test_a_pinned_tile_the_card_lacks_raises():
         eng(x, "auto")
 
 
-def test_strict_points_at_the_verifier():
-    _, _, prog, params, _, _ = _setup("alexnet")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        CnnEngine(prog, params, strict=True, device="cpu")
-
-
 def test_cnn_forward_takes_a_plan():
     _, _, _, params, x, sparse = _setup("alexnet")
     _, net = _slice("alexnet")

@@ -48,6 +48,13 @@ def test_port_has_modules_to_scan():
                    "checkpoint/store.py", "runtime/fault_tolerance.py",
                    "launch/train.py", "launch/steps.py", "tree.py"):
         assert f"src/repro_torch/{module}" in names
+    for module in ("analysis/__init__.py", "analysis/__main__.py",
+                   "analysis/diagnostics.py", "analysis/program_rules.py",
+                   "analysis/schedule_rules.py", "analysis/plan_rules.py",
+                   "analysis/cuda_lints.py", "analysis/checker.py",
+                   "analysis/cli.py", "serving/robust.py", "serving/chaos.py",
+                   "examples/cnn_inference.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

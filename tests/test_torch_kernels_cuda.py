@@ -962,3 +962,94 @@ def test_a_plan_pinning_a_tile_the_card_lacks_raises(cuda_device):
         eng = CnnEngine(program, params, {layer: entry}, device=cuda_device)
         with pytest.raises(ValueError, match=f"{layer}.*{reason}"):
             eng(x, "auto")
+
+
+def test_strict_bind_on_the_card(cuda_device):
+    """``strict=True`` verifies against the card: a plan the card's kernels
+    run binds (fp8 included, allowed on ``cuda``) and its forward launches
+    them; a tile the card lacks is refused at bind; and a statically clean
+    entry launches while a flagged one raises from the forward."""
+    from repro_torch.analysis import PreflightError
+    from repro_torch.engine import CnnEngine
+    from repro_torch.kernels.bsr_conv.kernel import bsr_conv_kernel
+    from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
+    from repro_torch.tuning import PlanEntry
+
+    net, program, params = _alexnet_slice(cuda_device)
+    sparse = [op.name for op in program.conv_ops if op.sparsity > 0]
+    plan = {sparse[0]: PlanEntry(method="pallas", tm=8, fuse=True,
+                                 pipeline=True),
+            sparse[1]: PlanEntry(method="bsr", block_m=16, block_n=128,
+                                 fuse=True, value_dtype="float8_e4m3fn")}
+    eng = CnnEngine(program, params, plan, strict=True, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 3, 32, 32)).astype(np.float32)).to(cuda_device)
+    launches = (sparse_conv_kernel.launches, bsr_conv_kernel.launches)
+    y = eng(x, "auto")
+    torch.cuda.synchronize()
+    assert (sparse_conv_kernel.launches - launches[0],
+            bsr_conv_kernel.launches - launches[1]) == (1, 1)
+    want = eng(x, "dense")
+    rel = float(torch.linalg.norm(y - want) / torch.linalg.norm(want))
+    assert rel < 0.05
+    bad = {sparse[0]: PlanEntry(method="pallas", tm=31)}
+    with pytest.raises(PreflightError) as exc:
+        CnnEngine(program, params, bad, strict=True, device=cuda_device)
+    assert {d.rule for d in exc.value.diagnostics} == {"sched.unsupported_tm"}
+    with pytest.raises(ValueError, match="unsupported_tm"):
+        CnnEngine(program, params, bad, device=cuda_device)(x, "auto")
+
+
+def test_slice_server_on_the_card(cuda_device):
+    """``RobustCnnServer`` on the card over an AlexNet slice with a chaos
+    seed that corrupts a pinned ELL plan: nothing lost, a rung dropped for
+    ``sched.unsupported_tm``, each completed image within 1e-4 of a dense
+    forward of its own padded image (f32 rungs; 0.05 relative norm on the
+    int8 rung)."""
+    from repro_torch.engine import CnnEngine
+    from repro_torch.serving import (BucketSpec, ChaosConfig, ChaosInjector,
+                                     InferenceRequest, RobustCnnServer,
+                                     VirtualClock, arrival_trace)
+    from repro_torch.tuning import PlanEntry
+
+    net, program, params = _alexnet_slice(cuda_device)
+
+    def pinned(prog, _batch):
+        return {op.name: (PlanEntry(method="pallas", tm=8, fuse=True)
+                          if op.sparsity > 0 else PlanEntry(method="dense"))
+                for op in prog.conv_ops}
+
+    chaos = ChaosInjector(ChaosConfig(seed=0, step_fault_rate=0.35,
+                                      plan_corruption_rate=0.5,
+                                      straggler_rate=0.1))
+    buckets = [BucketSpec(3, 32, 32, batch=4), BucketSpec(3, 24, 24, batch=4)]
+    srv = RobustCnnServer(net, params, buckets, plan=pinned, chaos=chaos,
+                          clock=VirtualClock(), queue_depth=16,
+                          max_attempts=6, device=cuda_device)
+    trace = arrival_trace(32, [(3, 32, 32), (3, 24, 24), (3, 20, 20)],
+                          seed=1, mean_gap_s=0.0005, deadline_s=(1.0, 2.0))
+    rng = np.random.default_rng(3)
+    images = {a.rid: rng.standard_normal(a.shape).astype(np.float32)
+              for a in trace}
+    rep = srv.run_trace(trace, request_factory=lambda a: InferenceRequest(
+        rid=a.rid, x=images[a.rid], deadline_s=a.deadline_s)).verify()
+    assert {r for d in rep.dropped_rungs for r in d["preflight_errors"]} == {
+        "sched.unsupported_tm"}
+    assert rep.completed > 0
+    engines = {b.spec.key: b for b in srv._buckets}
+    for r in srv.requests:
+        if r.status != "done":
+            continue
+        spec = engines[r.bucket].spec
+        x = np.zeros((1,) + spec.shape, np.float32)
+        c, h, w = images[r.rid].shape
+        x[0, :c, :h, :w] = images[r.rid]
+        want = CnnEngine(engines[r.bucket].program, params,
+                         device=cuda_device)(x, "dense").cpu().numpy()[0]
+        if r.rung == "quantised":
+            assert (np.linalg.norm(r.result - want)
+                    / np.linalg.norm(want)) < 0.05
+        else:
+            np.testing.assert_allclose(
+                r.result, want, rtol=0,
+                atol=1e-4 * max(1.0, float(np.abs(want).max())))
