@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pruned-CNN inference and serving, Yi-9B serving
-and Yi-9B training paths on one NVIDIA card.
+and Yi-9B training paths, OLMoE-1B-7B serving and the other model families
+on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -244,10 +245,54 @@ Phases (any failure exits non-zero and prints no result):
               carries ms per step, tokens per second, peak memory, one
               profiled step's device busy time, idle share and top kernels,
               and the share of the busy time the four flash kernels take.
-11. the ``kernels`` JSON line, then the card's name and power limit, then
-   the device line last.
+11. flash dims -- both flash forwards at the new head dims against their
+              plain versions, as the llm kernels phase holds them: the
+              tensor-core kernel (bf16; O within one bf16 rounding plus
+              1e-3 of its rms, rejecting the two controls; lse within 1e-4)
+              and the FMA kernel (f32; O within 1e-4 of its largest
+              magnitude), at d 80 (HuBERT-XLarge: B 1, H = KV = 16, T 2048,
+              bidirectional) and d 96 (Phi-3-Vision: B 1, H = KV = 32,
+              T 2048, causal); ``library_ms`` SDPA, which the port never
+              calls.
+12. moe     -- OLMoE-1B-7B at full width and depth (16 layers, d_model
+              2048, 64 experts top-8), bf16, weights from ``--seed``:
+              ``bsr_matmul`` on wq (2048 -> 2048) at 4 and 8192 rows and the
+              flash forward at B 4, H = KV = 16, T 2048, d 128 against their
+              plain versions; ``make_prefill_step`` at B 4 x T 2048,
+              sparsity 0.8 and 0.0, each forward counted (16 tensor-core
+              flash forwards; 64 ``bsr_matmul`` through ``wgmma`` when
+              sparse), its lines with the (token, expert) assignments the
+              capacity dropped (counted around that forward alone); ``ServeEngine`` at sparsity 0.8 as the
+              Yi-9B serve phase runs it (every tick 64 ``bsr_matmul``
+              through ``rows``, nothing else); the f32 consistency of the
+              consistency phase, cut to 2 layers, at a capacity factor of 8
+              (E / top_k: no assignment dropped).
+13. families -- at full width, counted, finite logits, peak memory and
+              times: Mamba2-2.7B (64 layers) through ``serve.py``'s loop
+              (B 4, prompt 32, gen 16) at sparsity 0.8 (every step 128
+              ``bsr_matmul`` through ``rows``) and 0.0, ``bsr_matmul`` on
+              its in_proj (2560 -> 10576) against its plain version, and a
+              sparse prefill (B 4 x T 1024: the chunked SSD scan,
+              ``wgmma``); ``bsr_matmul`` through ``rows`` against its plain
+              version on Phi-3-Vision's wq (3072 -> 3072) at 2048 rows and
+              Jamba's in_proj (8192 -> 33280) at 1024, the row counts of
+              their forwards below; Phi-3-Vision (32 layers)
+              ``forward_embeds`` at B 1 x T 2048, sparse, through the
+              tensor-core flash forward at d 96, then 16 decode steps; HuBERT-XLarge (48 layers)
+              ``forward_embeds``, bidirectional, through it at d 80;
+              DeepSeek-V3 cut to 4 layers (3 dense, 1 MoE of 256 experts;
+              its MLA attention takes the chunked path, so no kernel runs),
+              prefill B 1 x T 512 and 8 absorbed decode steps; Jamba-1.5-
+              Large cut to 2 layers (Mamba2 + MoE, Mamba2 + MLP), sparse,
+              prefill B 1 x T 1024 and 8 decode steps; then HuBERT and
+              Phi-3-Vision cut to 2 layers in f32, through the FMA flash
+              forward at d 80 and 96, within 1e-4 of the chunked
+              attention's largest logit.
+14. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
+   other archs' shapes, counted in its ``max_abs_err``), then the card's
+   name and power limit, then the device line last.
 
-Every counted run sets all seventeen launch counters (``COUNTERS``) to 0 just
+Every counted run sets all twenty-one launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
@@ -265,7 +310,9 @@ contraction, and is held to 1e-4 x (1 + max |y|).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -288,7 +335,8 @@ IMAGE = 224
 BSR_TOL = 1e-4                        # x (1 + max |y|)
 PATH_RTOL = 1e-4
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
-# attribute); a launch of the kernel adds one to it and nothing else does.
+# attribute[, the key of a dict attribute]); a launch of the kernel adds
+# one to it and nothing else does.
 # The flash forward and dK/dV have an FMA kernel (f32 operands) and a
 # tensor-core kernel (bf16); dK/dV's tensor-core kernel is followed by its
 # group sum.
@@ -314,6 +362,13 @@ COUNTERS = {
     "flash_attention_bwd_dkv_tc": ("flash_attention_bwd_dkv", "tc_launches"),
     "flash_attention_dkv_reduce": ("flash_attention_bwd_dkv",
                                    "reduce_launches"),
+    # the forwards at head dims 80 (HuBERT-XLarge) and 96 (Phi-3-Vision):
+    # their launches by instantiation, (kernel, head dim) in the wrapper's
+    # ``by_head_dim`` (each also counted in its kernel's total)
+    "flash_attention_tc_d80": ("flash_attention", "by_head_dim", ("tc", 80)),
+    "flash_attention_tc_d96": ("flash_attention", "by_head_dim", ("tc", 96)),
+    "flash_attention_d80": ("flash_attention", "by_head_dim", ("fma", 80)),
+    "flash_attention_d96": ("flash_attention", "by_head_dim", ("fma", 96)),
 }
 KERNEL_NAMES = tuple(COUNTERS)
 # the CNN path's counters (the conv kernels and their variants); the others
@@ -372,8 +427,13 @@ LLM_ACTIVATIONS = ((4, 1), (16, 1), (32, 1), (4, 2048))
 # bytes written (then as many read) between the calls of a cold timing:
 # over twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 * 2**20
-# profiles taken of a timing before falling back to CUDA events
+# profiles taken of a timing before falling back to CUDA events; a call
+# whose kernels take at least PROFILE_LONG_MS each by CUDA events is not
+# waiting on the host, so a profile summing to less than PROFILE_MIN_SHARE
+# of its event time lost kernels' durations (a host-bound call's profile
+# rightly sums to less: the host's gaps are not device time)
 PROFILE_TRIES = 3
+PROFILE_LONG_MS, PROFILE_MIN_SHARE = 0.1, 0.5
 FLASH_SHAPE = (4, 32, 4, 2048, 128)   # B, H, KV, T = S, d
 BSR_MATMUL_TOL = 1e-4                 # x max(1, max |y|)
 # bf16 O, per element: one bf16 rounding (2^-8 of |O|) + FLASH_O_ATOL x rms(O)
@@ -399,6 +459,33 @@ TRAIN_GRAD_TOL = 1e-4                 # x the leaf's largest chunked gradient
 TRAIN_LOSS_TOL = 1e-5                 # x |loss|
 TRAIN_LAYERS, TRAIN_SHAPE = 12, (1, 4096)
 TRAIN_WARMUP, TRAIN_TIMED = 1, 5
+# The MoE path: OLMoE-1B-7B (16 layers, d_model 2048, 16 heads of 128,
+# 64 experts top-8 of d_ff 1024, vocab 50304) at full width and depth.  Its
+# BCSR projections are the four attention ones of each layer (the experts
+# are stacked (E, in, out) banks and stay dense, as the reference's are).
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PROJECTIONS = 4
+# bsr_matmul on wq (2048 -> 2048): a decode tick of 4 slots, the prefill
+MOE_KERNEL_ROWS = ((4, 1), (4, 2048))
+MOE_FLASH_SHAPE = (4, 16, 16, 2048, 128)  # B, H, KV, T = S, d
+# the consistency check cut to 2 layers, at a capacity factor of E / top_k:
+# every expert's capacity is the whole group, so no assignment is dropped
+MOE_CONSIST_LAYERS, MOE_CONSIST_CAPACITY = 2, 8.0
+# The flash forward at the new head dims: (B, H, KV, T = S, d), causal
+FLASH_DIM_SHAPES = {80: ("hubert-xlarge", (1, 16, 16, 2048, 80), False),
+                    96: ("phi-3-vision-4.2b", (1, 32, 32, 2048, 96), True)}
+# The other families: serve.py's loop (batch, prompt, gen: its defaults),
+# prefill and forward shapes, decode steps, the depth cuts memory forces
+FAMILY_SERVE = (4, 32, 16)
+MAMBA2_PREFILL = (4, 1024)
+# bsr_matmul on Mamba2's in_proj (2560 -> 10576, 661 block-rows): a decode
+# step and its prefill
+MAMBA2_KERNEL_ROWS = ((4, 1), (4, 1024))
+EMBEDS_SHAPE = (1, 2048)
+PHI3_DECODE = 16
+DEEPSEEK_LAYERS, DEEPSEEK_SHAPE, DEEPSEEK_DECODE = 4, (1, 512), 8
+JAMBA_LAYERS, JAMBA_SHAPE, JAMBA_DECODE = 2, (1, 1024), 8
+EMBEDS_CONSIST_LAYERS, EMBEDS_CONSIST_SHAPE = 2, (1, 512)
 
 
 class SmokeFailure(Exception):
@@ -433,10 +520,14 @@ def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
     launches do not do when a kernel is shorter than its launch.  Where the
     profiler records no device time, or fewer kernels than the calls
     launched (at least ``launches_per_call`` each), in PROFILE_TRIES tries,
-    CUDA events time the calls instead (said on stderr)."""
+    CUDA events time the calls instead (said on stderr).  A profile that
+    sums to less than PROFILE_MIN_SHARE of the calls' CUDA-event time,
+    where that time is at least PROFILE_LONG_MS a recorded kernel, dropped
+    kernels too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    event = None
     for _ in range(PROFILE_TRIES):  # the profiler drops kernels at times
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -448,7 +539,12 @@ def device_ms(torch, fn, reps: int, launches_per_call: int = 1) -> float:
         total = sum(e.self_device_time_total for e in kernels)
         recorded = sum(e.count for e in kernels)
         if total > 0 and recorded >= reps * launches_per_call:
-            return total / 1e3 / reps
+            ms = total / 1e3 / reps
+            if event is None:
+                event = time_cuda(torch, fn, reps=reps, warmup=0)
+            if (event * reps / recorded < PROFILE_LONG_MS
+                    or ms >= PROFILE_MIN_SHARE * event):
+                return ms
     print(f"chip_smoke: the profiler recorded {recorded} kernels and "
           f"{total / 1e3} ms of device time for {reps} calls; timed with "
           f"CUDA events", file=sys.stderr, flush=True)
@@ -1585,13 +1681,24 @@ def cnn_serve_phase(torch, mods, nets, device, seed):
 # ---------------------------------------------------------------------------
 
 def reset_counts(mods):
-    for fn, attr in COUNTERS.values():
-        setattr(mods["kernels"][fn], attr, 0)
+    for fn, attr, *key in COUNTERS.values():
+        if key:
+            getattr(mods["kernels"][fn], attr).clear()
+        else:
+            setattr(mods["kernels"][fn], attr, 0)
 
 
 def read_counts(mods):
-    return {name: getattr(mods["kernels"][fn], attr)
-            for name, (fn, attr) in COUNTERS.items()}
+    return {name: (getattr(mods["kernels"][fn], attr).get(key[0], 0) if key
+                   else getattr(mods["kernels"][fn], attr))
+            for name, (fn, attr, *key) in COUNTERS.items()}
+
+
+def expect(**counts) -> dict:
+    """Every counter 0 but those given."""
+    want = {name: 0 for name in KERNEL_NAMES}
+    want.update(counts)
+    return want
 
 
 def llm_params(torch, mods, cfg, sparsity, seed, device):
@@ -1612,17 +1719,19 @@ def o_excess(o, want) -> float:
     return float(err.max() / want.pow(2).mean().sqrt())
 
 
-def flash_pv_bf16(torch, q, k, v, sc):
-    """Causal attention as the plain version computes it, but with p rounded
-    to bf16 before p v: a fault that leaves the softmax (and lse) right,
-    which the O check must reject.  q (B, H, T, d), k/v (B, KV, S, d)."""
+def flash_pv_bf16(torch, q, k, v, sc, causal=True):
+    """Attention as the plain version computes it, causal or full, but with
+    p rounded to bf16 before p v: a fault that leaves the softmax (and lse)
+    right, which the O check must reject.  q (B, H, T, d), k/v
+    (B, KV, S, d)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     qf = q.reshape(b, kv, h // kv, t, d).float() * sc
     logits = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2))
-    mask = (torch.arange(t, device=q.device)[:, None]
-            >= torch.arange(s, device=q.device)[None, :])
-    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    if causal:
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     del logits
     out = torch.matmul(p.to(torch.bfloat16).float(), v.float()[:, :, None])
@@ -1630,101 +1739,108 @@ def flash_pv_bf16(torch, q, k, v, sc):
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
-def llm_kernel_phase(torch, mods, device, seed):
-    """``bsr_matmul`` on four Yi-9B projections at decode and prefill row
-    counts, and flash attention at prefill shape, each through the wrapper
-    the model calls, on the layout it hands the kernel, against its plain
-    version; returns per-kernel lists of row dicts."""
+def pruned_bank(torch, mods, gen, d_in, d_out, device):
+    """A (d_in, d_out) bf16 weight drawn as ``init_params`` draws it,
+    block-pruned to LLM_SPARSITY with LLM_BLOCK tiles as
+    ``sparsify_params`` prunes it: (its BCSR bank of bf16 tiles, the dense
+    pruned weight in bf16, the library call's operand)."""
+    bf16 = torch.bfloat16
+    w = mods["dense_init"](gen, d_in, d_out, bf16, device)   # (in, out)
+    pruned = mods["block_prune"](w.float(), LLM_SPARSITY, LLM_BLOCK)
+    bc = mods["bcsr_matrix"](pruned.T, LLM_BLOCK)
+    bc = mods["dc"].replace(bc, blocks=bc.blocks.to(bf16))
+    return bc, pruned.to(bf16)
+
+
+def bsr_matmul_row(torch, mods, gen, device, bc, w_lib, name, b, t,
+                   flush=None, arch="yi-9b"):
+    """``bsr_matmul`` on one bank at (B, T, N) bf16 activations, through
+    the kernel and the wrapper the model calls, against its plain version;
+    with ``flush``, a ``rows`` launch is also timed with the L2 cold.
+    Prints and returns the row."""
+    bf16 = torch.bfloat16
+    bk, plain = mods["kernels"]["bsr_matmul"], mods["matmul_plain"]
+    d_out, d_in = bc.shape
+    gm, kb_dim, bm, bn = bc.blocks.shape
+    kept = int(bc.nblocks.sum())
+    rows = b * t
+    x3 = torch.randn((b, t, d_in), generator=gen, device=device).to(bf16)
+    # the (rows, N) view ops.bsr_matmul hands the kernel (N is a multiple
+    # of bn: no padding)
+    x = x3.reshape(rows, d_in)
+    args = (x, bc.blocks, bc.blockcol, bc.nblocks)
+    got = bk(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    check(bool(torch.isfinite(got).all()), f"bsr_matmul {name}: not finite")
+    check(err <= BSR_MATMUL_TOL * scale,
+          f"bsr_matmul {name} x {rows} rows disagrees with its plain "
+          f"version (max_abs_err {err}, tolerance {BSR_MATMUL_TOL}*{scale})")
+    # bf16 from the epilogue: the same f32 sums rounded once
+    check(torch.equal(bk(*args, out_dtype=bf16), got.to(bf16)),
+          f"bsr_matmul {name} x {rows} rows: the bf16 output is not "
+          f"the f32 output rounded once")
+    # through the wrapper the model calls: bf16 back in (B, T, M)
+    y3 = mods["bsr_matmul"](x3, bc)
+    check(tuple(y3.shape) == (b, t, d_out) and y3.dtype == bf16,
+          f"bsr_matmul {name}: wrapper returned {tuple(y3.shape)} "
+          f"{y3.dtype}")
+    want3 = want[:, :d_out].reshape(b, t, d_out)
+    ops_err = float(((y3.float() - want3).abs()
+                     - 2.0 ** -8 * want3.abs()).max())
+    check(ops_err <= BSR_MATMUL_TOL * scale,
+          f"bsr_matmul {name} x {rows} rows: the wrapper's bf16 output "
+          f"is {ops_err} beyond one rounding of the plain version's "
+          f"(tolerance {BSR_MATMUL_TOL}*{scale})")
+    sched = mods["bsr_schedule"](rows, bf16)
+    want_sched = ("rows" if rows <= mods["budget"].BSR_MATMUL_ROWS_MAX
+                  else "wgmma")
+    check(sched == want_sched, f"bsr_matmul {name} x {rows} rows runs the "
+          f"{sched} schedule, not {want_sched}")
+    reps = 50 if rows <= 64 else 10
+    # as the model calls it: x's dtype out
+    event_ms = time_cuda(torch, lambda: bk(*args, out_dtype=bf16),
+                         reps=reps, warmup=3)
+    ms = device_ms(torch, lambda: bk(*args, out_dtype=bf16), reps, 1)
+    plain_ms = device_ms(torch, lambda: plain(*args), 1)
+    library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib), reps)
+    cold = {}
+    if sched == "rows" and flush is not None:   # the weights from memory
+        pair = cold_device_ms(
+            torch, (lambda: bk(*args, out_dtype=bf16),
+                    lambda: torch.matmul(x, w_lib)), 20, flush,
+            "bsr_matmul_rows")
+        cold = {"kernel_cold_ms": pair[0], "library_cold_ms": pair[1]}
+    moved = (rows * d_in * 2 + kept * bm * bn * 2 + kept * 4 + gm * 4
+             + rows * gm * bm * 2)
+    b_ms, b_by = bound(moved, flops_bf16=2.0 * rows * kept * bm * bn)
+    row = {"kernel": "bsr_matmul", "arch": arch, "proj": name, "rows": rows,
+           "shape": {"b": b, "t": t, "in": d_in, "out": d_out,
+                     "block": [bm, bn], "kept_tiles": kept,
+                     "tiles": gm * (d_in // bn), "KB": kb_dim},
+           "schedule": sched,
+           "max_abs_err": err, "wrapper_excess": ops_err,
+           "kernel_ms": ms,
+           "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **cold, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_bytes": moved}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def flash_tc_row(torch, mods, gen, device, shape, causal, kernel,
+                 arch="yi-9b"):
+    """The tensor-core flash forward at ``shape`` (B, H, KV, T = S, d),
+    bf16, on the (B, H, T, d) views of (B, T, H, d) tensors that
+    ``ops.flash_attention_bthd`` hands it, against ``flash_attention_plain``
+    on f32 copies (O within one bf16 rounding plus FLASH_O_ATOL of its rms,
+    rejecting two controls; lse within FLASH_LSE_TOL).  Prints and returns
+    the row."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
-    rows_out = {"bsr_matmul": [], "flash_attention_tc": []}
-    gen = torch.Generator(device=device).manual_seed(seed + 3)
-    bk, plain = mods["kernels"]["bsr_matmul"], mods["matmul_plain"]
-    flush = L2Flush(torch, device)
-    for name, d_in, d_out in LLM_PROJECTIONS:
-        w = mods["dense_init"](gen, d_in, d_out, bf16, device)   # (in, out)
-        pruned = mods["block_prune"](w.float(), LLM_SPARSITY, LLM_BLOCK)
-        bc = mods["bcsr_matrix"](pruned.T, LLM_BLOCK)
-        bc = mods["dc"].replace(bc, blocks=bc.blocks.to(bf16))
-        w_lib = pruned.to(bf16)
-        del w, pruned
-        gm, kb_dim, bm, bn = bc.blocks.shape
-        kept = int(bc.nblocks.sum())
-        for b, t in LLM_ACTIVATIONS:
-            rows = b * t
-            x3 = torch.randn((b, t, d_in), generator=gen,
-                             device=device).to(bf16)
-            # the (rows, N) view ops.bsr_matmul hands the kernel (N is a
-            # multiple of bn: no padding)
-            x = x3.reshape(rows, d_in)
-            args = (x, bc.blocks, bc.blockcol, bc.nblocks)
-            got = bk(*args)
-            torch.cuda.synchronize()
-            want = plain(*args)
-            err = float((got - want).abs().max())
-            scale = max(1.0, float(want.abs().max()))
-            check(bool(torch.isfinite(got).all()), f"bsr_matmul {name}: not finite")
-            check(err <= BSR_MATMUL_TOL * scale,
-                  f"bsr_matmul {name} x {rows} rows disagrees with its plain "
-                  f"version (max_abs_err {err}, tolerance {BSR_MATMUL_TOL}*{scale})")
-            # bf16 from the epilogue: the same f32 sums rounded once
-            check(torch.equal(bk(*args, out_dtype=bf16), got.to(bf16)),
-                  f"bsr_matmul {name} x {rows} rows: the bf16 output is not "
-                  f"the f32 output rounded once")
-            # through the wrapper the model calls: bf16 back in (B, T, M)
-            y3 = mods["bsr_matmul"](x3, bc)
-            check(tuple(y3.shape) == (b, t, d_out) and y3.dtype == bf16,
-                  f"bsr_matmul {name}: wrapper returned {tuple(y3.shape)} "
-                  f"{y3.dtype}")
-            ops_err = float(((y3.float() - want.view(b, t, d_out)).abs()
-                             - 2.0 ** -8 * want.view(b, t, d_out).abs()).max())
-            check(ops_err <= BSR_MATMUL_TOL * scale,
-                  f"bsr_matmul {name} x {rows} rows: the wrapper's bf16 output "
-                  f"is {ops_err} beyond one rounding of the plain version's "
-                  f"(tolerance {BSR_MATMUL_TOL}*{scale})")
-            sched = mods["bsr_schedule"](rows, bf16)
-            check(sched == ("rows" if t == 1 else "wgmma"),
-                  f"bsr_matmul {name} x {rows} rows runs the {sched} "
-                  f"schedule")
-            reps = 50 if rows <= 64 else 10
-            # as the model calls it: x's dtype out
-            event_ms = time_cuda(torch, lambda: bk(*args, out_dtype=bf16),
-                                 reps=reps, warmup=3)
-            ms = device_ms(torch, lambda: bk(*args, out_dtype=bf16), reps, 1)
-            plain_ms = device_ms(torch, lambda: plain(*args), 1)
-            library_ms = device_ms(torch, lambda: torch.matmul(x, w_lib),
-                                   reps)
-            cold = {}
-            if sched == "rows":   # the weights from device memory
-                pair = cold_device_ms(
-                    torch, (lambda: bk(*args, out_dtype=bf16),
-                            lambda: torch.matmul(x, w_lib)), 20, flush,
-                    "bsr_matmul_rows")
-                cold = {"kernel_cold_ms": pair[0], "library_cold_ms": pair[1]}
-            moved = (rows * d_in * 2 + kept * bm * bn * 2 + kept * 4 + gm * 4
-                     + rows * gm * bm * 2)
-            b_ms, b_by = bound(moved, flops_bf16=2.0 * rows * kept * bm * bn)
-            row = {"kernel": "bsr_matmul", "proj": name, "rows": rows,
-                   "shape": {"b": b, "t": t, "in": d_in, "out": d_out,
-                             "block": [bm, bn], "kept_tiles": kept,
-                             "tiles": gm * (d_in // bn), "KB": kb_dim},
-                   "schedule": sched,
-                   "max_abs_err": err, "wrapper_excess": ops_err,
-                   "kernel_ms": ms,
-                   "kernel_event_ms": event_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, **cold, "bound_ms": b_ms,
-                   "bound_by": b_by, "bound_bytes": moved}
-            print(json.dumps(row), flush=True)
-            rows_out["bsr_matmul"].append(row)
-            del x3, x, got, want, y3
-        del w_lib, bc
-        torch.cuda.empty_cache()
-    del flush
-
-    # -- flash attention forward at prefill shape (tensor cores, bf16) ----
-    # In the model's (B, T, H, d) layout; the kernel reads the (B, H, T, d)
-    # transposed views that ops.flash_attention_bthd hands it.
-    b, h, kv, t, d = FLASH_SHAPE
+    b, h, kv, t, d = shape
     fk, fplain = mods["kernels"]["flash_attention"], mods["flash_plain"]
     split_plain = mods["flash_split_plain"]
     q4 = torch.randn((b, t, h, d), generator=gen, device=device).to(bf16)
@@ -1732,9 +1848,9 @@ def llm_kernel_phase(torch, mods, device, seed):
     v4 = torch.randn((b, t, kv, d), generator=gen, device=device).to(bf16)
     q, k, v = q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
     sc = d ** -0.5
-    o4 = mods["flash_bthd"](q4, k4, v4, causal=True)
+    o4 = mods["flash_bthd"](q4, k4, v4, causal=causal)
     launched = fk.tc_launches
-    o, lse = fk(q, k, v, sc=sc, causal=True)
+    o, lse = fk(q, k, v, sc=sc, causal=causal)
     torch.cuda.synchronize()
     check(fk.tc_launches == launched + 1,
           "flash_attention: bf16 operands did not launch the tensor-core "
@@ -1743,42 +1859,45 @@ def llm_kernel_phase(torch, mods, device, seed):
           "flash_attention_bthd differs from the kernel on its own views")
     # the plain version on f32 copies: O before its rounding to bf16
     o_want, lse_want = fplain(q.float(), k.float(), v.float(), sc=sc,
-                              causal=True)
+                              causal=causal)
     excess = o_excess(o4.transpose(1, 2), o_want)
     # against the plain version's own bf16 output (its f32 O rounded)
     err = float((o.float() - o_want.to(bf16).float()).abs().max())
     lse_err = float((lse - lse_want).abs().max())
     o_rms = float(o_want.pow(2).mean().sqrt())
-    control = o_excess(flash_pv_bf16(torch, q, k, v, sc), o_want)
+    control = o_excess(flash_pv_bf16(torch, q, k, v, sc, causal), o_want)
     # the split's design on whole rows (ref.flash_attention_split_plain):
     # hi + lo, and hi alone, which the check must reject too
-    mirror = o_excess(split_plain(q, k, v, sc=sc, causal=True)[0].to(bf16),
+    mirror = o_excess(split_plain(q, k, v, sc=sc, causal=causal)[0].to(bf16),
                       o_want)
-    hi_only = o_excess(split_plain(q, k, v, sc=sc, causal=True,
+    hi_only = o_excess(split_plain(q, k, v, sc=sc, causal=causal,
                                    lo=False)[0].to(bf16), o_want)
-    check(bool(torch.isfinite(o).all()), "flash_attention: O not finite")
+    what = f"{kernel} (d {d}, causal {causal})"
+    check(bool(torch.isfinite(o).all()), f"{what}: O not finite")
     check(excess <= FLASH_O_ATOL,
-          f"flash_attention disagrees with its plain version on O: "
+          f"{what} disagrees with its plain version on O: "
           f"{excess} x rms(O) beyond one bf16 rounding (tolerance "
           f"{FLASH_O_ATOL})")
     check(control > FLASH_O_ATOL,
-          f"the O check does not reject p v in bf16 ({control} x rms(O), "
-          f"tolerance {FLASH_O_ATOL})")
+          f"{what}: the O check does not reject p v in bf16 ({control} x "
+          f"rms(O), tolerance {FLASH_O_ATOL})")
     check(hi_only > FLASH_O_ATOL,
-          f"the O check does not reject the split's hi half alone "
+          f"{what}: the O check does not reject the split's hi half alone "
           f"({hi_only} x rms(O), tolerance {FLASH_O_ATOL})")
     check(lse_err <= FLASH_LSE_TOL,
-          f"flash_attention disagrees with its plain version on lse "
+          f"{what} disagrees with its plain version on lse "
           f"(max_abs_err {lse_err}, tolerance {FLASH_LSE_TOL})")
     del o_want, lse_want, o4
     torch.cuda.empty_cache()
-    event_ms = time_cuda(torch, lambda: fk(q, k, v, sc=sc, causal=True),
+    event_ms = time_cuda(torch, lambda: fk(q, k, v, sc=sc, causal=causal),
                          reps=5, warmup=1)
-    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=True), 5, 1)
-    plain_ms = device_ms(torch, lambda: fplain(q, k, v, sc=sc, causal=True), 1)
+    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=causal), 5, 1)
+    plain_ms = device_ms(torch, lambda: fplain(q, k, v, sc=sc,
+                                               causal=causal), 1)
     library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 5)
-    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+        q, k, v, is_causal=causal, enable_gqa=True), 5)
+    # (query, key) pairs: the causal half, or all of them
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     product = 2.0 * pairs * d                 # one product over them
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + b * h * t * 4
     # the precision-keeping design on the tensor cores: q k^T one bf16
@@ -1788,9 +1907,9 @@ def llm_kernel_phase(torch, mods, device, seed):
     b16_ms, b16_by = bound(moved, flops_bf16=2 * product)
     # p v priced on the f32 FMA units (the bound before the split)
     fma_ms, _ = bound(moved, flops_f32=product, flops_bf16=product)
-    row = {"kernel": "flash_attention_tc",
+    row = {"kernel": kernel, "arch": arch,
            "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
-                     "causal": True, "dtype": "bfloat16",
+                     "causal": causal, "dtype": "bfloat16",
                      "layout": "(B, T, H, d) views"},
            "max_abs_err": err, "o_excess": excess,
            "o_excess_pv_bf16": control, "o_excess_split_plain": mirror,
@@ -1802,17 +1921,42 @@ def llm_kernel_phase(torch, mods, device, seed):
            "bound_all_bf16_by": b16_by, "bound_fma_ms": fma_ms,
            "tflops": 2 * product / ms / 1e9}
     print(json.dumps(row), flush=True)
-    rows_out["flash_attention_tc"].append(row)
     del q4, k4, v4, q, k, v, o, lse
     torch.cuda.empty_cache()
+    return row
+
+
+def llm_kernel_phase(torch, mods, device, seed):
+    """``bsr_matmul`` on four Yi-9B projections at decode and prefill row
+    counts, and flash attention at prefill shape, each through the wrapper
+    the model calls, on the layout it hands the kernel, against its plain
+    version; returns per-kernel lists of row dicts."""
+    rows_out = {"bsr_matmul": [], "flash_attention_tc": []}
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    flush = L2Flush(torch, device)
+    for name, d_in, d_out in LLM_PROJECTIONS:
+        bc, w_lib = pruned_bank(torch, mods, gen, d_in, d_out, device)
+        for b, t in LLM_ACTIVATIONS:
+            rows_out["bsr_matmul"].append(bsr_matmul_row(
+                torch, mods, gen, device, bc, w_lib, name, b, t, flush))
+        del w_lib, bc
+        torch.cuda.empty_cache()
+    del flush
+
+    # -- flash attention forward at prefill shape (tensor cores, bf16) ----
+    rows_out["flash_attention_tc"].append(flash_tc_row(
+        torch, mods, gen, device, FLASH_SHAPE, True, "flash_attention_tc"))
     return rows_out
 
 
-def llm_consistency_phase(torch, mods, device, seed):
-    """Yi-9B at full width in f32, sparsity 0.8: the full-sequence forward
-    under flash attention against token-by-token decode steps."""
+def llm_consistency_phase(torch, mods, device, seed, cfg=None,
+                          projections=7, phase="consistency"):
+    """A model at full width in f32, sparsity 0.8 (Yi-9B unless ``cfg``;
+    ``projections`` its BCSR projections a layer): the full-sequence
+    forward under flash attention against token-by-token decode steps."""
     np, T = mods["np"], mods["T"]
-    cfg = mods["dc"].replace(mods["yi9b"], dtype="float32")
+    if cfg is None:
+        cfg = mods["dc"].replace(mods["yi9b"], dtype="float32")
     params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 10, device)
     b, t = CONSIST_SHAPE
     toks = torch.from_numpy(np.random.default_rng(seed + 11).integers(
@@ -1831,37 +1975,60 @@ def llm_consistency_phase(torch, mods, device, seed):
         got.append(lg)
     got = torch.stack(got, dim=1)
     torch.cuda.synchronize()
-    n_proj = cfg.n_layers * 7
-    want = {name: 0 for name in KERNEL_NAMES}
-    want.update(bsr_matmul=n_proj, flash_attention=cfg.n_layers)
-    check(fwd_counts == want, f"consistency forward launched {fwd_counts}, "
+    want = expect(bsr_matmul=cfg.n_layers * projections,
+                  flash_attention=cfg.n_layers)
+    check(fwd_counts == want, f"{phase} forward launched {fwd_counts}, "
           f"expected {want}")
     check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all()),
-          "consistency: non-finite logits")
+          f"{phase}: non-finite logits")
     diff = (got - ref).abs()
     excess = float((diff - (CONSIST_TOL + CONSIST_TOL * ref.abs())).max())
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    row = {"phase": "consistency", "arch": cfg.name, "dtype": cfg.dtype,
-           "sparsity": LLM_SPARSITY, "batch": b, "seq": t,
-           "forward_launches": fwd_counts,
+    row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "sparsity": LLM_SPARSITY, "batch": b,
+           "seq": t, "forward_launches": fwd_counts,
            "max_abs_diff": float(diff.max()), "logits_absmax":
            float(ref.abs().max()), "argmax_agreement": agree,
            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps(row), flush=True)
-    check(excess <= 0, f"consistency: decode logits differ from the forward's "
+    check(excess <= 0, f"{phase}: decode logits differ from the forward's "
           f"beyond rtol = atol = {CONSIST_TOL} (max |diff| {float(diff.max())})")
-    check(agree >= CONSIST_AGREE, f"consistency: argmax agreement {agree} "
+    check(agree >= CONSIST_AGREE, f"{phase}: argmax agreement {agree} "
           f"< {CONSIST_AGREE}")
     del params, cache, ref, got, diff
     torch.cuda.empty_cache()
     return fwd_counts
 
 
-def llm_prefill_phase(torch, mods, device, seed):
-    """Yi-9B in bf16 through ``make_prefill_step`` under flash attention, at
-    sparsity 0.8 and 0.0; returns the counted launches."""
-    np, T = mods["np"], mods["T"]
-    cfg = mods["yi9b"]
+@contextlib.contextmanager
+def counted_drops(mods):
+    """The (token, expert) assignments MoE layers drop over capacity while
+    the block runs: ``layers.moe_route`` (which ``_moe_group`` looks up in
+    its module) is wrapped to add each group's drops to the list yielded,
+    as device scalars; the serving path itself counts nothing."""
+    layers = mods["layers"]
+    route, drops = layers.moe_route, []
+
+    def counting(p, xg, cfg, capacity):
+        out = route(p, xg, cfg, capacity)
+        drops.append(xg.shape[0] * cfg.top_k - out[3].sum())
+        return out
+
+    layers.moe_route = counting
+    try:
+        yield drops
+    finally:
+        layers.moe_route = route
+
+
+def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
+                      phase="prefill"):
+    """A model in bf16 (Yi-9B unless ``cfg``) through ``make_prefill_step``
+    under flash attention, at sparsity 0.8 and 0.0; returns the counted
+    launches.  A MoE model's lines carry the (token, expert) assignments
+    its capacity dropped."""
+    np = mods["np"]
+    cfg = mods["yi9b"] if cfg is None else cfg
     b, t = PREFILL_SHAPE
     toks = torch.from_numpy(np.random.default_rng(seed + 20).integers(
         0, cfg.vocab, (b, t))).to(device)
@@ -1875,33 +2042,40 @@ def llm_prefill_phase(torch, mods, device, seed):
             params = llm_params(torch, mods, cfg, sparsity, seed + 21, device)
             step(params, batch)                   # warm-up
             torch.cuda.synchronize()
-            reset_counts(mods)
-            logits, _ = step(params, batch)
-            torch.cuda.synchronize()
-            counts = read_counts(mods)
+            with counted_drops(mods) as drops:
+                reset_counts(mods)
+                logits, _ = step(params, batch)
+                torch.cuda.synchronize()
+                counts = read_counts(mods)
+            dropped = int(sum(drops)) if drops else 0
             # every bf16 forward through the tensor-core kernel
-            want = {name: 0 for name in KERNEL_NAMES}
-            want.update(bsr_matmul=cfg.n_layers * 7 if sparsity else 0,
-                        bsr_matmul_wgmma=cfg.n_layers * 7 if sparsity else 0,
-                        flash_attention_tc=cfg.n_layers)
-            check(counts == want, f"prefill at sparsity {sparsity}: launches "
-                  f"{counts}, expected {want}")
+            n_proj = cfg.n_layers * projections if sparsity else 0
+            want = expect(bsr_matmul=n_proj, bsr_matmul_wgmma=n_proj,
+                          flash_attention_tc=cfg.n_layers)
+            check(counts == want, f"{phase} at sparsity {sparsity}: "
+                  f"launches {counts}, expected {want}")
             for name in counted:
                 counted[name] += counts[name]
             check(tuple(logits.shape) == (b, cfg.vocab),
-                  f"prefill: logits shape {tuple(logits.shape)}")
+                  f"{phase}: logits shape {tuple(logits.shape)}")
             check(bool(torch.isfinite(logits).all()),
-                  f"prefill at sparsity {sparsity}: non-finite logits")
+                  f"{phase} at sparsity {sparsity}: non-finite logits")
             reps = 3
             t0 = time.perf_counter()
             for _ in range(reps):
                 step(params, batch)
             torch.cuda.synchronize()
             fwd_ms = (time.perf_counter() - t0) / reps * 1e3
-            row = {"phase": "prefill", "arch": cfg.name, "dtype": cfg.dtype,
+            row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
                    "sparsity": sparsity, "batch": b, "seq": t,
                    "launches": counts, "forward_ms": fwd_ms,
+                   "tokens_per_s": b * t / fwd_ms * 1e3,
                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+            if cfg.n_experts:
+                row.update(moe_assignments=(b * t * cfg.top_k * sum(
+                    cfg.layer_has_moe(i) for i in range(cfg.n_layers))),
+                    moe_dropped=dropped, moe_capacity=mods["layers"]
+                    .moe_capacity(b * t, cfg, mods["flags"].MOE_CAPACITY))
             row.update(device_breakdown(torch, lambda: step(params, batch),
                                         fwd_ms))
             print(json.dumps(row), flush=True)
@@ -1912,12 +2086,13 @@ def llm_prefill_phase(torch, mods, device, seed):
     return counted
 
 
-def llm_serve_phase(torch, mods, device, seed):
-    """Yi-9B in bf16 at sparsity 0.8 behind ``ServeEngine``: 4 slots,
-    max_len 128, 8 requests with prompts and budgets from ``seed``; returns
-    the counted launches."""
+def llm_serve_phase(torch, mods, device, seed, cfg=None, projections=7,
+                    phase="serve"):
+    """A model in bf16 (Yi-9B unless ``cfg``) at sparsity 0.8 behind
+    ``ServeEngine``: 4 slots, max_len 128, 8 requests with prompts and
+    budgets from ``seed``; returns the counted launches."""
     np, T = mods["np"], mods["T"]
-    cfg = mods["yi9b"]
+    cfg = mods["yi9b"] if cfg is None else cfg
     params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 30, device)
     step = mods["make_serve_step"](cfg)
     per_tick = []
@@ -1952,27 +2127,27 @@ def llm_serve_phase(torch, mods, device, seed):
     wall = time.perf_counter() - t0
     counts = read_counts(mods)
     check(done.drained and len(done) == len(reqs),
-          f"serve: drained {done.drained}, {len(done)} of {len(reqs)} served")
+          f"{phase}: drained {done.drained}, {len(done)} of {len(reqs)} "
+          f"served")
     for r in reqs:
         check(r.done and len(r.output) == r.max_new_tokens,
-              f"serve: request {r.rid} has {len(r.output)} of "
+              f"{phase}: request {r.rid} has {len(r.output)} of "
               f"{r.max_new_tokens} tokens")
         check(all(0 <= tok < cfg.vocab for tok in r.output),
-              f"serve: request {r.rid} has an id outside the vocabulary")
-    n_proj = cfg.n_layers * 7
+              f"{phase}: request {r.rid} has an id outside the vocabulary")
+    n_proj = cfg.n_layers * projections
     check(len(per_tick) == done.ticks and all(
-        c["bsr_matmul"] == n_proj and all(
-            c[k] == 0 for k in KERNEL_NAMES if k != "bsr_matmul")
-        for c in per_tick),
-        f"serve: a tick did not launch bsr_matmul {n_proj} times and flash "
-        f"0 times ({per_tick[:3]} ...)")
+        c == expect(bsr_matmul=n_proj) for c in per_tick),
+        f"{phase}: a tick did not launch bsr_matmul {n_proj} times (rows) "
+        f"and nothing else ({per_tick[:3]} ...)")
     tokens = sum(len(r.output) for r in reqs)
     tick_ms = wall / done.ticks * 1e3
-    row = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+    row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
            "sparsity": LLM_SPARSITY, "slots": n_slots, "max_len": max_len,
            "requests": len(reqs), "ticks": done.ticks, "launches": counts,
            "generated_tokens": tokens, "ms_per_tick": tick_ms,
-           "tokens_per_s": tokens / wall}
+           "tokens_per_s": tokens / wall,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
     cache = T.init_cache(cfg, n_slots, max_len, device)
     toks = torch.zeros((n_slots, 1), dtype=torch.int64, device=device)
     prof = device_breakdown(torch, lambda: step(params, toks, cache, 0),
@@ -2508,10 +2683,427 @@ def train_phase(torch, mods, device, seed):
     return total
 
 
-def kernel_entries(rows, launches):
+# ---------------------------------------------------------------------------
+# the model families: OLMoE-1B-7B (MoE) served at full width, the flash
+# forward at head dims 80 and 96, and Mamba2, Phi-3-Vision, HuBERT,
+# DeepSeek-V3 and Jamba at full width
+# ---------------------------------------------------------------------------
+
+def flash_fma_row(torch, mods, gen, device, shape, causal, kernel):
+    """The FMA flash forward (f32 operands) at ``shape`` (B, H, KV, T = S,
+    d) on the (B, H, T, d) views of (B, T, H, d) tensors, against its
+    plain version: O within FLASH_F32_TOL of its largest magnitude, lse
+    within FLASH_LSE_TOL.  Prints and returns the row."""
+    F = torch.nn.functional
+    b, h, kv, t, d = shape
+    fk, fplain = mods["kernels"]["flash_attention"], mods["flash_plain"]
+    q, k, v = (torch.randn((b, t, heads, d), generator=gen,
+                           device=device).transpose(1, 2)
+               for heads in (h, kv, kv))
+    sc = d ** -0.5
+    launched = fk.launches
+    o, lse = fk(q, k, v, sc=sc, causal=causal)
+    torch.cuda.synchronize()
+    check(fk.launches == launched + 1,
+          f"{kernel}: f32 operands did not launch the FMA kernel")
+    o_want, lse_want = fplain(q, k, v, sc=sc, causal=causal)
+    err = float((o - o_want).abs().max())
+    over_max = err / float(o_want.abs().max())
+    lse_err = float((lse - lse_want).abs().max())
+    check(bool(torch.isfinite(o).all()), f"{kernel}: O not finite")
+    check(over_max <= FLASH_F32_TOL,
+          f"{kernel} disagrees with its plain version on O ({over_max} x "
+          f"max |plain|, tolerance {FLASH_F32_TOL})")
+    check(lse_err <= FLASH_LSE_TOL, f"{kernel} disagrees with its plain "
+          f"version on lse (max_abs_err {lse_err})")
+    del o_want, lse_want
+    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=causal), 5, 1)
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
+    product = 2.0 * pairs * d
+    moved = (2 * q.numel() + 2 * k.numel()) * 4 + b * h * t * 4
+    b_ms, b_by = bound(moved, flops_f32=2 * product)
+    row = {"kernel": kernel,
+           "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
+                     "causal": causal, "dtype": "float32",
+                     "layout": "(B, T, H, d) views"},
+           "max_abs_err": err, "err_over_max": over_max,
+           "lse_max_abs_err": lse_err, "kernel_ms": ms,
+           "kernel_event_ms": time_cuda(
+               torch, lambda: fk(q, k, v, sc=sc, causal=causal), reps=5,
+               warmup=1),
+           "plain_ms": device_ms(torch, lambda: fplain(
+               q, k, v, sc=sc, causal=causal), 1),
+           "library_ms": device_ms(
+               torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True), 5),
+           "library_is": "SDPA forward, f32",
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+           "tflops": 2 * product / ms / 1e9}
+    print(json.dumps(row), flush=True)
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_dims_kernel_phase(torch, mods, device, seed):
+    """Both flash forwards at head dims 80 (HuBERT-XLarge: 16 heads, B 1,
+    T 2048, bidirectional) and 96 (Phi-3-Vision: 32 heads, B 1, T 2048,
+    causal), the tensor-core kernel in bf16 and the FMA kernel in f32,
+    each against its plain version; returns per-kernel lists of rows."""
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    rows = {}
+    for d, (arch, shape, causal) in FLASH_DIM_SHAPES.items():
+        rows[f"flash_attention_tc_d{d}"] = [flash_tc_row(
+            torch, mods, gen, device, shape, causal,
+            f"flash_attention_tc_d{d}", arch=arch)]
+        rows[f"flash_attention_d{d}"] = [flash_fma_row(
+            torch, mods, gen, device, shape, causal, f"flash_attention_d{d}")]
+    return rows
+
+
+def sum_counts(runs) -> dict:
+    return {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
+
+
+def moe_phase(torch, mods, device, seed):
+    """OLMoE-1B-7B at full width and depth, bf16: ``bsr_matmul`` on wq and
+    the flash forward at its shapes against their plain versions; the
+    prefill (B 4 x T 2048) at sparsity 0.8 and 0.0 and ``ServeEngine`` at
+    sparsity 0.8, counted (the Yi-9B phases' functions); then the f32
+    prefill-vs-decode consistency cut to 2 layers at a capacity factor
+    that drops no assignment.  Returns the counted launches and the kernel
+    rows, by kernel."""
+    cfg = mods["configs"].get_config(MOE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed + 40)
+    bc, w_lib = pruned_bank(torch, mods, gen, cfg.d_model,
+                            cfg.n_heads * cfg.head_dim, device)
+    rows = {"bsr_matmul": [bsr_matmul_row(torch, mods, gen, device, bc,
+                                          w_lib, "wq", b, t, arch=cfg.name)
+                           for b, t in MOE_KERNEL_ROWS]}
+    del bc, w_lib
+    rows["flash_attention_tc"] = [flash_tc_row(
+        torch, mods, gen, device, MOE_FLASH_SHAPE, True,
+        "flash_attention_tc", arch=cfg.name)]
+    runs = [llm_prefill_phase(torch, mods, device, seed + 40, cfg,
+                              MOE_PROJECTIONS, "moe_prefill"),
+            llm_serve_phase(torch, mods, device, seed + 40, cfg,
+                            MOE_PROJECTIONS, "moe_serve")]
+    flags = mods["flags"]
+    saved = flags.MOE_CAPACITY
+    flags.set_moe_capacity(MOE_CONSIST_CAPACITY)
+    try:
+        runs.append(llm_consistency_phase(
+            torch, mods, device, seed + 40, mods["dc"].replace(
+                cfg, dtype="float32", n_layers=MOE_CONSIST_LAYERS),
+            MOE_PROJECTIONS, "moe_consistency"))
+    finally:
+        flags.set_moe_capacity(saved)
+    return sum_counts(runs), rows
+
+
+def _family_row(torch, phase, cfg, counts, want, **extra):
+    """Checks a counted run's launches against ``want``; prints the row."""
+    check(counts == want, f"{phase} {cfg.name}: launches {counts}, "
+          f"expected {want}")
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.dtype, "launches": {k: v for k, v in counts.items()
+                                            if v},
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30, **extra}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _bsr(torch, mods, n_proj, rows) -> dict:
+    """The ``bsr_matmul`` counts of ``n_proj`` launches at ``rows`` bf16
+    rows: every one through the schedule ``schedule()`` picks there."""
+    wgmma = mods["bsr_schedule"](rows, torch.bfloat16) == "wgmma"
+    return {"bsr_matmul": n_proj, "bsr_matmul_wgmma": n_proj if wgmma else 0}
+
+
+def _timed(torch, fn, reps=3):
+    """Host-clock ms per call of ``fn`` over ``reps`` synchronised calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _decode_run(torch, mods, cfg, params, toks, n, device):
+    """``n`` decode steps from an empty cache on the first column of
+    ``toks`` then on each step's argmax, counted; returns (logits of the
+    last step, counts, ms a step)."""
+    T = mods["T"]
+    cache = T.init_cache(cfg, toks.shape[0], n, device)
+    step = mods["make_serve_step"](cfg)
+    step(params, toks[:, :1], T.init_cache(cfg, toks.shape[0], 2, device), 0)
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    nxt = toks[:, 0]
+    for i in range(n - 1):
+        nxt, cache = step(params, nxt[:, None], cache, i)
+    logits, cache = T.decode_step(params, cfg, nxt[:, None], cache, n - 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return logits, read_counts(mods), ms
+
+
+def families_phase(torch, mods, device, seed):
+    """The other five families at full width, each counted, with finite
+    logits, peak memory and time: Mamba2-2.7B (64 layers) through
+    ``serve.py``'s loop sparse and dense and a sparse prefill; Phi-3-Vision
+    (32 layers, flash at d 96) ``forward_embeds`` and 16 decode steps,
+    sparse; HuBERT-XLarge (48 layers, flash at d 80, bidirectional)
+    ``forward_embeds``; DeepSeek-V3 cut to 4 layers (3 dense, 1 MoE of 256
+    experts), prefill and absorbed MLA decode; Jamba-1.5-Large cut to 2
+    layers (Mamba2 + MoE, Mamba2 + MLP), sparse prefill and decode; then
+    HuBERT and Phi-3-Vision cut to 2 layers in f32, ``forward_embeds``
+    through the FMA flash kernel at d 80 and 96 against the chunked
+    attention.  ``bsr_matmul`` is held to its plain version at each
+    family's shapes first: Mamba2's in_proj at a decode step and its
+    prefill, Phi-3-Vision's wq at its forward's 2048 rows and Jamba's
+    in_proj at its prefill's 1024 (both the ``rows`` schedule).  Returns
+    the counted launches and those rows."""
+    np, T, dc = mods["np"], mods["T"], mods["dc"]
+    get = mods["configs"].get_config
+    flags = mods["flags"]
+    runs, kernel_rows = [], []
+    gen = torch.Generator(device=device).manual_seed(seed + 50)
+    rng = np.random.default_rng(seed + 51)
+
+    def bank_rows(cfg, name, d_in, d_out, shapes):
+        bc, w_lib = pruned_bank(torch, mods, gen, d_in, d_out, device)
+        kernel_rows.extend(bsr_matmul_row(torch, mods, gen, device, bc,
+                                          w_lib, name, b, t, arch=cfg.name)
+                           for b, t in shapes)
+        del bc, w_lib
+        torch.cuda.empty_cache()
+
+    def tokens(cfg, b, t):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (b, t))).to(device)
+
+    def embeds(cfg, b, t, dtype):
+        return (torch.randn((b, t, cfg.d_model), generator=gen, device=device)
+                * 0.02).to(dtype)
+
+    flags.set_attn_impl("flash")
+    try:
+        # -- Mamba2-2.7B: serve.py's loop, then a prefill ------------------
+        cfg = get("mamba2-2.7b")
+        bank_rows(cfg, "in_proj", cfg.d_model, _in_proj_width(cfg),
+                  MAMBA2_KERNEL_ROWS)
+        b, p, g = FAMILY_SERVE
+        for sparsity in (LLM_SPARSITY, 0.0):
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            reset_counts(mods)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mods["serve_main"](["--arch", cfg.name, "--batch", str(b),
+                                    "--prompt-len", str(p), "--gen", str(g),
+                                    "--sparsity", str(sparsity), "--seed",
+                                    str(seed + 52)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(mods)
+            out = buf.getvalue().strip().splitlines()
+            check(any(f"generated {g} tokens x {b} seqs" in line
+                      for line in out), f"serve.py {cfg.name}: {out}")
+            n_proj = (p + g - 1) * cfg.n_layers * 2 if sparsity else 0
+            _family_row(torch, "family_serve", cfg, counts,
+                        expect(bsr_matmul=n_proj), seconds=wall,
+                        sparsity=sparsity,
+                        batch=b, prompt=p, gen=g, serve_output=out)
+            runs.append(counts)
+        torch.cuda.reset_peak_memory_stats()
+        params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 53,
+                            device)
+        b, t = MAMBA2_PREFILL
+        batch = {"tokens": tokens(cfg, b, t)}
+        step = mods["make_prefill_step"](cfg)
+        (logits, _), counts = _counted_forward(torch, mods,
+                                               lambda: step(params, batch))
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: "
+              f"non-finite logits")
+        ms = _timed(torch, lambda: step(params, batch))
+        n_proj = cfg.n_layers * 2
+        _family_row(torch, "family_prefill", cfg, counts,
+                    expect(**_bsr(torch, mods, n_proj, b * t)),
+                    sparsity=LLM_SPARSITY, batch=b, seq=t, forward_ms=ms,
+                    tokens_per_s=b * t / ms * 1e3,
+                    **device_breakdown(torch, lambda: step(params, batch), ms))
+        runs.append(counts)
+        del params, logits
+        torch.cuda.empty_cache()
+
+        # -- Phi-3-Vision: forward_embeds at d 96, then decode -------------
+        cfg = get("phi-3-vision-4.2b")
+        bank_rows(cfg, "wq", cfg.d_model, cfg.n_heads * cfg.head_dim,
+                  (EMBEDS_SHAPE,))
+        torch.cuda.reset_peak_memory_stats()
+        params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 54,
+                            device)
+        b, t = EMBEDS_SHAPE
+        x = embeds(cfg, b, t, torch.bfloat16)
+        fwd = lambda: T.forward_embeds(params, x, cfg)  # noqa: E731
+        (logits, _), counts = _counted_forward(torch, mods, fwd)
+        check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+            b, t, cfg.vocab), f"{cfg.name}: logits {tuple(logits.shape)}")
+        ms = _timed(torch, fwd)
+        n_proj = cfg.n_layers * 7
+        _family_row(torch, "family_forward_embeds", cfg, counts, expect(
+            **_bsr(torch, mods, n_proj, b * t),
+            flash_attention_tc=cfg.n_layers,
+            flash_attention_tc_d96=cfg.n_layers), sparsity=LLM_SPARSITY,
+            batch=b, seq=t, head_dim=cfg.head_dim, forward_ms=ms,
+            **device_breakdown(torch, fwd, ms))
+        runs.append(counts)
+        logits, counts, step_ms = _decode_run(torch, mods, cfg, params,
+                                              tokens(cfg, 1, 1), PHI3_DECODE,
+                                              device)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode: "
+              f"non-finite logits")
+        _family_row(torch, "family_decode", cfg, counts,
+                    expect(bsr_matmul=n_proj * PHI3_DECODE),
+                    sparsity=LLM_SPARSITY, steps=PHI3_DECODE,
+                    ms_per_step=step_ms)
+        runs.append(counts)
+        del params, logits, x
+        torch.cuda.empty_cache()
+
+        # -- HuBERT-XLarge: bidirectional forward_embeds at d 80 -----------
+        cfg = get("hubert-xlarge")
+        torch.cuda.reset_peak_memory_stats()
+        params = llm_params(torch, mods, cfg, 0.0, seed + 55, device)
+        b, t = EMBEDS_SHAPE
+        x = embeds(cfg, b, t, torch.bfloat16)
+        fwd = lambda: T.forward_embeds(params, x, cfg)  # noqa: E731
+        (logits, _), counts = _counted_forward(torch, mods, fwd)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite "
+              f"logits")
+        ms = _timed(torch, fwd)
+        _family_row(torch, "family_forward_embeds", cfg, counts, expect(
+            flash_attention_tc=cfg.n_layers,
+            flash_attention_tc_d80=cfg.n_layers), sparsity=0.0, batch=b,
+            seq=t, head_dim=cfg.head_dim, causal=cfg.causal, forward_ms=ms,
+            **device_breakdown(torch, fwd, ms))
+        runs.append(counts)
+        del params, logits, x
+        torch.cuda.empty_cache()
+
+        # -- DeepSeek-V3 cut to 4 layers: MLA prefill, absorbed decode -----
+        cfg = dc.replace(get("deepseek-v3-671b"), n_layers=DEEPSEEK_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        params = llm_params(torch, mods, cfg, 0.0, seed + 56, device)
+        b, t = DEEPSEEK_SHAPE
+        batch = {"tokens": tokens(cfg, b, t)}
+        step = mods["make_prefill_step"](cfg)
+        (logits, _), counts = _counted_forward(torch, mods,
+                                               lambda: step(params, batch))
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: "
+              f"non-finite logits")
+        ms = _timed(torch, lambda: step(params, batch), reps=2)
+        # MLA's 192/128 head dims take the chunked attention (the
+        # reference's rule): no kernel of the port runs
+        _family_row(torch, "family_prefill", cfg, counts, expect(),
+                    sparsity=0.0, batch=b, seq=t, forward_ms=ms,
+                    reduced=f"{DEEPSEEK_LAYERS} of 61 layers",
+                    **device_breakdown(torch, lambda: step(params, batch),
+                                       ms))
+        runs.append(counts)
+        logits, counts, step_ms = _decode_run(
+            torch, mods, cfg, params, batch["tokens"], DEEPSEEK_DECODE,
+            device)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode: "
+              f"non-finite logits")
+        _family_row(torch, "family_decode", cfg, counts, expect(),
+                    sparsity=0.0, steps=DEEPSEEK_DECODE, ms_per_step=step_ms,
+                    cache="MLA latent (absorbed decode)")
+        runs.append(counts)
+        del params, logits, batch
+        torch.cuda.empty_cache()
+
+        # -- Jamba-1.5-Large cut to 2 layers: Mamba2 + MoE, Mamba2 + MLP ---
+        cfg = dc.replace(get("jamba-1.5-large-398b"), n_layers=JAMBA_LAYERS)
+        bank_rows(cfg, "in_proj", cfg.d_model, _in_proj_width(cfg),
+                  (JAMBA_SHAPE,))
+        torch.cuda.reset_peak_memory_stats()
+        params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 57,
+                            device)
+        b, t = JAMBA_SHAPE
+        batch = {"tokens": tokens(cfg, b, t)}
+        step = mods["make_prefill_step"](cfg)
+        (logits, _), counts = _counted_forward(torch, mods,
+                                               lambda: step(params, batch))
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: "
+              f"non-finite logits")
+        ms = _timed(torch, lambda: step(params, batch), reps=2)
+        # in_proj and out_proj of both Mamba2 layers, the MLP's three
+        n_proj = 2 * 2 + 3
+        _family_row(torch, "family_prefill", cfg, counts,
+                    expect(**_bsr(torch, mods, n_proj, b * t)),
+                    sparsity=LLM_SPARSITY, batch=b, seq=t, forward_ms=ms,
+                    reduced=f"{JAMBA_LAYERS} of 72 layers",
+                    **device_breakdown(torch, lambda: step(params, batch),
+                                       ms))
+        runs.append(counts)
+        logits, counts, step_ms = _decode_run(
+            torch, mods, cfg, params, batch["tokens"], JAMBA_DECODE, device)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode: "
+              f"non-finite logits")
+        _family_row(torch, "family_decode", cfg, counts,
+                    expect(bsr_matmul=n_proj * JAMBA_DECODE),
+                    sparsity=LLM_SPARSITY, steps=JAMBA_DECODE,
+                    ms_per_step=step_ms)
+        runs.append(counts)
+        del params, logits, batch
+        torch.cuda.empty_cache()
+
+        # -- f32, 2 layers: the FMA flash forward at d 80 and 96 -----------
+        for arch, name in (("hubert-xlarge", "flash_attention_d80"),
+                           ("phi-3-vision-4.2b", "flash_attention_d96")):
+            cfg = dc.replace(get(arch), dtype="float32",
+                             n_layers=EMBEDS_CONSIST_LAYERS)
+            params = llm_params(torch, mods, cfg, 0.0, seed + 58, device)
+            b, t = EMBEDS_CONSIST_SHAPE
+            x = embeds(cfg, b, t, torch.float32)
+            (got, _), counts = _counted_forward(
+                torch, mods, lambda: T.forward_embeds(params, x, cfg))
+            flags.set_attn_impl("chunked")
+            want, _ = T.forward_embeds(params, x, cfg)
+            flags.set_attn_impl("flash")
+            err = float((got - want).abs().max())
+            over_max = err / float(want.abs().max())
+            check(over_max <= FLASH_F32_TOL, f"{cfg.name} f32: flash "
+                  f"logits {over_max} x max |chunked| away (tolerance "
+                  f"{FLASH_F32_TOL})")
+            _family_row(torch, "family_f32_flash_vs_chunked", cfg, counts,
+                        expect(flash_attention=cfg.n_layers,
+                               **{name: cfg.n_layers}), batch=b, seq=t,
+                        max_abs_diff=err, diff_over_max=over_max)
+            runs.append(counts)
+            del params, got, want, x
+            torch.cuda.empty_cache()
+    finally:
+        flags.set_attn_impl("chunked")
+    return sum_counts(runs), {"bsr_matmul": kernel_rows}
+
+
+def _in_proj_width(cfg) -> int:
+    """A Mamba2 layer's in_proj outputs: z and x (d_inner each), B and C
+    (ssm_state each), dt (one a head)."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+
+
+def kernel_entries(rows, launches, arch_rows):
     """The ``kernels`` JSON line's entries: each kernel's source, the TPU
     kernel it replaces, its counted launches, and its rows' error, times
-    and bound."""
+    and bound; ``arch_rows`` (by kernel) are the rows held at the other
+    archs' shapes, listed one by one in the entry and counted in its
+    ``max_abs_err``."""
     meta = {
         "sparse_conv": ("src/repro_torch/kernels/sparse_conv/csrc/sparse_conv.cu",
                         "src/repro/kernels/sparse_conv/kernel.py:213"),
@@ -2543,6 +3135,10 @@ def kernel_entries(rows, launches):
         "flash_attention_bwd_dkv_tc": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:187"),
+        **{f"flash_attention{kind}_d{d}": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:136")
+           for kind in ("_tc", "") for d in FLASH_DIM_SHAPES},
     }
     times_are = {
         "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
@@ -2604,6 +3200,17 @@ def kernel_entries(rows, launches):
                                       "H 32, KV 4, T 4096, d 128; plain and "
                                       "library: the whole backward",
     }
+    for d, (arch, (b, h, kv, t, _), causal) in FLASH_DIM_SHAPES.items():
+        shape = (f"one {'causal' if causal else 'bidirectional'} forward, "
+                 f"B {b}, H {h}, KV {kv}, T {t}, d {d} ({arch})")
+        times_are[f"flash_attention_tc_d{d}"] = (
+            f"the tensor-core kernel (flash_fwd_tc_kernel<{d}>, bf16 "
+            f"operands): {shape}, bf16; launches from the {arch} forwards")
+        times_are[f"flash_attention_d{d}"] = (
+            f"the FMA kernel (flash_fwd_kernel<float, {d}>, f32 operands): "
+            f"{shape}, f32; launches from the {arch} f32 forwards cut to "
+            f"{EMBEDS_CONSIST_LAYERS} layers")
+
     def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
         b_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
@@ -2638,6 +3245,17 @@ def kernel_entries(rows, launches):
             entry["blocking_ms"] = sum(r["blocking_ms"] for r in rows[name])
         if name == "bsr_conv":
             entry["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows[name])
+        if arch_rows.get(name):
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(
+                r["max_abs_err"] for r in arch_rows[name]))
+            entry["arch_rows"] = [{
+                "arch": r["arch"], "proj": r.get("proj"),
+                "rows": r.get("rows"), "shape": r["shape"],
+                "schedule": r.get("schedule"),
+                "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                for r in arch_rows[name]]
         if name == "flash_attention_bwd_dkv_tc":
             entry["reduce_launches"] = launches["flash_attention_dkv_reduce"]
         if name == "bsr_matmul":
@@ -2681,7 +3299,7 @@ def load_modules() -> dict:
     from repro_torch.tuning import PlanCache, PlanEntry
     from repro_torch.engine.engine import DEFAULT_BSR_BLOCK
     from repro_torch.engine.lower import lower
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, budget
     from repro_torch.kernels.bsr_conv import ops as ops_bsr
     from repro_torch.kernels.bsr_conv.kernel import (bsr_conv_kernel,
                                                      split_weights)
@@ -2714,7 +3332,9 @@ def load_modules() -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import StepRunner
     from repro_torch.tree import tree_flatten, tree_paths
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import flags
+    from repro_torch.models import layers
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import dense_init
     from repro_torch.serving import Request, ServeEngine
@@ -2759,7 +3379,8 @@ def load_modules() -> dict:
                 make_train_step=make_train_step, AdamWConfig=AdamWConfig,
                 adamw_init=adamw_init, StepRunner=StepRunner,
                 loss_and_grads=loss_and_grads, tree_flatten=tree_flatten,
-                tree_paths=tree_paths)
+                tree_paths=tree_paths, configs=configs, layers=layers,
+                serve_main=serve_main, budget=budget)
     return mods
 
 
@@ -2829,9 +3450,16 @@ def main() -> int:
         rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
         consist = train_consistency_phase(torch, mods, device, args.seed)
         train = train_phase(torch, mods, device, args.seed)
+        rows.update(flash_dims_kernel_phase(torch, mods, device, args.seed))
+        moe, moe_rows = moe_phase(torch, mods, device, args.seed)
+        families, family_rows = families_phase(torch, mods, device,
+                                               args.seed)
+        arch_rows = {name: moe_rows.get(name, []) + family_rows.get(name, [])
+                     for name in {**moe_rows, **family_rows}}
         for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
-                decode_consist, prefill, serve, consist, train))
+                decode_consist, prefill, serve, consist, train, moe,
+                families))
         never = [name for name in KERNEL_NAMES if not launches[name]]
         check(not never, f"kernels of the path never launched in its counted "
               f"runs: {never}")
@@ -2839,7 +3467,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    kernels = kernel_entries(rows, launches)
+    kernels = kernel_entries(rows, launches, arch_rows)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's launcher
 and tests.
 
-Port of ``repro/configs/__init__.py`` for the dense-attention archs the port
-runs (each config module is a copy of the reference's).  The reference's
-other archs (MLA, MoE, Mamba2, hybrid, encoder, VLM) are known by name and
-raise until a later slice ports their layers.
+Port of ``repro/configs/__init__.py``: the same ten archs in the same
+order, each config module a copy of the reference's (dense GQA, MoE, MLA,
+Mamba2, the Mamba2/attention hybrid, the encoder and the VLM backbone).
 """
 from __future__ import annotations
 
@@ -14,14 +13,17 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = (
+    "deepseek_v3_671b",
+    "olmoe_1b_7b",
+    "jamba_1_5_large_398b",
     "qwen1_5_0_5b",
     "qwen1_5_4b",
     "mistral_large_123b",
     "yi_9b",
+    "hubert_xlarge",
+    "mamba2_2_7b",
+    "phi_3_vision_4_2b",
 )
-# Archs of the reference whose layers (MLA, MoE, Mamba2) the port lacks.
-LATER = ("deepseek-v3-671b", "olmoe-1b-7b", "jamba-1.5-large-398b",
-         "hubert-xlarge", "mamba2-2.7b", "phi-3-vision-4.2b")
 
 REGISTRY: Dict[str, object] = {}
 for _m in _MODULES:
@@ -34,10 +36,6 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
-    if arch in LATER:
-        raise NotImplementedError(
-            f"arch {arch!r} waits for a later slice of the port; the port "
-            f"runs {list_archs()}")
     if arch not in REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     mod = REGISTRY[arch]

@@ -132,6 +132,13 @@
 // dQ runs the forward's chain (copy, wgmma, elementwise, wgmma) without
 // the online softmax's rescaling, so it is held by the same serialisation.
 //
+// Head dimensions: both forwards are instantiated at D = 16, 32, 64, 80,
+// 96 and 128 (80 and 96 for HuBERT-XLarge and Phi-3-Vision; each a
+// multiple of 16, so q k^T runs D / 16 k16 steps and P V one wgmma
+// m64nDk16, 40 and 48 accumulator registers a thread; the tensor-core
+// forward's shared memory 60 KB and 72 KB); the backward kernels at 16, 32,
+// 64 and 128, and their launchers refuse the others.
+//
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // strides (in elements, for the b, h and t axes; the d axis is contiguous)
 // are long long, sc is float; dtype 0 = f32, 1 = bf16 (every q-, k-, v-
@@ -588,6 +595,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
                            sc, causal, st);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
+                           sc, causal, st);
+    case 96:
+      return launch<T, 96>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
+                           sc, causal, st);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
                             sc, causal, st);
@@ -855,6 +868,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 80, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 80),
+// B MN-major in shared memory (40 accumulator registers a thread: the
+// forward's P V at head dim 80).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 96, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 96),
+// B MN-major in shared memory (48 accumulator registers a thread: the
+// forward's P V at head dim 96).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
@@ -1646,6 +1718,12 @@ extern "C" int flash_attention_fwd_tc(
                                sc, causal, st);
     case 64:
       return launch_fwd_tc<64>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
+                               sc, causal, st);
+    case 80:
+      return launch_fwd_tc<80>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
+                               sc, causal, st);
+    case 96:
+      return launch_fwd_tc<96>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
                                sc, causal, st);
     case 128:
       return launch_fwd_tc<128>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,

@@ -15,6 +15,10 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
+The forward kernels take head dims ``budget.FLASH_HEAD_DIMS`` (80 and 96
+among them), the backward kernels ``budget.FLASH_BWD_HEAD_DIMS``; any
+other head dim raises before a launch (no fallback on a CUDA tensor).
+
 All three pick their kernel by dtype, and only by dtype: bf16 operands go
 to the tensor-core kernels (``flash_fwd_tc_kernel``;
 ``flash_bwd_dq_tc_kernel``; ``flash_bwd_dkv_tc_kernel``, which writes f32
@@ -28,7 +32,8 @@ a contiguous tensor first.
 
 Counts of launches in this process, one a launch of its kernel:
 ``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
-(tensor-core forward); ``flash_attention_bwd_dq.launches`` (FMA dQ),
+(tensor-core forward), ``.by_head_dim`` (the forwards' launches by
+instantiation, ``("tc" | "fma", d)``); ``flash_attention_bwd_dq.launches`` (FMA dQ),
 ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
 (FMA dK/dV), ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches``
 (its group sum).
@@ -86,9 +91,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          rows_strided=True)
 
 
-def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
-    """Check q, k, v and the q-shaped ``rows`` operands; returns
-    (B, H, KV, T, S, d)."""
+def _check_qkv(q, k, v, smem_bytes: int, *rows,
+               head_dims=budget.FLASH_BWD_HEAD_DIMS) -> Tuple[int, ...]:
+    """Check q, k, v and the q-shaped ``rows`` operands, and that the
+    kernel is instantiated at their head dim (``head_dims``: the backward
+    kernels' by default); returns (B, H, KV, T, S, d)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     dev = q.device
@@ -100,9 +107,9 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
     _check(v, "v", q.dtype, (b, kv, s, d), dev)
     for name, x in rows:
         _check(x, name, q.dtype, (b, h, t, d), dev)
-    if d not in budget.FLASH_HEAD_DIMS:
+    if d not in head_dims:
         raise ValueError(f"flash_attention: head dim {d} not one of "
-                         f"{budget.FLASH_HEAD_DIMS}")
+                         f"{head_dims}, the dims the kernel is built for")
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} heads over {kv} kv heads")
     if not budget.smem_fits(smem_bytes):
@@ -132,7 +139,7 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
         q, k, v, budget.flash_tc_smem_bytes(d) if tc
-        else budget.flash_smem_bytes(d))
+        else budget.flash_smem_bytes(d), head_dims=budget.FLASH_HEAD_DIMS)
     if tc:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
@@ -148,6 +155,9 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
         flash_attention_fwd.tc_launches += 1
     else:
         flash_attention_fwd.launches += 1
+    key = ("tc" if tc else "fma", d)
+    by_dim = flash_attention_fwd.by_head_dim
+    by_dim[key] = by_dim.get(key, 0) + 1
     return out, lse
 
 
@@ -165,6 +175,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.tc_launches = 0
+# launches of each forward instantiation: ("tc" | "fma", head dim) -> count
+flash_attention_fwd.by_head_dim = {}
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

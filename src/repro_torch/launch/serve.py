@@ -59,14 +59,17 @@ def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
     """Prune and convert every large 2-D linear weight to Escoin BCSR, in
     place, one matrix at a time.
 
-    A weight named outside ``SKIP`` with both dims >= ``min_dim`` is
+    A 2-D weight named outside ``SKIP`` (the router, Mamba2's conv and the
+    embeddings stay dense) with both dims >= ``min_dim`` is
     block-pruned in f32 (``block_prune``) and stored as the BCSR of its
     transpose (dense weights are (in, out); BCSR computes x @ W.T for
     (out, in)), with tiles in the weight's dtype (exact: the f32 copy holds
     the same values).  The work happens on the weight's device, and each
     dense leaf is replaced as soon as its bank is built, so the dense model
-    never sits beside its banks.  Leaves in dicts and lists are converted
-    in place; a weight at the root is returned converted.
+    never sits beside its banks.  A MoE layer's stacked (E, in, out)
+    experts stay dense, as the reference's 4-D stacked experts do.  Leaves
+    in dicts and lists are converted in place; a weight at the root is
+    returned converted.
     """
     def conv(name, w):
         if name in SKIP or not isinstance(w, torch.Tensor):
@@ -272,8 +275,10 @@ def main(argv=None) -> None:
         ap.error("--arch is required unless --autotune or --cnn-serve is "
                  "given")
 
-    dev = resolve_device(args.device)
     cfg = cfgs.get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode step")
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, dev)
     if args.sparsity > 0:

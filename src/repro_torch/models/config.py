@@ -4,8 +4,6 @@ One dataclass describes dense / MoE / hybrid(SSM+attn) / pure-SSM /
 encoder-only / VLM-backbone transformers.  Family-specific fields are simply
 unused by families that don't need them.  ``repro_torch/configs/<arch>.py``
 instantiates these with the exact published sizes plus a reduced smoke config.
-The port runs the dense-attention families; the MLA, MoE and SSM fields are
-kept so that configs stay field for field those of the reference.
 """
 from __future__ import annotations
 

@@ -1,17 +1,20 @@
 """Lowering-mode flags shared by layers.py / transformer.py.
 
-Port of ``repro/models/flags.py``, the two flags the port's attention
-reads (``REMAT``, ``UNROLL`` and the MoE flags belong to the JAX compile
-and to families the port does not run yet):
+Port of ``repro/models/flags.py``, the flags the port's layers read
+(``REMAT``, ``UNROLL`` and ``MOE_CONSTRAIN`` belong to the JAX compile and
+its sharding):
 
-  ATTN_IMPL  -- full-sequence attention: ``chunked`` (PyTorch online
-                softmax) or ``flash`` (the CUDA flash-attention kernel).
-  ATTN_CHUNK -- q/kv chunk size of the chunked attention.
+  ATTN_IMPL    -- full-sequence attention: ``chunked`` (PyTorch online
+                  softmax) or ``flash`` (the CUDA flash-attention kernel).
+  ATTN_CHUNK   -- q/kv chunk size of the chunked attention.
+  MOE_CAPACITY -- expert capacity factor: assignments above an expert's
+                  capacity are dropped, as in the reference.
 """
 from __future__ import annotations
 
 ATTN_CHUNK = 1024
 ATTN_IMPL = "chunked"  # chunked (torch online softmax) | flash (CUDA kernel)
+MOE_CAPACITY = 1.25    # expert capacity factor (drops above)
 
 
 def set_attn_impl(impl: str) -> None:
@@ -19,3 +22,7 @@ def set_attn_impl(impl: str) -> None:
     assert impl in ("chunked", "flash"), impl
     ATTN_IMPL = impl
 
+
+def set_moe_capacity(f: float) -> None:
+    global MOE_CAPACITY
+    MOE_CAPACITY = float(f)

@@ -1,10 +1,12 @@
-"""Model building blocks of the dense-attention transformers.
+"""Model building blocks of every architecture the port runs.
 
-Port of the part of ``repro/models/layers.py`` the dense path needs:
-linear application over dense, BCSR and ELL weights, RMSNorm, RoPE, the
-full-sequence attention (the flash kernel or the chunked online softmax),
-decode attention over a KV cache, the GQA attention block and the MLP.
-MLA, MoE and Mamba2 wait for a later slice.
+Port of ``repro/models/layers.py``: linear application over dense, BCSR
+and ELL weights, RMSNorm, RoPE, the full-sequence attention (the flash
+kernel or the chunked online softmax), decode attention over a KV cache,
+the GQA attention block, DeepSeek's multi-head latent attention (MLA), the
+MLP, the routed mixture of experts (MoE) with its shared experts, and the
+Mamba2 block (the chunked SSD scan and its one-step recurrence).  The
+reference's ``specs_*`` (PartitionSpecs) belong to the multi-chip slice.
 
 Conventions, as in the reference: params are nested dicts of tensors;
 dense linear weights are (in_features, out_features), so application is
@@ -12,7 +14,8 @@ dense linear weights are (in_features, out_features), so application is
 (out, in) and go through the Escoin sparse path.  Weights are drawn with a
 ``torch.Generator`` from the reference's distributions; the values differ
 from ``jax.random``'s, so a comparison carries the reference's params over
-(``transformer.params_from_reference``).
+(``transformer.params_from_reference``).  Caches and recurrent states are
+updated in place (the reference returns new ones from its jitted step).
 """
 from __future__ import annotations
 
@@ -254,3 +257,385 @@ def mlp_fwd(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up, approximate="tanh")
     return apply_linear(p["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    qk_hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    h = cfg.n_heads
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["q_a"] = dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype, device)
+        p["q_norm"] = torch.ones((cfg.q_lora_rank,), dtype=dtype,
+                                 device=device)
+        p["q_b"] = dense_init(gen, cfg.q_lora_rank, h * qk_hd, dtype, device)
+    else:
+        p["q_b"] = dense_init(gen, cfg.d_model, h * qk_hd, dtype, device)
+    p["kv_a"] = dense_init(gen, cfg.d_model,
+                           cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtype,
+                           device)
+    p["kv_norm"] = torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=device)
+    p["k_b"] = dense_init(gen, cfg.kv_lora_rank, h * cfg.qk_nope_head_dim,
+                          dtype, device)
+    p["v_b"] = dense_init(gen, cfg.kv_lora_rank, h * cfg.v_head_dim, dtype,
+                          device)
+    p["wo"] = dense_init(gen, h * cfg.v_head_dim, cfg.d_model, dtype, device)
+    return p
+
+
+def mla_fwd(p: Params, x: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig, *, cache: Optional[Params] = None,
+            cur_len: Optional[int] = None, layer: Optional[int] = None,
+            ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention.  Without a cache (prefill): per-head K
+    and V expanded from the latent, full-sequence attention (hd != hdv, so
+    the chunked path, as in the reference).  With one (decode): the
+    *absorbed* form, attending in the latent space over the (B, S,
+    kv_lora_rank) and (B, S, rope) caches, which are written at
+    ``cur_len`` in place.  The absorbed form reads ``k_b`` and ``v_b`` as
+    dense (kv_lora_rank, heads, dim) banks; on sparse ones it raises
+    (``layer`` names the layer in the message)."""
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lat = cfg.kv_lora_rank
+    scale = (nope + rd) ** -0.5
+
+    if cfg.q_lora_rank:
+        q_c = rms_norm(apply_linear(p["q_a"], x), p["q_norm"], cfg.norm_eps)
+    else:
+        q_c = x
+    q = apply_linear(p["q_b"], q_c).reshape(b, t, h, nope + rd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    kv = apply_linear(p["kv_a"], x)
+    c_kv = rms_norm(kv[..., :lat], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., lat:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]                    # (B, T, rd)
+
+    if cache is None:
+        k_nope = apply_linear(p["k_b"], c_kv).reshape(b, t, h, nope)
+        v = apply_linear(p["v_b"], c_kv).reshape(b, t, h, vd)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
+                      dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = full_attention(q_full, k, v, causal=cfg.causal, scale=scale)
+    else:
+        for name in ("k_b", "v_b"):
+            if isinstance(p[name], (BcsrMatrix, EllMatrix)):
+                where = f"layer {layer}" if layer is not None else "MLA"
+                raise ValueError(
+                    f"{cfg.name}: {where}: the absorbed MLA decode reads "
+                    f"{name} as a dense (kv_lora_rank, heads, dim) bank, and "
+                    f"this one is {type(p[name]).__name__}; the reference "
+                    f"cannot decode it either (its decode reshapes the "
+                    f"bank).  Serve MLA layers with dense k_b and v_b.")
+        write_cache(cache["c_kv"], c_kv, cur_len)
+        write_cache(cache["k_rope"], k_rope, cur_len)
+        ckv = cache["c_kv"].float()
+        krope = cache["k_rope"].float()
+        w_kb = p["k_b"].reshape(lat, h, nope).float()
+        q_abs = torch.einsum("bthd,lhd->bthl", q_nope.float(), w_kb)
+        logits = (torch.einsum("bthl,bsl->bhts", q_abs, ckv)
+                  + torch.einsum("bthd,bsd->bhts", q_rope.float(), krope)
+                  ) * scale
+        s = ckv.shape[1]
+        mask = torch.arange(s, device=x.device) < cur_len + 1
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        pattn = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bhts,bsl->bthl", pattn, ckv)
+        w_vb = p["v_b"].reshape(lat, h, vd).float()
+        out = torch.einsum("bthl,lhd->bthd", o_lat, w_vb).to(x.dtype)
+    out = out.reshape(b, t, h * vd)
+    return apply_linear(p["wo"], out), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Params:
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MoE: routing, then dispatch by sort and two gathers
+# ---------------------------------------------------------------------------
+
+def _experts_init(gen: torch.Generator, shape, d_in: int, dtype,
+                  device) -> torch.Tensor:
+    """A stacked (E, in, out) expert bank from truncated normal x
+    d_in**-0.5, drawn one expert at a time in f32 and cast into the bank,
+    so the f32 draw never stands beside the whole bank."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = truncated_normal(shape[1:], gen, device) * (1.0 / d_in) ** 0.5
+    return out
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    e, d = cfg.n_experts, cfg.d_model
+    dff = cfg.moe_d_ff or cfg.d_ff
+    p = {
+        "router": dense_init(gen, d, e, torch.float32, device),
+        "w_gate": _experts_init(gen, (e, d, dff), d, dtype, device),
+        "w_up": _experts_init(gen, (e, d, dff), d, dtype, device),
+        "w_down": _experts_init(gen, (e, dff, d), dff, dtype, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, cfg.n_shared_experts * dff, "swiglu",
+                               dtype, device)
+    return p
+
+
+def moe_capacity(group: int, cfg: ModelConfig, factor: float) -> int:
+    """Slots an expert takes in a group of ``group`` tokens, the
+    reference's rule: ``group * top_k / n_experts * factor`` truncated, then
+    rounded up to a multiple of 8, at least 8."""
+    cap = int(group * cfg.top_k / cfg.n_experts * factor)
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig, capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Routing and dispatch indices of one group, xg (G, D), as the
+    reference's ``_moe_group`` builds them: f32 router logits, softmax,
+    top-k, the k weights renormalised; the (token, k) assignments sorted
+    stably by expert, each expert's run found by ``searchsorted``, and an
+    assignment past its expert's ``capacity`` sent to the trash slot
+    E * capacity.  Returns (topw (G, K) f32, token_for_slot (E * C + 1,)
+    with sentinel G for an empty slot, slot_for_tokk (G * K,), kept
+    (G * K,) bool in sorted order).  The trash entry of token_for_slot
+    holds the sentinel (the reference scatters every dropped token there;
+    no gather reads it)."""
+    g, _ = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dev = xg.device
+    logits = torch.matmul(xg.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)                    # (G, K)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = topi.reshape(-1)                                    # (G*K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    start = torch.searchsorted(sorted_e, torch.arange(e, device=dev),
+                               side="left")
+    pos = torch.arange(g * k, device=dev) - start[sorted_e]
+    kept = pos < capacity
+    trash = e * capacity
+    slot = torch.where(kept, sorted_e * capacity + pos,
+                       torch.full_like(pos, trash))
+    tok = order // k
+    token_for_slot = torch.full((trash + 1,), g, dtype=torch.int64,
+                                device=dev)
+    token_for_slot[slot] = tok     # no read-back: the dropped hit the trash
+    token_for_slot[trash] = g
+    slot_for_tokk = torch.empty((g * k,), dtype=torch.int64, device=dev)
+    slot_for_tokk[order] = slot
+    return topw, token_for_slot, slot_for_tokk, kept
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with f32 sums and an f32 result, the reference's
+    ``preferred_element_type=f32``: on the card a bf16 product returns its
+    f32 sums unrounded (``out_dtype``; the operands stay bf16); on the CPU
+    the operands are multiplied in f32, which holds the same products
+    exactly."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _moe_group(p: Params, xg: torch.Tensor, cfg: ModelConfig,
+               capacity: int) -> torch.Tensor:
+    """Route one group of tokens, xg (G, D) -> (G, D): ``moe_route``, the
+    dispatch gather into (E, C, D), the experts' SwiGLU as batched products
+    with f32 results (cuBLAS on the card), SiLU and the gate product in f32
+    rounded once to x's dtype, the down product's f32 result rounded once,
+    as the reference casts; the combine gather and the f32 weighted sum
+    over the k experts."""
+    g, d = xg.shape
+    e = cfg.n_experts
+    topw, token_for_slot, slot_for_tokk, _ = moe_route(p, xg, cfg, capacity)
+    xpad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
+    dispatched = xpad[token_for_slot[:e * capacity]].reshape(e, capacity, d)
+    hg = _bmm_f32(dispatched, p["w_gate"])
+    hu = _bmm_f32(dispatched, p["w_up"])
+    hy = (F.silu(hg) * hu).to(xg.dtype)
+    y = _bmm_f32(hy, p["w_down"]).to(xg.dtype)
+    ypad = torch.cat([y.reshape(e * capacity, d), y.new_zeros((1, d))], dim=0)
+    per_k = ypad[slot_for_tokk].reshape(g, cfg.top_k, d)
+    return torch.einsum("gk,gkd->gd", topw, per_k.float()).to(xg.dtype)
+
+
+def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            group_size: Optional[int] = None,
+            capacity_factor: Optional[float] = None) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D).  One group over all tokens by default;
+    ``group_size`` routes groups of that many tokens in turn (a ragged
+    remainder: one group), each with its own capacity.  Then the shared
+    experts' SwiGLU MLP, added.  The reference's expert parallelism (an
+    all-to-all over a mesh, ``moe_ep.py``) is not ported: ROADMAP Queue 1
+    item 9."""
+    if capacity_factor is None:
+        capacity_factor = flags.MOE_CAPACITY
+    b, t, d = x.shape
+    flat = x.reshape(b * t, d)
+    n = flat.shape[0]
+    gsz = n if group_size is None else min(group_size, n)
+    if n % gsz:
+        gsz = n  # tiny/ragged inputs: one group
+    cap = moe_capacity(gsz, cfg, capacity_factor)
+    out = torch.cat([_moe_group(p, flat[i:i + gsz], cfg, cap)
+                     for i in range(0, n, gsz)], dim=0).reshape(b, t, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_fwd(p["shared"], x, "swiglu")
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD: state space duality, chunked matmul form)
+# ---------------------------------------------------------------------------
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype,
+                device) -> Params:
+    """The reference's leaves and dtypes: ``a_log``, ``d_skip`` and
+    ``dt_bias`` are f32 whatever the model's dtype."""
+    d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = cfg.n_ssm_heads
+    conv_dim = di + 2 * ns
+    f32 = torch.float32
+    return {
+        # order: [z (di), x (di), B (ns), C (ns), dt (nh)]
+        "in_proj": dense_init(gen, d, 2 * di + 2 * ns + nh, dtype, device),
+        "conv_w": (truncated_normal((cfg.ssm_conv_width, conv_dim), gen,
+                                    device) * 0.1).to(dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32,
+                                          device=device)),
+        "d_skip": torch.ones((nh,), dtype=f32, device=device),
+        "dt_bias": torch.zeros((nh,), dtype=f32, device=device),
+        "norm": torch.ones((di,), dtype=dtype, device=device),
+        "out_proj": dense_init(gen, di, d, dtype, device),
+    }
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: y_t = C_t . h_t,  h_t = exp(-exp(A) dt_t) h_{t-1} +
+    dt_t B_t x_t, in f32.
+
+    xh: (B, T, nh, hd); dt: (B, T, nh); bmat/cmat: (B, T, ns).  Returns
+    (y (B, T, nh, hd), final state (B, nh, ns, hd)).  Within a chunk the
+    work is attention-like products under decay weights (masked before the
+    exp, so no entry above the diagonal overflows); across chunks a loop
+    carries the (B, nh, ns, hd) state.  T must be a multiple of the chunk
+    (or shorter than it), as the reference asserts."""
+    b, t, nh, hd = xh.shape
+    ns = bmat.shape[-1]
+    q = min(chunk, t)
+    if t % q:
+        raise ValueError(f"ssd_scan: T = {t} is not a multiple of the SSD "
+                         f"chunk {q}")
+    dev = xh.device
+    a = -torch.exp(a_log.float())                          # (nh,)
+    dtf = dt.float()
+    dta = dtf * a                                          # (B, T, nh)
+    xdt = xh.float() * dtf[..., None]                      # dt-weighted input
+    bf, cf = bmat.float(), cmat.float()
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    h = (init_state.float() if init_state is not None
+         else torch.zeros((b, nh, ns, hd), dtype=torch.float32, device=dev))
+    ys = []
+    for c0 in range(0, t, q):
+        xq, dq = xdt[:, c0:c0 + q], dta[:, c0:c0 + q]
+        bq, cq = bf[:, c0:c0 + q], cf[:, c0:c0 + q]
+        cs = torch.cumsum(dq, dim=1)                       # (B, q, nh)
+        total = cs[:, -1]                                  # (B, nh)
+        li = cs[:, :, None, :] - cs[:, None, :, :]         # (B, q, q, nh)
+        li = torch.where(mask[None, :, :, None], li,
+                         torch.full_like(li, float("-inf")))
+        w = torch.exp(li)
+        scores = torch.einsum("bqs,bks->bqk", cq, bq)      # (B, q, q)
+        y_intra = torch.einsum("bqk,bqkh,bkhd->bqhd", scores, w, xq)
+        y_inter = torch.einsum("bqs,bhsd,bqh->bqhd", cq, h, torch.exp(cs))
+        decay_to_end = torch.exp(total[:, None, :] - cs)   # (B, q, nh)
+        s_new = torch.einsum("bqs,bqhd,bqh->bhsd", bq, xq, decay_to_end)
+        h = torch.exp(total)[:, :, None, None] * h + s_new
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               state: Optional[Params] = None,
+               ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba2 block; state: {"ssm": (B, nh, ns, hd) f32, "conv": (B, w-1,
+    conv_dim)}.  Without a state: the chunked scan over the sequence, and
+    the state it ends in returned (None below w - 1 positions, as in the
+    reference).  With one (decode, one position): the one-step recurrence,
+    the state updated in place and returned."""
+    b, t, _ = x.shape
+    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    hd = cfg.ssm_head_dim
+    w = cfg.ssm_conv_width
+    zxbcdt = apply_linear(p["in_proj"], x)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: 2 * di + 2 * ns]
+    dt_raw = zxbcdt[..., 2 * di + 2 * ns:]
+
+    if state is None:
+        pad = xbc.new_zeros((b, w - 1, xbc.shape[-1]))
+    else:
+        pad = state["conv"]
+    xbc_pad = torch.cat([pad, xbc], dim=1)
+    new_conv = xbc_pad[:, -(w - 1):, :]
+    # depthwise causal conv1d, window w, the reference's order of sums
+    conv = xbc_pad[:, 0:t, :] * p["conv_w"][0]
+    for i in range(1, w):
+        conv = conv + xbc_pad[:, i:i + t, :] * p["conv_w"][i]
+    conv = F.silu(conv + p["conv_b"])
+    xs = conv[..., :di].reshape(b, t, nh, hd)
+    bmat = conv[..., di: di + ns]
+    cmat = conv[..., di + ns:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+
+    if state is None:
+        y, h = ssd_scan(xs, dt, p["a_log"], bmat, cmat, cfg.ssm_chunk)
+        new_state = ({"ssm": h, "conv": new_conv.clone()} if t >= w - 1
+                     else None)
+    else:
+        # one-step recurrence (decode)
+        a = -torch.exp(p["a_log"].float())
+        da = torch.exp(dt[:, 0] * a)                        # (B, nh)
+        upd = torch.einsum("bs,bhd,bh->bhsd", bmat[:, 0].float(),
+                           xs[:, 0].float(), dt[:, 0])
+        h = da[:, :, None, None] * state["ssm"].float() + upd
+        y = torch.einsum("bs,bhsd->bhd", cmat[:, 0].float(), h)[:, None]
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(h)
+        new_state = state
+
+    y = y + p["d_skip"].float()[:, None] * xs.float()
+    y = y.reshape(b, t, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
+    return apply_linear(p["out_proj"], y), new_state
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device) -> Params:
+    return {"ssm": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_state,
+                                cfg.ssm_head_dim), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv_width - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=device)}

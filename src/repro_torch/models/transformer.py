@@ -1,17 +1,21 @@
-"""The model stack of the dense-attention transformers: embeddings -> layer
-loop -> head.
+"""The model stack: embeddings -> layer loop -> head.
 
-Port of ``repro/models/transformer.py`` for the ``dense`` family (GQA
-attention + MLP in every layer).  The reference scans a stacked layer tree
-(``stage_plan``) so that its compiled program stays O(1) in depth; PyTorch
-runs eagerly, so the port keeps one params dict per layer under
-``params["layers"]`` and loops over them.  ``params_from_reference`` unstacks
-the reference's tree into that layout.
+Port of ``repro/models/transformer.py`` for every family: each layer is an
+attention mixer (GQA or MLA) or a Mamba2 mixer, then an MLP, a MoE or no
+FFN, as the reference's ``layer_descs`` lays them out (DeepSeek's leading
+dense layers, Jamba's one attention layer a period and MoE every other
+layer).  The reference scans a stacked layer tree (``stage_plan``) so that
+its compiled program stays O(1) in depth; PyTorch runs eagerly, so the
+port keeps one params dict per layer under ``params["layers"]`` and loops
+over them.  ``params_from_reference`` unstacks the reference's tree into
+that layout.  The MTP head (DeepSeek's multi-token prediction) is not
+drawn: its loss term waits for a later slice.
 
 Entry points:
   init_params            -- parameters drawn on the card (or ``device``)
   forward / forward_embeds / hidden_embeds -- full-sequence logits / hidden
-  init_cache / decode_step -- the KV cache and one token step with it
+  init_cache / decode_step -- the per-layer caches (KV, MLA latent, Mamba2
+                            state) and one token step with them
   loss_fn                -- next-token cross-entropy, the training objective
   params_from_reference  -- the JAX tree (as numpy) as the port's params
 """
@@ -66,16 +70,6 @@ def stage_plan(cfg: ModelConfig) -> Tuple[List[LayerDesc], List[LayerDesc], int]
     return descs[:npre], rest, 1
 
 
-def _check_supported(cfg: ModelConfig) -> List[LayerDesc]:
-    descs = layer_descs(cfg)
-    for d in descs:
-        if d.kind != "attn" or d.ffn == "moe" or cfg.use_mla:
-            raise NotImplementedError(
-                f"{cfg.name}: {d} layers (MLA, MoE, Mamba2) wait for a later "
-                f"slice of the port")
-    return descs
-
-
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -86,23 +80,30 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, desc: LayerDesc,
                 dtype, device) -> Params:
-    p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-                 "mixer": L.init_attention(gen, cfg, dtype, device)}
+    p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if desc.kind == "attn":
+        p["mixer"] = (L.init_mla(gen, cfg, dtype, device) if cfg.use_mla
+                      else L.init_attention(gen, cfg, dtype, device))
+    else:
+        p["mixer"] = L.init_mamba2(gen, cfg, dtype, device)
     if desc.ffn != "none":
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
-                              device)
+        p["ffn"] = (L.init_moe(gen, cfg, dtype, device) if desc.ffn == "moe"
+                    else L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                    dtype, device))
     return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device="cuda") -> Params:
     """Parameters from the reference's distributions (embed: truncated
-    normal x 0.02; projections: truncated normal x d_in**-0.5; norms 1;
-    biases 0), drawn from ``gen`` on ``device`` in f32 and cast to the
-    config's dtype one matrix at a time."""
+    normal x 0.02; projections and experts: truncated normal x d_in**-0.5;
+    Mamba2's conv: x 0.1; norms 1; biases 0; the router and Mamba2's
+    ``a_log``, ``d_skip``, ``dt_bias`` in f32), drawn from ``gen`` on
+    ``device`` in f32 and cast to the config's dtype one matrix (one
+    expert) at a time."""
     dev = resolve_device(device)
-    descs = _check_supported(cfg)
+    descs = layer_descs(cfg)
     dtype = _dtype(cfg)
     params: Params = {
         "embed": (L.truncated_normal((cfg.vocab, cfg.d_model), gen, dev)
@@ -120,17 +121,33 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               positions: torch.Tensor, cache: Optional[Params],
-               cur_len) -> torch.Tensor:
+def _layer_fwd(cfg: ModelConfig, desc: LayerDesc, p: Params,
+               x: torch.Tensor, positions: torch.Tensor,
+               cache: Optional[Params], cur_len, index: int) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, _ = L.attention_fwd(p["mixer"], h, positions, cfg, cache=cache,
-                             cur_len=cur_len)
+    if desc.kind == "attn" and cfg.use_mla:
+        mix, _ = L.mla_fwd(p["mixer"], h, positions, cfg, cache=cache,
+                           cur_len=cur_len, layer=index)
+    elif desc.kind == "attn":
+        mix, _ = L.attention_fwd(p["mixer"], h, positions, cfg, cache=cache,
+                                 cur_len=cur_len)
+    else:
+        mix, _ = L.mamba2_fwd(p["mixer"], h, cfg, state=cache)
     x = x + mix
-    if "ffn" in p:
+    if desc.ffn != "none":
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_fwd(p["ffn"], h2, cfg.mlp_act)
+        x = x + (L.moe_fwd(p["ffn"], h2, cfg) if desc.ffn == "moe"
+                 else L.mlp_fwd(p["ffn"], h2, cfg.mlp_act))
     return x
+
+
+def _layer_cache(cfg: ModelConfig, desc: LayerDesc, batch: int,
+                 max_len: int, dtype, device) -> Params:
+    if desc.kind == "attn":
+        if cfg.use_mla:
+            return L.init_mla_cache(cfg, batch, max_len, dtype, device)
+        return L.init_attention_cache(cfg, batch, max_len, dtype, device)
+    return L.init_mamba2_state(cfg, batch, dtype, device)
 
 
 def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
@@ -139,7 +156,8 @@ def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
                   cur_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """embeds: (B, T, D) -> (final hidden states (B, T, D), cache).  With a
-    cache, every layer writes its K and V at ``cur_len`` in place."""
+    cache, every attention layer writes its K and V (or MLA latent) at
+    ``cur_len`` in place and every Mamba2 layer steps its state in place."""
     b, t, _ = embeds.shape
     if positions is None:
         if cur_len is not None:
@@ -149,9 +167,10 @@ def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
             positions = torch.arange(t, dtype=torch.int32,
                                      device=embeds.device).expand(b, t)
     x = embeds
-    for i, p in enumerate(params["layers"]):
+    for i, (desc, p) in enumerate(zip(layer_descs(cfg), params["layers"],
+                                      strict=True)):
         c = cache["layers"][i] if cache is not None else None
-        x = _layer_fwd(cfg, p, x, positions, c, cur_len)
+        x = _layer_fwd(cfg, desc, p, x, positions, c, cur_len, i)
     return x, cache
 
 
@@ -188,10 +207,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Params:
     dev = resolve_device(device)
-    descs = _check_supported(cfg)
-    return {"layers": [L.init_attention_cache(cfg, batch, max_len,
-                                              _dtype(cfg), dev)
-                       for _ in descs]}
+    return {"layers": [_layer_cache(cfg, d, batch, max_len, _dtype(cfg), dev)
+                       for d in layer_descs(cfg)]}
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -277,7 +294,10 @@ def params_from_reference(np_params: Params, cfg: ModelConfig,
     ones included; ``BcsrMatrix`` leaves from its ``sparsify_params``,
     stacked over the scanned layers) as the port's params.
 
-    Stacked leaves are sliced per layer.  A stacked BCSR leaf keeps the
+    Stacked leaves are sliced per layer (a MoE layer's (L, E, in, out)
+    experts to its (E, in, out) bank).  Arrays keep their dtype (the f32
+    router and Mamba2 leaves of a bf16 model stay f32); the MTP head is
+    left out.  A stacked BCSR leaf keeps the
     stack's tile count KB (rows padded to the deepest layer's); its padding
     tiles are inert and the kernel stops at ``nblocks``.  BCSR tiles are
     cast to the model's dtype: the reference prunes in f32 and keeps f32
@@ -285,7 +305,7 @@ def params_from_reference(np_params: Params, cfg: ModelConfig,
     and the kernel takes tiles of its input's dtype.
     """
     dev = resolve_device(device)
-    descs = _check_supported(cfg)
+    descs = layer_descs(cfg)
     dtype = _dtype(cfg)
     prefix, period, nblocks = stage_plan(cfg)
     layers = [_convert(p, dev, dtype) for p in np_params["prefix"]]

@@ -55,6 +55,15 @@ def test_port_has_modules_to_scan():
                    "analysis/cli.py", "serving/robust.py", "serving/chaos.py",
                    "examples/cnn_inference.py"):
         assert f"src/repro_torch/{module}" in names
+    # the model families: every config module of the reference, the layers
+    # (MLA, MoE, Mamba2) and the LLM serving example
+    for arch in ("deepseek_v3_671b", "olmoe_1b_7b", "jamba_1_5_large_398b",
+                 "qwen1_5_0_5b", "qwen1_5_4b", "mistral_large_123b", "yi_9b",
+                 "hubert_xlarge", "mamba2_2_7b", "phi_3_vision_4_2b"):
+        assert f"src/repro_torch/configs/{arch}.py" in names
+    for module in ("models/layers.py", "models/transformer.py",
+                   "models/flags.py", "examples/serve_sparse_llm.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

@@ -22,8 +22,12 @@ on a bank with an empty block-row, a block-row split over many units, 32
 block-rows, columns out of order or repeated, and NaN padding; the flash cases GQA 8:1 at d = 128 with T = 200 (not a
 multiple of either chunk), causal and full, S != T, MHA, and bf16 (the
 tensor-core forward, dQ and dK/dV) at every head dimension of
-``budget.FLASH_HEAD_DIMS``, causal and full.  The counters show which
-kernel ran: bf16 operands the tensor-core ones, f32 the FMA ones.
+``budget.FLASH_BWD_HEAD_DIMS``, causal and full; both forwards also at
+head dims 80 (HuBERT-XLarge) and 96 (Phi-3-Vision), GQA and MHA, causal
+and full, ragged and not, where a backward must refuse the head dim on
+the card.  A bf16 MoE group (cuBLAS products with f32 results) agrees
+with the CPU's.  The counters show which kernel ran: bf16 operands the
+tensor-core ones, f32 the FMA ones.
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
 does, in the same nonzero order, so it agrees bit for bit, pipelined or
@@ -407,6 +411,13 @@ FLASH_CASES = [
     (1, 4, 4, 77, 77, 64, True, torch.bfloat16),       # MHA, ragged
     (1, 4, 2, 64, 96, 16, False, torch.bfloat16),      # S != T, full
     (2, 4, 1, 150, 130, 32, True, torch.bfloat16),     # S < T, ragged
+    # head dims 80 (HuBERT-XLarge, non-causal) and 96 (Phi-3-Vision)
+    (1, 16, 16, 200, 200, 80, False, torch.bfloat16),  # HuBERT heads
+    (1, 16, 16, 200, 200, 80, False, torch.float32),
+    (1, 8, 2, 150, 130, 80, True, torch.bfloat16),     # GQA 4:1, S < T
+    (2, 32, 32, 256, 256, 96, True, torch.bfloat16),   # Phi-3-Vision heads
+    (1, 8, 2, 77, 77, 96, True, torch.float32),        # GQA 4:1, ragged
+    (1, 8, 4, 64, 96, 96, False, torch.bfloat16),      # S != T, full
 ]
 # bf16 O: per element, one bf16 rounding of the output (2^-8 of |O|) plus
 # FLASH_O_ATOL of the output's rms.  p v with p rounded to bf16 (a fault
@@ -640,6 +651,37 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
             assert _grad_excess(c, w, dtype) > tol, name
 
 
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_backward_refuses_head_dims_80_and_96(cuda_device, d, dtype):
+    """The forward kernels take head dims 80 and 96, the backward ones do
+    not yet: on the card the dQ and dK/dV launchers raise before any
+    launch, and autograd through ``flash_attention_bthd`` raises too (no
+    fallback to the plain backward)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn((1, 70, h, d), generator=gen, device=cuda_device)
+               .to(dtype).requires_grad_() for h in (4, 2, 2))
+    out = flash_attention_bthd(q, k, v, causal=True)
+    before = (fk.flash_attention_bwd_dq.launches,
+              fk.flash_attention_bwd_dq.tc_launches,
+              fk.flash_attention_bwd_dkv.launches,
+              fk.flash_attention_bwd_dkv.tc_launches)
+    with pytest.raises(ValueError, match=f"head dim {d} not one of"):
+        out.sum().backward()
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    lse = torch.zeros(qt.shape[:3], device=cuda_device)
+    for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match=f"head dim {d} not one of"):
+            fn(qt, kt, vt, qt, lse, lse, sc=0.1, causal=True)
+    assert before == (fk.flash_attention_bwd_dq.launches,
+                      fk.flash_attention_bwd_dq.tc_launches,
+                      fk.flash_attention_bwd_dkv.launches,
+                      fk.flash_attention_bwd_dkv.tc_launches)
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
     """The tensor-core dK/dV sums each kv head's G query heads in a fixed
@@ -794,6 +836,32 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
                                    rtol=1e-4, atol=1e-4)
     tree_map(lambda a, b_: torch.testing.assert_close(
         a.cpu(), b_, rtol=1e-4, atol=1e-4), got["params"], want["params"])
+
+
+def test_bf16_moe_group_on_the_card_matches_the_cpu(cuda_device):
+    """A bf16 OLMoE smoke layer's ``_moe_group`` on the card (cuBLAS
+    products with f32 results) against the CPU (the operands multiplied
+    in f32), on the same weights and tokens, with drops: every element
+    within one bf16 rounding plus 1e-4 x max |cpu|, at most 1 % differ
+    (f32 sums in another order round to the neighbouring bf16 value)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config("olmoe-1b-7b", smoke=True)
+    cpu = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                     "cpu")
+    card = tree_map(lambda x: x.to(cuda_device), cpu)
+    xg = torch.randn((64, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)).to(
+                         torch.bfloat16)
+    cap = L.moe_capacity(64, cfg, 0.5)
+    want = L._moe_group(cpu, xg, cfg, cap).float()
+    got = L._moe_group(card, xg.to(cuda_device), cfg, cap).float().cpu()
+    scale = float(want.abs().max())
+    excess = (got - want).abs() - (2.0 ** -8 * want.abs() + 1e-4 * scale)
+    assert float(excess.max()) <= 0.0
+    assert float((got != want).float().mean()) <= 0.01
 
 
 # -- quantised banks, tall BCSR blocks, and method="auto" on the card -------
