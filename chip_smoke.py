@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pruned-CNN inference and serving, Yi-9B serving
-and Yi-9B training paths, OLMoE-1B-7B serving and the other model families
-on one NVIDIA card.
+and Yi-9B training paths, OLMoE-1B-7B serving, the other model families'
+serving and the families' training on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -238,22 +238,28 @@ Phases (any failure exits non-zero and prints no result):
               attention: ``make_train_step`` under ``StepRunner`` for 1
               warm-up and 5 timed steps, each counted (12 tensor-core
               forwards, 12 tensor-core dQ, 12 tensor-core dK/dV and their
-              group sums, no FMA flash kernel, no ``bsr_matmul``), with a
+              group sums, no FMA flash kernel, no ``bsr_matmul``), the
+              schedule's warm-up spanning the run, with a
               finite loss that falls on the repeated batch; the runner saves a
               checkpoint after the last step (into ``build/``, removed
               afterwards), and it must restore bit for bit.  The line
               carries ms per step, tokens per second, peak memory, one
               profiled step's device busy time, idle share and top kernels,
               and the share of the busy time the four flash kernels take.
-11. flash dims -- both flash forwards at the new head dims against their
-              plain versions, as the llm kernels phase holds them: the
-              tensor-core kernel (bf16; O within one bf16 rounding plus
-              1e-3 of its rms, rejecting the two controls; lse within 1e-4)
-              and the FMA kernel (f32; O within 1e-4 of its largest
-              magnitude), at d 80 (HuBERT-XLarge: B 1, H = KV = 16, T 2048,
-              bidirectional) and d 96 (Phi-3-Vision: B 1, H = KV = 32,
-              T 2048, causal); ``library_ms`` SDPA, which the port never
-              calls.
+11. flash dims -- every flash kernel at head dims 80 (HuBERT-XLarge: B 1,
+              H = KV = 16, T 2048, bidirectional) and 96 (Phi-3-Vision: B 1,
+              H = KV = 32, T 2048, causal) against its plain version, as
+              the llm kernels and llm bwd kernels phases hold them: the
+              tensor-core forward (bf16; O within one bf16 rounding plus
+              1e-3 of its rms, rejecting the two controls; lse within 1e-4),
+              dQ and dK/dV (bf16, through autograd; each gradient within one
+              bf16 rounding plus 1e-3 of its rms, rejecting p in bf16 and
+              the split's hi half alone; two launches bit for bit), and the
+              FMA forward, dQ and dK/dV (f32; within 1e-4 of the largest
+              magnitude); the tensor-core backward also at d 96 over GQA
+              32:8 and at d 80 over a ragged T of 2000 (the kernels line's
+              ``arch_rows``); ``library_ms`` SDPA (its whole backward for
+              dQ and dK/dV), which the port never calls.
 12. moe     -- OLMoE-1B-7B at full width and depth (16 layers, d_model
               2048, 64 experts top-8), bf16, weights from ``--seed``:
               ``bsr_matmul`` on wq (2048 -> 2048) at 4 and 8192 rows and the
@@ -288,11 +294,41 @@ Phases (any failure exits non-zero and prints no result):
               Phi-3-Vision cut to 2 layers in f32, through the FMA flash
               forward at d 80 and 96, within 1e-4 of the chunked
               attention's largest logit.
-14. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
+14. families train -- ``make_train_step`` (the state updated in place),
+              flash attention, B 1 x T 2048, bf16 params, f32
+              AdamW state, weights from ``--seed``: HuBERT-XLarge at full
+              width and depth (48 layers) on the data pipeline's f32
+              embeddings (f32 activations: the FMA flash kernels at d 80,
+              48 of each a step): first the loss and the gradient norm of
+              one forward and backward at full depth under flash within
+              1e-5 of those under chunked attention; then under
+              ``StepRunner``, 1 warm-up and 3 timed steps (the warm-up of
+              their schedule spans them; the loss on the repeated batch
+              must fall), a checkpoint saved into ``build/`` and restored
+              bit for bit, then one step on bf16 embeddings (the
+              tensor-core kernels at d 80), then the control: the same 4
+              steps from the same weights with a one-step warm-up, their
+              losses recorded; Phi-3-Vision-4.2B at full
+              width and depth (32 layers) on bf16 embeddings: one forward
+              and backward of the same params and batch under remat none,
+              dots and full (the flash forward 32, 64, 64 times; the
+              activations the forward keeps full < dots < none, the peaks
+              full <= dots <= none with full < none; losses within 1e-5),
+              then 1 + 3 steps under full remat with the checkpoint (the
+              loss must fall); DeepSeek-V3 at
+              full width cut to its first (dense) layer and the MTP block
+              (``reduced``: a MoE layer's state does not fit a card), one
+              step on tokens (MLA takes the chunked path: no kernel), its
+              loss with and without the MTP term finite and the step's
+              loss the MTP one; then HuBERT and Phi-3-Vision in f32 cut to
+              2 layers as the train consistency phase holds Yi-9B (the FMA
+              backward at d 80 and 96).  Every step counted; each line
+              carries ms a step, tokens/s, peak and state GB, the losses.
+15. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
 
-Every counted run sets all twenty-one launch counters (``COUNTERS``) to 0 just
+Every counted run sets all twenty-nine launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
@@ -369,6 +405,24 @@ COUNTERS = {
     "flash_attention_tc_d96": ("flash_attention", "by_head_dim", ("tc", 96)),
     "flash_attention_d80": ("flash_attention", "by_head_dim", ("fma", 80)),
     "flash_attention_d96": ("flash_attention", "by_head_dim", ("fma", 96)),
+    # the backward kernels at those dims, the same way (the tensor-core
+    # dK/dV's group sum counted with it)
+    "flash_attention_bwd_dq_tc_d80": ("flash_attention_bwd_dq", "by_head_dim",
+                                      ("tc", 80)),
+    "flash_attention_bwd_dq_tc_d96": ("flash_attention_bwd_dq", "by_head_dim",
+                                      ("tc", 96)),
+    "flash_attention_bwd_dq_d80": ("flash_attention_bwd_dq", "by_head_dim",
+                                   ("fma", 80)),
+    "flash_attention_bwd_dq_d96": ("flash_attention_bwd_dq", "by_head_dim",
+                                   ("fma", 96)),
+    "flash_attention_bwd_dkv_tc_d80": ("flash_attention_bwd_dkv",
+                                       "by_head_dim", ("tc", 80)),
+    "flash_attention_bwd_dkv_tc_d96": ("flash_attention_bwd_dkv",
+                                       "by_head_dim", ("tc", 96)),
+    "flash_attention_bwd_dkv_d80": ("flash_attention_bwd_dkv", "by_head_dim",
+                                    ("fma", 80)),
+    "flash_attention_bwd_dkv_d96": ("flash_attention_bwd_dkv", "by_head_dim",
+                                    ("fma", 96)),
 }
 KERNEL_NAMES = tuple(COUNTERS)
 # the CNN path's counters (the conv kernels and their variants); the others
@@ -408,11 +462,6 @@ CNN_SERVE_STEADY = 0.8
 CNN_SERVE_OVERLOAD = 2.0
 CNN_SERVE_CHAOS = dict(seed=0, step_fault_rate=0.35,
                        plan_corruption_rate=0.5, straggler_rate=0.1)
-# the kernels one layer's attention launches in a train step, by dtype
-FLASH_F32 = ("flash_attention", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
-FLASH_BF16 = ("flash_attention_tc", "flash_attention_bwd_dq_tc",
-              "flash_attention_bwd_dkv_tc", "flash_attention_dkv_reduce")
 
 # The transformer path: Yi-9B (48 layers, d_model 4096, 32 heads over 4 kv
 # heads, head_dim 128, d_ff 11008, vocab 64000), weights block-pruned with
@@ -459,6 +508,9 @@ TRAIN_GRAD_TOL = 1e-4                 # x the leaf's largest chunked gradient
 TRAIN_LOSS_TOL = 1e-5                 # x |loss|
 TRAIN_LAYERS, TRAIN_SHAPE = 12, (1, 4096)
 TRAIN_WARMUP, TRAIN_TIMED = 1, 5
+# a train run's schedule is this many times its steps long, so that its
+# warm-up (a tenth of the schedule) spans the run
+TRAIN_SCHEDULE = 10
 # The MoE path: OLMoE-1B-7B (16 layers, d_model 2048, 16 heads of 128,
 # 64 experts top-8 of d_ff 1024, vocab 50304) at full width and depth.  Its
 # BCSR projections are the four attention ones of each layer (the experts
@@ -474,6 +526,9 @@ MOE_CONSIST_LAYERS, MOE_CONSIST_CAPACITY = 2, 8.0
 # The flash forward at the new head dims: (B, H, KV, T = S, d), causal
 FLASH_DIM_SHAPES = {80: ("hubert-xlarge", (1, 16, 16, 2048, 80), False),
                     96: ("phi-3-vision-4.2b", (1, 32, 32, 2048, 96), True)}
+# the tensor-core backward's other cases there: GQA (32 query heads over 8)
+# at d 96, and a ragged bidirectional length (no multiple of 64) at d 80
+FLASH_GQA_KV, FLASH_RAGGED_T = 8, 2000
 # The other families: serve.py's loop (batch, prompt, gen: its defaults),
 # prefill and forward shapes, decode steps, the depth cuts memory forces
 FAMILY_SERVE = (4, 32, 16)
@@ -486,6 +541,12 @@ PHI3_DECODE = 16
 DEEPSEEK_LAYERS, DEEPSEEK_SHAPE, DEEPSEEK_DECODE = 4, (1, 512), 8
 JAMBA_LAYERS, JAMBA_SHAPE, JAMBA_DECODE = 2, (1, 1024), 8
 EMBEDS_CONSIST_LAYERS, EMBEDS_CONSIST_SHAPE = 2, (1, 512)
+# The families' training: B 1 x T 2048; DeepSeek-V3 cut to its first
+# (dense) layer and the MTP block (a MoE layer's state is ~135 GB)
+FAMILY_TRAIN_SHAPE = (1, 2048)
+FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_TIMED = 1, 3
+DEEPSEEK_TRAIN_LAYERS = 1
+REMAT_POLICIES = ("none", "dots", "full")
 
 
 class SmokeFailure(Exception):
@@ -1701,6 +1762,27 @@ def expect(**counts) -> dict:
     return want
 
 
+def flash_step_launches(n: int, bf16: bool, d: int, forwards=None) -> dict:
+    """The counts of a train step (or a forward and backward) whose ``n``
+    attention layers run flash at head dim ``d``: the tensor-core kernels
+    for bf16 (the dK/dV group sum with each dK/dV), the FMA ones for f32,
+    their instantiation's counters at d 80 and 96, ``forwards`` forward
+    launches (``n``; ``2 n`` when remat recomputes each), every other
+    counter 0."""
+    forwards = n if forwards is None else forwards
+    tc = "_tc" if bf16 else ""
+    want = {f"flash_attention{tc}": forwards,
+            f"flash_attention_bwd_dq{tc}": n,
+            f"flash_attention_bwd_dkv{tc}": n}
+    if bf16:
+        want["flash_attention_dkv_reduce"] = n
+    if d in FLASH_DIM_SHAPES:
+        want.update({f"flash_attention{tc}_d{d}": forwards,
+                     f"flash_attention_bwd_dq{tc}_d{d}": n,
+                     f"flash_attention_bwd_dkv{tc}_d{d}": n})
+    return expect(**want)
+
+
 def llm_params(torch, mods, cfg, sparsity, seed, device):
     """Yi-9B params drawn on the card from ``seed``, then, at ``sparsity``,
     block-pruned and converted to BCSR in place, one matrix at a time."""
@@ -2164,10 +2246,10 @@ def llm_serve_phase(torch, mods, device, seed, cfg=None, projections=7,
 # the transformer training path (Yi-9B)
 # ---------------------------------------------------------------------------
 
-def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc):
-    """The causal plain backward with p rounded to bf16 wherever it is used
-    (dS and dV): a fault of the precision the backward keeps p in, which
-    the gradient check must reject.  Returns f32 (dQ, dK, dV)."""
+def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc, causal=True):
+    """The plain backward, causal or full, with p rounded to bf16 wherever
+    it is used (dS and dV): a fault of the precision the backward keeps p
+    in, which the gradient check must reject.  Returns f32 (dQ, dK, dV)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     g = h // kv
@@ -2175,9 +2257,10 @@ def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc):
     dof = do.reshape(b, kv, g, t, d).float()
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     logits = torch.matmul(qf * sc, kf.transpose(-1, -2))
-    mask = (torch.arange(t, device=q.device)[:, None]
-            >= torch.arange(s, device=q.device)[None, :])
-    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    if causal:
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.exp(logits - lse.reshape(b, kv, g, t, 1))
     del logits
     p = p.to(torch.bfloat16).float()
@@ -2189,22 +2272,25 @@ def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc):
     return dq.reshape(b, h, t, d), dk, dv
 
 
-def llm_bwd_kernel_phase(torch, mods, device, seed):
-    """Both flash backward kernels at Yi-9B's train_4k shape: dQ, dK and dV
-    through ``flash_attention_bthd`` and autograd on the model's (B, T, H, d)
-    bf16 tensors, which is the code the training path runs (the Function's
-    backward, its dO handling and delta), against the plain backward on the
-    strided views the Function hands the kernels; then each kernel timed
-    alone.  Returns per-kernel lists of row dicts."""
+def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
+                      arch="yi-9b"):
+    """Both tensor-core flash backward kernels at ``shape`` (B, H, KV,
+    T = S, d), bf16: dQ, dK and dV through ``flash_attention_bthd`` and
+    autograd on the model's (B, T, H, d) tensors, which is the code the
+    training path runs (the Function's backward, its dO handling and
+    delta), against the plain backward on the strided views the Function
+    hands the kernels, with its two controls rejected and two launches of
+    each kernel bit for bit; then each kernel timed alone.  ``names``: the
+    (dQ, dK/dV) row names.  Prints the rows and returns them by name."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
-    b, h, kv, t, d = BWD_SHAPE
+    b, h, kv, t, d = shape
     sc = d ** -0.5
-    gen = torch.Generator(device=device).manual_seed(seed + 5)
     fwd = mods["kernels"]["flash_attention"]
     dq_k = mods["kernels"]["flash_attention_bwd_dq"]
     dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
     plain = mods["flash_bwd_plain"]
+    what = f"flash backward (d {d}, causal {causal})"
 
     def rand(heads):
         return torch.randn((b, t, heads, d), generator=gen,
@@ -2213,47 +2299,50 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     leaves = [rand(h).requires_grad_(), rand(kv).requires_grad_(),
               rand(kv).requires_grad_()]
     do_bthd = rand(h)
-    out = mods["flash_bthd"](*leaves, causal=True)
-    check(out.grad_fn is not None, "flash backward: flash_attention_bthd's "
-          "output has no grad_fn")
+    out = mods["flash_bthd"](*leaves, causal=causal)
+    check(out.grad_fn is not None, f"{what}: flash_attention_bthd's output "
+          f"has no grad_fn")
+
     def bwd_counts():
         return (dq_k.launches, dq_k.tc_launches, dkv_k.launches,
-                dkv_k.tc_launches, dkv_k.reduce_launches)
+                dkv_k.tc_launches, dkv_k.reduce_launches,
+                dq_k.by_head_dim.get(("tc", d), 0),
+                dkv_k.by_head_dim.get(("tc", d), 0))
 
     launched = bwd_counts()
     out.backward(do_bthd)
     torch.cuda.synchronize()
     check(bwd_counts() == (launched[0], launched[1] + 1, launched[2],
-                           launched[3] + 1, launched[4] + 1),
-          "flash backward: autograd did not launch the tensor-core dQ, the "
-          "tensor-core dK/dV and its group sum once each, and no FMA "
-          "kernel")
+                           launched[3] + 1, launched[4] + 1, launched[5] + 1,
+                           launched[6] + 1),
+          f"{what}: autograd did not launch the tensor-core dQ, the "
+          f"tensor-core dK/dV and its group sum once each at d {d}, and no "
+          f"FMA kernel")
     dq, dk, dv = (x.grad.transpose(1, 2) for x in leaves)
     # the operands and residuals as the Function hands them to the kernels
     q, k, v, do = (x.detach().transpose(1, 2)
                    for x in (*leaves, do_bthd))
-    o, lse = fwd(q, k, v, sc=sc, causal=True)
+    o, lse = fwd(q, k, v, sc=sc, causal=causal)
     check(torch.equal(o, out.detach().transpose(1, 2)),
-          "flash backward: the forward is not deterministic")
+          f"{what}: the forward is not deterministic")
     del leaves, out, do_bthd
     # the plain version on f32 copies: gradients before their bf16 rounding
     want = plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                 sc=sc, causal=True)
+                 sc=sc, causal=causal)
     got = (dq, dk, dv)
     stats = {}
     for name, gk, w in zip(("dq", "dk", "dv"), got, want):
-        check(gk.dtype == bf16, f"flash backward: {name} is {gk.dtype}")
-        check(bool(torch.isfinite(gk).all()), f"flash backward: {name} not "
-              f"finite")
+        check(gk.dtype == bf16, f"{what}: {name} is {gk.dtype}")
+        check(bool(torch.isfinite(gk).all()), f"{what}: {name} not finite")
         stats[name] = {"excess": o_excess(gk, w),
                        "max_abs_err": float((gk.float() - w.to(bf16).float())
                                             .abs().max()),
                        "rms": float(w.pow(2).mean().sqrt())}
     del want
     torch.cuda.empty_cache()
-    control = flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc)
+    control = flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc, causal)
     want = plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                 sc=sc, causal=True)
+                 sc=sc, causal=causal)
     for name, c, w in zip(("dq", "dk", "dv"), control, want):
         stats[name]["control_excess"] = o_excess(c, w)
     del control
@@ -2263,7 +2352,8 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     # operands), which every check must reject too
     split_plain = mods["flash_bwd_split_plain"]
     for lo, key in ((True, "split_plain_excess"), (False, "hi_only_excess")):
-        mirror = split_plain(q, k, v, o, lse, do, sc=sc, causal=True, lo=lo)
+        mirror = split_plain(q, k, v, o, lse, do, sc=sc, causal=causal,
+                             lo=lo)
         for name, m, w in zip(("dq", "dk", "dv"), mirror, want):
             stats[name][key] = o_excess(m.to(bf16), w)
         del mirror
@@ -2272,48 +2362,48 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     torch.cuda.empty_cache()
     for name, st in stats.items():
         check(st["excess"] <= FLASH_BWD_ATOL,
-              f"flash backward disagrees with its plain version on {name}: "
+              f"{what} disagrees with its plain version on {name}: "
               f"{st['excess']} x rms beyond one bf16 rounding (tolerance "
               f"{FLASH_BWD_ATOL})")
         check(st["control_excess"] > FLASH_BWD_ATOL,
-              f"the {name} check does not reject p in bf16 "
+              f"{what}: the {name} check does not reject p in bf16 "
               f"({st['control_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
         check(st["hi_only_excess"] > FLASH_BWD_ATOL,
-              f"the {name} check does not reject the split's hi half alone "
-              f"({st['hi_only_excess']} x rms, tolerance {FLASH_BWD_ATOL})")
+              f"{what}: the {name} check does not reject the split's hi "
+              f"half alone ({st['hi_only_excess']} x rms, tolerance "
+              f"{FLASH_BWD_ATOL})")
 
     delta = mods["bwd_delta"](o, do)
+    dq_name, dkv_name = names
+
+    def run_dq():
+        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
+
+    def run_dkv():
+        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
+
     # no atomics: dQ is written by one thread an element, the group sums
     # run in one order, so two launches agree bit for bit
     identical = {}
-    for name, fn in (("flash_attention_bwd_dq_tc", dq_k),
-                     ("flash_attention_bwd_dkv_tc", dkv_k)):
-        first, second = (fn(q, k, v, do, lse, delta, sc=sc, causal=True)
-                         for _ in range(2))
+    for name, fn in ((dq_name, run_dq), (dkv_name, run_dkv)):
+        first, second = fn(), fn()
         torch.cuda.synchronize()
-        identical[name] = (torch.equal(first, second) if name.endswith("dq_tc")
+        identical[name] = (torch.equal(first, second) if name == dq_name
                            else all(torch.equal(a, b_)
                                     for a, b_ in zip(first, second)))
-        check(identical[name], f"flash backward: two {name} launches on the "
-              f"same operands differ")
+        check(identical[name], f"{what}: two {name} launches on the same "
+              f"operands differ")
         del first, second
 
-    def run_dq():
-        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
-
-    def run_dkv():
-        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
-
     times = {}
-    for name, fn, n_kernels in (("flash_attention_bwd_dq_tc", run_dq, 1),
-                                ("flash_attention_bwd_dkv_tc", run_dkv, 2)):
+    for name, fn, n_kernels in ((dq_name, run_dq, 1), (dkv_name, run_dkv, 2)):
         times[name] = (device_ms(torch, fn, 5, n_kernels),
                        time_cuda(torch, fn, reps=5, warmup=1))
     plain_ms = device_ms(torch, lambda: plain(q, k, v, o, lse, do, sc=sc,
-                                              causal=True), 1)
+                                              causal=causal), 1)
     torch.cuda.empty_cache()
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
 
     def library():
@@ -2322,15 +2412,15 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     library_ms = device_ms(torch, library, 5)
     library_event_ms = time_cuda(torch, library, reps=5, warmup=1)
     del out, leaves
-    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    # (query, key) pairs: the causal half, or all of them
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     flops = 2.0 * pairs * d                   # one product over them
     qkv_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2
     stat_bytes = 2 * b * h * t * 4            # lse, delta
     rows = {}
     for name, shape_out, f32_products, outs in (
-            ("flash_attention_bwd_dq_tc", "dq", 1, q.numel()),
-            ("flash_attention_bwd_dkv_tc", "dk, dv", 2,
-             k.numel() + v.numel())):
+            (dq_name, "dq", 1, q.numel()),
+            (dkv_name, "dk, dv", 2, k.numel() + v.numel())):
         ms, event_ms = times[name]
         moved = qkv_bytes + stat_bytes + outs * 2
         # the precision-keeping design on the tensor cores: q k^T and
@@ -2342,9 +2432,9 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
         fma_ms, _ = bound(moved, flops_f32=f32_products * flops,
                           flops_bf16=2 * flops)
         errs = [stats[n.strip()] for n in shape_out.split(",")]
-        row = {"kernel": name,
+        row = {"kernel": name, "arch": arch,
                "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
-                         "causal": True, "dtype": "bfloat16",
+                         "causal": causal, "dtype": "bfloat16",
                          "layout": "(B, T, H, d) views"},
                "gradients": {n.strip(): stats[n.strip()]
                              for n in shape_out.split(",")},
@@ -2356,109 +2446,125 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
                "bound_all_bf16_ms": b16_ms, "bound_all_bf16_by": b16_by,
                "bound_fma_ms": fma_ms,
-               "tflops": (2 + f32_products) * flops / ms / 1e9}
-        row["bit_identical_across_launches"] = identical[name]
+               "tflops": (2 + f32_products) * flops / ms / 1e9,
+               "bit_identical_across_launches": identical[name]}
         print(json.dumps(row), flush=True)
-        rows[name] = [row]
+        rows[name] = row
     del q, k, v, do, o, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     return rows
 
 
-def flash_f32_kernel_phase(torch, mods, device, seed):
-    """The FMA forward, dQ and dK/dV kernels, which f32 operands launch (the
-    consistency and train consistency phases), at the train consistency
-    shape (B 1, H 32, KV 4, T = S = 2048, d 128, causal, f32) on the
-    (B, H, T, d) views of (B, T, H, d) tensors, against their plain
-    versions: O, dQ, dK and dV within FLASH_F32_TOL of their largest
-    magnitude (the rms beside it), lse within FLASH_LSE_TOL.  Returns
-    per-kernel lists of row dicts."""
+def llm_bwd_kernel_phase(torch, mods, device, seed):
+    """Both tensor-core flash backward kernels at Yi-9B's train_4k shape
+    (``flash_bwd_tc_rows``); returns per-kernel lists of row dicts."""
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    rows = flash_bwd_tc_rows(torch, mods, gen, device, BWD_SHAPE, True,
+                             ("flash_attention_bwd_dq_tc",
+                              "flash_attention_bwd_dkv_tc"))
+    return {name: [row] for name, row in rows.items()}
+
+
+def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
+                   arch="yi-9b"):
+    """The FMA forward, dQ and dK/dV kernels, which f32 operands launch, at
+    ``shape`` (B, H, KV, T = S, d) on the (B, H, T, d) views of (B, T, H,
+    d) tensors, against their plain versions: O, dQ, dK and dV within
+    FLASH_F32_TOL of their largest magnitude (the rms beside it), lse
+    within FLASH_LSE_TOL.  ``names``: the (forward, dQ, dK/dV) row names,
+    the forward's None for no row.  Prints the rows and returns them by
+    name."""
     F = torch.nn.functional
-    b, h, kv, _, d = BWD_SHAPE
-    t = TRAIN_CONSIST_SHAPE[1]
+    b, h, kv, t, d = shape
     sc = d ** -0.5
-    gen = torch.Generator(device=device).manual_seed(seed + 6)
     fwd = mods["kernels"]["flash_attention"]
     dq_k = mods["kernels"]["flash_attention_bwd_dq"]
     dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
+    what = f"flash f32 (d {d}, causal {causal})"
     q, k, v, do = (torch.randn((b, t, heads, d), generator=gen,
                                device=device).transpose(1, 2)
                    for heads in (h, kv, kv, h))
 
     def counts():
         return (fwd.launches, fwd.tc_launches, dq_k.launches,
-                dq_k.tc_launches, dkv_k.launches, dkv_k.tc_launches)
+                dq_k.tc_launches, dkv_k.launches, dkv_k.tc_launches,
+                dq_k.by_head_dim.get(("fma", d), 0),
+                dkv_k.by_head_dim.get(("fma", d), 0))
 
     launched = counts()
-    o, lse = fwd(q, k, v, sc=sc, causal=True)
+    o, lse = fwd(q, k, v, sc=sc, causal=causal)
     delta = mods["bwd_delta"](o, do)
-    dq = dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
-    dk, dv = dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+    dq = dq_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
+    dk, dv = dkv_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
     torch.cuda.synchronize()
     check(counts() == (launched[0] + 1, launched[1], launched[2] + 1,
-                       launched[3], launched[4] + 1, launched[5]),
-          "flash f32: f32 operands did not launch the FMA kernels")
-    o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=True)
+                       launched[3], launched[4] + 1, launched[5],
+                       launched[6] + 1, launched[7] + 1),
+          f"{what}: f32 operands did not launch the FMA kernels")
+    o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=causal)
     dq_want, dk_want, dv_want = mods["flash_bwd_plain"](
-        q, k, v, o, lse, do, sc=sc, causal=True)
+        q, k, v, o, lse, do, sc=sc, causal=causal)
     errs = {}
     for name, got, want in (("o", o, o_want), ("dq", dq, dq_want),
                             ("dk", dk, dk_want), ("dv", dv, dv_want)):
-        check(bool(torch.isfinite(got).all()), f"flash f32: {name} not finite")
+        check(bool(torch.isfinite(got).all()), f"{what}: {name} not finite")
         err = float((got - want).abs().max())
         errs[name] = (err, err / float(want.abs().max()),
                       err / float(want.pow(2).mean().sqrt()))
         check(errs[name][1] <= FLASH_F32_TOL,
-              f"flash f32: {name} disagrees with its plain version "
+              f"{what}: {name} disagrees with its plain version "
               f"({errs[name][1]} x max |plain|, tolerance {FLASH_F32_TOL})")
     lse_err = float((lse - lse_want).abs().max())
-    check(lse_err <= FLASH_LSE_TOL, f"flash f32: lse disagrees with its "
-          f"plain version (max_abs_err {lse_err})")
+    check(lse_err <= FLASH_LSE_TOL, f"{what}: lse disagrees with its plain "
+          f"version (max_abs_err {lse_err})")
     del o_want, lse_want, dq_want, dk_want, dv_want
     torch.cuda.empty_cache()
 
     def run_fwd():
-        return fwd(q, k, v, sc=sc, causal=True)
+        return fwd(q, k, v, sc=sc, causal=causal)
 
     def run_dq():
-        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+        return dq_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
 
     def run_dkv():
-        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=True)
+        return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
 
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
 
     def library_bwd():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
 
-    pairs = b * h * t * (t + 1) // 2
+    def plain_bwd():
+        return mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
+                                       causal=causal)
+
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     product = 2.0 * pairs * d
     qkv_bytes = (q.numel() + 2 * k.numel()) * 4
+    stats_bytes = 2 * b * h * t * 4                      # lse, delta
     rows = {}
     for name, fn, plain, library, moved, products, max_err in (
-            ("flash_attention", run_fwd,
-             lambda: mods["flash_plain"](q, k, v, sc=sc, causal=True),
+            (names[0], run_fwd,
+             lambda: mods["flash_plain"](q, k, v, sc=sc, causal=causal),
              lambda: F.scaled_dot_product_attention(
-                 q, k, v, is_causal=True, enable_gqa=True),
+                 q, k, v, is_causal=causal, enable_gqa=True),
              qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, errs["o"][0]),
-            ("flash_attention_bwd_dq", run_dq,
-             lambda: mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
-                                             causal=True),
-             library_bwd, qkv_bytes + q.numel() * 4 + 2 * b * h * t * 4
-             + q.numel() * 4, 3, errs["dq"][0]),
-            ("flash_attention_bwd_dkv", run_dkv,
-             lambda: mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
-                                             causal=True),
-             library_bwd, qkv_bytes + q.numel() * 4 + 2 * b * h * t * 4
-             + 2 * k.numel() * 4, 4, max(errs["dk"][0], errs["dv"][0]))):
+            (names[1], run_dq, plain_bwd, library_bwd,
+             qkv_bytes + q.numel() * 4 + stats_bytes + q.numel() * 4, 3,
+             errs["dq"][0]),
+            (names[2], run_dkv, plain_bwd, library_bwd,
+             qkv_bytes + q.numel() * 4 + stats_bytes + 2 * k.numel() * 4, 4,
+             max(errs["dk"][0], errs["dv"][0]))):
+        if name is None:
+            continue
         ms = device_ms(torch, fn, 5, 1)
         # every product in f32 on the FMA units, as the kernel computes
         b_ms, b_by = bound(moved, flops_f32=products * product)
-        row = {"kernel": name,
+        row = {"kernel": name, "arch": arch,
                "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
-                         "causal": True, "dtype": "float32",
+                         "causal": causal, "dtype": "float32",
                          "layout": "(B, T, H, d) views"},
                "max_abs_err": max_err,
                "err_over_max": {n: e[1] for n, e in errs.items()},
@@ -2473,25 +2579,42 @@ def flash_f32_kernel_phase(torch, mods, device, seed):
                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
                "tflops": products * product / ms / 1e9}
         print(json.dumps(row), flush=True)
-        rows[name] = [row]
+        rows[name] = row
     del q, k, v, do, o, lse, delta, dq, dk, dv, out, leaves
     torch.cuda.empty_cache()
     return rows
 
 
-def train_consistency_phase(torch, mods, device, seed):
-    """Yi-9B at full width in f32, 2 layers: every parameter's gradient
-    through flash against through chunked, then one counted train step;
-    returns its launches."""
+def flash_f32_kernel_phase(torch, mods, device, seed):
+    """The FMA forward, dQ and dK/dV kernels (``flash_fma_rows``) at the
+    train consistency shape (B 1, H 32, KV 4, T = S = 2048, d 128, causal,
+    f32), which the consistency and train consistency phases launch;
+    returns per-kernel lists of row dicts."""
+    b, h, kv, _, d = BWD_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    rows = flash_fma_rows(torch, mods, gen, device,
+                          (b, h, kv, TRAIN_CONSIST_SHAPE[1], d), True,
+                          ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"))
+    return {name: [row] for name, row in rows.items()}
+
+
+def train_consistency_phase(torch, mods, device, seed, full=None):
+    """``full`` (Yi-9B by default) at full width in f32, 2 layers: every
+    parameter's gradient through flash against through chunked, then one
+    counted train step; returns its launches.  The encoder and the VLM
+    train on the data pipeline's embeddings."""
     T, flags = mods["T"], mods["flags"]
-    cfg = mods["dc"].replace(mods["yi9b"], dtype="float32",
+    full = mods["yi9b"] if full is None else full
+    cfg = mods["dc"].replace(full, dtype="float32",
                              n_layers=TRAIN_CONSIST_LAYERS)
     b, t = TRAIN_CONSIST_SHAPE
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=device).manual_seed(seed + 40)
     params = T.init_params(cfg, gen, device)
     batch = mods["SyntheticLMDataset"](mods["DataConfig"](
-        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 41)
-    ).batch_for(0)
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 41,
+        embed_dim=embed_dim(cfg))).batch_for(0)
     on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     paths = [p for p, _ in mods["tree_paths"](params)]
     grads, losses = {}, {}
@@ -2506,8 +2629,11 @@ def train_consistency_phase(torch, mods, device, seed):
     for path, gf, gc in zip(paths, grads["flash"], grads["chunked"]):
         check(bool(torch.isfinite(gf).all()),
               f"train consistency: no finite flash gradient for {path}")
-        scale = float(gc.abs().max())
-        ratio = float((gf - gc).abs().max()) / (TRAIN_GRAD_TOL * scale)
+        # a leaf the batch never reaches (the token embedding of a model
+        # fed embeddings) has a zero gradient both ways
+        limit = TRAIN_GRAD_TOL * float(gc.abs().max())
+        err = float((gf - gc).abs().max())
+        ratio = err / limit if limit else (0.0 if err == 0 else math.inf)
         if ratio > worst:
             worst, worst_path = ratio, path
     loss_err = abs(losses["flash"] - losses["chunked"])
@@ -2527,8 +2653,7 @@ def train_consistency_phase(torch, mods, device, seed):
         flags.set_attn_impl("chunked")
     row = {"phase": "train consistency", "arch": cfg.name, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers, "batch": b, "seq": t,
-           "reduced": {"n_layers": f"{mods['yi9b'].n_layers} -> "
-                                   f"{cfg.n_layers}"},
+           "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"},
            "loss_flash": losses["flash"], "loss_chunked": losses["chunked"],
            "grad_leaves": len(paths),
            "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_path,
@@ -2541,15 +2666,20 @@ def train_consistency_phase(torch, mods, device, seed):
           f"tolerance ({TRAIN_GRAD_TOL} x its largest magnitude)")
     check(loss_err <= TRAIN_LOSS_TOL * abs(losses["chunked"]),
           f"train consistency: losses {losses}")
-    n = cfg.n_layers
-    want = {name: (n if name in FLASH_F32 else 0) for name in KERNEL_NAMES}
-    check(counts == want, f"train consistency: a step launched {counts}, "
-          f"expected {want}")
+    want = flash_step_launches(cfg.n_layers, False, cfg.head_dim)
+    check(counts == want, f"train consistency {cfg.name}: a step launched "
+          f"{counts}, expected {want}")
     check(bool(torch.isfinite(metrics["loss"])), "train consistency: loss "
           "not finite")
     del params, state
     torch.cuda.empty_cache()
     return counts
+
+
+def embed_dim(cfg) -> int:
+    """The data pipeline's embedding width for ``cfg``: the encoder and the
+    VLM train on precomputed embeddings (f32), the others on tokens."""
+    return cfg.d_model if cfg.family in ("vlm", "encoder") else 0
 
 
 class RepeatLoader:
@@ -2568,30 +2698,22 @@ class RepeatLoader:
         pass
 
 
-def train_phase(torch, mods, device, seed):
-    """Yi-9B at full width, 12 layers, bf16, through make_train_step under
-    StepRunner, with a checkpoint saved and restored; returns the counted
-    launches."""
+def run_training(torch, mods, cfg, holder, batch, want, opt_cfg, *, warmup,
+                 timed):
+    """``warmup`` + ``timed`` counted steps of ``make_train_step`` under
+    ``StepRunner`` on ``batch`` repeated, from the state in
+    ``holder["state"]`` (put back at the end, so that no name here keeps a
+    step's state alive beside the next), each step's launches held to
+    ``want``, with finite losses, the last below the first; the runner
+    saves a checkpoint after the last step (into ``build/``, removed
+    afterwards), which must restore bit for bit.  The schedule's warm-up
+    (a tenth of its length) spans the run: lr at its peak on the second
+    step overshoots (HuBERT-XLarge's loss rises at its third step).
+    Returns (the step, the row's numbers)."""
     import shutil
-    T, flags = mods["T"], mods["flags"]
-    full = mods["yi9b"]
-    cfg = mods["dc"].replace(full, n_layers=TRAIN_LAYERS)
-    b, t = TRAIN_SHAPE
-    n_steps = TRAIN_WARMUP + TRAIN_TIMED
-    opt_cfg = mods["AdamWConfig"]()
-    torch.cuda.reset_peak_memory_stats()
-    base_gb = torch.cuda.memory_allocated() / 2**30
-    # the state lives in the holder until the runner takes it, so that no
-    # name here keeps the first step's state alive beside the later ones
-    holder = {"state": mods["init_state"](cfg, opt_cfg, torch.Generator(
-        device=device).manual_seed(seed + 50), device)}
-    n_params = sum(x.numel() for x in mods["tree_flatten"](
-        holder["state"]["params"])[0])
-    state_gb = torch.cuda.memory_allocated() / 2**30 - base_gb
-    batch = mods["SyntheticLMDataset"](mods["DataConfig"](
-        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 51)
-    ).batch_for(0)
-    step_fn = mods["make_train_step"](cfg, opt_cfg, total_steps=n_steps)
+    n_steps = warmup + timed
+    step_fn = mods["make_train_step"](cfg, opt_cfg,
+                                      total_steps=TRAIN_SCHEDULE * n_steps)
     per_step = []
 
     def counted_step(st, bt):
@@ -2615,72 +2737,419 @@ def train_phase(torch, mods, device, seed):
         if "straggler_flag" not in m:
             losses.append(m["loss"])
 
-    flags.set_attn_impl("flash")
+    what = f"train {cfg.name}"
     try:
         t0 = time.perf_counter()
         state, end = runner.run(holder.pop("state"), 0, n_steps,
                                 on_metrics=on_metrics)
         run_s = time.perf_counter() - t0
         check(end == n_steps and len(per_step) == n_steps,
-              f"train: ran to step {end}, {len(per_step)} steps")
-        n = cfg.n_layers
-        # every bf16 forward and dK/dV through the tensor-core kernels
-        want = {name: (n if name in FLASH_BF16 else 0)
-                for name in KERNEL_NAMES}
+              f"{what}: ran to step {end}, {len(per_step)} steps")
         for i, (counts, _) in enumerate(per_step):
-            check(counts == want, f"train: step {i} launched {counts}, "
+            check(counts == want, f"{what}: step {i} launched {counts}, "
                   f"expected {want}")
         check(all(math.isfinite(x) for x in losses) and len(losses) == n_steps,
-              f"train: losses {losses}")
-        check(losses[-1] < losses[0], f"train: the loss on the repeated "
-              f"batch did not fall ({losses})")
-        step_ms = sum(dt for _, dt in per_step[TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
+              f"{what}: losses {losses}")
+        check(losses[-1] < losses[0], f"{what}: the loss on "
+              f"the repeated batch did not fall ({losses})")
+        step_ms = sum(dt for _, dt in per_step[warmup:]) / timed * 1e3
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         # the runner saved step n_steps: it must restore bit for bit
         t0 = time.perf_counter()
         restored, ck_step = mgr.restore_latest(state, device="cpu")
         restore_s = time.perf_counter() - t0
-        check(ck_step == n_steps, f"train: latest checkpoint {ck_step}")
+        check(ck_step == n_steps, f"{what}: latest checkpoint {ck_step}")
         live = dict(mods["tree_paths"](state))
         for path, leaf in mods["tree_paths"](restored):
             check(leaf.dtype == live[path].dtype
                   and torch.equal(leaf, live[path].cpu()),
-                  f"train: checkpoint leaf {path} differs after restore")
+                  f"{what}: checkpoint leaf {path} differs after restore")
         del restored, live
         holder["state"] = state
         del state
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tokens = math.prod(batch["labels"].shape)
+    return step_fn, {
+        "steps": n_steps, "schedule_steps": TRAIN_SCHEDULE * n_steps,
+        "timed_steps": timed, "losses": losses,
+        "ms_per_step": step_ms,
+        "step_ms_each": [dt * 1e3 for _, dt in per_step],
+        "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb,
+        "launches_per_step": per_step[-1][0], "runner_s": run_s,
+        "restore_s": restore_s, "runs": [c for c, _ in per_step]}
 
-        def one_step():
-            holder["state"], _ = step_fn(holder["state"], batch)
 
-        breakdown = device_breakdown(torch, one_step, step_ms, top=8,
-                                     group=("flash_fwd_tc_kernel",
-                                            "flash_bwd_dq_tc_kernel",
-                                            "flash_bwd_dkv_tc_kernel",
-                                            "flash_dkv_reduce_kernel"))
-        state = holder.pop("state")
+def profiled_step(torch, step_fn, holder, batch, step_ms) -> dict:
+    """One more step of ``step_fn`` on ``holder``'s state under the
+    profiler (``device_breakdown``), with the device time and share of the
+    flash kernels."""
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    out = device_breakdown(torch, one_step, step_ms, top=8,
+                           group=("flash_fwd", "flash_bwd",
+                                  "flash_dkv_reduce"))
+    out["attention_ms"] = out.pop("group_ms")
+    out["attention_share"] = out.pop("group_share")
+    return out
+
+
+def train_phase(torch, mods, device, seed):
+    """Yi-9B at full width, 12 layers, bf16, through make_train_step under
+    StepRunner, with a checkpoint saved and restored; returns the counted
+    launches."""
+    flags = mods["flags"]
+    full = mods["yi9b"]
+    cfg = mods["dc"].replace(full, n_layers=TRAIN_LAYERS)
+    b, t = TRAIN_SHAPE
+    opt_cfg = mods["AdamWConfig"]()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2**30
+    holder = {"state": mods["init_state"](cfg, opt_cfg, torch.Generator(
+        device=device).manual_seed(seed + 50), device)}
+    n_params = sum(x.numel() for x in mods["tree_flatten"](
+        holder["state"]["params"])[0])
+    state_gb = torch.cuda.memory_allocated() / 2**30 - base_gb
+    batch = mods["SyntheticLMDataset"](mods["DataConfig"](
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 51)
+    ).batch_for(0)
+    # every bf16 forward and backward through the tensor-core kernels
+    want = flash_step_launches(cfg.n_layers, True, cfg.head_dim)
+    flags.set_attn_impl("flash")
+    try:
+        step_fn, res = run_training(torch, mods, cfg, holder, batch, want,
+                                    opt_cfg, warmup=TRAIN_WARMUP,
+                                    timed=TRAIN_TIMED)
+        res.update(profiled_step(torch, step_fn, holder, batch,
+                                 res["ms_per_step"]))
     finally:
         flags.set_attn_impl("chunked")
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runs = res.pop("runs")
     row = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers, "params": n_params,
            "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"},
            "batch": b, "seq": t, "optimizer": "AdamW, f32 state",
-           "steps": n_steps, "timed_steps": TRAIN_TIMED,
-           "losses": losses, "ms_per_step": step_ms,
-           "step_ms_each": [dt * 1e3 for _, dt in per_step],
-           "tokens_per_s": b * t / (step_ms / 1e3),
-           "peak_gb": peak_gb, "state_gb": state_gb,
-           "launches_per_step": per_step[-1][0],
-           "runner_s": run_s, "restore_s": restore_s}
-    row.update(breakdown)
-    row["attention_ms"] = row.pop("group_ms")
-    row["attention_share"] = row.pop("group_share")
+           **res, "state_gb": state_gb}
     print(json.dumps(row), flush=True)
-    del state
+    holder.clear()
     torch.cuda.empty_cache()
-    total = {name: sum(c[name] for c, _ in per_step) for name in KERNEL_NAMES}
-    return total
+    return sum_counts(runs)
+
+
+# ---------------------------------------------------------------------------
+# the model families: training at full width (HuBERT-XLarge and
+# Phi-3-Vision at full depth, DeepSeek-V3 cut to one layer and its MTP
+# block)
+# ---------------------------------------------------------------------------
+
+def _family_state(torch, mods, cfg, opt_cfg, seed, device):
+    """A fresh train state in a holder, the peak-memory count restarted
+    before it; returns (holder, its params, its GB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    holder = {"state": mods["init_state"](cfg, opt_cfg, torch.Generator(
+        device=device).manual_seed(seed), device)}
+    n_params = sum(x.numel() for x in mods["tree_flatten"](
+        holder["state"]["params"])[0])
+    return holder, n_params, (torch.cuda.memory_allocated() - base) / 2**30
+
+
+def _family_batch(torch, mods, cfg, shape, seed, device, embeds_dtype=None):
+    """The data pipeline's batch (B, T) for ``cfg``: f32 embeddings for the
+    encoder and the VLM (``embeds_dtype`` casts them on the card), tokens
+    for the others."""
+    b, t = shape
+    batch = mods["SyntheticLMDataset"](mods["DataConfig"](
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed,
+        embed_dim=embed_dim(cfg))).batch_for(0)
+    if embeds_dtype is not None:
+        batch["embeds"] = torch.from_numpy(batch["embeds"]).to(
+            device, embeds_dtype)
+    return batch
+
+
+def _counted_step(torch, mods, step_fn, holder, batch):
+    """One counted step of ``step_fn`` on ``holder``'s state; returns
+    (metrics as floats, counts, ms)."""
+    reset_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    holder["state"], m = step_fn(holder.pop("state"), batch)
+    metrics = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    return metrics, read_counts(mods), (time.perf_counter() - t0) * 1e3
+
+
+def _remat_fwd_bwd(torch, mods, cfg, holder, batch, device) -> dict:
+    """The loss and gradients of ``holder``'s params on ``batch`` (the
+    step's forward and backward) under the current remat policy, with the
+    GB its forward keeps for the backward, the peak and the time."""
+    T = mods["T"]
+    leaves = mods["tree_flatten"](holder["state"]["params"])[0]
+    labels = torch.from_numpy(batch["labels"]).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for p in leaves:
+        p.requires_grad_()
+    try:
+        loss = T.loss_fn(holder["state"]["params"], None, labels, cfg,
+                         embeds=batch["embeds"])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        loss.backward()
+        # (the token embedding of a model fed embeddings gets none)
+        gnorm = float(torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                     for p in leaves if p.grad is not None)))
+        torch.cuda.synchronize()
+    finally:
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(False)
+    return {"loss": float(loss.detach()), "grad_norm": gnorm,
+            "forward_backward_ms": (time.perf_counter() - t0) * 1e3,
+            "held_gb": held / 2**30,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def full_depth_agreement(torch, mods, cfg, holder, batch, device) -> dict:
+    """The loss and the global gradient norm of ``holder``'s params on
+    ``batch`` at full depth under chunked attention (the plain path) and
+    under flash (the kernels), each within TRAIN_LOSS_TOL of the chunked
+    one: the whole model's gradient, where the train consistency phase
+    holds every leaf at 2 layers.  Returns both, with the seconds each
+    took and the peak GB of the two; the peak count restarts after them."""
+    flags = mods["flags"]
+    on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    out = {}
+    for impl in ("chunked", "flash"):
+        flags.set_attn_impl(impl)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = mods["loss_and_grads"](cfg, holder["state"]["params"],
+                                                 on_card)
+            gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                         for g in grads)))
+            out[impl] = {"loss": float(loss), "grad_norm": gnorm,
+                         "s": time.perf_counter() - t0}
+            del grads
+        finally:
+            flags.set_attn_impl("flash")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    for key in ("loss", "grad_norm"):
+        want, got = out["chunked"][key], out["flash"][key]
+        check(math.isfinite(got) and abs(got - want) <= TRAIN_LOSS_TOL
+              * abs(want), f"families train {cfg.name}: full-depth {key} "
+              f"{got} under flash, {want} under chunked")
+    return out
+
+
+def families_train_phase(torch, mods, device, seed):
+    """The families' training path on the card (``make_train_step``, which
+    updates the state in place, under flash attention): HuBERT-XLarge (48
+    layers, the data pipeline's f32 embeddings: the FMA kernels at d 80):
+    the full-depth loss and gradient norm under flash against chunked,
+    then under ``StepRunner`` 1 warm-up and 3 timed steps whose loss must
+    fall with a checkpoint saved and restored, one step on bf16 embeddings
+    (the tensor-core kernels at d 80), and the one-step-warm-up control;
+    Phi-3-Vision-4.2B (32 layers, bf16 embeddings, d 96): the
+    forward and backward of one batch under remat none, dots and full
+    (the activations kept full < dots < none, peaks full < none, the same
+    loss), then 1 + 3 steps under full remat with a checkpoint, the loss
+    falling; DeepSeek-V3 at full width cut to its first
+    layer and the MTP block: one step on tokens, the loss with and without
+    the MTP term; then HuBERT and Phi-3-Vision in f32 cut to 2 layers,
+    flash gradients against chunked ones (the FMA backward at d 80 and
+    96).  Returns the counted launches."""
+    T, flags, configs = mods["T"], mods["flags"], mods["configs"]
+    opt_cfg = mods["AdamWConfig"]()
+    runs = []
+    flags.set_attn_impl("flash")
+    try:
+        # -- HuBERT-XLarge: f32 embeddings, then bf16 ---------------------
+        cfg = configs.get_config("hubert-xlarge")
+        holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
+                                                   seed + 60, device)
+        batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 61,
+                              device)
+        check(batch["embeds"].dtype == mods["np"].float32
+              and cfg.dtype == "bfloat16",
+              "families train: the pipeline's HuBERT embeddings are not f32")
+        agree = full_depth_agreement(torch, mods, cfg, holder, batch,
+                                     device)
+        want = flash_step_launches(cfg.n_layers, False, cfg.head_dim)
+        step_fn, res = run_training(torch, mods, cfg, holder, batch, want,
+                                    opt_cfg, warmup=FAMILY_TRAIN_WARMUP,
+                                    timed=FAMILY_TRAIN_TIMED)
+        res.update(profiled_step(torch, step_fn, holder, batch,
+                                 res["ms_per_step"]))
+        runs += res.pop("runs")
+        _family_row(torch, "families train", cfg, runs[-1], want,
+                    params=n_params, state_gb=state_gb, remat="none",
+                    embeds="float32", batch=FAMILY_TRAIN_SHAPE[0],
+                    seq=FAMILY_TRAIN_SHAPE[1], full_depth=agree, **res)
+        bf16_batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 61,
+                                   device, torch.bfloat16)
+        step_fn = mods["make_train_step"](cfg, opt_cfg, total_steps=10)
+        metrics, counts, ms = _counted_step(torch, mods, step_fn, holder,
+                                            bf16_batch)
+        check(math.isfinite(metrics["loss"]), f"families train {cfg.name}: "
+              f"bf16 embeds loss {metrics['loss']}")
+        runs.append(counts)
+        _family_row(torch, "families train", cfg, counts,
+                    flash_step_launches(cfg.n_layers, True, cfg.head_dim),
+                    remat="none", embeds="bfloat16", loss=metrics["loss"],
+                    step_ms=ms)
+        holder.clear()
+        # the control: the same run from the same weights with a one-step
+        # warm-up (lr at its peak on the second step)
+        holder = _family_state(torch, mods, cfg, opt_cfg, seed + 60,
+                               device)[0]
+        step_fn = mods["make_train_step"](
+            cfg, opt_cfg, total_steps=FAMILY_TRAIN_WARMUP + FAMILY_TRAIN_TIMED)
+        control = []
+        for _ in range(FAMILY_TRAIN_WARMUP + FAMILY_TRAIN_TIMED):
+            metrics, counts, _ = _counted_step(torch, mods, step_fn, holder,
+                                               batch)
+            check(counts == want, f"families train {cfg.name}: a control "
+                  f"step launched {counts}, expected {want}")
+            runs.append(counts)
+            control.append(metrics)
+        _family_row(torch, "families train", cfg, counts, want,
+                    what="the control: a one-step warm-up",
+                    embeds="float32",
+                    losses=[m["loss"] for m in control],
+                    grad_norms=[m["grad_norm"] for m in control],
+                    lrs=[m["lr"] for m in control])
+        check(all(math.isfinite(m["loss"]) for m in control),
+              f"families train {cfg.name}: control losses {control}")
+        holder.clear()
+        del batch, bf16_batch, step_fn
+
+        # -- Phi-3-Vision: remat none / dots / full, then training --------
+        cfg = configs.get_config("phi-3-vision-4.2b")
+        holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
+                                                   seed + 62, device)
+        batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 63,
+                              device, torch.bfloat16)
+        n = cfg.n_layers
+        remat = {}
+        for policy in REMAT_POLICIES:
+            flags.set_remat(policy)
+            try:
+                # the first call under a policy loads what its checkpoint
+                # needs (dots: seconds); the second is counted and timed
+                _remat_fwd_bwd(torch, mods, cfg, holder, batch, device)
+                reset_counts(mods)
+                remat[policy] = _remat_fwd_bwd(torch, mods, cfg, holder,
+                                               batch, device)
+                counts = read_counts(mods)
+            finally:
+                flags.set_remat("none")
+            want = flash_step_launches(n, True, cfg.head_dim,
+                                       forwards=n if policy == "none"
+                                       else 2 * n)
+            check(counts == want, f"families train {cfg.name} remat "
+                  f"{policy}: launches {counts}, expected {want}")
+            runs.append(counts)
+        base = remat["none"]["loss"]
+        print(json.dumps({"phase": "families train", "arch": cfg.name,
+                          "what": "one forward and backward of the same "
+                                  "params and batch under each remat",
+                          "batch": FAMILY_TRAIN_SHAPE[0],
+                          "seq": FAMILY_TRAIN_SHAPE[1], "remat": remat}),
+              flush=True)
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in remat.values()),
+              f"families train {cfg.name}: remat losses {remat}")
+        check(all(abs(r["loss"] - base) <= TRAIN_LOSS_TOL * abs(base)
+                  for r in remat.values()),
+              f"families train {cfg.name}: the remat policies' losses "
+              f"differ: {remat}")
+        # what each policy keeps for the backward orders them strictly; the
+        # peak adds the gradients, which end the backward beside the state
+        held = {p: r["held_gb"] for p, r in remat.items()}
+        peaks = {p: r["peak_gb"] for p, r in remat.items()}
+        check(held["full"] < held["dots"] < held["none"],
+              f"families train {cfg.name}: activations kept {held}, "
+              f"expected full < dots < none")
+        check(peaks["full"] <= peaks["dots"] <= peaks["none"]
+              and peaks["full"] < peaks["none"],
+              f"families train {cfg.name}: peaks {peaks}, expected full "
+              f"<= dots <= none and full < none")
+        torch.cuda.reset_peak_memory_stats()
+        want = flash_step_launches(n, True, cfg.head_dim, forwards=2 * n)
+        flags.set_remat("full")
+        try:
+            step_fn, res = run_training(torch, mods, cfg, holder, batch,
+                                        want, opt_cfg,
+                                        warmup=FAMILY_TRAIN_WARMUP,
+                                        timed=FAMILY_TRAIN_TIMED)
+            res.update(profiled_step(torch, step_fn, holder, batch,
+                                     res["ms_per_step"]))
+        finally:
+            flags.set_remat("none")
+        runs += res.pop("runs")
+        _family_row(torch, "families train", cfg, runs[-1], want,
+                    params=n_params, state_gb=state_gb, remat="full",
+                    embeds="bfloat16", batch=FAMILY_TRAIN_SHAPE[0],
+                    seq=FAMILY_TRAIN_SHAPE[1], **res)
+        holder.clear()
+        del batch
+
+        # -- DeepSeek-V3 with its MTP term, cut to one layer --------------
+        full = configs.get_config("deepseek-v3-671b")
+        cfg = mods["dc"].replace(full, n_layers=DEEPSEEK_TRAIN_LAYERS)
+        check(cfg.mtp_depth == 1, f"{cfg.name}: no MTP head")
+        holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
+                                                   seed + 64, device)
+        batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 65,
+                              device)
+        params = holder["state"]["params"]
+        toks, labels = (torch.from_numpy(batch[k]).to(device)
+                        for k in ("tokens", "labels"))
+        with torch.no_grad():
+            loss_mtp = float(T.loss_fn(params, toks, labels, cfg))
+            loss_base = float(T.loss_fn(params, None, labels, cfg,
+                                        embeds=T.embed(params, toks, cfg)))
+        del params
+        step_fn = mods["make_train_step"](cfg, opt_cfg, total_steps=10)
+        metrics, counts, ms = _counted_step(torch, mods, step_fn, holder,
+                                            batch)
+        runs.append(counts)
+        check(all(math.isfinite(x) for x in (loss_mtp, loss_base,
+                                              metrics["loss"],
+                                              metrics["grad_norm"])),
+              f"families train {cfg.name}: losses {loss_mtp}, {loss_base}, "
+              f"{metrics}")
+        check(loss_mtp > loss_base, f"families train {cfg.name}: the MTP "
+              f"term adds nothing ({loss_mtp} <= {loss_base})")
+        check(abs(metrics["loss"] - loss_mtp) <= TRAIN_LOSS_TOL * loss_mtp,
+              f"families train {cfg.name}: the step's loss "
+              f"{metrics['loss']} is not the MTP loss {loss_mtp}")
+        _family_row(torch, "families train", cfg, counts, expect(),
+                    params=n_params, state_gb=state_gb,
+                    reduced={"n_layers": f"{full.n_layers} -> "
+                                         f"{cfg.n_layers}, and the MTP block"},
+                    batch=FAMILY_TRAIN_SHAPE[0],
+                    seq=FAMILY_TRAIN_SHAPE[1], loss=metrics["loss"],
+                    loss_without_mtp=loss_base, loss_mtp_before_step=loss_mtp,
+                    grad_norm=metrics["grad_norm"], step_ms=ms)
+        holder.clear()
+        del step_fn, batch, toks, labels
+        torch.cuda.empty_cache()
+    finally:
+        flags.set_attn_impl("chunked")
+        flags.set_remat("none")
+    for arch in ("hubert-xlarge", "phi-3-vision-4.2b"):
+        runs.append(train_consistency_phase(torch, mods, device, seed,
+                                            full=configs.get_config(arch)))
+    return sum_counts(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -2746,10 +3215,14 @@ def flash_fma_row(torch, mods, gen, device, shape, causal, kernel):
 
 
 def flash_dims_kernel_phase(torch, mods, device, seed):
-    """Both flash forwards at head dims 80 (HuBERT-XLarge: 16 heads, B 1,
+    """Every flash kernel at head dims 80 (HuBERT-XLarge: 16 heads, B 1,
     T 2048, bidirectional) and 96 (Phi-3-Vision: 32 heads, B 1, T 2048,
-    causal), the tensor-core kernel in bf16 and the FMA kernel in f32,
-    each against its plain version; returns per-kernel lists of rows."""
+    causal), each against its plain version: both forwards, the
+    tensor-core kernels in bf16 (``flash_tc_row``, ``flash_bwd_tc_rows``)
+    and the FMA kernels in f32 (``flash_fma_row``, ``flash_fma_rows``);
+    then the tensor-core backward at d 96 over GQA 32:8 and at d 80 over a
+    ragged bidirectional T of 2000.  Returns (per-kernel lists of rows, the
+    GQA and ragged rows by kernel)."""
     gen = torch.Generator(device=device).manual_seed(seed + 7)
     rows = {}
     for d, (arch, shape, causal) in FLASH_DIM_SHAPES.items():
@@ -2758,7 +3231,26 @@ def flash_dims_kernel_phase(torch, mods, device, seed):
             f"flash_attention_tc_d{d}", arch=arch)]
         rows[f"flash_attention_d{d}"] = [flash_fma_row(
             torch, mods, gen, device, shape, causal, f"flash_attention_d{d}")]
-    return rows
+        bwd = flash_bwd_tc_rows(
+            torch, mods, gen, device, shape, causal,
+            (f"flash_attention_bwd_dq_tc_d{d}",
+             f"flash_attention_bwd_dkv_tc_d{d}"), arch=arch)
+        bwd.update(flash_fma_rows(
+            torch, mods, gen, device, shape, causal,
+            (None, f"flash_attention_bwd_dq_d{d}",
+             f"flash_attention_bwd_dkv_d{d}"), arch=arch))
+        rows.update({name: [row] for name, row in bwd.items()})
+    extra = {}
+    for d, (arch, (b, h, kv, t, _), causal) in FLASH_DIM_SHAPES.items():
+        shape, label = ((b, h, FLASH_GQA_KV, t, d), f"{arch}, GQA {h}:"
+                        f"{FLASH_GQA_KV}") if causal else (
+            (b, h, kv, FLASH_RAGGED_T, d), f"{arch}, T {FLASH_RAGGED_T}")
+        for name, row in flash_bwd_tc_rows(
+                torch, mods, gen, device, shape, causal,
+                (f"flash_attention_bwd_dq_tc_d{d}",
+                 f"flash_attention_bwd_dkv_tc_d{d}"), arch=label).items():
+            extra.setdefault(name, []).append(row)
+    return rows, extra
 
 
 def sum_counts(runs) -> dict:
@@ -3139,6 +3631,11 @@ def kernel_entries(rows, launches, arch_rows):
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:136")
            for kind in ("_tc", "") for d in FLASH_DIM_SHAPES},
+        **{f"flash_attention_bwd_{part}{kind}_d{d}": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            f"src/repro/kernels/flash_attention/kernel.py:{line}")
+           for part, line in (("dq", 170), ("dkv", 187))
+           for kind in ("_tc", "") for d in FLASH_DIM_SHAPES},
     }
     times_are = {
         "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
@@ -3209,7 +3706,22 @@ def kernel_entries(rows, launches, arch_rows):
         times_are[f"flash_attention_d{d}"] = (
             f"the FMA kernel (flash_fwd_kernel<float, {d}>, f32 operands): "
             f"{shape}, f32; launches from the {arch} f32 forwards cut to "
-            f"{EMBEDS_CONSIST_LAYERS} layers")
+            f"{EMBEDS_CONSIST_LAYERS} layers and its f32 training")
+        bwd = shape.replace("one ", "").replace("forward", "backward")
+        for part, kernel in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+            extra = (" and its group sum (flash_dkv_reduce_kernel<"
+                     f"{d}>)" if part == "dkv" else "")
+            times_are[f"flash_attention_bwd_{part}_tc_d{d}"] = (
+                f"the tensor-core kernel ({kernel}_tc_kernel<{d}>){extra}, "
+                f"bf16 operands: the {part} of one {bwd}, bf16; plain and "
+                f"library: the whole backward; arch_rows: "
+                f"{'GQA 32:8' if causal else f'T {FLASH_RAGGED_T}'}; "
+                f"launches from the {arch} bf16 training")
+            times_are[f"flash_attention_bwd_{part}_d{d}"] = (
+                f"the FMA kernel ({kernel}_kernel<float, {d}>), f32 "
+                f"operands: the {part} of one {bwd}, f32; plain and library: "
+                f"the whole backward, f32; launches from the {arch} f32 "
+                f"training")
 
     def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
@@ -3258,6 +3770,8 @@ def kernel_entries(rows, launches, arch_rows):
                 for r in arch_rows[name]]
         if name == "flash_attention_bwd_dkv_tc":
             entry["reduce_launches"] = launches["flash_attention_dkv_reduce"]
+        if name.startswith("flash_attention_bwd_dkv_tc_d"):
+            entry["reduce_launches"] = launches[name]
         if name == "bsr_matmul":
             entry["wgmma_launches"] = launches["bsr_matmul_wgmma"]
             entry["rows_launches"] = (launches["bsr_matmul"]
@@ -3450,16 +3964,20 @@ def main() -> int:
         rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
         consist = train_consistency_phase(torch, mods, device, args.seed)
         train = train_phase(torch, mods, device, args.seed)
-        rows.update(flash_dims_kernel_phase(torch, mods, device, args.seed))
+        dims_rows, dims_extra = flash_dims_kernel_phase(torch, mods, device,
+                                                        args.seed)
+        rows.update(dims_rows)
         moe, moe_rows = moe_phase(torch, mods, device, args.seed)
         families, family_rows = families_phase(torch, mods, device,
                                                args.seed)
-        arch_rows = {name: moe_rows.get(name, []) + family_rows.get(name, [])
-                     for name in {**moe_rows, **family_rows}}
+        families_train = families_train_phase(torch, mods, device, args.seed)
+        arch_rows = {name: (moe_rows.get(name, []) + family_rows.get(name, [])
+                            + dims_extra.get(name, []))
+                     for name in {**moe_rows, **family_rows, **dims_extra}}
         for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
                 decode_consist, prefill, serve, consist, train, moe,
-                families))
+                families, families_train))
         never = [name for name in KERNEL_NAMES if not launches[name]]
         check(not never, f"kernels of the path never launched in its counted "
               f"runs: {never}")

@@ -110,12 +110,11 @@ BSR_MATMUL_WGMMA_X_STAGES = 3
 BSR_MATMUL_WGMMA_TILE_STAGES = 2
 
 # Flash attention (csrc/flash_attention.cu): 64 query rows and 32 keys a
-# step; the head dimensions its forward kernels instantiate (both the FMA
-# and the tensor-core one), and those of its backward kernels (dQ, dK/dV).
+# step; the head dimensions every one of its kernels instantiates (the FMA
+# and the tensor-core forward, dQ and dK/dV).
 FLASH_BQ = 64
 FLASH_BK = 32
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-FLASH_BWD_HEAD_DIMS = (16, 32, 64, 128)
 # Its tensor-core kernels (bf16): 64-row tiles (wgmma's M) and 64-key
 # chunks; a warpgroup of 128 threads a 64-row tile.  The forward runs
 # FLASH_TC_FWD_WARPGROUPS of them a block over one ring of key and value

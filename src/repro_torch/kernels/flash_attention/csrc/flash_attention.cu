@@ -132,12 +132,17 @@
 // dQ runs the forward's chain (copy, wgmma, elementwise, wgmma) without
 // the online softmax's rescaling, so it is held by the same serialisation.
 //
-// Head dimensions: both forwards are instantiated at D = 16, 32, 64, 80,
-// 96 and 128 (80 and 96 for HuBERT-XLarge and Phi-3-Vision; each a
-// multiple of 16, so q k^T runs D / 16 k16 steps and P V one wgmma
-// m64nDk16, 40 and 48 accumulator registers a thread; the tensor-core
-// forward's shared memory 60 KB and 72 KB); the backward kernels at 16, 32,
-// 64 and 128, and their launchers refuse the others.
+// Head dimensions: every kernel, forward and backward, FMA and tensor-core,
+// is instantiated at D = 16, 32, 64, 80, 96 and 128 (80 and 96 for
+// HuBERT-XLarge and Phi-3-Vision), and the launchers refuse the others.
+// 80 and 96 are multiples of 16 but not of 64, so the tiles keep the
+// unswizzled core-matrix layout (a 128-byte swizzle cannot cover a row of
+// 80): q k^T, dO v^T, K q^T and V dO^T run D / 16 (5 or 6) k16 steps, and
+// each product with an MN-major B of N = D (p v, ds k, p^T dO, ds^T q)
+// one wgmma m64nDk16 a 16-key slice, 40 and 48 accumulator registers a
+// thread.  Shared memory at D = 80 / 96: the tensor-core forward 60 / 72
+// KB, dQ 80 / 96 KB, dK/dV 77 / 89 KB; the FMA dQ 70 / 82 KB, dK/dV 78 /
+// 90 KB.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // strides (in elements, for the b, h and t axes; the d axis is contiguous)
@@ -672,6 +677,8 @@ int run_bwd(const BwdArgs& a, int D, int dtype, int which) {
     case 16: return launch_bwd<16>(a, dtype, which);
     case 32: return launch_bwd<32>(a, dtype, which);
     case 64: return launch_bwd<64>(a, dtype, which);
+    case 80: return launch_bwd<80>(a, dtype, which);
+    case 96: return launch_bwd<96>(a, dtype, which);
     case 128: return launch_bwd<128>(a, dtype, which);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1667,6 +1674,8 @@ extern "C" int flash_attention_bwd_dq_tc(
     case 16: return launch_dq_tc<16>(a);
     case 32: return launch_dq_tc<32>(a);
     case 64: return launch_dq_tc<64>(a);
+    case 80: return launch_dq_tc<80>(a);
+    case 96: return launch_dq_tc<96>(a);
     case 128: return launch_dq_tc<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1763,6 +1772,8 @@ extern "C" int flash_attention_bwd_dkv_tc(
     case 16: return launch_dkv_tc<16>(a, kp, vp);
     case 32: return launch_dkv_tc<32>(a, kp, vp);
     case 64: return launch_dkv_tc<64>(a, kp, vp);
+    case 80: return launch_dkv_tc<80>(a, kp, vp);
+    case 96: return launch_dkv_tc<96>(a, kp, vp);
     case 128: return launch_dkv_tc<128>(a, kp, vp);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

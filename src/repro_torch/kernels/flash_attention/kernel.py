@@ -15,9 +15,9 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
-The forward kernels take head dims ``budget.FLASH_HEAD_DIMS`` (80 and 96
-among them), the backward kernels ``budget.FLASH_BWD_HEAD_DIMS``; any
-other head dim raises before a launch (no fallback on a CUDA tensor).
+Every kernel takes the head dims ``budget.FLASH_HEAD_DIMS`` (80 and 96
+among them); any other head dim raises before a launch (no fallback on a
+CUDA tensor).
 
 All three pick their kernel by dtype, and only by dtype: bf16 operands go
 to the tensor-core kernels (``flash_fwd_tc_kernel``;
@@ -32,11 +32,12 @@ a contiguous tensor first.
 
 Counts of launches in this process, one a launch of its kernel:
 ``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
-(tensor-core forward), ``.by_head_dim`` (the forwards' launches by
-instantiation, ``("tc" | "fma", d)``); ``flash_attention_bwd_dq.launches`` (FMA dQ),
+(tensor-core forward); ``flash_attention_bwd_dq.launches`` (FMA dQ),
 ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
 (FMA dK/dV), ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches``
-(its group sum).
+(its group sum).  Each of the three also has ``.by_head_dim``: its
+launches by instantiation, ``("tc" | "fma", d)`` (a tensor-core dK/dV
+launch and its group sum count once there).
 """
 from __future__ import annotations
 
@@ -91,11 +92,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          rows_strided=True)
 
 
-def _check_qkv(q, k, v, smem_bytes: int, *rows,
-               head_dims=budget.FLASH_BWD_HEAD_DIMS) -> Tuple[int, ...]:
+def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
     """Check q, k, v and the q-shaped ``rows`` operands, and that the
-    kernel is instantiated at their head dim (``head_dims``: the backward
-    kernels' by default); returns (B, H, KV, T, S, d)."""
+    kernels are instantiated at their head dim; returns (B, H, KV, T, S,
+    d)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     dev = q.device
@@ -107,9 +107,10 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows,
     _check(v, "v", q.dtype, (b, kv, s, d), dev)
     for name, x in rows:
         _check(x, name, q.dtype, (b, h, t, d), dev)
-    if d not in head_dims:
+    if d not in budget.FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not one of "
-                         f"{head_dims}, the dims the kernel is built for")
+                         f"{budget.FLASH_HEAD_DIMS}, the dims the kernel is "
+                         f"built for")
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} heads over {kv} kv heads")
     if not budget.smem_fits(smem_bytes):
@@ -139,7 +140,7 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
         q, k, v, budget.flash_tc_smem_bytes(d) if tc
-        else budget.flash_smem_bytes(d), head_dims=budget.FLASH_HEAD_DIMS)
+        else budget.flash_smem_bytes(d))
     if tc:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
@@ -155,10 +156,13 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
         flash_attention_fwd.tc_launches += 1
     else:
         flash_attention_fwd.launches += 1
-    key = ("tc" if tc else "fma", d)
-    by_dim = flash_attention_fwd.by_head_dim
-    by_dim[key] = by_dim.get(key, 0) + 1
+    _count_head_dim(flash_attention_fwd, tc, d)
     return out, lse
+
+
+def _count_head_dim(wrapper, tc: bool, d: int) -> None:
+    key = ("tc" if tc else "fma", d)
+    wrapper.by_head_dim[key] = wrapper.by_head_dim.get(key, 0) + 1
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -205,6 +209,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_bwd_dq.tc_launches += 1
     else:
         flash_attention_bwd_dq.launches += 1
+    _count_head_dim(flash_attention_bwd_dq, tc, d)
     return dq
 
 
@@ -233,6 +238,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
               (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal,
               q.dtype)
         flash_attention_bwd_dkv.launches += 1
+        _count_head_dim(flash_attention_bwd_dkv, tc, d)
         return dk, dv
     # f32 sums per query head, (B, H, S, d) each, summed by the reduce
     # kernel into dK and dV
@@ -243,6 +249,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
           (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal, q.dtype)
     flash_attention_bwd_dkv.tc_launches += 1
     flash_attention_bwd_dkv.reduce_launches += 1
+    _count_head_dim(flash_attention_bwd_dkv, tc, d)
     return dk, dv
 
 
@@ -273,6 +280,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
+flash_attention_bwd_dq.by_head_dim = {}
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 flash_attention_bwd_dkv.reduce_launches = 0
+flash_attention_bwd_dkv.by_head_dim = {}

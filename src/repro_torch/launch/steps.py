@@ -59,7 +59,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     """Returns train_step(state, batch) -> (state, metrics).  ``batch``
     holds ``tokens`` (or ``embeds``) and ``labels`` as numpy arrays or
     tensors; with ``num_microbatches`` > 1 they are split along the batch
-    axis, the gradients summed in f32 and scaled by 1 / num_microbatches."""
+    axis, the gradients summed in f32 and scaled by 1 / num_microbatches.
+    The caller gives the state up, as the reference's launchers donate it
+    to the jitted step: the step writes the update into its tensors
+    (``adamw_update``) and returns them."""
     if compress_cross_pod:
         raise NotImplementedError(
             "compress_cross_pod: the int8 cross-pod all-reduce waits for "

@@ -5,7 +5,11 @@ Port of ``repro/launch/train.py`` on one card (no mesh, so no
 on the CPU with ``--device cpu`` (the kernels' plain versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
-      --steps 20 --batch 8 --seq 128 --attn-impl flash --device cpu
+      --steps 20 --batch 8 --seq 128 --attn-impl flash --device cpu \\
+      [--remat none|dots|full]
+
+The encoder and VLM archs (hubert-xlarge, phi-3-vision-4.2b) train on the
+data pipeline's f32 embeddings; deepseek-v3-671b adds its MTP term.
 
 With ``--ckpt-dir`` the run resumes from the latest committed step there
 and saves every ``--ckpt-every`` steps; without it, checkpoints go to a
@@ -42,7 +46,9 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", type=str, default="")
     ap.add_argument("--ckpt-every", type=int, default=25)
-    ap.add_argument("--remat", type=str, default="none")
+    ap.add_argument("--remat", choices=("none", "dots", "full"),
+                    default="none",
+                    help="activation checkpointing of the layer stack")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
@@ -50,12 +56,10 @@ def main(argv=None) -> None:
                     default="chunked")
     args = ap.parse_args(argv)
 
-    if args.remat != "none":
-        raise NotImplementedError(f"--remat {args.remat}: activation "
-                                  f"checkpointing waits for a later slice")
     dev = resolve_device(args.device)
     cfg = cfgs.get_config(args.arch, smoke=args.smoke)
     F.set_attn_impl(args.attn_impl)
+    F.set_remat(args.remat)
     opt_cfg = AdamWConfig(lr=args.lr)
     dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                       vocab=cfg.vocab, seed=args.seed,

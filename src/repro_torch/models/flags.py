@@ -1,9 +1,12 @@
 """Lowering-mode flags shared by layers.py / transformer.py.
 
 Port of ``repro/models/flags.py``, the flags the port's layers read
-(``REMAT``, ``UNROLL`` and ``MOE_CONSTRAIN`` belong to the JAX compile and
-its sharding):
+(``UNROLL`` and ``MOE_CONSTRAIN`` belong to the JAX compile and its
+sharding):
 
+  REMAT        -- activation checkpointing of the layer stack: ``none``,
+                  ``dots`` (keep the un-batched products' outputs, recompute
+                  the rest) or ``full`` (keep only each block's input).
   ATTN_IMPL    -- full-sequence attention: ``chunked`` (PyTorch online
                   softmax) or ``flash`` (the CUDA flash-attention kernel).
   ATTN_CHUNK   -- q/kv chunk size of the chunked attention.
@@ -12,6 +15,7 @@ its sharding):
 """
 from __future__ import annotations
 
+REMAT = "none"        # none | dots | full
 ATTN_CHUNK = 1024
 ATTN_IMPL = "chunked"  # chunked (torch online softmax) | flash (CUDA kernel)
 MOE_CAPACITY = 1.25    # expert capacity factor (drops above)
@@ -26,3 +30,9 @@ def set_attn_impl(impl: str) -> None:
 def set_moe_capacity(f: float) -> None:
     global MOE_CAPACITY
     MOE_CAPACITY = float(f)
+
+
+def set_remat(policy: str) -> None:
+    global REMAT
+    assert policy in ("none", "dots", "full"), policy
+    REMAT = policy

@@ -56,9 +56,12 @@ def apply_linear(w, x: torch.Tensor,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Linear application dispatching on the weight's storage format.
 
-    Dense (in, out) tensor -> ``x @ w`` with f32 accumulate, cast to x's
-    dtype (cuBLAS on the card, as the reference leaves it to XLA).
-    ``BcsrMatrix`` of logical shape (out, in) -> the ``bsr_matmul`` kernel;
+    Dense (in, out) tensor -> ``x @ w`` with f32 accumulate in the
+    promoted dtype of x and w, cast to x's dtype (cuBLAS on the card, as the
+    reference leaves it to XLA): the reference's einsum promotes an f32 x
+    over a bf16 weight (f32 embeddings on a bf16 model) to an f32 product,
+    so the activations stay f32.  ``BcsrMatrix`` of logical shape (out, in)
+    -> the ``bsr_matmul`` kernel (which promotes the same way);
     ``EllMatrix`` -> ``ell_matmul``.
     """
     if isinstance(w, BcsrMatrix):
@@ -66,7 +69,8 @@ def apply_linear(w, x: torch.Tensor,
     elif isinstance(w, EllMatrix):
         y = ell_matmul(x, w)
     else:  # bf16 products accumulate in f32 in cuBLAS and on the CPU
-        y = torch.matmul(x, w)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -446,9 +450,10 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=f32``: on the card a bf16 product returns its
     f32 sums unrounded (``out_dtype``; the operands stay bf16); on the CPU
     the operands are multiplied in f32, which holds the same products
-    exactly."""
+    exactly; an f32 ``a`` (f32 activations) takes ``b`` in f32, as the
+    reference's einsum promotes it."""
     if a.dtype == torch.float32:
-        return torch.bmm(a, b)
+        return torch.bmm(a, b.float())
     if a.is_cuda:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())

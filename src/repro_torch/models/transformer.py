@@ -8,8 +8,11 @@ layer).  The reference scans a stacked layer tree (``stage_plan``) so that
 its compiled program stays O(1) in depth; PyTorch runs eagerly, so the
 port keeps one params dict per layer under ``params["layers"]`` and loops
 over them.  ``params_from_reference`` unstacks the reference's tree into
-that layout.  The MTP head (DeepSeek's multi-token prediction) is not
-drawn: its loss term waits for a later slice.
+that layout.  Activation checkpointing (``flags.REMAT``) wraps what the
+reference's ``_maybe_remat`` wraps: each period block of ``stage_plan``,
+never the prefix layers, and only without a cache and with autograd on.
+DeepSeek's multi-token prediction (``cfg.mtp_depth``) draws
+``params["mtp"]`` and adds its two-ahead term to the loss on tokens.
 
 Entry points:
   init_params            -- parameters drawn on the card (or ``device``)
@@ -22,13 +25,16 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import BcsrMatrix
+from repro_torch.models import flags
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -39,6 +45,10 @@ Params = Dict[str, Any]
 class LayerDesc:
     kind: str   # attn | ssm
     ffn: str    # mlp | moe | none
+
+
+# the MTP head's one block, whatever the stack's layers are
+MTP_DESC = LayerDesc("attn", "mlp")
 
 
 def layer_descs(cfg: ModelConfig) -> List[LayerDesc]:
@@ -58,7 +68,8 @@ def layer_descs(cfg: ModelConfig) -> List[LayerDesc]:
 def stage_plan(cfg: ModelConfig) -> Tuple[List[LayerDesc], List[LayerDesc], int]:
     """(prefix descs, period descs, n_blocks): layers = prefix + period*n.
     The reference's layout of its params tree; the port reads it to unstack
-    the tree (``params_from_reference``)."""
+    the tree (``params_from_reference``) and to checkpoint a period block
+    at a time (``flags.REMAT``)."""
     descs = layer_descs(cfg)
     npre = cfg.first_dense_layers
     rest = descs[npre:]
@@ -114,6 +125,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype,
                                          dev)
     params["layers"] = [_init_layer(gen, cfg, d, dtype, dev) for d in descs]
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype,
+                                 dev),
+            "block": _init_layer(gen, cfg, MTP_DESC, dtype, dev),
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        }
     return params
 
 
@@ -123,7 +141,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 def _layer_fwd(cfg: ModelConfig, desc: LayerDesc, p: Params,
                x: torch.Tensor, positions: torch.Tensor,
-               cache: Optional[Params], cur_len, index: int) -> torch.Tensor:
+               cache: Optional[Params], cur_len,
+               index: Optional[int]) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if desc.kind == "attn" and cfg.use_mla:
         mix, _ = L.mla_fwd(p["mixer"], h, positions, cfg, cache=cache,
@@ -166,12 +185,51 @@ def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
         else:
             positions = torch.arange(t, dtype=torch.int32,
                                      device=embeds.device).expand(b, t)
-    x = embeds
-    for i, (desc, p) in enumerate(zip(layer_descs(cfg), params["layers"],
-                                      strict=True)):
-        c = cache["layers"][i] if cache is not None else None
-        x = _layer_fwd(cfg, desc, p, x, positions, c, cur_len, i)
+    descs = layer_descs(cfg)
+    layers = params["layers"]
+    assert len(layers) == len(descs), (len(layers), len(descs))
+
+    def run(x, lo, hi):
+        for i in range(lo, hi):
+            c = cache["layers"][i] if cache is not None else None
+            x = _layer_fwd(cfg, descs[i], layers[i], x, positions, c,
+                           cur_len, i)
+        return x
+
+    prefix, period, nblocks = stage_plan(cfg)
+    x = run(embeds, 0, len(prefix))
+    remat = (flags.REMAT != "none" and cache is None
+             and torch.is_grad_enabled())
+    for j in range(nblocks):
+        lo = len(prefix) + j * len(period)
+        x = (_remat(run, x, lo, lo + len(period)) if remat
+             else run(x, lo, lo + len(period)))
     return x, cache
+
+
+# The un-batched products (the projections): what the reference's
+# ``checkpoint_dots_with_no_batch_dims`` keeps.  A dense linear layer's
+# (B, T, in) x (in, out) folds into one of these; the MoE experts'
+# batched products, the attention (the flash forward included) and every
+# elementwise op are recomputed.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``flags.REMAT``: ``full`` keeps only the block's
+    input and recomputes the block in the backward; ``dots`` also keeps
+    the outputs of its un-batched products (``_DOTS``)."""
+    if flags.REMAT == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return ckpt.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy))
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -235,15 +293,30 @@ def loss_fn(params: Params, tokens: Optional[torch.Tensor],
             labels: torch.Tensor, cfg: ModelConfig, *,
             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy on f32 logits; tokens (B, T) or embeds
-    (B, T, D), labels (B, T) -> the mean over every position."""
+    (B, T, D), labels (B, T) -> the mean over every position.  On tokens,
+    a model with ``cfg.mtp_depth`` adds 0.3 x the cross-entropy of its MTP
+    head, which predicts labels[t + 1] from (h_t, embed(labels_t)): the
+    final hidden states normed and concatenated with the labels'
+    embeddings, projected to d_model, one attention + MLP block, the output
+    head (no final norm), against the labels shifted by one with the last
+    repeated (the reference's ``loss_fn``)."""
+    use_mtp = embeds is None and bool(cfg.mtp_depth)
     if embeds is None:
-        if cfg.mtp_depth:
-            raise NotImplementedError(
-                f"{cfg.name}: the MTP head of the loss waits for a later "
-                f"slice of the port")
         embeds = embed(params, tokens, cfg)
     h, _ = hidden_embeds(params, embeds, cfg)
-    return _xent(_head(params, cfg, h), labels)
+    loss = _xent(_head(params, cfg, h), labels)
+    if use_mtp:
+        mtp = params["mtp"]
+        z = torch.cat([L.rms_norm(h, mtp["norm"], cfg.norm_eps),
+                       embed(params, labels, cfg)], dim=-1)
+        z = L.apply_linear(mtp["proj"], z)
+        b, t, _ = z.shape
+        pos = torch.arange(t, dtype=torch.int32, device=z.device).expand(b, t)
+        z = _layer_fwd(cfg, MTP_DESC, mtp["block"], z, pos, None, None, None)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        loss = loss + 0.3 * _xent(L.apply_linear(head, z), mtp_labels)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +369,8 @@ def params_from_reference(np_params: Params, cfg: ModelConfig,
 
     Stacked leaves are sliced per layer (a MoE layer's (L, E, in, out)
     experts to its (E, in, out) bank).  Arrays keep their dtype (the f32
-    router and Mamba2 leaves of a bf16 model stay f32); the MTP head is
-    left out.  A stacked BCSR leaf keeps the
+    router and Mamba2 leaves of a bf16 model stay f32); the MTP head
+    (``mtp``, unstacked) is carried as it is.  A stacked BCSR leaf keeps the
     stack's tile count KB (rows padded to the deepest layer's); its padding
     tiles are inert and the kernel stops at ``nblocks``.  BCSR tiles are
     cast to the model's dtype: the reference prunes in f32 and keeps f32
@@ -318,4 +391,6 @@ def params_from_reference(np_params: Params, cfg: ModelConfig,
                    for k in ("embed", "final_norm", "lm_head")
                    if k in np_params}
     out["layers"] = layers
+    if "mtp" in np_params:
+        out["mtp"] = _convert(np_params["mtp"], dev, dtype)
     return out

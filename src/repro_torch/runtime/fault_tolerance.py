@@ -76,6 +76,15 @@ class StragglerMonitor:
         self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
         return is_straggler
 
+    def observe_hosts(self, host_times: Dict[int, float]) -> list:
+        """Flag specific hosts whose step contribution lags the median."""
+        if not host_times:
+            return []
+        ts = sorted(host_times.values())
+        med = ts[len(ts) // 2]
+        return [h for h, t in host_times.items()
+                if t > 1.5 * med and t - med > 1.0]
+
 
 class Backoff:
     """Capped exponential retry delay: ``base * mult**attempt``, <= ``cap``.

@@ -101,6 +101,17 @@ def test_new_kernels_fit_the_cards_shared_memory():
     for d in budget.FLASH_HEAD_DIMS:
         assert budget.smem_fits(budget.flash_bwd_dq_tc_smem_bytes(d))
     assert budget.flash_bwd_dq_tc_smem_bytes(128) == 131_072
+    # every backward kernel at every head dim it is built for (80 and 96
+    # among them), FMA and tensor-core
+    assert {80, 96} <= set(budget.FLASH_HEAD_DIMS)
+    for d in budget.FLASH_HEAD_DIMS:
+        for nbytes in (budget.flash_bwd_dq_smem_bytes(d),
+                       budget.flash_bwd_dkv_smem_bytes(d),
+                       budget.flash_bwd_dq_tc_smem_bytes(d),
+                       budget.flash_bwd_dkv_tc_smem_bytes(d)):
+            assert budget.smem_fits(nbytes), d
+    assert budget.flash_bwd_dq_tc_smem_bytes(96) == 98_304
+    assert budget.flash_bwd_dkv_tc_smem_bytes(96) == 91_136
     assert budget.bsr_matmul_wgmma_smem_bytes() == 229_504
     assert budget.smem_fits(budget.bsr_matmul_wgmma_smem_bytes())
     for bn in (16, 32, 64, 128):

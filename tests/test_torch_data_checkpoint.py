@@ -239,3 +239,18 @@ def test_straggler_monitor_flags_outlier():
     for _ in range(20):
         assert not mon.observe(1.0)
     assert mon.observe(5.0)
+
+
+@pytest.mark.parametrize("host_times", [
+    {0: 1.0, 1: 1.1, 2: 9.0, 3: 0.9},   # the reference test's case
+    {}, {0: 3.0}, {0: 1.0, 1: 2.4, 2: 2.6, 3: 1.2},
+    {0: 1.0, 1: 1.0, 2: 1.0, 3: 2.6, 4: 5.0}])
+def test_straggler_monitor_host_lag(host_times):
+    """The hosts lagging the median (over 1.5x it and by more than 1 s),
+    as the reference's ``observe_hosts`` flags them."""
+    lag = StragglerMonitor().observe_hosts(host_times)
+    assert lag == ref_ft.StragglerMonitor().observe_hosts(host_times)
+    if host_times == {0: 1.0, 1: 1.1, 2: 9.0, 3: 0.9}:
+        assert lag == [2]
+    if len(host_times) == 5:
+        assert lag == [3, 4]

@@ -39,8 +39,9 @@ ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 # stacked (E, in, out) banks and stay dense, as the reference's 4-D
 # stacked experts do); deepseek q_a, q_b, wo in 4 layers, the leading
 # layer's MLP and the 3 MoE layers' shared expert (kv_a, k_b, v_b are
-# below min_dim at the smoke width)
-N_BCSR = {"olmoe-1b-7b": 12, "deepseek-v3-671b": 4 * 3 + 3 + 3 * 3}
+# below min_dim at the smoke width), and its MTP head: proj, the block's
+# q_a, q_b, wo and MLP
+N_BCSR = {"olmoe-1b-7b": 12, "deepseek-v3-671b": 4 * 3 + 3 + 3 * 3 + 7}
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -1,23 +1,37 @@
-"""The flash-attention forward at head dims 80 (HuBERT-XLarge) and 96
-(Phi-3-Vision) against the JAX package's, and the launchers' head-dim
-checks.
+"""The flash-attention forward and backward at head dims 80 (HuBERT-XLarge)
+and 96 (Phi-3-Vision) against the JAX package's, and the launchers'
+head-dim checks.
 
 The same numpy q, k, v go through the reference's ``_fwd_call`` (its
 Pallas forward in interpret mode) and the port's launcher on CPU tensors
 (the plain version), causal and full, GQA 1:1 and 4:1: O is held to
 rtol = atol = 2e-5 (the reference test's own tolerance), lse to 1e-5.
 
-On a CUDA tensor the forward launches its kernel at these dims and the
-backward kernels refuse them (``budget.FLASH_BWD_HEAD_DIMS``); the card
-tests hold both (``tests/test_torch_kernels_cuda.py``).  Here the
-launchers' checks, which run before the device is asked, show which dims
-each kernel takes.
+The backward: ``jax.grad`` of the reference's ``flash_attention`` (its
+Pallas forward, dQ and dK/dV kernels in interpret mode, T = 32 = two
+chunks of 16) against the port's ``flash_attention_bthd`` on CPU tensors
+(its autograd Function: the plain forward and backward), causal and
+bidirectional, MHA (H = KV = 2) and GQA (H 4, KV 2): f32 dQ, dK, dV within
+rtol = atol = 1e-4 (the reference's gradient tolerance); bf16 within two
+bf16 units in the last place (2^-6) of the largest of |port|, |reference|
+and the f32 gradient's rms: each side rounds its f32 sums once, and the
+port recomputes its own bf16 O, which may differ from the reference's by
+one rounding and reaches every gradient through delta = rowsum(dO O).
+The rms floor covers elements that cancel to near zero (a causal first
+row's dQ: ds = dp - delta with p = 1), whose error follows the row's scale,
+not their own; the f32 gradients of the same inputs lie ~1e-2 from both
+sides (the inputs' bf16 rounding), well beyond this.
+
+On a CUDA tensor every kernel launches at these dims; the card tests hold
+them (``tests/test_torch_kernels_cuda.py``).  Here the launchers' checks,
+which run before the device is asked, show which dims each kernel takes.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import kernel as ref_kernel  # noqa: E402
@@ -46,11 +60,17 @@ def _qkv(b, h, kv, t, d, seed):
 
 def test_forward_and_backward_head_dims():
     assert {80, 96} <= set(budget.FLASH_HEAD_DIMS)
-    assert not {80, 96} & set(budget.FLASH_BWD_HEAD_DIMS)
-    assert set(budget.FLASH_BWD_HEAD_DIMS) < set(budget.FLASH_HEAD_DIMS)
-    for d in (80, 96):  # the forwards' shared memory, opted in above 48 KB
+    for d in (80, 96):  # shared memory, opted in above 48 KB
         assert budget.flash_tc_smem_bytes(d) == 2 * 64 * d * 6
-        assert budget.smem_fits(budget.flash_smem_bytes(d))
+        assert budget.flash_bwd_dq_tc_smem_bytes(d) == 2 * 64 * d * 8
+        assert budget.flash_bwd_dkv_tc_smem_bytes(d) == (
+            2 * 64 * d * 6 + 4 * (2 * 2 * 64 + 32 * 128))
+        for nbytes in (budget.flash_smem_bytes(d),
+                       budget.flash_bwd_dq_smem_bytes(d),
+                       budget.flash_bwd_dkv_smem_bytes(d),
+                       budget.flash_bwd_dq_tc_smem_bytes(d),
+                       budget.flash_bwd_dkv_tc_smem_bytes(d)):
+            assert budget.smem_fits(nbytes)
 
 
 @pytest.mark.parametrize("d", [80, 96])
@@ -110,22 +130,72 @@ def test_cpu_backward_runs_the_plain_version(d):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [80, 96])
-def test_backward_launchers_refuse_head_dims_80_and_96(d):
+@pytest.mark.parametrize("d, ok", [(80, True), (96, True), (48, False),
+                                   (112, False)])
+def test_backward_launchers_take_80_and_96_only_listed_dims(d, ok):
     """The dQ and dK/dV launchers check the head dim before the device:
-    at 80 and 96 they raise naming the dims they take (on a CUDA tensor
-    the same check refuses the launch; no fallback)."""
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 16, d, seed=3))
+    at 80 and 96 the CPU tensors pass the checks and are refused for their
+    device only; at a dim no instantiation takes (48, 112) they raise
+    naming the dims they take (on a CUDA tensor the same check refuses the
+    launch; no fallback)."""
     lse = torch.zeros((1, 4, 16))
-    for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match=f"head dim {d} not one of "
-                           rf"\(16, 32, 64, 128\)"):
-            fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
-    # at 128 the same CPU tensors pass the checks and are refused for
-    # their device
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 16, 128, seed=3))
-    with pytest.raises(ValueError, match="take CUDA tensors"):
-        fk.flash_attention_bwd_dq(q, k, v, q, lse, lse, sc=0.1, causal=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(a).to(dtype)
+                   for a in _qkv(1, 4, 2, 16, d, seed=3))
+        match = ("take CUDA tensors" if ok else
+                 f"head dim {d} not one of \\(16, 32, 64, 80, 96, 128\\)")
+        for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match=match):
+                fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
+
+
+def _reference_grads(q, k, v, co, *, causal, dtype):
+    d = q.shape[-1]
+
+    def loss(q, k, v):
+        o = ref_kernel.flash_attention(q, k, v, d ** -0.5, causal, 16, 16,
+                                       True)
+        return jnp.sum(o.astype(jnp.float32) * co)
+
+    args = [jnp.asarray(x, dtype=dtype) for x in (q, k, v)]
+    return [np.asarray(g.astype(jnp.float32)) for g in
+            jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+def _port_grads(q, k, v, co, *, causal, dtype):
+    leaves = [torch.from_numpy(x).to(dtype).transpose(1, 2).requires_grad_()
+              for x in (q, k, v)]
+    out = flash_attention_bthd(*leaves, causal=causal)
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == \
+        "FlashAttentionBackward"
+    (out.float() * torch.from_numpy(co).transpose(1, 2)).sum().backward()
+    return [x.grad.transpose(1, 2).float().numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("h, kv", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_reference_kernel(d, h, kv, causal, dtype):
+    q, k, v = _qkv(1, h, kv, 32, d, seed=d + h + kv + causal)
+    co = np.random.default_rng(d + 7).standard_normal(q.shape).astype(
+        np.float32)
+    want = _reference_grads(q, k, v, co, causal=causal,
+                            dtype=getattr(jnp, dtype))
+    got = _port_grads(q, k, v, co, causal=causal,
+                      dtype=getattr(torch, dtype))
+    exact = (want if dtype == "float32" else
+             _reference_grads(q, k, v, co, causal=causal, dtype=jnp.float32))
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+        assert np.isfinite(g).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+        else:
+            rms = float(np.sqrt(np.mean(x ** 2)))
+            two_ulp = 2.0 ** -6 * np.maximum(np.maximum(np.abs(g), np.abs(w)),
+                                             rms)
+            assert bool((np.abs(g - w) <= two_ulp).all()), name
 
 
 @pytest.mark.parametrize("d, ok", [(80, True), (96, True), (48, False),

@@ -22,10 +22,12 @@ on a bank with an empty block-row, a block-row split over many units, 32
 block-rows, columns out of order or repeated, and NaN padding; the flash cases GQA 8:1 at d = 128 with T = 200 (not a
 multiple of either chunk), causal and full, S != T, MHA, and bf16 (the
 tensor-core forward, dQ and dK/dV) at every head dimension of
-``budget.FLASH_BWD_HEAD_DIMS``, causal and full; both forwards also at
-head dims 80 (HuBERT-XLarge) and 96 (Phi-3-Vision), GQA and MHA, causal
-and full, ragged and not, where a backward must refuse the head dim on
-the card.  A bf16 MoE group (cuBLAS products with f32 results) agrees
+``budget.FLASH_HEAD_DIMS``, causal and full, 80 (HuBERT-XLarge) and 96
+(Phi-3-Vision) among them, GQA and MHA, ragged and not (a T of 2000 at
+both, in f32, also against autograd through ``attention_ref``'s naive
+attention in float64); a
+head dim no kernel is built for is refused before any launch.  A bf16
+MoE group (cuBLAS products with f32 results) agrees
 with the CPU's.  The counters show which kernel ran: bf16 operands the
 tensor-core ones, f32 the FMA ones.
 
@@ -328,6 +330,37 @@ def test_bsr_matmul_padding_tiles_are_not_read(cuda_device):
                                                     device=cuda_device))
 
 
+@pytest.mark.parametrize("rows", [4, 4096])
+def test_bsr_matmul_f32_x_over_bf16_tiles(cuda_device, rows):
+    """f32 activations over a bf16 model's tiles (f32 embeddings on a bf16
+    model): ``ops.bsr_matmul`` casts the tiles to f32 once per bank and the
+    kernel runs its ``rows`` schedule in f32 at any row count (``wgmma``
+    takes bf16 only); the result is f32, within 1e-4 of the plain product
+    of the same values."""
+    from repro_torch.core.pruning import block_prune
+    from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul_kernel
+    from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
+    from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    w = torch.randn((256, 512), generator=gen, device=cuda_device)
+    bc = bcsr_from_dense(block_prune(w, 0.8, (16, 16)), (16, 16))
+    bc.blocks = bc.blocks.to(torch.bfloat16)
+    x = torch.randn((2, rows // 2, 512), generator=gen, device=cuda_device)
+    before = (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches)
+    got = bsr_matmul(x, bc)
+    torch.cuda.synchronize()
+    assert (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches) \
+        == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32 and got.shape == (2, rows // 2, 256)
+    want = bsr_matmul_plain(x.reshape(rows, 512).cpu(), bc.blocks.cpu(),
+                            bc.blockcol.cpu(), bc.nblocks.cpu())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.reshape(rows, 256).cpu() - want).abs().max()) <= \
+        1e-4 * scale
+
+
 # -- BCSR matmul, the rows schedule --------------------------------------
 # (rows, dtype): bf16 at the decode row counts the schedule serves, f32 at
 # the f32 decode step's 2 rows, the consistency forward's 128 and a ragged
@@ -562,6 +595,17 @@ FLASH_BWD_CASES = [
     (1, 8, 2, 70, 70, 32, True, torch.bfloat16),       # d 32 causal, ragged
     (1, 4, 1, 90, 90, 64, False, torch.bfloat16),      # d 64 full, ragged
     (1, 4, 4, 130, 130, 128, False, torch.bfloat16),   # d 128 full, ragged
+    # HuBERT-XLarge's d 80 (bidirectional) and Phi-3-Vision's d 96 (causal)
+    (1, 16, 16, 2048, 2048, 80, False, torch.bfloat16),  # HuBERT heads
+    (1, 16, 16, 2000, 2000, 80, False, torch.bfloat16),  # ragged
+    (1, 32, 32, 512, 512, 96, True, torch.bfloat16),     # Phi-3 heads
+    (1, 32, 8, 300, 300, 96, True, torch.bfloat16),      # GQA 4:1, ragged
+    (1, 4, 2, 130, 130, 80, True, torch.bfloat16),       # d 80 causal, GQA
+    (1, 4, 4, 200, 150, 96, False, torch.bfloat16),      # d 96 full, S != T
+    (1, 16, 16, 512, 512, 80, False, torch.float32),     # FMA, HuBERT heads
+    (1, 4, 2, 130, 130, 80, True, torch.float32),        # FMA, GQA, ragged
+    (1, 32, 32, 256, 256, 96, True, torch.float32),      # FMA, Phi-3 heads
+    (1, 8, 2, 200, 200, 96, False, torch.float32),       # FMA, full, ragged
 ]
 # f32: max |error| / rms; bf16: beyond one bf16 rounding, over the rms
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -651,38 +695,86 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
             assert _grad_excess(c, w, dtype) > tol, name
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [48, 112])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_flash_backward_refuses_head_dims_80_and_96(cuda_device, d, dtype):
-    """The forward kernels take head dims 80 and 96, the backward ones do
-    not yet: on the card the dQ and dK/dV launchers raise before any
-    launch, and autograd through ``flash_attention_bthd`` raises too (no
-    fallback to the plain backward)."""
+def test_flash_backward_refuses_unlisted_head_dims(cuda_device, d, dtype):
+    """A head dim no backward kernel is built for: on the card the dQ and
+    dK/dV launchers raise before any launch (no fallback to the plain
+    backward)."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
 
+    assert d not in budget.FLASH_HEAD_DIMS
     gen = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = (torch.randn((1, 70, h, d), generator=gen, device=cuda_device)
-               .to(dtype).requires_grad_() for h in (4, 2, 2))
-    out = flash_attention_bthd(q, k, v, causal=True)
+               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
     before = (fk.flash_attention_bwd_dq.launches,
               fk.flash_attention_bwd_dq.tc_launches,
               fk.flash_attention_bwd_dkv.launches,
               fk.flash_attention_bwd_dkv.tc_launches)
-    with pytest.raises(ValueError, match=f"head dim {d} not one of"):
-        out.sum().backward()
-    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
-    lse = torch.zeros(qt.shape[:3], device=cuda_device)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
     for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
         with pytest.raises(ValueError, match=f"head dim {d} not one of"):
-            fn(qt, kt, vt, qt, lse, lse, sc=0.1, causal=True)
+            fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
     assert before == (fk.flash_attention_bwd_dq.launches,
                       fk.flash_attention_bwd_dq.tc_launches,
                       fk.flash_attention_bwd_dkv.launches,
                       fk.flash_attention_bwd_dkv.tc_launches)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def _attention_f64(q, k, v, *, causal):
+    """``attention_ref``'s naive softmax attention in float64 (it computes
+    in f32): q (B, H, T, d), k/v (B, KV, S, d) -> (B, H, T, d)."""
+    g = q.shape[1] // k.shape[1]
+    k, v = (x.double().repeat_interleave(g, dim=1) for x in (k, v))
+    logits = torch.matmul(q.double(), k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        t, s = logits.shape[-2:]
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.matmul(torch.softmax(logits, dim=-1), v)
+
+
+@pytest.mark.parametrize("d, causal", [(80, False), (96, True)])
+def test_flash_backward_at_80_and_96_matches_attention_ref(cuda_device, d,
+                                                           causal):
+    """Autograd through ``flash_attention_bthd`` at a ragged T of 2000 in
+    f32 (the FMA kernels, whose counters at the head dim move) against
+    autograd through ``attention_ref``'s naive attention in float64 on the
+    same values: each gradient within 1e-4 of its largest magnitude
+    (``chip_smoke.py``'s rule for the FMA kernels: causal dV's first keys
+    sum up to 2000 terms and are far above its rms, and their f32 rounding
+    reaches ~1.1e-4 of the rms).  (The f32 oracle itself sums by another
+    formula, sum(p dp) for delta; in bf16 the kernels' O is rounded before
+    delta = rowsum(dO O), and the bf16 cases hold the kernels to the plain
+    backward on the same O, above.)"""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 2000)
+    leaves = [torch.randn((1, 2000, h, d), generator=gen, device=cuda_device)
+              .requires_grad_() for h in (8, 4, 4)]
+    co = torch.randn((1, 2000, 8, d), generator=gen, device=cuda_device)
+    key = ("fma", d)
+    before = (fk.flash_attention_bwd_dq.by_head_dim.get(key, 0),
+              fk.flash_attention_bwd_dkv.by_head_dim.get(key, 0))
+    (flash_attention_bthd(*leaves, causal=causal) * co).sum().backward()
+    torch.cuda.synchronize()
+    assert (fk.flash_attention_bwd_dq.by_head_dim[key],
+            fk.flash_attention_bwd_dkv.by_head_dim[key]) == (
+                before[0] + 1, before[1] + 1)
+    ref = [x.detach().double().transpose(1, 2).requires_grad_()
+           for x in leaves]
+    (_attention_f64(*ref, causal=causal).transpose(1, 2) * co.double()) \
+        .sum().backward()
+    for name, x, w in zip(("dq", "dk", "dv"), leaves, ref):
+        got = x.grad.transpose(1, 2)
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got.double() - w.grad).abs().max())
+        assert err <= 1e-4 * float(w.grad.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
 def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
     """The tensor-core dK/dV sums each kv head's G query heads in a fixed
     order, with no atomics: two launches on the same operands agree bit for
@@ -709,7 +801,7 @@ def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
 def test_flash_dq_is_bit_identical_across_launches(cuda_device, d):
     """The tensor-core dQ writes each element from one thread, with no
     atomics: two launches on the same operands agree bit for bit (GQA
@@ -1121,3 +1213,24 @@ def test_slice_server_on_the_card(cuda_device):
             np.testing.assert_allclose(
                 r.result, want, rtol=0,
                 atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def test_quickstart_on_the_card_matches_the_cpu(cuda_device, capsys):
+    """``examples/quickstart.py`` on the card: the ELL conv and the BCSR
+    matmul kernels launch, and every method's output is within the CNN
+    methods' bound (1e-4 x max(1, max |dense|)) of the same script's
+    ``dense`` output on the CPU."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul_kernel
+    from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
+
+    want = quickstart.main(["--device", "cpu"])
+    before = (sparse_conv_kernel.launches, bsr_matmul_kernel.launches)
+    got = quickstart.main(["--device", "cuda"])
+    assert "quickstart OK" in capsys.readouterr().out
+    assert (sparse_conv_kernel.launches - before[0],
+            bsr_matmul_kernel.launches - before[1]) == (1, 1)
+    for name, out in got.items():
+        ref = want["dense linear" if "linear" in name else "dense  (cuDNN)"]
+        limit = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= limit, name

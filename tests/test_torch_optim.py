@@ -22,6 +22,7 @@ from repro.optim import schedule as ref_schedule  # noqa: E402
 from repro_torch.models.transformer import _tensor  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,  # noqa: E402
                                clip_by_global_norm, cosine_schedule)
+from repro_torch.optim import adamw as adamw_mod  # noqa: E402
 from repro_torch.tree import tree_map, tree_paths  # noqa: E402
 
 F32_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -126,10 +127,10 @@ def test_adamw_optimizes_quadratic():
 
 
 def test_updated_trees_are_freed_without_the_cycle_collector():
-    """A state that no name holds any more is freed at once: the trees
-    ``adamw_update`` builds are in no reference cycle, so the old state of
-    a train step does not wait for Python's cyclic collector (on the card,
-    a whole extra copy of params and moments)."""
+    """A state that no name holds any more is freed at once: the update is
+    written into the given trees, and nothing it builds holds them in a
+    reference cycle, so a train step's state does not wait for Python's
+    cyclic collector (on the card, a whole copy of params and moments)."""
     import gc
     import weakref
 
@@ -140,9 +141,10 @@ def test_updated_trees_are_freed_without_the_cycle_collector():
     gc.disable()
     try:
         new_p, new_opt, _ = adamw_update(params, grads, opt, cfg, 1e-3)
+        assert new_p is params and new_opt["m"] is opt["m"]
         watch = [weakref.ref(x) for _, x in tree_paths(new_p)
                  + tree_paths(new_opt["m"])]
-        del new_p, new_opt
+        del new_p, new_opt, params, opt
         assert all(w() is None for w in watch)
     finally:
         gc.enable()
@@ -155,3 +157,41 @@ def test_bf16_numpy_leaves_cross_as_their_bits():
     t = _tensor(a, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+def test_update_is_written_in_place_slice_by_slice(monkeypatch, state_dtype,
+                                                   grad_clip):
+    """``adamw_update`` writes into the given params and moments, leaves
+    the gradients as they were, and cutting each leaf into slices of at
+    most 5 elements (whole rows; a longer row alone; a 0-d leaf as one)
+    changes no bit against one slice a leaf, three steps running."""
+    dtype = getattr(torch, state_dtype)
+    cfg = AdamWConfig(lr=1e-2, grad_clip=grad_clip, state_dtype=state_dtype)
+    rng = np.random.default_rng(11)
+
+    def draw(scale):
+        return {**_tree(rng, scale), "s": np.asarray(scale, np.float32)}
+
+    p0 = draw(1.0)
+    p, q = _torch(p0, dtype), _torch(p0, dtype)
+    opt, opt_q = adamw_init(p, cfg), adamw_init(q, cfg)
+    for step in range(3):
+        g = draw(3.0)
+        lr = torch.tensor(1e-2 * (step + 1) / 3, dtype=torch.float32)
+        monkeypatch.setattr(adamw_mod, "UPDATE_SLICE", 1 << 24)
+        p, opt, norm = adamw_update(p, _torch(g, dtype), opt, cfg, lr)
+        given = [x for t in (q, opt_q["m"], opt_q["v"])
+                 for _, x in tree_paths(t)]
+        gq = _torch(g, dtype)
+        monkeypatch.setattr(adamw_mod, "UPDATE_SLICE", 5)
+        q, opt_q, norm_q = adamw_update(q, gq, opt_q, cfg, lr)
+        assert [x for t in (q, opt_q["m"], opt_q["v"])
+                for _, x in tree_paths(t)] == given  # the same tensors
+        assert torch.equal(norm, norm_q)
+        assert int(opt_q["step"]) == int(opt["step"]) == step + 1
+        for a, b in ((p, q), (opt["m"], opt_q["m"]), (opt["v"], opt_q["v"]),
+                     (_torch(g, dtype), gq)):
+            for (path, x), (_, y) in zip(tree_paths(a), tree_paths(b)):
+                assert torch.equal(x, y), path

@@ -12,8 +12,23 @@ parameter and AdamW moment, are held to 1e-4 of max(1, max |x|) of the
 reference's (f32 throughout; sums run in other orders).  The same with 2
 microbatches, and ``loss_fn`` alone.
 
+At head dims 80 and 96 (``ENC80``, a bidirectional encoder, and
+``VLM96``, a causal VLM backbone: 2 layers, 2 heads, d_model 2 d, f32, on
+the data pipeline's embeddings) the same 3 steps under ``flash``.
+
+Remat: under ``flags.REMAT`` ``dots`` and ``full`` the port takes the same
+3 steps as the reference under its ``set_remat`` (1e-4, as above), and on
+the CPU the three policies give bit-identical losses and gradients on a
+dense, a MoE and an ssm smoke config; ``dots`` keeps the projections'
+outputs (no ``aten.mm`` of the forward runs again in the backward, where
+``full`` reruns them all).  MTP: on ``deepseek-v3-671b``'s f32 smoke
+config ``params_from_reference`` carries ``mtp``, and ``loss_fn`` (with its
+two-ahead term) and every gradient match the reference's within 1e-4.
+
 Port-only: the port's own ``test_training_reduces_loss_on_learnable_data``,
-and ``launch.train`` on the CPU with a checkpoint directory, resumed.
+and ``launch.train`` on the CPU with a checkpoint directory, resumed, with
+``--remat full``, on DeepSeek-V3 (MTP) and on the bf16 encoder and VLM
+smoke configs (f32 embeddings).
 """
 import dataclasses
 
@@ -45,6 +60,14 @@ TINY = dict(name="sys-lm", family="dense", n_layers=2, d_model=128,
             vocab=256, n_heads=4, n_kv_heads=4, head_dim=32, d_ff=256,
             dtype="float32")
 OPT = dict(lr=3e-3)
+# the flash backward's head dims 80 and 96 at 2 layers, 2 heads
+ENC80 = dict(name="enc80", family="encoder", n_layers=2, d_model=160,
+             vocab=64, n_heads=2, n_kv_heads=2, head_dim=80, d_ff=320,
+             mlp_act="gelu", causal=False, dtype="float32")
+VLM96 = dict(name="vlm96", family="vlm", n_layers=2, d_model=192,
+             vocab=256, n_heads=2, n_kv_heads=2, head_dim=96, d_ff=384,
+             dtype="float32")
+NARROW = {"tiny": TINY, "enc80": ENC80, "vlm96": VLM96}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,8 +88,8 @@ def attn_impl(request):
 
 
 def _cfgs(arch):
-    if arch == "tiny":
-        return RefModelConfig(**TINY), ModelConfig(**TINY)
+    if arch in NARROW:
+        return RefModelConfig(**NARROW[arch]), ModelConfig(**NARROW[arch])
     return (dataclasses.replace(ref_configs.get_config(arch, smoke=True),
                                 dtype="float32"),
             dataclasses.replace(configs.get_config(arch, smoke=True),
@@ -109,8 +132,10 @@ def _train_both(arch, microbatches):
     step = steps.make_train_step(cfg, AdamWConfig(**OPT),
                                  num_microbatches=microbatches,
                                  total_steps=10)
+    embed_dim = cfg.d_model if cfg.family in ("vlm", "encoder") else 0
     ds = SyntheticLMDataset(DataConfig(seq_len=SEQ, global_batch=B,
-                                       vocab=cfg.vocab, seed=0))
+                                       vocab=cfg.vocab, seed=0,
+                                       embed_dim=embed_dim))
     losses = []
     for i in range(STEPS):
         batch = ds.batch_for(i)
@@ -132,6 +157,108 @@ def test_train_steps_match_reference(arch, attn_impl):
 
 def test_microbatched_train_steps_match_reference(attn_impl):
     _train_both("tiny", microbatches=2)
+
+
+@pytest.fixture
+def flash():
+    ref_flags.set_attn_impl("flash")
+    flags.set_attn_impl("flash")
+    yield
+    ref_flags.set_attn_impl("chunked")
+    flags.set_attn_impl("chunked")
+
+
+@pytest.mark.parametrize("arch", ["enc80", "vlm96"])
+def test_train_steps_at_head_dims_80_and_96_match_reference(arch, flash):
+    _, cfg = _cfgs(arch)
+    assert cfg.head_dim in (80, 96) and cfg.d_model == 2 * cfg.head_dim
+    _train_both(arch, microbatches=1)
+
+
+@pytest.fixture(params=["dots", "full"])
+def remat(request):
+    ref_flags.set_remat(request.param)
+    flags.set_remat(request.param)
+    yield request.param
+    ref_flags.set_remat("none")
+    flags.set_remat("none")
+
+
+def test_remat_train_steps_match_reference(remat):
+    _train_both("yi-9b", microbatches=1)
+
+
+def _grads_under(policy, cfg, params, batch):
+    flags.set_remat(policy)
+    try:
+        return steps.loss_and_grads(cfg, params, batch)
+    finally:
+        flags.set_remat("none")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "olmoe-1b-7b", "mamba2-2.7b"])
+def test_remat_policies_are_bit_identical(arch):
+    """The recomputed forward is the same arithmetic: the loss and every
+    gradient are the same bits under none, dots and full."""
+    _, cfg = _cfgs(arch)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMDataset(
+        DataConfig(seq_len=SEQ, global_batch=2, vocab=cfg.vocab,
+                   seed=1)).batch_for(0).items()}
+    loss0, g0 = _grads_under("none", cfg, params, batch)
+    for policy in ("dots", "full"):
+        loss, g = _grads_under(policy, cfg, params, batch)
+        assert torch.equal(loss, loss0), policy
+        assert len(g) == len(g0)
+        for a, b in zip(g, g0):
+            assert torch.equal(a, b), policy
+
+
+def test_dots_keeps_the_projections_and_full_recomputes_them():
+    """Under ``dots`` the backward reruns no forward ``aten.mm`` (the
+    projections' outputs are kept), under ``full`` it reruns every one,
+    and under ``none`` nothing is rerun: counted by a dispatch mode around
+    ``backward()``, against the mm launches of the backward proper."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    _, cfg = _cfgs("tiny")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 16), dtype=torch.int64)
+    counts = {}
+    for policy in ("none", "dots", "full"):
+        flags.set_remat(policy)
+        try:
+            leaves = [p.requires_grad_() for _, p in tree_paths(params)]
+            fwd = CountMM()
+            with fwd:
+                loss = T.loss_fn(params, toks, toks, cfg)
+            bwd = CountMM()
+            with bwd:
+                loss.backward()
+            counts[policy] = (fwd.n, bwd.n)
+        finally:
+            flags.set_remat("none")
+            for p in leaves:
+                p.grad = None
+                p.requires_grad_(False)
+    # a layer's projections are 7 mm's (wq, wk, wv, wo, gate, up, down;
+    # the head is outside the stack); ``full`` reruns each but the block's
+    # last (down), whose output no backward needs: the recompute stops
+    # once it has every saved tensor
+    assert cfg.mlp_act == "swiglu"
+    assert counts["none"][0] == counts["dots"][0] == counts["full"][0]
+    assert counts["dots"][1] == counts["none"][1]
+    assert counts["full"][1] == counts["none"][1] + cfg.n_layers * (7 - 1)
 
 
 @pytest.mark.parametrize("arch", ["tiny", "yi-9b"])
@@ -171,14 +298,89 @@ def test_unported_options_raise():
     _, cfg = _cfgs("tiny")
     with pytest.raises(NotImplementedError, match="multi-chip slice"):
         steps.make_train_step(cfg, AdamWConfig(), compress_cross_pod=True)
-    mtp = dataclasses.replace(cfg, mtp_depth=1)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.loss_fn(params, toks, toks, mtp)
-    with pytest.raises(NotImplementedError, match="later slice"):
+
+
+@pytest.fixture(scope="module")
+def mtp_model():
+    ref_cfg, cfg = _cfgs("deepseek-v3-671b")
+    assert cfg.mtp_depth == 1
+    ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(3))
+    return ref_cfg, cfg, ref_params, T.params_from_reference(
+        _np(ref_params), cfg, "cpu")
+
+
+def test_mtp_params_carry_over(mtp_model):
+    """``params_from_reference`` carries the reference's ``mtp`` head
+    leaf for leaf, and the port's ``init_params`` draws the same tree."""
+    _, cfg, ref_params, params = mtp_model
+    assert sorted(params["mtp"]) == sorted(ref_params["mtp"]) == [
+        "block", "norm", "proj"]
+    want = dict(jax.tree_util.tree_flatten_with_path(ref_params["mtp"])[0])
+    for (path, leaf), (rpath, rleaf) in zip(
+            tree_paths(params["mtp"]),
+            jax.tree_util.tree_flatten_with_path(ref_params["mtp"])[0]):
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(rleaf))
+    assert len(want) == len(tree_paths(params["mtp"]))
+    own = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    drawn = dict(tree_paths(own))
+    for path, leaf in tree_paths(params):
+        assert drawn[path].shape == leaf.shape, path
+        assert drawn[path].dtype == leaf.dtype, path
+    assert len(drawn) == len(tree_paths(params))
+
+
+def test_mtp_loss_and_grads_match_reference(mtp_model):
+    ref_cfg, cfg, ref_params, params = mtp_model
+    batch = SyntheticLMDataset(DataConfig(seq_len=SEQ, global_batch=2,
+                                          vocab=cfg.vocab,
+                                          seed=5)).batch_for(0)
+    toks, labels = (jnp.asarray(batch[k]) for k in ("tokens", "labels"))
+    want, ref_grads = jax.value_and_grad(
+        lambda p: RT.loss_fn(p, toks, labels, ref_cfg))(ref_params)
+    got, grads = steps.loss_and_grads(
+        cfg, params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(float(got), float(want), "loss")
+    # the term is there: the embeds entry (no MTP) gives a smaller loss
+    base = T.loss_fn(params, None, torch.from_numpy(batch["labels"]), cfg,
+                     embeds=T.embed(params, torch.from_numpy(batch["tokens"]),
+                                    cfg))
+    assert float(got) > float(base)
+    want_grads = dict(tree_paths(T.params_from_reference(
+        _np(ref_grads), cfg, "cpu")))
+    paths = [path for path, _ in tree_paths(params)]
+    assert any(path.startswith("mtp/") for path in paths)
+    for path, g in zip(paths, grads):
+        _close(g.numpy(), want_grads[path].numpy(), f"grad {path}")
+
+
+def test_train_cli_trains_with_the_mtp_term(capsys):
+    train.main(["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
+                "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert "trained 2 steps" in capsys.readouterr().out
+
+
+def test_train_cli_with_remat_full(capsys):
+    try:
         train.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
-                    "--remat", "full"])
+                    "--steps", "2", "--batch", "2", "--seq", "16",
+                    "--remat", "full", "--attn-impl", "flash"])
+    finally:
+        flags.set_remat("none")
+        flags.set_attn_impl("chunked")
+    assert "trained 2 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "phi-3-vision-4.2b"])
+def test_train_cli_trains_bf16_model_on_f32_embeds(arch, capsys):
+    """The bf16 smoke configs on the data pipeline's f32 embeddings (the
+    repaired fault: the port raised on mixed dtypes)."""
+    try:
+        train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "32",
+                    "--attn-impl", "flash"])
+    finally:
+        flags.set_attn_impl("chunked")
+    assert "trained 2 steps" in capsys.readouterr().out
 
 
 def test_training_reduces_loss_on_learnable_data():
