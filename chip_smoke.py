@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pruned-CNN inference and serving, Yi-9B serving
 and Yi-9B training paths, OLMoE-1B-7B serving, the other model families'
-serving and the families' training on one NVIDIA card.
+serving, the families' training and the multi-chip path on one NVIDIA
+card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -324,7 +325,49 @@ Phases (any failure exits non-zero and prints no result):
               2 layers as the train consistency phase holds Yi-9B (the FMA
               backward at d 80 and 96).  Every step counted; each line
               carries ms a step, tokens/s, peak and state GB, the losses.
-15. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
+15. mesh    -- the multi-chip path (``distributed/``, the meshed
+              ``make_train_step``, ``moe_ep.py``) on this one card, flash
+              attention, weights from ``--seed``.  (a) Qwen1.5-0.5B at full
+              width and depth (24 layers, bf16, B 4 x T 2048): 3 steps of
+              the meshed step in a world of one over NCCL on a (1, 1)
+              ("data", "model") mesh, each counted (24 tensor-core flash
+              forwards, dQ, dK/dV and group sums), loss and grad norm
+              within 1e-5 relative of the meshless step from the same
+              state (the line says whether bit-identical).  OLMoE-1B-7B's
+              one-rank forward through the gather dispatch (B 1 x T 2048),
+              its capacity factor raised through 1.25, 2, 4, 8 until no
+              assignment drops.  Then two ranks spawned on the card over
+              gloo (NCCL refuses two ranks on one device), the kernels
+              loaded from the build above, a join timeout, a rank's failure
+              the run's: (b) Qwen1.5-0.5B's 3 steps on a (1, 2) mesh (tp
+              mode A, 8 heads a rank), losses within 1e-3 and grad norms
+              within 2e-3 relative of the meshless ones; OLMoE-1B-7B's
+              forward with ``MOE_IMPL = "ep"`` (32 experts a rank, 16
+              tensor-core flash forwards a rank), its capacity raised the
+              same way until the world drops nothing; without drops it is
+              the gather forward's function, so its logits may lie at most
+              2x as far (relative norm) from the same model's f32 forward
+              as the one-rank bf16 gather forward's do (bf16 over 16 random
+              layers puts either a few per cent away); then each rank's
+              projections pruned to BCSR at 0.8 and ``make_prefill_step``
+              run (64 ``bsr_matmul`` a rank on its shards); then both again
+              in f32 on the ranks' shards cast (the FMA flash forward, f32
+              tiles), no drop: the EP logits within 1e-4 (relative norm) of
+              the one-rank f32 forward's, the sparse prefill's last logits
+              within 1e-4 of the one-rank f32 prefill on the same pruned
+              weights (gathered whole, dense); (c) Qwen1.5-0.5B's 3 steps on
+              a (2, 1, 1) ("pod", "data", "model") mesh, uncompressed
+              (losses and grad norms as (b)) and with ``compress_cross_pod``
+              (the int8 all-reduce): every compressed gradient leaf of the
+              first step within its int8 bound of the uncompressed one
+              (``_int8_error``), the step's grad norm within 1e-3 of the
+              compressed gradient's, the losses within 1e-2 of the
+              uncompressed ones, and both pods' states bit-equal after the
+              steps.
+              Every step and forward counted in each rank; the lines carry
+              step times, peak memory a rank and the card, and a line of
+              each rank's launches.
+16. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
 
@@ -547,6 +590,36 @@ FAMILY_TRAIN_SHAPE = (1, 2048)
 FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_TIMED = 1, 3
 DEEPSEEK_TRAIN_LAYERS = 1
 REMAT_POLICIES = ("none", "dots", "full")
+# The mesh: Qwen1.5-0.5B trained at full width and depth (B 4 x T 2048,
+# bf16) on (1, 1) over NCCL, (1, 2) and (2, 1, 1) over gloo; OLMoE-1B-7B's
+# EP forward at B 1 x T 2048 on (1, 2)
+MESH_ARCH = "qwen1.5-0.5b"
+MESH_TRAIN_SHAPE = (4, 2048)
+MESH_STEPS = 3
+MESH_MOE_SHAPE = (1, 2048)
+MESH_CAPACITIES = (1.25, 2.0, 4.0, 8.0)  # raised until a path drops none
+MESH_SPARSITY = 0.8
+MESH_ONE_RTOL = 1e-5    # the (1, 1) mesh against the meshless step
+# two ranks' bf16 partial sums in another order, against the meshless
+# step: losses (5.2e-5 seen on (1, 2), 1.0e-5 on (2, 1, 1)) and grad norms
+# (6.5e-4 and 5.4e-5 seen)
+MESH_TP_RTOL = 1e-3
+MESH_GNORM_RTOL = 2e-3
+MESH_INT8_RTOL = 1e-2   # the loss under int8-rounded gradients
+# the int8 step's grad norm against the norm of the compressed gradient
+# computed apart from the step (the same state and batch)
+MESH_INT8_NORM_RTOL = 1e-3
+# the EP path's logits (bf16) may lie at most this many times as far from
+# the f32 forward's (relative norm) as the one-rank bf16 gather forward's
+MESH_LOGIT_FACTOR = 2.0
+# f32 on the two ranks against f32 on one (relative norm): the EP forward's
+# logits and the sparse prefill's last logits (5e-7 on the CPU)
+MESH_F32_RTOL = 1e-4
+MESH_BLOCK = (16, 16)   # sparsify_params's block: the ranks' pruning
+# of the sparse prefill's 16 x 2048 token updates, how many may lie past
+# MESH_F32_RTOL: tokens whose top-8 routing sits on a near-tie
+MESH_ROUTING_FLIPS = 16
+MESH_JOIN_S = 600       # the two ranks' world, start to join
 
 
 class SmokeFailure(Exception):
@@ -3584,6 +3657,681 @@ def families_phase(torch, mods, device, seed):
     return sum_counts(runs), {"bsr_matmul": kernel_rows}
 
 
+# ---------------------------------------------------------------------------
+# the mesh: the multi-chip path on one card (a world of one over NCCL; two
+# ranks that share the card over gloo)
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_batch(mods, cfg, seed):
+    b, t = MESH_TRAIN_SHAPE
+    return mods["SyntheticLMDataset"](mods["DataConfig"](
+        seq_len=t, global_batch=b, vocab=cfg.vocab, seed=seed + 90)
+    ).batch_for(0)
+
+
+def _mesh_train(torch, mods, cfg, batch, seed, device, mesh=None,
+                compress=False) -> dict:
+    """``MESH_STEPS`` counted ``make_train_step`` steps of ``cfg`` (flash
+    attention) from the state drawn from ``seed``, placed on ``mesh`` (by
+    ``state_placements``, under the default rules) or meshless: the
+    losses, grad norms, ms a step, peak GB and the launches."""
+    flags, S = mods["flags"], mods["S"]
+    flags.set_attn_impl("flash")
+    opt_cfg = mods["AdamWConfig"]()
+    rules = (S.use_rules(S.default_rules(mesh), mesh) if mesh is not None
+             else contextlib.nullcontext())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with rules:
+            state = mods["init_state"](cfg, opt_cfg, torch.Generator(
+                device=device).manual_seed(seed + 91), device)
+            if mesh is not None:
+                tp = S.axis_size("model")
+                state = mods["place_state"](state, mods["state_placements"](
+                    cfg, mesh, tp), mesh)
+                torch.cuda.empty_cache()
+            step = mods["make_train_step"](cfg, opt_cfg,
+                                           compress_cross_pod=compress,
+                                           total_steps=MESH_STEPS)
+            losses, gnorms, ms, runs = [], [], [], []
+            for _ in range(MESH_STEPS):
+                reset_counts(mods)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                runs.append(read_counts(mods))
+            digest = (_state_digest(torch, mods, state) if mesh is not None
+                      else None)
+            del state
+    finally:
+        flags.set_attn_impl("chunked")
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"mesh train {cfg.name}: losses {losses}, grad norms {gnorms}")
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "runs": runs, "digest": digest}
+
+
+def _state_digest(torch, mods, state) -> list:
+    """This rank's shard of every leaf of a train state as two integers
+    over its bits (their sum and the sum of their squares, in int64):
+    ranks that hold the same shards (pod replicas) give the same list."""
+    out = []
+    for _, x in mods["tree_paths"](state):
+        t = (x.to_local() if hasattr(x, "to_local") else x).contiguous()
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32
+                      if t.element_size() == 4 else torch.int64
+                      ).to(torch.int64)
+        out.append([int(bits.sum()), int((bits * bits).sum())])
+    return out
+
+
+def _int8_error(torch, mods, cfg, batch, seed, device, mesh) -> dict:
+    """The compressed cross-pod exchange of the meshed step, held leaf by
+    leaf, from the state ``_mesh_train`` draws from ``seed`` and its first
+    batch: the gradient of ``steps.reduce_grads`` compressed (Gc) and at
+    full precision (G).  Pod p's mean gradient x_p is quantised with scale
+    s_p = max|x_p| / 127 and the int8 sum dequantised with the mean scale
+    s, so an element of Gc lies within (1/n) sum_p (s_p / 2 + 127 |s -
+    s_p|) of G's, plus the bf16 rounding of both (2^-8 of each); returns
+    the largest error over that bound (at most 1), ||Gc|| and ||G||."""
+    S, st, C = mods["S"], mods["steps"], mods["C"]
+    flags = mods["flags"]
+    flags.set_attn_impl("flash")
+    opt_cfg = mods["AdamWConfig"]()
+    try:
+        with S.use_rules(S.default_rules(mesh), mesh):
+            state = mods["init_state"](cfg, opt_cfg, torch.Generator(
+                device=device).manual_seed(seed + 91), device)
+            state = mods["place_state"](state, mods["state_placements"](
+                cfg, mesh, S.axis_size("model")), mesh)
+            leaves, rebuild = mods["tree_flatten"](state["params"])
+            pls = [x.placements for x in leaves]
+            local = rebuild([x.to_local() for x in leaves])
+            del state
+            _, grads = st.loss_and_grads(cfg, local, mods["place_batch"](
+                batch, device, mesh))
+            n_pod = S.axis_size("pod", mesh)
+            axes = st.shard_axes(pls, mesh)
+            gc = st.reduce_grads(grads, pls, mesh, True)
+            g = st.reduce_grads(grads, pls, mesh, False)
+            pod_sum = st._sum_replicated(list(grads), pls, mesh,
+                                         skip=("pod",))
+            del grads
+            amax = torch.stack([C.value_max(torch.amax(torch.abs(
+                x.float())) * n_pod, a) for x, a in zip(pod_sum, axes)])
+            del pod_sum
+            s_p = C.all_gather((torch.clamp(amax, min=1e-12) / 127.0)[None],
+                               0, "pod")
+            s = s_p.mean(0)
+            bound = (s_p / 2 + 127 * (s - s_p).abs()).sum(0) / n_pod
+            over = []
+            for i, (a, b) in enumerate(zip(gc, g)):
+                a, b = a.float(), b.float()
+                e = ((a - b).abs() - 2.0**-8 * (a.abs() + b.abs())).amax()
+                over.append(C.value_max(e, axes[i]) / bound[i])
+            res = {"max_over_bound": float(torch.stack(over).max()),
+                   "gc_norm": float(st.mesh_norm(gc, pls, mesh)),
+                   "g_norm": float(st.mesh_norm(g, pls, mesh))}
+            del gc, g, local
+    finally:
+        flags.set_attn_impl("chunked")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_inputs(torch, mods, seed, device):
+    cfg = mods["configs"].get_config(MOE_ARCH)
+    b, t = MESH_MOE_SHAPE
+    tokens = torch.randint(0, cfg.vocab, (b, t), device=device,
+                           generator=torch.Generator(
+                               device=device).manual_seed(seed + 95))
+    params = mods["T"].init_params(cfg, torch.Generator(
+        device=device).manual_seed(seed + 94), device)
+    return cfg, tokens, params
+
+
+def mesh_moe_reference(torch, mods, device, seed):
+    """OLMoE-1B-7B's one-rank forward through the gather dispatch, B 1 x
+    T 2048, its capacity factor raised through ``MESH_CAPACITIES`` until no
+    assignment drops; and the same model's f32 forward (params cast, the
+    last factor: an expert's capacity is every token): (the bf16 logits,
+    the f32 logits, on the host, the factor, the drops at each factor
+    tried)."""
+    flags = mods["flags"]
+    cfg, tokens, params = _moe_inputs(torch, mods, seed, device)
+    flags.set_attn_impl("flash")
+    tried = {}
+    try:
+        for cf in MESH_CAPACITIES:
+            flags.set_moe_capacity(cf)
+            with counted_drops(mods) as drops, torch.no_grad():
+                logits = mods["T"].forward(params, tokens, cfg)[0]
+            tried[cf] = int(sum(int(d) for d in drops))
+            if not tried[cf]:
+                break
+        check(not tried[cf], f"mesh moe: the gather path still drops "
+              f"{tried} at every capacity factor tried")
+        out = logits.cpu()
+        del logits
+        flags.set_moe_capacity(MESH_CAPACITIES[-1])
+        p32 = mods["tree_map"](lambda x: x.float(), params)
+        del params
+        with counted_drops(mods) as drops, torch.no_grad():
+            logits = mods["T"].forward(p32, tokens, mods["dc"].replace(
+                cfg, dtype="float32"))[0]
+        check(not int(sum(int(d) for d in drops)),
+              "mesh moe: the f32 forward dropped assignments")
+        out32 = logits.cpu()
+        del p32, logits
+    finally:
+        flags.set_moe_capacity(1.25)
+        flags.set_attn_impl("chunked")
+    torch.cuda.empty_cache()
+    return out, out32, cf, tried
+
+
+def _set_path(tree, path: str, value) -> None:
+    """Replace the leaf at ``path`` (``tree_paths``'s form) in place."""
+    *parts, last = path.split("/")
+    for p in parts:
+        tree = tree[int(p)] if isinstance(tree, list) else tree[p]
+    if isinstance(tree, list):
+        tree[int(last)] = value
+    else:
+        tree[last] = value
+
+
+def mesh_sparse_reference(torch, mods, device, seed, pruned, layers):
+    """OLMoE-1B-7B in f32 on one rank (B 1 x T 2048, the last capacity
+    factor, no drop) with the pruned projections the two ranks ran as
+    BCSR shards (``pruned``, whole, by tree path) as dense weights: each
+    layer run on the two ranks' input to it (``layers``: (input, output)
+    pairs), and each token's update (output - input) held to theirs
+    (relative norm a row); and the whole prefill.  Returns (the rows'
+    errors, all layers, on the host; the prefill's last logits)."""
+    flags, T = mods["flags"], mods["T"]
+    cfg, tokens, params = _moe_inputs(torch, mods, seed, device)
+    for k, w in pruned.items():
+        _set_path(params, k, w.to(device))
+    p32 = mods["tree_map"](lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = mods["dc"].replace(cfg, dtype="float32")
+    descs = T.layer_descs(cfg32)
+    b, t = tokens.shape
+    pos = torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
+    flags.set_attn_impl("flash")
+    flags.set_moe_capacity(MESH_CAPACITIES[-1])
+    errs = []
+    try:
+        with counted_drops(mods) as drops, torch.no_grad():
+            for i, (x, y) in enumerate(layers):
+                x = x.to(device)
+                want = T._layer_fwd(cfg32, descs[i], p32["layers"][i], x,
+                                    pos, None, None, i) - x
+                got = y.to(device) - x
+                errs.append(((got - want).norm(dim=-1)
+                             / want.norm(dim=-1)).reshape(-1).cpu())
+                del x, want, got
+            last, _ = mods["make_prefill_step"](cfg32)(p32,
+                                                       {"tokens": tokens})
+        check(not int(sum(int(d) for d in drops)),
+              "mesh sparse: the one-rank f32 layers dropped assignments")
+        out = (torch.cat(errs), last.cpu())
+        del p32, last
+    finally:
+        flags.set_moe_capacity(1.25)
+        flags.set_attn_impl("chunked")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _world_drops(torch, drops) -> int:
+    import torch.distributed as dist
+    total = torch.tensor(sum(int(d) for d in drops))
+    dist.all_reduce(total)
+    return int(total)
+
+
+def _mesh_ep(torch, mods, seed, device, mesh, out_dir, rank) -> dict:
+    """OLMoE-1B-7B at full width and depth on ``mesh`` (1, 2) under
+    ``MOE_IMPL = "ep"`` (32 experts a rank): the forward, counted, its
+    capacity factor raised until the EP path drops nothing (the world's
+    drops summed); rank 0 writes the gathered logits; then each rank's
+    local projections pruned to BCSR at ``MESH_SPARSITY`` and
+    ``make_prefill_step`` run, counted.  Then the same in f32 (the shards
+    cast, the last capacity factor), each counted: the forward, whose
+    logits rank 0 writes, and the sparse prefill, whose last logits rank 0
+    writes with the pruned projections gathered whole (bf16 holds them
+    exactly: the f32 weights are bf16 ones cast), for the one-rank f32
+    prefill on the same weights."""
+    flags, S, T = mods["flags"], mods["S"], mods["T"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tokens, params = _moe_inputs(torch, mods, seed, device)
+    flags.set_moe_impl("ep")
+    flags.set_attn_impl("flash")
+    tried, res = {}, {}
+    try:
+        with S.use_rules(S.default_rules(mesh), mesh):
+            pls = mods["state_placements"](cfg, mesh,
+                                           S.axis_size("model"))["params"]
+            placed = mods["place_state"](params, pls, mesh)
+            del params
+            torch.cuda.empty_cache()
+            batch = mods["place_batch"]({"tokens": tokens}, device, mesh)
+            for cf in MESH_CAPACITIES:
+                flags.set_moe_capacity(cf)
+                reset_counts(mods)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with mods["moe_ep"].count_drops() as drops, torch.no_grad():
+                    logits = T.forward(placed, batch["tokens"], cfg)[0]
+                torch.cuda.synchronize()
+                fwd_ms = (time.perf_counter() - t0) * 1e3
+                counts = read_counts(mods)
+                tried[cf] = _world_drops(torch, drops)
+                if not tried[cf]:
+                    break
+            check(not tried[cf], f"mesh ep: the EP path still drops {tried}")
+            full = S.full_tensor(logits)
+            if rank == 0:
+                torch.save(full.cpu(), os.path.join(out_dir, "ep_logits.pt"))
+            res.update(capacity=cf, drops=tried, forward_ms=fwd_ms,
+                       forward_runs=[counts],
+                       finite=bool(torch.isfinite(full).all()))
+            del logits, full
+            # block-sparse projections: each rank prunes its own shards
+            local = T.local_shards(placed)
+            mods["sparsify"](local, cfg, MESH_SPARSITY)
+            prefill = mods["make_prefill_step"](cfg)
+            reset_counts(mods)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                last, _ = prefill(local, batch)
+            torch.cuda.synchronize()
+            res["sparse_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            res["sparse_runs"] = [read_counts(mods)]
+            last = S.full_tensor(last)
+            res["sparse_finite"] = bool(torch.isfinite(last).all())
+            res["sparse_shape"] = list(last.shape)
+            del local, last
+            res.update(_mesh_ep_f32(torch, mods, cfg, placed, batch, out_dir,
+                                    rank))
+            del placed
+    finally:
+        flags.set_moe_impl("gather")
+        flags.set_moe_capacity(1.25)
+        flags.set_attn_impl("chunked")
+    torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _mesh_ep_f32(torch, mods, cfg, placed, batch, out_dir, rank) -> dict:
+    """``_mesh_ep``'s f32 part on the placed bf16 params (freed here)."""
+    S, T = mods["S"], mods["T"]
+    cfg32 = mods["dc"].replace(cfg, dtype="float32")
+    placed32 = mods["tree_map"](
+        lambda x: S.map_local(lambda t: t.float(), x), placed)
+    placed.clear()
+    torch.cuda.empty_cache()
+    mods["flags"].set_moe_capacity(MESH_CAPACITIES[-1])
+    res = {}
+    reset_counts(mods)
+    with mods["moe_ep"].count_drops() as drops, torch.no_grad():
+        logits = T.forward(placed32, batch["tokens"], cfg32)[0]
+    res["f32_forward_runs"] = [read_counts(mods)]
+    res["f32_drops"] = _world_drops(torch, drops)
+    full = S.full_tensor(logits)
+    if rank == 0:
+        torch.save(full.cpu(), os.path.join(out_dir, "ep_logits32.pt"))
+    del logits, full
+    # the sparse prefill on each rank's pruned f32 shards, and the pruned
+    # projections (sparsify_params's pruning of the same shards) whole
+    local = T.local_shards(placed32)
+    dense = dict(mods["tree_paths"](local))
+    pls = {k: x.placements for k, x in mods["tree_paths"](placed32)}
+    mods["sparsify"](local, cfg32, MESH_SPARSITY)
+    pruned = {}
+    for k, x in mods["tree_paths"](local):
+        if isinstance(x, mods["BcsrMatrix"]):
+            w = mods["block_prune"](dense[k], MESH_SPARSITY,
+                                    MESH_BLOCK).to(torch.bfloat16)
+            w = S.full_tensor(S.wrap(w, pls[k]))
+            if rank == 0:
+                pruned[k] = w.cpu()
+            del w
+    del dense
+    prefill = mods["make_prefill_step"](cfg32)
+    # each layer's input and output, gathered whole (collectives, no
+    # kernel), for the one-rank layers on the same inputs
+    io, layer_fwd = [], T._layer_fwd
+
+    def recording(cfg_, desc, p, x, *rest):
+        y = layer_fwd(cfg_, desc, p, x, *rest)
+        pair = (S.full_tensor(x), S.full_tensor(y))
+        if rank == 0:
+            io.append(tuple(t.cpu() for t in pair))
+        return y
+
+    reset_counts(mods)
+    T._layer_fwd = recording
+    try:
+        with mods["moe_ep"].count_drops() as drops, torch.no_grad():
+            last, _ = prefill(local, batch)
+    finally:
+        T._layer_fwd = layer_fwd
+    res["f32_sparse_runs"] = [read_counts(mods)]
+    res["f32_sparse_drops"] = _world_drops(torch, drops)
+    last = S.full_tensor(last)
+    if rank == 0:
+        torch.save({"last": last.cpu(), "layers": io, "pruned": pruned},
+                   os.path.join(out_dir, "sparse32.pt"))
+    del local, last, placed32, pruned, io
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_rank(rank, world, port, seed, out_dir):
+    """One rank of the two that share the card: (b) Qwen1.5-0.5B trained on
+    a (1, 2) ("data", "model") mesh (tp mode A, 8 heads a rank) and
+    OLMoE-1B-7B's EP forward and sparse prefill on it; (c) Qwen1.5-0.5B on
+    a (2, 1, 1) ("pod", "data", "model") mesh, uncompressed and with
+    ``compress_cross_pod`` (and the compressed exchange held leaf by leaf,
+    ``_int8_error``).  Writes its results to ``rank<r>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    try:
+        mods = load_modules()
+        make_mesh = mods["make_mesh"]
+        cfg = mods["configs"].get_config(MESH_ARCH)
+        batch = _mesh_batch(mods, cfg, seed)
+        tp_mesh = make_mesh((1, world), ("data", "model"),
+                            device_type="cuda")
+        res = {"rank": rank,
+               "tp": _mesh_train(torch, mods, cfg, batch, seed, device,
+                                 tp_mesh),
+               "ep": _mesh_ep(torch, mods, seed, device, tp_mesh, out_dir,
+                              rank)}
+        pod_mesh = make_mesh((world, 1, 1), ("pod", "data", "model"),
+                             device_type="cuda")
+        res["dp"] = _mesh_train(torch, mods, cfg, batch, seed, device,
+                                pod_mesh)
+        res["int8_error"] = _int8_error(torch, mods, cfg, batch, seed,
+                                        device, pod_mesh)
+        res["int8"] = _mesh_train(torch, mods, cfg, batch, seed, device,
+                                  pod_mesh, compress=True)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def mesh_phase(torch, mods, device, seed):
+    """(a) Qwen1.5-0.5B at full width and depth (B 4 x T 2048, bf16, flash)
+    through the meshed ``make_train_step`` in a world of one over NCCL on a
+    (1, 1) mesh, against the meshless step from the same seed; OLMoE's
+    one-rank gather forward for (b); then a spawned gloo world of two
+    ranks on the card (``_mesh_rank``), held to these.  Returns the
+    counted launches (this process's and the ranks')."""
+    import shutil
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    card = mods["card"]
+    cfg = mods["configs"].get_config(MESH_ARCH)
+    batch = _mesh_batch(mods, cfg, seed)
+    want_step = flash_step_launches(cfg.n_layers, True, cfg.head_dim)
+    t_phase = time.perf_counter()
+
+    # (a) a world of one over NCCL
+    meshless = _mesh_train(torch, mods, cfg, batch, seed, device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        one = _mesh_train(torch, mods, cfg, batch, seed, device,
+                          mods["make_mesh"]((1, 1), ("data", "model"),
+                                            device_type="cuda"))
+    finally:
+        dist.destroy_process_group()
+    for i in range(MESH_STEPS):
+        check(one["runs"][i] == want_step, f"mesh (1, 1): step {i} launched "
+              f"{one['runs'][i]}, expected {want_step}")
+        for key in ("losses", "grad_norms"):
+            check(_rel(one[key][i], meshless[key][i]) <= MESH_ONE_RTOL,
+                  f"mesh (1, 1) {key}: {one[key]} vs meshless "
+                  f"{meshless[key]}")
+    print(json.dumps({
+        "phase": "mesh one", "arch": cfg.name, "mesh": [1, 1],
+        "backend": "nccl", "batch": MESH_TRAIN_SHAPE[0],
+        "seq": MESH_TRAIN_SHAPE[1], "dtype": cfg.dtype,
+        "losses": one["losses"], "grad_norms": one["grad_norms"],
+        "meshless_losses": meshless["losses"],
+        "meshless_grad_norms": meshless["grad_norms"],
+        "bit_identical": (one["losses"] == meshless["losses"]
+                          and one["grad_norms"] == meshless["grad_norms"]),
+        "step_ms": one["step_ms"], "meshless_step_ms": meshless["step_ms"],
+        "peak_gb": one["peak_gb"], "meshless_peak_gb": meshless["peak_gb"],
+        "tolerance": MESH_ONE_RTOL, "card": card}), flush=True)
+
+    ref_logits, ref32, ref_cf, ref_tried = mesh_moe_reference(
+        torch, mods, device, seed)
+
+    # (b) and (c): two ranks that share the card, over gloo
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_rank, args=(2, _free_port(), seed,
+                                               out_dir),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"mesh: the two ranks did not finish in "
+                                   f"{MESH_JOIN_S} s")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"mesh: a rank failed: {e}") from None
+    except mp.ProcessExitedException as e:
+        raise SmokeFailure(f"mesh: a rank exited: {e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = torch.load(os.path.join(out_dir, "ep_logits.pt"))
+    got32 = torch.load(os.path.join(out_dir, "ep_logits32.pt"))
+    sparse32 = torch.load(os.path.join(out_dir, "sparse32.pt"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    row_errs, one_last = mesh_sparse_reference(
+        torch, mods, device, seed, sparse32["pruned"], sparse32["layers"])
+
+    moe_cfg = mods["configs"].get_config(MOE_ARCH)
+    want_ep = expect(flash_attention_tc=moe_cfg.n_layers)
+    # the four attention projections of every layer from each rank's
+    # banks (the experts and the head stay dense), the attention as in the
+    # dense forward
+    want_sparse = expect(flash_attention_tc=moe_cfg.n_layers,
+                         bsr_matmul=4 * moe_cfg.n_layers)
+    # f32: the FMA flash forward; f32 tiles take bsr_matmul's rows schedule
+    want_f32 = expect(flash_attention=moe_cfg.n_layers)
+    want_f32_sparse = expect(flash_attention=moe_cfg.n_layers,
+                             bsr_matmul=4 * moe_cfg.n_layers)
+    for res in ranks:
+        r = res["rank"]
+        for part in ("tp", "dp", "int8"):
+            for i, counts in enumerate(res[part]["runs"]):
+                check(counts == want_step, f"mesh rank {r} {part} step {i}: "
+                      f"launched {counts}, expected {want_step}")
+        check(res["ep"]["forward_runs"][0] == want_ep,
+              f"mesh rank {r} ep forward: {res['ep']['forward_runs'][0]}")
+        sparse = res["ep"]["sparse_runs"][0]
+        check(sparse["bsr_matmul"] == want_sparse["bsr_matmul"]
+              and sparse["flash_attention_tc"] == moe_cfg.n_layers,
+              f"mesh rank {r} sparse prefill: launched {sparse}")
+        check(res["ep"]["finite"] and res["ep"]["sparse_finite"],
+              f"mesh rank {r}: logits not finite")
+        check(res["ep"]["f32_forward_runs"][0] == want_f32,
+              f"mesh rank {r} f32 ep forward: "
+              f"{res['ep']['f32_forward_runs'][0]}, expected {want_f32}")
+        check(res["ep"]["f32_sparse_runs"][0] == want_f32_sparse,
+              f"mesh rank {r} f32 sparse prefill: "
+              f"{res['ep']['f32_sparse_runs'][0]}, expected "
+              f"{want_f32_sparse}")
+        check(res["ep"]["f32_drops"] == 0 == res["ep"]["f32_sparse_drops"],
+              f"mesh rank {r} f32: the EP path dropped "
+              f"{res['ep']['f32_drops']} / {res['ep']['f32_sparse_drops']}")
+    tp, ep = ranks[0]["tp"], ranks[0]["ep"]
+    for i in range(MESH_STEPS):
+        for name, run in (("(1, 2)", tp), ("(2, 1, 1)", ranks[0]["dp"])):
+            for key, tol in (("losses", MESH_TP_RTOL),
+                             ("grad_norms", MESH_GNORM_RTOL)):
+                check(_rel(run[key][i], meshless[key][i]) <= tol,
+                      f"mesh {name} {key} {run[key]} vs meshless "
+                      f"{meshless[key]} (limit {tol})")
+        check(_rel(ranks[0]["int8"]["losses"][i],
+                   ranks[0]["dp"]["losses"][i]) <= MESH_INT8_RTOL,
+              f"mesh int8 losses {ranks[0]['int8']['losses']} vs "
+              f"uncompressed {ranks[0]['dp']['losses']}")
+    # the pod replicas hold the same state after the steps
+    for part in ("dp", "int8"):
+        check(ranks[0][part]["digest"] == ranks[1][part]["digest"],
+              f"mesh (2, 1, 1) {part}: the two pods' states differ")
+    int8_err = ranks[0]["int8_error"]
+    for res in ranks:
+        check(res["int8_error"]["max_over_bound"] <= 1.0,
+              f"mesh int8 rank {res['rank']}: a compressed gradient leaf "
+              f"lies {res['int8_error']['max_over_bound']} x its int8 bound "
+              f"from the uncompressed one")
+    check(_rel(ranks[0]["int8"]["grad_norms"][0], int8_err["gc_norm"])
+          <= MESH_INT8_NORM_RTOL,
+          f"mesh int8: the step's grad norm {ranks[0]['int8']['grad_norms']}"
+          f" is not the compressed gradient's {int8_err['gc_norm']}")
+    check(_rel(int8_err["g_norm"], meshless["grad_norms"][0])
+          <= MESH_GNORM_RTOL,
+          f"mesh int8: the uncompressed gradient's norm {int8_err['g_norm']}"
+          f" vs meshless {meshless['grad_norms'][0]}")
+    check(tuple(got.shape) == tuple(ref_logits.shape),
+          f"mesh ep logits {tuple(got.shape)} vs {tuple(ref_logits.shape)}")
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    logit_rel = rel(got, ref_logits)
+    ep_f32, gather_f32 = rel(got, ref32), rel(ref_logits, ref32)
+    argmax_agree = float((got.float().argmax(-1)
+                          == ref_logits.float().argmax(-1)).float().mean())
+    check(ep_f32 <= MESH_LOGIT_FACTOR * gather_f32,
+          f"mesh ep logits: {ep_f32} from the f32 forward (relative norm), "
+          f"more than {MESH_LOGIT_FACTOR} x the one-rank bf16 forward's "
+          f"{gather_f32}")
+    f32_rel = rel(got32, ref32)
+    check(f32_rel <= MESH_F32_RTOL, f"mesh ep f32 logits: {f32_rel} from "
+          f"the one-rank f32 forward (relative norm), limit {MESH_F32_RTOL}")
+    # the sparse prefill layer by layer: a token's routing near a tie may
+    # take another expert under another summation order, which changes
+    # that row (and, through attention, every later one at full depth)
+    sparse_rel = rel(sparse32["last"], one_last)
+    n_rows = int(row_errs.numel())
+    over = int((row_errs > MESH_F32_RTOL).sum())
+    sparse_rows = {"rows": n_rows, "over": over,
+                   "median": float(row_errs.median()),
+                   "max": float(row_errs.max()),
+                   "last_logits_rel": sparse_rel}
+    check(n_rows == moe_cfg.n_layers * MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1]
+          and over <= MESH_ROUTING_FLIPS, f"mesh sparse f32: {over} of "
+          f"{n_rows} token updates (layer by layer) more than "
+          f"{MESH_F32_RTOL} from the one-rank layers on the same pruned "
+          f"weights and inputs (at most {MESH_ROUTING_FLIPS})")
+    print(json.dumps({
+        "phase": "mesh", "card": card, "world_s": world_s,
+        "tp": {"mesh": [1, 2], "backend": "gloo", "arch": cfg.name,
+               "heads_a_rank": cfg.n_heads // 2,
+               "losses": tp["losses"], "grad_norms": tp["grad_norms"],
+               "step_ms": tp["step_ms"],
+               "peak_gb": [x["tp"]["peak_gb"] for x in ranks],
+               "tolerance": MESH_TP_RTOL,
+               "gnorm_tolerance": MESH_GNORM_RTOL},
+        "dp": {"mesh": [2, 1, 1], "losses": ranks[0]["dp"]["losses"],
+               "grad_norms": ranks[0]["dp"]["grad_norms"],
+               "pods_equal": True},
+        "ep": {"arch": MOE_ARCH, "experts_a_rank": moe_cfg.n_experts // 2,
+               "batch": MESH_MOE_SHAPE[0], "seq": MESH_MOE_SHAPE[1],
+               "capacity": ep["capacity"], "drops": ep["drops"],
+               "gather_capacity": ref_cf, "gather_drops": ref_tried,
+               "logit_rel_err": logit_rel, "argmax_agree": argmax_agree,
+               "ep_vs_f32": ep_f32, "gather_vs_f32": gather_f32,
+               "factor": MESH_LOGIT_FACTOR,
+               "f32_vs_one_rank_f32": f32_rel,
+               "f32_sparse_layers": sparse_rows,
+               "f32_tolerance": MESH_F32_RTOL,
+               "forward_ms": ep["forward_ms"],
+               "sparse_prefill_ms": ep["sparse_prefill_ms"],
+               "sparsity": MESH_SPARSITY,
+               "peak_gb": [x["ep"]["peak_gb"] for x in ranks]},
+        "int8": {"mesh": [2, 1, 1], "losses": ranks[0]["int8"]["losses"],
+                 "grad_norms": ranks[0]["int8"]["grad_norms"],
+                 "uncompressed_losses": ranks[0]["dp"]["losses"],
+                 "uncompressed_grad_norms": ranks[0]["dp"]["grad_norms"],
+                 "max_err_over_int8_bound": max(
+                     x["int8_error"]["max_over_bound"] for x in ranks),
+                 "compressed_grad_norm": int8_err["gc_norm"],
+                 "uncompressed_grad_norm": int8_err["g_norm"],
+                 "pods_equal": True,
+                 "step_ms": ranks[0]["int8"]["step_ms"],
+                 "uncompressed_step_ms": ranks[0]["dp"]["step_ms"],
+                 "peak_gb": [x["int8"]["peak_gb"] for x in ranks],
+                 "tolerance": MESH_INT8_RTOL},
+        "phase_s": time.perf_counter() - t_phase}), flush=True)
+    per_rank = []
+    for res in ranks:
+        runs = (res["tp"]["runs"] + res["ep"]["forward_runs"]
+                + res["ep"]["sparse_runs"] + res["ep"]["f32_forward_runs"]
+                + res["ep"]["f32_sparse_runs"] + res["dp"]["runs"]
+                + res["int8"]["runs"])
+        per_rank.append({"rank": res["rank"], **{
+            name: n for name, n in sum_counts(runs).items() if n}})
+    print(json.dumps({"phase": "mesh launches", "ranks": per_rank}),
+          flush=True)
+    runs = one["runs"] + [r for res in ranks for r in (
+        res["tp"]["runs"] + res["ep"]["forward_runs"]
+        + res["ep"]["sparse_runs"] + res["ep"]["f32_forward_runs"]
+        + res["ep"]["f32_sparse_runs"] + res["dp"]["runs"]
+        + res["int8"]["runs"])]
+    return sum_counts(runs)
+
+
 def _in_proj_width(cfg) -> int:
     """A Mamba2 layer's in_proj outputs: z and x (d_inner each), B and C
     (ssm_state each), dt (one a head)."""
@@ -3842,10 +4590,17 @@ def load_modules() -> dict:
     from repro_torch.launch.serve import sparsify_params
     from repro_torch.launch.steps import (init_state, loss_and_grads,
                                           make_prefill_step, make_serve_step,
-                                          make_train_step)
+                                          make_train_step, place_batch,
+                                          place_state, state_placements)
+    from repro_torch.core.sparse_format import BcsrMatrix
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe_ep
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import StepRunner
-    from repro_torch.tree import tree_flatten, tree_paths
+    from repro_torch.tree import tree_flatten, tree_map, tree_paths
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import flags
     from repro_torch.models import layers
@@ -3893,8 +4648,12 @@ def load_modules() -> dict:
                 make_train_step=make_train_step, AdamWConfig=AdamWConfig,
                 adamw_init=adamw_init, StepRunner=StepRunner,
                 loss_and_grads=loss_and_grads, tree_flatten=tree_flatten,
-                tree_paths=tree_paths, configs=configs, layers=layers,
-                serve_main=serve_main, budget=budget)
+                tree_paths=tree_paths, tree_map=tree_map, configs=configs,
+                layers=layers,
+                serve_main=serve_main, budget=budget, S=S,
+                make_mesh=make_mesh, moe_ep=moe_ep, place_batch=place_batch,
+                place_state=place_state, state_placements=state_placements,
+                steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix)
     return mods
 
 
@@ -3934,6 +4693,7 @@ def main() -> int:
                 print(f"[ptxas {name} {entry}] {line.strip()}", flush=True)
 
     mods = load_modules()
+    mods["card"] = card
     np, cnn = mods["np"], mods["cnn"]
     nets = {}
     for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
@@ -3971,13 +4731,14 @@ def main() -> int:
         families, family_rows = families_phase(torch, mods, device,
                                                args.seed)
         families_train = families_train_phase(torch, mods, device, args.seed)
+        mesh = mesh_phase(torch, mods, device, args.seed)
         arch_rows = {name: (moe_rows.get(name, []) + family_rows.get(name, [])
                             + dims_extra.get(name, []))
                      for name in {**moe_rows, **family_rows, **dims_extra}}
         for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
                 decode_consist, prefill, serve, consist, train, moe,
-                families, families_train))
+                families, families_train, mesh))
         never = [name for name in KERNEL_NAMES if not launches[name]]
         check(not never, f"kernels of the path never launched in its counted "
               f"runs: {never}")

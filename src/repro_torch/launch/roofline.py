@@ -2,7 +2,7 @@
 
 Port of the constant half of ``repro/launch/roofline.py``, re-derived from
 NVIDIA's H100 SXM data sheet (dense rates, 700 W); the HLO and collective
-half waits for the multi-chip slice.  The autotuner (``tuning/measure.py``)
+half waits for the dry run (ROADMAP Queue 1 item 9).  The autotuner (``tuning/measure.py``)
 prices each conv method at the unit its kernel issues on:
 
   dense       cuDNN with TF32 off: the f32 FMA units, ``F32_FLOPS``

@@ -5,8 +5,16 @@ and ELL weights, RMSNorm, RoPE, the full-sequence attention (the flash
 kernel or the chunked online softmax), decode attention over a KV cache,
 the GQA attention block, DeepSeek's multi-head latent attention (MLA), the
 MLP, the routed mixture of experts (MoE) with its shared experts, and the
-Mamba2 block (the chunked SSD scan and its one-step recurrence).  The
-reference's ``specs_*`` (PartitionSpecs) belong to the multi-chip slice.
+Mamba2 block (the chunked SSD scan and its one-step recurrence).  Every
+``init_*`` has a mirror ``specs_*``: logical partition specs ("fsdp", "tp")
+that ``distributed/sharding.py`` resolves on a mesh.
+
+In a mesh run (``sharding.use_rules``) the blocks take a DTensor activation
+and run on local shards (the mesh paths at the end of this file): the
+attention on its rank's heads (the reference's tensor-parallel flash modes
+A and B), the MLP on its d_ff columns, the MoE on its experts (or
+expert-parallel, ``moe_ep.py``), each returning its output in the
+activation's placements.
 
 Conventions, as in the reference: params are nested dicts of tensors;
 dense linear weights are (in_features, out_features), so application is
@@ -24,8 +32,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.core.sparse_format import BcsrMatrix, EllMatrix
 from repro_torch.core.sparse_linear import ell_matmul
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
 from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
 from repro_torch.models import flags
@@ -104,7 +117,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: Optional[float] = None) -> torch.Tensor:
     """q (B, T, H, hd), k/v (B, S, KV, hdv) -> (B, T, H, hdv).  The flash
     kernel needs hd == hdv; other shapes take the chunked path, as in the
-    reference (the port runs on one card: no head sharding)."""
+    reference.  In a mesh run q, k and v hold one rank's heads
+    (``_attention_mesh``)."""
     if flags.ATTN_IMPL != "flash" or q.shape[-1] != v.shape[-1]:
         return chunked_attention(q, k, v, causal=causal, scale=scale)
     return flash_attention_bthd(q, k, v, causal=causal, scale=scale)
@@ -215,7 +229,10 @@ def attention_fwd(p: Params, x: torch.Tensor, positions: torch.Tensor,
     """GQA attention.  Without a cache: full-sequence attention.  With one:
     K and V of the new position are written into the cache in place, at the
     shared position ``cur_len`` of every row, and the block attends over
-    ``cur_len + 1`` positions; the cache is returned."""
+    ``cur_len + 1`` positions; the cache is returned.  A DTensor ``x`` (a
+    mesh run, no cache) takes ``_attention_mesh``."""
+    if isinstance(x, DTensor):
+        return _attention_mesh(p, x, cfg, cache), None
     b, t, _ = x.shape
     hd = cfg.head_dim
     q = apply_linear(p["wq"], x, p.get("bq")).reshape(b, t, cfg.n_heads, hd)
@@ -253,7 +270,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype,
     return p
 
 
-def mlp_fwd(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_fwd(p: Params, x: torch.Tensor, act: str, *,
+            d_ff: Optional[int] = None) -> torch.Tensor:
+    """A DTensor ``x`` (a mesh run) takes ``_mlp_mesh``, which needs the
+    global ``d_ff`` to resolve the weights' specs."""
+    if isinstance(x, DTensor):
+        return _mlp_mesh(p, x, act, d_ff)
     up = apply_linear(p["up"], x)
     if act == "swiglu":
         h = F.silu(apply_linear(p["gate"], x)) * up
@@ -301,7 +323,13 @@ def mla_fwd(p: Params, x: torch.Tensor, positions: torch.Tensor,
     kv_lora_rank) and (B, S, rope) caches, which are written at
     ``cur_len`` in place.  The absorbed form reads ``k_b`` and ``v_b`` as
     dense (kv_lora_rank, heads, dim) banks; on sparse ones it raises
-    (``layer`` names the layer in the message)."""
+    (``layer`` names the layer in the message).  A DTensor ``x`` (a mesh
+    run, no cache) runs replicated over the ``tp`` dim
+    (``_replicated_mesh``)."""
+    if isinstance(x, DTensor):
+        return _replicated_mesh(
+            lambda pf, xl: mla_fwd(pf, xl, _positions(xl), cfg)[0],
+            p, specs_mla(cfg, S.tp_size()), x, cache), None
     b, t, _ = x.shape
     h = cfg.n_heads
     nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -459,24 +487,39 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def experts_fwd(p: Params, xe: torch.Tensor, dtype) -> torch.Tensor:
+    """The experts' SwiGLU on their dispatch buffers xe (E', C, D), with
+    ``p``'s (E', in, out) banks: batched products with f32 results, SiLU
+    and the gate product in f32 rounded once to ``dtype``, the down
+    product's f32 result rounded once, as the reference casts."""
+    hg = _bmm_f32(xe, p["w_gate"])
+    hu = _bmm_f32(xe, p["w_up"])
+    hy = (F.silu(hg) * hu).to(dtype)
+    return _bmm_f32(hy, p["w_down"]).to(dtype)
+
+
 def _moe_group(p: Params, xg: torch.Tensor, cfg: ModelConfig,
-               capacity: int) -> torch.Tensor:
+               capacity: int, experts: Optional[Tuple[int, int]] = None
+               ) -> torch.Tensor:
     """Route one group of tokens, xg (G, D) -> (G, D): ``moe_route``, the
     dispatch gather into (E, C, D), the experts' SwiGLU as batched products
     with f32 results (cuBLAS on the card), SiLU and the gate product in f32
     rounded once to x's dtype, the down product's f32 result rounded once,
     as the reference casts; the combine gather and the f32 weighted sum
-    over the k experts."""
+    over the k experts.  ``experts`` = (e0, e1): only those experts run
+    (the banks in ``p`` hold just them), the others' slots give zeros, so
+    the result is this range's part of the sum (a mesh rank's experts)."""
     g, d = xg.shape
     e = cfg.n_experts
+    e0, e1 = experts if experts is not None else (0, e)
     topw, token_for_slot, slot_for_tokk, _ = moe_route(p, xg, cfg, capacity)
     xpad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
-    dispatched = xpad[token_for_slot[:e * capacity]].reshape(e, capacity, d)
-    hg = _bmm_f32(dispatched, p["w_gate"])
-    hu = _bmm_f32(dispatched, p["w_up"])
-    hy = (F.silu(hg) * hu).to(xg.dtype)
-    y = _bmm_f32(hy, p["w_down"]).to(xg.dtype)
-    ypad = torch.cat([y.reshape(e * capacity, d), y.new_zeros((1, d))], dim=0)
+    dispatched = xpad[token_for_slot[e0 * capacity:e1 * capacity]].reshape(
+        e1 - e0, capacity, d)
+    y = experts_fwd(p, dispatched, xg.dtype)
+    ypad = torch.cat([y.new_zeros((e0 * capacity, d)),
+                      y.reshape((e1 - e0) * capacity, d),
+                      y.new_zeros(((e - e1) * capacity + 1, d))], dim=0)
     per_k = ypad[slot_for_tokk].reshape(g, cfg.top_k, d)
     return torch.einsum("gk,gkd->gd", topw, per_k.float()).to(xg.dtype)
 
@@ -487,9 +530,14 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """x: (B, T, D) -> (B, T, D).  One group over all tokens by default;
     ``group_size`` routes groups of that many tokens in turn (a ragged
     remainder: one group), each with its own capacity.  Then the shared
-    experts' SwiGLU MLP, added.  The reference's expert parallelism (an
-    all-to-all over a mesh, ``moe_ep.py``) is not ported: ROADMAP Queue 1
-    item 9."""
+    experts' SwiGLU MLP, added.  A DTensor ``x`` (a mesh run) takes
+    ``_moe_mesh``: expert parallelism (``moe_ep.py``) under
+    ``flags.MOE_IMPL == "ep"`` where the ``tp`` dim (> 1) divides the
+    experts, else the gather dispatch over every token of the batch."""
+    if isinstance(x, DTensor):
+        if group_size is not None:
+            raise ValueError("moe_fwd: group_size is a single-device option")
+        return _moe_mesh(p, x, cfg, capacity_factor)
     if capacity_factor is None:
         capacity_factor = flags.MOE_CAPACITY
     b, t, d = x.shape
@@ -589,7 +637,13 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     conv_dim)}.  Without a state: the chunked scan over the sequence, and
     the state it ends in returned (None below w - 1 positions, as in the
     reference).  With one (decode, one position): the one-step recurrence,
-    the state updated in place and returned."""
+    the state updated in place and returned.  A DTensor ``x`` (a mesh
+    run, no state) runs replicated over the ``tp`` dim
+    (``_replicated_mesh``)."""
+    if isinstance(x, DTensor):
+        return _replicated_mesh(
+            lambda pf, xl: mamba2_fwd(pf, xl, cfg)[0],
+            p, specs_mamba2(cfg, S.tp_size()), x, state), None
     b, t, _ = x.shape
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     hd = cfg.ssm_head_dim
@@ -644,3 +698,272 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device) -> Params:
             "conv": torch.zeros((batch, cfg.ssm_conv_width - 1,
                                  cfg.d_inner + 2 * cfg.ssm_state),
                                 dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# logical partition specs, one ``specs_*`` per ``init_*`` (the reference's)
+# ---------------------------------------------------------------------------
+
+def _maybe(n: int, size: int, axis: str) -> Optional[str]:
+    """Shard a dim of length n over ``axis`` only if ``size`` divides it."""
+    return axis if size > 0 and n % size == 0 else None
+
+
+def specs_attention(cfg: ModelConfig, tp: int) -> Params:
+    hd = cfg.head_dim
+    qo = _maybe(cfg.n_heads * hd, tp, "tp")
+    kvo = _maybe(cfg.n_kv_heads * hd, tp, "tp")
+    p = {"wq": P("fsdp", qo), "wk": P("fsdp", kvo), "wv": P("fsdp", kvo),
+         "wo": P(qo, "fsdp")}
+    if cfg.qkv_bias:
+        p.update({"bq": P(qo), "bk": P(kvo), "bv": P(kvo)})
+    return p
+
+
+def specs_attention_cache(cfg: ModelConfig, tp: int) -> Params:
+    # KV heads over the model dim where they divide it; else the sequence
+    # (GQA kv=8 on tp=16), so long caches still split
+    if tp and cfg.n_kv_heads % tp == 0:
+        spec = P("dp", None, "tp", None)
+    else:
+        spec = P("dp", "sp", None, None)
+    return {"k": spec, "v": spec}
+
+
+def specs_mla(cfg: ModelConfig, tp: int) -> Params:
+    qk_hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    h = cfg.n_heads
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["q_a"] = P("fsdp", None)
+        p["q_norm"] = P(None)
+        p["q_b"] = P(None, _maybe(h * qk_hd, tp, "tp"))
+    else:
+        p["q_b"] = P("fsdp", _maybe(h * qk_hd, tp, "tp"))
+    p["kv_a"] = P("fsdp", None)
+    p["kv_norm"] = P(None)
+    p["k_b"] = P(None, _maybe(h * cfg.qk_nope_head_dim, tp, "tp"))
+    p["v_b"] = P(None, _maybe(h * cfg.v_head_dim, tp, "tp"))
+    p["wo"] = P(_maybe(h * cfg.v_head_dim, tp, "tp"), "fsdp")
+    return p
+
+
+def specs_mla_cache(cfg: ModelConfig, tp: int) -> Params:
+    # the latent cache has no head dim: the sequence over the model dim
+    return {"c_kv": P("dp", "sp", None), "k_rope": P("dp", "sp", None)}
+
+
+def specs_mlp(d_ff: int, act: str, tp: int) -> Params:
+    f = _maybe(d_ff, tp, "tp")
+    p = {"up": P("fsdp", f), "down": P(f, "fsdp")}
+    if act == "swiglu":
+        p["gate"] = P("fsdp", f)
+    return p
+
+
+def specs_moe(cfg: ModelConfig, tp: int) -> Params:
+    e = _maybe(cfg.n_experts, tp, "tp")
+    dff = cfg.moe_d_ff or cfg.d_ff
+    p = {"router": P("fsdp", None), "w_gate": P(e, "fsdp", None),
+         "w_up": P(e, "fsdp", None), "w_down": P(e, None, "fsdp")}
+    if cfg.n_shared_experts:
+        p["shared"] = specs_mlp(cfg.n_shared_experts * dff, "swiglu", tp)
+    return p
+
+
+def specs_mamba2(cfg: ModelConfig, tp: int) -> Params:
+    nh = _maybe(cfg.n_ssm_heads, tp, "tp")
+    di = _maybe(cfg.d_inner, tp, "tp")
+    return {"in_proj": P("fsdp", None), "conv_w": P(None, None),
+            "conv_b": P(None), "a_log": P(nh), "d_skip": P(nh),
+            "dt_bias": P(nh), "norm": P(di), "out_proj": P(di, "fsdp")}
+
+
+def specs_mamba2_state(cfg: ModelConfig, tp: int) -> Params:
+    nh = _maybe(cfg.n_ssm_heads, tp, "tp")
+    return {"ssm": P("dp", nh, None, None), "conv": P("dp", None, None)}
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: blocks on local shards, under ``sharding.use_rules``
+#
+# The residual stream is a DTensor (batch over "dp", sequence over "sp", as
+# the transformer's ``constrain`` sites put it).  A block gathers the
+# sequence it needs (``constrain(x, "dp", None, None)``), runs on its
+# rank's weight shards (``_use`` gathers the "fsdp" dims), and returns its
+# output in x's placements: a tp-sharded product's partial sums are
+# reduce-scattered over the sequence, a replicated one's output is sliced.
+# Every rank's slice of the stream is a disjoint part of the loss, so the
+# collectives' adjoints (``collectives.py``) give each weight shard its
+# whole gradient once the train step sums the replicated dims.
+# ---------------------------------------------------------------------------
+
+def _use(w, spec, keep_tp: bool = True):
+    """Weight ``w`` (this rank's shard under ``spec``) gathered over every
+    mesh dim it is sharded on, but the ``tp`` dim where ``keep_tp``.  A
+    sparse leaf is taken as it is where nothing is gathered."""
+    mesh = S.get_mesh()
+    names = S._dim_names(mesh)
+    tp = S.tp_axis()
+    out = w
+    pls = S.placements(spec, mesh)
+    for i in reversed(range(len(pls))):
+        pl = pls[i]
+        if not isinstance(pl, Shard) or (keep_tp and names[i] == tp):
+            continue
+        if S.axis_size(names[i]) == 1:
+            continue
+        if isinstance(out, (BcsrMatrix, EllMatrix)):
+            raise ValueError(
+                f"a {type(out).__name__} weight is sharded over mesh dim "
+                f"{names[i]!r}, which this block gathers; sparse weights "
+                f"run on a mesh only as whole shards (sparsify each rank's "
+                f"local dense shard)")
+        out = C.all_gather(out, pl.dim, names[i])
+    return out
+
+
+def _use_tree(p: Params, specs: Params, keep_tp: bool = True) -> Params:
+    return {k: (_use_tree(v, specs[k], keep_tp) if isinstance(v, dict)
+                else _use(v, specs[k], keep_tp)) for k, v in p.items()}
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, t = x.shape[:2]
+    return torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+
+
+def _on_tp(xf: DTensor, pl) -> tuple:
+    """xf's placements with the ``tp`` dim's set to ``pl``."""
+    names = S._dim_names(S.get_mesh())
+    out = list(xf.placements)
+    ax = S.tp_axis()
+    if ax is not None:
+        out[names.index(ax)] = pl
+    return tuple(out)
+
+
+def _tp_out(y: torch.Tensor, xf: DTensor, partial: bool, x: DTensor
+            ) -> DTensor:
+    """A block's local output ``y`` on the gathered layout of ``xf``: the
+    partial sums of a tp-sharded product (``partial``) or a replicated
+    result, in x's placements."""
+    y = S.wrap(y, _on_tp(xf, Partial() if partial else Replicate()))
+    return S.redistribute(y, x.placements)
+
+
+def tp_attention_mode(h: int, kv: int, tp: int) -> Optional[str]:
+    """The reference's regimes of the tensor-parallel attention: "A" whole
+    kv groups a rank (kv heads sharded), "B" a rank's q heads inside one kv
+    group (each rank takes its single kv head), None where ``tp`` does not
+    divide the heads or neither fits (the chunked attention, replicated)."""
+    if h % tp:
+        return None
+    hq, g = h // tp, h // kv
+    if hq % g == 0:
+        return "A"
+    if g % hq == 0:
+        return "B"
+    return None
+
+
+def _attention_mesh(p: Params, x: DTensor, cfg: ModelConfig,
+                    cache) -> DTensor:
+    """GQA attention on a mesh.  Modes A and B (``tp_attention_mode``): the
+    rank's h / tp query heads and its kv heads (A: kv / tp of them; B: kv
+    head (rank * h / tp) // g, cut from the gathered wk / wv), the flash or
+    chunked attention on them, the partial output projection.  Otherwise
+    every rank runs the whole attention with gathered weights through the
+    chunked path, as the reference falls back, and keeps its slice."""
+    if cache is not None:
+        raise ValueError("attention_fwd: decode with a cache runs on one "
+                         "device; a mesh run takes full sequences")
+    tp = S.tp_size()
+    specs = specs_attention(cfg, tp)
+    xf = S.constrain(x, "dp", None, None)
+    xl = xf.to_local()
+    b, t, _ = xl.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mode = tp_attention_mode(h, kv, tp)
+    if mode is None:
+        w, hq, kvq = _use_tree(p, specs, keep_tp=False), h, kv
+    else:
+        w, hq, kvq = _use_tree(p, specs), h // tp, kv // tp
+    if mode == "B":
+        idx = (S.axis_index(S.tp_axis()) * hq) // (h // kv)
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                w[name] = _use(p[name], specs[name], keep_tp=False)[
+                    ..., idx * hd:(idx + 1) * hd]
+        kvq = 1
+    pos = _positions(xl)
+    q = rope(apply_linear(w["wq"], xl, w.get("bq")).reshape(b, t, hq, hd),
+             pos, cfg.rope_theta)
+    k = rope(apply_linear(w["wk"], xl, w.get("bk")).reshape(b, t, kvq, hd),
+             pos, cfg.rope_theta)
+    v = apply_linear(w["wv"], xl, w.get("bv")).reshape(b, t, kvq, hd)
+    attend = full_attention if mode is not None else chunked_attention
+    out = attend(q, k, v, causal=cfg.causal)
+    y = apply_linear(w["wo"], out.reshape(b, t, hq * hd))
+    return _tp_out(y, xf, mode is not None, x)
+
+
+def _mlp_mesh(p: Params, x: DTensor, act: str, d_ff: int) -> DTensor:
+    """The MLP on a mesh: the rank's d_ff columns of up / gate and rows of
+    down (partial sums), or the whole MLP where tp does not divide d_ff."""
+    specs = specs_mlp(d_ff, act, S.tp_size())
+    xf = S.constrain(x, "dp", None, None)
+    sharded = specs["up"][1] is not None
+    y = mlp_fwd(_use_tree(p, specs, keep_tp=sharded), xf.to_local(), act)
+    return _tp_out(y, xf, sharded, x)
+
+
+def _moe_mesh(p: Params, x: DTensor, cfg: ModelConfig,
+              capacity_factor: Optional[float]) -> DTensor:
+    """The MoE on a mesh.  ``flags.MOE_IMPL == "ep"`` with tp > 1 dividing
+    the experts: ``moe_ep.moe_fwd_ep``.  Otherwise the reference's gather
+    dispatch as one group over every token of the global batch (its
+    capacity and drops are the single device's): each rank routes them all
+    and runs its experts (the dispatch buffers' expert dim on "tp"); each
+    rank combines its experts' part and the partial sums are
+    reduce-scattered to x's placements.  ``flags.MOE_CONSTRAIN`` changes
+    nothing here: the reference's constraint is a layout hint that pins
+    the dispatch buffers' expert dim to "tp", which this explicit layout
+    always does.  Then the shared experts' MLP."""
+    tp = S.tp_size()
+    if flags.MOE_IMPL == "ep" and tp > 1 and cfg.n_experts % tp == 0:
+        from repro_torch.models.moe_ep import moe_fwd_ep
+        return moe_fwd_ep(p, x, cfg)
+    if capacity_factor is None:
+        capacity_factor = flags.MOE_CAPACITY
+    specs = specs_moe(cfg, tp)
+    xa = S.constrain(x, None, None, None)
+    xl = xa.to_local()
+    b, t, d = xl.shape
+    flat = xl.reshape(b * t, d)
+    cap = moe_capacity(b * t, cfg, capacity_factor)
+    sharded = specs["w_gate"][0] is not None
+    e_loc = cfg.n_experts // tp if sharded else cfg.n_experts
+    e0 = S.axis_index(S.tp_axis()) * e_loc if sharded else 0
+    pl = _use_tree({k: p[k] for k in ("router", "w_gate", "w_up", "w_down")},
+                   specs)
+    out = _moe_group(pl, flat, cfg, cap, experts=(e0, e0 + e_loc))
+    y = _tp_out(out.reshape(b, t, d), xa, sharded, x)
+    if cfg.n_shared_experts:
+        dff = cfg.moe_d_ff or cfg.d_ff
+        y = y + _mlp_mesh(p["shared"], x, "swiglu",
+                          cfg.n_shared_experts * dff)
+    return y
+
+
+def _replicated_mesh(fn, p: Params, specs: Params, x: DTensor,
+                     cache) -> DTensor:
+    """A mixer whose tensor-parallel split is not ported (MLA, Mamba2): its
+    weights gathered whole, ``fn(weights, local x)`` run on every rank of
+    the ``tp`` dim over the gathered sequence, each keeping its slice."""
+    if cache is not None:
+        raise ValueError("decode with a cache runs on one device; a mesh "
+                         "run takes full sequences")
+    xf = S.constrain(x, "dp", None, None)
+    y = fn(_use_tree(p, specs, keep_tp=False), xf.to_local())
+    return _tp_out(y, xf, False, x)

@@ -1,6 +1,6 @@
 """Optimizer: AdamW and the learning-rate schedule, pure functions over the
-port's params trees.  Port of ``repro/optim`` (``compression.py``, the
-cross-pod int8 all-reduce, waits for the multi-chip slice)."""
+port's params trees, and the cross-pod int8 all-reduce
+(``compression.py``).  Port of ``repro/optim``."""
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      clip_by_global_norm)
 from repro_torch.optim.schedule import cosine_schedule

@@ -13,7 +13,7 @@ a step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -75,13 +75,16 @@ def _slices(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, ...]:
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, opt_state: Any, cfg: AdamWConfig,
-                 lr) -> Tuple[Any, Any, torch.Tensor]:
+                 lr, *, gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, Any, torch.Tensor]:
     """One step, written into ``params`` and ``opt_state``'s moments slice
     by slice; returns (params, the opt state with the new step counter,
     grad_norm).  The values are the reference's: the gradients clipped
     (scaled in f32 and cast back to their dtype), then the update in f32,
-    cast to each leaf's dtype."""
-    gnorm = _global_norm(grads)
+    cast to each leaf's dtype.  ``gnorm``: the global norm, where the trees
+    hold one rank's shards (a mesh run)."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 else 1.0
     step = opt_state["step"] + 1
     sf = step.float()

@@ -6,8 +6,10 @@ JAX package's.
   resumes mid-stream as the reference's does.
 * Checkpoints: a round trip keeps every leaf bit for bit (bf16, f32, int32,
   nested lists); the on-disk layout is the reference's, so a step written
-  by one package restores in the other; a step sharded over several hosts
-  is refused; a step without COMMIT is ignored; async save and keep-k GC.
+  by one package restores in the other; a step the reference wrote from
+  one of several hosts (each host file holds every leaf) restores from the
+  files there are; a step without COMMIT is ignored; async save and keep-k
+  GC.
 * ``StepRunner`` restores the last committed step after a retryable
   failure and ends bit-identical to an uninterrupted run, on the fixture of
   ``tests/test_data_checkpoint_runtime.py``; ``FailureDetector``
@@ -125,11 +127,17 @@ def test_checkpoint_layout_is_the_reference_s(tmp_path):
 
 
 def test_sharded_checkpoint_is_refused(tmp_path):
-    """A step the reference wrote from one of two hosts holds half the
-    state; restoring it waits for the multi-chip slice."""
+    """A step the reference wrote from one of two hosts: its manifest says
+    2 hosts and its one file holds every leaf whole (the reference writes
+    global leaves), so the port restores it from the union of the files
+    there are, bit for bit; a leaf no file holds is refused."""
     ref_ckpt.save_state(_ref_state(), str(tmp_path), 2, host_id=0, n_hosts=2)
     assert latest_step(str(tmp_path)) == 2
-    with pytest.raises(ValueError, match="sharded over 2 hosts"):
+    _assert_equal_trees(restore_state(_state(), str(tmp_path), 2), _state())
+    with np.load(tmp_path / "step_000002" / "host_000.npz") as z:
+        np.savez(tmp_path / "step_000002" / "host_000.npz",
+                 **{k: z[k] for k in z.files if k != "params/b"})
+    with pytest.raises(FileNotFoundError, match="params/b"):
         restore_state(_state(), str(tmp_path), 2)
 
 

@@ -64,6 +64,14 @@ def test_port_has_modules_to_scan():
     for module in ("models/layers.py", "models/transformer.py",
                    "models/flags.py", "examples/serve_sparse_llm.py"):
         assert f"src/repro_torch/{module}" in names
+    # the multi-chip path: sharding rules and collectives, the mesh
+    # constructors and input specs, the elastic re-mesh, the int8 cross-pod
+    # all-reduce, expert parallelism
+    for module in ("distributed/__init__.py", "distributed/sharding.py",
+                   "distributed/collectives.py", "launch/mesh.py",
+                   "launch/specs.py", "runtime/elastic.py",
+                   "optim/compression.py", "models/moe_ep.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

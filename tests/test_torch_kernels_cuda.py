@@ -25,7 +25,9 @@ tensor-core forward, dQ and dK/dV) at every head dimension of
 ``budget.FLASH_HEAD_DIMS``, causal and full, 80 (HuBERT-XLarge) and 96
 (Phi-3-Vision) among them, GQA and MHA, ragged and not (a T of 2000 at
 both, in f32, also against autograd through ``attention_ref``'s naive
-attention in float64); a
+attention in float64), and one mesh rank's heads (H / tp heads of
+Qwen1.5-0.5B and OLMoE at tp 2, tensor-parallel mode A; Yi-9B's single kv
+head a rank at tp 8 and 16, mode B); a
 head dim no kernel is built for is refused before any launch.  A bf16
 MoE group (cuBLAS products with f32 results) agrees
 with the CPU's.  The counters show which kernel ran: bf16 operands the
@@ -451,6 +453,12 @@ FLASH_CASES = [
     (2, 32, 32, 256, 256, 96, True, torch.bfloat16),   # Phi-3-Vision heads
     (1, 8, 2, 77, 77, 96, True, torch.float32),        # GQA 4:1, ragged
     (1, 8, 4, 64, 96, 96, False, torch.bfloat16),      # S != T, full
+    # one rank's heads on a mesh (tensor-parallel modes A and B)
+    (1, 8, 8, 2048, 2048, 64, True, torch.bfloat16),   # Qwen-0.5B, tp 2
+    (1, 8, 8, 2048, 2048, 128, True, torch.bfloat16),  # OLMoE, tp 2
+    (1, 2, 1, 512, 512, 128, True, torch.bfloat16),    # Yi-9B tp 16: B
+    (1, 4, 1, 300, 300, 128, True, torch.bfloat16),    # Yi-9B tp 8: B
+    (2, 1, 1, 77, 77, 16, True, torch.float32),        # one q, one kv head
 ]
 # bf16 O: per element, one bf16 rounding of the output (2^-8 of |O|) plus
 # FLASH_O_ATOL of the output's rms.  p v with p rounded to bf16 (a fault
@@ -606,6 +614,10 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 130, 130, 80, True, torch.float32),        # FMA, GQA, ragged
     (1, 32, 32, 256, 256, 96, True, torch.float32),      # FMA, Phi-3 heads
     (1, 8, 2, 200, 200, 96, False, torch.float32),       # FMA, full, ragged
+    # one rank's heads on a mesh (tensor-parallel modes A and B)
+    (1, 8, 8, 2048, 2048, 64, True, torch.bfloat16),     # Qwen-0.5B, tp 2
+    (1, 2, 1, 300, 300, 128, True, torch.bfloat16),      # Yi-9B tp 16: B
+    (2, 1, 1, 77, 77, 16, True, torch.float32),          # one q, one kv
 ]
 # f32: max |error| / rms; bf16: beyond one bf16 rounding, over the rms
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}

@@ -295,9 +295,26 @@ def test_state_from_reference_keeps_bf16_moments():
 
 
 def test_unported_options_raise():
+    """``compress_cross_pod`` is ported (the int8 all-reduce over a mesh's
+    "pod" dim, ``tests/test_torch_distributed.py``); without a pod dim it
+    is a no-op, as in the reference: on one device the step equals the
+    uncompressed one bit for bit."""
     _, cfg = _cfgs("tiny")
-    with pytest.raises(NotImplementedError, match="multi-chip slice"):
-        steps.make_train_step(cfg, AdamWConfig(), compress_cross_pod=True)
+    b = SyntheticLMDataset(DataConfig(seq_len=SEQ, global_batch=B,
+                                      vocab=cfg.vocab, seed=2)).batch_for(0)
+    got = []
+    for compress in (False, True):
+        state = steps.init_state(cfg, AdamWConfig(**OPT),
+                                 torch.Generator().manual_seed(0), "cpu")
+        step = steps.make_train_step(cfg, AdamWConfig(**OPT),
+                                     compress_cross_pod=compress,
+                                     total_steps=10)
+        for _ in range(2):
+            state, m = step(state, b)
+        got.append((float(m["loss"]), float(m["grad_norm"]),
+                    state["params"]["embed"].clone()))
+    assert got[0][:2] == got[1][:2]
+    assert torch.equal(got[0][2], got[1][2])
 
 
 @pytest.fixture(scope="module")
