@@ -367,11 +367,34 @@ Phases (any failure exits non-zero and prints no result):
               Every step and forward counted in each rank; the lines carry
               step times, peak memory a rank and the card, and a line of
               each rank's launches.
-16. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
+16. bf16    -- the two conv kernels on bf16 activations: every sparse conv
+              of ResNet-50 at full width (batch 8, 224 px, a random input
+              at each layer's geometry) through ``ops.sparse_conv`` (a bf16
+              bank) and ``ops.bsr_conv`` (bf16 (8, 128) tiles), each once,
+              counted (39 + 39 bf16 launches, nothing else); then each
+              layer's ELL output bit for bit its plain version on the card
+              and the BCSR output within one bf16 ulp of its plain version
+              (2^-7 |y| + 2^-8 max(1, max |y|)), and both within
+              ``BF16_TOL`` (3e-2 + 3e-2 |y|, the reference's bf16
+              tolerance) of the f32 kernels on the same weights (widened)
+              and the f32 input;
+              then rows 1c and 2e timed at the kernel phase's five layers
+              (``bound_ms`` at bf16's item size; ``library_ms``
+              ``F.conv2d`` in bf16, cuDNN).
+17. dryrun  -- ``python -m repro_torch.launch.dryrun`` in a subprocess
+              with no card visible (``CUDA_VISIBLE_DEVICES=""``): Yi-9B x
+              train_4k on 16 x 16 with ``--attn-impl flash`` and the probes,
+              and OLMoE-1B-7B x prefill_32k on 2 x 16 x 16, each rank 0's
+              meta step in a fake world of 256 / 512 ranks; each cell's
+              roofline lines printed, its JSON read back (under
+              ``experiments/dryrun_torch/``, tag ``smoke``) with FLOPs and
+              collective bytes above 0.  It proves the fake process group
+              and the counters work on the card machine's torch build.
+18. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
 
-Every counted run sets all twenty-nine launch counters (``COUNTERS``) to 0 just
+Every counted run sets all thirty-one launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
@@ -413,6 +436,12 @@ BATCH = 8
 IMAGE = 224
 BSR_TOL = 1e-4                        # x (1 + max |y|)
 PATH_RTOL = 1e-4
+BF16_TOL = 3e-2                       # rtol = atol, the reference's bf16 tests
+# the dry run's cells (arch, shape, flags): the 16 x 16 train cell with its
+# probes and the flash kernels' meta branch, a 2 x 16 x 16 prefill cell
+DRYRUN_CELLS = (("yi-9b", "train_4k", ("--attn-impl", "flash")),
+                ("olmoe-1b-7b", "prefill_32k", ("--multi-pod",)))
+DRYRUN_TIMEOUT_S = 300
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute[, the key of a dict attribute]); a launch of the kernel adds
 # one to it and nothing else does.
@@ -431,6 +460,9 @@ COUNTERS = {
     "bsr_conv_e4m3": ("bsr_conv", "e4m3_launches"),
     "bsr_conv_bm32": ("bsr_conv", "bm32_launches"),
     "bsr_conv_bm64": ("bsr_conv", "bm64_launches"),
+    # ... and on bf16 activations (the bf16 phase)
+    "sparse_conv_bf16": ("sparse_conv", "bf16_launches"),
+    "bsr_conv_bf16": ("bsr_conv", "bf16_launches"),
     "bsr_matmul": ("bsr_matmul", "launches"),
     "bsr_matmul_wgmma": ("bsr_matmul", "wgmma_launches"),
     "flash_attention": ("flash_attention", "launches"),
@@ -766,12 +798,13 @@ def bound(nbytes: float, flops_f32: float = 0.0, flops_bf16: float = 0.0,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def conv_bytes(op, w, batch: int) -> int:
-    """f32 bytes the conv itself must move, apart from its weights: the input
+def conv_bytes(op, w, batch: int, itemsize: int = 4) -> int:
+    """Bytes the conv itself must move, apart from its weights: the input
     elements it reads once (the unpadded input's channels that hold a nonzero
     weight, at the rows and columns some output reaches through a tap that
     holds one; a strided 1x1 conv reads only every stride-th row and column),
-    the bias and the residual once, and the output once."""
+    the residual once and the output once, each of ``itemsize`` bytes (the
+    activations' dtype), and the f32 bias once."""
     nz = w != 0
     chans = int(nz.any(dim=3).any(dim=2).any(dim=0).sum())
     taps_r = nz.any(dim=3).any(dim=1).any(dim=0).nonzero().flatten().tolist()
@@ -781,8 +814,8 @@ def conv_bytes(op, w, batch: int) -> int:
     rows = sum(0 <= i < op.h for i in rows)
     cols = sum(0 <= j < op.w for j in cols)
     out = batch * op.m * op.e * op.f
-    return 4 * (batch * chans * rows * cols + op.m
-                + (out if op.res is not None else 0) + out)
+    return itemsize * (batch * chans * rows * cols
+                       + (out if op.res is not None else 0) + out) + 4 * op.m
 
 
 def device_breakdown(torch, fn, forward_ms: float, top: int = 6,
@@ -1073,6 +1106,237 @@ def kernel_phase(torch, mods, nets, device, batch, seed):
             print(json.dumps(vrow), flush=True)
             rows[name].append(vrow)
     return rows
+
+
+def _one_ulp_bf16(got, want) -> float:
+    """The largest |got - want| as a share of one bf16 ulp's allowance,
+    2^-7 |want| + 2^-8 max(1, max |want|) (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    tol = 2.0 ** -7 * w.abs() + 2.0 ** -8 * max(1.0, float(w.abs().max()))
+    return float(((g - w).abs() / tol).max())
+
+
+def _bf16_vs_f32(got, want) -> float:
+    """The largest |got - want| as a share of BF16_TOL (1 + |want|)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (BF16_TOL * (1 + w.abs()))).max())
+
+
+def _even_slab(torch, mods, op, xpad):
+    """A bf16 padded input as ``ops.sparse_conv`` gives it to the staged
+    kernel: one more zero column where its width is odd."""
+    wp = xpad.shape[3]
+    if op.k == 1:
+        return xpad
+    return torch.nn.functional.pad(xpad, (0, mods["slab_width"](wp, 2) - wp))
+
+
+def _ell_plain_bf16(torch, mods, op, xpad, ell, bias, res):
+    """The ELL plain version on the operands ``ops.sparse_conv`` gives the
+    kernel at bf16."""
+    xpad = _even_slab(torch, mods, op, xpad)
+    return mods["ell_plain"](
+        xpad, ell.value, mods["ops_ell"].pack_indices(ell), ell.nnz, bias,
+        res, rs=op.k * op.k, s=op.k, e=op.e, f=op.f, stride=op.stride,
+        fuse_relu=op.fuse_relu)
+
+
+def bf16_phase(torch, mods, nets, device, batch, seed, f32_rows):
+    """The two conv kernels on bf16 activations: ResNet-50's 39 sparse convs
+    counted through both ops, each output held to its plain version and to
+    the f32 kernel; then rows 1c and 2e timed at ``KERNEL_LAYERS`` (beside
+    the kernel phase's f32 rows, ``f32_rows``).  Returns (rows by kernel,
+    launches by kernel)."""
+    np, dc = mods["np"], dataclasses
+    F = torch.nn.functional
+    ops_ell, ops_bsr = mods["ops_ell"], mods["ops_bsr"]
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+
+    def operands(net_name, op):
+        entry = nets[net_name][1][op.name]
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, op.c, op.h, op.w)).astype(np.float32)).to(device)
+        bias = torch.from_numpy(
+            rng.standard_normal(op.m).astype(np.float32)).to(device)
+        res = (torch.from_numpy(rng.standard_normal(
+            (batch, op.m, op.e, op.f)).astype(np.float32)).to(device)
+            if op.res is not None else None)
+        # the bf16 banks, and the same weights widened for the f32 kernels
+        ell16 = dc.replace(entry["ell"], value=entry["ell"].value.to(bf16))
+        bc = mods["bcsr_from_dense"](entry["w"].cpu().numpy(),
+                                     block=mods["block"], device=device)
+        bc16 = dc.replace(bc, blocks=bc.blocks.to(bf16))
+        return dict(op=op, w=entry["w"], x=x, bias=bias, res=res,
+                    ell=dc.replace(ell16, value=ell16.value.float()),
+                    bc=dc.replace(bc16, blocks=bc16.blocks.float()),
+                    x16=x.to(bf16),
+                    res16=None if res is None else res.to(bf16),
+                    ell16=ell16, bc16=bc16)
+
+    def run(L, bf, kind):
+        op = L["op"]
+        kw = dict(stride=op.stride, padding=op.pad, bias=L["bias"],
+                  fuse_relu=op.fuse_relu,
+                  residual=L["res16"] if bf else L["res"])
+        x = L["x16"] if bf else L["x"]
+        if kind == "ell":
+            return ops_ell.sparse_conv(x, L["ell16"] if bf else L["ell"],
+                                       layer=op.name, **kw)
+        return ops_bsr.bsr_conv(x, L["bc16"] if bf else L["bc"],
+                                layer=op.name, **kw)
+
+    program = nets["resnet50"][0]
+    layers = [operands("resnet50", op) for op in program.conv_ops
+              if op.sparsity > 0]
+    n = len(layers)
+    check(n == EXPECTED_SPARSE["resnet50"],
+          f"bf16: {n} sparse convs, expected {EXPECTED_SPARSE['resnet50']}")
+    for L in layers:          # warm-up: stretched banks, column checks
+        run(L, True, "ell"), run(L, True, "bsr")
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    outs = [(run(L, True, "ell"), run(L, True, "bsr")) for L in layers]
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    want = expect(sparse_conv=n, sparse_conv_bf16=n, bsr_conv=n,
+                  bsr_conv_bf16=n)
+    check(counts == want, f"bf16: kernel launches {counts}, expected {want}")
+    worst = {"ell_plain": 0.0, "bsr_plain_ulps": 0.0, "ell_vs_f32": 0.0,
+             "bsr_vs_f32": 0.0}
+    for L, (ye, yb) in zip(layers, outs):
+        op = L["op"]
+        check(ye.dtype == yb.dtype == bf16, f"bf16 {op.name}: output dtype "
+              f"{ye.dtype} / {yb.dtype}")
+        check(bool(torch.isfinite(ye).all() and torch.isfinite(yb).all()),
+              f"bf16 {op.name}: non-finite output")
+        pe = _ell_plain_bf16(torch, mods, op,
+                             mods["pad_in"](L["x16"], op.pad),
+                             L["ell16"], L["bias"], L["res16"])
+        err = float((ye.float() - pe.float()).abs().max())
+        check(torch.equal(ye, pe), f"bf16 {op.name}: ELL kernel not bit for "
+              f"bit its plain version (max_abs_err {err})")
+        pb = mods["bsr_blocked_ref"](L["x16"], L["bc16"], stride=op.stride,
+                                     padding=op.pad, bias=L["bias"],
+                                     fuse_relu=op.fuse_relu,
+                                     residual=L["res16"])
+        ulps = _one_ulp_bf16(yb, pb)
+        check(ulps <= 1.0, f"bf16 {op.name}: BCSR kernel past one bf16 ulp "
+              f"of its plain version ({ulps:.3f} of the allowance)")
+        e32 = _bf16_vs_f32(ye, run(L, False, "ell"))
+        b32 = _bf16_vs_f32(yb, run(L, False, "bsr"))
+        check(e32 <= 1.0 and b32 <= 1.0, f"bf16 {op.name}: past {BF16_TOL} "
+              f"of the f32 kernels (ELL {e32:.3f}, BCSR {b32:.3f} of it)")
+        for key, v in (("ell_plain", err), ("bsr_plain_ulps", ulps),
+                       ("ell_vs_f32", e32), ("bsr_vs_f32", b32)):
+            worst[key] = max(worst[key], v)
+    outs.clear()
+    layers.clear()
+
+    rows = {"sparse_conv_bf16": [], "bsr_conv_bf16": []}
+    for net_name, layer in KERNEL_LAYERS:
+        op = {o.name: o for o in nets[net_name][0].conv_ops}[layer]
+        L = operands(net_name, op)
+        kw = dict(rs=op.k * op.k, s=op.k, e=op.e, f=op.f, stride=op.stride,
+                  fuse_relu=op.fuse_relu)
+        w16 = L["w"].to(bf16)
+        b16 = L["bias"].to(bf16)
+        lib = lambda: F.conv2d(L["x16"], w16, b16, stride=op.stride,  # noqa: E731
+                               padding=op.pad)
+        lib_ms = time_cuda(torch, lib, reps=20, warmup=3)
+        act = conv_bytes(op, L["w"], batch, itemsize=2)
+        flops_per = batch * op.e * op.f
+        f32_ms = {k: next(r["kernel_ms"] for r in f32_rows[k]
+                          if (r["net"], r["layer"]) == (net_name, layer))
+                  for k in ("sparse_conv", "bsr_conv")}
+
+        # -- 1c: the ELL kernel on a bf16 bank and bf16 activations ------
+        ell = L["ell16"]
+        xpad = _even_slab(torch, mods, op, mods["pad_in"](L["x16"], op.pad))
+        args = (xpad, ell.value, ops_ell.pack_indices(ell), ell.nnz,
+                L["bias"], L["res16"])
+        sched, reason = ops_ell.resolve_schedule(
+            op.m, ell.k, op.e, op.f, n=batch, c=op.c, r=op.k, s=op.k,
+            stride=op.stride, hp=op.h + 2 * op.pad, wp=op.w + 2 * op.pad,
+            itemsize=2)
+        check(sched is not None, f"bf16 {layer}: no ELL schedule ({reason})")
+        got = mods["ell_kernel"](*args, schedule=sched, **kw)
+        plain = mods["ell_plain"](*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain),
+              f"bf16 {layer}: ELL kernel not bit for bit its plain version")
+        run_ell = lambda: mods["ell_kernel"](  # noqa: E731
+            *args, schedule=sched, **kw)
+        ms = time_cuda(torch, run_ell, reps=20, warmup=3)
+        dev_ms = device_ms(torch, run_ell, reps=10)
+        plain_ms = time_cuda(torch, lambda: mods["ell_plain"](*args, **kw),
+                             reps=2, warmup=1)
+        nnz = int(ell.nnz.sum())
+        # a bf16 value and an int32 index a nonzero, the row lengths
+        moved = act + nnz * 6 + ell.nnz.numel() * 4
+        # bf16 products summed in f32: the card's bf16 peak prices them;
+        # the f32 FMA units' peak and ELL_FLOPS are extra columns
+        b_ms, b_by = bound(moved, flops_bf16=2.0 * nnz * flops_per)
+        fma_ms, _ = bound(moved, flops_f32=2.0 * nnz * flops_per)
+        ell_ms = max(moved / PEAK_BYTES, 2.0 * nnz * flops_per
+                     / mods["roofline"].ELL_FLOPS) * 1e3
+        row = {"kernel": "sparse_conv_bf16", "net": net_name,
+               "layer": layer, "schedule": dataclasses.asdict(sched),
+               "bit_identical": True, "max_abs_err": 0.0, "kernel_ms": ms,
+               "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_f32_fma_ms": fma_ms, "bound_ell_ms": ell_ms,
+               "bound_bytes": moved,
+               "f32_ms": f32_ms["sparse_conv"]}
+        print(json.dumps(row), flush=True)
+        rows["sparse_conv_bf16"].append(row)
+
+        # -- 2e: the BCSR kernel on bf16 tiles, one bf16 wgmma a step -----
+        bc = L["bc16"]
+        gbm, _, bm, bn = bc.blocks.shape
+        mpad = gbm * bm
+        tile, reason = ops_bsr.resolve_bsr_schedule(
+            bm, bn, op.e, op.f, n=batch, m=mpad, crs=op.c * op.k * op.k,
+            value_dtype=bc.value_dtype, itemsize=2)
+        check(tile is not None, f"bf16 {layer}: no BCSR schedule ({reason})")
+        bpad = torch.zeros(mpad, device=device)
+        bpad[:op.m] = L["bias"]
+        rpad = None
+        if L["res16"] is not None:
+            rpad = torch.zeros((batch, mpad, op.e, op.f), dtype=bf16,
+                               device=device)
+            rpad[:, :op.m] = L["res16"]
+        bargs = (mods["pad_in"](L["x16"], op.pad), bc.blocks, bc.blockcol,
+                 bc.nblocks, bpad, rpad)
+        bkw = dict(kw, n_tile=tile[0], wgs=tile[1])
+        got = mods["bsr_kernel"](*bargs, **bkw)
+        plain = mods["bsr_plain"](*bargs, **kw)
+        torch.cuda.synchronize()
+        ulps = _one_ulp_bf16(got, plain)
+        check(ulps <= 1.0, f"bf16 {layer}: BCSR kernel past one bf16 ulp")
+        run_bsr = lambda: mods["bsr_kernel"](*bargs, **bkw)  # noqa: E731
+        ms = time_cuda(torch, run_bsr, reps=20, warmup=3)
+        dev_ms = device_ms(torch, run_bsr, reps=10)
+        plain_ms = time_cuda(torch, lambda: mods["bsr_plain"](*bargs, **kw),
+                             reps=2, warmup=1)
+        kept = int(bc.nblocks.sum())
+        moved = act + kept * bm * bn * 2 + kept * 4 + gbm * 4
+        b_ms, b_by = bound(moved, flops_bf16=2.0 * kept * bm * bn * flops_per)
+        row = {"kernel": "bsr_conv_bf16", "net": net_name, "layer": layer,
+               "schedule": {"n_tile": tile[0], "warpgroups": tile[1]},
+               "max_abs_err": float((got.float() - plain.float()).abs()
+                                    .max()),
+               "ulp_share": ulps, "kernel_ms": ms, "kernel_device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_tc_ms": b_ms, "bound_bytes": moved,
+               "f32_ms": f32_ms["bsr_conv"]}
+        print(json.dumps(row), flush=True)
+        rows["bsr_conv_bf16"].append(row)
+    print(json.dumps({"phase": "bf16", "layers": n, "launches": counts,
+                      "worst": worst,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return rows, {name: counts[name] for name in KERNEL_NAMES}
 
 
 def path_phase(torch, mods, nets, device, batch, image, seed):
@@ -4338,6 +4602,44 @@ def _in_proj_width(cfg) -> int:
     return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
 
 
+def dryrun_phase():
+    """The dry run's two cells, each in a subprocess that sees no card;
+    each cell's roofline lines printed and its JSON checked."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    for arch, shape, flags in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--tag", "smoke", *flags]
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=DRYRUN_TIMEOUT_S)
+        check(r.returncode == 0, f"dryrun {arch} x {shape}: exit "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        for line in r.stdout.splitlines():
+            if line.startswith(("==", "   ")):
+                print(line, flush=True)
+        mesh = "2x16x16" if "--multi-pod" in flags else "16x16"
+        path = os.path.join(ROOT, "experiments", "dryrun_torch",
+                            f"{arch}__{shape}__{mesh}__smoke.json")
+        with open(path) as f:
+            out = json.load(f)
+        check(out["flops"] > 0 and out["coll_bytes"] > 0
+              and out["hbm_bytes"] > 0, f"dryrun {arch} x {shape}: empty "
+              f"counts {out}")
+        check((out["probe_info"] is not None) == (mesh == "16x16"),
+              f"dryrun {arch} x {shape}: probes {out['probe_info']}")
+        keep = ("flops", "hbm_bytes", "coll_bytes", "coll_breakdown",
+                "coll_cross_bytes", "model_flops", "t_compute", "t_memory",
+                "t_collective", "bottleneck", "useful_ratio",
+                "mem_arg_bytes", "mem_temp_bytes", "lower_s")
+        print(json.dumps({"phase": "dryrun", "arch": arch, "shape": shape,
+                          "mesh": mesh, **{k: out[k] for k in keep},
+                          "seconds": time.perf_counter() - t1}), flush=True)
+    print(json.dumps({"phase": "dryrun", "seconds":
+                      time.perf_counter() - t0}), flush=True)
+
+
 def kernel_entries(rows, launches, arch_rows):
     """The ``kernels`` JSON line's entries: each kernel's source, the TPU
     kernel it replaces, its counted launches, and its rows' error, times
@@ -4355,6 +4657,11 @@ def kernel_entries(rows, launches, arch_rows):
         **{name: ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
                   "src/repro/kernels/bsr_conv/kernel.py:155")
            for name, _, _ in BSR_VARIANTS},
+        "sparse_conv_bf16": (
+            "src/repro_torch/kernels/sparse_conv/csrc/sparse_conv.cu",
+            "src/repro/kernels/sparse_conv/kernel.py:213"),
+        "bsr_conv_bf16": ("src/repro_torch/kernels/bsr_conv/csrc/bsr_conv.cu",
+                          "src/repro/kernels/bsr_conv/kernel.py:155"),
         "bsr_matmul": ("src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
                        "src/repro/kernels/bsr_matmul/kernel.py:49"),
         "flash_attention": (
@@ -4412,6 +4719,26 @@ def kernel_entries(rows, launches, arch_rows):
                  f"(8, 128) f32 bank's kernel_ms; library_ms F.conv2d on the "
                  f"(dequantised) weights; launches from the auto phase"
            for name, vdt, block in BSR_VARIANTS},
+        "sparse_conv_bf16": f"the ELL kernel on bf16 activations and a bf16 "
+                            f"bank (widened to f32 pairs), pipelined: sums "
+                            f"over the kernel phase's "
+                            f"{len(rows['sparse_conv_bf16'])} layers, batch "
+                            f"{BATCH}; bound_ms bf16 bytes and bf16 "
+                            f"operations at 989 TFLOP/s, bound_f32_fma_ms "
+                            f"the operations at the FMA units' 67 TFLOP/s, "
+                            f"bound_ell_ms at launch/roofline.py's "
+                            f"ELL_FLOPS; f32_ms the f32 "
+                            f"kernel_ms; library_ms F.conv2d in bf16 "
+                            f"(cuDNN); launches from the bf16 phase's "
+                            f"counted run (ResNet-50's 39 sparse convs)",
+        "bsr_conv_bf16": f"the BCSR kernel on bf16 activations and bf16 "
+                         f"(8, 128) tiles, one bf16 wgmma a 16-deep step: "
+                         f"sums over the kernel phase's "
+                         f"{len(rows['bsr_conv_bf16'])} layers, batch "
+                         f"{BATCH}; bound_ms at 989 TFLOP/s bf16; f32_ms the "
+                         f"f32 kernel_ms; library_ms F.conv2d in bf16 "
+                         f"(cuDNN); launches from the bf16 phase's counted "
+                         f"run",
         "bsr_matmul": "sums over wq, wk, gate and down at 4 rows (the rows "
                       "schedule) and 8192 rows (the wgmma schedule), Yi-9B, "
                       "bf16 in and out, sparsity 0.8; rows_* and wgmma_* "
@@ -4503,6 +4830,9 @@ def kernel_entries(rows, launches, arch_rows):
             entry["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows[name])
         if name == "sparse_conv":
             entry["blocking_ms"] = sum(r["blocking_ms"] for r in rows[name])
+        if name == "sparse_conv_bf16":
+            for key in ("bound_f32_fma_ms", "bound_ell_ms"):
+                entry[key] = sum(r[key] for r in rows[name])
         if name == "bsr_conv":
             entry["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows[name])
         if arch_rows.get(name):
@@ -4569,7 +4899,10 @@ def load_modules() -> dict:
                                                   bsr_conv_split_plain)
     from repro_torch.kernels.sparse_conv import ops as ops_ell
     from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
-    from repro_torch.kernels.sparse_conv.ref import sparse_conv_plain
+    from repro_torch.kernels.sparse_conv.ref import (slab_width,
+                                                     sparse_conv_plain)
+    from repro_torch.kernels.bsr_conv.ref import bsr_conv_blocked_ref
+    from repro_torch.launch import roofline
     from repro_torch.models import cnn
     from repro_torch import configs
     from repro_torch.core.pruning import block_prune
@@ -4653,7 +4986,9 @@ def load_modules() -> dict:
                 serve_main=serve_main, budget=budget, S=S,
                 make_mesh=make_mesh, moe_ep=moe_ep, place_batch=place_batch,
                 place_state=place_state, state_placements=state_placements,
-                steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix)
+                steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix,
+                slab_width=slab_width, bsr_blocked_ref=bsr_conv_blocked_ref,
+                roofline=roofline)
     return mods
 
 
@@ -4711,9 +5046,12 @@ def main() -> int:
         pre = preflight_phase(torch, mods, nets, device, BATCH, roofline,
                               args.seed)
         serve_cnn = cnn_serve_phase(torch, mods, nets, device, args.seed)
+        bf16_rows, bf16 = bf16_phase(torch, mods, nets, device, BATCH,
+                                     args.seed, rows)
+        rows.update(bf16_rows)
         for name in CNN_NAMES:
             launches[name] = (launches.get(name, 0) + auto[name] + pre[name]
-                              + serve_cnn[name])
+                              + serve_cnn[name] + bf16[name])
         nets.clear()
         torch.cuda.empty_cache()
         rows.update(llm_kernel_phase(torch, mods, device, args.seed))
@@ -4732,6 +5070,7 @@ def main() -> int:
                                                args.seed)
         families_train = families_train_phase(torch, mods, device, args.seed)
         mesh = mesh_phase(torch, mods, device, args.seed)
+        dryrun_phase()
         arch_rows = {name: (moe_rows.get(name, []) + family_rows.get(name, [])
                             + dims_extra.get(name, []))
                      for name in {**moe_rows, **family_rows, **dims_extra}}

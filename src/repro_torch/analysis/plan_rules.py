@@ -39,9 +39,11 @@ includes the v6 value-dtype axis: an entry pinning an unknown value dtype,
 or one its key's backend cannot execute (fp8 on ``cpu``), reports as
 ``sched.value_dtype``; quantised BCSR entries replay their probe with the
 narrow tile bytes the kernel stages, so a schedule that only fits with
-quantised values is caught at the dtype it will actually run.  A
-``pallas``/``bsr`` entry keyed at bf16 or f16 activations reports as
-``sched.dtype_policy``: the card's conv kernels take f32.
+quantised values is caught at the dtype it will actually run.  Entries
+keyed at bf16 activations replay at bf16 (half the slab and operand bytes,
+as the reference's replay takes its key's item size); a ``pallas``/``bsr``
+entry keyed at f16 reports as ``sched.dtype_policy``: the card's conv
+kernels take f32 and bf16.
 """
 
 from __future__ import annotations
@@ -155,7 +157,7 @@ def _check_entry_schedule(
         tm = entry.get("tm")
         pipeline = bool(entry.get("pipeline", False))
         sched, reason = ell_schedule(op, batch=g.batch, tm=tm,
-                                     pipeline=pipeline)
+                                     pipeline=pipeline, dtype=g.dtype)
         if sched is None:
             return [_diag(
                 REASON_RULES[reason], "error",
@@ -172,7 +174,7 @@ def _check_entry_schedule(
     if bm is None or bn is None:
         return []  # reported as plan.stale_bsr_no_block already
     sched, reason = bsr_schedule(op, int(bm), int(bn), batch=g.batch,
-                                 value_dtype=vdt)
+                                 value_dtype=vdt, dtype=g.dtype)
     if sched is None:
         return [_diag(
             REASON_RULES[reason], "error",

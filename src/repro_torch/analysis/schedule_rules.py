@@ -32,8 +32,11 @@ Rules:
                          conv is 1x1 (which stages nothing) -> the kernel
                          silently runs the blocking schedule (warning)
   sched.dtype_policy     geometry dtype outside the kernels' policy: the
-                         card's conv launchers take f32 activations only,
-                         so a pallas/bsr entry at bf16 or f16 is an error
+                         card's conv launchers take f32 and bf16
+                         activations (the reference's bf16/f32-in, f32-sum
+                         policy), so a pallas/bsr entry at f16 is an error
+                         (a deliberate difference: the reference's admits
+                         f16)
   sched.halo_bounds      the conv's last window would read past the padded
                          input extent (the launchers' own check; an
                          invariant of the lowered geometry)
@@ -87,7 +90,7 @@ RULES = {
     ),
     "sched.dtype_policy": (
         "error",
-        "dtype outside the card's f32-in, f32-accumulate conv kernels",
+        "dtype outside the card's bf16/f32-in, f32-accumulate conv kernels",
     ),
     "sched.halo_bounds": (
         "error",
@@ -106,10 +109,16 @@ RULES = {
 }
 
 # Activation dtypes a lowered net may carry (the reference's policy), and
-# the ones the card's conv kernels take (``kernels/*/kernel.py``: f32 only;
-# bf16 conv kernels are later work).
+# the ones the card's conv kernels take (``kernels/*/kernel.py``: f32 and
+# bf16; f16 would be a third instance of each kernel, not ported).
 SUPPORTED_DTYPES = ("float32", "bfloat16", "float16")
-KERNEL_DTYPES = ("float32",)
+KERNEL_DTYPES = ("float32", "bfloat16")
+
+
+def itemsize(dtype: str) -> int:
+    """Bytes an activation element of ``dtype`` takes (the reference's
+    ``_itemsize``)."""
+    return 2 if dtype in ("bfloat16", "float16") else 4
 
 # The channel tiles ``tm`` the ELL kernel instantiates.
 ELL_TMS = tuple(sorted({t for t, _ in budget.ELL_TILES}))
@@ -120,24 +129,27 @@ _DEFAULT_BLOCK = (8, 128)
 
 
 def ell_schedule(op: ConvOp, *, batch: int, tm: Optional[int] = None,
-                 pipeline: Optional[bool] = None):
-    """The ELL kernel's schedule for ``op``, as the engine asks for it:
-    ``(EllSchedule, None)`` or ``(None, reason)``.  The bank's K does not
-    enter the card's schedule (``c`` is given)."""
+                 pipeline: Optional[bool] = None, dtype: str = "float32"):
+    """The ELL kernel's schedule for ``op``, as ``ops.sparse_conv`` asks
+    for it at ``dtype`` activations: ``(EllSchedule, None)`` or ``(None,
+    reason)``.  The bank's K does not enter the card's schedule (``c`` is
+    given)."""
     return resolve_schedule(
         op.m, op.c, op.e, op.f, n=batch, c=op.c, r=op.k, s=op.k,
         stride=op.stride, hp=op.h + 2 * op.pad, wp=op.w + 2 * op.pad, tm=tm,
-        pipeline=pipeline)
+        pipeline=pipeline, itemsize=itemsize(dtype))
 
 
 def bsr_schedule(op: ConvOp, bm: int, bn: int, *, batch: int,
-                 value_dtype: str = "float32"):
-    """The BCSR kernel's schedule for ``op`` blocked at (bm, bn), as the
-    engine asks for it: M padded to whole block-rows, the C*R*S columns."""
+                 value_dtype: str = "float32", dtype: str = "float32"):
+    """The BCSR kernel's schedule for ``op`` blocked at (bm, bn) at
+    ``dtype`` activations, as ``ops.bsr_conv`` asks for it: M padded to
+    whole block-rows, the C*R*S columns."""
     gbm = -(-op.m // bm)
     return resolve_bsr_schedule(bm, bn, op.e, op.f, n=batch, m=gbm * bm,
                                 crs=op.c * op.k * op.k,
-                                value_dtype=value_dtype)
+                                value_dtype=value_dtype,
+                                itemsize=itemsize(dtype))
 
 
 def _halo_check(op: ConvOp, *, net: Optional[str]) -> List[Diagnostic]:
@@ -244,7 +256,7 @@ def check_pallas_entry(
     if out:
         return out
     sched, reason = ell_schedule(op, batch=batch, tm=entry.tm,
-                                 pipeline=entry.pipeline)
+                                 pipeline=entry.pipeline, dtype=dtype)
     if sched is None:
         return [Diagnostic(
             rule=REASON_RULES[reason], severity="error",
@@ -300,7 +312,8 @@ def check_bsr_entry(
         return out
     bm, bn = int(entry.block_m), int(entry.block_n)
     vdt = getattr(entry, "value_dtype", None) or "float32"
-    sched, reason = bsr_schedule(op, bm, bn, batch=batch, value_dtype=vdt)
+    sched, reason = bsr_schedule(op, bm, bn, batch=batch, value_dtype=vdt,
+                                 dtype=dtype)
     if sched is None:
         return [Diagnostic(
             rule=REASON_RULES[reason], severity="error",
@@ -319,16 +332,17 @@ def _probe_methods(op: ConvOp, *, net: Optional[str], batch: int,
         return [Diagnostic(
             rule="sched.dtype_policy", severity="info",
             message=(f"methods pallas and bsr unavailable at {dtype} "
-                     f"activations (the card's conv kernels take f32)"),
+                     f"activations (the card's conv kernels take "
+                     f"{KERNEL_DTYPES})"),
             net=net, layer=op.name)]
-    sched, reason = ell_schedule(op, batch=batch)
+    sched, reason = ell_schedule(op, batch=batch, dtype=dtype)
     if sched is None:
         out.append(Diagnostic(
             rule=REASON_RULES[reason], severity="info",
             message=f"method pallas unavailable for this geometry: {reason}",
             net=net, layer=op.name))
     bm, bn = _DEFAULT_BLOCK
-    sched, reason = bsr_schedule(op, bm, bn, batch=batch)
+    sched, reason = bsr_schedule(op, bm, bn, batch=batch, dtype=dtype)
     if sched is None:
         out.append(Diagnostic(
             rule=REASON_RULES[reason], severity="info",

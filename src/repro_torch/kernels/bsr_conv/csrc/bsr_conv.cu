@@ -60,6 +60,14 @@
 //     channel's f32 sum in the epilogue, once, before the bias: the
 //     reference scales each tile's contribution, the same function up to
 //     f32 rounding (ref.py's plain version does what the kernel does).
+//   * bf16 activations (the TPU kernel stages xpad.dtype; HALF): no split.
+//     The A fragments are the bf16 inputs as they are, the B operand bf16
+//     tiles (copied as they are) or a quantised bank's bytes converted on
+//     chip into bf16 (int8 and e4m3 values are exact in bf16), and each
+//     16-deep step is one wgmma m64nNk16 .f32.bf16.bf16: a product of two
+//     bf16 values is exact in f32, one product a step where split TF32
+//     takes three 8-deep ones.  The epilogue reads the bf16 residual and
+//     writes bf16, rounded once from the f32 sums.
 //   * The tensor cores add into their f32 accumulator with truncation, so
 //     that error grows with the wgmmas a sum takes: each group of 4 steps
 //     sums into a fresh partial, added into the f32 sums with rounded adds
@@ -77,13 +85,18 @@
 // block column, 64 KB a column at N = 64 (bsr_conv/ablate.py, PERF.md).
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
-// residual may be null; qtype 0 takes the f32 tiles' TF32 halves (whi,
-// wlo), 1 (int8) or 2 (e4m3) the tiles' bytes in whi and the (GBM*BM) f32
-// scales (wlo null); returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a shape no instantiation takes.
+// residual may be null; act 0 (f32 xpad, residual and out) or 1 (bf16);
+// qtype 0 takes the f32 tiles' TF32 halves (whi, wlo) at act 0, the bf16
+// tiles in whi at act 1 (wlo null), 1 (int8) or 2 (e4m3) the tiles' bytes
+// in whi and the (GBM*BM) f32 scales (wlo null); returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape no instantiation takes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -185,6 +198,72 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 32, f32) = A (64 x 16, bf16 fragments in registers) B^T + D if
+// scale_d else 0, B (32 x 16) K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = A (64 x 16, bf16 fragments in registers) B^T + D if
+// scale_d else 0, B (64 x 16) K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The activation type (f32, or bf16 under HALF), an element widened to f32
+// (exact) and an f32 result rounded once to it; two bf16 values packed into
+// a 32-bit word, the first in its low half.
+template <bool HALF>
+struct Act {
+  using T = float;
+};
+template <>
+struct Act<true> {
+  using T = __nv_bfloat16;
+};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // f32 -> TF32, rounded to nearest, ties away from zero (the low 13 bits
 // of the result are 0).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -219,32 +298,38 @@ __device__ __forceinline__ float narrow(uint32_t w, int j, int qtype) {
 
 // Shared memory, in order: BSTAGES stages of the B operand, each the hi
 // (N x BN) TF32 tile, element (n, k) at (k / 4) * N * 16 + n * 16 +
-// (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major), then the lo one
-// (f32 tiles) or the tiles' bytes (quantised: 16-byte piece (n, k / 16) at
-// ((k / 16) * N + n) * 16); 3 slots of BN int32 column offsets; the
-// (NB x KBC) int32 table of kept tiles; the KBC live columns.
-template <int BM, int N, int WGS, bool QUANT>
+// (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major; a bf16 tile's at
+// (k / 8) * N * 16 + n * 16 + (k % 8) * 2), then the lo one (f32 tiles on
+// f32 activations) or the tiles' bytes (quantised: 16-byte piece
+// (n, k / 16) at ((k / 16) * N + n) * 16); 3 slots of BN int32 column
+// offsets; the (NB x KBC) int32 table of kept tiles; the KBC live columns.
+template <int BM, int N, int WGS, bool QUANT, bool HALF>
 __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
-    const float* __restrict__ xpad, const float* __restrict__ whi,
-    const float* __restrict__ wlo, const float* __restrict__ scale,
-    const int* __restrict__ blockcol, const int* __restrict__ nblocks,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int GBM,
-    int KB, int RS, int S, int E, int F, int stride, int relu, int qtype) {
+    const typename Act<HALF>::T* __restrict__ xpad,
+    const float* __restrict__ whi, const float* __restrict__ wlo,
+    const float* __restrict__ scale, const int* __restrict__ blockcol,
+    const int* __restrict__ nblocks, const float* __restrict__ bias,
+    const typename Act<HALF>::T* __restrict__ residual,
+    typename Act<HALF>::T* __restrict__ out, int NIMG, int C, int Hp,
+    int Wp, int GBM, int KB, int RS, int S, int E, int F, int stride,
+    int relu, int qtype) {
   static_assert(N % BM == 0, "a group holds whole block-rows");
   constexpr int NB = N / BM;      // block-rows of the group
   constexpr int NTH = WGS * WG;
   constexpr int NWARPS = NTH / 32;
   constexpr int ACC = N / 2;      // f32 accumulator registers a thread
-  constexpr int KS = BN / 8;      // 8-deep steps a block column
+  constexpr int OPB = HALF ? 2 : 4;          // bytes of an operand element
+  constexpr int KS = BN / (32 / OPB);  // 8-deep (TF32), 16-deep (bf16) steps
   constexpr int GS = 4;           // steps a partial sums before it is added
   static_assert(KS % (2 * GS) == 0, "a column holds whole pairs of groups");
-  constexpr int TILE = N * BN * 4;            // bytes of one TF32 operand
-  // a stage: the TF32 operand, then the lo half or the tiles' bytes
-  constexpr int STAGE = TILE + (QUANT ? N * BN : TILE);
-  // a warp copies 8 rows of a tile (half) at a time: 8 rows x BN/4 pieces
-  // of 16 bytes (f32), 8 rows x BN/16 (bytes), PPL a lane
-  constexpr int PPL = QUANT ? 8 * (BN / 16) / 32 : 8 * (BN / 4) / 32;
+  constexpr int TILE = N * BN * OPB;          // bytes of one B operand
+  // a stage: the operand, then the TF32 lo half (f32 tiles on f32
+  // activations) or the tiles' bytes (quantised)
+  constexpr int STAGE = TILE + (QUANT ? N * BN : (HALF ? 0 : TILE));
+  // bytes of a tile row in device memory; a warp copies 8 rows of a tile
+  // (half) at a time, in pieces of 16 bytes, PPL a lane
+  constexpr int ROWB = BN * (QUANT ? 1 : OPB);
+  constexpr int PPL = 8 * (ROWB / 16) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int KBC = (C * RS + BN - 1) / BN;     // block columns of the bank
   const uint32_t bbase = smem_u32(smem);
@@ -318,7 +403,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     const int q = lane + 32 * u;
     const int m = q % 8;
     const int k16 = q / 8;
-    src_off[u] = m * BN * (QUANT ? 1 : 4) + 16 * k16;
+    src_off[u] = m * ROWB + 16 * k16;
     dst_off[u] = QUANT ? (k16 * N + m) * 16 : k16 * (N * 16) + m * 16;
   }
   // the group's tiles at live column t into B stage t % 2, zero where a
@@ -329,7 +414,8 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
       const int j = live[t];
       const uint32_t sb = bbase + (t % BSTAGES) * STAGE;
       constexpr int R8 = N / 8;   // 8-row pieces of the group
-      for (int job = gwarp; job < (QUANT ? 1 : 2) * R8; job += NWARPS) {
+      for (int job = gwarp; job < (QUANT || HALF ? 1 : 2) * R8;
+           job += NWARPS) {
         const int r8 = job % R8;
         const int half = job / R8;
         const int g = r8 / (BM / 8);
@@ -340,7 +426,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
                     : 0;
         const unsigned char* src =
             reinterpret_cast<const unsigned char*>(half ? wlo : whi) +
-            row0 * (QUANT ? 1 : 4);
+            row0 * (QUANT ? 1 : OPB);
         const uint32_t dst =
             sb + (QUANT || half ? TILE : 0) + r8 * 8 * 16;
 #pragma unroll
@@ -350,8 +436,9 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     }
     cp_commit();
   };
-  // a quantised stage's bytes into its TF32 operand: 16 values a thread at
-  // a time, piece (n, k16) -> four 16-byte slots (k / 4, n)
+  // a quantised stage's bytes into its operand: 16 values a thread at a
+  // time, piece (n, k16) -> four 16-byte slots (k / 4, n) of TF32, or two
+  // (k / 8, n) of bf16
   auto convert = [&](int t) {
     unsigned char* st = smem + (t % BSTAGES) * STAGE;
     for (int p = tid; p < N * (BN / 16); p += NTH) {
@@ -360,11 +447,25 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
       const uint4 raw = *reinterpret_cast<const uint4*>(
           st + TILE + (k16 * N + n) * 16);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      if (HALF) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(st + (4 * k16 + i) * (N * 16) + n * 16) =
-            make_float4(narrow(w[i], 0, qtype), narrow(w[i], 1, qtype),
-                        narrow(w[i], 2, qtype), narrow(w[i], 3, qtype));
+        for (int h = 0; h < 2; ++h) {
+          uint32_t v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = pack_bf16(narrow(w[2 * h + i / 2], 2 * (i % 2), qtype),
+                             narrow(w[2 * h + i / 2], 2 * (i % 2) + 1, qtype));
+          *reinterpret_cast<uint4*>(st + (2 * k16 + h) * (N * 16) + n * 16) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(st + (4 * k16 + i) * (N * 16) +
+                                     n * 16) =
+              make_float4(narrow(w[i], 0, qtype), narrow(w[i], 1, qtype),
+                          narrow(w[i], 2, qtype), narrow(w[i], 3, qtype));
+      }
     }
   };
 
@@ -402,18 +503,36 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
 
   // The A values of a whole column are gathered a column ahead: step ks
   // of column c + 1 is loaded into xv[ks] as soon as step ks of column c
-  // has been split, so each load has a column's products to land.
-  // xv[ks]: (row gid, col tig), (gid + 8, tig), (gid, tig + 4),
-  // (gid + 8, tig + 4) of the step's 16 x 8, the TF32 A fragment's order.
-  float xv[KS][4];
+  // has been split (TF32) or copied (bf16), so each load has a column's
+  // products to land.  TF32, xv[ks]: (row gid, col tig), (gid + 8, tig),
+  // (gid, tig + 4), (gid + 8, tig + 4) of the step's 16 x 8, the A
+  // fragment's order; bf16, the four words of the step's 16 x 16: (gid,
+  // 2 tig and 2 tig + 1), (gid + 8, ...), (gid, 2 tig + 8 and + 9),
+  // (gid + 8, ...).
+  using FragT = typename std::conditional<HALF, uint32_t, float>::type;
+  FragT xv[KS][4];
+  const unsigned short* xh = reinterpret_cast<const unsigned short*>(xpad);
   auto gather = [&](int col, int ks) {
     if (col >= nl) return;
-    const int* co = coloff + (col % 3) * BN + ks * 8 + tig;
-    const int c0 = co[0], c4 = co[4];
-    xv[ks][0] = __ldg(xpad + pbase[0] + c0);
-    xv[ks][1] = __ldg(xpad + pbase[1] + c0);
-    xv[ks][2] = __ldg(xpad + pbase[0] + c4);
-    xv[ks][3] = __ldg(xpad + pbase[1] + c4);
+    if constexpr (HALF) {
+      const int* co = coloff + (col % 3) * BN + ks * 16 + 2 * tig;
+      const int c0 = co[0], c1 = co[1], c8 = co[8], c9 = co[9];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xv[ks][h] = __ldg(xh + pbase[h] + c0) |
+                    (static_cast<uint32_t>(__ldg(xh + pbase[h] + c1)) << 16);
+        xv[ks][2 + h] =
+            __ldg(xh + pbase[h] + c8) |
+            (static_cast<uint32_t>(__ldg(xh + pbase[h] + c9)) << 16);
+      }
+    } else {
+      const int* co = coloff + (col % 3) * BN + ks * 8 + tig;
+      const int c0 = co[0], c4 = co[4];
+      xv[ks][0] = __ldg(xpad + pbase[0] + c0);
+      xv[ks][1] = __ldg(xpad + pbase[1] + c0);
+      xv[ks][2] = __ldg(xpad + pbase[0] + c4);
+      xv[ks][3] = __ldg(xpad + pbase[1] + c4);
+    }
   };
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) gather(0, ks);
@@ -436,21 +555,31 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     const uint32_t sb0 = bbase + (col % BSTAGES) * STAGE;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      // split into the A fragments, gather the next column's step, issue
-      // the three products
+      // split into the A fragments (TF32) or take them as they are
+      // (bf16), gather the next column's step, issue the three products
+      // (TF32) or the one (bf16)
       uint32_t (&hi)[4] = ahi[ks % 2];
       uint32_t (&lo)[4] = alo[ks % 2];
 #pragma unroll
-      for (int v = 0; v < 4; ++v) split_tf32(xv[ks][v], hi[v], lo[v]);
+      for (int v = 0; v < 4; ++v) {
+        if constexpr (HALF)
+          hi[v] = xv[ks][v];
+        else
+          split_tf32(xv[ks][v], hi[v], lo[v]);
+      }
       gather(col + 1, ks);
       const uint32_t sb = sb0 + ks * 2 * (N * 16);
       const uint64_t dhi = smem_desc(sb, N * 16, 128);
       const uint64_t dlo = smem_desc(sb + TILE, N * 16, 128);
       float (&d)[ACC] = part[(ks / GS) % 2];
       wg_fence();
-      wgmma_tf32(d, hi, dhi, ks % GS != 0);
-      if (!QUANT) wgmma_tf32(d, hi, dlo, 1);
-      wgmma_tf32(d, lo, dhi, 1);
+      if constexpr (HALF) {
+        wgmma_bf16(d, hi, dhi, ks % GS != 0);
+      } else {
+        wgmma_tf32(d, hi, dhi, ks % GS != 0);
+        if (!QUANT) wgmma_tf32(d, hi, dlo, 1);
+        wgmma_tf32(d, lo, dhi, 1);
+      }
       wg_commit();
       wg_wait<1>();  // the step before has read its fragments
       if (ks % GS == 0 && ks > 0) {
@@ -490,59 +619,67 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
         float v = acc[n8 * 4 + h * 2 + b];
         if (QUANT) v = __fmul_rn(v, scale[m]);
         v = v + bias[m];
-        if (residual != nullptr) v += residual[o];
+        if (residual != nullptr) v += widen(residual[o]);
         if (relu) v = fmaxf(v, 0.f);
-        out[o] = v;
+        put(out + o, v);
       }
   }
 }
 
-template <int BM, int N, int WGS, bool QUANT>
-int launch(const float* x, const float* whi, const float* wlo,
+template <int BM, int N, int WGS, bool QUANT, bool HALF>
+int launch(const void* xv, const float* whi, const float* wlo,
            const float* sc, const int* bc, const int* nb, const float* b,
-           const float* res, float* o, int NIMG, int C, int Hp, int Wp,
+           const void* resv, void* ov, int NIMG, int C, int Hp, int Wp,
            int GBM, int KB, int RS, int S, int E, int F, int stride, int relu,
            int qtype, cudaStream_t st) {
+  using XT = typename Act<HALF>::T;
   const int KBC = (C * RS + BN - 1) / BN;
+  const size_t opb = HALF ? 2 : 4;
   const size_t smem =
-      static_cast<size_t>(BSTAGES) * N * BN * (4 + (QUANT ? 1 : 4)) +
+      static_cast<size_t>(BSTAGES) * N * BN *
+          (opb + (QUANT ? 1 : (HALF ? 0 : 4))) +
       4 * (3 * BN + (N / BM + 1) * KBC);
   const cudaError_t err = cudaFuncSetAttribute(
-      bsr_conv_tc_kernel<BM, N, WGS, QUANT>,
+      bsr_conv_tc_kernel<BM, N, WGS, QUANT, HALF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = NIMG * E * F;
   const dim3 grid((P + WGS * 64 - 1) / (WGS * 64),
                   (GBM + N / BM - 1) / (N / BM));
-  bsr_conv_tc_kernel<BM, N, WGS, QUANT><<<grid, WGS * WG, smem, st>>>(
-      x, whi, wlo, sc, bc, nb, b, res, o, NIMG, C, Hp, Wp, GBM, KB, RS, S,
-      E, F, stride, relu, qtype);
+  bsr_conv_tc_kernel<BM, N, WGS, QUANT, HALF><<<grid, WGS * WG, smem, st>>>(
+      static_cast<const XT*>(xv), whi, wlo, sc, bc, nb, b,
+      static_cast<const XT*>(resv), static_cast<XT*>(ov), NIMG, C, Hp, Wp,
+      GBM, KB, RS, S, E, F, stride, relu, qtype);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM>
-int pick(int n_tile, int wgs, int qtype, const float* x, const float* whi,
-         const float* wlo, const float* sc, const int* bc, const int* nb,
-         const float* b, const float* res, float* o, int NIMG, int C, int Hp,
-         int Wp, int GBM, int KB, int RS, int S, int E, int F, int stride,
-         int relu, cudaStream_t st) {
+int pick(int n_tile, int wgs, int qtype, int act, const void* x,
+         const float* whi, const float* wlo, const float* sc, const int* bc,
+         const int* nb, const float* b, const void* res, void* o, int NIMG,
+         int C, int Hp, int Wp, int GBM, int KB, int RS, int S, int E, int F,
+         int stride, int relu, cudaStream_t st) {
+#define BSR_CONV_KIND(N, W, Q, H)                                            \
+  return launch<BM, N, W, Q, H>(x, whi, wlo, sc, bc, nb, b, res, o, NIMG, C, \
+                                Hp, Wp, GBM, KB, RS, S, E, F, stride, relu,  \
+                                qtype, st);
 #define BSR_CONV_LAUNCH(N, W)                                                \
   if constexpr (N % BM == 0) {                                               \
-    if (n_tile == N && wgs == W)                                             \
-      return qtype ? launch<BM, N, W, true>(x, whi, wlo, sc, bc, nb, b, res, \
-                                            o, NIMG, C, Hp, Wp, GBM, KB, RS, \
-                                            S, E, F, stride, relu, qtype,    \
-                                            st)                              \
-                   : launch<BM, N, W, false>(x, whi, wlo, sc, bc, nb, b,     \
-                                             res, o, NIMG, C, Hp, Wp, GBM,   \
-                                             KB, RS, S, E, F, stride, relu,  \
-                                             qtype, st);                     \
+    if (n_tile == N && wgs == W) {                                           \
+      if (act) {                                                             \
+        if (qtype) BSR_CONV_KIND(N, W, true, true)                           \
+        BSR_CONV_KIND(N, W, false, true)                                     \
+      }                                                                      \
+      if (qtype) BSR_CONV_KIND(N, W, true, false)                            \
+      BSR_CONV_KIND(N, W, false, false)                                      \
+    }                                                                        \
   }
   BSR_CONV_LAUNCH(32, 1)
   BSR_CONV_LAUNCH(32, 2)
   BSR_CONV_LAUNCH(64, 1)
   BSR_CONV_LAUNCH(64, 2)
 #undef BSR_CONV_LAUNCH
+#undef BSR_CONV_KIND
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -554,26 +691,25 @@ extern "C" int bsr_conv_tc(const void* xpad, const void* whi, const void* wlo,
                            const void* residual, void* out, int NIMG, int C,
                            int Hp, int Wp, int GBM, int KB, int BM, int bn,
                            int RS, int S, int E, int F, int stride,
-                           int n_tile, int wgs, int relu, int qtype,
+                           int n_tile, int wgs, int relu, int qtype, int act,
                            void* stream) {
-  const float* x = static_cast<const float*>(xpad);
   const float* hi = static_cast<const float*>(whi);
   const float* lo = static_cast<const float*>(wlo);
   const float* sc = static_cast<const float*>(scale);
   const int* bc = static_cast<const int*>(blockcol);
   const int* nb = static_cast<const int*>(nblocks);
   const float* b = static_cast<const float*>(bias);
-  const float* res = static_cast<const float*>(residual);
-  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the f32 tiles' split needs its lo half; bf16 and quantised tiles have
+  // none, a quantised bank its scales
   if (bn != BN || NIMG <= 0 || GBM <= 0 || qtype < 0 || qtype > 2 ||
-      (qtype ? sc == nullptr : lo == nullptr))
+      act < 0 || act > 1 || (qtype ? sc == nullptr : (lo == nullptr) != act))
     return static_cast<int>(cudaErrorInvalidValue);
 #define BSR_CONV_PICK(BM_)                                                   \
   case BM_:                                                                  \
-    return pick<BM_>(n_tile, wgs, qtype, x, hi, lo, sc, bc, nb, b, res, o,   \
-                     NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F, stride, relu,    \
-                     st);
+    return pick<BM_>(n_tile, wgs, qtype, act, xpad, hi, lo, sc, bc, nb, b,   \
+                     residual, out, NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F,   \
+                     stride, relu, st);
   switch (BM) {
     BSR_CONV_PICK(8)
     BSR_CONV_PICK(16)

@@ -3,8 +3,9 @@
 Port of ``repro/kernels/bsr_conv/ops.py``.  Handles pad_in, the card's
 schedule (``resolve_bsr_schedule``) and channel padding: the format blocks M
 up to gbm*bm, so bias and residual are padded in and the output is sliced
-back to M.  The kernel takes the tiles split into TF32 halves
-(``kernel.split_weights``), which a caller keeping the bank passes in.
+back to M.  On f32 inputs the kernel takes the tiles split into TF32
+halves (``kernel.split_weights``), which a caller keeping the bank passes
+in; on bf16 inputs bf16 (or quantised) tiles as they are.
 There is no fallback: a bank whose block the kernel does not take, or
 whose stages would not fit shared memory, raises.
 """
@@ -29,7 +30,7 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
                          m: Optional[int] = None, crs: Optional[int] = None,
                          n_tile: Optional[int] = None,
                          wgs: Optional[int] = None,
-                         value_dtype: str = "float32",
+                         value_dtype: str = "float32", itemsize: int = 4,
                          ) -> Tuple[Optional[Tuple[int, int]], Optional[str]]:
     """The block schedule ``bsr_conv`` launches, as a pure function:
     ``((n_tile, wgs), None)``, a tile of ``n_tile`` output channels by
@@ -39,11 +40,11 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
     The geometry: ``n`` images, ``m`` output channels (default one group),
     ``crs`` = C*R*S flattened columns (default one block column);
     ``value_dtype`` the tiles' storage (a quantised bank stages a byte a
-    weight).  Without pins, the tile is the first of
-    ``budget.BSR_CONV_TILES`` holding whole block-rows whose blocks number
-    ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be one the
-    source instantiates.
-    """
+    weight); ``itemsize`` the activation's (2: bf16, whose operand is half the
+    bytes of a TF32 one and has no lo half).  Without pins, the tile is the
+    first of ``budget.BSR_CONV_TILES`` holding whole block-rows whose blocks
+    number ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be one
+    the source instantiates."""
     if bm not in BM_CHOICES:
         return None, "unsupported_block"
     tiles = [(t, w) for t, w in budget.BSR_CONV_TILES
@@ -60,7 +61,8 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
             pick = (t, w)
             break
     if not budget.smem_fits(budget.bsr_conv_smem_bytes(
-            bm, bn, pick[0], kbc, budget.value_itemsize(value_dtype))):
+            bm, bn, pick[0], kbc, budget.value_itemsize(value_dtype),
+            itemsize)):
         return None, "smem_infeasible"
     if bn != BN:
         return None, "unsupported_block"
@@ -69,7 +71,7 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
 
 def bsr_tile_candidates(bm: int, bn: int, e: int, f: int, *, n: int = 1,
                         m: Optional[int] = None, crs: Optional[int] = None,
-                        value_dtype: str = "float32",
+                        value_dtype: str = "float32", itemsize: int = 4,
                         ) -> List[Tuple[int, int]]:
     """Every ``(n_tile, wgs)`` tile ``resolve_bsr_schedule`` accepts for a
     (bm, bn) block at this geometry, in ``budget.BSR_CONV_TILES``' order:
@@ -78,7 +80,8 @@ def bsr_tile_candidates(bm: int, bn: int, e: int, f: int, *, n: int = 1,
     for t, w in budget.BSR_CONV_TILES:
         sched, _ = resolve_bsr_schedule(bm, bn, e, f, n=n, m=m, crs=crs,
                                         n_tile=t, wgs=w,
-                                        value_dtype=value_dtype)
+                                        value_dtype=value_dtype,
+                                        itemsize=itemsize)
         if sched is not None:
             out.append(sched)
     return out
@@ -92,20 +95,27 @@ def bsr_conv(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
              layer: Optional[str] = None, halves=None) -> torch.Tensor:
     """Block-sparse convolution + fused epilogue through the BCSR kernel.
 
-    (N, C, H, W) f32 input, BCSR bank for (M, C, R, S) weights (f32, or a
-    quantised int8 or e4m3 bank with its scales) -> (N, M, E, F) f32.  ``layer`` names the conv in errors; ``halves`` is
+    (N, C, H, W) f32 or bf16 input, BCSR bank for (M, C, R, S) weights
+    (f32 or bf16, or a quantised int8 or e4m3 bank with its scales; a bf16
+    input takes a bf16 or quantised one) -> (N, M, E, F) in x's dtype (the
+    reference's ``ops.py:196``); ``residual`` in x's dtype, ``bias`` f32.
+    ``layer`` names the conv in errors; ``halves`` is
     ``kernel.split_weights(bc.blocks)`` for a caller that splits the bank
-    once (split here when not given).
+    once on f32 inputs (split here when not given).
     """
     m, c, r, s = bc.shape
     gbm, _, bm, bn = bc.blocks.shape
     n, cx, h, w = x.shape
     if cx != c:
         raise ValueError(f"input has C={cx} but filters expect C={c}")
+    if residual is not None and residual.dtype != x.dtype:
+        raise ValueError(f"bsr_conv: residual is {residual.dtype}, the "
+                         f"input {x.dtype}; the kernel takes one dtype")
     e, f = out_spatial(h, w, r, s, stride, padding)
     sched, reason = resolve_bsr_schedule(bm, bn, e, f, n=n, m=gbm * bm,
                                          crs=c * r * s, n_tile=n_tile,
-                                         wgs=wgs, value_dtype=bc.value_dtype)
+                                         wgs=wgs, value_dtype=bc.value_dtype,
+                                         itemsize=x.element_size())
     if sched is None:
         raise ValueError(
             f"bsr_conv{'' if layer is None else ' ' + layer}: no kernel "

@@ -1,13 +1,15 @@
 """Plain PyTorch version of the BCSR conv kernel.
 
-``bsr_conv_plain`` takes the kernel's operands (a quantised bank's int8 or
-e4m3 tiles with their (gbm, bm) scales too) and returns what the kernel
-returns: for every block-row and every kept tile ``kb < nblocks``, the
-(bn, E, F) im2col patch of flat columns ``blockcol*bn + jl`` (channel
-clamped to C-1 for the format's right-padding columns) is gathered from the
-padded input and contracted in f32 against the (bm, bn) tile; then bias,
-residual and ReLU.  It is vectorised over block-rows and loops only over the
-KB axis.  The contraction's summation order is the library's, not the
+``bsr_conv_plain`` takes the kernel's operands (a quantised bank's int8 or e4m3
+tiles with their (gbm, bm) scales too) and returns what the kernel returns: for
+every block-row and every kept tile ``kb < nblocks``, the (bn, E, F) im2col
+patch of flat columns ``blockcol*bn + jl`` (channel clamped to C-1 for the
+format's right-padding columns) is gathered from the padded input and
+contracted in f32 against the (bm, bn) tile; then bias, residual and ReLU, and
+the result rounded once to the input's dtype (bf16 inputs, residuals and tiles
+widened exactly to f32: a product of two bf16 values is exact in f32, as on the
+kernel's bf16 tensor cores).  It is vectorised over block-rows and loops only
+over the KB axis.  The contraction's summation order is the library's, not the
 kernel's, so the two agree to f32 rounding, not bit for bit.
 
 ``bsr_conv_split_plain`` mirrors the kernel's split arithmetic (TF32 hi and
@@ -38,6 +40,7 @@ def _blocked(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e,
     then the epilogue."""
     n, c, hp, wp = xpad.shape
     gbm, _, bm, bn = blocks.shape
+    dtype = xpad.dtype
     xpad = xpad.float()
     pix = pixel_offsets(wp, e, f, stride, xpad.device)
     jl = torch.arange(bn, device=xpad.device)
@@ -61,7 +64,7 @@ def _blocked(xpad, blocks, blockcol, nblocks, bias, residual, *, rs, s, e,
         out = out + residual.float()
     if fuse_relu:
         out = torch.relu(out)
-    return out
+    return out.to(dtype)
 
 
 def _product(tile: torch.Tensor, patch: torch.Tensor) -> torch.Tensor:
@@ -75,8 +78,9 @@ def bsr_conv_plain(xpad: torch.Tensor, blocks: torch.Tensor,
                    s: int, e: int, f: int, stride: int = 1,
                    fuse_relu: bool = False,
                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(N, C, Hp, Wp) padded input, (gbm, KB, bm, bn) tiles -> (N, gbm*bm,
-    E, F) f32 with the fused epilogue; ``bias`` is (gbm*bm,), ``residual``
+    """(N, C, Hp, Wp) padded input (f32 or bf16), (gbm, KB, bm, bn) tiles
+    -> (N, gbm*bm, E, F) in the input's dtype with the fused epilogue;
+    ``bias`` is (gbm*bm,), ``residual``
     (N, gbm*bm, E, F); ``scale`` (gbm, bm) f32 goes with int8 or e4m3
     tiles (a quantised bank)."""
     return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
@@ -132,7 +136,8 @@ def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,
                          fuse_relu: bool = False,
                          residual: Optional[torch.Tensor] = None,
                          ) -> torch.Tensor:
-    """The blocked contraction from an (N, C, H, W) input; (N, M, E, F) f32."""
+    """The blocked contraction from an (N, C, H, W) input; (N, M, E, F) in
+    the input's dtype."""
     m, _, r, s = bc.shape
     gbm, _, bm, _ = bc.blocks.shape
     mpad = gbm * bm

@@ -175,31 +175,41 @@ def ell_slab_rows(n: int, e: int, f: int, hs: int, st: int, rt: int,
     return best
 
 
-def ell_stage_bytes(cc: int, rows: int, ws: int, s: int) -> int:
-    """One stage of the ELL conv: the f32 input slab of ``cc`` channels x
-    ``rows`` x ``ws`` and ``s`` words of slack (a dropped pixel's reads),
-    padded to 16 bytes."""
-    return -(-(cc * rows * ws + s) // 4) * 16
+def ell_stage_bytes(cc: int, rows: int, ws: int, s: int,
+                    itemsize: int = 4) -> int:
+    """One stage of the ELL conv: the input slab of ``cc`` channels x
+    ``rows`` x ``ws`` and ``s`` elements of slack (a dropped pixel's
+    reads), in the activation's dtype (``itemsize`` 4: f32, 2: bf16, half
+    the bytes), padded to 16 bytes."""
+    return -(-(cc * rows * ws + s) * itemsize // 16) * 16
 
 
 def ell_smem_bytes(tm: int, cc: int, c: int, rows: int, ws: int, s: int,
-                   pipeline: bool) -> int:
+                   pipeline: bool, itemsize: int = 4) -> int:
     """Dynamic shared memory of one ELL block: two slab stages when
-    pipelined, one when blocking, the int32 source offset of each slab row,
-    and the ``tm`` rows' run bounds for each of the C/``cc`` chunks."""
-    return ((2 if pipeline else 1) * ell_stage_bytes(cc, rows, ws, s)
+    pipelined, one when blocking (at the activation's ``itemsize``), the
+    int32 source offset of each slab row, and the ``tm`` rows' run bounds
+    for each of the C/``cc`` chunks."""
+    return ((2 if pipeline else 1) * ell_stage_bytes(cc, rows, ws, s,
+                                                     itemsize)
             + cc * rows * 4 + tm * (-(-c // cc) + 1) * 4)
 
 
 def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int,
-                        value_itemsize: int = 4) -> int:
+                        value_itemsize: int = 4,
+                        act_itemsize: int = 4) -> int:
     """Dynamic shared memory of one BCSR conv block: two stages, each of the
-    TF32 B operand (``n_tile`` x ``bn``) and either its lo half (f32 tiles)
-    or the tiles' narrow bytes (``value_itemsize`` 1: a quantised bank,
-    converted on chip into the operand); three slots of ``bn`` int32
-    column offsets, the (n_tile/bm x ``kbc``) table of kept tiles and the
-    ``kbc`` live block columns."""
-    stage = n_tile * bn * (4 + value_itemsize)
+    B operand (``n_tile`` x ``bn``: TF32 on f32 activations, bf16 on bf16
+    ones, ``act_itemsize`` 2) and either the TF32 operand's lo half (f32
+    tiles on f32 activations) or the tiles' narrow bytes
+    (``value_itemsize`` 1: a quantised bank, converted on chip into the
+    operand); three slots of ``bn`` int32 column offsets, the (n_tile/bm x
+    ``kbc``) table of kept tiles and the ``kbc`` live block columns."""
+    if value_itemsize == 1:
+        extra = 1
+    else:
+        extra = 0 if act_itemsize == 2 else 4
+    stage = n_tile * bn * (act_itemsize + extra)
     return 2 * stage + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 

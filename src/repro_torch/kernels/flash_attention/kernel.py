@@ -169,11 +169,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, sc: float, causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward: q (B, H, T, d), k/v (B, KV, S, d), f32 or bf16 ->
-    O (B, H, T, d) in q's dtype and lse (B, H, T) f32."""
+    O (B, H, T, d) in q's dtype and lse (B, H, T) f32.  ``meta`` tensors
+    (the dry run) get empty ``meta`` outputs of those shapes: nothing is
+    launched or computed."""
     if q.device.type == "cuda":
         return _launch(q, k, v, sc, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sc=sc, causal=causal)
+    if q.device.type == "meta":
+        return (torch.empty_like(q),
+                torch.empty(q.shape[:3], dtype=torch.float32, device="meta"))
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -264,7 +269,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward from the forward's residuals: q, O, dO
     (B, H, T, d), k/v (B, KV, S, d), lse (B, H, T) f32 -> dQ, dK, dV in
-    the dtypes of q, k and v."""
+    the dtypes of q, k and v (empty ``meta`` ones for ``meta`` tensors, as
+    the forward's)."""
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cuda":
         delta = bwd_delta(o, do)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc,

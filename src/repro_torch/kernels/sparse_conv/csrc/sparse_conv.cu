@@ -22,8 +22,7 @@
 //     stages in shared memory, with cp.async, the input slab its pixels read:
 //     the CC channels' padded rows from the tile's first window to its last
 //     (whole padded rows, across images where the tile spans them), each
-//     channel ROWS rows apart.  A strided 1x1 conv stages only the pixels it
-//     reads (every stride-th row and column), and runs at stride 1 on them.
+//     channel ROWS rows apart.
 //   * The nonzeros come stretched (the paper's weight stretching, done once
 //     per bank and schedule by the launcher, kernel.py): each is an
 //     (offset, value) pair whose offset is the byte offset of its window's
@@ -46,6 +45,16 @@
 //   * A 1x1 conv has no halo, so a slab would serve only the block's rows:
 //     its kernel (sparse_conv_1x1_kernel) stages nothing and reads each
 //     input straight from L1, the whole row one run.
+//   * bf16 activations (the TPU kernel stages xpad.dtype in VMEM): both
+//     kernels are templated on the activation type XT.  At bf16 the input
+//     is read from device memory and staged as bf16, half the slab's bytes
+//     (so a chunk holds twice the channels) and half its shared-memory
+//     reads a pixel; a slab row is copied two elements at a time (one
+//     4-byte cp.async: the launcher takes an even padded width, which
+//     ops.py pads).  Each element is widened to f32 where it is used
+//     (exact), the sums are the f32 ones above, and the epilogue reads the
+//     bf16 residual and writes the output in bf16, rounded once
+//     (__float2bfloat16_rn): there is no cast pass before or after.
 //
 //   * A quantised bank (int8 or e4m3 values and an f32 scale a row, the
 //     reference's scale operand) streams its narrow values: each nonzero is
@@ -71,9 +80,11 @@
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // residual may be null, scale null for an f32 bank; qtype 0 (f32 pairs),
-// 1 (int8 words) or 2 (e4m3 words); returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a tile no instantiation takes.
+// 1 (int8 words) or 2 (e4m3 words); act 0 (f32 xpad, residual and out) or
+// 1 (bf16); returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a tile no instantiation takes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,6 +120,23 @@ struct Entry<true> {
   using T = uint32_t;
 };
 
+// an activation element widened to f32 (exact), and an f32 sum rounded
+// once to the activation's type
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// log2 of an activation element's bytes: a quantised word's offset is in
+// elements
+template <typename XT>
+__host__ __device__ constexpr int elem_shift() {
+  return sizeof(XT) == 4 ? 2 : 1;
+}
+
 __device__ __forceinline__ int2 zero_entry(int2) { return make_int2(0, 0); }
 __device__ __forceinline__ uint32_t zero_entry(uint32_t) { return 0u; }
 
@@ -123,46 +151,44 @@ __device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
 }
 
 // (byte offset, value) of an entry; a quantised value is multiplied by its
-// row's scale, rounded once.
-__device__ __forceinline__ void decode(int2 e, float, int, int& off,
+// row's scale, rounded once; its offset is in elements of 1 << shift bytes.
+__device__ __forceinline__ void decode(int2 e, float, int, int, int& off,
                                        float& v) {
   off = e.x;
   v = __int_as_float(e.y);
 }
 __device__ __forceinline__ void decode(uint32_t e, float scale, int qtype,
-                                       int& off, float& v) {
-  off = static_cast<int>((e >> 8) << 2);
+                                       int shift, int& off, float& v) {
+  off = static_cast<int>((e >> 8) << shift);
   const uint32_t b = e & 0xFFu;
   const float q = qtype == 1 ? static_cast<float>(static_cast<int8_t>(b))
                              : e4m3_to_f32(b);
   v = __fmul_rn(q, scale);
 }
 
-// Shared memory: STAGES slabs of CC x ROWS x Ws f32, then the (CC x ROWS)
-// xpad offsets of the slab's rows (-1 past the tile's), then the block's
-// rows' run bounds, TM x (nchunks + 1).
-template <int TM, int PX, bool PIPE, bool QUANT>
+// Shared memory: STAGES slabs of CC x ROWS x Ws elements of XT, then the
+// (CC x ROWS) xpad offsets of the slab's rows (-1 past the tile's), then
+// the block's rows' run bounds, TM x (nchunks + 1).  RS > 1: a 1x1 conv
+// runs sparse_conv_1x1_kernel.
+template <int TM, int PX, bool PIPE, bool QUANT, typename XT>
 __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
-    const float* __restrict__ xpad,
+    const XT* __restrict__ xpad,
     const typename Entry<QUANT>::T* __restrict__ pairs,
     const int* __restrict__ rowptr, const float* __restrict__ scale,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
+    const float* __restrict__ bias, const XT* __restrict__ residual,
+    XT* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
     int RS, int S, int E, int F, int stride, int CC, int ROWS, int relu,
     int qtype) {
   using EntryT = typename Entry<QUANT>::T;
   constexpr int RPW = TM / NWARPS;  // rows a warp sums
   constexpr int P = 32 * PX;        // pixels a block
   constexpr int STAGES = PIPE ? 2 : 1;
+  constexpr int EPC = 4 / sizeof(XT);  // elements a 4-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
 
-  // a strided 1x1 conv reads every stride-th row and column: stage those
-  // (step) and run stride 1 on them
-  const bool sub = RS == 1 && stride > 1;
-  const int step = sub ? stride : 1;
-  const int st = sub ? 1 : stride;
-  const int Hs = sub ? E : Hp;
-  const int Ws = sub ? F : Wp;
+  const int st = stride;
+  const int Hs = Hp;
+  const int Ws = Wp;
   const int RT = RS / S;            // filter rows
   // At stride 1 the pixels run over whole slab rows (Wq = Ws columns, the
   // last Ws - F of a row computed and dropped), so that the 32 lanes of a
@@ -171,9 +197,11 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
   const int EQ = E * Wq;
   const int NEQ = NIMG * EQ;
   const int nchunks = (C + CC - 1) / CC;
-  // (the slack of S words keeps a dropped pixel's reads inside the slab)
-  const int slab_floats = (CC * ROWS * Ws + S + 3) & ~3;
-  int* tab = reinterpret_cast<int*>(smem + STAGES * slab_floats * 4);
+  // (the slack of S elements keeps a dropped pixel's reads inside the
+  // slab)
+  const int slab_bytes =
+      ((CC * ROWS * Ws + S) * static_cast<int>(sizeof(XT)) + 15) & ~15;
+  int* tab = reinterpret_cast<int*>(smem + STAGES * slab_bytes);
   int* bounds = tab + CC * ROWS;    // [TM][nchunks + 1]
 
   const int tid = threadIdx.x;
@@ -195,7 +223,7 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
     const int r = t - cl * ROWS;
     const int g = ga + r;
     const int n = g / Hs;
-    tab[t] = r < RB ? (n * C + cl) * HW + (g - n * Hs) * step * Wp : -1;
+    tab[t] = r < RB ? (n * C + cl) * HW + (g - n * Hs) * Wp : -1;
   }
   for (int t = tid; t < TM * (nchunks + 1); t += NTH) {
     const int ml = t / (nchunks + 1);
@@ -216,25 +244,26 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
       const int e = eq / Wq;
       base = (n * Hs + e * st - ga) * Ws + (eq - e * Wq) * st;
     }
-    pix[j] = 4 * base;
+    pix[j] = static_cast<int>(sizeof(XT)) * base;
   }
   __syncthreads();
 
-  // slab increments a thread takes between its elements
-  const int drow = NTH / Ws, dcol = NTH - drow * Ws;
+  // slab increments a thread takes between its 4-byte copies (EPC
+  // elements of one row: at bf16 Ws is even)
+  const int drow = NTH * EPC / Ws, dcol = NTH * EPC - drow * Ws;
 
   // chunk k's slab into stage k % STAGES, zero past C and past the tile's
   // rows.  One cp.async group.
   auto stage = [&](int k) {
     if (k < nchunks) {
-      const uint32_t sb = smem_u32(smem + (PIPE ? k % 2 : 0) * slab_floats * 4);
+      const uint32_t sb = smem_u32(smem + (PIPE ? k % 2 : 0) * slab_bytes);
       const int c0 = k * CC;
       const int live_rows = min(CC, C - c0) * ROWS;
-      const float* xc = xpad + static_cast<int64_t>(c0) * HW;
-      int row = tid / Ws, col = tid - (tid / Ws) * Ws;
-      for (int t = tid; t < CC * ROWS * Ws; t += NTH) {
+      const XT* xc = xpad + static_cast<int64_t>(c0) * HW;
+      int row = tid * EPC / Ws, col = tid * EPC - row * Ws;
+      for (int t = tid; t < CC * ROWS * Ws / EPC; t += NTH) {
         const int src = row < live_rows ? tab[row] : -1;
-        cp_async4(sb + 4 * t, src >= 0 ? xc + src + col * step : xpad,
+        cp_async4(sb + 4 * t, src >= 0 ? xc + src + col : xpad,
                   src >= 0 ? 4 : 0);
         col += dcol;
         row += drow;
@@ -284,7 +313,7 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
     cp_wait_all();
     __syncthreads();  // chunk k landed; in the pipeline, chunk k - 1 summed
     if (PIPE) stage(k + 1);
-    const unsigned char* slab = smem + (PIPE ? k % 2 : 0) * slab_floats * 4;
+    const unsigned char* slab = smem + (PIPE ? k % 2 : 0) * slab_bytes;
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int ml = warp * RPW + rr;
@@ -302,7 +331,7 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
         // each lane decodes its own entry of the window, once
         int woff;
         float wv;
-        decode(win, rscale[rr], qtype, woff, wv);
+        decode(win, rscale[rr], qtype, elem_shift<XT>(), woff, wv);
 #pragma unroll 4
         for (int t = 0; t < cnt; ++t) {
           const int off = __shfl_sync(0xffffffffu, woff, t);
@@ -312,7 +341,8 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
           for (int j = 0; j < PX; ++j)
             acc[rr][j] = __fadd_rn(
                 acc[rr][j],
-                __fmul_rn(v, *reinterpret_cast<const float*>(xs + pix[j])));
+                __fmul_rn(v, widen(*reinterpret_cast<const XT*>(
+                                 xs + pix[j]))));
         }
         win = nxt;
         i += 32;
@@ -336,9 +366,9 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
       const int64_t o =
           (static_cast<int64_t>(n) * M + m) * (E * F) + e * F + f;
       float v = __fadd_rn(acc[rr][j], bias[m]);
-      if (residual != nullptr) v = __fadd_rn(v, residual[o]);
+      if (residual != nullptr) v = __fadd_rn(v, widen(residual[o]));
       if (relu) v = fmaxf(v, 0.f);
-      out[o] = v;
+      put(out + o, v);
     }
   }
 }
@@ -348,13 +378,13 @@ __global__ void __launch_bounds__(NTH) sparse_conv_kernel(
 // xpad through L1 (the block's rows read the same pixels' channels), the
 // pairs walked in windows as above, the whole row one run (rowptr (M, 2),
 // offsets c*Hp*Wp), and the sums formed in the same order.
-template <int TM, int PX, bool QUANT>
+template <int TM, int PX, bool QUANT, typename XT>
 __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
-    const float* __restrict__ xpad,
+    const XT* __restrict__ xpad,
     const typename Entry<QUANT>::T* __restrict__ pairs,
     const int* __restrict__ rowptr, const float* __restrict__ scale,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
+    const float* __restrict__ bias, const XT* __restrict__ residual,
+    XT* __restrict__ out, int NIMG, int C, int Hp, int Wp, int M, int K,
     int E, int F, int stride, int relu, int qtype) {
   using EntryT = typename Entry<QUANT>::T;
   constexpr int RPW = TM / NWARPS;
@@ -374,7 +404,8 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
     const int q = min(q0 + j * 32 + lane, q1);
     const int n = q / EF;
     const int e = (q - n * EF) / F;
-    pix[j] = 4 * ((n * C * Hp + e * stride) * Wp + (q - n * EF - e * F) * stride);
+    pix[j] = static_cast<int>(sizeof(XT)) *
+             ((n * C * Hp + e * stride) * Wp + (q - n * EF - e * F) * stride);
   }
 
   float acc[RPW][PX];
@@ -395,7 +426,7 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
                                              : zero_entry(EntryT());
       int woff;
       float wv;
-      decode(win, sc, qtype, woff, wv);
+      decode(win, sc, qtype, elem_shift<XT>(), woff, wv);
 #pragma unroll 4
       for (int t = 0; t < cnt; ++t) {
         const int off = __shfl_sync(0xffffffffu, woff, t);
@@ -405,7 +436,8 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
         for (int j = 0; j < PX; ++j)
           acc[rr][j] = __fadd_rn(
               acc[rr][j],
-              __fmul_rn(v, __ldg(reinterpret_cast<const float*>(xs + pix[j]))));
+              __fmul_rn(v, widen(__ldg(
+                               reinterpret_cast<const XT*>(xs + pix[j])))));
       }
       win = nxt;
       i += 32;
@@ -423,78 +455,102 @@ __global__ void __launch_bounds__(NTH) sparse_conv_1x1_kernel(
       const int n = q / EF;
       const int64_t o = (static_cast<int64_t>(n) * M + m) * EF + (q - n * EF);
       float v = __fadd_rn(acc[rr][j], bias[m]);
-      if (residual != nullptr) v = __fadd_rn(v, residual[o]);
+      if (residual != nullptr) v = __fadd_rn(v, widen(residual[o]));
       if (relu) v = fmaxf(v, 0.f);
-      out[o] = v;
+      put(out + o, v);
     }
   }
 }
 
-template <int TM, int PX, bool QUANT>
-int launch_1x1(const float* xpad, const void* pairs, const int* rowptr,
-               const float* scale, const float* bias, const float* residual,
-               float* out, int N, int C, int Hp, int Wp, int M, int K, int E,
+template <int TM, int PX, bool QUANT, typename XT>
+int launch_1x1(const XT* xpad, const void* pairs, const int* rowptr,
+               const float* scale, const float* bias, const XT* residual,
+               XT* out, int N, int C, int Hp, int Wp, int M, int K, int E,
                int F, int stride, int relu, int qtype, cudaStream_t stream) {
   const dim3 grid((N * E * F + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
-  sparse_conv_1x1_kernel<TM, PX, QUANT><<<grid, NTH, 0, stream>>>(
+  sparse_conv_1x1_kernel<TM, PX, QUANT, XT><<<grid, NTH, 0, stream>>>(
       xpad, static_cast<const typename Entry<QUANT>::T*>(pairs), rowptr,
       scale, bias, residual, out, N, C, Hp, Wp, M, K, E, F, stride, relu,
       qtype);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TM, int PX, bool PIPE, bool QUANT>
-int launch(const float* xpad, const void* pairs, const int* rowptr,
-           const float* scale, const float* bias, const float* residual,
-           float* out, int N, int C, int Hp, int Wp, int M, int K, int RS,
+template <int TM, int PX, bool PIPE, bool QUANT, typename XT>
+int launch(const XT* xpad, const void* pairs, const int* rowptr,
+           const float* scale, const float* bias, const XT* residual,
+           XT* out, int N, int C, int Hp, int Wp, int M, int K, int RS,
            int S, int E, int F, int stride, int cc, int rows, int relu,
            int qtype, cudaStream_t stream) {
-  const bool sub = RS == 1 && stride > 1;
-  const int Ws = sub ? F : Wp;
-  const size_t slab_floats =
-      (static_cast<size_t>(cc) * rows * Ws + S + 3) & ~3;
+  if (sizeof(XT) == 2 && Wp % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t slab_bytes =
+      ((static_cast<size_t>(cc) * rows * Wp + S) * sizeof(XT) + 15) & ~15;
   const size_t nchunks = (C + cc - 1) / cc;
-  const size_t smem = (PIPE ? 2 : 1) * slab_floats * 4 +
+  const size_t smem = (PIPE ? 2 : 1) * slab_bytes +
                       static_cast<size_t>(cc) * rows * 4 +
                       static_cast<size_t>(TM) * (nchunks + 1) * 4;
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_kernel<TM, PX, PIPE, QUANT>,
+      sparse_conv_kernel<TM, PX, PIPE, QUANT, XT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int Wq = (sub || stride == 1) ? Ws : F;  // the kernel's pixel rows
+  const int Wq = stride == 1 ? Wp : F;  // the kernel's pixel rows
   const dim3 grid((N * E * Wq + 32 * PX - 1) / (32 * PX), (M + TM - 1) / TM);
-  sparse_conv_kernel<TM, PX, PIPE, QUANT><<<grid, NTH, smem, stream>>>(
+  sparse_conv_kernel<TM, PX, PIPE, QUANT, XT><<<grid, NTH, smem, stream>>>(
       xpad, static_cast<const typename Entry<QUANT>::T*>(pairs), rowptr,
       scale, bias, residual, out, N, C, Hp, Wp, M, K, RS, S, E, F, stride,
       cc, rows, relu, qtype);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TM, int PX, bool QUANT>
-int dispatch(const float* x, const void* pr, const int* rp, const float* sc,
-             const float* b, const float* res, float* o, int N, int C,
+template <int TM, int PX, bool QUANT, typename XT>
+int dispatch(const void* xv, const void* pr, const int* rp, const float* sc,
+             const float* b, const void* resv, void* ov, int N, int C,
              int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
              int stride, int cc, int rows, int pipeline, int relu, int qtype,
              cudaStream_t st) {
+  const XT* x = static_cast<const XT*>(xv);
+  const XT* res = static_cast<const XT*>(resv);
+  XT* o = static_cast<XT*>(ov);
   if (RS == 1)
-    return launch_1x1<TM, PX, QUANT>(x, pr, rp, sc, b, res, o, N, C, Hp, Wp,
-                                     M, K, E, F, stride, relu, qtype, st);
+    return launch_1x1<TM, PX, QUANT, XT>(x, pr, rp, sc, b, res, o, N, C, Hp,
+                                         Wp, M, K, E, F, stride, relu, qtype,
+                                         st);
   return pipeline
-             ? launch<TM, PX, true, QUANT>(x, pr, rp, sc, b, res, o, N, C,
-                                           Hp, Wp, M, K, RS, S, E, F, stride,
-                                           cc, rows, relu, qtype, st)
-             : launch<TM, PX, false, QUANT>(x, pr, rp, sc, b, res, o, N, C,
-                                            Hp, Wp, M, K, RS, S, E, F,
-                                            stride, cc, rows, relu, qtype,
-                                            st);
+             ? launch<TM, PX, true, QUANT, XT>(x, pr, rp, sc, b, res, o, N,
+                                               C, Hp, Wp, M, K, RS, S, E, F,
+                                               stride, cc, rows, relu, qtype,
+                                               st)
+             : launch<TM, PX, false, QUANT, XT>(x, pr, rp, sc, b, res, o, N,
+                                                C, Hp, Wp, M, K, RS, S, E, F,
+                                                stride, cc, rows, relu, qtype,
+                                                st);
+}
+
+template <int TM, int PX>
+int by_type(int qtype, int act, const void* x, const void* pr, const int* rp,
+            const float* sc, const float* b, const void* res, void* o, int N,
+            int C, int Hp, int Wp, int M, int K, int RS, int S, int E, int F,
+            int stride, int cc, int rows, int pipeline, int relu,
+            cudaStream_t st) {
+#define SPARSE_CONV_TYPE(Q, XT)                                              \
+  return dispatch<TM, PX, Q, XT>(x, pr, rp, sc, b, res, o, N, C, Hp, Wp, M,  \
+                                 K, RS, S, E, F, stride, cc, rows, pipeline, \
+                                 relu, qtype, st);
+  if (act) {
+    if (qtype) SPARSE_CONV_TYPE(true, __nv_bfloat16)
+    SPARSE_CONV_TYPE(false, __nv_bfloat16)
+  }
+  if (qtype) SPARSE_CONV_TYPE(true, float)
+  SPARSE_CONV_TYPE(false, float)
+#undef SPARSE_CONV_TYPE
 }
 
 }  // namespace
 
-// pairs: (M, K) of (slab byte offset, value bits) for an f32 bank (qtype
-// 0), or of words (slab word offset << 8 | value byte) for a quantised one
-// (qtype 1: int8, 2: e4m3), with scale its (M,) f32 scales; rowptr:
-// (M, nchunks + 1) run bounds (ref.py: stretch_bank).  A 1x1 conv (RS = 1)
+// pairs: (M, K) of (slab byte offset, value bits) for an f32 or bf16 bank
+// (qtype 0), or of words (slab element offset << 8 | value byte) for a
+// quantised one (qtype 1: int8, 2: e4m3), with scale its (M,) f32 scales;
+// rowptr: (M, nchunks + 1) run bounds (ref.py: stretch_bank).  xpad,
+// residual and out are f32 (act 0) or bf16 (act 1).  A 1x1 conv (RS = 1)
 // runs the unstaged kernel: its offsets are of c*Hp*Wp, one run a row.
 extern "C" int sparse_conv_ell(const void* xpad, const void* pairs,
                                const void* rowptr, const void* scale,
@@ -502,27 +558,19 @@ extern "C" int sparse_conv_ell(const void* xpad, const void* pairs,
                                void* out, int N, int C, int Hp, int Wp, int M,
                                int K, int RS, int S, int E, int F, int stride,
                                int tm, int px, int cc, int rows, int pipeline,
-                               int relu, int qtype, void* stream) {
-  const float* x = static_cast<const float*>(xpad);
+                               int relu, int qtype, int act, void* stream) {
   const int* rp = static_cast<const int*>(rowptr);
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
-  const float* res = static_cast<const float*>(residual);
-  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cc <= 0 || rows <= 0 || qtype < 0 || qtype > 2 ||
+  if (cc <= 0 || rows <= 0 || qtype < 0 || qtype > 2 || act < 0 || act > 1 ||
       (qtype != 0 && sc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
 #define SPARSE_CONV_LAUNCH(TM, PX)                                           \
   if (tm == TM && px == PX)                                                  \
-    return qtype ? dispatch<TM, PX, true>(x, pairs, rp, sc, b, res, o, N, C, \
-                                          Hp, Wp, M, K, RS, S, E, F, stride, \
-                                          cc, rows, pipeline, relu, qtype,   \
-                                          st)                                \
-                 : dispatch<TM, PX, false>(x, pairs, rp, sc, b, res, o, N,   \
-                                           C, Hp, Wp, M, K, RS, S, E, F,     \
-                                           stride, cc, rows, pipeline, relu, \
-                                           qtype, st);
+    return by_type<TM, PX>(qtype, act, xpad, pairs, rp, sc, b, residual, out, \
+                           N, C, Hp, Wp, M, K, RS, S, E, F, stride, cc, rows, \
+                           pipeline, relu, st);
   SPARSE_CONV_LAUNCH(8, 1)
   SPARSE_CONV_LAUNCH(8, 2)
   SPARSE_CONV_LAUNCH(8, 4)

@@ -20,12 +20,14 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.direct_conv import out_spatial, pad_in
 from repro_torch.core.sparse_format import EllConv, inverse_permutation
 from repro_torch.kernels import budget
 from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
-from repro_torch.kernels.sparse_conv.ref import pixel_row, slab_geometry
+from repro_torch.kernels.sparse_conv.ref import (pixel_row, slab_geometry,
+                                                 slab_width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +49,16 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
                      stride: int = 1, hp: Optional[int] = None,
                      wp: Optional[int] = None, tm: Optional[int] = None,
                      tp: Optional[int] = None,
-                     pipeline: Optional[bool] = None,
+                     pipeline: Optional[bool] = None, itemsize: int = 4,
                      ) -> Tuple[Optional[EllSchedule], Optional[str]]:
     """The block schedule ``sparse_conv`` launches, as a pure function.
 
     The geometry: ``n`` images, ``c`` input channels (default ``k``), an
     ``r`` x ``s`` filter at ``stride`` on the padded ``hp`` x ``wp`` input
-    (default the output's extent of a stride-1 window).  Returns
+    (default the output's extent of a stride-1 window), of ``itemsize``
+    bytes an element (4: f32, 2: bf16; a bf16 slab is half an f32 one's
+    bytes, so its chunks hold twice the channels, and its width is even:
+    ``ref.slab_width``).  Returns
     ``(EllSchedule, None)``, or ``(None, reason)`` when a pinned ``tm`` or
     ``tp`` is one the kernel does not take or the block's shared memory
     would not fit.  Without pins, the tile is the first of
@@ -78,6 +83,8 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
     c = k if c is None else c
     hp = (e - 1) * stride + r if hp is None else hp
     wp = (f - 1) * stride + s if wp is None else wp
+    if not direct:
+        wp = slab_width(wp, itemsize)
     hs, ws, st = slab_geometry(hp, wp, r, s, e, f, stride)
     wq = f if direct else pixel_row(ws, f, st)
     tm, px = tiles[-1]
@@ -93,11 +100,11 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
         return EllSchedule(tm, tp, c, hp, False), None
     rows = budget.ell_slab_rows(n, e, wq, hs, st, r, tp)
     pipe = pipeline is None or pipeline
-    per_channel = budget.ell_stage_bytes(1, rows, ws, 0) + rows * 4
+    per_channel = budget.ell_stage_bytes(1, rows, ws, 0, itemsize) + rows * 4
     cc = max(1, min(c, budget.ELL_SLAB_BYTES // ((2 if pipe else 1)
                                                 * per_channel)))
     fits = lambda p: budget.smem_fits(  # noqa: E731
-        budget.ell_smem_bytes(tm, cc, c, rows, ws, s, p))
+        budget.ell_smem_bytes(tm, cc, c, rows, ws, s, p, itemsize))
     if not fits(False):
         return None, "smem_infeasible"
     pipe = pipe and fits(True)
@@ -108,7 +115,7 @@ def tile_candidates(m: int, k: int, e: int, f: int, *, n: int = 1,
                     c: Optional[int] = None, r: int = 1, s: int = 1,
                     stride: int = 1, hp: Optional[int] = None,
                     wp: Optional[int] = None,
-                    pipeline: Optional[bool] = None,
+                    pipeline: Optional[bool] = None, itemsize: int = 4,
                     ) -> List[Tuple[int, int]]:
     """Every ``(tm, tp)`` tile ``resolve_schedule`` accepts at this
     geometry, in the schedule's order of preference (``budget.ELL_TILES``,
@@ -118,7 +125,8 @@ def tile_candidates(m: int, k: int, e: int, f: int, *, n: int = 1,
     for tm, px in order:
         sched, _ = resolve_schedule(m, k, e, f, n=n, c=c, r=r, s=s,
                                     stride=stride, hp=hp, wp=wp, tm=tm,
-                                    tp=budget.WARP * px, pipeline=pipeline)
+                                    tp=budget.WARP * px, pipeline=pipeline,
+                                    itemsize=itemsize)
         if sched is not None:
             out.append((sched.tm, sched.tp))
     return out
@@ -156,9 +164,12 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
                 packed_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Direct sparse convolution + fused epilogue through the ELL kernel.
 
-    (N, C, H, W) f32 input, ELL bank for (M, C, R, S) weights (f32, or a
-    quantised int8 or e4m3 bank with its scales) -> (N, M, E, F) f32.  ``bias`` (per channel), ``fuse_relu`` and
-    ``residual`` (shaped like the output) run in-kernel on the f32 sums.
+    (N, C, H, W) f32 or bf16 input, ELL bank for (M, C, R, S) weights
+    (f32 or bf16, or a quantised int8 or e4m3 bank with its scales; any of
+    them with either input, as the reference) -> (N, M, E, F) in x's dtype
+    (the reference's ``ops.py:351``).  ``bias`` (per channel, f32),
+    ``fuse_relu`` and ``residual`` (shaped like the output, in x's dtype)
+    run in-kernel on the f32 sums, rounded once to x's dtype.
     ``pipeline`` picks the copy schedule as in the reference: ``True``
     double-buffers the staged input (the copy of the next channel chunk
     under the sums of this one), ``False`` blocks, ``None`` pipelines where
@@ -171,11 +182,15 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
     n, cx, h, w = x.shape
     if cx != c:
         raise ValueError(f"input has C={cx} but filters expect C={c}")
+    if residual is not None and residual.dtype != x.dtype:
+        raise ValueError(f"sparse_conv: residual is {residual.dtype}, the "
+                         f"input {x.dtype}; the kernel takes one dtype")
     e, f = out_spatial(h, w, r, s, stride, padding)
+    size = x.element_size()
     sched, reason = resolve_schedule(
         m, ell.k, e, f, n=n, c=c, r=r, s=s, stride=stride,
         hp=h + 2 * padding, wp=w + 2 * padding, tm=tm, tp=tp,
-        pipeline=pipeline)
+        pipeline=pipeline, itemsize=size)
     if sched is None:
         raise ValueError(
             f"sparse_conv{'' if layer is None else ' ' + layer}: no kernel "
@@ -191,8 +206,12 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
             res = res.index_select(1, perm)
     if packed_idx is None:
         packed_idx = pack_indices(ell)
+    xpad = pad_in(x, padding)
+    wp = w + 2 * padding
+    if r * s > 1 and slab_width(wp, size) != wp:
+        xpad = F.pad(xpad, (0, 1))   # an even bf16 slab row (slab_width)
     out = sparse_conv_kernel(
-        pad_in(x, padding), ell.value, packed_idx, ell.nnz,
+        xpad, ell.value, packed_idx, ell.nnz,
         b.contiguous(), None if res is None else res.contiguous(),
         rs=r * s, s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
         schedule=sched, scale=ell.scale)

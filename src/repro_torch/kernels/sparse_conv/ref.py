@@ -1,11 +1,14 @@
 """Plain PyTorch version of the ELL direct sparse conv kernel.
 
-Same operands and the same result as ``csrc/sparse_conv.cu``: every row's
-sum is formed nonzero by nonzero in f32 (``acc + value * window``, the
-multiply and the add rounded separately), then bias, residual and ReLU are
-applied in the kernel's order.  It is vectorised over rows and pixels and
-loops only over the K axis, up to the longest row; a row's entries past its
-``nnz`` are padding with value 0, so adding them leaves its sum unchanged.
+Same operands and the same result as ``csrc/sparse_conv.cu``: every row's sum
+is formed nonzero by nonzero in f32 (``acc + value * window``, the multiply and
+the add rounded separately), then bias, residual and ReLU are applied in the
+kernel's order, and the result is rounded once to the input's dtype.  bf16
+inputs, residuals and banks are widened exactly to f32 (every bf16 value is an
+f32 value), so the sums are the ones the f32 version forms on the widened
+operands.  It is vectorised over rows and pixels and loops only over the K
+axis, up to the longest row; a row's entries past its ``nnz`` are padding with
+value 0, so adding them leaves its sum unchanged.
 
 The CPU tests run the port through it, and ``chip_smoke.py`` holds the CUDA
 kernel against it on the card.
@@ -45,11 +48,12 @@ def sparse_conv_plain(xpad: torch.Tensor, value: torch.Tensor,
                       s: int, e: int, f: int, stride: int = 1,
                       fuse_relu: bool = False,
                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(N, C, Hp, Wp) padded input, (M, K) values and packed indices ->
-    (N, M, E, F) f32 with the fused epilogue.  ``scale`` (M,) f32 goes with
-    a quantised bank's int8 or e4m3 values."""
+    """(N, C, Hp, Wp) padded input (f32 or bf16), (M, K) values and packed
+    indices -> (N, M, E, F) in the input's dtype with the fused epilogue.
+    ``scale`` (M,) f32 goes with a quantised bank's int8 or e4m3 values."""
     n, _, hp, wp = xpad.shape
     m = value.shape[0]
+    dtype = xpad.dtype
     value = dequantized(value, scale)
     xpad = xpad.float()
     packed = packed_idx.long()
@@ -68,7 +72,16 @@ def sparse_conv_plain(xpad: torch.Tensor, value: torch.Tensor,
         acc += residual.float()
     if fuse_relu:
         acc = torch.relu(acc)
-    return acc
+    return acc.to(dtype)
+
+
+def slab_width(wp: int, itemsize: int) -> int:
+    """The padded input's width the staged kernel takes: a bf16 slab is
+    copied two elements (4 bytes, one ``cp.async``) at a time, so a bf16
+    input's rows have an even width (``ops`` pads one more zero column
+    where the padded width is odd; the column feeds only dropped
+    pixels)."""
+    return wp + wp % 2 if itemsize == 2 else wp
 
 
 def slab_geometry(hp: int, wp: int, r: int, s: int, e: int, f: int,
@@ -95,18 +108,22 @@ WORD_OFFSET_LIMIT = 1 << 23
 
 def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
                  nnz: torch.Tensor, *, rs: int, s: int, ws: int, rows: int,
-                 cc: int, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cc: int, c: int, itemsize: int = 4
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paper's weight stretching for the CUDA kernel's slabs, on the
-    bank's device: ``pairs`` (M, K, 2) int32, each nonzero's byte offset in
-    a slab of ``cc`` channels x ``rows`` x ``ws`` f32, 4*((c % cc)*rows*ws
-    + r*ws + s), beside its f32 value's bits; and ``rowptr`` (M, C/cc + 1)
-    int32, row m's entries of channel chunk k being rowptr[m, k] ..
-    rowptr[m, k + 1].  A quantised bank (int8 or float8_e4m3fn ``value``)
-    gets (M, K) int32 words instead, (offset / 4) << 8 | the value's byte:
-    its narrow values stream at 4 bytes a nonzero, not 8.  Raises unless
-    every row's packed indices ascend up to its nnz (the (c, r, s) order
-    ``ell_from_dense_conv`` builds), which the chunk runs rely on, and, for
-    words, unless every offset is below ``WORD_OFFSET_LIMIT`` words."""
+    bank's device: ``pairs`` (M, K, 2) int32, each nonzero's byte offset in a
+    slab of ``cc`` channels x ``rows`` x ``ws`` elements of ``itemsize`` bytes
+    (the activation's: 4 for f32, 2 for bf16), itemsize*((c % cc)*rows*ws +
+    r*ws + s), beside its f32 value's bits (a bf16 bank's values widened to
+    f32, exactly: a word a nonzero would leave too few bits for a slab offset);
+    and ``rowptr`` (M, C/cc + 1) int32, row m's entries of channel chunk k
+    being rowptr[m, k] .. rowptr[m, k + 1].  A quantised bank (int8 or
+    float8_e4m3fn ``value``) gets (M, K) int32 words instead, (offset in
+    elements) << 8 | the value's byte: its narrow values stream at 4 bytes a
+    nonzero, not 8.  Raises unless every row's packed indices ascend up to its
+    nnz (the (c, r, s) order ``ell_from_dense_conv`` builds), which the chunk
+    runs rely on, and, for words, unless every offset is below
+    ``WORD_OFFSET_LIMIT`` words."""
     m, k = packed_idx.shape
     nchunks = -(-c // cc)
     packed = packed_idx.long()
@@ -117,9 +134,10 @@ def stretch_bank(value: torch.Tensor, packed_idx: torch.Tensor,
     cidx = packed // rs
     r = (packed - cidx * rs) // s
     words = (cidx % cc) * rows * ws + r * ws + (packed - cidx * rs - r * s)
-    if value.dtype == torch.float32:
-        pairs = torch.stack([(4 * words).to(torch.int32),
-                             value.contiguous().view(torch.int32)], -1)
+    if value.dtype in (torch.float32, torch.bfloat16):
+        pairs = torch.stack([(itemsize * words).to(torch.int32),
+                             value.float().contiguous().view(torch.int32)],
+                            -1)
     else:
         if bool((live & (words >= WORD_OFFSET_LIMIT)).any()):
             raise ValueError("sparse_conv: a quantised bank's slab offsets "
@@ -148,12 +166,13 @@ def e4m3_to_f32(byte: torch.Tensor) -> torch.Tensor:
 
 
 def unstretch(pairs: torch.Tensor, value_dtype: torch.dtype,
-              scale: Optional[torch.Tensor]):
-    """(word offsets, f32 values) of a stretched bank, decoded as the kernel
-    decodes them: an f32 bank's pairs, or a quantised bank's words (the
-    byte an int8 or an e4m3 value, times its row's scale, rounded once)."""
-    if value_dtype == torch.float32:
-        return (pairs[..., 0].long() // 4,
+              scale: Optional[torch.Tensor], itemsize: int = 4):
+    """(element offsets, f32 values) of a stretched bank, decoded as the
+    kernel decodes them: an f32 or bf16 bank's pairs (byte offsets at the
+    activation's ``itemsize``), or a quantised bank's words (the byte an
+    int8 or an e4m3 value, times its row's scale, rounded once)."""
+    if value_dtype in (torch.float32, torch.bfloat16):
+        return (pairs[..., 0].long() // itemsize,
                 pairs[..., 1].contiguous().view(torch.float32))
     w = pairs.long() & 0xFFFFFFFF
     byte = (w & 0xFF).to(torch.uint8)
@@ -162,14 +181,14 @@ def unstretch(pairs: torch.Tensor, value_dtype: torch.dtype,
     return w >> 8, q * scale.float()[:, None]
 
 
-def _epilogue(acc, bias, residual, fuse_relu):
+def _epilogue(acc, bias, residual, fuse_relu, dtype):
     out = acc.permute(1, 0, 2, 3)
     out = out + bias.float().view(1, -1, 1, 1)
     if residual is not None:
         out = out + residual.float()
     if fuse_relu:
         out = torch.relu(out)
-    return out.contiguous()
+    return out.to(dtype).contiguous()
 
 
 def _walk_direct(xpad, value, packed_idx, nnz, bias, residual, *, e, f,
@@ -178,9 +197,10 @@ def _walk_direct(xpad, value, packed_idx, nnz, bias, residual, *, e, f,
     whole run at offsets c*Hp*Wp from each pixel's input in xpad."""
     n, c, hp, wp = xpad.shape
     m = value.shape[0]
+    size = xpad.element_size()
     pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=1, s=1, ws=wp,
-                                 rows=hp, cc=c, c=c)
-    off, val = unstretch(pairs, value.dtype, scale)
+                                 rows=hp, cc=c, c=c, itemsize=size)
+    off, val = unstretch(pairs, value.dtype, scale, size)
     flat = xpad.float().reshape(-1)
     ef = e * f
     q = torch.arange(n * ef)
@@ -195,7 +215,8 @@ def _walk_direct(xpad, value, packed_idx, nnz, bias, residual, *, e, f,
             kk = start[live] + i
             x = flat[off[live, kk][:, None] + tile[None, :]]
             acc[live, q0:q0 + schedule.tp] += val[live, kk][:, None] * x
-    return _epilogue(acc.view(m, n, e, f), bias, residual, fuse_relu)
+    return _epilogue(acc.view(m, n, e, f), bias, residual, fuse_relu,
+                     xpad.dtype)
 
 
 def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
@@ -207,32 +228,32 @@ def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
                            scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """The CUDA kernel's walk on its operands, for the tests: the bank
-    stretched as the launcher stretches it (``stretch_bank``); for each
-    tile of ``schedule.tp`` output pixels (flat over (n, e, f)), the input
-    slab its windows read (whole padded rows, across images, each channel
-    ``schedule.rows`` rows apart; the sampled pixels of a strided 1x1
-    conv), channel chunk by channel chunk of ``schedule.cc``; each row's
-    run of the chunk added nonzero by nonzero at its stretched offset.  A
-    1x1 conv walks as its unstaged kernel does, straight from xpad.
-    Raises if a tile's slab is taller than ``schedule.rows``.  Same
-    operands and, bit for bit, the same result as ``sparse_conv_plain``; a
-    quantised bank (with ``scale``) walks the words the kernel decodes."""
-    n, c, hp, wp = xpad.shape
-    m = value.shape[0]
-    xpad = xpad.float()
-    cc, tp, rows = schedule.cc, schedule.tp, schedule.rows
-    hs, ws, st = slab_geometry(hp, wp, rs // s, s, e, f, stride)
-    sub = rs == 1 and stride > 1   # a strided 1x1 conv: the sampled pixels
-    src = xpad[:, :, ::stride, ::stride][:, :, :e, :f] if sub else xpad
-    pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=rs, s=s, ws=ws,
-                                 rows=rows, cc=cc, c=c)
-    off, val = unstretch(pairs, value.dtype, scale)
-    rowptr = rowptr.long()
-    rt = rs // s
+    stretched as the launcher stretches it (``stretch_bank``); for each tile of
+    ``schedule.tp`` output pixels (flat over (n, e, f)), the input slab its
+    windows read (whole padded rows, across images, each channel
+    ``schedule.rows`` rows apart), channel chunk by channel chunk of
+    ``schedule.cc``; each row's run of the chunk added nonzero by nonzero at
+    its stretched offset.  A 1x1 conv walks as its unstaged kernel does,
+    straight from xpad.  Raises if a tile's slab is taller than
+    ``schedule.rows``.  Same operands and, bit for bit, the same result as
+    ``sparse_conv_plain``; a quantised bank (with ``scale``) walks the words
+    the kernel decodes, a bf16 input its bf16 slabs (offsets in 2-byte
+    elements), widened exactly at each product."""
     if rs == 1:   # a 1x1 conv reads xpad directly, one run a row
         return _walk_direct(xpad, value, packed_idx, nnz, bias, residual,
                             e=e, f=f, stride=stride, fuse_relu=fuse_relu,
                             schedule=schedule, scale=scale)
+    n, c, hp, wp = xpad.shape
+    m = value.shape[0]
+    dtype, size = xpad.dtype, xpad.element_size()
+    src = xpad.float()
+    cc, tp, rows = schedule.cc, schedule.tp, schedule.rows
+    hs, ws, st = slab_geometry(hp, wp, rs // s, s, e, f, stride)
+    pairs, rowptr = stretch_bank(value, packed_idx, nnz, rs=rs, s=s, ws=ws,
+                                 rows=rows, cc=cc, c=c, itemsize=size)
+    off, val = unstretch(pairs, value.dtype, scale, size)
+    rowptr = rowptr.long()
+    rt = rs // s
     wq = pixel_row(ws, f, st)
     eq = e * wq
     q_all = torch.arange(n * eq)
@@ -263,4 +284,4 @@ def sparse_conv_walk_plain(xpad: torch.Tensor, value: torch.Tensor,
                 acc[live, q0:q0 + tp] += val[live, kk][:, None] * x
     # drop the pixels past each row's f
     return _epilogue(acc.view(m, n, e, wq)[..., :f], bias, residual,
-                     fuse_relu)
+                     fuse_relu, dtype)

@@ -11,7 +11,9 @@ convolution runs through a selectable method:
                   bias/ReLU/shortcut epilogue fused in-kernel (the name is
                   the reference's, kept so methods compare across packages)
   "bsr"        -- block-sparse (BCSR) direct conv, the CUDA BCSR kernel
-  "auto"       -- not ported yet: raises ``NotImplementedError``
+  "auto"       -- each conv as the plan entry for its layer says (a
+                  roofline plan of the bound weights when none is given;
+                  ``repro_torch.tuning``)
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; the CPU runs each kernel method through its plain version.

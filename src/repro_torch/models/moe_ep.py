@@ -82,8 +82,10 @@ def _bucket_by(dest: torch.Tensor, n_buckets: int, capacity: int):
     slot[order] = slot_sorted
     token_for_slot = torch.full((trash + 1,), n, dtype=torch.int64,
                                 device=dev)
-    keep = slot_sorted <= trash           # the reference's mode="drop"
-    token_for_slot[slot_sorted[keep]] = order[keep]
+    # the reference's mode="drop": slots past the trash slot land in it
+    # too (a scatter, not a masked assignment: no read-back of the mask,
+    # so the dry run's meta tensors take it)
+    token_for_slot.scatter_(0, slot_sorted.clamp(max=trash), order)
     if _DROPS is not None:
         _DROPS.append(int(((sorted_d < n_buckets) & ~ok).sum()))
     return slot, token_for_slot[:-1]

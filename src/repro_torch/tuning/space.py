@@ -160,7 +160,7 @@ def ell_tiles(g: ConvGeometry, pipeline: Optional[bool] = None
     (``kernels.sparse_conv.ops.tile_candidates``)."""
     return tile_candidates(g.m, g.k_est(8), g.e, g.f, n=g.batch, c=g.c,
                            r=g.r, s=g.s, stride=g.stride, hp=g.hp, wp=g.wp,
-                           pipeline=pipeline)
+                           pipeline=pipeline, itemsize=_itemsize(g))
 
 
 def ell_tms(g: ConvGeometry) -> List[int]:
@@ -190,7 +190,14 @@ def bsr_feasible(g: ConvGeometry, bm: int, bn: int,
 def _bsr_tiles(g: ConvGeometry, bm: int, bn: int, value_dtype: str):
     gbm, _, _ = g.bsr_grid(bm, bn)
     return bsr_tile_candidates(bm, bn, g.e, g.f, n=g.batch, m=gbm * bm,
-                               crs=g.c * g.r * g.s, value_dtype=value_dtype)
+                               crs=g.c * g.r * g.s, value_dtype=value_dtype,
+                               itemsize=_itemsize(g))
+
+
+def _itemsize(g: ConvGeometry) -> int:
+    """Bytes an activation element of the geometry takes: the kernels'
+    stages are in the activation's dtype."""
+    return 2 if g.dtype in ("bfloat16", "float16") else 4
 
 
 def enumerate_candidates(g: ConvGeometry,

@@ -472,3 +472,30 @@ def rank_elastic(rank, world, out: str) -> None:
         res["plan"] = list(plan[0])
         with open(f"{out}/elastic.port.json", "w") as f:
             json.dump(res, f)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's counts, held to a real meshed step (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+def rank_dryrun_counts(rank, world, cases, out: str) -> None:
+    """Each case's meshed step on real CPU tensors over gloo, under the dry
+    run's counters (``dryrun.count_step`` with ``device="cpu"``, the
+    case's flags as ``dryrun.count_cell`` sets them); rank 0 writes its
+    FLOPs and collective bytes by kind, a case a JSON file."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    for c in cases:
+        cfg = _cfg(c["arch"])
+        shape = ShapeConfig(**c["shape"])
+        mesh = make_mesh(tuple(c["mesh"]), tuple(c["axes"]),
+                         device_type="cpu")
+        if rank >= int(np.prod(c["mesh"])):
+            continue
+        with dryrun._flags(**c["flags"]):
+            counts, _, _ = dryrun.count_step(cfg, shape, mesh, device="cpu")
+        if rank == 0:
+            with open(f"{out}/{c['name']}.json", "w") as f:
+                json.dump({"flops": counts.flops, "coll": counts.coll}, f)

@@ -187,18 +187,40 @@ def test_plan_rules_replay_the_cards_probes(tmp_path, entry, rule):
 
 
 def test_plan_rules_dtype_policy(tmp_path):
-    """The card's conv kernels take f32 activations: a pallas or bsr entry
-    keyed at bf16 is an error there, a dense one is not."""
+    """The card's conv kernels take f32 and bf16 activations: pallas and
+    bsr entries keyed at bf16 replay at bf16 and give the reference's
+    findings (none here); one keyed at f16 is an error on the card only
+    (the reference admits f16; the port's kernels do not take it, a
+    deliberate difference)."""
     key = "m64_c32_h14w14_r3s3_st1_p1_n8_ep10_sp0.7_bfloat16_cuda"
+    k16 = key.replace("bfloat16", "float16")
     p = tmp_path / "cache.json"
     p.write_text(json.dumps({"version": 6, "entries": {
         key: {"method": "pallas", "tm": 8},
         key + "_bk0.3": {"method": "bsr", "block_m": 8, "block_n": 128},
-        key + "_bk0.4": {"method": "dense"}}}))
+        key + "_bk0.4": {"method": "dense"},
+        k16: {"method": "pallas", "tm": 8}}}))
     diags = plan_rules.check_plan_file(str(p))
-    assert {d.location for d in diags if d.rule == "sched.dtype_policy"} == {
-        key, key + "_bk0.3"}
-    assert rules_of(diags, "error") == {"sched.dtype_policy"}
+    found = {(d.rule, d.location) for d in diags if d.severity == "error"}
+    ref = {(d.rule, d.location)
+           for d in ref_plan_rules.check_plan_file(str(p))
+           if d.severity == "error"}
+    assert {x for x in found if x[1] != k16} == ref == set()
+    assert found == {("sched.dtype_policy", k16)}
+
+
+def test_plan_rules_replay_bf16_keys_at_half_the_bytes(tmp_path):
+    """A bf16 key's ELL entry replays the schedule ``ops.sparse_conv``
+    takes on bf16 inputs: a 3-row slab of a 20,000-wide row busts shared
+    memory at f32 and fits at bf16."""
+    key = "m8_c32_h10w20000_r3s3_st1_p0_n1_ep10_sp0.7_{}_cuda"
+    p = tmp_path / "cache.json"
+    p.write_text(json.dumps({"version": 6, "entries": {
+        key.format(dt): {"method": "pallas", "tm": 8}
+        for dt in ("float32", "bfloat16")}}))
+    diags = plan_rules.check_plan_file(str(p))
+    assert {(d.rule, d.location) for d in diags if d.severity == "error"} == {
+        ("sched.smem_budget", key.format("float32"))}
 
 
 def test_plan_rules_unreadable_and_schema(tmp_path):
@@ -751,13 +773,14 @@ def test_preflight_agrees_with_the_engine_on_resnet50(bound_nets):
 
 
 def test_policy_entries_are_flagged_and_refused_by_a_strict_bind(bound_nets):
-    """Two pinned entries are policy, not schedule: an fp8 value stream on
-    a ``cpu`` bind, and bf16 activations.  The non-strict CPU engine runs
-    fp8 through the plain versions (which decode e4m3 bit for bit, held to
-    the reference by ``test_torch_engine_auto.py``; the reference's own
-    non-strict engine runs it too), and the engine has no bf16 forward (it
-    casts its input to f32; the card's launchers refuse bf16 operands).
-    So preflight flags both, and a strict bind refuses both."""
+    """A pinned entry can be policy, not schedule: an fp8 value stream on a
+    ``cpu`` bind.  The non-strict CPU engine runs fp8 through the plain
+    versions (which decode e4m3 bit for bit, held to the reference by
+    ``test_torch_engine_auto.py``; the reference's own non-strict engine
+    runs it too), so preflight flags it and a strict bind refuses it.
+    bf16 activations are not policy any more: the card's conv kernels take
+    them, and preflight at bf16 gives the reference's findings on the
+    same layer (the reference's per-entry checks on its own ConvOp)."""
     program, params, engine = bound_nets["alexnet"]
     op = next(op for op in program.conv_ops if op.sparsity > 0)
     fp8 = {op.name: PlanEntry(method="pallas", tm=8,
@@ -769,11 +792,19 @@ def test_policy_entries_are_flagged_and_refused_by_a_strict_bind(bound_nets):
     with pytest.raises(PreflightError) as exc:
         CnnEngine(program, params, fp8, strict=True, device="cpu")
     assert {d.rule for d in exc.value.diagnostics} == {"sched.value_dtype"}
-    for entry in (PlanEntry(method="pallas", tm=8),
-                  PlanEntry(method="bsr", block_m=8, block_n=128)):
-        bf16 = preflight(program, {op.name: entry}, params, batch=BATCH,
-                         dtype="bfloat16", backend="cuda")
-        assert rules_of(bf16, "error") == {"sched.dtype_policy"}
+    from repro.analysis import schedule_rules as ref_schedule_rules
+    from repro.tuning.cache import PlanEntry as RefPlanEntry
+    ref_op = ref_program.ConvOp(**{f.name: getattr(op, f.name)
+                                   for f in dataclasses.fields(op)})
+    for method, kw in (("pallas", dict(tm=8)),
+                       ("bsr", dict(block_m=8, block_n=128))):
+        bf16 = preflight(program, {op.name: PlanEntry(method=method, **kw)},
+                         params, batch=BATCH, dtype="bfloat16",
+                         backend="cuda")
+        check = getattr(ref_schedule_rules, f"check_{method}_entry")
+        ref = check(ref_op, RefPlanEntry(method=method, **kw), batch=BATCH,
+                    dtype="bfloat16", backend="cuda")
+        assert rules_of(bf16, "error") == rules_of(ref, "error") == set()
     assert _engine_accepts(engine, op, fp8[op.name])
 
 

@@ -10,6 +10,8 @@ At T = 200 the reference's chunk choice falls back to 128 and its kernel
 never writes rows 128-199 (they hold NaN); the port computes every row, so
 there it is held to ``attention_ref``, the reference's oracle, instead.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -111,6 +113,14 @@ def test_cpu_runs_the_plain_version_and_counts_nothing():
     before = fk.flash_attention_fwd.launches
     fk.flash_attention_fwd(q, k, v, sc=0.25, causal=False)
     assert fk.flash_attention_fwd.launches == before
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        fk.flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"),
-                               sc=0.25, causal=False)
+    # meta tensors (the dry run): empty meta outputs of the kernel's
+    # shapes, nothing launched; a device with no kernel raises
+    o, lse = fk.flash_attention_fwd(q.to("meta"), k.to("meta"),
+                                    v.to("meta"), sc=0.25, causal=False)
+    assert o.device.type == lse.device.type == "meta"
+    assert (o.shape, o.dtype) == (q.shape, q.dtype)
+    assert (lse.shape, lse.dtype) == (q.shape[:3], torch.float32)
+    assert fk.flash_attention_fwd.launches == before
+    xpu = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        fk.flash_attention_fwd(xpu, xpu, xpu, sc=0.25, causal=False)

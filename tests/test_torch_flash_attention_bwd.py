@@ -19,6 +19,8 @@ plain versions of the forward and of both backward kernels.
 * ``flash_attention_bwd_plain`` against ``torch.autograd`` through
   ``flash_attention_plain``: rtol = atol = 1e-5 (the same f32 products).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,8 +171,16 @@ def test_backward_dispatches_on_device():
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     assert (fk.flash_attention_bwd_dq.launches,
             fk.flash_attention_bwd_dkv.launches) == before
+    # meta tensors (the dry run): empty meta gradients of the operands'
+    # shapes, nothing launched; a device with no kernel raises
     meta = [x.to("meta") for x in (q, k, v, o, lse, q)]
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fk.flash_attention_bwd(*meta, sc=0.25, causal=True)
+    grads = fk.flash_attention_bwd(*meta, sc=0.25, causal=True)
+    assert [(g.device.type, g.shape) for g in grads] == [
+        ("meta", x.shape) for x in (q, k, v)]
+    assert (fk.flash_attention_bwd_dq.launches,
+            fk.flash_attention_bwd_dkv.launches) == before
+    xpu = [types.SimpleNamespace(device=torch.device("xpu"))] * 6
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        fk.flash_attention_bwd(*xpu, sc=0.25, causal=True)
     with pytest.raises(ValueError, match="take CUDA tensors"):
         fk.flash_attention_bwd_dq(q, k, v, q, lse, lse, sc=0.25, causal=True)

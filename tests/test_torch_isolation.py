@@ -72,6 +72,10 @@ def test_port_has_modules_to_scan():
                    "launch/specs.py", "runtime/elastic.py",
                    "optim/compression.py", "models/moe_ep.py"):
         assert f"src/repro_torch/{module}" in names
+    # the dry run on the fake process group, its counters and roofline
+    for module in ("launch/dryrun.py", "launch/costs.py", "launch/enrich.py",
+                   "launch/roofline.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

@@ -1246,3 +1246,117 @@ def test_quickstart_on_the_card_matches_the_cpu(cuda_device, capsys):
         ref = want["dense linear" if "linear" in name else "dense  (cuDNN)"]
         limit = 1e-4 * max(1.0, float(ref.abs().max()))
         assert float((out - ref).abs().max()) <= limit, name
+
+
+# ---------------------------------------------------------------------------
+# the conv kernels on bf16 activations
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16_within_one_ulp(got, want):
+    """bf16 results of f32 sums taken in two orders: within one bf16 ulp,
+    2^-7 |want| + 2^-8 max(1, max |want|)."""
+    assert got.dtype == want.dtype == BF16
+    g, w = got.float(), want.float()
+    tol = 2.0 ** -7 * w.abs() + 2.0 ** -8 * max(1.0, float(w.abs().max()))
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("value_dtype", (None,) + QUANT)
+@pytest.mark.parametrize("case", ELL_CASES)
+def test_sparse_conv_kernel_bf16_matches_plain(cuda_device, case,
+                                               value_dtype):
+    """bf16 xpad, residual and output (a bf16 or quantised bank): bit for
+    bit the plain version, pipelined, blocking and at every tile, through
+    the launcher and through ``ops.sparse_conv`` (which pads an odd
+    width); and within 3e-2 of the f32 kernel on the same weights."""
+    from repro_torch.core.sparse_format import quantize_values
+    from repro_torch.kernels.sparse_conv.ref import slab_width
+
+    n, c, h, m, r, stride, pad, sp, with_res, relu = case
+    x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, sp)
+    ell = ell_from_dense_conv(w, device=cuda_device)
+    ell = (dataclasses.replace(ell, value=ell.value.to(BF16))
+           if value_dtype is None else quantize_values(ell, value_dtype))
+    e, f = out_spatial(h, h, r, r, stride, pad)
+    xt = torch.from_numpy(x).to(cuda_device, BF16)
+    bias = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        cuda_device)
+    res = (torch.from_numpy(rng.standard_normal((n, m, e, f)).astype(
+        np.float32)).to(cuda_device, BF16) if with_res else None)
+    wp = h + 2 * pad
+    xpad = pad_in(xt, pad)
+    if r > 1:
+        xpad = torch.nn.functional.pad(xpad, (0, slab_width(wp, 2) - wp))
+    args = (xpad, ell.value, pack_indices(ell), ell.nnz, bias, res)
+    kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu,
+              scale=ell.scale)
+    want = sparse_conv_plain(*args, **kw)
+    assert want.dtype == BF16
+    geo = dict(n=n, c=c, r=r, s=r, stride=stride, hp=wp, wp=wp, itemsize=2)
+    for pipeline in (None, False):
+        sched, reason = resolve_schedule(m, ell.k, e, f, pipeline=pipeline,
+                                         **geo)
+        assert reason is None
+        before = sparse_conv_kernel.bf16_launches
+        got = sparse_conv_kernel(*args, schedule=sched, **kw)
+        torch.cuda.synchronize()
+        assert sparse_conv_kernel.bf16_launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for tm, px in budget.ELL_TILES:
+        sched, _ = resolve_schedule(m, ell.k, e, f, tm=tm, tp=32 * px, **geo)
+        torch.testing.assert_close(
+            sparse_conv_kernel(*args, schedule=sched, **kw), want, rtol=0,
+            atol=0)
+    ops_kw = dict(stride=stride, padding=pad, bias=bias, fuse_relu=relu)
+    torch.testing.assert_close(sparse_conv(xt, ell, residual=res, **ops_kw),
+                               want, rtol=0, atol=0)
+    if value_dtype is None:
+        f32 = sparse_conv(xt.float(), dataclasses.replace(
+            ell, value=ell.value.float()), residual=None if res is None
+            else res.float(), **ops_kw)
+        torch.testing.assert_close(want.float(), f32, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("value_dtype", (None, "int8"))
+@pytest.mark.parametrize("case", BSR_CASES + TALL_CASES[:2])
+def test_bsr_conv_kernel_bf16_matches_plain(cuda_device, case, value_dtype):
+    """bf16 xpad, residual and output on bf16 (or int8) tiles, one bf16
+    wgmma a 16-deep step: within one bf16 ulp of the plain version at
+    every tile holding whole block-rows, and within 3e-2 of the f32 kernel
+    on the widened tiles."""
+    from repro_torch.core.sparse_format import quantize_values
+    from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain
+
+    n, c, h, m, r, stride, pad, block, with_res, relu = case
+    x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, 0.6)
+    bc = bcsr_conv_from_dense(w, block=block, device=cuda_device)
+    bc = (dataclasses.replace(bc, blocks=bc.blocks.to(BF16))
+          if value_dtype is None else quantize_values(bc, value_dtype))
+    e, f = out_spatial(h, h, r, r, stride, pad)
+    mpad = bc.gbm * block[0]
+    xt = torch.from_numpy(x).to(cuda_device, BF16)
+    bias = torch.zeros(mpad, device=cuda_device)
+    bias[:m] = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        cuda_device)
+    res = (torch.from_numpy(rng.standard_normal((n, mpad, e, f)).astype(
+        np.float32)).to(cuda_device, BF16) if with_res else None)
+    args = (pad_in(xt, pad), bc.blocks, bc.blockcol, bc.nblocks, bias, res)
+    kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu,
+              scale=bc.scale)
+    want = bsr_conv_plain(*args, **kw)
+    for n_tile, wgs in [(t, g) for t, g in budget.BSR_CONV_TILES
+                        if t % block[0] == 0]:
+        before = bsr_conv_kernel.bf16_launches
+        got = bsr_conv_kernel(*args, n_tile=n_tile, wgs=wgs, **kw)
+        torch.cuda.synchronize()
+        assert bsr_conv_kernel.bf16_launches == before + 1
+        _bf16_within_one_ulp(got, want)
+    if value_dtype is None:
+        f32 = bsr_conv_kernel(args[0].float(), bc.blocks.float(), *args[2:5],
+                              None if res is None else res.float(), **kw)
+        torch.testing.assert_close(want.float(), f32, rtol=3e-2, atol=3e-2)
+        with pytest.raises(ValueError, match="bf16 activations"):
+            bsr_conv_kernel(args[0], bc.blocks.float(), *args[2:], **kw)
