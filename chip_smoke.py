@@ -364,6 +364,27 @@ Phases (any failure exits non-zero and prints no result):
               compressed gradient's, the losses within 1e-2 of the
               uncompressed ones, and both pods' states bit-equal after the
               steps.
+              Then the meshed decode on the (1, 2) mesh (``_mesh_decode``,
+              bf16, weights from the seed): Qwen1.5-0.5B at full width and
+              depth (its KV heads over tp) serving 4 rows (a cache of 128,
+              32 prompt tokens fed one by one through ``make_serve_step``,
+              then 32 greedy ones: the distributed argmax), dense and with
+              each rank's shards pruned at 0.8 (``sparsify_shards``: 168
+              BCSR banks a rank, ``bsr_matmul``'s rows schedule on every
+              projection of every step, 24 x 7 x 64 launches a run a rank,
+              nothing else); DeepSeek-V3 at full width cut to its first
+              (dense-MLP) layer, no MTP head, 96 steps (its latent cache
+              split by sequence, the write crossing to rank 1 at 64).  Each
+              run again in f32 on the shards cast, teacher-forced with the
+              bf16 run's tokens; rank 0 decodes the same tokens meshless on
+              the weights gathered whole (pruned, dense, where sparse): the
+              f32 steps within 1e-4 x max(1, max |logit|), the bf16 logits
+              at most 2x as far (relative norm) from the meshless f32 ones
+              as the meshless bf16 decode's, the f32 next tokens the
+              meshless argmax wherever its top two differ by more than the
+              f32 tolerance; a ``mesh_decode`` line with ms a step, the
+              launches, the distances and the part's seconds.  Mamba2's
+              state split over tp is left to the CPU tests.
               Every step and forward counted in each rank; the lines carry
               step times, peak memory a rank and the card, and a line of
               each rank's launches.
@@ -384,12 +405,16 @@ Phases (any failure exits non-zero and prints no result):
 17. dryrun  -- ``python -m repro_torch.launch.dryrun`` in a subprocess
               with no card visible (``CUDA_VISIBLE_DEVICES=""``): Yi-9B x
               train_4k on 16 x 16 with ``--attn-impl flash`` and the probes,
-              and OLMoE-1B-7B x prefill_32k on 2 x 16 x 16, each rank 0's
-              meta step in a fake world of 256 / 512 ranks; each cell's
-              roofline lines printed, its JSON read back (under
-              ``experiments/dryrun_torch/``, tag ``smoke``) with FLOPs and
-              collective bytes above 0.  It proves the fake process group
-              and the counters work on the card machine's torch build.
+              OLMoE-1B-7B x prefill_32k on 2 x 16 x 16, and Yi-9B x
+              decode_32k on 16 x 16 under ``--sparse-weights 0.8`` (its KV
+              cache split by sequence, kv 4 on tp 16; BCSR banks counted
+              by the kernel op's flop formula), each rank 0's meta step in a fake world of
+              256 / 512 ranks; each cell's roofline lines printed, its JSON
+              read back (under ``experiments/dryrun_torch/``, tag
+              ``smoke``) with FLOPs and collective bytes above 0 (the
+              decode cell: ``sparse_weights`` 0.8 and the cache aliased).
+              It proves the fake process group and the counters work on
+              the card machine's torch build.
 18. the ``kernels`` JSON line (each entry's ``arch_rows``: its rows at the
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
@@ -440,7 +465,8 @@ BF16_TOL = 3e-2                       # rtol = atol, the reference's bf16 tests
 # the dry run's cells (arch, shape, flags): the 16 x 16 train cell with its
 # probes and the flash kernels' meta branch, a 2 x 16 x 16 prefill cell
 DRYRUN_CELLS = (("yi-9b", "train_4k", ("--attn-impl", "flash")),
-                ("olmoe-1b-7b", "prefill_32k", ("--multi-pod",)))
+                ("olmoe-1b-7b", "prefill_32k", ("--multi-pod",)),
+                ("yi-9b", "decode_32k", ("--sparse-weights", "0.8")))
 DRYRUN_TIMEOUT_S = 300
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute[, the key of a dict attribute]); a launch of the kernel adds
@@ -652,6 +678,22 @@ MESH_BLOCK = (16, 16)   # sparsify_params's block: the ranks' pruning
 # MESH_F32_RTOL: tokens whose top-8 routing sits on a near-tie
 MESH_ROUTING_FLIPS = 16
 MESH_JOIN_S = 600       # the two ranks' world, start to join
+# The meshed decode on the (1, 2) mesh, bf16, weights from the seed:
+# Qwen1.5-0.5B at full width and depth serving a few requests (4 rows, a
+# cache of 128, 32 prompt tokens fed one by one, then 32 greedy ones),
+# dense and with each rank's shards pruned at MESH_SPARSITY (its KV heads
+# over tp: 8 a rank); DeepSeek-V3 at full width cut to its first
+# (dense-MLP) layer without the MTP head (decode never runs it; a MoE
+# layer is ~22.5 GB), 96 steps, so that the latent cache's write (its
+# sequence over tp, 64 positions a rank) crosses to rank 1 at position 64
+MESH_DECODE_ROWS, MESH_DECODE_LEN, MESH_DECODE_PROMPT = 4, 128, 32
+MESH_DECODE = (("qwen1.5-0.5b", False, 64), ("qwen1.5-0.5b", True, 64),
+               ("deepseek-v3-671b", False, 96))
+MESH_DECODE_PROJECTIONS = 7   # wq, wk, wv, wo, gate, up, down a layer
+# a step's f32 logits on the two ranks (the shards cast) against one
+# rank's meshless f32 decode on the same weights gathered whole, in units
+# of max(1, max |logit|); bf16 takes MESH_LOGIT_FACTOR's rule
+MESH_DECODE_F32_RTOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -4312,10 +4354,173 @@ def _mesh_ep_f32(torch, mods, cfg, placed, batch, out_dir, rank) -> dict:
     return res
 
 
+def _cast32(mods, tree):
+    """A placed param tree with every DTensor shard and BCSR bank cast to
+    f32."""
+    S, Bcsr = mods["S"], mods["BcsrMatrix"]
+
+    def one(x):
+        if isinstance(x, Bcsr):
+            return Bcsr(blocks=x.blocks.float(), blockcol=x.blockcol,
+                        nblocks=x.nblocks, shape=x.shape, block=x.block)
+        return S.map_local(lambda t: t.float(), x)
+    return mods["tree_map"](one, tree)
+
+
+def _mesh_decode_run(torch, mods, cfg, params, tokens, steps, mesh,
+                     device, greedy):
+    """``steps`` counted ``make_serve_step`` calls on ``mesh`` over a placed
+    cache of MESH_DECODE_LEN at cur_len 0, 1, ...: the fed tokens are
+    ``tokens``' columns, past the prompt the last next tokens where
+    ``greedy``.  Returns (the fed tokens, the logits of every step gathered
+    whole (steps, rows, V) in f32, the next tokens (steps, rows), ms a
+    step, the launches).  The timed window holds the steps and the next
+    tokens gathered whole (what feeds the next step); the logits are
+    kept as the step returns them (no copy) and gathered after it."""
+    S, T, st = mods["S"], mods["T"], mods["steps"]
+    cache = st.place_cache(T.init_cache(cfg, tokens.shape[0],
+                                        MESH_DECODE_LEN, device),
+                           cfg, mesh, S.axis_size("model"))
+    serve = mods["make_serve_step"](cfg)
+    fed, local, nxt, pls = tokens.clone(), [], [], []
+    decode_step = T.decode_step
+
+    def recording(*a, **k):
+        lg, c = decode_step(*a, **k)
+        local.append(lg.to_local())
+        pls[:] = lg.placements
+        return lg, c
+
+    reset_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.decode_step = recording
+    try:
+        with torch.no_grad():
+            for t in range(steps):
+                if greedy and t >= MESH_DECODE_PROMPT:
+                    fed[:, t] = nxt[-1]
+                tk = st.place_tokens(fed[:, t:t + 1], device, mesh)
+                n, cache = serve(params, tk, cache, t)
+                nxt.append(S.full_tensor(n))
+    finally:
+        T.decode_step = decode_step
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = read_counts(mods)
+    stacked = [type(p)(p.dim + 1) if hasattr(p, "dim") else p for p in pls]
+    logits = S.full_tensor(S.wrap(torch.stack(local).float(), stacked))
+    return fed, logits, torch.stack(nxt), ms, counts
+
+
+def _meshless_decode(torch, mods, cfg, params, fed, device):
+    """One rank's meshless decode of ``fed`` (teacher-forced), the logits
+    of every step (steps, rows, V) in f32."""
+    T = mods["T"]
+    cache = T.init_cache(cfg, fed.shape[0], MESH_DECODE_LEN, device)
+    out = []
+    with torch.no_grad():
+        for t in range(fed.shape[1]):
+            lg, cache = T.decode_step(params, cfg, fed[:, t:t + 1], cache, t)
+            out.append(lg.float())
+    return torch.stack(out)
+
+
+def _mesh_decode(torch, mods, seed, device, mesh, rank) -> list:
+    """``MESH_DECODE``'s models on ``mesh``: each run greedy in bf16, then
+    in f32 on the shards cast, teacher-forced with the bf16 run's tokens;
+    a sparse model's shards pruned by ``sparse_weights.sparsify_shards``.
+    Rank 0 also decodes the same tokens meshless on the weights gathered
+    whole (dense; pruned where sparse), in f32 and bf16, and measures each
+    step's f32 error (in units of max(1, max |logit|)), the relative norms
+    of the bf16 logits from the meshless f32 ones, and the f32 next
+    tokens' agreement with the meshless argmax where its top two differ by
+    more than the f32 tolerance."""
+    from repro_torch.launch import sparse_weights
+    S, T = mods["S"], mods["T"]
+    out = []
+    with S.use_rules(S.default_rules(mesh), mesh):
+        for i, (arch, sparse, steps) in enumerate(MESH_DECODE):
+            cfg = mods["configs"].get_config(arch)
+            if cfg.use_mla:
+                cfg = mods["dc"].replace(cfg, n_layers=1, mtp_depth=0)
+            t_model = time.perf_counter()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            whole = T.init_params(cfg, torch.Generator(
+                device=device).manual_seed(seed + 97), device)
+            pls = mods["tree_map"](lambda sp: S.placements(sp, mesh),
+                                   T.param_specs(cfg, S.axis_size("model")))
+            placed = mods["place_state"](whole, pls, mesh)
+            n_bcsr = 0
+            if sparse:
+                # the pruned shards, and the same weights gathered whole
+                placed = sparse_weights.sparsify_shards(placed, cfg,
+                                                        MESH_SPARSITY)
+                by_path = dict(mods["tree_paths"](pls))
+                flat = []
+                for (k, w), d in zip(mods["tree_paths"](placed),
+                                     mods["tree_flatten"](whole)[0]):
+                    if isinstance(w, mods["BcsrMatrix"]):
+                        n_bcsr += 1
+                        d = S.full_tensor(S.wrap(
+                            mods["bcsr_to_dense_matrix"](w).T.contiguous(),
+                            sparse_weights.whole_but_tp(by_path[k], mesh)))
+                    flat.append(d)
+                whole = mods["tree_flatten"](whole)[1](flat)
+            prompt = torch.randint(
+                0, cfg.vocab, (MESH_DECODE_ROWS, steps), device=device,
+                generator=torch.Generator(device=device).manual_seed(
+                    seed + 98 + i))
+            fed, lg16, nx16, ms16, c16 = _mesh_decode_run(
+                torch, mods, cfg, placed, prompt, steps, mesh, device, True)
+            cfg32 = mods["dc"].replace(cfg, dtype="float32")
+            placed32 = _cast32(mods, placed)
+            _, lg32, nx32, ms32, c32 = _mesh_decode_run(
+                torch, mods, cfg32, placed32, fed, steps, mesh, device,
+                False)
+            del placed, placed32
+            res = {"arch": arch, "sparse": sparse, "steps": steps,
+                   "layers": cfg.n_layers, "bcsr_leaves": n_bcsr,
+                   "step_ms": ms16, "f32_step_ms": ms32, "runs": [c16, c32],
+                   "finite": bool(torch.isfinite(lg16).all()
+                                  and torch.isfinite(lg32).all())}
+            if rank == 0:
+                whole32 = mods["tree_map"](lambda x: x.float(), whole)
+                ref32 = _meshless_decode(torch, mods, cfg32, whole32, fed,
+                                         device)
+                del whole32
+                ref16 = _meshless_decode(torch, mods, cfg, whole, fed,
+                                         device)
+                scale = torch.clamp(ref32.abs().amax(dim=(1, 2)), min=1.0)
+                err32 = ((lg32 - ref32).abs().amax(dim=(1, 2)) / scale)
+                rel = lambda a, b: float((a - b).norm() / b.norm())
+                top2 = torch.topk(ref32, 2, dim=-1).values
+                clear = (top2[..., 0] - top2[..., 1]
+                         > MESH_DECODE_F32_RTOL * scale[:, None])
+                agree = (nx32.long() == ref32.argmax(-1))[clear]
+                res.update(
+                    f32_err=float(err32.max()),
+                    bf16_vs_f32=rel(lg16, ref32),
+                    one_bf16_vs_f32=rel(ref16, ref32),
+                    next_clear=int(clear.sum()),
+                    next_agree=int(agree.sum()),
+                    greedy_agree=float((nx16.long() == ref16.argmax(-1))
+                                       .float().mean()))
+                del ref32, ref16
+            del whole, lg16, lg32
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            res["seconds"] = time.perf_counter() - t_model
+            out.append(res)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_rank(rank, world, port, seed, out_dir):
     """One rank of the two that share the card: (b) Qwen1.5-0.5B trained on
-    a (1, 2) ("data", "model") mesh (tp mode A, 8 heads a rank) and
-    OLMoE-1B-7B's EP forward and sparse prefill on it; (c) Qwen1.5-0.5B on
+    a (1, 2) ("data", "model") mesh (tp mode A, 8 heads a rank),
+    OLMoE-1B-7B's EP forward and sparse prefill on it, and the meshed
+    decode (``_mesh_decode``); (c) Qwen1.5-0.5B on
     a (2, 1, 1) ("pod", "data", "model") mesh, uncompressed and with
     ``compress_cross_pod`` (and the compressed exchange held leaf by leaf,
     ``_int8_error``).  Writes its results to ``rank<r>.json``."""
@@ -4338,7 +4543,9 @@ def _mesh_rank(rank, world, port, seed, out_dir):
                "tp": _mesh_train(torch, mods, cfg, batch, seed, device,
                                  tp_mesh),
                "ep": _mesh_ep(torch, mods, seed, device, tp_mesh, out_dir,
-                              rank)}
+                              rank),
+               "decode": _mesh_decode(torch, mods, seed, device, tp_mesh,
+                                      rank)}
         pod_mesh = make_mesh((world, 1, 1), ("pod", "data", "model"),
                              device_type="cuda")
         res["dp"] = _mesh_train(torch, mods, cfg, batch, seed, device,
@@ -4578,22 +4785,73 @@ def mesh_phase(torch, mods, device, seed):
                  "peak_gb": [x["int8"]["peak_gb"] for x in ranks],
                  "tolerance": MESH_INT8_RTOL},
         "phase_s": time.perf_counter() - t_phase}), flush=True)
+    mesh_decode_check(ranks, card)
     per_rank = []
     for res in ranks:
-        runs = (res["tp"]["runs"] + res["ep"]["forward_runs"]
-                + res["ep"]["sparse_runs"] + res["ep"]["f32_forward_runs"]
-                + res["ep"]["f32_sparse_runs"] + res["dp"]["runs"]
-                + res["int8"]["runs"])
         per_rank.append({"rank": res["rank"], **{
-            name: n for name, n in sum_counts(runs).items() if n}})
+            name: n for name, n in sum_counts(_rank_runs(res)).items() if n}})
     print(json.dumps({"phase": "mesh launches", "ranks": per_rank}),
           flush=True)
-    runs = one["runs"] + [r for res in ranks for r in (
-        res["tp"]["runs"] + res["ep"]["forward_runs"]
-        + res["ep"]["sparse_runs"] + res["ep"]["f32_forward_runs"]
-        + res["ep"]["f32_sparse_runs"] + res["dp"]["runs"]
-        + res["int8"]["runs"])]
+    runs = one["runs"] + [r for res in ranks for r in _rank_runs(res)]
     return sum_counts(runs)
+
+
+def _rank_runs(res) -> list:
+    """A mesh rank's counted runs."""
+    return (res["tp"]["runs"] + res["ep"]["forward_runs"]
+            + res["ep"]["sparse_runs"] + res["ep"]["f32_forward_runs"]
+            + res["ep"]["f32_sparse_runs"] + res["dp"]["runs"]
+            + res["int8"]["runs"]
+            + [c for d in res["decode"] for c in d["runs"]])
+
+
+def mesh_decode_check(ranks, card) -> None:
+    """The meshed decode's checks (``_mesh_decode``) and its line: every
+    run of a rank counted (a sparse model's: ``bsr_matmul`` once a
+    projection a layer a step, nothing else; a dense one's: no kernel),
+    its logits finite; rank 0's f32 steps within MESH_DECODE_F32_RTOL of
+    one rank's, its bf16 logits at most MESH_LOGIT_FACTOR as far (relative
+    norm) from the meshless f32 ones as the meshless bf16 decode's, and
+    its f32 next tokens the meshless argmax wherever that is clear."""
+    for res in ranks:
+        for d in res["decode"]:
+            per_run = d["layers"] * MESH_DECODE_PROJECTIONS * d["steps"]
+            want = expect(bsr_matmul=per_run) if d["sparse"] else expect()
+            for c in d["runs"]:
+                check(c == want, f"mesh decode rank {res['rank']} "
+                      f"{d['arch']} (sparse {d['sparse']}): launched {c}, "
+                      f"expected {want}")
+            check(d["finite"], f"mesh decode rank {res['rank']} "
+                  f"{d['arch']}: logits not finite")
+            check(d["bcsr_leaves"] == (d["layers"] * MESH_DECODE_PROJECTIONS
+                                       if d["sparse"] else 0),
+                  f"mesh decode {d['arch']}: {d['bcsr_leaves']} BCSR "
+                  f"leaves")
+    for d in ranks[0]["decode"]:
+        what = f"mesh decode {d['arch']} (sparse {d['sparse']})"
+        check(d["f32_err"] <= MESH_DECODE_F32_RTOL,
+              f"{what}: an f32 step lies {d['f32_err']} x max(1, max "
+              f"|logit|) from one rank's (limit {MESH_DECODE_F32_RTOL})")
+        check(d["bf16_vs_f32"] <= MESH_LOGIT_FACTOR * d["one_bf16_vs_f32"],
+              f"{what}: bf16 logits {d['bf16_vs_f32']} from the meshless f32 "
+              f"ones (relative norm), more than {MESH_LOGIT_FACTOR} x the "
+              f"meshless bf16 decode's {d['one_bf16_vs_f32']}")
+        check(d["next_agree"] == d["next_clear"] > 0,
+              f"{what}: f32 next tokens agree with the meshless argmax at "
+              f"{d['next_agree']} of {d['next_clear']} clear positions")
+    print(json.dumps({
+        "phase": "mesh_decode", "card": card, "mesh": [1, 2],
+        "backend": "gloo", "rows": MESH_DECODE_ROWS,
+        "max_len": MESH_DECODE_LEN, "prompt": MESH_DECODE_PROMPT,
+        "sparsity": MESH_SPARSITY, "f32_tolerance": MESH_DECODE_F32_RTOL,
+        "bf16_factor": MESH_LOGIT_FACTOR,
+        "runs": [{k: v for k, v in d.items() if k != "runs"}
+                 | {"launches": [{n: c for n, c in r.items() if c}
+                                 for r in d["runs"]]}
+                 for d in ranks[0]["decode"]],
+        "rank1_step_ms": [d["step_ms"] for d in ranks[1]["decode"]],
+        "phase_s": sum(d["seconds"] for d in ranks[0]["decode"])}),
+        flush=True)
 
 
 def _in_proj_width(cfg) -> int:
@@ -4629,10 +4887,16 @@ def dryrun_phase():
               f"counts {out}")
         check((out["probe_info"] is not None) == (mesh == "16x16"),
               f"dryrun {arch} x {shape}: probes {out['probe_info']}")
+        if "--sparse-weights" in flags:
+            sw = float(flags[flags.index("--sparse-weights") + 1])
+            check(out["sparse_weights"] == sw and out["mem_alias_bytes"] > 0,
+                  f"dryrun {arch} x {shape}: sparse_weights "
+                  f"{out['sparse_weights']}, alias {out['mem_alias_bytes']}")
         keep = ("flops", "hbm_bytes", "coll_bytes", "coll_breakdown",
                 "coll_cross_bytes", "model_flops", "t_compute", "t_memory",
                 "t_collective", "bottleneck", "useful_ratio",
-                "mem_arg_bytes", "mem_temp_bytes", "lower_s")
+                "mem_arg_bytes", "mem_temp_bytes", "mem_alias_bytes",
+                "sparse_weights", "lower_s")
         print(json.dumps({"phase": "dryrun", "arch": arch, "shape": shape,
                           "mesh": mesh, **{k: out[k] for k in keep},
                           "seconds": time.perf_counter() - t1}), flush=True)
@@ -4925,7 +5189,7 @@ def load_modules() -> dict:
                                           make_prefill_step, make_serve_step,
                                           make_train_step, place_batch,
                                           place_state, state_placements)
-    from repro_torch.core.sparse_format import BcsrMatrix
+    from repro_torch.core.sparse_format import BcsrMatrix, bcsr_to_dense
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import steps as steps_mod
@@ -4987,6 +5251,7 @@ def load_modules() -> dict:
                 make_mesh=make_mesh, moe_ep=moe_ep, place_batch=place_batch,
                 place_state=place_state, state_placements=state_placements,
                 steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix,
+                bcsr_to_dense_matrix=bcsr_to_dense,
                 slab_width=slab_width, bsr_blocked_ref=bsr_conv_blocked_ref,
                 roofline=roofline)
     return mods

@@ -14,7 +14,8 @@ Every call is ``torch.distributed``'s eager collective (c10d), which runs on
 NCCL and on gloo, CUDA tensors included (ranks that share one card use
 gloo: NCCL refuses two ranks on one device).  A mesh dim of size 1 moves
 nothing.  ``value_sum`` / ``value_max`` reduce a value over every mesh dim
-outside autograd (metrics, norms, scales).
+outside autograd (metrics, norms, scales), ``value_min`` a value over
+given mesh dims (the distributed argmax's first index).
 """
 from __future__ import annotations
 
@@ -149,12 +150,22 @@ def value_sum(t: torch.Tensor) -> torch.Tensor:
     return _each_dim(t, dist.ReduceOp.SUM)
 
 
+def _over(t: torch.Tensor, axes, op) -> torch.Tensor:
+    if axes is None:
+        return _each_dim(t, op)
+    for name in axes:
+        if S.axis_size(name) > 1:
+            t = _reduce(t, _group(name), op)
+    return t
+
+
 @torch.no_grad()
 def value_max(t: torch.Tensor, axes=None) -> torch.Tensor:
     """Max of ``t`` over the given mesh dims (all by default)."""
-    if axes is None:
-        return _each_dim(t, dist.ReduceOp.MAX)
-    for name in axes:
-        if S.axis_size(name) > 1:
-            t = _reduce(t, _group(name), dist.ReduceOp.MAX)
-    return t
+    return _over(t, axes, dist.ReduceOp.MAX)
+
+
+@torch.no_grad()
+def value_min(t: torch.Tensor, axes=None) -> torch.Tensor:
+    """Min of ``t`` over the given mesh dims (all by default)."""
+    return _over(t, axes, dist.ReduceOp.MIN)

@@ -3,8 +3,16 @@
 Replaces ``bsr_matmul_pallas`` (``repro/kernels/bsr_matmul/kernel.py``).
 ``bsr_matmul_kernel`` takes the kernel's operands; for CUDA tensors it
 launches the kernel on the current stream, for CPU tensors it runs the plain
-version (``ref.py``), and for anything else it raises.  A launch that CUDA
-refuses raises too.
+version (``ref.py``), for ``meta`` tensors (the dry run) it returns an empty
+``meta`` output of the result's shape, and for anything else it raises.  A
+launch that CUDA refuses raises too.  The three branches are also one
+registered op, ``torch.ops.repro_torch.bsr_matmul`` (its ``meta`` branch
+the op's fake implementation), with a flop formula: 2 x rows x the bank's
+tiles x bm x bn.  Under a dispatch mode (the dry run's counters,
+``launch/costs.py``) the wrapper calls the op, so the mode sees the kernel
+as one op that reads x and the bank and writes y, on ``meta`` as on a
+device, and not the plain version's ops inside it; otherwise it calls the
+branch itself, sparing the decode loop the dispatcher's host time a call.
 
 The source has two schedules: ``rows`` (f32 or bf16, for few rows: decode;
 a weight-streaming kernel) and ``wgmma`` (bf16 on the tensor cores, for
@@ -35,6 +43,8 @@ import ctypes
 import functools
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.sparse_format import block_column_fault
 from repro_torch.kernels import _build, budget
@@ -189,11 +199,40 @@ def bsr_matmul_kernel(x: torch.Tensor, blocks: torch.Tensor,
     ``out_dtype`` (f32 or bf16): the f32 sums rounded once, the same bits
     on every launch.
     """
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"bsr_matmul: no kernel for device {x.device}")
+    if _get_current_dispatch_mode() is not None:
+        return torch.ops.repro_torch.bsr_matmul(x, blocks, blockcol,
+                                                nblocks, out_dtype)
+    if x.device.type == "meta":
+        return _empty(x, blocks, blockcol, nblocks, out_dtype)
+    return _run(x, blocks, blockcol, nblocks, out_dtype)
+
+
+def _run(x: torch.Tensor, blocks: torch.Tensor, blockcol: torch.Tensor,
+         nblocks: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     if x.device.type == "cuda":
         return _launch(x, blocks, blockcol, nblocks, out_dtype)
-    if x.device.type == "cpu":
-        return bsr_matmul_plain(x, blocks, blockcol, nblocks).to(out_dtype)
-    raise ValueError(f"bsr_matmul: no kernel for device {x.device}")
+    return bsr_matmul_plain(x, blocks, blockcol, nblocks).to(out_dtype)
+
+
+def _empty(x, blocks, blockcol, nblocks, out_dtype):
+    return x.new_empty((x.shape[0], blocks.shape[0] * blocks.shape[2]),
+                       dtype=out_dtype)
+
+
+_op = torch.library.custom_op("repro_torch::bsr_matmul", _run,
+                              mutates_args=())
+_op.register_fake(_empty)
+
+
+@register_flop_formula(torch.ops.repro_torch.bsr_matmul)
+def _flops(x_shape, blocks_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 x rows x every tile of the bank x bm x bn: on ``meta`` there are
+    no ``nblocks`` values, and the dry run's banks keep as many tiles in
+    every block-row as the bank holds."""
+    gm, kb, bm, bn = blocks_shape
+    return 2 * x_shape[0] * gm * kb * bm * bn
 
 
 bsr_matmul_kernel.launches = 0

@@ -10,7 +10,9 @@ hold the counts to a gloo world):
   (matrix products, convolutions and attention; elementwise ops count 0,
   as in XLA's ``flops``).  It cannot see inside a hand-written kernel (a
   launch is one opaque op, like a custom call to XLA), so the dry run adds
-  the flash kernels' attention FLOPs analytically.
+  the flash kernels' attention FLOPs analytically.  The BCSR matmul
+  kernel is a registered op with a flop formula
+  (``kernels/bsr_matmul/kernel.py``), counted as one op on every device.
 * **Bytes**: the input and output bytes of every dispatched op that
   moves memory, each tensor at its local (this rank's) size.  An op that
   mutates nothing and whose every output shares an input's storage (a
@@ -80,8 +82,8 @@ def _local(t):
 
 
 def local_tensors(tree, out: Optional[list] = None) -> list:
-    """The tensors of ``tree`` (nested tuples, lists and dicts), a DTensor
-    as its local shard."""
+    """The tensors of ``tree`` (nested tuples, lists, dicts and
+    dataclasses such as ``BcsrMatrix``), a DTensor as its local shard."""
     out = [] if out is None else out
     if isinstance(tree, torch.Tensor):
         out.append(_local(tree))
@@ -91,6 +93,9 @@ def local_tensors(tree, out: Optional[list] = None) -> list:
     elif isinstance(tree, dict):
         for x in tree.values():
             local_tensors(x, out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            local_tensors(getattr(tree, f.name), out)
     return out
 
 
@@ -191,3 +196,4 @@ class count:
         self._flops.__exit__(*exc)
         self.counts.flops = float(self._flops.get_total_flops())
         return False
+

@@ -8,12 +8,14 @@ is its own program run for real, but on nothing: one process joins a world
 of 256 (16 x 16) or 512 (2 x 16 x 16) ranks on PyTorch's fake process group
 (``fake_pg.FakeStore``, backend ``"fake"``: every collective returns at
 once), builds the production mesh (``mesh.make_production_mesh``), places
-the train state (``steps.abstract_state``) or the params, and the
-``specs.input_specs`` stand-ins, as ``meta`` tensors (shapes and dtypes,
-no storage), and runs rank 0's meshed train or prefill step end to end
-under the counters of ``launch/costs.py``.  The run reaching its end with
-every placement resolved is the port's "compiles"; the group is destroyed
-before ``lower_cell`` returns.  No device is touched: the flash kernels'
+the train state (``steps.abstract_state``), the params, or for decode the
+params (dense, or ``sparse_weights.abstract_sparse_params`` under
+``--sparse-weights``) and the cache, and the ``specs.input_specs``
+stand-ins, as ``meta`` tensors (shapes and dtypes, no storage), and runs
+rank 0's meshed train, prefill or serve step end to end under the counters
+of ``launch/costs.py``.  The run reaching its end with every placement
+resolved is the port's "compiles"; the group is destroyed before
+``lower_cell`` returns.  No device is touched: the flash and BCSR kernels'
 wrappers return empty ``meta`` outputs.
 
 What the JSON holds, against the reference's:
@@ -29,22 +31,32 @@ What the JSON holds, against the reference's:
   so its full-depth count is exact and is the one reported.  The probes
   still run (single-pod, as the reference's) and ``probe_info`` records
   them, so that ``enrich`` has its meaning;
-* ``mem_*``: from the live-byte count: arguments (the state or params and
-  the inputs, rank 0's shards), outputs, temporaries (the most the step's
-  own storages held at once, less the outputs it made) and aliases (the
-  train step updates the state in place, the port's counterpart of
-  donation: alias is the state's bytes);
+* ``mem_*``: from the live-byte count: arguments (the state or params, the
+  cache and the inputs, rank 0's shards), outputs, temporaries (the most
+  the step's own storages held at once, less the outputs it made) and
+  aliases (the train step updates the state in place, the serve step the
+  cache, the port's counterparts of the reference's donations: alias is
+  the state's or the cache's bytes);
 * ``--attn-impl flash`` adds the reference's analytic attention FLOPs
   (``_flash_analytic_flops``): the counter cannot see inside a kernel, as
-  XLA cannot see inside a custom call;
+  XLA cannot see inside a custom call.  The BCSR matmul kernel is a
+  registered op with a flop formula (2 x rows x the bank's tiles x 256;
+  ``kernels/bsr_matmul/kernel.py``), so the counters see it as one op
+  reading its tiles, indices and x and writing y: the sparse weights'
+  bytes stay in the memory term;
+* ``sparse_weights``: the ``--sparse-weights`` value (decode only, as in
+  the reference; a train or prefill cell ignores it);
 * ``moe_constrain``: null.  The reference's flag is a layout hint that
   pins the MoE dispatch buffers' expert dim to ``model``; the port's mesh
   path (``layers._moe_mesh``) always lays them out so and has no such
   switch, so ``--moe-constrain`` is refused by name.
 
-Decode cells are not ported yet: a cache on a mesh raises
-(``models/layers.py``), and ``--sparse-weights`` feeds decode only.  Both
-raise by name; ``--all`` lists the decode cells on a "not ported yet" line.
+A decode cell runs ``steps.make_serve_step`` once, at ``cur_len`` =
+seq_len - 1 (a host int; the cache full, the write on the rank holding the
+last position), on tokens (B, 1) over "dp" (whole where B does not divide,
+``long_500k``) and the cache placed by ``transformer.cache_specs``.  Under
+``--sparse-weights`` DeepSeek-V3's decode raises by name, as the
+reference's does: its absorbed MLA decode reads k_b / v_b dense.
 
 Usage (from the checkout, any machine; no device is used):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
@@ -70,6 +82,7 @@ import torch.distributed as dist
 from repro_torch import configs as cfgs
 from repro_torch.distributed import sharding as S
 from repro_torch.launch import costs, specs, steps
+from repro_torch.launch import sparse_weights as SW
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import flags as F
@@ -82,8 +95,11 @@ RESULTS_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
                / "dryrun_torch")
 MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
-NOT_PORTED = ("decode cells wait for meshed decode (a cache on a mesh, "
-              "models/layers.py)")
+
+
+def decode_position(shape: ShapeConfig) -> int:
+    """A decode cell's write position: the last of the cache."""
+    return shape.seq_len - 1
 
 
 @contextlib.contextmanager
@@ -137,14 +153,15 @@ def _inputs(cfg: ModelConfig, shape: ShapeConfig, tp: int, dp: int,
 def count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                device: str = "meta", num_microbatches: int = 1,
                compress_cross_pod: bool = False, fsdp_axis: str = "data",
+               sparse_weights: float = 0.0, min_dim: int = 512,
                ) -> Tuple[costs.Counts, Dict[str, int], float]:
-    """This rank's meshed train or prefill step of ``cfg`` at ``shape`` on
-    ``mesh`` (under the model flags as they are set), counted: (counts,
-    memory bytes, seconds).  ``device="meta"`` runs it on stand-ins (the
-    dry run); another device on a state and batch drawn from seed 0 (the
-    tests' gloo worlds, where the same step runs for real)."""
-    if shape.kind == "decode":
-        raise NotImplementedError(f"{shape.name}: {NOT_PORTED}")
+    """This rank's meshed train, prefill or serve step of ``cfg`` at
+    ``shape`` on ``mesh`` (under the model flags as they are set), counted:
+    (counts, memory bytes, seconds).  ``device="meta"`` runs it on
+    stand-ins (the dry run); another device on a state, batch or cache
+    drawn from seed 0 (the tests' gloo worlds, where the same step runs for
+    real).  ``sparse_weights`` > 0 (decode): the params of
+    ``abstract_sparse_params`` at that sparsity and ``min_dim``."""
     names = S._dim_names(mesh)
     tp = mesh.size(names.index("model"))
     dp = math.prod(mesh.size(names.index(a)) for a in ("pod", "data")
@@ -155,9 +172,13 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     opt = AdamWConfig()
     gen = torch.Generator().manual_seed(0)
     with S.use_rules(rules, mesh):
-        batch = steps.place_batch(_inputs(cfg, shape, tp, dp, device),
-                                  device, mesh)
-        if shape.kind == "train":
+        if shape.kind == "decode":
+            args = _decode_args(cfg, shape, mesh, tp, dp, device, gen,
+                                sparse_weights, min_dim)
+            step = steps.make_serve_step(cfg)
+        elif shape.kind == "train":
+            batch = steps.place_batch(_inputs(cfg, shape, tp, dp, device),
+                                      device, mesh)
             pls = steps.state_placements(cfg, mesh, tp)
             state = steps.place_state(
                 steps.abstract_state(cfg, opt) if device == "meta"
@@ -165,8 +186,10 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             step = steps.make_train_step(
                 cfg, opt, num_microbatches=num_microbatches,
                 compress_cross_pod=compress_cross_pod)
-            args: Tuple[Any, ...] = (state, batch)
+            args = (state, batch)
         else:
+            batch = steps.place_batch(_inputs(cfg, shape, tp, dp, device),
+                                      device, mesh)
             pls = tree_map(lambda s: S.placements(s, mesh),
                            T.param_specs(cfg, tp))
             params = steps.place_state(T.init_params(cfg, gen, device), pls,
@@ -179,12 +202,44 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         seconds = time.time() - t0
     held = costs.storages(args)
     made = sum(v for k, v in costs.storages(out).items() if k not in held)
+    # the steps' in-place updates: the train state, the serve cache
+    alias = {"train": lambda: costs.tree_bytes(args[0]),
+             "decode": lambda: costs.tree_bytes(args[2])}
     mem = {"mem_arg_bytes": sum(held.values()),
            "mem_out_bytes": costs.tree_bytes(out),
            "mem_temp_bytes": max(counts.peak_new_bytes - made, 0),
-           "mem_alias_bytes": (costs.tree_bytes(args[0])
-                               if shape.kind == "train" else 0)}
+           "mem_alias_bytes": alias.get(shape.kind, lambda: 0)()}
     return counts, mem, seconds
+
+
+def _decode_args(cfg: ModelConfig, shape: ShapeConfig, mesh, tp: int,
+                 dp: int, device: str, gen: torch.Generator,
+                 sparsity: float, min_dim: int) -> Tuple[Any, ...]:
+    """The serve step's (params, tokens, cache, cur_len) on ``mesh``: the
+    params placed by ``param_specs`` (or ``abstract_sparse_params``' trees),
+    the tokens and the cache by ``steps.place_tokens`` / ``place_cache``
+    (the reference's ``decode_input_specs`` parts), on ``meta`` or drawn
+    from ``gen`` (a zero cache); ``cur_len`` the host int
+    ``decode_position``."""
+    if sparsity > 0:
+        params, pls = SW.abstract_sparse_params(
+            cfg, tp, sparsity, min_dim, mesh=mesh, device=device,
+            gen=None if device == "meta" else gen)
+    else:
+        pls = tree_map(lambda s: S.placements(s, mesh),
+                       T.param_specs(cfg, tp))
+        params = T.init_params(cfg, gen, device)
+    b = shape.global_batch
+    if device == "meta":
+        sds, _ = specs.decode_input_specs(cfg, shape, tp, dp)
+        tokens, cache = sds["tokens"], sds["cache"]
+    else:
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab, (b, 1)).astype(np.int32))
+        cache = T.init_cache(cfg, b, shape.seq_len, device)
+    return (steps.place_state(params, pls, mesh),
+            steps.place_tokens(tokens, device, mesh),
+            steps.place_cache(cache, cfg, mesh, tp), decode_position(shape))
 
 
 def _probe_cfg(cfg: ModelConfig, k: int) -> ModelConfig:
@@ -217,7 +272,7 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh_shape, axes, *,
                remat: str = "dots", num_microbatches: int = 1,
                compress_cross_pod: bool = False, attn_impl: str = "chunked",
                moe_capacity: float = 1.25, moe_impl: str = "gather",
-               fsdp_axis: str = "data"
+               fsdp_axis: str = "data", sparse_weights: float = 0.0,
                ) -> Tuple[costs.Counts, Dict[str, int], float]:
     """``count_step`` on ``meta`` in a fake world of the mesh's size, under
     the cell's flags (restored after)."""
@@ -230,7 +285,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh_shape, axes, *,
         return count_step(cfg, shape, mesh,
                           num_microbatches=num_microbatches,
                           compress_cross_pod=compress_cross_pod,
-                          fsdp_axis=fsdp_axis)
+                          fsdp_axis=fsdp_axis,
+                          sparse_weights=sparse_weights)
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -238,20 +294,19 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                compress_cross_pod: bool = False, probes: bool = True,
                attn_impl: str = "chunked", moe_capacity: float = 1.25,
                moe_impl: str = "gather", fsdp_axis: str = "data",
-               tag: str = "", verbose: bool = True) -> rl.Roofline:
+               sparse_weights: float = 0.0, tag: str = "",
+               verbose: bool = True) -> rl.Roofline:
     """One cell's dry run, written to ``RESULTS_DIR`` as the reference's
-    JSON (its ``sparse_weights`` 0: sparse weights feed decode only)."""
+    JSON."""
     cfg = cfgs.get_config(arch)
     shape = cfgs.SHAPE_BY_NAME[shape_name]
-    if shape.kind == "decode":
-        raise NotImplementedError(f"{arch} x {shape_name}: {NOT_PORTED}")
     mesh_shape, axes = MESHES[multi_pod]
     mesh_name = "x".join(str(s) for s in mesh_shape)
     n_dev = math.prod(mesh_shape)
     kw = dict(remat=remat, num_microbatches=num_microbatches,
               compress_cross_pod=compress_cross_pod, attn_impl=attn_impl,
               moe_capacity=moe_capacity, moe_impl=moe_impl,
-              fsdp_axis=fsdp_axis)
+              fsdp_axis=fsdp_axis, sparse_weights=sparse_weights)
     counts, mem, t_lower = count_cell(cfg, shape, mesh_shape, axes, **kw)
 
     probe_info = None
@@ -299,7 +354,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "remat": remat, "num_microbatches": num_microbatches,
         "compress_cross_pod": compress_cross_pod,
         "attn_impl": attn_impl, "moe_constrain": None,
-        "sparse_weights": 0.0, "moe_impl": moe_impl,
+        "sparse_weights": sparse_weights, "moe_impl": moe_impl,
         "fsdp_axis": fsdp_axis,
         "moe_capacity": moe_capacity, "flash_extra_flops": flash_extra,
     })
@@ -334,8 +389,6 @@ def main(argv=None) -> None:
                     choices=("data", "model"))
     ap.add_argument("--tag", type=str, default="")
     args = ap.parse_args(argv)
-    if args.sparse_weights > 0:
-        ap.error(f"--sparse-weights is not ported yet: {NOT_PORTED}")
     if args.moe_constrain:
         ap.error("--moe-constrain: the port's mesh path always lays the MoE "
                  "dispatch buffers' expert dim on 'model' and has no such "
@@ -348,13 +401,6 @@ def main(argv=None) -> None:
                  for s in cfgs.applicable_shapes(args.arch)]
     else:
         cells = [(args.arch, args.shape)]
-    if args.all or args.all_shapes:
-        later = [c for c in cells
-                 if cfgs.SHAPE_BY_NAME[c[1]].kind == "decode"]
-        cells = [c for c in cells if c not in later]
-        if later:
-            print(f"not ported yet ({NOT_PORTED}): "
-                  + ", ".join(f"{a} x {s}" for a, s in later))
 
     meshes = ([False, True] if (args.both_meshes or args.all)
               else [args.multi_pod])
@@ -380,7 +426,7 @@ def main(argv=None) -> None:
                            attn_impl=args.attn_impl,
                            moe_capacity=args.moe_capacity,
                            moe_impl=args.moe_impl, fsdp_axis=args.fsdp_axis,
-                           tag=args.tag)
+                           sparse_weights=args.sparse_weights, tag=args.tag)
             except Exception:
                 failures.append((arch, shape, mesh_name))
                 traceback.print_exc()

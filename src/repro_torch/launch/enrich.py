@@ -1,9 +1,8 @@
 """Probe-enrichment pass: re-run the single-pod cells whose JSON lacks the
-probe counts (``probe_info`` null), in priority order (train before
-prefill; small archs first so the table fills fastest).
+probe counts (``probe_info`` null), in priority order (train, prefill,
+decode; small archs first so the table fills fastest).
 
-Port of ``repro/launch/enrich.py``, over the cells the port's dry run
-lowers (train and prefill; the decode cells wait for meshed decode).
+Port of ``repro/launch/enrich.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.enrich [--max-cells N]
 """
@@ -16,14 +15,12 @@ import traceback
 from repro_torch import configs as cfgs
 from repro_torch.launch import dryrun
 
-KIND_PRIORITY = {"train": 0, "prefill": 1}
+KIND_PRIORITY = {"train": 0, "prefill": 1, "decode": 2}
 
 
 def pending():
     cells = []
     for arch, shape in cfgs.all_cells():
-        if shape.kind not in KIND_PRIORITY:
-            continue
         path = dryrun.RESULTS_DIR / f"{arch}__{shape.name}__16x16.json"
         if path.exists() and json.loads(path.read_text()).get("probe_info"):
             continue

@@ -10,13 +10,15 @@ gradients with ``loss.backward()`` on the params, set to
 
 On a mesh (inside ``sharding.use_rules``): ``state_placements`` gives each
 leaf its DTensor placements (params and both moments by ``param_specs``,
-the step replicated), ``place_state`` / ``place_batch`` put whole tensors
-(drawn from one seed on every rank) on the mesh, and ``train_step`` on a
-DTensor state runs the meshed model on each rank's shards, then sums each
-gradient over the mesh dims its leaf is replicated on (in-pod dims at full
-precision; the "pod" dim through the int8 all-reduce under
-``compress_cross_pod``), takes the global norm and updates the shards in
-place.
+the step replicated), ``place_state`` / ``place_batch`` / ``place_cache``
+put whole tensors (drawn from one seed on every rank) on the mesh, and
+``train_step`` on a DTensor state runs the meshed model on each rank's
+shards, then sums each gradient over the mesh dims its leaf is replicated
+on (in-pod dims at full precision; the "pod" dim through the int8
+all-reduce under ``compress_cross_pod``), takes the global norm and
+updates the shards in place.  ``serve_step`` on DTensor tokens, placed
+params and a placed cache runs the meshed decode and a distributed argmax
+(``mesh_argmax``).
 
 Distributed-optimisation knobs (the reference's):
   * num_microbatches > 1     -- gradient accumulation;
@@ -58,10 +60,43 @@ def state_placements(cfg: ModelConfig, mesh, tp: int) -> Dict[str, Any]:
 def place_state(state: Any, placements: Any, mesh=None) -> Any:
     """Whole leaves (the same on every rank) as DTensors of this rank's
     chunks, each by the placements at its tree path (the trees' key orders
-    may differ); no data moves between ranks."""
+    may differ); no data moves between ranks.  A ``BcsrMatrix`` leaf is
+    already this rank's own (``sparse_weights``) and stays as it is."""
     pls = dict(tree_paths(placements))
-    return tree_flatten(state)[1]([S.distribute(t, pls[k], mesh)
-                                   for k, t in tree_paths(state)])
+    return tree_flatten(state)[1]([
+        S.distribute(t, pls[k], mesh) if isinstance(t, torch.Tensor) else t
+        for k, t in tree_paths(state)])
+
+
+def cache_placements(cfg: ModelConfig, batch: int, mesh, tp: int) -> Any:
+    """The cache's tree with each leaf's placements: ``T.cache_specs``, the
+    batch dim left whole where "dp" does not divide ``batch``
+    (``specs.decode_input_specs``'s rule)."""
+    from repro_torch.launch import specs
+    parts = T.cache_specs(cfg, tp)
+    dp = 1
+    for a in S._axes(S.resolve(P("dp"))[0]):
+        dp *= S.axis_size(a, mesh)
+    if batch % dp:
+        parts = specs._drop_batch_axis(parts)
+    return tree_map(lambda s: S.placements(s, mesh), parts)
+
+
+def place_cache(cache: Any, cfg: ModelConfig, mesh, tp: int) -> Any:
+    """A whole cache (``T.init_cache``, the same on every rank) as DTensors
+    of this rank's chunks, by ``cache_placements``; the meshed decode
+    updates their local tensors in place."""
+    batch = tree_flatten(cache)[0][0].shape[0]
+    return place_state(cache, cache_placements(cfg, batch, mesh, tp), mesh)
+
+
+def place_tokens(tokens, device, mesh=None) -> DTensor:
+    """Decode tokens (B, 1) (numpy or a tensor, the same on every rank) as a
+    DTensor, the batch over "dp" where it divides, else whole."""
+    mesh = mesh if mesh is not None else S.get_mesh()
+    t = _on(tokens, device)
+    return S.distribute(t, S.placements(P("dp", None), mesh, tuple(t.shape)),
+                        mesh)
 
 
 def place_batch(batch: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
@@ -309,10 +344,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
             # the last position of the whole sequence, batch over "dp"
             last = S.map_local(lambda x: x[:, -1:],
                                S.constrain(h, "dp", None, None))
-            logits = T._head(params, cfg, last)     # (B, 1, V)
-            pls = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
-                   else p for p in logits.placements]
-            return S.wrap(logits.to_local()[:, 0], pls), h
+            return T.last_position(T._head(params, cfg, last)), h
         logits = T._head(params, cfg, h[:, -1:])
         return logits[:, 0], h
 
@@ -321,10 +353,41 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """serve_step(params, tokens (B, 1), cache, cur_len) -> (next token ids
-    (B,) int32, cache)."""
+    (B,) int32, cache), the cache updated in place; ``cur_len`` a host int.
+    On a mesh (DTensor tokens, ``place_cache``'s cache, placed params or
+    ``sparse_weights``' trees): the next tokens a DTensor over "dp", as the
+    reference's ``out_shardings``."""
 
     def serve_step(params, tokens, cache, cur_len):
         logits, cache = T.decode_step(params, cfg, tokens, cache, cur_len)
+        if isinstance(logits, DTensor):
+            return mesh_argmax(logits), cache
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_step
+
+
+@torch.no_grad()
+def mesh_argmax(logits: DTensor) -> DTensor:
+    """``torch.argmax(logits, -1)`` (int32) of DTensor logits (B, V) whose
+    vocabulary may be split over "tp": each rank's first maximal index, the
+    maximum over "tp", then the least global index among the ranks that
+    hold it, so ties across ranks give the first maximal index, as
+    ``jnp.argmax`` and ``torch.argmax`` do.  The result keeps the batch's
+    placements and is whole over the vocabulary's."""
+    local = logits.to_local()
+    idx = torch.argmax(local, dim=-1)
+    names = S._dim_names(logits.device_mesh)
+    pls = list(logits.placements)
+    for i, pl in enumerate(pls):
+        if not (isinstance(pl, Shard) and pl.dim == local.ndim - 1):
+            continue
+        ax = names[i]
+        val = torch.gather(local, -1, idx[..., None])[..., 0]
+        idx = idx + S.axis_index(ax, logits.device_mesh) * local.shape[-1]
+        top = C.value_max(val, [ax])
+        idx = C.value_min(torch.where(val == top, idx,
+                                      torch.full_like(idx, torch.iinfo(
+                                          idx.dtype).max)), [ax])
+        pls[i] = Replicate()
+    return S.wrap(idx.to(torch.int32), pls)

@@ -14,7 +14,12 @@ and run on local shards (the mesh paths at the end of this file): the
 attention on its rank's heads (the reference's tensor-parallel flash modes
 A and B), the MLP on its d_ff columns, the MoE on its experts (or
 expert-parallel, ``moe_ep.py``), each returning its output in the
-activation's placements.
+activation's placements.  Decode runs there too, on a cache placed by
+``transformer.cache_specs`` (``steps.place_cache``): a GQA cache with its
+KV heads over "tp" (each rank attends on its heads) or its sequence over
+"tp" (each rank attends over its slice, the slices combined by
+log-sum-exp), the MLA latent cache by sequence the same way, and the
+Mamba2 state with its heads over "tp".
 
 Conventions, as in the reference: params are nested dicts of tensors;
 dense linear weights are (in_features, out_features), so application is
@@ -224,15 +229,20 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, cur_len: int) -> None:
 
 def attention_fwd(p: Params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, *, cache: Optional[Params] = None,
-                  cur_len: Optional[int] = None,
+                  cur_len: Optional[int] = None, layer: Optional[int] = None,
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention.  Without a cache: full-sequence attention.  With one:
     K and V of the new position are written into the cache in place, at the
     shared position ``cur_len`` of every row, and the block attends over
     ``cur_len + 1`` positions; the cache is returned.  A DTensor ``x`` (a
-    mesh run, no cache) takes ``_attention_mesh``."""
+    mesh run) takes ``_attention_mesh``, or with a placed cache
+    ``_attention_decode_mesh`` (``layer`` names the layer in its
+    errors)."""
     if isinstance(x, DTensor):
-        return _attention_mesh(p, x, cfg, cache), None
+        if cache is not None:
+            return (_attention_decode_mesh(p, x, cfg, cache, cur_len, layer),
+                    cache)
+        return _attention_mesh(p, x, cfg), None
     b, t, _ = x.shape
     hd = cfg.head_dim
     q = apply_linear(p["wq"], x, p.get("bq")).reshape(b, t, cfg.n_heads, hd)
@@ -324,66 +334,110 @@ def mla_fwd(p: Params, x: torch.Tensor, positions: torch.Tensor,
     ``cur_len`` in place.  The absorbed form reads ``k_b`` and ``v_b`` as
     dense (kv_lora_rank, heads, dim) banks; on sparse ones it raises
     (``layer`` names the layer in the message).  A DTensor ``x`` (a mesh
-    run, no cache) runs replicated over the ``tp`` dim
-    (``_replicated_mesh``)."""
+    run) without a cache runs replicated over the ``tp`` dim
+    (``_replicated_mesh``), with a placed one ``_mla_decode_mesh``."""
     if isinstance(x, DTensor):
+        if cache is not None:
+            return _mla_decode_mesh(p, x, cfg, cache, cur_len, layer), cache
         return _replicated_mesh(
             lambda pf, xl: mla_fwd(pf, xl, _positions(xl), cfg)[0],
-            p, specs_mla(cfg, S.tp_size()), x, cache), None
+            p, specs_mla(cfg, S.tp_size()), x), None
+    if cache is not None:
+        _dense_kv_b(p, cfg, layer)
+        out = _mla_absorbed(p, x, positions, cfg, cache, cur_len)
+        return apply_linear(p["wo"], out), cache
     b, t, _ = x.shape
     h = cfg.n_heads
     nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    lat = cfg.kv_lora_rank
-    scale = (nope + rd) ** -0.5
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, x, positions, cfg, h)
+    k_nope = apply_linear(p["k_b"], c_kv).reshape(b, t, h, nope)
+    v = apply_linear(p["v_b"], c_kv).reshape(b, t, h, vd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
+                  dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = full_attention(q_full, k, v, causal=cfg.causal,
+                         scale=(nope + rd) ** -0.5)
+    return apply_linear(p["wo"], out.reshape(b, t, h * vd)), None
 
+
+def _mla_project(w: Params, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, hl: int) -> Tuple[torch.Tensor, ...]:
+    """MLA's projections of ``x``: (q_nope, q_rope roped) of ``hl`` heads
+    (``w``'s q_b columns), and the latent ``c_kv`` and roped ``k_rope``
+    (B, T, rd) of the new positions."""
+    b, t, _ = x.shape
+    nope, lat = cfg.qk_nope_head_dim, cfg.kv_lora_rank
     if cfg.q_lora_rank:
-        q_c = rms_norm(apply_linear(p["q_a"], x), p["q_norm"], cfg.norm_eps)
+        q_c = rms_norm(apply_linear(w["q_a"], x), w["q_norm"], cfg.norm_eps)
     else:
         q_c = x
-    q = apply_linear(p["q_b"], q_c).reshape(b, t, h, nope + rd)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
-
-    kv = apply_linear(p["kv_a"], x)
-    c_kv = rms_norm(kv[..., :lat], p["kv_norm"], cfg.norm_eps)
+    q = apply_linear(w["q_b"], q_c).reshape(b, t, hl,
+                                            nope + cfg.qk_rope_head_dim)
+    q_rope = rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = apply_linear(w["kv_a"], x)
+    c_kv = rms_norm(kv[..., :lat], w["kv_norm"], cfg.norm_eps)
     k_rope = rope(kv[..., lat:][:, :, None, :], positions,
-                  cfg.rope_theta)[:, :, 0, :]                    # (B, T, rd)
+                  cfg.rope_theta)[:, :, 0, :]
+    return q[..., :nope], q_rope, c_kv, k_rope
 
-    if cache is None:
-        k_nope = apply_linear(p["k_b"], c_kv).reshape(b, t, h, nope)
-        v = apply_linear(p["v_b"], c_kv).reshape(b, t, h, vd)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
-                      dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = full_attention(q_full, k, v, causal=cfg.causal, scale=scale)
-    else:
-        for name in ("k_b", "v_b"):
-            if isinstance(p[name], (BcsrMatrix, EllMatrix)):
-                where = f"layer {layer}" if layer is not None else "MLA"
-                raise ValueError(
-                    f"{cfg.name}: {where}: the absorbed MLA decode reads "
-                    f"{name} as a dense (kv_lora_rank, heads, dim) bank, and "
-                    f"this one is {type(p[name]).__name__}; the reference "
-                    f"cannot decode it either (its decode reshapes the "
-                    f"bank).  Serve MLA layers with dense k_b and v_b.")
-        write_cache(cache["c_kv"], c_kv, cur_len)
-        write_cache(cache["k_rope"], k_rope, cur_len)
-        ckv = cache["c_kv"].float()
-        krope = cache["k_rope"].float()
-        w_kb = p["k_b"].reshape(lat, h, nope).float()
-        q_abs = torch.einsum("bthd,lhd->bthl", q_nope.float(), w_kb)
-        logits = (torch.einsum("bthl,bsl->bhts", q_abs, ckv)
-                  + torch.einsum("bthd,bsd->bhts", q_rope.float(), krope)
-                  ) * scale
-        s = ckv.shape[1]
-        mask = torch.arange(s, device=x.device) < cur_len + 1
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        pattn = torch.softmax(logits, dim=-1)
-        o_lat = torch.einsum("bhts,bsl->bthl", pattn, ckv)
-        w_vb = p["v_b"].reshape(lat, h, vd).float()
-        out = torch.einsum("bthl,lhd->bthd", o_lat, w_vb).to(x.dtype)
-    out = out.reshape(b, t, h * vd)
-    return apply_linear(p["wo"], out), cache
+
+def _mla_absorbed(w: Params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, cache: Params, cur_len: int, *,
+                  ax: Optional[str] = None, split: bool = False, n: int = 1
+                  ) -> torch.Tensor:
+    """The absorbed MLA decode on local tensors, up to ``wo``'s input
+    (B, T, heads x v_head_dim) in x's dtype.  One device: every head, the
+    whole latent cache.  On a mesh (``_mla_decode_mesh``): where ``split``,
+    ``w`` holds this rank's heads' q_b / k_b / v_b columns, whose absorbed
+    queries are gathered over ``ax`` and whose latent outputs are kept; the
+    cache is slice r of ``n`` along the sequence over ``ax`` (n > 1), the
+    owner of ``cur_len`` writes it, and the slices' parts combine by
+    log-sum-exp (``_lse_combine``)."""
+    b, t, _ = x.shape
+    hl = cfg.n_heads // (S.axis_size(ax) if split else 1)
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lat = cfg.kv_lora_rank
+    q_nope, q_rope, c_kv, k_rope = _mla_project(w, x, positions, cfg, hl)
+    q_rope = q_rope.float()
+    q_abs = torch.einsum("bthd,lhd->bthl", q_nope.float(),
+                         w["k_b"].reshape(lat, hl, nope).float())
+    if split:
+        q_abs = C.all_gather(q_abs, 2, ax)
+        q_rope = C.all_gather(q_rope, 2, ax)
+    r = S.axis_index(ax) if n > 1 else 0
+    for name, new in (("c_kv", c_kv), ("k_rope", k_rope)):
+        if n > 1:
+            _write_seq_shard(cache[name], new, cur_len, r, n)
+        else:
+            write_cache(cache[name], new, cur_len)
+    ckv = cache["c_kv"].float()
+    logits = (torch.einsum("bthl,bsl->bhts", q_abs, ckv)
+              + torch.einsum("bthd,bsd->bhts", q_rope,
+                             cache["k_rope"].float())) * (nope + rd) ** -0.5
+    m, l, acc = _attend_shard(logits, cur_len + 1 - r * ckv.shape[1],
+                              lambda pr: torch.einsum("bhts,bsl->bhtl", pr,
+                                                      ckv))
+    o_lat = (_lse_combine(m, l, acc, ax) if n > 1
+             else acc / l[..., None]).transpose(1, 2)
+    if split:
+        o_lat = o_lat[:, :, S.axis_index(ax) * hl:(S.axis_index(ax) + 1) * hl]
+    out = torch.einsum("bthl,lhd->bthd", o_lat,
+                       w["v_b"].reshape(lat, hl, vd).float()).to(x.dtype)
+    return out.reshape(b, t, hl * vd)
+
+
+def _dense_kv_b(p: Params, cfg: ModelConfig, layer: Optional[int]) -> None:
+    """The absorbed MLA decode reads ``k_b`` and ``v_b`` as dense banks:
+    raise, naming the layer, on sparse ones."""
+    for name in ("k_b", "v_b"):
+        if isinstance(p[name], (BcsrMatrix, EllMatrix)):
+            where = f"layer {layer}" if layer is not None else "MLA"
+            raise ValueError(
+                f"{cfg.name}: {where}: the absorbed MLA decode reads "
+                f"{name} as a dense (kv_lora_rank, heads, dim) bank, and "
+                f"this one is {type(p[name]).__name__}; the reference "
+                f"cannot decode it either (its decode reshapes the "
+                f"bank).  Serve MLA layers with dense k_b and v_b.")
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -631,19 +685,25 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-               state: Optional[Params] = None,
+               state: Optional[Params] = None, layer: Optional[int] = None,
                ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Mamba2 block; state: {"ssm": (B, nh, ns, hd) f32, "conv": (B, w-1,
     conv_dim)}.  Without a state: the chunked scan over the sequence, and
     the state it ends in returned (None below w - 1 positions, as in the
     reference).  With one (decode, one position): the one-step recurrence,
     the state updated in place and returned.  A DTensor ``x`` (a mesh
-    run, no state) runs replicated over the ``tp`` dim
-    (``_replicated_mesh``)."""
+    run) without a state runs replicated over the ``tp`` dim
+    (``_replicated_mesh``), with a placed one ``_mamba2_decode_mesh``
+    (``layer`` names the layer in its errors)."""
     if isinstance(x, DTensor):
+        if state is not None:
+            return _mamba2_decode_mesh(p, x, cfg, state, layer), state
         return _replicated_mesh(
             lambda pf, xl: mamba2_fwd(pf, xl, cfg)[0],
-            p, specs_mamba2(cfg, S.tp_size()), x, state), None
+            p, specs_mamba2(cfg, S.tp_size()), x), None
+    if state is not None:
+        y = _mamba2_step(p, x, cfg, state, 0, cfg.n_ssm_heads, p["norm"])
+        return apply_linear(p["out_proj"], y), state
     b, t, _ = x.shape
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     hd = cfg.ssm_head_dim
@@ -652,43 +712,69 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: 2 * di + 2 * ns]
     dt_raw = zxbcdt[..., 2 * di + 2 * ns:]
-
-    if state is None:
-        pad = xbc.new_zeros((b, w - 1, xbc.shape[-1]))
-    else:
-        pad = state["conv"]
-    xbc_pad = torch.cat([pad, xbc], dim=1)
-    new_conv = xbc_pad[:, -(w - 1):, :]
-    # depthwise causal conv1d, window w, the reference's order of sums
-    conv = xbc_pad[:, 0:t, :] * p["conv_w"][0]
-    for i in range(1, w):
-        conv = conv + xbc_pad[:, i:i + t, :] * p["conv_w"][i]
-    conv = F.silu(conv + p["conv_b"])
+    xbc_pad = torch.cat([xbc.new_zeros((b, w - 1, xbc.shape[-1])), xbc],
+                        dim=1)
+    conv = _mamba2_conv(p, xbc_pad, t, w)
     xs = conv[..., :di].reshape(b, t, nh, hd)
-    bmat = conv[..., di: di + ns]
-    cmat = conv[..., di + ns:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
-
-    if state is None:
-        y, h = ssd_scan(xs, dt, p["a_log"], bmat, cmat, cfg.ssm_chunk)
-        new_state = ({"ssm": h, "conv": new_conv.clone()} if t >= w - 1
-                     else None)
-    else:
-        # one-step recurrence (decode)
-        a = -torch.exp(p["a_log"].float())
-        da = torch.exp(dt[:, 0] * a)                        # (B, nh)
-        upd = torch.einsum("bs,bhd,bh->bhsd", bmat[:, 0].float(),
-                           xs[:, 0].float(), dt[:, 0])
-        h = da[:, :, None, None] * state["ssm"].float() + upd
-        y = torch.einsum("bs,bhsd->bhd", cmat[:, 0].float(), h)[:, None]
-        state["conv"].copy_(new_conv)
-        state["ssm"].copy_(h)
-        new_state = state
-
+    y, h = ssd_scan(xs, dt, p["a_log"], conv[..., di: di + ns],
+                    conv[..., di + ns:], cfg.ssm_chunk)
+    new_state = ({"ssm": h, "conv": xbc_pad[:, -(w - 1):, :].clone()}
+                 if t >= w - 1 else None)
     y = y + p["d_skip"].float()[:, None] * xs.float()
     y = y.reshape(b, t, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
     return apply_linear(p["out_proj"], y), new_state
+
+
+def _mamba2_conv(w: Params, xbc_pad: torch.Tensor, t: int, cw: int
+                 ) -> torch.Tensor:
+    """The depthwise causal conv1d of window ``cw`` over ``xbc_pad`` (the
+    window's state, then the ``t`` new positions), the reference's order
+    of sums, and its SiLU."""
+    conv = xbc_pad[:, 0:t, :] * w["conv_w"][0]
+    for i in range(1, cw):
+        conv = conv + xbc_pad[:, i:i + t, :] * w["conv_w"][i]
+    return F.silu(conv + w["conv_b"])
+
+
+def _mamba2_step(w: Params, x: torch.Tensor, cfg: ModelConfig,
+                 state: Params, h0: int, nhl: int, norm: torch.Tensor,
+                 gather=None) -> torch.Tensor:
+    """The Mamba2 block's one-step recurrence (decode) on local tensors, up
+    to ``out_proj``'s input: (B, 1, d_inner) after the gated RMSNorm
+    (``norm``).  The in-projection and the convolution are whole; the SSM
+    steps heads h0 .. h0 + nhl, ``w``'s dt_bias, a_log and d_skip and
+    ``state["ssm"]`` holding just those; the state is updated in place.
+    ``gather`` takes those heads' outputs (B, 1, nhl x head_dim) to all of
+    d_inner (on a mesh, ``_mamba2_decode_mesh``: an all-gather over "tp");
+    one device steps every head and needs none."""
+    b, t, _ = x.shape
+    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    hd, cw = cfg.ssm_head_dim, cfg.ssm_conv_width
+    zxbcdt = apply_linear(w["in_proj"], x)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: 2 * di + 2 * ns]
+    dt_raw = zxbcdt[..., 2 * di + 2 * ns + h0: 2 * di + 2 * ns + h0 + nhl]
+    xbc_pad = torch.cat([state["conv"], xbc], dim=1)
+    conv = _mamba2_conv(w, xbc_pad, t, cw)
+    xs = conv[..., :di].reshape(b, t, nh, hd)[:, :, h0:h0 + nhl]
+    bmat = conv[..., di: di + ns]
+    cmat = conv[..., di + ns:]
+    dt = F.softplus(dt_raw.float() + w["dt_bias"])
+    da = torch.exp(dt[:, 0] * -torch.exp(w["a_log"].float()))   # (B, nhl)
+    upd = torch.einsum("bs,bhd,bh->bhsd", bmat[:, 0].float(),
+                       xs[:, 0].float(), dt[:, 0])
+    hs = da[:, :, None, None] * state["ssm"].float() + upd
+    y = torch.einsum("bs,bhsd->bhd", cmat[:, 0].float(), hs)[:, None]
+    state["conv"].copy_(xbc_pad[:, -(cw - 1):, :])
+    state["ssm"].copy_(hs)
+    y = y + w["d_skip"].float()[:, None] * xs.float()
+    y = y.reshape(b, t, nhl * hd)
+    if gather is not None:
+        y = gather(y)
+    y = y.to(x.dtype)
+    return rms_norm(y * F.silu(z.float()).to(x.dtype), norm, cfg.norm_eps)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device) -> Params:
@@ -801,24 +887,28 @@ def specs_mamba2_state(cfg: ModelConfig, tp: int) -> Params:
 def _use(w, spec, keep_tp: bool = True):
     """Weight ``w`` (this rank's shard under ``spec``) gathered over every
     mesh dim it is sharded on, but the ``tp`` dim where ``keep_tp``.  A
-    sparse leaf is taken as it is where nothing is gathered."""
+    sparse leaf is the BCSR (or ELL) of this rank's ``tp`` shard, whole
+    over every other mesh dim (what ``launch/sparse_weights.py`` builds),
+    and is taken as it is: sparse weights run on a mesh only as whole
+    shards.  A block that would gather one over ``tp`` raises."""
     mesh = S.get_mesh()
     names = S._dim_names(mesh)
     tp = S.tp_axis()
     out = w
     pls = S.placements(spec, mesh)
+    sparse = isinstance(w, (BcsrMatrix, EllMatrix))
     for i in reversed(range(len(pls))):
         pl = pls[i]
         if not isinstance(pl, Shard) or (keep_tp and names[i] == tp):
             continue
-        if S.axis_size(names[i]) == 1:
+        if S.axis_size(names[i]) == 1 or (sparse and names[i] != tp):
             continue
-        if isinstance(out, (BcsrMatrix, EllMatrix)):
+        if sparse:
             raise ValueError(
-                f"a {type(out).__name__} weight is sharded over mesh dim "
+                f"a {type(out).__name__} weight is sharded over the tp dim "
                 f"{names[i]!r}, which this block gathers; sparse weights "
-                f"run on a mesh only as whole shards (sparsify each rank's "
-                f"local dense shard)")
+                f"run on a mesh only as whole shards of a block that keeps "
+                f"its tp shard")
         out = C.all_gather(out, pl.dim, names[i])
     return out
 
@@ -867,17 +957,13 @@ def tp_attention_mode(h: int, kv: int, tp: int) -> Optional[str]:
     return None
 
 
-def _attention_mesh(p: Params, x: DTensor, cfg: ModelConfig,
-                    cache) -> DTensor:
+def _attention_mesh(p: Params, x: DTensor, cfg: ModelConfig) -> DTensor:
     """GQA attention on a mesh.  Modes A and B (``tp_attention_mode``): the
     rank's h / tp query heads and its kv heads (A: kv / tp of them; B: kv
     head (rank * h / tp) // g, cut from the gathered wk / wv), the flash or
     chunked attention on them, the partial output projection.  Otherwise
     every rank runs the whole attention with gathered weights through the
     chunked path, as the reference falls back, and keeps its slice."""
-    if cache is not None:
-        raise ValueError("attention_fwd: decode with a cache runs on one "
-                         "device; a mesh run takes full sequences")
     tp = S.tp_size()
     specs = specs_attention(cfg, tp)
     xf = S.constrain(x, "dp", None, None)
@@ -956,14 +1042,241 @@ def _moe_mesh(p: Params, x: DTensor, cfg: ModelConfig,
     return y
 
 
-def _replicated_mesh(fn, p: Params, specs: Params, x: DTensor,
-                     cache) -> DTensor:
-    """A mixer whose tensor-parallel split is not ported (MLA, Mamba2): its
-    weights gathered whole, ``fn(weights, local x)`` run on every rank of
-    the ``tp`` dim over the gathered sequence, each keeping its slice."""
-    if cache is not None:
-        raise ValueError("decode with a cache runs on one device; a mesh "
-                         "run takes full sequences")
+def _replicated_mesh(fn, p: Params, specs: Params, x: DTensor) -> DTensor:
+    """A mixer whose tensor-parallel split is not ported for full
+    sequences (MLA, Mamba2): its weights gathered whole, ``fn(weights,
+    local x)`` run on every rank of the ``tp`` dim over the gathered
+    sequence, each keeping its slice."""
     xf = S.constrain(x, "dp", None, None)
     y = fn(_use_tree(p, specs, keep_tp=False), xf.to_local())
     return _tp_out(y, xf, False, x)
+
+
+# ---------------------------------------------------------------------------
+# decode on a mesh: one position (T 1) a step, the cache placed by
+# ``transformer.cache_specs`` (``steps.place_cache``), its local tensors
+# updated in place.  The residual stream at T 1 keeps its batch over "dp"
+# and is whole over "sp" (a length-1 sequence does not split).
+#
+# A cache whose sequence is split over "tp" (a GQA cache whose KV heads
+# "tp" does not divide, every MLA latent cache) is written at global
+# position ``cur_len`` by the one rank whose slice holds it, and each rank
+# attends over its own slice for every query head (the query projected on
+# the rank's weight columns and gathered over "tp": a few KB at T 1),
+# keeping its f32 (max, sum, unnormalised output); the slices combine by
+# log-sum-exp over "tp" (``_lse_combine``), and each rank multiplies its
+# rows of the output projection, whose partial sums are reduced as in
+# prefill.
+# ---------------------------------------------------------------------------
+
+def _tp_placement(t: DTensor):
+    """``t``'s placement on the ``tp`` dim (Replicate where it is absent or
+    of size 1)."""
+    ax = S.tp_axis()
+    if ax is None or S.axis_size(ax) == 1:
+        return Replicate()
+    return t.placements[S._dim_names(t.device_mesh).index(ax)]
+
+
+def _seq_split(t: DTensor) -> bool:
+    pl = _tp_placement(t)
+    return isinstance(pl, Shard) and pl.dim == 1
+
+
+def _cache_locals(cache: Params, xl: torch.Tensor, cfg: ModelConfig,
+                  layer: Optional[int], what: str) -> Params:
+    """The local tensors of a placed cache, checked against the block's
+    input: DTensors (``steps.place_cache``) whose batch shard is the
+    input's, at one position a step."""
+    where = f"{cfg.name}: layer {layer}"
+    if xl.shape[1] != 1:
+        raise ValueError(f"{where}: a meshed decode takes one position a "
+                         f"step, got {xl.shape[1]}")
+    out = {}
+    for k, v in cache.items():
+        if not isinstance(v, DTensor):
+            raise ValueError(
+                f"{where}: a meshed decode takes its {what} placed on the "
+                f"mesh (steps.place_cache); {k!r} is a {type(v).__name__}")
+        loc = v.to_local()
+        if loc.shape[0] != xl.shape[0]:
+            raise ValueError(
+                f"{where}: the {what}'s {k!r} holds {loc.shape[0]} rows a "
+                f"rank and the block's input {xl.shape[0]}: the tokens and "
+                f"the {what} must split the batch alike")
+        out[k] = loc
+    return out
+
+
+def _decode_positions(xl: torch.Tensor, cur_len: int) -> torch.Tensor:
+    return torch.full(xl.shape[:2], int(cur_len), dtype=torch.int32,
+                      device=xl.device)
+
+
+def _write_seq_shard(cache: torch.Tensor, new: torch.Tensor, cur_len: int,
+                     rank: int, n: int) -> None:
+    """Write ``new`` (B, 1, ...) at global position ``cur_len`` of a cache
+    whose sequence is split in ``n`` slices, this rank holding slice
+    ``rank``: only the owner writes.  The start is clamped to S - 1, as
+    ``write_cache`` (``lax.dynamic_update_slice``) clamps it."""
+    s_loc = cache.shape[1]
+    lo = max(0, min(int(cur_len), s_loc * n - 1)) - rank * s_loc
+    if 0 <= lo < s_loc:
+        cache[:, lo:lo + 1] = new
+
+
+def _attend_shard(logits: torch.Tensor, n_valid: int, pv
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``logits`` (..., S_loc) over one slice, its first ``n_valid``
+    positions valid -> (max, sum of exponentials, ``pv(p)``: the
+    unnormalised output) of the slice."""
+    s = logits.shape[-1]
+    mask = torch.arange(s, device=logits.device) < n_valid
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p.sum(dim=-1), pv(p)
+
+
+def _lse_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                 ax: str) -> torch.Tensor:
+    """The softmax-weighted output (..., dv) over every rank's slice of
+    ``ax`` from each slice's (max, sum, unnormalised output): each part
+    weighted by exp(m - m_global).  A slice with no valid position has
+    logits all the finite ``NEG_INF``, so its own softmax would be uniform;
+    its weight exp(NEG_INF - m_global) is exactly 0.  One max and one sum
+    over ``ax``."""
+    wgt = torch.exp(m - C.value_max(m, [ax]))
+    both = C.all_reduce(torch.cat([acc * wgt[..., None],
+                                   (l * wgt)[..., None]], dim=-1), ax)
+    return both[..., :-1] / both[..., -1:]
+
+
+def _gather_cols(y: torch.Tensor, entry, ax: Optional[str]) -> torch.Tensor:
+    """A projection's output on this rank's weight columns, gathered over
+    ``ax`` where the weight's spec ``entry`` splits its columns."""
+    return y if entry is None or ax is None else C.all_gather(y, y.ndim - 1,
+                                                              ax)
+
+
+def _own_cols(y: torch.Tensor, entry, ax: Optional[str]) -> torch.Tensor:
+    """This rank's chunk of ``y``'s last dim where a weight's spec
+    ``entry`` splits its rows over ``ax`` (the rows it multiplies)."""
+    if entry is None or ax is None or S.axis_size(ax) == 1:
+        return y
+    n = y.shape[-1] // S.axis_size(ax)
+    r = S.axis_index(ax)
+    return y[..., r * n:(r + 1) * n]
+
+
+def _attention_decode_mesh(p: Params, x: DTensor, cfg: ModelConfig,
+                           cache: Params, cur_len: int,
+                           layer: Optional[int]) -> DTensor:
+    """One GQA decode step on a mesh.  A cache with its KV heads over "tp"
+    (kv % tp == 0, mode A): each rank projects its h / tp query heads and
+    kv / tp KV heads, writes its K/V shard at ``cur_len`` and attends on
+    its heads (``decode_attention``), the output projection's partial sums
+    reduced.  A cache with its sequence over "tp": the section's comment
+    above."""
+    tp, ax = S.tp_size(), S.tp_axis()
+    specs = specs_attention(cfg, tp)
+    xf = S.constrain(x, "dp", None, None)
+    xl = xf.to_local()
+    b, t, _ = xl.shape
+    kc = _cache_locals(cache, xl, cfg, layer, "KV cache")
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = _decode_positions(xl, cur_len)
+    w = _use_tree(p, specs)
+    if not _seq_split(cache["k"]):
+        if kc["k"].shape[2] * tp != kv:
+            raise ValueError(
+                f"{cfg.name}: layer {layer}: the KV cache holds "
+                f"{kc['k'].shape[2]} KV heads a rank of {kv} over tp {tp}; "
+                f"place it by transformer.cache_specs")
+        hq, kvq = h // tp, kv // tp
+        q = rope(apply_linear(w["wq"], xl, w.get("bq")).reshape(b, t, hq, hd),
+                 pos, cfg.rope_theta)
+        k = rope(apply_linear(w["wk"], xl, w.get("bk")).reshape(b, t, kvq,
+                                                                hd),
+                 pos, cfg.rope_theta)
+        v = apply_linear(w["wv"], xl, w.get("bv")).reshape(b, t, kvq, hd)
+        write_cache(kc["k"], k, cur_len)
+        write_cache(kc["v"], v, cur_len)
+        out = decode_attention(q, kc["k"], kc["v"], cur_len + 1)
+        y = apply_linear(w["wo"], out.reshape(b, t, hq * hd))
+        return _tp_out(y, xf, tp > 1, x)
+    # the sequence over "tp": every query head on every rank
+    q = _gather_cols(apply_linear(w["wq"], xl, w.get("bq")), specs["wq"][1],
+                     ax).reshape(b, t, h, hd)
+    k = _gather_cols(apply_linear(w["wk"], xl, w.get("bk")), specs["wk"][1],
+                     ax).reshape(b, t, kv, hd)
+    v = _gather_cols(apply_linear(w["wv"], xl, w.get("bv")), specs["wv"][1],
+                     ax).reshape(b, t, kv, hd)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    r = S.axis_index(ax)
+    _write_seq_shard(kc["k"], k, cur_len, r, tp)
+    _write_seq_shard(kc["v"], v, cur_len, r, tp)
+    qf = q.reshape(b, kv, h // kv, hd).float() * hd ** -0.5
+    vf = kc["v"].float()
+    m, l, acc = _attend_shard(
+        torch.einsum("bkgd,bskd->bkgs", qf, kc["k"].float()),
+        cur_len + 1 - r * kc["k"].shape[1],
+        lambda pr: torch.einsum("bkgs,bskd->bkgd", pr, vf))
+    out = _lse_combine(m, l, acc, ax).reshape(b, t, h * hd).to(q.dtype)
+    y = apply_linear(w["wo"], _own_cols(out, specs["wo"][0], ax))
+    return _tp_out(y, xf, specs["wo"][0] is not None, x)
+
+
+def _mla_decode_mesh(p: Params, x: DTensor, cfg: ModelConfig, cache: Params,
+                     cur_len: int, layer: Optional[int]) -> DTensor:
+    """One absorbed MLA decode step on a mesh (``_mla_absorbed``), its
+    latent cache split by sequence over "tp".  Where "tp" divides the
+    heads, each rank projects its heads' queries (q_b's columns) and
+    absorbs them through its k_b columns; the absorbed queries are
+    gathered over "tp", each rank attends over its cache slice for every
+    head, the slices combine by log-sum-exp, and each rank expands its
+    heads' latent outputs through its v_b columns and its rows of wo
+    (partial sums, reduced).  Otherwise the weights are gathered whole and
+    every rank runs every head."""
+    _dense_kv_b(p, cfg, layer)
+    tp, ax = S.tp_size(), S.tp_axis()
+    split = tp > 1 and cfg.n_heads % tp == 0
+    w = _use_tree(p, specs_mla(cfg, tp), keep_tp=split)
+    xf = S.constrain(x, "dp", None, None)
+    xl = xf.to_local()
+    cl = _cache_locals(cache, xl, cfg, layer, "latent cache")
+    n = S.axis_size(ax) if _seq_split(cache["c_kv"]) else 1
+    out = _mla_absorbed(w, xl, _decode_positions(xl, cur_len), cfg, cl,
+                        cur_len, ax=ax, split=split, n=n)
+    return _tp_out(apply_linear(w["wo"], out), xf, split, x)
+
+
+def _mamba2_decode_mesh(p: Params, x: DTensor, cfg: ModelConfig,
+                        state: Params, layer: Optional[int]) -> DTensor:
+    """One Mamba2 decode step on a mesh, the state placed by
+    ``specs_mamba2_state``.  Where its SSM heads are over "tp", each rank
+    computes the whole in-projection and the convolution (the conv state
+    is replicated over "tp": every rank writes the same window), steps
+    its heads' SSM state in place, and gathers the heads' outputs over
+    "tp" (B x d_inner values) for the gated RMSNorm over all of d_inner;
+    it multiplies its chunk by its rows of out_proj, the partial sums
+    reduced.  Otherwise the weights are gathered whole and every rank
+    steps every head."""
+    tp, ax = S.tp_size(), S.tp_axis()
+    split = tp > 1 and _tp_placement(state["ssm"]) == Shard(1)
+    specs = specs_mamba2(cfg, tp)
+    w = _use_tree(p, specs, keep_tp=split)
+    xf = S.constrain(x, "dp", None, None)
+    xl = xf.to_local()
+    st = _cache_locals(state, xl, cfg, layer, "SSM state")
+    nhl = st["ssm"].shape[1]
+    h0 = S.axis_index(ax) * nhl if split else 0
+    norm = (_use(p["norm"], specs["norm"], keep_tp=False) if split
+            else w["norm"])
+    y = _mamba2_step(w, xl, cfg, st, h0, nhl, norm,
+                     (lambda yl: C.all_gather(yl, 2, ax)) if split else None)
+    out = apply_linear(w["out_proj"],
+                       _own_cols(y, specs["out_proj"][0] if split else None,
+                                 ax))
+    return _tp_out(out, xf, split, x)

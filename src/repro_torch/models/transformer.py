@@ -21,7 +21,11 @@ run on local shards and the residual stream is a DTensor that the
 reference's four ``constrain`` sites place (batch over "dp", sequence over
 "sp"; the logits' vocabulary over "tp").  ``loss_fn`` then returns this
 rank's part of the loss (the parts sum to it).  Outside a mesh run the
-sites are no-ops.
+sites are no-ops.  ``decode_step`` runs there too, on DTensor tokens
+(B, 1), a cache placed by ``cache_specs`` (``steps.place_cache``) and a
+host-int ``cur_len``: at T 1 the sites leave the stream whole over "sp"
+(``sharding.placements`` leaves a dim whole that its mesh dims do not
+divide), and the logits come back a DTensor, vocabulary over "tp".
 
 Entry points:
   init_params / param_specs -- parameters drawn on the card (or ``device``)
@@ -227,9 +231,9 @@ def _layer_fwd(cfg: ModelConfig, desc: LayerDesc, p: Params,
                            cur_len=cur_len, layer=index)
     elif desc.kind == "attn":
         mix, _ = L.attention_fwd(p["mixer"], h, positions, cfg, cache=cache,
-                                 cur_len=cur_len)
+                                 cur_len=cur_len, layer=index)
     else:
-        mix, _ = L.mamba2_fwd(p["mixer"], h, cfg, state=cache)
+        mix, _ = L.mamba2_fwd(p["mixer"], h, cfg, state=cache, layer=index)
     x = x + mix
     x = constrain(x, "dp", "sp", None)
     if desc.ffn != "none":
@@ -257,15 +261,14 @@ def hidden_embeds(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *,
     """embeds: (B, T, D) -> (final hidden states (B, T, D), cache).  With a
     cache, every attention layer writes its K and V (or MLA latent) at
     ``cur_len`` in place and every Mamba2 layer steps its state in place.
-    DTensor ``embeds`` (a mesh run): no cache, each block makes its own
-    positions, the result a DTensor."""
+    DTensor ``embeds`` (a mesh run): each block makes its own positions
+    (0..T-1, or ``cur_len`` with a placed cache), the result a DTensor."""
     b, t, _ = embeds.shape
     if isinstance(embeds, DTensor):
         params = local_shards(params)
-        if cache is not None or positions is not None:
-            raise ValueError("hidden_embeds: a mesh run takes full "
-                             "sequences at positions 0..T-1, no cache")
-        positions = None
+        if positions is not None:
+            raise ValueError("hidden_embeds: a mesh run takes positions "
+                             "0..T-1, or cur_len with a cache")
     elif positions is None:
         if cur_len is not None:
             positions = torch.full((b, t), int(cur_len), dtype=torch.int32,
@@ -399,11 +402,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, cur_len: int) -> Tuple[torch.Tensor, Params]:
-    """One decode step.  tokens: (B, 1); cur_len: the shared write position.
-    Returns the last position's logits (B, V) and the cache, updated in
-    place."""
+    """One decode step.  tokens: (B, 1); cur_len: the shared write position
+    (a host int).  Returns the last position's logits (B, V) and the cache,
+    updated in place.  On a mesh (DTensor tokens, placed params and cache):
+    the logits a DTensor, batch over "dp" and vocabulary over "tp"."""
     logits, cache = forward(params, tokens, cfg, cache=cache, cur_len=cur_len)
-    return logits[:, -1], cache
+    return last_position(logits), cache
+
+
+def last_position(x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, ...) -> x[:, -1]; of a DTensor whose sequence is whole, its
+    local shard's, each sharded dim past the sequence one lower."""
+    if not isinstance(x, DTensor):
+        return x[:, -1]
+    pls = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+           for p in x.placements]
+    return S.wrap(x.to_local()[:, -1], pls)
 
 
 # ---------------------------------------------------------------------------

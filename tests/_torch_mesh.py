@@ -1,6 +1,7 @@
 """What the multi-rank test files share (``test_torch_distributed.py``,
 ``test_torch_distributed_families.py``, ``test_torch_compress_mesh.py``,
-``test_torch_moe_ep.py``, ``test_torch_elastic.py``).
+``test_torch_moe_ep.py``, ``test_torch_elastic.py``,
+``test_torch_mesh_decode.py``, ``test_torch_dryrun.py``).
 
 Reference side: ``run_reference`` runs one of the scripts below in a
 subprocess that sets ``XLA_FLAGS=--xla_force_host_platform_device_count=N``
@@ -495,7 +496,199 @@ def rank_dryrun_counts(rank, world, cases, out: str) -> None:
         if rank >= int(np.prod(c["mesh"])):
             continue
         with dryrun._flags(**c["flags"]):
-            counts, _, _ = dryrun.count_step(cfg, shape, mesh, device="cpu")
+            counts, _, _ = dryrun.count_step(
+                cfg, shape, mesh, device="cpu",
+                sparse_weights=c.get("sparsity", 0.0),
+                min_dim=c.get("min_dim", 512))
         if rank == 0:
             with open(f"{out}/{c['name']}.json", "w") as f:
                 json.dump({"flops": counts.flops, "coll": counts.coll}, f)
+
+
+# ---------------------------------------------------------------------------
+# meshed decode (tests/test_torch_mesh_decode.py)
+# ---------------------------------------------------------------------------
+
+DECODE_SEQ = 16      # the cache's length: every case fills it to the end
+DECODE_SKIP = ("embed", "lm_head", "router", "conv_w")   # sparsify_params'
+
+# Each case: the reference's params (f32 smoke config, its own init_params
+# from PRNGKey(0)) on the mesh; with "sparsity", every leaf that
+# sparsify_params converts (2-D a layer, name outside its SKIP) pruned tp
+# shard by tp shard with the port's block_prune at (16, 16), where the
+# shard's dims are at least "min_dim"; saved with its own save_state.  Then
+# DECODE_SEQ jitted meshed T.decode_step calls at cur_len 0.. on the
+# teacher-forced tokens (in_shardings from param_specs and
+# decode_input_specs, the cache donated through out_shardings); the logits
+# of every step and the last cache (saved) are the case's results.
+REF_DECODE = REF_PRELUDE + """
+import jax.numpy as jnp, torch
+from jax.sharding import NamedSharding, PartitionSpec as RP
+from repro.launch import specs as RS
+from repro.models import transformer as T
+from repro.models.config import ShapeConfig
+from repro_torch.core.pruning import block_prune
+SKIP = %(skip)r
+
+def prune_shards(params, specs, tp, sparsity, min_dim):
+    def one(path, w, spec):
+        name = path[-1].key
+        stacked = path[0].key == "stack"
+        if name in SKIP or w.ndim - stacked != 2:
+            return w
+        w = np.asarray(w)
+        axis = [i for i, e in enumerate(spec) if e == "tp"]
+        parts = np.split(w, tp, axis=axis[0]) if axis else [w]
+        out = []
+        for part in parts:
+            mats = part if stacked else part[None]
+            if min(mats.shape[1:]) < min_dim:
+                out.append(part)
+                continue
+            pruned = np.stack([block_prune(torch.from_numpy(np.array(m)),
+                                           sparsity, (16, 16)).numpy()
+                               for m in mats])
+            out.append(pruned if stacked else pruned[0])
+        return jnp.asarray(np.concatenate(out, axis=axis[0]) if axis
+                           else out[0])
+    return jax.tree_util.tree_map_with_path(
+        one, params, specs, is_leaf=lambda x: isinstance(x, RP))
+
+for c in cases:
+    F.set_moe_impl(c["moe_impl"]); F.set_attn_impl("chunked")
+    F.set_moe_capacity(c["capacity"])
+    cfg = dataclasses.replace(cfgs.get_config(c["arch"], smoke=True),
+                              dtype="float32")
+    mesh = build_mesh((tuple(c["shape"]), tuple(c["axes"])))
+    b, s = c["batch"], %(seq)d
+    with mesh, shd.use_rules(shd.default_rules(mesh), mesh):
+        tp, dp = mesh.shape["model"], mesh.shape["data"]
+        to_ns = lambda tree: jax.tree.map(
+            lambda x: NamedSharding(mesh, shd.resolve(x)), tree,
+            is_leaf=lambda x: isinstance(x, RP))
+        pspecs = T.param_specs(cfg, tp)
+        params = T.init_params(cfg, jax.random.PRNGKey(0))
+        if c.get("sparsity"):
+            params = prune_shards(params, pspecs, tp, c["sparsity"],
+                                  c["min_dim"])
+        save_state(params, f"{out}/{c['name']}/params", 0)
+        _, parts = RS.decode_input_specs(
+            cfg, ShapeConfig("decode_smoke", s, b, "decode"), tp, dp)
+        cache_ns = to_ns(parts["cache"])
+        step = jax.jit(lambda p, t, k, n: T.decode_step(p, cfg, t, k, n),
+                       in_shardings=(to_ns(pspecs), to_ns(parts["tokens"]),
+                                     cache_ns, None),
+                       out_shardings=(None, cache_ns), donate_argnums=(2,))
+        params = jax.device_put(params, to_ns(pspecs))
+        cache = jax.device_put(T.init_cache(cfg, b, s), cache_ns)
+        toks = np.load(f"{out}/tokens_{b}.npy")
+        logits = []
+        for i in range(s):
+            lg, cache = step(params, toks[:, i:i + 1], cache, jnp.int32(i))
+            logits.append(np.asarray(lg))
+        save_state(cache, f"{out}/{c['name']}/cache", 0)
+    np.save(f"{out}/{c['name']}.npy", np.stack(logits))
+""" % dict(skip=DECODE_SKIP, seq=DECODE_SEQ)
+
+
+def decode_tokens(vocab: int, batch: int, seed: int = 3) -> np.ndarray:
+    """The seeded (batch, DECODE_SEQ) tokens every decode case is fed."""
+    return np.random.RandomState(seed).randint(
+        0, vocab, (batch, DECODE_SEQ)).astype(np.int32)
+
+
+def rank_decode(rank, world, cases, out: str) -> None:
+    """Each case on its mesh over the world: the reference's saved params
+    placed (with "sparsity", each rank's tp shards converted by
+    ``sparse_weights.sparsify_shards``), the cache placed, DECODE_SEQ
+    ``serve_step`` calls on the teacher-forced tokens; rank 0 writes every
+    step's logits (``decode_step``'s, gathered whole) and next tokens, the
+    last cache by path (gathered whole), and for a sparse case its BCSR
+    leaves as dense weights gathered whole.  Then the distributed argmax
+    on crafted ties (``argmax.json``)."""
+    from repro_torch.checkpoint import read_tree
+    from repro_torch.core.sparse_format import BcsrMatrix, bcsr_to_dense
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import sparse_weights, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map, tree_paths
+
+    decode_step = T.decode_step
+    for c in cases:
+        _flags(dict(c, attn="chunked"))
+        cfg = _cfg(c["arch"])
+        b = c["batch"]
+        mesh = make_mesh(tuple(c["shape"]), tuple(c["axes"]),
+                         device_type="cpu")
+        params = T.params_from_reference(
+            read_tree(f"{out}/{c['name']}/params", 0), cfg, "cpu")
+        toks = np.load(f"{out}/tokens_{b}.npy")
+        res, seen = {}, []
+
+        def recording(*a, **k):
+            lg, cache = decode_step(*a, **k)
+            seen.append(S.full_tensor(lg))
+            return lg, cache
+
+        with S.use_rules(S.default_rules(mesh), mesh):
+            tp = S.axis_size("model")
+            pls = tree_map(lambda s: S.placements(s, mesh),
+                           T.param_specs(cfg, tp))
+            placed = steps.place_state(params, pls, mesh)
+            if c.get("sparsity"):
+                placed = sparse_weights.sparsify_shards(
+                    placed, cfg, c["sparsity"], min_dim=c["min_dim"])
+                for k, w in tree_paths(placed):
+                    if isinstance(w, BcsrMatrix):
+                        dense = bcsr_to_dense(w).T.contiguous()
+                        whole = sparse_weights.whole_but_tp(
+                            dict(tree_paths(pls))[k], mesh)
+                        res[f"bcsr:{k}"] = S.full_tensor(
+                            S.wrap(dense, whole)).numpy()
+            cache = steps.place_cache(T.init_cache(cfg, b, DECODE_SEQ, "cpu"),
+                                      cfg, mesh, tp)
+            serve = steps.make_serve_step(cfg)
+            nxt = []
+            T.decode_step = recording
+            try:
+                with torch.no_grad():
+                    for i in range(DECODE_SEQ):
+                        tk = steps.place_tokens(toks[:, i:i + 1], "cpu",
+                                                mesh)
+                        n, cache = serve(placed, tk, cache, i)
+                        nxt.append(S.full_tensor(n).numpy())
+            finally:
+                T.decode_step = decode_step
+            res.update({f"cache:{k}": S.full_tensor(v).numpy()
+                        for k, v in tree_paths(cache)})
+        if rank == 0:
+            np.savez(f"{out}/{c['name']}.port.npz",
+                     logits=torch.stack(seen).numpy(), next=np.stack(nxt),
+                     **res)
+    _rank_argmax(rank, out)
+
+
+def _rank_argmax(rank, out: str) -> None:
+    """``steps.mesh_argmax`` on (1, 4) over a vocabulary of 32 (8 a rank):
+    row 0's maximum at global 9 and 25 (ranks 1 and 3), row 1's at 2 and
+    5 (both on rank 0), row 2's on every rank at its first column, row 3's
+    once at 31; rank 0 writes the result."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+    full = torch.zeros(4, 32)
+    full[0, [9, 25]] = 3.0
+    full[1, [2, 5]] = 2.0
+    full[2, [0, 8, 16, 24]] = 1.0
+    full[3, 31] = 4.0
+    with S.use_rules(S.default_rules(mesh), mesh):
+        logits = S.distribute(full, (Replicate(), Shard(1)), mesh)
+        got = S.full_tensor(steps.mesh_argmax(logits))
+    if rank == 0:
+        with open(f"{out}/argmax.json", "w") as f:
+            json.dump({"got": got.tolist(),
+                       "want": torch.argmax(full, -1).tolist()}, f)

@@ -8,6 +8,8 @@ rtol = atol = 1e-5 (the same f32 products, summed in another order); bf16
 inputs to 1e-2 (both cast the f32 sums back to bf16, which rounds at
 2**-8 relative, and one rounding may land on either side).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -127,9 +129,17 @@ def test_schedule_and_wrapper_checks():
     before = bk.bsr_matmul_kernel.launches
     ops.bsr_matmul(torch.ones((2, 64)), bc)     # CPU: the plain version
     assert bk.bsr_matmul_kernel.launches == before
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        bk.bsr_matmul_kernel(torch.ones((2, 64), device="meta"), bc.blocks,
-                             bc.blockcol, bc.nblocks)
+    # meta tensors (the dry run): an empty meta output of the result's
+    # shape, nothing launched; a device with no kernel raises
+    y = bk.bsr_matmul_kernel(torch.ones((2, 64), device="meta"),
+                             bc.blocks.to("meta"), bc.blockcol.to("meta"),
+                             bc.nblocks.to("meta"))
+    assert (y.device.type, tuple(y.shape), y.dtype) == ("meta", (2, 32),
+                                                        torch.float32)
+    assert bk.bsr_matmul_kernel.launches == before
+    xpu = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        bk.bsr_matmul_kernel(xpu, bc.blocks, bc.blockcol, bc.nblocks)
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)

@@ -11,8 +11,12 @@ reference's constants put in, and the JSON's keys.
 Held to the port's own run: on fake (2, 2) and (2, 2, 2) worlds (one
 process, ``meta`` tensors) the counted FLOPs and collective bytes by kind
 equal those of the same meshed step run for real over gloo at the same
-shape (``tests/_torch_mesh.py``), the 1- and 2-block probes extrapolate to
-the full-depth count, and no process group outlives a call.
+shape (``tests/_torch_mesh.py``): train, prefill, and decode on a cache
+split by sequence, by KV heads, and under ``--sparse-weights`` (the BCSR
+kernel one registered op with a flop formula, counted alike on ``meta``
+and on real banks); the 1- and
+2-block probes extrapolate to the full-depth count, a decode cell's alias
+is its cache's bytes, and no process group outlives a call.
 """
 import ast
 import dataclasses
@@ -38,6 +42,7 @@ if _flags_before is None:
 else:
     os.environ["XLA_FLAGS"] = _flags_before
 
+import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from _torch_mesh import rank_dryrun_counts, spawn_world  # noqa: E402
@@ -198,12 +203,22 @@ SMOKE_FLAGS = dict(REMAT="none", ATTN_IMPL="chunked", MOE_CAPACITY=1.25,
 TRAIN = dict(name="train_smoke", seq_len=32, global_batch=8, kind="train")
 PREFILL = dict(name="prefill_smoke", seq_len=32, global_batch=8,
                kind="prefill")
+DECODE = dict(name="decode_smoke", seq_len=16, global_batch=8,
+              kind="decode")
 QWEN, OLMOE = "qwen1.5-0.5b", "olmoe-1b-7b"
+# qwen1.5-4b's smoke config has 5 KV heads: its cache splits by sequence
+# over tp 2; yi-9b's 2 split by heads
 CASES = {4: [dict(name="train22", arch=QWEN, shape=TRAIN, mesh=(2, 2)),
              dict(name="prefill22", arch=QWEN, shape=PREFILL, mesh=(2, 2)),
              dict(name="moe_ep22", arch=OLMOE, shape=TRAIN, mesh=(2, 2),
-                  flags=dict(SMOKE_FLAGS, MOE_IMPL="ep"))],
-         8: [dict(name="train222", arch=QWEN, shape=TRAIN, mesh=(2, 2, 2))]}
+                  flags=dict(SMOKE_FLAGS, MOE_IMPL="ep")),
+             dict(name="decode_seq22", arch="qwen1.5-4b", shape=DECODE,
+                  mesh=(2, 2)),
+             dict(name="decode_sparse22", arch="yi-9b", shape=DECODE,
+                  mesh=(2, 2), sparsity=0.8, min_dim=16)],
+         8: [dict(name="train222", arch=QWEN, shape=TRAIN, mesh=(2, 2, 2)),
+             dict(name="decode_heads222", arch="yi-9b", shape=DECODE,
+                  mesh=(2, 2, 2))]}
 
 
 def _axes(mesh):
@@ -213,9 +228,11 @@ def _axes(mesh):
 @pytest.mark.parametrize("world", sorted(CASES))
 def test_fake_world_counts_equal_the_gloo_step(tmp_path, world):
     """f32 smoke configs (Qwen1.5-0.5B; OLMoE-1B-7B under expert
-    parallelism, its all-to-alls): rank 0's FLOPs and collective bytes by
-    kind on ``meta`` in a fake world equal rank 0's of the same meshed
-    step on real tensors in a spawned gloo world of the same size."""
+    parallelism, its all-to-alls; the decode cases): rank 0's FLOPs and
+    collective bytes by kind on ``meta`` in a fake world equal rank 0's of
+    the same meshed step on real tensors in a spawned gloo world of the
+    same size.  The sparse decode's FLOPs include the BCSR kernel's (its
+    flop formula, ``test_bcsr_kernel_counts_as_one_op``)."""
     cases = [dict(c, axes=_axes(c["mesh"]),
                   flags=c.get("flags", SMOKE_FLAGS)) for c in CASES[world]]
     spawn_world(rank_dryrun_counts, world, cases, str(tmp_path))
@@ -226,8 +243,10 @@ def test_fake_world_counts_equal_the_gloo_step(tmp_path, world):
         with dryrun._flags(**c["flags"]), dryrun.fake_world(world):
             from repro_torch.launch.mesh import make_mesh
             mesh = make_mesh(c["mesh"], c["axes"], device_type="cpu")
-            got, _, _ = dryrun.count_step(cfg, ShapeConfig(**c["shape"]),
-                                          mesh)
+            got, _, _ = dryrun.count_step(
+                cfg, ShapeConfig(**c["shape"]), mesh,
+                sparse_weights=c.get("sparsity", 0.0),
+                min_dim=c.get("min_dim", 512))
         assert not dist.is_initialized()
         assert got.flops == want["flops"] > 0, c["name"]
         assert got.coll == want["coll"], c["name"]
@@ -277,42 +296,107 @@ def test_views_move_no_bytes():
     assert c.hbm_bytes == 2 * nbytes
 
 
-def test_no_group_outlives_a_call():
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_bcsr_kernel_counts_as_one_op(device):
+    """The BCSR matmul kernel is one registered op to the counters, on the
+    CPU (its plain version runs inside, unseen) as on ``meta``: its flop
+    formula, 2 x rows x the bank's tiles x 16 x 16, and x, the bank and y
+    each once."""
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul_kernel
+    gm, kb, rows = 3, 2, 5
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn((rows, 64), generator=g),
+            torch.randn((gm, kb, 16, 16), generator=g),
+            torch.tensor([[0, 2], [1, 3], [0, 1]], dtype=torch.int32),
+            torch.full((gm,), kb, dtype=torch.int32)]
+    args = [t.to(device) for t in args]
+    with costs.count(known=args) as c:
+        y = bsr_matmul_kernel(*args)
+    assert tuple(y.shape) == (rows, gm * 16) and y.device.type == device
+    assert c.flops == 2 * rows * gm * kb * 16 * 16
+    assert c.hbm_bytes == sum(t.numel() * t.element_size()
+                              for t in args + [y])
+    assert c.peak_new_bytes == y.numel() * y.element_size()
+
+
+def _cut(monkeypatch, tmp_path, **layers):
+    """``dryrun``'s configs cut to ``layers[arch]`` layers, its results
+    under ``tmp_path``."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    get = cfgs.get_config
+    monkeypatch.setattr(dryrun.cfgs, "get_config", lambda arch: (
+        dataclasses.replace(get(arch), n_layers=layers[arch])
+        if arch in layers else get(arch)))
+
+
+def test_no_group_outlives_a_call(tmp_path, monkeypatch):
     """A fake world is destroyed after its run, also when the step raises
-    inside it; a decode cell raises by name before any world is made."""
+    inside it, and after a decode cell (Yi-9B cut to 2 layers)."""
     with pytest.raises(ZeroDivisionError):
         with dryrun.fake_world(4):
             assert dist.get_world_size() == 4
             1 / 0
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="meshed decode"):
-        dryrun.lower_cell("yi-9b", "decode_32k", multi_pod=False,
-                          verbose=False)
+    _cut(monkeypatch, tmp_path, **{"yi-9b": 2})
+    r = dryrun.lower_cell("yi-9b", "decode_32k", multi_pod=False,
+                          probes=False, verbose=False)
     assert not dist.is_initialized()
+    assert r.flops > 0 and r.hbm_bytes > 0 and r.coll_bytes > 0
 
 
-def test_cli_refuses_what_waits_for_meshed_decode(capsys):
-    """``--sparse-weights`` (decode's sparse weights) is refused by name,
-    and so is ``--moe-constrain`` (no switch in the port: its layout always
-    pins the expert dim); a decode cell fails the run."""
-    for flag in (["--sparse-weights", "0.8"], ["--moe-constrain"]):
-        with pytest.raises(SystemExit) as exc:
-            dryrun.main(["--arch", "yi-9b", "--shape", "train_4k", *flag])
-        assert exc.value.code == 2
-        assert flag[0] in capsys.readouterr().err
+def test_cli_refuses_what_waits_for_meshed_decode(tmp_path, monkeypatch,
+                                                  capsys):
+    """``--moe-constrain`` is refused by name (no switch in the port: its
+    layout always pins the expert dim).  ``--sparse-weights 0.8`` runs a
+    decode cell (Yi-9B cut to 2 layers) and records its value; DeepSeek-V3's
+    decode under it fails by name, as the reference's does (its absorbed
+    MLA decode reads k_b / v_b dense), and is listed among the failures."""
     with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--arch", "yi-9b", "--shape", "decode_32k"])
+        dryrun.main(["--arch", "yi-9b", "--shape", "train_4k",
+                     "--moe-constrain"])
+    assert exc.value.code == 2
+    assert "--moe-constrain" in capsys.readouterr().err
+    _cut(monkeypatch, tmp_path, **{"yi-9b": 2, "deepseek-v3-671b": 4})
+    dryrun.main(["--arch", "yi-9b", "--shape", "decode_32k",
+                 "--sparse-weights", "0.8", "--no-probes"])
+    out = json.loads((tmp_path / "yi-9b__decode_32k__16x16.json")
+                     .read_text())
+    assert out["sparse_weights"] == 0.8 and out["flops"] > 0
+    assert "dry-run OK" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k",
+                     "--sparse-weights", "0.8", "--no-probes"])
     assert exc.value.code == 1
-    assert "FAILED cells" in capsys.readouterr().out
+    cap = capsys.readouterr()
+    assert "FAILED cells: [('deepseek-v3-671b', 'decode_32k', '16x16')]" \
+        in cap.out
+    assert "absorbed MLA decode reads k_b" in cap.err
+
+
+def test_decode_cell_aliases_its_cache(tmp_path, monkeypatch):
+    """Yi-9B cut to 2 layers at decode_32k on 16 x 16: its KV cache (kv 4
+    on tp 16) splits by sequence, so a device holds B / 16 rows x S / 16
+    positions x 4 heads x 128 of K and of V a layer in bf16; the serve step
+    updates it in place, so that is the alias, and the arguments hold
+    it."""
+    _cut(monkeypatch, tmp_path, **{"yi-9b": 2})
+    dryrun.lower_cell("yi-9b", "decode_32k", multi_pod=False, probes=False,
+                      verbose=False)
+    out = json.loads((tmp_path / "yi-9b__decode_32k__16x16.json")
+                     .read_text())
+    cache = 2 * 2 * (128 // 16) * (32768 // 16) * 4 * 128 * 2
+    assert out["mem_alias_bytes"] == cache
+    assert out["mem_arg_bytes"] > cache
+    assert out["sparse_weights"] == 0.0
 
 
 def test_enrich_takes_the_single_pod_cells_without_probes(tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
     todo = enrich.pending()
-    assert len(todo) == 20 and {s.kind for _, s in todo} == {"train",
-                                                             "prefill"}
-    assert [s.kind for _, s in todo] == ["train"] * 10 + ["prefill"] * 10
+    assert len(todo) == 31
+    assert [s.kind for _, s in todo] == (["train"] * 10 + ["prefill"] * 10
+                                         + ["decode"] * 11)
     arch, shape = todo[0]
     (tmp_path / f"{arch}__{shape.name}__16x16.json").write_text(
         json.dumps({"probe_info": {"nblocks": 2}}))
@@ -320,10 +404,12 @@ def test_enrich_takes_the_single_pod_cells_without_probes(tmp_path,
 
 
 def test_meshed_path_has_no_data_dependent_ops():
-    """A ``meta`` tensor has no values: the meshed train and prefill path
-    (the models, the steps, AdamW, the collectives) reads none back."""
+    """A ``meta`` tensor has no values: the meshed train, prefill and
+    decode path (the models, the steps, the sparse weights, AdamW, the
+    collectives) reads none back."""
     paths = [*(ROOT / "src/repro_torch/models").glob("*.py"),
              ROOT / "src/repro_torch/launch/steps.py",
+             ROOT / "src/repro_torch/launch/sparse_weights.py",
              ROOT / "src/repro_torch/optim/adamw.py",
              *(ROOT / "src/repro_torch/distributed").glob("*.py")]
     bad = re.compile(r"\.item\(\)|\.tolist\(\)|nonzero\(")

@@ -2,7 +2,9 @@
 not ``chip_smoke.py``, imports ``jax`` or anything of the JAX package
 ``repro``.  ``repro_torch`` and its submodules are the port's own.
 
-An AST scan, so imports inside functions count too.
+An AST scan, so imports inside functions count too.  The same scan finds
+a module-level function or class defined twice in one of these files: the
+second silently replaces the first for every caller.
 """
 import ast
 from pathlib import Path
@@ -98,3 +100,12 @@ def test_scanner_tells_the_port_from_the_reference(source, bad):
     found = [m for _, m in _imported_modules(ast.parse(source))
              if _forbidden(m)]
     assert bool(found) == bad
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_each_top_level_function_is_defined_once(path):
+    names = [node.name for node in ast.parse(path.read_text()).body
+             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.ClassDef))]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, f"{path.name} defines {twice} more than once"
