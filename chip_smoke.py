@@ -391,7 +391,9 @@ Phases (any failure exits non-zero and prints no result):
 16. bf16    -- the two conv kernels on bf16 activations: every sparse conv
               of ResNet-50 at full width (batch 8, 224 px, a random input
               at each layer's geometry) through ``ops.sparse_conv`` (a bf16
-              bank) and ``ops.bsr_conv`` (bf16 (8, 128) tiles), each once,
+              bank: its bf16 words, one fmaf a nonzero and pixel, the
+              paired slab at stride 1) and ``ops.bsr_conv`` (bf16 (8, 128)
+              tiles, groups of up to 128 channels), each once,
               counted (39 + 39 bf16 launches, nothing else); then each
               layer's ELL output bit for bit its plain version on the card
               and the BCSR output within one bf16 ulp of its plain version
@@ -403,7 +405,11 @@ Phases (any failure exits non-zero and prints no result):
               (``bound_ms`` at bf16's item size; ``library_ms``
               ``F.conv2d`` in bf16, cuDNN).
 17. dryrun  -- ``python -m repro_torch.launch.dryrun`` in a subprocess
-              with no card visible (``CUDA_VISIBLE_DEVICES=""``): Yi-9B x
+              with no card visible (``CUDA_VISIBLE_DEVICES=""``), the cells
+              one after another in a background thread under the kernels'
+              build (four torch threads each), joined before the first
+              timed phase, so no timed phase runs beside them, and checked
+              here: Yi-9B x
               train_4k on 16 x 16 with ``--attn-impl flash`` and the probes,
               OLMoE-1B-7B x prefill_32k on 2 x 16 x 16, and Yi-9B x
               decode_32k on 16 x 16 under ``--sparse-weights 0.8`` (its KV
@@ -443,8 +449,10 @@ import io
 import json
 import math
 import os
+import atexit
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1301,7 +1309,7 @@ def bf16_phase(torch, mods, nets, device, batch, seed, f32_rows):
         sched, reason = ops_ell.resolve_schedule(
             op.m, ell.k, op.e, op.f, n=batch, c=op.c, r=op.k, s=op.k,
             stride=op.stride, hp=op.h + 2 * op.pad, wp=op.w + 2 * op.pad,
-            itemsize=2)
+            itemsize=2, paired=True)
         check(sched is not None, f"bf16 {layer}: no ELL schedule ({reason})")
         got = mods["ell_kernel"](*args, schedule=sched, **kw)
         plain = mods["ell_plain"](*args, **kw)
@@ -1323,8 +1331,11 @@ def bf16_phase(torch, mods, nets, device, batch, seed, f32_rows):
         fma_ms, _ = bound(moved, flops_f32=2.0 * nnz * flops_per)
         ell_ms = max(moved / PEAK_BYTES, 2.0 * nnz * flops_per
                      / mods["roofline"].ELL_FLOPS) * 1e3
+        words, paired = mods["ell_entry_format"](
+            ell.value.dtype, 2, op.k * op.k, op.k, xpad.shape[3], sched)
         row = {"kernel": "sparse_conv_bf16", "net": net_name,
                "layer": layer, "schedule": dataclasses.asdict(sched),
+               "bf16_words": words, "paired": paired,
                "bit_identical": True, "max_abs_err": 0.0, "kernel_ms": ms,
                "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -4860,21 +4871,69 @@ def _in_proj_width(cfg) -> int:
     return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
 
 
-def dryrun_phase():
-    """The dry run's two cells, each in a subprocess that sees no card;
-    each cell's roofline lines printed and its JSON checked."""
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               CUDA_VISIBLE_DEVICES="")
-    for arch, shape, flags in DRYRUN_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--tag", "smoke", *flags]
-        t1 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=DRYRUN_TIMEOUT_S)
-        check(r.returncode == 0, f"dryrun {arch} x {shape}: exit "
-              f"{r.returncode}: {r.stderr[-2000:]}")
-        for line in r.stdout.splitlines():
+class DryRun:
+    """The dry run's cells, one after another in a background thread, each
+    in a subprocess that sees no card and takes four torch threads: started
+    before the kernels' build, joined (``join``) before the first timed
+    phase.  ``stop`` kills the cell running, and no other starts."""
+
+    def __init__(self):
+        self.results = []
+        self.proc = None
+        self.stopped = False
+        self.lock = threading.Lock()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
+        for arch, shape, flags in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--tag", "smoke", *flags]
+            t1 = time.perf_counter()
+            with self.lock:
+                if self.stopped:
+                    return
+                self.proc = subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            try:
+                out, err = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+                rc = self.proc.returncode
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, err = self.proc.communicate()
+                rc = f"killed after {DRYRUN_TIMEOUT_S} s"
+            self.results.append((arch, shape, flags, rc, out, err,
+                                 time.perf_counter() - t1))
+
+    def join(self) -> float:
+        """Wait for the cells; the seconds waited."""
+        t0 = time.perf_counter()
+        self.thread.join()
+        return time.perf_counter() - t0
+
+    def stop(self):
+        with self.lock:
+            self.stopped = True
+            proc = self.proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        self.thread.join()
+
+
+def dryrun_phase(dry: DryRun, waited: float):
+    """The dry run's cells (run by ``DryRun`` under the build, ``waited``
+    the seconds the smoke waited for them after it): each cell's roofline
+    lines printed and its JSON checked."""
+    check(len(dry.results) == len(DRYRUN_CELLS),
+          f"dryrun: {len(dry.results)} of {len(DRYRUN_CELLS)} cells ran")
+    for arch, shape, flags, rc, stdout, stderr, seconds in dry.results:
+        check(rc == 0, f"dryrun {arch} x {shape}: exit {rc}: "
+              f"{stderr[-2000:]}")
+        for line in stdout.splitlines():
             if line.startswith(("==", "   ")):
                 print(line, flush=True)
         mesh = "2x16x16" if "--multi-pod" in flags else "16x16"
@@ -4899,9 +4958,9 @@ def dryrun_phase():
                 "sparse_weights", "lower_s")
         print(json.dumps({"phase": "dryrun", "arch": arch, "shape": shape,
                           "mesh": mesh, **{k: out[k] for k in keep},
-                          "seconds": time.perf_counter() - t1}), flush=True)
-    print(json.dumps({"phase": "dryrun", "seconds":
-                      time.perf_counter() - t0}), flush=True)
+                          "seconds": seconds}), flush=True)
+    print(json.dumps({"phase": "dryrun", "waited_seconds": waited}),
+          flush=True)
 
 
 def kernel_entries(rows, launches, arch_rows):
@@ -5163,7 +5222,8 @@ def load_modules() -> dict:
                                                   bsr_conv_split_plain)
     from repro_torch.kernels.sparse_conv import ops as ops_ell
     from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
-    from repro_torch.kernels.sparse_conv.ref import (slab_width,
+    from repro_torch.kernels.sparse_conv.ref import (entry_format,
+                                                     slab_width,
                                                      sparse_conv_plain)
     from repro_torch.kernels.bsr_conv.ref import bsr_conv_blocked_ref
     from repro_torch.launch import roofline
@@ -5253,7 +5313,7 @@ def load_modules() -> dict:
                 steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix,
                 bcsr_to_dense_matrix=bcsr_to_dense,
                 slab_width=slab_width, bsr_blocked_ref=bsr_conv_blocked_ref,
-                roofline=roofline)
+                ell_entry_format=entry_format, roofline=roofline)
     return mods
 
 
@@ -5278,6 +5338,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
 
+    dry = DryRun()   # on the host's cores under the build
+    atexit.register(dry.stop)   # its cell killed if the smoke dies first
     t0 = time.perf_counter()
     paths = _build.build()
     build_s = time.perf_counter() - t0
@@ -5301,6 +5363,7 @@ def main() -> int:
         params = cnn.init_cnn(net, 3, np.random.default_rng(args.seed + i),
                               IMAGE)
         nets[name] = (lower(net, (3, IMAGE, IMAGE)), params)
+    dry_waited = dry.join()   # no timed phase runs beside the dry run
 
     try:
         rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
@@ -5335,7 +5398,7 @@ def main() -> int:
                                                args.seed)
         families_train = families_train_phase(torch, mods, device, args.seed)
         mesh = mesh_phase(torch, mods, device, args.seed)
-        dryrun_phase()
+        dryrun_phase(dry, dry_waited)
         arch_rows = {name: (moe_rows.get(name, []) + family_rows.get(name, [])
                             + dims_extra.get(name, []))
                      for name in {**moe_rows, **family_rows, **dims_extra}}

@@ -21,8 +21,9 @@
 //
 //   * A block owns WGS x 64 pixels (a warpgroup each) and a group of NB
 //     block-rows, N = NB*BM output channels (32 or 64: two stages of a
-//     128-deep column of both TF32 halves of 64 channels fill 128 KB); BM
-//     is 8, 16, 32 or 64 (NB >= 1, so BM = 64 only at N = 64).  A
+//     128-deep column of both TF32 halves of 64 channels fill 128 KB; at
+//     bf16 also 128); BM is 8, 16, 32 or 64 (NB >= 1, so BM = 64 only at N
+//     >= 64).  A
 //     (BM, BN) tile alone would be an m64n8 product, too narrow to keep the
 //     tensor cores busy; the reuse left is the im2col patch across
 //     block-rows, so every patch element a block gathers feeds N channels.
@@ -30,8 +31,8 @@
 //     tile there), one BN-deep column at a time.  For each it stages the
 //     group's tiles at that column into one K-major B operand (N x BN,
 //     zero for a row that keeps nothing there) with cp.async, a warp 8
-//     rows of a tile at a time, BSTAGES stages, the next columns' copies
-//     under this column's products.  A table built at the start, (row g, column j) -> kb, finds
+//     rows of a tile at a time, BSTAGES stages (BSTAGES16 at bf16), the
+//     next columns' copies under this column's products.  A table built at the start, (row g, column j) -> kb, finds
 //     the tiles, so any order of a row's tiles works; a repeated column is
 //     refused by the launcher.
 //   * The patch is never stored: each thread gathers its A fragments (two
@@ -69,9 +70,37 @@
 //     takes three 8-deep ones.  The epilogue reads the bf16 residual and
 //     writes bf16, rounded once from the f32 sums.
 //   * The tensor cores add into their f32 accumulator with truncation, so
-//     that error grows with the wgmmas a sum takes: each group of 4 steps
-//     sums into a fresh partial, added into the f32 sums with rounded adds
-//     (the card measured 8e-3 at res5a/3x3 without it, 2e-4 with it).
+//     that error grows with the wgmmas a sum takes: on f32 activations
+//     each group of 4 steps sums into a fresh partial, added into the f32
+//     sums with rounded adds (the card measured 8e-3 at res5a/3x3 without
+//     it, 2e-4 with it, against the check's 1e-4 x (1 + max |y|)).
+//
+// bf16 activations (row 2e of PERF.md).  What held the first bf16 kernel
+// (bsr_conv/ablate.py --act bf16, PERF.md) was latency, not the tensor
+// cores' rate (3 % of it): each 16-deep step's wgmma waited for the step
+// before (wg_wait<1>, its A registers to be read) and the partials' adds,
+// a serial chain of KS wgmmas a column; then the A gathers (eight 2-byte
+// loads a thread a step, through L1), then the B copies.  The bf16 design:
+//   * One commit and one wait a column: its KS wgmmas issue back to back
+//     into the f32 sums, with no partials (the truncation over a sum's
+//     wgmmas, 8e-3 at res5a/3x3 in f32, is far below a bf16 ulp of
+//     outputs that reach the hundreds; chip_smoke.py holds every output to
+//     one ulp of its plain version).  The A registers of a column must stay
+//     untouched until its wgmmas are done, so the A values sit in
+//     three sets, one read by this column's wgmmas while the column two
+//     ahead is gathered into another, under them, so that a load has two
+//     columns' products to land; the B stages are copied two ahead too.
+//   * Wider channel groups: a bf16 stage of N x 128 x 2 bytes has no lo
+//     half, a quarter of the f32 path's, so N = 128 fits (wgmma
+//     m64n128k16, 64 accumulators a thread): each gathered A value feeds
+//     128 channels.  budget.BSR_CONV_BF16_TILES lists the tiles; the
+//     schedule takes the widest that still gives the card enough blocks.
+//   * With (8, 128) tiles of a magnitude-pruned bank nearly every tile is
+//     kept (0.7 sparsity: all of them at the five main-path layers), so a
+//     group's product is the dense one: the tensor-core work executed
+//     equals the useful work counted by the bound, and the zero-filled
+//     rows of a group (a row keeping no tile at a column its group keeps)
+//     add nothing there.
 //   * The epilogue (bias, residual, ReLU) is applied to the sums and
 //     written straight to (N, M, E, F): a fragment's stores cover eight
 //     neighbouring pixels of four channels, whole 32-byte sectors.
@@ -103,6 +132,7 @@ namespace {
 constexpr int WG = 128;  // threads of a warpgroup
 constexpr int BN = 128;  // block width: the (BM, 128) tiles of the format
 constexpr int BSTAGES = 2;  // stages of the B operand (the group's tiles)
+constexpr int BSTAGES16 = 3;  // ... on bf16 activations
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -240,6 +270,42 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 128, f32) = A (64 x 16, bf16 fragments in registers) B^T + D if
+// scale_d else 0, B (128 x 16) K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // The activation type (f32, or bf16 under HALF), an element widened to f32
 // (exact) and an f32 result rounded once to it; two bf16 values packed into
 // a 32-bit word, the first in its low half.
@@ -296,14 +362,20 @@ __device__ __forceinline__ float narrow(uint32_t w, int j, int qtype) {
                     : e4m3_to_f32(b);
 }
 
-// Shared memory, in order: BSTAGES stages of the B operand, each the hi
+// Shared memory, in order: NST stages of the B operand, each the hi
 // (N x BN) TF32 tile, element (n, k) at (k / 4) * N * 16 + n * 16 +
 // (k % 4) * 4 (8 rows x 16 bytes core matrices, K-major; a bf16 tile's at
 // (k / 8) * N * 16 + n * 16 + (k % 8) * 2), then the lo one (f32 tiles on
 // f32 activations) or the tiles' bytes (quantised: 16-byte piece
 // (n, k / 16) at ((k / 16) * N + n) * 16); 3 slots of BN int32 column
 // offsets; the (NB x KBC) int32 table of kept tiles; the KBC live columns.
-template <int BM, int N, int WGS, bool QUANT, bool HALF>
+// BMT is the block height, or 0 where it is the run-time bmr (the bf16
+// instances: one build for every height, the heights touching only the
+// tile table, the copies and the epilogue, not the products).  The f32
+// activations' instances keep the height a template parameter: with it at
+// run time their staged layers ran 3-5 % slower on an H100 (device time,
+// f32 and int8 tiles; compare_conv.py, PERF.md section 6).
+template <int BMT, int N, int WGS, bool QUANT, bool HALF>
 __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     const typename Act<HALF>::T* __restrict__ xpad,
     const float* __restrict__ whi, const float* __restrict__ wlo,
@@ -312,9 +384,10 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
     const typename Act<HALF>::T* __restrict__ residual,
     typename Act<HALF>::T* __restrict__ out, int NIMG, int C, int Hp,
     int Wp, int GBM, int KB, int RS, int S, int E, int F, int stride,
-    int relu, int qtype) {
-  static_assert(N % BM == 0, "a group holds whole block-rows");
-  constexpr int NB = N / BM;      // block-rows of the group
+    int relu, int qtype, int bmr) {
+  static_assert(BMT == 0 || N % BMT == 0, "a group holds whole block-rows");
+  const int BM = BMT ? BMT : bmr;
+  const int NB = N / BM;          // block-rows of the group
   constexpr int NTH = WGS * WG;
   constexpr int NWARPS = NTH / 32;
   constexpr int ACC = N / 2;      // f32 accumulator registers a thread
@@ -333,7 +406,8 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   const int KBC = (C * RS + BN - 1) / BN;     // block columns of the bank
   const uint32_t bbase = smem_u32(smem);
-  int* coloff = reinterpret_cast<int*>(smem + BSTAGES * STAGE);  // [3][BN]
+  constexpr int NST = HALF ? BSTAGES16 : BSTAGES;  // stages of B
+  int* coloff = reinterpret_cast<int*>(smem + NST * STAGE);    // [3][BN]
   int* table = coloff + 3 * BN;                                // [NB][KBC]
   int* live = table + NB * KBC;                                // [KBC]
   __shared__ int nlive;
@@ -412,7 +486,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   auto stage = [&](int t, int nl) {
     if (t < nl) {
       const int j = live[t];
-      const uint32_t sb = bbase + (t % BSTAGES) * STAGE;
+      const uint32_t sb = bbase + (t % NST) * STAGE;
       constexpr int R8 = N / 8;   // 8-row pieces of the group
       for (int job = gwarp; job < (QUANT || HALF ? 1 : 2) * R8;
            job += NWARPS) {
@@ -440,7 +514,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   // time, piece (n, k16) -> four 16-byte slots (k / 4, n) of TF32, or two
   // (k / 8, n) of bf16
   auto convert = [&](int t) {
-    unsigned char* st = smem + (t % BSTAGES) * STAGE;
+    unsigned char* st = smem + (t % NST) * STAGE;
     for (int p = tid; p < N * (BN / 16); p += NTH) {
       const int n = p % N;
       const int k16 = p / N;
@@ -474,7 +548,7 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   decode(0, nl);
   decode(1, nl);
 #pragma unroll
-  for (int t = 0; t < BSTAGES - 1; ++t) stage(t, nl);
+  for (int t = 0; t < NST - 1; ++t) stage(t, nl);
   __syncthreads();  // slots 0 and 1 of the column offsets
 
   // this thread's two pixels (rows warp*16 + gid, + 8 of its warpgroup's
@@ -491,113 +565,162 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
                (ef - e * F) * stride;
   }
 
-  // The tensor cores add each product into their f32 accumulator with
-  // truncation, so an error grows with the number of wgmmas a sum takes
-  // and with its size.  Each group of GS steps therefore sums into a fresh
-  // partial (two, alternating), which is then added into acc with f32
-  // adds rounded to nearest, once the next group's first step has waited
-  // for it (the column's last group at the column's end).
-  float acc[ACC], part[2][ACC];
+  float acc[ACC];
 #pragma unroll
-  for (int e = 0; e < ACC; ++e) acc[e] = part[0][e] = part[1][e] = 0.f;
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
 
-  // The A values of a whole column are gathered a column ahead: step ks
-  // of column c + 1 is loaded into xv[ks] as soon as step ks of column c
-  // has been split (TF32) or copied (bf16), so each load has a column's
-  // products to land.  TF32, xv[ks]: (row gid, col tig), (gid + 8, tig),
-  // (gid, tig + 4), (gid + 8, tig + 4) of the step's 16 x 8, the A
-  // fragment's order; bf16, the four words of the step's 16 x 16: (gid,
-  // 2 tig and 2 tig + 1), (gid + 8, ...), (gid, 2 tig + 8 and + 9),
-  // (gid + 8, ...).
-  using FragT = typename std::conditional<HALF, uint32_t, float>::type;
-  FragT xv[KS][4];
-  const unsigned short* xh = reinterpret_cast<const unsigned short*>(xpad);
-  auto gather = [&](int col, int ks) {
-    if (col >= nl) return;
-    if constexpr (HALF) {
-      const int* co = coloff + (col % 3) * BN + ks * 16 + 2 * tig;
-      const int c0 = co[0], c1 = co[1], c8 = co[8], c9 = co[9];
+  if constexpr (HALF) {
+    // bf16: a column's KS products issued back to back, one commit and one
+    // wait a column, into one f32 sum a channel (no partial sums: the
+    // tensor cores' truncation over a sum's wgmmas stays far below a bf16
+    // ulp of the output, which the card checks).  The A values come from
+    // registers, so a column's fragments must stay untouched until its
+    // products are done: three sets, one read by this column's wgmmas
+    // while the column two ahead is gathered into another, under them (the
+    // column loop runs in threes, so each set is a fixed set of registers);
+    // the B stages are copied two columns ahead too.  Fragment ks: the
+    // four words of the step's 16 x 16, (gid, 2 tig and 2 tig + 1), (gid +
+    // 8, ...), (gid, 2 tig + 8 and + 9), (gid + 8, ...).
+    // (32-bit offsets: the launcher takes inputs below 2^31 elements)
+    const unsigned short* xh = reinterpret_cast<const unsigned short*>(xpad);
+    const int pb[2] = {static_cast<int>(pbase[0]), static_cast<int>(pbase[1])};
+    auto gather = [&](int col, uint32_t (&xv)[KS][4]) {
+      if (col >= nl) return;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        xv[ks][h] = __ldg(xh + pbase[h] + c0) |
-                    (static_cast<uint32_t>(__ldg(xh + pbase[h] + c1)) << 16);
-        xv[ks][2 + h] =
-            __ldg(xh + pbase[h] + c8) |
-            (static_cast<uint32_t>(__ldg(xh + pbase[h] + c9)) << 16);
+      for (int ks = 0; ks < KS; ++ks) {
+        const int* co = coloff + (col % 3) * BN + ks * 16 + 2 * tig;
+        const int c0 = co[0], c1 = co[1], c8 = co[8], c9 = co[9];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          xv[ks][h] =
+              __ldg(xh + (pb[h] + c0)) |
+              (static_cast<uint32_t>(__ldg(xh + (pb[h] + c1))) << 16);
+          xv[ks][2 + h] =
+              __ldg(xh + (pb[h] + c8)) |
+              (static_cast<uint32_t>(__ldg(xh + (pb[h] + c9))) << 16);
+        }
       }
-    } else {
+    };
+    auto column = [&](int col, const uint32_t (&cur)[KS][4],
+                      uint32_t (&ahead)[KS][4]) {
+      // this column's tiles have landed (the next column's may be in
+      // flight); every warpgroup's products of the column before are done
+      // (each waits at its column's end), so that column's stage, its
+      // offsets' slot and its fragments' set are free
+      cp_wait<NST - 2>();
+      fence_async_smem();
+      __syncthreads();
+      stage(col + NST - 1, nl);
+      decode(col + 3, nl);
+      if (QUANT) {
+        // the operand, written through the generic proxy, fenced for wgmma
+        convert(col);
+        fence_async_smem();
+        __syncthreads();
+      }
+      const uint32_t sb0 = bbase + (col % NST) * STAGE;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_bf16(acc, cur[ks],
+                   smem_desc(sb0 + ks * 2 * (N * 16), N * 16, 128), 1);
+      }
+      wg_commit();
+      gather(col + 2, ahead);  // under this column's products
+      wg_wait<0>();
+    };
+    uint32_t xa[KS][4], xb[KS][4], xc[KS][4];
+    decode(2, nl);
+    __syncthreads();  // slot 2 of the column offsets
+    gather(0, xa);
+    gather(1, xb);
+    for (int col = 0; col < nl; col += 3) {
+      column(col, xa, xc);
+      if (col + 1 < nl) column(col + 1, xb, xa);
+      if (col + 2 < nl) column(col + 2, xc, xb);
+    }
+    fence_regs(acc);
+  } else {
+    // The tensor cores add each product into their f32 accumulator with
+    // truncation, so an error grows with the number of wgmmas a sum takes
+    // and with its size.  Each group of GS steps therefore sums into a
+    // fresh partial (two, alternating), which is then added into acc with
+    // f32 adds rounded to nearest, once the next group's first step has
+    // waited for it (the column's last group at the column's end).
+    float part[2][ACC];
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) part[0][e] = part[1][e] = 0.f;
+
+    // The A values of a whole column are gathered a column ahead: step ks
+    // of column c + 1 is loaded into xv[ks] as soon as step ks of column c
+    // has been split, so each load has a column's products to land.
+    // xv[ks]: (row gid, col tig), (gid + 8, tig), (gid, tig + 4), (gid + 8,
+    // tig + 4) of the step's 16 x 8, the A fragment's order.
+    float xv[KS][4];
+    auto gather = [&](int col, int ks) {
+      if (col >= nl) return;
       const int* co = coloff + (col % 3) * BN + ks * 8 + tig;
       const int c0 = co[0], c4 = co[4];
       xv[ks][0] = __ldg(xpad + pbase[0] + c0);
       xv[ks][1] = __ldg(xpad + pbase[1] + c0);
       xv[ks][2] = __ldg(xpad + pbase[0] + c4);
       xv[ks][3] = __ldg(xpad + pbase[1] + c4);
-    }
-  };
+    };
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) gather(0, ks);
+    for (int ks = 0; ks < KS; ++ks) gather(0, ks);
 
-  uint32_t ahi[2][4], alo[2][4];
-  for (int col = 0; col < nl; ++col) {
-    // every product of the last column is done (below), its stage is
-    // free; this column's tiles have landed
-    cp_wait<BSTAGES - 2>();
-    fence_async_smem();
-    __syncthreads();
-    stage(col + BSTAGES - 1, nl);
-    decode(col + 2, nl);
-    if (QUANT) {
-      // the operand, written through the generic proxy, fenced for wgmma
-      convert(col);
+    uint32_t ahi[2][4], alo[2][4];
+    for (int col = 0; col < nl; ++col) {
+      // every product of the last column is done (below), its stage is
+      // free; this column's tiles have landed
+      cp_wait<BSTAGES - 2>();
       fence_async_smem();
       __syncthreads();
-    }
-    const uint32_t sb0 = bbase + (col % BSTAGES) * STAGE;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      // split into the A fragments (TF32) or take them as they are
-      // (bf16), gather the next column's step, issue the three products
-      // (TF32) or the one (bf16)
-      uint32_t (&hi)[4] = ahi[ks % 2];
-      uint32_t (&lo)[4] = alo[ks % 2];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        if constexpr (HALF)
-          hi[v] = xv[ks][v];
-        else
-          split_tf32(xv[ks][v], hi[v], lo[v]);
+      stage(col + BSTAGES - 1, nl);
+      decode(col + 2, nl);
+      if (QUANT) {
+        // the operand, written through the generic proxy, fenced for wgmma
+        convert(col);
+        fence_async_smem();
+        __syncthreads();
       }
-      gather(col + 1, ks);
-      const uint32_t sb = sb0 + ks * 2 * (N * 16);
-      const uint64_t dhi = smem_desc(sb, N * 16, 128);
-      const uint64_t dlo = smem_desc(sb + TILE, N * 16, 128);
-      float (&d)[ACC] = part[(ks / GS) % 2];
-      wg_fence();
-      if constexpr (HALF) {
-        wgmma_bf16(d, hi, dhi, ks % GS != 0);
-      } else {
+      const uint32_t sb0 = bbase + (col % BSTAGES) * STAGE;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        // split into the A fragments, gather the next column's step, issue
+        // the three products
+        uint32_t (&hi)[4] = ahi[ks % 2];
+        uint32_t (&lo)[4] = alo[ks % 2];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) split_tf32(xv[ks][v], hi[v], lo[v]);
+        gather(col + 1, ks);
+        const uint32_t sb = sb0 + ks * 2 * (N * 16);
+        const uint64_t dhi = smem_desc(sb, N * 16, 128);
+        const uint64_t dlo = smem_desc(sb + TILE, N * 16, 128);
+        float (&d)[ACC] = part[(ks / GS) % 2];
+        wg_fence();
         wgmma_tf32(d, hi, dhi, ks % GS != 0);
         if (!QUANT) wgmma_tf32(d, hi, dlo, 1);
         wgmma_tf32(d, lo, dhi, 1);
-      }
-      wg_commit();
-      wg_wait<1>();  // the step before has read its fragments
-      if (ks % GS == 0 && ks > 0) {
-        // the group before is done: add its partial
-        float (&q)[ACC] = part[(ks / GS + 1) % 2];
-        fence_regs(q);
+        wg_commit();
+        wg_wait<1>();  // the step before has read its fragments
+        if (ks % GS == 0 && ks > 0) {
+          // the group before is done: add its partial
+          float (&q)[ACC] = part[(ks / GS + 1) % 2];
+          fence_regs(q);
 #pragma unroll
-        for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
+          for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
+        }
       }
+      // the column's last group: wait for it and add it here, so that no
+      // partial is carried from one column to the next (a copy of an
+      // accumulator a wgmma is still writing would read it too soon)
+      wg_wait<0>();
+      float (&q)[ACC] = part[(KS / GS - 1) % 2];
+      fence_regs(q);
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
     }
-    // the column's last group: wait for it and add it here, so that no
-    // partial is carried from one column to the next (a copy of an
-    // accumulator a wgmma is still writing would read it too soon)
-    wg_wait<0>();
-    float (&q)[ACC] = part[(KS / GS - 1) % 2];
-    fence_regs(q);
-#pragma unroll
-    for (int e = 0; e < ACC; ++e) acc[e] = __fadd_rn(acc[e], q[e]);
   }
   cp_wait_all();
 
@@ -626,8 +749,8 @@ __global__ void __launch_bounds__(WGS * WG) bsr_conv_tc_kernel(
   }
 }
 
-template <int BM, int N, int WGS, bool QUANT, bool HALF>
-int launch(const void* xv, const float* whi, const float* wlo,
+template <int BMT, int N, int WGS, bool QUANT, bool HALF>
+int launch(int BM, const void* xv, const float* whi, const float* wlo,
            const float* sc, const int* bc, const int* nb, const float* b,
            const void* resv, void* ov, int NIMG, int C, int Hp, int Wp,
            int GBM, int KB, int RS, int S, int E, int F, int stride, int relu,
@@ -636,48 +759,54 @@ int launch(const void* xv, const float* whi, const float* wlo,
   const int KBC = (C * RS + BN - 1) / BN;
   const size_t opb = HALF ? 2 : 4;
   const size_t smem =
-      static_cast<size_t>(BSTAGES) * N * BN *
+      static_cast<size_t>(HALF ? BSTAGES16 : BSTAGES) * N * BN *
           (opb + (QUANT ? 1 : (HALF ? 0 : 4))) +
       4 * (3 * BN + (N / BM + 1) * KBC);
   const cudaError_t err = cudaFuncSetAttribute(
-      bsr_conv_tc_kernel<BM, N, WGS, QUANT, HALF>,
+      bsr_conv_tc_kernel<BMT, N, WGS, QUANT, HALF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = NIMG * E * F;
   const dim3 grid((P + WGS * 64 - 1) / (WGS * 64),
                   (GBM + N / BM - 1) / (N / BM));
-  bsr_conv_tc_kernel<BM, N, WGS, QUANT, HALF><<<grid, WGS * WG, smem, st>>>(
+  bsr_conv_tc_kernel<BMT, N, WGS, QUANT, HALF><<<grid, WGS * WG, smem, st>>>(
       static_cast<const XT*>(xv), whi, wlo, sc, bc, nb, b,
       static_cast<const XT*>(resv), static_cast<XT*>(ov), NIMG, C, Hp, Wp,
-      GBM, KB, RS, S, E, F, stride, relu, qtype);
+      GBM, KB, RS, S, E, F, stride, relu, qtype, BM);
   return static_cast<int>(cudaGetLastError());
 }
 
+// BM > 0: the f32 instances of that height; BM = 0 the bf16 ones (the
+// height at run time, bm)
 template <int BM>
-int pick(int n_tile, int wgs, int qtype, int act, const void* x,
+int pick(int bm, int n_tile, int wgs, int qtype, int act, const void* x,
          const float* whi, const float* wlo, const float* sc, const int* bc,
          const int* nb, const float* b, const void* res, void* o, int NIMG,
          int C, int Hp, int Wp, int GBM, int KB, int RS, int S, int E, int F,
          int stride, int relu, cudaStream_t st) {
 #define BSR_CONV_KIND(N, W, Q, H)                                            \
-  return launch<BM, N, W, Q, H>(x, whi, wlo, sc, bc, nb, b, res, o, NIMG, C, \
-                                Hp, Wp, GBM, KB, RS, S, E, F, stride, relu,  \
-                                qtype, st);
-#define BSR_CONV_LAUNCH(N, W)                                                \
-  if constexpr (N % BM == 0) {                                               \
-    if (n_tile == N && wgs == W) {                                           \
-      if (act) {                                                             \
-        if (qtype) BSR_CONV_KIND(N, W, true, true)                           \
-        BSR_CONV_KIND(N, W, false, true)                                     \
-      }                                                                      \
-      if (qtype) BSR_CONV_KIND(N, W, true, false)                            \
-      BSR_CONV_KIND(N, W, false, false)                                      \
+  return launch<BM, N, W, Q, H>(bm, x, whi, wlo, sc, bc, nb, b, res, o,     \
+                                NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F,      \
+                                stride, relu, qtype, st);
+  // f32 activations: N = 32 or 64 (the TF32 halves of N = 128 would not
+  // fit); bf16: N = 32, 64 or 128
+#define BSR_CONV_LAUNCH(N, W, H)                                             \
+  if constexpr ((BM == 0) == H && (BM == 0 || N % BM == 0)) {                \
+    if (n_tile == N && wgs == W && N % bm == 0) {                            \
+      if (qtype) BSR_CONV_KIND(N, W, true, H)                                \
+      BSR_CONV_KIND(N, W, false, H)                                          \
     }                                                                        \
   }
-  BSR_CONV_LAUNCH(32, 1)
-  BSR_CONV_LAUNCH(32, 2)
-  BSR_CONV_LAUNCH(64, 1)
-  BSR_CONV_LAUNCH(64, 2)
+  BSR_CONV_LAUNCH(32, 1, false)
+  BSR_CONV_LAUNCH(32, 2, false)
+  BSR_CONV_LAUNCH(64, 1, false)
+  BSR_CONV_LAUNCH(64, 2, false)
+  BSR_CONV_LAUNCH(32, 1, true)
+  BSR_CONV_LAUNCH(32, 2, true)
+  BSR_CONV_LAUNCH(64, 1, true)
+  BSR_CONV_LAUNCH(64, 2, true)
+  BSR_CONV_LAUNCH(128, 1, true)
+  BSR_CONV_LAUNCH(128, 2, true)
 #undef BSR_CONV_LAUNCH
 #undef BSR_CONV_KIND
   return static_cast<int>(cudaErrorInvalidValue);
@@ -707,9 +836,13 @@ extern "C" int bsr_conv_tc(const void* xpad, const void* whi, const void* wlo,
     return static_cast<int>(cudaErrorInvalidValue);
 #define BSR_CONV_PICK(BM_)                                                   \
   case BM_:                                                                  \
-    return pick<BM_>(n_tile, wgs, qtype, act, xpad, hi, lo, sc, bc, nb, b,   \
-                     residual, out, NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F,   \
-                     stride, relu, st);
+    return pick<BM_>(BM, n_tile, wgs, qtype, act, xpad, hi, lo, sc, bc, nb,  \
+                     b, residual, out, NIMG, C, Hp, Wp, GBM, KB, RS, S, E,   \
+                     F, stride, relu, st);
+  if (act && (BM == 8 || BM == 16 || BM == 32 || BM == 64))
+    return pick<0>(BM, n_tile, wgs, qtype, act, xpad, hi, lo, sc, bc, nb, b,
+                   residual, out, NIMG, C, Hp, Wp, GBM, KB, RS, S, E, F,
+                   stride, relu, st);
   switch (BM) {
     BSR_CONV_PICK(8)
     BSR_CONV_PICK(16)

@@ -34,7 +34,7 @@ _SYMBOL = "bsr_conv_tc"
 # the C entry point's parameters: 9 pointers, 18 ints, the stream
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 # Block heights and the width the source instantiates (its tiles, N output
-# channels by 64 pixels a warpgroup, are budget.BSR_CONV_TILES; a tile
+# channels by 64 pixels a warpgroup, are budget.bsr_conv_tiles; a tile
 # holds whole block-rows, N % bm == 0).
 BM_CHOICES = (8, 16, 32, 64)
 BN = 128
@@ -104,10 +104,11 @@ def _launch(xpad, blocks, blockcol, nblocks, bias, residual, halves, scale,
     if bm not in BM_CHOICES or bn != BN:
         raise ValueError(f"bsr_conv: block ({bm}, {bn}) not one the kernel "
                          f"takes (height {BM_CHOICES}, width {BN})")
-    if (n_tile, wgs) not in budget.BSR_CONV_TILES or n_tile % bm:
+    tiles = budget.bsr_conv_tiles(xpad.element_size())
+    if (n_tile, wgs) not in tiles or n_tile % bm:
         raise ValueError(f"bsr_conv: tile ({n_tile}, {wgs}) not one of "
-                         f"{budget.BSR_CONV_TILES} holding whole block-rows "
-                         f"of {bm}")
+                         f"{tiles} ({xpad.dtype} activations) holding "
+                         f"whole block-rows of {bm}")
     if xpad.numel() >= 2**31 or n * mpad * e * f >= 2**31:
         raise ValueError("bsr_conv: the input or output exceeds int32 offsets")
     if (e - 1) * stride + rs // s > hp or (f - 1) * stride + s > wp:

@@ -41,13 +41,14 @@ def resolve_bsr_schedule(bm: int, bn: int, e: int, f: int, *, n: int = 1,
     ``crs`` = C*R*S flattened columns (default one block column);
     ``value_dtype`` the tiles' storage (a quantised bank stages a byte a
     weight); ``itemsize`` the activation's (2: bf16, whose operand is half the
-    bytes of a TF32 one and has no lo half).  Without pins, the tile is the
-    first of ``budget.BSR_CONV_TILES`` holding whole block-rows whose blocks
-    number ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be one
-    the source instantiates."""
+    bytes of a TF32 one and has no lo half, so its tiles reach N = 128:
+    ``budget.bsr_conv_tiles``).  Without pins, the tile is the first of
+    those holding whole block-rows whose blocks number
+    ``budget.BSR_CONV_MIN_BLOCKS`` or more; a pinned tile must be one the
+    source instantiates."""
     if bm not in BM_CHOICES:
         return None, "unsupported_block"
-    tiles = [(t, w) for t, w in budget.BSR_CONV_TILES
+    tiles = [(t, w) for t, w in budget.bsr_conv_tiles(itemsize)
              if t % bm == 0
              and (n_tile is None or t == n_tile) and (wgs is None or w == wgs)]
     if not tiles:
@@ -74,10 +75,11 @@ def bsr_tile_candidates(bm: int, bn: int, e: int, f: int, *, n: int = 1,
                         value_dtype: str = "float32", itemsize: int = 4,
                         ) -> List[Tuple[int, int]]:
     """Every ``(n_tile, wgs)`` tile ``resolve_bsr_schedule`` accepts for a
-    (bm, bn) block at this geometry, in ``budget.BSR_CONV_TILES``' order:
-    the autotuner's feasibility probe for a block shape."""
+    (bm, bn) block at this geometry, in ``budget.bsr_conv_tiles``' order
+    at the activation's ``itemsize``: the autotuner's feasibility probe for
+    a block shape."""
     out = []
-    for t, w in budget.BSR_CONV_TILES:
+    for t, w in budget.bsr_conv_tiles(itemsize):
         sched, _ = resolve_bsr_schedule(bm, bn, e, f, n=n, m=m, crs=crs,
                                         n_tile=t, wgs=w,
                                         value_dtype=value_dtype,

@@ -15,6 +15,10 @@ kernel's, so the two agree to f32 rounding, not bit for bit.
 ``bsr_conv_split_plain`` mirrors the kernel's split arithmetic (TF32 hi and
 lo halves of both operands, three products); with ``lo=False`` it is the
 one-product control the precision checks must reject.
+``bsr_conv_bf16_plain`` mirrors the kernel's walk on bf16 activations: a
+group of ``n_tile`` output channels visits the block columns any of its
+rows keeps, in ascending order, and each 16-deep step adds its exact
+products into one f32 sum a channel (no partials).
 
 ``bsr_conv_blocked_ref`` is the port of the reference's
 ``bsr_conv_blocked_ref`` (``repro/kernels/bsr_conv/ref.py:54``): the same
@@ -128,6 +132,65 @@ def bsr_conv_split_plain(xpad: torch.Tensor, blocks: torch.Tensor,
     return _blocked(xpad, blocks, blockcol, nblocks, bias, residual, rs=rs,
                     s=s, e=e, f=f, stride=stride, fuse_relu=fuse_relu,
                     contract=contract, scale=scale)
+
+
+def bsr_conv_bf16_plain(xpad: torch.Tensor, blocks: torch.Tensor,
+                        blockcol: torch.Tensor, nblocks: torch.Tensor,
+                        bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None, *, rs: int,
+                        s: int, e: int, f: int, stride: int = 1,
+                        fuse_relu: bool = False, n_tile: int = 128,
+                        scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The kernel's walk on bf16 activations, for the tests: the block-rows
+    in groups of ``n_tile // bm``; each group's live block columns (kept by
+    any of its rows) in ascending order, a row keeping no tile there
+    contributing zeros; each column's 128 flat columns in 16-deep steps,
+    each step's products (exact: bf16 x bf16) summed exactly and added
+    into one f32 sum a channel, rounded once a step (a model of the tensor
+    cores' accumulation, which rounds by truncation: the card's results
+    are held to one bf16 ulp, not to these bits); then a quantised bank's
+    scales and the epilogue, rounded once to xpad's dtype."""
+    n, c, hp, wp = xpad.shape
+    gbm, kb_n, bm, bn = blocks.shape
+    nb = n_tile // bm
+    ncols = -(-c * rs // bn)
+    x = xpad.double()
+    pix = pixel_offsets(wp, e, f, stride, xpad.device)
+    jl = torch.arange(bn, device=xpad.device)
+    dense = torch.zeros((gbm, ncols, bm, bn), dtype=torch.float64)
+    for i in range(gbm):
+        for kb in range(int(nblocks[i])):
+            dense[i, int(blockcol[i, kb])] = blocks[i, kb].double()
+    acc = torch.zeros((n, gbm * bm, e * f), dtype=torch.float32)
+    for g0 in range(0, gbm, nb):
+        rows = slice(g0, min(g0 + nb, gbm))
+        keeps = torch.zeros(ncols, dtype=torch.bool)
+        for i in range(rows.start, rows.stop):
+            keeps[blockcol[i, :int(nblocks[i])].long()] = True
+        part = acc[:, rows.start * bm:rows.stop * bm]
+        for j in keeps.nonzero().flatten().tolist():
+            col = j * bn + jl
+            cj = col // rs
+            rr = (col - cj * rs) // s
+            ss = col - cj * rs - rr * s
+            off = stretched_offsets(cj.clamp(max=c - 1), rr, ss, hp, wp)
+            patch = gather_windows(x, off[None, :], pix)[:, 0]  # (N, bn, EF)
+            w = dense[rows, j].reshape(-1, bn)                   # (rows, bn)
+            for k0 in range(0, bn, 16):
+                step = torch.einsum("mk,nkp->nmp", w[:, k0:k0 + 16],
+                                    patch[:, k0:k0 + 16])
+                part = (part.double() + step).float()
+        acc[:, rows.start * bm:rows.stop * bm] = part
+    acc = acc.view(n, gbm, bm, e * f)
+    if scale is not None:
+        acc = acc * scale.float().view(1, gbm, bm, 1)
+    out = acc.reshape(n, gbm * bm, e, f) + bias.float().view(1, -1, 1, 1)
+    if residual is not None:
+        out = out + residual.float()
+    if fuse_relu:
+        out = torch.relu(out)
+    return out.to(xpad.dtype)
 
 
 def bsr_conv_blocked_ref(x: torch.Tensor, bc: BcsrConv, *, stride: int = 1,

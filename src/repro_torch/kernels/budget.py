@@ -44,6 +44,12 @@ ELL_SLAB_BYTES = 48 * 1024
 # (PERF.md, Findings: the fastest tile at each of the five main-path
 # layers).
 ELL_MIN_BLOCKS = 3 * SMS // 2
+# The staged kernel on a bf16 bank and bf16 activations (the paired slab
+# where stride 1 allows: ops.resolve_schedule): the same tiles, 16
+# channels a block first (the bf16 ablation's fastest at res4b/3x3 and
+# conv2; res5a/3x3 still takes (8, 4): PERF.md, Findings).
+ELL_TILES_BF16 = ((16, 4), (32, 4), (8, 8), (8, 4), (32, 2), (16, 2), (8, 2),
+                  (32, 1), (16, 1), (8, 1))
 # The unstaged 1x1 kernel's order: its rows share their inputs through L1,
 # where narrow channel tiles did best (ResNet-50's res4b/1x1b: (8, 4) 0.057
 # ms against (32, 4) 0.072 on an H100 SXM).
@@ -55,6 +61,11 @@ ELL_1X1_TILES = ((8, 4), (8, 8), (16, 4), (8, 2), (16, 2), (32, 4), (32, 2),
 # pairs it instantiates.  The TF32 operands of N = 64 fill 128 KB of
 # shared memory; N = 128 would not fit.
 BSR_CONV_TILES = ((64, 2), (32, 2), (64, 1), (32, 1))
+# On bf16 activations a stage has no lo half, so N = 128 fits too: two
+# warpgroups a block first, the widest first (the bf16 ablation's order,
+# PERF.md, Findings).
+BSR_CONV_BF16_TILES = ((128, 2), (64, 2), (32, 2), (128, 1), (64, 1),
+                       (32, 1))
 # ... the first of them whose blocks number at least this (half the SMs:
 # a block of two warpgroups holds an SM's tensor cores busier than two
 # blocks of one); again the ablation's order (PERF.md, Findings).
@@ -184,33 +195,55 @@ def ell_stage_bytes(cc: int, rows: int, ws: int, s: int,
     return -(-(cc * rows * ws + s) * itemsize // 16) * 16
 
 
+def ell_plane_bytes(cc: int, rows: int, ws: int, s: int) -> int:
+    """One plane of a paired bf16 slab (the ELL conv's two pixels a read):
+    32-bit words of two elements covering the slab and a slack of ``s`` + 1
+    elements, two words more, in a multiple of 4 words (the source's
+    ``plane_words``)."""
+    words = (cc * rows * ws + s + 2) // 2 + 2
+    return -(-4 * words // 16) * 16
+
+
 def ell_smem_bytes(tm: int, cc: int, c: int, rows: int, ws: int, s: int,
-                   pipeline: bool, itemsize: int = 4) -> int:
+                   pipeline: bool, itemsize: int = 4,
+                   paired: bool = False) -> int:
     """Dynamic shared memory of one ELL block: two slab stages when
     pipelined, one when blocking (at the activation's ``itemsize``), the
     int32 source offset of each slab row, and the ``tm`` rows' run bounds
-    for each of the C/``cc`` chunks."""
-    return ((2 if pipeline else 1) * ell_stage_bytes(cc, rows, ws, s,
-                                                     itemsize)
-            + cc * rows * 4 + tm * (-(-c // cc) + 1) * 4)
+    for each of the C/``cc`` chunks.  A ``paired`` bf16 slab (always
+    blocking) keeps its two planes."""
+    if paired and pipeline:
+        raise ValueError("ell_smem_bytes: a paired slab is never pipelined")
+    slabs = (2 * ell_plane_bytes(cc, rows, ws, s) if paired
+             else (2 if pipeline else 1)
+             * ell_stage_bytes(cc, rows, ws, s, itemsize))
+    return slabs + cc * rows * 4 + tm * (-(-c // cc) + 1) * 4
+
+
+def bsr_conv_tiles(act_itemsize: int = 4) -> tuple:
+    """The BCSR conv's (N, warpgroups) tiles on f32 (4) or bf16 (2)
+    activations, in the schedule's order of preference."""
+    return BSR_CONV_BF16_TILES if act_itemsize == 2 else BSR_CONV_TILES
 
 
 def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int,
                         value_itemsize: int = 4,
                         act_itemsize: int = 4) -> int:
-    """Dynamic shared memory of one BCSR conv block: two stages, each of the
-    B operand (``n_tile`` x ``bn``: TF32 on f32 activations, bf16 on bf16
-    ones, ``act_itemsize`` 2) and either the TF32 operand's lo half (f32
-    tiles on f32 activations) or the tiles' narrow bytes
-    (``value_itemsize`` 1: a quantised bank, converted on chip into the
-    operand); three slots of ``bn`` int32 column offsets, the (n_tile/bm x
-    ``kbc``) table of kept tiles and the ``kbc`` live block columns."""
+    """Dynamic shared memory of one BCSR conv block: two stages (three on
+    bf16 activations, ``act_itemsize`` 2), each of the B operand
+    (``n_tile`` x ``bn``: TF32 on f32 activations, bf16 on bf16 ones) and
+    either the TF32 operand's lo half (f32 tiles on f32 activations) or the
+    tiles' narrow bytes (``value_itemsize`` 1: a quantised bank, converted
+    on chip into the operand); three slots of ``bn`` int32 column offsets,
+    the (n_tile/bm x ``kbc``) table of kept tiles and the ``kbc`` live
+    block columns."""
     if value_itemsize == 1:
         extra = 1
     else:
         extra = 0 if act_itemsize == 2 else 4
     stage = n_tile * bn * (act_itemsize + extra)
-    return 2 * stage + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
+    stages = 3 if act_itemsize == 2 else 2
+    return stages * stage + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 
 def bsr_matmul_rows_stage_tiles(bm: int, bn: int, itemsize: int) -> int:

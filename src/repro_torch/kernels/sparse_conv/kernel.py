@@ -7,11 +7,12 @@ version (``ref.py``), and for anything else it raises.  There is no other
 way out: a launch that CUDA refuses raises too.  The kernel takes f32 or
 bf16 activations (the input, the residual and the output in one dtype;
 bias and scale f32) and the bank stretched for its slabs
-(``ref.stretch_bank``: (offset, value) pairs of an f32 or bf16 bank, or
-one word a nonzero of a quantised int8 or e4m3 bank, with its scale row);
-the launcher stretches each bank once per schedule and keeps the result
-(``_build.cached``), so a forward launches no stretching ops after its
-first.
+(``ref.stretch_bank``: (offset, value) pairs of an f32 bank, one word a
+nonzero of a quantised int8 or e4m3 bank, with its scale row, or of a bf16
+bank on bf16 activations, read from the schedule's paired slab where it
+has one: ``ref.entry_format``); the launcher stretches each bank once per
+schedule and keeps the result (``_build.cached``), so a forward launches
+no stretching ops after its first.
 
 ``sparse_conv_kernel.launches`` counts the kernel's launches in this
 process, ``.int8_launches`` and ``.e4m3_launches`` those on a quantised
@@ -26,17 +27,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sparse_conv.ref import (slab_geometry, slab_width,
+from repro_torch.kernels.sparse_conv.ref import (entry_format, slab_geometry,
+                                                 slab_width,
                                                  sparse_conv_plain,
                                                  stretch_bank)
 
 _SYMBOL = "sparse_conv_ell"
-# the C entry point's parameters: 7 pointers, 19 ints, the stream
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+# the C entry point's parameters: 7 pointers, 20 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 # value storage dtype -> the kernel's qtype (a bf16 bank's values go to it
-# widened to f32, exactly)
+# widened to f32, exactly, unless it takes them as bf16 words)
 QTYPES = {torch.float32: 0, torch.bfloat16: 0, torch.int8: 1,
           torch.float8_e4m3fn: 2}
+# the qtype of a bf16 bank's words (ref.entry_format)
+QTYPE_BF16_WORDS = 3
 # activation dtype -> the kernel's act
 ACTS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,11 +102,18 @@ def _launch(xpad, value, packed_idx, nnz, bias, residual, scale, *, rs, s,
     if rs == 1 and xpad.numel() * size >= 2**31:
         raise ValueError("sparse_conv: a 1x1 conv's input exceeds int32 "
                          "byte offsets")
+    words, paired = entry_format(value.dtype, size, rs, s, ws, sc)
+    if paired and (stride != 1 or (rs == 1 and (f % 2 or wp % 2))
+                   or (rs > 1 and sc.pipeline)):
+        raise ValueError("sparse_conv: a paired schedule needs stride 1 "
+                         "and a blocking slab (a 1x1 conv an even output "
+                         "and padded width)")
     pairs, rowptr = _build.cached(
         "sparse_conv_stretch", (value, packed_idx, nnz),
-        (rs, s, ws, sc.rows, sc.cc, c, size),
+        (rs, s, ws, sc.rows, sc.cc, c, size, words, paired),
         lambda: stretch_bank(value, packed_idx, nnz, rs=rs, s=s, ws=ws,
-                             rows=sc.rows, cc=sc.cc, c=c, itemsize=size))
+                             rows=sc.rows, cc=sc.cc, c=c, itemsize=size,
+                             words=words, paired=paired and rs > 1))
     out = torch.empty((n, m, e, f), dtype=xpad.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -115,7 +126,8 @@ def _launch(xpad, value, packed_idx, nnz, bias, residual, scale, *, rs, s,
                  None if residual is None else residual.data_ptr(),
                  out.data_ptr(), n, c, hp, wp, m, k, rs, s, e, f, stride,
                  sc.tm, sc.tp // 32, sc.cc, sc.rows, int(sc.pipeline),
-                 int(fuse_relu), qtype, act, stream)
+                 int(fuse_relu), QTYPE_BF16_WORDS if words else qtype, act,
+                 int(paired), stream)
     _build.check(err, "sparse_conv")
     sparse_conv_kernel.launches += 1
     if act:

@@ -26,22 +26,27 @@ from repro_torch.core.direct_conv import out_spatial, pad_in
 from repro_torch.core.sparse_format import EllConv, inverse_permutation
 from repro_torch.kernels import budget
 from repro_torch.kernels.sparse_conv.kernel import sparse_conv_kernel
-from repro_torch.kernels.sparse_conv.ref import (pixel_row, slab_geometry,
-                                                 slab_width)
+from repro_torch.kernels.sparse_conv.ref import (BF16_OFFSET_LIMIT,
+                                                 bf16_offsets, pixel_row,
+                                                 slab_geometry, slab_width)
 
 
 @dataclasses.dataclass(frozen=True)
 class EllSchedule:
     """One launch of the ELL kernel: ``tm`` output channels by ``tp`` output
     pixels a block, input channels in chunks of ``cc``, the input slab
-    ``rows`` padded rows high (a 1x1 conv: the padded image's rows), and
-    the ``pipeline``d (double-buffered) or blocking copy schedule."""
+    ``rows`` padded rows high (a 1x1 conv: the padded image's rows), the
+    ``pipeline``d (double-buffered) or blocking copy schedule, and whether
+    a lane reads its pixels in ``paired`` neighbours, one 32-bit word of
+    two bf16 inputs each (bf16 activations at stride 1: a staged conv's
+    slab then keeps its plane shifted by one element beside it)."""
 
     tm: int
     tp: int
     cc: int
     rows: int
     pipeline: bool
+    paired: bool = False
 
 
 def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
@@ -50,6 +55,7 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
                      wp: Optional[int] = None, tm: Optional[int] = None,
                      tp: Optional[int] = None,
                      pipeline: Optional[bool] = None, itemsize: int = 4,
+                     paired: bool = False,
                      ) -> Tuple[Optional[EllSchedule], Optional[str]]:
     """The block schedule ``sparse_conv`` launches, as a pure function.
 
@@ -70,9 +76,20 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
     to blocking, as the reference's does.  A 1x1 conv stages nothing (its
     kernel reads the input straight from L1): one chunk of all ``c``
     channels, ``rows`` the padded image's, never pipelined.
+
+    ``paired`` asks for a bf16 bank's schedule on bf16 activations
+    (``ops.sparse_conv`` asks for it with such a bank): the tiles in the
+    order of ``ELL_TILES_BF16`` and, where stride 1 and an even pixel count
+    a lane allow, the ``paired`` slab, which is always blocking (its two
+    planes take the second stage's room; the bf16 ablation found blocking
+    as fast or faster at every main-path layer); a 1x1 conv also needs an
+    even output and padded width.  ``pipeline=True`` keeps the unpaired
+    pipelined schedule.
     """
     direct = r == s == 1
-    order = budget.ELL_1X1_TILES if direct else budget.ELL_TILES
+    paired = paired and itemsize == 2
+    order = (budget.ELL_1X1_TILES if direct else budget.ELL_TILES_BF16
+             if paired else budget.ELL_TILES)
     tiles = [(t, p) for t, p in order
              if (tm is None or t == tm)
              and (tp is None or budget.WARP * p == tp)]
@@ -94,21 +111,26 @@ def resolve_schedule(m: int, k: int, e: int, f: int, *, n: int = 1,
             tm, px = t, p
             break
     tp = budget.WARP * px
+    paired = paired and stride == 1 and px % 2 == 0
     if direct:
         # a 1x1 conv stages nothing (no halo to share), so nothing is
         # pipelined: one run a row over all c channels of hp-row images
-        return EllSchedule(tm, tp, c, hp, False), None
+        return EllSchedule(tm, tp, c, hp, False,
+                           paired and f % 2 == 0 and wp % 2 == 0), None
     rows = budget.ell_slab_rows(n, e, wq, hs, st, r, tp)
-    pipe = pipeline is None or pipeline
     per_channel = budget.ell_stage_bytes(1, rows, ws, 0, itemsize) + rows * 4
-    cc = max(1, min(c, budget.ELL_SLAB_BYTES // ((2 if pipe else 1)
-                                                * per_channel)))
-    fits = lambda p: budget.smem_fits(  # noqa: E731
-        budget.ell_smem_bytes(tm, cc, c, rows, ws, s, p, itemsize))
-    if not fits(False):
-        return None, "smem_infeasible"
-    pipe = pipe and fits(True)
-    return EllSchedule(tm, tp, cc, rows, pipe), None
+    for pair in ((True, False) if paired and pipeline is not True
+                 else (False,)):
+        pipe = not pair and (pipeline is None or pipeline)
+        cc = max(1, min(c, budget.ELL_SLAB_BYTES // (2 if pipe or pair else 1)
+                        // per_channel))
+        fits = lambda p: budget.smem_fits(  # noqa: E731
+            budget.ell_smem_bytes(tm, cc, c, rows, ws, s, p, itemsize, pair))
+        if not fits(False) or (pair and bf16_offsets(
+                cc, rows, ws, s, rs=r * s, paired=True) > BF16_OFFSET_LIMIT):
+            continue
+        return EllSchedule(tm, tp, cc, rows, pipe and fits(True), pair), None
+    return None, "smem_infeasible"
 
 
 def tile_candidates(m: int, k: int, e: int, f: int, *, n: int = 1,
@@ -190,7 +212,8 @@ def sparse_conv(x: torch.Tensor, ell: EllConv, *, stride: int = 1,
     sched, reason = resolve_schedule(
         m, ell.k, e, f, n=n, c=c, r=r, s=s, stride=stride,
         hp=h + 2 * padding, wp=w + 2 * padding, tm=tm, tp=tp,
-        pipeline=pipeline, itemsize=size)
+        pipeline=pipeline, itemsize=size,
+        paired=ell.value.dtype == torch.bfloat16)
     if sched is None:
         raise ValueError(
             f"sparse_conv{'' if layer is None else ' ' + layer}: no kernel "

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module under ``src/repro_torch/``, and
-not ``chip_smoke.py``, imports ``jax`` or anything of the JAX package
-``repro``.  ``repro_torch`` and its submodules are the port's own.
+not ``chip_smoke.py`` or ``compare_conv.py``, imports ``jax`` or anything
+of the JAX package ``repro``.  ``repro_torch`` and its submodules are the
+port's own.
 
 An AST scan, so imports inside functions count too.  The same scan finds
 a module-level function or class defined twice in one of these files: the
@@ -15,7 +16,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "compare_conv.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

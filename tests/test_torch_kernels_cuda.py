@@ -1295,8 +1295,10 @@ def test_sparse_conv_kernel_bf16_matches_plain(cuda_device, case,
               scale=ell.scale)
     want = sparse_conv_plain(*args, **kw)
     assert want.dtype == BF16
-    geo = dict(n=n, c=c, r=r, s=r, stride=stride, hp=wp, wp=wp, itemsize=2)
-    for pipeline in (None, False):
+    # a bf16 bank asks for the paired slab, as ops.sparse_conv does
+    geo = dict(n=n, c=c, r=r, s=r, stride=stride, hp=wp, wp=wp, itemsize=2,
+               paired=value_dtype is None)
+    for pipeline in (None, False, True):
         sched, reason = resolve_schedule(m, ell.k, e, f, pipeline=pipeline,
                                          **geo)
         assert reason is None
@@ -1320,13 +1322,77 @@ def test_sparse_conv_kernel_bf16_matches_plain(cuda_device, case,
         torch.testing.assert_close(want.float(), f32, rtol=3e-2, atol=3e-2)
 
 
+# (N, C, H, M, R, stride, pad, residual, relu): the bf16 bank's words,
+# fmaf and the paired slab (or paired 1x1 loads) where stride 1 allows
+BF16_DESIGN_CASES = [
+    (2, 16, 12, 24, 3, 1, 1, True, True),      # 3x3, tiles cross images
+    (2, 24, 13, 20, 3, 1, 1, False, True),     # odd padded width 15 -> 16
+    (1, 12, 27, 32, 5, 1, 2, True, True),      # 5x5, 31 -> 32 wide
+    (8, 64, 7, 48, 3, 1, 1, True, True),       # 49 pixels an image
+    (2, 32, 14, 40, 1, 1, 0, True, True),      # 1x1, paired loads
+    (2, 32, 7, 40, 1, 1, 0, False, True),      # 1x1, odd width: unpaired
+    (2, 12, 19, 8, 3, 2, 1, True, True),       # stride 2: unpaired words
+]
+
+
+@pytest.mark.parametrize("case", BF16_DESIGN_CASES, ids=str)
+def test_sparse_conv_bf16_words_and_pairs_match_plain(cuda_device, case):
+    """A bf16 bank on bf16 activations: bit for bit the plain version at
+    every tile the source instantiates, with the paired slab (blocking,
+    its only schedule) and unpaired, pipelined and blocking; the bank
+    widened to f32 (the (offset, f32 value) pairs, multiply and add
+    rounded apart) gives the same bits, so fmaf changes none."""
+    from repro_torch.kernels.sparse_conv.ref import entry_format, slab_width
+
+    n, c, h, m, r, stride, pad, with_res, relu = case
+    x, w, rng = _case(hash(case) % 2**31, n, c, h, m, r, 0.6)
+    ell = ell_from_dense_conv(w, device=cuda_device)
+    ell = dataclasses.replace(ell, value=ell.value.to(BF16))
+    e, f = out_spatial(h, h, r, r, stride, pad)
+    xt = torch.from_numpy(x).to(cuda_device, BF16)
+    bias = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        cuda_device)
+    res = (torch.from_numpy(rng.standard_normal((n, m, e, f)).astype(
+        np.float32)).to(cuda_device, BF16) if with_res else None)
+    wp = h + 2 * pad
+    xpad = pad_in(xt, pad)
+    if r > 1:
+        xpad = torch.nn.functional.pad(xpad, (0, slab_width(wp, 2) - wp))
+    args = (xpad, ell.value, pack_indices(ell), ell.nnz, bias, res)
+    wide = (xpad, ell.value.float()) + args[2:]
+    kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu)
+    want = sparse_conv_plain(*args, **kw)
+    geo = dict(n=n, c=c, r=r, s=r, stride=stride, hp=wp, wp=wp, itemsize=2)
+    paired_seen = False
+    for tm, px in budget.ELL_TILES:
+        for pipeline in (None, False, True):
+            for paired in (True, False):
+                sched, reason = resolve_schedule(
+                    m, ell.k, e, f, tm=tm, tp=32 * px, pipeline=pipeline,
+                    paired=paired, **geo)
+                assert reason is None
+                words, pairs = entry_format(BF16, 2, r * r, r,
+                                            xpad.shape[3], sched)
+                assert words and pairs == sched.paired
+                paired_seen |= pairs
+                before = sparse_conv_kernel.bf16_launches
+                got = sparse_conv_kernel(*args, schedule=sched, **kw)
+                torch.cuda.synchronize()
+                assert sparse_conv_kernel.bf16_launches == before + 1
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                torch.testing.assert_close(
+                    sparse_conv_kernel(*wide, schedule=sched, **kw), want,
+                    rtol=0, atol=0)
+    assert paired_seen == (stride == 1 and (r > 1 or f % 2 == 0))
+
+
 @pytest.mark.parametrize("value_dtype", (None, "int8"))
 @pytest.mark.parametrize("case", BSR_CASES + TALL_CASES[:2])
 def test_bsr_conv_kernel_bf16_matches_plain(cuda_device, case, value_dtype):
     """bf16 xpad, residual and output on bf16 (or int8) tiles, one bf16
     wgmma a 16-deep step: within one bf16 ulp of the plain version at
-    every tile holding whole block-rows, and within 3e-2 of the f32 kernel
-    on the widened tiles."""
+    every bf16 tile holding whole block-rows (N = 128 included), and within
+    3e-2 of the f32 kernel on the widened tiles."""
     from repro_torch.core.sparse_format import quantize_values
     from repro_torch.kernels.bsr_conv.ref import bsr_conv_plain
 
@@ -1347,7 +1413,7 @@ def test_bsr_conv_kernel_bf16_matches_plain(cuda_device, case, value_dtype):
     kw = dict(rs=r * r, s=r, e=e, f=f, stride=stride, fuse_relu=relu,
               scale=bc.scale)
     want = bsr_conv_plain(*args, **kw)
-    for n_tile, wgs in [(t, g) for t, g in budget.BSR_CONV_TILES
+    for n_tile, wgs in [(t, g) for t, g in budget.bsr_conv_tiles(2)
                         if t % block[0] == 0]:
         before = bsr_conv_kernel.bf16_launches
         got = bsr_conv_kernel(*args, n_tile=n_tile, wgs=wgs, **kw)
