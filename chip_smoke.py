@@ -220,19 +220,30 @@ Phases (any failure exits non-zero and prints no result):
               the f32 p or ds (dQ: ds k; dK/dV: p^T dO and ds^T q) as two,
               all at 989 TFLOP/s; ``bound_all_bf16_ms`` one each;
               ``bound_fma_ms`` the f32-operand products at 67 TFLOP/s.
-8b. flash f32 -- the FMA forward, dQ and dK/dV kernels, which f32
-              operands launch, at the train consistency shape (B 1, H 32,
-              KV 4, T = S = 2048, d 128, causal, f32) against their plain
+8b. flash f32 -- the FMA forward and the split-TF32 dQ and dK/dV
+              kernels (with its group sum: G = 8), which f32 operands
+              launch, at the train consistency shape (B 1, H 32, KV 4,
+              T = S = 2048, d 128, causal, f32) against their plain
               versions: O, dQ, dK and dV within 1e-4 of their largest
               magnitude (the train consistency phase's measure), lse within
-              1e-4; ``library_ms`` from SDPA in f32, ``bound_ms`` every
-              product on the f32 FMA units.
+              1e-4; dQ, dK and dV also against the split-TF32 mirror
+              (``flash_attention_bwd_tf32_plain``, reported), and the same
+              check must reject its control (``lo=False``: one TF32 product
+              on operands rounded once; its errors reported); ``library_ms``
+              from SDPA in f32 (the backward rows: SDPA's whole backward
+              under the named, pinned efficient-attention backend on K and
+              V expanded to the H heads, timed once and given on both
+              rows), ``bound_ms`` the forward's products on the f32 FMA
+              units and the backward's as the split's three TF32 products a
+              product at 495 TFLOP/s, ``bound_fma_ms`` (backward) every
+              product on the FMA units at 67 TFLOP/s.
 9. train consistency -- Yi-9B at full width in f32, 2 layers, B 1 x T 2048:
               the gradient of every parameter through ``flash`` against
               through ``chunked``, each within 1e-4 of that parameter's
               largest chunked gradient, and the losses within 1e-5; then one
               counted ``make_train_step`` step under flash must launch the
-              FMA forward, dQ and dK/dV kernels once per layer each.
+              FMA forward and the split-TF32 dQ and dK/dV kernels (and its
+              group sum) once per layer each.
 10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
               bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
               T 4096) from ``SyntheticLMDataset``, repeated, under flash
@@ -256,8 +267,9 @@ Phases (any failure exits non-zero and prints no result):
               dQ and dK/dV (bf16, through autograd; each gradient within one
               bf16 rounding plus 1e-3 of its rms, rejecting p in bf16 and
               the split's hi half alone; two launches bit for bit), and the
-              FMA forward, dQ and dK/dV (f32; within 1e-4 of the largest
-              magnitude); the tensor-core backward also at d 96 over GQA
+              FMA forward and the split-TF32 dQ and dK/dV (f32; within 1e-4
+              of the largest magnitude); the tensor-core backward also at
+              d 96 over GQA
               32:8 and at d 80 over a ragged T of 2000 (the kernels line's
               ``arch_rows``); ``library_ms`` SDPA (its whole backward for
               dQ and dK/dV), which the port never calls.
@@ -299,8 +311,9 @@ Phases (any failure exits non-zero and prints no result):
               flash attention, B 1 x T 2048, bf16 params, f32
               AdamW state, weights from ``--seed``: HuBERT-XLarge at full
               width and depth (48 layers) on the data pipeline's f32
-              embeddings (f32 activations: the FMA flash kernels at d 80,
-              48 of each a step): first the loss and the gradient norm of
+              embeddings (f32 activations: the FMA flash forward and the
+              split-TF32 dQ and dK/dV at d 80, 48 of each a step, no group
+              sum): first the loss and the gradient norm of
               one forward and backward at full depth under flash within
               1e-5 of those under chunked attention; then under
               ``StepRunner``, 1 warm-up and 3 timed steps (the warm-up of
@@ -322,8 +335,8 @@ Phases (any failure exits non-zero and prints no result):
               step on tokens (MLA takes the chunked path: no kernel), its
               loss with and without the MTP term finite and the step's
               loss the MTP one; then HuBERT and Phi-3-Vision in f32 cut to
-              2 layers as the train consistency phase holds Yi-9B (the FMA
-              backward at d 80 and 96).  Every step counted; each line
+              2 layers as the train consistency phase holds Yi-9B (the
+              split-TF32 backward at d 80 and 96).  Every step counted; each line
               carries ms a step, tokens/s, peak and state GB, the losses.
 15. mesh    -- the multi-chip path (``distributed/``, the meshed
               ``make_train_step``, ``moe_ep.py``) on this one card, flash
@@ -425,13 +438,13 @@ Phases (any failure exits non-zero and prints no result):
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
 
-Every counted run sets all thirty-one launch counters (``COUNTERS``) to 0 just
+Every counted run sets all thirty-two launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
 tensor-core forward and the ``wgmma`` BCSR matmul (bf16), the train step's
 through the tensor-core flash kernels, the consistency phases' through
-the FMA kernels (f32).  Peak rates are the H100 SXM data sheet's (dense,
+the FMA forward and the split-TF32 backward (f32).  Peak rates are the H100 SXM data sheet's (dense,
 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
@@ -479,9 +492,10 @@ DRYRUN_TIMEOUT_S = 300
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute[, the key of a dict attribute]); a launch of the kernel adds
 # one to it and nothing else does.
-# The flash forward and dK/dV have an FMA kernel (f32 operands) and a
-# tensor-core kernel (bf16); dK/dV's tensor-core kernel is followed by its
-# group sum.
+# The flash forward has an FMA kernel (f32 operands) and a tensor-core
+# kernel (bf16), dQ and dK/dV a split-TF32 kernel (f32) and a tensor-core
+# one (bf16); dK/dV's tensor-core kernel is followed by its group sum, its
+# split-TF32 one by its group sum when G > 1.
 COUNTERS = {
     "sparse_conv": ("sparse_conv", "launches"),
     "bsr_conv": ("bsr_conv", "launches"),
@@ -507,6 +521,8 @@ COUNTERS = {
     "flash_attention_bwd_dkv_tc": ("flash_attention_bwd_dkv", "tc_launches"),
     "flash_attention_dkv_reduce": ("flash_attention_bwd_dkv",
                                    "reduce_launches"),
+    "flash_attention_dkv_reduce_tf32": ("flash_attention_bwd_dkv",
+                                        "tf32_reduce_launches"),
     # the forwards at head dims 80 (HuBERT-XLarge) and 96 (Phi-3-Vision):
     # their launches by instantiation, (kernel, head dim) in the wrapper's
     # ``by_head_dim`` (each also counted in its kernel's total)
@@ -515,23 +531,23 @@ COUNTERS = {
     "flash_attention_d80": ("flash_attention", "by_head_dim", ("fma", 80)),
     "flash_attention_d96": ("flash_attention", "by_head_dim", ("fma", 96)),
     # the backward kernels at those dims, the same way (the tensor-core
-    # dK/dV's group sum counted with it)
+    # dK/dV's group sum counted with it; f32 runs the split-TF32 kernels)
     "flash_attention_bwd_dq_tc_d80": ("flash_attention_bwd_dq", "by_head_dim",
                                       ("tc", 80)),
     "flash_attention_bwd_dq_tc_d96": ("flash_attention_bwd_dq", "by_head_dim",
                                       ("tc", 96)),
     "flash_attention_bwd_dq_d80": ("flash_attention_bwd_dq", "by_head_dim",
-                                   ("fma", 80)),
+                                   ("tf32", 80)),
     "flash_attention_bwd_dq_d96": ("flash_attention_bwd_dq", "by_head_dim",
-                                   ("fma", 96)),
+                                   ("tf32", 96)),
     "flash_attention_bwd_dkv_tc_d80": ("flash_attention_bwd_dkv",
                                        "by_head_dim", ("tc", 80)),
     "flash_attention_bwd_dkv_tc_d96": ("flash_attention_bwd_dkv",
                                        "by_head_dim", ("tc", 96)),
     "flash_attention_bwd_dkv_d80": ("flash_attention_bwd_dkv", "by_head_dim",
-                                    ("fma", 80)),
+                                    ("tf32", 80)),
     "flash_attention_bwd_dkv_d96": ("flash_attention_bwd_dkv", "by_head_dim",
-                                    ("fma", 96)),
+                                    ("tf32", 96)),
 }
 KERNEL_NAMES = tuple(COUNTERS)
 # the CNN path's counters (the conv kernels and their variants); the others
@@ -597,7 +613,7 @@ BSR_MATMUL_TOL = 1e-4                 # x max(1, max |y|)
 # bf16 O, per element: one bf16 rounding (2^-8 of |O|) + FLASH_O_ATOL x rms(O)
 FLASH_O_ATOL = 1e-3
 FLASH_LSE_TOL = 1e-4
-# f32 O, dK and dV of the FMA kernels: max |error| within FLASH_F32_TOL x
+# f32 O, dQ, dK and dV of the f32 kernels: max |error| within FLASH_F32_TOL x
 # max |plain|, the train consistency phase's measure for f32 gradients at
 # the same shape (f32 sums of up to G x T = 16,384 terms in another order
 # than the plain version's)
@@ -875,8 +891,8 @@ def device_breakdown(torch, fn, forward_ms: float, top: int = 6,
     idle share of an unprofiled forward of ``forward_ms`` (the profiler's own
     host overhead would inflate a profiled wall time), and the kernels that
     took the most device time; with ``group``, also the device time of the
-    kernels whose names hold one of its strings, and its share of the busy
-    time."""
+    kernels whose names hold one of its strings, its share of the busy
+    time, and each such kernel's time and launches."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -892,10 +908,12 @@ def device_breakdown(torch, fn, forward_ms: float, top: int = 6,
            "kernel_launches": sum(k[2] for k in kernels),
            "top_kernels": [[name[:60], ms, n] for name, ms, n in kernels[:top]]}
     if group:
-        group_ms = sum(ms for name, ms, _ in kernels
-                       if any(g in name for g in group))
+        members = [[name[:60], ms, n] for name, ms, n in kernels
+                   if any(g in name for g in group)]
+        group_ms = sum(ms for _, ms, _ in members)
         out.update(group_ms=group_ms,
-                   group_share=group_ms / busy_ms if busy_ms else 0.0)
+                   group_share=group_ms / busy_ms if busy_ms else 0.0,
+                   group_kernels=members)
     return out
 
 
@@ -2152,13 +2170,15 @@ def expect(**counts) -> dict:
     return want
 
 
-def flash_step_launches(n: int, bf16: bool, d: int, forwards=None) -> dict:
+def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
+                        grouped: bool = False) -> dict:
     """The counts of a train step (or a forward and backward) whose ``n``
     attention layers run flash at head dim ``d``: the tensor-core kernels
-    for bf16 (the dK/dV group sum with each dK/dV), the FMA ones for f32,
-    their instantiation's counters at d 80 and 96, ``forwards`` forward
-    launches (``n``; ``2 n`` when remat recomputes each), every other
-    counter 0."""
+    for bf16 (the dK/dV group sum with each dK/dV), the FMA forward and the
+    split-TF32 backward for f32 (its group sum with each dK/dV when
+    ``grouped``: more query heads than kv heads), their instantiation's
+    counters at d 80 and 96, ``forwards`` forward launches (``n``; ``2 n``
+    when remat recomputes each), every other counter 0."""
     forwards = n if forwards is None else forwards
     tc = "_tc" if bf16 else ""
     want = {f"flash_attention{tc}": forwards,
@@ -2166,6 +2186,8 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None) -> dict:
             f"flash_attention_bwd_dkv{tc}": n}
     if bf16:
         want["flash_attention_dkv_reduce"] = n
+    elif grouped:
+        want["flash_attention_dkv_reduce_tf32"] = n
     if d in FLASH_DIM_SHAPES:
         want.update({f"flash_attention{tc}_d{d}": forwards,
                      f"flash_attention_bwd_dq{tc}_d{d}": n,
@@ -2625,7 +2647,8 @@ def llm_serve_phase(torch, mods, device, seed, cfg=None, projections=7,
     prof = device_breakdown(torch, lambda: step(params, toks, cache, 0),
                             tick_ms, group=("bsr_matmul_rows",))
     row.update(bsr_matmul_rows_ms=prof.pop("group_ms"),
-               bsr_matmul_rows_share=prof.pop("group_share"), **prof)
+               bsr_matmul_rows_share=prof.pop("group_share"),
+               bsr_matmul_rows_kernels=prof.pop("group_kernels"), **prof)
     print(json.dumps(row), flush=True)
     del params, engine, cache
     torch.cuda.empty_cache()
@@ -2855,18 +2878,40 @@ def llm_bwd_kernel_phase(torch, mods, device, seed):
     return {name: [row] for name, row in rows.items()}
 
 
-def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
+def sdpa_f32_backward(torch, q, k, v, do, causal):
+    """The yardstick of the f32 backward rows: SDPA's whole backward (dQ,
+    dK, dV) under one named, pinned backend, efficient attention, on k and
+    v expanded to q's heads (that backend takes no ``enable_gqa``).
+    Returns (profiler device ms a call, the backend's name); the port never
+    calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    g = q.shape[1] // k.shape[1]
+    leaves = [x.detach().requires_grad_() for x in (
+        q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1))]
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 5)
+    return ms, backend.name
+
+
+def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                    arch="yi-9b"):
-    """The FMA forward, dQ and dK/dV kernels, which f32 operands launch, at
-    ``shape`` (B, H, KV, T = S, d) on the (B, H, T, d) views of (B, T, H,
-    d) tensors, against their plain versions: O, dQ, dK and dV within
-    FLASH_F32_TOL of their largest magnitude (the rms beside it), lse
-    within FLASH_LSE_TOL.  ``names``: the (forward, dQ, dK/dV) row names,
-    the forward's None for no row.  Prints the rows and returns them by
-    name."""
+    """The f32 flash kernels at ``shape`` (B, H, KV, T = S, d) on the
+    (B, H, T, d) views of (B, T, H, d) tensors: the FMA forward, the
+    split-TF32 dQ and dK/dV (and its group sum when H > KV), against their
+    plain versions: O, dQ, dK and dV within FLASH_F32_TOL of their largest
+    magnitude (the rms beside it), lse within FLASH_LSE_TOL; dQ, dK and dV
+    also against the split-TF32 mirror (reported), and the check must
+    reject the mirror's one-product control.  ``names``: the
+    (forward, dQ, dK/dV) row names, the forward's None for no row.  Prints
+    the rows and returns them by name."""
     F = torch.nn.functional
     b, h, kv, t, d = shape
     sc = d ** -0.5
+    grouped = h != kv
     fwd = mods["kernels"]["flash_attention"]
     dq_k = mods["kernels"]["flash_attention_bwd_dq"]
     dkv_k = mods["kernels"]["flash_attention_bwd_dkv"]
@@ -2878,8 +2923,9 @@ def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
     def counts():
         return (fwd.launches, fwd.tc_launches, dq_k.launches,
                 dq_k.tc_launches, dkv_k.launches, dkv_k.tc_launches,
-                dq_k.by_head_dim.get(("fma", d), 0),
-                dkv_k.by_head_dim.get(("fma", d), 0))
+                dkv_k.tf32_reduce_launches,
+                dq_k.by_head_dim.get(("tf32", d), 0),
+                dkv_k.by_head_dim.get(("tf32", d), 0))
 
     launched = counts()
     o, lse = fwd(q, k, v, sc=sc, causal=causal)
@@ -2889,8 +2935,10 @@ def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
     torch.cuda.synchronize()
     check(counts() == (launched[0] + 1, launched[1], launched[2] + 1,
                        launched[3], launched[4] + 1, launched[5],
-                       launched[6] + 1, launched[7] + 1),
-          f"{what}: f32 operands did not launch the FMA kernels")
+                       launched[6] + grouped, launched[7] + 1,
+                       launched[8] + 1),
+          f"{what}: f32 operands did not launch the FMA forward and the "
+          f"split-TF32 dQ and dK/dV (with its group sum when H > KV)")
     o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=causal)
     dq_want, dk_want, dv_want = mods["flash_bwd_plain"](
         q, k, v, o, lse, do, sc=sc, causal=causal)
@@ -2909,6 +2957,27 @@ def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
           f"version (max_abs_err {lse_err})")
     del o_want, lse_want, dq_want, dk_want, dv_want
     torch.cuda.empty_cache()
+    # the split-TF32 design on whole rows: the kernels' distance from it
+    mirror = mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
+                                          causal=causal)
+    from_mirror = {name: float((got - m).abs().max() / m.abs().max())
+                   for name, got, m in zip(("dq", "dk", "dv"),
+                                           (dq, dk, dv), mirror)}
+    del mirror
+    torch.cuda.empty_cache()
+    # the control: one TF32 product on operands rounded once must fail the
+    # check the kernels pass, against the same plain backward
+    control = mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
+                                           causal=causal, lo=False)
+    plain = mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc, causal=causal)
+    control_err = {name: float((c - w).abs().max() / w.abs().max())
+                   for name, c, w in zip(("dq", "dk", "dv"), control, plain)}
+    del control, plain
+    torch.cuda.empty_cache()
+    check(max(control_err.values()) > FLASH_F32_TOL,
+          f"{what}: the check does not reject one TF32 product on operands "
+          f"rounded once ({control_err} x max |plain|, tolerance "
+          f"{FLASH_F32_TOL})")
 
     def run_fwd():
         return fwd(q, k, v, sc=sc, causal=causal)
@@ -2919,39 +2988,39 @@ def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
     def run_dkv():
         return dkv_k(q, k, v, do, lse, delta, sc=sc, causal=causal)
 
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                         enable_gqa=True)
-
-    def library_bwd():
-        return torch.autograd.grad(out, leaves, do, retain_graph=True)
-
     def plain_bwd():
         return mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
                                        causal=causal)
 
+    library_bwd_ms, backend = sdpa_f32_backward(torch, q, k, v, do, causal)
+    torch.cuda.empty_cache()
+    plain_bwd_ms = device_ms(torch, plain_bwd, 1)
     pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     product = 2.0 * pairs * d
     qkv_bytes = (q.numel() + 2 * k.numel()) * 4
     stats_bytes = 2 * b * h * t * 4                      # lse, delta
     rows = {}
-    for name, fn, plain, library, moved, products, max_err in (
-            (names[0], run_fwd,
-             lambda: mods["flash_plain"](q, k, v, sc=sc, causal=causal),
-             lambda: F.scaled_dot_product_attention(
-                 q, k, v, is_causal=causal, enable_gqa=True),
+    for name, fn, plain_ms, moved, products, max_err in (
+            (names[0], run_fwd, None,
              qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, errs["o"][0]),
-            (names[1], run_dq, plain_bwd, library_bwd,
+            (names[1], run_dq, plain_bwd_ms,
              qkv_bytes + q.numel() * 4 + stats_bytes + q.numel() * 4, 3,
              errs["dq"][0]),
-            (names[2], run_dkv, plain_bwd, library_bwd,
+            (names[2], run_dkv, plain_bwd_ms,
              qkv_bytes + q.numel() * 4 + stats_bytes + 2 * k.numel() * 4, 4,
              max(errs["dk"][0], errs["dv"][0]))):
         if name is None:
             continue
-        ms = device_ms(torch, fn, 5, 1)
-        # every product in f32 on the FMA units, as the kernel computes
-        b_ms, b_by = bound(moved, flops_f32=products * product)
+        n_kernels = 1 + (grouped and fn is run_dkv)
+        ms = device_ms(torch, fn, 5, n_kernels)
+        # every product in f32 on the FMA units: the forward's design, and
+        # the backward's FMA figure
+        fma_ms, fma_by = bound(moved, flops_f32=products * product)
+        b_ms, b_by = fma_ms, fma_by
+        if fn is not run_fwd:
+            # the backward's design: three TF32 products a product on the
+            # tensor cores
+            b_ms, b_by = bound(moved, flops_tf32=3 * products * product)
         row = {"kernel": name, "arch": arch,
                "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
                          "causal": causal, "dtype": "float32",
@@ -2962,27 +3031,45 @@ def flash_fma_rows(torch, mods, gen, device, shape, causal, names,
                "lse_max_abs_err": lse_err,
                "kernel_ms": ms,
                "kernel_event_ms": time_cuda(torch, fn, reps=5, warmup=1),
-               "plain_ms": device_ms(torch, plain, 1),
-               "library_ms": device_ms(torch, library, 5),
-               "library_is": ("SDPA forward, f32" if products == 2 else
-                              "the whole SDPA backward (dQ, dK, dV), f32"),
-               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
-               "tflops": products * product / ms / 1e9}
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved}
+        if fn is run_fwd:
+            row.update({
+                "plain_ms": device_ms(torch, lambda: mods["flash_plain"](
+                    q, k, v, sc=sc, causal=causal), 1),
+                "library_ms": device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True), 5),
+                "library_is": "SDPA forward, f32",
+                "tflops": products * product / ms / 1e9})
+        else:
+            row.update({
+                "design": "split TF32",
+                "err_from_mirror_over_max": from_mirror,
+                "control_one_product_err_over_max": control_err,
+                "group_sum": grouped,
+                "plain_ms": plain_ms, "plain_is": "the whole plain backward",
+                "library_ms": library_bwd_ms,
+                "library_is": f"the whole SDPA backward (dQ, dK, dV), f32, "
+                              f"backend {backend} (pinned), k and v "
+                              f"expanded to {h} heads; one timing, given on "
+                              f"both rows",
+                "bound_fma_ms": fma_ms, "bound_fma_by": fma_by,
+                "tflops": products * product / ms / 1e9})
         print(json.dumps(row), flush=True)
         rows[name] = row
-    del q, k, v, do, o, lse, delta, dq, dk, dv, out, leaves
+    del q, k, v, do, o, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     return rows
 
 
 def flash_f32_kernel_phase(torch, mods, device, seed):
-    """The FMA forward, dQ and dK/dV kernels (``flash_fma_rows``) at the
-    train consistency shape (B 1, H 32, KV 4, T = S = 2048, d 128, causal,
-    f32), which the consistency and train consistency phases launch;
-    returns per-kernel lists of row dicts."""
+    """The FMA forward and the split-TF32 dQ and dK/dV kernels
+    (``flash_f32_rows``) at the train consistency shape (B 1, H 32, KV 4,
+    T = S = 2048, d 128, causal, f32), which the consistency and train
+    consistency phases launch; returns per-kernel lists of row dicts."""
     b, h, kv, _, d = BWD_SHAPE
     gen = torch.Generator(device=device).manual_seed(seed + 6)
-    rows = flash_fma_rows(torch, mods, gen, device,
+    rows = flash_f32_rows(torch, mods, gen, device,
                           (b, h, kv, TRAIN_CONSIST_SHAPE[1], d), True,
                           ("flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"))
@@ -3056,7 +3143,8 @@ def train_consistency_phase(torch, mods, device, seed, full=None):
           f"tolerance ({TRAIN_GRAD_TOL} x its largest magnitude)")
     check(loss_err <= TRAIN_LOSS_TOL * abs(losses["chunked"]),
           f"train consistency: losses {losses}")
-    want = flash_step_launches(cfg.n_layers, False, cfg.head_dim)
+    want = flash_step_launches(cfg.n_layers, False, cfg.head_dim,
+                               grouped=cfg.n_heads != cfg.n_kv_heads)
     check(counts == want, f"train consistency {cfg.name}: a step launched "
           f"{counts}, expected {want}")
     check(bool(torch.isfinite(metrics["loss"])), "train consistency: loss "
@@ -3182,6 +3270,7 @@ def profiled_step(torch, step_fn, holder, batch, step_ms) -> dict:
                                   "flash_dkv_reduce"))
     out["attention_ms"] = out.pop("group_ms")
     out["attention_share"] = out.pop("group_share")
+    out["attention_kernels"] = out.pop("group_kernels")
     return out
 
 
@@ -3342,7 +3431,8 @@ def full_depth_agreement(torch, mods, cfg, holder, batch, device) -> dict:
 def families_train_phase(torch, mods, device, seed):
     """The families' training path on the card (``make_train_step``, which
     updates the state in place, under flash attention): HuBERT-XLarge (48
-    layers, the data pipeline's f32 embeddings: the FMA kernels at d 80):
+    layers, the data pipeline's f32 embeddings: the FMA forward and the
+    split-TF32 backward at d 80):
     the full-depth loss and gradient norm under flash against chunked,
     then under ``StepRunner`` 1 warm-up and 3 timed steps whose loss must
     fall with a checkpoint saved and restored, one step on bf16 embeddings
@@ -3354,8 +3444,8 @@ def families_train_phase(torch, mods, device, seed):
     falling; DeepSeek-V3 at full width cut to its first
     layer and the MTP block: one step on tokens, the loss with and without
     the MTP term; then HuBERT and Phi-3-Vision in f32 cut to 2 layers,
-    flash gradients against chunked ones (the FMA backward at d 80 and
-    96).  Returns the counted launches."""
+    flash gradients against chunked ones (the split-TF32 backward at d 80
+    and 96).  Returns the counted launches."""
     T, flags, configs = mods["T"], mods["flags"], mods["configs"]
     opt_cfg = mods["AdamWConfig"]()
     runs = []
@@ -3372,7 +3462,8 @@ def families_train_phase(torch, mods, device, seed):
               "families train: the pipeline's HuBERT embeddings are not f32")
         agree = full_depth_agreement(torch, mods, cfg, holder, batch,
                                      device)
-        want = flash_step_launches(cfg.n_layers, False, cfg.head_dim)
+        want = flash_step_launches(cfg.n_layers, False, cfg.head_dim,
+                                   grouped=cfg.n_heads != cfg.n_kv_heads)
         step_fn, res = run_training(torch, mods, cfg, holder, batch, want,
                                     opt_cfg, warmup=FAMILY_TRAIN_WARMUP,
                                     timed=FAMILY_TRAIN_TIMED)
@@ -3609,7 +3700,8 @@ def flash_dims_kernel_phase(torch, mods, device, seed):
     T 2048, bidirectional) and 96 (Phi-3-Vision: 32 heads, B 1, T 2048,
     causal), each against its plain version: both forwards, the
     tensor-core kernels in bf16 (``flash_tc_row``, ``flash_bwd_tc_rows``)
-    and the FMA kernels in f32 (``flash_fma_row``, ``flash_fma_rows``);
+    and the f32 kernels, the FMA forward and the split-TF32 backward
+    (``flash_fma_row``, ``flash_f32_rows``);
     then the tensor-core backward at d 96 over GQA 32:8 and at d 80 over a
     ragged bidirectional T of 2000.  Returns (per-kernel lists of rows, the
     GQA and ragged rows by kernel)."""
@@ -3625,7 +3717,7 @@ def flash_dims_kernel_phase(torch, mods, device, seed):
             torch, mods, gen, device, shape, causal,
             (f"flash_attention_bwd_dq_tc_d{d}",
              f"flash_attention_bwd_dkv_tc_d{d}"), arch=arch)
-        bwd.update(flash_fma_rows(
+        bwd.update(flash_f32_rows(
             torch, mods, gen, device, shape, causal,
             (None, f"flash_attention_bwd_dq_d{d}",
              f"flash_attention_bwd_dkv_d{d}"), arch=arch))
@@ -4963,6 +5055,15 @@ def dryrun_phase(dry: DryRun, waited: float):
           flush=True)
 
 
+# what the split-TF32 backward rows' numbers are
+F32_BWD_TERMS = ("bound_ms prices every product as the split's three TF32 "
+                 "products on the tensor cores (495 TFLOP/s), bound_fma_ms "
+                 "on the f32 FMA units (67 TFLOP/s); err_from_mirror the "
+                 "distance from flash_attention_bwd_tf32_plain; plain: the "
+                 "whole plain backward; library: SDPA's whole backward under "
+                 "its pinned backend (library_is), timed once a shape")
+
+
 def kernel_entries(rows, launches, arch_rows):
     """The ``kernels`` JSON line's entries: each kernel's source, the TPU
     kernel it replaces, its counted launches, and its rows' error, times
@@ -5072,19 +5173,21 @@ def kernel_entries(rows, launches, arch_rows):
         "flash_attention": "the FMA kernel (flash_fwd_kernel, f32 "
                            "operands): one causal forward, B 1, H 32, KV 4, "
                            "T 2048, d 128, f32",
-        "flash_attention_bwd_dq": "the FMA kernel (flash_bwd_dq_kernel, f32 "
-                                  "operands): one causal dQ, B 1, H 32, KV 4, "
-                                  "T 2048, d 128, f32; plain and library: the "
-                                  "whole backward, f32",
+        "flash_attention_bwd_dq": "the split-TF32 kernel "
+                                  "(flash_bwd_dq_tf32_kernel, f32 operands): "
+                                  "one causal dQ, B 1, H 32, KV 4, T 2048, "
+                                  "d 128, f32; " + F32_BWD_TERMS,
         "flash_attention_bwd_dq_tc": "the tensor-core kernel "
                                      "(flash_bwd_dq_tc_kernel, bf16 "
                                      "operands): one causal dQ, B 1, H 32, "
                                      "KV 4, T 4096, d 128; plain and "
                                      "library: the whole backward",
-        "flash_attention_bwd_dkv": "the FMA kernel (flash_bwd_dkv_kernel, f32 "
-                                   "operands): one causal dK/dV, B 1, H 32, "
-                                   "KV 4, T 2048, d 128, f32; plain and "
-                                   "library: the whole backward, f32",
+        "flash_attention_bwd_dkv": "the split-TF32 kernel "
+                                   "(flash_bwd_dkv_tf32_kernel) and its group "
+                                   "sum (flash_dkv_reduce_kernel<float>), f32 "
+                                   "operands: one causal dK/dV, B 1, H 32, "
+                                   "KV 4, T 2048, d 128, f32; "
+                                   + F32_BWD_TERMS,
         "flash_attention_tc": "the tensor-core kernel (flash_fwd_tc_kernel, "
                               "bf16 operands): one causal forward, B 4, H 32, "
                               "KV 4, T 2048, d 128, bf16",
@@ -5116,10 +5219,9 @@ def kernel_entries(rows, launches, arch_rows):
                 f"{'GQA 32:8' if causal else f'T {FLASH_RAGGED_T}'}; "
                 f"launches from the {arch} bf16 training")
             times_are[f"flash_attention_bwd_{part}_d{d}"] = (
-                f"the FMA kernel ({kernel}_kernel<float, {d}>), f32 "
-                f"operands: the {part} of one {bwd}, f32; plain and library: "
-                f"the whole backward, f32; launches from the {arch} f32 "
-                f"training")
+                f"the split-TF32 kernel ({kernel}_tf32_kernel<{d}>, no group "
+                f"sum), f32 operands: the {part} of one {bwd}, f32; "
+                f"{F32_BWD_TERMS}; launches from the {arch} f32 training")
 
     def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
@@ -5171,6 +5273,16 @@ def kernel_entries(rows, launches, arch_rows):
                 for r in arch_rows[name]]
         if name == "flash_attention_bwd_dkv_tc":
             entry["reduce_launches"] = launches["flash_attention_dkv_reduce"]
+        if name == "flash_attention_bwd_dkv":
+            entry["reduce_launches"] = launches[
+                "flash_attention_dkv_reduce_tf32"]
+        if rows[name] and "err_from_mirror_over_max" in rows[name][0]:
+            entry["bound_fma_ms"] = sum(r["bound_fma_ms"]
+                                        for r in rows[name])
+            entry["err_from_mirror_over_max"] = max(
+                e for r in rows[name]
+                for e in r["err_from_mirror_over_max"].values())
+            entry["library_is"] = rows[name][0]["library_is"]
         if name.startswith("flash_attention_bwd_dkv_tc_d"):
             entry["reduce_launches"] = launches[name]
         if name == "bsr_matmul":
@@ -5243,7 +5355,8 @@ def load_modules() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_bwd_split_plain,
-        flash_attention_plain, flash_attention_split_plain)
+        flash_attention_bwd_tf32_plain, flash_attention_plain,
+        flash_attention_split_plain)
     from repro_torch.launch.serve import sparsify_params
     from repro_torch.launch.steps import (init_state, loss_and_grads,
                                           make_prefill_step, make_serve_step,
@@ -5297,6 +5410,7 @@ def load_modules() -> dict:
                 make_serve_step=make_serve_step, ServeEngine=ServeEngine,
                 Request=Request, yi9b=configs.get_config("yi-9b"),
                 flash_bwd_plain=flash_attention_bwd_plain,
+                flash_bwd_tf32_plain=flash_attention_bwd_tf32_plain,
                 flash_split_plain=flash_attention_split_plain,
                 flash_bwd_split_plain=flash_attention_bwd_split_plain,
                 bwd_delta=bwd_delta,

@@ -120,12 +120,19 @@ BSR_MATMUL_WGMMA_CHUNK = 128
 BSR_MATMUL_WGMMA_X_STAGES = 3
 BSR_MATMUL_WGMMA_TILE_STAGES = 2
 
-# Flash attention (csrc/flash_attention.cu): 64 query rows and 32 keys a
-# step; the head dimensions every one of its kernels instantiates (the FMA
-# and the tensor-core forward, dQ and dK/dV).
+# Flash attention (csrc/flash_attention.cu): the FMA forward's 64 query rows
+# and 32 keys a step; the head dimensions every one of its kernels
+# instantiates (the FMA and the tensor-core forward, the split-TF32 and the
+# tensor-core dQ and dK/dV).
 FLASH_BQ = 64
 FLASH_BK = 32
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+# The split-TF32 backward (f32): 64-row tiles (wgmma's M) in two
+# warpgroups, over chunks of FLASH_TF32_CHUNK keys (dQ) or query rows (dK/dV)
+# up to head dim FLASH_TF32_WIDE_MAX_D, half that above, where the chunk's
+# split tiles would not fit.
+FLASH_TF32_CHUNK = 64
+FLASH_TF32_WIDE_MAX_D = 80
 # Its tensor-core kernels (bf16): 64-row tiles (wgmma's M) and 64-key
 # chunks; a warpgroup of 128 threads a 64-row tile.  The forward runs
 # FLASH_TC_FWD_WARPGROUPS of them a block over one ring of key and value
@@ -340,19 +347,35 @@ def flash_smem_bytes(d: int, bq: int = FLASH_BQ, bk: int = FLASH_BK) -> int:
     return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
 
 
-def flash_bwd_dq_smem_bytes(d: int, bq: int = FLASH_BQ,
-                            bk: int = FLASH_BK) -> int:
-    """Dynamic shared memory of one dQ block: the scaled query rows and their
-    dO rows, the key and value chunks, all f32 rows padded by one word, the
-    (bq, bk + 1) dS tile, and the rows' lse and delta."""
-    return 4 * (2 * bq * (d + 1) + 2 * bk * (d + 1) + bq * (bk + 1) + 2 * bq)
+def flash_tf32_chunk(d: int) -> int:
+    """Keys (dQ) or query rows (dK/dV) of a split-TF32 chunk at head dim
+    ``d``."""
+    return FLASH_TF32_CHUNK if d <= FLASH_TF32_WIDE_MAX_D else \
+        FLASH_TF32_CHUNK // 2
 
 
-def flash_bwd_dkv_smem_bytes(d: int, bq: int = FLASH_BQ,
-                             bk: int = FLASH_BK) -> int:
-    """Dynamic shared memory of one dK/dV block: the dQ block's, plus the
-    (bq, bk + 1) probability tile beside dS."""
-    return flash_bwd_dq_smem_bytes(d, bq, bk) + 4 * bq * (bk + 1)
+def _flash_raw_row(d: int) -> int:
+    """Words of a row of a raw f32 A tile: d when it is a multiple of 32
+    (the columns swizzled by the row), else padded by 4."""
+    return d if d % 32 == 0 else d + 4
+
+
+def flash_bwd_dq_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one split-TF32 dQ block: raw f32 q and dO
+    tiles (64 rows) for each of its two warpgroups, and the chunk's K and V
+    (hi and lo halves, K also transposed with a padded slot group)."""
+    chunk = flash_tf32_chunk(d)
+    return 4 * (4 * 64 * _flash_raw_row(d) + chunk * (4 * d + 2 * (d + 1)))
+
+
+def flash_bwd_dkv_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one split-TF32 dK/dV block: raw f32 K and
+    V (64 keys), the chunk's q and dO (hi and lo, each also transposed),
+    two slots of the rows' lse and delta, and the p^T its two warpgroups
+    exchange (one f32 slot a thread and accumulator element)."""
+    chunk = flash_tf32_chunk(d)
+    return 4 * (2 * 64 * _flash_raw_row(d)
+                + chunk * (4 * d + 4 * (d + 1) + 4 + 64))
 
 
 def flash_tc_smem_bytes(d: int) -> int:

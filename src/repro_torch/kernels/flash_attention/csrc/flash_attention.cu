@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): the forward (causal or full, GQA)
-// with online softmax, and the two backward kernels, dQ and dK/dV, as FMA
-// kernels for f32 operands, and all three again as tensor-core kernels for
-// bf16 operands (below).  The launcher picks by dtype.
+// with online softmax, and the two backward kernels, dQ and dK/dV.  f32
+// operands run the FMA forward and the split-TF32 backward kernels, bf16
+// operands all three as tensor-core kernels (below).  The launcher picks by
+// dtype.
 //
 // Forward (FMA).  Replaces the TPU kernel _fwd_call / _fwd_kernel in
 // src/repro/kernels/flash_attention/kernel.py.  For q (B, H, T, D) and k, v
@@ -24,37 +25,72 @@
 // are bounds-tested (keys past S get -inf, so they weigh 0 whatever the
 // row holds), so T and S need not be multiples of the chunks.
 //
-// Backward (FMA).  Replaces _bwd_call's two pallas_calls: _dq_kernel and
-// _dkv_kernel.  The recompute formulation, in f32, with lse from the
-// forward and delta = rowsum(dO * O) computed by the caller:
+// Backward (split TF32, f32 operands; flash_bwd_dq_tf32_kernel replaces
+// _bwd_call's _dq_kernel, flash_bwd_dkv_tf32_kernel, with
+// flash_dkv_reduce_kernel when G > 1, its _dkv_kernel).  The recompute
+// formulation, in f32, with lse from the forward and delta = rowsum(dO * O)
+// computed by the caller:
 //
 //   p  = exp((q * sc) k^T - lse)   (the same mask; keys past S weigh 0)
 //   dp = dO v^T,  ds = p * (dp - delta)
 //   dQ = ds k * sc,  dK = ds^T q * sc,  dV = p^T dO
 //
-// dQ: one block per (b, h, 64 query rows), the forward's mapping.  The
-// block stages its q (scaled), dO, lse and delta rows, walks 32-key chunks
-// of K and V up to the causal diagonal, computes s, dp and ds for its
-// 4 rows x 2 keys a thread, writes ds to shared memory and adds ds k to
-// its 4 rows x D/16 columns of dQ in registers.
-// dK/dV: one block per (b, kv head, 32 keys).  K and V stay in shared
-// memory; the block walks the G query heads of its kv head and, inside
-// each, the 64-row q chunks from the first that sees its keys (k0 / 64
-// when causal).  Per chunk it stages q, dO, lse and delta, computes p and
-// ds as above (rows past T weigh 0), and each thread adds p^T dO and
-// ds^T q to its 2 keys x D/16 columns.  The group's sums stay in the block:
-// no atomics, the same order on every run, as the reference's head_body.
+// Every product runs on the tensor cores as sm_90a wgmma m64nNk8 .tf32 with
+// f32 sums and keeps f32 accuracy: each operand x is split into TF32
+// halves and each k step takes three products, hi hi + hi lo + lo hi
+// (~20 bits of each operand, at 495 TFLOP/s: 165 TFLOP/s of f32-accurate
+// products, 2.5x the FMA units).  The tensor cores ignore a .tf32
+// operand's low 13 bits, so hi is the f32 word as it is and lo = x - hi's
+// top 19 bits (split_tf32; on the card: errors as with cvt.rna halves, the
+// kernels 8-21 % faster).  q k^T and dO v^T need the split too: an operand
+// read once as TF32 puts ~2^-11 |s| into the exponent of p (ref.py's
+// flash_attention_bwd_tf32_plain mirrors the arithmetic, and its
+// one-product control fails the checks).  What f32 operands change against
+// the bf16 design:
+// * wgmma transposes only 16-bit operands, so every B is staged K-major:
+//   the chunk's tiles are copied raw (cp.async), the copy serving as its
+//   own hi half, then the whole block splits them in one pass over shared
+//   memory: lo beside the copy and, where a product sums over the chunk,
+//   both halves transposed (K^T for dQ; q^T and dO^T for dK/dV).
+// * An f32 accumulator is the next product's A fragment register for
+//   register, but an 8-column block holds columns (2 tig, 2 tig + 1) where
+//   the TF32 fragment takes k slots (tig, tig + 4): the transposed tiles
+//   store each group of 8 chunk positions in slot order 0, 2, 4, 6, 1, 3,
+//   5, 7 (tslot), so p and ds never leave registers.  A operands held in
+//   shared memory (q, dO in dQ; K, V in dK/dV) stay raw, loaded and split a
+//   k step at a time.
+// * The tensor cores add into f32 with truncation: each chunk's product
+//   (L / 8 steps of 3 wgmmas) sums into a fresh partial, added into the
+//   running sums with rounded f32 adds.
+// dQ: one block per (b, h, 128 query rows), two warpgroups sharing 64-key
+// chunks (32 above d 80); dK/dV: one block per (b, query head, 64 keys),
+// warpgroup 0 s^T, p^T and dV, warpgroup 1 dp^T, ds^T and dK, p^T passed
+// through shared memory, over 64-row query chunks (32 above d 80).  G = 1
+// writes dK and dV directly; G > 1 writes f32 sums per query head and the
+// reduce kernel sums the group in order.  No atomics: the same bits on every
+// run.
 //
-// These FMA kernels run every product on the f32 FMA units (67 TFLOP/s on
-// an H100 SXM), reading each operand from shared memory.  They take f32
-// operands only (the f32 consistency paths), and keep f32 accuracy.
+// Bound (H100 SXM, 495 TFLOP/s TF32): the split triples each product, so
+// at HuBERT-XLarge's shape (B 1, H 16, T 2048, d 80, bidirectional; one
+// product 10.74 GFLOP) dQ's 3 products take 0.195 ms, dK/dV's 4 0.260 ms;
+// the bytes (~50 MB) ~0.015 ms.  What holds them (ablate.py --f32, at that
+// shape; PERF.md): not the tensor cores, whose work (~0.2 ms in each
+// kernel) runs near that rate, but the block's serial work around it at one
+// block a SM: the split pass, the fragments' loads and splits, and the
+// copies (each key block re-reads its head's q and dO, 0.67 GB through L2
+// for dK/dV).  A producer warpgroup splitting the next chunk into a second
+// tile set under the products (it fits at d <= 80 with 32-row chunks) is
+// the next step.  dK/dV at d 80 slows by 20-50 % when ptxas gives it fewer
+// registers (134-173 in ablate.py's variants against 225 as built).
 //
-// Dynamic shared memory, rows padded by one word (no bank conflicts on the
-// column walk): forward (64 + 32) x (D + 1) f32 for q and k, 32 x D for v
-// and 64 x 33 for p: 74 KB at D = 128; dQ 2 x 64 x (D + 1) for q and dO,
-// 2 x 32 x (D + 1) for k and v, 64 x 33 for ds, 2 x 64 for lse and delta:
-// 106 KB; dK/dV the same plus 64 x 33 for p: 114 KB.  Each launch opts in
-// above 48 KB with cudaFuncSetAttribute.
+// Shared memory: dQ 4 raw 64 x D tiles (q, dO of each warpgroup; rows
+// padded by 4 words, or XOR-swizzled when D is a multiple of 32) and the
+// chunk's K, V (hi, lo) and K^T (hi, lo); dK/dV raw K and V, the chunk's q
+// and dO (hi, lo) and both transposed (hi, lo), lse and delta, the p^T
+// exchange: 209 / 225 KB at D = 80, 172 / 157 KB at 96, 230 / 206 KB at
+// 128.  Each launch opts in above 48 KB with cudaFuncSetAttribute.  The
+// FMA forward: (64 + 32) x (D + 1) f32 for q and k, 32 x D for v and
+// 64 x 33 for p, rows padded by one word: 74 KB at D = 128.
 //
 // Tensor-core kernels (bf16 operands; flash_fwd_tc_kernel replaces
 // _fwd_call / _fwd_kernel, flash_bwd_dq_tc_kernel _bwd_call's _dq_kernel,
@@ -132,8 +168,8 @@
 // dQ runs the forward's chain (copy, wgmma, elementwise, wgmma) without
 // the online softmax's rescaling, so it is held by the same serialisation.
 //
-// Head dimensions: every kernel, forward and backward, FMA and tensor-core,
-// is instantiated at D = 16, 32, 64, 80, 96 and 128 (80 and 96 for
+// Head dimensions: every kernel, forward and backward, f32 and bf16, is
+// instantiated at D = 16, 32, 64, 80, 96 and 128 (80 and 96 for
 // HuBERT-XLarge and Phi-3-Vision), and the launchers refuse the others.
 // 80 and 96 are multiples of 16 but not of 64, so the tiles keep the
 // unswizzled core-matrix layout (a 128-byte swizzle cannot cover a row of
@@ -141,19 +177,20 @@
 // each product with an MN-major B of N = D (p v, ds k, p^T dO, ds^T q)
 // one wgmma m64nDk16 a 16-key slice, 40 and 48 accumulator registers a
 // thread.  Shared memory at D = 80 / 96: the tensor-core forward 60 / 72
-// KB, dQ 80 / 96 KB, dK/dV 77 / 89 KB; the FMA dQ 70 / 82 KB, dK/dV 78 /
-// 90 KB.
+// KB, dQ 80 / 96 KB, dK/dV 77 / 89 KB.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int,
 // strides (in elements, for the b, h and t axes; the d axis is contiguous)
 // are long long, sc is float; dtype 0 = f32, 1 = bf16 (every q-, k-, v-
 // and dO-shaped operand has it; lse and delta are f32, contiguous
 // (B, H, T)).  flash_attention_fwd, flash_attention_bwd_dq and
-// flash_attention_bwd_dkv take f32 only.  flash_attention_fwd_tc and
-// flash_attention_bwd_dq_tc take the arguments of their FMA entries,
-// flash_attention_bwd_dkv_tc flash_attention_bwd_dkv's plus the two f32
-// (B, H, S, D) scratch buffers; the three take bf16 only (dtype 1), with
-// 16-byte aligned addresses and strides.  Each returns cudaGetLastError()
+// flash_attention_bwd_dkv take f32 only (dtype 0), the two backward ones
+// with 16-byte aligned addresses and strides; flash_attention_bwd_dkv
+// takes two f32 (B, H, S, D) scratch buffers after dk and dv, used when
+// G > 1.  flash_attention_fwd_tc, flash_attention_bwd_dq_tc and
+// flash_attention_bwd_dkv_tc take the arguments of their f32 entries and
+// bf16 only (dtype 1), with 16-byte aligned addresses and strides, the
+// dK/dV scratch always.  Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for a head dimension no
 // instantiation takes.
 
@@ -169,8 +206,8 @@ constexpr int BK = 32;   // keys per kv chunk
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-// The FMA kernels are instantiated for f32 only (bf16 runs the tensor-core
-// kernels); these keep their element type a template parameter.
+// The FMA forward is instantiated for f32 only (bf16 runs the tensor-core
+// forward); these keep its element type a template parameter.
 __device__ __forceinline__ float to_f32(float v) { return v; }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -185,17 +222,6 @@ constexpr size_t smem_bytes(int d) {
   return sizeof(float) *
          (static_cast<size_t>(BQ) * (d + 1) + static_cast<size_t>(BK) * (d + 1) +
           static_cast<size_t>(BK) * d + static_cast<size_t>(BQ) * (BK + 1));
-}
-
-constexpr size_t dq_smem_bytes(int d) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(BQ) * (d + 1) +
-          2 * static_cast<size_t>(BK) * (d + 1) +
-          static_cast<size_t>(BQ) * (BK + 1) + 2 * static_cast<size_t>(BQ));
-}
-
-constexpr size_t dkv_smem_bytes(int d) {
-  return dq_smem_bytes(d) + sizeof(float) * static_cast<size_t>(BQ) * (BK + 1);
 }
 
 template <typename T, int D>
@@ -327,245 +353,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   }
 }
 
-
-// Stages rows [r0, r0 + n) of a (T, D) slab with row stride st into
-// dst[n][D + 1] as f32 times ``scale``, zero past ``rows``.
-template <typename T, int D, int N>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long st, int r0, int rows,
-                                           float scale) {
-  for (int idx = threadIdx.x; idx < N * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int t = r0 + r;
-    dst[r * (D + 1) + c] = t < rows ? to_f32(src[t * st + c]) * scale : 0.f;
-  }
-}
-
-// s = (q * sc) k^T and dp = dO v^T for a thread's 4 rows (ty*4 + i) and
-// 2 keys (tx, tx + 16) of a (64 x 32) tile; Qs holds q already scaled when
-// qscale is 1, or unscaled q with qscale = sc.
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int ty, int tx, float qscale,
-                                       float (&s)[4][2], float (&dp)[4][2]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float k0 = Ks[tx * (D + 1) + d];
-    const float k1 = Ks[(tx + 16) * (D + 1) + d];
-    const float v0 = Vs[tx * (D + 1) + d];
-    const float v1 = Vs[(tx + 16) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float qv = Qs[(ty * 4 + i) * (D + 1) + d] * qscale;
-      const float ov = dOs[(ty * 4 + i) * (D + 1) + d];
-      s[i][0] = fmaf(qv, k0, s[i][0]);
-      s[i][1] = fmaf(qv, k1, s[i][1]);
-      dp[i][0] = fmaf(ov, v0, dp[i][0]);
-      dp[i][1] = fmaf(ov, v1, dp[i][1]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int KV,
-    int Tq, int S, Strides qs, Strides ks, Strides vs, Strides dos,
-    Strides dqs, float sc, int causal) {
-  constexpr int DJ = D / 16;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D + 1], q * sc
-  float* dOs = Qs + BQ * (D + 1);      // [BQ][D + 1]
-  float* Ks = dOs + BQ * (D + 1);      // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);       // [BK][D + 1]
-  float* dSs = Vs + BK * (D + 1);      // [BQ][BK + 1]
-  float* Ls = dSs + BQ * (BK + 1);     // [BQ] lse
-  float* Dl = Ls + BQ;                 // [BQ] delta
-
-  const int qi = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int q0 = qi * BQ;
-
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
-  stage_rows<T, D, BQ>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq, sc);
-  stage_rows<T, D, BQ>(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, Tq, 1.f);
-  for (int r = tid; r < BQ; r += THREADS) {
-    const int t = q0 + r;
-    Ls[r] = t < Tq ? lse[row0 + t] : 0.f;
-    Dl[r] = t < Tq ? delta[row0 + t] : 0.f;
-  }
-
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();  // the previous chunk's K and dS are consumed
-    stage_rows<T, D, BK>(Ks, kb, ks.t, kv0, S, 1.f);
-    stage_rows<T, D, BK>(Vs, vb, vs.t, kv0, S, 1.f);
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, 1.f, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = kv0 + tx + 16 * j;
-        const float sv = (causal && qpos < kpos) ? NEG_INF : s[i][j];
-        const float p = kpos < S ? expf(sv - Ls[r]) : 0.f;
-        dSs[r * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - Dl[r]);
-      }
-    }
-    __syncwarp();  // a row's ds is written by the 16 lanes of its warp
-
-    for (int kc = 0; kc < BK; ++kc) {
-      float kk[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kk[j] = Ks[kc * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty * 4 + i) * (BK + 1) + kc];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds, kk[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= Tq) continue;
-    T* row = dq + b * dqs.b + h * dqs.h + t * dqs.t;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j] * sc);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int H, int KV, int Tq, int S, Strides qs, Strides ks, Strides vs,
-    Strides dos, Strides dks, Strides dvs, float sc, int causal) {
-  constexpr int DJ = D / 16;  // dK / dV columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D + 1], unscaled q
-  float* dOs = Qs + BQ * (D + 1);      // [BQ][D + 1]
-  float* Ks = dOs + BQ * (D + 1);      // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);       // [BK][D + 1]
-  float* dSs = Vs + BK * (D + 1);      // [BQ][BK + 1]
-  float* Ls = dSs + BQ * (BK + 1);     // [BQ] lse
-  float* Dl = Ls + BQ;                 // [BQ] delta
-  float* Ps = Dl + BQ;                 // [BQ][BK + 1]
-
-  const int ki = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KV;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int k0 = ki * BK;
-
-  stage_rows<T, D, BK>(Ks, k + b * ks.b + kvh * ks.h, ks.t, k0, S, 1.f);
-  stage_rows<T, D, BK>(Vs, v + b * vs.b + kvh * vs.h, vs.t, k0, S, 1.f);
-
-  float dka[2][DJ], dva[2][DJ];
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[e][j] = dva[e][j] = 0.f;
-
-  const int nq = (Tq + BQ - 1) / BQ;
-  const int lo = causal ? k0 / BQ : 0;  // the first q chunk that sees k0
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* dob = dout + b * dos.b + h * dos.h;
-    const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
-    for (int qc = lo; qc < nq; ++qc) {
-      const int q0 = qc * BQ;
-      __syncthreads();  // K, V staged; the previous chunk's q, dO, p, ds used
-      stage_rows<T, D, BQ>(Qs, qb, qs.t, q0, Tq, 1.f);
-      stage_rows<T, D, BQ>(dOs, dob, dos.t, q0, Tq, 1.f);
-      for (int r = tid; r < BQ; r += THREADS) {
-        const int t = q0 + r;
-        Ls[r] = t < Tq ? lse[row0 + t] : 0.f;
-        Dl[r] = t < Tq ? delta[row0 + t] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][2], dp[4][2];
-      scores<D>(Qs, dOs, Ks, Vs, ty, tx, sc, s, dp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const int qpos = q0 + r;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          const float sv = (causal && qpos < kpos) ? NEG_INF : s[i][j];
-          const float p =
-              (kpos < S && qpos < Tq) ? expf(sv - Ls[r]) : 0.f;
-          Ps[r * (BK + 1) + tx + 16 * j] = p;
-          dSs[r * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - Dl[r]);
-        }
-      }
-      __syncthreads();  // every row's p and ds, for every key column
-
-      for (int r = 0; r < BQ; ++r) {
-        float pe[2], dse[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          pe[e] = Ps[r * (BK + 1) + ty * 2 + e];
-          dse[e] = dSs[r * (BK + 1) + ty * 2 + e];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float ov = dOs[r * (D + 1) + tx + 16 * j];
-          const float qv = Qs[r * (D + 1) + tx + 16 * j];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            dva[e][j] = fmaf(pe[e], ov, dva[e][j]);
-            dka[e][j] = fmaf(dse[e], qv, dka[e][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int s = k0 + ty * 2 + e;
-    if (s >= S) continue;
-    T* krow = dk + b * dks.b + kvh * dks.h + s * dks.t;
-    T* vrow = dv + b * dvs.b + kvh * dvs.h + s * dvs.t;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      krow[tx + 16 * j] = from_f32<T>(dka[e][j] * sc);
-      vrow[tx + 16 * j] = from_f32<T>(dva[e][j]);
-    }
-  }
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KV, int Tq, int S, Strides qs, Strides ks,
@@ -631,58 +418,6 @@ struct BwdArgs {
   int causal;
   cudaStream_t st;
 };
-
-template <typename T, int D>
-int launch_dq(const BwdArgs& a) {
-  const size_t smem = dq_smem_bytes(D);
-  const int err = opt_in(reinterpret_cast<const void*>(
-                             flash_bwd_dq_kernel<T, D>), smem);
-  if (err) return err;
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.H, a.KV, a.Tq, a.S, a.qs, a.ks, a.vs,
-      a.dos, a.dqs, a.sc, a.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int launch_dkv(const BwdArgs& a) {
-  const size_t smem = dkv_smem_bytes(D);
-  const int err = opt_in(reinterpret_cast<const void*>(
-                             flash_bwd_dkv_kernel<T, D>), smem);
-  if (err) return err;
-  const dim3 grid((a.S + BK - 1) / BK, a.KV, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.KV, a.Tq,
-      a.S, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.sc, a.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// which: 0 = dQ, 1 = dK/dV; f32 only (bf16 is the tensor-core kernels').
-template <int D>
-int launch_bwd(const BwdArgs& a, int dtype, int which) {
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return which ? launch_dkv<float, D>(a) : launch_dq<float, D>(a);
-}
-
-int run_bwd(const BwdArgs& a, int D, int dtype, int which) {
-  if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.Tq <= 0 ||
-      a.S <= 0 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 16: return launch_bwd<16>(a, dtype, which);
-    case 32: return launch_bwd<32>(a, dtype, which);
-    case 64: return launch_bwd<64>(a, dtype, which);
-    case 80: return launch_bwd<80>(a, dtype, which);
-    case 96: return launch_bwd<96>(a, dtype, which);
-    case 128: return launch_bwd<128>(a, dtype, which);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core kernels (bf16 operands, sm_90a wgmma)
@@ -1354,13 +1089,23 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
   }
 }
 
+// Four f32 sums into four elements of T (rounded once for bf16).
+__device__ __forceinline__ void store4(bf16* dst, float4 x) {
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(x.x, x.y);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
 // dK = sc * sum_g dk_part[h = kvh * G + g], dV = sum_g dv_part[...], g in
-// order 0 .. G - 1 (the same order on every run), cast to bf16 into k's and
-// v's layouts; blockIdx.y = 0 for dK, 1 for dV; a thread owns 4 columns.
-template <int D>
+// order 0 .. G - 1 (the same order on every run), into k's and v's layouts
+// as T (bf16 after the tensor-core dK/dV, f32 after the split-TF32 one);
+// blockIdx.y = 0 for dK, 1 for dV; a thread owns 4 columns.
+template <typename T, int D>
 __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
     const float* __restrict__ dk_part, const float* __restrict__ dv_part,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV, int S,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int S,
     Strides dks, Strides dvs, float sc, long long n4) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -1386,11 +1131,8 @@ __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
   }
   const float f = is_v ? 1.f : sc;
   const Strides& st = is_v ? dvs : dks;
-  bf16* dst = (is_v ? dv : dk) + b * st.b + kvh * st.h + s * st.t + c;
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] =
-      __floats2bfloat162_rn(sum.x * f, sum.y * f);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] =
-      __floats2bfloat162_rn(sum.z * f, sum.w * f);
+  T* dst = (is_v ? dv : dk) + b * st.b + kvh * st.h + s * st.t + c;
+  store4(dst, make_float4(sum.x * f, sum.y * f, sum.z * f, sum.w * f));
 }
 
 // dQ on the tensor cores: one block per (b, query head, 128 query rows),
@@ -1599,8 +1341,759 @@ int launch_dkv_tc(const BwdArgs& a, float* dk_part, float* dv_part) {
   if (err) return err;
   const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (D / 4);
   const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
-  flash_dkv_reduce_kernel<D><<<rgrid, 256, 0, a.st>>>(
+  flash_dkv_reduce_kernel<bf16, D><<<rgrid, 256, 0, a.st>>>(
       dk_part, dv_part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.H, a.KV, a.S, a.dks, a.dvs, a.sc, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Split-TF32 backward kernels (f32 operands, sm_90a wgmma .tf32)
+// ---------------------------------------------------------------------------
+
+// Keys a chunk (dQ) or query rows a chunk (dK/dV): 64 up to d 80, 32 above,
+// where the split tiles of 64 would not fit a block's shared memory.
+__host__ __device__ constexpr int tf32_chunk(int d) {
+  return d <= 80 ? 64 : 32;
+}
+
+// Words of a row of a raw A tile (q and dO in dQ, K and V in dK/dV): d when
+// d is a multiple of 32 (the columns are then XOR-swizzled by the row), else
+// d + 4; either way the A fragments' loads hit 32 distinct banks.
+__host__ __device__ constexpr int raw_row(int d) {
+  return d % 32 == 0 ? d : d + 4;
+}
+
+template <int D>
+__device__ __forceinline__ int raw_word(int r, int c) {
+  if constexpr (D % 32 == 0)
+    return r * D + (c ^ ((r & 7) << 2));
+  else
+    return r * (D + 4) + c;
+}
+
+// The slot of chunk position p in a transposed tile: of each group of 8,
+// the even positions take slots 0-3 and the odd ones 4-7, the k order in
+// which an accumulator's 8-column block is an A fragment (acc_frags).
+__device__ __forceinline__ int tslot(int p) {
+  return (p & ~7) | ((p & 7) >> 1) | ((p & 1) << 2);
+}
+
+// A natural tile (R rows, the keys or query rows of a chunk; D columns)
+// lies K-major in TF32 core matrices (8 rows of 4 words): element (r, c) at
+// word (c / 4) 4 R + 4 r + c % 4, so a 16-byte copy of 4 columns of a row
+// lands whole; step kk (columns 8 kk ..) starts 32 R kk bytes in.
+template <int R>
+__device__ __forceinline__ uint64_t desc_nat(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 32 * R, 16 * R, 128);
+}
+
+// A transposed tile (D rows, L slots): element (row, s) at word
+// (s / 4)(4 D + 4) + 4 row + s % 4.  The 16 bytes between slot groups put
+// the split pass's transposed stores (32 neighbouring chunk positions, one
+// row) on 32 banks.
+template <int D>
+__device__ __forceinline__ uint64_t desc_trn(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 2 * (16 * D + 16), 16 * D + 16, 128);
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 16, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (16 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (32 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (64 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 80, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (80 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[40],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 96, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (96 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) = A (64 x 8, TF32 fragments in registers) B^T + D if
+// scale_d else 0, B (128 x 8) K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x -> (hi, lo) TF32 halves as the tensor cores read them: a .tf32
+// operand's low 13 bits are ignored (checked on the card: with these
+// halves the kernels agree with the plain backward as with cvt.rna ones),
+// so hi is the f32 word itself, read as x with those bits cleared, and lo
+// = x - that, exact in f32 and read with its own low 13 bits cleared: hi +
+// lo is within 2^-20 |x| of x.  Two instructions, where cvt.rna.tf32.f32
+// compiles to four a half.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xFFFFE000u));
+}
+
+// One k step of a split product, three wgmmas into one accumulator:
+// a_hi b_hi + a_hi b_lo + a_lo b_hi (a product of two TF32 values is exact
+// in f32; the dropped a_lo b_lo is below 2^-22 of the product).
+template <int M>
+__device__ __forceinline__ void mma3(float (&d)[M], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint64_t bh,
+                                     uint64_t bl, int scale_d) {
+  wgmma_tf32(d, ah, bh, scale_d);
+  wgmma_tf32(d, ah, bl, 1);
+  wgmma_tf32(d, al, bh, 1);
+}
+
+// Rows [r0, r0 + 64) of a (rows, D) f32 slab with row stride st into a raw
+// A tile, zero past ``rows``: 16-byte copies, a row's chunks by
+// neighbouring threads.
+template <int D>
+__device__ __forceinline__ void load_raw(float* tile, const float* src,
+                                         long long st, int r0, int rows,
+                                         int tid, int nthreads) {
+  constexpr int CH = D / 4;
+  for (int i = tid; i < TC_BQ * CH; i += nthreads) {
+    const int r = i / CH;
+    const int c = (i % CH) * 4;
+    const int t = r0 + r;
+    const bool in = t < rows;
+    cp_async16(smem_u32(tile + raw_word<D>(r, c)),
+               in ? static_cast<const void*>(src + t * st + c) : src,
+               in ? 16 : 0);
+  }
+}
+
+// Rows [r0, r0 + L) of a (rows, D) f32 slab into a natural tile, zero past
+// ``rows``: eight neighbouring rows of one 4-column chunk a warp quarter, so
+// the stores fill whole core matrices.
+template <int D, int L>
+__device__ __forceinline__ void load_nat(float* tile, const float* src,
+                                         long long st, int r0, int rows,
+                                         int tid, int nthreads) {
+  constexpr int CH = D / 4;
+  for (int i = tid; i < L * CH; i += nthreads) {
+    const int r = (i % 8) + 8 * (i / (8 * CH));
+    const int c4 = (i / 8) % CH;
+    const int t = r0 + r;
+    const bool in = t < rows;
+    cp_async16(smem_u32(tile + c4 * 4 * L + 4 * r),
+               in ? static_cast<const void*>(src + t * st + c4 * 4) : src,
+               in ? 16 : 0);
+  }
+}
+
+// The split pass over a natural tile nh as copied, which is its own hi
+// half: lo into nl and, with TRANS, both halves into the transposed tiles
+// th and tl (the chunk positions in tslot order).  Each thread takes 4
+// columns of one row; 32 neighbouring rows a warp.
+template <int D, int L, bool TRANS>
+__device__ __forceinline__ void split_tile(float* nh, float* nl, float* th,
+                                           float* tl, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < L * (D / 4); i += nthreads) {
+    const int r = i % L;
+    const int c4 = i / L;
+    const int w = c4 * 4 * L + 4 * r;
+    const float4 x = *reinterpret_cast<const float4*>(nh + w);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(xs[j], hi[j], lo[j]);
+    *reinterpret_cast<uint4*>(nl + w) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (TRANS) {
+      const int s = tslot(r);
+      const int t0 = (s >> 2) * (4 * D + 4) + 16 * c4 + (s & 3);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        th[t0 + 4 * j] = __uint_as_float(hi[j]);
+        tl[t0 + 4 * j] = __uint_as_float(lo[j]);
+      }
+    }
+  }
+}
+
+// The A fragment of step kk of a raw tile (rows row and row + 8, columns
+// col = 8 kk + tig and col + 4), split into TF32 halves.
+template <int D>
+__device__ __forceinline__ void raw_frags(const float* X, int row, int col,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_tf32(X[raw_word<D>(row, col)], hi[0], lo[0]);
+  split_tf32(X[raw_word<D>(row + 8, col)], hi[1], lo[1]);
+  split_tf32(X[raw_word<D>(row, col + 4)], hi[2], lo[2]);
+  split_tf32(X[raw_word<D>(row + 8, col + 4)], hi[3], lo[3]);
+}
+
+// An f32 accumulator (64 x L: rows warp*16 + gid (+8), columns n8*8 + 2 tig
+// (+1)) as the split A fragments of a product over its columns: block n8 is
+// step n8's fragment, (gid, 2 tig), (gid + 8, 2 tig), (gid, 2 tig + 1),
+// (gid + 8, 2 tig + 1) in k slots tig, tig, tig + 4, tig + 4, so slot j of a
+// step holds column 2 j (j < 4) or 2 (j - 4) + 1, the order tslot gives the
+// transposed B tiles.
+template <int L>
+__device__ __forceinline__ void acc_frags(const float (&x)[L / 2],
+                                          uint32_t (&hi)[L / 8][4],
+                                          uint32_t (&lo)[L / 8][4]) {
+#pragma unroll
+  for (int n8 = 0; n8 < L / 8; ++n8) {
+    split_tf32(x[4 * n8], hi[n8][0], lo[n8][0]);
+    split_tf32(x[4 * n8 + 2], hi[n8][1], lo[n8][1]);
+    split_tf32(x[4 * n8 + 1], hi[n8][2], lo[n8][2]);
+    split_tf32(x[4 * n8 + 3], hi[n8][3], lo[n8][3]);
+  }
+}
+
+// x = X B^T and, with TWO, y = Y C^T over D columns: X and Y raw 64-row
+// tiles whose A fragments are loaded and split one step at a time into two
+// register sets (each step's wgmmas are committed together and the next
+// step waits for the one before, whose set it refills), B and C natural tile
+// pairs (hi, lo; L rows).  One accumulator over the D / 8 steps.
+template <int D, int L, bool TWO>
+__device__ __forceinline__ void scores_tf32(float (&x)[L / 2],
+                                            float (&y)[L / 2],
+                                            const float* X, const float* Y,
+                                            uint32_t bh, uint32_t bl,
+                                            uint32_t ch, uint32_t cl,
+                                            int row, int tig) {
+  uint32_t f[2][4][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t (&g)[4][4] = f[kk & 1];
+    raw_frags<D>(X, row, 8 * kk + tig, g[0], g[1]);
+    if constexpr (TWO) raw_frags<D>(Y, row, 8 * kk + tig, g[2], g[3]);
+    wg_fence();
+    mma3(x, g[0], g[1], desc_nat<L>(bh, kk), desc_nat<L>(bl, kk), kk > 0);
+    if constexpr (TWO)
+      mma3(y, g[2], g[3], desc_nat<L>(ch, kk), desc_nat<L>(cl, kk), kk > 0);
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  fence_regs(x);
+  if constexpr (TWO) fence_regs(y);
+}
+
+// part (64 x D) = x B over one chunk: x an f32 accumulator (64 x L) as A
+// fragments, B a transposed tile pair; L / 8 steps of three products into
+// a fresh partial (scale_d 0 on the first), committed together, one wait.
+template <int D, int L>
+__device__ __forceinline__ void chunk_product(float (&part)[D / 2],
+                                              const float (&x)[L / 2],
+                                              uint32_t bh, uint32_t bl) {
+  uint32_t hi[L / 8][4], lo[L / 8][4];
+  acc_frags<L>(x, hi, lo);
+  fence_regs(part);
+  wg_fence();
+#pragma unroll
+  for (int n8 = 0; n8 < L / 8; ++n8)
+    mma3(part, hi[n8], lo[n8], desc_trn<D>(bh, n8), desc_trn<D>(bl, n8),
+         n8 > 0);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(part);
+}
+
+// dQ in split TF32: one block per (b, query head, 128 query rows), longest
+// causal rows first, two warpgroups of 64 rows each sharing the key chunks
+// (L = tf32_chunk(D) keys).  Each warpgroup keeps its rows' q and dO raw
+// (f32) in shared memory; per chunk up to its diagonal:
+//   s = q K^T, dp = dO V^T      (A: q, dO split per step; B: K, V hi / lo)
+//   p = exp(s sc - lse) in base 2, ds = p (dp - delta)        (registers)
+//   part = ds K, dQ += part     (A: ds split; B: K^T hi / lo; rounded adds)
+// The chunk's K and V are copied raw, then split by the whole block in one
+// pass (K also transposed), and the next chunk's copies run under the
+// products of ds once both warpgroups' scores are done.  dQ is scaled by sc
+// at the end; each element is written by one thread: the same bits on
+// every run.
+template <int D>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int KV, int Tq, int S, Strides qs,
+    Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
+  constexpr int L = tf32_chunk(D);
+  constexpr int RAW = TC_BQ * raw_row(D);  // words of a raw tile
+  constexpr int NAT = L * D;               // ... of a natural chunk tile
+  constexpr int TRN = L * (D + 1);         // ... of a transposed one
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qr = reinterpret_cast<float*>(smem_raw);  // [2][RAW] q, by warpgroup
+  float* Or = Qr + 2 * RAW;                        // [2][RAW] dO
+  float* Kh = Or + 2 * RAW;   // K as copied: its hi half
+  float* Kl = Kh + NAT;
+  float* Vh = Kl + NAT;       // V as copied: its hi half
+  float* Vl = Vh + NAT;
+  float* KTh = Vl + NAT;      // K^T, hi and lo
+  float* KTl = KTh + TRN;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // the longest causal rows first
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * 2 * TC_BQ;       // the block's first row
+  const int q0 = qb0 + wg * TC_BQ;      // this warpgroup's first row
+  const int row = warp * 16 + gid;      // this thread's rows: row, row + 8
+  const int qrow = q0 + row;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + 2 * TC_BQ) : S;
+  const int nkv = (kv_end + L - 1) / L;
+  // this warpgroup's chunks: those holding a key at or before its last row
+  const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
+  auto load_chunk = [&](int c) {
+    if (c < nkv) {
+      load_nat<D, L>(Kh, kb, ks.t, c * L, S, tid, NT);
+      load_nat<D, L>(Vh, vb, vs.t, c * L, S, tid, NT);
+    }
+    cp_commit();  // a group per chunk, empty past the last
+  };
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_raw<D>(Or + w * RAW, dob, dos.t, qb0 + w * TC_BQ, Tq, tid, NT);
+  }
+  load_chunk(0);  // with q and dO in its group
+
+  // the rows' lse (in base 2) and delta; rows past T weigh 0 (q and dO
+  // are zero there, so ds = 1 * (0 - 0))
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    lse2[i] = tq < Tq ? lse[row0 + tq] * LOG2E : 0.f;
+    dl[i] = tq < Tq ? delta[row0 + tq] : 0.f;
+  }
+  const float scl = sc * LOG2E;
+  const float* Xq = Qr + wg * RAW;
+  const float* Xo = Or + wg * RAW;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nkv; ++j) {
+    // chunk j landed; every warp is past chunk j - 1's products
+    cp_wait<0>();
+    __syncthreads();
+    split_tile<D, L, true>(Kh, Kl, KTh, KTl, tid, NT);
+    split_tile<D, L, false>(Vh, Vl, nullptr, nullptr, tid, NT);
+    fence_async_smem();  // the split tiles, written generically, for wgmma
+    __syncthreads();
+    const bool active = j < mine;  // at or before this warpgroup's diagonal
+    const int kv0 = j * L;
+    float s[L / 2] = {}, dp[L / 2] = {};
+    if (active)
+      scores_tf32<D, L, true>(s, dp, Xq, Xo, smem_u32(Kh), smem_u32(Kl),
+                              smem_u32(Vh), smem_u32(Vl), row, tig);
+    // both warpgroups' scores are done: chunk j + 1's copies refill K and V
+    __syncthreads();
+    load_chunk(j + 1);
+    if (!active) continue;
+
+    // the chunk holds keys past S or the causal diagonal
+    const bool masked = kv0 + L > S || (causal && kv0 + L - 1 > q0);
+#pragma unroll
+    for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = n8 * 4 + r;
+        const int i = r >> 1;
+        const int kpos = kv0 + n8 * 8 + tig * 2 + (r & 1);
+        const bool in =
+            !masked || (kpos < S && !(causal && qrow + 8 * i < kpos));
+        const float p = in ? exp2f(fmaf(s[idx], scl, -lse2[i])) : 0.f;
+        s[idx] = p * (dp[idx] - dl[i]);
+      }
+
+    float part[D / 2] = {};
+    chunk_product<D, L>(part, s, smem_u32(KTh), smem_u32(KTl));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    float* out = dq + b * dqs.b + h * dqs.h + tq * dqs.t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+          acc[n8 * 4 + i * 2] * sc, acc[n8 * 4 + i * 2 + 1] * sc);
+  }
+}
+
+// dK/dV in split TF32: one block per (b, query head, 64 keys), two
+// warpgroups over the query chunks (L = tf32_chunk(D) rows) from the
+// diagonal on; K and V stay raw (f32) in shared memory.  Per chunk, after
+// the block's split pass over q and dO (hi in place, lo, and both
+// transposed):
+//   warpgroup 0: s^T = K q^T (A: K split per step; B: q hi / lo),
+//                p^T = exp(s^T sc - lse), dV += p^T dO (B: dO^T hi / lo)
+//   warpgroup 1: dp^T = V dO^T, ds^T = p^T (dp^T - delta),
+//                dK += ds^T q (B: q^T hi / lo)
+// p^T passes from 0 to 1 through shared memory (one f32 slot a thread and
+// element) behind the block barrier after both score products, which also
+// frees q's and dO's natural tiles for the next chunk's copies.  Each
+// chunk's product sums into a fresh partial, added with rounded adds.  The
+// sums go to dk_out and dv_out at (b, h, s) with strides dko and dvo, dK
+// times ksc: dK and dV themselves when G = 1 (ksc = sc), per query head f32
+// scratch when G > 1 (ksc = 1), summed by flash_dkv_reduce_kernel.
+template <int D>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_out, float* __restrict__ dv_out, int H, int KV,
+    int Tq, int S, Strides qs, Strides ks, Strides vs, Strides dos,
+    Strides dko, Strides dvo, float ksc, float sc, int causal) {
+  constexpr int L = tf32_chunk(D);
+  constexpr int RAW = TC_BQ * raw_row(D);
+  constexpr int NAT = L * D;
+  constexpr int TRN = L * (D + 1);
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Kr = reinterpret_cast<float*>(smem_raw);  // [RAW] the block's keys
+  float* Vr = Kr + RAW;                            // [RAW] their values
+  float* Qh = Vr + RAW;    // the chunk's q as copied: its hi half
+  float* Ql = Qh + NAT;
+  float* Oh = Ql + NAT;    // its dO as copied: its hi half
+  float* Ol = Oh + NAT;
+  float* QTh = Ol + NAT;   // q^T, hi and lo
+  float* QTl = QTh + TRN;
+  float* OTh = QTl + TRN;  // dO^T, hi and lo
+  float* OTl = OTh + TRN;
+  float* Ls = OTl + TRN;   // [2][L] lse, by chunk parity
+  float* Dl = Ls + 2 * L;  // [2][L] delta
+  float* Pex = Dl + 2 * L; // [L / 2][WG]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * TC_BK;  // blockIdx.y = 0 (most q chunks) first
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int row = warp * 16 + gid;  // this thread's keys: k0 + row, + 8
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int nq = (Tq + L - 1) / L;
+  const int lo_q = causal ? k0 / L : 0;  // the first q chunk that sees k0
+
+  // a group per q chunk (empty past the last): its q and dO into the
+  // natural tiles, its lse and delta (zero past T) into slot qc % 2
+  auto stage = [&](int qc) {
+    if (qc < nq) {
+      const int q0 = qc * L;
+      load_nat<D, L>(Qh, qb, qs.t, q0, Tq, tid, NT);
+      load_nat<D, L>(Oh, dob, dos.t, q0, Tq, tid, NT);
+      if (tid < 2 * L) {
+        const int r = tid % L;
+        const int tq = q0 + r;
+        const float* src = (tid < L ? lse : delta) + row0;
+        cp_async4(smem_u32((tid < L ? Ls : Dl) + (qc & 1) * L + r),
+                  tq < Tq ? src + tq : src, tq < Tq ? 4 : 0);
+      }
+    }
+    cp_commit();
+  };
+  load_raw<D>(Kr, k + b * ks.b + kvh * ks.h, ks.t, k0, S, tid, NT);
+  load_raw<D>(Vr, v + b * vs.b + kvh * vs.h, vs.t, k0, S, tid, NT);
+  stage(lo_q);  // K and V go with the first q chunk's group
+
+  const float scl = sc * LOG2E;
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int qc = lo_q; qc < nq; ++qc) {
+    // chunk qc landed; every thread is past chunk qc - 1's products
+    cp_wait<0>();
+    __syncthreads();
+    split_tile<D, L, true>(Qh, Ql, QTh, QTl, tid, NT);
+    split_tile<D, L, true>(Oh, Ol, OTh, OTl, tid, NT);
+    fence_async_smem();
+    __syncthreads();
+
+    const int q0 = qc * L;
+    const float* Lst = Ls + (qc & 1) * L;
+    const float* Dst = Dl + (qc & 1) * L;
+    float x[L / 2] = {};
+    if (wg == 0)
+      scores_tf32<D, L, false>(x, x, Kr, Kr, smem_u32(Qh), smem_u32(Ql), 0,
+                               0, row, tig);
+    else
+      scores_tf32<D, L, false>(x, x, Vr, Vr, smem_u32(Oh), smem_u32(Ol), 0,
+                               0, row, tig);
+
+    // the tile holds keys past S, rows past T, or the causal diagonal
+    const bool masked =
+        k0 + TC_BK > S || q0 + L > Tq || (causal && q0 < k0 + TC_BK - 1);
+    if (wg == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int kpos = k0 + row + 8 * (r >> 1);
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          const int qpos = q0 + c;
+          const bool in = !masked || (kpos < S && qpos < Tq &&
+                                      !(causal && qpos < kpos));
+          // exp(s sc - lse) in base 2
+          const float p =
+              in ? exp2f(fmaf(x[idx], scl, -Lst[c] * LOG2E)) : 0.f;
+          x[idx] = p;
+          Pex[idx * WG + t] = p;
+        }
+    }
+    // p^T for warpgroup 1; both warpgroups' scores are done: chunk qc + 1's
+    // copies refill q's and dO's natural tiles and the other lse slot
+    __syncthreads();
+    stage(qc + 1);
+    if (wg == 1) {
+#pragma unroll
+      for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          x[idx] = Pex[idx * WG + t] * (x[idx] - Dst[c]);
+        }
+    }
+
+    float part[D / 2] = {};
+    chunk_product<D, L>(part, x, smem_u32(wg == 0 ? OTh : QTh),
+                        smem_u32(wg == 0 ? OTl : QTl));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+  cp_wait<0>();  // a block with no q chunk leaves no copy in flight
+
+  float* out = wg == 0 ? dv_out : dk_out;
+  const Strides o = wg == 0 ? dvo : dko;
+  const float f = wg == 0 ? 1.f : ksc;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = k0 + row + 8 * i;
+    if (s >= S) continue;
+    float* dst = out + b * o.b + h * o.h + s * o.t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<float2*>(dst + n8 * 8 + tig * 2) = make_float2(
+          acc[n8 * 4 + i * 2] * f, acc[n8 * 4 + i * 2 + 1] * f);
+  }
+}
+
+// Shared memory of the split-TF32 kernels, in bytes: dQ two raw q and two
+// raw dO tiles, the chunk's K and V (hi, lo) and K^T (hi, lo); dK/dV raw K
+// and V, the chunk's q and dO (hi, lo), both transposed (hi, lo), two slots
+// of lse and delta and the p^T exchange.
+constexpr size_t dq_tf32_smem_bytes(int d) {
+  return 4 * (4 * static_cast<size_t>(TC_BQ) * raw_row(d) +
+              static_cast<size_t>(tf32_chunk(d)) * (4 * d + 2 * (d + 1)));
+}
+
+constexpr size_t dkv_tf32_smem_bytes(int d) {
+  return 4 * (2 * static_cast<size_t>(TC_BQ) * raw_row(d) +
+              static_cast<size_t>(tf32_chunk(d)) *
+                  (4 * d + 4 * (d + 1) + 4 + WG / 2));
+}
+
+template <int D>
+int launch_dq_tf32(const BwdArgs& a) {
+  const size_t smem = dq_tf32_smem_bytes(D);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_bwd_dq_tf32_kernel<D>), smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + 2 * TC_BQ - 1) / (2 * TC_BQ));
+  flash_bwd_dq_tf32_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KV, a.Tq, a.S, a.qs,
+      a.ks, a.vs, a.dos, a.dqs, a.sc, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The caller chooses: null dk_part and dv_part (only at G = H / KV = 1):
+// the kernel writes dK and dV; else per query head sums into dk_part and
+// dv_part ((B, H, S, D) f32), then the group sum.
+template <int D>
+int launch_dkv_tf32(const BwdArgs& a, float* dk_part, float* dv_part) {
+  const bool direct = dk_part == nullptr;
+  if (direct != (dv_part == nullptr) || (direct && a.H != a.KV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dkv_tf32_smem_bytes(D);
+  int err = opt_in(reinterpret_cast<const void*>(flash_bwd_dkv_tf32_kernel<D>),
+                   smem);
+  if (err) return err;
+  const Strides part{static_cast<long long>(a.H) * a.S * D,
+                     static_cast<long long>(a.S) * D, D};
+  const dim3 grid(a.B * a.H, (a.S + TC_BK - 1) / TC_BK);
+  flash_bwd_dkv_tf32_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, direct ? static_cast<float*>(a.dk) : dk_part,
+      direct ? static_cast<float*>(a.dv) : dv_part, a.H, a.KV, a.Tq, a.S,
+      a.qs, a.ks, a.vs, a.dos, direct ? a.dks : part, direct ? a.dvs : part,
+      direct ? a.sc : 1.f, a.sc, a.causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || direct) return err;
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (D / 4);
+  const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+  flash_dkv_reduce_kernel<float, D><<<rgrid, 256, 0, a.st>>>(
+      dk_part, dv_part, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.H, a.KV, a.S, a.dks, a.dvs, a.sc, n4);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1634,6 +2127,9 @@ extern "C" int flash_attention_bwd_dq(
     long long v_sh, long long v_st, long long do_sb, long long do_sh,
     long long do_st, long long dq_sb, long long dq_sh, long long dq_st,
     float sc, int causal, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
@@ -1645,7 +2141,15 @@ extern "C" int flash_attention_bwd_dq(
   a.dqs = {dq_sb, dq_sh, dq_st};
   a.sc = sc; a.causal = causal;
   a.st = static_cast<cudaStream_t>(stream);
-  return run_bwd(a, D, dtype, 0);
+  switch (D) {
+    case 16: return launch_dq_tf32<16>(a);
+    case 32: return launch_dq_tf32<32>(a);
+    case 64: return launch_dq_tf32<64>(a);
+    case 80: return launch_dq_tf32<80>(a);
+    case 96: return launch_dq_tf32<96>(a);
+    case 128: return launch_dq_tf32<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bwd_dq_tc(
@@ -1683,13 +2187,17 @@ extern "C" int flash_attention_bwd_dq_tc(
 
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int KV, int Tq, int S, int D, long long q_sb, long long q_sh,
-    long long q_st, long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st, long long do_sb,
-    long long do_sh, long long do_st, long long dk_sb, long long dk_sh,
-    long long dk_st, long long dv_sb, long long dv_sh, long long dv_st,
-    float sc, int causal, int dtype, void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv, void* dk_part,
+    void* dv_part, int B, int H, int KV, int Tq, int S, int D,
+    long long q_sb, long long q_sh, long long q_st, long long k_sb,
+    long long k_sh, long long k_st, long long v_sb, long long v_sh,
+    long long v_st, long long do_sb, long long do_sh, long long do_st,
+    long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
+    long long dv_sh, long long dv_st, float sc, int causal, int dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
@@ -1701,7 +2209,17 @@ extern "C" int flash_attention_bwd_dkv(
   a.dks = {dk_sb, dk_sh, dk_st}; a.dvs = {dv_sb, dv_sh, dv_st};
   a.sc = sc; a.causal = causal;
   a.st = static_cast<cudaStream_t>(stream);
-  return run_bwd(a, D, dtype, 1);
+  float* kp = static_cast<float*>(dk_part);
+  float* vp = static_cast<float*>(dv_part);
+  switch (D) {
+    case 16: return launch_dkv_tf32<16>(a, kp, vp);
+    case 32: return launch_dkv_tf32<32>(a, kp, vp);
+    case 64: return launch_dkv_tf32<64>(a, kp, vp);
+    case 80: return launch_dkv_tf32<80>(a, kp, vp);
+    case 96: return launch_dkv_tf32<96>(a, kp, vp);
+    case 128: return launch_dkv_tf32<128>(a, kp, vp);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_fwd_tc(

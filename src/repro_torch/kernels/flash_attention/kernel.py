@@ -19,25 +19,30 @@ Every kernel takes the head dims ``budget.FLASH_HEAD_DIMS`` (80 and 96
 among them); any other head dim raises before a launch (no fallback on a
 CUDA tensor).
 
-All three pick their kernel by dtype, and only by dtype: bf16 operands go
+All three pick their kernel by dtype, and only by dtype.  bf16 operands go
 to the tensor-core kernels (``flash_fwd_tc_kernel``;
 ``flash_bwd_dq_tc_kernel``; ``flash_bwd_dkv_tc_kernel``, which writes f32
 sums per query head into two scratch buffers, then
 ``flash_dkv_reduce_kernel``, which sums each kv head's group in a fixed
-order), f32 operands to the FMA kernels (``flash_fwd_kernel``,
-``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``), which keep f32
-accuracy.  The tensor-core kernels load 16-byte chunks, so a bf16 operand
-whose address or (b, h, t) strides are not 16-byte multiples is copied to
-a contiguous tensor first.
+order).  f32 operands go to the FMA forward (``flash_fwd_kernel``) and to
+the split-TF32 backward kernels (``flash_bwd_dq_tf32_kernel``,
+``flash_bwd_dkv_tf32_kernel``), which keep f32 accuracy on the tensor
+cores; with G = H / KV > 1 the latter writes f32 sums per query head, which
+``flash_dkv_reduce_kernel`` sums as for bf16.  The tensor-core and
+split-TF32 kernels load 16-byte chunks, so an operand whose address or
+(b, h, t) strides are not 16-byte multiples is copied to a contiguous
+tensor first.
 
 Counts of launches in this process, one a launch of its kernel:
 ``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
-(tensor-core forward); ``flash_attention_bwd_dq.launches`` (FMA dQ),
-``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
-(FMA dK/dV), ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches``
-(its group sum).  Each of the three also has ``.by_head_dim``: its
-launches by instantiation, ``("tc" | "fma", d)`` (a tensor-core dK/dV
-launch and its group sum count once there).
+(tensor-core forward); ``flash_attention_bwd_dq.launches`` (split-TF32
+dQ), ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
+(split-TF32 dK/dV), ``.tf32_reduce_launches`` (its group sum, G > 1),
+``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches`` (its group
+sum).  Each of the three also has ``.by_head_dim``: its launches by
+instantiation, ``(kind, d)`` with kind ``"tc"`` (bf16), ``"fma"`` (the f32
+forward) or ``"tf32"`` (the f32 backward); a dK/dV launch and its group
+sum count once there.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ from repro_torch.kernels.flash_attention.ref import (
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry point -> (pointer operands, strided operands)
 _SYMBOLS = {"flash_attention_fwd": (5, 4), "flash_attention_bwd_dq": (7, 5),
-            "flash_attention_bwd_dkv": (8, 6),
+            "flash_attention_bwd_dkv": (10, 6),
             "flash_attention_fwd_tc": (5, 4),
             "flash_attention_bwd_dq_tc": (7, 5),
             "flash_attention_bwd_dkv_tc": (10, 6)}
@@ -81,7 +86,8 @@ def _call(symbol: str, pointers, sizes, strided, sc, causal, dtype) -> None:
     fn = _fn(symbol)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in pointers), *sizes,
+        err = fn(*(0 if t is None else t.data_ptr() for t in pointers),
+                 *sizes,
                  *(st for t in strided for st in t.stride()[:3]),
                  float(sc), int(causal), DTYPES[dtype], stream)
     _build.check(err, "flash_attention")
@@ -120,8 +126,8 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its address and (b, h, t) strides are 16-byte
-    multiples, as the tensor-core kernels' 16-byte copies need, else a
-    contiguous copy."""
+    multiples, as the tensor-core and split-TF32 kernels' 16-byte copies
+    need, else a contiguous copy."""
     step = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(st % step == 0
                                       for st in t.stride()[:3]):
@@ -156,12 +162,12 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
         flash_attention_fwd.tc_launches += 1
     else:
         flash_attention_fwd.launches += 1
-    _count_head_dim(flash_attention_fwd, tc, d)
+    _count_head_dim(flash_attention_fwd, "tc" if tc else "fma", d)
     return out, lse
 
 
-def _count_head_dim(wrapper, tc: bool, d: int) -> None:
-    key = ("tc" if tc else "fma", d)
+def _count_head_dim(wrapper, kind: str, d: int) -> None:
+    key = (kind, d)
     wrapper.by_head_dim[key] = wrapper.by_head_dim.get(key, 0) + 1
 
 
@@ -184,7 +190,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.tc_launches = 0
-# launches of each forward instantiation: ("tc" | "fma", head dim) -> count
+# launches of each instantiation: (kind, head dim) -> count
 flash_attention_fwd.by_head_dim = {}
 
 
@@ -195,15 +201,14 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The dQ kernel: q, dO (B, H, T, d), k/v (B, KV, S, d), lse and delta
     (B, H, T) f32, all on one card -> dQ (B, H, T, d) in q's dtype and
     memory layout.  bf16 operands run the tensor-core kernel, f32 operands
-    the FMA kernel."""
+    the split-TF32 kernel."""
     tc = q.dtype == torch.bfloat16
     d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
         q, k, v, budget.flash_bwd_dq_tc_smem_bytes(d) if tc
         else budget.flash_bwd_dq_smem_bytes(d), ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
-    if tc:
-        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -214,7 +219,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_bwd_dq.tc_launches += 1
     else:
         flash_attention_bwd_dq.launches += 1
-    _count_head_dim(flash_attention_bwd_dq, tc, d)
+    _count_head_dim(flash_attention_bwd_dq, "tc" if tc else "tf32", d)
     return dq
 
 
@@ -226,35 +231,37 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     """The dK/dV kernel: the dQ kernel's operands -> dK, dV (B, KV, S, d)
     in the dtypes and memory layouts of k and v, each summed over the
     G query heads of its kv head.  bf16 operands run the tensor-core kernel
-    and its group sum (two launches), f32 operands the FMA kernel."""
+    and its group sum (two launches); f32 operands the split-TF32 kernel,
+    and its group sum when G > 1."""
     tc = q.dtype == torch.bfloat16
     d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
         q, k, v, budget.flash_bwd_dkv_tc_smem_bytes(d) if tc
         else budget.flash_bwd_dkv_smem_bytes(d), ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
-    if tc:
-        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    if not tc:
-        _call("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-              (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal,
-              q.dtype)
-        flash_attention_bwd_dkv.launches += 1
-        _count_head_dim(flash_attention_bwd_dkv, tc, d)
-        return dk, dv
     # f32 sums per query head, (B, H, S, d) each, summed by the reduce
-    # kernel into dK and dV
-    dk_part = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
-    dv_part = torch.empty_like(dk_part)
-    _call("flash_attention_bwd_dkv_tc",
+    # kernel into dK and dV; none where the f32 kernel writes dK and dV
+    # itself (each kv head has one query head), which the launcher follows
+    grouped = tc or h != kv
+    dk_part = dv_part = None
+    if grouped:
+        dk_part = torch.empty((b, h, s, d), dtype=torch.float32,
+                              device=q.device)
+        dv_part = torch.empty_like(dk_part)
+    _call("flash_attention_bwd_dkv_tc" if tc else "flash_attention_bwd_dkv",
           (q, k, v, do, lse, delta, dk, dv, dk_part, dv_part),
           (b, h, kv, t, s, d), (q, k, v, do, dk, dv), sc, causal, q.dtype)
-    flash_attention_bwd_dkv.tc_launches += 1
-    flash_attention_bwd_dkv.reduce_launches += 1
-    _count_head_dim(flash_attention_bwd_dkv, tc, d)
+    if tc:
+        flash_attention_bwd_dkv.tc_launches += 1
+        flash_attention_bwd_dkv.reduce_launches += 1
+    else:
+        flash_attention_bwd_dkv.launches += 1
+        flash_attention_bwd_dkv.tf32_reduce_launches += grouped
+    _count_head_dim(flash_attention_bwd_dkv, "tc" if tc else "tf32", d)
     return dk, dv
 
 
@@ -290,6 +297,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
 flash_attention_bwd_dq.by_head_dim = {}
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tf32_reduce_launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 flash_attention_bwd_dkv.reduce_launches = 0
 flash_attention_bwd_dkv.by_head_dim = {}

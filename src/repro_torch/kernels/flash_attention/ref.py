@@ -25,6 +25,16 @@ take ``hi`` alone: p and dS rounded to bf16 once, the control that the
 precision checks must reject.  They are used by the tests and
 ``chip_smoke.py``, never on the main path.
 
+``flash_attention_bwd_tf32_plain`` mirrors the split-TF32 backward kernels
+(f32 operands) on whole rows: every product (q k^T, dO v^T, dS k, dS^T q,
+p^T dO) as three TF32 products of both operands' halves as the tensor
+cores read them, ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` (``tf32``: an
+f32 word read as .tf32, its low 13 bits cleared), hi hi + hi lo + lo hi;
+dQ, dK and dV summed a chunk of keys or query rows at a time
+(``budget.flash_tf32_chunk``), each chunk's sum rounded to f32 and added in
+order.  With ``lo=False`` every product is one TF32 product of the
+operands read once, the control the precision checks must reject.
+
 ``attention_ref`` is the port of the reference's oracle
 (``repro/kernels/flash_attention/ref.py``): naive softmax attention.
 """
@@ -159,6 +169,83 @@ def flash_attention_bwd_split_plain(q: torch.Tensor, k: torch.Tensor,
     dq = _split_matmul(ds, kf, lo) * sc
     dk = _split_matmul(ds.transpose(-1, -2), qf, lo).sum(dim=2) * sc
     dv = _split_matmul(p.transpose(-1, -2), dof, lo).sum(dim=2)
+    return dq.reshape(b, h, t, d), dk, dv
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the tensor cores read an f32 word as .tf32: its low 13
+    bits cleared (toward zero); infinities and NaNs as they are."""
+    bits = x.float().contiguous().view(torch.int32)
+    read = torch.bitwise_and(bits, ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), read, x.float())
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo) = (tf32(x), tf32(x - tf32(x))), the kernels'
+    halves as the tensor cores read them (the kernels pass x itself and the
+    exact x - tf32(x)): hi + lo keeps about 20 bits of x's mantissa, hi
+    alone 11."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _tf32_matmul(x: torch.Tensor, y: torch.Tensor, lo: bool) -> torch.Tensor:
+    """x @ y as the split-TF32 kernels take it: hi_x hi_y + hi_x lo_y +
+    lo_x hi_y (each product of two TF32 values exact, summed in f64 here
+    and rounded once to f32); ``lo=False``: tf32(x) @ tf32(y)."""
+    hx, lx = split_tf32(x)
+    hy, ly = split_tf32(y)
+    out = torch.matmul(hx.double(), hy.double())
+    if lo:
+        out = (out + torch.matmul(hx.double(), ly.double())
+               + torch.matmul(lx.double(), hy.double()))
+    return out.float()
+
+
+def _tf32_chunked(x: torch.Tensor, y: torch.Tensor, chunk: int,
+                  lo: bool) -> torch.Tensor:
+    """x @ y summed over ``chunk``-wide slices of the contraction, each
+    slice's product rounded to f32 and added in order in f32 (the kernels'
+    fresh partial a chunk)."""
+    acc = None
+    for c0 in range(0, x.shape[-1], chunk):
+        part = _tf32_matmul(x[..., c0:c0 + chunk], y[..., c0:c0 + chunk, :],
+                            lo)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def flash_attention_bwd_tf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor, *,
+                                   sc: float, causal: bool, lo: bool = True
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The split-TF32 backward kernels' arithmetic on whole rows: the
+    operands of ``flash_attention_bwd_plain`` (f32) -> f32 dQ (B, H, T, d),
+    dK, dV (B, KV, S, d)."""
+    from repro_torch.kernels import budget
+
+    b, h, t, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    chunk = budget.flash_tf32_chunk(d)
+    qf = q.reshape(b, kv, g, t, d).float()
+    dof = do.reshape(b, kv, g, t, d).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    logits = _tf32_matmul(qf, kf.transpose(-1, -2), lo) * sc
+    if causal:
+        s = kf.shape[-2]
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - lse.reshape(b, kv, g, t, 1))
+    del logits
+    delta = (dof * o.reshape(b, kv, g, t, d).float()).sum(dim=-1)
+    ds = p * (_tf32_matmul(dof, vf.transpose(-1, -2), lo) - delta[..., None])
+    dq = _tf32_chunked(ds, kf, chunk, lo) * sc
+    dk = _tf32_chunked(ds.transpose(-1, -2), qf, chunk, lo).sum(dim=2) * sc
+    dv = _tf32_chunked(p.transpose(-1, -2), dof, chunk, lo).sum(dim=2)
     return dq.reshape(b, h, t, d), dk, dv
 
 

@@ -31,7 +31,8 @@ head a rank at tp 8 and 16, mode B); a
 head dim no kernel is built for is refused before any launch.  A bf16
 MoE group (cuBLAS products with f32 results) agrees
 with the CPU's.  The counters show which kernel ran: bf16 operands the
-tensor-core ones, f32 the FMA ones.
+tensor-core ones, f32 the FMA forward and the split-TF32 dQ and dK/dV
+(with its group sum when a kv head serves more than one query head).
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
 does, in the same nonzero order, so it agrees bit for bit, pipelined or
@@ -45,11 +46,12 @@ attention rescales its sums chunk by chunk where the plain version takes
 whole rows: O to 2e-5 in f32; in bf16 each element to one bf16 rounding of
 the output plus 1e-3 of the output's rms, a limit that p v in bf16 exceeds;
 lse to 1e-4.  The flash backward kernels sum in f32 in another order than
-their plain version: in f32 each of dQ, dK and dV within 1e-4 of its rms;
+their plain version (in f32 from split TF32 products: about 21 bits of each
+operand): in f32 each of dQ, dK and dV within 1e-4 of its rms;
 in bf16 each element within one bf16 rounding plus 1e-3 of the rms, a
 limit that the plain version with p rounded to bf16 exceeds.  dK and dV
-of the tensor-core kernel sum each kv head's group in a fixed order, the
-tensor-core dQ and the ``wgmma`` BCSR matmul write each output from one
+of both dK/dV kernels sum each kv head's group in a fixed order, both dQ
+kernels and the ``wgmma`` BCSR matmul write each output from one
 thread, and the ``rows`` BCSR matmul adds a split block-row's partial sums
 in a fixed order: two launches on the same operands agree bit for bit.  The BCSR
 matmul's bf16 output is its f32 output rounded once, bit for bit.
@@ -610,10 +612,10 @@ FLASH_BWD_CASES = [
     (1, 32, 8, 300, 300, 96, True, torch.bfloat16),      # GQA 4:1, ragged
     (1, 4, 2, 130, 130, 80, True, torch.bfloat16),       # d 80 causal, GQA
     (1, 4, 4, 200, 150, 96, False, torch.bfloat16),      # d 96 full, S != T
-    (1, 16, 16, 512, 512, 80, False, torch.float32),     # FMA, HuBERT heads
-    (1, 4, 2, 130, 130, 80, True, torch.float32),        # FMA, GQA, ragged
-    (1, 32, 32, 256, 256, 96, True, torch.float32),      # FMA, Phi-3 heads
-    (1, 8, 2, 200, 200, 96, False, torch.float32),       # FMA, full, ragged
+    (1, 16, 16, 512, 512, 80, False, torch.float32),  # split TF32, HuBERT heads
+    (1, 4, 2, 130, 130, 80, True, torch.float32),  # split TF32, GQA, ragged
+    (1, 32, 32, 256, 256, 96, True, torch.float32),  # split TF32, Phi-3 heads
+    (1, 8, 2, 200, 200, 96, False, torch.float32),  # split TF32, full, ragged
     # one rank's heads on a mesh (tensor-parallel modes A and B)
     (1, 8, 8, 2048, 2048, 64, True, torch.bfloat16),     # Qwen-0.5B, tp 2
     (1, 2, 1, 300, 300, 128, True, torch.bfloat16),      # Yi-9B tp 16: B
@@ -677,12 +679,17 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
     delta = (do.float() * o.float()).sum(dim=-1)
     tc = dtype == torch.bfloat16
 
+    key = ("tc" if tc else "tf32", d)
+
     def counts():
         return (flash_attention_bwd_dq.launches,
                 flash_attention_bwd_dq.tc_launches,
                 flash_attention_bwd_dkv.launches,
                 flash_attention_bwd_dkv.tc_launches,
-                flash_attention_bwd_dkv.reduce_launches)
+                flash_attention_bwd_dkv.reduce_launches,
+                flash_attention_bwd_dkv.tf32_reduce_launches,
+                flash_attention_bwd_dq.by_head_dim.get(key, 0),
+                flash_attention_bwd_dkv.by_head_dim.get(key, 0))
 
     before = counts()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc, causal=causal)
@@ -690,7 +697,9 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
                                      causal=causal)
     torch.cuda.synchronize()
     assert counts() == (before[0] + (not tc), before[1] + tc,
-                        before[2] + (not tc), before[3] + tc, before[4] + tc)
+                        before[2] + (not tc), before[3] + tc, before[4] + tc,
+                        before[5] + (not tc and h != kv), before[6] + 1,
+                        before[7] + 1)
     assert dq.stride() == q.stride() and dk.stride() == k.stride()
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype, dtype, dtype)
     f32 = [x.float() for x in (q, k, v, o)]
@@ -751,10 +760,11 @@ def _attention_f64(q, k, v, *, causal):
 def test_flash_backward_at_80_and_96_matches_attention_ref(cuda_device, d,
                                                            causal):
     """Autograd through ``flash_attention_bthd`` at a ragged T of 2000 in
-    f32 (the FMA kernels, whose counters at the head dim move) against
+    f32 (the split-TF32 dQ and dK/dV, whose counters at the head dim move,
+    with its group sum: 8 query heads over 4) against
     autograd through ``attention_ref``'s naive attention in float64 on the
     same values: each gradient within 1e-4 of its largest magnitude
-    (``chip_smoke.py``'s rule for the FMA kernels: causal dV's first keys
+    (``chip_smoke.py``'s rule for the f32 kernels: causal dV's first keys
     sum up to 2000 terms and are far above its rms, and their f32 rounding
     reaches ~1.1e-4 of the rms).  (The f32 oracle itself sums by another
     formula, sum(p dp) for delta; in bf16 the kernels' O is rounded before
@@ -767,14 +777,16 @@ def test_flash_backward_at_80_and_96_matches_attention_ref(cuda_device, d,
     leaves = [torch.randn((1, 2000, h, d), generator=gen, device=cuda_device)
               .requires_grad_() for h in (8, 4, 4)]
     co = torch.randn((1, 2000, 8, d), generator=gen, device=cuda_device)
-    key = ("fma", d)
+    key = ("tf32", d)
     before = (fk.flash_attention_bwd_dq.by_head_dim.get(key, 0),
-              fk.flash_attention_bwd_dkv.by_head_dim.get(key, 0))
+              fk.flash_attention_bwd_dkv.by_head_dim.get(key, 0),
+              fk.flash_attention_bwd_dkv.tf32_reduce_launches)
     (flash_attention_bthd(*leaves, causal=causal) * co).sum().backward()
     torch.cuda.synchronize()
     assert (fk.flash_attention_bwd_dq.by_head_dim[key],
-            fk.flash_attention_bwd_dkv.by_head_dim[key]) == (
-                before[0] + 1, before[1] + 1)
+            fk.flash_attention_bwd_dkv.by_head_dim[key],
+            fk.flash_attention_bwd_dkv.tf32_reduce_launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 1)
     ref = [x.detach().double().transpose(1, 2).requires_grad_()
            for x in leaves]
     (_attention_f64(*ref, causal=causal).transpose(1, 2) * co.double()) \
@@ -786,11 +798,13 @@ def test_flash_backward_at_80_and_96_matches_attention_ref(cuda_device, d,
         assert err <= 1e-4 * float(w.grad.abs().max()), (name, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
-def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
-    """The tensor-core dK/dV sums each kv head's G query heads in a fixed
-    order, with no atomics: two launches on the same operands agree bit for
-    bit (GQA 8:1, causal, ragged)."""
+def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d, dtype):
+    """Both dK/dV kernels (tensor-core for bf16, split TF32 for f32) sum
+    each kv head's G query heads in a fixed order, with no atomics: two
+    launches on the same operands agree bit for bit (GQA 8:1, causal,
+    ragged)."""
     from repro_torch.kernels.flash_attention.kernel import (
         bwd_delta, flash_attention_bwd_dkv, flash_attention_fwd)
 
@@ -798,7 +812,7 @@ def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=cuda_device).to(
-            torch.bfloat16).transpose(1, 2)
+            dtype).transpose(1, 2)
 
     q, k, v, do = rand(2, 333, 16, d), rand(2, 333, 2, d), \
         rand(2, 333, 2, d), rand(2, 333, 16, d)
@@ -813,11 +827,12 @@ def test_flash_dkv_is_bit_identical_across_launches(cuda_device, d):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
-def test_flash_dq_is_bit_identical_across_launches(cuda_device, d):
-    """The tensor-core dQ writes each element from one thread, with no
-    atomics: two launches on the same operands agree bit for bit (GQA
-    8:1, causal, ragged)."""
+def test_flash_dq_is_bit_identical_across_launches(cuda_device, d, dtype):
+    """Both dQ kernels (tensor-core for bf16, split TF32 for f32) write
+    each element from one thread, with no atomics: two launches on the same
+    operands agree bit for bit (GQA 8:1, causal, ragged)."""
     from repro_torch.kernels.flash_attention.kernel import (
         bwd_delta, flash_attention_bwd_dq, flash_attention_fwd)
 
@@ -825,25 +840,28 @@ def test_flash_dq_is_bit_identical_across_launches(cuda_device, d):
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=cuda_device).to(
-            torch.bfloat16).transpose(1, 2)
+            dtype).transpose(1, 2)
 
     q, k, v, do = rand(2, 333, 16, d), rand(2, 333, 2, d), \
         rand(2, 333, 2, d), rand(2, 333, 16, d)
     sc = d ** -0.5
     o, lse = flash_attention_fwd(q, k, v, sc=sc, causal=True)
     delta = bwd_delta(o, do)
-    before = flash_attention_bwd_dq.tc_launches
+    attr = "tc_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(flash_attention_bwd_dq, attr)
     first, second = (flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc,
                                             causal=True) for _ in range(2))
     torch.cuda.synchronize()
-    assert flash_attention_bwd_dq.tc_launches == before + 2
+    assert getattr(flash_attention_bwd_dq, attr) == before + 2
     assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
-    """f32 operands launch the FMA forward, dQ and dK/dV kernels, bf16
-    operands the tensor-core ones (and dK/dV's group sum)."""
+    """f32 operands launch the FMA forward and the split-TF32 dQ and dK/dV
+    (and its group sum: 8 query heads over 2), bf16 operands the
+    tensor-core ones (and dK/dV's group sum); each wrapper counts its
+    instantiation, ("fma" | "tf32" | "tc", d)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
 
@@ -853,19 +871,26 @@ def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
                 (fk.flash_attention_bwd_dq, "tc_launches"),
                 (fk.flash_attention_bwd_dkv, "launches"),
                 (fk.flash_attention_bwd_dkv, "tc_launches"),
-                (fk.flash_attention_bwd_dkv, "reduce_launches"))
+                (fk.flash_attention_bwd_dkv, "reduce_launches"),
+                (fk.flash_attention_bwd_dkv, "tf32_reduce_launches"))
+    tc = dtype == torch.bfloat16
+    keys = ((fk.flash_attention_fwd, ("tc" if tc else "fma", 64)),
+            (fk.flash_attention_bwd_dq, ("tc" if tc else "tf32", 64)),
+            (fk.flash_attention_bwd_dkv, ("tc" if tc else "tf32", 64)))
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     leaves = [torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
               .requires_grad_() for shape in
               ((1, 96, 8, 64), (1, 96, 2, 64), (1, 96, 2, 64))]
     before = [getattr(fn, attr) for fn, attr in counters]
+    by_dim = [fn.by_head_dim.get(key, 0) for fn, key in keys]
     flash_attention_bthd(*leaves, causal=True).sum().backward()
     torch.cuda.synchronize()
     ran = [getattr(fn, attr) - b_ for (fn, attr), b_ in zip(counters,
                                                              before)]
-    tc = dtype == torch.bfloat16
     assert ran == [int(not tc), int(tc), int(not tc), int(tc), int(not tc),
-                   int(tc), int(tc)]
+                   int(tc), int(tc), int(not tc)]
+    assert [fn.by_head_dim.get(key, 0) - b_
+            for (fn, key), b_ in zip(keys, by_dim)] == [1, 1, 1]
 
 
 def test_flash_attention_is_differentiable_on_the_card(cuda_device):
