@@ -169,7 +169,7 @@ Phases (any failure exits non-zero and prints no result):
               p's hi and lo halves) at 989 TFLOP/s; the flash row also
               carries ``bound_all_bf16_ms`` (p v as one bf16 product, as
               SDPA computes it) and ``bound_fma_ms`` (p v in f32 on the FMA
-              units at 67 TFLOP/s, the bound of the FMA kernel).
+              units at 67 TFLOP/s).
               ``kernel_ms``, ``plain_ms`` and ``library_ms``
               are device time per call under ``torch.profiler`` (a
               decode-sized kernel is shorter than its launch, so CUDA events
@@ -209,7 +209,7 @@ Phases (any failure exits non-zero and prints no result):
               split's mirror with hi halves alone (dS in bf16 for dQ).
               bf16 runs the tensor-core dQ (``flash_attention_bwd_dq_tc``)
               and dK/dV with its group sum (``flash_attention_bwd_dkv_tc``)
-              and no FMA kernel; two launches of each on the same operands
+              and no f32 kernel; two launches of each on the same operands
               must agree bit for bit.
               ``library_ms`` is the backward of
               ``F.scaled_dot_product_attention(is_causal=True,
@@ -220,37 +220,37 @@ Phases (any failure exits non-zero and prints no result):
               the f32 p or ds (dQ: ds k; dK/dV: p^T dO and ds^T q) as two,
               all at 989 TFLOP/s; ``bound_all_bf16_ms`` one each;
               ``bound_fma_ms`` the f32-operand products at 67 TFLOP/s.
-8b. flash f32 -- the FMA forward and the split-TF32 dQ and dK/dV
-              kernels (with its group sum: G = 8), which f32 operands
-              launch, at the train consistency shape (B 1, H 32, KV 4,
-              T = S = 2048, d 128, causal, f32) against their plain
-              versions: O, dQ, dK and dV within 1e-4 of their largest
-              magnitude (the train consistency phase's measure), lse within
-              1e-4; dQ, dK and dV also against the split-TF32 mirror
-              (``flash_attention_bwd_tf32_plain``, reported), and the same
-              check must reject its control (``lo=False``: one TF32 product
-              on operands rounded once; its errors reported); ``library_ms``
-              from SDPA in f32 (the backward rows: SDPA's whole backward
-              under the named, pinned efficient-attention backend on K and
-              V expanded to the H heads, timed once and given on both
-              rows), ``bound_ms`` the forward's products on the f32 FMA
-              units and the backward's as the split's three TF32 products a
-              product at 495 TFLOP/s, ``bound_fma_ms`` (backward) every
-              product on the FMA units at 67 TFLOP/s.
+8b. flash f32 -- the split-TF32 forward, dQ and dK/dV kernels (dK/dV
+              with its group sum: G = 8), which f32 operands launch, at the
+              train consistency shape (B 1, H 32, KV 4, T = S = 2048, d 128,
+              causal, f32) against their plain versions: O, dQ, dK and dV
+              within 1e-4 of their largest magnitude (the train consistency
+              phase's measure), lse within 1e-4; each also against its
+              split-TF32 mirror (``flash_attention_fwd_tf32_plain``,
+              ``flash_attention_bwd_tf32_plain``, reported), and the same
+              check must reject their controls (``lo=False``: one TF32
+              product on operands rounded once; its errors reported), O's
+              among them; ``library_ms`` from SDPA in f32 (the backward
+              rows: SDPA's whole backward under the named, pinned
+              efficient-attention backend on K and V expanded to the H
+              heads, timed once and given on both rows), ``bound_ms`` the
+              split's three TF32 products a product at 495 TFLOP/s,
+              ``bound_fma_ms`` every product on the FMA units at 67
+              TFLOP/s.
 9. train consistency -- Yi-9B at full width in f32, 2 layers, B 1 x T 2048:
               the gradient of every parameter through ``flash`` against
               through ``chunked``, each within 1e-4 of that parameter's
               largest chunked gradient, and the losses within 1e-5; then one
               counted ``make_train_step`` step under flash must launch the
-              FMA forward and the split-TF32 dQ and dK/dV kernels (and its
-              group sum) once per layer each.
+              split-TF32 forward, dQ and dK/dV kernels (and its group sum)
+              once per layer each.
 10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
               bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
               T 4096) from ``SyntheticLMDataset``, repeated, under flash
               attention: ``make_train_step`` under ``StepRunner`` for 1
               warm-up and 5 timed steps, each counted (12 tensor-core
               forwards, 12 tensor-core dQ, 12 tensor-core dK/dV and their
-              group sums, no FMA flash kernel, no ``bsr_matmul``), the
+              group sums, no f32 flash kernel, no ``bsr_matmul``), the
               schedule's warm-up spanning the run, with a
               finite loss that falls on the repeated batch; the runner saves a
               checkpoint after the last step (into ``build/``, removed
@@ -267,8 +267,9 @@ Phases (any failure exits non-zero and prints no result):
               dQ and dK/dV (bf16, through autograd; each gradient within one
               bf16 rounding plus 1e-3 of its rms, rejecting p in bf16 and
               the split's hi half alone; two launches bit for bit), and the
-              FMA forward and the split-TF32 dQ and dK/dV (f32; within 1e-4
-              of the largest magnitude); the tensor-core backward also at
+              split-TF32 forward, dQ and dK/dV (f32; within 1e-4 of the
+              largest magnitude, rejecting the one-product controls); the
+              tensor-core backward also at
               d 96 over GQA
               32:8 and at d 80 over a ragged T of 2000 (the kernels line's
               ``arch_rows``); ``library_ms`` SDPA (its whole backward for
@@ -304,15 +305,15 @@ Phases (any failure exits non-zero and prints no result):
               prefill B 1 x T 512 and 8 absorbed decode steps; Jamba-1.5-
               Large cut to 2 layers (Mamba2 + MoE, Mamba2 + MLP), sparse,
               prefill B 1 x T 1024 and 8 decode steps; then HuBERT and
-              Phi-3-Vision cut to 2 layers in f32, through the FMA flash
-              forward at d 80 and 96, within 1e-4 of the chunked
+              Phi-3-Vision cut to 2 layers in f32, through the split-TF32
+              flash forward at d 80 and 96, within 1e-4 of the chunked
               attention's largest logit.
 14. families train -- ``make_train_step`` (the state updated in place),
               flash attention, B 1 x T 2048, bf16 params, f32
               AdamW state, weights from ``--seed``: HuBERT-XLarge at full
               width and depth (48 layers) on the data pipeline's f32
-              embeddings (f32 activations: the FMA flash forward and the
-              split-TF32 dQ and dK/dV at d 80, 48 of each a step, no group
+              embeddings (f32 activations: the split-TF32 flash forward, dQ
+              and dK/dV at d 80, 48 of each a step, no group
               sum): first the loss and the gradient norm of
               one forward and backward at full depth under flash within
               1e-5 of those under chunked attention; then under
@@ -364,7 +365,8 @@ Phases (any failure exits non-zero and prints no result):
               layers puts either a few per cent away); then each rank's
               projections pruned to BCSR at 0.8 and ``make_prefill_step``
               run (64 ``bsr_matmul`` a rank on its shards); then both again
-              in f32 on the ranks' shards cast (the FMA flash forward, f32
+              in f32 on the ranks' shards cast (the split-TF32 flash
+              forward, f32
               tiles), no drop: the EP logits within 1e-4 (relative norm) of
               the one-rank f32 forward's, the sparse prefill's last logits
               within 1e-4 of the one-rank f32 prefill on the same pruned
@@ -444,8 +446,9 @@ its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
 tensor-core forward and the ``wgmma`` BCSR matmul (bf16), the train step's
 through the tensor-core flash kernels, the consistency phases' through
-the FMA forward and the split-TF32 backward (f32).  Peak rates are the H100 SXM data sheet's (dense,
-700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32.
+the split-TF32 forward and backward (f32).  Peak rates are the H100 SXM
+data sheet's (dense, 700 W): 3.35 TB/s HBM3, 989 TFLOP/s bf16 tensor
+cores, 495 TFLOP/s TF32 tensor cores, 67 TFLOP/s f32.
 
 Tolerances against the plain versions: the ELL kernel rounds each multiply
 and add as its plain version does, in the same order, so it is held to bit
@@ -492,10 +495,9 @@ DRYRUN_TIMEOUT_S = 300
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute[, the key of a dict attribute]); a launch of the kernel adds
 # one to it and nothing else does.
-# The flash forward has an FMA kernel (f32 operands) and a tensor-core
-# kernel (bf16), dQ and dK/dV a split-TF32 kernel (f32) and a tensor-core
-# one (bf16); dK/dV's tensor-core kernel is followed by its group sum, its
-# split-TF32 one by its group sum when G > 1.
+# The flash forward, dQ and dK/dV each have a split-TF32 kernel (f32
+# operands) and a tensor-core one (bf16); dK/dV's tensor-core kernel is
+# followed by its group sum, its split-TF32 one by its group sum when G > 1.
 COUNTERS = {
     "sparse_conv": ("sparse_conv", "launches"),
     "bsr_conv": ("bsr_conv", "launches"),
@@ -528,8 +530,8 @@ COUNTERS = {
     # ``by_head_dim`` (each also counted in its kernel's total)
     "flash_attention_tc_d80": ("flash_attention", "by_head_dim", ("tc", 80)),
     "flash_attention_tc_d96": ("flash_attention", "by_head_dim", ("tc", 96)),
-    "flash_attention_d80": ("flash_attention", "by_head_dim", ("fma", 80)),
-    "flash_attention_d96": ("flash_attention", "by_head_dim", ("fma", 96)),
+    "flash_attention_d80": ("flash_attention", "by_head_dim", ("tf32", 80)),
+    "flash_attention_d96": ("flash_attention", "by_head_dim", ("tf32", 96)),
     # the backward kernels at those dims, the same way (the tensor-core
     # dK/dV's group sum counted with it; f32 runs the split-TF32 kernels)
     "flash_attention_bwd_dq_tc_d80": ("flash_attention_bwd_dq", "by_head_dim",
@@ -2174,8 +2176,8 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
                         grouped: bool = False) -> dict:
     """The counts of a train step (or a forward and backward) whose ``n``
     attention layers run flash at head dim ``d``: the tensor-core kernels
-    for bf16 (the dK/dV group sum with each dK/dV), the FMA forward and the
-    split-TF32 backward for f32 (its group sum with each dK/dV when
+    for bf16 (the dK/dV group sum with each dK/dV), the split-TF32 kernels
+    for f32 (the dK/dV group sum with each dK/dV when
     ``grouped``: more query heads than kv heads), their instantiation's
     counters at d 80 and 96, ``forwards`` forward launches (``n``; ``2 n``
     when remat recomputes each), every other counter 0."""
@@ -2730,7 +2732,7 @@ def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
                            launched[6] + 1),
           f"{what}: autograd did not launch the tensor-core dQ, the "
           f"tensor-core dK/dV and its group sum once each at d {d}, and no "
-          f"FMA kernel")
+          f"f32 kernel")
     dq, dk, dv = (x.grad.transpose(1, 2) for x in leaves)
     # the operands and residuals as the Function hands them to the kernels
     q, k, v, do = (x.detach().transpose(1, 2)
@@ -2900,14 +2902,13 @@ def sdpa_f32_backward(torch, q, k, v, do, causal):
 def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                    arch="yi-9b"):
     """The f32 flash kernels at ``shape`` (B, H, KV, T = S, d) on the
-    (B, H, T, d) views of (B, T, H, d) tensors: the FMA forward, the
-    split-TF32 dQ and dK/dV (and its group sum when H > KV), against their
-    plain versions: O, dQ, dK and dV within FLASH_F32_TOL of their largest
-    magnitude (the rms beside it), lse within FLASH_LSE_TOL; dQ, dK and dV
-    also against the split-TF32 mirror (reported), and the check must
-    reject the mirror's one-product control.  ``names``: the
-    (forward, dQ, dK/dV) row names, the forward's None for no row.  Prints
-    the rows and returns them by name."""
+    (B, H, T, d) views of (B, T, H, d) tensors: the split-TF32 forward, dQ
+    and dK/dV (and its group sum when H > KV), against their plain
+    versions: O, dQ, dK and dV within FLASH_F32_TOL of their largest
+    magnitude (the rms beside it), lse within FLASH_LSE_TOL; each also
+    against its split-TF32 mirror (reported), and the check must reject
+    the mirrors' one-product controls.  ``names``: the (forward, dQ,
+    dK/dV) row names.  Prints the rows and returns them by name."""
     F = torch.nn.functional
     b, h, kv, t, d = shape
     sc = d ** -0.5
@@ -2937,8 +2938,8 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                        launched[3], launched[4] + 1, launched[5],
                        launched[6] + grouped, launched[7] + 1,
                        launched[8] + 1),
-          f"{what}: f32 operands did not launch the FMA forward and the "
-          f"split-TF32 dQ and dK/dV (with its group sum when H > KV)")
+          f"{what}: f32 operands did not launch the split-TF32 forward, dQ "
+          f"and dK/dV (with its group sum when H > KV)")
     o_want, lse_want = mods["flash_plain"](q, k, v, sc=sc, causal=causal)
     dq_want, dk_want, dv_want = mods["flash_bwd_plain"](
         q, k, v, o, lse, do, sc=sc, causal=causal)
@@ -2955,26 +2956,33 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
     lse_err = float((lse - lse_want).abs().max())
     check(lse_err <= FLASH_LSE_TOL, f"{what}: lse disagrees with its plain "
           f"version (max_abs_err {lse_err})")
-    del o_want, lse_want, dq_want, dk_want, dv_want
+    del lse_want, dq_want, dk_want, dv_want
     torch.cuda.empty_cache()
-    # the split-TF32 design on whole rows: the kernels' distance from it
-    mirror = mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
-                                          causal=causal)
+    # the split-TF32 design (the forward chunk by chunk, the backward on
+    # whole rows): the kernels' distance from it
+    mirror = (mods["flash_fwd_tf32_plain"](q, k, v, sc=sc, causal=causal)[0],
+              *mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
+                                            causal=causal))
     from_mirror = {name: float((got - m).abs().max() / m.abs().max())
-                   for name, got, m in zip(("dq", "dk", "dv"),
-                                           (dq, dk, dv), mirror)}
+                   for name, got, m in zip(("o", "dq", "dk", "dv"),
+                                           (o, dq, dk, dv), mirror)}
     del mirror
     torch.cuda.empty_cache()
-    # the control: one TF32 product on operands rounded once must fail the
-    # check the kernels pass, against the same plain backward
-    control = mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
-                                           causal=causal, lo=False)
-    plain = mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc, causal=causal)
+    # the controls: one TF32 product on operands rounded once must fail the
+    # check the kernels pass, against the same plain versions
+    control = (mods["flash_fwd_tf32_plain"](q, k, v, sc=sc, causal=causal,
+                                            lo=False)[0],
+               *mods["flash_bwd_tf32_plain"](q, k, v, o, lse, do, sc=sc,
+                                             causal=causal, lo=False))
+    plain = (o_want, *mods["flash_bwd_plain"](q, k, v, o, lse, do, sc=sc,
+                                              causal=causal))
     control_err = {name: float((c - w).abs().max() / w.abs().max())
-                   for name, c, w in zip(("dq", "dk", "dv"), control, plain)}
-    del control, plain
+                   for name, c, w in zip(("o", "dq", "dk", "dv"), control,
+                                         plain)}
+    del control, plain, o_want
     torch.cuda.empty_cache()
-    check(max(control_err.values()) > FLASH_F32_TOL,
+    check(control_err["o"] > FLASH_F32_TOL
+          and max(control_err.values()) > FLASH_F32_TOL,
           f"{what}: the check does not reject one TF32 product on operands "
           f"rounded once ({control_err} x max |plain|, tolerance "
           f"{FLASH_F32_TOL})")
@@ -3009,18 +3017,14 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
             (names[2], run_dkv, plain_bwd_ms,
              qkv_bytes + q.numel() * 4 + stats_bytes + 2 * k.numel() * 4, 4,
              max(errs["dk"][0], errs["dv"][0]))):
-        if name is None:
-            continue
         n_kernels = 1 + (grouped and fn is run_dkv)
         ms = device_ms(torch, fn, 5, n_kernels)
-        # every product in f32 on the FMA units: the forward's design, and
-        # the backward's FMA figure
+        # the design: three TF32 products a product on the tensor cores;
+        # beside it every product in f32 on the FMA units
+        b_ms, b_by = bound(moved, flops_tf32=3 * products * product)
         fma_ms, fma_by = bound(moved, flops_f32=products * product)
-        b_ms, b_by = fma_ms, fma_by
-        if fn is not run_fwd:
-            # the backward's design: three TF32 products a product on the
-            # tensor cores
-            b_ms, b_by = bound(moved, flops_tf32=3 * products * product)
+        parts = ("o",) if fn is run_fwd else (
+            ("dq",) if fn is run_dq else ("dk", "dv"))
         row = {"kernel": name, "arch": arch,
                "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
                          "causal": causal, "dtype": "float32",
@@ -3031,7 +3035,13 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                "lse_max_abs_err": lse_err,
                "kernel_ms": ms,
                "kernel_event_ms": time_cuda(torch, fn, reps=5, warmup=1),
-               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved}
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+               "design": "split TF32",
+               "err_from_mirror_over_max": {n: from_mirror[n] for n in parts},
+               "control_one_product_err_over_max": {
+                   n: control_err[n] for n in parts},
+               "bound_fma_ms": fma_ms, "bound_fma_by": fma_by,
+               "tflops": products * product / ms / 1e9}
         if fn is run_fwd:
             row.update({
                 "plain_ms": device_ms(torch, lambda: mods["flash_plain"](
@@ -3039,22 +3049,16 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                 "library_ms": device_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=causal, enable_gqa=True), 5),
-                "library_is": "SDPA forward, f32",
-                "tflops": products * product / ms / 1e9})
+                "library_is": "SDPA forward, f32"})
         else:
             row.update({
-                "design": "split TF32",
-                "err_from_mirror_over_max": from_mirror,
-                "control_one_product_err_over_max": control_err,
                 "group_sum": grouped,
                 "plain_ms": plain_ms, "plain_is": "the whole plain backward",
                 "library_ms": library_bwd_ms,
                 "library_is": f"the whole SDPA backward (dQ, dK, dV), f32, "
                               f"backend {backend} (pinned), k and v "
                               f"expanded to {h} heads; one timing, given on "
-                              f"both rows",
-                "bound_fma_ms": fma_ms, "bound_fma_by": fma_by,
-                "tflops": products * product / ms / 1e9})
+                              f"both rows"})
         print(json.dumps(row), flush=True)
         rows[name] = row
     del q, k, v, do, o, lse, delta, dq, dk, dv
@@ -3063,8 +3067,8 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
 
 
 def flash_f32_kernel_phase(torch, mods, device, seed):
-    """The FMA forward and the split-TF32 dQ and dK/dV kernels
-    (``flash_f32_rows``) at the train consistency shape (B 1, H 32, KV 4,
+    """The split-TF32 forward, dQ and dK/dV kernels (``flash_f32_rows``)
+    at the train consistency shape (B 1, H 32, KV 4,
     T = S = 2048, d 128, causal, f32), which the consistency and train
     consistency phases launch; returns per-kernel lists of row dicts."""
     b, h, kv, _, d = BWD_SHAPE
@@ -3431,8 +3435,8 @@ def full_depth_agreement(torch, mods, cfg, holder, batch, device) -> dict:
 def families_train_phase(torch, mods, device, seed):
     """The families' training path on the card (``make_train_step``, which
     updates the state in place, under flash attention): HuBERT-XLarge (48
-    layers, the data pipeline's f32 embeddings: the FMA forward and the
-    split-TF32 backward at d 80):
+    layers, the data pipeline's f32 embeddings: the split-TF32 forward and
+    backward at d 80):
     the full-depth loss and gradient norm under flash against chunked,
     then under ``StepRunner`` 1 warm-up and 3 timed steps whose loss must
     fall with a checkpoint saved and restored, one step on bf16 embeddings
@@ -3639,69 +3643,12 @@ def families_train_phase(torch, mods, device, seed):
 # DeepSeek-V3 and Jamba at full width
 # ---------------------------------------------------------------------------
 
-def flash_fma_row(torch, mods, gen, device, shape, causal, kernel):
-    """The FMA flash forward (f32 operands) at ``shape`` (B, H, KV, T = S,
-    d) on the (B, H, T, d) views of (B, T, H, d) tensors, against its
-    plain version: O within FLASH_F32_TOL of its largest magnitude, lse
-    within FLASH_LSE_TOL.  Prints and returns the row."""
-    F = torch.nn.functional
-    b, h, kv, t, d = shape
-    fk, fplain = mods["kernels"]["flash_attention"], mods["flash_plain"]
-    q, k, v = (torch.randn((b, t, heads, d), generator=gen,
-                           device=device).transpose(1, 2)
-               for heads in (h, kv, kv))
-    sc = d ** -0.5
-    launched = fk.launches
-    o, lse = fk(q, k, v, sc=sc, causal=causal)
-    torch.cuda.synchronize()
-    check(fk.launches == launched + 1,
-          f"{kernel}: f32 operands did not launch the FMA kernel")
-    o_want, lse_want = fplain(q, k, v, sc=sc, causal=causal)
-    err = float((o - o_want).abs().max())
-    over_max = err / float(o_want.abs().max())
-    lse_err = float((lse - lse_want).abs().max())
-    check(bool(torch.isfinite(o).all()), f"{kernel}: O not finite")
-    check(over_max <= FLASH_F32_TOL,
-          f"{kernel} disagrees with its plain version on O ({over_max} x "
-          f"max |plain|, tolerance {FLASH_F32_TOL})")
-    check(lse_err <= FLASH_LSE_TOL, f"{kernel} disagrees with its plain "
-          f"version on lse (max_abs_err {lse_err})")
-    del o_want, lse_want
-    ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=causal), 5, 1)
-    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
-    product = 2.0 * pairs * d
-    moved = (2 * q.numel() + 2 * k.numel()) * 4 + b * h * t * 4
-    b_ms, b_by = bound(moved, flops_f32=2 * product)
-    row = {"kernel": kernel,
-           "shape": {"b": b, "h": h, "kv": kv, "t": t, "s": t, "d": d,
-                     "causal": causal, "dtype": "float32",
-                     "layout": "(B, T, H, d) views"},
-           "max_abs_err": err, "err_over_max": over_max,
-           "lse_max_abs_err": lse_err, "kernel_ms": ms,
-           "kernel_event_ms": time_cuda(
-               torch, lambda: fk(q, k, v, sc=sc, causal=causal), reps=5,
-               warmup=1),
-           "plain_ms": device_ms(torch, lambda: fplain(
-               q, k, v, sc=sc, causal=causal), 1),
-           "library_ms": device_ms(
-               torch, lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=causal, enable_gqa=True), 5),
-           "library_is": "SDPA forward, f32",
-           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
-           "tflops": 2 * product / ms / 1e9}
-    print(json.dumps(row), flush=True)
-    del q, k, v, o, lse
-    torch.cuda.empty_cache()
-    return row
-
-
 def flash_dims_kernel_phase(torch, mods, device, seed):
     """Every flash kernel at head dims 80 (HuBERT-XLarge: 16 heads, B 1,
     T 2048, bidirectional) and 96 (Phi-3-Vision: 32 heads, B 1, T 2048,
     causal), each against its plain version: both forwards, the
     tensor-core kernels in bf16 (``flash_tc_row``, ``flash_bwd_tc_rows``)
-    and the f32 kernels, the FMA forward and the split-TF32 backward
-    (``flash_fma_row``, ``flash_f32_rows``);
+    and the split-TF32 kernels in f32 (``flash_f32_rows``);
     then the tensor-core backward at d 96 over GQA 32:8 and at d 80 over a
     ragged bidirectional T of 2000.  Returns (per-kernel lists of rows, the
     GQA and ragged rows by kernel)."""
@@ -3711,15 +3658,13 @@ def flash_dims_kernel_phase(torch, mods, device, seed):
         rows[f"flash_attention_tc_d{d}"] = [flash_tc_row(
             torch, mods, gen, device, shape, causal,
             f"flash_attention_tc_d{d}", arch=arch)]
-        rows[f"flash_attention_d{d}"] = [flash_fma_row(
-            torch, mods, gen, device, shape, causal, f"flash_attention_d{d}")]
         bwd = flash_bwd_tc_rows(
             torch, mods, gen, device, shape, causal,
             (f"flash_attention_bwd_dq_tc_d{d}",
              f"flash_attention_bwd_dkv_tc_d{d}"), arch=arch)
         bwd.update(flash_f32_rows(
             torch, mods, gen, device, shape, causal,
-            (None, f"flash_attention_bwd_dq_d{d}",
+            (f"flash_attention_d{d}", f"flash_attention_bwd_dq_d{d}",
              f"flash_attention_bwd_dkv_d{d}"), arch=arch))
         rows.update({name: [row] for name, row in bwd.items()})
     extra = {}
@@ -3835,7 +3780,7 @@ def families_phase(torch, mods, device, seed):
     experts), prefill and absorbed MLA decode; Jamba-1.5-Large cut to 2
     layers (Mamba2 + MoE, Mamba2 + MLP), sparse prefill and decode; then
     HuBERT and Phi-3-Vision cut to 2 layers in f32, ``forward_embeds``
-    through the FMA flash kernel at d 80 and 96 against the chunked
+    through the split-TF32 flash forward at d 80 and 96 against the chunked
     attention.  ``bsr_matmul`` is held to its plain version at each
     family's shapes first: Mamba2's in_proj at a decode step and its
     prefill, Phi-3-Vision's wq at its forward's 2048 rows and Jamba's
@@ -4036,7 +3981,7 @@ def families_phase(torch, mods, device, seed):
         del params, logits, batch
         torch.cuda.empty_cache()
 
-        # -- f32, 2 layers: the FMA flash forward at d 80 and 96 -----------
+        # -- f32, 2 layers: the split-TF32 forward at d 80 and 96 ----------
         for arch, name in (("hubert-xlarge", "flash_attention_d80"),
                            ("phi-3-vision-4.2b", "flash_attention_d96")):
             cfg = dc.replace(get(arch), dtype="float32",
@@ -4760,7 +4705,8 @@ def mesh_phase(torch, mods, device, seed):
     # dense forward
     want_sparse = expect(flash_attention_tc=moe_cfg.n_layers,
                          bsr_matmul=4 * moe_cfg.n_layers)
-    # f32: the FMA flash forward; f32 tiles take bsr_matmul's rows schedule
+    # f32: the split-TF32 flash forward; f32 tiles take bsr_matmul's rows
+    # schedule
     want_f32 = expect(flash_attention=moe_cfg.n_layers)
     want_f32_sparse = expect(flash_attention=moe_cfg.n_layers,
                              bsr_matmul=4 * moe_cfg.n_layers)
@@ -5055,13 +5001,15 @@ def dryrun_phase(dry: DryRun, waited: float):
           flush=True)
 
 
-# what the split-TF32 backward rows' numbers are
-F32_BWD_TERMS = ("bound_ms prices every product as the split's three TF32 "
-                 "products on the tensor cores (495 TFLOP/s), bound_fma_ms "
-                 "on the f32 FMA units (67 TFLOP/s); err_from_mirror the "
-                 "distance from flash_attention_bwd_tf32_plain; plain: the "
-                 "whole plain backward; library: SDPA's whole backward under "
-                 "its pinned backend (library_is), timed once a shape")
+# what the split-TF32 rows' numbers are: all of them, then the backward's
+F32_TERMS = ("bound_ms prices every product as the split's three TF32 "
+             "products on the tensor cores (495 TFLOP/s), bound_fma_ms on "
+             "the f32 FMA units (67 TFLOP/s); err_from_mirror the distance "
+             "from flash_attention_fwd_tf32_plain or "
+             "flash_attention_bwd_tf32_plain")
+F32_BWD_TERMS = (F32_TERMS + "; plain: the whole plain backward; library: "
+                 "SDPA's whole backward under its pinned backend "
+                 "(library_is), timed once a shape")
 
 
 def kernel_entries(rows, launches, arch_rows):
@@ -5170,9 +5118,9 @@ def kernel_entries(rows, launches, arch_rows):
                       "rows_library_cold_ms the 4 rows' with the L2 "
                       "flushed between calls; decode_rows: the rows "
                       "schedule's sums at each decode row count",
-        "flash_attention": "the FMA kernel (flash_fwd_kernel, f32 "
-                           "operands): one causal forward, B 1, H 32, KV 4, "
-                           "T 2048, d 128, f32",
+        "flash_attention": "the split-TF32 kernel (flash_fwd_tf32_kernel, "
+                           "f32 operands): one causal forward, B 1, H 32, "
+                           "KV 4, T 2048, d 128, f32; " + F32_TERMS,
         "flash_attention_bwd_dq": "the split-TF32 kernel "
                                   "(flash_bwd_dq_tf32_kernel, f32 operands): "
                                   "one causal dQ, B 1, H 32, KV 4, T 2048, "
@@ -5205,9 +5153,10 @@ def kernel_entries(rows, launches, arch_rows):
             f"the tensor-core kernel (flash_fwd_tc_kernel<{d}>, bf16 "
             f"operands): {shape}, bf16; launches from the {arch} forwards")
         times_are[f"flash_attention_d{d}"] = (
-            f"the FMA kernel (flash_fwd_kernel<float, {d}>, f32 operands): "
-            f"{shape}, f32; launches from the {arch} f32 forwards cut to "
-            f"{EMBEDS_CONSIST_LAYERS} layers and its f32 training")
+            f"the split-TF32 kernel (flash_fwd_tf32_kernel<{d}>, f32 "
+            f"operands): {shape}, f32; {F32_TERMS}; launches from the "
+            f"{arch} f32 forwards cut to {EMBEDS_CONSIST_LAYERS} layers and "
+            f"its f32 training")
         bwd = shape.replace("one ", "").replace("forward", "backward")
         for part, kernel in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
             extra = (" and its group sum (flash_dkv_reduce_kernel<"
@@ -5355,8 +5304,8 @@ def load_modules() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_bwd_split_plain,
-        flash_attention_bwd_tf32_plain, flash_attention_plain,
-        flash_attention_split_plain)
+        flash_attention_bwd_tf32_plain, flash_attention_fwd_tf32_plain,
+        flash_attention_plain, flash_attention_split_plain)
     from repro_torch.launch.serve import sparsify_params
     from repro_torch.launch.steps import (init_state, loss_and_grads,
                                           make_prefill_step, make_serve_step,
@@ -5411,6 +5360,7 @@ def load_modules() -> dict:
                 Request=Request, yi9b=configs.get_config("yi-9b"),
                 flash_bwd_plain=flash_attention_bwd_plain,
                 flash_bwd_tf32_plain=flash_attention_bwd_tf32_plain,
+                flash_fwd_tf32_plain=flash_attention_fwd_tf32_plain,
                 flash_split_plain=flash_attention_split_plain,
                 flash_bwd_split_plain=flash_attention_bwd_split_plain,
                 bwd_delta=bwd_delta,

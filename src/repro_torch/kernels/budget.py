@@ -120,17 +120,14 @@ BSR_MATMUL_WGMMA_CHUNK = 128
 BSR_MATMUL_WGMMA_X_STAGES = 3
 BSR_MATMUL_WGMMA_TILE_STAGES = 2
 
-# Flash attention (csrc/flash_attention.cu): the FMA forward's 64 query rows
-# and 32 keys a step; the head dimensions every one of its kernels
-# instantiates (the FMA and the tensor-core forward, the split-TF32 and the
-# tensor-core dQ and dK/dV).
-FLASH_BQ = 64
-FLASH_BK = 32
+# Flash attention (csrc/flash_attention.cu): the head dimensions every one
+# of its kernels instantiates (the split-TF32 and the tensor-core forward,
+# dQ and dK/dV).
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-# The split-TF32 backward (f32): 64-row tiles (wgmma's M) in two
-# warpgroups, over chunks of FLASH_TF32_CHUNK keys (dQ) or query rows (dK/dV)
-# up to head dim FLASH_TF32_WIDE_MAX_D, half that above, where the chunk's
-# split tiles would not fit.
+# The split-TF32 kernels (f32): 64-row tiles (wgmma's M) in two
+# warpgroups, over chunks of FLASH_TF32_CHUNK keys (the forward, dQ) or
+# query rows (dK/dV) up to head dim FLASH_TF32_WIDE_MAX_D, half that above,
+# where the backward's chunk of split tiles would not fit.
 FLASH_TF32_CHUNK = 64
 FLASH_TF32_WIDE_MAX_D = 80
 # Its tensor-core kernels (bf16): 64-row tiles (wgmma's M) and 64-key
@@ -339,17 +336,9 @@ def bsr_matmul_unsupported(bm: int, bn: int, n: int,
     return None
 
 
-def flash_smem_bytes(d: int, bq: int = FLASH_BQ, bk: int = FLASH_BK) -> int:
-    """Dynamic shared memory of one flash-attention block: the scaled query
-    chunk and the key chunk as f32 rows padded by one word (no bank
-    conflicts on the column walk), the value chunk, and the (bq, bk + 1)
-    probabilities."""
-    return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
-
-
 def flash_tf32_chunk(d: int) -> int:
-    """Keys (dQ) or query rows (dK/dV) of a split-TF32 chunk at head dim
-    ``d``."""
+    """Keys (the forward, dQ) or query rows (dK/dV) of a split-TF32 chunk
+    at head dim ``d``."""
     return FLASH_TF32_CHUNK if d <= FLASH_TF32_WIDE_MAX_D else \
         FLASH_TF32_CHUNK // 2
 
@@ -358,6 +347,15 @@ def _flash_raw_row(d: int) -> int:
     """Words of a row of a raw f32 A tile: d when it is a multiple of 32
     (the columns swizzled by the row), else padded by 4."""
     return d if d % 32 == 0 else d + 4
+
+
+def flash_fwd_tf32_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one split-TF32 forward block: a raw f32 q
+    tile (64 rows) for each of its two warpgroups, and the chunk's K (hi
+    and lo halves), V as copied and V transposed (hi and lo, a padded slot
+    group)."""
+    chunk = flash_tf32_chunk(d)
+    return 4 * (2 * 64 * _flash_raw_row(d) + chunk * (3 * d + 2 * (d + 1)))
 
 
 def flash_bwd_dq_smem_bytes(d: int) -> int:

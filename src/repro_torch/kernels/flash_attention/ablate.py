@@ -20,18 +20,23 @@ on the model's (B, T, H, d) layout.  Variants:
 * ``fast_exp``: ``exp2f`` replaced by the bare ``ex2.approx.ftz``;
 * ``stages3``: both rings one stage deeper.
 
-``--f32``: the split-TF32 dQ and dK/dV at HuBERT-XLarge's shape (B 1,
-H = KV = 16, T 2048, d 80, bidirectional), Phi-3-Vision's (B 1, H = KV =
-32, T 2048, d 96, causal) and B 1, H 32, KV 4, T 2048, d 128, causal, each
-first held to the plain backward (max |error| within 1e-4 of the largest
-|plain|).  Variants:
+``--f32``: the split-TF32 forward, dQ and dK/dV at HuBERT-XLarge's shape
+(B 1, H = KV = 16, T 2048, d 80, bidirectional), Phi-3-Vision's (B 1, H =
+KV = 32, T 2048, d 96, causal) and B 1, H 32, KV 4, T 2048, d 128, causal,
+each first held to the plain forward and backward (O, dQ, dK and dV: max
+|error| within 1e-4 of the largest |plain|; lse within 1e-4).  Variants:
 
 * ``no_wgmma``: no wgmma issued (the split passes, fragments, softmax and
   copies only);
 * ``no_lo``: one product a step (a_hi b_hi), the price of the split;
 * ``no_loads``: no copies after the first chunk (stale tiles);
 * ``no_split``: no split pass over the copied tiles;
-* ``chunk32``: 32-key (dQ) and 32-row (dK/dV) chunks at every head dim;
+* ``chunk32``: 32-key (the forward, dQ) and 32-row (dK/dV) chunks at every
+  head dim;
+* ``in_place``: the forward's O rescaled in place and summed into by the
+  products (scale_d 1 throughout, D / 2 registers a thread fewer), where
+  the kernel as built sums each chunk's p V into a fresh partial and adds
+  it with rounded f32 adds;
 * ``rna_split``: the halves rounded by cvt.rna.tf32.f32, hi = tf32(x) (also
   stored over the copied tile) and lo = tf32(x - hi), where the kernels
   take the word itself as hi (the tensor cores ignore its low 13 bits) and
@@ -40,10 +45,11 @@ first held to the plain backward (max |error| within 1e-4 of the largest
 Every variant is checked as the kernels are (its error printed; only the
 kernels as built must pass).
 
-``--fma-source``: a ``flash_attention.cu`` whose ``flash_attention_bwd_dq``
-and ``flash_attention_bwd_dkv`` entries launch the FMA backward kernels (the
-tree before the split-TF32 kernels, unpacked with ``git archive``), built
-and timed in the same turns, on the same operands.
+``--fma-source``: an older tree's ``flash_attention.cu`` (unpacked with
+``git archive``), built and timed in the same turns, on the same operands,
+for each of its f32 kernels that is still the FMA design: its forward
+(``flash_fwd_kernel``) and its dQ and dK/dV (``flash_bwd_dq_kernel``,
+``flash_bwd_dkv_kernel``), each where the source holds it.
 
 Prints one JSON line per (variant, kernel, shape) and the card's name and
 power limit.  Needs a card and ``nvcc``; builds into
@@ -68,10 +74,15 @@ F32_SHAPES = {"hubert_d80": (1, 16, 16, 2048, 80, False),
               "phi3_d96": (1, 32, 32, 2048, 96, True),
               "gqa_d128": (1, 32, 4, 2048, 128, True)}
 F32_TOL = 1e-4   # x max |plain|, chip_smoke.py's FLASH_F32_TOL
-# the FMA backward's C entries, as the tree before the split-TF32 kernels
-# declares them: (pointer operands, strided operands)
-FMA_SYMBOLS = {"flash_attention_bwd_dq": (7, 5),
+# the FMA kernels' C entries, as the trees that hold them declare them:
+# (pointer operands, strided operands)
+FMA_SYMBOLS = {"flash_attention_fwd": (5, 4),
+               "flash_attention_bwd_dq": (7, 5),
                "flash_attention_bwd_dkv": (8, 6)}
+# an FMA kernel of an older tree -> the kernel as built that replaced it
+FMA_PAIRS = {"flash_fwd": "flash_fwd_tf32",
+             "flash_bwd_dq": "flash_bwd_dq_tf32",
+             "flash_bwd_dkv": "flash_bwd_dkv_tf32"}
 
 
 def _cut(src: str, old: str, new: str = "") -> str:
@@ -127,6 +138,24 @@ def f32_variants(src: str) -> dict:
                              "  for (int i = tid; i < 0; i += nthreads) {\n"),
             "chunk32": _cut(src, "  return d <= 80 ? 64 : 32;\n",
                             "  return 32;\n"),
+            "in_place": _cut(_cut(_cut(
+                src, "    float part[D / 2];\n"
+                     "    chunk_product<D, L>(part, s, smem_u32(VTh), "
+                     "smem_u32(VTl));\n"
+                     "#pragma unroll\n"
+                     "    for (int i = 0; i < D / 2; ++i)\n"
+                     "      acc[i] = __fadd_rn(acc[i] * alpha[(i >> 1) & 1], "
+                     "part[i]);\n",
+                "#pragma unroll\n"
+                "    for (int i = 0; i < D / 2; ++i) acc[i] *= "
+                "alpha[(i >> 1) & 1];\n"
+                "    chunk_product<D, L, true>(acc, s, smem_u32(VTh), "
+                "smem_u32(VTl));\n"),
+                "template <int D, int L>\n"
+                "__device__ __forceinline__ void chunk_product(",
+                "template <int D, int L, bool ADD = false>\n"
+                "__device__ __forceinline__ void chunk_product("),
+                "         n8 > 0);\n", "         ADD || n8 > 0);\n"),
             "rna_split": _cut(_cut(
                 src, "  hi = __float_as_uint(x);\n"
                      "  lo = __float_as_uint(x - __uint_as_float(hi & "
@@ -134,12 +163,10 @@ def f32_variants(src: str) -> dict:
                 "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
                 "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo)\n"
                 "      : \"f\"(x - __uint_as_float(hi)));\n"),
-                "    *reinterpret_cast<uint4*>(nl + w) = make_uint4(lo[0], lo[1], "
-                "lo[2], lo[3]);\n",
+                "    if constexpr (LO)\n",
                 "    *reinterpret_cast<uint4*>(nh + w) = make_uint4(hi[0], hi[1], "
                 "hi[2], hi[3]);\n"
-                "    *reinterpret_cast<uint4*>(nl + w) = make_uint4(lo[0], lo[1], "
-                "lo[2], lo[3]);\n")}
+                "    if constexpr (LO)\n")}
 
 
 FAST_EXP = ("__device__ __forceinline__ float exp2f_fast(float x) {\n"
@@ -213,17 +240,25 @@ def _fma_fn(lib, symbol: str):
     return fn
 
 
-def fma_calls(lib, q, k, v, do, lse, delta, sc, causal):
-    """The FMA dQ and dK/dV of an older tree's library on the operands:
-    kernel name -> a call that launches it."""
+def fma_calls(lib, src, q, k, v, do, lse, delta, sc, causal):
+    """The FMA kernels of an older tree's library (``src`` its source) on
+    the operands: kernel name -> a call that launches it, and their
+    outputs by name (o, lse, dq, dk, dv)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
+    o, lse_out = torch.empty_like(q), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     sizes = (b, h, kv, t, s, d)
     stream = torch.cuda.current_stream().cuda_stream
 
     def strides(*xs):
         return [st for x in xs for st in x.stride()[:3]]
+
+    def run_fwd():
+        _build.check(_fma_fn(lib, "flash_attention_fwd")(
+            *(x.data_ptr() for x in (q, k, v, o, lse_out)), *sizes,
+            *strides(q, k, v, o), float(sc), int(causal), 0, stream),
+            "fma fwd")
 
     def run_dq():
         _build.check(_fma_fn(lib, "flash_attention_bwd_dq")(
@@ -237,12 +272,19 @@ def fma_calls(lib, q, k, v, do, lse, delta, sc, causal):
             *sizes, *strides(q, k, v, do, dk, dv), float(sc), int(causal),
             0, stream), "fma dkv")
 
-    return {"flash_bwd_dq": run_dq, "flash_bwd_dkv": run_dkv}, (dq, dk, dv)
+    runs, outs = {}, {}
+    if "flash_fwd_kernel(" in src:
+        runs["flash_fwd"] = run_fwd
+        outs.update(o=o, lse=lse_out)
+    if "flash_bwd_dq_kernel(" in src:
+        runs.update(flash_bwd_dq=run_dq, flash_bwd_dkv=run_dkv)
+        outs.update(dq=dq, dk=dk, dv=dv)
+    return runs, outs
 
 
 def f32_main(args) -> int:
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_plain)
+        flash_attention_bwd_plain, flash_attention_plain)
 
     src = _build.SOURCES["flash_attention"].read_text()
     libs = {"as_built": _build.load("flash_attention")}
@@ -250,18 +292,23 @@ def f32_main(args) -> int:
     sources = f32_variants(src)
     if args.variants is not None:
         sources = {n: sources[n] for n in args.variants}
-    if args.fma_source:
-        sources["fma_parent"] = open(args.fma_source).read()
+    fma_src = open(args.fma_source).read() if args.fma_source else None
+    if fma_src is not None:
+        sources["fma_parent"] = fma_src
     libs.update(build(sources))
     fma = libs.pop("fma_parent", None)
     for name, log in BUILD_LOGS.items():
         for kernel, line in ptxas_lines(log, "tf32_kernel"):
-            print(json.dumps({"variant": name, "ptxas": kernel[-48:],
+            # the kernel and its head dim, from the mangled name
+            dim = re.search(r"ILi(\d+)EE", kernel)
+            print(json.dumps({"variant": name,
+                              "ptxas": kernel.split("tf32_kernel")[0][-16:]
+                              + "tf32_kernel",
+                              "d": int(dim.group(1)) if dim else None,
                               "report": line}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    names = [n for n in args.f32_shapes]
-    for shape_name in names:
+    for shape_name in args.f32_shapes:
         b, h, kv, t, d, causal = F32_SHAPES[shape_name]
         q, k, v, do = (torch.randn((b, t, n, d), generator=gen, device=dev)
                        .transpose(1, 2) for n in (h, kv, kv, h))
@@ -269,40 +316,48 @@ def f32_main(args) -> int:
         _build._LOADED["flash_attention"] = libs["as_built"]
         o, lse = fk.flash_attention_fwd(q, k, v, sc=sc, causal=causal)
         delta = fk.bwd_delta(o, do)
-        calls = {"flash_bwd_dq_tf32": lambda: fk.flash_attention_bwd_dq(
+        calls = {"flash_fwd_tf32": lambda: fk.flash_attention_fwd(
+                     q, k, v, sc=sc, causal=causal),
+                 "flash_bwd_dq_tf32": lambda: fk.flash_attention_bwd_dq(
                      q, k, v, do, lse, delta, sc=sc, causal=causal),
                  "flash_bwd_dkv_tf32": lambda: fk.flash_attention_bwd_dkv(
                      q, k, v, do, lse, delta, sc=sc, causal=causal)}
-        want = flash_attention_bwd_plain(q, k, v, o, lse, do, sc=sc,
-                                         causal=causal)
+        want = dict(zip(("o", "lse"), flash_attention_plain(
+            q, k, v, sc=sc, causal=causal)))
+        want.update(zip(("dq", "dk", "dv"), flash_attention_bwd_plain(
+            q, k, v, o, lse, do, sc=sc, causal=causal)))
+
+        def errors(got):
+            # lse: max |error|; the others: over max |plain|
+            return {part: float((g - want[part]).abs().max()
+                                / (1.0 if part == "lse"
+                                   else want[part].abs().max()))
+                    for part, g in got.items()}
+
         for name, lib in libs.items():
             _build._LOADED["flash_attention"] = lib
-            got = (calls["flash_bwd_dq_tf32"](),
-                   *calls["flash_bwd_dkv_tf32"]())
-            errs = {part: float((g - w).abs().max() / w.abs().max())
-                    for part, g, w in zip(("dq", "dk", "dv"), got, want)}
+            got = dict(zip(("o", "lse"), calls["flash_fwd_tf32"]()))
+            got["dq"] = calls["flash_bwd_dq_tf32"]()
+            got.update(zip(("dk", "dv"), calls["flash_bwd_dkv_tf32"]()))
+            errs = errors(got)
             print(json.dumps({"shape": shape_name, "check": name,
                               "err_over_max": errs, "tol": F32_TOL,
                               "ok": all(e <= F32_TOL
                                         for e in errs.values())}),
                   flush=True)
         _build._LOADED["flash_attention"] = libs["as_built"]
+        fma_runs = {}
         if fma is not None:
-            fma_runs, fma_out = fma_calls(fma, q, k, v, do, lse, delta, sc,
-                                          causal)
+            fma_runs, fma_out = fma_calls(fma, fma_src, q, k, v, do, lse,
+                                          delta, sc, causal)
             for run in fma_runs.values():
                 run()
             torch.cuda.synchronize()
             print(json.dumps({"shape": shape_name, "check": "fma_parent",
-                              "err_over_max": {
-                                  name: float((g - w).abs().max()
-                                              / w.abs().max())
-                                  for name, g, w in zip(("dq", "dk", "dv"),
-                                                        fma_out, want)}}),
-                  flush=True)
+                              "err_over_max": errors(fma_out)}), flush=True)
         del got, want
         times = {}
-        order = list(libs) + (["fma_parent"] if fma is not None else [])
+        order = list(libs) + (["fma_parent"] if fma_runs else [])
         for name in order + order[::-1]:
             if name == "fma_parent":
                 for kernel, fn in fma_runs.items():
@@ -317,12 +372,11 @@ def f32_main(args) -> int:
         for (name, kernel), ms in times.items():
             print(json.dumps({"variant": name, "kernel": kernel,
                               "shape": shape_name, "ms": ms}), flush=True)
-        if fma is not None:
-            print(json.dumps({"shape": shape_name, "pair_ms": {
-                name: sum(min(times[(name, kern)]) for kern in kerns)
-                for name, kerns in (
-                    ("as_built", calls), ("fma_parent", fma_runs))}}),
-                  flush=True)
+        if fma_runs:
+            print(json.dumps({"shape": shape_name, "vs_fma_min_ms": {
+                kern: {"as_built": min(times[("as_built", FMA_PAIRS[kern])]),
+                       "fma_parent": min(times[("fma_parent", kern)])}
+                for kern in fma_runs}}), flush=True)
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return 0
@@ -333,14 +387,15 @@ def main() -> int:
     ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--f32", action="store_true",
-                    help="the split-TF32 dQ and dK/dV (f32 operands)")
+                    help="the split-TF32 forward, dQ and dK/dV (f32 "
+                         "operands)")
     ap.add_argument("--f32-shapes", nargs="+", choices=sorted(F32_SHAPES),
                     default=list(F32_SHAPES))
     ap.add_argument("--variants", nargs="*", default=None,
                     help="--f32: the variants to build (default: all)")
     ap.add_argument("--fma-source", default=None,
-                    help="--f32: an older tree's flash_attention.cu whose "
-                         "f32 backward entries are the FMA kernels")
+                    help="--f32: an older tree's flash_attention.cu, whose "
+                         "FMA kernels are timed beside the ones as built")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs a CUDA card")

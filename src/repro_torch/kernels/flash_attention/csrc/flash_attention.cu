@@ -1,40 +1,29 @@
 // Flash attention for Hopper (sm_90a): the forward (causal or full, GQA)
 // with online softmax, and the two backward kernels, dQ and dK/dV.  f32
-// operands run the FMA forward and the split-TF32 backward kernels, bf16
-// operands all three as tensor-core kernels (below).  The launcher picks by
-// dtype.
+// operands run the three as split-TF32 kernels, bf16 operands as
+// tensor-core kernels (below).  The launcher picks by dtype.
 //
-// Forward (FMA).  Replaces the TPU kernel _fwd_call / _fwd_kernel in
-// src/repro/kernels/flash_attention/kernel.py.  For q (B, H, T, D) and k, v
-// (B, KV, S, D), query head h reads kv head h / (H / KV) (K and V are never
-// expanded).  In f32, as the reference:
+// What they compute, in f32 as the reference (src/repro/kernels/
+// flash_attention/kernel.py).  For q (B, H, T, D) and k, v (B, KV, S, D),
+// query head h reads kv head h / (H / KV) (K and V are never expanded):
 //
 //   s   = (q * sc) k^T,  masked to -1e30 where qpos < kpos when causal
 //   m, l, acc by online softmax over kv chunks, then l = max(l, 1e-30)
 //   O   = acc / l cast to q's dtype,  lse = m + log(l) in f32
 //
-// Mapping: one block per (b, h, 64-row q chunk), 256 threads as a 16 x 16
-// grid (ty, tx).  The q chunk is scaled by sc in f32 and kept in shared
-// memory; the block walks kv chunks of 32 rows, stopping at the causal
-// diagonal (chunks wholly past the last query row of the block are never
-// read).  Per chunk: K and V go to shared memory in f32; each thread
-// computes s for its 4 query rows (ty*4..+3) and 2 keys (tx, tx+16); the
-// row max and row sum reduce over the 16 lanes of a row group with
-// shuffles; p goes to shared memory, and each thread updates its 4 rows x
-// D/16 columns of acc (tx + 16*j) in registers.  Rows past T and keys past S
-// are bounds-tested (keys past S get -inf, so they weigh 0 whatever the
-// row holds), so T and S need not be multiples of the chunks.
-//
-// Backward (split TF32, f32 operands; flash_bwd_dq_tf32_kernel replaces
-// _bwd_call's _dq_kernel, flash_bwd_dkv_tf32_kernel, with
-// flash_dkv_reduce_kernel when G > 1, its _dkv_kernel).  The recompute
-// formulation, in f32, with lse from the forward and delta = rowsum(dO * O)
-// computed by the caller:
+// Keys past S get -inf (they weigh 0 whatever the row holds) and rows past
+// T are computed and not written, so T and S need not be multiples of the
+// chunks.  The backward is the recompute formulation, with lse from the
+// forward and delta = rowsum(dO * O) computed by the caller:
 //
 //   p  = exp((q * sc) k^T - lse)   (the same mask; keys past S weigh 0)
 //   dp = dO v^T,  ds = p * (dp - delta)
 //   dQ = ds k * sc,  dK = ds^T q * sc,  dV = p^T dO
 //
+// Split TF32 (f32 operands; flash_fwd_tf32_kernel replaces _fwd_call /
+// _fwd_kernel, flash_bwd_dq_tf32_kernel _bwd_call's _dq_kernel,
+// flash_bwd_dkv_tf32_kernel, with flash_dkv_reduce_kernel when G > 1, its
+// _dkv_kernel).
 // Every product runs on the tensor cores as sm_90a wgmma m64nNk8 .tf32 with
 // f32 sums and keeps f32 accuracy: each operand x is split into TF32
 // halves and each k step takes three products, hi hi + hi lo + lo hi
@@ -44,26 +33,29 @@
 // top 19 bits (split_tf32; on the card: errors as with cvt.rna halves, the
 // kernels 8-21 % faster).  q k^T and dO v^T need the split too: an operand
 // read once as TF32 puts ~2^-11 |s| into the exponent of p (ref.py's
-// flash_attention_bwd_tf32_plain mirrors the arithmetic, and its
-// one-product control fails the checks).  What f32 operands change against
-// the bf16 design:
+// flash_attention_fwd_tf32_plain and flash_attention_bwd_tf32_plain mirror
+// the arithmetic, and their one-product controls fail the checks).  What
+// f32 operands change against the bf16 design:
 // * wgmma transposes only 16-bit operands, so every B is staged K-major:
 //   the chunk's tiles are copied raw (cp.async), the copy serving as its
 //   own hi half, then the whole block splits them in one pass over shared
-//   memory: lo beside the copy and, where a product sums over the chunk,
-//   both halves transposed (K^T for dQ; q^T and dO^T for dK/dV).
+//   memory: lo beside the copy where the tile is read as it is, and both
+//   halves transposed where a product sums over the chunk (V^T for the
+//   forward; K^T for dQ; q^T and dO^T for dK/dV).
 // * An f32 accumulator is the next product's A fragment register for
 //   register, but an 8-column block holds columns (2 tig, 2 tig + 1) where
 //   the TF32 fragment takes k slots (tig, tig + 4): the transposed tiles
 //   store each group of 8 chunk positions in slot order 0, 2, 4, 6, 1, 3,
 //   5, 7 (tslot), so p and ds never leave registers.  A operands held in
-//   shared memory (q, dO in dQ; K, V in dK/dV) stay raw, loaded and split a
-//   k step at a time.
+//   shared memory (q in the forward; q, dO in dQ; K, V in dK/dV) stay raw,
+//   loaded and split a k step at a time.
 // * The tensor cores add into f32 with truncation: each chunk's product
 //   (L / 8 steps of 3 wgmmas) sums into a fresh partial, added into the
-//   running sums with rounded f32 adds.
-// dQ: one block per (b, h, 128 query rows), two warpgroups sharing 64-key
-// chunks (32 above d 80); dK/dV: one block per (b, query head, 64 keys),
+//   running sums with rounded f32 adds (the forward: O = alpha O + part).
+// The forward and dQ: one block per (b, h, 128 query rows), two warpgroups
+// sharing 64-key chunks (32 above d 80); the forward keeps the online
+// softmax in registers, dQ reads lse.  dK/dV: one block per (b, query head,
+// 64 keys),
 // warpgroup 0 s^T, p^T and dV, warpgroup 1 dp^T, ds^T and dK, p^T passed
 // through shared memory, over 64-row query chunks (32 above d 80).  G = 1
 // writes dK and dV directly; G > 1 writes f32 sums per query head and the
@@ -72,10 +64,11 @@
 //
 // Bound (H100 SXM, 495 TFLOP/s TF32): the split triples each product, so
 // at HuBERT-XLarge's shape (B 1, H 16, T 2048, d 80, bidirectional; one
-// product 10.74 GFLOP) dQ's 3 products take 0.195 ms, dK/dV's 4 0.260 ms;
-// the bytes (~50 MB) ~0.015 ms.  What holds them (ablate.py --f32, at that
-// shape; PERF.md): not the tensor cores, whose work (~0.2 ms in each
-// kernel) runs near that rate, but the block's serial work around it at one
+// product 10.74 GFLOP) the forward's 2 products take 0.130 ms, dQ's 3
+// 0.195 ms, dK/dV's 4 0.260 ms; the bytes (~50 MB) ~0.015 ms.  What holds
+// them (ablate.py --f32, at that shape; PERF.md): not the tensor cores,
+// whose work runs near that rate (the forward 0.34 ms, 0.23 with no
+// wgmma), but the block's serial work around it at one
 // block a SM: the split pass, the fragments' loads and splits, and the
 // copies (each key block re-reads its head's q and dO, 0.67 GB through L2
 // for dK/dV).  A producer warpgroup splitting the next chunk into a second
@@ -83,14 +76,14 @@
 // the next step.  dK/dV at d 80 slows by 20-50 % when ptxas gives it fewer
 // registers (134-173 in ablate.py's variants against 225 as built).
 //
-// Shared memory: dQ 4 raw 64 x D tiles (q, dO of each warpgroup; rows
-// padded by 4 words, or XOR-swizzled when D is a multiple of 32) and the
-// chunk's K, V (hi, lo) and K^T (hi, lo); dK/dV raw K and V, the chunk's q
-// and dO (hi, lo) and both transposed (hi, lo), lse and delta, the p^T
-// exchange: 209 / 225 KB at D = 80, 172 / 157 KB at 96, 230 / 206 KB at
-// 128.  Each launch opts in above 48 KB with cudaFuncSetAttribute.  The
-// FMA forward: (64 + 32) x (D + 1) f32 for q and k, 32 x D for v and
-// 64 x 33 for p, rows padded by one word: 74 KB at D = 128.
+// Shared memory: the forward 2 raw 64 x D q tiles (rows padded by 4
+// words, or XOR-swizzled when D is a multiple of 32), the chunk's K (hi,
+// lo), V as copied and V^T (hi, lo); dQ 4 raw tiles (q, dO of each
+// warpgroup) and the chunk's K, V (hi, lo) and K^T (hi, lo); dK/dV raw K
+// and V, the chunk's q and dO (hi, lo) and both transposed (hi, lo), lse
+// and delta, the p^T exchange: forward / dQ / dK/dV 146 / 209 / 225 KB at
+// D = 80, 111 / 172 / 157 KB at 96, 148 / 230 / 206 KB at 128.  Each
+// launch opts in above 48 KB with cudaFuncSetAttribute.
 //
 // Tensor-core kernels (bf16 operands; flash_fwd_tc_kernel replaces
 // _fwd_call / _fwd_kernel, flash_bwd_dq_tc_kernel _bwd_call's _dq_kernel,
@@ -184,8 +177,8 @@
 // are long long, sc is float; dtype 0 = f32, 1 = bf16 (every q-, k-, v-
 // and dO-shaped operand has it; lse and delta are f32, contiguous
 // (B, H, T)).  flash_attention_fwd, flash_attention_bwd_dq and
-// flash_attention_bwd_dkv take f32 only (dtype 0), the two backward ones
-// with 16-byte aligned addresses and strides; flash_attention_bwd_dkv
+// flash_attention_bwd_dkv take f32 only (dtype 0), with 16-byte aligned
+// addresses and strides; flash_attention_bwd_dkv
 // takes two f32 (B, H, S, D) scratch buffers after dk and dv, used when
 // G > 1.  flash_attention_fwd_tc, flash_attention_bwd_dq_tc and
 // flash_attention_bwd_dkv_tc take the arguments of their f32 entries and
@@ -201,205 +194,11 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 32;   // keys per kv chunk
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-
-// The FMA forward is instantiated for f32 only (bf16 runs the tensor-core
-// forward); these keep its element type a template parameter.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
 struct Strides {
   long long b, h, t;
 };
-
-constexpr size_t smem_bytes(int d) {
-  return sizeof(float) *
-         (static_cast<size_t>(BQ) * (d + 1) + static_cast<size_t>(BK) * (d + 1) +
-          static_cast<size_t>(BK) * d + static_cast<size_t>(BQ) * (BK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int H, int KV, int Tq, int S,
-    Strides qs, Strides ks, Strides vs, Strides os, float sc, int causal) {
-  constexpr int DJ = D / 16;  // acc columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);       // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);       // [BK][D]
-  float* Ps = Vs + BK * D;             // [BQ][BK + 1]
-
-  const int qi = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int q0 = qi * BQ;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int t = q0 + r;
-    Qs[r * (D + 1) + c] = t < Tq ? to_f32(qb[t * qs.t + c]) * sc : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();  // the previous chunk's K, V, P are consumed
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int s = kv0 + r;
-      const bool in = s < S;
-      Ks[r * (D + 1) + c] = in ? to_f32(kb[s * ks.t + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[s * vs.t + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float k0 = Ks[tx * (D + 1) + d];
-      const float k1 = Ks[(tx + 16) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = Qs[(ty * 4 + i) * (D + 1) + d];
-        s[i][0] = fmaf(qv, k0, s[i][0]);
-        s[i][1] = fmaf(qv, k1, s[i][1]);
-      }
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = kv0 + tx + 16 * j;
-        if (kpos >= S)
-          s[i][j] = -INFINITY;
-        else if (causal && qpos < kpos)
-          s[i][j] = NEG_INF;
-      }
-      float mx = fmaxf(s[i][0], s[i][1]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      alpha[i] = expf(m[i] - m_new);
-      const float p0 = expf(s[i][0] - m_new);
-      const float p1 = expf(s[i][1] - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha[i] + sum;
-      m[i] = m_new;
-      Ps[(ty * 4 + i) * (BK + 1) + tx] = p0;
-      Ps[(ty * 4 + i) * (BK + 1) + tx + 16] = p1;
-    }
-    __syncwarp();  // a row's p is written by the 16 lanes of its warp
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha[i];
-    for (int kc = 0; kc < BK; ++kc) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kc * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty * 4 + i) * (BK + 1) + kc];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= Tq) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * os.b + h * os.h + t * os.t;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / li);
-    if (tx == 0)
-      lse[(static_cast<int64_t>(b) * H + h) * Tq + t] = m[i] + logf(li);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int KV, int Tq, int S, Strides qs, Strides ks,
-           Strides vs, Strides os, float sc, int causal, cudaStream_t st) {
-  const size_t smem = smem_bytes(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, Tq, S, qs, ks,
-      vs, os, sc, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int H, int KV, int Tq, int S, int D,
-             Strides qs, Strides ks, Strides vs, Strides os, float sc,
-             int causal, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                           sc, causal, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                           sc, causal, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                           sc, causal, st);
-    case 80:
-      return launch<T, 80>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                           sc, causal, st);
-    case 96:
-      return launch<T, 96>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                           sc, causal, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, KV, Tq, S, qs, ks, vs, os,
-                            sc, causal, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 int opt_in(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -763,13 +562,15 @@ __device__ __forceinline__ void scores_tc(float (&s)[32], uint32_t atile,
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// One chunk of the online softmax on a 64 x 64 score accumulator (rows
-// warp*16 + gid (+8), keys n8*8 + tig*2 (+1)), in base 2: scale by
-// scl = sc log2(e), mask, update the running max m (of s scl), turn s into
-// p = 2^(s scl - m) = exp(s sc - m ln 2) in place, and return the rescale
-// alpha and the row sums of p (summed over the quad that shares a row).
+// One chunk of the online softmax on a 64 x 2N score accumulator (N
+// registers a thread: rows warp*16 + gid (+8), keys n8*8 + tig*2 (+1)),
+// in base 2: scale by scl = sc log2(e), mask, update the running max m (of
+// s scl), turn s into p = 2^(s scl - m) = exp(s sc - m ln 2) in place, and
+// return the rescale alpha and the row sums of p (summed over the quad
+// that shares a row).
 // ``masked``: the chunk holds keys past S or past the diagonal.
-__device__ __forceinline__ void softmax_chunk(float (&s)[32], float (&m)[2],
+template <int N>
+__device__ __forceinline__ void softmax_chunk(float (&s)[N], float (&m)[2],
                                               float (&alpha)[2],
                                               float (&sum)[2], int qrow,
                                               int kv0, int tig, int S,
@@ -780,7 +581,7 @@ __device__ __forceinline__ void softmax_chunk(float (&s)[32], float (&m)[2],
     const int qpos = qrow + 8 * i;
     float mx = NEG_INF;
 #pragma unroll
-    for (int n8 = 0; n8 < 8; ++n8)
+    for (int n8 = 0; n8 < N / 4; ++n8)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int idx = n8 * 4 + i * 2 + e;
@@ -801,7 +602,7 @@ __device__ __forceinline__ void softmax_chunk(float (&s)[32], float (&m)[2],
     alpha[i] = exp2f(m[i] - m_new);
     float t = 0.f;
 #pragma unroll
-    for (int n8 = 0; n8 < 8; ++n8)
+    for (int n8 = 0; n8 < N / 4; ++n8)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int idx = n8 * 4 + i * 2 + e;
@@ -1616,10 +1417,10 @@ __device__ __forceinline__ void load_nat(float* tile, const float* src,
 }
 
 // The split pass over a natural tile nh as copied, which is its own hi
-// half: lo into nl and, with TRANS, both halves into the transposed tiles
-// th and tl (the chunk positions in tslot order).  Each thread takes 4
-// columns of one row; 32 neighbouring rows a warp.
-template <int D, int L, bool TRANS>
+// half: with LO, lo into nl; with TRANS, both halves into the transposed
+// tiles th and tl (the chunk positions in tslot order).  Each thread takes
+// 4 columns of one row; 32 neighbouring rows a warp.
+template <int D, int L, bool LO, bool TRANS>
 __device__ __forceinline__ void split_tile(float* nh, float* nl, float* th,
                                            float* tl, int tid,
                                            int nthreads) {
@@ -1632,7 +1433,8 @@ __device__ __forceinline__ void split_tile(float* nh, float* nl, float* th,
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) split_tf32(xs[j], hi[j], lo[j]);
-    *reinterpret_cast<uint4*>(nl + w) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (LO)
+      *reinterpret_cast<uint4*>(nl + w) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     if constexpr (TRANS) {
       const int s = tslot(r);
       const int t0 = (s >> 2) * (4 * D + 4) + 16 * c4 + (s & 3);
@@ -1724,6 +1526,126 @@ __device__ __forceinline__ void chunk_product(float (&part)[D / 2],
   wg_commit();
   wg_wait<0>();
   fence_regs(part);
+}
+
+// The forward in split TF32: one block per (b, query head, 128 query rows),
+// longest causal rows first, two warpgroups of 64 rows each sharing the key
+// chunks (L = tf32_chunk(D) keys).  Each warpgroup keeps its rows' q raw
+// (f32) in shared memory; per chunk up to its diagonal:
+//   s = q K^T                   (A: q split per step; B: K hi / lo)
+//   the mask, the online softmax in base 2 and p      (registers)
+//   part = p V, O = alpha O + part    (A: p split; B: V^T hi / lo)
+// The chunk's K and V are copied raw, then split by the whole block in one
+// pass (K's lo beside the copy, V's halves transposed only), and the next
+// chunk's copies run under the softmax and p V once both warpgroups'
+// scores are done.  O = acc / l and lse = m ln 2 + log l (m in base 2),
+// each element written by one thread: the same bits on every run.
+template <int D>
+__global__ void __launch_bounds__(2 * WG, 1) flash_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int H, int KV, int Tq, int S, Strides qs,
+    Strides ks, Strides vs, Strides os, float sc, int causal) {
+  constexpr int L = tf32_chunk(D);
+  constexpr int RAW = TC_BQ * raw_row(D);  // words of a raw tile
+  constexpr int NAT = L * D;               // ... of a natural chunk tile
+  constexpr int TRN = L * (D + 1);         // ... of a transposed one
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qr = reinterpret_cast<float*>(smem_raw);  // [2][RAW] q, by warpgroup
+  float* Kh = Qr + 2 * RAW;   // K as copied: its hi half
+  float* Kl = Kh + NAT;
+  float* Vh = Kl + NAT;       // V as copied
+  float* VTh = Vh + NAT;      // V^T, hi and lo
+  float* VTl = VTh + TRN;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // the longest causal rows first
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * 2 * TC_BQ;       // the block's first row
+  const int q0 = qb0 + wg * TC_BQ;      // this warpgroup's first row
+  const int row = warp * 16 + gid;      // this thread's rows: row, row + 8
+  const int qrow = q0 + row;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + 2 * TC_BQ) : S;
+  const int nkv = (kv_end + L - 1) / L;
+  // this warpgroup's chunks: those holding a key at or before its last row
+  const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
+  auto load_chunk = [&](int c) {
+    if (c < nkv) {
+      load_nat<D, L>(Kh, kb, ks.t, c * L, S, tid, NT);
+      load_nat<D, L>(Vh, vb, vs.t, c * L, S, tid, NT);
+    }
+    cp_commit();  // a group per chunk, empty past the last
+  };
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+  load_chunk(0);  // with q in its group
+
+  const float scl = sc * LOG2E;
+  const float* Xq = Qr + wg * RAW;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2], sum[2];
+
+  for (int j = 0; j < nkv; ++j) {
+    // chunk j landed; every warp is past chunk j - 1's products
+    cp_wait<0>();
+    __syncthreads();
+    split_tile<D, L, true, false>(Kh, Kl, nullptr, nullptr, tid, NT);
+    split_tile<D, L, false, true>(Vh, nullptr, VTh, VTl, tid, NT);
+    fence_async_smem();  // the split tiles, written generically, for wgmma
+    __syncthreads();
+    const bool active = j < mine;  // at or before this warpgroup's diagonal
+    const int kv0 = j * L;
+    float s[L / 2] = {};
+    if (active)
+      scores_tf32<D, L, false>(s, s, Xq, Xq, smem_u32(Kh), smem_u32(Kl), 0,
+                               0, row, tig);
+    // both warpgroups' scores are done: chunk j + 1's copies refill K and V
+    __syncthreads();
+    load_chunk(j + 1);
+    if (!active) continue;
+
+    // the chunk holds keys past S or the causal diagonal
+    softmax_chunk(s, m, alpha, sum, qrow, kv0, tig, S, causal,
+                  kv0 + L > S || (causal && kv0 + L - 1 > q0), scl);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+    float part[D / 2];
+    chunk_product<D, L>(part, s, smem_u32(VTh), smem_u32(VTl));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = __fadd_rn(acc[i] * alpha[(i >> 1) & 1], part[i]);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+    float* out = o + b * os.b + h * os.h + tq * os.t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+          acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+    if (tig == 0)  // m is in base 2
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
+  }
 }
 
 // dQ in split TF32: one block per (b, query head, 128 query rows), longest
@@ -1820,8 +1742,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_kernel(
     // chunk j landed; every warp is past chunk j - 1's products
     cp_wait<0>();
     __syncthreads();
-    split_tile<D, L, true>(Kh, Kl, KTh, KTl, tid, NT);
-    split_tile<D, L, false>(Vh, Vl, nullptr, nullptr, tid, NT);
+    split_tile<D, L, true, true>(Kh, Kl, KTh, KTl, tid, NT);
+    split_tile<D, L, true, false>(Vh, Vl, nullptr, nullptr, tid, NT);
     fence_async_smem();  // the split tiles, written generically, for wgmma
     __syncthreads();
     const bool active = j < mine;  // at or before this warpgroup's diagonal
@@ -1961,8 +1883,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
     // chunk qc landed; every thread is past chunk qc - 1's products
     cp_wait<0>();
     __syncthreads();
-    split_tile<D, L, true>(Qh, Ql, QTh, QTl, tid, NT);
-    split_tile<D, L, true>(Oh, Ol, OTh, OTl, tid, NT);
+    split_tile<D, L, true, true>(Qh, Ql, QTh, QTl, tid, NT);
+    split_tile<D, L, true, true>(Oh, Ol, OTh, OTl, tid, NT);
     fence_async_smem();
     __syncthreads();
 
@@ -2036,10 +1958,16 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
   }
 }
 
-// Shared memory of the split-TF32 kernels, in bytes: dQ two raw q and two
+// Shared memory of the split-TF32 kernels, in bytes: the forward two raw q
+// tiles, the chunk's K (hi, lo), V as copied and V^T (hi, lo); dQ two raw q and two
 // raw dO tiles, the chunk's K and V (hi, lo) and K^T (hi, lo); dK/dV raw K
 // and V, the chunk's q and dO (hi, lo), both transposed (hi, lo), two slots
 // of lse and delta and the p^T exchange.
+constexpr size_t fwd_tf32_smem_bytes(int d) {
+  return 4 * (2 * static_cast<size_t>(TC_BQ) * raw_row(d) +
+              static_cast<size_t>(tf32_chunk(d)) * (3 * d + 2 * (d + 1)));
+}
+
 constexpr size_t dq_tf32_smem_bytes(int d) {
   return 4 * (4 * static_cast<size_t>(TC_BQ) * raw_row(d) +
               static_cast<size_t>(tf32_chunk(d)) * (4 * d + 2 * (d + 1)));
@@ -2049,6 +1977,23 @@ constexpr size_t dkv_tf32_smem_bytes(int d) {
   return 4 * (2 * static_cast<size_t>(TC_BQ) * raw_row(d) +
               static_cast<size_t>(tf32_chunk(d)) *
                   (4 * d + 4 * (d + 1) + 4 + WG / 2));
+}
+
+template <int D>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int KV, int Tq, int S,
+                    Strides qs, Strides ks, Strides vs, Strides os, float sc,
+                    int causal, cudaStream_t st) {
+  const size_t smem = fwd_tf32_smem_bytes(D);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_fwd_tf32_kernel<D>), smem);
+  if (err) return err;
+  const dim3 grid(B * H, (Tq + 2 * TC_BQ - 1) / (2 * TC_BQ));
+  flash_fwd_tf32_kernel<D><<<grid, 2 * WG, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Tq,
+      S, qs, ks, vs, os, sc, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -2107,16 +2052,35 @@ extern "C" int flash_attention_fwd(
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, long long o_st, float sc, int causal, int dtype,
     void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0)
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+      dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
       vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, l, B, H, KV, Tq, S, D, qs, ks, vs, os,
-                           sc, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);  // bf16: the *_tc entry
+  switch (D) {  // bf16 (dtype 1): the *_tc entry
+    case 16:
+      return launch_fwd_tf32<16>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                 os, sc, causal, st);
+    case 32:
+      return launch_fwd_tf32<32>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                 os, sc, causal, st);
+    case 64:
+      return launch_fwd_tf32<64>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                 os, sc, causal, st);
+    case 80:
+      return launch_fwd_tf32<80>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                 os, sc, causal, st);
+    case 96:
+      return launch_fwd_tf32<96>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                 os, sc, causal, st);
+    case 128:
+      return launch_fwd_tf32<128>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
+                                  os, sc, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bwd_dq(

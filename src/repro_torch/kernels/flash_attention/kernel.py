@@ -24,25 +24,31 @@ to the tensor-core kernels (``flash_fwd_tc_kernel``;
 ``flash_bwd_dq_tc_kernel``; ``flash_bwd_dkv_tc_kernel``, which writes f32
 sums per query head into two scratch buffers, then
 ``flash_dkv_reduce_kernel``, which sums each kv head's group in a fixed
-order).  f32 operands go to the FMA forward (``flash_fwd_kernel``) and to
-the split-TF32 backward kernels (``flash_bwd_dq_tf32_kernel``,
+order).  f32 operands go to the split-TF32 kernels
+(``flash_fwd_tf32_kernel``, ``flash_bwd_dq_tf32_kernel``,
 ``flash_bwd_dkv_tf32_kernel``), which keep f32 accuracy on the tensor
-cores; with G = H / KV > 1 the latter writes f32 sums per query head, which
-``flash_dkv_reduce_kernel`` sums as for bf16.  The tensor-core and
-split-TF32 kernels load 16-byte chunks, so an operand whose address or
-(b, h, t) strides are not 16-byte multiples is copied to a contiguous
-tensor first.
+cores; with G = H / KV > 1 the last writes f32 sums per query head, which
+``flash_dkv_reduce_kernel`` sums as for bf16.  Every kernel loads 16-byte
+chunks, so an operand whose address or (b, h, t) strides are not 16-byte
+multiples is copied to a contiguous tensor first.
+
+On the CPU the tests hold the split-TF32 kernels' arithmetic through its
+plain mirrors (``ref.flash_attention_fwd_tf32_plain``,
+``flash_attention_bwd_tf32_plain``) against the JAX package's kernel, and
+run the kernels' source itself compiled with g++ against an emulation of
+the CUDA features it uses (``tests/_torch_cuda_emu.py``); on the card,
+``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` hold each
+kernel against the plain versions here.
 
 Counts of launches in this process, one a launch of its kernel:
-``flash_attention_fwd.launches`` (FMA forward), ``.tc_launches``
+``flash_attention_fwd.launches`` (split-TF32 forward), ``.tc_launches``
 (tensor-core forward); ``flash_attention_bwd_dq.launches`` (split-TF32
 dQ), ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
 (split-TF32 dK/dV), ``.tf32_reduce_launches`` (its group sum, G > 1),
 ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches`` (its group
 sum).  Each of the three also has ``.by_head_dim``: its launches by
-instantiation, ``(kind, d)`` with kind ``"tc"`` (bf16), ``"fma"`` (the f32
-forward) or ``"tf32"`` (the f32 backward); a dK/dV launch and its group
-sum count once there.
+instantiation, ``(kind, d)`` with kind ``"tc"`` (bf16) or ``"tf32"``
+(f32); a dK/dV launch and its group sum count once there.
 """
 from __future__ import annotations
 
@@ -126,8 +132,8 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its address and (b, h, t) strides are 16-byte
-    multiples, as the tensor-core and split-TF32 kernels' 16-byte copies
-    need, else a contiguous copy."""
+    multiples, as the kernels' 16-byte copies need, else a contiguous
+    copy."""
     step = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(st % step == 0
                                       for st in t.stride()[:3]):
@@ -146,9 +152,8 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
         q, k, v, budget.flash_tc_smem_bytes(d) if tc
-        else budget.flash_smem_bytes(d))
-    if tc:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        else budget.flash_fwd_tf32_smem_bytes(d))
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
     # when q is a transposed view of the model's tensor.
     out = torch.empty_like(q)
@@ -162,7 +167,7 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
         flash_attention_fwd.tc_launches += 1
     else:
         flash_attention_fwd.launches += 1
-    _count_head_dim(flash_attention_fwd, "tc" if tc else "fma", d)
+    _count_head_dim(flash_attention_fwd, "tc" if tc else "tf32", d)
     return out, lse
 
 

@@ -3,8 +3,9 @@
 Port of ``repro/kernels/flash_attention/ops.py``.  The reference picks its
 chunk sizes from VMEM (``choose_chunks``) and needs T and S to be multiples
 of them; the CUDA kernels' chunks are fixed by their shared memory
-(``budget.FLASH_BQ`` x ``budget.FLASH_BK``) and they bounds-test ragged T
-and S, so every row is computed whatever the length.
+(128 query rows a block, ``budget.flash_tf32_chunk`` or
+``budget.FLASH_TC_BK`` keys a chunk) and they bounds-test ragged T and S,
+so every row is computed whatever the length.
 
 ``FlashAttention`` is the port of the reference's ``jax.custom_vjp``
 (``flash_attention``): its forward runs the forward kernel and saves the

@@ -34,6 +34,9 @@ dQ, dK and dV summed a chunk of keys or query rows at a time
 (``budget.flash_tf32_chunk``), each chunk's sum rounded to f32 and added in
 order.  With ``lo=False`` every product is one TF32 product of the
 operands read once, the control the precision checks must reject.
+``flash_attention_fwd_tf32_plain`` mirrors the split-TF32 forward the same
+way, chunk of keys by chunk with the online softmax: s = q k^T and each
+chunk's p v as three TF32 products, O = alpha O + (p v) in f32.
 
 ``attention_ref`` is the port of the reference's oracle
 (``repro/kernels/flash_attention/ref.py``): naive softmax attention.
@@ -247,6 +250,43 @@ def flash_attention_bwd_tf32_plain(q: torch.Tensor, k: torch.Tensor,
     dk = _tf32_chunked(ds.transpose(-1, -2), qf, chunk, lo).sum(dim=2) * sc
     dv = _tf32_chunked(p.transpose(-1, -2), dof, chunk, lo).sum(dim=2)
     return dq.reshape(b, h, t, d), dk, dv
+
+
+def flash_attention_fwd_tf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, *, sc: float,
+                                   causal: bool, lo: bool = True
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-TF32 forward kernel's arithmetic, a chunk of keys at a
+    time: q (B, H, T, d), k/v (B, KV, S, d) f32 -> f32 O (B, H, T, d) and
+    lse (B, H, T)."""
+    from repro_torch.kernels import budget
+
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    chunk = budget.flash_tf32_chunk(d)
+    qf = q.reshape(b, kv, g, t, d).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    m = torch.full((b, kv, g, t), NEG_INF, device=q.device)
+    l = torch.zeros((b, kv, g, t), device=q.device)
+    acc = torch.zeros((b, kv, g, t, d), device=q.device)
+    for c0 in range(0, s, chunk):
+        kc, vc = kf[..., c0:c0 + chunk, :], vf[..., c0:c0 + chunk, :]
+        x = _tf32_matmul(qf, kc.transpose(-1, -2), lo) * sc
+        if causal:
+            mask = (torch.arange(t, device=q.device)[:, None]
+                    >= torch.arange(c0, c0 + kc.shape[-2],
+                                    device=q.device)[None, :])
+            x = torch.where(mask, x, torch.full_like(x, NEG_INF))
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _tf32_matmul(p, vc, lo)
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return ((acc / l[..., None]).reshape(b, h, t, d),
+            (m + torch.log(l)).reshape(b, h, t))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

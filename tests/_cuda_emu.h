@@ -1,7 +1,8 @@
 // A CPU stand-in for the CUDA features the split-TF32 flash kernels use, so
 // that tests/_torch_cuda_emu.py can compile csrc/flash_attention.cu with g++
 // and run those kernels on CPU tensors.  A block runs as std::threads;
-// __syncthreads() is a barrier of the block's threads; cp.async copies at
+// __syncthreads() is a barrier of the block's threads; __shfl_xor_sync an
+// exchange behind a barrier of the warp's 32 threads; cp.async copies at
 // issue (and zero-fills); and wgmma .tf32 (A in registers, B K-major in
 // shared memory) is computed at
 // issue by the warpgroup's 128 threads together: each thread posts its A
@@ -23,6 +24,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -79,10 +81,9 @@ inline float4 make_float4(float a, float b, float c, float d) {
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
-// bf16 and shuffles: only the kernels the test does not run use them
+// bf16: only the kernels the test does not run use it
 inline __nv_bfloat162 __floats2bfloat162_rn(float, float) { return {}; }
 inline float2 __bfloat1622float2(__nv_bfloat162) { return {}; }
-inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, 4);
@@ -97,7 +98,6 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 
 constexpr size_t EMU_SMEM = 232448;  // a block's dynamic shared memory
 alignas(128) unsigned char smem_raw[EMU_SMEM];
-float smem[1];
 inline size_t __cvta_generic_to_shared(const void* p) {
   return static_cast<size_t>(static_cast<const unsigned char*>(p) - smem_raw);
 }
@@ -122,9 +122,22 @@ struct EmuBarrier {
 };
 EmuBarrier* emu_block_bar;
 EmuBarrier* emu_wg_bar[2];
+EmuBarrier* emu_warp_bar[8];
 uint32_t emu_a[2][128][4];  // each warpgroup's posted A fragments
+float emu_lane[8][32];      // each warp's posted shuffle operands
 inline void __syncthreads() { emu_block_bar->wait(); }
 inline void __syncwarp() {}
+
+// A full-warp shuffle: each lane posts its value, and after the warp's
+// barrier reads its partner's.
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  emu_lane[w][lane] = v;
+  emu_warp_bar[w]->wait();
+  const float r = emu_lane[w][lane ^ mask];
+  emu_warp_bar[w]->wait();
+  return r;
+}
 
 inline void emu_cp_async(uint32_t dst, const void* src, int bytes, int size) {
   std::memset(smem_raw + dst, 0, size);
@@ -180,6 +193,11 @@ inline void emu_launch(dim3 grid, int threads, size_t smem_bytes,
         emu_block_bar = &block;
         emu_wg_bar[0] = &wg0;
         emu_wg_bar[1] = &wg1;
+        std::vector<std::unique_ptr<EmuBarrier>> warps;
+        for (int w = 0; w < threads / 32; ++w) {
+          warps.emplace_back(new EmuBarrier(32));
+          emu_warp_bar[w] = warps.back().get();
+        }
         std::vector<std::thread> ts;
         for (int i = 0; i < threads; ++i)
           ts.emplace_back([&, i] {

@@ -1,16 +1,18 @@
-"""Run the split-TF32 flash kernels of ``csrc/flash_attention.cu`` on the
-CPU: the source compiled with g++ against ``tests/_cuda_emu.h`` (a stand-in
-for the CUDA features and inline PTX those kernels use), its C entry points
-called through ctypes on CPU tensors.
+"""Run the split-TF32 flash kernels (the forward, dQ and dK/dV) of
+``csrc/flash_attention.cu`` on the CPU: the source compiled with g++
+against ``tests/_cuda_emu.h`` (a stand-in for the CUDA features and inline
+PTX those kernels use), its C entry points called through ctypes on CPU
+tensors.
 
 ``emulated_library(out_dir)`` rewrites the source (the header for CUDA's,
 every ``asm`` statement a no-op, an emulator call added at the top of
 ``cp_async16``, ``cp_async4`` and each ``wgmma_tf32``, each
 ``<<<grid, block, smem, stream>>>`` launch an ``emu_launch``), compiles it
 into a shared library and loads it; ``None`` without g++.
-``bwd_tf32(lib, q, k, v, do, lse, delta, sc=, causal=)`` returns dQ, dK, dV
-from the f32 entries ``flash_attention_bwd_dq`` and
-``flash_attention_bwd_dkv`` (its group sum too when H > KV).
+``fwd_tf32(lib, q, k, v, sc=, causal=)`` returns O and lse from the f32
+entry ``flash_attention_fwd``; ``bwd_tf32(lib, q, k, v, do, lse, delta,
+sc=, causal=)`` dQ, dK, dV from the f32 entries ``flash_attention_bwd_dq``
+and ``flash_attention_bwd_dkv`` (its group sum too when H > KV).
 """
 import ctypes
 import os
@@ -66,7 +68,6 @@ def emulated_source() -> str:
     src = src.replace("#include <cuda_runtime.h>", "")
     src = src.replace("extern __shared__ __align__(128) unsigned char "
                       "smem_raw[];", "using ::smem_raw;")
-    src = src.replace("extern __shared__ float smem[];", "using ::smem;")
     src = src.replace("asm volatile(", "EMU_ASM(")
     src = re.sub(r"\basm\(", "EMU_ASM(", src)
     src = _insert_after_brace(src, r"void cp_async16\(uint32_t dst",
@@ -108,6 +109,21 @@ def _entry(lib, name, pointers, strided):
 
 def _strides(*xs):
     return [st for x in xs for st in x.stride()[:3]]
+
+
+def fwd_tf32(lib, q, k, v, *, sc, causal):
+    """O and lse of the emulated split-TF32 forward on f32 CPU tensors (q
+    (B, H, T, d) and k, v (B, KV, S, d) with a contiguous last axis and
+    16-byte strides), O in q's layout and both first filled with NaN."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full((b, h, t), float("nan"))
+    err = _entry(lib, "flash_attention_fwd", 5, 4)(
+        *(x.data_ptr() for x in (q, k, v, o, lse)), b, h, kv, t, s, d,
+        *_strides(q, k, v, o), sc, int(causal), 0, None)
+    assert err == 0, err
+    return o, lse
 
 
 def dkv_tf32(lib, q, k, v, do, lse, delta, dk, dv, dk_part, dv_part, *, sc,

@@ -89,8 +89,8 @@ def test_new_kernels_fit_the_cards_shared_memory():
                 bm, 16, 2, 4, n, cluster))
     assert budget.bsr_matmul_smem_bytes(16, 16, 2, 4, 4096) == 51_328
     for d in budget.FLASH_HEAD_DIMS:  # dynamic, opted in above 48 KB
-        assert budget.smem_fits(budget.flash_smem_bytes(d))
-    assert budget.flash_smem_bytes(128) == 74_368
+        assert budget.smem_fits(budget.flash_fwd_tf32_smem_bytes(d))
+    assert budget.flash_fwd_tf32_smem_bytes(128) == 147_712
     assert budget.bsr_matmul_unsupported(16, 16, 4096) is None
     assert "block height" in budget.bsr_matmul_unsupported(64, 16, 4096)
     assert "multiple of 16" in budget.bsr_matmul_unsupported(16, 8, 4096)

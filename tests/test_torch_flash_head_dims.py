@@ -65,7 +65,7 @@ def test_forward_and_backward_head_dims():
         assert budget.flash_bwd_dq_tc_smem_bytes(d) == 2 * 64 * d * 8
         assert budget.flash_bwd_dkv_tc_smem_bytes(d) == (
             2 * 64 * d * 6 + 4 * (2 * 2 * 64 + 32 * 128))
-        for nbytes in (budget.flash_smem_bytes(d),
+        for nbytes in (budget.flash_fwd_tf32_smem_bytes(d),
                        budget.flash_bwd_dq_smem_bytes(d),
                        budget.flash_bwd_dkv_smem_bytes(d),
                        budget.flash_bwd_dq_tc_smem_bytes(d),

@@ -31,8 +31,8 @@ head a rank at tp 8 and 16, mode B); a
 head dim no kernel is built for is refused before any launch.  A bf16
 MoE group (cuBLAS products with f32 results) agrees
 with the CPU's.  The counters show which kernel ran: bf16 operands the
-tensor-core ones, f32 the FMA forward and the split-TF32 dQ and dK/dV
-(with its group sum when a kv head serves more than one query head).
+tensor-core ones, f32 the split-TF32 forward, dQ and dK/dV (with its
+group sum when a kv head serves more than one query head).
 
 Tolerances: the ELL kernel rounds each multiply and add as its plain version
 does, in the same nonzero order, so it agrees bit for bit, pipelined or
@@ -858,10 +858,10 @@ def test_flash_dq_is_bit_identical_across_launches(cuda_device, d, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
-    """f32 operands launch the FMA forward and the split-TF32 dQ and dK/dV
-    (and its group sum: 8 query heads over 2), bf16 operands the
-    tensor-core ones (and dK/dV's group sum); each wrapper counts its
-    instantiation, ("fma" | "tf32" | "tc", d)."""
+    """f32 operands launch the split-TF32 forward, dQ and dK/dV (and its
+    group sum: 8 query heads over 2), bf16 operands the tensor-core ones
+    (and dK/dV's group sum); each wrapper counts its instantiation,
+    ("tf32" | "tc", d)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
 
@@ -874,7 +874,7 @@ def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
                 (fk.flash_attention_bwd_dkv, "reduce_launches"),
                 (fk.flash_attention_bwd_dkv, "tf32_reduce_launches"))
     tc = dtype == torch.bfloat16
-    keys = ((fk.flash_attention_fwd, ("tc" if tc else "fma", 64)),
+    keys = ((fk.flash_attention_fwd, ("tc" if tc else "tf32", 64)),
             (fk.flash_attention_bwd_dq, ("tc" if tc else "tf32", 64)),
             (fk.flash_attention_bwd_dkv, ("tc" if tc else "tf32", 64)))
     gen = torch.Generator(device=cuda_device).manual_seed(7)
