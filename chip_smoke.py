@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pruned-CNN inference and serving, Yi-9B serving
-and Yi-9B training paths, OLMoE-1B-7B serving, the other model families'
-serving, the families' training and the multi-chip path on one NVIDIA
-card.
+(at (16, 16) and the reference's default (128, 128) tiles) and Yi-9B
+training paths, OLMoE-1B-7B serving (and its smoke config's head dim 24),
+the other model families' serving, the families' training and the
+multi-chip path on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -274,6 +275,29 @@ Phases (any failure exits non-zero and prints no result):
               32:8 and at d 80 over a ragged T of 2000 (the kernels line's
               ``arch_rows``); ``library_ms`` SDPA (its whole backward for
               dQ and dK/dV), which the port never calls.
+11b. blocks -- Yi-9B at the reference's default (128, 128) tiles:
+              ``bsr_matmul`` at (128, 128) and (64, 128) on wq, wk, gate and
+              down at 4 rows (``rows``) and 8192 (``wgmma``) against its
+              plain version (PERF.md row 3d; the (64, 128) rows the kernels
+              line's ``arch_rows``); one layer's bf16 forward (B 1 x T 512)
+              through the kernels against the same forward through their
+              plain versions (relative norm 1e-2); at full width and depth,
+              bf16, the prefill (B 4 x T 2048, every projection through
+              ``wgmma``) and ``ServeEngine`` (8 requests, every projection
+              of every tick through ``rows``), then the f32 forward against
+              decode cut to 8 layers; every projection counted by schedule
+              and block (``by_block``).
+11c. any dim -- the flash kernels at head dims they run in a larger
+              instantiation: the forward, dQ and dK/dV, bf16 and f32, at d
+              24 (instantiation 32) and 48 (64) at HuBERT-XLarge's shape,
+              against their plain versions as the flash dims phase holds
+              them (PERF.md rows 4c-6c; d 48 the ``arch_rows``); d 144
+              refused on the card with no launch; OLMoE-1B-7B's smoke
+              config (head dim 24): its flash prefill (B 4 x T 256) in
+              bf16 and f32 against chunked attention's, the f32 gradients
+              through flash against chunked (the train consistency phase's
+              check, 2 layers, T 2048) and one bf16 train step, each
+              counted by head dim and instantiation.
 12. moe     -- OLMoE-1B-7B at full width and depth (16 layers, d_model
               2048, 64 experts top-8), bf16, weights from ``--seed``:
               ``bsr_matmul`` on wq (2048 -> 2048) at 4 and 8192 rows and the
@@ -440,7 +464,7 @@ Phases (any failure exits non-zero and prints no result):
    other archs' shapes, counted in its ``max_abs_err``), then the card's
    name and power limit, then the device line last.
 
-Every counted run sets all thirty-two launch counters (``COUNTERS``) to 0 just
+Every counted run sets all forty launch counters (``COUNTERS``) to 0 just
 before it and reads them just after; launches made to compare a kernel with
 its plain version are not counted, and every kernel must have launched in
 some counted run.  The prefill phase's forwards must all go through the
@@ -525,31 +549,27 @@ COUNTERS = {
                                    "reduce_launches"),
     "flash_attention_dkv_reduce_tf32": ("flash_attention_bwd_dkv",
                                         "tf32_reduce_launches"),
-    # the forwards at head dims 80 (HuBERT-XLarge) and 96 (Phi-3-Vision):
-    # their launches by instantiation, (kernel, head dim) in the wrapper's
-    # ``by_head_dim`` (each also counted in its kernel's total)
-    "flash_attention_tc_d80": ("flash_attention", "by_head_dim", ("tc", 80)),
-    "flash_attention_tc_d96": ("flash_attention", "by_head_dim", ("tc", 96)),
-    "flash_attention_d80": ("flash_attention", "by_head_dim", ("tf32", 80)),
-    "flash_attention_d96": ("flash_attention", "by_head_dim", ("tf32", 96)),
+    # the forwards at head dims 80 (HuBERT-XLarge), 96 (Phi-3-Vision) and
+    # 24 (OLMoE's smoke config, in the instantiation 32): their launches by
+    # head dim, (kernel, d, D) in the wrapper's ``by_head_dim`` (each also
+    # counted in its kernel's total)
+    **{f"flash_attention{tc}_d{d}": ("flash_attention", "by_head_dim",
+                                      (kind, d, inst))
+       for d, inst in ((80, 80), (96, 96), (24, 32))
+       for tc, kind in (("_tc", "tc"), ("", "tf32"))},
     # the backward kernels at those dims, the same way (the tensor-core
     # dK/dV's group sum counted with it; f32 runs the split-TF32 kernels)
-    "flash_attention_bwd_dq_tc_d80": ("flash_attention_bwd_dq", "by_head_dim",
-                                      ("tc", 80)),
-    "flash_attention_bwd_dq_tc_d96": ("flash_attention_bwd_dq", "by_head_dim",
-                                      ("tc", 96)),
-    "flash_attention_bwd_dq_d80": ("flash_attention_bwd_dq", "by_head_dim",
-                                   ("tf32", 80)),
-    "flash_attention_bwd_dq_d96": ("flash_attention_bwd_dq", "by_head_dim",
-                                   ("tf32", 96)),
-    "flash_attention_bwd_dkv_tc_d80": ("flash_attention_bwd_dkv",
-                                       "by_head_dim", ("tc", 80)),
-    "flash_attention_bwd_dkv_tc_d96": ("flash_attention_bwd_dkv",
-                                       "by_head_dim", ("tc", 96)),
-    "flash_attention_bwd_dkv_d80": ("flash_attention_bwd_dkv", "by_head_dim",
-                                    ("tf32", 80)),
-    "flash_attention_bwd_dkv_d96": ("flash_attention_bwd_dkv", "by_head_dim",
-                                    ("tf32", 96)),
+    **{f"flash_attention_bwd_{part}{tc}_d{d}": (
+        f"flash_attention_bwd_{part}", "by_head_dim", (kind, d, inst))
+       for part in ("dq", "dkv")
+       for d, inst in ((80, 80), (96, 96), (24, 32))
+       for tc, kind in (("_tc", "tc"), ("", "tf32"))},
+    # bsr_matmul on the reference's default (128, 128) tiles, by schedule:
+    # (schedule, bm, bn) in the wrapper's ``by_block`` (each also counted
+    # in its kernel's total)
+    "bsr_matmul_rows_b128": ("bsr_matmul", "by_block", ("rows", 128, 128)),
+    "bsr_matmul_wgmma_b128": ("bsr_matmul", "by_block",
+                              ("wgmma", 128, 128)),
 }
 KERNEL_NAMES = tuple(COUNTERS)
 # the CNN path's counters (the conv kernels and their variants); the others
@@ -650,6 +670,28 @@ MOE_FLASH_SHAPE = (4, 16, 16, 2048, 128)  # B, H, KV, T = S, d
 # the consistency check cut to 2 layers, at a capacity factor of E / top_k:
 # every expert's capacity is the whole group, so no assignment is dropped
 MOE_CONSIST_LAYERS, MOE_CONSIST_CAPACITY = 2, 8.0
+# Yi-9B at the reference's default (128, 128) tiles (its
+# SparsityConfig.block, and its dry run's (M / tp, 128)): the prefill and
+# ServeEngine at full depth, counted by schedule and block; the f32
+# forward against decode cut to BLOCKS_CONSIST_LAYERS layers (the (16, 16)
+# phase runs it at full depth); bsr_matmul's rows 3d at each of
+# BLOCKS_ROW_BLOCKS on LLM_PROJECTIONS, 4 rows (rows) and 8192 (wgmma)
+BLOCKS_BLOCK = (128, 128)
+BLOCKS_ROW_BLOCKS = ((128, 128), (64, 128))
+BLOCKS_CONSIST_LAYERS = 8
+# a layer's forward through the kernels against the same forward through
+# their plain versions (bf16 logits, relative norm)
+BLOCKS_PLAIN_RTOL = 1e-2
+# Head dims the kernels run in a larger instantiation: OLMoE-1B-7B's
+# smoke config (d 24, instantiation 32) through its flash prefill and a
+# train step in bf16 and f32; rows 4c-6c at d 24 and 48 at HuBERT-XLarge's
+# shape (B 1, H 16, KV 16, T = S 2048, bidirectional); a head dim above
+# the largest instantiation, refused on the card
+ANY_DIM_ARCH = "olmoe-1b-7b"
+ANY_DIM_DIMS = (24, 48)
+ANY_DIM_SHAPE = (1, 16, 16, 2048)
+ANY_DIM_PREFILL = (4, 256)
+ANY_DIM_REFUSED = 144
 # The flash forward at the new head dims: (B, H, KV, T = S, d), causal
 FLASH_DIM_SHAPES = {80: ("hubert-xlarge", (1, 16, 16, 2048, 80), False),
                     96: ("phi-3-vision-4.2b", (1, 32, 32, 2048, 96), True)}
@@ -2165,6 +2207,19 @@ def read_counts(mods):
             for name, (fn, attr, *key) in COUNTERS.items()}
 
 
+def dim_key(mods, kind: str, d: int) -> tuple:
+    """The flash wrappers' ``by_head_dim`` key of head dim ``d``: (kind, d,
+    the instantiation it runs in)."""
+    return kind, d, mods["budget"].flash_head_dim(d)
+
+
+def block_counts(sched: str, block, n: int) -> dict:
+    """The by-block counters a run of ``n`` bsr_matmul launches of
+    ``sched`` on ``block`` tiles adds to (none but at (128, 128))."""
+    return ({f"bsr_matmul_{sched}_b128": n}
+            if tuple(block) == BLOCKS_BLOCK else {})
+
+
 def expect(**counts) -> dict:
     """Every counter 0 but those given."""
     want = {name: 0 for name in KERNEL_NAMES}
@@ -2179,7 +2234,7 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
     for bf16 (the dK/dV group sum with each dK/dV), the split-TF32 kernels
     for f32 (the dK/dV group sum with each dK/dV when
     ``grouped``: more query heads than kv heads), their instantiation's
-    counters at d 80 and 96, ``forwards`` forward launches (``n``; ``2 n``
+    counters at d 80, 96 and 24, ``forwards`` forward launches (``n``; ``2 n``
     when remat recomputes each), every other counter 0."""
     forwards = n if forwards is None else forwards
     tc = "_tc" if bf16 else ""
@@ -2190,20 +2245,21 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
         want["flash_attention_dkv_reduce"] = n
     elif grouped:
         want["flash_attention_dkv_reduce_tf32"] = n
-    if d in FLASH_DIM_SHAPES:
+    if d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0]):
         want.update({f"flash_attention{tc}_d{d}": forwards,
                      f"flash_attention_bwd_dq{tc}_d{d}": n,
                      f"flash_attention_bwd_dkv{tc}_d{d}": n})
     return expect(**want)
 
 
-def llm_params(torch, mods, cfg, sparsity, seed, device):
+def llm_params(torch, mods, cfg, sparsity, seed, device, block=LLM_BLOCK):
     """Yi-9B params drawn on the card from ``seed``, then, at ``sparsity``,
-    block-pruned and converted to BCSR in place, one matrix at a time."""
+    block-pruned with ``block`` tiles and converted to BCSR in place, one
+    matrix at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = mods["T"].init_params(cfg, gen, device)
     if sparsity > 0:
-        params = mods["sparsify"](params, cfg, sparsity)
+        params = mods["sparsify"](params, cfg, sparsity, block)
     torch.cuda.synchronize()
     return params
 
@@ -2235,15 +2291,15 @@ def flash_pv_bf16(torch, q, k, v, sc, causal=True):
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
-def pruned_bank(torch, mods, gen, d_in, d_out, device):
+def pruned_bank(torch, mods, gen, d_in, d_out, device, block=LLM_BLOCK):
     """A (d_in, d_out) bf16 weight drawn as ``init_params`` draws it,
-    block-pruned to LLM_SPARSITY with LLM_BLOCK tiles as
+    block-pruned to LLM_SPARSITY with ``block`` tiles as
     ``sparsify_params`` prunes it: (its BCSR bank of bf16 tiles, the dense
     pruned weight in bf16, the library call's operand)."""
     bf16 = torch.bfloat16
     w = mods["dense_init"](gen, d_in, d_out, bf16, device)   # (in, out)
-    pruned = mods["block_prune"](w.float(), LLM_SPARSITY, LLM_BLOCK)
-    bc = mods["bcsr_matrix"](pruned.T, LLM_BLOCK)
+    pruned = mods["block_prune"](w.float(), LLM_SPARSITY, block)
+    bc = mods["bcsr_matrix"](pruned.T, block)
     bc = mods["dc"].replace(bc, blocks=bc.blocks.to(bf16))
     return bc, pruned.to(bf16)
 
@@ -2446,14 +2502,17 @@ def llm_kernel_phase(torch, mods, device, seed):
 
 
 def llm_consistency_phase(torch, mods, device, seed, cfg=None,
-                          projections=7, phase="consistency"):
-    """A model at full width in f32, sparsity 0.8 (Yi-9B unless ``cfg``;
-    ``projections`` its BCSR projections a layer): the full-sequence
-    forward under flash attention against token-by-token decode steps."""
+                          projections=7, phase="consistency",
+                          block=LLM_BLOCK):
+    """A model at full width in f32, sparsity 0.8 in ``block`` tiles
+    (Yi-9B unless ``cfg``; ``projections`` its BCSR projections a layer):
+    the full-sequence forward under flash attention against token-by-token
+    decode steps."""
     np, T = mods["np"], mods["T"]
     if cfg is None:
         cfg = mods["dc"].replace(mods["yi9b"], dtype="float32")
-    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 10, device)
+    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 10, device,
+                        block)
     b, t = CONSIST_SHAPE
     toks = torch.from_numpy(np.random.default_rng(seed + 11).integers(
         0, cfg.vocab, (b, t))).to(device)
@@ -2471,8 +2530,9 @@ def llm_consistency_phase(torch, mods, device, seed, cfg=None,
         got.append(lg)
     got = torch.stack(got, dim=1)
     torch.cuda.synchronize()
-    want = expect(bsr_matmul=cfg.n_layers * projections,
-                  flash_attention=cfg.n_layers)
+    n_proj = cfg.n_layers * projections
+    want = expect(bsr_matmul=n_proj, flash_attention=cfg.n_layers,
+                  **block_counts("rows", block, n_proj))
     check(fwd_counts == want, f"{phase} forward launched {fwd_counts}, "
           f"expected {want}")
     check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all()),
@@ -2481,7 +2541,8 @@ def llm_consistency_phase(torch, mods, device, seed, cfg=None,
     excess = float((diff - (CONSIST_TOL + CONSIST_TOL * ref.abs())).max())
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
-           "layers": cfg.n_layers, "sparsity": LLM_SPARSITY, "batch": b,
+           "layers": cfg.n_layers, "sparsity": LLM_SPARSITY,
+           "block": list(block), "batch": b,
            "seq": t, "forward_launches": fwd_counts,
            "max_abs_diff": float(diff.max()), "logits_absmax":
            float(ref.abs().max()), "argmax_agreement": agree,
@@ -2518,11 +2579,12 @@ def counted_drops(mods):
 
 
 def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
-                      phase="prefill"):
+                      phase="prefill", block=LLM_BLOCK,
+                      sparsities=(LLM_SPARSITY, 0.0)):
     """A model in bf16 (Yi-9B unless ``cfg``) through ``make_prefill_step``
-    under flash attention, at sparsity 0.8 and 0.0; returns the counted
-    launches.  A MoE model's lines carry the (token, expert) assignments
-    its capacity dropped."""
+    under flash attention, at each of ``sparsities`` (``block`` tiles);
+    returns the counted launches.  A MoE model's lines carry the (token,
+    expert) assignments its capacity dropped."""
     np = mods["np"]
     cfg = mods["yi9b"] if cfg is None else cfg
     b, t = PREFILL_SHAPE
@@ -2533,9 +2595,10 @@ def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
     counted = {name: 0 for name in KERNEL_NAMES}
     mods["flags"].set_attn_impl("flash")
     try:
-        for sparsity in (LLM_SPARSITY, 0.0):
+        for sparsity in sparsities:
             torch.cuda.reset_peak_memory_stats()
-            params = llm_params(torch, mods, cfg, sparsity, seed + 21, device)
+            params = llm_params(torch, mods, cfg, sparsity, seed + 21, device,
+                                block)
             step(params, batch)                   # warm-up
             torch.cuda.synchronize()
             with counted_drops(mods) as drops:
@@ -2547,7 +2610,8 @@ def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
             # every bf16 forward through the tensor-core kernel
             n_proj = cfg.n_layers * projections if sparsity else 0
             want = expect(bsr_matmul=n_proj, bsr_matmul_wgmma=n_proj,
-                          flash_attention_tc=cfg.n_layers)
+                          flash_attention_tc=cfg.n_layers,
+                          **block_counts("wgmma", block, n_proj))
             check(counts == want, f"{phase} at sparsity {sparsity}: "
                   f"launches {counts}, expected {want}")
             for name in counted:
@@ -2563,7 +2627,8 @@ def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
             torch.cuda.synchronize()
             fwd_ms = (time.perf_counter() - t0) / reps * 1e3
             row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
-                   "sparsity": sparsity, "batch": b, "seq": t,
+                   "sparsity": sparsity, "block": list(block), "batch": b,
+                   "seq": t,
                    "launches": counts, "forward_ms": fwd_ms,
                    "tokens_per_s": b * t / fwd_ms * 1e3,
                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -2583,13 +2648,14 @@ def llm_prefill_phase(torch, mods, device, seed, cfg=None, projections=7,
 
 
 def llm_serve_phase(torch, mods, device, seed, cfg=None, projections=7,
-                    phase="serve"):
-    """A model in bf16 (Yi-9B unless ``cfg``) at sparsity 0.8 behind
-    ``ServeEngine``: 4 slots, max_len 128, 8 requests with prompts and
-    budgets from ``seed``; returns the counted launches."""
+                    phase="serve", block=LLM_BLOCK):
+    """A model in bf16 (Yi-9B unless ``cfg``) at sparsity 0.8 in ``block``
+    tiles behind ``ServeEngine``: 4 slots, max_len 128, 8 requests with
+    prompts and budgets from ``seed``; returns the counted launches."""
     np, T = mods["np"], mods["T"]
     cfg = mods["yi9b"] if cfg is None else cfg
-    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 30, device)
+    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed + 30, device,
+                        block)
     step = mods["make_serve_step"](cfg)
     per_tick = []
 
@@ -2632,14 +2698,15 @@ def llm_serve_phase(torch, mods, device, seed, cfg=None, projections=7,
         check(all(0 <= tok < cfg.vocab for tok in r.output),
               f"{phase}: request {r.rid} has an id outside the vocabulary")
     n_proj = cfg.n_layers * projections
-    check(len(per_tick) == done.ticks and all(
-        c == expect(bsr_matmul=n_proj) for c in per_tick),
+    tick = expect(bsr_matmul=n_proj, **block_counts("rows", block, n_proj))
+    check(len(per_tick) == done.ticks and all(c == tick for c in per_tick),
         f"{phase}: a tick did not launch bsr_matmul {n_proj} times (rows) "
         f"and nothing else ({per_tick[:3]} ...)")
     tokens = sum(len(r.output) for r in reqs)
     tick_ms = wall / done.ticks * 1e3
     row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
-           "sparsity": LLM_SPARSITY, "slots": n_slots, "max_len": max_len,
+           "sparsity": LLM_SPARSITY, "block": list(block), "slots": n_slots,
+           "max_len": max_len,
            "requests": len(reqs), "ticks": done.ticks, "launches": counts,
            "generated_tokens": tokens, "ms_per_tick": tick_ms,
            "tokens_per_s": tokens / wall,
@@ -2721,8 +2788,8 @@ def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
     def bwd_counts():
         return (dq_k.launches, dq_k.tc_launches, dkv_k.launches,
                 dkv_k.tc_launches, dkv_k.reduce_launches,
-                dq_k.by_head_dim.get(("tc", d), 0),
-                dkv_k.by_head_dim.get(("tc", d), 0))
+                dq_k.by_head_dim.get(dim_key(mods, "tc", d), 0),
+                dkv_k.by_head_dim.get(dim_key(mods, "tc", d), 0))
 
     launched = bwd_counts()
     out.backward(do_bthd)
@@ -2925,8 +2992,8 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
         return (fwd.launches, fwd.tc_launches, dq_k.launches,
                 dq_k.tc_launches, dkv_k.launches, dkv_k.tc_launches,
                 dkv_k.tf32_reduce_launches,
-                dq_k.by_head_dim.get(("tf32", d), 0),
-                dkv_k.by_head_dim.get(("tf32", d), 0))
+                dq_k.by_head_dim.get(dim_key(mods, "tf32", d), 0),
+                dkv_k.by_head_dim.get(dim_key(mods, "tf32", d), 0))
 
     launched = counts()
     o, lse = fwd(q, k, v, sc=sc, causal=causal)
@@ -3678,6 +3745,237 @@ def flash_dims_kernel_phase(torch, mods, device, seed):
                  f"flash_attention_bwd_dkv_tc_d{d}"), arch=label).items():
             extra.setdefault(name, []).append(row)
     return rows, extra
+
+
+# ---------------------------------------------------------------------------
+# any block, any head dim: Yi-9B at (128, 128) tiles, OLMoE's head dim 24
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_launches(torch, mods):
+    """The bsr_matmul and flash forward launchers swapped for their plain
+    versions while the block runs, on the same CUDA tensors (the
+    comparison's other side; nothing is counted)."""
+    bm, fm = mods["launchers"]["bsr_matmul"], mods["launchers"]["flash"]
+    saved = bm._launch, fm._launch
+    bm._launch = (lambda x, blocks, blockcol, nblocks, out_dtype, sched=None:
+                  mods["matmul_plain"](x, blocks, blockcol,
+                                       nblocks).to(out_dtype))
+    fm._launch = (lambda q, k, v, sc, causal:
+                  mods["flash_plain"](q, k, v, sc=sc, causal=causal))
+    try:
+        yield
+    finally:
+        bm._launch, fm._launch = saved
+
+
+def blocks_plain_layer(torch, mods, device, seed) -> dict:
+    """Yi-9B cut to one layer, bf16, sparsity 0.8 in (128, 128) tiles: the
+    forward's logits (B 1, T 512) through the kernels against the same
+    forward through their plain versions (relative norm within
+    BLOCKS_PLAIN_RTOL)."""
+    np, T = mods["np"], mods["T"]
+    cfg = mods["dc"].replace(mods["yi9b"], n_layers=1)
+    params = llm_params(torch, mods, cfg, LLM_SPARSITY, seed, device,
+                        BLOCKS_BLOCK)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, 512))).to(device)
+    mods["flags"].set_attn_impl("flash")
+    try:
+        reset_counts(mods)
+        got, _ = T.forward(params, toks, cfg)
+        torch.cuda.synchronize()
+        counts = read_counts(mods)
+        with plain_launches(torch, mods):
+            want, _ = T.forward(params, toks, cfg)
+    finally:
+        mods["flags"].set_attn_impl("chunked")
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    want_counts = expect(bsr_matmul=7, flash_attention_tc=1,
+                         **block_counts("rows", BLOCKS_BLOCK, 7))
+    row = {"phase": "blocks plain layer", "arch": cfg.name,
+           "block": list(BLOCKS_BLOCK), "layers": 1, "batch": 1, "seq": 512,
+           "launches": counts, "logits_rel_norm_from_plain": rel,
+           "tolerance": BLOCKS_PLAIN_RTOL}
+    print(json.dumps(row), flush=True)
+    check(counts == want_counts, f"blocks plain layer: launches {counts}, "
+          f"expected {want_counts}")
+    check(bool(torch.isfinite(got).all()), "blocks plain layer: non-finite "
+          "logits")
+    check(rel <= BLOCKS_PLAIN_RTOL, f"blocks plain layer: the kernels' "
+          f"logits are {rel} from the plain versions' (relative norm, "
+          f"tolerance {BLOCKS_PLAIN_RTOL})")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def blocks_phase(torch, mods, device, seed):
+    """Yi-9B at the reference's default (128, 128) tiles: bsr_matmul's rows
+    3d (``bsr_matmul_row`` at each of BLOCKS_ROW_BLOCKS on LLM_PROJECTIONS,
+    4 rows on the rows schedule, 8192 on wgmma, each against its plain
+    version); one layer's forward against its plain versions; the prefill
+    (B 4 x T 2048, wgmma) and ServeEngine (8 requests, rows) at full width
+    and depth, and the f32 forward against decode cut to
+    BLOCKS_CONSIST_LAYERS layers, every projection counted by schedule and
+    block.  Returns (the counted launches, rows by kernel, the (64, 128)
+    rows by kernel)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    rows, extra = {}, {}
+    for block in BLOCKS_ROW_BLOCKS:
+        for name, d_in, d_out in LLM_PROJECTIONS:
+            bc, w_lib = pruned_bank(torch, mods, gen, d_in, d_out, device,
+                                    block)
+            for b, t in (LLM_ACTIVATIONS[0], LLM_ACTIVATIONS[-1]):
+                row = bsr_matmul_row(torch, mods, gen, device, bc, w_lib,
+                                     name, b, t,
+                                     arch=f"yi-9b, {block} tiles")
+                key = f"bsr_matmul_{row['schedule']}_b128"
+                (rows if tuple(block) == BLOCKS_BLOCK
+                 else extra).setdefault(key, []).append(row)
+            del bc, w_lib
+            torch.cuda.empty_cache()
+    yi = mods["yi9b"]
+    runs = [blocks_plain_layer(torch, mods, device, seed + 6),
+            llm_prefill_phase(torch, mods, device, seed + 7,
+                              phase="blocks_prefill", block=BLOCKS_BLOCK,
+                              sparsities=(LLM_SPARSITY,)),
+            llm_serve_phase(torch, mods, device, seed + 8,
+                            phase="blocks_serve", block=BLOCKS_BLOCK),
+            llm_consistency_phase(
+                torch, mods, device, seed + 9, mods["dc"].replace(
+                    yi, dtype="float32", n_layers=BLOCKS_CONSIST_LAYERS),
+                phase="blocks_consistency", block=BLOCKS_BLOCK)]
+    return sum_counts(runs), rows, extra
+
+
+def any_dim_refused(torch, mods, device) -> None:
+    """A head dim above the largest instantiation: flash_attention_bthd
+    raises on the card, bf16 and f32, and launches nothing (no
+    fallback)."""
+    d = ANY_DIM_REFUSED
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 64, 2, d), device=device, dtype=dtype)
+        before = read_counts(mods)
+        try:
+            mods["flash_bthd"](q, q, q, causal=True)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check("128" in raised, f"flash at head dim {d} ({dtype}) did not "
+              f"raise naming 128: {raised!r}")
+        check(read_counts(mods) == before, f"flash at head dim {d} "
+              f"launched a kernel")
+    print(json.dumps({"phase": "any dim refused", "d": d,
+                      "raised": raised}), flush=True)
+
+
+def any_dim_phase(torch, mods, device, seed):
+    """Head dims the kernels run in a larger instantiation.  Rows 4c-6c:
+    the tensor-core forward, dQ and dK/dV (bf16) and the split-TF32 ones
+    (f32) at each of ANY_DIM_DIMS at HuBERT-XLarge's shape, each against
+    its plain version (``flash_tc_row``, ``flash_bwd_tc_rows``,
+    ``flash_f32_rows``); d ANY_DIM_REFUSED refused.  Then OLMoE-1B-7B's
+    smoke config (d 24) through flash: its prefill in bf16 and f32 against
+    the same prefill through chunked attention, and a train step: in f32
+    the gradients against chunked (``train_consistency_phase``, at a
+    capacity that drops no assignment), in bf16 one counted step.
+    Returns (the counted launches, rows by kernel, the d 48 rows by
+    kernel)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    rows, extra = {}, {}
+    main_d = ANY_DIM_DIMS[0]
+    for d in ANY_DIM_DIMS:
+        shape = (*ANY_DIM_SHAPE, d)
+        arch = f"hubert-xlarge shape, d {d}"
+        got = {f"flash_attention_tc_d{main_d}": flash_tc_row(
+            torch, mods, gen, device, shape, False,
+            f"flash_attention_tc_d{main_d}", arch=arch)}
+        got.update(flash_bwd_tc_rows(
+            torch, mods, gen, device, shape, False,
+            (f"flash_attention_bwd_dq_tc_d{main_d}",
+             f"flash_attention_bwd_dkv_tc_d{main_d}"), arch=arch))
+        got.update(flash_f32_rows(
+            torch, mods, gen, device, shape, False,
+            (f"flash_attention_d{main_d}", f"flash_attention_bwd_dq_d{main_d}",
+             f"flash_attention_bwd_dkv_d{main_d}"), arch=arch))
+        for name, row in got.items():
+            (rows if d == main_d else extra).setdefault(name, []).append(row)
+    any_dim_refused(torch, mods, device)
+
+    np, T, flags = mods["np"], mods["T"], mods["flags"]
+    smoke = mods["configs"].get_config(ANY_DIM_ARCH, smoke=True)
+    check(smoke.head_dim == main_d, f"{smoke.name}: head dim "
+          f"{smoke.head_dim}, not {main_d}")
+    runs = []
+    b, t = ANY_DIM_PREFILL
+    for dtype in ("bfloat16", "float32"):
+        cfg = mods["dc"].replace(smoke, dtype=dtype)
+        params = T.init_params(cfg, torch.Generator(
+            device=device).manual_seed(seed + 9), device)
+        toks = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+            0, cfg.vocab, (b, t))).to(device)
+        step = mods["make_prefill_step"](cfg)
+        logits = {}
+        for impl in ("chunked", "flash"):
+            flags.set_attn_impl(impl)
+            try:
+                reset_counts(mods)
+                logits[impl], _ = step(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                counts = read_counts(mods)
+            finally:
+                flags.set_attn_impl("chunked")
+        tc = "_tc" if dtype == "bfloat16" else ""
+        want = expect(**{f"flash_attention{tc}": cfg.n_layers,
+                         f"flash_attention{tc}_d{main_d}": cfg.n_layers})
+        got_l, want_l = logits["flash"].float(), logits["chunked"].float()
+        rel = float((got_l - want_l).norm() / want_l.norm())
+        tol = BF16_TOL if dtype == "bfloat16" else MESH_F32_RTOL
+        row = {"phase": "any dim prefill", "arch": cfg.name, "dtype": dtype,
+               "head_dim": cfg.head_dim, "batch": b, "seq": t,
+               "launches": counts, "logits_rel_norm_from_chunked": rel,
+               "tolerance": tol}
+        print(json.dumps(row), flush=True)
+        check(counts == want, f"any dim prefill {dtype}: launches {counts}, "
+              f"expected {want}")
+        check(bool(torch.isfinite(got_l).all()), f"any dim prefill {dtype}: "
+              f"non-finite logits")
+        check(rel <= tol, f"any dim prefill {dtype}: flash logits {rel} "
+              f"from chunked (relative norm, tolerance {tol})")
+        runs.append(counts)
+        del params, logits
+        torch.cuda.empty_cache()
+    saved = flags.MOE_CAPACITY
+    flags.set_moe_capacity(MOE_CONSIST_CAPACITY)
+    try:
+        runs.append(train_consistency_phase(torch, mods, device, seed + 10,
+                                            full=smoke))
+    finally:
+        flags.set_moe_capacity(saved)
+    opt_cfg = mods["AdamWConfig"]()
+    holder, _, _ = _family_state(torch, mods, smoke, opt_cfg, seed + 11,
+                                 device)
+    batch = _family_batch(torch, mods, smoke, (b, t), seed + 11, device)
+    step = mods["make_train_step"](smoke, opt_cfg, total_steps=10)
+    flags.set_attn_impl("flash")
+    try:
+        metrics, counts, ms = _counted_step(torch, mods, step, holder, batch)
+    finally:
+        flags.set_attn_impl("chunked")
+    want = flash_step_launches(smoke.n_layers, True, main_d)
+    print(json.dumps({"phase": "any dim train", "arch": smoke.name,
+                      "dtype": smoke.dtype, "batch": b, "seq": t,
+                      "launches": counts, "loss": metrics["loss"],
+                      "step_ms": ms}), flush=True)
+    check(counts == want, f"any dim train bf16: a step launched {counts}, "
+          f"expected {want}")
+    check(math.isfinite(metrics["loss"]), "any dim train bf16: loss not "
+          "finite")
+    runs.append(counts)
+    del holder
+    torch.cuda.empty_cache()
+    return sum_counts(runs), rows, extra
 
 
 def sum_counts(runs) -> dict:
@@ -5057,12 +5355,18 @@ def kernel_entries(rows, launches, arch_rows):
         **{f"flash_attention{kind}_d{d}": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:136")
-           for kind in ("_tc", "") for d in FLASH_DIM_SHAPES},
+           for kind in ("_tc", "")
+           for d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0])},
         **{f"flash_attention_bwd_{part}{kind}_d{d}": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             f"src/repro/kernels/flash_attention/kernel.py:{line}")
            for part, line in (("dq", 170), ("dkv", 187))
-           for kind in ("_tc", "") for d in FLASH_DIM_SHAPES},
+           for kind in ("_tc", "")
+           for d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0])},
+        **{f"bsr_matmul_{sched}_b128": (
+            "src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
+            "src/repro/kernels/bsr_matmul/kernel.py:49")
+           for sched in ("rows", "wgmma")},
     }
     times_are = {
         "sparse_conv": f"sums over the kernel phase's {len(rows['sparse_conv'])}"
@@ -5159,8 +5463,8 @@ def kernel_entries(rows, launches, arch_rows):
             f"its f32 training")
         bwd = shape.replace("one ", "").replace("forward", "backward")
         for part, kernel in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
-            extra = (" and its group sum (flash_dkv_reduce_kernel<"
-                     f"{d}>)" if part == "dkv" else "")
+            extra = (" and its group sum (flash_dkv_reduce_kernel<bf16>)"
+                     if part == "dkv" else "")
             times_are[f"flash_attention_bwd_{part}_tc_d{d}"] = (
                 f"the tensor-core kernel ({kernel}_tc_kernel<{d}>){extra}, "
                 f"bf16 operands: the {part} of one {bwd}, bf16; plain and "
@@ -5171,6 +5475,30 @@ def kernel_entries(rows, launches, arch_rows):
                 f"the split-TF32 kernel ({kernel}_tf32_kernel<{d}>, no group "
                 f"sum), f32 operands: the {part} of one {bwd}, f32; "
                 f"{F32_BWD_TERMS}; launches from the {arch} f32 training")
+
+    d24, d48 = ANY_DIM_DIMS
+    b_, h_, kv_, t_ = ANY_DIM_SHAPE
+    shape = (f"B {b_}, H {h_}, KV {kv_}, T {t_}, bidirectional "
+             f"(HuBERT-XLarge's shape)")
+    for kind, inst, dt in (("_tc", "tc", "bf16"), ("", "tf32", "f32")):
+        for part, kernel in (("", "flash_fwd"), ("_bwd_dq", "flash_bwd_dq"),
+                             ("_bwd_dkv", "flash_bwd_dkv")):
+            times_are[f"flash_attention{part}{kind}_d{d24}"] = (
+                f"the {'tensor-core' if inst == 'tc' else 'split-TF32'} "
+                f"kernel ({kernel}_{inst}_kernel<32>, run-time head dim "
+                f"{d24}, {dt} operands): {shape}, d {d24}; arch_rows the "
+                f"same at d {d48} (instantiation 64); launches from "
+                f"OLMoE-1B-7B's smoke config (d {d24}): its flash prefill "
+                f"and train step in {dt}")
+    for sched, rows_n in (("rows", SERVE_SLOTS), ("wgmma", 8192)):
+        times_are[f"bsr_matmul_{sched}_b128"] = (
+            f"the {sched} schedule on (128, 128) tiles (sub-rows of (16, "
+            f"128) pieces): sums over Yi-9B's wq, wk, gate and down at "
+            f"{rows_n} rows, bf16 in and out, sparsity 0.8; arch_rows the "
+            f"same on (64, 128) tiles; launches from Yi-9B at (128, 128) "
+            f"tiles: " + ("its ServeEngine, one-layer plain check and f32 "
+                          "consistency" if sched == "rows" else
+                          "its prefill"))
 
     def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
@@ -5292,6 +5620,7 @@ def load_modules() -> dict:
     from repro_torch import configs
     from repro_torch.core.pruning import block_prune
     from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul import kernel as bsr_matmul_mod
     from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
                                                        schedule)
     from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
@@ -5301,6 +5630,7 @@ def load_modules() -> dict:
     from repro_torch.kernels.flash_attention.kernel import (
         bwd_delta, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import kernel as flash_mod
     from repro_torch.kernels.flash_attention.ops import flash_attention_bthd
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_bwd_split_plain,
@@ -5377,7 +5707,8 @@ def load_modules() -> dict:
                 steps=steps_mod, C=C, BcsrMatrix=BcsrMatrix,
                 bcsr_to_dense_matrix=bcsr_to_dense,
                 slab_width=slab_width, bsr_blocked_ref=bsr_conv_blocked_ref,
-                ell_entry_format=entry_format, roofline=roofline)
+                ell_entry_format=entry_format, roofline=roofline,
+                launchers={"bsr_matmul": bsr_matmul_mod, "flash": flash_mod})
     return mods
 
 
@@ -5457,19 +5788,26 @@ def main() -> int:
         dims_rows, dims_extra = flash_dims_kernel_phase(torch, mods, device,
                                                         args.seed)
         rows.update(dims_rows)
+        blocks, blocks_rows, blocks_extra = blocks_phase(torch, mods, device,
+                                                         args.seed)
+        rows.update(blocks_rows)
+        any_dim, any_dim_rows, any_dim_extra = any_dim_phase(
+            torch, mods, device, args.seed)
+        rows.update(any_dim_rows)
         moe, moe_rows = moe_phase(torch, mods, device, args.seed)
         families, family_rows = families_phase(torch, mods, device,
                                                args.seed)
         families_train = families_train_phase(torch, mods, device, args.seed)
         mesh = mesh_phase(torch, mods, device, args.seed)
         dryrun_phase(dry, dry_waited)
-        arch_rows = {name: (moe_rows.get(name, []) + family_rows.get(name, [])
-                            + dims_extra.get(name, []))
-                     for name in {**moe_rows, **family_rows, **dims_extra}}
+        extras = (moe_rows, family_rows, dims_extra, blocks_extra,
+                  any_dim_extra)
+        arch_rows = {name: [r for ex in extras for r in ex.get(name, [])]
+                     for ex in extras for name in ex}
         for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
-                decode_consist, prefill, serve, consist, train, moe,
-                families, families_train, mesh))
+                decode_consist, prefill, serve, consist, train, blocks,
+                any_dim, moe, families, families_train, mesh))
         never = [name for name in KERNEL_NAMES if not launches[name]]
         check(not never, f"kernels of the path never launched in its counted "
               f"runs: {never}")

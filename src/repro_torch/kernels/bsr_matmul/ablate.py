@@ -12,6 +12,7 @@ reversed, as built)::
         --crossover
 
 Yi-9B projections, bf16, weights block-pruned to 0.8 with (16, 16) tiles
+(``--block BM BN``: other tiles, e.g. the reference's default 128 128)
 from seed 0, bf16 output.  ``--schedule wgmma`` (the default): 8192 rows
 (a B 4 x T 2048 prefill), CUDA events after a warm-up.  Its variants:
 
@@ -47,6 +48,14 @@ Its variants:
 projections at 8, 16, 32, 48, 64, 96, 128, 256, 512, 1024 and 2048 bf16
 rows: the row count up to which ``rows`` is faster sets
 ``budget.BSR_MATMUL_ROWS_MAX``.
+
+``--against SOURCE`` builds another tree's ``bsr_matmul.cu`` (with the same
+C interface) and holds the kernel as built to it bit for bit on the four
+projections' (16, 16) banks: both schedules in bf16 (4 and 8192 rows, f32
+and bf16 outputs) and the rows schedule in f32 (4 rows)::
+
+    PYTHONPATH=src python -m repro_torch.kernels.bsr_matmul.ablate \
+        --against build/parent/src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu
 
 Prints one JSON line per (variant or schedule, projection, rows), with its
 largest difference from the plain version, and the card's name and power
@@ -97,8 +106,8 @@ def variants(src: str) -> dict:
                     "        if (0) cp_async16(sbase + (r / 64) * XTILE")
 
     def no_tiles(text):
-        return _cut(text, "              cp_async16(sbase + (g * CSUB + jj0",
-                    "              if (0) cp_async16(sbase + (g * CSUB + jj0")
+        return _cut(text, "              cp_async16(sbase + (g * CSUB + tc",
+                    "              if (0) cp_async16(sbase + (g * CSUB + tc")
 
     def consts(text, **values):
         for name, value in values.items():
@@ -133,9 +142,9 @@ def rows_variants(src: str) -> dict:
         "  if (cluster == 1) return;", "  return;")
     return {
         "rows_no_copies": _cut(
-            src, "        load_stage(bars + 8 * slot,",
-            "        mbar_arrive(bars + 8 * slot);\n"
-            "        if (0) load_stage(bars + 8 * slot,"),
+            src, "          load_pieces(bars + 8 * slot,",
+            "          mbar_arrive(bars + 8 * slot);\n"
+            "          if (0) load_pieces(bars + 8 * slot,"),
         "rows_no_x": _cut(src, "      const bool in = live && r0 + row < B;",
                           "      const bool in = false;"),
         # the floor: every block reads its unit and returns
@@ -225,14 +234,14 @@ def device_ms(fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def _bank(name: str, rows: int, gen, dev):
+def _bank(name: str, rows: int, gen, dev, block=(16, 16)):
     from repro_torch.core.pruning import block_prune
     from repro_torch.core.sparse_format import bcsr_from_dense
 
     bf16 = torch.bfloat16
     d_in, d_out = PROJECTIONS[name]
     w = torch.randn((d_out, d_in), generator=gen, device=dev)
-    bc = bcsr_from_dense(block_prune(w, 0.8, (16, 16)).to(bf16), (16, 16))
+    bc = bcsr_from_dense(block_prune(w, 0.8, block).to(bf16), block)
     x = torch.randn((rows, d_in), generator=gen, device=dev).to(bf16)
     return x, bc.blocks, bc.blockcol, bc.nblocks
 
@@ -266,6 +275,40 @@ def crossover(projs, reps: int) -> None:
         "rows_faster_at": faster}), flush=True)
 
 
+def against(source: str, projs) -> None:
+    """The kernel as built and ``source``'s on the same (16, 16) banks and
+    inputs, in each schedule, dtype and output dtype: one JSON line each
+    with ``bit_identical``; raises if any differs."""
+    libs = {"as_built": _build.load("bsr_matmul"), **build(
+        {"against": source})}
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    differ = []
+    for proj in projs:
+        x, *bank = _bank(proj, ROWS, gen, dev)
+        for dtype, rows, sched in ((bf16, 4, "rows"), (bf16, ROWS, "wgmma"),
+                                   (torch.float32, 4, "rows")):
+            args = (x[:rows].to(dtype).contiguous(), bank[0].to(dtype),
+                    *bank[1:])
+            for out in (torch.float32, bf16):
+                got = {}
+                for name, lib in libs.items():
+                    _build._LOADED["bsr_matmul"] = lib
+                    got[name] = bk._launch(*args, out, sched=sched)
+                torch.cuda.synchronize()
+                same = torch.equal(got["as_built"], got["against"])
+                print(json.dumps({"against": proj, "rows": rows,
+                                  "schedule": sched, "dtype": str(dtype),
+                                  "out_dtype": str(out),
+                                  "bit_identical": same}), flush=True)
+                if not same:
+                    differ.append((proj, rows, sched, str(dtype), str(out)))
+    _build._LOADED["bsr_matmul"] = libs["as_built"]
+    if differ:
+        raise SystemExit(f"ablate: outputs differ from the other source: "
+                         f"{differ}")
+
+
 def main() -> int:
     from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_plain
 
@@ -285,9 +328,20 @@ def main() -> int:
                          "later run reuses them")
     ap.add_argument("--crossover", action="store_true",
                     help="time both schedules from 8 to 128 rows instead")
+    ap.add_argument("--block", nargs=2, type=int, default=(16, 16),
+                    metavar=("BM", "BN"), help="the banks' tiles")
+    ap.add_argument("--against", default=None,
+                    help="another tree's bsr_matmul.cu: hold the kernel as "
+                         "built to it bit for bit instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs a CUDA card")
+    if args.against:
+        from pathlib import Path
+        against(Path(args.against).read_text(), args.proj or
+                sorted(PROJECTIONS))
+        _print_card()
+        return 0
     rows_mode = args.schedule == "rows"
     projs = args.proj or (sorted(PROJECTIONS) if rows_mode or args.crossover
                           else ["wq", "gate", "down"])
@@ -312,7 +366,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     calls, operands = {}, {}
     for name in projs:
-        operands[name] = _bank(name, nrows, gen, dev)
+        operands[name] = _bank(name, nrows, gen, dev, tuple(args.block))
         calls[name] = (lambda a=operands[name]: bk.bsr_matmul_kernel(
             *a, out_dtype=bf16))
     flush = L2Flush(dev) if rows_mode else None
@@ -340,6 +394,7 @@ def main() -> int:
     keys = ("warm_ms", "cold_ms") if rows_mode else ("ms",)
     for (name, proj), err in diffs.items():
         print(json.dumps({"variant": name, "proj": proj, "rows": nrows,
+                          "block": list(args.block),
                           **{k: times[(name, proj, k)] for k in keys},
                           "max_abs_err": err}), flush=True)
     # each variant's best time summed over the projections

@@ -11,30 +11,39 @@
 //   y[r, i*BM + m] = sum_{kb < nblocks[i]} sum_j blocks[i,kb,m,j] *
 //                    x[r, blockcol[i,kb]*BN + j]             (f32 sums)
 //
-// rounded once to the output's dtype (f32 or bf16).  Two schedules, picked
-// by the launcher (kernel.py) from the row count and the dtype:
+// rounded once to the output's dtype (f32 or bf16).  BM and BN are any
+// multiples of 16 (the reference's default (128, 128) tiles among them;
+// kernel.py re-tiles a bank of any other block first).  Both schedules
+// read the bank as GS = GM * S sub-rows, S = BM / 16: sub-row r = i S + j
+// reads the (16, BN) piece j of each of block-row i's kept tiles (tile
+// rows 16 j .. 16 j + 15: 16 BN contiguous elements, the pieces of
+// successive tiles BM BN apart) and writes outputs 16 r .. 16 r + 15.  At
+// BM = 16 a sub-row is a block-row, and the walks are the (16, BN) tiles'
+// as they were.  Two schedules, picked by the launcher (kernel.py) from the
+// row count and the dtype:
 //
 //   rows (f32 or bf16 inputs) -- up to 2048 bf16 rows (decode: 4 on the
 //     serving path), f32 at any count.  At decode the work is 2*B*kept*BM*BN
 //     operations over the kept tiles' bytes, far below the card's 295
 //     operations per byte: the weight bytes bound it (3.3 GB a Yi-9B
 //     decode step, 0.99 ms at 3.35 TB/s), and a kernel streams them well
-//     only with many bytes in flight on every SM.  Block-row i's kept
-//     tiles are contiguous (blocks[i, :nblocks[i]]), so the launcher cuts
-//     each into `cluster` units of about equal size (a work list built
-//     once per bank), and a block's producer warp streams its units into
-//     a ring of RSTAGES shared-memory stages, one 1-D bulk copy
-//     (cp.async.bulk) a stage on an mbarrier, while RW consumer warps
-//     multiply: a (16, 16) piece of a tile is one mma.sync m16n8k16 for
-//     each 8 rows of x, x's fragments read from shared memory, where the
-//     producer staged x's rows of the pass with one more bulk copy (bf16
-//     passes of 8 rows, up to RX_MAX bytes; else through L1).  A bank of
-//     many block-rows takes whole block-rows (cluster 1), each block an
-//     equal share of them; one of fewer block-rows than SMs (wk, wv: 32)
-//     splits each over a thread-block cluster, whose first block adds the
-//     others' sums, stored into its shared memory, in block order.  One
-//     launch, no atomics: the same bits on every call.  Only the kept
-//     tiles are copied, in any column order.
+//     only with many bytes in flight on every SM.  The launcher cuts each
+//     sub-row's run of kept pieces into `cluster` units of about equal
+//     size (a work list built once per bank), and a block's producer warp
+//     streams its units into a ring of RSTAGES shared-memory stages on an
+//     mbarrier each, by 1-D bulk copies (cp.async.bulk): one a stage at
+//     BM = 16, where a unit's pieces are contiguous (blocks[i, kb0:kb1]),
+//     one a piece above, while RW consumer warps multiply: a (16, 16)
+//     part of a piece is one mma.sync m16n8k16 for each 8 rows of x, x's
+//     fragments read from shared memory, where the producer staged x's
+//     rows of the pass with one more bulk copy (bf16 passes of 8 rows, up
+//     to RX_MAX bytes; else through L1).  A bank of many sub-rows takes
+//     whole sub-rows (cluster 1), each block an equal share of them; one
+//     of fewer sub-rows than SMs (wk, wv in (16, 16) tiles: 32) splits
+//     each over a thread-block cluster, whose first block adds the others'
+//     sums, stored into its shared memory, in block order.  One launch, no
+//     atomics: the same bits on every call.  Only the kept pieces are
+//     copied, in any column order.
 //
 //   wgmma (tensor cores, bf16 inputs only) -- for many rows, as in prefill
 //     (B*T = 8192 rows).  The kept tiles' products are bound by the bf16
@@ -42,27 +51,29 @@
 //     block-row reads at its own scattered block columns, is not fetched
 //     again for each tile: a tile is one 16-deep step of 16 outputs, so
 //     its reuse has to come from the x columns the block-rows share.  One
-//     block owns 128 rows of x and a group of GB = 16 block-rows (256
+//     block owns 128 rows of x and a group of GB = 16 sub-rows (256
 //     outputs); each of its two warpgroups accumulates 8 of the
-//     block-rows for all 128 rows (two 64-row halves, 8 f32 registers a
-//     thread for each block-row and half).  The block walks the columns of
+//     sub-rows for all 128 rows (two 64-row halves, 8 f32 registers a
+//     thread for each sub-row and half).  The block walks the columns of
 //     x in chunks of CW = 128, filled by cp.async into two rings: per
 //     chunk, x[rows, chunk] once for the whole group
-//     (XSTAGES = 3 stages, two chunks ahead of the wgmmas), and every kept
-//     tile of the group whose block column falls in the chunk (TSTAGES = 2
-//     stages of a slot per block-row and 16-column block, one chunk
-//     ahead).  blockcol ascends strictly within a row up to nblocks[i]
-//     (bcsr_from_dense keeps the kept tiles in row-major order), so one
-//     pointer a block-row walks its tiles in step with the chunks, and
+//     (XSTAGES = 3 stages, two chunks ahead of the wgmmas), and the 16-
+//     column parts of the group's kept pieces that fall in the chunk
+//     (TSTAGES = 2 stages of a slot per sub-row and 16-column block, one
+//     chunk ahead; a tile across the chunk's edge, where BN does not
+//     divide CW, is taken in two parts).  blockcol ascends strictly within
+//     a row up to nblocks[i] (bcsr_from_dense keeps the kept tiles in
+//     row-major order), so one pointer a sub-row walks its tiles in step
+//     with the chunks, passing a tile once its last part is staged, and
 //     padding tiles are never reached.  A bank out of order would lose
 //     tiles silently (the walk stops short), a repeated column would
 //     overwrite its twin's slot: the launcher (kernel.py) refuses both,
-//     checked once per bank.  Each kept (16, 16) sub-tile is two
+//     checked once per bank.  Each kept (16, 16) part is two
 //     wgmma m64n16k16, one per 64-row half (x and the tile K-major in shared
 //     memory, in 8 x 8 core matrices without a swizzle; the x sub-tile of
 //     16-column block jj sits 2048 jj bytes into the chunk) into its
-//     block-row's accumulator; a bitmask a block-row and stage says which
-//     of the chunk's 8 sub-tile slots hold a tile.  Blocks run group-major
+//     sub-row's accumulator; a bitmask a sub-row and stage says which
+//     of the chunk's 8 slots hold a part.  Blocks run group-major
 //     (the groups of one row slab are consecutive block indices), so the
 //     blocks that share a slab of x run together and x comes from device
 //     memory about once; it crosses L2 once per group (M / 256 times) and
@@ -84,9 +95,8 @@
 //     memory) and a producer warp ahead of the consumers: the next step.
 //
 // Rows past B are bounds-tested (no padding of x is needed); N must be a
-// multiple of BN (the wrapper pads), BN a multiple of 16 (wgmma: a divisor
-// of CW = 128), BM 16 (the transformer's (16, 16) tiles).  x and the tiles
-// must be 16-byte aligned (the wrapper checks).
+// multiple of BN (the wrapper pads), BM and BN multiples of 16.  x and the
+// tiles must be 16-byte aligned (the wrapper checks).
 //
 // C interface (ctypes): pointers and the stream are void*, sizes are int;
 // dtype and out_dtype 0 = f32, 1 = bf16; schedule 0 = rows, 1 = wgmma.
@@ -162,22 +172,46 @@ __device__ __forceinline__ void mbar_wait_warp(uint32_t bar, int parity) {
   while (!__all_sync(0xffffffffu, mbar_try_wait(bar, parity))) {
   }
 }
-// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory; the barrier's phase
-// completes when its one arrival (this one) and the bytes have landed.
-__device__ __forceinline__ void load_stage(uint32_t bar, uint32_t dst,
-                                           const void* src, uint32_t bytes) {
+// The barrier's one arrival, announcing `bytes` to land on it: its phase
+// completes when they have.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile(
       "{\n.reg .b64 st;\n"
       "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
           bar),
       "r"(bytes)
       : "memory");
+}
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t bar, uint32_t dst,
+                                          const void* src, uint32_t bytes) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+// One bulk copy of `bytes` into shared memory on the barrier's one arrival.
+__device__ __forceinline__ void load_stage(uint32_t bar, uint32_t dst,
+                                           const void* src, uint32_t bytes) {
+  mbar_expect(bar, bytes);
+  bulk_copy(bar, dst, src, bytes);
+}
+// `n` pieces of `bytes` each, `stride` elements apart in device memory,
+// side by side into shared memory on the barrier's one arrival: one copy
+// where they are contiguous.
+template <typename T>
+__device__ __forceinline__ void load_pieces(uint32_t bar, uint32_t dst,
+                                            const T* src, int n,
+                                            uint32_t bytes, int64_t stride) {
+  if (stride * static_cast<int64_t>(sizeof(T)) == bytes) {
+    load_stage(bar, dst, src, n * bytes);
+    return;
+  }
+  mbar_expect(bar, n * bytes);
+  for (int p = 0; p < n; ++p)
+    bulk_copy(bar, dst + p * bytes, src + p * stride, bytes);
 }
 // A cluster barrier in two halves: every thread of every block of the
 // cluster arrives, then waits.  A plain arrive releases the thread's
@@ -385,32 +419,33 @@ __host__ __device__ inline int rows_smem_bytes(int B, int N, int BN,
 }
 
 // A block takes units blockIdx.x, + gridDim.x, ... of a pass of R rows of
-// x (blockIdx.y); with a cluster (the `cluster` units of a block-row are
-// the consecutive blocks of one thread-block cluster, unit u its block
-// u % cluster), one unit, gridDim.x the units.  Unit u (an int4:
-// block-row i, its tiles [kb0, kb1); their block columns at
-// cols[u * maxt ..]) is a contiguous run of the bank, blocks[i, kb0:kb1].
-// The producer warp stages x's rows of the pass (XS, one bulk copy), then
-// streams the block's units into the ring back to back, stage by stage (a
-// stage of `stage_tiles` tiles of one unit, one bulk copy on the stage's
-// `full` barrier; a stage is refilled once the RW consumer warps have
-// arrived on its `empty` barrier).  Within a unit, (16, 16) piece p goes
-// to consumer warp p % RW (a stage holds a multiple of RW pieces).  A warp
-// takes its pieces in chunks of PF: it loads the chunk's block columns
-// (one load a lane, independent of the unit's descriptor; for passes of 8
-// rows the next unit's are loaded during this one) and every x fragment
-// of its pieces there, then waits for each stage and multiplies.
-// At a unit's end the warps' sums are added in warp order; without a
-// cluster they are y, else block 0 of the cluster adds its blocks' sums in
-// block order (stored into its shared memory) and writes y: no atomics,
-// the same bits on every launch.  KS is the pieces a tile for (16, 16 KS)
-// tiles (the transformer's KS = 1, whose stage size is then a constant,
-// stage1_tiles, and every index a shift), or 0 for any width.
+// x (blockIdx.y); with a cluster (the `cluster` units of a sub-row are the
+// consecutive blocks of one thread-block cluster, unit u its block
+// u % cluster), one unit, gridDim.x the units.  Unit u (an int4: sub-row
+// r = i S + j, its tiles [kb0, kb1); their block columns at
+// cols[u * maxt ..]) is piece j of block-row i's tiles kb0 .. kb1 - 1,
+// (16, BN) each, BM BN elements apart (contiguous at S = 1).  The producer
+// warp stages x's rows of the pass (XS, one bulk copy), then streams the
+// block's units into the ring back to back, stage by stage (a stage of
+// `stage_tiles` pieces of one unit, on the stage's `full` barrier; a stage
+// is refilled once the RW consumer warps have arrived on its `empty`
+// barrier).  Within a unit, (16, 16) part p goes to consumer warp p % RW
+// (a stage holds a multiple of RW parts).  A warp takes its parts in
+// chunks of PF: it loads the chunk's block columns (one load a lane,
+// independent of the unit's descriptor; for passes of 8 rows the next
+// unit's are loaded during this one) and every x fragment of its parts
+// there, then waits for each stage and multiplies.  At a unit's end the
+// warps' sums are added in warp order; without a cluster they are y, else
+// block 0 of the cluster adds its blocks' sums in block order (stored into
+// its shared memory) and writes y: no atomics, the same bits on every
+// launch.  KS is the parts a piece for (16, 16 KS) pieces (KS = 1 for
+// (BM, 16) tiles, whose stage size is then a constant, stage1_tiles, and
+// every index a shift), or 0 for any width.
 template <typename T, typename TO, int R, int KS, bool XS>
 __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
     const T* __restrict__ x, const T* __restrict__ blocks,
     const int4* __restrict__ units, const int* __restrict__ cols,
-    TO* __restrict__ y, int B, int N, int GM, int KB, int BN_,
+    TO* __restrict__ y, int B, int N, int GS, int S, int KB, int BN_,
     int stage_tiles_, int cluster, int maxt, int nunits) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int BN = KS ? 16 * KS : BN_;
@@ -427,8 +462,8 @@ __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
   const int r0 = blockIdx.y * R;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int ks = BN / 16;                    // pieces a tile
-  const int tile_elems = 16 * BN;
+  const int ks = BN / 16;                    // parts a piece
+  const int tile_elems = 16 * BN;            // elements of a piece
   const int stage_elems = stage_tiles * tile_elems;
   const int stage_pieces = stage_tiles * ks;
 
@@ -460,17 +495,20 @@ __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
         const int4 un = next;
         if (u + gridDim.x < nunits) next = units[u + gridDim.x];
         const int nt = un.z - un.y;
-        const T* src =
-            blocks + (static_cast<int64_t>(un.x) * KB + un.y) * tile_elems;
+        // piece j = un.x % S of block-row un.x / S's tile un.y, the next
+        // tile's piece S tile_elems on
+        const int64_t stride = static_cast<int64_t>(S) * tile_elems;
+        const T* src = blocks +
+                       (static_cast<int64_t>(un.x / S) * KB + un.y) * stride +
+                       (un.x % S) * tile_elems;
         for (int t = 0; t < nt; t += stage_tiles, ++gs) {
           const int slot = gs % RSTAGES;
           if (gs >= RSTAGES)
             mbar_wait(bars + 8 * (RSTAGES + slot), (gs / RSTAGES - 1) & 1);
-          load_stage(bars + 8 * slot,
-                     smem_u32(ring + static_cast<int64_t>(slot) * stage_elems),
-                     src + static_cast<int64_t>(t) * tile_elems,
-                     min(stage_tiles, nt - t) * tile_elems *
-                         static_cast<uint32_t>(sizeof(T)));
+          load_pieces(bars + 8 * slot,
+                      smem_u32(ring + static_cast<int64_t>(slot) * stage_elems),
+                      src + t * stride, min(stage_tiles, nt - t),
+                      tile_elems * static_cast<uint32_t>(sizeof(T)), stride);
         }
       }
     }
@@ -579,7 +617,7 @@ __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
         if (cluster > 1)
           part[o] = v;
         else if (row < B)
-          store1(y + static_cast<int64_t>(row) * GM * 16 + un.x * 16 + o % 16,
+          store1(y + static_cast<int64_t>(row) * GS * 16 + un.x * 16 + o % 16,
                  v);
       }
       consumers_sync();  // part is free for the next unit
@@ -603,7 +641,7 @@ __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
     if (row >= B) continue;
     float v = slots[o];
     for (int r = 1; r < cluster; ++r) v += slots[r * R * 16 + o];
-    store1(y + static_cast<int64_t>(row) * GM * 16 + i * 16 + o % 16, v);
+    store1(y + static_cast<int64_t>(row) * GS * 16 + i * 16 + o % 16, v);
   }
 }
 
@@ -695,16 +733,17 @@ __device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da,
 
 // Shared memory: XSTAGES x stages, each the GW 64-row halves of the chunk,
 // 64 rows x CW columns with element (r, c) at (c / 8) * 1024 + r * 16 +
-// (c % 8) * 2; then TSTAGES tile stages of GB x CSUB sub-tile slots, slot
-// (g, jj) holding block-row g's tile columns that fall on the chunk's
+// (c % 8) * 2; then TSTAGES tile stages of GB x CSUB (16, 16) slots, slot
+// (g, jj) holding the part of sub-row g's pieces that falls on the chunk's
 // 16-column block jj, element (m, k) at (k / 8) * 256 + m * 16 + (k % 8) *
 // 2; then TSTAGES x GB masks, bit jj of mask (stage, g) set iff slot
-// (g, jj) holds a tile.
+// (g, jj) holds a part.
 template <typename TO>
 __global__ void __launch_bounds__(NTH, MIN_BLOCKS) bsr_matmul_wgmma(
     const bf16* __restrict__ x, const bf16* __restrict__ blocks,
     const int* __restrict__ blockcol, const int* __restrict__ nblocks,
-    TO* __restrict__ y, int B, int N, int GM, int KB, int BN, int ngroups) {
+    TO* __restrict__ y, int B, int N, int GS, int S, int KB, int BN,
+    int ngroups) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t xbase = smem_u32(smem);
   const uint32_t tbase = xbase + XSTAGES * XSTAGE;
@@ -721,25 +760,27 @@ __global__ void __launch_bounds__(NTH, MIN_BLOCKS) bsr_matmul_wgmma(
   const int wwarp = (tid % WG) / 32;
   const int gid = lane / 4;
   const int tig = lane % 4;
-  const int MO = GM * 16;
+  const int MO = GS * 16;
   const int nchunks = (N + CW - 1) / CW;
-  const int pieces = BN / 8;  // 16-byte pieces of a tile row
+  const int64_t tstride = static_cast<int64_t>(S) * 16 * BN;  // a tile
 
-  // Warp w stages the tiles of block-rows w, w + NWARPS, ... of the group:
-  // each keeps its row's pointer (the first tile not yet staged), its tile
-  // count, and a window of 32 of its block columns, lane l holding
-  // blockcol[i, wbase + l] (refilled when fewer than CSUB lie past ptr).
-  constexpr int RPW = GB / NWARPS;  // block-rows a warp stages
+  // Warp w stages the pieces of sub-rows w, w + NWARPS, ... of the group:
+  // each keeps its sub-row's pointer (the first tile not wholly staged),
+  // its block-row's tile count, and a window of 32 of its block columns,
+  // lane l holding blockcol[i / S, wbase + l] (refilled when fewer than
+  // CSUB lie past ptr).
+  constexpr int RPW = GB / NWARPS;  // sub-rows a warp stages
   int ptr[RPW], nbr[RPW], wbase[RPW], wcol[RPW];
   auto window = [&](int i, int nb, int kb) {
-    return kb < nb ? blockcol[static_cast<int64_t>(i) * KB + kb] : 0x7fffffff;
+    return kb < nb ? blockcol[static_cast<int64_t>(i / S) * KB + kb]
+                   : 0x7fffffff;
   };
 #pragma unroll
   for (int e = 0; e < RPW; ++e) {
     const int i = i0 + warp + NWARPS * e;
     ptr[e] = 0;
     wbase[e] = 0;
-    nbr[e] = i < GM ? nblocks[i] : 0;
+    nbr[e] = i < GS ? nblocks[i / S] : 0;
     wcol[e] = window(i, nbr[e], lane);
   }
 
@@ -766,9 +807,12 @@ __global__ void __launch_bounds__(NTH, MIN_BLOCKS) bsr_matmul_wgmma(
     cp_commit();  // a group per chunk, empty past the last
   };
 
-  // The group's kept tiles whose block columns fall in chunk c: for each
-  // block-row, the run of its tiles from its pointer on.  One cp.async
-  // group; the masks are plain stores.
+  // The parts of the group's kept pieces that fall in chunk c: for each
+  // sub-row, the run of its tiles from its pointer on that overlap the
+  // chunk, each tile's 16-column parts inside it; the pointer passes a
+  // tile once its last part is staged (a tile across the chunk's end is
+  // the run's last, and stays).  One cp.async group; the masks are plain
+  // stores.
   auto load_tiles = [&](int c) {
     if (c < nchunks) {
       const int st = c % TSTAGES;
@@ -779,35 +823,46 @@ __global__ void __launch_bounds__(NTH, MIN_BLOCKS) bsr_matmul_wgmma(
         const int g = warp + NWARPS * e;
         const int i = i0 + g;
         uint32_t mask = 0;
-        if (i < GM) {
+        if (i < GS) {
           if (ptr[e] + CSUB > wbase[e] + 32) {
             wbase[e] = ptr[e];
             wcol[e] = window(i, nbr[e], wbase[e] + lane);
           }
           const int off = ptr[e] - wbase[e];
           const long long cb = static_cast<long long>(wcol[e]) * BN;
-          // the leading tiles from the pointer on whose block columns fall
-          // in the chunk (past nblocks the window holds no column)
-          const bool in = lane >= off && cb >= col0 && cb < col0 + CW;
+          // the leading tiles from the pointer on whose columns overlap
+          // the chunk (past nblocks the window holds no column); at most
+          // CSUB, each with a part of its own in the chunk
+          const bool in = lane >= off && cb < col0 + CW && cb + BN > col0;
           const unsigned long long run =
               ~(static_cast<unsigned long long>(
                     __ballot_sync(0xffffffffu, in)) >> off);
           const int n = __ffsll(run) - 1;
+          int passed = n;
           for (int t = 0; t < n; ++t) {
-            const int jj0 =
-                (__shfl_sync(0xffffffffu, wcol[e], off + t) * BN - col0) / 16;
-            mask |= ((1u << (BN / 16)) - 1) << jj0;
-            const bf16* tile =
-                blocks + (static_cast<int64_t>(i) * KB + ptr[e] + t) * 16 * BN;
+            // the tile's first column from the chunk's (a multiple of 16,
+            // below 0 for a tile begun in an earlier chunk) and its parts
+            // [q0, q1) in the chunk
+            const int tc =
+                __shfl_sync(0xffffffffu, wcol[e], off + t) * BN - col0;
+            const int q0 = tc < 0 ? -tc / 16 : 0;
+            const int q1 = min(BN, CW - tc) / 16;
+            if (tc + BN > CW) passed = t;
+            mask |= ((1u << (q1 - q0)) - 1) << (tc / 16 + q0);
+            const bf16* tile = blocks +
+                               (static_cast<int64_t>(i / S) * KB + ptr[e] + t) *
+                                   tstride +
+                               (i % S) * 16 * BN;
+            const int pieces = 2 * (q1 - q0);  // 16-byte pieces a row
             for (int q = lane; q < 16 * pieces; q += 32) {
               const int m = q / pieces;
-              const int c8 = q % pieces;
-              cp_async16(sbase + (g * CSUB + jj0 + c8 / 2) * SLOT +
+              const int c8 = 2 * q0 + q % pieces;
+              cp_async16(sbase + (g * CSUB + tc / 16 + c8 / 2) * SLOT +
                              (c8 % 2) * 256 + m * 16,
                          tile + m * BN + c8 * 8, 16);
             }
           }
-          ptr[e] += n;
+          ptr[e] += passed;
         }
         if (lane == 0) masks[st * GB + g] = mask;
       }
@@ -880,7 +935,7 @@ __global__ void __launch_bounds__(NTH, MIN_BLOCKS) bsr_matmul_wgmma(
 #pragma unroll
   for (int g = 0; g < GPW; ++g) {
     const int i = i0 + g0 + g;
-    if (i >= GM) continue;
+    if (i >= GS) continue;
 #pragma unroll
     for (int h = 0; h < GW; ++h)
 #pragma unroll
@@ -926,7 +981,7 @@ inline int blocks_per_sm(const void* kernel, int smem) {
 
 template <typename T, typename TO, int R, int KS, bool XS>
 int launch_rows_ks(const void* x, const void* blocks, const int* units,
-                   const int* cols, void* y, int B, int N, int GM, int KB,
+                   const int* cols, void* y, int B, int N, int GS, int S, int KB,
                    int BN, int nunits, int stage_tiles, int cluster, int maxt,
                    int per_sm, cudaStream_t st) {
   auto kernel = bsr_matmul_rows<T, TO, R, KS, XS>;
@@ -965,42 +1020,42 @@ int launch_rows_ks(const void* x, const void* blocks, const int* units,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(blocks),
       reinterpret_cast<const int4*>(units), cols, static_cast<TO*>(y), B, N,
-      GM, KB, BN, stage_tiles, cluster, maxt, nunits);
+      GS, S, KB, BN, stage_tiles, cluster, maxt, nunits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (16, 16) tiles take the KS = 1 kernel, whose stage is the constant
+// (BM, 16) tiles take the KS = 1 kernel, whose stage is the constant
 // stage1_tiles (the launcher's is ignored); bf16 passes of 8 rows stage x
 // in shared memory where its rows take at most RX_MAX bytes
 template <typename T, typename TO, int R, bool XS>
 int launch_rows_xs(const void* x, const void* blocks, const int* units,
-                   const int* cols, void* y, int B, int N, int GM, int KB,
+                   const int* cols, void* y, int B, int N, int GS, int S, int KB,
                    int BN, int nunits, int stage_tiles, int cluster,
                    int maxt, int per_sm, cudaStream_t st) {
   if (BN == 16)
     return launch_rows_ks<T, TO, R, 1, XS>(x, blocks, units, cols, y, B, N,
-                                           GM, KB, BN, nunits,
+                                           GS, S, KB, BN, nunits,
                                            stage1_tiles<T>(), cluster, maxt,
                                            per_sm, st);
-  return launch_rows_ks<T, TO, R, 0, XS>(x, blocks, units, cols, y, B, N, GM,
+  return launch_rows_ks<T, TO, R, 0, XS>(x, blocks, units, cols, y, B, N, GS, S,
                                          KB, BN, nunits, stage_tiles, cluster,
                                          maxt, per_sm, st);
 }
 
 template <typename T, typename TO, int R>
 int launch_rows_pass(const void* x, const void* blocks, const int* units,
-                     const int* cols, void* y, int B, int N, int GM, int KB,
+                     const int* cols, void* y, int B, int N, int GS, int S, int KB,
                      int BN, int nunits, int stage_tiles, int cluster,
                      int maxt, int per_sm, cudaStream_t st) {
   const bool xs = rows_x_bytes<T>(min(R, B), N) <= RX_MAX;
   if constexpr (sizeof(T) == 2 && R == 8) {
     if (xs)
       return launch_rows_xs<T, TO, R, true>(x, blocks, units, cols, y, B, N,
-                                            GM, KB, BN, nunits, stage_tiles,
+                                            GS, S, KB, BN, nunits, stage_tiles,
                                             cluster, maxt, per_sm, st);
   }
-  return launch_rows_xs<T, TO, R, false>(x, blocks, units, cols, y, B, N, GM,
+  return launch_rows_xs<T, TO, R, false>(x, blocks, units, cols, y, B, N, GS, S,
                                          KB, BN, nunits, stage_tiles, cluster,
                                          maxt, per_sm, st);
 }
@@ -1008,18 +1063,18 @@ int launch_rows_pass(const void* x, const void* blocks, const int* units,
 // the passes the source instantiates (budget.BSR_MATMUL_ROWS_PASS_*)
 template <typename T, typename TO>
 int launch_rows(const void* x, const void* blocks, const int* units,
-                const int* cols, void* y, int B, int N, int GM, int KB,
+                const int* cols, void* y, int B, int N, int GS, int S, int KB,
                 int BN, int nunits, int stage_tiles, int cluster, int maxt,
                 int per_sm, int rows_pass, cudaStream_t st) {
   if (stage_tiles <= 0 || (stage_tiles * BN / 16) % RW != 0 ||
-      cluster < 1 || cluster > RCLUSTER_MAX || nunits != GM * cluster ||
+      cluster < 1 || cluster > RCLUSTER_MAX || nunits != GS * cluster ||
       maxt < 0 || per_sm < 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #define BSR_ROWS_PASS(R)                                                    \
   if (rows_pass == R)                                                       \
-    return launch_rows_pass<T, TO, R>(x, blocks, units, cols, y, B, N, GM, \
-                                      KB, BN, nunits, stage_tiles, cluster, \
-                                      maxt, per_sm, st);
+    return launch_rows_pass<T, TO, R>(x, blocks, units, cols, y, B, N, GS, \
+                                      S, KB, BN, nunits, stage_tiles,       \
+                                      cluster, maxt, per_sm, st);
   BSR_ROWS_PASS(8)
   BSR_ROWS_PASS(32)
   if constexpr (sizeof(T) == 2) {
@@ -1032,36 +1087,35 @@ int launch_rows(const void* x, const void* blocks, const int* units,
 
 template <typename TO>
 int launch_wgmma(const void* x, const void* blocks, const int* bc,
-                 const int* nb, void* y, int B, int N, int GM, int KB,
+                 const int* nb, void* y, int B, int N, int GS, int S, int KB,
                  int BN, cudaStream_t st) {
-  if (CW % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       bsr_matmul_wgmma<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       WGMMA_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ngroups = (GM + GB - 1) / GB;
+  const int ngroups = (GS + GB - 1) / GB;
   const int nslabs = (B + GR - 1) / GR;
   bsr_matmul_wgmma<TO><<<nslabs * ngroups, NTH, WGMMA_SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(blocks), bc, nb,
-      static_cast<TO*>(y), B, N, GM, KB, BN, ngroups);
+      static_cast<TO*>(y), B, N, GS, S, KB, BN, ngroups);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TO>
 int run(const void* x, const void* blocks, const int* bc, const int* nb,
-        const int* units, const int* cols, void* y, int B, int N, int GM,
-        int KB, int BN, int nunits, int stage_tiles, int cluster, int maxt,
+        const int* units, const int* cols, void* y, int B, int N, int GS,
+        int S, int KB, int BN, int nunits, int stage_tiles, int cluster, int maxt,
         int per_sm, int rows_pass, int dtype, int schedule, cudaStream_t st) {
   if (schedule == 0 && dtype == 0)
-    return launch_rows<float, TO>(x, blocks, units, cols, y, B, N, GM, KB, BN,
+    return launch_rows<float, TO>(x, blocks, units, cols, y, B, N, GS, S, KB, BN,
                                   nunits, stage_tiles, cluster, maxt, per_sm,
                                   rows_pass, st);
   if (schedule == 0 && dtype == 1)
-    return launch_rows<bf16, TO>(x, blocks, units, cols, y, B, N, GM, KB, BN,
+    return launch_rows<bf16, TO>(x, blocks, units, cols, y, B, N, GS, S, KB, BN,
                                  nunits, stage_tiles, cluster, maxt, per_sm,
                                  rows_pass, st);
   if (schedule == 1 && dtype == 1)
-    return launch_wgmma<TO>(x, blocks, bc, nb, y, B, N, GM, KB, BN, st);
+    return launch_wgmma<TO>(x, blocks, bc, nb, y, B, N, GS, S, KB, BN, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1082,14 +1136,16 @@ extern "C" int bsr_matmul(const void* x, const void* blocks,
   const int* un = static_cast<const int*>(units);
   const int* cl = static_cast<const int*>(cols);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BM != 16 || BN % 16 != 0 || N % BN != 0 || B <= 0 || GM <= 0)
+  if (BM <= 0 || BM % 16 != 0 || BN <= 0 || BN % 16 != 0 || N % BN != 0 ||
+      B <= 0 || GM <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int S = BM / 16, GS = GM * S;  // sub-rows a block-row, in all
   if (out_dtype == 0)
-    return run<float>(x, blocks, bc, nb, un, cl, y, B, N, GM, KB, BN, nunits,
+    return run<float>(x, blocks, bc, nb, un, cl, y, B, N, GS, S, KB, BN, nunits,
                       stage_tiles, cluster, maxt, per_sm, rows_pass, dtype,
                       schedule, st);
   if (out_dtype == 1)
-    return run<bf16>(x, blocks, bc, nb, un, cl, y, B, N, GM, KB, BN, nunits,
+    return run<bf16>(x, blocks, bc, nb, un, cl, y, B, N, GS, S, KB, BN, nunits,
                      stage_tiles, cluster, maxt, per_sm, rows_pass, dtype,
                      schedule, st);
   return static_cast<int>(cudaErrorInvalidValue);

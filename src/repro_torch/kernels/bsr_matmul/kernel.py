@@ -20,13 +20,20 @@ many rows: prefill; x staged once per group of 16 block-rows).
 ``schedule()`` picks one from the row count and the dtype.  The kernel
 writes y in ``out_dtype`` (f32 or bf16) from its f32 sums, one rounding.
 
-The ``rows`` schedule runs from a work list (``ref.rows_units``: each
-block-row's run of kept tiles cut into ``budget.bsr_matmul_rows_cluster``
-units of about equal size, the units of a block-row one thread-block
-cluster where there are several; ``ref.rows_cols``: each unit's block
-columns), built once per bank (``_build.cached``: one read-back of the
-bank's indices per weight, none per call).  A cluster adds its units'
-sums on chip: no workspace, no atomics, one launch.
+Blocks: any (bm, bn) with both sides multiples of 16
+(``budget.bsr_matmul_native``); ``ops.bsr_matmul`` re-tiles any other bank
+first (``ref.retile_bcsr``), so a bank that reaches this launcher with
+another block raises.  Both schedules read a (bm, bn) bank as gm bm / 16
+sub-rows of (16, bn) pieces (``ref``), so a taller tile costs no copy.
+
+The ``rows`` schedule runs from a work list over the sub-rows
+(``ref.rows_units`` on ``ref.subrow_counts``: each sub-row's run of kept
+pieces cut into ``budget.bsr_matmul_rows_cluster`` units of about equal
+size, the units of a sub-row one thread-block cluster where there are
+several; ``ref.rows_cols``: each unit's block columns), built once per
+bank (``_build.cached``: one read-back of the bank's indices per weight,
+none per call).  A cluster adds its units' sums on chip: no workspace, no
+atomics, one launch.
 
 The ``wgmma`` schedule needs each block-row's kept block columns strictly
 ascending (what ``bcsr_from_dense`` builds); its launcher checks that on
@@ -35,7 +42,8 @@ none per call) and raises otherwise.
 
 ``bsr_matmul_kernel.launches`` counts the kernel's launches in this process
 (both schedules), ``bsr_matmul_kernel.wgmma_launches`` those of the
-``wgmma`` schedule.  Only the CUDA branch adds to them, once per launch.
+``wgmma`` schedule, ``bsr_matmul_kernel.by_block`` those by (schedule, bm,
+bn).  Only the CUDA branch adds to them, once per launch.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.core.sparse_format import block_column_fault
 from repro_torch.kernels import _build, budget
 from repro_torch.kernels.bsr_matmul.ref import (bsr_matmul_plain, rows_cols,
-                                                rows_units)
+                                                rows_units, subrow_counts)
 
 _SYMBOL = "bsr_matmul"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,18 +111,19 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
 def _rows_entry(blockcol: torch.Tensor, nblocks: torch.Tensor, bm: int,
                 bn: int, itemsize: int):
     """(units, cols, cluster, launch) for a bank, made once per bank, tile
-    geometry and sizing (one read-back of the bank's indices); launch
-    holds the C entry point's rows arguments that depend on the bank
-    alone: the work list's pointers, its units, the stage's tiles, the
-    cluster and the units' most tiles."""
+    geometry and sizing (one read-back of the bank's indices); units run
+    over the bank's sub-rows; launch holds the C entry point's rows
+    arguments that depend on the bank alone: the work list's pointers, its
+    units, the stage's pieces, the cluster and the units' most tiles."""
     def make():
         counts = nblocks.tolist()
         cluster = budget.bsr_matmul_rows_cluster(len(counts), sum(counts),
                                                  bm, bn, itemsize)
-        units = rows_units(counts, cluster).to(nblocks.device)
-        cols = rows_cols(units, blockcol).to(nblocks.device)
+        units = rows_units(subrow_counts(counts, bm), cluster)
+        cols = rows_cols(units, blockcol, bm).to(nblocks.device)
+        units = units.to(nblocks.device)
         launch = (units.data_ptr(), cols.data_ptr(), units.shape[0],
-                  budget.bsr_matmul_rows_stage_tiles(bm, bn, itemsize),
+                  budget.bsr_matmul_rows_stage_tiles(bn, itemsize),
                   cluster, cols.shape[1])
         return units, cols, cluster, launch
     sizing = (budget.BSR_MATMUL_ROWS_UNITS_PER_SM,
@@ -127,8 +136,8 @@ def _rows_entry(blockcol: torch.Tensor, nblocks: torch.Tensor, bm: int,
 def rows_work(blockcol: torch.Tensor, nblocks: torch.Tensor, bm: int,
               bn: int, itemsize: int):
     """The ``rows`` schedule's work list for a bank: (units, cols, cluster)
-    on the bank's device, ``ref.rows_units`` and ``ref.rows_cols`` with
-    ``budget.bsr_matmul_rows_cluster``."""
+    on the bank's device, ``ref.rows_units`` over the sub-rows and
+    ``ref.rows_cols`` with ``budget.bsr_matmul_rows_cluster``."""
     return _rows_entry(blockcol, nblocks, bm, bn, itemsize)[:3]
 
 
@@ -182,6 +191,8 @@ def _launch(x, blocks, blockcol, nblocks, out_dtype,
     bsr_matmul_kernel.launches += 1
     if sched == "wgmma":
         bsr_matmul_kernel.wgmma_launches += 1
+    by_block = bsr_matmul_kernel.by_block
+    by_block[sched, bm, bn] = by_block.get((sched, bm, bn), 0) + 1
     return out
 
 
@@ -192,7 +203,8 @@ def bsr_matmul_kernel(x: torch.Tensor, blocks: torch.Tensor,
     """y = x @ W.T for BCSR W, f32 accumulate.
 
     x (B, N) f32 or bf16 with N % bn == 0; blocks (gm, KB, bm, bn) of x's
-    dtype; blockcol (gm, KB) int32, in any order for the ``rows``
+    dtype, bm and bn multiples of 16 (a CUDA tensor's launch raises
+    otherwise; the CPU's plain version takes any block); blockcol (gm, KB) int32, in any order for the ``rows``
     schedule, strictly ascending within a row up to its nblocks for the
     ``wgmma`` schedule (checked once per bank); nblocks (gm,) int32.
     Tiles past a row's nblocks are never read.  Returns (B, gm*bm) in
@@ -237,3 +249,5 @@ def _flops(x_shape, blocks_shape, *args, out_shape=None, **kwargs) -> int:
 
 bsr_matmul_kernel.launches = 0
 bsr_matmul_kernel.wgmma_launches = 0
+# launches by (schedule, bm, bn) -> count
+bsr_matmul_kernel.by_block = {}

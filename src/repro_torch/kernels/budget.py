@@ -71,25 +71,35 @@ BSR_CONV_BF16_TILES = ((128, 2), (64, 2), (32, 2), (128, 1), (64, 1),
 # blocks of one); again the ablation's order (PERF.md, Findings).
 BSR_CONV_MIN_BLOCKS = SMS // 2
 
-# BCSR matmul (csrc/bsr_matmul.cu): the block height it instantiates (the
-# (16, 16) tiles ``sparsify_params`` builds), and the largest row count the
-# ``rows`` schedule takes on bf16 inputs before the tensor-core ``wgmma``
-# schedule does (f32 inputs always take ``rows``).  Measured on an H100
-# (``ablate.py --crossover``, PERF.md): over Yi-9B's wq, wk, gate and down
-# at 0.8, ``rows`` takes less device time in sum at every row count from 8
-# to 2048 (wgmma's blocks of 128 rows leave most of the card idle below
-# a few thousand rows), ``wgmma`` at the prefill's 8192.
-BSR_MATMUL_BM = (16,)
+# BCSR matmul (csrc/bsr_matmul.cu): blocks of any height and width that
+# are multiples of 16 (``bsr_matmul_native``).  The kernel reads a (bm, bn)
+# bank as bm / 16 sub-rows a block-row: sub-row (i, j) reads the (16, bn)
+# piece j of each of block-row i's kept tiles, 16 bn contiguous elements,
+# and writes outputs 16 (i bm / 16 + j) .. + 16, so every size below counts
+# (16, bn) pieces.  Any other block is re-tiled once per bank by
+# ``ops.bsr_matmul`` into one whose sides are the next multiples of 16,
+# and a bank too wide for a stage of the ``rows`` ring (``rows_width``:
+# bn about 880 and up) has its tiles cut side by side to a width that fits.
+# BSR_MATMUL_ROWS_MAX is the largest row count the ``rows`` schedule takes
+# on bf16 inputs before the tensor-core ``wgmma`` schedule does (f32
+# inputs always take ``rows``).  Measured on an H100 (``ablate.py
+# --crossover``, PERF.md): over Yi-9B's wq, wk, gate and down at 0.8 in
+# (16, 16) tiles, ``rows`` takes less device time in sum at every row
+# count from 8 to 2048 (wgmma's blocks of 128 rows leave most of the card
+# idle below a few thousand rows), ``wgmma`` at the prefill's 8192.
+BSR_MATMUL_PIECE = 16
 BSR_MATMUL_ROWS_MAX = 2048
-# rows: a weight-streaming schedule.  Each block-row's run of kept tiles
-# (contiguous in the bank) is cut into CLUSTER units of about equal size,
-# the units of a block-row one thread-block cluster where CLUSTER > 1, so
-# that a bank of few block-rows still fills the card.  A block's producer
-# warp stages x's rows (where they take at most X_MAX bytes, bf16 passes
-# of 8 rows) and streams its units through a ring of STAGES shared-memory
-# stages of about STAGE_BYTES (1-D bulk copies on an mbarrier each) while
-# WARPS consumer warps multiply; the cluster's first block adds its units'
-# sums through distributed shared memory.
+# rows: a weight-streaming schedule.  Each sub-row's run of kept pieces (one
+# a kept tile, bm bn elements apart in the bank) is cut into CLUSTER units
+# of about equal size, the units of a sub-row one thread-block cluster
+# where CLUSTER > 1, so that a bank of few sub-rows still fills the card.
+# A block's producer warp stages x's rows (where they take at most X_MAX
+# bytes, bf16 passes of 8 rows) and streams its units through a ring of
+# STAGES shared-memory stages of about STAGE_BYTES (1-D bulk copies on an
+# mbarrier each: one a stage at bm 16, where a unit's pieces are
+# contiguous, one a piece above) while WARPS consumer warps multiply; the
+# cluster's first block adds its units' sums through distributed shared
+# memory.
 BSR_MATMUL_ROWS_WARPS = 4
 BSR_MATMUL_ROWS_STAGES = 4
 BSR_MATMUL_ROWS_STAGE_BYTES = 4096
@@ -98,8 +108,8 @@ BSR_MATMUL_ROWS_X_MAX = 96 * 1024
 # over the bank, at most CLUSTER_MAX (the portable cluster size), and
 # units of at least UNIT_MIN_BYTES on average (a unit is one round trip to
 # device memory at least).  One unit an SM splits only banks of fewer
-# block-rows than SMs (wk, wv: 32): the ablation's clusters cost more than
-# they gain on the others (PERF.md).
+# sub-rows than SMs (wk, wv in (16, 16) tiles: 32): the ablation's
+# clusters cost more than they gain on the others (PERF.md).
 BSR_MATMUL_ROWS_UNITS_PER_SM = 1
 BSR_MATMUL_ROWS_CLUSTER_MAX = 8
 BSR_MATMUL_ROWS_UNIT_MIN_BYTES = 2048
@@ -112,17 +122,21 @@ BSR_MATMUL_ROWS_BLOCKS_PER_SM = 4
 BSR_MATMUL_ROWS_PASS_BF16 = (8, 16, 32, 64)
 BSR_MATMUL_ROWS_PASS_F32 = (8, 32)
 # wgmma: a block of two warpgroups owns 128 rows of x and a group of 16
-# block-rows, and walks x in chunks of 128 columns: a ring of 3 x stages
-# and one of 2 stages of the group's tiles.
+# sub-rows, and walks x in chunks of 128 columns: a ring of 3 x stages
+# and one of 2 stages of the group's pieces (a tile that straddles a
+# chunk's edge is taken in two parts, 16 columns at a time).
 BSR_MATMUL_WGMMA_ROWS = 128
 BSR_MATMUL_WGMMA_GROUP = 16
 BSR_MATMUL_WGMMA_CHUNK = 128
 BSR_MATMUL_WGMMA_X_STAGES = 3
 BSR_MATMUL_WGMMA_TILE_STAGES = 2
 
-# Flash attention (csrc/flash_attention.cu): the head dimensions every one
-# of its kernels instantiates (the split-TF32 and the tensor-core forward,
-# dQ and dK/dV).
+# Flash attention (csrc/flash_attention.cu): the head dimensions D every
+# one of its kernels instantiates (the split-TF32 and the tensor-core
+# forward, dQ and dK/dV).  A head dim d up to the largest runs in the
+# smallest D >= d (``flash_head_dim``), its columns [d, D) zero on chip;
+# the kernels copy 16 bytes at a time, so d x the operand's itemsize must
+# be a multiple of 16 (``flash_head_dim_fault``; ``ops`` pads other d).
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # The split-TF32 kernels (f32): 64-row tiles (wgmma's M) in two
 # warpgroups, over chunks of FLASH_TF32_CHUNK keys (the forward, dQ) or
@@ -250,12 +264,21 @@ def bsr_conv_smem_bytes(bm: int, bn: int, n_tile: int, kbc: int,
     return stages * stage + 4 * (3 * bn + (n_tile // bm + 1) * kbc)
 
 
-def bsr_matmul_rows_stage_tiles(bm: int, bn: int, itemsize: int) -> int:
-    """Kept tiles one stage of the ``rows`` ring holds: STAGE_BYTES of
-    them, at least one, and enough that the stage's (bm, 16) pieces deal
-    evenly to the consumer warps (piece p of a unit is then warp p's mod
+def bsr_matmul_native(bm: int, bn: int) -> bool:
+    """Whether the BCSR matmul kernel takes (bm, bn) blocks as they are:
+    both positive multiples of 16.  ``ops.bsr_matmul`` re-tiles any other
+    block (``ref.retile_bcsr``)."""
+    return (bm > 0 and bn > 0 and bm % BSR_MATMUL_PIECE == 0
+            and bn % BSR_MATMUL_PIECE == 0)
+
+
+def bsr_matmul_rows_stage_tiles(bn: int, itemsize: int) -> int:
+    """(16, bn) pieces one stage of the ``rows`` ring holds: STAGE_BYTES of
+    them, at least one, and enough that the stage's (16, 16) parts deal
+    evenly to the consumer warps (part p of a unit is then warp p's mod
     WARPS, whatever its stage)."""
-    tiles = max(1, BSR_MATMUL_ROWS_STAGE_BYTES // (bm * bn * itemsize))
+    tiles = max(1, BSR_MATMUL_ROWS_STAGE_BYTES
+                // (BSR_MATMUL_PIECE * bn * itemsize))
     while tiles * (bn // 16) % BSR_MATMUL_ROWS_WARPS:
         tiles += 1
     return tiles
@@ -269,21 +292,21 @@ def bsr_matmul_rows_pass(rows: int, itemsize: int) -> int:
     return next((p for p in passes if p >= rows), passes[-1])
 
 
-def bsr_matmul_smem_bytes(bm: int = 16, bn: int = 16, itemsize: int = 2,
-                          rows: int = 4, n: int = 4096,
-                          cluster: int = 1) -> int:
+def bsr_matmul_smem_bytes(bn: int = 16, itemsize: int = 2, rows: int = 4,
+                          n: int = 4096, cluster: int = 1) -> int:
     """Dynamic shared memory of one ``rows`` block of the BCSR matmul
-    (``rows_smem_bytes`` in the source): 128 bytes of mbarriers; x's rows of
-    the pass where staged (bf16, passes of 8 rows, at most X_MAX bytes);
-    the ring of tile stages; the warps' f32 sums of a pass; with a
-    cluster, a slot of a pass's sums for each of its blocks."""
+    (``rows_smem_bytes`` in the source), at any block height (the ring
+    holds (16, bn) pieces): 128 bytes of mbarriers; x's rows of the pass
+    where staged (bf16, passes of 8 rows, at most X_MAX bytes); the ring of
+    stages; the warps' f32 sums of a pass; with a cluster, a slot of a
+    pass's sums for each of its blocks."""
     r = bsr_matmul_rows_pass(rows, itemsize)
     x = -(-min(r, rows) * n * itemsize // 128) * 128
     staged = itemsize == 2 and r == 8 and x <= BSR_MATMUL_ROWS_X_MAX
     ring = (BSR_MATMUL_ROWS_STAGES
-            * bsr_matmul_rows_stage_tiles(bm, bn, itemsize) * bm * bn
-            * itemsize)
-    sums = r * bm * 4
+            * bsr_matmul_rows_stage_tiles(bn, itemsize) * BSR_MATMUL_PIECE
+            * bn * itemsize)
+    sums = r * BSR_MATMUL_PIECE * 4
     return (128 + (x if staged else 0) + ring
             + BSR_MATMUL_ROWS_WARPS * sums + (cluster * sums if cluster > 1
                                               else 0))
@@ -291,22 +314,24 @@ def bsr_matmul_smem_bytes(bm: int = 16, bn: int = 16, itemsize: int = 2,
 
 def bsr_matmul_rows_cluster(gm: int, total: int, bm: int, bn: int,
                             itemsize: int) -> int:
-    """Units a block-row (the cluster size) for a bank of ``gm`` block-rows
-    keeping ``total`` tiles: UNITS_PER_SM x SMS units over the bank, at
-    most CLUSTER_MAX, and at least UNIT_MIN_BYTES of tiles a unit on
-    average."""
-    want = -(-BSR_MATMUL_ROWS_UNITS_PER_SM * SMS // max(gm, 1))
-    fill = total * bm * bn * itemsize // max(
-        gm * BSR_MATMUL_ROWS_UNIT_MIN_BYTES, 1)
+    """Units a sub-row (the cluster size) for a bank of ``gm`` block-rows
+    of height ``bm`` keeping ``total`` tiles, counted as the kernel walks
+    them: gm bm / 16 sub-rows keeping total bm / 16 (16, bn) pieces.
+    UNITS_PER_SM x SMS units over the bank, at most CLUSTER_MAX, and at
+    least UNIT_MIN_BYTES of pieces a unit on average."""
+    s = bm // BSR_MATMUL_PIECE
+    want = -(-BSR_MATMUL_ROWS_UNITS_PER_SM * SMS // max(gm * s, 1))
+    fill = total * s * BSR_MATMUL_PIECE * bn * itemsize // max(
+        gm * s * BSR_MATMUL_ROWS_UNIT_MIN_BYTES, 1)
     return max(1, min(BSR_MATMUL_ROWS_CLUSTER_MAX, want, fill))
 
 
 def bsr_matmul_wgmma_smem_bytes() -> int:
     """Dynamic shared memory of one ``wgmma`` block: each x stage the bf16
     x chunk of its rows; each tile stage a (16, 16) bf16 slot for every
-    16-column block of the chunk and block-row of the group (a kept tile
-    fills ``bn / 16`` of them) and a 32-bit mask of filled slots a
-    block-row."""
+    16-column block of the chunk and sub-row of the group (a kept piece
+    fills up to ``bn / 16`` of them) and a 32-bit mask of filled slots a
+    sub-row."""
     x_chunk = BSR_MATMUL_WGMMA_ROWS * BSR_MATMUL_WGMMA_CHUNK * 2
     slots = (BSR_MATMUL_WGMMA_GROUP * (BSR_MATMUL_WGMMA_CHUNK // 16)
              * 16 * 16 * 2)
@@ -317,28 +342,70 @@ def bsr_matmul_wgmma_smem_bytes() -> int:
 
 def bsr_matmul_unsupported(bm: int, bn: int, n: int,
                            schedule: str = "rows") -> Optional[str]:
-    """Why the BCSR matmul's ``schedule`` cannot take a (bm, bn) block over
-    N = ``n`` columns, or None."""
-    if bm not in BSR_MATMUL_BM:
-        return f"block height {bm} not one of {BSR_MATMUL_BM}"
-    if bn % 16:
-        return f"block width {bn} not a multiple of 16"
+    """Why the BCSR matmul kernel's ``schedule`` cannot take a (bm, bn)
+    block over N = ``n`` columns as it is, or None.  A block that is not
+    ``bsr_matmul_native`` is refused here: ``ops.bsr_matmul`` re-tiles it
+    before the launch."""
+    if not bsr_matmul_native(bm, bn):
+        return (f"block ({bm}, {bn}) is not a multiple of 16 on both sides "
+                f"(ops.bsr_matmul re-tiles such a bank)")
     if n % bn:
         return f"N = {n} not a multiple of the block width {bn}"
-    if schedule == "wgmma" and BSR_MATMUL_WGMMA_CHUNK % bn:
-        return (f"block width {bn} does not divide the wgmma schedule's "
-                f"chunk of {BSR_MATMUL_WGMMA_CHUNK} columns")
-    if schedule == "rows" and not smem_fits(bsr_matmul_smem_bytes(
-            bm, bn, 4, BSR_MATMUL_ROWS_PASS_F32[-1], 0,
-            BSR_MATMUL_ROWS_CLUSTER_MAX)):
+    if schedule == "rows" and bsr_matmul_rows_width(bn) != bn:
         return (f"block width {bn}: a stage of the rows schedule's ring "
-                f"does not fit a block's shared memory")
+                f"does not fit a block's shared memory (ops.bsr_matmul "
+                f"cuts such a bank's tiles to {bsr_matmul_rows_width(bn)} "
+                f"columns)")
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def bsr_matmul_rows_width(bn: int) -> int:
+    """The widest tile the ``rows`` schedule takes in place of a (bm, bn)
+    one: bn itself where a stage of its ring of (16, bn) pieces fits a
+    block's shared memory (f32 pieces, the widest pass), else the widest
+    multiple of 16 dividing bn that fits (bn about 880 and up, or narrower
+    where bn / 16 is odd and a stage must hold 4 pieces).
+    ``ops.bsr_matmul`` cuts a wider bank's tiles side by side to it
+    (``ref.split_bcsr``)."""
+    for w in range(bn, 0, -BSR_MATMUL_PIECE):
+        if bn % w == 0 and smem_fits(bsr_matmul_smem_bytes(
+                w, 4, BSR_MATMUL_ROWS_PASS_F32[-1], 0,
+                BSR_MATMUL_ROWS_CLUSTER_MAX)):
+            return w
+    raise ValueError(f"block width {bn}: no multiple of "
+                     f"{BSR_MATMUL_PIECE} dividing it fits the rows ring")
+
+
+def flash_head_dim(d: int) -> int:
+    """The instantiated head dim D the kernels run head dim ``d`` in: the
+    smallest of FLASH_HEAD_DIMS at least ``d``.  Raises above the
+    largest."""
+    for dim in FLASH_HEAD_DIMS:
+        if dim >= d:
+            return dim
+    raise ValueError(f"head dim {d} above {FLASH_HEAD_DIMS[-1]}, the largest "
+                     f"the flash kernels are built for")
+
+
+def flash_head_dim_fault(d: int, itemsize: int) -> Optional[str]:
+    """Why the flash kernels cannot take head dim ``d`` of an operand of
+    ``itemsize`` bytes as it is, or None: d at least 1 and at most the
+    largest instantiation, and a row of d elements a multiple of 16 bytes
+    (the kernels' copies)."""
+    if d < 1 or d > FLASH_HEAD_DIMS[-1]:
+        return (f"head dim {d} outside 1 .. {FLASH_HEAD_DIMS[-1]}, the "
+                f"largest the kernels are built for")
+    if d * itemsize % 16:
+        return (f"head dim {d}: a row of {d * itemsize} bytes is not a "
+                f"multiple of the kernels' 16-byte copies")
     return None
 
 
 def flash_tf32_chunk(d: int) -> int:
     """Keys (the forward, dQ) or query rows (dK/dV) of a split-TF32 chunk
-    at head dim ``d``."""
+    at head dim ``d`` (its instantiation's, ``flash_head_dim``)."""
+    d = flash_head_dim(d)
     return FLASH_TF32_CHUNK if d <= FLASH_TF32_WIDE_MAX_D else \
         FLASH_TF32_CHUNK // 2
 
@@ -354,6 +421,7 @@ def flash_fwd_tf32_smem_bytes(d: int) -> int:
     tile (64 rows) for each of its two warpgroups, and the chunk's K (hi
     and lo halves), V as copied and V transposed (hi and lo, a padded slot
     group)."""
+    d = flash_head_dim(d)
     chunk = flash_tf32_chunk(d)
     return 4 * (2 * 64 * _flash_raw_row(d) + chunk * (3 * d + 2 * (d + 1)))
 
@@ -362,6 +430,7 @@ def flash_bwd_dq_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one split-TF32 dQ block: raw f32 q and dO
     tiles (64 rows) for each of its two warpgroups, and the chunk's K and V
     (hi and lo halves, K also transposed with a padded slot group)."""
+    d = flash_head_dim(d)
     chunk = flash_tf32_chunk(d)
     return 4 * (4 * 64 * _flash_raw_row(d) + chunk * (4 * d + 2 * (d + 1)))
 
@@ -371,6 +440,7 @@ def flash_bwd_dkv_smem_bytes(d: int) -> int:
     V (64 keys), the chunk's q and dO (hi and lo, each also transposed),
     two slots of the rows' lse and delta, and the p^T its two warpgroups
     exchange (one f32 slot a thread and accumulator element)."""
+    d = flash_head_dim(d)
     chunk = flash_tf32_chunk(d)
     return 4 * (2 * 64 * _flash_raw_row(d)
                 + chunk * (4 * d + 4 * (d + 1) + 4 + 64))
@@ -380,6 +450,7 @@ def flash_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core forward block: a bf16 query
     tile for each warpgroup and the stages of key and value tiles, each
     ``FLASH_TC_BQ`` x d."""
+    d = flash_head_dim(d)
     tiles = FLASH_TC_FWD_WARPGROUPS + 2 * FLASH_TC_FWD_STAGES
     return 2 * FLASH_TC_BQ * d * tiles
 
@@ -388,6 +459,7 @@ def flash_bwd_dq_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core dQ block: a bf16 query tile
     and a dO tile for each warpgroup and the stages of key and value tiles,
     each ``FLASH_TC_BQ`` x d."""
+    d = flash_head_dim(d)
     tiles = 2 * FLASH_TC_DQ_WARPGROUPS + 2 * FLASH_TC_DQ_STAGES
     return 2 * FLASH_TC_BQ * d * tiles
 
@@ -396,9 +468,14 @@ def flash_bwd_dkv_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core dK/dV block: its bf16 key
     and value tiles, the stages of query and dO tiles and of their lse and
     delta rows (f32), and the f32 p passed between its two warpgroups."""
+    d = flash_head_dim(d)
     return (2 * FLASH_TC_BQ * d * (2 + 2 * FLASH_TC_DKV_STAGES)
             + 4 * (2 * FLASH_TC_DKV_STAGES * FLASH_TC_BQ
                    + 32 * FLASH_TC_WARPGROUP))
+
+
+# Each flash helper above sizes the kernel that runs head dim ``d``: its
+# instantiation's, ``flash_head_dim(d)``.
 
 
 def smem_fits(nbytes: int) -> bool:

@@ -136,7 +136,7 @@
 // warpgroup 1 through shared memory behind a named barrier, and adds
 // p^T dO (split) to dV; warpgroup 1 computes dp^T = V dO^T, ds^T =
 // p^T (dp^T - delta), and adds ds^T q (split) to dK.  Each writes its f32
-// sums for the query head ((B, H, S, D) scratch); the reduce kernel sums
+// sums for the query head ((B, H, S, d) scratch); the reduce kernel sums
 // the G heads of each kv head in order g = 0 .. G - 1, scales dK by sc and
 // casts into k's and v's layouts.  No atomics: the same bits on every run.
 // Shared memory: K, V, two stages of q and dO, their lse and delta, and
@@ -163,7 +163,16 @@
 //
 // Head dimensions: every kernel, forward and backward, f32 and bf16, is
 // instantiated at D = 16, 32, 64, 80, 96 and 128 (80 and 96 for
-// HuBERT-XLarge and Phi-3-Vision), and the launchers refuse the others.
+// HuBERT-XLarge and Phi-3-Vision), and runs any head dim d <= 128 in the
+// smallest D >= d (head_dim_for; OLMoE's smoke config has d 24): d is a
+// run-time argument beside the template D, the loads of q, k, v and dO are
+// predicated per 16-byte chunk and fill columns [d, D) with zeros, and O,
+// dQ, dK and dV (and the dK/dV sums per query head, (B, H, S, d)) are
+// stored at columns below d only.  Zero columns add exactly 0 to q k^T and
+// dO v^T, and V's, q's and dO's zero columns make output columns that are
+// never stored; the scale is the caller's, from d.  The 16-byte copies need
+// d x the itemsize to be a multiple of 16 (d a multiple of 8 in bf16, 4 in
+// f32; ops.py pads any other d).
 // 80 and 96 are multiples of 16 but not of 64, so the tiles keep the
 // unswizzled core-matrix layout (a 128-byte swizzle cannot cover a row of
 // 80): q k^T, dO v^T, K q^T and V dO^T run D / 16 (5 or 6) k16 steps, and
@@ -179,13 +188,14 @@
 // (B, H, T)).  flash_attention_fwd, flash_attention_bwd_dq and
 // flash_attention_bwd_dkv take f32 only (dtype 0), with 16-byte aligned
 // addresses and strides; flash_attention_bwd_dkv
-// takes two f32 (B, H, S, D) scratch buffers after dk and dv, used when
+// takes two f32 (B, H, S, d) scratch buffers after dk and dv, used when
 // G > 1.  flash_attention_fwd_tc, flash_attention_bwd_dq_tc and
 // flash_attention_bwd_dkv_tc take the arguments of their f32 entries and
 // bf16 only (dtype 1), with 16-byte aligned addresses and strides, the
 // dK/dV scratch always.  Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for a head dimension no
-// instantiation takes.
+// instantiation takes (above 128, or rows of d that the 16-byte copies
+// cannot cover).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,7 +221,7 @@ struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  int B, H, KV, Tq, S;
+  int B, H, KV, Tq, S, d;  // d: the head dim asked for (the template's D >= d)
   Strides qs, ks, vs, dos, dqs, dks, dvs;
   float sc;
   int causal;
@@ -312,20 +322,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Rows [r0, r0 + 64) of a (rows, D) bf16 slab with row stride st into a
-// core-matrix tile, zero past ``rows``; every thread of ``nthreads`` copies
-// 16-byte chunks, eight neighbouring rows of one chunk column a warp
-// quarter, so the stores fill whole 128-byte core matrices.
+// Rows [r0, r0 + 64) of a (rows, d) bf16 slab with row stride st into a
+// core-matrix tile of D columns, zero past ``rows`` and in columns [d, D)
+// (d a multiple of 8); every thread of ``nthreads`` copies 16-byte chunks,
+// eight neighbouring rows of one chunk column a warp quarter, so the
+// stores fill whole 128-byte core matrices.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
                                           long long st, int r0, int rows,
-                                          int tid, int nthreads) {
+                                          int d, int tid, int nthreads) {
   constexpr int CH = D / 8;
   for (int i = tid; i < TC_BQ * CH; i += nthreads) {
     const int r = (i % 8) + 8 * (i / (8 * CH));
     const int c8 = (i / 8) % CH;
     const int t = r0 + r;
-    const bool in = t < rows;
+    const bool in = t < rows && c8 * 8 < d;
     cp_async16(tile + c8 * TILE_COL8 + r * 16,
                in ? static_cast<const void*>(src + t * st + c8 * 8) : src,
                in ? 16 : 0);
@@ -620,7 +631,7 @@ template <int D>
 __global__ void __launch_bounds__(FWD_WGS * WG, 1) flash_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int KV, int Tq, int S, Strides qs, Strides ks, Strides vs,
+    int H, int KV, int Tq, int S, int d, Strides qs, Strides ks, Strides vs,
     Strides os, float sc, int causal) {
   constexpr int TILE = TC_BQ * D;   // bf16 elements of a tile
   constexpr uint32_t TB = TILE * 2;  // bytes of a tile
@@ -658,15 +669,15 @@ __global__ void __launch_bounds__(FWD_WGS * WG, 1) flash_fwd_tc_kernel(
   auto load_chunk = [&](int c) {
     if (c < nkv) {
       const int st = c % FWD_STAGES;
-      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, tid, NT);
-      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, tid, NT);
+      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, d, tid, NT);
+      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, d, tid, NT);
     }
     cp_commit();  // a group per chunk, empty past the last
   };
 
 #pragma unroll
   for (int w = 0; w < FWD_WGS; ++w)
-    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
 #pragma unroll
   for (int c = 0; c < FWD_STAGES - 1; ++c) load_chunk(c);
 
@@ -722,8 +733,9 @@ __global__ void __launch_bounds__(FWD_WGS * WG, 1) flash_fwd_tc_kernel(
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8) {
       const int c = n8 * 8 + tig * 2;
-      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-          acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+      if (c < d)  // columns [d, D) hold V's zeros: never stored
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
     }
     if (tig == 0)  // m is in base 2
       lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
@@ -746,7 +758,7 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk_part, float* __restrict__ dv_part, int H, int KV,
-    int Tq, int S, Strides qs, Strides ks, Strides vs, Strides dos,
+    int Tq, int S, int d, Strides qs, Strides ks, Strides vs, Strides dos,
     float sc, int causal) {
   constexpr int TILE = TC_BQ * D;
   constexpr uint32_t TB = TILE * 2;
@@ -788,8 +800,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
     }
     const int sidx = (qc - lo_q) % DKV_STAGES;
     const int q0 = qc * TC_BQ;
-    load_tile<D>(qtile + sidx * TB, qb, qs.t, q0, Tq, tid, 2 * WG);
-    load_tile<D>(dotile + sidx * TB, dob, dos.t, q0, Tq, tid, 2 * WG);
+    load_tile<D>(qtile + sidx * TB, qb, qs.t, q0, Tq, d, tid, 2 * WG);
+    load_tile<D>(dotile + sidx * TB, dob, dos.t, q0, Tq, d, tid, 2 * WG);
     if (tid < 2 * TC_BQ) {  // the rows' lse and delta, zero past T
       const int r = tid % TC_BQ;
       const int tq = q0 + r;
@@ -800,8 +812,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
     cp_commit();
   };
 
-  load_tile<D>(ktile, k + b * ks.b + kvh * ks.h, ks.t, k0, S, tid, 2 * WG);
-  load_tile<D>(vtile, v + b * vs.b + kvh * vs.h, vs.t, k0, S, tid, 2 * WG);
+  load_tile<D>(ktile, k + b * ks.b + kvh * ks.h, ks.t, k0, S, d, tid, 2 * WG);
+  load_tile<D>(vtile, v + b * vs.b + kvh * vs.h, vs.t, k0, S, d, tid, 2 * WG);
   // K and V go with the first q chunk's group
 #pragma unroll
   for (int c = 0; c < DKV_STAGES - 1; ++c) stage(lo_q + c);
@@ -882,11 +894,12 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_kernel(
   for (int i = 0; i < 2; ++i) {
     const int s = k0 + warp * 16 + gid + 8 * i;
     if (s >= S) continue;
-    float* row = part + ((static_cast<int64_t>(b) * H + h) * S + s) * D;
+    float* row = part + ((static_cast<int64_t>(b) * H + h) * S + s) * d;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<float2*>(row + n8 * 8 + tig * 2) =
-          make_float2(acc[n8 * 4 + i * 2], acc[n8 * 4 + i * 2 + 1]);
+      if (n8 * 8 + tig * 2 < d)
+        *reinterpret_cast<float2*>(row + n8 * 8 + tig * 2) =
+            make_float2(acc[n8 * 4 + i * 2], acc[n8 * 4 + i * 2 + 1]);
   }
 }
 
@@ -902,17 +915,18 @@ __device__ __forceinline__ void store4(float* dst, float4 x) {
 // dK = sc * sum_g dk_part[h = kvh * G + g], dV = sum_g dv_part[...], g in
 // order 0 .. G - 1 (the same order on every run), into k's and v's layouts
 // as T (bf16 after the tensor-core dK/dV, f32 after the split-TF32 one);
-// blockIdx.y = 0 for dK, 1 for dV; a thread owns 4 columns.
-template <typename T, int D>
+// the parts are (B, H, S, d) f32, d a multiple of 4; blockIdx.y = 0 for
+// dK, 1 for dV; a thread owns 4 columns.
+template <typename T>
 __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
     const float* __restrict__ dk_part, const float* __restrict__ dv_part,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int S,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int S, int d,
     Strides dks, Strides dvs, float sc, long long n4) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n4) return;
-  const int c = static_cast<int>(idx % (D / 4)) * 4;
-  const long long row = idx / (D / 4);
+  const int c = static_cast<int>(idx % (d / 4)) * 4;
+  const long long row = idx / (d / 4);
   const int s = static_cast<int>(row % S);
   const long long bk = row / S;
   const int kvh = static_cast<int>(bk % KV);
@@ -924,7 +938,7 @@ __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const float4 x = *reinterpret_cast<const float4*>(
-        part + ((static_cast<int64_t>(b) * H + h) * S + s) * D + c);
+        part + ((static_cast<int64_t>(b) * H + h) * S + s) * d + c);
     sum.x += x.x;
     sum.y += x.y;
     sum.z += x.z;
@@ -952,7 +966,7 @@ __global__ void __launch_bounds__(DQ_WGS * WG, 1) flash_bwd_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int KV, int Tq, int S, Strides qs,
+    bf16* __restrict__ dq, int H, int KV, int Tq, int S, int d, Strides qs,
     Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
   constexpr int TILE = TC_BQ * D;
   constexpr uint32_t TB = TILE * 2;
@@ -991,16 +1005,16 @@ __global__ void __launch_bounds__(DQ_WGS * WG, 1) flash_bwd_dq_tc_kernel(
   auto load_chunk = [&](int c) {
     if (c < nkv) {
       const int st = c % DQ_STAGES;
-      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, tid, NT);
-      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, tid, NT);
+      load_tile<D>(ktile + st * TB, kb, ks.t, c * TC_BK, S, d, tid, NT);
+      load_tile<D>(vtile + st * TB, vb, vs.t, c * TC_BK, S, d, tid, NT);
     }
     cp_commit();  // a group per chunk, empty past the last
   };
 
 #pragma unroll
   for (int w = 0; w < DQ_WGS; ++w) {
-    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
-    load_tile<D>(dotile + w * TB, dob, dos.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_tile<D>(qtile + w * TB, qb, qs.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
+    load_tile<D>(dotile + w * TB, dob, dos.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
   }
 #pragma unroll
   for (int c = 0; c < DQ_STAGES - 1; ++c) load_chunk(c);
@@ -1074,9 +1088,10 @@ __global__ void __launch_bounds__(DQ_WGS * WG, 1) flash_bwd_dq_tc_kernel(
     bf16* row = dq + b * dqs.b + h * dqs.h + tq * dqs.t;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<__nv_bfloat162*>(row + n8 * 8 + tig * 2) =
-          __floats2bfloat162_rn(acc[n8 * 4 + i * 2] * sc,
-                                acc[n8 * 4 + i * 2 + 1] * sc);
+      if (n8 * 8 + tig * 2 < d)
+        *reinterpret_cast<__nv_bfloat162*>(row + n8 * 8 + tig * 2) =
+            __floats2bfloat162_rn(acc[n8 * 4 + i * 2] * sc,
+                                  acc[n8 * 4 + i * 2 + 1] * sc);
   }
 }
 
@@ -1096,9 +1111,9 @@ constexpr size_t dkv_tc_smem_bytes(int d) {
 
 template <int D>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int H, int KV, int Tq, int S, Strides qs,
-                  Strides ks, Strides vs, Strides os, float sc, int causal,
-                  cudaStream_t st) {
+                  float* lse, int B, int H, int KV, int Tq, int S, int d,
+                  Strides qs, Strides ks, Strides vs, Strides os, float sc,
+                  int causal, cudaStream_t st) {
   const size_t smem = fwd_tc_smem_bytes(D);
   const int err = opt_in(reinterpret_cast<const void*>(
                              flash_fwd_tc_kernel<D>), smem);
@@ -1107,7 +1122,7 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
   flash_fwd_tc_kernel<D><<<grid, FWD_WGS * WG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Tq, S,
-      qs, ks, vs, os, sc, causal);
+      d, qs, ks, vs, os, sc, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1121,7 +1136,7 @@ int launch_dq_tc(const BwdArgs& a) {
   flash_bwd_dq_tc_kernel<D><<<grid, DQ_WGS * WG, smem, a.st>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dq), a.H, a.KV, a.Tq, a.S, a.qs, a.ks,
+      a.delta, static_cast<bf16*>(a.dq), a.H, a.KV, a.Tq, a.S, a.d, a.qs, a.ks,
       a.vs, a.dos, a.dqs, a.sc, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1136,15 +1151,15 @@ int launch_dkv_tc(const BwdArgs& a, float* dk_part, float* dv_part) {
   flash_bwd_dkv_tc_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, dk_part, dv_part, a.H, a.KV, a.Tq, a.S, a.qs, a.ks, a.vs,
+      a.delta, dk_part, dv_part, a.H, a.KV, a.Tq, a.S, a.d, a.qs, a.ks, a.vs,
       a.dos, a.sc, a.causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (D / 4);
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (a.d / 4);
   const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
-  flash_dkv_reduce_kernel<bf16, D><<<rgrid, 256, 0, a.st>>>(
+  flash_dkv_reduce_kernel<bf16><<<rgrid, 256, 0, a.st>>>(
       dk_part, dv_part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.H, a.KV, a.S, a.dks, a.dvs, a.sc, n4);
+      a.H, a.KV, a.S, a.d, a.dks, a.dvs, a.sc, n4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1378,38 +1393,39 @@ __device__ __forceinline__ void mma3(float (&d)[M], const uint32_t (&ah)[4],
   wgmma_tf32(d, al, bh, 1);
 }
 
-// Rows [r0, r0 + 64) of a (rows, D) f32 slab with row stride st into a raw
-// A tile, zero past ``rows``: 16-byte copies, a row's chunks by
-// neighbouring threads.
+// Rows [r0, r0 + 64) of a (rows, d) f32 slab with row stride st into a raw
+// A tile of D columns, zero past ``rows`` and in columns [d, D) (d a
+// multiple of 4): 16-byte copies, a row's chunks by neighbouring threads.
 template <int D>
 __device__ __forceinline__ void load_raw(float* tile, const float* src,
                                          long long st, int r0, int rows,
-                                         int tid, int nthreads) {
+                                         int d, int tid, int nthreads) {
   constexpr int CH = D / 4;
   for (int i = tid; i < TC_BQ * CH; i += nthreads) {
     const int r = i / CH;
     const int c = (i % CH) * 4;
     const int t = r0 + r;
-    const bool in = t < rows;
+    const bool in = t < rows && c < d;
     cp_async16(smem_u32(tile + raw_word<D>(r, c)),
                in ? static_cast<const void*>(src + t * st + c) : src,
                in ? 16 : 0);
   }
 }
 
-// Rows [r0, r0 + L) of a (rows, D) f32 slab into a natural tile, zero past
-// ``rows``: eight neighbouring rows of one 4-column chunk a warp quarter, so
-// the stores fill whole core matrices.
+// Rows [r0, r0 + L) of a (rows, d) f32 slab into a natural tile of D
+// columns, zero past ``rows`` and in columns [d, D): eight neighbouring rows
+// of one 4-column chunk a warp quarter, so the stores fill whole core
+// matrices.
 template <int D, int L>
 __device__ __forceinline__ void load_nat(float* tile, const float* src,
                                          long long st, int r0, int rows,
-                                         int tid, int nthreads) {
+                                         int d, int tid, int nthreads) {
   constexpr int CH = D / 4;
   for (int i = tid; i < L * CH; i += nthreads) {
     const int r = (i % 8) + 8 * (i / (8 * CH));
     const int c4 = (i / 8) % CH;
     const int t = r0 + r;
-    const bool in = t < rows;
+    const bool in = t < rows && c4 * 4 < d;
     cp_async16(smem_u32(tile + c4 * 4 * L + 4 * r),
                in ? static_cast<const void*>(src + t * st + c4 * 4) : src,
                in ? 16 : 0);
@@ -1544,7 +1560,7 @@ template <int D>
 __global__ void __launch_bounds__(2 * WG, 1) flash_fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ lse, int H, int KV, int Tq, int S, Strides qs,
+    float* __restrict__ lse, int H, int KV, int Tq, int S, int d, Strides qs,
     Strides ks, Strides vs, Strides os, float sc, int causal) {
   constexpr int L = tf32_chunk(D);
   constexpr int RAW = TC_BQ * raw_row(D);  // words of a raw tile
@@ -1584,14 +1600,14 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_fwd_tf32_kernel(
   const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
   auto load_chunk = [&](int c) {
     if (c < nkv) {
-      load_nat<D, L>(Kh, kb, ks.t, c * L, S, tid, NT);
-      load_nat<D, L>(Vh, vb, vs.t, c * L, S, tid, NT);
+      load_nat<D, L>(Kh, kb, ks.t, c * L, S, d, tid, NT);
+      load_nat<D, L>(Vh, vb, vs.t, c * L, S, d, tid, NT);
     }
     cp_commit();  // a group per chunk, empty past the last
   };
 #pragma unroll
   for (int w = 0; w < 2; ++w)
-    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
   load_chunk(0);  // with q in its group
 
   const float scl = sc * LOG2E;
@@ -1641,8 +1657,9 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_fwd_tf32_kernel(
     float* out = o + b * os.b + h * os.h + tq * os.t;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
-          acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+      if (n8 * 8 + tig * 2 < d)  // columns [d, D): V's zeros, not stored
+        *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
     if (tig == 0)  // m is in base 2
       lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
   }
@@ -1665,7 +1682,7 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int H, int KV, int Tq, int S, Strides qs,
+    float* __restrict__ dq, int H, int KV, int Tq, int S, int d, Strides qs,
     Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
   constexpr int L = tf32_chunk(D);
   constexpr int RAW = TC_BQ * raw_row(D);  // words of a raw tile
@@ -1708,15 +1725,15 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_kernel(
   const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
   auto load_chunk = [&](int c) {
     if (c < nkv) {
-      load_nat<D, L>(Kh, kb, ks.t, c * L, S, tid, NT);
-      load_nat<D, L>(Vh, vb, vs.t, c * L, S, tid, NT);
+      load_nat<D, L>(Kh, kb, ks.t, c * L, S, d, tid, NT);
+      load_nat<D, L>(Vh, vb, vs.t, c * L, S, d, tid, NT);
     }
     cp_commit();  // a group per chunk, empty past the last
   };
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
-    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, tid, NT);
-    load_raw<D>(Or + w * RAW, dob, dos.t, qb0 + w * TC_BQ, Tq, tid, NT);
+    load_raw<D>(Qr + w * RAW, qb, qs.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
+    load_raw<D>(Or + w * RAW, dob, dos.t, qb0 + w * TC_BQ, Tq, d, tid, NT);
   }
   load_chunk(0);  // with q and dO in its group
 
@@ -1786,8 +1803,9 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_kernel(
     float* out = dq + b * dqs.b + h * dqs.h + tq * dqs.t;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
-          acc[n8 * 4 + i * 2] * sc, acc[n8 * 4 + i * 2 + 1] * sc);
+      if (n8 * 8 + tig * 2 < d)
+        *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] * sc, acc[n8 * 4 + i * 2 + 1] * sc);
   }
 }
 
@@ -1813,7 +1831,7 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk_out, float* __restrict__ dv_out, int H, int KV,
-    int Tq, int S, Strides qs, Strides ks, Strides vs, Strides dos,
+    int Tq, int S, int d, Strides qs, Strides ks, Strides vs, Strides dos,
     Strides dko, Strides dvo, float ksc, float sc, int causal) {
   constexpr int L = tf32_chunk(D);
   constexpr int RAW = TC_BQ * raw_row(D);
@@ -1858,8 +1876,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
   auto stage = [&](int qc) {
     if (qc < nq) {
       const int q0 = qc * L;
-      load_nat<D, L>(Qh, qb, qs.t, q0, Tq, tid, NT);
-      load_nat<D, L>(Oh, dob, dos.t, q0, Tq, tid, NT);
+      load_nat<D, L>(Qh, qb, qs.t, q0, Tq, d, tid, NT);
+      load_nat<D, L>(Oh, dob, dos.t, q0, Tq, d, tid, NT);
       if (tid < 2 * L) {
         const int r = tid % L;
         const int tq = q0 + r;
@@ -1870,8 +1888,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
     }
     cp_commit();
   };
-  load_raw<D>(Kr, k + b * ks.b + kvh * ks.h, ks.t, k0, S, tid, NT);
-  load_raw<D>(Vr, v + b * vs.b + kvh * vs.h, vs.t, k0, S, tid, NT);
+  load_raw<D>(Kr, k + b * ks.b + kvh * ks.h, ks.t, k0, S, d, tid, NT);
+  load_raw<D>(Vr, v + b * vs.b + kvh * vs.h, vs.t, k0, S, d, tid, NT);
   stage(lo_q);  // K and V go with the first q chunk's group
 
   const float scl = sc * LOG2E;
@@ -1953,8 +1971,9 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_kernel(
     float* dst = out + b * o.b + h * o.h + s * o.t;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<float2*>(dst + n8 * 8 + tig * 2) = make_float2(
-          acc[n8 * 4 + i * 2] * f, acc[n8 * 4 + i * 2 + 1] * f);
+      if (n8 * 8 + tig * 2 < d)
+        *reinterpret_cast<float2*>(dst + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] * f, acc[n8 * 4 + i * 2 + 1] * f);
   }
 }
 
@@ -1981,7 +2000,7 @@ constexpr size_t dkv_tf32_smem_bytes(int d) {
 
 template <int D>
 int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int H, int KV, int Tq, int S,
+                    float* lse, int B, int H, int KV, int Tq, int S, int d,
                     Strides qs, Strides ks, Strides vs, Strides os, float sc,
                     int causal, cudaStream_t st) {
   const size_t smem = fwd_tf32_smem_bytes(D);
@@ -1992,7 +2011,7 @@ int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_tf32_kernel<D><<<grid, 2 * WG, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Tq,
-      S, qs, ks, vs, os, sc, causal);
+      S, d, qs, ks, vs, os, sc, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2006,14 +2025,15 @@ int launch_dq_tf32(const BwdArgs& a) {
   flash_bwd_dq_tf32_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KV, a.Tq, a.S, a.qs,
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KV, a.Tq, a.S, a.d,
+      a.qs,
       a.ks, a.vs, a.dos, a.dqs, a.sc, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The caller chooses: null dk_part and dv_part (only at G = H / KV = 1):
 // the kernel writes dK and dV; else per query head sums into dk_part and
-// dv_part ((B, H, S, D) f32), then the group sum.
+// dv_part ((B, H, S, d) f32), then the group sum.
 template <int D>
 int launch_dkv_tf32(const BwdArgs& a, float* dk_part, float* dv_part) {
   const bool direct = dk_part == nullptr;
@@ -2023,240 +2043,186 @@ int launch_dkv_tf32(const BwdArgs& a, float* dk_part, float* dv_part) {
   int err = opt_in(reinterpret_cast<const void*>(flash_bwd_dkv_tf32_kernel<D>),
                    smem);
   if (err) return err;
-  const Strides part{static_cast<long long>(a.H) * a.S * D,
-                     static_cast<long long>(a.S) * D, D};
+  const Strides part{static_cast<long long>(a.H) * a.S * a.d,
+                     static_cast<long long>(a.S) * a.d, a.d};
   const dim3 grid(a.B * a.H, (a.S + TC_BK - 1) / TC_BK);
   flash_bwd_dkv_tf32_kernel<D><<<grid, 2 * WG, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, direct ? static_cast<float*>(a.dk) : dk_part,
-      direct ? static_cast<float*>(a.dv) : dv_part, a.H, a.KV, a.Tq, a.S,
+      direct ? static_cast<float*>(a.dv) : dv_part, a.H, a.KV, a.Tq, a.S, a.d,
       a.qs, a.ks, a.vs, a.dos, direct ? a.dks : part, direct ? a.dvs : part,
       direct ? a.sc : 1.f, a.sc, a.causal);
   err = static_cast<int>(cudaGetLastError());
   if (err || direct) return err;
-  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (D / 4);
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (a.d / 4);
   const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
-  flash_dkv_reduce_kernel<float, D><<<rgrid, 256, 0, a.st>>>(
+  flash_dkv_reduce_kernel<float><<<rgrid, 256, 0, a.st>>>(
       dk_part, dv_part, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.H, a.KV, a.S, a.dks, a.dvs, a.sc, n4);
+      a.H, a.KV, a.S, a.d, a.dks, a.dvs, a.sc, n4);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiated head dim a head dim d runs in: the smallest D of 16,
+// 32, 64, 80, 96 and 128 at least d (budget.flash_head_dim), or 0 for a d
+// no instantiation takes: outside 1 .. 128, or a row of d elements of
+// `itemsize` bytes that the 16-byte copies cannot cover.
+int head_dim_for(int d, int itemsize) {
+  constexpr int kDims[] = {16, 32, 64, 80, 96, 128};
+  if (d < 1 || d * itemsize % 16 != 0) return 0;
+  for (int D : kDims)
+    if (d <= D) return D;
+  return 0;
+}
+
+// The entries' common checks: sizes, and the dtype each takes.
+bool bad_sizes(int B, int H, int KV, int Tq, int S, int dtype, int want) {
+  return B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
+         dtype != want;
+}
+
+BwdArgs bwd_args(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta, int B,
+                 int H, int KV, int Tq, int S, int d, Strides qs, Strides ks,
+                 Strides vs, Strides dos, float sc, int causal, void* stream) {
+  BwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S; a.d = d;
+  a.qs = qs; a.ks = ks; a.vs = vs; a.dos = dos;
+  a.sc = sc; a.causal = causal;
+  a.st = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+// One case of an entry's switch: instantiation D of launcher F.
+#define FLASH_DIMS(F, ...)                                   \
+  switch (head_dim_for(d, dtype == 0 ? 4 : 2)) {            \
+    case 16: return F<16>(__VA_ARGS__);                     \
+    case 32: return F<32>(__VA_ARGS__);                     \
+    case 64: return F<64>(__VA_ARGS__);                     \
+    case 80: return F<80>(__VA_ARGS__);                     \
+    case 96: return F<96>(__VA_ARGS__);                     \
+    case 128: return F<128>(__VA_ARGS__);                   \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
 }  // namespace
 
+// d: the head dim of every q-, k-, v- and dO-shaped operand; the kernels
+// run in the smallest instantiation D >= d (head_dim_for), columns [d, D)
+// zero on chip and never stored.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int KV, int Tq, int S, int D, long long q_sb, long long q_sh,
+    int H, int KV, int Tq, int S, int d, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, long long o_st, float sc, int causal, int dtype,
     void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 0)
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 0))  // bf16: the *_tc entry
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
       vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {  // bf16 (dtype 1): the *_tc entry
-    case 16:
-      return launch_fwd_tf32<16>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                 os, sc, causal, st);
-    case 32:
-      return launch_fwd_tf32<32>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                 os, sc, causal, st);
-    case 64:
-      return launch_fwd_tf32<64>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                 os, sc, causal, st);
-    case 80:
-      return launch_fwd_tf32<80>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                 os, sc, causal, st);
-    case 96:
-      return launch_fwd_tf32<96>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                 os, sc, causal, st);
-    case 128:
-      return launch_fwd_tf32<128>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                  os, sc, causal, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_DIMS(launch_fwd_tf32, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+             Tq, S, d, qs, ks, vs, os, sc, causal,
+             static_cast<cudaStream_t>(stream))
+}
+
+extern "C" int flash_attention_fwd_tc(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int KV, int Tq, int S, int d, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st, long long o_sb,
+    long long o_sh, long long o_st, float sc, int causal, int dtype,
+    void* stream) {
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
+      vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
+  FLASH_DIMS(launch_fwd_tc, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+             Tq, S, d, qs, ks, vs, os, sc, causal,
+             static_cast<cudaStream_t>(stream))
 }
 
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int KV,
-    int Tq, int S, int D, long long q_sb, long long q_sh, long long q_st,
+    int Tq, int S, int d, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long do_sb, long long do_sh,
     long long do_st, long long dq_sb, long long dq_sh, long long dq_st,
     float sc, int causal, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 0)
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, B, H, KV, Tq, S, d,
+                       {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
+                       {v_sb, v_sh, v_st}, {do_sb, do_sh, do_st}, sc, causal,
+                       stream);
   a.dq = dq;
-  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
-  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
-  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
   a.dqs = {dq_sb, dq_sh, dq_st};
-  a.sc = sc; a.causal = causal;
-  a.st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq_tf32<16>(a);
-    case 32: return launch_dq_tf32<32>(a);
-    case 64: return launch_dq_tf32<64>(a);
-    case 80: return launch_dq_tf32<80>(a);
-    case 96: return launch_dq_tf32<96>(a);
-    case 128: return launch_dq_tf32<128>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_DIMS(launch_dq_tf32, a)
 }
 
 extern "C" int flash_attention_bwd_dq_tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int KV,
-    int Tq, int S, int D, long long q_sb, long long q_sh, long long q_st,
+    int Tq, int S, int d, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long do_sb, long long do_sh,
     long long do_st, long long dq_sb, long long dq_sh, long long dq_st,
     float sc, int causal, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 1)
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, B, H, KV, Tq, S, d,
+                       {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
+                       {v_sb, v_sh, v_st}, {do_sb, do_sh, do_st}, sc, causal,
+                       stream);
   a.dq = dq;
-  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
-  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
-  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
   a.dqs = {dq_sb, dq_sh, dq_st};
-  a.sc = sc; a.causal = causal;
-  a.st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq_tc<16>(a);
-    case 32: return launch_dq_tc<32>(a);
-    case 64: return launch_dq_tc<64>(a);
-    case 80: return launch_dq_tc<80>(a);
-    case 96: return launch_dq_tc<96>(a);
-    case 128: return launch_dq_tc<128>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_DIMS(launch_dq_tc, a)
 }
 
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, void* dk_part,
-    void* dv_part, int B, int H, int KV, int Tq, int S, int D,
+    void* dv_part, int B, int H, int KV, int Tq, int S, int d,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long do_sb, long long do_sh, long long do_st,
     long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
     long long dv_sh, long long dv_st, float sc, int causal, int dtype,
     void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 0)
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, B, H, KV, Tq, S, d,
+                       {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
+                       {v_sb, v_sh, v_st}, {do_sb, do_sh, do_st}, sc, causal,
+                       stream);
   a.dk = dk; a.dv = dv;
-  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
-  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
-  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
   a.dks = {dk_sb, dk_sh, dk_st}; a.dvs = {dv_sb, dv_sh, dv_st};
-  a.sc = sc; a.causal = causal;
-  a.st = static_cast<cudaStream_t>(stream);
-  float* kp = static_cast<float*>(dk_part);
-  float* vp = static_cast<float*>(dv_part);
-  switch (D) {
-    case 16: return launch_dkv_tf32<16>(a, kp, vp);
-    case 32: return launch_dkv_tf32<32>(a, kp, vp);
-    case 64: return launch_dkv_tf32<64>(a, kp, vp);
-    case 80: return launch_dkv_tf32<80>(a, kp, vp);
-    case 96: return launch_dkv_tf32<96>(a, kp, vp);
-    case 128: return launch_dkv_tf32<128>(a, kp, vp);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int flash_attention_fwd_tc(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int KV, int Tq, int S, int D, long long q_sb, long long q_sh,
-    long long q_st, long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st, long long o_sb,
-    long long o_sh, long long o_st, float sc, int causal, int dtype,
-    void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
-      vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch_fwd_tc<16>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
-                               sc, causal, st);
-    case 32:
-      return launch_fwd_tc<32>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
-                               sc, causal, st);
-    case 64:
-      return launch_fwd_tc<64>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
-                               sc, causal, st);
-    case 80:
-      return launch_fwd_tc<80>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
-                               sc, causal, st);
-    case 96:
-      return launch_fwd_tc<96>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs, os,
-                               sc, causal, st);
-    case 128:
-      return launch_fwd_tc<128>(q, k, v, o, l, B, H, KV, Tq, S, qs, ks, vs,
-                                os, sc, causal, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_DIMS(launch_dkv_tf32, a, static_cast<float*>(dk_part),
+             static_cast<float*>(dv_part))
 }
 
 extern "C" int flash_attention_bwd_dkv_tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, void* dk_part,
-    void* dv_part, int B, int H, int KV, int Tq, int S, int D,
+    void* dv_part, int B, int H, int KV, int Tq, int S, int d,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long do_sb, long long do_sh, long long do_st,
     long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
     long long dv_sh, long long dv_st, float sc, int causal, int dtype,
     void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0 ||
-      dtype != 1)
+  if (bad_sizes(B, H, KV, Tq, S, dtype, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, B, H, KV, Tq, S, d,
+                       {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
+                       {v_sb, v_sh, v_st}, {do_sb, do_sh, do_st}, sc, causal,
+                       stream);
   a.dk = dk; a.dv = dv;
-  a.B = B; a.H = H; a.KV = KV; a.Tq = Tq; a.S = S;
-  a.qs = {q_sb, q_sh, q_st}; a.ks = {k_sb, k_sh, k_st};
-  a.vs = {v_sb, v_sh, v_st}; a.dos = {do_sb, do_sh, do_st};
   a.dks = {dk_sb, dk_sh, dk_st}; a.dvs = {dv_sb, dv_sh, dv_st};
-  a.sc = sc; a.causal = causal;
-  a.st = static_cast<cudaStream_t>(stream);
-  float* kp = static_cast<float*>(dk_part);
-  float* vp = static_cast<float*>(dv_part);
-  switch (D) {
-    case 16: return launch_dkv_tc<16>(a, kp, vp);
-    case 32: return launch_dkv_tc<32>(a, kp, vp);
-    case 64: return launch_dkv_tc<64>(a, kp, vp);
-    case 80: return launch_dkv_tc<80>(a, kp, vp);
-    case 96: return launch_dkv_tc<96>(a, kp, vp);
-    case 128: return launch_dkv_tc<128>(a, kp, vp);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_DIMS(launch_dkv_tc, a, static_cast<float*>(dk_part),
+             static_cast<float*>(dv_part))
 }

@@ -15,9 +15,13 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
-Every kernel takes the head dims ``budget.FLASH_HEAD_DIMS`` (80 and 96
-among them); any other head dim raises before a launch (no fallback on a
-CUDA tensor).
+Every kernel takes any head dim d up to 128 whose rows are a multiple of
+16 bytes (d a multiple of 8 in bf16, of 4 in f32; ``ops`` pads any other
+d): it runs in the instantiation D = ``budget.flash_head_dim(d)``, the
+smallest of ``budget.FLASH_HEAD_DIMS`` at least d, its loads zero past
+column d and its stores cut there.  A head dim above 128, or one whose rows
+the copies cannot cover, raises before a launch (no fallback on a CUDA
+tensor).
 
 All three pick their kernel by dtype, and only by dtype.  bf16 operands go
 to the tensor-core kernels (``flash_fwd_tc_kernel``;
@@ -46,9 +50,9 @@ Counts of launches in this process, one a launch of its kernel:
 dQ), ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
 (split-TF32 dK/dV), ``.tf32_reduce_launches`` (its group sum, G > 1),
 ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches`` (its group
-sum).  Each of the three also has ``.by_head_dim``: its launches by
-instantiation, ``(kind, d)`` with kind ``"tc"`` (bf16) or ``"tf32"``
-(f32); a dK/dV launch and its group sum count once there.
+sum).  Each of the three also has ``.by_head_dim``: its launches by head
+dim and instantiation, ``(kind, d, D)`` with kind ``"tc"`` (bf16) or
+``"tf32"`` (f32); a dK/dV launch and its group sum count once there.
 """
 from __future__ import annotations
 
@@ -104,10 +108,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          rows_strided=True)
 
 
-def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
-    """Check q, k, v and the q-shaped ``rows`` operands, and that the
-    kernels are instantiated at their head dim; returns (B, H, KV, T, S,
-    d)."""
+def _check_qkv(q, k, v, smem_bytes, *rows) -> Tuple[int, ...]:
+    """Check q, k, v and the q-shaped ``rows`` operands, that the kernels
+    take their head dim, and that ``smem_bytes(d)`` fits a block; returns
+    (B, H, KV, T, S, d)."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     dev = q.device
@@ -119,13 +123,12 @@ def _check_qkv(q, k, v, smem_bytes: int, *rows) -> Tuple[int, ...]:
     _check(v, "v", q.dtype, (b, kv, s, d), dev)
     for name, x in rows:
         _check(x, name, q.dtype, (b, h, t, d), dev)
-    if d not in budget.FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not one of "
-                         f"{budget.FLASH_HEAD_DIMS}, the dims the kernel is "
-                         f"built for")
+    fault = budget.flash_head_dim_fault(d, q.element_size())
+    if fault is not None:
+        raise ValueError(f"flash_attention: {fault}")
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} heads over {kv} kv heads")
-    if not budget.smem_fits(smem_bytes):
+    if not budget.smem_fits(smem_bytes(d)):
         raise ValueError("flash_attention: chunks bust shared memory")
     return b, h, kv, t, s, d
 
@@ -149,10 +152,9 @@ def _check_stats(lse, delta, shape, dev) -> None:
 
 def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     tc = q.dtype == torch.bfloat16
-    d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
-        q, k, v, budget.flash_tc_smem_bytes(d) if tc
-        else budget.flash_fwd_tf32_smem_bytes(d))
+        q, k, v, budget.flash_tc_smem_bytes if tc
+        else budget.flash_fwd_tf32_smem_bytes)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # O in q's memory layout: a (B, T, H, d) buffer seen as (B, H, T, d)
     # when q is a transposed view of the model's tensor.
@@ -172,7 +174,7 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _count_head_dim(wrapper, kind: str, d: int) -> None:
-    key = (kind, d)
+    key = (kind, d, budget.flash_head_dim(d))
     wrapper.by_head_dim[key] = wrapper.by_head_dim.get(key, 0) + 1
 
 
@@ -195,7 +197,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.tc_launches = 0
-# launches of each instantiation: (kind, head dim) -> count
+# launches by head dim: (kind, d, its instantiation D) -> count
 flash_attention_fwd.by_head_dim = {}
 
 
@@ -208,10 +210,9 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory layout.  bf16 operands run the tensor-core kernel, f32 operands
     the split-TF32 kernel."""
     tc = q.dtype == torch.bfloat16
-    d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
-        q, k, v, budget.flash_bwd_dq_tc_smem_bytes(d) if tc
-        else budget.flash_bwd_dq_smem_bytes(d), ("do", do))
+        q, k, v, budget.flash_bwd_dq_tc_smem_bytes if tc
+        else budget.flash_bwd_dq_smem_bytes, ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
@@ -239,10 +240,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     and its group sum (two launches); f32 operands the split-TF32 kernel,
     and its group sum when G > 1."""
     tc = q.dtype == torch.bfloat16
-    d = q.shape[-1]
     b, h, kv, t, s, d = _check_qkv(
-        q, k, v, budget.flash_bwd_dkv_tc_smem_bytes(d) if tc
-        else budget.flash_bwd_dkv_smem_bytes(d), ("do", do))
+        q, k, v, budget.flash_bwd_dkv_tc_smem_bytes if tc
+        else budget.flash_bwd_dkv_smem_bytes, ("do", do))
     _check_stats(lse, delta, (b, h, t), q.device)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)

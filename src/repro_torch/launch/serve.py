@@ -54,6 +54,26 @@ DEFAULT_PLAN_CACHE = str(Path(__file__).resolve().parents[3] / "build"
                          / "plans" / "autotune_cache.json")
 
 
+def prune_to_bcsr(w: torch.Tensor, sparsity: float, block,
+                  whole_tiles: bool = False) -> BcsrMatrix:
+    """The BCSR of W^T, in ``block`` tiles of ``w``'s dtype, for a dense
+    (in, out) weight ``w`` block-pruned in f32 (``block_prune``).
+
+    The one place that decides how a weight is pruned into a bank.  The
+    reference's ``sparsify_params`` prunes the (in, out) weight itself in
+    ``block`` (``whole_tiles=False``), so a pruned tile is a whole tile of
+    the bank only for a square block; ``whole_tiles`` prunes W^T in
+    ``block``, so that every pruned tile is a whole tile of the bank at any
+    block (a meshed shard in the reference's tall (M / tp, 128) blocks,
+    ``sparse_weights.sparsify_shards``).  The two agree at a square block.
+    """
+    wf = w.float()
+    pruned = (block_prune(wf.T, sparsity, block) if whole_tiles
+              else block_prune(wf, sparsity, block).T)
+    b = bcsr_from_dense(pruned, block)
+    return dataclasses.replace(b, blocks=b.blocks.to(w.dtype))
+
+
 def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
                     min_dim: int = 64):
     """Prune and convert every large 2-D linear weight to Escoin BCSR, in
@@ -61,10 +81,10 @@ def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
 
     A 2-D weight named outside ``SKIP`` (the router, Mamba2's conv and the
     embeddings stay dense) with both dims >= ``min_dim`` is
-    block-pruned in f32 (``block_prune``) and stored as the BCSR of its
-    transpose (dense weights are (in, out); BCSR computes x @ W.T for
-    (out, in)), with tiles in the weight's dtype (exact: the f32 copy holds
-    the same values).  The work happens on the weight's device, and each
+    block-pruned in f32 and stored as the BCSR of its transpose
+    (``prune_to_bcsr``: dense weights are (in, out); BCSR computes x @ W.T
+    for (out, in)), with tiles in the weight's dtype (exact: the f32 copy
+    holds the same values).  The work happens on the weight's device, and each
     dense leaf is replaced as soon as its bank is built, so the dense model
     never sits beside its banks.  A MoE layer's stacked (E, in, out)
     experts stay dense, as the reference's 4-D stacked experts do.  Leaves
@@ -75,11 +95,7 @@ def sparsify_params(params, cfg, sparsity: float, block=(16, 16),
         if name in SKIP or not isinstance(w, torch.Tensor):
             return w
         if w.ndim == 2 and min(w.shape) >= min_dim:
-            pruned = block_prune(w.float(), sparsity, block)
-            b = bcsr_from_dense(pruned.T, block)
-            return BcsrMatrix(blocks=b.blocks.to(w.dtype),
-                              blockcol=b.blockcol, nblocks=b.nblocks,
-                              shape=b.shape, block=b.block)
+            return prune_to_bcsr(w, sparsity, block)
         return w
 
     def visit(p, name=""):

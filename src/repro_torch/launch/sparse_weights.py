@@ -15,16 +15,20 @@ reference's (``SKIP``, its 2-D rule, and its layer-stacked 3-D rule read
 on the reference's stacked shape of each per-layer leaf); a MoE layer's
 (E, in, out) experts, 4-D in the reference's stack, stay dense.
 
-Deliberate difference, block geometry: the reference's blocks are
-(M / tp, 128), one block-row a rank of its (M, N) weight.  The port's
-leaf is the BCSR of W^T of this rank's own ``tp`` shard (whole over every
-other mesh dim, as the reference's sparse specs leave its blocks) in
-(16, 16) tiles (``budget.BSR_MATMUL_BM``): the card kernel's only tile, and
-what the port's mesh path runs ("only as whole shards", ``layers._use``).
+Block geometry, the reference's (``reference_block``, its
+``_abstract_bcsr``): bm = M / tp where tp divides M and M / tp >= 8, else
+M; bn = 128 where 128 divides N, else N, for the logical (M, N) = (out, in)
+weight.  The port's leaf is the BCSR of W^T of this rank's own ``tp``
+shard (whole over every other mesh dim, as the reference's sparse specs
+leave its blocks) in those blocks: what the port's mesh path runs ("only
+as whole shards", ``layers._use``), and where tp splits M, the reference's
+own leaf's block-row of this rank.  The card's kernel takes any block
+whose sides are multiples of 16 as it is, and ``ops.bsr_matmul`` re-tiles
+any other.
 
 ``sparsify_shards`` does the same to real placed weights: each rank prunes
-its own ``tp`` shard (gathered over the other mesh dims) with
-``serve.sparsify_params``' rule.
+its own ``tp`` shard (gathered over the other mesh dims) in the same
+blocks, tile by tile of its bank (``serve.prune_to_bcsr``).
 """
 from __future__ import annotations
 
@@ -36,14 +40,22 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.sparse_format import BcsrMatrix
 from repro_torch.distributed import sharding as S
-from repro_torch.kernels import budget
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_flatten, tree_map, tree_paths
 
 SKIP = frozenset({"embed", "lm_head", "router", "conv_w", "q_norm",
                   "kv_norm"})
-BLOCK = (budget.BSR_MATMUL_BM[0], 16)   # the card kernel's (16, 16) tile
+
+
+def reference_block(m: int, n: int, tp: int) -> Tuple[int, int]:
+    """The reference's block for a logical (M, N) = (``m``, ``n``) weight
+    over ``tp`` ranks: one block-row a rank where tp divides M into rows of
+    at least 8, else the whole M; 128 columns where 128 divides N, else
+    the whole N."""
+    bm = m // tp if (m % tp == 0 and m // tp >= 8) else m
+    bn = 128 if n % 128 == 0 else n
+    return bm, bn
 
 
 def reference_shape(cfg: ModelConfig, path: str, shape) -> Tuple[int, ...]:
@@ -90,13 +102,13 @@ def whole_but_tp(pls, mesh) -> tuple:
                  for i, pl in enumerate(pls))
 
 
-def _bcsr(m: int, n: int, sparsity: float, dtype, device,
-          gen: Optional[torch.Generator]) -> BcsrMatrix:
-    """A BCSR (M, N) weight of ``BLOCK`` tiles keeping ceil(gn * (1 -
+def _bcsr(m: int, n: int, block: Tuple[int, int], sparsity: float, dtype,
+          device, gen: Optional[torch.Generator]) -> BcsrMatrix:
+    """A BCSR (M, N) weight of ``block`` tiles keeping ceil(gn * (1 -
     sparsity)) tiles in every block-row: empty without ``gen`` (``meta``),
     else tiles drawn from ``gen`` (truncated normal x N**-0.5) at block
     columns drawn ascending."""
-    bm, bn = BLOCK
+    bm, bn = block
     gm, gn = -(-m // bm), -(-n // bn)
     kb = max(1, math.ceil(gn * (1.0 - sparsity)))
     if gen is None:
@@ -104,7 +116,7 @@ def _bcsr(m: int, n: int, sparsity: float, dtype, device,
             blocks=torch.empty((gm, kb, bm, bn), dtype=dtype, device=device),
             blockcol=torch.empty((gm, kb), dtype=torch.int32, device=device),
             nblocks=torch.empty((gm,), dtype=torch.int32, device=device),
-            shape=(m, n), block=BLOCK)
+            shape=(m, n), block=tuple(block))
     from repro_torch.models.layers import truncated_normal
     cols = torch.rand((gm, gn), generator=gen).argsort(dim=1)[:, :kb]
     return BcsrMatrix(
@@ -112,7 +124,7 @@ def _bcsr(m: int, n: int, sparsity: float, dtype, device,
                 * n ** -0.5).to(dtype),
         blockcol=cols.sort(dim=1).values.to(torch.int32).to(device),
         nblocks=torch.full((gm,), kb, dtype=torch.int32, device=device),
-        shape=(m, n), block=BLOCK)
+        shape=(m, n), block=tuple(block))
 
 
 def abstract_sparse_params(cfg: ModelConfig, tp: int, sparsity: float,
@@ -123,7 +135,8 @@ def abstract_sparse_params(cfg: ModelConfig, tp: int, sparsity: float,
     """(param tree, placements tree) on ``mesh`` (the active one), under the
     active rules.  The tree is ``T.init_params``' on ``meta`` (shapes and
     dtypes, no storage) with each leaf that ``converts`` replaced by the
-    ``BcsrMatrix`` of W^T of this rank's ``tp`` shard (``BLOCK`` tiles);
+    ``BcsrMatrix`` of W^T of this rank's ``tp`` shard (in the
+    ``reference_block`` of the whole weight over ``tp``);
     the placements are ``param_specs``' with a converted leaf's mesh dims
     other than "tp" made Replicate (the dense shard its BCSR encodes).
     Dense leaves are whole, for ``steps.place_state``; BCSR leaves are
@@ -148,7 +161,9 @@ def abstract_sparse_params(cfg: ModelConfig, tp: int, sparsity: float,
                 f"{w.ndim}-D leaf as a layer stack; the port's BCSR leaves "
                 f"are 2-D")
         n_in, n_out = _tp_shard_shape(w.shape, pl, mesh)
-        out_leaves.append(_bcsr(n_out, n_in, sparsity, w.dtype, device, gen))
+        block = reference_block(w.shape[1], w.shape[0], tp)
+        out_leaves.append(_bcsr(n_out, n_in, block, sparsity, w.dtype,
+                                device, gen))
         out_pls.append(whole_but_tp(pl, mesh))
     return tree_flatten(dense)[1](out_leaves), tree_flatten(pls)[1](out_pls)
 
@@ -156,14 +171,17 @@ def abstract_sparse_params(cfg: ModelConfig, tp: int, sparsity: float,
 def sparsify_shards(params: Any, cfg: ModelConfig, sparsity: float, *,
                     min_dim: int = 64) -> Any:
     """Placed params (DTensors, ``steps.place_state``) with every leaf that
-    ``serve.sparsify_params`` converts replaced by the BCSR of this rank's
-    pruned ``tp`` shard: the shard gathered over the other mesh dims, then
-    pruned and converted by ``sparsify_params`` in ``BLOCK`` tiles (its
-    ``SKIP``, 2-D leaves whose shard has both dims at least ``min_dim``);
-    the other leaves are returned as they are.  Under the mesh's rules."""
-    from repro_torch.launch.serve import SKIP as SERVE_SKIP, sparsify_params
+    ``serve.sparsify_params`` converts (its ``SKIP``, 2-D leaves whose shard
+    has both dims at least ``min_dim``) replaced by the BCSR of this rank's
+    pruned ``tp`` shard in the ``reference_block`` of the whole weight over
+    the mesh's tp ranks: the shard gathered over the other mesh dims, then
+    pruned and converted by ``serve.prune_to_bcsr`` with every pruned tile
+    a whole tile of the bank.  The other leaves are returned as they are.
+    Under the mesh's rules."""
+    from repro_torch.launch.serve import SKIP as SERVE_SKIP, prune_to_bcsr
 
     mesh = S.get_mesh()
+    tp = S.tp_size()
 
     def one(path, w):
         name = path.split("/")[-1]
@@ -172,8 +190,8 @@ def sparsify_shards(params: Any, cfg: ModelConfig, sparsity: float, *,
         if min(_tp_shard_shape(w.shape, w.placements, mesh)) < min_dim:
             return w
         shard = S.redistribute(w, whole_but_tp(w.placements, mesh))
-        got = sparsify_params({name: shard.to_local().clone()}, cfg,
-                              sparsity, BLOCK, min_dim)[name]
-        return got if isinstance(got, BcsrMatrix) else w
+        return prune_to_bcsr(shard.to_local(), sparsity,
+                             reference_block(w.shape[1], w.shape[0], tp),
+                             whole_tiles=True)
 
     return tree_flatten(params)[1]([one(k, w) for k, w in tree_paths(params)])

@@ -527,17 +527,44 @@ def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig, capacity: int
     return topw, token_for_slot, slot_for_tokk, kept
 
 
+class _BmmF32(torch.autograd.Function):
+    """``a @ b`` of two bf16 operands on the card with f32 sums and an f32
+    result (``out_dtype``, which has no derivative of its own).  The
+    backward's two products run the same way on bf16 operands: the f32
+    gradient rounded to bf16 once, each result rounded once to its
+    operand's dtype, so that a train step keeps the experts' products on
+    the tensor cores and makes no f32 copy of their weights."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.transpose(1, 2),
+                           out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.transpose(1, 2), g,
+                           out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with f32 sums and an f32 result, the reference's
     ``preferred_element_type=f32``: on the card a bf16 product returns its
-    f32 sums unrounded (``out_dtype``; the operands stay bf16); on the CPU
-    the operands are multiplied in f32, which holds the same products
-    exactly; an f32 ``a`` (f32 activations) takes ``b`` in f32, as the
-    reference's einsum promotes it."""
+    f32 sums unrounded, forward and backward on bf16 operands
+    (``_BmmF32``); on the CPU the operands are multiplied in f32, which
+    holds the same products exactly; an f32 ``a`` (f32 activations) takes
+    ``b`` in f32, as the reference's einsum promotes it."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b.float())
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

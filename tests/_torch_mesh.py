@@ -198,10 +198,11 @@ for src, dst in cases or [("pods", "compressed")]:
 # port ranks
 # ---------------------------------------------------------------------------
 
-def _cfg(arch: str):
+def _cfg(arch: str, over=None):
+    """``arch``'s smoke config in f32, with a case's ``over`` fields."""
     from repro_torch import configs
     return dataclasses.replace(configs.get_config(arch, smoke=True),
-                               dtype="float32")
+                               dtype="float32", **(over or {}))
 
 
 def _flags(case) -> None:
@@ -512,11 +513,15 @@ def rank_dryrun_counts(rank, world, cases, out: str) -> None:
 DECODE_SEQ = 16      # the cache's length: every case fills it to the end
 DECODE_SKIP = ("embed", "lm_head", "router", "conv_w")   # sparsify_params'
 
-# Each case: the reference's params (f32 smoke config, its own init_params
-# from PRNGKey(0)) on the mesh; with "sparsity", every leaf that
+# Each case: the reference's params (f32 smoke config with the case's "cfg"
+# fields, its own init_params from PRNGKey(0)) on the mesh; with "sparsity", every leaf that
 # sparsify_params converts (2-D a layer, name outside its SKIP) pruned tp
-# shard by tp shard with the port's block_prune at (16, 16), where the
-# shard's dims are at least "min_dim"; saved with its own save_state.  Then
+# shard by tp shard with the port's block_prune, on the shard's (out, in)
+# transpose in the reference's dry-run block of the whole weight
+# (``_abstract_bcsr``'s: M / tp rows where tp divides M into rows of at
+# least 8, else M; 128 columns where 128 divides N, else N), as
+# ``sparse_weights.sparsify_shards`` prunes, where the shard's dims are at
+# least "min_dim"; saved with its own save_state.  Then
 # DECODE_SEQ jitted meshed T.decode_step calls at cur_len 0.. on the
 # teacher-forced tokens (in_shardings from param_specs and
 # decode_input_specs, the cache donated through out_shardings); the logits
@@ -537,6 +542,9 @@ def prune_shards(params, specs, tp, sparsity, min_dim):
         if name in SKIP or w.ndim - stacked != 2:
             return w
         w = np.asarray(w)
+        n_in, n_out = w.shape[-2:]
+        block = (n_out // tp if n_out %% tp == 0 and n_out // tp >= 8
+                 else n_out, 128 if n_in %% 128 == 0 else n_in)
         axis = [i for i, e in enumerate(spec) if e == "tp"]
         parts = np.split(w, tp, axis=axis[0]) if axis else [w]
         out = []
@@ -545,8 +553,8 @@ def prune_shards(params, specs, tp, sparsity, min_dim):
             if min(mats.shape[1:]) < min_dim:
                 out.append(part)
                 continue
-            pruned = np.stack([block_prune(torch.from_numpy(np.array(m)),
-                                           sparsity, (16, 16)).numpy()
+            pruned = np.stack([block_prune(torch.from_numpy(np.array(m)).T,
+                                           sparsity, block).T.numpy()
                                for m in mats])
             out.append(pruned if stacked else pruned[0])
         return jnp.asarray(np.concatenate(out, axis=axis[0]) if axis
@@ -558,7 +566,7 @@ for c in cases:
     F.set_moe_impl(c["moe_impl"]); F.set_attn_impl("chunked")
     F.set_moe_capacity(c["capacity"])
     cfg = dataclasses.replace(cfgs.get_config(c["arch"], smoke=True),
-                              dtype="float32")
+                              dtype="float32", **c.get("cfg", {}))
     mesh = build_mesh((tuple(c["shape"]), tuple(c["axes"])))
     b, s = c["batch"], %(seq)d
     with mesh, shd.use_rules(shd.default_rules(mesh), mesh):
@@ -617,7 +625,7 @@ def rank_decode(rank, world, cases, out: str) -> None:
     decode_step = T.decode_step
     for c in cases:
         _flags(dict(c, attn="chunked"))
-        cfg = _cfg(c["arch"])
+        cfg = _cfg(c["arch"], c.get("cfg"))
         b = c["batch"]
         mesh = make_mesh(tuple(c["shape"]), tuple(c["axes"]),
                          device_type="cpu")

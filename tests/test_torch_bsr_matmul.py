@@ -346,7 +346,7 @@ def test_rows_cluster_fills_the_card():
     assert budget.bsr_matmul_rows_cluster(32, 64, 16, 16, 2) == 1
     assert budget.bsr_matmul_rows_cluster(4, 0, 16, 16, 2) == 1
     for bn, size in ((16, 2), (16, 4), (48, 2), (128, 2), (128, 4)):
-        tiles = budget.bsr_matmul_rows_stage_tiles(16, bn, size)
+        tiles = budget.bsr_matmul_rows_stage_tiles(bn, size)
         assert tiles * (bn // 16) % budget.BSR_MATMUL_ROWS_WARPS == 0
     assert budget.bsr_matmul_rows_pass(4, 2) == 8
     assert budget.bsr_matmul_rows_pass(129, 4) == 32

@@ -82,18 +82,25 @@ def test_new_kernels_fit_the_cards_shared_memory():
     from repro_torch.kernels import budget
 
     # the rows schedule at decode: x staged (32 KB at N 4096, 88 KB at
-    # 11008), opted in above 48 KB; wk's cluster of 8 slots
-    for bm in budget.BSR_MATMUL_BM:
+    # 11008), opted in above 48 KB; wk's cluster of 8 slots; the ring holds
+    # (16, bn) pieces at any block height
+    for bn in (16, 128):
         for n, cluster in ((4096, 8), (11008, 1)):
             assert budget.smem_fits(budget.bsr_matmul_smem_bytes(
-                bm, 16, 2, 4, n, cluster))
-    assert budget.bsr_matmul_smem_bytes(16, 16, 2, 4, 4096) == 51_328
+                bn, 2, 4, n, cluster))
+    assert budget.bsr_matmul_smem_bytes(16, 2, 4, 4096) == 51_328
     for d in budget.FLASH_HEAD_DIMS:  # dynamic, opted in above 48 KB
         assert budget.smem_fits(budget.flash_fwd_tf32_smem_bytes(d))
     assert budget.flash_fwd_tf32_smem_bytes(128) == 147_712
     assert budget.bsr_matmul_unsupported(16, 16, 4096) is None
-    assert "block height" in budget.bsr_matmul_unsupported(64, 16, 4096)
-    assert "multiple of 16" in budget.bsr_matmul_unsupported(16, 8, 4096)
+    # any height a multiple of 16 (the reference's default (128, 128)
+    # tiles); a height or width of another size goes to ops' re-tiling
+    for bm in (32, 64, 128, 256):
+        assert budget.bsr_matmul_unsupported(bm, 16, 4096) is None
+    assert budget.bsr_matmul_unsupported(128, 128, 4096, "wgmma") is None
+    for block in ((12, 16), (16, 8)):
+        assert "re-tiles" in budget.bsr_matmul_unsupported(*block, 4096)
+        assert not budget.bsr_matmul_native(*block)
     assert "not a multiple of the block width" in \
         budget.bsr_matmul_unsupported(16, 16, 4100)
     # the tensor-core schedules: dQ at every head dim, the BCSR matmul's
@@ -114,11 +121,12 @@ def test_new_kernels_fit_the_cards_shared_memory():
     assert budget.flash_bwd_dkv_tc_smem_bytes(96) == 91_136
     assert budget.bsr_matmul_wgmma_smem_bytes() == 229_504
     assert budget.smem_fits(budget.bsr_matmul_wgmma_smem_bytes())
-    for bn in (16, 32, 64, 128):
-        assert budget.bsr_matmul_unsupported(16, bn, 4096, "wgmma") is None
+    # every width a multiple of 16, wider than the wgmma schedule's chunk
+    # or not dividing it (its tiles then cross a chunk's edge in parts)
+    for bn in (16, 32, 48, 64, 80, 128, 256):
+        assert budget.bsr_matmul_unsupported(16, bn, 4096 // 16 * bn,
+                                             "wgmma") is None
     assert budget.bsr_matmul_unsupported(16, 256, 4096) is None
-    assert "does not divide" in budget.bsr_matmul_unsupported(
-        16, 256, 4096, "wgmma")
 
 
 def test_conv_kernels_fit_the_cards_shared_memory():

@@ -279,6 +279,16 @@ BSR_MATMUL_CASES = [
     (2081, 400, 592, (16, 16), torch.bfloat16, "wgmma"),
     (2148, 272, 448, (16, 32), torch.bfloat16, "wgmma"),
     (8192, 4096, 4096, (16, 16), torch.bfloat16, "wgmma"),
+    # taller blocks, read as sub-rows of (16, bn) pieces: the reference's
+    # default (128, 128), (64, 128), widths that do not divide the wgmma
+    # chunk (48, 80: tiles across its edge) or exceed it (256)
+    (4, 1024, 1024, (128, 128), torch.bfloat16, "rows"),
+    (37, 512, 768, (64, 128), torch.float32, "rows"),
+    (2200, 1024, 1024, (128, 128), torch.bfloat16, "wgmma"),
+    (2100, 384, 480, (32, 48), torch.bfloat16, "wgmma"),
+    (2100, 288, 640, (48, 80), torch.bfloat16, "wgmma"),
+    (2100, 256, 1024, (32, 256), torch.bfloat16, "wgmma"),
+    (5, 288, 640, (48, 80), torch.bfloat16, "rows"),
 ]
 
 
@@ -363,6 +373,49 @@ def test_bsr_matmul_f32_x_over_bf16_tiles(cuda_device, rows):
     scale = max(1.0, float(want.abs().max()))
     assert float((got.reshape(rows, 256).cpu() - want).abs().max()) <= \
         1e-4 * scale
+
+
+# (block, N): banks ``ops.bsr_matmul`` re-tiles (a side not a multiple of
+# 16), cuts (too wide for the rows ring: 1024 -> 512 columns) or both
+# ((8, 1000) -> (16, 1008) -> 144 columns) before the kernel
+OP_BLOCK_CASES = [((8, 128), 512), ((24, 40), 480), ((16, 1024), 2048),
+                  ((8, 1000), 2000)]
+
+
+@pytest.mark.parametrize("rows", [4, 2100])
+@pytest.mark.parametrize("block, n", OP_BLOCK_CASES, ids=str)
+def test_bsr_matmul_op_at_any_block_launches_the_kernel(cuda_device, block,
+                                                        n, rows):
+    """``ops.bsr_matmul`` on a bf16 bank the kernel cannot take as it is:
+    one kernel launch on the schedule of the row count (never the plain
+    version on a CUDA tensor), within 1e-2 of the plain product of the
+    bank as it is (one bf16 rounding of the f32 sums)."""
+    from repro_torch.core.pruning import block_prune
+    from repro_torch.core.sparse_format import bcsr_from_dense
+    from repro_torch.kernels.bsr_matmul.kernel import (bsr_matmul_kernel,
+                                                       schedule)
+    from repro_torch.kernels.bsr_matmul.ops import bsr_matmul
+    from repro_torch.kernels.bsr_matmul.ref import bsr_matmul_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + n)
+    w = torch.randn((96, n), generator=gen, device=cuda_device)
+    bc = bcsr_from_dense(block_prune(w, 0.5, block).to(torch.bfloat16),
+                         block)
+    x = torch.randn((rows, n), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    before = (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches)
+    got = bsr_matmul(x, bc)
+    torch.cuda.synchronize()
+    wgmma = schedule(rows, torch.bfloat16) == "wgmma"
+    assert (bsr_matmul_kernel.launches, bsr_matmul_kernel.wgmma_launches) \
+        == (before[0] + 1, before[1] + wgmma)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, 96)
+    cpu = dataclasses.replace(bc, blocks=bc.blocks.cpu(),
+                              blockcol=bc.blockcol.cpu(),
+                              nblocks=bc.nblocks.cpu())
+    want = bsr_matmul_ref(x.cpu(), cpu)
+    torch.testing.assert_close(got.float().cpu(), want, rtol=1e-2,
+                               atol=1e-2)
 
 
 # -- BCSR matmul, the rows schedule --------------------------------------
@@ -605,6 +658,13 @@ FLASH_BWD_CASES = [
     (1, 8, 2, 70, 70, 32, True, torch.bfloat16),       # d 32 causal, ragged
     (1, 4, 1, 90, 90, 64, False, torch.bfloat16),      # d 64 full, ragged
     (1, 4, 4, 130, 130, 128, False, torch.bfloat16),   # d 128 full, ragged
+    # head dims run in a larger instantiation (24 -> 32, 48 -> 64, 112 ->
+    # 128), the columns past d zero on chip
+    (1, 4, 4, 100, 100, 24, True, torch.bfloat16),
+    (1, 4, 2, 130, 130, 24, False, torch.float32),
+    (1, 8, 2, 90, 90, 48, True, torch.bfloat16),
+    (1, 4, 4, 70, 70, 48, False, torch.float32),
+    (1, 4, 1, 77, 77, 112, True, torch.bfloat16),
     # HuBERT-XLarge's d 80 (bidirectional) and Phi-3-Vision's d 96 (causal)
     (1, 16, 16, 2048, 2048, 80, False, torch.bfloat16),  # HuBERT heads
     (1, 16, 16, 2000, 2000, 80, False, torch.bfloat16),  # ragged
@@ -679,7 +739,7 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
     delta = (do.float() * o.float()).sum(dim=-1)
     tc = dtype == torch.bfloat16
 
-    key = ("tc" if tc else "tf32", d)
+    key = ("tc" if tc else "tf32", d, budget.flash_head_dim(d))
 
     def counts():
         return (flash_attention_bwd_dq.launches,
@@ -716,15 +776,15 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
             assert _grad_excess(c, w, dtype) > tol, name
 
 
-@pytest.mark.parametrize("d", [48, 112])
+@pytest.mark.parametrize("d", [144, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_backward_refuses_unlisted_head_dims(cuda_device, d, dtype):
-    """A head dim no backward kernel is built for: on the card the dQ and
-    dK/dV launchers raise before any launch (no fallback to the plain
-    backward)."""
+    """A head dim above the largest the kernels are built for (128): on the
+    card the dQ and dK/dV launchers raise before any launch, naming 128
+    (no fallback to the plain backward)."""
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    assert d not in budget.FLASH_HEAD_DIMS
+    assert d > budget.FLASH_HEAD_DIMS[-1]
     gen = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = (torch.randn((1, 70, h, d), generator=gen, device=cuda_device)
                .to(dtype).transpose(1, 2) for h in (4, 2, 2))
@@ -734,7 +794,7 @@ def test_flash_backward_refuses_unlisted_head_dims(cuda_device, d, dtype):
               fk.flash_attention_bwd_dkv.tc_launches)
     lse = torch.zeros(q.shape[:3], device=cuda_device)
     for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match=f"head dim {d} not one of"):
+        with pytest.raises(ValueError, match=f"head dim {d} outside 1 .. 128"):
             fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
     assert before == (fk.flash_attention_bwd_dq.launches,
                       fk.flash_attention_bwd_dq.tc_launches,
@@ -777,7 +837,7 @@ def test_flash_backward_at_80_and_96_matches_attention_ref(cuda_device, d,
     leaves = [torch.randn((1, 2000, h, d), generator=gen, device=cuda_device)
               .requires_grad_() for h in (8, 4, 4)]
     co = torch.randn((1, 2000, 8, d), generator=gen, device=cuda_device)
-    key = ("tf32", d)
+    key = ("tf32", d, budget.flash_head_dim(d))
     before = (fk.flash_attention_bwd_dq.by_head_dim.get(key, 0),
               fk.flash_attention_bwd_dkv.by_head_dim.get(key, 0),
               fk.flash_attention_bwd_dkv.tf32_reduce_launches)
@@ -874,9 +934,9 @@ def test_flash_kernels_are_chosen_by_dtype(cuda_device, dtype):
                 (fk.flash_attention_bwd_dkv, "reduce_launches"),
                 (fk.flash_attention_bwd_dkv, "tf32_reduce_launches"))
     tc = dtype == torch.bfloat16
-    keys = ((fk.flash_attention_fwd, ("tc" if tc else "tf32", 64)),
-            (fk.flash_attention_bwd_dq, ("tc" if tc else "tf32", 64)),
-            (fk.flash_attention_bwd_dkv, ("tc" if tc else "tf32", 64)))
+    keys = ((fk.flash_attention_fwd, ("tc" if tc else "tf32", 64, 64)),
+            (fk.flash_attention_bwd_dq, ("tc" if tc else "tf32", 64, 64)),
+            (fk.flash_attention_bwd_dkv, ("tc" if tc else "tf32", 64, 64)))
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     leaves = [torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
               .requires_grad_() for shape in
@@ -991,6 +1051,32 @@ def test_bf16_moe_group_on_the_card_matches_the_cpu(cuda_device):
     excess = (got - want).abs() - (2.0 ** -8 * want.abs() + 1e-4 * scale)
     assert float(excess.max()) <= 0.0
     assert float((got != want).float().mean()) <= 0.01
+
+
+def test_bf16_expert_products_backward_on_the_card(cuda_device):
+    """``_bmm_f32`` on bf16 operands on the card records a product whose
+    backward runs on bf16 operands (the f32 gradient rounded once): its
+    output and both gradients against the CPU's f32 products on the same
+    values, within 1e-2 of the norm (one bf16 rounding of the gradient and
+    of each result), the gradients in the operands' dtype."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(2)
+    a = torch.randn((4, 64, 96), generator=gen).to(torch.bfloat16)
+    b = torch.randn((4, 96, 80), generator=gen).to(torch.bfloat16)
+    w = torch.randn((4, 64, 80), generator=gen)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        ad = a.to(dev).detach().requires_grad_()
+        bd = b.to(dev).detach().requires_grad_()
+        y = L._bmm_f32(ad, bd)
+        (y * w.to(dev)).sum().backward()
+        assert y.dtype == torch.float32
+        assert ad.grad.dtype == bd.grad.dtype == torch.bfloat16
+        res[str(dev)] = [t.detach().float().cpu() for t in (y, ad.grad,
+                                                           bd.grad)]
+    for got, want in zip(res[str(cuda_device)], res["cpu"]):
+        assert float((got - want).norm() / want.norm()) <= 1e-2
 
 
 # -- quantised banks, tall BCSR blocks, and method="auto" on the card -------

@@ -20,9 +20,14 @@ sequence is written on every rank's slice.  Cases:
   attention and the MoE;
 * olmoe-1b-7b on (2, 2) under ``MOE_IMPL = "ep"``;
 * jamba-1.5-large-398b on (2, 2) at B 1: the batch dim dropped;
-* yi-9b on (2, 2) sparse: each rank's tp shards pruned at 0.8 and run as
-  BCSR (``sparse_weights.sparsify_shards``); the reference decodes the same
-  pruned weights dense.
+* yi-9b on (2, 2) sparse: each rank's tp shards pruned at 0.8 in the
+  reference's (M / tp, 128) blocks and run as BCSR
+  (``sparse_weights.sparsify_shards``); the reference decodes the same
+  pruned weights dense.  Its smoke config is widened (``SPARSE_WIDTHS``:
+  d_model 512, 8 heads of 128, 4 KV heads, d_ff 1024) so that every
+  converted shard holds 4 or 8 of those tiles and keeps a quarter of them:
+  at the smoke config's d_model 64 a shard is one or two tiles, and the
+  0.8 rule zeroes a one-tile shard whole.
 
 Each step's logits are held within 1e-4 x max(1, max |reference|) of the
 reference's and within 1e-5 of that measure of the port's meshless decode
@@ -44,6 +49,8 @@ import _torch_mesh as M  # noqa: E402
 
 AXES = ["data", "model"]
 B = 4
+SPARSE_WIDTHS = dict(d_model=512, n_heads=8, n_kv_heads=4, head_dim=128,
+                     d_ff=1024)
 CASES = {
     "yi_seq_1x4": dict(arch="yi-9b", shape=[1, 4]),
     "yi_heads_2x2": dict(arch="yi-9b", shape=[2, 2]),
@@ -53,7 +60,7 @@ CASES = {
     "jamba_b1_2x2": dict(arch="jamba-1.5-large-398b", shape=[2, 2],
                          batch=1),
     "yi_sparse_2x2": dict(arch="yi-9b", shape=[2, 2], sparsity=0.8,
-                          min_dim=16),
+                          min_dim=16, cfg=SPARSE_WIDTHS),
 }
 LOGITS_RTOL = 1e-4
 MESHLESS_RTOL = 1e-5
@@ -90,7 +97,7 @@ def _case(name):
 def _params(runs, name):
     from repro_torch.checkpoint import read_tree
     from repro_torch.models import transformer as T
-    cfg = M._cfg(_case(name)["arch"])
+    cfg = M._cfg(_case(name)["arch"], _case(name).get("cfg"))
     return cfg, T.params_from_reference(
         read_tree(str(runs / name / "params"), 0), cfg, "cpu")
 
@@ -167,7 +174,7 @@ def _reference_cache(runs, name, cfg):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_meshed_cache_matches_reference(runs, name):
-    cfg = M._cfg(_case(name)["arch"])
+    cfg = M._cfg(_case(name)["arch"], _case(name).get("cfg"))
     want = _reference_cache(runs, name, cfg)
     got = np.load(runs / f"{name}.port.npz")
     keys = {k[len("cache:"):] for k in got.files if k.startswith("cache:")}
@@ -199,9 +206,18 @@ def test_serve_step_next_tokens_match_reference(runs, name):
 def test_sparse_shards_are_the_pruned_weights(runs):
     """Every rank's BCSR shard, gathered whole as a dense weight, equals
     the pruned weight the reference decoded, bit for bit; every 2-D
-    projection of the smoke config was converted."""
+    projection of the config was converted and keeps between a tenth and
+    three tenths of its weights; each tp shard's W^T is pruned tile by tile
+    of the reference's block of the whole weight
+    (``sparse_weights.reference_block``): every tile zero or kept whole,
+    some tiles kept and between a tenth and three tenths of them (the
+    widened config's shards hold 4 or 8 tiles and keep a quarter)."""
+    from repro_torch.launch.sparse_weights import reference_block
+    from repro_torch.models import transformer as T
     from repro_torch.tree import tree_paths
-    _, params = _params(runs, "yi_sparse_2x2")
+    cfg, params = _params(runs, "yi_sparse_2x2")
+    tp = _case("yi_sparse_2x2")["shape"][1]
+    specs = dict(tree_paths(T.param_specs(cfg, tp)))
     whole = dict(tree_paths(params))
     got = np.load(runs / "yi_sparse_2x2.port.npz")
     conv = {k[len("bcsr:"):] for k in got.files if k.startswith("bcsr:")}
@@ -211,6 +227,23 @@ def test_sparse_shards_are_the_pruned_weights(runs):
         w = whole[k].numpy()
         assert np.array_equal(got[f"bcsr:{k}"], w), k
         assert 0.1 < np.mean(w != 0) < 0.3, k
+        n_in, n_out = w.shape
+        bm, bn = reference_block(n_out, n_in, tp)
+        axis = [i for i, e in enumerate(specs[k]) if e == "tp"]
+        for shard in (np.split(w, tp, axis=axis[0]) if axis else [w]):
+            wt = shard.T
+            gm, gn = -(-wt.shape[0] // bm), -(-wt.shape[1] // bn)
+            pad = ((0, gm * bm - wt.shape[0]), (0, gn * bn - wt.shape[1]))
+
+            def tiled(a):
+                return np.pad(a, pad).reshape(gm, bm, gn, bn).transpose(
+                    0, 2, 1, 3)
+
+            tiles, inside = tiled(wt != 0), tiled(np.ones(wt.shape, bool))
+            kept = tiles.any(axis=(2, 3))
+            assert bool((tiles | ~inside)[kept].all()), k   # kept whole
+            assert kept.sum() > 0, k
+            assert 0.1 < kept.mean() < 0.3, (k, kept.sum(), kept.size)
 
 
 def test_distributed_argmax_takes_the_first_maximum(runs):

@@ -7,11 +7,16 @@ process group):
 * the set of converted leaf paths equals the reference's BCSR leaves with
   its stacked layers unstacked (its ``SKIP``, 2-D and layer-stacked 3-D
   rules; a MoE layer's experts stay dense);
-* each leaf follows the (16, 16) rule: the BCSR of W^T of this rank's
-  ``tp`` shard on the 16 x 16 mesh, ceil(gn x 0.2) tiles a block-row, on
-  ``meta``, in the model's dtype;
+* each leaf follows the reference's block rule (``_abstract_bcsr``'s
+  (M / tp, 128), else M or N whole): the BCSR of W^T of this rank's ``tp``
+  shard on the 16 x 16 mesh in the reference's block of the whole weight,
+  ceil(gn x 0.2) tiles a block-row, on ``meta``, in the model's dtype;
+* leaf for leaf against the reference's tree: the same block, and where
+  tp splits the output dim (the reference's block-rows over tp), the
+  reference's leaf shard for shard: its blocks, block columns and counts
+  over 16 ranks;
 * each leaf's kept columns a block-row are within 128 of the reference's
-  kept share of the same shard's width (its (M / tp, 128) blocks);
+  kept share of the same shard's width;
 * on a (2, 2) mesh each BCSR leaf's placements are its dense leaf's on the
   ``tp`` dim and replicated on "data"; dense leaves keep theirs.
 """
@@ -137,13 +142,22 @@ def _shard_shape(arch, path, tp=16):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bcsr_leaves_follow_the_16x16_rule(arch):
+    """(The name is the rule's before the blocks followed the reference's.)
+    Each leaf: this rank's shard in the reference's block of the whole
+    weight over tp 16."""
     dtype = getattr(torch, cfgs.get_config(arch).dtype)
+    specs, shapes = _dense(arch)
     for path, w in _bcsr(arch).items():
         m, n = _shard_shape(arch, path)
-        gm, gn = -(-m // 16), -(-n // 16)
+        n_in, n_out = shapes[path]
+        bm, bn = SW.reference_block(n_out, n_in, 16)
+        assert bm == (n_out // 16 if n_out % 16 == 0 and n_out >= 128
+                      else n_out)
+        assert bn == (128 if n_in % 128 == 0 else n_in)
+        gm, gn = -(-m // bm), -(-n // bn)
         kb = max(1, math.ceil(gn * (1 - SPARSITY)))
-        assert w.shape == (m, n) and w.block == (16, 16), path
-        assert tuple(w.blocks.shape) == (gm, kb, 16, 16), path
+        assert w.shape == (m, n) and w.block == (bm, bn), path
+        assert tuple(w.blocks.shape) == (gm, kb, bm, bn), path
         assert tuple(w.blockcol.shape) == (gm, kb), path
         assert tuple(w.nblocks.shape) == (gm,), path
         assert w.blocks.device.type == "meta" and w.blocks.dtype == dtype
@@ -151,8 +165,37 @@ def test_bcsr_leaves_follow_the_16x16_rule(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_leaves_are_the_references_shard_for_shard(arch):
+    """Leaf for leaf against the reference's abstract tree at tp 16: the
+    same block; a leaf tp does not split is the reference's leaf (a layer
+    of its stack) shape for shape; where tp splits the output dim (the
+    reference's block-rows, one a rank), this rank's shard of it: its
+    blocks, block columns and counts cut to gm / 16 block-rows.  (Where tp
+    splits the input dim, the port's shard keeps every block-row over its
+    part of N: the rule test holds those.)"""
+    ref = _reference(arch)
+    specs, _ = _dense(arch)
+    held = 0
+    for path, w in _bcsr(arch).items():
+        r = ref[path]
+        assert w.block == tuple(r.block), path
+        spec_in, spec_out = specs[path]
+        if spec_in == "tp":
+            continue
+        held += 1
+        for got, want, ndim in ((w.blocks, r.blocks, 4),
+                                (w.blockcol, r.blockcol, 2),
+                                (w.nblocks, r.nblocks, 1)):
+            want = tuple(want.shape)[-ndim:]          # past a layer stack
+            if spec_out == "tp":
+                want = (want[0] // 16,) + want[1:]
+            assert tuple(got.shape) == want, path
+    assert held > 0, arch
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_kept_columns_near_the_reference(arch):
-    """The port keeps kb x 16 of its shard's N columns a block-row; the
+    """The port keeps kb x bn of its shard's N columns a block-row; the
     reference kb_ref x bn_ref of its whole N: scaled to the shard's width,
     they differ by less than the reference's 128-wide block."""
     ref = _reference(arch)
@@ -160,7 +203,7 @@ def test_kept_columns_near_the_reference(arch):
         r = ref[path]
         n_ref = r.shape[1]
         kept_ref = r.blocks.shape[-3] * r.block[1] * w.shape[1] / n_ref
-        kept = w.blocks.shape[1] * 16
+        kept = w.blocks.shape[1] * w.block[1]
         assert abs(kept - kept_ref) <= 128, (path, kept, kept_ref)
         assert kept >= w.shape[1] * (1 - SPARSITY) - 1e-9, path
 
