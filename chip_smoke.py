@@ -245,7 +245,7 @@ Phases (any failure exits non-zero and prints no result):
               counted ``make_train_step`` step under flash must launch the
               split-TF32 forward, dQ and dK/dV kernels (and its group sum)
               once per layer each.
-10. train  -- Yi-9B at full width cut to 12 of its 48 layers (``reduced``),
+10. train  -- Yi-9B at full width cut to 6 of its 48 layers (``reduced``),
               bf16 params, f32 AdamW state, one ``train_4k`` sequence (B 1 x
               T 4096) from ``SyntheticLMDataset``, repeated, under flash
               attention: ``make_train_step`` under ``StepRunner`` for 1
@@ -291,13 +291,33 @@ Phases (any failure exits non-zero and prints no result):
               instantiation: the forward, dQ and dK/dV, bf16 and f32, at d
               24 (instantiation 32) and 48 (64) at HuBERT-XLarge's shape,
               against their plain versions as the flash dims phase holds
-              them (PERF.md rows 4c-6c; d 48 the ``arch_rows``); d 144
-              refused on the card with no launch; OLMoE-1B-7B's smoke
-              config (head dim 24): its flash prefill (B 4 x T 256) in
-              bf16 and f32 against chunked attention's, the f32 gradients
-              through flash against chunked (the train consistency phase's
-              check, 2 layers, T 2048) and one bf16 train step, each
-              counted by head dim and instantiation.
+              them (PERF.md rows 4c-6c; d 48 the ``arch_rows``); rows
+              the 16-byte copies cannot cover (bf16 d 132, f32 d 130)
+              refused at the raw launcher with no launch; OLMoE-1B-7B's
+              smoke config (head dim 24): its flash prefill (B 4 x T 256)
+              in bf16 and f32 against chunked attention's, the f32
+              gradients through flash against chunked (the train
+              consistency phase's check, 2 layers, T 2048) and one bf16
+              train step, each counted by head dim and instantiation.
+11d. wide heads -- head dims above 128 through the kernels' output-column
+              split (one block a 128-column slice): the six kernels at d
+              256 and 160 at Gemma-7B's attention shape (B 1, H = KV =
+              16, T 2048, causal) against their plain versions as above,
+              SDPA pinned for the library times, the split's bound beside
+              the math's (PERF.md rows 4d-6d); at d 256 also GQA 16:2 and
+              a ragged bidirectional T of 2000 (``arch_rows``); each of
+              the six at each dim, in both dtypes, launched 20 times on the
+              raw launchers (uncounted) over GQA 16:2 (T 2048 causal, T
+              2000 bidirectional) with every operand a view into a buffer
+              that holds NaN past d and around it: every output element
+              written, nothing outside it, no NaN read, the same bits each
+              time and as the wrappers' on contiguous copies;
+              ``flash_attention_bthd``'s forward and backward counted at
+              each dim; Yi-9B re-headed to 16 heads of 256 over 2 kv heads
+              (d_model 4096, G 8), cut to 4 layers: its bf16 flash prefill
+              (B 1 x T 2048) against chunked, its f32 gradients against
+              chunked (2 layers) and one bf16 train step, every flash
+              launch counted at the wide key (``(kind, d, "128x2")``).
 12. moe     -- OLMoE-1B-7B at full width and depth (16 layers, d_model
               2048, 64 experts top-8), bf16, weights from ``--seed``:
               ``bsr_matmul`` on wq (2048 -> 2048) at 4 and 8192 rows and the
@@ -516,6 +536,10 @@ DRYRUN_CELLS = (("yi-9b", "train_4k", ("--attn-impl", "flash")),
                 ("olmoe-1b-7b", "prefill_32k", ("--multi-pod",)),
                 ("yi-9b", "decode_32k", ("--sparse-weights", "0.8")))
 DRYRUN_TIMEOUT_S = 300
+# The head dims whose flash launches have counters of their own, and the
+# instantiation each runs in (budget.flash_instance)
+DIM_INSTANCES = ((80, 80), (96, 96), (24, 32), (256, "128x2"),
+                 (160, "128x2"))
 # Each kernel's launch counter: (its wrapper in mods["kernels"], the
 # attribute[, the key of a dict attribute]); a launch of the kernel adds
 # one to it and nothing else does.
@@ -550,19 +574,20 @@ COUNTERS = {
     "flash_attention_dkv_reduce_tf32": ("flash_attention_bwd_dkv",
                                         "tf32_reduce_launches"),
     # the forwards at head dims 80 (HuBERT-XLarge), 96 (Phi-3-Vision) and
-    # 24 (OLMoE's smoke config, in the instantiation 32): their launches by
-    # head dim, (kernel, d, D) in the wrapper's ``by_head_dim`` (each also
-    # counted in its kernel's total)
+    # 24 (OLMoE's smoke config, in the instantiation 32), and the wide
+    # kernels (the output-column split) at 256 (Gemma-7B's) and 160, two
+    # 128-column slices: their launches by head dim, (kernel, d, D) in the
+    # wrapper's ``by_head_dim`` (each also counted in its kernel's total)
     **{f"flash_attention{tc}_d{d}": ("flash_attention", "by_head_dim",
                                       (kind, d, inst))
-       for d, inst in ((80, 80), (96, 96), (24, 32))
+       for d, inst in DIM_INSTANCES
        for tc, kind in (("_tc", "tc"), ("", "tf32"))},
     # the backward kernels at those dims, the same way (the tensor-core
     # dK/dV's group sum counted with it; f32 runs the split-TF32 kernels)
     **{f"flash_attention_bwd_{part}{tc}_d{d}": (
         f"flash_attention_bwd_{part}", "by_head_dim", (kind, d, inst))
        for part in ("dq", "dkv")
-       for d, inst in ((80, 80), (96, 96), (24, 32))
+       for d, inst in DIM_INSTANCES
        for tc, kind in (("_tc", "tc"), ("", "tf32"))},
     # bsr_matmul on the reference's default (128, 128) tiles, by schedule:
     # (schedule, bm, bn) in the wrapper's ``by_block`` (each also counted
@@ -653,7 +678,7 @@ FLASH_BWD_ATOL = 1e-3
 TRAIN_CONSIST_LAYERS, TRAIN_CONSIST_SHAPE = 2, (1, 2048)
 TRAIN_GRAD_TOL = 1e-4                 # x the leaf's largest chunked gradient
 TRAIN_LOSS_TOL = 1e-5                 # x |loss|
-TRAIN_LAYERS, TRAIN_SHAPE = 12, (1, 4096)
+TRAIN_LAYERS, TRAIN_SHAPE = 6, (1, 4096)
 TRAIN_WARMUP, TRAIN_TIMED = 1, 5
 # a train run's schedule is this many times its steps long, so that its
 # warm-up (a tenth of the schedule) spans the run
@@ -685,13 +710,36 @@ BLOCKS_PLAIN_RTOL = 1e-2
 # Head dims the kernels run in a larger instantiation: OLMoE-1B-7B's
 # smoke config (d 24, instantiation 32) through its flash prefill and a
 # train step in bf16 and f32; rows 4c-6c at d 24 and 48 at HuBERT-XLarge's
-# shape (B 1, H 16, KV 16, T = S 2048, bidirectional); a head dim above
-# the largest instantiation, refused on the card
+# shape (B 1, H 16, KV 16, T = S 2048, bidirectional); head dims whose
+# rows the kernels' 16-byte copies cannot cover (bf16 132: 264 bytes; f32
+# 130: 520), refused at the raw launcher on the card
 ANY_DIM_ARCH = "olmoe-1b-7b"
 ANY_DIM_DIMS = (24, 48)
 ANY_DIM_SHAPE = (1, 16, 16, 2048)
 ANY_DIM_PREFILL = (4, 256)
-ANY_DIM_REFUSED = 144
+ANY_DIM_REFUSED = (("bfloat16", 132), ("float32", 130))
+# Head dims above 128, the kernels' wide forms (the output-column split):
+# rows 4d-6d, the six kernels at Gemma-7B's attention shape (B 1, H = KV
+# = 16, T = S 2048, causal; google/gemma-7b's config: 16 heads of 256) at
+# each of WIDE_DIMS, and at d 256 over GQA 16:WIDE_GQA_KV (causal) and a
+# ragged bidirectional T; SDPA pinned to WIDE_LIBRARY's backend by dtype;
+# flash_attention_bthd's forward and backward counted at each dim; then
+# Yi-9B re-headed to Gemma-7B's head dim (WIDE_HEADS: d_model 4096, G 8
+# as Yi-9B's), cut to WIDE_LAYERS layers: its bf16 flash prefill against
+# chunked, its f32 gradients against chunked (2 layers) and a bf16 train
+# step
+WIDE_DIMS = (256, 160)
+WIDE_SHAPE = (1, 16, 16, 2048)        # B, H, KV, T = S
+WIDE_GQA_KV, WIDE_RAGGED_T = 2, 2000
+WIDE_LIBRARY = {"bfloat16": "FLASH_ATTENTION",
+                "float32": "EFFICIENT_ATTENTION"}
+WIDE_HEADS = dict(n_heads=16, n_kv_heads=2, head_dim=256)
+WIDE_LAYERS = 4
+WIDE_PREFILL = (1, 2048)
+# The wide kernels' guard: WIDE_GUARD_REPEATS launches of each on views
+# whose rows have WIDE_GUARD_PAD NaN columns past d, with WIDE_GUARD_PAD NaN
+# elements before and after each buffer
+WIDE_GUARD_REPEATS, WIDE_GUARD_PAD = 20, 64
 # The flash forward at the new head dims: (B, H, KV, T = S, d), causal
 FLASH_DIM_SHAPES = {80: ("hubert-xlarge", (1, 16, 16, 2048, 80), False),
                     96: ("phi-3-vision-4.2b", (1, 32, 32, 2048, 96), True)}
@@ -2209,8 +2257,9 @@ def read_counts(mods):
 
 def dim_key(mods, kind: str, d: int) -> tuple:
     """The flash wrappers' ``by_head_dim`` key of head dim ``d``: (kind, d,
-    the instantiation it runs in)."""
-    return kind, d, mods["budget"].flash_head_dim(d)
+    the instantiation it runs in: D, or "128x2" for the wide kernels at d
+    256)."""
+    return kind, d, mods["budget"].flash_instance(d)
 
 
 def block_counts(sched: str, block, n: int) -> dict:
@@ -2234,8 +2283,9 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
     for bf16 (the dK/dV group sum with each dK/dV), the split-TF32 kernels
     for f32 (the dK/dV group sum with each dK/dV when
     ``grouped``: more query heads than kv heads), their instantiation's
-    counters at d 80, 96 and 24, ``forwards`` forward launches (``n``; ``2 n``
-    when remat recomputes each), every other counter 0."""
+    counters at each head dim of DIM_INSTANCES, ``forwards`` forward
+    launches (``n``; ``2 n`` when remat recomputes each), every other
+    counter 0."""
     forwards = n if forwards is None else forwards
     tc = "_tc" if bf16 else ""
     want = {f"flash_attention{tc}": forwards,
@@ -2245,7 +2295,7 @@ def flash_step_launches(n: int, bf16: bool, d: int, forwards=None,
         want["flash_attention_dkv_reduce"] = n
     elif grouped:
         want["flash_attention_dkv_reduce_tf32"] = n
-    if d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0]):
+    if d in dict(DIM_INSTANCES):
         want.update({f"flash_attention{tc}_d{d}": forwards,
                      f"flash_attention_bwd_dq{tc}_d{d}": n,
                      f"flash_attention_bwd_dkv{tc}_d{d}": n})
@@ -2382,14 +2432,50 @@ def bsr_matmul_row(torch, mods, gen, device, bc, w_lib, name, b, t,
     return row
 
 
+def sdpa_ms(torch, fn, backend, what):
+    """(device ms a call of ``fn``, an SDPA call, what it timed): under the
+    SDPA backend named ``backend`` pinned where one is given, (None, why)
+    where that backend refuses the call; the port never calls it."""
+    if backend is None:
+        return device_ms(torch, fn, 5), what
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    try:
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            return (device_ms(torch, fn, 5),
+                    f"{what}, backend {backend} (pinned)")
+    except RuntimeError as e:
+        return None, (f"{what}: backend {backend} (pinned) refused it: "
+                      f"{str(e).strip().splitlines()[0][:160]}")
+
+
+def split_bound(mods, d, moved, products, scores, math_products, flops,
+                peak):
+    """A wide head dim's extra row fields (none up to 128): its slices,
+    the output-column split's products over the math's (``math_products``
+    products over all of d, ``scores`` of them score products that each
+    slice recomputes), and the bound priced on the work the split runs
+    (``products`` of the design's, of ``flops`` each, at ``peak``:
+    "flops_bf16" or "flops_tf32")."""
+    budget = mods["budget"]
+    if not budget.flash_wide(d):
+        return {}
+    ms, by = bound(moved, **{peak: budget.flash_split_products(
+        d, products, scores) * products * flops})
+    return {"slices": budget.flash_slices(d),
+            "split_products_over_math": budget.flash_split_products(
+                d, math_products, scores),
+            "bound_split_ms": ms, "bound_split_by": by}
+
+
 def flash_tc_row(torch, mods, gen, device, shape, causal, kernel,
-                 arch="yi-9b"):
+                 arch="yi-9b", library_backend=None):
     """The tensor-core flash forward at ``shape`` (B, H, KV, T = S, d),
     bf16, on the (B, H, T, d) views of (B, T, H, d) tensors that
     ``ops.flash_attention_bthd`` hands it, against ``flash_attention_plain``
     on f32 copies (O within one bf16 rounding plus FLASH_O_ATOL of its rms,
-    rejecting two controls; lse within FLASH_LSE_TOL).  Prints and returns
-    the row."""
+    rejecting two controls; lse within FLASH_LSE_TOL).  ``library_backend``
+    pins SDPA's backend for the library time.  Prints and returns the
+    row."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     b, h, kv, t, d = shape
@@ -2446,8 +2532,10 @@ def flash_tc_row(torch, mods, gen, device, shape, causal, kernel,
     ms = device_ms(torch, lambda: fk(q, k, v, sc=sc, causal=causal), 5, 1)
     plain_ms = device_ms(torch, lambda: fplain(q, k, v, sc=sc,
                                                causal=causal), 1)
-    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), 5)
+    library_ms, library_is = sdpa_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), library_backend,
+        "SDPA forward, bf16")
     # (query, key) pairs: the causal half, or all of them
     pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     product = 2.0 * pairs * d                 # one product over them
@@ -2468,10 +2556,12 @@ def flash_tc_row(torch, mods, gen, device, shape, causal, kernel,
            "o_excess_hi_only": hi_only, "o_rms": o_rms,
            "lse_max_abs_err": lse_err,
            "kernel_ms": ms, "kernel_event_ms": event_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms, "library_is": library_is,
+           "bound_ms": b_ms, "bound_by": b_by,
            "bound_bytes": moved, "bound_all_bf16_ms": b16_ms,
            "bound_all_bf16_by": b16_by, "bound_fma_ms": fma_ms,
-           "tflops": 2 * product / ms / 1e9}
+           "tflops": 2 * product / ms / 1e9,
+           **split_bound(mods, d, moved, 3, 1, 2, product, "flops_bf16")}
     print(json.dumps(row), flush=True)
     del q4, k4, v4, q, k, v, o, lse
     torch.cuda.empty_cache()
@@ -2755,7 +2845,7 @@ def flash_bwd_p_bf16(torch, q, k, v, o, lse, do, sc, causal=True):
 
 
 def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
-                      arch="yi-9b"):
+                      arch="yi-9b", library_backend=None):
     """Both tensor-core flash backward kernels at ``shape`` (B, H, KV,
     T = S, d), bf16: dQ, dK and dV through ``flash_attention_bthd`` and
     autograd on the model's (B, T, H, d) tensors, which is the code the
@@ -2763,7 +2853,8 @@ def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
     delta), against the plain backward on the strided views the Function
     hands the kernels, with its two controls rejected and two launches of
     each kernel bit for bit; then each kernel timed alone.  ``names``: the
-    (dQ, dK/dV) row names.  Prints the rows and returns them by name."""
+    (dQ, dK/dV) row names; ``library_backend`` pins SDPA's backend for the
+    library time.  Prints the rows and returns them by name."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     b, h, kv, t, d = shape
@@ -2885,15 +2976,38 @@ def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
                                               causal=causal), 1)
     torch.cuda.empty_cache()
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                         enable_gqa=True)
+    library_is = "the whole SDPA backward (dQ, dK, dV)"
+    if library_backend is None:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=True)
 
-    def library():
-        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+        def library():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
 
-    library_ms = device_ms(torch, library, 5)
-    library_event_ms = time_cuda(torch, library, reps=5, warmup=1)
-    del out, leaves
+        library_ms = device_ms(torch, library, 5)
+        library_event_ms = time_cuda(torch, library, reps=5, warmup=1)
+        del out
+    else:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        try:
+            with sdpa_kernel(getattr(SDPBackend, library_backend)):
+                out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, enable_gqa=True)
+
+                def library():
+                    return torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True)
+
+                library_ms = device_ms(torch, library, 5)
+                library_event_ms = time_cuda(torch, library, reps=5,
+                                             warmup=1)
+                del out
+            library_is += f", bf16, backend {library_backend} (pinned)"
+        except RuntimeError as e:
+            library_ms = library_event_ms = None
+            library_is += (f": backend {library_backend} (pinned) refused "
+                           f"it: {str(e).strip().splitlines()[0][:160]}")
+    del leaves
     # (query, key) pairs: the causal half, or all of them
     pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     flops = 2.0 * pairs * d                   # one product over them
@@ -2924,12 +3038,14 @@ def flash_bwd_tc_rows(torch, mods, gen, device, shape, causal, names,
                "kernel_ms": ms, "kernel_event_ms": event_ms,
                "plain_ms": plain_ms, "plain_is": "the whole plain backward",
                "library_ms": library_ms, "library_event_ms": library_event_ms,
-               "library_is": "the whole SDPA backward (dQ, dK, dV)",
+               "library_is": library_is,
                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
                "bound_all_bf16_ms": b16_ms, "bound_all_bf16_by": b16_by,
                "bound_fma_ms": fma_ms,
                "tflops": (2 + f32_products) * flops / ms / 1e9,
-               "bit_identical_across_launches": identical[name]}
+               "bit_identical_across_launches": identical[name],
+               **split_bound(mods, d, moved, 2 + 2 * f32_products, 2,
+                             2 + f32_products, flops, "flops_bf16")}
         print(json.dumps(row), flush=True)
         rows[name] = row
     del q, k, v, do, o, lse, delta, dq, dk, dv
@@ -2951,23 +3067,27 @@ def sdpa_f32_backward(torch, q, k, v, do, causal):
     """The yardstick of the f32 backward rows: SDPA's whole backward (dQ,
     dK, dV) under one named, pinned backend, efficient attention, on k and
     v expanded to q's heads (that backend takes no ``enable_gqa``).
-    Returns (profiler device ms a call, the backend's name); the port never
-    calls it."""
+    Returns (profiler device ms a call, the backend's name), or (None, why)
+    where the backend refuses the call; the port never calls it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     g = q.shape[1] // k.shape[1]
     leaves = [x.detach().requires_grad_() for x in (
         q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1))]
     backend = SDPBackend.EFFICIENT_ATTENTION
-    with sdpa_kernel(backend):
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        ms = device_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), 5)
+    try:
+        with sdpa_kernel(backend):
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            ms = device_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 5)
+    except RuntimeError as e:   # the backend refuses the shape: no time
+        return None, (f"{backend.name}, which refused it: "
+                      f"{str(e).strip().splitlines()[0][:160]}")
     return ms, backend.name
 
 
 def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
-                   arch="yi-9b"):
+                   arch="yi-9b", library_backend=None):
     """The f32 flash kernels at ``shape`` (B, H, KV, T = S, d) on the
     (B, H, T, d) views of (B, T, H, d) tensors: the split-TF32 forward, dQ
     and dK/dV (and its group sum when H > KV), against their plain
@@ -2975,7 +3095,9 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
     magnitude (the rms beside it), lse within FLASH_LSE_TOL; each also
     against its split-TF32 mirror (reported), and the check must reject
     the mirrors' one-product controls.  ``names``: the (forward, dQ,
-    dK/dV) row names.  Prints the rows and returns them by name."""
+    dK/dV) row names; ``library_backend`` pins SDPA's backend for the
+    forward's library time (the backward's is always pinned).  Prints the
+    rows and returns them by name."""
     F = torch.nn.functional
     b, h, kv, t, d = shape
     sc = d ** -0.5
@@ -3075,15 +3197,15 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
     qkv_bytes = (q.numel() + 2 * k.numel()) * 4
     stats_bytes = 2 * b * h * t * 4                      # lse, delta
     rows = {}
-    for name, fn, plain_ms, moved, products, max_err in (
+    for name, fn, plain_ms, moved, products, scores, max_err in (
             (names[0], run_fwd, None,
-             qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, errs["o"][0]),
+             qkv_bytes + q.numel() * 4 + b * h * t * 4, 2, 1, errs["o"][0]),
             (names[1], run_dq, plain_bwd_ms,
-             qkv_bytes + q.numel() * 4 + stats_bytes + q.numel() * 4, 3,
+             qkv_bytes + q.numel() * 4 + stats_bytes + q.numel() * 4, 3, 2,
              errs["dq"][0]),
             (names[2], run_dkv, plain_bwd_ms,
              qkv_bytes + q.numel() * 4 + stats_bytes + 2 * k.numel() * 4, 4,
-             max(errs["dk"][0], errs["dv"][0]))):
+             2, max(errs["dk"][0], errs["dv"][0]))):
         n_kernels = 1 + (grouped and fn is run_dkv)
         ms = device_ms(torch, fn, 5, n_kernels)
         # the design: three TF32 products a product on the tensor cores;
@@ -3108,15 +3230,24 @@ def flash_f32_rows(torch, mods, gen, device, shape, causal, names,
                "control_one_product_err_over_max": {
                    n: control_err[n] for n in parts},
                "bound_fma_ms": fma_ms, "bound_fma_by": fma_by,
-               "tflops": products * product / ms / 1e9}
+               "tflops": products * product / ms / 1e9,
+               **split_bound(mods, d, moved, products, scores, products,
+                             3 * product, "flops_tf32")}
         if fn is run_fwd:
+            # a pinned backend may refuse GQA (efficient attention does):
+            # there k and v expanded to q's heads
+            g = h // kv if library_backend is not None else 1
+            ke, ve = (x.repeat_interleave(g, dim=1) for x in (k, v))
+            library_ms, library_is = sdpa_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, is_causal=causal, enable_gqa=True),
+                library_backend, "SDPA forward, f32" + (
+                    f", k and v expanded to {h} heads" if g > 1 else ""))
+            del ke, ve
             row.update({
                 "plain_ms": device_ms(torch, lambda: mods["flash_plain"](
                     q, k, v, sc=sc, causal=causal), 1),
-                "library_ms": device_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal, enable_gqa=True), 5),
-                "library_is": "SDPA forward, f32"})
+                "library_ms": library_ms, "library_is": library_is})
         else:
             row.update({
                 "group_sum": grouped,
@@ -3346,7 +3477,7 @@ def profiled_step(torch, step_fn, holder, batch, step_ms) -> dict:
 
 
 def train_phase(torch, mods, device, seed):
-    """Yi-9B at full width, 12 layers, bf16, through make_train_step under
+    """Yi-9B at full width, 6 layers, bf16, through make_train_step under
     StepRunner, with a checkpoint saved and restored; returns the counted
     launches."""
     flags = mods["flags"]
@@ -3850,24 +3981,27 @@ def blocks_phase(torch, mods, device, seed):
 
 
 def any_dim_refused(torch, mods, device) -> None:
-    """A head dim above the largest instantiation: flash_attention_bthd
-    raises on the card, bf16 and f32, and launches nothing (no
-    fallback)."""
-    d = ANY_DIM_REFUSED
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.zeros((1, 64, 2, d), device=device, dtype=dtype)
+    """Head dims whose rows the kernels' 16-byte copies cannot cover
+    (ANY_DIM_REFUSED): the raw forward launcher raises on the card, naming
+    the row, and launches nothing (no fallback; flash_attention_bthd pads
+    such a d first)."""
+    fwd = mods["kernels"]["flash_attention"]
+    for dt, d in ANY_DIM_REFUSED:
+        q = torch.zeros((1, 2, 64, d), device=device,
+                        dtype=getattr(torch, dt))
+        row = d * q.element_size()
         before = read_counts(mods)
         try:
-            mods["flash_bthd"](q, q, q, causal=True)
+            fwd(q, q, q, sc=d ** -0.5, causal=True)
             raised = ""
         except ValueError as e:
             raised = str(e)
-        check("128" in raised, f"flash at head dim {d} ({dtype}) did not "
-              f"raise naming 128: {raised!r}")
+        check(f"a row of {row} bytes" in raised, f"flash at head dim {d} "
+              f"({dt}) did not raise naming its {row}-byte row: {raised!r}")
         check(read_counts(mods) == before, f"flash at head dim {d} "
               f"launched a kernel")
-    print(json.dumps({"phase": "any dim refused", "d": d,
-                      "raised": raised}), flush=True)
+        print(json.dumps({"phase": "any dim refused", "d": d, "dtype": dt,
+                          "raised": raised}), flush=True)
 
 
 def any_dim_phase(torch, mods, device, seed):
@@ -3975,6 +4109,272 @@ def any_dim_phase(torch, mods, device, seed):
     runs.append(counts)
     del holder
     torch.cuda.empty_cache()
+    return sum_counts(runs), rows, extra
+
+
+# ---------------------------------------------------------------------------
+# wide heads: head dims above 128 through the output-column split
+# ---------------------------------------------------------------------------
+
+def wide_counted(torch, mods, device, seed) -> list:
+    """flash_attention_bthd's forward and backward at each of WIDE_DIMS,
+    bf16 and f32, at Gemma-7B's attention shape, each counted: the wide
+    kernels at their head dim's key, nothing else.  Returns the counts."""
+    b, h, kv, t = WIDE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    runs = []
+    for d in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            leaves = [torch.randn((b, t, n, d), generator=gen, device=device)
+                      .to(dtype).requires_grad_() for n in (h, kv, kv)]
+            do = torch.randn((b, t, h, d), generator=gen,
+                             device=device).to(dtype)
+            reset_counts(mods)
+            out = mods["flash_bthd"](*leaves, causal=True)
+            out.backward(do)
+            torch.cuda.synchronize()
+            counts = read_counts(mods)
+            bf16 = dtype == torch.bfloat16
+            want = flash_step_launches(1, bf16, d)
+            print(json.dumps({"phase": "wide counted", "d": d,
+                              "dtype": str(dtype).split(".")[-1],
+                              "shape": [b, h, kv, t], "launches": counts}),
+                  flush=True)
+            check(counts == want, f"wide counted d {d} {dtype}: launches "
+                  f"{counts}, expected {want}")
+            check(all(bool(torch.isfinite(x.grad).all()) for x in leaves),
+                  f"wide counted d {d} {dtype}: gradients not finite")
+            runs.append(counts)
+            del leaves, do, out
+    torch.cuda.empty_cache()
+    return runs
+
+
+def wide_path(torch, mods, device, seed) -> list:
+    """Yi-9B re-headed to Gemma-7B's head dim (WIDE_HEADS), cut to
+    WIDE_LAYERS layers: its bf16 flash prefill (WIDE_PREFILL) against the
+    same prefill through chunked attention, its f32 gradients through
+    flash against chunked (``train_consistency_phase``, 2 layers), and one
+    counted bf16 train step; every flash launch at the wide key.  Returns
+    the counts."""
+    np, T, flags = mods["np"], mods["T"], mods["flags"]
+    yi = mods["yi9b"]
+    full = mods["dc"].replace(yi, name=f"{yi.name}-d256", **WIDE_HEADS)
+    check(full.n_heads * full.head_dim == full.d_model == yi.d_model
+          and full.n_heads // full.n_kv_heads
+          == yi.n_heads // yi.n_kv_heads, f"{full.name}: not Yi-9B's width "
+          f"and group size")
+    cfg = mods["dc"].replace(full, n_layers=WIDE_LAYERS)
+    d = cfg.head_dim
+    runs = []
+    b, t = WIDE_PREFILL
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (b, t))).to(device)
+    step = mods["make_prefill_step"](cfg)
+    logits = {}
+    for impl in ("chunked", "flash"):
+        flags.set_attn_impl(impl)
+        try:
+            reset_counts(mods)
+            logits[impl], _ = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            counts = read_counts(mods)
+        finally:
+            flags.set_attn_impl("chunked")
+    want = expect(**{"flash_attention_tc": cfg.n_layers,
+                     f"flash_attention_tc_d{d}": cfg.n_layers})
+    got_l, want_l = logits["flash"].float(), logits["chunked"].float()
+    rel = float((got_l - want_l).norm() / want_l.norm())
+    row = {"phase": "wide prefill", "arch": cfg.name, "dtype": cfg.dtype,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, d],
+           "d_model": cfg.d_model, "layers": cfg.n_layers,
+           "reduced": {"n_layers": f"{yi.n_layers} -> {cfg.n_layers}"},
+           "batch": b, "seq": t, "launches": counts,
+           "logits_rel_norm_from_chunked": rel, "tolerance": BF16_TOL}
+    print(json.dumps(row), flush=True)
+    check(counts == want, f"wide prefill: launches {counts}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(got_l).all()), "wide prefill: non-finite "
+          "logits")
+    check(rel <= BF16_TOL, f"wide prefill: flash logits {rel} from chunked "
+          f"(relative norm, tolerance {BF16_TOL})")
+    runs.append(counts)
+    del params, logits, got_l, want_l
+    torch.cuda.empty_cache()
+    runs.append(train_consistency_phase(torch, mods, device, seed + 1,
+                                        full=full))
+    opt_cfg = mods["AdamWConfig"]()
+    holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
+                                               seed + 2, device)
+    batch = _family_batch(torch, mods, cfg, WIDE_PREFILL, seed + 2, device)
+    step = mods["make_train_step"](cfg, opt_cfg, total_steps=10)
+    flags.set_attn_impl("flash")
+    try:
+        metrics, counts, ms = _counted_step(torch, mods, step, holder, batch)
+    finally:
+        flags.set_attn_impl("chunked")
+    want = flash_step_launches(cfg.n_layers, True, d)
+    print(json.dumps({"phase": "wide train", "arch": cfg.name,
+                      "dtype": cfg.dtype, "layers": cfg.n_layers,
+                      "params": n_params, "state_gb": state_gb,
+                      "batch": b, "seq": t, "launches": counts,
+                      "loss": metrics["loss"], "step_ms": ms,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 2**30}),
+          flush=True)
+    check(counts == want, f"wide train bf16: a step launched {counts}, "
+          f"expected {want}")
+    check(math.isfinite(metrics["loss"]), "wide train bf16: loss not "
+          "finite")
+    runs.append(counts)
+    del holder
+    torch.cuda.empty_cache()
+    return runs
+
+
+def wide_guard(torch, mods, device, seed) -> None:
+    """Each wide kernel at each of WIDE_DIMS, bf16 and f32, over GQA
+    16:WIDE_GQA_KV (T 2048 causal, WIDE_RAGGED_T bidirectional), launched
+    WIDE_GUARD_REPEATS times on the raw launchers (uncounted), every
+    operand a view into a buffer with NaN past d and around it: each
+    launch must write every output element (all finite), nothing outside
+    it (the NaN there intact), read nothing past d (a NaN read would reach
+    the outputs), and give the bits of the first launch and of the
+    wrappers on contiguous copies.  A launch fault raises here."""
+    fk = mods["launchers"]["flash"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, h, _, t2 = WIDE_SHAPE
+    kv, pad, nan = WIDE_GQA_KV, WIDE_GUARD_PAD, float("nan")
+
+    def guarded(shape, dtype, cols):
+        """A ``shape`` view into a NaN buffer of rows ``cols`` wide, with
+        ``pad`` elements before and after; returns (view, buffer)."""
+        n = math.prod(shape[:-1]) * cols
+        buf = torch.full((n + 2 * pad,), nan, dtype=dtype, device=device)
+        return buf[pad:pad + n].view(*shape[:-1], cols)[..., :shape[-1]], buf
+
+    def intact(view, buf):
+        return (torch.isfinite(view).all()
+                & (torch.isnan(buf).sum() == buf.numel() - view.numel()))
+
+    for d in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "_tc" if dtype == torch.bfloat16 else ""
+            for t, causal in ((t2, True), (WIDE_RAGGED_T, False)):
+                sizes, sc = (b, h, kv, t, t, d), d ** -0.5
+                q, k, v, do = (guarded((b, n, t, d), dtype, d + pad)[0]
+                               for n in (h, kv, kv, h))
+                for x in (q, k, v, do):
+                    x.copy_(torch.randn(x.shape, generator=gen,
+                                        device=device))
+                out = {"o": guarded((b, h, t, d), dtype, d + pad),
+                       "lse": guarded((b, h, t), torch.float32, t),
+                       "dq": guarded((b, h, t, d), dtype, d + pad),
+                       "dk": guarded((b, kv, t, d), dtype, d + pad),
+                       "dv": guarded((b, kv, t, d), dtype, d + pad)}
+                # the group sums' f32 parts (B, H, S, d): margins only
+                parts = [guarded((b, h, t, d), torch.float32, d)
+                         for _ in range(2)]
+                lse_in = guarded((b, h, t), torch.float32, t)[0]
+                delta = guarded((b, h, t), torch.float32, t)[0]
+                o, lse, dq, dk, dv = (out[n][0] for n in out)
+                launches = {
+                    "fwd": ((q, k, v, o, lse), (q, k, v, o), ("o", "lse")),
+                    "bwd_dq": ((q, k, v, do, lse_in, delta, dq),
+                               (q, k, v, do, dq), ("dq",)),
+                    "bwd_dkv": ((q, k, v, do, lse_in, delta, dk, dv,
+                                 parts[0][0], parts[1][0]),
+                                (q, k, v, do, dk, dv), ("dk", "dv"))}
+                qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+                ok = torch.ones((), dtype=torch.bool, device=device)
+                first, wrapped = {}, {}
+                for part, (pointers, strided, names) in launches.items():
+                    for r in range(WIDE_GUARD_REPEATS):
+                        for n in names:
+                            out[n][1].fill_(nan)
+                        fk._call(f"flash_attention_{part}{tag}", pointers,
+                                 sizes, strided, sc, causal, dtype)
+                        for n in names:
+                            ok &= intact(*out[n])
+                            if r == 0:
+                                first[n] = out[n][0].clone()
+                            else:
+                                ok &= (out[n][0] == first[n]).all()
+                        for _, buf in parts:
+                            ok &= (torch.isnan(buf[:pad]).all()
+                                   & torch.isnan(buf[-pad:]).all())
+                    if part == "fwd":
+                        wrapped["o"], wrapped["lse"] = fk.flash_attention_fwd(
+                            qc, kc, vc, sc=sc, causal=causal)
+                        lse_in.copy_(wrapped["lse"])
+                        delta.copy_(fk.bwd_delta(wrapped["o"], doc))
+                wrapped["dq"] = fk.flash_attention_bwd_dq(
+                    qc, kc, vc, doc, lse_in.clone(), delta.clone(), sc=sc,
+                    causal=causal)
+                wrapped["dk"], wrapped["dv"] = fk.flash_attention_bwd_dkv(
+                    qc, kc, vc, doc, lse_in.clone(), delta.clone(), sc=sc,
+                    causal=causal)
+                guard_ok = bool(ok)
+                same = all(torch.equal(first[n], wrapped[n]) for n in first)
+                row = {"phase": "wide guard", "d": d,
+                       "dtype": str(dtype).split(".")[-1],
+                       "shape": [b, h, kv, t], "causal": causal,
+                       "repeats": WIDE_GUARD_REPEATS, "pad": pad,
+                       "written_guarded_identical": guard_ok,
+                       "same_as_wrappers": same}
+                print(json.dumps(row), flush=True)
+                check(guard_ok, f"wide guard d {d} {dtype} T {t}: an output "
+                      f"element unwritten or non-finite, a write outside "
+                      f"the outputs, or two launches' bits differ")
+                check(same, f"wide guard d {d} {dtype} T {t}: the raw "
+                      f"launches differ from the wrappers'")
+                del q, k, v, do, out, parts, first, wrapped, qc, kc, vc, doc
+    torch.cuda.empty_cache()
+
+
+def wide_phase(torch, mods, device, seed):
+    """Head dims above 128 (11d).  Rows 4d-6d: the tensor-core forward, dQ
+    and dK/dV (bf16) and the split-TF32 ones (f32) at each of WIDE_DIMS at
+    Gemma-7B's attention shape, each against its plain version
+    (``flash_tc_row``, ``flash_bwd_tc_rows``, ``flash_f32_rows``; SDPA
+    pinned for the library times); at d 256 the same over GQA and a ragged
+    bidirectional T.  Then ``wide_guard``, ``wide_counted`` and
+    ``wide_path``.  Returns
+    (the counted launches, rows by kernel, the GQA and ragged rows by
+    kernel)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    b, h, kv, t = WIDE_SHAPE
+    d0 = WIDE_DIMS[0]
+    cases = [((b, h, kv, t, d), True, f"gemma-7b attention, d {d}", True)
+             for d in WIDE_DIMS]
+    cases += [((b, h, WIDE_GQA_KV, t, d0), True,
+               f"gemma-7b attention, d {d0}, GQA {h}:{WIDE_GQA_KV}", False),
+              ((b, h, kv, WIDE_RAGGED_T, d0), False,
+               f"gemma-7b attention, d {d0}, T {WIDE_RAGGED_T}, "
+               f"bidirectional", False)]
+    rows, extra = {}, {}
+    for shape, causal, arch, main in cases:
+        d = shape[-1]
+        got = {f"flash_attention_tc_d{d}": flash_tc_row(
+            torch, mods, gen, device, shape, causal,
+            f"flash_attention_tc_d{d}", arch=arch,
+            library_backend=WIDE_LIBRARY["bfloat16"])}
+        got.update(flash_bwd_tc_rows(
+            torch, mods, gen, device, shape, causal,
+            (f"flash_attention_bwd_dq_tc_d{d}",
+             f"flash_attention_bwd_dkv_tc_d{d}"), arch=arch,
+            library_backend=WIDE_LIBRARY["bfloat16"]))
+        got.update(flash_f32_rows(
+            torch, mods, gen, device, shape, causal,
+            (f"flash_attention_d{d}", f"flash_attention_bwd_dq_d{d}",
+             f"flash_attention_bwd_dkv_d{d}"), arch=arch,
+            library_backend=WIDE_LIBRARY["float32"]))
+        for name, row in got.items():
+            (rows if main else extra).setdefault(name, []).append(row)
+    wide_guard(torch, mods, device, seed + 15)
+    runs = wide_counted(torch, mods, device, seed + 13)
+    runs += wide_path(torch, mods, device, seed + 14)
     return sum_counts(runs), rows, extra
 
 
@@ -5356,13 +5756,13 @@ def kernel_entries(rows, launches, arch_rows):
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:136")
            for kind in ("_tc", "")
-           for d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0])},
+           for d, _ in DIM_INSTANCES},
         **{f"flash_attention_bwd_{part}{kind}_d{d}": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             f"src/repro/kernels/flash_attention/kernel.py:{line}")
            for part, line in (("dq", 170), ("dkv", 187))
            for kind in ("_tc", "")
-           for d in (*FLASH_DIM_SHAPES, ANY_DIM_DIMS[0])},
+           for d, _ in DIM_INSTANCES},
         **{f"bsr_matmul_{sched}_b128": (
             "src/repro_torch/kernels/bsr_matmul/csrc/bsr_matmul.cu",
             "src/repro/kernels/bsr_matmul/kernel.py:49")
@@ -5490,6 +5890,33 @@ def kernel_entries(rows, launches, arch_rows):
                 f"same at d {d48} (instantiation 64); launches from "
                 f"OLMoE-1B-7B's smoke config (d {d24}): its flash prefill "
                 f"and train step in {dt}")
+    b_, h_, kv_, t_ = WIDE_SHAPE
+    for d in WIDE_DIMS:
+        shape = (f"one causal {{}} at Gemma-7B's attention shape, B {b_}, "
+                 f"H {h_}, KV {kv_}, T {t_}, d {d} (two 128-column slices)")
+        others = (f"; arch_rows the same over GQA {h_}:{WIDE_GQA_KV} and at "
+                  f"a bidirectional T of {WIDE_RAGGED_T}"
+                  if d == WIDE_DIMS[0] else "")
+        path = (f" and Yi-9B re-headed to 16 heads of {d} over 2 (its bf16 "
+                f"prefill and train step, its f32 gradients and step)"
+                if d == WIDE_DIMS[0] else "")
+        for kind, inst, dt in (("_tc", "tc", "bf16"), ("", "tf32", "f32")):
+            for part, kernel, what in (
+                    ("", "flash_fwd", "forward"),
+                    ("_bwd_dq", "flash_bwd_dq", "dQ"),
+                    ("_bwd_dkv", "flash_bwd_dkv", "dK/dV")):
+                group = (" and its group sum (flash_dkv_reduce_kernel)"
+                         if part == "_bwd_dkv" and inst == "tc" else "")
+                design = "tensor-core" if inst == "tc" else "split-TF32"
+                times_are[f"flash_attention{part}{kind}_d{d}"] = (
+                    f"the wide {design} kernel ({kernel}_{inst}_wide_kernel"
+                    f"<128>{group}, {dt} operands): " + shape.format(what)
+                    + others + "; bound_ms prices the math's products, "
+                    "bound_split_ms the products the split runs "
+                    "(split_products_over_math); library_ms SDPA pinned to "
+                    "the backend library_is names; launches from "
+                    "flash_attention_bthd's counted forward and backward at "
+                    "this dim" + path)
     for sched, rows_n in (("rows", SERVE_SLOTS), ("wgmma", 8192)):
         times_are[f"bsr_matmul_{sched}_b128"] = (
             f"the {sched} schedule on (128, 128) tiles (sub-rows of (16, "
@@ -5503,12 +5930,14 @@ def kernel_entries(rows, launches, arch_rows):
     def sums(rs):
         b_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
         b_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
+        library = [r["library_ms"] for r in rs]
         return {"max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["kernel_ms"] for r in rs),
                 "plain_ms": sum(r["plain_ms"] for r in rs),
                 "bound_ms": b_bytes + b_ops,
                 "bound_by": "bytes" if b_bytes > b_ops else "operations",
-                "library_ms": sum(r["library_ms"] for r in rs)}
+                # null where a pinned backend refused the shape
+                "library_ms": (None if None in library else sum(library))}
 
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -5562,6 +5991,10 @@ def kernel_entries(rows, launches, arch_rows):
             entry["library_is"] = rows[name][0]["library_is"]
         if name.startswith("flash_attention_bwd_dkv_tc_d"):
             entry["reduce_launches"] = launches[name]
+        if rows[name] and "bound_split_ms" in rows[name][0]:
+            entry.update({key: rows[name][0][key] for key in (
+                "slices", "split_products_over_math", "bound_split_ms",
+                "bound_split_by", "library_is")})
         if name == "bsr_matmul":
             entry["wgmma_launches"] = launches["bsr_matmul_wgmma"]
             entry["rows_launches"] = (launches["bsr_matmul"]
@@ -5736,6 +6169,14 @@ def main() -> int:
     dry = DryRun()   # on the host's cores under the build
     atexit.register(dry.stop)   # its cell killed if the smoke dies first
     t0 = time.perf_counter()
+
+    def mark(phase):
+        """The seconds since the build started, at the end of ``phase``
+        (the host's clock: where the script's time goes)."""
+        print(json.dumps({"phase_done": phase,
+                          "elapsed_s": time.perf_counter() - t0}),
+              flush=True)
+
     paths = _build.build()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s,
@@ -5759,18 +6200,25 @@ def main() -> int:
                               IMAGE)
         nets[name] = (lower(net, (3, IMAGE, IMAGE)), params)
     dry_waited = dry.join()   # no timed phase runs beside the dry run
+    mark("setup")
 
     try:
         rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
+        mark("kernel")
         launches = path_phase(torch, mods, nets, device, BATCH,
                               IMAGE, args.seed)
+        mark("path")
         auto, roofline = auto_phase(torch, mods, nets, device, BATCH, IMAGE,
                                     args.seed)
+        mark("auto")
         pre = preflight_phase(torch, mods, nets, device, BATCH, roofline,
                               args.seed)
+        mark("preflight")
         serve_cnn = cnn_serve_phase(torch, mods, nets, device, args.seed)
+        mark("cnn-serve")
         bf16_rows, bf16 = bf16_phase(torch, mods, nets, device, BATCH,
                                      args.seed, rows)
+        mark("bf16")
         rows.update(bf16_rows)
         for name in CNN_NAMES:
             launches[name] = (launches.get(name, 0) + auto[name] + pre[name]
@@ -5778,36 +6226,56 @@ def main() -> int:
         nets.clear()
         torch.cuda.empty_cache()
         rows.update(llm_kernel_phase(torch, mods, device, args.seed))
+        mark("llm kernel")
         decode_consist = llm_consistency_phase(torch, mods, device, args.seed)
+        mark("consistency")
         prefill = llm_prefill_phase(torch, mods, device, args.seed)
+        mark("prefill")
         serve = llm_serve_phase(torch, mods, device, args.seed)
+        mark("serve")
         rows.update(llm_bwd_kernel_phase(torch, mods, device, args.seed))
+        mark("bwd kernel")
         rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
+        mark("flash f32")
         consist = train_consistency_phase(torch, mods, device, args.seed)
+        mark("train consistency")
         train = train_phase(torch, mods, device, args.seed)
+        mark("train")
         dims_rows, dims_extra = flash_dims_kernel_phase(torch, mods, device,
                                                         args.seed)
+        mark("flash dims")
         rows.update(dims_rows)
         blocks, blocks_rows, blocks_extra = blocks_phase(torch, mods, device,
                                                          args.seed)
+        mark("blocks")
         rows.update(blocks_rows)
         any_dim, any_dim_rows, any_dim_extra = any_dim_phase(
             torch, mods, device, args.seed)
+        mark("any dim")
         rows.update(any_dim_rows)
+        wide, wide_rows, wide_extra = wide_phase(torch, mods, device,
+                                                 args.seed)
+        mark("wide heads")
+        rows.update(wide_rows)
         moe, moe_rows = moe_phase(torch, mods, device, args.seed)
+        mark("moe")
         families, family_rows = families_phase(torch, mods, device,
                                                args.seed)
+        mark("families")
         families_train = families_train_phase(torch, mods, device, args.seed)
+        mark("families train")
         mesh = mesh_phase(torch, mods, device, args.seed)
+        mark("mesh")
         dryrun_phase(dry, dry_waited)
+        mark("dryrun")
         extras = (moe_rows, family_rows, dims_extra, blocks_extra,
-                  any_dim_extra)
+                  any_dim_extra, wide_extra)
         arch_rows = {name: [r for ex in extras for r in ex.get(name, [])]
                      for ex in extras for name in ex}
         for name in LLM_NAMES:
             launches[name] = sum(run[name] for run in (
                 decode_consist, prefill, serve, consist, train, blocks,
-                any_dim, moe, families, families_train, mesh))
+                any_dim, wide, moe, families, families_train, mesh))
         never = [name for name in KERNEL_NAMES if not launches[name]]
         check(not never, f"kernels of the path never launched in its counted "
               f"runs: {never}")

@@ -138,6 +138,15 @@ BSR_MATMUL_WGMMA_TILE_STAGES = 2
 # the kernels copy 16 bytes at a time, so d x the operand's itemsize must
 # be a multiple of 16 (``flash_head_dim_fault``; ``ops`` pads other d).
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+# A head dim above the largest runs in the wide kernels (the output-column
+# split): ``flash_slices(d)`` blocks side by side, each owning FLASH_WIDE
+# columns of the outputs (its accumulators those of D = FLASH_WIDE), sum
+# the score products over d in d-steps of FLASH_WIDE columns, which stream
+# through shared memory one at a time (the tensor-core kernels through a
+# ring of FLASH_WIDE_STAGES d-steps), so a block's shared memory does not
+# grow with d.
+FLASH_WIDE = 128
+FLASH_WIDE_STAGES = 2
 # The split-TF32 kernels (f32): 64-row tiles (wgmma's M) in two
 # warpgroups, over chunks of FLASH_TF32_CHUNK keys (the forward, dQ) or
 # query rows (dK/dV) up to head dim FLASH_TF32_WIDE_MAX_D, half that above,
@@ -379,23 +388,61 @@ def bsr_matmul_rows_width(bn: int) -> int:
 
 def flash_head_dim(d: int) -> int:
     """The instantiated head dim D the kernels run head dim ``d`` in: the
-    smallest of FLASH_HEAD_DIMS at least ``d``.  Raises above the
-    largest."""
+    smallest of FLASH_HEAD_DIMS at least ``d``, or FLASH_WIDE (the wide
+    kernels' slices) above the largest."""
     for dim in FLASH_HEAD_DIMS:
         if dim >= d:
             return dim
-    raise ValueError(f"head dim {d} above {FLASH_HEAD_DIMS[-1]}, the largest "
-                     f"the flash kernels are built for")
+    return FLASH_WIDE
+
+
+def flash_wide(d: int) -> bool:
+    """Whether head dim ``d`` runs in the wide kernels (the output-column
+    split): above the largest of FLASH_HEAD_DIMS."""
+    return d > FLASH_HEAD_DIMS[-1]
+
+
+def flash_slices(d: int) -> int:
+    """Output slices (blocks side by side, each FLASH_WIDE columns) of head
+    dim ``d``: 1 up to the largest of FLASH_HEAD_DIMS, ceil(d /
+    FLASH_WIDE) above (also the d-steps of the score products)."""
+    return -(-d // FLASH_WIDE) if flash_wide(d) else 1
+
+
+def flash_instance(d: int):
+    """The instantiation head dim ``d`` runs in, as the flash wrappers'
+    ``by_head_dim`` keys name it: D up to the largest of FLASH_HEAD_DIMS,
+    ``"128x2"`` (FLASH_WIDE x the slices) for the wide kernels at d 256."""
+    if flash_wide(d):
+        return f"{FLASH_WIDE}x{flash_slices(d)}"
+    return flash_head_dim(d)
+
+
+def flash_split_products(d: int, products: int, score_products: int
+                         ) -> float:
+    """The wide kernels' products over the math's, as a ratio: of the
+    math's ``products`` over all of head dim ``d``, ``score_products`` (q
+    k^T, dO v^T) are recomputed over all of d by each of the
+    ``flash_slices(d)`` slices, and each other one runs over FLASH_WIDE
+    columns a slice (its last slice's columns past d included).  1 up to
+    the largest of FLASH_HEAD_DIMS; at d 256 the forward's 2 products give
+    1.5 and dQ's and dK/dV's 3 give 5 / 3; at d 160, 1.8 and 1.87."""
+    n = flash_slices(d)
+    if n == 1:
+        return 1.0
+    return ((score_products * n * d
+             + (products - score_products) * n * FLASH_WIDE)
+            / (products * d))
 
 
 def flash_head_dim_fault(d: int, itemsize: int) -> Optional[str]:
     """Why the flash kernels cannot take head dim ``d`` of an operand of
-    ``itemsize`` bytes as it is, or None: d at least 1 and at most the
-    largest instantiation, and a row of d elements a multiple of 16 bytes
-    (the kernels' copies)."""
-    if d < 1 or d > FLASH_HEAD_DIMS[-1]:
-        return (f"head dim {d} outside 1 .. {FLASH_HEAD_DIMS[-1]}, the "
-                f"largest the kernels are built for")
+    ``itemsize`` bytes as it is, or None: d at least 1 and a row of d
+    elements a multiple of 16 bytes (the kernels' copies).  Any such d
+    runs: up to the largest of FLASH_HEAD_DIMS in an instantiation, above
+    it in the wide kernels."""
+    if d < 1:
+        return f"head dim {d} below 1"
     if d * itemsize % 16:
         return (f"head dim {d}: a row of {d * itemsize} bytes is not a "
                 f"multiple of the kernels' 16-byte copies")
@@ -420,7 +467,8 @@ def flash_fwd_tf32_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one split-TF32 forward block: a raw f32 q
     tile (64 rows) for each of its two warpgroups, and the chunk's K (hi
     and lo halves), V as copied and V transposed (hi and lo, a padded slot
-    group)."""
+    group).  The wide kernels (above 128) keep D = FLASH_WIDE's tiles, a
+    d-step of q and K in them at a time (each split-TF32 helper here)."""
     d = flash_head_dim(d)
     chunk = flash_tf32_chunk(d)
     return 4 * (2 * 64 * _flash_raw_row(d) + chunk * (3 * d + 2 * (d + 1)))
@@ -449,29 +497,38 @@ def flash_bwd_dkv_smem_bytes(d: int) -> int:
 def flash_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core forward block: a bf16 query
     tile for each warpgroup and the stages of key and value tiles, each
-    ``FLASH_TC_BQ`` x d."""
-    d = flash_head_dim(d)
-    tiles = FLASH_TC_FWD_WARPGROUPS + 2 * FLASH_TC_FWD_STAGES
-    return 2 * FLASH_TC_BQ * d * tiles
+    ``FLASH_TC_BQ`` x d.  Wide (above 128): FLASH_WIDE_STAGES stages of a
+    d-step's query tiles and key tile, and two tiles of V's slice."""
+    tile = 2 * FLASH_TC_BQ * flash_head_dim(d)
+    if flash_wide(d):
+        return tile * (FLASH_WIDE_STAGES * (FLASH_TC_FWD_WARPGROUPS + 1) + 2)
+    return tile * (FLASH_TC_FWD_WARPGROUPS + 2 * FLASH_TC_FWD_STAGES)
 
 
 def flash_bwd_dq_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core dQ block: a bf16 query tile
     and a dO tile for each warpgroup and the stages of key and value tiles,
-    each ``FLASH_TC_BQ`` x d."""
-    d = flash_head_dim(d)
-    tiles = 2 * FLASH_TC_DQ_WARPGROUPS + 2 * FLASH_TC_DQ_STAGES
-    return 2 * FLASH_TC_BQ * d * tiles
+    each ``FLASH_TC_BQ`` x d.  Wide: FLASH_WIDE_STAGES stages of a d-step's
+    query, dO, key and value tiles, and two tiles of K's slice."""
+    tile = 2 * FLASH_TC_BQ * flash_head_dim(d)
+    if flash_wide(d):
+        return tile * (FLASH_WIDE_STAGES * (2 * FLASH_TC_DQ_WARPGROUPS + 2)
+                       + 2)
+    return tile * (2 * FLASH_TC_DQ_WARPGROUPS + 2 * FLASH_TC_DQ_STAGES)
 
 
 def flash_bwd_dkv_tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one tensor-core dK/dV block: its bf16 key
     and value tiles, the stages of query and dO tiles and of their lse and
-    delta rows (f32), and the f32 p passed between its two warpgroups."""
-    d = flash_head_dim(d)
-    return (2 * FLASH_TC_BQ * d * (2 + 2 * FLASH_TC_DKV_STAGES)
-            + 4 * (2 * FLASH_TC_DKV_STAGES * FLASH_TC_BQ
-                   + 32 * FLASH_TC_WARPGROUP))
+    delta rows (f32), and the f32 p passed between its two warpgroups.
+    Wide: FLASH_WIDE_STAGES stages of a d-step's key, value, query and dO
+    tiles, two of q's and dO's slices, two of lse and delta, and p."""
+    tile = 2 * FLASH_TC_BQ * flash_head_dim(d)
+    stats = 4 * (2 * FLASH_TC_DKV_STAGES * FLASH_TC_BQ
+                 + 32 * FLASH_TC_WARPGROUP)
+    if flash_wide(d):
+        return tile * (FLASH_WIDE_STAGES * 4 + 4) + stats
+    return tile * (2 + 2 * FLASH_TC_DKV_STAGES) + stats
 
 
 # Each flash helper above sizes the kernel that runs head dim ``d``: its

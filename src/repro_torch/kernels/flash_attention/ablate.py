@@ -51,6 +51,16 @@ for each of its f32 kernels that is still the FMA design: its forward
 (``flash_fwd_kernel``) and its dQ and dK/dV (``flash_bwd_dq_kernel``,
 ``flash_bwd_dkv_kernel``), each where the source holds it.
 
+``--against PATH``: another tree's ``flash_attention.cu`` (one with the
+same C entries), built beside the source as built; at head dims 24, 80,
+96 and 128 (``AGAINST_DIMS``), bf16 and f32, causal and full,
+the forward, dQ and dK/dV of both on the same operands (B 1, H 16, KV 4,
+a ragged T of 1000), held bit for bit (O, lse, dQ, dK, dV), then timed in
+turns (as built, against, against, as built)::
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.ablate \
+        --against build/parent/src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu
+
 Prints one JSON line per (variant, kernel, shape) and the card's name and
 power limit.  Needs a card and ``nvcc``; builds into
 ``build/kernels/ablate``.
@@ -382,6 +392,62 @@ def f32_main(args) -> int:
     return 0
 
 
+# --against: (B, H, KV, T = S) at each of AGAINST_DIMS, causal and full
+AGAINST_SHAPE = (1, 16, 4, 1000)
+AGAINST_DIMS = (24, 80, 96, 128)
+
+
+def against_main(args) -> int:
+    libs = {"as_built": _build.load("flash_attention")}
+    libs.update(build({"against": open(args.against).read()}))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, kv, t = AGAINST_SHAPE
+    same = True
+    for d in AGAINST_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k, v, do = (torch.randn((b, t, n, d), generator=gen,
+                                           device=dev).to(dtype)
+                               .transpose(1, 2) for n in (h, kv, kv, h))
+                sc = d ** -0.5
+                _build._LOADED["flash_attention"] = libs["as_built"]
+                o, lse = fk.flash_attention_fwd(q, k, v, sc=sc, causal=causal)
+                delta = fk.bwd_delta(o, do)
+                calls = {
+                    "fwd": lambda: fk.flash_attention_fwd(
+                        q, k, v, sc=sc, causal=causal),
+                    "dq": lambda: (fk.flash_attention_bwd_dq(
+                        q, k, v, do, lse, delta, sc=sc, causal=causal),),
+                    "dkv": lambda: fk.flash_attention_bwd_dkv(
+                        q, k, v, do, lse, delta, sc=sc, causal=causal)}
+                outs = {}
+                for name, lib in libs.items():
+                    _build._LOADED["flash_attention"] = lib
+                    outs[name] = {part: fn() for part, fn in calls.items()}
+                torch.cuda.synchronize()
+                equal = {part: all(torch.equal(x, y) for x, y in zip(
+                    outs["as_built"][part], outs["against"][part]))
+                    for part in calls}
+                same &= all(equal.values())
+                times = {}
+                for name in ("as_built", "against", "against", "as_built"):
+                    _build._LOADED["flash_attention"] = libs[name]
+                    for part, fn in calls.items():
+                        times.setdefault(name, {}).setdefault(
+                            part, []).append(event_ms(fn, args.reps))
+                _build._LOADED["flash_attention"] = libs["as_built"]
+                print(json.dumps({
+                    "d": d, "dtype": str(dtype).split(".")[-1],
+                    "causal": causal, "shape": [b, h, kv, t],
+                    "bit_identical": equal, "ms": times}), flush=True)
+                del q, k, v, do, o, lse, delta, outs
+                torch.cuda.empty_cache()
+    print(json.dumps({"against": args.against, "bit_identical": same}),
+          flush=True)
+    return 0 if same else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k")
@@ -396,10 +462,15 @@ def main() -> int:
     ap.add_argument("--fma-source", default=None,
                     help="--f32: an older tree's flash_attention.cu, whose "
                          "FMA kernels are timed beside the ones as built")
+    ap.add_argument("--against", default=None,
+                    help="another tree's flash_attention.cu: every kernel "
+                         "held bit for bit to it at AGAINST_DIMS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs a CUDA card")
-    if args.f32:
+    if args.against:
+        code = against_main(args)
+    elif args.f32:
         code = f32_main(args)
     else:
         code = bf16_main(args)

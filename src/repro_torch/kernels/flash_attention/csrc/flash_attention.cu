@@ -172,7 +172,8 @@
 // dO v^T, and V's, q's and dO's zero columns make output columns that are
 // never stored; the scale is the caller's, from d.  The 16-byte copies need
 // d x the itemsize to be a multiple of 16 (d a multiple of 8 in bf16, 4 in
-// f32; ops.py pads any other d).
+// f32; ops.py pads any other d).  A head dim above 128 runs the *_wide
+// kernels (the output-column split, below the tensor-core kernels).
 // 80 and 96 are multiples of 16 but not of 64, so the tiles keep the
 // unswizzled core-matrix layout (a 128-byte swizzle cannot cover a row of
 // 80): q k^T, dO v^T, K q^T and V dO^T run D / 16 (5 or 6) k16 steps, and
@@ -194,8 +195,8 @@
 // bf16 only (dtype 1), with 16-byte aligned addresses and strides, the
 // dK/dV scratch always.  Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for a head dimension no
-// instantiation takes (above 128, or rows of d that the 16-byte copies
-// cannot cover).
+// kernel takes (below 1, or rows of d that the 16-byte copies cannot
+// cover).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -562,12 +563,18 @@ __device__ __forceinline__ void split_product(float (&acc)[N / 2],
 }
 
 // S (64 x 64) = A B^T over D columns: A and B are 64-row core-matrix tiles.
+// The wide kernels sum a d-step into S (``acc``) and take its first
+// ``ksteps`` 16-column steps only (the last d-step's columns past d are
+// zero); the defaults are the whole tile into a fresh S.
 template <int D>
 __device__ __forceinline__ void scores_tc(float (&s)[32], uint32_t atile,
-                                          uint32_t btile) {
+                                          uint32_t btile, bool acc = false,
+                                          int ksteps = D / 16) {
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_n64(s, desc_kmajor(atile, k), desc_kmajor(btile, k), k > 0);
+    if (k < ksteps)
+      wgmma_ss_n64(s, desc_kmajor(atile, k), desc_kmajor(btile, k),
+                   acc || k > 0);
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -1164,6 +1171,537 @@ int launch_dkv_tc(const BwdArgs& a, float* dk_part, float* dv_part) {
 }
 
 // ---------------------------------------------------------------------------
+// Head dims above 128: the output-column split (bf16 and f32)
+// ---------------------------------------------------------------------------
+//
+// A head dim d > 128 runs the *_wide kernels, instantiated at W = WIDE
+// (128): the outputs (O; dQ; dK and dV) are cut into ceil(d / W) column
+// slices, blockIdx.z = z owning columns [z W, z W + W) of them (zero past
+// d on chip, never stored), with exactly the accumulators and wgmma shapes
+// of the D = W kernels.  The score products (q k^T; dO v^T in the
+// backward) cover all of d, summed into one accumulator over d-steps of W
+// columns, the last one's zero 16- (8-) column steps skipped; the d-steps'
+// tiles of q and K (and dO and V) stream through the block's shared memory
+// one d-step at a time, so a block's shared memory does not grow with d.
+// The slice's own tiles (V; K; dO and q), whose columns are those of
+// d-step z, are copied with d-step z.  Each slice's blocks recompute the
+// scores: at d 256 the forward does 1.5x the math's products (2 x 2 score
+// products over half of d plus one p v, where the math does 1 + 1), dQ and
+// dK/dV 1.67x (5 for 3).  Every slice computes the same scores, in the
+// same order, so m and l are the same bits in each; slice 0 writes lse.
+// The dK/dV sums per query head keep their (B, H, S, d) layout, each slice
+// writing its columns, and the group sum runs as for d <= 128.
+constexpr int WIDE = 128;        // columns of a slice and of a d-step
+constexpr int WIDE_STAGES = 2;   // the tensor-core kernels' ring of d-steps
+
+// The tensor-core forward at d > 128: the D = W forward's block (b, h, 128
+// query rows, two warpgroups) for output columns [z W, z W + W).  Its ring
+// holds a d-step's two q tiles and K tile a stage; per 64-key chunk, s =
+// q K^T sums over the d-steps, then the chunk's online softmax and O +=
+// p_hi V + p_lo V with V's slice (two buffers, by chunk parity).
+template <int W>
+__global__ void __launch_bounds__(FWD_WGS * WG, 1) flash_fwd_tc_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int H, int KV, int Tq, int S, int d, Strides qs, Strides ks, Strides vs,
+    Strides os, float sc, int causal) {
+  constexpr uint32_t TB = TC_BQ * W * 2;        // bytes of a tile
+  constexpr uint32_t STAGE = (FWD_WGS + 1) * TB;
+  constexpr int NT = FWD_WGS * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(smem_raw);             // [STAGES][q.., K]
+  const uint32_t vtile = ring + WIDE_STAGES * STAGE;    // [2] V's slice
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int z = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * TC_BQ * FWD_WGS;
+  const int q0 = qb0 + wg * TC_BQ;
+  const int qrow = q0 + warp * 16 + gid;
+  const int c0 = z * W;                  // the slice's first column
+  const int dz = min(W, d - c0);         // ... and its columns below d
+  const int ne = (d + W - 1) / W;        // d-steps
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + FWD_WGS * TC_BQ) : S;
+  const int nkv = (kv_end + TC_BK - 1) / TC_BK;
+  const int mine = causal ? min(nkv, q0 / TC_BK + 1) : nkv;
+  const int nu = nkv * ne;               // (chunk, d-step) units
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int j = u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+      const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+#pragma unroll
+      for (int w = 0; w < FWD_WGS; ++w)
+        load_tile<W>(st + w * TB, qb + e * W, qs.t, qb0 + w * TC_BQ, Tq,
+                     cols, tid, NT);
+      load_tile<W>(st + FWD_WGS * TB, kb + e * W, ks.t, j * TC_BK, S, cols,
+                   tid, NT);
+      if (e == z)
+        load_tile<W>(vtile + (j & 1) * TB, vb + c0, vs.t, j * TC_BK, S, dz,
+                     tid, NT);
+    }
+    cp_commit();  // a group per unit, empty past the last
+  };
+  load_step(0);
+
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2], sum[2];
+  float s[32] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    // unit u landed, and every warp is past unit u - 1, whose stage unit
+    // u + 1 refills
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    load_step(u + 1);
+    const int j = u / ne, e = u % ne;
+    if (j >= mine) continue;  // past this warpgroup's diagonal
+    const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+    const int cols = min(W, d - e * W);
+    wg_fence();
+    scores_tc<W>(s, st + wg * TB, st + FWD_WGS * TB, e > 0, (cols + 15) / 16);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    if (e < ne - 1) continue;  // the chunk's scores need more d-steps
+
+    const int kv0 = j * TC_BK;
+    softmax_chunk(s, m, alpha, sum, qrow, kv0, tig, S, causal,
+                  kv0 + TC_BK > S || (causal && kv0 + TC_BK - 1 > q0),
+                  sc * LOG2E);
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[n8 * 4 + r] *= alpha[r >> 1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+
+    uint32_t hi[16], lo[16];
+    split_frags(s, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<W>(acc, hi, lo, vtile + (j & 1) * TB);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + b * os.b + h * os.h + tq * os.t + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8) {
+      const int c = n8 * 8 + tig * 2;
+      if (c < dz)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+    }
+    if (tig == 0 && z == 0)  // m is in base 2
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
+  }
+}
+
+// The tensor-core dQ at d > 128: the D = W dQ's block for dQ's columns
+// [z W, z W + W).  Its ring holds a d-step's two q, two dO, K and V tiles a
+// stage; per 64-key chunk s = q K^T and dp = dO V^T sum over the d-steps,
+// then ds in registers and dQ += ds_hi K + ds_lo K with K's slice (two
+// buffers, by chunk parity).
+template <int W>
+__global__ void __launch_bounds__(DQ_WGS * WG, 1) flash_bwd_dq_tc_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int KV, int Tq, int S, int d, Strides qs,
+    Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
+  constexpr uint32_t TB = TC_BQ * W * 2;
+  constexpr uint32_t STAGE = (2 * DQ_WGS + 2) * TB;  // q.., dO.., K, V
+  constexpr int NT = DQ_WGS * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(smem_raw);
+  const uint32_t kslice = ring + WIDE_STAGES * STAGE;  // [2] K's slice
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int z = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * TC_BQ * DQ_WGS;
+  const int q0 = qb0 + wg * TC_BQ;
+  const int qrow = q0 + warp * 16 + gid;
+  const int c0 = z * W;
+  const int dz = min(W, d - c0);
+  const int ne = (d + W - 1) / W;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + DQ_WGS * TC_BQ) : S;
+  const int nkv = (kv_end + TC_BK - 1) / TC_BK;
+  const int mine = causal ? min(nkv, q0 / TC_BK + 1) : nkv;
+  const int nu = nkv * ne;
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int j = u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+      const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+#pragma unroll
+      for (int w = 0; w < DQ_WGS; ++w) {
+        load_tile<W>(st + w * TB, qb + e * W, qs.t, qb0 + w * TC_BQ, Tq,
+                     cols, tid, NT);
+        load_tile<W>(st + (DQ_WGS + w) * TB, dob + e * W, dos.t,
+                     qb0 + w * TC_BQ, Tq, cols, tid, NT);
+      }
+      load_tile<W>(st + 2 * DQ_WGS * TB, kb + e * W, ks.t, j * TC_BK, S,
+                   cols, tid, NT);
+      load_tile<W>(st + (2 * DQ_WGS + 1) * TB, vb + e * W, vs.t, j * TC_BK,
+                   S, cols, tid, NT);
+      if (e == z)
+        load_tile<W>(kslice + (j & 1) * TB, kb + c0, ks.t, j * TC_BK, S, dz,
+                     tid, NT);
+    }
+    cp_commit();
+  };
+  load_step(0);
+
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    lse2[i] = tq < Tq ? lse[row0 + tq] * LOG2E : 0.f;
+    dl[i] = tq < Tq ? delta[row0 + tq] : 0.f;
+  }
+  const float scl = sc * LOG2E;
+
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float s[32] = {}, dp[32] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    load_step(u + 1);
+    const int j = u / ne, e = u % ne;
+    if (j >= mine) continue;
+    const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+    const int steps = (min(W, d - e * W) + 15) / 16;
+    wg_fence();
+    scores_tc<W>(s, st + wg * TB, st + 2 * DQ_WGS * TB, e > 0, steps);
+    scores_tc<W>(dp, st + (DQ_WGS + wg) * TB, st + (2 * DQ_WGS + 1) * TB,
+                 e > 0, steps);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    if (e < ne - 1) continue;
+
+    const int kv0 = j * TC_BK;
+    const bool masked = kv0 + TC_BK > S || (causal && kv0 + TC_BK - 1 > q0);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = n8 * 4 + r;
+        const int i = r >> 1;
+        const int kpos = kv0 + n8 * 8 + tig * 2 + (r & 1);
+        const bool in =
+            !masked || (kpos < S && !(causal && qrow + 8 * i < kpos));
+        const float p = in ? exp2f(fmaf(s[idx], scl, -lse2[i])) : 0.f;
+        s[idx] = p * (dp[idx] - dl[i]);
+      }
+
+    uint32_t hi[16], lo[16];
+    split_frags(s, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<W>(acc, hi, lo, kslice + (j & 1) * TB);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    bf16* row = dq + b * dqs.b + h * dqs.h + tq * dqs.t + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+      if (n8 * 8 + tig * 2 < dz)
+        *reinterpret_cast<__nv_bfloat162*>(row + n8 * 8 + tig * 2) =
+            __floats2bfloat162_rn(acc[n8 * 4 + i * 2] * sc,
+                                  acc[n8 * 4 + i * 2 + 1] * sc);
+  }
+}
+
+// The tensor-core dK/dV at d > 128: the D = W dK/dV's block (b, query head,
+// 64 keys, two warpgroups) for dK's and dV's columns [z W, z W + W).  Its
+// ring holds a d-step's K, V, q and dO tiles a stage; per 64-row q chunk,
+// s^T = K q^T (warpgroup 0) and dp^T = V dO^T (warpgroup 1) sum over the
+// d-steps, p^T passes to warpgroup 1 behind the block barrier, then dV +=
+// p^T dO and dK += ds^T q with dO's and q's slices (two buffers each, by
+// chunk parity; the rows' lse and delta likewise, copied with d-step 0).
+template <int W>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_part, float* __restrict__ dv_part, int H, int KV,
+    int Tq, int S, int d, Strides qs, Strides ks, Strides vs, Strides dos,
+    float sc, int causal) {
+  constexpr uint32_t TB = TC_BQ * W * 2;
+  constexpr uint32_t STAGE = 4 * TB;  // K, V, q, dO
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(smem_raw);
+  const uint32_t slices = ring + WIDE_STAGES * STAGE;  // [2][q, dO] slices
+  float* Ls = reinterpret_cast<float*>(smem_raw + WIDE_STAGES * STAGE +
+                                       4 * TB);        // [2][64] lse
+  float* Dl = Ls + 2 * TC_BQ;                           // [2][64] delta
+  float* Pex = Dl + 2 * TC_BQ;                          // [32][WG]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * TC_BK;
+  const int z = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int c0 = z * W;
+  const int dz = min(W, d - c0);
+  const int ne = (d + W - 1) / W;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int nq = (Tq + TC_BQ - 1) / TC_BQ;
+  const int lo_q = causal ? k0 / TC_BQ : 0;
+  const int nu = max(nq - lo_q, 0) * ne;
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int qc = lo_q + u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+      const int par = qc & 1;
+      const int q0 = qc * TC_BQ;
+      const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+      load_tile<W>(st, kb + e * W, ks.t, k0, S, cols, tid, 2 * WG);
+      load_tile<W>(st + TB, vb + e * W, vs.t, k0, S, cols, tid, 2 * WG);
+      load_tile<W>(st + 2 * TB, qb + e * W, qs.t, q0, Tq, cols, tid, 2 * WG);
+      load_tile<W>(st + 3 * TB, dob + e * W, dos.t, q0, Tq, cols, tid,
+                   2 * WG);
+      if (e == z) {
+        load_tile<W>(slices + 2 * par * TB, qb + c0, qs.t, q0, Tq, dz, tid,
+                     2 * WG);
+        load_tile<W>(slices + (2 * par + 1) * TB, dob + c0, dos.t, q0, Tq,
+                     dz, tid, 2 * WG);
+      }
+      if (e == 0 && tid < 2 * TC_BQ) {  // the rows' lse and delta, zero past T
+        const int r = tid % TC_BQ;
+        const int tq = q0 + r;
+        const float* src = (tid < TC_BQ ? lse : delta) + row0;
+        cp_async4(smem_u32((tid < TC_BQ ? Ls : Dl) + par * TC_BQ + r),
+                  tq < Tq ? src + tq : src, tq < Tq ? 4 : 0);
+      }
+    }
+    cp_commit();
+  };
+  load_step(0);
+
+  float acc[W / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  const float scl = sc * LOG2E;
+  float x[32] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    load_step(u + 1);
+    const int qc = lo_q + u / ne, e = u % ne;
+    const uint32_t st = ring + (u % WIDE_STAGES) * STAGE;
+    const int steps = (min(W, d - e * W) + 15) / 16;
+    wg_fence();
+    if (wg == 0)
+      scores_tc<W>(x, st, st + 2 * TB, e > 0, steps);
+    else
+      scores_tc<W>(x, st + TB, st + 3 * TB, e > 0, steps);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(x);
+    if (e < ne - 1) continue;
+
+    const int par = qc & 1;
+    const int q0 = qc * TC_BQ;
+    const float* Lst = Ls + par * TC_BQ;
+    const float* Dst = Dl + par * TC_BQ;
+    const bool masked =
+        k0 + TC_BK > S || q0 + TC_BQ > Tq || (causal && q0 < k0 + TC_BK - 1);
+    if (wg == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int kpos = k0 + warp * 16 + gid + 8 * (r >> 1);
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          const int qpos = q0 + c;
+          const bool in = !masked || (kpos < S && qpos < Tq &&
+                                      !(causal && qpos < kpos));
+          const float p =
+              in ? exp2f(fmaf(x[idx], scl, -Lst[c] * LOG2E)) : 0.f;
+          x[idx] = p;
+          Pex[idx * WG + t] = p;
+        }
+    }
+    __syncthreads();  // p^T for warpgroup 1
+    if (wg == 1) {
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          x[idx] = Pex[idx * WG + t] * (x[idx] - Dst[c]);
+        }
+    }
+
+    uint32_t hi[16], lo[16];
+    split_frags(x, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    split_product<W>(acc, hi, lo, slices + (2 * par + (wg == 0)) * TB);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+  }
+  cp_wait<0>();
+
+  float* part = wg == 0 ? dv_part : dk_part;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = k0 + warp * 16 + gid + 8 * i;
+    if (s >= S) continue;
+    float* row = part + ((static_cast<int64_t>(b) * H + h) * S + s) * d + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+      if (n8 * 8 + tig * 2 < dz)
+        *reinterpret_cast<float2*>(row + n8 * 8 + tig * 2) =
+            make_float2(acc[n8 * 4 + i * 2], acc[n8 * 4 + i * 2 + 1]);
+  }
+}
+
+// Shared memory of the wide tensor-core kernels, in bytes: the ring of
+// d-steps and the slice's tiles (and dK/dV's lse, delta and p^T slots).
+constexpr size_t fwd_tc_wide_smem_bytes(int w) {
+  return 2 * static_cast<size_t>(TC_BQ) * w *
+         (WIDE_STAGES * (FWD_WGS + 1) + 2);
+}
+
+constexpr size_t dq_tc_wide_smem_bytes(int w) {
+  return 2 * static_cast<size_t>(TC_BQ) * w *
+         (WIDE_STAGES * (2 * DQ_WGS + 2) + 2);
+}
+
+constexpr size_t dkv_tc_wide_smem_bytes(int w) {
+  return 2 * static_cast<size_t>(TC_BQ) * w * (WIDE_STAGES * 4 + 4) +
+         sizeof(float) * (4 * static_cast<size_t>(TC_BQ) + 32 * WG);
+}
+
+// The slices of head dim d: blockIdx.z's extent.
+unsigned wide_slices(int d, int w) { return static_cast<unsigned>((d + w - 1) / w); }
+
+template <int W>
+int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int KV, int Tq, int S, int d,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float sc, int causal, cudaStream_t st) {
+  const size_t smem = fwd_tc_wide_smem_bytes(W);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_fwd_tc_wide_kernel<W>), smem);
+  if (err) return err;
+  const dim3 grid(B * H, (Tq + FWD_WGS * TC_BQ - 1) / (FWD_WGS * TC_BQ),
+                  wide_slices(d, W));
+  flash_fwd_tc_wide_kernel<W><<<grid, FWD_WGS * WG, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Tq, S,
+      d, qs, ks, vs, os, sc, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_dq_tc_wide(const BwdArgs& a) {
+  const size_t smem = dq_tc_wide_smem_bytes(W);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_bwd_dq_tc_wide_kernel<W>), smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + DQ_WGS * TC_BQ - 1) / (DQ_WGS * TC_BQ),
+                  wide_slices(a.d, W));
+  flash_bwd_dq_tc_wide_kernel<W><<<grid, DQ_WGS * WG, smem, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dq), a.H, a.KV, a.Tq, a.S, a.d, a.qs, a.ks,
+      a.vs, a.dos, a.dqs, a.sc, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_dkv_tc_wide(const BwdArgs& a, float* dk_part, float* dv_part) {
+  const size_t smem = dkv_tc_wide_smem_bytes(W);
+  int err = opt_in(reinterpret_cast<const void*>(
+                       flash_bwd_dkv_tc_wide_kernel<W>), smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.S + TC_BK - 1) / TC_BK, wide_slices(a.d, W));
+  flash_bwd_dkv_tc_wide_kernel<W><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, dk_part, dv_part, a.H, a.KV, a.Tq, a.S, a.d, a.qs, a.ks, a.vs,
+      a.dos, a.sc, a.causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (a.d / 4);
+  const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+  flash_dkv_reduce_kernel<bf16><<<rgrid, 256, 0, a.st>>>(
+      dk_part, dv_part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.H, a.KV, a.S, a.d, a.dks, a.dvs, a.sc, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // Split-TF32 backward kernels (f32 operands, sm_90a wgmma .tf32)
 // ---------------------------------------------------------------------------
 
@@ -1498,24 +2036,31 @@ __device__ __forceinline__ void acc_frags(const float (&x)[L / 2],
 // tiles whose A fragments are loaded and split one step at a time into two
 // register sets (each step's wgmmas are committed together and the next
 // step waits for the one before, whose set it refills), B and C natural tile
-// pairs (hi, lo; L rows).  One accumulator over the D / 8 steps.
+// pairs (hi, lo; L rows).  One accumulator over the D / 8 steps; the wide
+// kernels sum a d-step into x and y (``acc``) over its first ``ksteps``
+// steps only.
 template <int D, int L, bool TWO>
 __device__ __forceinline__ void scores_tf32(float (&x)[L / 2],
                                             float (&y)[L / 2],
                                             const float* X, const float* Y,
                                             uint32_t bh, uint32_t bl,
                                             uint32_t ch, uint32_t cl,
-                                            int row, int tig) {
+                                            int row, int tig,
+                                            bool acc = false,
+                                            int ksteps = D / 8) {
   uint32_t f[2][4][4];
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
+    if (kk >= ksteps) break;
     uint32_t (&g)[4][4] = f[kk & 1];
     raw_frags<D>(X, row, 8 * kk + tig, g[0], g[1]);
     if constexpr (TWO) raw_frags<D>(Y, row, 8 * kk + tig, g[2], g[3]);
     wg_fence();
-    mma3(x, g[0], g[1], desc_nat<L>(bh, kk), desc_nat<L>(bl, kk), kk > 0);
+    mma3(x, g[0], g[1], desc_nat<L>(bh, kk), desc_nat<L>(bl, kk),
+         acc || kk > 0);
     if constexpr (TWO)
-      mma3(y, g[2], g[3], desc_nat<L>(ch, kk), desc_nat<L>(cl, kk), kk > 0);
+      mma3(y, g[2], g[3], desc_nat<L>(ch, kk), desc_nat<L>(cl, kk),
+           acc || kk > 0);
     wg_commit();
     wg_wait<1>();
   }
@@ -2063,16 +2608,519 @@ int launch_dkv_tf32(const BwdArgs& a, float* dk_part, float* dv_part) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split-TF32 kernels at d > 128 (the output-column split above), at
+// W = WIDE: each keeps the D = W kernel's shared memory, its tiles holding
+// one d-step at a time (raw q, dO, K, V and the natural tiles of the
+// chunk), and the slice's transposed tiles (V^T; K^T; q^T and dO^T), split
+// from the natural tiles of d-step z.  The score products of each d-step
+// (three TF32 products a k step) sum into one accumulator; the d-step's
+// copies land before its split pass, and the next d-step's copies run
+// under the last one's softmax and products.
+
+// The split-TF32 forward at d > 128, for O's columns [z W, z W + W).
+template <int W>
+__global__ void __launch_bounds__(2 * WG, 1) flash_fwd_tf32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int H, int KV, int Tq, int S, int d, Strides qs,
+    Strides ks, Strides vs, Strides os, float sc, int causal) {
+  constexpr int L = tf32_chunk(W);
+  constexpr int RAW = TC_BQ * raw_row(W);
+  constexpr int NAT = L * W;
+  constexpr int TRN = L * (W + 1);
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qr = reinterpret_cast<float*>(smem_raw);  // [2][RAW] a d-step of q
+  float* Kh = Qr + 2 * RAW;   // ... of K, as copied: its hi half
+  float* Kl = Kh + NAT;
+  float* Vh = Kl + NAT;       // V's slice as copied
+  float* VTh = Vh + NAT;      // V's slice transposed, hi and lo
+  float* VTl = VTh + TRN;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int z = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * 2 * TC_BQ;
+  const int q0 = qb0 + wg * TC_BQ;
+  const int row = warp * 16 + gid;
+  const int qrow = q0 + row;
+  const int c0 = z * W;
+  const int dz = min(W, d - c0);
+  const int ne = (d + W - 1) / W;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + 2 * TC_BQ) : S;
+  const int nkv = (kv_end + L - 1) / L;
+  const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
+  const int nu = nkv * ne;
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int j = u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        load_raw<W>(Qr + w * RAW, qb + e * W, qs.t, qb0 + w * TC_BQ, Tq, cols,
+                    tid, NT);
+      load_nat<W, L>(Kh, kb + e * W, ks.t, j * L, S, cols, tid, NT);
+      if (e == z) load_nat<W, L>(Vh, vb + c0, vs.t, j * L, S, dz, tid, NT);
+    }
+    cp_commit();
+  };
+  load_step(0);
+
+  const float scl = sc * LOG2E;
+  const float* Xq = Qr + wg * RAW;
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2], sum[2];
+  float s[L / 2] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    // unit u landed; every warp is past unit u - 1's products
+    cp_wait<0>();
+    __syncthreads();
+    const int j = u / ne, e = u % ne;
+    split_tile<W, L, true, false>(Kh, Kl, nullptr, nullptr, tid, NT);
+    if (e == z) split_tile<W, L, false, true>(Vh, nullptr, VTh, VTl, tid, NT);
+    fence_async_smem();
+    __syncthreads();
+    const bool active = j < mine;
+    if (active)
+      scores_tf32<W, L, false>(s, s, Xq, Xq, smem_u32(Kh), smem_u32(Kl), 0,
+                               0, row, tig, e > 0,
+                               (min(W, d - e * W) + 7) / 8);
+    // both warpgroups' scores are done: unit u + 1's copies refill q and K
+    __syncthreads();
+    load_step(u + 1);
+    if (!active || e < ne - 1) continue;
+
+    const int kv0 = j * L;
+    softmax_chunk(s, m, alpha, sum, qrow, kv0, tig, S, causal,
+                  kv0 + L > S || (causal && kv0 + L - 1 > q0), scl);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+    float part[W / 2];
+    chunk_product<W, L>(part, s, smem_u32(VTh), smem_u32(VTl));
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i)
+      acc[i] = __fadd_rn(acc[i] * alpha[(i >> 1) & 1], part[i]);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+    float* out = o + b * os.b + h * os.h + tq * os.t + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+      if (n8 * 8 + tig * 2 < dz)
+        *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] / li, acc[n8 * 4 + i * 2 + 1] / li);
+    if (tig == 0 && z == 0)  // m is in base 2
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + tq] = m[i] * LN2 + logf(li);
+  }
+}
+
+// The split-TF32 dQ at d > 128, for dQ's columns [z W, z W + W); K's slice
+// is d-step z's K tile, so its split pass also writes K^T there.
+template <int W>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_tf32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int KV, int Tq, int S, int d, Strides qs,
+    Strides ks, Strides vs, Strides dos, Strides dqs, float sc, int causal) {
+  constexpr int L = tf32_chunk(W);
+  constexpr int RAW = TC_BQ * raw_row(W);
+  constexpr int NAT = L * W;
+  constexpr int TRN = L * (W + 1);
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qr = reinterpret_cast<float*>(smem_raw);  // [2][RAW] a d-step of q
+  float* Or = Qr + 2 * RAW;                        // [2][RAW] ... of dO
+  float* Kh = Or + 2 * RAW;   // ... of K, as copied: its hi half
+  float* Kl = Kh + NAT;
+  float* Vh = Kl + NAT;       // ... of V, as copied
+  float* Vl = Vh + NAT;
+  float* KTh = Vl + NAT;      // K's slice transposed, hi and lo
+  float* KTl = KTh + TRN;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int qi = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int z = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int qb0 = qi * 2 * TC_BQ;
+  const int q0 = qb0 + wg * TC_BQ;
+  const int row = warp * 16 + gid;
+  const int qrow = q0 + row;
+  const int c0 = z * W;
+  const int dz = min(W, d - c0);
+  const int ne = (d + W - 1) / W;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  const int kv_end = causal ? min(S, qb0 + 2 * TC_BQ) : S;
+  const int nkv = (kv_end + L - 1) / L;
+  const int mine = causal ? min(nkv, (q0 + TC_BQ - 1) / L + 1) : nkv;
+  const int nu = nkv * ne;
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int j = u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        load_raw<W>(Qr + w * RAW, qb + e * W, qs.t, qb0 + w * TC_BQ, Tq, cols,
+                    tid, NT);
+        load_raw<W>(Or + w * RAW, dob + e * W, dos.t, qb0 + w * TC_BQ, Tq,
+                    cols, tid, NT);
+      }
+      load_nat<W, L>(Kh, kb + e * W, ks.t, j * L, S, cols, tid, NT);
+      load_nat<W, L>(Vh, vb + e * W, vs.t, j * L, S, cols, tid, NT);
+    }
+    cp_commit();
+  };
+  load_step(0);
+
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    lse2[i] = tq < Tq ? lse[row0 + tq] * LOG2E : 0.f;
+    dl[i] = tq < Tq ? delta[row0 + tq] : 0.f;
+  }
+  const float scl = sc * LOG2E;
+  const float* Xq = Qr + wg * RAW;
+  const float* Xo = Or + wg * RAW;
+
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float s[L / 2] = {}, dp[L / 2] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    cp_wait<0>();
+    __syncthreads();
+    const int j = u / ne, e = u % ne;
+    if (e == z)
+      split_tile<W, L, true, true>(Kh, Kl, KTh, KTl, tid, NT);
+    else
+      split_tile<W, L, true, false>(Kh, Kl, nullptr, nullptr, tid, NT);
+    split_tile<W, L, true, false>(Vh, Vl, nullptr, nullptr, tid, NT);
+    fence_async_smem();
+    __syncthreads();
+    const bool active = j < mine;
+    if (active)
+      scores_tf32<W, L, true>(s, dp, Xq, Xo, smem_u32(Kh), smem_u32(Kl),
+                              smem_u32(Vh), smem_u32(Vl), row, tig, e > 0,
+                              (min(W, d - e * W) + 7) / 8);
+    __syncthreads();
+    load_step(u + 1);
+    if (!active || e < ne - 1) continue;
+
+    const int kv0 = j * L;
+    const bool masked = kv0 + L > S || (causal && kv0 + L - 1 > q0);
+#pragma unroll
+    for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = n8 * 4 + r;
+        const int i = r >> 1;
+        const int kpos = kv0 + n8 * 8 + tig * 2 + (r & 1);
+        const bool in =
+            !masked || (kpos < S && !(causal && qrow + 8 * i < kpos));
+        const float p = in ? exp2f(fmaf(s[idx], scl, -lse2[i])) : 0.f;
+        s[idx] = p * (dp[idx] - dl[i]);
+      }
+
+    float part[W / 2] = {};
+    chunk_product<W, L>(part, s, smem_u32(KTh), smem_u32(KTl));
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qrow + 8 * i;
+    if (tq >= Tq) continue;
+    float* out = dq + b * dqs.b + h * dqs.h + tq * dqs.t + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+      if (n8 * 8 + tig * 2 < dz)
+        *reinterpret_cast<float2*>(out + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] * sc, acc[n8 * 4 + i * 2 + 1] * sc);
+  }
+}
+
+// The split-TF32 dK/dV at d > 128, for dK's and dV's columns [z W, z W +
+// W): K and V stream with q and dO a d-step at a time; q's and dO's slices
+// are d-step z's natural tiles, so their split pass also writes q^T and
+// dO^T there; the rows' lse and delta are copied with d-step 0.
+template <int W>
+__global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tf32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_out, float* __restrict__ dv_out, int H, int KV,
+    int Tq, int S, int d, Strides qs, Strides ks, Strides vs, Strides dos,
+    Strides dko, Strides dvo, float ksc, float sc, int causal) {
+  constexpr int L = tf32_chunk(W);
+  constexpr int RAW = TC_BQ * raw_row(W);
+  constexpr int NAT = L * W;
+  constexpr int TRN = L * (W + 1);
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Kr = reinterpret_cast<float*>(smem_raw);  // [RAW] a d-step of K
+  float* Vr = Kr + RAW;                            // [RAW] ... of V
+  float* Qh = Vr + RAW;    // ... of the chunk's q, as copied: its hi half
+  float* Ql = Qh + NAT;
+  float* Oh = Ql + NAT;    // ... of its dO
+  float* Ol = Oh + NAT;
+  float* QTh = Ol + NAT;   // q's slice transposed, hi and lo
+  float* QTl = QTh + TRN;
+  float* OTh = QTl + TRN;  // dO's slice transposed, hi and lo
+  float* OTl = OTh + TRN;
+  float* Ls = OTl + TRN;   // [2][L] lse, by chunk parity
+  float* Dl = Ls + 2 * L;  // [2][L] delta
+  float* Pex = Dl + 2 * L; // [L / 2][WG]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * TC_BK;
+  const int z = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int warp = t / 32;
+  const int gid = (t % 32) / 4;
+  const int tig = t % 4;
+  const int row = warp * 16 + gid;
+  const int c0 = z * W;
+  const int dz = min(W, d - c0);
+  const int ne = (d + W - 1) / W;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int nq = (Tq + L - 1) / L;
+  const int lo_q = causal ? k0 / L : 0;
+  const int nu = max(nq - lo_q, 0) * ne;
+  auto load_step = [&](int u) {
+    if (u < nu) {
+      const int qc = lo_q + u / ne, e = u % ne;
+      const int cols = min(W, d - e * W);
+      const int q0 = qc * L;
+      load_raw<W>(Kr, kb + e * W, ks.t, k0, S, cols, tid, NT);
+      load_raw<W>(Vr, vb + e * W, vs.t, k0, S, cols, tid, NT);
+      load_nat<W, L>(Qh, qb + e * W, qs.t, q0, Tq, cols, tid, NT);
+      load_nat<W, L>(Oh, dob + e * W, dos.t, q0, Tq, cols, tid, NT);
+      if (e == 0 && tid < 2 * L) {
+        const int r = tid % L;
+        const int tq = q0 + r;
+        const float* src = (tid < L ? lse : delta) + row0;
+        cp_async4(smem_u32((tid < L ? Ls : Dl) + (qc & 1) * L + r),
+                  tq < Tq ? src + tq : src, tq < Tq ? 4 : 0);
+      }
+    }
+    cp_commit();
+  };
+  load_step(0);
+
+  const float scl = sc * LOG2E;
+  float acc[W / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float x[L / 2] = {};
+
+  for (int u = 0; u < nu; ++u) {
+    cp_wait<0>();
+    __syncthreads();
+    const int qc = lo_q + u / ne, e = u % ne;
+    if (e == z) {
+      split_tile<W, L, true, true>(Qh, Ql, QTh, QTl, tid, NT);
+      split_tile<W, L, true, true>(Oh, Ol, OTh, OTl, tid, NT);
+    } else {
+      split_tile<W, L, true, false>(Qh, Ql, nullptr, nullptr, tid, NT);
+      split_tile<W, L, true, false>(Oh, Ol, nullptr, nullptr, tid, NT);
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    const int steps = (min(W, d - e * W) + 7) / 8;
+    if (wg == 0)
+      scores_tf32<W, L, false>(x, x, Kr, Kr, smem_u32(Qh), smem_u32(Ql), 0,
+                               0, row, tig, e > 0, steps);
+    else
+      scores_tf32<W, L, false>(x, x, Vr, Vr, smem_u32(Oh), smem_u32(Ol), 0,
+                               0, row, tig, e > 0, steps);
+    const bool last = e == ne - 1;
+    const int q0 = qc * L;
+    const float* Lst = Ls + (qc & 1) * L;
+    const float* Dst = Dl + (qc & 1) * L;
+    if (last && wg == 0) {
+      const bool masked =
+          k0 + TC_BK > S || q0 + L > Tq || (causal && q0 < k0 + TC_BK - 1);
+#pragma unroll
+      for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int kpos = k0 + row + 8 * (r >> 1);
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          const int qpos = q0 + c;
+          const bool in = !masked || (kpos < S && qpos < Tq &&
+                                      !(causal && qpos < kpos));
+          const float p =
+              in ? exp2f(fmaf(x[idx], scl, -Lst[c] * LOG2E)) : 0.f;
+          x[idx] = p;
+          Pex[idx * WG + t] = p;
+        }
+    }
+    // p^T for warpgroup 1; both warpgroups' scores are done: unit u + 1's
+    // copies refill the d-step's tiles
+    __syncthreads();
+    load_step(u + 1);
+    if (!last) continue;
+    if (wg == 1) {
+#pragma unroll
+      for (int n8 = 0; n8 < L / 8; ++n8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = n8 * 4 + r;
+          const int c = n8 * 8 + tig * 2 + (r & 1);
+          x[idx] = Pex[idx * WG + t] * (x[idx] - Dst[c]);
+        }
+    }
+
+    float part[W / 2] = {};
+    chunk_product<W, L>(part, x, smem_u32(wg == 0 ? OTh : QTh),
+                        smem_u32(wg == 0 ? OTl : QTl));
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+  cp_wait<0>();
+
+  float* out = wg == 0 ? dv_out : dk_out;
+  const Strides os = wg == 0 ? dvo : dko;
+  const float f = wg == 0 ? 1.f : ksc;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = k0 + row + 8 * i;
+    if (s >= S) continue;
+    float* dst = out + b * os.b + h * os.h + s * os.t + c0;
+#pragma unroll
+    for (int n8 = 0; n8 < W / 8; ++n8)
+      if (n8 * 8 + tig * 2 < dz)
+        *reinterpret_cast<float2*>(dst + n8 * 8 + tig * 2) = make_float2(
+            acc[n8 * 4 + i * 2] * f, acc[n8 * 4 + i * 2 + 1] * f);
+  }
+}
+
+template <int W>
+int launch_fwd_tf32_wide(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int H, int KV, int Tq, int S,
+                         int d, Strides qs, Strides ks, Strides vs,
+                         Strides os, float sc, int causal, cudaStream_t st) {
+  const size_t smem = fwd_tf32_smem_bytes(W);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_fwd_tf32_wide_kernel<W>), smem);
+  if (err) return err;
+  const dim3 grid(B * H, (Tq + 2 * TC_BQ - 1) / (2 * TC_BQ),
+                  wide_slices(d, W));
+  flash_fwd_tf32_wide_kernel<W><<<grid, 2 * WG, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Tq,
+      S, d, qs, ks, vs, os, sc, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_dq_tf32_wide(const BwdArgs& a) {
+  const size_t smem = dq_tf32_smem_bytes(W);
+  const int err = opt_in(reinterpret_cast<const void*>(
+                             flash_bwd_dq_tf32_wide_kernel<W>), smem);
+  if (err) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + 2 * TC_BQ - 1) / (2 * TC_BQ),
+                  wide_slices(a.d, W));
+  flash_bwd_dq_tf32_wide_kernel<W><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KV, a.Tq, a.S, a.d,
+      a.qs, a.ks, a.vs, a.dos, a.dqs, a.sc, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As launch_dkv_tf32: null dk_part and dv_part (only at G = 1) write dK and
+// dV directly, else per query head sums and the group sum.
+template <int W>
+int launch_dkv_tf32_wide(const BwdArgs& a, float* dk_part, float* dv_part) {
+  const bool direct = dk_part == nullptr;
+  if (direct != (dv_part == nullptr) || (direct && a.H != a.KV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dkv_tf32_smem_bytes(W);
+  int err = opt_in(reinterpret_cast<const void*>(
+                       flash_bwd_dkv_tf32_wide_kernel<W>), smem);
+  if (err) return err;
+  const Strides part{static_cast<long long>(a.H) * a.S * a.d,
+                     static_cast<long long>(a.S) * a.d, a.d};
+  const dim3 grid(a.B * a.H, (a.S + TC_BK - 1) / TC_BK, wide_slices(a.d, W));
+  flash_bwd_dkv_tf32_wide_kernel<W><<<grid, 2 * WG, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, direct ? static_cast<float*>(a.dk) : dk_part,
+      direct ? static_cast<float*>(a.dv) : dv_part, a.H, a.KV, a.Tq, a.S, a.d,
+      a.qs, a.ks, a.vs, a.dos, direct ? a.dks : part, direct ? a.dvs : part,
+      direct ? a.sc : 1.f, a.sc, a.causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || direct) return err;
+  const long long n4 = static_cast<long long>(a.B) * a.KV * a.S * (a.d / 4);
+  const dim3 rgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+  flash_dkv_reduce_kernel<float><<<rgrid, 256, 0, a.st>>>(
+      dk_part, dv_part, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.H, a.KV, a.S, a.d, a.dks, a.dvs, a.sc, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// head_dim_for's answer for a head dim above 128: the wide kernels.
+constexpr int WIDE_DIMS = -1;
+
 // The instantiated head dim a head dim d runs in: the smallest D of 16,
-// 32, 64, 80, 96 and 128 at least d (budget.flash_head_dim), or 0 for a d
-// no instantiation takes: outside 1 .. 128, or a row of d elements of
-// `itemsize` bytes that the 16-byte copies cannot cover.
+// 32, 64, 80, 96 and 128 at least d (budget.flash_head_dim), WIDE_DIMS
+// above 128 (the *_wide kernels at W = WIDE), or 0 for a d no kernel
+// takes: below 1, or a row of d elements of `itemsize` bytes that the
+// 16-byte copies cannot cover.
 int head_dim_for(int d, int itemsize) {
   constexpr int kDims[] = {16, 32, 64, 80, 96, 128};
   if (d < 1 || d * itemsize % 16 != 0) return 0;
   for (int D : kDims)
     if (d <= D) return D;
-  return 0;
+  return WIDE_DIMS;
 }
 
 // The entries' common checks: sizes, and the dtype each takes.
@@ -2096,7 +3144,8 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v,
   return a;
 }
 
-// One case of an entry's switch: instantiation D of launcher F.
+// One case of an entry's switch: instantiation D of launcher F, or F's
+// wide launcher (F_wide) at W = WIDE above 128.
 #define FLASH_DIMS(F, ...)                                   \
   switch (head_dim_for(d, dtype == 0 ? 4 : 2)) {            \
     case 16: return F<16>(__VA_ARGS__);                     \
@@ -2105,6 +3154,7 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v,
     case 80: return F<80>(__VA_ARGS__);                     \
     case 96: return F<96>(__VA_ARGS__);                     \
     case 128: return F<128>(__VA_ARGS__);                   \
+    case WIDE_DIMS: return F##_wide<WIDE>(__VA_ARGS__);     \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
@@ -2112,7 +3162,8 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v,
 
 // d: the head dim of every q-, k-, v- and dO-shaped operand; the kernels
 // run in the smallest instantiation D >= d (head_dim_for), columns [d, D)
-// zero on chip and never stored.
+// zero on chip and never stored, or above 128 in the wide kernels, one
+// block per output slice of WIDE columns.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KV, int Tq, int S, int d, long long q_sb, long long q_sh,

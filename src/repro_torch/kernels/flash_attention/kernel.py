@@ -15,12 +15,15 @@ reference does with ``jnp`` outside its ``pallas_call``s, then launches
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, which take CUDA
 tensors only.  A launch that CUDA refuses raises.
 
-Every kernel takes any head dim d up to 128 whose rows are a multiple of
-16 bytes (d a multiple of 8 in bf16, of 4 in f32; ``ops`` pads any other
-d): it runs in the instantiation D = ``budget.flash_head_dim(d)``, the
+Every kernel takes any head dim d whose rows are a multiple of 16 bytes
+(d a multiple of 8 in bf16, of 4 in f32; ``ops`` pads any other d).  Up
+to 128 it runs in the instantiation D = ``budget.flash_head_dim(d)``, the
 smallest of ``budget.FLASH_HEAD_DIMS`` at least d, its loads zero past
-column d and its stores cut there.  A head dim above 128, or one whose rows
-the copies cannot cover, raises before a launch (no fallback on a CUDA
+column d and its stores cut there.  Above 128 it runs the kernel's wide
+form (the output-column split): ``budget.flash_slices(d)`` blocks side by
+side, each owning 128 columns of the outputs and summing the score
+products over all of d in 128-column steps.  A head dim whose rows the
+copies cannot cover raises before a launch (no fallback on a CUDA
 tensor).
 
 All three pick their kernel by dtype, and only by dtype.  bf16 operands go
@@ -52,7 +55,9 @@ dQ), ``.tc_launches`` (tensor-core dQ); ``flash_attention_bwd_dkv.launches``
 ``.tc_launches`` (tensor-core dK/dV) and ``.reduce_launches`` (its group
 sum).  Each of the three also has ``.by_head_dim``: its launches by head
 dim and instantiation, ``(kind, d, D)`` with kind ``"tc"`` (bf16) or
-``"tf32"`` (f32); a dK/dV launch and its group sum count once there.
+``"tf32"`` (f32) and D ``budget.flash_instance(d)`` (``"128x2"`` for the
+wide kernels at d 256); a dK/dV launch and its group sum count once
+there.
 """
 from __future__ import annotations
 
@@ -174,7 +179,7 @@ def _launch(q, k, v, sc, causal) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _count_head_dim(wrapper, kind: str, d: int) -> None:
-    key = (kind, d, budget.flash_head_dim(d))
+    key = (kind, d, budget.flash_instance(d))
     wrapper.by_head_dim[key] = wrapper.by_head_dim.get(key, 0) + 1
 
 

@@ -12,8 +12,9 @@ so every row is computed whatever the length.
 reference's residuals (q, k, v, O, lse); its backward runs the dQ and
 dK/dV kernels (on CPU tensors, the plain versions of all three).
 
-The kernels take any head dim up to 128 whose rows are a multiple of 16
-bytes.  For another head dim (20 or 30 in bf16, 30 in f32)
+The kernels take any head dim whose rows are a multiple of 16 bytes (up
+to 128 in an instantiation, above it through the output-column split).
+For another head dim (20, 30 or 132 in bf16; 30 or 130 in f32)
 ``flash_attention_bthd`` copies q, k and v once, zero filled to the next
 multiple of 8 columns, and keeps the first hd columns of O (the zero
 columns add nothing to q k^T; the scale stays hd's); that padded copy

@@ -1,6 +1,6 @@
-// A CPU stand-in for the CUDA features the split-TF32 flash kernels use, so
-// that tests/_torch_cuda_emu.py can compile csrc/flash_attention.cu with g++
-// and run those kernels on CPU tensors.  A block runs as std::threads;
+// A CPU stand-in for the CUDA features the flash kernels use, so that
+// tests/_torch_cuda_emu.py can compile csrc/flash_attention.cu with g++
+// and run its kernels on CPU tensors.  A block runs as std::threads;
 // __syncthreads() is a barrier of the block's threads; __shfl_xor_sync an
 // exchange behind a barrier of the warp's 32 threads; cp.async copies at
 // issue (and zero-fills); and wgmma .tf32 (A in registers, B K-major in
@@ -13,8 +13,17 @@
 // row warp*16 + gid + 8 (r / 2), column n8*8 + 2 tig + r % 2; A register r:
 // row warp*16 + gid + 8 (r % 2), k slot tig + 4 (r / 2)).  Operands are
 // read as the card reads .tf32 words, their low 13 bits cleared, and each
-// step's 8 products summed in double.  Only the single-translation-unit
-// build of the test uses it.
+// step's 8 products summed in double.  The bf16 wgmmas the tensor-core
+// kernels use are computed the same way: m64n64k16 with A and B K-major in
+// shared memory (8 x 16-byte core matrices: element (row, k) at start +
+// (k / 8) lbo + (row / 8) sbo + (row % 8) 16 + (k % 8) 2), and m64nNk16 with
+// A's bf16 pairs in registers (register r: row warp*16 + gid + 8 (r % 2),
+// k 8 (r / 2) + 2 tig and + 1 in its high half) and B MN-major (element
+// (k, n) at start + (k / 8) lbo + (n / 8) sbo + (k % 8) 16 + (n % 8) 2),
+// each step's 16 products summed in double; bf16 rounds to nearest even.
+// Named barriers (bar.sync / bar.arrive) are not emulated: a kernel that
+// needs them cannot run here.  Only the single-translation-unit build of
+// the test uses it.
 #pragma once
 #include <cmath>
 #include <condition_variable>
@@ -81,9 +90,6 @@ inline float4 make_float4(float a, float b, float c, float d) {
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
-// bf16: only the kernels the test does not run use it
-inline __nv_bfloat162 __floats2bfloat162_rn(float, float) { return {}; }
-inline float2 __bfloat1622float2(__nv_bfloat162) { return {}; }
 inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, 4);
@@ -93,6 +99,21 @@ inline uint32_t __float_as_uint(float f) {
   uint32_t u;
   std::memcpy(&u, &f, 4);
   return u;
+}
+inline __nv_bfloat16 emu_bf16(float f) {
+  uint32_t u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {0x7fc0};  // NaN
+  u += 0x7fffu + ((u >> 16) & 1u);                      // to nearest even
+  return {static_cast<unsigned short>(u >> 16)};
+}
+inline float emu_float(unsigned short bits) {
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {emu_bf16(a), emu_bf16(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {emu_float(v.x.x), emu_float(v.y.x)};
 }
 inline float __fadd_rn(float a, float b) { return a + b; }
 
@@ -170,6 +191,84 @@ inline void emu_wgmma_tf32(float (&d)[M], const uint32_t (&a)[4],
     }
     d[idx] = static_cast<float>((scale_d ? static_cast<double>(d[idx]) : 0.0)
                                 + sum);
+  }
+  emu_wg_bar[wg]->wait();
+}
+
+inline float emu_smem_bf16(uint32_t byte) {
+  unsigned short bits;
+  std::memcpy(&bits, smem_raw + byte, 2);
+  return emu_float(bits);
+}
+
+struct EmuDesc {
+  uint32_t start, lbo, sbo;
+  explicit EmuDesc(uint64_t desc)
+      : start(static_cast<uint32_t>(desc & 0x3FFF) << 4),
+        lbo(static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4),
+        sbo(static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4) {}
+  // bf16 element (row, k) of a K-major operand, (k, n) of an MN-major one
+  float kmajor(int row, int k) const {
+    return emu_smem_bf16(start + (k / 8) * lbo + (row / 8) * sbo +
+                         (row % 8) * 16 + (k % 8) * 2);
+  }
+  float mnmajor(int k, int n) const {
+    return emu_smem_bf16(start + (k / 8) * lbo + (n / 8) * sbo +
+                         (k % 8) * 16 + (n % 8) * 2);
+  }
+};
+
+// D (64 x 64) (+)= A (64 x 16) B^T (64 x 16), bf16, both K-major in shared
+// memory; every thread computes its own accumulator registers (nothing is
+// posted, but the warpgroup meets before and after, as the card's
+// wgmma.wait does for the shared memory it reads).
+inline void emu_wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                         int scale_d) {
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  emu_wg_bar[wg]->wait();
+  const EmuDesc a(da), b(db);
+  const int warp = t / 32, gid = (t % 32) / 4, tig = t % 4;
+  for (int idx = 0; idx < 32; ++idx) {
+    const int n8 = idx / 4, r = idx % 4;
+    const int m = warp * 16 + gid + 8 * (r >> 1);
+    const int n = n8 * 8 + tig * 2 + (r & 1);
+    double sum = 0;
+    for (int k = 0; k < 16; ++k)
+      sum += static_cast<double>(a.kmajor(m, k)) * b.kmajor(n, k);
+    d[idx] = static_cast<float>((scale_d ? static_cast<double>(d[idx]) : 0.0)
+                                + sum);
+  }
+  emu_wg_bar[wg]->wait();
+}
+
+// D (64 x N: M = N / 2 accumulator registers a thread) += A (64 x 16,
+// bf16 pairs in registers) B (16 x N), B MN-major in shared memory.
+template <int M>
+inline void emu_wgmma_rs(float (&d)[M], uint32_t a0, uint32_t a1,
+                         uint32_t a2, uint32_t a3, uint64_t db) {
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  emu_a[wg][t][0] = a0;
+  emu_a[wg][t][1] = a1;
+  emu_a[wg][t][2] = a2;
+  emu_a[wg][t][3] = a3;
+  emu_wg_bar[wg]->wait();
+  const EmuDesc b(db);
+  const int warp = t / 32, gid = (t % 32) / 4, tig = t % 4;
+  for (int idx = 0; idx < M; ++idx) {
+    const int n8 = idx / 4, r = idx % 4;
+    const int m = warp * 16 + gid + 8 * (r >> 1);
+    const int n = n8 * 8 + tig * 2 + (r & 1);
+    double sum = 0;
+    for (int k = 0; k < 16; ++k) {
+      // the owner of (m, k): its register and half
+      const int owner = (m / 16) * 32 + (m % 8) * 4 + (k % 8) / 2;
+      const int reg = ((m % 16) >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0);
+      const uint32_t pair = emu_a[wg][owner][reg];
+      const float av = emu_float(static_cast<unsigned short>(
+          k % 2 ? pair >> 16 : pair & 0xFFFFu));
+      sum += static_cast<double>(av) * b.mnmajor(k, n);
+    }
+    d[idx] = static_cast<float>(static_cast<double>(d[idx]) + sum);
   }
   emu_wg_bar[wg]->wait();
 }

@@ -1,4 +1,4 @@
-"""Run the split-TF32 flash kernels (the forward, dQ and dK/dV) of
+"""Run the flash kernels (the forward, dQ and dK/dV) of
 ``csrc/flash_attention.cu`` on the CPU: the source compiled with g++
 against ``tests/_cuda_emu.h`` (a stand-in for the CUDA features and inline
 PTX those kernels use), its C entry points called through ctypes on CPU
@@ -6,13 +6,19 @@ tensors.
 
 ``emulated_library(out_dir)`` rewrites the source (the header for CUDA's,
 every ``asm`` statement a no-op, an emulator call added at the top of
-``cp_async16``, ``cp_async4`` and each ``wgmma_tf32``, each
-``<<<grid, block, smem, stream>>>`` launch an ``emu_launch``), compiles it
-into a shared library and loads it; ``None`` without g++.
+``cp_async16``, ``cp_async4``, each ``wgmma_tf32``, ``wgmma_ss_n64`` and
+each ``wgmma_rs``, each ``<<<grid, block, smem, stream>>>`` launch an
+``emu_launch``), compiles it into a shared library and loads it; ``None``
+without g++.
 ``fwd_tf32(lib, q, k, v, sc=, causal=)`` returns O and lse from the f32
 entry ``flash_attention_fwd``; ``bwd_tf32(lib, q, k, v, do, lse, delta,
 sc=, causal=)`` dQ, dK, dV from the f32 entries ``flash_attention_bwd_dq``
 and ``flash_attention_bwd_dkv`` (its group sum too when H > KV).
+``fwd_tc`` and ``bwd_tc`` do the same on bf16 tensors through the
+tensor-core entries (``*_tc``; dK/dV always with its group sum).  The
+tensor-core dK/dV kernel of head dims up to 128 passes p^T through named
+barriers, which the emulator does not have: only the wide one (d > 128)
+runs here.
 """
 import ctypes
 import os
@@ -78,6 +84,14 @@ def emulated_source() -> str:
         src, r"void wgmma_tf32\(float \(&d\)\[\d+\],\s*const uint32_t "
              r"\(&a\)\[4\],\s*uint64_t db, int scale_d\)",
         "emu_wgmma_tf32(d, a, db, scale_d);")
+    src = _insert_after_brace(
+        src, r"void wgmma_ss_n64\(float \(&d\)\[32\], uint64_t da,\s*"
+             r"uint64_t db, int scale_d\)",
+        "emu_wgmma_ss(d, da, db, scale_d);")
+    src = _insert_after_brace(
+        src, r"void wgmma_rs\(float \(&d\)\[\d+\], uint32_t a0,\s*"
+             r"uint32_t a1, uint32_t a2,\s*uint32_t a3, uint64_t db\)",
+        "emu_wgmma_rs(d, a0, a1, a2, a3, db);")
     return _launches(src)
 
 
@@ -160,5 +174,42 @@ def bwd_tf32(lib, q, k, v, do, lse, delta, *, sc, causal):
     assert err == 0, err
     err = dkv_tf32(lib, q, k, v, do, lse, delta, dk, dv, *parts, sc=sc,
                    causal=causal)
+    assert err == 0, err
+    return dq, dk, dv
+
+
+def fwd_tc(lib, q, k, v, *, sc, causal):
+    """O and lse of the emulated tensor-core forward on bf16 CPU tensors
+    (the layouts of ``fwd_tf32``), O first filled with NaN."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full((b, h, t), float("nan"))
+    err = _entry(lib, "flash_attention_fwd_tc", 5, 4)(
+        *(x.data_ptr() for x in (q, k, v, o, lse)), b, h, kv, t, s, d,
+        *_strides(q, k, v, o), sc, int(causal), 1, None)
+    assert err == 0, err
+    return o, lse
+
+
+def bwd_tc(lib, q, k, v, do, lse, delta, *, sc, causal):
+    """dQ, dK, dV of the emulated tensor-core dQ and dK/dV (and its group
+    sum) on bf16 CPU tensors (the layouts of ``bwd_tf32``), each output and
+    the group sum's scratch first filled with NaN."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    dq = torch.full_like(q, float("nan"))
+    dk = torch.full_like(k, float("nan"))
+    dv = torch.full_like(v, float("nan"))
+    parts = [torch.full((b, h, s, d), float("nan")) for _ in range(2)]
+    err = _entry(lib, "flash_attention_bwd_dq_tc", 7, 5)(
+        *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq)),
+        b, h, kv, t, s, d, *_strides(q, k, v, do, dq), sc, int(causal), 1,
+        None)
+    assert err == 0, err
+    err = _entry(lib, "flash_attention_bwd_dkv_tc", 10, 6)(
+        *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv, *parts)),
+        b, h, kv, t, s, d, *_strides(q, k, v, do, dk, dv), sc, int(causal),
+        1, None)
     assert err == 0, err
     return dq, dk, dv

@@ -131,21 +131,24 @@ def test_cpu_backward_runs_the_plain_version(d):
 
 
 @pytest.mark.parametrize("d, ok", [(80, True), (96, True), (48, True),
-                                   (112, True), (24, True), (144, False),
-                                   (256, False)])
+                                   (112, True), (24, True), (144, True),
+                                   (256, True), (20, False)])
 def test_backward_launchers_take_80_and_96_only_listed_dims(d, ok):
     """The dQ and dK/dV launchers check the head dim before the device:
     at any head dim up to 128 (80 and 96, and 24, 48 and 112, which run in
-    the instantiations 32, 64 and 128) the CPU tensors pass the checks and
-    are refused for their device only; above 128 (144, 256) they raise
-    naming 128, the largest the kernels are built for (on a CUDA tensor
-    the same check refuses the launch; no fallback)."""
+    the instantiations 32, 64 and 128) and above it (144, 256: the wide
+    kernels) the CPU tensors pass the checks and are refused for their
+    device only; a head dim whose bf16 rows are no multiple of 16 bytes
+    (20: 40 bytes) raises naming its row (on a CUDA tensor the same check
+    refuses the launch; no fallback).  The listed dims are now every d
+    whose rows those copies cover: that refusal is the only one left."""
     lse = torch.zeros((1, 4, 16))
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.from_numpy(a).to(dtype)
                    for a in _qkv(1, 4, 2, 16, d, seed=3))
-        match = ("take CUDA tensors" if ok else
-                 f"head dim {d} outside 1 .. 128")
+        refused = not ok and dtype == torch.bfloat16
+        match = (f"head dim {d}: a row of {2 * d} bytes" if refused else
+                 "take CUDA tensors")
         for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
             with pytest.raises(ValueError, match=match):
                 fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
@@ -201,16 +204,19 @@ def test_backward_matches_reference_kernel(d, h, kv, causal, dtype):
 
 
 @pytest.mark.parametrize("d, ok", [(80, True), (96, True), (48, True),
-                                   (112, True), (24, True), (144, False),
-                                   (256, False)])
+                                   (112, True), (24, True), (144, True),
+                                   (256, True), (20, False)])
 def test_forward_launcher_takes_80_and_96(d, ok):
     """The forward launcher's checks (``_launch``, what a CUDA tensor
-    reaches) pass at 80 and 96 and at any other head dim up to 128, for
-    bf16 (tensor cores) and f32 (split TF32), and refuse a head dim above
-    128."""
+    reaches) pass at 80 and 96 and at any other head dim up to 128, and
+    above it (144, 256: the wide kernels), for bf16 (tensor cores) and f32
+    (split TF32), and refuse a head dim whose bf16 rows the 16-byte copies
+    cannot cover (20)."""
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.from_numpy(a).to(dtype)
                    for a in _qkv(1, 4, 2, 16, d, seed=4))
-        match = "take CUDA tensors" if ok else f"head dim {d} outside"
+        refused = not ok and dtype == torch.bfloat16
+        match = (f"head dim {d}: a row of {2 * d} bytes" if refused else
+                 "take CUDA tensors")
         with pytest.raises(ValueError, match=match):
             fk._launch(q, k, v, 0.1, True)

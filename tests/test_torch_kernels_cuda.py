@@ -27,8 +27,8 @@ tensor-core forward, dQ and dK/dV) at every head dimension of
 both, in f32, also against autograd through ``attention_ref``'s naive
 attention in float64), and one mesh rank's heads (H / tp heads of
 Qwen1.5-0.5B and OLMoE at tp 2, tensor-parallel mode A; Yi-9B's single kv
-head a rank at tp 8 and 16, mode B); a
-head dim no kernel is built for is refused before any launch.  A bf16
+head a rank at tp 8 and 16, mode B); head dims above 128 (144, 256) run
+the wide kernels (the output-column split).  A bf16
 MoE group (cuBLAS products with f32 results) agrees
 with the CPU's.  The counters show which kernel ran: bf16 operands the
 tensor-core ones, f32 the split-TF32 forward, dQ and dK/dV (with its
@@ -778,28 +778,56 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, case):
 
 @pytest.mark.parametrize("d", [144, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_flash_backward_refuses_unlisted_head_dims(cuda_device, d, dtype):
-    """A head dim above the largest the kernels are built for (128): on the
-    card the dQ and dK/dV launchers raise before any launch, naming 128
-    (no fallback to the plain backward)."""
+def test_flash_wide_head_dims_launch_and_match_plain(cuda_device, d, dtype):
+    """A head dim above the largest instantiation (128) is no longer
+    refused: the forward, dQ and dK/dV launch their wide kernels (the
+    output-column split, two 128-column slices at 144 and 256), counted
+    under ``(kind, d, "128x2")``, on GQA 4:2 at a ragged T of 70, and agree
+    with the plain versions (O within 2e-5 of its largest magnitude in f32,
+    one bf16 rounding plus 1e-3 of its rms in bf16; the gradients within
+    FLASH_BWD_TOL)."""
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
 
-    assert d > budget.FLASH_HEAD_DIMS[-1]
+    assert d > budget.FLASH_HEAD_DIMS[-1] and budget.flash_wide(d)
     gen = torch.Generator(device=cuda_device).manual_seed(d)
-    q, k, v = (torch.randn((1, 70, h, d), generator=gen, device=cuda_device)
-               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
-    before = (fk.flash_attention_bwd_dq.launches,
-              fk.flash_attention_bwd_dq.tc_launches,
-              fk.flash_attention_bwd_dkv.launches,
-              fk.flash_attention_bwd_dkv.tc_launches)
-    lse = torch.zeros(q.shape[:3], device=cuda_device)
-    for fn in (fk.flash_attention_bwd_dq, fk.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match=f"head dim {d} outside 1 .. 128"):
-            fn(q, k, v, q, lse, lse, sc=0.1, causal=True)
-    assert before == (fk.flash_attention_bwd_dq.launches,
-                      fk.flash_attention_bwd_dq.tc_launches,
-                      fk.flash_attention_bwd_dkv.launches,
-                      fk.flash_attention_bwd_dkv.tc_launches)
+    q, k, v, do = (torch.randn((1, 70, h, d), generator=gen,
+                               device=cuda_device).to(dtype).transpose(1, 2)
+                   for h in (4, 2, 2, 4))
+    sc = d ** -0.5
+    tc = dtype == torch.bfloat16
+    key = ("tc" if tc else "tf32", d, "128x2")
+    assert budget.flash_instance(d) == key[2]
+    wrappers = (fk.flash_attention_fwd, fk.flash_attention_bwd_dq,
+                fk.flash_attention_bwd_dkv)
+    before = [w.by_head_dim.get(key, 0) for w in wrappers]
+    o, lse = fk.flash_attention_fwd(q, k, v, sc=sc, causal=True)
+    delta = fk.bwd_delta(o, do)
+    dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, delta, sc=sc,
+                                   causal=True)
+    dk, dv = fk.flash_attention_bwd_dkv(q, k, v, do, lse, delta, sc=sc,
+                                        causal=True)
+    torch.cuda.synchronize()
+    assert [w.by_head_dim.get(key, 0) for w in wrappers] == [
+        n + 1 for n in before]
+    want_o, want_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                             sc=sc, causal=True)
+    assert bool(torch.isfinite(o).all())
+    if tc:
+        excess = ((o.float() - want_o).abs() - 2.0 ** -8 * want_o.abs())
+        assert float(excess.max() / want_o.pow(2).mean().sqrt()) <= 1e-3
+    else:
+        assert float((o - want_o).abs().max() / want_o.abs().max()) <= 2e-5
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), sc=sc,
+                                     causal=True)
+    tol = FLASH_BWD_TOL[dtype]
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert bool(torch.isfinite(got).all()), name
+        assert _grad_excess(got, w, dtype) <= tol, (name, _grad_excess(
+            got, w, dtype))
 
 
 def _attention_f64(q, k, v, *, causal):
