@@ -116,8 +116,11 @@ Phases (any failure exits non-zero and prints no result):
               CLI's rates (step faults 0.35, plan corruption 0.5, stragglers
               0.1, seed 0), its 224 bucket pinned to the ELL kernel (which
               the corruption drops, ``sched.unsupported_tm``) and its 160
-              bucket to the BCSR kernel (whose ladder must step down), then
-              replayed twice on ``VirtualClock`` with equal ``SloReport``s.
+              bucket to the BCSR kernel; then the same chaos replayed twice
+              on ``VirtualClock``, paced at 2x the capacity of the tuned
+              rung's roofline tick (the same run on any host), with equal
+              ``SloReport``s that drop the ELL rungs and step the 160
+              bucket's ladder down for ``escalate`` or ``overload``.
               Every run is counted and must lose and duplicate nothing,
               launch what its rungs' plans ask for the ticks each ran, and
               hold each completed image within 1e-4 x max(1, max |dense|) of
@@ -355,11 +358,12 @@ Phases (any failure exits non-zero and prints no result):
 14. families train -- ``make_train_step`` (the state updated in place),
               flash attention, B 1 x T 2048, bf16 params, f32
               AdamW state, weights from ``--seed``: HuBERT-XLarge at full
-              width and depth (48 layers) on the data pipeline's f32
+              width cut to 12 of its 48 layers (``reduced``, for the
+              script's time) on the data pipeline's f32
               embeddings (f32 activations: the split-TF32 flash forward, dQ
-              and dK/dV at d 80, 48 of each a step, no group
+              and dK/dV at d 80, 12 of each a step, no group
               sum): first the loss and the gradient norm of
-              one forward and backward at full depth under flash within
+              one forward and backward of the whole model under flash within
               1e-5 of those under chunked attention; then under
               ``StepRunner``, 1 warm-up and 3 timed steps (the warm-up of
               their schedule spans them; the loss on the repeated batch
@@ -368,9 +372,10 @@ Phases (any failure exits non-zero and prints no result):
               tensor-core kernels at d 80), then the control: the same 4
               steps from the same weights with a one-step warm-up, their
               losses recorded; Phi-3-Vision-4.2B at full
-              width and depth (32 layers) on bf16 embeddings: one forward
+              width cut to 8 of its 32 layers (``reduced``) on bf16
+              embeddings: one forward
               and backward of the same params and batch under remat none,
-              dots and full (the flash forward 32, 64, 64 times; the
+              dots and full (the flash forward 8, 16, 16 times; the
               activations the forward keeps full < dots < none, the peaks
               full <= dots <= none with full < none; losses within 1e-5),
               then 1 + 3 steps under full remat with the checkpoint (the
@@ -386,9 +391,10 @@ Phases (any failure exits non-zero and prints no result):
 15. mesh    -- the multi-chip path (``distributed/``, the meshed
               ``make_train_step``, ``moe_ep.py``) on this one card, flash
               attention, weights from ``--seed``.  (a) Qwen1.5-0.5B at full
-              width and depth (24 layers, bf16, B 4 x T 2048): 3 steps of
+              width cut to 6 of its 24 layers (bf16, B 4 x T 2048; the cut
+              for the script's time): 3 steps of
               the meshed step in a world of one over NCCL on a (1, 1)
-              ("data", "model") mesh, each counted (24 tensor-core flash
+              ("data", "model") mesh, each counted (6 tensor-core flash
               forwards, dQ, dK/dV and group sums), loss and grad norm
               within 1e-5 relative of the meshless step from the same
               state (the line says whether bit-identical).  OLMoE-1B-7B's
@@ -505,9 +511,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import io
 import json
 import math
+import multiprocessing
 import os
 import atexit
 import subprocess
@@ -759,15 +767,23 @@ DEEPSEEK_LAYERS, DEEPSEEK_SHAPE, DEEPSEEK_DECODE = 4, (1, 512), 8
 JAMBA_LAYERS, JAMBA_SHAPE, JAMBA_DECODE = 2, (1, 1024), 8
 EMBEDS_CONSIST_LAYERS, EMBEDS_CONSIST_SHAPE = 2, (1, 512)
 # The families' training: B 1 x T 2048; DeepSeek-V3 cut to its first
-# (dense) layer and the MTP block (a MoE layer's state is ~135 GB)
+# (dense) layer and the MTP block (a MoE layer's state is ~135 GB);
+# HuBERT-XLarge and Phi-3-Vision at full width cut to a quarter of their
+# depth for the script's time (on an H100 their steps and checkpoint round
+# trips took ~230 s at 48 and 32 layers, Phi-3-Vision's round trip ~123 s)
 FAMILY_TRAIN_SHAPE = (1, 2048)
 FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_TIMED = 1, 3
 DEEPSEEK_TRAIN_LAYERS = 1
+FAMILY_TRAIN_LAYERS = {"hubert-xlarge": 12, "phi-3-vision-4.2b": 8}
 REMAT_POLICIES = ("none", "dots", "full")
-# The mesh: Qwen1.5-0.5B trained at full width and depth (B 4 x T 2048,
-# bf16) on (1, 1) over NCCL, (1, 2) and (2, 1, 1) over gloo; OLMoE-1B-7B's
-# EP forward at B 1 x T 2048 on (1, 2)
+# The mesh: Qwen1.5-0.5B trained at full width cut to MESH_LAYERS of its
+# 24 layers (B 4 x T 2048, bf16) on (1, 1) over NCCL, (1, 2) and (2, 1, 1)
+# over gloo, and served on (1, 2); OLMoE-1B-7B's EP forward at B 1 x T 2048
+# on (1, 2).  The cut is for the script's time (on an H100 the phase took
+# 167-299 s at 24 layers, most of it gloo staging Qwen's per-layer
+# collectives through the host)
 MESH_ARCH = "qwen1.5-0.5b"
+MESH_LAYERS = 6
 MESH_TRAIN_SHAPE = (4, 2048)
 MESH_STEPS = 3
 MESH_MOE_SHAPE = (1, 2048)
@@ -795,7 +811,7 @@ MESH_BLOCK = (16, 16)   # sparsify_params's block: the ranks' pruning
 MESH_ROUTING_FLIPS = 16
 MESH_JOIN_S = 600       # the two ranks' world, start to join
 # The meshed decode on the (1, 2) mesh, bf16, weights from the seed:
-# Qwen1.5-0.5B at full width and depth serving a few requests (4 rows, a
+# Qwen1.5-0.5B at full width, MESH_LAYERS deep, serving a few requests (4 rows, a
 # cache of 128, 32 prompt tokens fed one by one, then 32 greedy ones),
 # dense and with each rank's shards pruned at MESH_SPARSITY (its KV heads
 # over tp: 8 a rank); DeepSeek-V3 at full width cut to its first
@@ -810,6 +826,25 @@ MESH_DECODE_PROJECTIONS = 7   # wq, wk, wv, wo, gate, up, down a layer
 # rank's meshless f32 decode on the same weights gathered whole, in units
 # of max(1, max |logit|); bf16 takes MESH_LOGIT_FACTOR's rule
 MESH_DECODE_F32_RTOL = 1e-4
+
+
+# Each phase's deadline, in seconds (``Watchdog``): about 3x the longest
+# ``phase_done`` time the phase took at its present depth in five runs on
+# an H100 80GB HBM3 at 700 W (875, 970 and 983 s in all before the families
+# train and mesh phases were cut; 544 and 750 s after), at least 30 s.  The
+# whole run ends with a report at RUN_DEADLINE_S, before a limit of 1,200 s
+# would end it without one.
+PHASE_DEADLINE_S = {
+    "setup": 320, "kernel": 45, "path": 30, "auto": 95, "preflight": 35,
+    "cnn-serve": 105, "bf16": 30, "llm kernel": 75, "consistency": 45,
+    "prefill": 45, "serve": 80, "bwd kernel": 30, "flash f32": 30,
+    "train consistency": 30, "train": 240, "flash dims": 35, "blocks": 145,
+    "any dim": 30, "wide heads": 35, "moe": 60, "families": 135,
+    "families train": 220, "mesh": 475, "dryrun": 30,
+}
+RUN_DEADLINE_S = 1170
+WATCHDOG_GRACE_S = 20   # faulthandler's own exit, after a phase's deadline
+WATCHDOG_EXIT = 3
 
 
 class SmokeFailure(Exception):
@@ -2002,12 +2037,20 @@ class _CountedEngine:
         return getattr(self.engine, name)
 
 
+def unsupported_dropped(dropped_rungs) -> bool:
+    """Whether a ladder rung was dropped for ``sched.unsupported_tm``."""
+    return any("sched.unsupported_tm" in d["preflight_errors"]
+               for d in dropped_rungs)
+
+
 def cnn_serve_phase(torch, mods, nets, device, seed):
     """``RobustCnnServer`` on the card at full width: each net on
     ``WallClock`` with seeded images, a steady run (512 requests at 80 % of
     the capacity first measured for the tuned rung) and an overload run
     (the same requests at 2x that), and on ResNet-50 a chaos run (the
-    reference CLI's rates, seed 0) replayed twice on ``VirtualClock``.
+    reference CLI's rates, seed 0), then the same chaos replayed twice on
+    ``VirtualClock`` (paced from the tuned rung's roofline tick), which
+    must step down.
     Each run is counted; returns the launches."""
     np, cnn = mods["np"], mods["cnn"]
     tun, srv = mods["tuning"], mods["serving"]
@@ -2208,28 +2251,43 @@ def cnn_serve_phase(torch, mods, nets, device, seed):
         inj = chaos()
         server = build(net_name, srv.WallClock(), chaos_plan, inj)
         rep, row = serve("chaos", net_name, server, trace, imgs)
-        dropped = {r for d in rep.dropped_rungs
-                   for r in d["preflight_errors"]}
-        check("sched.unsupported_tm" in dropped and any(
-            e.reason in ("escalate", "overload") for e in rep.degradations),
-            f"{net_name}/chaos: no rung dropped for sched.unsupported_tm or "
-            f"no step-down\n{rep.format()}")
+        check(unsupported_dropped(rep.dropped_rungs), f"{net_name}/chaos: "
+              f"no rung dropped for sched.unsupported_tm\n{rep.format()}")
         row.update(chaos=inj.summary(), ladders={
             b.spec.key: [r.name for r in b.rungs] for b in server._buckets})
         del server
+        # the replays on VirtualClock, whose ticks take the rungs' roofline
+        # costs: their trace is paced from the tuned rung's roofline tick,
+        # not from the host's measured one, so they are the same run on
+        # every host, and they hold the ladder's step-down
+        virtual_capacity = CNN_SERVE_BATCH / tuned.est_s
+        vtrace = srv.arrival_trace(
+            CNN_SERVE_REQUESTS, shapes, seed=seed + 10,
+            mean_gap_s=1.0 / (CNN_SERVE_OVERLOAD * virtual_capacity),
+            deadline_s=CNN_SERVE_DEADLINE_S)
+        vimgs = images(vtrace)
         replays = []
         for _ in range(2):
             server = build(net_name, srv.VirtualClock(), chaos_plan, chaos())
-            replay, _ = serve("chaos-virtual", net_name, server, trace, imgs,
-                              check_results=False)
+            replay, _ = serve("chaos-virtual", net_name, server, vtrace,
+                              vimgs, check_results=False)
             replays.append(replay.to_dict())
             del server
         check(replays[0] == replays[1], f"{net_name}/chaos: two replays on "
               f"VirtualClock differ")
-        row.update(virtual_replays_equal=True, virtual_replay={
-            k: replays[0][k] for k in ("completed", "rejected", "retries",
-                                       "ticks", "rungs_executed",
-                                       "p50_latency_s", "p99_latency_s")})
+        check(unsupported_dropped(replays[0]["dropped_rungs"]) and any(
+            e["reason"] in ("escalate", "overload")
+            for e in replays[0]["degradations"]),
+            f"{net_name}/chaos: the VirtualClock replay dropped no rung for "
+            f"sched.unsupported_tm or stepped down for neither escalate nor "
+            f"overload\n{replays[0]}")
+        row.update(virtual_replays_equal=True,
+                   virtual_capacity_images_per_s=virtual_capacity,
+                   virtual_replay={
+                       k: replays[0][k] for k in (
+                           "completed", "rejected", "retries", "ticks",
+                           "rungs_executed", "degradations",
+                           "p50_latency_s", "p99_latency_s")})
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "cnn-serve", "seconds":
@@ -2242,6 +2300,11 @@ def cnn_serve_phase(torch, mods, nets, device, seed):
 # ---------------------------------------------------------------------------
 
 def reset_counts(mods):
+    """Set every counter to 0, adding what it held to ``mods["launched"]``
+    (the run's launches before this reset, for ``launched``)."""
+    before = mods.setdefault("launched", {})
+    for name, n in read_counts(mods).items():
+        before[name] = before.get(name, 0) + n
     for fn, attr, *key in COUNTERS.values():
         if key:
             getattr(mods["kernels"][fn], attr).clear()
@@ -2253,6 +2316,77 @@ def read_counts(mods):
     return {name: (getattr(mods["kernels"][fn], attr).get(key[0], 0) if key
                    else getattr(mods["kernels"][fn], attr))
             for name, (fn, attr, *key) in COUNTERS.items()}
+
+
+def launched(mods) -> dict:
+    """Every launch of each counter since the run began, across resets:
+    Python integers on the wrappers, read without a CUDA call."""
+    before = mods.get("launched", {})
+    return {name: before.get(name, 0) + n
+            for name, n in read_counts(mods).items()}
+
+
+class Watchdog:
+    """A deadline around each phase (``phase``).  At a phase's deadline a
+    thread prints one line naming the phase, its deadline and the launch
+    counters as they stood (``counters()``: no CUDA call, which could wait
+    on a hung kernel), with the launches made since the phase began; dumps
+    every thread's stack to stderr; stops the processes the run started
+    (``stops``); and ends the process with WATCHDOG_EXIT.  faulthandler's
+    own timer, WATCHDOG_GRACE_S later, dumps the stacks and exits from C
+    should that thread not run.  No phase runs past RUN_DEADLINE_S from
+    the watchdog's start."""
+
+    def __init__(self, counters=dict, stops=(), deadlines=None):
+        self.counters = counters
+        self.stops = list(stops)
+        self.deadlines = PHASE_DEADLINE_S if deadlines is None else deadlines
+        self.t0 = time.monotonic()
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        left = RUN_DEADLINE_S - (time.monotonic() - self.t0)
+        deadline = max(0.0, min(self.deadlines[name], left))
+        print(json.dumps({"phase_start": name, "deadline_s": deadline}),
+              flush=True)
+        timer = threading.Timer(deadline, self._expire,
+                                (name, deadline, self.counters()))
+        timer.daemon = True
+        timer.start()
+        faulthandler.dump_traceback_later(deadline + WATCHDOG_GRACE_S,
+                                          exit=True, file=sys.__stderr__)
+        try:
+            yield
+        finally:
+            timer.cancel()
+            faulthandler.cancel_dump_traceback_later()
+
+    def _expire(self, name, deadline, before):
+        now = self.counters()
+        print(json.dumps({
+            "phase_deadline": name, "deadline_s": deadline,
+            "elapsed_s": time.monotonic() - self.t0,
+            "launches": {k: v for k, v in now.items() if v},
+            "launches_in_phase": {k: v - before.get(k, 0)
+                                  for k, v in now.items()
+                                  if v != before.get(k, 0)}}), flush=True)
+        print(f"chip_smoke: FAILED: phase {name!r} passed its deadline of "
+              f"{deadline:.0f} s; every thread's stack follows",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.__stderr__, all_threads=True)
+        for stop in self.stops:
+            try:
+                stop()
+            except Exception as e:   # the exit below must still happen
+                print(f"chip_smoke: stopping {stop}: {e!r}", file=sys.stderr,
+                      flush=True)
+        os._exit(WATCHDOG_EXIT)
+
+
+def stop_children() -> None:
+    """Kill the processes the run spawned (the mesh's ranks)."""
+    for child in multiprocessing.active_children():
+        child.kill()
 
 
 def dim_key(mods, kind: str, d: int) -> tuple:
@@ -3520,8 +3654,8 @@ def train_phase(torch, mods, device, seed):
 
 # ---------------------------------------------------------------------------
 # the model families: training at full width (HuBERT-XLarge and
-# Phi-3-Vision at full depth, DeepSeek-V3 cut to one layer and its MTP
-# block)
+# Phi-3-Vision cut to a quarter of their depth, DeepSeek-V3 to one layer
+# and its MTP block)
 # ---------------------------------------------------------------------------
 
 def _family_state(torch, mods, cfg, opt_cfg, seed, device):
@@ -3596,9 +3730,9 @@ def _remat_fwd_bwd(torch, mods, cfg, holder, batch, device) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def full_depth_agreement(torch, mods, cfg, holder, batch, device) -> dict:
+def whole_model_agreement(torch, mods, cfg, holder, batch, device) -> dict:
     """The loss and the global gradient norm of ``holder``'s params on
-    ``batch`` at full depth under chunked attention (the plain path) and
+    ``batch`` (every layer of ``cfg``) under chunked attention (the plain path) and
     under flash (the kernels), each within TRAIN_LOSS_TOL of the chunked
     one: the whole model's gradient, where the train consistency phase
     holds every leaf at 2 layers.  Returns both, with the seconds each
@@ -3625,21 +3759,21 @@ def full_depth_agreement(torch, mods, cfg, holder, batch, device) -> dict:
     for key in ("loss", "grad_norm"):
         want, got = out["chunked"][key], out["flash"][key]
         check(math.isfinite(got) and abs(got - want) <= TRAIN_LOSS_TOL
-              * abs(want), f"families train {cfg.name}: full-depth {key} "
+              * abs(want), f"families train {cfg.name}: whole-model {key} "
               f"{got} under flash, {want} under chunked")
     return out
 
 
 def families_train_phase(torch, mods, device, seed):
     """The families' training path on the card (``make_train_step``, which
-    updates the state in place, under flash attention): HuBERT-XLarge (48
-    layers, the data pipeline's f32 embeddings: the split-TF32 forward and
-    backward at d 80):
-    the full-depth loss and gradient norm under flash against chunked,
+    updates the state in place, under flash attention): HuBERT-XLarge (12
+    of 48 layers, the data pipeline's f32 embeddings: the split-TF32
+    forward and backward at d 80):
+    the whole model's loss and gradient norm under flash against chunked,
     then under ``StepRunner`` 1 warm-up and 3 timed steps whose loss must
     fall with a checkpoint saved and restored, one step on bf16 embeddings
     (the tensor-core kernels at d 80), and the one-step-warm-up control;
-    Phi-3-Vision-4.2B (32 layers, bf16 embeddings, d 96): the
+    Phi-3-Vision-4.2B (8 of 32 layers, bf16 embeddings, d 96): the
     forward and backward of one batch under remat none, dots and full
     (the activations kept full < dots < none, peaks full < none, the same
     loss), then 1 + 3 steps under full remat with a checkpoint, the loss
@@ -3654,7 +3788,9 @@ def families_train_phase(torch, mods, device, seed):
     flags.set_attn_impl("flash")
     try:
         # -- HuBERT-XLarge: f32 embeddings, then bf16 ---------------------
-        cfg = configs.get_config("hubert-xlarge")
+        full = configs.get_config("hubert-xlarge")
+        cfg = mods["dc"].replace(full, n_layers=FAMILY_TRAIN_LAYERS[full.name])
+        reduced = {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}
         holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
                                                    seed + 60, device)
         batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 61,
@@ -3662,7 +3798,7 @@ def families_train_phase(torch, mods, device, seed):
         check(batch["embeds"].dtype == mods["np"].float32
               and cfg.dtype == "bfloat16",
               "families train: the pipeline's HuBERT embeddings are not f32")
-        agree = full_depth_agreement(torch, mods, cfg, holder, batch,
+        agree = whole_model_agreement(torch, mods, cfg, holder, batch,
                                      device)
         want = flash_step_launches(cfg.n_layers, False, cfg.head_dim,
                                    grouped=cfg.n_heads != cfg.n_kv_heads)
@@ -3675,7 +3811,8 @@ def families_train_phase(torch, mods, device, seed):
         _family_row(torch, "families train", cfg, runs[-1], want,
                     params=n_params, state_gb=state_gb, remat="none",
                     embeds="float32", batch=FAMILY_TRAIN_SHAPE[0],
-                    seq=FAMILY_TRAIN_SHAPE[1], full_depth=agree, **res)
+                    seq=FAMILY_TRAIN_SHAPE[1], whole_model=agree,
+                    reduced=reduced, **res)
         bf16_batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 61,
                                    device, torch.bfloat16)
         step_fn = mods["make_train_step"](cfg, opt_cfg, total_steps=10)
@@ -3715,7 +3852,9 @@ def families_train_phase(torch, mods, device, seed):
         del batch, bf16_batch, step_fn
 
         # -- Phi-3-Vision: remat none / dots / full, then training --------
-        cfg = configs.get_config("phi-3-vision-4.2b")
+        full = configs.get_config("phi-3-vision-4.2b")
+        cfg = mods["dc"].replace(full, n_layers=FAMILY_TRAIN_LAYERS[full.name])
+        reduced = {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}
         holder, n_params, state_gb = _family_state(torch, mods, cfg, opt_cfg,
                                                    seed + 62, device)
         batch = _family_batch(torch, mods, cfg, FAMILY_TRAIN_SHAPE, seed + 63,
@@ -3781,7 +3920,7 @@ def families_train_phase(torch, mods, device, seed):
         _family_row(torch, "families train", cfg, runs[-1], want,
                     params=n_params, state_gb=state_gb, remat="full",
                     embeds="bfloat16", batch=FAMILY_TRAIN_SHAPE[0],
-                    seq=FAMILY_TRAIN_SHAPE[1], **res)
+                    seq=FAMILY_TRAIN_SHAPE[1], reduced=reduced, **res)
         holder.clear()
         del batch
 
@@ -4721,6 +4860,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def mesh_config(mods, arch):
+    """``arch``'s config as the mesh phase runs it: Qwen1.5-0.5B cut to
+    MESH_LAYERS, DeepSeek-V3 to its first (dense-MLP) layer without the
+    MTP head, others whole."""
+    cfg = mods["configs"].get_config(arch)
+    if cfg.use_mla:
+        return mods["dc"].replace(cfg, n_layers=1, mtp_depth=0)
+    if arch == MESH_ARCH:
+        return mods["dc"].replace(cfg, n_layers=MESH_LAYERS)
+    return cfg
+
+
 def _mesh_batch(mods, cfg, seed):
     b, t = MESH_TRAIN_SHAPE
     return mods["SyntheticLMDataset"](mods["DataConfig"](
@@ -5187,9 +5338,7 @@ def _mesh_decode(torch, mods, seed, device, mesh, rank) -> list:
     out = []
     with S.use_rules(S.default_rules(mesh), mesh):
         for i, (arch, sparse, steps) in enumerate(MESH_DECODE):
-            cfg = mods["configs"].get_config(arch)
-            if cfg.use_mla:
-                cfg = mods["dc"].replace(cfg, n_layers=1, mtp_depth=0)
+            cfg = mesh_config(mods, arch)
             t_model = time.perf_counter()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -5281,7 +5430,7 @@ def _mesh_rank(rank, world, port, seed, out_dir):
     try:
         mods = load_modules()
         make_mesh = mods["make_mesh"]
-        cfg = mods["configs"].get_config(MESH_ARCH)
+        cfg = mesh_config(mods, MESH_ARCH)
         batch = _mesh_batch(mods, cfg, seed)
         tp_mesh = make_mesh((1, world), ("data", "model"),
                             device_type="cuda")
@@ -5311,7 +5460,8 @@ def _rel(a, b) -> float:
 
 
 def mesh_phase(torch, mods, device, seed):
-    """(a) Qwen1.5-0.5B at full width and depth (B 4 x T 2048, bf16, flash)
+    """(a) Qwen1.5-0.5B at full width, MESH_LAYERS deep (B 4 x T 2048, bf16,
+    flash)
     through the meshed ``make_train_step`` in a world of one over NCCL on a
     (1, 1) mesh, against the meshless step from the same seed; OLMoE's
     one-rank gather forward for (b); then a spawned gloo world of two
@@ -5322,7 +5472,7 @@ def mesh_phase(torch, mods, device, seed):
     import torch.multiprocessing as mp
 
     card = mods["card"]
-    cfg = mods["configs"].get_config(MESH_ARCH)
+    cfg = mesh_config(mods, MESH_ARCH)
     batch = _mesh_batch(mods, cfg, seed)
     want_step = flash_step_launches(cfg.n_layers, True, cfg.head_dim)
     t_phase = time.perf_counter()
@@ -5346,7 +5496,10 @@ def mesh_phase(torch, mods, device, seed):
                   f"mesh (1, 1) {key}: {one[key]} vs meshless "
                   f"{meshless[key]}")
     print(json.dumps({
-        "phase": "mesh one", "arch": cfg.name, "mesh": [1, 1],
+        "phase": "mesh one", "arch": cfg.name, "layers": cfg.n_layers,
+        "reduced": f"{cfg.n_layers} of "
+                   f"{mods['configs'].get_config(MESH_ARCH).n_layers} layers",
+        "mesh": [1, 1],
         "backend": "nccl", "batch": MESH_TRAIN_SHAPE[0],
         "seq": MESH_TRAIN_SHAPE[1], "dtype": cfg.dtype,
         "losses": one["losses"], "grad_norms": one["grad_norms"],
@@ -5650,12 +5803,18 @@ class DryRun:
         self.thread.join()
         return time.perf_counter() - t0
 
-    def stop(self):
+    def kill(self):
+        """Kill the cell running, and start no other; waits for nothing."""
         with self.lock:
             self.stopped = True
             proc = self.proc
         if proc is not None and proc.poll() is None:
             proc.kill()
+        return proc
+
+    def stop(self):
+        proc = self.kill()
+        if proc is not None:
             proc.wait()
         self.thread.join()
 
@@ -6168,6 +6327,7 @@ def main() -> int:
 
     dry = DryRun()   # on the host's cores under the build
     atexit.register(dry.stop)   # its cell killed if the smoke dies first
+    dog = Watchdog(stops=(dry.kill, stop_children))
     t0 = time.perf_counter()
 
     def mark(phase):
@@ -6177,97 +6337,95 @@ def main() -> int:
                           "elapsed_s": time.perf_counter() - t0}),
               flush=True)
 
-    paths = _build.build()
-    build_s = time.perf_counter() - t0
-    print(json.dumps({"phase": "build", "seconds": build_s,
-                      "libraries": {k: os.path.relpath(str(v), ROOT)
-                                    for k, v in paths.items()}}), flush=True)
-    for name, log in _build.BUILD_LOGS.items():
-        entry = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else ""
-            elif "registers" in line or "spill" in line:
-                print(f"[ptxas {name} {entry}] {line.strip()}", flush=True)
+    def phase(name, fn, *args):
+        """``fn(*args)`` under the phase's deadline, then its mark."""
+        with dog.phase(name):
+            out = fn(*args)
+        mark(name)
+        return out
 
-    mods = load_modules()
-    mods["card"] = card
-    np, cnn = mods["np"], mods["cnn"]
-    nets = {}
-    for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
-        net = cnn.NETWORKS[name]()
-        params = cnn.init_cnn(net, 3, np.random.default_rng(args.seed + i),
-                              IMAGE)
-        nets[name] = (lower(net, (3, IMAGE, IMAGE)), params)
-    dry_waited = dry.join()   # no timed phase runs beside the dry run
-    mark("setup")
+    def setup():
+        paths = _build.build()
+        build_s = time.perf_counter() - t0
+        print(json.dumps({"phase": "build", "seconds": build_s,
+                          "libraries": {k: os.path.relpath(str(v), ROOT)
+                                        for k, v in paths.items()}}),
+              flush=True)
+        for name, log in _build.BUILD_LOGS.items():
+            entry = ""
+            for line in log.splitlines():
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1] if "'" in line else ""
+                elif "registers" in line or "spill" in line:
+                    print(f"[ptxas {name} {entry}] {line.strip()}",
+                          flush=True)
+        mods = load_modules()
+        mods["card"] = card
+        nets = {}
+        for i, name in enumerate(("resnet50", "googlenet", "alexnet")):
+            net = mods["cnn"].NETWORKS[name]()
+            params = mods["cnn"].init_cnn(
+                net, 3, mods["np"].random.default_rng(args.seed + i), IMAGE)
+            nets[name] = (lower(net, (3, IMAGE, IMAGE)), params)
+        # no timed phase runs beside the dry run
+        return mods, nets, dry.join()
+
+    mods, nets, dry_waited = phase("setup", setup)
+    dog.counters = lambda: launched(mods)
+    seed = args.seed
 
     try:
-        rows = kernel_phase(torch, mods, nets, device, BATCH, args.seed)
-        mark("kernel")
-        launches = path_phase(torch, mods, nets, device, BATCH,
-                              IMAGE, args.seed)
-        mark("path")
-        auto, roofline = auto_phase(torch, mods, nets, device, BATCH, IMAGE,
-                                    args.seed)
-        mark("auto")
-        pre = preflight_phase(torch, mods, nets, device, BATCH, roofline,
-                              args.seed)
-        mark("preflight")
-        serve_cnn = cnn_serve_phase(torch, mods, nets, device, args.seed)
-        mark("cnn-serve")
-        bf16_rows, bf16 = bf16_phase(torch, mods, nets, device, BATCH,
-                                     args.seed, rows)
-        mark("bf16")
+        rows = phase("kernel", kernel_phase, torch, mods, nets, device,
+                     BATCH, seed)
+        launches = phase("path", path_phase, torch, mods, nets, device,
+                         BATCH, IMAGE, seed)
+        auto, roofline = phase("auto", auto_phase, torch, mods, nets, device,
+                               BATCH, IMAGE, seed)
+        pre = phase("preflight", preflight_phase, torch, mods, nets, device,
+                    BATCH, roofline, seed)
+        serve_cnn = phase("cnn-serve", cnn_serve_phase, torch, mods, nets,
+                          device, seed)
+        bf16_rows, bf16 = phase("bf16", bf16_phase, torch, mods, nets,
+                                device, BATCH, seed, rows)
         rows.update(bf16_rows)
         for name in CNN_NAMES:
             launches[name] = (launches.get(name, 0) + auto[name] + pre[name]
                               + serve_cnn[name] + bf16[name])
         nets.clear()
         torch.cuda.empty_cache()
-        rows.update(llm_kernel_phase(torch, mods, device, args.seed))
-        mark("llm kernel")
-        decode_consist = llm_consistency_phase(torch, mods, device, args.seed)
-        mark("consistency")
-        prefill = llm_prefill_phase(torch, mods, device, args.seed)
-        mark("prefill")
-        serve = llm_serve_phase(torch, mods, device, args.seed)
-        mark("serve")
-        rows.update(llm_bwd_kernel_phase(torch, mods, device, args.seed))
-        mark("bwd kernel")
-        rows.update(flash_f32_kernel_phase(torch, mods, device, args.seed))
-        mark("flash f32")
-        consist = train_consistency_phase(torch, mods, device, args.seed)
-        mark("train consistency")
-        train = train_phase(torch, mods, device, args.seed)
-        mark("train")
-        dims_rows, dims_extra = flash_dims_kernel_phase(torch, mods, device,
-                                                        args.seed)
-        mark("flash dims")
+        rows.update(phase("llm kernel", llm_kernel_phase, torch, mods,
+                          device, seed))
+        decode_consist = phase("consistency", llm_consistency_phase, torch,
+                               mods, device, seed)
+        prefill = phase("prefill", llm_prefill_phase, torch, mods, device,
+                        seed)
+        serve = phase("serve", llm_serve_phase, torch, mods, device, seed)
+        rows.update(phase("bwd kernel", llm_bwd_kernel_phase, torch, mods,
+                          device, seed))
+        rows.update(phase("flash f32", flash_f32_kernel_phase, torch, mods,
+                          device, seed))
+        consist = phase("train consistency", train_consistency_phase, torch,
+                        mods, device, seed)
+        train = phase("train", train_phase, torch, mods, device, seed)
+        dims_rows, dims_extra = phase("flash dims", flash_dims_kernel_phase,
+                                      torch, mods, device, seed)
         rows.update(dims_rows)
-        blocks, blocks_rows, blocks_extra = blocks_phase(torch, mods, device,
-                                                         args.seed)
-        mark("blocks")
+        blocks, blocks_rows, blocks_extra = phase(
+            "blocks", blocks_phase, torch, mods, device, seed)
         rows.update(blocks_rows)
-        any_dim, any_dim_rows, any_dim_extra = any_dim_phase(
-            torch, mods, device, args.seed)
-        mark("any dim")
+        any_dim, any_dim_rows, any_dim_extra = phase(
+            "any dim", any_dim_phase, torch, mods, device, seed)
         rows.update(any_dim_rows)
-        wide, wide_rows, wide_extra = wide_phase(torch, mods, device,
-                                                 args.seed)
-        mark("wide heads")
+        wide, wide_rows, wide_extra = phase("wide heads", wide_phase, torch,
+                                            mods, device, seed)
         rows.update(wide_rows)
-        moe, moe_rows = moe_phase(torch, mods, device, args.seed)
-        mark("moe")
-        families, family_rows = families_phase(torch, mods, device,
-                                               args.seed)
-        mark("families")
-        families_train = families_train_phase(torch, mods, device, args.seed)
-        mark("families train")
-        mesh = mesh_phase(torch, mods, device, args.seed)
-        mark("mesh")
-        dryrun_phase(dry, dry_waited)
-        mark("dryrun")
+        moe, moe_rows = phase("moe", moe_phase, torch, mods, device, seed)
+        families, family_rows = phase("families", families_phase, torch,
+                                      mods, device, seed)
+        families_train = phase("families train", families_train_phase,
+                               torch, mods, device, seed)
+        mesh = phase("mesh", mesh_phase, torch, mods, device, seed)
+        phase("dryrun", dryrun_phase, dry, dry_waited)
         extras = (moe_rows, family_rows, dims_extra, blocks_extra,
                   any_dim_extra, wide_extra)
         arch_rows = {name: [r for ex in extras for r in ex.get(name, [])]

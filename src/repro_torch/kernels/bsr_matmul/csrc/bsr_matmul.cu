@@ -593,14 +593,19 @@ __global__ void __launch_bounds__(RTHREADS, RMIN_BLOCKS) bsr_matmul_rows(
         }
       }
       // a warp with no piece in the unit's last stage (a part of a stage)
-      // releases it too: the producer refills the slot for the next unit
+      // releases it too: the producer refills the slot for the next unit.
+      // It waits for the stage to land first, as a warp with a piece there
+      // does: only then has the slot's previous phase (the stage RSTAGES
+      // back) completed, so that this arrival counts toward this stage's.
+      // Arriving earlier would let a warp RSTAGES stages ahead of another
+      // complete that phase without the slower warp's arrival: the producer
+      // would refill the slot under it, and the slower warp, finding the
+      // full barrier two phases on, would wait on it for ever.
       if (total > 0 && warp >= total - (total - 1) / stage_pieces *
                                            stage_pieces) {
-        __syncwarp();
-        if (lane == 0)
-          mbar_arrive(bars + 8 * (RSTAGES +
-                                  (gbase + (total - 1) / stage_pieces) %
-                                      RSTAGES));
+        const int gs = gbase + (total - 1) / stage_pieces;
+        mbar_wait_warp(bars + 8 * (gs % RSTAGES), (gs / RSTAGES) & 1);
+        if (lane == 0) mbar_arrive(bars + 8 * (RSTAGES + gs % RSTAGES));
         __syncwarp();
       }
       gbase += (nt + stage_tiles - 1) / stage_tiles;

@@ -1565,3 +1565,26 @@ def test_bsr_conv_kernel_bf16_matches_plain(cuda_device, case, value_dtype):
         torch.testing.assert_close(want.float(), f32, rtol=3e-2, atol=3e-2)
         with pytest.raises(ValueError, match="bf16 activations"):
             bsr_conv_kernel(args[0], bc.blocks.float(), *args[2:], **kw)
+
+
+@pytest.mark.parametrize("source", ["as_built", "as_built_skew",
+                                    "as_built_skew_late"])
+def test_bsr_matmul_rows_ring_under_a_lagging_warp(cuda_device, source):
+    """The ``rows`` schedule's mbarrier ring launched again and again at
+    every shape the smoke's paths give it (``ablate.stress_shapes``), as
+    built and with warp 0 of every block paused (~200 us) before or after
+    it waits for the stage RSTAGES before its unit's last, the interleaving
+    under which a release that does not wait for its stage hangs:
+    every launch ends within its deadline and equals the first bit for
+    bit, the first within 1e-4 x max(1, max |y|) of the plain version.
+    One process a source (a hung kernel would end that process)."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.kernels.bsr_matmul.ablate",
+         "--stress-child", source, "--launches", "200", "20",
+         "--prefills", "0"],
+        capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert '"stall"' not in proc.stdout
