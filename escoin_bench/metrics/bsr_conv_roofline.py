@@ -1,0 +1,9 @@
+"""The BCSR conv kernel's share of its roofline: the bound of the layers
+the engine ran on it (``yardstick``) over the device time of the kernels
+named ``bsr_conv``, in the profiled slice."""
+from escoin_bench import profiling
+from escoin_bench.metric_math import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "bsr", profiling.named(run.trace, "bsr_conv"))
